@@ -1,0 +1,43 @@
+"""deepspeed_tpu_torch — the PyTorch/CUDA port of ``deepspeed_tpu``.
+
+A second package beside the JAX one, for one NVIDIA H100. It keeps the JAX
+package's module layout and names; inside it is PyTorch, and every Pallas
+kernel on its path is a CUDA kernel written for Hopper
+(``ops/csrc/``). It imports neither JAX nor ``deepspeed_tpu``.
+
+This slice is one-shot inference: :func:`init_inference` →
+``InferenceEngine.generate``. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+"""
+from deepspeed_tpu_torch.utils.logging import logger  # noqa: F401
+
+__version__ = "0.1.0"
+
+
+def init_inference(model=None, config=None, **kwargs):
+    """Build an :class:`~deepspeed_tpu_torch.inference.InferenceEngine`
+    (counterpart of ``deepspeed_tpu.init_inference``).
+
+    ``model`` is an ``(InferenceTransformerConfig, params)`` pair or a bare
+    ``InferenceTransformerConfig`` (random weights). ``config`` is a
+    ``DeepSpeedInferenceConfig`` or its dict, merged with the keyword
+    arguments; ``device`` (default ``"cuda"``) is taken from those."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    device = kwargs.pop("device", None)
+    if config is None:
+        config = {}
+    if isinstance(config, dict):
+        config = DeepSpeedInferenceConfig(**{**config, **kwargs})
+    if config.checkpoint is not None or isinstance(model, str):
+        raise NotImplementedError(
+            "loading an HF checkpoint (module_inject/state_dict_loader.py) "
+            "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C); "
+            "pass (InferenceTransformerConfig, params)")
+    return InferenceEngine(model, config, device=device)
+
+
+def default_inference_config():
+    """Default inference configuration dict."""
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    return DeepSpeedInferenceConfig().model_dump()

@@ -1,0 +1,457 @@
+"""Inference configuration.
+
+Counterpart of ``deepspeed_tpu/inference/config.py``, copied so that the
+same JSON and the same aliases are accepted by both packages. Knobs that
+belong to parts of the JAX package this port does not have yet (the paged
+server, replication, speculation, quantization, meshes) are parsed and
+validated the same way; the engine refuses the ones it cannot honour
+(see ROADMAP.md queue C). ``jnp_dtype`` becomes :attr:`torch_dtype`.
+"""
+from __future__ import annotations
+
+from typing import Any, List, Literal, Optional, Union
+
+from pydantic import Field, field_validator
+
+from deepspeed_tpu_torch.config.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
+
+
+class DeepSpeedTPConfig(DeepSpeedConfigModel):
+    """Tensor-parallel config (reference inference/config.py DeepSpeedTPConfig)."""
+    enabled: bool = True
+    tp_size: int = 1
+    # reference carries mpu/tp_group objects; here the mesh is the group
+    mesh_axis: str = "tensor"
+
+
+class DeepSpeedMoEConfig(DeepSpeedConfigModel):
+    enabled: bool = True
+    ep_size: int = 1
+    moe_experts: list = Field(default_factory=lambda: [1])
+    mesh_axis: str = "expert"
+
+
+class BaseQuantConfig(DeepSpeedConfigModel):
+    enabled: bool = True
+    num_bits: int = 8
+    group_size: int = 64
+    group_dim: int = 0
+    symmetric: bool = True
+
+
+class WeightQuantConfig(BaseQuantConfig):
+    enabled: bool = True
+    quantized_initialization: dict = Field(default_factory=dict)
+    post_init_quant: dict = Field(default_factory=dict)
+
+
+class ActivationQuantConfig(BaseQuantConfig):
+    enabled: bool = False
+
+
+class QKVQuantConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+
+
+class QuantizationConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    activation: ActivationQuantConfig = Field(
+        default_factory=ActivationQuantConfig)
+    weight: WeightQuantConfig = Field(default_factory=WeightQuantConfig)
+    qkv: QKVQuantConfig = Field(default_factory=QKVQuantConfig)
+
+
+class ReplicationConfig(DeepSpeedConfigModel):
+    """Replicated serving (docs/serving.md "Replicated serving &
+    failover"): a :class:`~deepspeed_tpu.inference.frontend.
+    ServingFrontend` supervises ``replicas`` in-process
+    ``ContinuousBatchingServer`` replicas — each with its own paged
+    pool, scheduler, and traced programs over the shared weights —
+    behind one ``submit()/step()/drain()`` surface, with health-checked
+    least-loaded routing, mid-flight failover (committed tokens fold
+    into the replayed prompt, the recompute idiom — greedy output
+    stays token-identical through a replica death), and rolling drain.
+    ``replicas: 1`` (the default) is byte-identical to a bare server."""
+    # replica pool size; 1 = a bare server behind the frontend surface
+    replicas: int = 1
+    # heartbeat age (seconds, on the frontend clock) past which a
+    # replica that missed step beats is DEGRADED: the breaker opens and
+    # no new work routes to it (residents keep decoding)
+    heartbeat_degraded_s: float = 2.0
+    # heartbeat age past which the replica is declared DEAD: its queued
+    # and in-flight requests fail over to survivors and it is never
+    # stepped again (item-3 process supervision restarts processes;
+    # in-process death is permanent)
+    heartbeat_dead_s: float = 10.0
+    # observed per-step wall (injected slow-step latency included) past
+    # which a replica is DEGRADED even while its heartbeat is fresh;
+    # null = no slow-step breaker
+    degraded_step_s: Optional[float] = None
+    # bounded failover retries per request: past this many failovers the
+    # request finishes 'failed' instead of bouncing between dying
+    # replicas forever
+    max_failovers: int = 3
+    # frontend ticks a failed-over request waits before resubmission
+    # (exponential: backoff * 2^(failovers-1), floored at one tick)
+    failover_backoff_steps: int = 1
+    # step every replica on its own dedicated worker thread (barrier at
+    # the end of each frontend step): replicas' device programs overlap
+    # within a step. Off = replicas step inline on the caller's thread,
+    # in index order — deterministic and contention-free on small hosts.
+    threaded_step: bool = False
+    # disaggregated prefill/decode serving (docs/serving.md
+    # "Disaggregated prefill/decode"): one role per replica. None (the
+    # default) = every replica "mixed" — byte-identical to a pool
+    # without this knob. With roles, a new request routes to a
+    # "prefill" replica which runs chunked prefill ONLY (budget one
+    # token); its block-aligned KV publishes into a shared handoff
+    # tier keyed by the prefix chain hash, and the request resubmits
+    # to a "decode" replica whose admission warms the prefix through
+    # match_prefix -> paged_swap_in (the sub-block tail recomputes as
+    # one short chunk). "mixed" replicas serve either phase colocated.
+    # Requires enable_prefix_caching (the handoff identity IS the
+    # chain hash) and replicas == len(roles).
+    roles: Optional[List[Literal["prefill", "decode", "mixed"]]] = None
+    # handoff-tier capacity in blocks (None = unbounded): past it the
+    # OLDEST published request's blocks expire whole (its decode-side
+    # admission falls back to recomputing the prefix — exact either
+    # way). Only meaningful with roles.
+    handoff_blocks: Optional[int] = None
+
+    @field_validator("replicas")
+    @classmethod
+    def _valid_replicas(cls, v):
+        if v < 1:
+            raise ValueError(f"replicas must be >= 1, got {v}")
+        return v
+
+    @field_validator("heartbeat_degraded_s", "heartbeat_dead_s",
+                     "degraded_step_s")
+    @classmethod
+    def _positive_seconds(cls, v, info):
+        if v is not None and v <= 0:
+            raise ValueError(
+                f"{info.field_name} must be > 0 seconds, got {v}")
+        return v
+
+    @field_validator("max_failovers", "failover_backoff_steps")
+    @classmethod
+    def _non_negative(cls, v, info):
+        if v < 0:
+            raise ValueError(
+                f"{info.field_name} must be >= 0 (max_failovers=0 "
+                f"fails a request at its first replica death), got {v}")
+        return v
+
+    def model_post_init(self, _ctx) -> None:
+        if self.heartbeat_dead_s <= self.heartbeat_degraded_s:
+            raise ValueError(
+                f"heartbeat_dead_s ({self.heartbeat_dead_s}) must exceed "
+                f"heartbeat_degraded_s ({self.heartbeat_degraded_s}) — "
+                "a replica must pass through the breaker before the "
+                "failover deadline")
+        if self.roles is not None:
+            if len(self.roles) != self.replicas:
+                raise ValueError(
+                    f"replication.roles names {len(self.roles)} "
+                    f"replica(s) but replicas={self.replicas} — one "
+                    "role per replica")
+            if any(r != "mixed" for r in self.roles):
+                # a role-split pool must be able to run BOTH phases:
+                # prefill-only replicas with nothing to decode on (or
+                # the reverse) would strand every request
+                if not any(r in ("prefill", "mixed") for r in self.roles):
+                    raise ValueError(
+                        "replication.roles has no prefill-capable "
+                        "replica ('prefill' or 'mixed') — nothing "
+                        "could ever admit a new prompt")
+                if not any(r in ("decode", "mixed") for r in self.roles):
+                    raise ValueError(
+                        "replication.roles has no decode-capable "
+                        "replica ('decode' or 'mixed') — prefilled "
+                        "requests could never generate")
+        if self.handoff_blocks is not None:
+            if self.roles is None or all(r == "mixed" for r in self.roles):
+                raise ValueError(
+                    "replication.handoff_blocks bounds the prefill->"
+                    "decode handoff tier — it needs replication.roles "
+                    "with at least one non-mixed role")
+            if self.handoff_blocks < 1:
+                raise ValueError(
+                    f"replication.handoff_blocks must be >= 1 (or None "
+                    f"for unbounded), got {self.handoff_blocks}")
+
+    @property
+    def disaggregated(self) -> bool:
+        """True when the pool splits prefill/decode roles (any
+        non-mixed role configured)."""
+        return (self.roles is not None
+                and any(r != "mixed" for r in self.roles))
+
+
+class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
+    """Top-level inference config (reference: DeepSpeedInferenceConfig)."""
+    replace_with_kernel_inject: bool = Field(default=False,
+                                             alias="kernel_inject")
+    dtype: str = "bfloat16"
+    tensor_parallel: DeepSpeedTPConfig = Field(
+        default_factory=DeepSpeedTPConfig, alias="tp")
+    moe: DeepSpeedMoEConfig = Field(default_factory=DeepSpeedMoEConfig)
+    quant: QuantizationConfig = Field(default_factory=QuantizationConfig)
+    # generation workspace: max tokens the KV cache is sized for
+    # (reference sizes its Context workspace from free HBM,
+    # inference_context.h:124-161; here explicit, or
+    # "auto" to size from the accelerator's free memory at generate time
+    # (kv_cache.auto_max_tokens) — the reference's behavior)
+    max_out_tokens: Union[int, Literal["auto"]] = Field(
+        default=1024, alias="max_tokens")
+    min_out_tokens: int = 1
+    max_batch_size: int = 8
+    # -------- continuous batching (ContinuousBatchingServer) knobs -----
+    # paged KV pool granularity: tokens per block. Smaller blocks waste
+    # less memory on short tails but grow the block tables and the
+    # per-step gather fan-in; must divide the 128-token prompt buckets.
+    block_size: int = 128
+    # resident sequences decoded per step (the static decode batch). The
+    # decode step is traced once per (num_slots, block_size) — raising
+    # this trades per-request latency for throughput.
+    num_slots: int = 8
+    # admission control: submit() refuses beyond this many queued-but-
+    # unscheduled requests instead of growing host memory unboundedly
+    max_queued_requests: int = 128
+    # automatic prefix caching (vLLM-style): full block-aligned prompt
+    # prefixes are hash-indexed in the paged pool and reused across
+    # requests — a shared system/few-shot prompt prefills once. Implies
+    # chunked prefill (the tail prefill must start at the cached
+    # boundary); greedy outputs are token-identical either way.
+    enable_prefix_caching: bool = False
+    # Sarathi-style chunked prefill: prompts prefill in fixed chunks of
+    # this many tokens (one traced signature), interleaving ONE chunk
+    # with each decode step instead of stalling all resident slots for
+    # a long prompt. 0 = monolithic bucketed prefill (unless
+    # enable_prefix_caching, which defaults this to block_size). Must
+    # be a multiple of block_size.
+    prefill_chunk_tokens: int = 0
+    # per-slot speculative decoding (docs/serving.md "Per-slot
+    # speculative decoding"): each active slot proposes up to
+    # speculation_tokens-1 tokens per scheduler tick by prompt lookup
+    # over its own committed history (draft-model-free — composes with
+    # any served model, no second set of weights); ONE batched verify
+    # forward scores every slot's candidate chunk through the block
+    # tables and the accepted prefix commits (1..speculation_tokens
+    # tokens per slot per step). Greedy output is unchanged; only
+    # tokens/step changes. 0 = off (one token per slot per step);
+    # otherwise >= 2 and <= block_size (rejected-position garbage from
+    # a mid-prefill slot must stay inside the next chunk's first
+    # block). Each request reserves speculation_tokens-1 extra cache
+    # positions for the verify overshoot.
+    speculation_tokens: int = 0
+    # -------- request lifecycle (docs/serving.md "Request lifecycle &
+    # overload behavior") --------------------------------------------
+    # recompute preemption: how often one request may be preempted and
+    # requeued before the server fails it (always-keep error trace)
+    max_preemptions: int = 3
+    # requeue backoff, in decode steps: after its k-th preemption a
+    # request is not re-admittable for backoff * 2^(k-1) steps — it
+    # cannot thrash with the request that preempted it
+    preemption_backoff_steps: int = 4
+    # SLO-driven load shedding: when the telemetry.slo queue_wait_p90
+    # objective is in violation, each step() fast-fails the lowest-
+    # priority newest queued request (finish reason "shed") while the
+    # queue is deeper than num_slots — bounding queue wait before
+    # latency collapses. Requires telemetry.slo.enabled with
+    # queue_wait_p90_s set.
+    enable_load_shedding: bool = False
+    # -------- KV tiering (docs/serving.md "KV quantization & host
+    # tiering") ---------------------------------------------------------
+    # paged-pool storage dtype: "fp" stores the engine's activation
+    # dtype; "int8" stores symmetric per-(position, head) int8 with
+    # amax/127 scale tiles carried beside the pool (ops/quant_core.py)
+    # — roughly half the KV HBM at bf16 serving (scales cost 4/head_dim
+    # per element), dequantized inside the paged attention kernels.
+    # Greedy smoke parity is pinned;
+    # the scales are data in the donated cache pytree, so the knob
+    # never changes a traced signature.
+    kv_cache_dtype: Literal["fp", "int8"] = "fp"
+    # host offload of cold paged blocks: prefix-LRU eviction becomes
+    # DEMOTION (payload moves to host RAM under its chain hash) and a
+    # later prefix hit swaps the block back into a freshly allocated
+    # device block — the pool serves past HBM. Requires
+    # enable_prefix_caching (only hashed prefix blocks have an identity
+    # to swap back in under). Demotion runs inside admission's
+    # allocation, i.e. before the preemption ladder ever fires.
+    kv_host_offload: bool = False
+    # host-tier capacity in blocks (None = unbounded): past it the
+    # OLDEST host payload drops for good, exactly like a plain eviction
+    kv_host_blocks: Optional[int] = None
+    # pipelined dispatch with lag-1 host commit (docs/serving.md "Async
+    # dispatch loop"): in steady-state decode the server dispatches
+    # step N+1 from step N's device-resident outputs BEFORE fetching
+    # step N's tokens, and runs host commit (EOS/length checks,
+    # retirement, metric publishing) one step behind on the fetched
+    # lag-1 results — the device pipelines instead of idling on host
+    # work between steps. Any host-driven state change (admission,
+    # chunk scheduling, preemption, shed, cancel, deadline reap)
+    # forces a bounded pipeline flush, so the scheduler always acts on
+    # committed state; greedy output stays token-identical to the sync
+    # loop (and to one-shot generate()). False = the synchronous
+    # loop, byte-identical to servers before this knob existed.
+    async_loop: bool = True
+    # async dispatch-chain depth: up to this many decode steps chain
+    # device-side (each dispatched from the previous step's device-
+    # resident tokens) before one host commit drains the OLDEST fetch.
+    # 1 = the lag-1 loop above, byte-identical. Deeper chains absorb
+    # more host-side commit latency per device step; every flush rule
+    # is unchanged — any host-driven state change drains the whole
+    # chain, finishes surface <= N steps late, and a slot that finished
+    # mid-chain runs <= N-1 garbage rows that commit discards by
+    # SlotState identity. Greedy output is token-identical at any depth.
+    max_commit_lag: int = 1
+    # chain the NON-FINAL chunks of one prompt's chunked prefill as a
+    # single device-side dispatch chain instead of one chunk (and one
+    # bounded pipeline flush) per step() — only the final chunk, which
+    # produces the first token, fetches. Cuts the long-prompt admission
+    # dispatch-gap tax; token-identical output. Requires a chunked
+    # prefill mode (prefill_chunk_tokens or enable_prefix_caching).
+    prefill_chain: bool = False
+    # draft-model speculation on the paged path: a small
+    # InferenceEngine (same tokenizer/vocab, its own weights) whose
+    # batched forwards propose the speculation_tokens-1 candidates per
+    # slot instead of prompt lookup. Feeds the SAME batched paged
+    # verify executable and commit helpers; greedy output stays token-
+    # identical to plain decode. Requires speculation_tokens >= 2.
+    # Typically passed as the ContinuousBatchingServer draft_engine
+    # constructor argument; accepted here for config-driven wiring.
+    speculation_draft: Optional[Any] = Field(default=None, exclude=True)
+    # replicated serving (docs/serving.md "Replicated serving &
+    # failover"): pool sizing + health/failover knobs consumed by
+    # inference/frontend.py ServingFrontend
+    replication: ReplicationConfig = Field(
+        default_factory=ReplicationConfig)
+    # metrics registry + optional scrape endpoint (docs/observability.md);
+    # the shared section schema lives in telemetry/config.py
+    telemetry: TelemetryConfig = Field(default_factory=TelemetryConfig)
+
+    @field_validator("max_preemptions", "preemption_backoff_steps")
+    @classmethod
+    def _non_negative(cls, v, info):
+        if v < 0:
+            raise ValueError(
+                f"{info.field_name} must be >= 0 (max_preemptions=0 "
+                f"disables preemption entirely), got {v}")
+        return v
+
+    @field_validator("max_batch_size", "num_slots", "max_queued_requests")
+    @classmethod
+    def _positive(cls, v, info):
+        # construction-time validation: a non-positive bound would
+        # otherwise reject every batch at call time (or never be checked
+        # at all when the knob is left unset — see _check_schedulable)
+        if v <= 0:
+            raise ValueError(
+                f"{info.field_name} must be a positive integer, got {v}")
+        return v
+
+    @field_validator("block_size")
+    @classmethod
+    def _valid_block(cls, v):
+        if v < 16 or v > 1024 or (v & (v - 1)):
+            raise ValueError(
+                f"block_size must be a power of two in [16, 1024] (it "
+                f"must divide the 128-token prompt buckets), got {v}")
+        return v
+    # long-context serving: shard the KV cache sequence dim over a `seq`
+    # mesh axis of this extent (flash-decoding-style distributed softmax)
+    seq_parallel_size: int = Field(default=1, alias="sp_size", ge=1)
+    # accepted for API parity; the engine does not capture CUDA graphs yet
+    enable_cuda_graph: bool = False
+    checkpoint: Optional[Any] = None
+    base_dir: str = ""
+    set_empty_params: bool = False
+    save_mp_checkpoint_path: Optional[str] = None
+    injection_policy: Optional[dict] = Field(default=None,
+                                             alias="injection_dict")
+    return_tuple: bool = True
+    triangular_masking: bool = Field(default=True, alias="tm")
+    mp_size: int = 1  # legacy alias for tensor_parallel.tp_size
+
+    def model_post_init(self, _ctx) -> None:
+        if self.mp_size != 1 and self.tensor_parallel.tp_size == 1:
+            self.tensor_parallel.tp_size = self.mp_size
+        if self.prefill_chunk_tokens < 0:
+            raise ValueError(
+                f"prefill_chunk_tokens must be >= 0 (0 = monolithic "
+                f"prefill), got {self.prefill_chunk_tokens}")
+        if (self.prefill_chunk_tokens
+                and self.prefill_chunk_tokens % self.block_size):
+            # chunks scatter whole blocks through the table; a ragged
+            # chunk would straddle a block boundary mid-write
+            raise ValueError(
+                f"prefill_chunk_tokens ({self.prefill_chunk_tokens}) "
+                f"must be a multiple of block_size ({self.block_size})")
+        if self.speculation_tokens:
+            if self.speculation_tokens < 2:
+                raise ValueError(
+                    f"speculation_tokens must be 0 (off) or >= 2 (one "
+                    f"proposal minimum — a 1-token chunk IS plain "
+                    f"decode), got {self.speculation_tokens}")
+            if self.speculation_tokens > self.block_size:
+                # a mid-prefill slot's rejected-position garbage must
+                # land inside the next chunk's first (private, about-to-
+                # be-overwritten) block — K beyond a block would spill
+                # past what the coming chunk rewrites
+                raise ValueError(
+                    f"speculation_tokens ({self.speculation_tokens}) "
+                    f"must not exceed block_size ({self.block_size})")
+        if self.max_commit_lag < 1:
+            raise ValueError(
+                f"max_commit_lag must be >= 1 (1 = the lag-1 async "
+                f"loop; the chain always holds at least the step being "
+                f"committed), got {self.max_commit_lag}")
+        if self.prefill_chain and not (self.prefill_chunk_tokens
+                                       or self.enable_prefix_caching):
+            raise ValueError(
+                "prefill_chain chains chunked-prefill dispatches — it "
+                "requires a chunked prefill mode (prefill_chunk_tokens "
+                "> 0 or enable_prefix_caching)")
+        if self.speculation_draft is not None and self.speculation_tokens < 2:
+            raise ValueError(
+                "speculation_draft proposes speculation_tokens-1 "
+                "candidates per slot — it requires speculation_tokens "
+                ">= 2")
+        if self.replication.disaggregated and not self.enable_prefix_caching:
+            raise ValueError(
+                "replication.roles (disaggregated prefill/decode) "
+                "hands KV off by prefix chain hash — it requires "
+                "enable_prefix_caching (docs/serving.md 'Disaggregated "
+                "prefill/decode')")
+        if self.kv_host_offload and not self.enable_prefix_caching:
+            raise ValueError(
+                "kv_host_offload demotes PREFIX blocks — it requires "
+                "enable_prefix_caching (a hashless block has no "
+                "identity to swap back in under)")
+        if self.kv_host_blocks is not None:
+            if not self.kv_host_offload:
+                raise ValueError(
+                    "kv_host_blocks bounds the host tier — it needs "
+                    "kv_host_offload enabled")
+            if self.kv_host_blocks < 1:
+                raise ValueError(
+                    f"kv_host_blocks must be >= 1 (or None for "
+                    f"unbounded), got {self.kv_host_blocks}")
+
+    @property
+    def tp_size(self) -> int:
+        return self.tensor_parallel.tp_size
+
+    @property
+    def torch_dtype(self):
+        import torch
+        return {
+            "float32": torch.float32, "fp32": torch.float32,
+            "float16": torch.float16, "fp16": torch.float16,
+            "half": torch.float16,
+            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+            "int8": torch.int8,
+        }[str(self.dtype).replace("torch.", "")]

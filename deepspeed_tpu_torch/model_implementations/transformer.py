@@ -1,0 +1,465 @@
+"""One fused inference transformer, many architectures — in PyTorch.
+
+Counterpart of ``deepspeed_tpu/model_implementations/transformer.py``:
+the same configuration, the same parameter tree and the same functions
+(``prefill``, ``decode_step``, ``causal_forward``), written as plain
+functions on tensors over a parameter dict. Prefill attention runs the
+flash kernel (``ops/flash_attention.py``) and each decode step the dense
+decode kernel (``ops/decode_attention.py``) — on a CUDA tensor the CUDA
+kernels, on a CPU tensor their plain versions. ALiBi, sliding windows and
+padded-key masks have no kernel in either package and take the plain
+einsum path here, as they take the XLA path there. The large products
+around attention (projections, MLP, LM head) are ``torch`` matmuls, as
+the JAX package leaves them to XLA.
+
+Parameter schema (nested dict of tensors)::
+
+    wte [V, E]   wpe [P, E]?   ln_f {scale, bias}   lm_head [E, V]?
+    layers: list of
+      ln1 {scale, bias}   ln2 {scale, bias}?
+      attn {wq, wk, wv [E, H, D], bq, bk, bv [H, D], wo [H, D, E], bo [E]}
+      mlp  {wi [E, F], bi [F], wo [F, E], bo [E]}
+
+Not in this slice (ROADMAP.md queue C): MoE layers, int8 weight leaves,
+tensor/expert/sequence-parallel meshes, speculative ``decode_chunk``, the
+paged-pool functions and the encoder path.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from deepspeed_tpu_torch.inference.kv_cache import (KVCache, advance,
+                                                    append_token,
+                                                    write_prompt)
+from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+from deepspeed_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_reference)
+
+NEG_INF = -1e30
+_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
+
+
+@dataclasses.dataclass(frozen=True)
+class InferenceTransformerConfig:
+    vocab_size: int
+    n_positions: int
+    n_embd: int
+    n_layer: int
+    n_head: int
+    n_kv_head: Optional[int] = None          # != n_head → GQA/MQA
+    intermediate_size: Optional[int] = None  # default 4*E
+    pre_layer_norm: bool = True              # False → BERT-style post-LN
+    positional: str = "learned"              # learned | rotary | alibi | none
+    rotary_dim: int = 0                      # 0 → full head dim when rotary
+    rotary_interleaved: bool = False         # True → GPT-J style pairs
+    rotary_base: float = 10000.0
+    parallel_attn_mlp: bool = False          # GPT-J / GPT-NeoX parallel block
+    activation: str = "gelu_new"             # gelu | gelu_new | relu | silu
+    norm_type: str = "layernorm"             # layernorm | rmsnorm (LLaMA)
+    gated_mlp: bool = False                  # SwiGLU: wg gate projection
+    seq_shard_kv: bool = False
+    layer_norm_eps: float = 1e-5
+    tied_lm_head: bool = True
+    attn_scale: Optional[float] = None       # default 1/sqrt(head_dim)
+    alibi_scale: float = 1.0
+    # per-layer sliding-window size (None = global), length n_layer
+    local_windows: Optional[tuple] = None
+    int8_compute: bool = False
+    num_experts: int = 0
+    moe_layers: Optional[tuple] = None
+    moe_top_k: int = 1
+    moe_renormalize: bool = True
+    moe_activation: Optional[str] = None
+    # "lm" → project to vocab logits; "none" → return final hidden states
+    head: str = "lm"
+    explicit_head_dim: Optional[int] = None
+    embed_scale: float = 1.0
+    dtype: Any = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.explicit_head_dim or self.n_embd // self.n_head
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_head or self.n_head
+
+    @property
+    def ffn(self) -> int:
+        return self.intermediate_size or 4 * self.n_embd
+
+    def is_moe_layer(self, idx: int) -> bool:
+        if self.num_experts <= 0:
+            return False
+        return self.moe_layers is None or idx in self.moe_layers
+
+    @property
+    def scale(self) -> float:
+        return self.attn_scale if self.attn_scale is not None else (
+            1.0 / math.sqrt(self.head_dim))
+
+
+# ---------------------------------------------------------------- params
+
+def init_params(generator: torch.Generator, cfg: InferenceTransformerConfig,
+                device=None) -> Dict:
+    """Random init from ``generator`` (on ``device``, default the
+    generator's): weights ``N(0, 1) / sqrt(fan_in)`` in ``cfg.dtype``, zero
+    biases, unit norm scales — the JAX package's scheme, not its numbers."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(f"MoE layers {_LATER}")
+    E, H, D, F_, KH = cfg.n_embd, cfg.n_head, cfg.head_dim, cfg.ffn, \
+        cfg.kv_heads
+    dev = torch.device(device) if device is not None else generator.device
+    dt = cfg.dtype
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (w / math.sqrt(fan_in)).to(dt)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def norm():
+        p = {"scale": torch.ones((E,), dtype=dt, device=dev)}
+        if cfg.norm_type != "rmsnorm":
+            p["bias"] = zeros(E)
+        return p
+
+    params: Dict[str, Any] = {"wte": dense((cfg.vocab_size, E), E),
+                              "ln_f": norm(), "layers": []}
+    if cfg.positional == "learned":
+        params["wpe"] = dense((cfg.n_positions, E), E)
+    if not cfg.tied_lm_head:
+        params["lm_head"] = dense((E, cfg.vocab_size), E)
+    for _ in range(cfg.n_layer):
+        layer = {
+            "ln1": norm(),
+            "attn": {"wq": dense((E, H, D), E), "wk": dense((E, KH, D), E),
+                     "wv": dense((E, KH, D), E), "bq": zeros(H, D),
+                     "bk": zeros(KH, D), "bv": zeros(KH, D),
+                     "wo": dense((H, D, E), E), "bo": zeros(E)},
+            "mlp": {"wi": dense((E, F_), E), "bi": zeros(F_),
+                    "wo": dense((F_, E), F_), "bo": zeros(E)},
+        }
+        if cfg.gated_mlp:
+            layer["mlp"]["wg"] = dense((E, F_), E)
+        if not (cfg.parallel_attn_mlp and cfg.pre_layer_norm
+                and cfg.positional == "rotary" and cfg.rotary_interleaved):
+            layer["ln2"] = norm()
+        params["layers"].append(layer)
+    return params
+
+
+# ---------------------------------------------------------------- math
+
+def _w(w, dtype):
+    """A weight leaf in ``dtype``; int8 ``{"q", "scale"}`` leaves are a
+    later slice."""
+    if isinstance(w, dict):
+        raise NotImplementedError(f"int8 weight leaves {_LATER}")
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+def _layer_norm(x, p, eps):
+    """LayerNorm, or RMSNorm when the param dict carries no bias; f32
+    statistics."""
+    xf = x.float()
+    if "bias" not in p:
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * p["scale"].float()).to(x.dtype)
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+def _act(x, kind):
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "gelu":
+        return F.gelu(x)
+    if kind == "quick_gelu":                 # CLIP: x * sigmoid(1.702 x)
+        return x * torch.sigmoid(1.702 * x)
+    if kind in ("silu", "swish"):
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")     # gelu_new / gelu_fast
+
+
+def _rotary_angles(positions, dim, base):
+    """positions [...]; returns cos/sin [..., dim//2] in fp32."""
+    inv = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                       device=positions.device) / dim))
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rotary(x, positions, rotary_dim, base, interleaved):
+    """x [..., D] with leading position dims matching ``positions``;
+    ``interleaved=True`` is the GPT-J pairing, False the NeoX half split."""
+    D = x.shape[-1]
+    rd = rotary_dim or D
+    cos, sin = _rotary_angles(positions, rd, base)
+    cos, sin = cos.unsqueeze(-2), sin.unsqueeze(-2)   # broadcast over heads
+    rot, rest = x[..., :rd].float(), x[..., rd:]
+    if interleaved:
+        x1, x2 = rot[..., 0::2], rot[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(rot.shape)
+    else:
+        half = rd // 2
+        x1, x2 = rot[..., :half], rot[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return torch.cat([out.to(x.dtype), rest], -1)
+
+
+def alibi_slopes(n_head: int, device=None) -> torch.Tensor:
+    """BLOOM ALiBi head slopes (fp32 [H])."""
+    def pow2slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+    if math.log2(n_head).is_integer():
+        s = pow2slopes(n_head)
+    else:
+        closest = 2 ** math.floor(math.log2(n_head))
+        s = pow2slopes(closest) + pow2slopes(2 * closest)[0::2][
+            : n_head - closest]
+    return torch.tensor(s, dtype=torch.float32, device=device)
+
+
+def _repeat_kv(k, n_rep):
+    return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=-2)
+
+
+def _prefill_attention(q, k, v, cfg: InferenceTransformerConfig,
+                       causal: bool = True, key_mask=None, window=None,
+                       reference: bool = False):
+    """Attention over a full sequence. q [B, T, H, D], k/v [B, T, KH, D]
+    → [B, T, H, D]. The causal, unbiased, unwindowed case is the flash
+    kernel (its plain version when ``reference``); ``key_mask [B, T]``,
+    ALiBi and ``window`` take the plain einsum path."""
+    B, T, H, D = q.shape
+    if causal and key_mask is None and window is None \
+            and cfg.positional != "alibi":
+        if reference:
+            return flash_attention_reference(q, k, v, causal=True,
+                                             scale=cfg.scale)[0]
+        return flash_attention(q, k, v, causal=True, scale=cfg.scale)
+    k = _repeat_kv(k, H // k.shape[2])
+    v = _repeat_kv(v, H // v.shape[2])
+    att = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * cfg.scale
+    pos = torch.arange(T, device=q.device)
+    if cfg.positional == "alibi":
+        slopes = alibi_slopes(H, q.device) * cfg.alibi_scale
+        rel = (pos[None, :] - pos[:, None])[None, None]
+        att = att + slopes[None, :, None, None] * rel
+    if causal:
+        mask = pos[:, None] >= pos[None, :]
+        if window is not None:   # query i sees keys in (i-w, i]
+            mask &= pos[:, None] - pos[None, :] < window
+        att = att.masked_fill(~mask[None, None], NEG_INF)
+    if key_mask is not None:
+        att = att.masked_fill(~key_mask[:, None, None, :].bool(), NEG_INF)
+    p = torch.softmax(att, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def _decode_attention(q, k_cache, v_cache, live,
+                      cfg: InferenceTransformerConfig, window=None):
+    """One-token attention against the cache. q [B, H, D], cache
+    [B, S, KH, D], ``live [B]`` = valid cache positions *including* the
+    just-appended token → [B, H, D]. The decode kernel, except for ALiBi
+    and windowed layers, which take the plain path."""
+    if cfg.positional != "alibi" and window is None:
+        return decode_attention(q, k_cache, v_cache, live, scale=cfg.scale)
+    B, H, D = q.shape
+    KH, S = k_cache.shape[2], k_cache.shape[1]
+    s = torch.einsum("bhd,bshd->bhs", q.float(),
+                     _repeat_kv(k_cache, H // KH).float()) * cfg.scale
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    if cfg.positional == "alibi":
+        slopes = alibi_slopes(H, q.device) * cfg.alibi_scale
+        s = s + slopes[None, :, None] * (pos - (live - 1)[:, None, None])
+    s = s.masked_fill(pos >= live[:, None, None], NEG_INF)
+    if window is not None:
+        s = s.masked_fill(pos <= (live - 1 - window)[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p,
+                        _repeat_kv(v_cache, H // KH).float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------- blocks
+
+def _qkv(x, a, cfg, positions):
+    """x [..., E] → q [..., H, D], k/v [..., KH, D] with rotary applied."""
+    dt = x.dtype
+    q = torch.einsum("...e,ehd->...hd", x, _w(a["wq"], dt)) + a["bq"]
+    k = torch.einsum("...e,ehd->...hd", x, _w(a["wk"], dt)) + a["bk"]
+    v = torch.einsum("...e,ehd->...hd", x, _w(a["wv"], dt)) + a["bv"]
+    if cfg.positional == "rotary":
+        q = apply_rotary(q, positions, cfg.rotary_dim, cfg.rotary_base,
+                         cfg.rotary_interleaved)
+        k = apply_rotary(k, positions, cfg.rotary_dim, cfg.rotary_base,
+                         cfg.rotary_interleaved)
+    return q, k, v
+
+
+def _mlp(x, m, cfg):
+    up = x @ _w(m["wi"], x.dtype) + m["bi"]
+    if "wg" in m:
+        # gated MLP (LLaMA SwiGLU): down(act(gate(x)) * up(x))
+        g = x @ _w(m["wg"], x.dtype)
+        if "bg" in m:
+            g = g + m["bg"]
+        h = _act(g.float(), cfg.activation) * up.float()
+    else:
+        h = _act(up.float(), cfg.activation)
+    return h.to(x.dtype) @ _w(m["wo"], x.dtype) + m["bo"]
+
+
+def _ffn(x, layer, cfg):
+    if "moe" in layer:
+        raise NotImplementedError(f"MoE layers (_moe_mlp) {_LATER}")
+    return _mlp(x, layer["mlp"], cfg)
+
+
+def _post_attn(x, ln1_out, attn_out, layer, cfg):
+    """Residual/LN after attention (parallel-attn-mlp / pre-LN / post-LN),
+    one definition for the prefill and decode blocks."""
+    if cfg.parallel_attn_mlp:
+        ln2 = layer.get("ln2")
+        mlp_in = (_layer_norm(x, ln2, cfg.layer_norm_eps)
+                  if ln2 is not None else ln1_out)
+        return x + attn_out + _ffn(mlp_in, layer, cfg)
+    if cfg.pre_layer_norm:
+        x = x + attn_out
+        return x + _ffn(_layer_norm(x, layer["ln2"], cfg.layer_norm_eps),
+                        layer, cfg)
+    x = _layer_norm(x + attn_out, layer["ln1"], cfg.layer_norm_eps)
+    return _layer_norm(x + _ffn(x, layer, cfg), layer["ln2"],
+                       cfg.layer_norm_eps)
+
+
+def _window(cfg, layer_idx):
+    return cfg.local_windows[layer_idx] if cfg.local_windows else None
+
+
+def _block_seq(x, layer, cfg, positions, lengths, cache, layer_idx,
+               causal=True, key_mask=None, reference=False):
+    """Full-sequence block (prefill). x [B, T, E]; writes the prompt's k/v
+    into ``cache`` when one is given."""
+    a = layer["attn"]
+    ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
+    h = ln1_out if cfg.pre_layer_norm else x
+    q, k, v = _qkv(h, a, cfg, positions)
+    if cache is not None:
+        cache = write_prompt(cache, layer_idx, k, v, lengths)
+    attn = _prefill_attention(q, k, v, cfg, causal=causal, key_mask=key_mask,
+                              window=_window(cfg, layer_idx),
+                              reference=reference)
+    attn_out = torch.einsum("...hd,hde->...e", attn,
+                            _w(a["wo"], x.dtype)) + a["bo"]
+    return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
+
+
+def _block_decode(x, layer, cfg, cache, layer_idx, live):
+    """Single-token block. x [B, E]; appends to cache in place."""
+    a = layer["attn"]
+    ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
+    h = ln1_out if cfg.pre_layer_norm else x
+    q, k, v = _qkv(h, a, cfg, cache.lengths)   # new token at lengths[b]
+    cache = append_token(cache, layer_idx, k, v)
+    attn = _decode_attention(q, cache.k[layer_idx], cache.v[layer_idx],
+                             live, cfg, window=_window(cfg, layer_idx))
+    attn_out = torch.einsum("bhd,hde->be", attn,
+                            _w(a["wo"], x.dtype)) + a["bo"]
+    return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
+
+
+# ---------------------------------------------------------------- model
+
+def _embed(params, cfg, ids, positions):
+    x = params["wte"][ids].to(cfg.dtype)
+    if cfg.embed_scale != 1.0:   # Gemma: x * sqrt(E), head reads raw wte
+        x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
+    if cfg.positional == "learned":
+        x = x + params["wpe"][positions].to(cfg.dtype)
+    if "wtte" in params:   # BERT token-type embeddings
+        x = x + params["wtte"][torch.zeros_like(ids)].to(cfg.dtype)
+    if "ln_emb" in params:   # BLOOM word_embeddings_layernorm
+        x = _layer_norm(x, params["ln_emb"], cfg.layer_norm_eps)
+    return x
+
+
+def _logits(params, cfg, x):
+    head = params["wte"].T if cfg.tied_lm_head else params["lm_head"]
+    out = (x @ head.to(x.dtype)).float()
+    if "lm_head_bias" in params:   # GPT-J ships a biased lm_head
+        out = out + params["lm_head_bias"].float()
+    return out
+
+
+def _check_causal(cfg):
+    if cfg.num_experts > 0:
+        raise NotImplementedError(f"MoE layers {_LATER}")
+    if cfg.seq_shard_kv:
+        raise NotImplementedError(f"sequence-sharded KV caches {_LATER}")
+
+
+def _causal_trunk(params, cfg, input_ids, lengths, cache, key_mask=None,
+                  reference=False):
+    """Shared causal trunk: embed → blocks → final LN. ``prefill`` and
+    ``causal_forward`` both run through here."""
+    _check_causal(cfg)
+    B, T = input_ids.shape
+    positions = torch.arange(T, device=input_ids.device)[None, :].expand(
+        B, T)
+    x = _embed(params, cfg, input_ids, positions)
+    for i, layer in enumerate(params["layers"]):
+        x, cache = _block_seq(x, layer, cfg, positions, lengths, cache, i,
+                              causal=True, key_mask=key_mask,
+                              reference=reference)
+    return _layer_norm(x, params["ln_f"], cfg.layer_norm_eps), cache
+
+
+def prefill(params, cfg: InferenceTransformerConfig, input_ids, lengths,
+            cache: KVCache):
+    """Run the right-padded prompt ``[B, T]`` through the model, filling
+    the cache. Returns (next-token logits ``[B, V]``, cache)."""
+    x, cache = _causal_trunk(params, cfg, input_ids, lengths, cache)
+    rows = torch.arange(x.shape[0], device=x.device)
+    return _logits(params, cfg, x[rows, lengths.long() - 1]), cache
+
+
+def decode_step(params, cfg: InferenceTransformerConfig, tokens,
+                cache: KVCache):
+    """One generation step: ``tokens [B]`` → (logits ``[B, V]``, cache).
+    Appends k/v for the new token (in place) and advances lengths."""
+    _check_causal(cfg)
+    x = _embed(params, cfg, tokens[:, None], cache.lengths[:, None])[:, 0]
+    live = cache.lengths + 1
+    for i, layer in enumerate(params["layers"]):
+        x, cache = _block_decode(x, layer, cfg, cache, i, live)
+    x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
+    return _logits(params, cfg, x), advance(cache)
+
+
+def causal_forward(params, cfg: InferenceTransformerConfig, input_ids,
+                   attention_mask=None, reference_attention: bool = False):
+    """Full-sequence logits ``[B, T, V]`` (hidden states when
+    ``cfg.head == "none"``). ``attention_mask [B, T]`` masks pad keys.
+    ``reference_attention`` takes the flash kernel's plain version
+    instead of the kernel, so a run on the card can hold the kernels'
+    decode path against a forward that runs through no kernel."""
+    x, _ = _causal_trunk(params, cfg, input_ids, None, None,
+                         key_mask=attention_mask,
+                         reference=reference_attention)
+    if cfg.head == "none":
+        return x
+    return _logits(params, cfg, x)

@@ -1,0 +1,35 @@
+"""The JAX package's parameter tree → the port's tensors.
+
+``deepspeed_tpu.model_implementations.transformer`` keeps its weights as a
+nested dict/list pytree (``wte``, ``wpe``, ``ln_f``, ``lm_head``,
+``layers[i].{ln1, attn.{wq, wk, wv, bq, bk, bv, wo, bo}, mlp.{wi, bi, wo,
+bo}, ln2}``). The port's transformer reads the same keys with the same
+shapes, so converting the leaves is all it takes for both to compute the
+same function. The tree arrives as numpy arrays (``jax.device_get``); this
+module imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree: Any, device=None, dtype=None):
+    """Nested dict/list of numpy arrays → the same structure of tensors on
+    ``device``; floating leaves are cast to ``dtype`` when given. bfloat16
+    arrays (``ml_dtypes``) go through float32, which holds them exactly."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device, dtype) for v in tree]
+    a = np.array(tree)   # a writable copy: device_get may return read-only
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device) if device is not None else t

@@ -1,0 +1,471 @@
+"""``telemetry`` config section, shared by the training JSON config
+(config/config.py) and ``DeepSpeedInferenceConfig`` (inference/config.py)
+— one schema, both engines."""
+from __future__ import annotations
+
+from typing import Dict, Literal, Optional
+
+from pydantic import Field, field_validator
+
+from deepspeed_tpu_torch.config.config_utils import DeepSpeedConfigModel
+
+# every signal an alerting objective can watch (telemetry/alerts.py):
+# windowed quantiles over the serving histograms, windowed ratios over
+# the admission/canary counters, and the instantaneous pool levels the
+# owner provides as gauge sources
+ALERT_SIGNALS = ("decode_p90_s", "ttft_p90_s", "queue_wait_p90_s",
+                 "error_rate", "availability", "goodput",
+                 "canary_success")
+
+# signals where LOWER is worse (a floor): the objective fires when the
+# observation drops below the threshold; everything else is a ceiling
+_FLOOR_SIGNALS = {"availability", "goodput", "canary_success"}
+
+
+class SLOObjectiveConfig(DeepSpeedConfigModel):
+    """One declared alerting objective (telemetry/alerts.py): a signal
+    observed over a fast AND a slow window (multi-window burn rate —
+    both must breach before the rule leaves ``ok``, so a one-sample
+    blip never pages), compared against ``threshold``, driving a
+    pending -> firing -> resolved state machine on the server clock.
+    ``bound`` defaults by signal: latency/error signals are ceilings
+    (fire above), availability/goodput/canary_success are floors (fire
+    below)."""
+    signal: Literal["decode_p90_s", "ttft_p90_s", "queue_wait_p90_s",
+                    "error_rate", "availability", "goodput",
+                    "canary_success"]
+    threshold: float
+    # null = inferred from the signal (see _FLOOR_SIGNALS)
+    bound: Optional[Literal["above", "below"]] = None
+    # burn-rate windows: the fast window catches a sharp burn, the slow
+    # window confirms it is sustained — both must breach
+    fast_window_s: float = 10.0
+    slow_window_s: float = 60.0
+    # dwell before pending escalates to firing (0 = same evaluation)
+    pending_for_s: float = 0.0
+    # dwell of healthy evaluations before firing resolves
+    resolve_for_s: float = 0.0
+
+    @field_validator("fast_window_s", "slow_window_s")
+    @classmethod
+    def _positive_window(cls, v, info):
+        if v <= 0:
+            raise ValueError(
+                f"{info.field_name} must be > 0 seconds, got {v}")
+        return v
+
+    @field_validator("pending_for_s", "resolve_for_s")
+    @classmethod
+    def _valid_dwell(cls, v, info):
+        if v < 0:
+            raise ValueError(
+                f"{info.field_name} must be >= 0 seconds, got {v}")
+        return v
+
+    def resolved_bound(self) -> str:
+        return self.bound or (
+            "below" if self.signal in _FLOOR_SIGNALS else "above")
+
+
+class SLOConfig(DeepSpeedConfigModel):
+    """Serving-loop SLO gates (telemetry/slo.py): objectives evaluated
+    over a sliding window of the registry's serving histograms, exposed
+    as ``slo_*`` gauges + a compliance ratio, with violations recorded
+    into the flight-recorder event ring. Null objectives are ungated;
+    ``enabled`` must be true for the server to arm the monitor."""
+    enabled: bool = False
+    # latency objectives, in seconds (null = not gated)
+    ttft_p90_s: Optional[float] = None
+    token_p50_s: Optional[float] = None
+    queue_wait_p90_s: Optional[float] = None
+    # windowed admission rejections / attempts, attempts = accepted +
+    # rejected submits (null = not gated)
+    error_rate: Optional[float] = None
+    # sliding-window span the objectives are computed over
+    window_s: float = 60.0
+    # re-evaluation cadence; 0 evaluates at every serving step
+    eval_interval_s: float = 5.0
+    # named burn-rate alert rules (telemetry/alerts.py), riding under
+    # the same ``enabled`` master switch as the gates: empty (the
+    # default) — or enabled=false — arms NO alert engine and registers
+    # no serve_alert* instruments. Keys are rule names (they become
+    # the {rule=...} label value).
+    objectives: Dict[str, SLOObjectiveConfig] = Field(
+        default_factory=dict)
+
+    @field_validator("ttft_p90_s", "token_p50_s", "queue_wait_p90_s",
+                     "window_s")
+    @classmethod
+    def _positive_seconds(cls, v, info):
+        if v is not None and v <= 0:
+            raise ValueError(
+                f"{info.field_name} must be > 0 seconds (or null to "
+                f"disable the objective), got {v}")
+        return v
+
+    @field_validator("error_rate")
+    @classmethod
+    def _valid_rate(cls, v):
+        if v is not None and not 0.0 <= v <= 1.0:
+            raise ValueError(
+                f"error_rate must be in [0, 1] (or null), got {v}")
+        return v
+
+    @field_validator("eval_interval_s")
+    @classmethod
+    def _valid_interval(cls, v):
+        if v < 0:
+            raise ValueError(
+                f"eval_interval_s must be >= 0 (0 = every step), got {v}")
+        return v
+
+
+class CanaryConfig(DeepSpeedConfigModel):
+    """Synthetic end-to-end probe (telemetry/canary.py): the serving
+    loop periodically self-injects a tiny request through the REAL
+    submit/step/result path, marked ``tenant="__canary"`` — excluded
+    from request bills, tenant metering, and the capacity model's
+    windowed rates — and scores end-to-end latency plus token-exactness
+    against the pinned expected output (the first successful probe's
+    tokens). The success ratio feeds the ``canary_success`` alert
+    signal. Off by default: disabled, no prober is built and no
+    serve_canary_* instruments register."""
+    enabled: bool = False
+    # probe cadence (server clock); a new probe is injected only after
+    # the previous one scored
+    interval_s: float = 10.0
+    # synthetic prompt: tokens [1 .. prompt_tokens], mod vocab
+    prompt_tokens: int = 4
+    # decode budget — >= 2 so a role-split pool's probe crosses the
+    # prefill -> decode handoff (the riskiest path)
+    max_new_tokens: int = 2
+    # end-to-end latency beyond this scores the probe as failed (and a
+    # probe still unfinished past it is cancelled + scored)
+    timeout_s: float = 30.0
+
+    @field_validator("interval_s", "timeout_s")
+    @classmethod
+    def _positive_seconds(cls, v, info):
+        if v <= 0:
+            raise ValueError(
+                f"{info.field_name} must be > 0 seconds, got {v}")
+        return v
+
+    @field_validator("prompt_tokens", "max_new_tokens")
+    @classmethod
+    def _positive_tokens(cls, v, info):
+        if v < 1:
+            raise ValueError(
+                f"{info.field_name} must be >= 1, got {v}")
+        return v
+
+
+class IncidentConfig(DeepSpeedConfigModel):
+    """One-shot incident bundles (telemetry/incident.py): when an alert
+    rule enters firing — or the hang watchdog fires its stall dump —
+    capture ONE self-contained JSON artifact (observability snapshot,
+    recent ring events, kept error traces, replica/capacity/alert
+    rows, config fingerprint), rate-limited to one bundle per episode
+    (overlapping firings join the open bundle; the recorder re-arms
+    when the episode resolves). Served at ``GET /debug/incidents`` and
+    writable on demand via ``dump_incident()``. Off by default."""
+    enabled: bool = False
+    # directory bundles are also written to as incident_<n>.json;
+    # null = in-memory only (still listed at /debug/incidents)
+    dir: Optional[str] = None
+    # bounded in-memory retention (oldest bundles drop first)
+    max_incidents: int = 8
+
+    @field_validator("max_incidents")
+    @classmethod
+    def _valid_max(cls, v):
+        if v < 1:
+            raise ValueError(
+                f"max_incidents must be >= 1, got {v}")
+        return v
+
+
+class FaultInjectionConfig(DeepSpeedConfigModel):
+    """Chaos hooks for the serving loop (telemetry/faultinject.py).
+    Off by default — a disabled section builds NO injector and the
+    serving hot path never branches on it. Enabled, every injected
+    fault is seeded (deterministic replay), counted
+    (``fault_injections_total``), and ring-recorded, so chaos-test
+    forensics look exactly like a real incident's."""
+    enabled: bool = False
+    # seed for the probabilistic faults (prefill_failure_rate)
+    seed: int = 0
+    # extra seconds ACCOUNTED into each decode step's observed latency
+    # (never slept): drives SLO breach / shedding without real delay
+    step_latency_s: float = 0.0
+    # probability an individual prefill raises (seeded RNG); the request
+    # fails with an always-kept error trace, the loop survives
+    prefill_failure_rate: float = 0.0
+    # pool blocks withheld from the allocator's free budget — forces the
+    # famine ladder: prefix-LRU evict -> preempt -> shed
+    famine_blocks: int = 0
+    # every Nth submitted request never finishes (decodes until a
+    # deadline / drain timeout reaps it); 0 = off
+    wedge_nth_request: int = 0
+    # replicated serving (inference/frontend.py): at this frontend tick,
+    # ONE seeded-chosen replica's step raises — the supervisor must
+    # declare it dead and fail its requests over without losing a
+    # token. 0 = off; only a ServingFrontend consults it.
+    replica_kill_step: int = 0
+    # -- training-scoped faults (runtime/resilience.py
+    # TrainingSupervisor; a bare engine never consults these; all
+    # 0 = off; the *_step knobs are one-shot when they fire —
+    # ckpt_write_failure_save is NOT: it re-fires on every Nth save,
+    # including a recovery's re-save, so it exhausts max_restarts
+    # unless the cadence lets saves in between succeed) --
+    # the train step whose body raises (mid-step worker death)
+    step_crash_step: int = 0
+    # the train step at which the seeded preemption fires (the
+    # preemptible-pod eviction, deterministically)
+    preempt_step: int = 0
+    # the train step whose params are poisoned to NaN before the step —
+    # the burst flows through the real numerics watch, not a flag
+    nan_burst_step: int = 0
+    # the train step whose batch fetch stalls past the supervisor's
+    # data timeout (raised, never actually waited)
+    data_stall_step: int = 0
+    # every Nth checkpoint save dies mid-write (after the state write,
+    # before the manifest publishes) — the crash-consistency case
+    ckpt_write_failure_save: int = 0
+
+    @field_validator("step_latency_s", "famine_blocks",
+                     "wedge_nth_request", "replica_kill_step",
+                     "step_crash_step", "preempt_step", "nan_burst_step",
+                     "data_stall_step", "ckpt_write_failure_save")
+    @classmethod
+    def _non_negative(cls, v, info):
+        if v < 0:
+            raise ValueError(
+                f"{info.field_name} must be >= 0 (0 = fault off), "
+                f"got {v}")
+        return v
+
+    @field_validator("prefill_failure_rate")
+    @classmethod
+    def _valid_rate(cls, v):
+        if not 0.0 <= v <= 1.0:
+            raise ValueError(
+                f"prefill_failure_rate must be in [0, 1], got {v}")
+        return v
+
+
+class AccountingConfig(DeepSpeedConfigModel):
+    """Request-level cost accounting + live capacity model
+    (telemetry/accounting.py, telemetry/capacity.py — see
+    docs/observability.md "Cost accounting & capacity"). ON by default
+    like the step observatory it reads from: the per-step cost is a
+    dict update per resident slot, no device syncs, and the ledger only
+    arms when the step profiler exists (``telemetry.step_profile``) —
+    device attribution without a profiler would be fiction. OFF builds
+    neither the ledger nor the capacity model, registers none of the
+    serve_request_*_seconds / serve_tenant_* families, and leaves the
+    served tokens byte-identical."""
+    enabled: bool = True
+    # bounded tenant-label cardinality: the first max_tenants distinct
+    # tenant strings keep their label; later ones fold into
+    # tenant="other" so a hostile/mistaken client cannot explode the
+    # registry (fleet federation multiplies every label by the
+    # replica count)
+    max_tenants: int = 32
+    # capacity model: sliding-window span the windowed rates are
+    # computed over, and the re-evaluation cadence (0 = every step)
+    window_s: float = 60.0
+    eval_interval_s: float = 5.0
+
+    @field_validator("max_tenants")
+    @classmethod
+    def _valid_tenants(cls, v):
+        if v < 1:
+            raise ValueError(
+                f"max_tenants must be >= 1 (overflow folds into "
+                f"tenant=\"other\"), got {v}")
+        return v
+
+    @field_validator("window_s")
+    @classmethod
+    def _positive_window(cls, v):
+        if v <= 0:
+            raise ValueError(
+                f"window_s must be > 0 seconds, got {v}")
+        return v
+
+    @field_validator("eval_interval_s")
+    @classmethod
+    def _valid_interval(cls, v):
+        if v < 0:
+            raise ValueError(
+                f"eval_interval_s must be >= 0 (0 = every step), got {v}")
+        return v
+
+
+class TelemetryConfig(DeepSpeedConfigModel):
+    """Registry recording is on by default (dict-lookup + float-add cost);
+    the HTTP scrape endpoint is OFF by default and opens only when a port
+    is configured — a serving process must opt into listening. The
+    flight-recorder surfaces (docs/observability.md "Flight recorder")
+    follow the same rule: the event ring and compile watch always record
+    (bounded memory), while the hang watchdog, periodic memory sampler,
+    and fault-dump file each arm only when their key is set."""
+    enabled: bool = True
+    # scrape endpoint: None = no listener; 0 = ephemeral port (tests)
+    http_port: Optional[int] = None
+    http_host: str = "127.0.0.1"
+    # flight-recorder event ring size (telemetry/events.py); the process
+    # ring is resized only when this is explicitly set
+    events_capacity: int = 512
+    # fault forensics: ring JSON written here on unhandled exception /
+    # exit (+ ``.stacks`` via faulthandler); None = no fault hooks
+    events_dump_path: Optional[str] = None
+    # hang watchdog (telemetry/watchdog.py): fire a ring+thread-stack
+    # dump after this many seconds without step/decode progress;
+    # None = watchdog off
+    watchdog_deadline_s: Optional[float] = None
+    # periodic jax.live_arrays() accounting (telemetry/memory.py):
+    # snapshot cadence in seconds; None = on-demand only (/debug/memory)
+    memory_interval_s: Optional[float] = None
+    # training numerics observatory (telemetry/numerics.py): in-graph
+    # per-layer-block grad/param/update norms + non-finite provenance +
+    # the loss-spike detector. Off by default: enabling adds the block
+    # reductions to the step program (one retrace to toggle) and one
+    # small device->host transfer per step.
+    numerics_enabled: bool = False
+    # path-prefix depth that defines one layer block (1 = each top-level
+    # param subtree; flax transformer trees usually want the depth that
+    # isolates one layer, e.g. 2 for params/h_0/...)
+    numerics_block_depth: int = 1
+    # loss-spike detector: rolling window length (median+MAD over the
+    # last N losses) and the MAD-multiple that counts as a spike;
+    # threshold null disables spike detection (provenance still runs)
+    numerics_spike_window: int = 64
+    numerics_spike_threshold: Optional[float] = 6.0
+    # goodput accounting (telemetry/goodput.py): split every train-step
+    # wall interval into data-wait / device / host buckets.
+    # Off by default: the device bucket costs one block_until_ready per
+    # step (trades async step pipelining for the honest split).
+    goodput: bool = False
+    # request-scoped tracing (telemetry/tracing.py): per-request span
+    # trees with head sampling. 0 (default) = tracing fully off — the
+    # serving hot path allocates nothing per request; 1.0 traces every
+    # request. Slow / rejected / errored requests are always kept once
+    # tracing is armed, whatever the rate.
+    trace_sample_rate: float = 0.0
+    # bounded ring of finished traces backing /debug/traces and
+    # dump_timeline
+    trace_ring_capacity: int = 256
+    # always-keep threshold: a finished trace whose root span lasted at
+    # least this long is retained even when head sampling dropped it;
+    # null disables the slow-keep rescue
+    trace_slow_threshold_s: Optional[float] = 1.0
+    # head-sampling RNG seed (deterministic retention under a fixed seed
+    # and submission order)
+    trace_seed: int = 0
+    # serving step observatory (telemetry/step_profile.py): per-step
+    # phase decomposition (admission / prefill_chunk / propose /
+    # dispatch / sync_wait / commit / publish, summing to wall by
+    # construction), the serve goodput fraction, the dispatch-gap
+    # detector, and the KV-pool lifetime/fragmentation accounting
+    # (telemetry/memory.py KVPoolAccountant). ON by default — the cost
+    # is a handful of monotonic-clock reads and histogram observes per
+    # step, no device syncs; OFF leaves the decode program and greedy
+    # output byte-identical and registers none of the serve_step_* /
+    # serve_kv_block_* metric families.
+    step_profile: bool = True
+    # sample every Nth profiled step's ordered phase slices into the
+    # flight-recorder ring (rendered by dump_timeline as the "server
+    # host" track); 0 = no ring/timeline sampling
+    step_profile_events_every: int = 32
+    # serving SLO gates (telemetry/slo.py) — see the SLOConfig schema
+    slo: SLOConfig = Field(default_factory=SLOConfig)
+    # synthetic canary prober (telemetry/canary.py) — see CanaryConfig
+    canary: CanaryConfig = Field(default_factory=CanaryConfig)
+    # incident bundles (telemetry/incident.py) — see IncidentConfig
+    incident: IncidentConfig = Field(default_factory=IncidentConfig)
+    # chaos hooks (telemetry/faultinject.py) — see FaultInjectionConfig
+    fault_injection: FaultInjectionConfig = Field(
+        default_factory=FaultInjectionConfig)
+    # request-level cost accounting + capacity model
+    # (telemetry/accounting.py, telemetry/capacity.py) — see the
+    # AccountingConfig schema
+    accounting: AccountingConfig = Field(default_factory=AccountingConfig)
+
+    @field_validator("http_port")
+    @classmethod
+    def _valid_port(cls, v):
+        if v is not None and not 0 <= v <= 65535:
+            raise ValueError(f"http_port must be in [0, 65535], got {v}")
+        return v
+
+    @field_validator("events_capacity", "trace_ring_capacity")
+    @classmethod
+    def _valid_capacity(cls, v, info):
+        if v < 1:
+            raise ValueError(
+                f"{info.field_name} must be >= 1, got {v}")
+        return v
+
+    @field_validator("trace_sample_rate")
+    @classmethod
+    def _valid_rate(cls, v):
+        if not 0.0 <= v <= 1.0:
+            raise ValueError(
+                f"trace_sample_rate must be in [0, 1] (0 = tracing "
+                f"off), got {v}")
+        return v
+
+    @field_validator("trace_slow_threshold_s")
+    @classmethod
+    def _valid_slow(cls, v):
+        if v is not None and v <= 0:
+            raise ValueError(
+                "trace_slow_threshold_s must be > 0 seconds (or null "
+                f"to disable the slow-keep rescue), got {v}")
+        return v
+
+    @field_validator("watchdog_deadline_s", "memory_interval_s")
+    @classmethod
+    def _valid_interval(cls, v, info):
+        if v is not None and v <= 0:
+            raise ValueError(
+                f"{info.field_name} must be > 0 seconds (or null to "
+                f"disable), got {v}")
+        return v
+
+    @field_validator("step_profile_events_every")
+    @classmethod
+    def _valid_every(cls, v):
+        if v < 0:
+            raise ValueError(
+                "step_profile_events_every must be >= 0 (0 = no ring/"
+                f"timeline sampling), got {v}")
+        return v
+
+    @field_validator("numerics_block_depth")
+    @classmethod
+    def _valid_depth(cls, v):
+        if v < 1:
+            raise ValueError(
+                f"numerics_block_depth must be >= 1, got {v}")
+        return v
+
+    @field_validator("numerics_spike_window")
+    @classmethod
+    def _valid_window(cls, v):
+        if v < 8:
+            raise ValueError(
+                "numerics_spike_window must be >= 8 (median+MAD over "
+                f"fewer losses is noise), got {v}")
+        return v
+
+    @field_validator("numerics_spike_threshold")
+    @classmethod
+    def _valid_threshold(cls, v):
+        if v is not None and v <= 0:
+            raise ValueError(
+                "numerics_spike_threshold must be > 0 MAD-multiples "
+                f"(or null to disable spike detection), got {v}")
+        return v

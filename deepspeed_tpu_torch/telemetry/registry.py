@@ -1,0 +1,460 @@
+"""Process-wide metrics registry: counters, gauges, histograms.
+
+The measurement substrate the serving loop and training engine record
+into (the reference ships MonitorMaster/ThroughputTimer as first-class
+subsystems; this is their common sink). Design constraints:
+
+* **Fixed exponential buckets** — histograms never store samples, so a
+  million-request serving run costs the same memory as ten requests.
+  p50/p90/p99 are derived by rank interpolation inside the containing
+  bucket; with growth factor ``g`` the estimate is within a factor of
+  ``g`` of the true value (tests pin this bound).
+* **Host-pure** — no jax import. Recording is a dict lookup + float add,
+  cheap enough to leave on unconditionally on the decode hot path.
+* **Thread-safe** — the HTTP scrape endpoint (exporter.py) reads from
+  another thread while the serving loop writes.
+
+Exposition is Prometheus text format (``prometheus_text``) and a
+JSON-able snapshot (``snapshot``); both render from the same live
+instruments, so there is exactly one source of truth.
+"""
+from __future__ import annotations
+
+import math
+import re
+import threading
+from typing import Dict, List, Optional, Tuple
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def exponential_buckets(start: float, factor: float, count: int) -> List[float]:
+    """``count`` upper bounds ``start * factor**i`` — the fixed geometry
+    every latency histogram shares so quantile error is bounded by
+    ``factor`` regardless of the workload's scale."""
+    if start <= 0 or factor <= 1 or count < 1:
+        raise ValueError(
+            f"exponential_buckets needs start>0, factor>1, count>=1; got "
+            f"({start}, {factor}, {count})")
+    return [start * factor ** i for i in range(count)]
+
+
+# 100 µs … ~28 min in ×2 steps: spans a single decode step through a
+# cold multi-minute build with ≤2× quantile error everywhere
+DEFAULT_TIME_BUCKETS = exponential_buckets(1e-4, 2.0, 24)
+
+
+def sanitize_metric_name(raw: str) -> str:
+    """Fold an arbitrary event name (``Train/Samples/train_loss``) into a
+    legal Prometheus metric name."""
+    name = re.sub(r"[^a-zA-Z0-9_:]", "_", raw).lower()
+    if not name or not _NAME_RE.match(name):
+        name = "_" + name
+    return name
+
+
+def _escape_label(value: str) -> str:
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample rendering: integral values without a decimal
+    point (stable golden output), floats via repr (round-trip exact)."""
+    f = float(v)
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+class Counter:
+    """Monotonic accumulator (requests, tokens, rejections)."""
+
+    def __init__(self, lock: threading.RLock):
+        self._lock = lock
+        self._value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError(f"counter increment must be >= 0, got {amount}")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Last-write-wins level (occupancy, free blocks, queue depth)."""
+
+    def __init__(self, lock: threading.RLock):
+        self._lock = lock
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Histogram:
+    """Fixed-bucket distribution; quantiles by rank interpolation.
+
+    ``bucket_counts`` has ``len(bounds) + 1`` entries — the last is the
+    overflow bucket (> bounds[-1]); its quantile estimate clamps to the
+    observed max since the bucket has no upper bound.
+    """
+
+    def __init__(self, lock: threading.RLock, bounds: List[float]):
+        if list(bounds) != sorted(bounds) or len(set(bounds)) != len(bounds):
+            raise ValueError(f"bucket bounds must strictly increase: {bounds}")
+        self._lock = lock
+        self.bounds = [float(b) for b in bounds]
+        self.bucket_counts = [0] * (len(bounds) + 1)
+        self.count = 0
+        self.sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+
+    def observe(self, value: float) -> None:
+        v = float(value)
+        with self._lock:
+            self.count += 1
+            self.sum += v
+            self._min = min(self._min, v)
+            self._max = max(self._max, v)
+            for i, ub in enumerate(self.bounds):
+                if v <= ub:
+                    self.bucket_counts[i] += 1
+                    return
+            self.bucket_counts[-1] += 1
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Rank-interpolated quantile estimate; None when empty. Within
+        the containing bucket the estimate is linear, so error is bounded
+        by the bucket's geometric width; clamped to [min, max] observed
+        (a clamp by constants preserves monotonicity in ``q``). The edges
+        are exact by definition, not interpolation: q=0 is the observed
+        minimum, q=1 the observed maximum (pinned in
+        tests/test_telemetry.py — rank arithmetic at the edges would
+        otherwise depend on which bucket the first/last sample landed
+        in)."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        with self._lock:
+            if self.count == 0:
+                return None
+            if q == 0.0:
+                return self._min
+            if q == 1.0:
+                return self._max
+            rank = q * self.count
+            cum, lower = 0.0, 0.0
+            est = None
+            for ub, c in zip(self.bounds, self.bucket_counts):
+                if c and cum + c >= rank:
+                    frac = min(max((rank - cum) / c, 0.0), 1.0)
+                    est = lower + (ub - lower) * frac
+                    break
+                cum += c
+                lower = ub
+            if est is None:      # rank lands in the overflow bucket
+                est = self._max
+            return min(max(est, self._min), self._max)
+
+
+class _Family:
+    """One metric name: shared type/help/buckets, one instrument per
+    distinct label set."""
+
+    def __init__(self, kind: str, help_text: str, lock: threading.RLock,
+                 bounds: Optional[List[float]] = None):
+        self.kind = kind
+        self.help = help_text
+        self.bounds = bounds
+        self._lock = lock
+        self.series: Dict[Tuple[Tuple[str, str], ...], object] = {}
+
+    def get(self, labels: Tuple[Tuple[str, str], ...]):
+        # under the registry lock: a first-seen label set (new prefill
+        # bucket, new rejection reason) must not mutate `series` while
+        # the scrape thread iterates it in prometheus_text()/snapshot(),
+        # and two racing threads must receive the SAME instrument
+        with self._lock:
+            inst = self.series.get(labels)
+            if inst is None:
+                if self.kind == "counter":
+                    inst = Counter(self._lock)
+                elif self.kind == "gauge":
+                    inst = Gauge(self._lock)
+                else:
+                    inst = Histogram(self._lock, self.bounds)
+                self.series[labels] = inst
+            return inst
+
+
+class MetricRegistry:
+    """Name → family of instruments; the recording and exposition hub."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._families: Dict[str, _Family] = {}
+
+    # ------------------------------------------------------------ create
+
+    def _family(self, name: str, kind: str, help_text: str,
+                bounds: Optional[List[float]] = None) -> _Family:
+        if not _NAME_RE.match(name):
+            raise ValueError(
+                f"invalid metric name {name!r} (use sanitize_metric_name "
+                "for free-form event names)")
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = _Family(kind, help_text, self._lock, bounds)
+                self._families[name] = fam
+            elif fam.kind != kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as {fam.kind}, "
+                    f"cannot re-register as {kind}")
+            elif bounds is not None and fam.bounds != [float(b)
+                                                       for b in bounds]:
+                raise ValueError(
+                    f"histogram {name!r} already registered with buckets "
+                    f"{fam.bounds}, got {list(bounds)} — one geometry per "
+                    "name or quantiles stop meaning anything")
+            return fam
+
+    @staticmethod
+    def _label_key(labels: Optional[Dict[str, str]]
+                   ) -> Tuple[Tuple[str, str], ...]:
+        if not labels:
+            return ()
+        for k in labels:
+            if not _LABEL_RE.match(k):
+                raise ValueError(f"invalid label name {k!r}")
+        return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+    def counter(self, name: str, help: str = "",
+                labels: Optional[Dict[str, str]] = None) -> Counter:
+        return self._family(name, "counter", help).get(
+            self._label_key(labels))
+
+    def gauge(self, name: str, help: str = "",
+              labels: Optional[Dict[str, str]] = None) -> Gauge:
+        return self._family(name, "gauge", help).get(self._label_key(labels))
+
+    def histogram(self, name: str, help: str = "",
+                  labels: Optional[Dict[str, str]] = None,
+                  buckets: Optional[List[float]] = None) -> Histogram:
+        fam = self._family(name, "histogram", help,
+                           list(buckets) if buckets is not None
+                           else list(DEFAULT_TIME_BUCKETS))
+        return fam.get(self._label_key(labels))
+
+    # ------------------------------------------------------------ expose
+
+    @staticmethod
+    def _render_labels(labels: Tuple[Tuple[str, str], ...],
+                       extra: Optional[Tuple[str, str]] = None) -> str:
+        items = list(labels) + ([extra] if extra else [])
+        if not items:
+            return ""
+        body = ",".join(f'{k}="{_escape_label(v)}"' for k, v in items)
+        return "{" + body + "}"
+
+    def prometheus_text(self) -> str:
+        """Prometheus exposition format 0.0.4: ``# HELP``/``# TYPE`` per
+        family, cumulative ``_bucket{le=...}`` + ``_sum``/``_count`` for
+        histograms. Deterministic ordering (sorted names, sorted label
+        sets) so golden tests and scrape diffs are stable."""
+        out: List[str] = []
+        with self._lock:
+            for name in sorted(self._families):
+                fam = self._families[name]
+                if fam.help:
+                    out.append(f"# HELP {name} {fam.help}")
+                out.append(f"# TYPE {name} {fam.kind}")
+                for key in sorted(fam.series):
+                    inst = fam.series[key]
+                    if fam.kind in ("counter", "gauge"):
+                        out.append(f"{name}{self._render_labels(key)} "
+                                   f"{_fmt(inst.value)}")
+                        continue
+                    cum = 0
+                    for ub, c in zip(inst.bounds, inst.bucket_counts):
+                        cum += c
+                        lab = self._render_labels(key, ("le", _fmt(ub)))
+                        out.append(f"{name}_bucket{lab} {cum}")
+                    lab = self._render_labels(key, ("le", "+Inf"))
+                    out.append(f"{name}_bucket{lab} {inst.count}")
+                    out.append(f"{name}_sum{self._render_labels(key)} "
+                               f"{_fmt(inst.sum)}")
+                    out.append(f"{name}_count{self._render_labels(key)} "
+                               f"{inst.count}")
+        return "\n".join(out) + ("\n" if out else "")
+
+    def snapshot(self) -> dict:
+        """JSON-able dump of every series; histograms include derived
+        p50/p90/p99 so consumers (bench.py, dashboards) never re-derive
+        quantiles from buckets themselves."""
+        snap: dict = {}
+        with self._lock:
+            for name, fam in self._families.items():
+                series = []
+                for key in sorted(fam.series):
+                    inst = fam.series[key]
+                    entry: dict = {"labels": dict(key)}
+                    if fam.kind in ("counter", "gauge"):
+                        entry["value"] = inst.value
+                    else:
+                        entry.update({
+                            "count": inst.count, "sum": inst.sum,
+                            "buckets": [[b, c] for b, c in
+                                        zip(inst.bounds + [math.inf],
+                                            inst.bucket_counts)],
+                            "p50": inst.quantile(0.5),
+                            "p90": inst.quantile(0.9),
+                            "p99": inst.quantile(0.99),
+                        })
+                    series.append(entry)
+                snap[name] = {"type": fam.kind, "help": fam.help,
+                              "series": series}
+        return snap
+
+    # ------------------------------------------------- federate (merge)
+
+    def export_state(self) -> dict:
+        """Raw mergeable state — the federation wire format. Unlike
+        ``snapshot()`` (which derives quantiles for human consumers),
+        this carries the *accumulator* state (counter values, gauge
+        values, histogram bucket counts + min/max) so a peer registry
+        can fold it in via ``import_state`` without losing precision.
+        Pure builtins, so ``json.dumps`` round-trips it byte-exactly —
+        the process-per-replica transport serializes this verbatim."""
+        state: dict = {}
+        with self._lock:
+            for name, fam in self._families.items():
+                series = []
+                for key in sorted(fam.series):
+                    inst = fam.series[key]
+                    entry: dict = {"labels": [list(kv) for kv in key]}
+                    if fam.kind in ("counter", "gauge"):
+                        entry["value"] = inst.value
+                    else:
+                        entry.update({
+                            "count": inst.count, "sum": inst.sum,
+                            "bucket_counts": list(inst.bucket_counts),
+                            "min": (None if inst.count == 0
+                                    else inst._min),
+                            "max": (None if inst.count == 0
+                                    else inst._max),
+                        })
+                    series.append(entry)
+                state[name] = {"type": fam.kind, "help": fam.help,
+                               "bounds": (None if fam.bounds is None
+                                          else list(fam.bounds)),
+                               "series": series}
+        return state
+
+    def import_state(self, state: dict,
+                     extra_labels: Optional[Dict[str, str]] = None) -> None:
+        """Fold an ``export_state()`` dict into this registry. Merge
+        semantics per kind: counters and histograms ACCUMULATE (values
+        sum, bucket counts sum — safe because a name's bucket geometry
+        is pinned by ``_family``'s mismatch check), gauges SET
+        (last-write-wins; federate gauges under distinguishing
+        ``extra_labels`` to keep them per-source). ``extra_labels`` are
+        appended to every imported series — the federation layer uses
+        ``replica="r<i>"`` so per-replica series stay distinct and
+        label cardinality is bounded by pool size."""
+        extra = sorted((extra_labels or {}).items())
+        for k, _ in extra:
+            if not _LABEL_RE.match(k):
+                raise ValueError(f"invalid label name {k!r}")
+        for name, fam_state in state.items():
+            kind = fam_state["type"]
+            fam = self._family(name, kind, fam_state.get("help", ""),
+                               fam_state.get("bounds"))
+            for entry in fam_state["series"]:
+                key = tuple(sorted(
+                    [(k, str(v)) for k, v in entry["labels"]] +
+                    [(k, str(v)) for k, v in extra]))
+                inst = fam.get(key)
+                with self._lock:
+                    if kind == "counter":
+                        inst._value += float(entry["value"])
+                    elif kind == "gauge":
+                        inst._value = float(entry["value"])
+                    else:
+                        counts = entry["bucket_counts"]
+                        if len(counts) != len(inst.bucket_counts):
+                            raise ValueError(
+                                f"histogram {name!r} import has "
+                                f"{len(counts)} buckets, expected "
+                                f"{len(inst.bucket_counts)}")
+                        for i, c in enumerate(counts):
+                            inst.bucket_counts[i] += int(c)
+                        inst.count += int(entry["count"])
+                        inst.sum += float(entry["sum"])
+                        if entry.get("min") is not None:
+                            inst._min = min(inst._min, float(entry["min"]))
+                        if entry.get("max") is not None:
+                            inst._max = max(inst._max, float(entry["max"]))
+
+    def approx_bytes(self) -> int:
+        """Deterministic structural estimate of the registry's resident
+        size (families + label keys + instrument accumulators) for the
+        memory monitor's host-component ledger — an audit of where host
+        RAM goes, not an exact ``sys.getsizeof`` walk."""
+        total = 0
+        with self._lock:
+            for name, fam in self._families.items():
+                total += 64 + len(name) + len(fam.help)
+                if fam.bounds:
+                    total += 8 * len(fam.bounds)
+                for key, inst in fam.series.items():
+                    total += 48 + sum(len(k) + len(v) for k, v in key)
+                    if isinstance(inst, Histogram):
+                        total += 48 + 8 * len(inst.bucket_counts)
+                    else:
+                        total += 16
+        return total
+
+    def reset(self) -> None:
+        """Drop every family — test isolation only; production metrics
+        are append-only for the life of the process."""
+        with self._lock:
+            self._families.clear()
+
+
+_default_registry = MetricRegistry()
+
+
+def get_registry() -> MetricRegistry:
+    """The process-wide registry every subsystem records into by default
+    (one scrape endpoint sees training + serving + spans together)."""
+    return _default_registry
+
+
+def set_registry(registry: MetricRegistry) -> MetricRegistry:
+    """Swap the process default (tests); returns the previous one."""
+    global _default_registry
+    prev, _default_registry = _default_registry, registry
+    return prev

@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Where the time of deepspeed_tpu_torch's one-shot generation goes, on one
+NVIDIA GPU.
+
+Builds GPT-2 XL at its published widths (random weights from a seed), runs
+one prefill of 8 prompts (64-900 tokens, the prompts of chip_smoke.py) and
+then 8 decode steps under ``torch.profiler``, and prints for each phase:
+the host wall time, the summed device time of all kernels, the device's
+busy share of the wall (kernel time / wall), the device time by kind of
+kernel, and the kernels that take the most device time. Given a
+directory, it also writes each phase's Chrome trace there.
+
+    python3 scripts/profile_torch_generate.py [TRACE_DIR]
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from chip_smoke import gpt2_xl_config  # noqa: E402
+
+
+def device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def category(kernel: str) -> str:
+    if "flash_fwd" in kernel or "decode_kernel" in kernel:
+        return "port kernels (attention)"
+    if any(s in kernel for s in ("nvjet", "gemm", "cutlass", "sm90_")):
+        return "GEMM (cuBLAS)"
+    if "copy" in kernel:
+        return "copies and dtype casts"
+    if "reduce" in kernel:
+        return "reductions (norm statistics, argmax)"
+    return "other elementwise (add, mul, gelu, index)"
+
+
+def report(name, prof, wall_s, trace_dir):
+    """Sums over kernel events only (the CPU-side op rows of the profile
+    carry the same device time again)."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(device_us(e) for e in kernels)
+    print(f"[{name}] host wall {wall_s * 1e3!r} ms, device kernel time "
+          f"{total / 1e3!r} ms, device busy share {total / 1e6 / wall_s!r}, "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    cats = {}
+    for e in kernels:
+        cats[category(e.key)] = cats.get(category(e.key), 0.0) + device_us(e)
+    for c, us in sorted(cats.items(), key=lambda kv: -kv[1]):
+        print(f"[{name}]   {us / 1e3:10.3f} ms  {c}")
+    for e in sorted(kernels, key=device_us, reverse=True)[:12]:
+        print(f"[{name}]   {device_us(e) / 1e3:10.3f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}")
+    if trace_dir:
+        prof.export_chrome_trace(os.path.join(trace_dir,
+                                              f"trace_{name}.json"))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        decode_step, init_params, prefill)
+    trace_dir = sys.argv[1] if len(sys.argv) > 1 else None
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    cfg = gpt2_xl_config()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 901, 8)
+    ids = np.zeros((8, 1024), np.int64)
+    for b, n in enumerate(lens):
+        ids[b, :n] = rng.integers(0, cfg.vocab_size, n)
+    ids_t = torch.as_tensor(ids, device="cuda")
+    lens_t = torch.as_tensor(lens, device="cuda")
+    act = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        engine.generate([ids[b, :n].tolist() for b, n in enumerate(lens)],
+                        max_new_tokens=4)   # warm-up
+        cache = engine._make_cache(8, 1024)
+        torch.cuda.synchronize()
+        with profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            lg, cache = prefill(engine.params, engine.model_config, ids_t,
+                                lens_t, cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report("prefill", prof, wall, trace_dir)
+        tok = lg.argmax(-1)
+        with profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            for _ in range(8):
+                lg, cache = decode_step(engine.params, engine.model_config,
+                                        tok, cache)
+                tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report("decode_x8", prof, wall, trace_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

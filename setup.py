@@ -23,6 +23,9 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(include=["deepspeed_tpu*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources on first
+    # use (deepspeed_tpu_torch/ops/op_builder)
+    package_data={"deepspeed_tpu_torch": ["ops/csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "ml_dtypes", "psutil", "pydantic"],

@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is False: a hand-written CUDA kernel has no
+CPU mode. The file imports no JAX (nor the tests' conftest, which does), so
+it runs on the GPU machine as it is:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+
+Tolerances: bf16/fp16 outputs are compared at 2e-2 for flash attention (the
+output is rounded to 16 bits and P is rounded to the storage dtype before
+P.V on both sides, so the two may land one rounding step apart) and 1e-2 for
+decode attention (f32 math on both sides, output rounded); f32 inputs at
+1e-4 (only the order of the sums differs); the f32 LSE at 1e-3 for 16-bit
+inputs.
+"""
+import pytest
+import torch
+
+from deepspeed_tpu_torch.ops import decode_attention as port_decode
+from deepspeed_tpu_torch.ops import flash_attention as port_flash
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(g, shape, dtype):
+    return torch.randn(shape, generator=g, device=g.device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,T,H,KH,D,dtype", [
+    (True, 1024, 25, 25, 64, torch.bfloat16),    # GPT-2 XL prefill
+    (True, 1000, 32, 8, 128, torch.bfloat16),    # GQA, ragged T
+    (False, 300, 4, 4, 64, torch.bfloat16),      # full attention
+    (True, 77, 8, 2, 64, torch.float16),
+    (True, 1, 4, 4, 128, torch.bfloat16),        # one token
+])
+def test_flash_kernel_matches_plain_on_card(cuda_device, causal, T, H, KH, D,
+                                            dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = _randn(g, (2, T, H, D), dtype)
+    k = _randn(g, (2, T, KH, D), dtype)
+    v = _randn(g, (2, T, KH, D), dtype)
+    n = port_flash.flash_attention_fwd.launches
+    o, lse = port_flash.flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = port_flash.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert port_flash.flash_attention_fwd.launches == n + 1
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    o32, lse32 = port_flash.flash_attention_fwd(q.float(), k.float(),
+                                                v.float(), causal=causal)
+    r32, l32 = port_flash.flash_attention_reference(q.float(), k.float(),
+                                                    v.float(), causal)
+    assert (o32 - r32).abs().max().item() <= 1e-4
+    assert (lse32 - l32).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_qkv(cuda_device):
+    """q/k/v as views into one fused projection output, as a model may
+    hand them over: the kernel reads them through their strides."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = _randn(g, (2, 200, 3, 8, 64), torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    o = port_flash.flash_attention(q, k, v)
+    ref, _ = port_flash.flash_attention_reference(q.contiguous(),
+                                                  k.contiguous(),
+                                                  v.contiguous())
+    assert (o.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH,D,dtype", [(25, 25, 64, torch.bfloat16),
+                                          (32, 8, 128, torch.bfloat16),
+                                          (8, 4, 64, torch.float16),
+                                          (8, 1, 128, torch.float32)])
+def test_decode_kernel_matches_plain_on_card(cuda_device, H, KH, D, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    B, S = 4, 1024
+    # the layer view of a 2-layer cache, as the model passes it
+    kc = _randn(g, (2, B, S, KH, D), dtype)[1]
+    vc = _randn(g, (2, B, S, KH, D), dtype)[1]
+    q = _randn(g, (B, H, D), dtype)
+    lens = torch.tensor([0, 1, 517, S], dtype=torch.int32,
+                        device=cuda_device)
+    n = port_decode.decode_attention.launches
+    out = port_decode.decode_attention(q, kc, vc, lens)
+    ref = port_decode.decode_attention_reference(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert port_decode.decode_attention.launches == n + 1
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = _randn(g, (1, 16, 2, 48), torch.bfloat16)     # head dim 48
+    with pytest.raises(ValueError, match="head dim"):
+        port_flash.flash_attention(q, q, q)
+    q = _randn(g, (2, 12, 64), torch.bfloat16)
+    kc = _randn(g, (2, 32, 1, 64), torch.bfloat16)    # group of 12
+    with pytest.raises(ValueError, match="groups"):
+        port_decode.decode_attention(
+            q, kc, kc, torch.ones(2, dtype=torch.int32, device=cuda_device))
+    kc = _randn(g, (2, 32, 12, 64), torch.bfloat16)
+    with pytest.raises(TypeError, match="int32"):
+        port_decode.decode_attention(
+            q, kc, kc, torch.ones(2, dtype=torch.int64, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_generate_on_card_runs_through_the_kernels(cuda_device):
+    """A small bf16 model through init_inference -> generate: one flash
+    launch per layer for the prefill, one decode launch per layer and
+    step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        InferenceTransformerConfig, init_params)
+    cfg = InferenceTransformerConfig(vocab_size=512, n_positions=256,
+                                     n_embd=256, n_layer=2, n_head=4)
+    params = init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg)
+    eng = deepspeed_tpu_torch.init_inference((cfg, params), dtype="bf16")
+    prompts = [[1, 2, 3], list(range(100)), [7] * 40]
+    port_flash.flash_attention_fwd.launches = 0
+    port_decode.decode_attention.launches = 0
+    out = eng.generate(prompts, max_new_tokens=6)
+    assert port_flash.flash_attention_fwd.launches == cfg.n_layer
+    assert port_decode.decode_attention.launches == cfg.n_layer * 5
+    for row, p in zip(out, prompts):
+        assert row[:len(p)] == p and len(row) == len(p) + 6
+        assert all(0 <= t < cfg.vocab_size for t in row)
