@@ -8,20 +8,38 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, in order; any failed check raises and the script exits non-zero
 before its last line:
 
-1. build  — compile every CUDA kernel of the slice from
-   ``deepspeed_tpu_torch/ops/csrc`` (one nvcc per source, in parallel).
+1. build  — compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
+   (one nvcc per source, in parallel): flash, dense decode, paged
+   decode/verify and paged chunk.
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T and a full (non-causal) case.
 3. decode — the decode-attention kernel against its plain version at
    B=8, S=1024, H=25, D=64 with seeded lengths in [1, 1024], a GQA case and
    a length-0 row.
-4. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
+4. paged  — the paged decode (S=8 slots, BS=128, MB=8, NB=65), chunk (C=256
+   at start 0, 256, 512) and verify (K=4) kernels against their plain
+   versions in bf16 at GPT-2 XL shapes and in a GQA case, over shuffled,
+   non-contiguous block tables that share prefix blocks between slots and
+   point dead entries at the null block.
+5. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
    width (48 layers, n_embd 1600, 25 heads, bf16, random weights from a
-   seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy. The
-   kernel launch counts are set to 0 just before that call and read just
-   after. Then decode == prefill: decode-path logits against
-   ``causal_forward`` logits taken with the flash kernel's plain version.
+   seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy.
+   Then decode == prefill: decode-path logits against ``causal_forward``
+   logits taken with the flash kernel's plain version.
+6. serve  — ``ContinuousBatchingServer`` over one engine of the same weights,
+   three servers in turn: (a) the default config (monolithic prefill,
+   async loop, lag 1) on 16 requests submitted 8, 4 steps, 8 more; (b)
+   prefix caching with 256-token chunks on 8 requests sharing a 512-token
+   prefix and 4 cold ones; (c) prompt-lookup speculation, K=4, on prompts
+   that repeat a 24-token phrase. Each asserts its launch counts (48 per
+   prefill, chunk, decode or verify program; no dense decode launch), and
+   a tie-tolerant oracle on two requests: every served token is within
+   E2E_MAX_TOL of the maximum logit of a forward through no attention
+   kernel.
+
+The kernel launch counts are set to 0 just before each main-path run (the
+e2e generate and each server) and read just after.
 
 It prints the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel numbers, and, last, ``{"ok": true, "device": {...}}``. It exits
@@ -85,15 +103,20 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def phase_build():
+def _builders():
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    return [fa.BUILDER, da.BUILDER, da.PAGED_BUILDER, da.CHUNK_BUILDER]
+
+
+def phase_build():
     from deepspeed_tpu_torch.ops.op_builder import build_all
     t0 = time.perf_counter()
-    build_all([fa.BUILDER, da.BUILDER])
-    log(f"[build] both kernels built and loaded in "
+    builders = _builders()
+    build_all(builders)
+    log(f"[build] {len(builders)} kernel libraries built and loaded in "
         f"{time.perf_counter() - t0:.3f} s")
-    for b in (fa.BUILDER, da.BUILDER):
+    for b in builders:
         for line in b.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {b.name}: {line.strip()}")
@@ -206,6 +229,164 @@ def phase_decode(flush):
     return dict(main, max_abs_err=worst)
 
 
+def _bound(nbytes, flops, peak_flops):
+    """Least time (ms) and what sets it: bytes over HBM rate or
+    operations over the peak rate for their type."""
+    tb, tf = nbytes / H100_BYTES_PER_S, flops / peak_flops
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def _paged_tables(rng, spans, NB, MB):
+    """Shuffled, non-contiguous block tables: slot s owns spans[s] blocks;
+    slots 0 and 1 share their first two blocks (a prefix-cache hit); dead
+    entries point at the null block 0."""
+    ids = iter(rng.permutation(np.arange(1, NB)).tolist())
+    tables = np.zeros((len(spans), MB), np.int32)
+    for s, n in enumerate(spans):
+        for j in range(n):
+            tables[s, j] = (tables[0, j] if s == 1 and j < 2 and
+                            spans[0] > j else next(ids))
+    return tables
+
+
+def phase_paged(flush):
+    """B5, B6 and B7 against their plain versions in bf16 at GPT-2 XL
+    shapes (S=8 slots, BS=128, MB=8, NB=65 blocks) and a GQA case."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(3)
+    S, BS, MB, NB, K, C = 8, 128, 8, 65, 4, 256
+    out = {}
+    for name, H, KH, D in (("gpt2-xl", 25, 25, 64),
+                           ("gqa H=32 KH=8 D=128", 32, 8, 128)):
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.bfloat16)
+        # the layer view of a 2-layer pool, as the model passes it
+        kp, vp = rnd(2, NB, BS, KH, D)[1], rnd(2, NB, BS, KH, D)[1]
+        span = MB * BS
+
+        def gathered(tables):
+            t = tables.long()
+            return (kp[t].reshape(t.shape[0], span, KH, D).transpose(1, 2),
+                    vp[t].reshape(t.shape[0], span, KH, D).transpose(1, 2))
+
+        # ---- B5 paged decode
+        lens_np = rng.integers(1, span + 1, S).astype(np.int32)
+        tables = torch.as_tensor(_paged_tables(rng, -(-lens_np // BS), NB,
+                                               MB), device="cuda")
+        lens = torch.as_tensor(lens_np, device="cuda")
+        q = rnd(S, H, D)
+        args = (q, kp, vp, tables, lens)
+        err = (da.paged_decode_attention(*args).float()
+               - da.paged_decode_attention_reference(*args).float()
+               ).abs().max().item()
+        check(math.isfinite(err) and err <= DECODE_TOL,
+              f"paged decode {name}: max err {err} > {DECODE_TOL}")
+        live = int(lens_np.sum())
+        bound, by = _bound(2 * 2 * live * KH * D + 2 * 2 * S * H * D
+                           + 4 * S * (MB + 1), 4 * live * H * D,
+                           H100_F32_FLOPS)
+        kc, vc = gathered(tables)
+        mask = (torch.arange(span, device="cuda")[None, :] < lens[:, None]
+                )[:, None, None, :]
+        rec = dict(
+            ms=cuda_ms(lambda: da.paged_decode_attention(*args), 50, flush),
+            plain_ms=cuda_ms(lambda: da.paged_decode_attention_reference(
+                *args), 10, flush),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=KH != H),
+                50, flush),
+            bound_ms=bound, bound_by=by, max_abs_err=err)
+        log(f"[paged] decode {name}: lengths sum {live}, max|o err| {err!r} "
+            f"(tol {DECODE_TOL}); kernel {rec['ms']!r} ms, plain "
+            f"{rec['plain_ms']!r} ms, sdpa over the cache already gathered "
+            f"{rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
+        out.setdefault("paged_decode_attention", []).append((name, rec))
+
+        # ---- B6 paged chunk: C=256 at start 0, 256 and 512 of one slot
+        row_np = _paged_tables(rng, [MB], NB, MB)[0]
+        row = torch.as_tensor(row_np, device="cuda")
+        for start in (0, 256, 512):
+            qc = rnd(C, H, D)
+            cargs = (qc, kp, vp, row, start)
+            err = (da.paged_chunk_attention(*cargs).float()
+                   - da.paged_chunk_attention_reference(*cargs).float()
+                   ).abs().max().item()
+            check(math.isfinite(err) and err <= FLASH_TOL,
+                  f"paged chunk {name} start {start}: max err {err} > "
+                  f"{FLASH_TOL}")
+            keys = start + C
+            pairs = C * start + C * (C + 1) // 2
+            bound, by = _bound(2 * 2 * keys * KH * D + 2 * 2 * C * H * D
+                               + 4 * MB, 4 * pairs * H * D, H100_BF16_FLOPS)
+            kc1 = kp[row.long()].reshape(span, KH, D).transpose(0, 1)[None]
+            vc1 = vp[row.long()].reshape(span, KH, D).transpose(0, 1)[None]
+            cmask = (torch.arange(span, device="cuda")[None, :]
+                     <= start + torch.arange(C, device="cuda")[:, None])
+            qt = qc.transpose(0, 1)[None]
+            rec = dict(
+                ms=cuda_ms(lambda: da.paged_chunk_attention(*cargs), 20,
+                           flush),
+                plain_ms=cuda_ms(lambda: da.paged_chunk_attention_reference(
+                    *cargs), 5, flush),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kc1, vc1, attn_mask=cmask, enable_gqa=KH != H), 20,
+                    flush),
+                bound_ms=bound, bound_by=by, max_abs_err=err)
+            log(f"[paged] chunk {name} C={C} start={start}: max|o err| "
+                f"{err!r} (tol {FLASH_TOL}); kernel {rec['ms']!r} ms, plain "
+                f"{rec['plain_ms']!r} ms, sdpa over the cache already "
+                f"gathered {rec['library_ms']!r} ms, bound {bound!r} ms "
+                f"({by}), {4 * pairs * H * D / rec['ms'] / 1e9:.1f} TFLOP/s")
+            out.setdefault("paged_chunk_attention", []).append(
+                (f"{name} start={start}", rec))
+
+        # ---- B7 paged verify: K=4 candidates per slot
+        lens_np = rng.integers(1, span - K + 1, S).astype(np.int32)
+        tables = torch.as_tensor(_paged_tables(rng, -(-(lens_np + K) // BS),
+                                               NB, MB), device="cuda")
+        lens = torch.as_tensor(lens_np, device="cuda")
+        qv = rnd(S, K, H, D)
+        vargs = (qv, kp, vp, tables, lens)
+        err = (da.paged_verify_attention(*vargs).float()
+               - da.paged_verify_attention_reference(*vargs).float()
+               ).abs().max().item()
+        check(math.isfinite(err) and err <= DECODE_TOL,
+              f"paged verify {name}: max err {err} > {DECODE_TOL}")
+        keys = int(lens_np.sum()) + S * K
+        pairs = sum(K * int(n) + K * (K + 1) // 2 for n in lens_np)
+        bound, by = _bound(2 * 2 * keys * KH * D + 2 * 2 * S * K * H * D
+                           + 4 * S * (MB + 1), 4 * pairs * H * D,
+                           H100_F32_FLOPS)
+        kc, vc = gathered(tables)
+        vmask = (torch.arange(span, device="cuda")[None, None, :]
+                 <= lens[:, None, None]
+                 + torch.arange(K, device="cuda")[None, :, None])[:, None]
+        qt = qv.transpose(1, 2)
+        rec = dict(
+            ms=cuda_ms(lambda: da.paged_verify_attention(*vargs), 50, flush),
+            plain_ms=cuda_ms(lambda: da.paged_verify_attention_reference(
+                *vargs), 10, flush),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=vmask, enable_gqa=KH != H), 50, flush),
+            bound_ms=bound, bound_by=by, max_abs_err=err)
+        log(f"[paged] verify {name} K={K}: lengths sum {int(lens_np.sum())}, "
+            f"max|o err| {err!r} (tol {DECODE_TOL}); kernel {rec['ms']!r} "
+            f"ms, plain {rec['plain_ms']!r} ms, sdpa over the cache already "
+            f"gathered {rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
+        out.setdefault("paged_verify_attention", []).append((name, rec))
+    # the row of each kernel: its GPT-2 XL case (B6 at start 256), with the
+    # worst error over all cases
+    main = {"paged_decode_attention": "gpt2-xl",
+            "paged_chunk_attention": "gpt2-xl start=256",
+            "paged_verify_attention": "gpt2-xl"}
+    return {k: dict(dict(v)[main[k]],
+                    max_abs_err=max(r["max_abs_err"] for _, r in v))
+            for k, v in out.items()}
+
+
 def gpt2_xl_config():
     from deepspeed_tpu_torch.model_implementations.transformer import \
         InferenceTransformerConfig
@@ -216,18 +397,25 @@ def gpt2_xl_config():
         positional="learned", tied_lm_head=True, dtype=torch.bfloat16)
 
 
-def phase_e2e(cfg, dev="cuda"):
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.model_implementations.transformer import (
-        causal_forward, decode_step, init_params, prefill)
-    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
-    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd
+def make_params(cfg, dev="cuda"):
+    """Random GPT-2 XL weights from a generator seeded 0, on the card."""
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        init_params
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
     log(f"[e2e] random weights: {n_params} parameters in "
         f"{time.perf_counter() - t0:.3f} s")
+    return params
+
+
+def phase_e2e(cfg, params, dev="cuda"):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        causal_forward, decode_step, prefill)
+    from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd
     engine = deepspeed_tpu_torch.init_inference(
         (cfg, params), dtype=str(cfg.dtype).replace("torch.", ""), device=dev)
     rng = np.random.default_rng(0)
@@ -337,6 +525,218 @@ def phase_e2e(cfg, dev="cuda"):
     return {"flash_attention_fwd": n_flash, "decode_attention": n_decode}
 
 
+_PAGED_KERNELS = ("flash_attention_fwd", "decode_attention",
+                  "paged_decode_attention", "paged_chunk_attention",
+                  "paged_verify_attention")
+
+
+def _launch_counts(reset=False):
+    """The five wrappers' launch counts (set to 0 first when ``reset``)."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    fns = {"flash_attention_fwd": fa.flash_attention_fwd,
+           **{n: getattr(da, n) for n in _PAGED_KERNELS[1:]}}
+    if reset:
+        for f in fns.values():
+            f.launches = 0
+    return {n: f.launches for n, f in fns.items()}
+
+
+def _serve_run(engine, name, knobs, batches, new, between=None):
+    """One server over ``engine`` with config ``knobs``: submit each batch
+    of prompts in turn, stepping ``between(srv, i)`` steps after batch i,
+    then drain. The kernel counts are set to 0 just before and read just
+    after. Returns (server, request ids, outputs, counts, step walls)."""
+    from deepspeed_tpu_torch.inference import (ContinuousBatchingServer,
+                                               DeepSpeedInferenceConfig)
+    engine.config = DeepSpeedInferenceConfig(dtype="bfloat16", **knobs)
+    srv = ContinuousBatchingServer(engine)
+    torch.cuda.synchronize()
+    walls, ids = [], []
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        ids += [srv.submit(p, max_new_tokens=new) for p in batch]
+        for _ in range(between(srv, i) if between else 0):
+            ts = time.perf_counter()
+            srv.step()
+            walls.append(time.perf_counter() - ts)
+    while not srv.scheduler.idle:
+        ts = time.perf_counter()
+        srv.step()
+        walls.append(time.perf_counter() - ts)
+    out = srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    st = srv.stats
+    tokens = sum(len(out[r]) - len(p) for r, p in
+                 zip(ids, [p for b in batches for p in b]))
+    log(f"[serve] {name}: {len(ids)} requests, {tokens} tokens in {wall!r} "
+        f"s = {tokens / wall!r} tokens/s; {len(walls)} steps, median step "
+        f"{float(np.median(walls)) * 1e3!r} ms; decode steps "
+        f"{st['decode_steps']}, garbage steps "
+        f"{st['async_loop']['garbage_steps']}, prefills {st['prefills']}, "
+        f"chunks {st['prefill_chunks']}, prefix hits "
+        f"{st['prefix_cache_hits']}, verify steps "
+        f"{st['speculation']['verify_steps']}, tokens/forward "
+        f"{st['speculation']['tokens_per_forward']}; launches {counts}")
+    return srv, ids, out, counts
+
+
+def _serve_oracle(engine, name, prompts, rows, new):
+    """Tie-tolerant oracle on two requests: each served token's logit in
+    a forward over prompt + served tokens through no attention kernel
+    (the flash kernel's plain version) is within E2E_MAX_TOL of that
+    position's maximum. Also counts served tokens equal to generate's."""
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        causal_forward
+    T = max(len(r) for r in rows)
+    ids = np.zeros((len(rows), T), np.int64)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)] = r
+    with torch.inference_mode():
+        ref = causal_forward(engine.params, engine.model_config,
+                             torch.as_tensor(ids, device="cuda"),
+                             reference_attention=True)
+    worst = 0.0
+    for i, (p, r) in enumerate(zip(prompts, rows)):
+        for pos in range(len(p), len(r)):
+            lg = ref[i, pos - 1]
+            worst = max(worst, (lg.max() - lg[r[pos]]).item())
+    gen = engine.generate(prompts, max_new_tokens=new)
+    same = sum(a == b for g, r, p in zip(gen, rows, prompts)
+               for a, b in zip(g[len(p):], r[len(p):]))
+    total = sum(len(r) - len(p) for r, p in zip(rows, prompts))
+    log(f"[serve] {name} oracle on 2 requests: worst (max logit - served "
+        f"token's logit) {worst!r} (tol {E2E_MAX_TOL}); {same} of {total} "
+        f"served tokens equal generate's")
+    check(math.isfinite(worst) and worst <= E2E_MAX_TOL,
+          f"serve {name}: a served token is not a near-argmax of the "
+          f"reference forward ({worst} > {E2E_MAX_TOL})")
+
+
+def phase_serve(cfg, params):
+    """The paged server at GPT-2 XL width through three configurations,
+    each server closed before the next; launch counts are set to 0 just
+    before each run and read just after."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.kv_cache import init_paged_cache
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        paged_decode_step
+    engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                dtype="bfloat16")
+    L, V, new = cfg.n_layer, cfg.vocab_size, 32
+    rng = np.random.default_rng(5)
+    engine.generate([[1, 2, 3]], max_new_tokens=2)   # warm-up
+    runs = {}
+
+    def verify(name, srv, ids, out, prompts, counts, expect):
+        check(counts["decode_attention"] == 0,
+              f"serve {name}: {counts['decode_attention']} dense decode "
+              f"launches (the server must use the paged kernels)")
+        for k, n in expect.items():
+            check(counts[k] == n and n > 0,
+                  f"serve {name}: {k} launched {counts[k]} times, expected "
+                  f"{n}")
+        for r, p in zip(ids, prompts):
+            check(out[r][:len(p)] == p and len(out[r]) == len(p) + new
+                  and all(0 <= t < V for t in out[r][len(p):]),
+                  f"serve {name}: request {r} malformed")
+        _serve_oracle(engine, name, [prompts[0], prompts[-1]],
+                      [out[ids[0]], out[ids[-1]]], new)
+        runs[name] = counts
+        srv.close()
+
+    # (a) default config: monolithic prefill, async loop, lag 1
+    prompts = [rng.integers(0, V, n).tolist()
+               for n in rng.integers(64, 701, 16)]
+    srv, ids, out, counts = _serve_run(
+        engine, "default", {}, [prompts[:8], prompts[8:]], new,
+        between=lambda srv, i: 4 if i == 0 else 0)
+    st = srv.stats
+    verify("default", srv, ids, out, prompts, counts, {
+        "flash_attention_fwd": L * st["prefills"],
+        "paged_decode_attention": L * (
+            st["decode_steps"] + st["async_loop"]["garbage_steps"])})
+    del srv
+
+    # one paged decode step at S=8 on its own: host enqueue vs device
+    pool = init_paged_cache(L, 8, 65, 128, 8, cfg.kv_heads, cfg.head_dim,
+                            device="cuda")
+    lens = rng.integers(300, 900, 8)
+    pool.block_tables.copy_(torch.as_tensor(
+        _paged_tables(rng, -(-(lens + 1) // 128), 65, 8), device="cuda"))
+    pool.lengths.copy_(torch.as_tensor(lens, device="cuda"))
+    tok = torch.zeros(8, dtype=torch.long, device="cuda")
+    active = torch.ones(8, dtype=torch.bool, device="cuda")
+    host, dev_ms = [], []
+    with torch.inference_mode():
+        for _ in range(8):
+            s_ev, e_ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            th = time.perf_counter()
+            s_ev.record()
+            lg, pool = paged_decode_step(engine.params, engine.model_config,
+                                         tok, pool, active)
+            e_ev.record()
+            host.append(time.perf_counter() - th)
+            tok = lg.argmax(-1)
+            torch.cuda.synchronize()
+            dev_ms.append(s_ev.elapsed_time(e_ev))
+    log(f"[serve] one paged decode step (S=8, lengths {lens.tolist()}): "
+        f"host enqueue {float(np.median(host)) * 1e3!r} ms, device "
+        f"{float(np.median(dev_ms))!r} ms (medians of 8)")
+    del pool
+
+    # (b) prefix caching + 256-token chunks: 8 requests share a 512-token
+    # prefix (the first one prefills it, the others hit it) and 4 are cold
+    prefix = rng.integers(0, V, 512).tolist()
+    shared = [prefix + rng.integers(0, V, n).tolist()
+              for n in rng.integers(8, 200, 8)]
+    cold = [rng.integers(0, V, n).tolist() for n in rng.integers(64, 701, 4)]
+    prompts = shared + cold
+
+    def until_first_prefilled(srv, i):
+        if i == 0:
+            while srv.stats["prefills"] == 0:
+                srv.step()
+        return 0
+
+    srv, ids, out, counts = _serve_run(
+        engine, "prefix+chunked",
+        {"enable_prefix_caching": True, "prefill_chunk_tokens": 256},
+        [shared[:1], shared[1:] + cold], new, between=until_first_prefilled)
+    st = srv.stats
+    check(st["prefix_cache_hits"] > 0,
+          "serve prefix+chunked: no prefix-cache hit")
+    verify("prefix+chunked", srv, ids, out, prompts, counts, {
+        "paged_chunk_attention": L * st["prefill_chunks"],
+        "paged_decode_attention": L * (
+            st["decode_steps"] + st["async_loop"]["garbage_steps"])})
+    del srv
+
+    # (c) prompt-lookup speculation, K=4: prompts repeat a 24-token phrase
+    phrase = rng.integers(0, V, 24).tolist()
+    prompts = [rng.integers(0, V, n).tolist() + phrase * r
+               for n, r in zip(rng.integers(1, 40, 8),
+                               rng.integers(2, 8, 8))]
+    srv, ids, out, counts = _serve_run(
+        engine, "speculation K=4", {"speculation_tokens": 4}, [prompts],
+        new)
+    st = srv.stats
+    tpf = st["speculation"]["tokens_per_forward"]
+    check(tpf is not None and tpf > 1,
+          f"serve speculation: {tpf} tokens per forward, not > 1")
+    verify("speculation K=4", srv, ids, out, prompts, counts, {
+        "flash_attention_fwd": L * st["prefills"],
+        "paged_verify_attention": L * (
+            st["speculation"]["verify_steps"]
+            + st["async_loop"]["garbage_steps"])})
+    del srv
+    return runs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -364,8 +764,17 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     phase_build()
     kernels = {"flash_attention_fwd": phase_flash(flush),
-               "decode_attention": phase_decode(flush)}
-    launches = phase_e2e(gpt2_xl_config())
+               "decode_attention": phase_decode(flush),
+               **phase_paged(flush)}
+    cfg = gpt2_xl_config()
+    params = make_params(cfg)
+    runs = {"e2e": phase_e2e(cfg, params)}
+    runs.update(phase_serve(cfg, params))
+    # launches: summed over the main-path runs, each read just after it
+    launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels}
+    for k, n in launches.items():
+        check(n > 0, f"{k} was never launched on the main path")
+    log(f"[launches] per run {runs}")
     meta = {
         "flash_attention_fwd": (
             "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
@@ -373,6 +782,15 @@ def main() -> int:
         "decode_attention": (
             "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
             "deepspeed_tpu/ops/pallas/decode_attention.py:78"),
+        "paged_decode_attention": (
+            "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:164"),
+        "paged_chunk_attention": (
+            "deepspeed_tpu_torch/ops/csrc/paged_chunk_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:292"),
+        "paged_verify_attention": (
+            "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:421"),
     }
     rows = []
     for name, nums in kernels.items():

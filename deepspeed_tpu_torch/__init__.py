@@ -5,9 +5,11 @@ package's module layout and names; inside it is PyTorch, and every Pallas
 kernel on its path is a CUDA kernel written for Hopper
 (``ops/csrc/``). It imports neither JAX nor ``deepspeed_tpu``.
 
-This slice is one-shot inference: :func:`init_inference` →
-``InferenceEngine.generate``. Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+Ported so far: one-shot inference (:func:`init_inference` →
+``InferenceEngine.generate``) and the paged continuous-batching server
+(``inference.ContinuousBatchingServer(engine)`` → ``submit`` / ``step`` /
+``drain``). Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 from deepspeed_tpu_torch.utils.logging import logger  # noqa: F401
 

@@ -1,0 +1,214 @@
+"""Async serving loop support: in-flight step records + publish worker.
+
+Copy of ``deepspeed_tpu/inference/async_loop.py`` (``InFlightStep`` :50,
+``PublishWorker`` :74) with one addition for one CUDA stream:
+:class:`TokenFetch`. JAX fetches a lagged step's tokens with
+``np.asarray``, which waits for that step only. A plain ``.cpu()`` of step
+N's tokens after step N+1 is enqueued would wait for N+1 as well, and the
+overlap the loop exists for would be lost without anyone noticing. So the
+copy of N's tokens into pinned host memory is enqueued right after step N,
+an event is recorded behind it, and the commit waits on that event alone.
+
+The pieces behind ``inference.async_loop`` (docs/serving.md "Async
+dispatch loop") that are not scheduler policy:
+
+* :class:`InFlightStep` — the host-side record of ONE device program
+  whose results have not been fetched yet. The pipelined loop holds a
+  FIFO chain of up to ``max_commit_lag`` of them (lag-N commit; the
+  default of 1 is the original lag-1 loop): the decode path dispatches
+  step N+1 chained from step N's device-resident outputs, and only once
+  the chain is full does the host fetch + commit the OLDEST record; the
+  verify path dispatches the next round right after committing the
+  previous one (verify chains never deepen past one — proposals go
+  stale at commit boundaries). Everything commit needs later rides
+  here: the output device array, the slot→state snapshot taken at
+  dispatch (identity-checked at commit so a slot retired or recycled in
+  between discards its in-flight garbage tokens instead of corrupting a
+  new resident), the proposals a verify round was scored against
+  (per-slot host lists for prompt lookup), the pending host copy of the
+  tokens, and the dispatch/fetch timestamps the latency histograms are
+  computed from. Committing a mid-chain record rethreads the next
+  record's ``prev_fetch`` so fetch-to-fetch latency attribution stays
+  honest at any depth.
+
+* :class:`PublishWorker` — the worker thread metric publishing moves to
+  under the async loop. Commit computes every value on the owner thread
+  (durations come from the server's injectable clock — jobs never read
+  a clock, so fake-clock chaos tests stay deterministic) and enqueues a
+  closure of pure registry operations; the thread drains them off the
+  serving hot path. ``drain()`` blocks until the queue is empty — the
+  server calls it at every pipeline flush, at ``drain()``, and before
+  ``stats`` reads, so every surface a test or operator consults sees
+  fully-published numbers. The registry is already thread-safe (the
+  scrape endpoint reads it concurrently today); the worker only ever
+  touches registry instruments, never scheduler or device state.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+# sentinel: wakes the worker thread for shutdown (task_done'd like any
+# job so a concurrent drain() can never hang on it)
+_STOP = object()
+
+
+class TokenFetch:
+    """One step's output tokens on their way to the host (see module doc).
+    On a CPU tensor the values are already there."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, tokens: torch.Tensor):
+        self.event = None
+        if tokens.device.type != "cuda":
+            self.host = tokens
+            return
+        self.host = torch.empty(tokens.shape, dtype=tokens.dtype,
+                                pin_memory=True)
+        self.host.copy_(tokens, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def wait(self) -> np.ndarray:
+        """The tokens as numpy, once this step's copy has landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class InFlightStep:
+    """One dispatched-but-unfetched device program (see module doc)."""
+
+    __slots__ = ("kind", "tokens", "fetch", "states", "props",
+                 "t_dispatch", "prev_fetch")
+
+    def __init__(self, kind: str, tokens: torch.Tensor,
+                 states: Dict[int, Any], t_dispatch: float,
+                 props: Optional[Any] = None,
+                 prev_fetch: Optional[float] = None):
+        self.kind = kind              # "decode" | "verify"
+        self.tokens = tokens          # device tensor: [S] or [S, K]
+        self.fetch = TokenFetch(tokens)   # its copy to the host
+        self.states = states          # slot -> SlotState AT DISPATCH
+        # verify: slot -> proposed tokens (prompt lookup)
+        self.props = props
+        self.t_dispatch = t_dispatch
+        # when the PREVIOUS step's results landed on the host — the
+        # honest per-step latency under pipelining is fetch-to-fetch
+        # (tokens are delivered at fetches), falling back to
+        # dispatch→fetch for the pipeline's first step
+        self.prev_fetch = prev_fetch
+
+
+class PublishWorker:
+    """Single daemon thread draining metric-publish closures (see
+    module doc). Thread creation is lazy: a sync-fallback server (or an
+    async server that never reaches steady state) costs nothing."""
+
+    def __init__(self, name: str = "serve-publish"):
+        self._name = name
+        self._q: "queue.Queue" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        self.published = 0
+        self.errors = 0
+        self.max_depth = 0
+        self._closed = False
+
+    def _ensure_thread(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return
+            self._thread = threading.Thread(
+                target=self._loop, name=self._name, daemon=True)
+            self._thread.start()
+
+    def _loop(self) -> None:
+        while True:
+            job = self._q.get()
+            try:
+                if job is _STOP:
+                    return
+                job()
+                self.published += 1
+            except Exception:  # noqa: BLE001 — a bad metric closure
+                # must never kill the publisher (the serving loop would
+                # silently stop reporting); counted for stats
+                self.errors += 1
+            finally:
+                self._q.task_done()
+
+    def submit(self, job: Callable[[], None]) -> None:
+        if self._closed:
+            # a closed worker publishes inline — close() must not turn
+            # late commits (drain tail) into silent metric loss
+            job()
+            self.published += 1
+            return
+        self._ensure_thread()
+        self._q.put(job)
+        depth = self._q.qsize()
+        if depth > self.max_depth:
+            self.max_depth = depth
+
+    def _run_pending_inline(self) -> None:
+        """Run whatever is still queued on the CALLER's thread — the
+        dead-worker escape hatch: ``Queue.join()`` against a thread that
+        already exited (crashed mid-teardown, reaped at interpreter
+        shutdown) would block forever on jobs no one will consume."""
+        while True:
+            try:
+                job = self._q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                if job is not _STOP:
+                    job()
+                    self.published += 1
+            except Exception:  # noqa: BLE001 — same contract as _loop
+                self.errors += 1
+            finally:
+                self._q.task_done()
+
+    def drain(self) -> None:
+        """Block until every submitted job has run (owner thread). A
+        dead worker thread drains inline instead of hanging — a
+        supervisor closing replicas in arbitrary health states must
+        never wedge on a publisher corpse."""
+        if self._thread is None:
+            return
+        if not self._thread.is_alive():
+            self._run_pending_inline()
+            return
+        self._q.join()
+
+    def close(self) -> None:
+        """Drain, then stop the thread. Idempotent; after close,
+        submits run inline. Safe against a dead worker thread (see
+        :meth:`drain`)."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._thread is None:
+            return
+        if not self._thread.is_alive():
+            self._run_pending_inline()
+            return
+        self._q.put(_STOP)
+        self._q.join()
+        self._thread.join(timeout=5.0)
+
+    @property
+    def depth(self) -> int:
+        return self._q.qsize()
+
+    def snapshot(self) -> dict:
+        return {"published": self.published, "errors": self.errors,
+                "queue_depth": self.depth, "max_depth": self.max_depth}

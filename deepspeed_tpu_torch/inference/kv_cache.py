@@ -1,19 +1,37 @@
-"""Dense KV cache — the inference workspace.
+"""KV caches — the inference workspace: dense and paged.
 
-Counterpart of the dense part of ``deepspeed_tpu/inference/kv_cache.py``
-(``KVCache`` through ``advance``, :28-151): keys and values
-``[L, B, S_max, KH, D]`` plus per-sequence live ``lengths [B]`` (int32, on
-the cache's device). JAX threads an immutable, donated cache through its
-jitted steps; here :func:`write_prompt` and :func:`append_token` write the
-k/v buffers in place (one allocation per generation, no copies), while
-``lengths`` is replaced, never mutated.
+Counterpart of ``deepspeed_tpu/inference/kv_cache.py``:
+
+* the dense cache (``KVCache`` through ``advance``, :28-151): keys and
+  values ``[L, B, S_max, KH, D]`` plus per-sequence live ``lengths [B]``
+  (int32, on the cache's device);
+* the paged pool (``PagedKVCache`` through ``paged_advance``, :154-460, and
+  ``BlockAllocator`` :619): one global block pool ``[L, NB, BS, KH, D]``
+  shared by every resident sequence, per-slot int32 block tables mapping
+  logical positions to pool blocks, and the host-side refcounted free list
+  with prefix caching. Block 0 is the reserved null block: idle slots keep
+  an all-zero table row and write their masked, discarded tokens there.
+
+JAX threads an immutable, donated cache through its jitted steps; here the
+writers put k/v into the buffers in place (one allocation, no copies),
+while ``lengths`` is replaced by the step functions. Where a JAX gather
+clamps an index or a JAX scatter drops one, the port clamps or redirects
+it explicitly: torch indexing would fault on the device instead.
+
+Not in this slice (ROADMAP.md queue C): int8 pools with scale tiles
+(``quantized=True``), the host tier (``HostKVTier``, ``paged_read_block``,
+``paged_swap_in``) and the allocator's demote/swap-in hooks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Optional
 
 import torch
+
+_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
 
 
 @dataclasses.dataclass
@@ -103,3 +121,337 @@ def append_token(cache: KVCache, layer: int, k: torch.Tensor,
 def advance(cache: KVCache, n: int = 1) -> KVCache:
     """A cache whose lengths are ``n`` further on (same k/v buffers)."""
     return dataclasses.replace(cache, lengths=cache.lengths + n)
+
+
+# ---------------------------------------------------------------- paged
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged decode workspace over ``num_slots`` resident sequences.
+
+    k/v: ``[L, num_blocks, block_size, KH, D]`` global pool.
+    block_tables: ``[num_slots, max_blocks]`` int32 — pool block ids per
+    slot, in logical order (entry j covers positions ``j*block_size ..
+    (j+1)*block_size-1``); unallocated entries are 0 (the null block).
+    lengths: ``[num_slots]`` int32 live context length per slot."""
+    k: torch.Tensor
+    v: torch.Tensor
+    block_tables: torch.Tensor
+    lengths: torch.Tensor
+
+    quantized = False   # int8 pools are a later slice
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def num_slots(self) -> int:
+        return self.block_tables.shape[0]
+
+    @property
+    def max_blocks(self) -> int:
+        return self.block_tables.shape[1]
+
+    @property
+    def max_context(self) -> int:
+        return self.max_blocks * self.block_size
+
+    @property
+    def num_layers(self) -> int:
+        return self.k.shape[0]
+
+
+def init_paged_cache(num_layers: int, num_slots: int, num_blocks: int,
+                     block_size: int, max_blocks_per_slot: int,
+                     num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
+                     quantized: bool = False, device=None) -> PagedKVCache:
+    """``num_blocks`` INCLUDES the reserved null block 0, so the usable
+    pool is ``num_blocks - 1`` blocks."""
+    if quantized:
+        raise NotImplementedError(f"int8 paged pools {_LATER}")
+    shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        block_tables=torch.zeros((num_slots, max_blocks_per_slot),
+                                 dtype=torch.int32, device=device),
+        lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device))
+
+
+def _scatter_blocks(cache: PagedKVCache, layer: int, idx: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor) -> PagedKVCache:
+    """Whole-block scatter shared by the prompt and chunk writers:
+    ``[nb*BS, KH, D]`` k/v into pool blocks ``idx [nb]``, in place. Entries
+    pointing at the null block may repeat; which write lands there does
+    not matter (block 0 is garbage by contract)."""
+    nb, BS = idx.shape[0], cache.block_size
+    idx = idx.long()
+    cache.k[layer][idx] = k.reshape(nb, BS, *k.shape[1:]).to(cache.k.dtype)
+    cache.v[layer][idx] = v.reshape(nb, BS, *v.shape[1:]).to(cache.v.dtype)
+    return cache
+
+
+def paged_write_prompt(cache: PagedKVCache, layer: int, k: torch.Tensor,
+                       v: torch.Tensor, slot: int) -> PagedKVCache:
+    """Prefill: scatter one prompt's ``[T, KH, D]`` k/v into ``slot``'s
+    blocks at logical positions ``0..T-1`` (T divisible by block_size).
+    Positions beyond the live length hold right-pad garbage (masked by
+    attention, overwritten by later appends). Lengths are NOT set here."""
+    nb = k.shape[0] // cache.block_size
+    return _scatter_blocks(cache, layer, cache.block_tables[slot, :nb], k, v)
+
+
+def _scatter_positions(cache: PagedKVCache, layer: int, blk: torch.Tensor,
+                       off: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> PagedKVCache:
+    """Per-position scatter shared by the append and verify writers: k/v
+    ``[..., KH, D]`` with leading dims matching ``blk``/``off``."""
+    blk, off = blk.long(), off.long()
+    cache.k[layer][blk, off] = k.to(cache.k.dtype)
+    cache.v[layer][blk, off] = v.to(cache.v.dtype)
+    return cache
+
+
+def paged_append_token(cache: PagedKVCache, layer: int, k: torch.Tensor,
+                       v: torch.Tensor) -> PagedKVCache:
+    """Decode: append one token's ``[S, KH, D]`` k/v at ``lengths[s]`` for
+    every slot, in place. Idle slots (all-zero table, length 0) write into
+    the null block, and so does a position past the table (a garbage row
+    of the pipelined loop): JAX's ``take_along_axis`` gives an out-of-range
+    block id there and its scatter drops the write. Lengths advance via
+    :func:`paged_advance`."""
+    return _scatter_positions(cache, layer,
+                              *_table_lookup(cache, cache.lengths[:, None]),
+                              k[:, None], v[:, None])
+
+
+def _table_lookup(cache: PagedKVCache, pos: torch.Tensor):
+    """(pool block, offset) of positions ``pos [S, n]`` through each slot's
+    table row; a position past the table maps to the null block 0."""
+    pos = pos.long()
+    entry = pos // cache.block_size
+    blk = cache.block_tables.gather(
+        1, entry.clamp(0, cache.max_blocks - 1))
+    blk = torch.where(entry < cache.max_blocks, blk, torch.zeros_like(blk))
+    return blk, pos % cache.block_size
+
+
+def paged_write_tokens(cache: PagedKVCache, layer: int, k: torch.Tensor,
+                       v: torch.Tensor) -> PagedKVCache:
+    """Speculative verify: write K tokens' ``[S, K, KH, D]`` k/v for EVERY
+    slot at positions ``lengths[s]..lengths[s]+K-1`` through the block
+    tables, in place, without advancing lengths. A position whose block
+    index runs past the table redirects to the null block 0."""
+    pos = cache.lengths[:, None] + torch.arange(
+        k.shape[1], device=cache.lengths.device)[None, :]
+    return _scatter_positions(cache, layer, *_table_lookup(cache, pos), k, v)
+
+
+def paged_write_chunk(cache: PagedKVCache, layer: int, k: torch.Tensor,
+                      v: torch.Tensor, slot: int, start: int
+                      ) -> PagedKVCache:
+    """Chunked prefill: scatter a C-token chunk's ``[C, KH, D]`` k/v into
+    ``slot``'s blocks at positions ``start..start+C-1`` (both C and start
+    block-aligned), in place. Table entries past the row's end are the
+    null block, so a window running past the table spills into block 0
+    (JAX pads the row with zeros for the same reason)."""
+    BS = cache.block_size
+    nb = k.shape[0] // BS
+    row = cache.block_tables[slot]
+    row = torch.cat([row, torch.zeros((nb,), dtype=row.dtype,
+                                      device=row.device)])
+    first = min(start // BS, cache.max_blocks)   # dynamic_slice's clamp
+    return _scatter_blocks(cache, layer, row[first:first + nb], k, v)
+
+
+def paged_gather_slot_kv(cache: PagedKVCache, layer: int, slot: int):
+    """ONE slot's cache ``[1, max_context, KH, D]`` through its table (the
+    chunked-prefill plain path)."""
+    row = cache.block_tables[slot].long()
+    k, v = cache.k[layer][row], cache.v[layer][row]
+    return (k.reshape(1, cache.max_context, *k.shape[2:]),
+            v.reshape(1, cache.max_context, *v.shape[2:]))
+
+
+def paged_gather_kv(cache: PagedKVCache, layer: int):
+    """Per-slot caches ``[S, max_context, KH, D]`` through the block tables
+    — the plain path for ALiBi and windowed layers. Gathered position j is
+    logical position j, so the dense masked attention applies unchanged."""
+    S = cache.num_slots
+    bt = cache.block_tables.long()
+    k, v = cache.k[layer][bt], cache.v[layer][bt]
+    return (k.reshape(S, cache.max_context, *k.shape[3:]),
+            v.reshape(S, cache.max_context, *v.shape[3:]))
+
+
+def paged_advance(cache: PagedKVCache, active: torch.Tensor
+                  ) -> PagedKVCache:
+    """Advance live slots' lengths by one; idle slots stay pinned at 0 so
+    their appends keep landing in the null block."""
+    return dataclasses.replace(cache,
+                               lengths=cache.lengths + active.to(torch.int32))
+
+
+def prefix_block_hashes(prompt, block_size: int) -> List[bytes]:
+    """Chain hashes for every FULL block of a prompt: block i's hash is
+    ``sha256(hash_{i-1} || tokens[i*BS:(i+1)*BS])`` — a block matches only
+    under its entire preceding prefix, which makes reuse position-safe."""
+    n = len(prompt) // block_size
+    out, prev = [], b""
+    for i in range(n):
+        span = prompt[i * block_size:(i + 1) * block_size]
+        h = hashlib.sha256(
+            prev + b"," + ",".join(map(str, span)).encode()).digest()
+        out.append(h)
+        prev = h
+    return out
+
+
+class BlockAllocator:
+    """Host-side refcounted free list over pool blocks 1..num_blocks-1
+    (block 0 is the reserved null block); an EOS'd sequence's blocks
+    return here and are handed to a queued request without any device
+    reallocation.
+
+    Prefix caching: a FULL block covering an immutable block-aligned
+    prompt prefix is registered under its chain hash
+    (:meth:`register_prefix`); a later request sharing that exact prefix
+    takes the block by refcount (:meth:`match_prefix`). Released cached
+    blocks (refcount 0) park in an LRU of evictable blocks and are evicted
+    only when an allocation outruns the free list. The free list is a
+    stack (pop → low ids) with a set shadow for O(1) membership.
+
+    Not in this slice (ROADMAP.md queue C): the host tier's demote and
+    swap-in hooks (an LRU pop is a plain eviction), the KV-pool
+    accountant, famine reservations and the handoff lookups."""
+
+    def __init__(self, num_blocks: int, enable_prefix_caching: bool = False):
+        if num_blocks < 2:
+            raise ValueError(
+                f"need >= 2 pool blocks (1 usable + the null block), "
+                f"got {num_blocks}")
+        self.num_blocks = num_blocks
+        self.enable_prefix_caching = enable_prefix_caching
+        self._free = list(range(num_blocks - 1, 0, -1))  # pop() -> low ids
+        self._free_set = set(self._free)
+        self._refcount: Dict[int, int] = {}       # live blocks only
+        self._hash_to_block: Dict[bytes, int] = {}
+        self._block_hash: Dict[int, bytes] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        # observer for LRU evictions (the scheduler counts them)
+        self.on_evict = None
+        self.evictions = 0
+
+    @property
+    def free_blocks(self) -> int:
+        """Allocatable blocks: immediately free + evictable cached."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def usable_blocks(self) -> int:
+        """Total pool capacity (excludes the reserved null block)."""
+        return self.num_blocks - 1
+
+    @property
+    def cached_blocks(self) -> int:
+        """Blocks holding a reusable hashed prefix (resident shared +
+        evictable LRU)."""
+        return len(self._hash_to_block)
+
+    @property
+    def live_blocks(self) -> int:
+        """DISTINCT blocks held by resident sequences."""
+        return len(self._refcount)
+
+    def _pop_free(self) -> int:
+        if self._free:
+            b = self._free.pop()
+            self._free_set.discard(b)
+            return b
+        # free list dry: evict the least-recently-released cached block
+        # (its hash is forgotten, so a later identical prefix re-prefills)
+        b, _ = self._lru.popitem(last=False)
+        self._drop_hash(b)
+        self.evictions += 1
+        if self.on_evict is not None:
+            self.on_evict(b)
+        return b
+
+    def _drop_hash(self, b: int) -> None:
+        h = self._block_hash.pop(b, None)
+        if h is not None and self._hash_to_block.get(h) == b:
+            del self._hash_to_block[h]
+
+    def allocate(self, n: int):
+        """``n`` fresh block ids (refcount 1 each), or None (caller queues)
+        when even eviction cannot cover the span."""
+        if n > self.free_blocks:
+            return None
+        out = [self._pop_free() for _ in range(n)]
+        for b in out:
+            self._refcount[b] = 1
+        return out
+
+    def release(self, blocks) -> None:
+        """Drop one reference per block. A block reaching refcount 0 returns
+        to the free list — unless it holds a registered prefix, in which
+        case it parks in the evictable LRU."""
+        for b in blocks:
+            if b == 0:
+                raise ValueError("block 0 is the reserved null block")
+            if b in self._free_set or b in self._lru:
+                raise ValueError(f"double free of block {b}")
+            ref = self._refcount.get(b, 0)
+            if ref <= 0:
+                raise ValueError(f"double free of block {b}")
+            if ref > 1:
+                self._refcount[b] = ref - 1
+                continue
+            del self._refcount[b]
+            if b in self._block_hash:
+                self._lru[b] = None
+            else:
+                self._free.append(b)
+                self._free_set.add(b)
+
+    # a match whose tail allocation failed is undone like a release (the
+    # JAX allocator's rollback differs only in its pool accounting)
+    rollback_match = release
+
+    def match_prefix(self, hashes) -> list:
+        """Walk a prompt's chain hashes in prefix order, acquiring every
+        consecutive hit (refcount++ on resident blocks, resurrection out of
+        the LRU for evictable ones). Stops at the first miss."""
+        out = []
+        for h in hashes:
+            b = self._hash_to_block.get(h)
+            if b is None:
+                break
+            if b in self._lru:
+                del self._lru[b]
+                self._refcount[b] = 1
+            else:
+                self._refcount[b] = self._refcount[b] + 1
+            out.append(b)
+        return out
+
+    def register_prefix(self, block: int, h: bytes) -> bool:
+        """Publish a live, fully-written prefix block under its chain hash.
+        First writer wins. Returns True when registered."""
+        if not self.enable_prefix_caching:
+            return False
+        if self._refcount.get(block, 0) <= 0:
+            raise ValueError(
+                f"register_prefix on non-live block {block} — only a "
+                "resident sequence's own blocks can be published")
+        if h in self._hash_to_block or block in self._block_hash:
+            return False
+        self._hash_to_block[h] = block
+        self._block_hash[block] = h
+        return True

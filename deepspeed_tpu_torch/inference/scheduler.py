@@ -1,0 +1,493 @@
+"""Continuous-batching scheduler — host-side admission + slot recycling.
+
+Host-pure copy of ``deepspeed_tpu/inference/scheduler.py`` (``Request``
+:53, ``SlotState`` :117, ``Scheduler`` :136) over the port's
+``BlockAllocator``. The request tracer, the KV-pool accountant and the
+host tier are later slices (ROADMAP.md queue C): the JAX scheduler's
+``tracer``, ``pool_accountant`` and ``host_tier`` arguments are not taken.
+
+The Orca-style control loop over the paged pool (kv_cache.PagedKVCache):
+requests queue FIFO, admission is block-budget aware (a request is
+admitted only when a slot is free AND the free list covers its whole
+prompt+budget block span, so a resident sequence can never be starved of
+its preallocated tail), and an EOS'd sequence's blocks return to the
+free list for the next queued request — all without touching the traced
+decode program.
+
+Design choices vs GPU vLLM, for the static-shape TPU world:
+
+* Blocks for the FULL ``prompt + max_new_tokens`` span are allocated at
+  admission, not on demand. On-demand growth would need per-step
+  host→device block-table updates on the decode hot path; up-front
+  allocation keeps the decode loop free of host traffic and makes
+  admission control exact (an admitted request can always finish). The
+  cost is reserving the tail of a sequence that EOSes early — those
+  blocks come back at completion, which is still per-request granularity
+  instead of the dense cache's per-BATCH granularity.
+* Priority-then-FIFO admission (head-of-line): the highest-priority
+  eligible request is considered next (FIFO within a priority level),
+  and if it does not fit it blocks requests behind it even if they
+  would fit. Two lifecycle states make a queued request temporarily
+  ineligible and are skipped without blocking the line: a preempted
+  request still in its requeue backoff (``ready_at_step``), and an
+  expired deadline (reaped by the server, never admitted — doomed work
+  must not take a slot from live work). Priority-aware ordering also
+  keeps preemption stable (see :meth:`Scheduler._next_eligible`).
+* **Preemption** (vLLM-style recompute, docs/serving.md "Request
+  lifecycle & overload behavior"): under pool pressure the server may
+  preempt the lowest-priority (tie: newest) resident via
+  :meth:`pick_preemption_victim` + :meth:`preempt`; the victim's blocks
+  release through the normal refcount path (full prefix-cached blocks
+  park in the LRU, so re-admission replays warm) and the request
+  requeues at the FRONT with its committed tokens carried in
+  ``Request.committed`` — re-admission prefills ``prompt + committed``
+  and decoding continues exactly where it stopped (greedy parity with
+  an uninterrupted run is test-pinned).
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
+
+from deepspeed_tpu_torch.inference.kv_cache import (BlockAllocator,
+                                                    prefix_block_hashes)
+from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
+from deepspeed_tpu_torch.telemetry.events import (ADMISSION_REJECT,
+                                                  PREFIX_EVICT, record_event)
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request (token ids in, token ids out)."""
+    request_id: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    eos_token_id: Optional[int] = None
+    # scheduling priority: higher wins. Preemption and shedding both
+    # act on the LOWEST priority first; FIFO order breaks ties.
+    priority: int = 0
+    # absolute deadline on the server's clock (None = no deadline);
+    # expired requests are reaped, never admitted
+    deadline_ts: Optional[float] = None
+    # tenant-metering label (telemetry/accounting.py): rides the request
+    # through preemption requeues untouched; None = unmetered. The
+    # scheduler never reads it — cardinality folding happens at the
+    # ledger, ordering stays priority-then-FIFO regardless of tenant.
+    tenant: Optional[str] = None
+    # recompute-preemption state: tokens already generated before the
+    # last preemption (re-admission prefills prompt + committed), how
+    # often this request was preempted, and the decode-step clock tick
+    # before which it must not be re-admitted (backoff)
+    committed: List[int] = dataclasses.field(default_factory=list)
+    preemptions: int = 0
+    ready_at_step: int = 0
+    # high-water pool-block count across this request's residencies
+    # (admission sets it; the server observes it at finish into the
+    # serve_request_peak_blocks histogram — KV-pool accounting)
+    peak_blocks: int = 0
+    # memoized chain hashes of the scheduling prompt's full blocks — a
+    # blocked queue head is re-tried every step and must not re-sha256
+    # its (possibly 100k-token) prompt each time. Invalidated on
+    # preemption (the scheduling prompt grows by the committed tokens).
+    _hashes: Optional[List[bytes]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def sched_prompt(self) -> List[int]:
+        """What admission actually prefills: the original prompt plus
+        any tokens committed before a preemption."""
+        return self.prompt + self.committed if self.committed \
+            else self.prompt
+
+    def blocks_needed(self, block_size: int, margin: int = 0) -> int:
+        # the full span is invariant under preemption: committed tokens
+        # move from budget to prompt, prompt+max_new_tokens stays put.
+        # ``margin`` is the speculative-verify overshoot (K-1 tokens):
+        # a verify forward writes K candidate positions past the live
+        # length, and a committed token's KV must be REAL — spilling an
+        # accepted position into the null block would corrupt decoding,
+        # so the span reserves the overshoot up front.
+        span = len(self.prompt) + self.max_new_tokens + margin
+        return -(-span // block_size)   # ceil
+
+    def expired(self, now: float) -> bool:
+        return self.deadline_ts is not None and now >= self.deadline_ts
+
+    def prefix_hashes(self, block_size: int) -> List[bytes]:
+        if self._hashes is None:
+            self._hashes = prefix_block_hashes(self.sched_prompt,
+                                               block_size)
+        return self._hashes
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Host-side mirror of one resident sequence."""
+    request: Request
+    blocks: List[int]
+    generated: List[int] = dataclasses.field(default_factory=list)
+    pending: int = 0        # last committed token, next decode input
+    arrived_step: int = 0   # decode-step clock at admission (telemetry)
+    # prefix caching: leading blocks taken from the cache (no prefill
+    # compute, refcounted — NOT private to this sequence), and the full
+    # scheduling-prompt blocks' chain hashes for post-prefill
+    # registration
+    cached_blocks: int = 0
+    prompt_hashes: List[bytes] = dataclasses.field(default_factory=list)
+    # True when this admission resumes a preempted request (generated
+    # starts pre-seeded with Request.committed; TTFT was observed long
+    # ago and must not be re-observed)
+    resumed: bool = False
+
+
+class Scheduler:
+    """Queue + free-list + slot table. Pure host logic (numpy-free on the
+    hot path); the server owns the device arrays."""
+
+    def __init__(self, num_slots: int, num_blocks: int, block_size: int,
+                 max_blocks_per_slot: int, max_queued_requests: int,
+                 registry: Optional[MetricRegistry] = None,
+                 enable_prefix_caching: bool = False,
+                 spec_margin: int = 0):
+        self.num_slots = num_slots
+        # speculative-verify overshoot (speculation_tokens - 1): every
+        # request's block span reserves this many extra cache positions
+        # so a verify forward's K-token write window never runs past
+        # the allocated blocks (Request.blocks_needed)
+        self.spec_margin = spec_margin
+        self.block_size = block_size
+        self.max_blocks_per_slot = max_blocks_per_slot
+        self.max_queued_requests = max_queued_requests
+        self.enable_prefix_caching = enable_prefix_caching
+        self.allocator = BlockAllocator(
+            num_blocks, enable_prefix_caching=enable_prefix_caching)
+        self.queue: Deque[Request] = deque()
+        self.slots: Dict[int, SlotState] = {}   # slot id -> state
+        self._free_slots = list(range(num_slots - 1, -1, -1))
+        self.prefix_hits = 0      # host mirrors of the registry counters
+        self.prefix_misses = 0    # (stats without a snapshot round-trip)
+        reg = registry or get_registry()
+        self.telemetry = reg
+        self._g_free = reg.gauge("serve_kv_free_blocks",
+                                 help="paged-pool free list size")
+        self._g_used = reg.gauge("serve_kv_used_blocks",
+                                 help="blocks held by resident sequences")
+        self._g_queue = reg.gauge("serve_queue_depth",
+                                  help="queued-but-unscheduled requests")
+        self._g_active = reg.gauge("serve_active_slots",
+                                   help="resident (live) sequences")
+        self._g_cached = reg.gauge(
+            "serve_prefix_cached_blocks",
+            help="pool blocks holding a reusable hashed prefix "
+                 "(resident shared + evictable LRU)")
+        self._g_requeue = reg.gauge(
+            "serve_requeue_depth",
+            help="preempted requests waiting in the queue for "
+                 "re-admission (recompute preemption — docs/serving.md "
+                 "'Request lifecycle & overload behavior')")
+        self._c_hits = reg.counter(
+            "serve_prefix_cache_hits_total",
+            help="prompt prefix blocks reused from the cache at "
+                 "admission (each hit skips one block of prefill "
+                 "compute and allocates no HBM)")
+        self._c_misses = reg.counter(
+            "serve_prefix_cache_misses_total",
+            help="cacheable prompt prefix blocks NOT found at "
+                 "admission (prefilled cold)")
+        self._c_evict = reg.counter(
+            "serve_prefix_cache_evictions_total",
+            help="cached blocks evicted from the LRU because an "
+                 "allocation outran the free list — the first rung of "
+                 "the degradation ladder (evict before preempt before "
+                 "shed)")
+        self.allocator.on_evict = self._on_evict
+        self._update_gauges()
+
+    def _on_evict(self, block: int) -> None:
+        """LRU eviction observer: the ladder's first rung leaves a
+        counter tick and a ring entry."""
+        self._c_evict.inc()
+        record_event(PREFIX_EVICT, block=block, source="scheduler")
+
+    def _update_gauges(self) -> None:
+        """Refresh level gauges at every admission-state transition —
+        pool pressure is readable between steps, not just at drain."""
+        self._g_free.set(self.allocator.free_blocks)
+        # DISTINCT blocks (allocator view): a shared prefix block counts
+        # once however many slots hold it, so used + free == capacity
+        self._g_used.set(self.allocator.live_blocks)
+        self._g_queue.set(len(self.queue))
+        self._g_active.set(len(self.slots))
+        self._g_cached.set(self.allocator.cached_blocks)
+        self._g_requeue.set(self.requeue_depth)
+
+    def _reject(self, reason: str) -> None:
+        self.telemetry.counter(
+            "serve_admission_rejections_total",
+            help="refused submit() calls, by reason",
+            labels={"reason": reason}).inc()
+        record_event(ADMISSION_REJECT, reason=reason, source="scheduler")
+
+    # ------------------------------------------------------------ submit
+
+    def submit(self, req: Request) -> None:
+        """Admission control: reject loudly what can NEVER run (block
+        span beyond one slot's table) or what the queue bound refuses,
+        instead of deadlocking the drain loop later."""
+        nb = req.blocks_needed(self.block_size, self.spec_margin)
+        if nb > self.max_blocks_per_slot:
+            self._reject("span")
+            margin = (f" + speculation margin ({self.spec_margin})"
+                      if self.spec_margin else "")
+            raise ValueError(
+                f"request {req.request_id}: prompt ({len(req.prompt)}) + "
+                f"max_new_tokens ({req.max_new_tokens}){margin} spans "
+                f"{nb} blocks "
+                f"of {self.block_size} tokens, but a slot holds at most "
+                f"{self.max_blocks_per_slot} (raise max_out_tokens or "
+                "lower the request budget)")
+        if nb > self.allocator.usable_blocks:
+            # block-budget admission: even a fully drained pool could not
+            # hold this request (usable_blocks excludes the null block
+            # the allocator never hands out)
+            self._reject("pool")
+            raise ValueError(
+                f"request {req.request_id} needs {nb} blocks but the "
+                f"whole pool holds {self.allocator.usable_blocks} "
+                "— raise max_out_tokens / num_slots sizing")
+        if len(self.queue) >= self.max_queued_requests:
+            self._reject("queue_full")
+            raise RuntimeError(
+                f"request queue is full ({self.max_queued_requests}); "
+                "drain with step() before submitting more, or raise "
+                "max_queued_requests")
+        self.queue.append(req)
+        self._g_queue.set(len(self.queue))
+
+    # ------------------------------------------------------------ admit
+
+    def _next_eligible(self, step_clock: int,
+                       now: Optional[float]) -> Optional[int]:
+        """Queue index of the next admittable request: the
+        highest-priority eligible entry, FIFO within a priority level.
+        Skips preempted requests still backing off (``ready_at_step``)
+        and — when the server supplied its clock — requests whose
+        deadline already expired (the server reaps those; admitting
+        doomed work would steal a slot from live work). Skipped
+        requests keep their queue position.
+
+        Priority-aware selection is what keeps preemption stable: a
+        backed-off low-priority request front-requeued by a preemption
+        must not grab the free slot ahead of the very high-priority
+        waiter it was evicted for — FIFO here would re-admit it, waste
+        a full prefill, and immediately preempt it again, burning its
+        retry budget toward a spurious ``failed``."""
+        best = None
+        for i, req in enumerate(self.queue):
+            if req.ready_at_step > step_clock:
+                continue
+            if now is not None and req.expired(now):
+                continue
+            if best is None or req.priority > self.queue[best].priority:
+                best = i
+        return best
+
+    def next_ready(self, step_clock: int,
+                   now: Optional[float] = None) -> Optional[Request]:
+        """The request :meth:`admit_next` would consider right now (the
+        server's preemption logic peeks at its priority/span)."""
+        i = self._next_eligible(step_clock, now)
+        return None if i is None else self.queue[i]
+
+    def admit_next(self, step_clock: int = 0,
+                   now: Optional[float] = None):
+        """Pop the first eligible request into a free slot when its
+        whole block span fits the free list. Returns ``(slot,
+        SlotState)`` or None.
+
+        With prefix caching, the scheduling prompt's block-aligned
+        prefix is walked against the hash index first: every consecutive
+        hit is taken by refcount (no allocation, no prefill compute),
+        and only the tail span allocates. Reuse is capped one token
+        short of the prompt (``(len(prompt) - 1) // block_size``
+        blocks) — the prefill must process at least the last prompt
+        token to produce the first output logits. A resumed (preempted)
+        request's scheduling prompt includes its committed tokens, so
+        blocks its previous residency demoted into the LRU hit warm."""
+        if not self._free_slots:
+            return None
+        idx = self._next_eligible(step_clock, now)
+        if idx is None:
+            return None
+        req = self.queue[idx]
+        nb = req.blocks_needed(self.block_size, self.spec_margin)
+        sched_prompt = req.sched_prompt
+        hashes: List[bytes] = []
+        hits: List[int] = []
+        reusable = 0
+        if self.enable_prefix_caching:
+            hashes = req.prefix_hashes(self.block_size)
+            reusable = (len(sched_prompt) - 1) // self.block_size
+            if nb - reusable > self.allocator.free_blocks:
+                # even an all-hit prefix couldn't cover the tail —
+                # skip the match/rollback refcount churn entirely
+                return None
+            hits = self.allocator.match_prefix(hashes[:reusable])
+        tail = self.allocator.allocate(nb - len(hits))
+        if tail is None:
+            if hits:   # roll the acquired hits back (refcount--;
+                       # accounting rewound, not observed — a blocked
+                       # head retried every step is not a residency)
+                self.allocator.rollback_match(hits)
+            return None
+        del self.queue[idx]
+        if self.enable_prefix_caching:
+            # counted only on successful admission — a blocked head
+            # retried every step must not inflate the hit/miss story
+            self._c_hits.inc(len(hits))
+            self._c_misses.inc(reusable - len(hits))
+            self.prefix_hits += len(hits)
+            self.prefix_misses += reusable - len(hits)
+        slot = self._free_slots.pop()
+        req.peak_blocks = max(req.peak_blocks, len(hits) + len(tail))
+        state = SlotState(request=req, blocks=hits + tail,
+                          generated=list(req.committed),
+                          arrived_step=step_clock,
+                          cached_blocks=len(hits),
+                          prompt_hashes=hashes,
+                          resumed=req.preemptions > 0)
+        self.slots[slot] = state
+        self._update_gauges()
+        return slot, state
+
+    def commit_prefix(self, state: SlotState) -> int:
+        """Publish a just-prefilled sequence's full prompt blocks into
+        the prefix-cache index (called by the server once the prefill
+        has written them — content must be valid before another request
+        can hit it). Cached hits are already registered; only the cold
+        tail's full blocks register here. Returns how many registered."""
+        n = 0
+        for i in range(state.cached_blocks, len(state.prompt_hashes)):
+            if self.allocator.register_prefix(state.blocks[i],
+                                              state.prompt_hashes[i]):
+                n += 1
+        if n:
+            self._g_cached.set(self.allocator.cached_blocks)
+        return n
+
+    # ------------------------------------------------------------ recycle
+
+    def release(self, slot: int) -> SlotState:
+        """Return a finished sequence's blocks to the pool and free its
+        slot for the next admission."""
+        state = self.slots.pop(slot)
+        self.allocator.release(state.blocks)
+        self._free_slots.append(slot)
+        self._update_gauges()
+        return state
+
+    # --------------------------------------------------------- lifecycle
+
+    def remove_queued(self, request_id: int) -> Optional[Request]:
+        """Pull one request out of the queue (cancellation / shedding /
+        deadline reap of queued work). Returns it, or None when it is
+        not queued."""
+        for i, req in enumerate(self.queue):
+            if req.request_id == request_id:
+                del self.queue[i]
+                self._update_gauges()
+                return req
+        return None
+
+    def find_slot(self, request_id: int) -> Optional[int]:
+        """The slot a request is resident in, or None."""
+        for slot, state in self.slots.items():
+            if state.request.request_id == request_id:
+                return slot
+        return None
+
+    def pick_preemption_victim(self
+                               ) -> Optional[Tuple[int, "SlotState"]]:
+        """The resident the ladder would preempt next: lowest priority,
+        tie broken by NEWEST admission (least sunk prefill/decode work
+        lost). Returns ``(slot, state)`` or None when no resident is
+        preemptible. The server compares the victim's priority against
+        the waiting request's — the scheduler only ranks."""
+        best = None
+        for slot, state in self.slots.items():
+            key = (state.request.priority, -state.arrived_step)
+            if best is None or key < best[0]:
+                best = (key, slot, state)
+        return None if best is None else (best[1], best[2])
+
+    def preempt(self, slot: int, step_clock: int, backoff_steps: int,
+                register_extension: bool = True) -> Request:
+        """vLLM-style recompute preemption: fold the victim's generated
+        tokens into ``Request.committed`` (re-admission prefills
+        ``prompt + committed`` — the pending token included, its KV was
+        never written and the replayed prefill recomputes it), release
+        its blocks through the refcount path (registered prefix blocks
+        park in the LRU → warm re-admission), and requeue at the FRONT
+        with an exponential backoff so it cannot thrash with its
+        preemptor. ``register_extension`` must be False for a victim
+        whose prefill never completed (mid-chunk content is not valid
+        cache material). The caller (server) owns the device-array
+        reset and the retry bound."""
+        state = self.slots[slot]
+        req = state.request
+        span = len(state.blocks) * self.block_size
+        if (self.enable_prefix_caching and register_extension
+                and state.generated
+                and len(req.prompt) + len(state.generated) - 1 <= span):
+            # demote the extension too: full blocks covering generated
+            # tokens whose KV IS written (everything but the pending
+            # token, whose KV the recompute prefill regenerates) are
+            # registered now, so re-admission hits them instead of
+            # replaying the whole sequence cold. A victim that
+            # out-decoded its allocated span (an injected wedge ignores
+            # the budget; appends past the span clamp into the LAST
+            # block, clobbering it) registers NOTHING — its tail
+            # content is garbage and must not poison the shared cache.
+            written = req.prompt + state.generated[:-1]
+            ext = prefix_block_hashes(written, self.block_size)
+            for i in range(len(state.prompt_hashes),
+                           min(len(ext), len(state.blocks))):
+                self.allocator.register_prefix(state.blocks[i], ext[i])
+        # fold at most max_new_tokens-1 generated tokens into the
+        # scheduling prompt: sched_prompt + >=1 budget token must stay
+        # inside the blocks_needed span. Only an out-of-budget wedged
+        # victim ever hits the clamp (its output is reaped, not served),
+        # so preempt-requeue greedy parity is unaffected.
+        keep = max(0, req.max_new_tokens - 1)
+        req.committed = list(state.generated[:keep])
+        req.preemptions += 1
+        req._hashes = None   # the scheduling prompt just grew
+        # floor of one tick: the victim requeues at the FRONT, so with
+        # zero backoff it would re-admit into the slot it just vacated
+        # BEFORE its preemptor and thrash straight to its retry bound
+        req.ready_at_step = step_clock + max(
+            1, backoff_steps * (2 ** (req.preemptions - 1)))
+        self.release(slot)
+        self.queue.appendleft(req)
+        self._update_gauges()
+        return req
+
+    @property
+    def active_slots(self) -> int:
+        return len(self.slots)
+
+    @property
+    def pending_requests(self) -> int:
+        return len(self.queue)
+
+    @property
+    def requeue_depth(self) -> int:
+        """Preempted requests waiting for re-admission (the
+        ``serve_requeue_depth`` gauge and ``server.stats`` both read
+        this — one predicate, no drift)."""
+        return sum(1 for r in self.queue if r.preemptions > 0)
+
+    @property
+    def idle(self) -> bool:
+        return not self.queue and not self.slots

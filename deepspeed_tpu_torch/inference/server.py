@@ -1,0 +1,1317 @@
+"""Continuous-batching server over the paged KV cache — in PyTorch.
+
+Counterpart of ``deepspeed_tpu/inference/server.py``
+(``ContinuousBatchingServer`` :138): requests arrive asynchronously
+(``submit``), the host scheduler admits them into freed slots between
+decode steps (``step``), and an EOS'd sequence's blocks return to the pool
+at once. Every step runs over all ``num_slots`` resident sequences and the
+:class:`~deepspeed_tpu_torch.inference.kv_cache.PagedKVCache`; its
+attention runs the hand-written paged kernels (decode, chunked prefill,
+verify) and the flash kernel for a monolithic prefill.
+
+The serving core is ported: submit / step / drain; admission through the
+block allocator with prefix caching; monolithic and chunked prefill (with
+``prefill_chain``); plain decode under the async (lag-N) loop or the
+synchronous one; prompt-lookup speculation; deadlines, cancel and
+priority preemption. Every request ends in exactly one finish reason:
+``eos`` / ``length``, ``cancelled``, ``deadline`` or ``failed``
+(preemption retries exhausted).
+
+Where JAX threads a donated cache, the port writes the pool in place and
+edits ``lengths`` and ``block_tables`` with stream-ordered device writes:
+host arrays go up through pinned memory without a sync, and nothing on the
+decode path reads a device value on the host except the lagged token fetch
+(:class:`~deepspeed_tpu_torch.inference.async_loop.TokenFetch`).
+
+Not in this slice (ROADMAP.md queue C), each raising
+``NotImplementedError``: int8 pools, host offload, draft-model
+speculation, supervised replicas, roles and KV handoff (``export_prefix``
+/ ``import_prefix``), load shedding, SLO monitoring, canaries, incidents,
+the HTTP endpoint and fault injection. The step profiler, KV-pool
+accounting, request ledger and capacity model — on by default in JAX —
+are not built; the served tokens do not depend on them. The JAX trace
+counters of ``stats`` (``decode_traces`` and the like) report -1, JAX's
+own value for "unknown": PyTorch runs eagerly.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.inference.async_loop import (InFlightStep,
+                                                      PublishWorker)
+from deepspeed_tpu_torch.inference.engine import InferenceEngine, _bucket
+from deepspeed_tpu_torch.inference.kv_cache import (PagedKVCache,
+                                                    init_paged_cache)
+from deepspeed_tpu_torch.inference.scheduler import Request, Scheduler
+from deepspeed_tpu_torch.inference.speculation import (LookupIndex,
+                                                       greedy_accept_host)
+from deepspeed_tpu_torch.model_implementations.transformer import (
+    paged_decode_step, paged_prefill, paged_prefill_chunk, paged_verify_step)
+from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
+from deepspeed_tpu_torch.telemetry import events as telemetry_events
+from deepspeed_tpu_torch.telemetry.events import get_event_ring
+from deepspeed_tpu_torch.utils.logging import logger
+
+_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
+
+# finish reason -> event-ring kind (every lifecycle finish leaves a
+# forensic entry; "eos"/"length" are the quiet normal path)
+_LIFECYCLE_EVENTS = {
+    "cancelled": telemetry_events.CANCEL,
+    "deadline": telemetry_events.DEADLINE_EXPIRED,
+    "failed": telemetry_events.REQUEST_FAILED,
+}
+
+
+def submit_rejection(prompt, max_new_tokens: int, floor: int,
+                     deadline_s) -> Optional[tuple]:
+    """``(reason, message)`` when these submit() arguments can never be
+    served, else None."""
+    if not prompt:
+        return "empty_prompt", "empty prompt"
+    if max_new_tokens < floor:
+        return "budget_floor", (
+            f"max_new_tokens={max_new_tokens} is below the "
+            f"schedulable floor {floor} (min_out_tokens)")
+    if deadline_s is not None and deadline_s <= 0:
+        return "bad_deadline", (
+            f"deadline_s must be > 0 seconds (or None for no "
+            f"deadline), got {deadline_s}")
+    return None
+
+
+def check_drain_timeout(timeout_s) -> None:
+    """Shared ``drain(timeout_s=...)`` validation."""
+    if timeout_s is not None and timeout_s < 0:
+        raise ValueError(
+            f"drain timeout_s must be >= 0 (or None for unbounded), "
+            f"got {timeout_s}")
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a host sync: a plain
+    ``torch.as_tensor(..., device="cuda")`` waits for the stream to drain,
+    so the array is staged in pinned memory and copied asynchronously."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _check_slice(cfg, fault_injector, supervised, role, handoff_import,
+                 draft_engine) -> None:
+    """Raise on every option this slice does not port."""
+    tcfg = cfg.telemetry
+    on = tcfg.enabled
+    later = {
+        "kv_cache_dtype='int8' (int8 paged pools)":
+            cfg.kv_cache_dtype == "int8",
+        "kv_host_offload (the host KV tier)": cfg.kv_host_offload,
+        "draft-model speculation (draft_engine / speculation_draft)":
+            draft_engine is not None or cfg.speculation_draft is not None,
+        "supervised replicas (ServingFrontend)": supervised,
+        f"serving role {role!r} (disaggregated prefill/decode)":
+            role != "mixed",
+        "handoff_import (KV handoff)": handoff_import,
+        "enable_load_shedding": cfg.enable_load_shedding,
+        "telemetry.slo": on and tcfg.slo.enabled,
+        "telemetry.canary": on and tcfg.canary.enabled,
+        "telemetry.incident": on and tcfg.incident.enabled,
+        "telemetry.http_port (the scrape endpoint)":
+            on and tcfg.http_port is not None,
+        "fault injection": fault_injector is not None
+            or (on and tcfg.fault_injection.enabled),
+    }
+    for what, armed in later.items():
+        if armed:
+            raise NotImplementedError(f"{what} {_LATER}")
+
+
+class ContinuousBatchingServer:
+    """``submit() / step() / drain()`` serving loop over an
+    :class:`InferenceEngine`'s weights, greedy decoding only (output is
+    token-for-token the one-shot ``generate``'s).
+
+    ``clock`` (injectable, default ``time.perf_counter``) is the basis for
+    every latency observation, deadline and the ``drain`` timeout."""
+
+    def __init__(self, engine: InferenceEngine,
+                 registry: Optional[MetricRegistry] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 fault_injector=None, supervised: bool = False,
+                 role: str = "mixed", handoff_import: bool = False,
+                 draft_engine: Optional[InferenceEngine] = None):
+        if engine.model_config.head == "none":
+            raise ValueError("continuous batching needs an LM head — "
+                             "encoder models have nothing to decode")
+        if engine.model_config.seq_shard_kv:
+            raise NotImplementedError(
+                "continuous batching with a seq-sharded KV cache is "
+                "unsupported — the paged pool is already the "
+                "long-context memory lever")
+        cfg = engine.config
+        _check_slice(cfg, fault_injector, supervised, role, handoff_import,
+                     draft_engine)
+        self.engine = engine
+        self.role = role
+        self._closed = False
+        self.device = engine.device
+        self.block_size = cfg.block_size
+        self.num_slots = cfg.num_slots
+        self._clock = clock if clock is not None else time.perf_counter
+        # per-slot token budget reuses the engine's memory accounting
+        # (explicit max_out_tokens, or 'auto' free-memory sizing)
+        per_slot = engine._max_out_budget(self.num_slots)
+        if per_slot < self.block_size:
+            raise ValueError(
+                f"per-slot KV budget {per_slot} tokens is below one "
+                f"block ({self.block_size}) — raise max_out_tokens or "
+                "shrink block_size")
+        self.max_blocks_per_slot = per_slot // self.block_size
+        # prefix caching implies chunked prefill (one-block chunks when the
+        # chunk knob is unset): a cache-hit admission prefills only the tail
+        self.prefix_caching = cfg.enable_prefix_caching
+        self.chunk_tokens = cfg.prefill_chunk_tokens or (
+            self.block_size if cfg.enable_prefix_caching else 0)
+        # per-slot speculative decoding: K = chunk width of the batched
+        # verify forward (pending token + K-1 prompt-lookup proposals per
+        # active slot); 0 = off
+        self.spec_tokens = cfg.speculation_tokens
+        tcfg = cfg.telemetry
+        self.telemetry = registry or (get_registry() if tcfg.enabled
+                                      else MetricRegistry())
+        if tcfg.step_profile or tcfg.accounting.enabled:
+            logger.info(
+                "ContinuousBatchingServer: the step profiler, KV-pool "
+                "accounting, request ledger and capacity model "
+                "(telemetry.step_profile / telemetry.accounting) are not "
+                "ported to deepspeed_tpu_torch yet (ROADMAP.md queue C) and "
+                "are not built; served tokens do not depend on them")
+        self.max_preemptions = cfg.max_preemptions
+        self._backoff_steps = cfg.preemption_backoff_steps
+        reg = self.telemetry
+        self._h_queue_wait = reg.histogram(
+            "serve_queue_wait_seconds", help="submit() to slot admission")
+        self._h_ttft = reg.histogram(
+            "serve_ttft_seconds", help="submit() to first token committed")
+        self._h_request = reg.histogram(
+            "serve_request_seconds", help="submit() to finished, end to end")
+        self._h_decode_step = reg.histogram(
+            "serve_decode_step_seconds",
+            help="one decode step over all num_slots rows")
+        self._h_token = reg.histogram(
+            "serve_token_seconds",
+            help="per-token decode latency (one committed token per live "
+                 "slot per step)")
+        self._c_submitted = reg.counter("serve_requests_submitted_total",
+                                        help="accepted submit() calls")
+        self._c_finished = reg.counter("serve_requests_finished_total",
+                                       help="requests retired")
+        self._c_prefills = reg.counter("serve_prefills_total",
+                                       help="prefill programs executed")
+        self._c_decode_steps = reg.counter("serve_decode_steps_total",
+                                           help="decode steps executed")
+        self._c_tokens = reg.counter("serve_tokens_total",
+                                     help="generated tokens committed")
+        self._g_occupancy = reg.gauge(
+            "serve_slot_occupancy",
+            help="live/num_slots at the last decode step")
+        self._h_prefill_chunk = reg.histogram(
+            "serve_prefill_chunk_seconds",
+            help="one chunked-prefill chunk (non-final chunks observe the "
+                 "dispatch interval)")
+        self._c_tail_reclaimed = reg.counter(
+            "serve_tail_blocks_reclaimed_total",
+            help="reserved-but-never-written tail blocks returned to the "
+                 "free list at retirement")
+        self._c_finish = {
+            "cancelled": reg.counter(
+                "serve_cancelled_total",
+                help="requests finished by cancel() or a bounded drain"),
+            "deadline": reg.counter(
+                "serve_deadline_expired_total",
+                help="requests reaped past their deadline_s"),
+            "failed": reg.counter(
+                "serve_requests_failed_total",
+                help="requests failed by the server (preemption retries "
+                     "exhausted)"),
+        }
+        self._c_preempted = reg.counter(
+            "serve_preempted_total",
+            help="slot preemptions (recompute-requeue)")
+        self._c_spec_proposed = reg.counter(
+            "serve_spec_proposed_total",
+            help="prompt-lookup draft tokens submitted to the batched "
+                 "verify forward")
+        self._c_spec_accepted = reg.counter(
+            "serve_spec_accepted_total",
+            help="proposed draft tokens the target's argmax accepted")
+        self._h_spec_commit = reg.histogram(
+            "serve_spec_committed_per_forward",
+            help="tokens committed per active slot per verify forward")
+        self.kv_dtype = cfg.kv_cache_dtype
+        self._submit_ts: Dict[int, float] = {}
+        # when the request last ENTERED the queue (submit or preemption
+        # requeue); _submit_ts stays the birth time for TTFT/latency
+        self._queued_ts: Dict[int, float] = {}
+        # only requests WITH a deadline live here
+        self._deadlines: Dict[int, float] = {}
+        self.finish_reasons: Dict[int, str] = {}
+        # +1: block 0 is the reserved null block idle slots write into
+        num_blocks = 1 + self.num_slots * self.max_blocks_per_slot
+        self.scheduler = Scheduler(
+            num_slots=self.num_slots, num_blocks=num_blocks,
+            block_size=self.block_size,
+            max_blocks_per_slot=self.max_blocks_per_slot,
+            max_queued_requests=cfg.max_queued_requests,
+            registry=self.telemetry,
+            enable_prefix_caching=self.prefix_caching,
+            spec_margin=max(self.spec_tokens - 1, 0))
+        self._cache = self._make_pool(num_blocks)
+        self._results: Dict[int, List[int]] = {}
+        self._next_id = 0
+        self._step_clock = 0           # decode steps executed
+        # scheduler tick: advances on EVERY step() call — requeue backoff
+        # counts against it, so a backing-off queue head on an idle server
+        # still becomes eligible
+        self._tick = 0
+        self._active_slot_steps = 0    # sum of live slots per decode step
+        self._prefills = 0
+        self._prefill_chunks = 0       # chunk programs executed
+        self._prefill_token_units = 0  # tokens run through prefill compute
+        self._prefix_tokens_skipped = 0   # prompt tokens served from cache
+        self._tail_reclaimed = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_committed = 0       # tokens committed by verify steps
+        self._spec_steps = 0           # verify forwards executed
+        self._spec_slot_steps = 0      # sum of active slots per verify
+        # acceptance-collapse detector: rolling (proposed, accepted) window
+        self._spec_window: Deque[tuple] = deque(
+            maxlen=self._SPEC_WINDOW_STEPS)
+        self._spec_alarm = False
+        # per-slot incremental lookup state, identity-checked against the
+        # resident SlotState so a recycled slot always rebuilds
+        self._spec_hist: Dict[int, tuple] = {}
+        self._lifecycle_counts = dict.fromkeys(
+            ("cancelled", "deadline", "preempted", "shed", "failed"), 0)
+        # chunked prefills in flight, FIFO; at most ONE chunk (or one
+        # chain of non-final chunks) runs per step()
+        self._prefilling: Deque[dict] = deque()
+        self._mid_prefill: set = set()
+        # async dispatch loop: up to max_commit_lag decode steps chain on
+        # the device across step() calls, committed FIFO; every host-driven
+        # state change flushes the chain first
+        self._async = cfg.async_loop
+        self._max_lag = max(int(cfg.max_commit_lag), 1)
+        self._inflight: Deque[InFlightStep] = deque()
+        self._prefill_chain = cfg.prefill_chain and bool(self.chunk_tokens)
+        self._worker = PublishWorker()
+        # finishes discovered by an out-of-step flush (cancel/drain between
+        # steps): returned by the NEXT step() call
+        self._deferred_finished: List[int] = []
+        # per-step publish records, shipped to the worker in batches
+        self._pub_buf: List[tuple] = []
+        self._async_stats = {
+            "pipeline_starts": 0,
+            "pipelined_steps": 0,
+            "flushes": {},
+            "flush_depths": {},
+            "discarded_tokens": 0,
+            "garbage_steps": 0,
+        }
+
+    # decode-step ring events are sampled (every Nth step + the first)
+    _EVENT_EVERY = 64
+
+    # acceptance-collapse detector thresholds (see _maybe_spec_collapse)
+    _SPEC_WINDOW_STEPS = 64
+    _SPEC_MIN_PROPOSED = 64
+    _SPEC_COLLAPSE_RATE = 0.05
+    _SPEC_RECOVER_RATE = 0.10
+
+    # ------------------------------------------------------------ setup
+
+    def _make_pool(self, num_blocks: int) -> PagedKVCache:
+        mcfg = self.engine.model_config
+        return init_paged_cache(
+            mcfg.n_layer, self.num_slots, num_blocks, self.block_size,
+            self.max_blocks_per_slot, mcfg.kv_heads, mcfg.head_dim,
+            dtype=self.engine._act_dtype, device=self.device)
+
+    # the four device programs: each returns its greedy tokens as an int32
+    # device tensor and leaves the updated pool in self._cache
+
+    @torch.no_grad()
+    def _prefill(self, ids: np.ndarray, length: int, slot: int):
+        logits, self._cache = paged_prefill(
+            self.engine.params, self.engine.model_config,
+            _upload(ids.astype(np.int64), self.device), length, self._cache,
+            slot)
+        return torch.argmax(logits, -1).to(torch.int32)
+
+    @torch.no_grad()
+    def _chunk(self, ids: np.ndarray, start: int, length: int, slot: int):
+        logits, self._cache = paged_prefill_chunk(
+            self.engine.params, self.engine.model_config,
+            _upload(ids.astype(np.int64), self.device), start, length,
+            self._cache, slot)
+        return torch.argmax(logits, -1).to(torch.int32)
+
+    @torch.no_grad()
+    def _decode(self, tokens: torch.Tensor, active: np.ndarray):
+        logits, self._cache = paged_decode_step(
+            self.engine.params, self.engine.model_config, tokens.long(),
+            self._cache, _upload(active, self.device))
+        return torch.argmax(logits, -1).to(torch.int32)
+
+    @torch.no_grad()
+    def _verify(self, tokens: np.ndarray):
+        logits, self._cache = paged_verify_step(
+            self.engine.params, self.engine.model_config,
+            _upload(tokens.astype(np.int64), self.device), self._cache)
+        return torch.argmax(logits, -1).to(torch.int32)
+
+    # ----------------------------------------------- prefill/decode handoff
+
+    def export_prefix(self, hashes, on_block=None):
+        raise NotImplementedError(f"export_prefix (KV handoff) {_LATER}")
+
+    def import_prefix(self, entries) -> int:
+        raise NotImplementedError(f"import_prefix (KV handoff) {_LATER}")
+
+    # ------------------------------------------------------------ API
+
+    def submit(self, prompt: List[int], max_new_tokens: int = 32,
+               eos_token_id: Optional[int] = None,
+               request_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               priority: int = 0,
+               trace_context: Optional[dict] = None,
+               tenant: Optional[str] = None) -> int:
+        """Queue one request; returns its id. Raises when the request can
+        never be scheduled (block span beyond a slot) or the queue is full.
+
+        ``deadline_s`` bounds the request's WHOLE lifetime (queue wait
+        included) on the server clock; ``priority`` (higher wins) orders
+        preemption victims, FIFO breaks ties. ``trace_context`` and
+        ``tenant`` are accepted for the JAX server's signature: with
+        tracing and metering unbuilt, neither is read."""
+        del trace_context
+        floor = max(1, self.engine.config.min_out_tokens)
+        rej = submit_rejection(prompt, max_new_tokens, floor, deadline_s)
+        if rej is not None:
+            self._count_rejection(rej[0])
+            raise ValueError(rej[1])
+        if request_id is None:
+            request_id = self._next_id
+        elif (request_id in self._results
+              or any(s.request.request_id == request_id
+                     for s in self.scheduler.slots.values())
+              or any(r.request_id == request_id
+                     for r in self.scheduler.queue)):
+            self._count_rejection("duplicate_id")
+            raise ValueError(
+                f"request_id {request_id} is already queued, resident, "
+                "or finished — a duplicate would silently overwrite its "
+                "output")
+        self._next_id = max(self._next_id, request_id) + 1
+        now = self._clock()
+        deadline_ts = None if deadline_s is None else now + deadline_s
+        self.scheduler.submit(Request(
+            request_id=request_id, prompt=list(prompt),
+            max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
+            priority=priority, deadline_ts=deadline_ts, tenant=tenant))
+        self._submit_ts[request_id] = now
+        self._queued_ts[request_id] = now
+        if deadline_ts is not None:
+            self._deadlines[request_id] = deadline_ts
+        self._c_submitted.inc()
+        return request_id
+
+    def _count_rejection(self, reason: str) -> None:
+        """Server-side refusals; the scheduler counts its own (span/pool/
+        queue_full) into the same family."""
+        self.telemetry.counter(
+            "serve_admission_rejections_total",
+            help="refused submit() calls, by reason",
+            labels={"reason": reason}).inc()
+        get_event_ring().record(telemetry_events.ADMISSION_REJECT,
+                                reason=reason, source="server")
+
+    # ------------------------------------------------- lifecycle actions
+
+    def _reset_slot_arrays(self, slot: int) -> None:
+        """Device-side reset of a vacated slot — length 0 and an all-null
+        block table, so later decode appends land in the null block — as
+        stream-ordered writes (no sync; steps already in flight read the
+        old row)."""
+        self._cache.lengths[slot] = 0
+        self._cache.block_tables[slot] = 0
+        # every slot-vacating path runs through here: drop its lookup state
+        self._spec_hist.pop(slot, None)
+
+    def _drop_prefill_job(self, slot: int) -> None:
+        """Forget any in-flight chunked prefill for a vacated slot."""
+        if slot in self._mid_prefill:
+            self._mid_prefill.discard(slot)
+            self._prefilling = deque(
+                j for j in self._prefilling if j["slot"] != slot)
+
+    def _teardown_slot(self, slot: int) -> None:
+        """Vacate a resident slot mid-flight (cancel / retries-exhausted
+        preemption): drop any in-flight chunk job, release the blocks, reset
+        the device-side slot state — in that order."""
+        self._drop_prefill_job(slot)
+        self.scheduler.release(slot)
+        self._reset_slot_arrays(slot)
+
+    def _finalize(self, req: Request, tokens: List[int], reason: str,
+                  finished: Optional[list] = None) -> None:
+        """Terminal lifecycle bookkeeping shared by cancel / deadline /
+        fail: record the (possibly partial) output and finish reason, tick
+        the reason's counter and ring event."""
+        rid = req.request_id
+        self._results[rid] = tokens
+        self.finish_reasons[rid] = reason
+        if finished is not None:
+            finished.append(rid)
+        self._submit_ts.pop(rid, None)
+        self._queued_ts.pop(rid, None)
+        self._deadlines.pop(rid, None)
+        self._c_finish[reason].inc()
+        self._lifecycle_counts[reason] += 1
+        get_event_ring().record(
+            _LIFECYCLE_EVENTS[reason], request_id=rid,
+            generated=len(tokens) - len(req.prompt),
+            preemptions=req.preemptions)
+
+    def cancel(self, request_id: int, reason: str = "cancelled") -> bool:
+        """Cancel one request in ANY state: queued (prompt returned as the
+        partial result), mid-prefill or decoding (slot retired, blocks
+        released, prompt + tokens-so-far returned). Returns False when the
+        request is already finished or unknown. ``reason`` is "cancelled"
+        from callers, "deadline" from the reaper."""
+        if reason not in ("cancelled", "deadline"):
+            raise ValueError(
+                f"cancel reason must be 'cancelled' or 'deadline', "
+                f"got {reason!r}")
+        if request_id in self._results:
+            return False
+        req = self.scheduler.remove_queued(request_id)
+        if req is not None:
+            self._finalize(req, list(req.prompt) + list(req.committed),
+                           reason)
+            return True
+        slot = self.scheduler.find_slot(request_id)
+        if slot is None:
+            return False
+        if self._inflight:
+            # cancel takes effect at the COMMITTED boundary the caller
+            # observed: the target's in-flight tokens are discarded,
+            # everyone else's commit normally
+            self._flush_pipeline(self._deferred_finished, reason="cancel",
+                                 discard_rid=request_id)
+        state = self.scheduler.slots[slot]
+        self._teardown_slot(slot)
+        self._finalize(state.request,
+                       list(state.request.prompt) + list(state.generated),
+                       reason)
+        return True
+
+    def reclaim(self, request_id: int) -> Optional[List[int]]:
+        """Take an UNFINISHED request away without leaving a terminal
+        record (cancel, then forget its result and finish reason so the
+        SAME id can be resubmitted). Returns the partial output, or None
+        when the request is unknown or already finished."""
+        if request_id in self._results:
+            return None
+        if not self.cancel(request_id):
+            return None
+        out = self._results.pop(request_id)
+        self.finish_reasons.pop(request_id, None)
+        return out
+
+    def forget(self, request_id: int) -> None:
+        """Drop a FINISHED request's terminal record so the same id is
+        resubmittable here again."""
+        self._results.pop(request_id, None)
+        self.finish_reasons.pop(request_id, None)
+
+    def _reap_deadlines(self, finished: list) -> None:
+        """Retire every request whose deadline passed — queued or resident
+        — with finish reason ``deadline``."""
+        if not self._deadlines:
+            return
+        now = self._clock()
+        expired = [rid for rid, ts in self._deadlines.items() if now >= ts]
+        for rid in expired:
+            if self.cancel(rid, reason="deadline"):
+                finished.append(rid)
+            else:
+                self._deadlines.pop(rid, None)
+
+    def _preempt_slot(self, slot: int, finished: list) -> None:
+        """Preempt one resident (recompute-requeue), or fail it when its
+        retry budget is spent."""
+        state = self.scheduler.slots[slot]
+        req = state.request
+        if req.preemptions >= self.max_preemptions:
+            # bounded retries: failing loudly beats a preempt/requeue
+            # livelock
+            self._teardown_slot(slot)
+            self._finalize(req, list(req.prompt) + list(state.generated),
+                           "failed", finished)
+            return
+        mid = slot in self._mid_prefill
+        self._drop_prefill_job(slot)
+        self.scheduler.preempt(slot, self._tick, self._backoff_steps,
+                               register_extension=not mid)
+        # requeue moment
+        self._queued_ts[req.request_id] = self._clock()
+        self._reset_slot_arrays(slot)
+        self._c_preempted.inc()
+        self._lifecycle_counts["preempted"] += 1
+        get_event_ring().record(
+            telemetry_events.PREEMPT, request_id=req.request_id,
+            slot=slot, preemptions=req.preemptions,
+            committed_tokens=len(req.committed),
+            ready_at_step=req.ready_at_step)
+
+    def _preempt_for_head(self, finished: list) -> bool:
+        """When the first eligible queued request still isn't resident
+        after admission, preempt the lowest-priority newest resident IF it
+        ranks strictly below the waiter. Equal priorities never preempt."""
+        if self.max_preemptions <= 0:
+            return False
+        now = self._clock() if self._deadlines else None
+        head = self.scheduler.next_ready(self._tick, now=now)
+        if head is None:
+            return False
+        victim = self.scheduler.pick_preemption_victim()
+        if victim is None:
+            return False
+        slot, state = victim
+        if state.request.priority >= head.priority:
+            return False
+        self._preempt_slot(slot, finished)
+        return True
+
+    def _admit(self, finished: list) -> None:
+        """Admit queued requests into free slots until blocks or slots run
+        out. Monolithic mode prefills inline (one prompt bucket, 128·2^k,
+        floored at block_size); chunked mode only claims the slot and
+        installs its block table here — the prefill runs a chunk per
+        ``step()`` via :meth:`_run_prefill_chunk`."""
+        while True:
+            now = self._clock() if self._deadlines else None
+            adm = self.scheduler.admit_next(self._tick, now=now)
+            if adm is None:
+                return
+            slot, state = adm
+            req = state.request
+            sched_prompt = req.sched_prompt
+            t_admit = self._clock()
+            if not state.resumed:
+                self._h_queue_wait.observe(
+                    t_admit - self._submit_ts.get(req.request_id, t_admit))
+            # block table first — the prefill scatter reads it. Entries
+            # beyond the allocated span stay 0 (null block), so bucket/
+            # chunk padding past the span spills harmlessly.
+            row = np.zeros((self.max_blocks_per_slot,), np.int32)
+            row[:len(state.blocks)] = state.blocks
+            self._cache.block_tables[slot] = _upload(row, self.device)
+            if self.chunk_tokens:
+                cached_len = state.cached_blocks * self.block_size
+                self._prefix_tokens_skipped += cached_len
+                # pin the slot's live length at the cached boundary NOW:
+                # decode steps before this slot's chunks append their
+                # masked garbage token at lengths[slot] — the next PRIVATE
+                # position, never offset 0 of a shared prefix block
+                self._cache.lengths[slot] = cached_len
+                self._prefilling.append(
+                    {"slot": slot, "state": state, "start": cached_len})
+                self._mid_prefill.add(slot)
+                continue
+            # ---------------- monolithic bucketed prefill (chunking off)
+            T = min(max(_bucket(len(sched_prompt)), self.block_size),
+                    self.max_blocks_per_slot * self.block_size)
+            ids = np.zeros((1, T), np.int64)
+            ids[0, :len(sched_prompt)] = sched_prompt
+            tok0 = self._prefill(ids, len(sched_prompt), slot)
+            self._prefills += 1
+            self._prefill_token_units += T
+            tok0 = int(tok0.cpu()[0])   # host sync: prefill done
+            now_t = self._clock()
+            self.telemetry.histogram(
+                "serve_prefill_seconds",
+                help="prefill wall time, by padded prompt-bucket length",
+                labels={"bucket": str(T)}).observe(now_t - t_admit)
+            if not state.generated:
+                # first token this request ever emitted (a resumed request
+                # that already emitted tokens does not observe it again)
+                self._h_ttft.observe(
+                    now_t - self._submit_ts.get(req.request_id, now_t))
+            self._c_prefills.inc()
+            self._c_tokens.inc()
+            state.generated.append(tok0)
+            state.pending = tok0
+            if self._finished(state, tok0):
+                self._retire(slot, state, finished)
+
+    def _run_prefill_chunk(self, finished: list) -> None:
+        """Run AT MOST one chunk of the oldest in-flight chunked prefill,
+        then the step decodes every active slot. With ``prefill_chain`` the
+        prompt's NON-FINAL chunks dispatch as one device-side chain in a
+        single call; the final chunk, which fetches the first token, stays
+        on its own step."""
+        if not self._prefilling:
+            return
+        job = self._prefilling[0]
+        slot, state = job["slot"], job["state"]
+        req = state.request
+        sched_prompt = req.sched_prompt
+        C = self.chunk_tokens
+        plen = len(sched_prompt)
+        while True:
+            start = job["start"]
+            ids = np.zeros((1, C), np.int64)
+            valid = min(plen - start, C)
+            ids[0, :valid] = sched_prompt[start:start + valid]
+            t0 = self._clock()
+            tok = self._chunk(ids, start, plen, slot)
+            self._prefill_chunks += 1
+            self._prefill_token_units += C
+            job["start"] = start + C
+            if job["start"] >= plen:
+                break             # final chunk: fall through to fetch
+            # NON-final chunk: its logits are chunk-tail garbage the host
+            # never reads, so nothing is fetched
+            self._h_prefill_chunk.observe(self._clock() - t0)
+            if not self._prefill_chain:
+                return            # more chunks, one per step()
+            if job["start"] + C >= plen:
+                return            # next chunk is final — next step's
+        # final chunk: the prompt is resident, the first token is real
+        tok0 = int(tok.cpu()[0])  # host sync: prefill complete
+        self._h_prefill_chunk.observe(self._clock() - t0)
+        self._prefilling.popleft()
+        self._mid_prefill.discard(slot)
+        if self.prefix_caching:
+            # publish the cold tail's full prompt blocks — only now is
+            # their content valid for another request to hit
+            self.scheduler.commit_prefix(state)
+        now = self._clock()
+        if not state.generated:
+            self._h_ttft.observe(
+                now - self._submit_ts.get(req.request_id, now))
+        self._c_prefills.inc()
+        self._c_tokens.inc()
+        self._prefills += 1
+        state.generated.append(tok0)
+        state.pending = tok0
+        if self._finished(state, tok0):
+            self._retire(slot, state, finished)
+
+    @staticmethod
+    def _finished(state, tok: int) -> bool:
+        req = state.request
+        return (tok == req.eos_token_id
+                or len(state.generated) >= req.max_new_tokens)
+
+    def _retire(self, slot: int, state, finished: list) -> None:
+        req = state.request
+        out = list(req.prompt) + state.generated
+        self._results[req.request_id] = out
+        reason = ("eos" if state.generated
+                  and state.generated[-1] == req.eos_token_id
+                  else "length")
+        self.finish_reasons[req.request_id] = reason
+        finished.append(req.request_id)
+        ts = self._submit_ts.pop(req.request_id, None)
+        self._queued_ts.pop(req.request_id, None)
+        self._deadlines.pop(req.request_id, None)
+        if ts is not None:
+            self._h_request.observe(self._clock() - ts)
+        self._c_finished.inc()
+        # reserved-tail accounting: blocks allocated for budget the
+        # sequence EOSed before reaching were never written (the cache
+        # holds prompt + all generated but the last)
+        live = len(req.prompt) + max(len(state.generated) - 1, 0)
+        tail = max(0, len(state.blocks) - (-(-live // self.block_size)))
+        if tail:
+            self._c_tail_reclaimed.inc(tail)
+            self._tail_reclaimed += tail
+        # slot + blocks recycle NOW: the freed span admits the next queued
+        # request on the same step
+        self.scheduler.release(slot)
+        self._reset_slot_arrays(slot)
+
+    def step(self) -> List[int]:
+        """One scheduler round: reap expired deadlines, admit from the
+        queue into free slots (preempting lower-priority residents for a
+        higher-priority waiter when the pool is short), run at most ONE
+        chunk of any in-flight chunked prefill, then one decode step for
+        all active resident slots. Returns the request ids that got a
+        result this round.
+
+        With ``inference.async_loop`` (default) a steady-state step — no
+        queued work, no chunked prefill in flight, no expired deadline —
+        runs PIPELINED: decode step N+1 dispatches chained from step N's
+        device tokens before N is fetched, and the OLDEST in-flight step
+        commits once the chain is ``max_commit_lag`` deep. Any step with a
+        host-driven state change flushes the chain first."""
+        finished: List[int] = []
+        self._take_deferred(finished)
+        self._tick += 1
+        self._reap_deadlines(finished)
+        self._take_deferred(finished)
+        if (self._async and not self.scheduler.queue
+                and not self._prefilling):
+            return self._step_pipelined(finished)
+        if self._inflight:
+            self._flush_pipeline(finished, reason="host_action")
+        self._admit(finished)
+        # degradation ladder, rung 2 (rung 1, prefix-LRU eviction, already
+        # ran inside the allocator): preempt strictly-lower-priority
+        # residents for the blocked waiter, re-admitting after each
+        guard = self.num_slots
+        while guard > 0 and self._preempt_for_head(finished):
+            guard -= 1
+            self._admit(finished)
+        self._run_prefill_chunk(finished)
+        if not self.scheduler.slots:
+            return finished
+        if self.spec_tokens:
+            self._decode_speculative(finished)
+        else:
+            self._decode_once(finished)
+        return finished
+
+    # ------------------------------------------------ async dispatch loop
+
+    def _take_deferred(self, finished: List[int]) -> None:
+        if self._deferred_finished:
+            finished.extend(self._deferred_finished)
+            self._deferred_finished.clear()
+
+    def _step_pipelined(self, finished: List[int]) -> List[int]:
+        """Steady-state async round: the only host work is the lag-N
+        commit of the oldest in-flight step."""
+        if not self.scheduler.slots:
+            if self._inflight:
+                # every resident retired at the last commit; the steps
+                # dispatched beside it are garbage — fetch and discard
+                # them before any admission reuses the released blocks
+                self._flush_pipeline(finished, reason="drain_tail")
+            return finished
+        if self.spec_tokens:
+            self._pipelined_verify(finished)
+        else:
+            self._pipelined_decode(finished)
+        return finished
+
+    def _active_states(self) -> Dict[int, object]:
+        return {slot: state for slot, state in self.scheduler.slots.items()
+                if slot not in self._mid_prefill}
+
+    def _pipelined_decode(self, finished: List[int]) -> None:
+        """Dispatch decode step N+1 BEFORE fetching step N: N's greedy
+        tokens are already a device tensor, so N+1 chains from them with
+        no host round trip, and the host commits N-1 while the device runs.
+        A slot that finished at step N already ran one garbage row in step
+        N+1: its commit discards it by state identity. With
+        ``max_commit_lag`` N > 1 the chain holds N programs before the
+        oldest commits."""
+        chain = self._inflight
+        rec = chain[-1] if chain else None
+        states = self._active_states()
+        if not states:
+            return
+        S = self.num_slots
+        active = np.zeros((S,), bool)
+        active[list(states)] = True
+        if rec is None:
+            # pipeline start: host-built inputs, dispatched without a fetch
+            tokens = np.zeros((S,), np.int32)
+            for slot, state in states.items():
+                tokens[slot] = state.pending
+            tok_in = _upload(tokens, self.device)
+        else:
+            tok_in = rec.tokens    # device-side token feedback
+        t0 = self._clock()
+        nxt = self._decode(tok_in, active)
+        chain.append(InFlightStep("decode", nxt, states, t0))
+        if rec is None:
+            self._async_stats["pipeline_starts"] += 1
+        elif len(chain) > self._max_lag:
+            # the chain is full: commit the OLDEST (lag-N) and rethread the
+            # new oldest's latency baseline to this fetch
+            oldest = chain.popleft()
+            t1 = self._commit_decode_record(oldest, finished)
+            chain[0].prev_fetch = t1
+            self._async_stats["pipelined_steps"] += 1
+        else:
+            self._async_stats["pipelined_steps"] += 1
+
+    def _commit_decode_record(self, rec: InFlightStep,
+                              finished: List[int],
+                              discard_rid: Optional[int] = None) -> float:
+        """Lag-N host commit of one in-flight decode step: wait for its
+        token copy, append/EOS-check/retire for every slot whose SlotState
+        is still the one resident at dispatch. ``discard_rid`` drops one
+        request's token (a cancel in progress). Returns the fetch time."""
+        nxt = rec.fetch.wait()    # this step's tokens, nothing later
+        t1 = self._clock()
+        dt = t1 - (rec.prev_fetch if rec.prev_fetch is not None
+                   else rec.t_dispatch)
+        n_live = 0
+        for slot, state in rec.states.items():
+            if self.scheduler.slots.get(slot) is not state or (
+                    discard_rid is not None
+                    and state.request.request_id == discard_rid):
+                # retired / torn down after dispatch: garbage token
+                self._async_stats["discarded_tokens"] += 1
+                continue
+            n_live += 1
+            self._commit_slot_token(slot, state, int(nxt[slot]), finished)
+        if n_live == 0:
+            self._async_stats["garbage_steps"] += 1
+            return t1
+        self._step_clock += 1
+        self._active_slot_steps += n_live
+        self._queue_publish("decode", dt, n_live, n_live / self.num_slots)
+        if self._step_clock % self._EVENT_EVERY == 1:
+            get_event_ring().record(
+                telemetry_events.STEP_END, source="serve_decode",
+                step=self._step_clock, live=n_live, seconds=round(dt, 6),
+                pipelined=True, sampled_every=self._EVENT_EVERY)
+        return t1
+
+    def _publish_decode_step(self, dt: float, n_live: int,
+                             occ: float) -> None:
+        self._h_decode_step.observe(dt)
+        self._h_token.observe(dt)
+        self._c_decode_steps.inc()
+        self._c_tokens.inc(n_live)
+        self._g_occupancy.set(occ)
+
+    def _propose(self, states: Dict[int, object]):
+        """Each slot's verify row ``[pending, p_1..p_{K-1}]`` from prompt
+        lookup over its COMMITTED history (prompt + generated), with the
+        incremental LookupIndex: full build at the slot's first verify,
+        tail sync after. Returns ``(tokens [S, K], props)``."""
+        K = self.spec_tokens
+        tokens = np.zeros((self.num_slots, K), np.int32)
+        props: Dict[int, List[int]] = {}
+        for slot, state in states.items():
+            entry = self._spec_hist.get(slot)
+            if entry is None or entry[0] is not state:
+                idx = LookupIndex(state.request.prompt)
+                idx.extend(state.generated)
+                self._spec_hist[slot] = (state, idx)
+            else:
+                idx = entry[1]
+                grown = (len(state.request.prompt) + len(state.generated)
+                         - len(idx.hist))
+                if grown > 0:
+                    idx.extend(state.generated[-grown:])
+            props[slot] = idx.proposals(K - 1)
+            tokens[slot, 0] = state.pending
+            tokens[slot, 1:] = props[slot]
+        return tokens, props
+
+    def _pipelined_verify(self, finished: List[int]) -> None:
+        """Async speculation round: commit the in-flight verify, then
+        propose + dispatch the NEXT one and return with it in flight.
+        Proposals come from the committed history, so the verify path
+        commits BEFORE dispatching (chains never deepen past one round)."""
+        chain = self._inflight
+        rec = chain[-1] if chain else None
+        prev_fetch = None
+        if rec is not None:
+            prev_fetch = self._commit_verify_record(rec, finished)
+            chain.clear()
+            self._async_stats["pipelined_steps"] += 1
+        states = self._active_states()
+        if not states:
+            return
+        tokens, props = self._propose(states)
+        t0 = self._clock()
+        t_toks = self._verify(tokens)
+        if rec is None:
+            self._async_stats["pipeline_starts"] += 1
+        chain.append(InFlightStep("verify", t_toks, states, t0, props=props,
+                                  prev_fetch=prev_fetch))
+
+    def _commit_verify_record(self, rec: InFlightStep, finished: List[int],
+                              discard_rid: Optional[int] = None) -> float:
+        """Commit one in-flight verify round: greedy-accept against the
+        proposals it was scored with, append/EOS-check/retire per
+        surviving slot, and advance lengths over the accepted prefixes in
+        ONE device update."""
+        t_np = rec.fetch.wait()
+        t1 = self._clock()
+        dt = t1 - (rec.prev_fetch if rec.prev_fetch is not None
+                   else rec.t_dispatch)
+        live = {}
+        for slot, state in rec.states.items():
+            if self.scheduler.slots.get(slot) is not state or (
+                    discard_rid is not None
+                    and state.request.request_id == discard_rid):
+                self._async_stats["discarded_tokens"] += 1
+                continue
+            live[slot] = state
+        if not live:
+            self._async_stats["garbage_steps"] += 1
+            return t1
+        self._accept_and_commit(live, t_np, rec.props, dt, finished,
+                                inline=False)
+        return t1
+
+    def _accept_and_commit(self, live: Dict[int, object], t_np, props,
+                           dt: float, finished: List[int],
+                           inline: bool) -> None:
+        """The post-fetch half of a verify round, shared by the sync and
+        async paths: greedy acceptance per slot, per-token EOS/budget
+        bookkeeping, one vectorised length advance, then retirement. The
+        sync path publishes its metrics ``inline``; the async path hands
+        them to the worker."""
+        K = self.spec_tokens
+        adv = np.zeros((self.num_slots,), np.int32)
+        committed_total = accepted_total = 0
+        per_slot_commits: List[int] = []
+        retire: List[int] = []
+        for slot, state in live.items():
+            m, committed = greedy_accept_host(t_np[slot], props[slot])
+            accepted_total += m
+            done = False
+            n_committed = 0
+            for tok in committed:
+                state.generated.append(tok)
+                n_committed += 1
+                if self._finished(state, tok):
+                    done = True
+                    break
+            committed_total += n_committed
+            per_slot_commits.append(n_committed)
+            # a continuing slot's cache gains [pending, p_1..p_m]; the
+            # correction becomes the next pending. A retiring slot's
+            # length is reset right below.
+            adv[slot] = n_committed
+            if done:
+                retire.append(slot)
+            else:
+                state.pending = committed[-1]
+        self._cache = dataclasses.replace(
+            self._cache,
+            lengths=self._cache.lengths + _upload(adv, self.device))
+        for slot in retire:
+            self._retire(slot, self.scheduler.slots[slot], finished)
+        n_live = len(live)
+        self._step_clock += 1
+        self._active_slot_steps += n_live
+        proposed = n_live * (K - 1)
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted_total
+        self._spec_committed += committed_total
+        self._spec_steps += 1
+        self._spec_slot_steps += n_live
+        self._maybe_spec_collapse(proposed, accepted_total)
+        vals = (dt, n_live, committed_total, proposed, accepted_total,
+                per_slot_commits)
+        if inline:
+            self._publish_verify_step(*vals)
+        else:
+            self._queue_publish("verify", *vals)
+        if self._step_clock % self._EVENT_EVERY == 1:
+            get_event_ring().record(
+                telemetry_events.STEP_END, source="serve_spec_verify",
+                step=self._step_clock, live=n_live,
+                committed=committed_total, accepted=accepted_total,
+                seconds=round(dt, 6), sampled_every=self._EVENT_EVERY)
+
+    def _publish_verify_step(self, dt: float, n_live: int,
+                             committed_total: int, proposed: int,
+                             accepted: int,
+                             per_slot_commits: List[int]) -> None:
+        self._h_decode_step.observe(dt)
+        self._h_token.observe(dt * n_live / max(committed_total, 1))
+        self._c_decode_steps.inc()
+        self._c_tokens.inc(committed_total)
+        self._g_occupancy.set(n_live / self.num_slots)
+        self._c_spec_proposed.inc(proposed)
+        self._c_spec_accepted.inc(accepted)
+        for n in per_slot_commits:
+            self._h_spec_commit.observe(n)
+
+    # one worker job per this many buffered step records
+    _PUBLISH_BATCH = 16
+
+    def _queue_publish(self, kind: str, *vals) -> None:
+        self._pub_buf.append((kind, vals))
+        if len(self._pub_buf) >= self._PUBLISH_BATCH:
+            self._ship_publish_buf()
+
+    def _ship_publish_buf(self) -> None:
+        """Hand the buffered step records to the worker as ONE job."""
+        if not self._pub_buf:
+            return
+        buf, self._pub_buf = self._pub_buf, []
+
+        def job():
+            for kind, vals in buf:
+                if kind == "decode":
+                    self._publish_decode_step(*vals)
+                else:
+                    self._publish_verify_step(*vals)
+
+        self._worker.submit(job)
+
+    def _drain_publishing(self) -> None:
+        self._ship_publish_buf()
+        self._worker.drain()
+
+    def _flush_pipeline(self, finished: List[int], reason: str = "",
+                        discard_rid: Optional[int] = None) -> None:
+        """Commit whatever is in flight, oldest first, and drain the
+        publish worker — the bounded flush every host-driven state change
+        pays so the scheduler acts on committed state."""
+        if self._inflight:
+            depth = len(self._inflight)
+            while self._inflight:
+                rec = self._inflight.popleft()
+                commit = (self._commit_decode_record if rec.kind == "decode"
+                          else self._commit_verify_record)
+                t1 = commit(rec, finished, discard_rid=discard_rid)
+                if self._inflight:
+                    self._inflight[0].prev_fetch = t1
+            fl = self._async_stats["flushes"]
+            fl[reason] = fl.get(reason, 0) + 1
+            fd = self._async_stats["flush_depths"].setdefault(reason, {})
+            fd[depth] = fd.get(depth, 0) + 1
+        self._drain_publishing()
+
+    def _decode_once(self, finished: List[int]) -> None:
+        """One synchronous decode step for all active resident slots."""
+        states = self._active_states()
+        if not states:
+            return   # every resident slot is mid-prefill
+        tokens = np.zeros((self.num_slots,), np.int32)
+        active = np.zeros((self.num_slots,), bool)
+        for slot, state in states.items():
+            tokens[slot] = state.pending
+            active[slot] = True
+        t0 = self._clock()
+        nxt = self._decode(_upload(tokens, self.device), active)
+        self._step_clock += 1
+        n_active = len(states)
+        self._active_slot_steps += n_active
+        nxt = nxt.cpu().numpy()          # host sync: the step completed
+        dt = self._clock() - t0
+        self._publish_decode_step(dt, n_active, n_active / self.num_slots)
+        if self._step_clock % self._EVENT_EVERY == 1:
+            get_event_ring().record(
+                telemetry_events.STEP_END, source="serve_decode",
+                step=self._step_clock, live=n_active, seconds=round(dt, 6),
+                sampled_every=self._EVENT_EVERY)
+        for slot, state in states.items():
+            self._commit_slot_token(slot, state, int(nxt[slot]), finished)
+
+    def _commit_slot_token(self, slot: int, state, tok: int,
+                           finished: List[int]) -> None:
+        """Commit ONE decode token for one slot — the shared per-slot
+        commit body of the sync loop and the lag-N commit."""
+        state.generated.append(tok)
+        if self._finished(state, tok):
+            self._retire(slot, state, finished)
+        else:
+            state.pending = tok
+
+    def _decode_speculative(self, finished: List[int]) -> None:
+        """One synchronous speculative round: each active slot proposes up
+        to K-1 tokens by prompt lookup, ONE batched verify forward scores
+        every slot's ``[pending, p_1..p_{K-1}]`` through the block tables,
+        and the accepted prefix commits host-side — 1..K tokens per slot.
+        Rejected positions stay as masked garbage beyond ``lengths``."""
+        states = self._active_states()
+        if not states:
+            return
+        tokens, props = self._propose(states)
+        t0 = self._clock()
+        t_np = self._verify(tokens).cpu().numpy()   # host sync
+        self._accept_and_commit(states, t_np, props, self._clock() - t0,
+                                finished, inline=True)
+
+    def _maybe_spec_collapse(self, proposed: int, accepted: int) -> None:
+        """Ring-event an acceptance-rate collapse ONCE per episode; re-arms
+        after the rate recovers."""
+        self._spec_window.append((proposed, accepted))
+        p = sum(w[0] for w in self._spec_window)
+        if p < self._SPEC_MIN_PROPOSED:
+            return
+        rate = sum(w[1] for w in self._spec_window) / p
+        if not self._spec_alarm and rate < self._SPEC_COLLAPSE_RATE:
+            self._spec_alarm = True
+            get_event_ring().record(
+                telemetry_events.SPEC_COLLAPSE,
+                acceptance_rate=round(rate, 4),
+                window_steps=len(self._spec_window), proposed=p,
+                k=self.spec_tokens)
+        elif self._spec_alarm and rate >= self._SPEC_RECOVER_RATE:
+            self._spec_alarm = False
+
+    def result(self, request_id: int) -> Optional[List[int]]:
+        """Finished output (prompt + generated, EOS included) or None;
+        lifecycle-terminated requests return their partial output."""
+        return self._results.get(request_id)
+
+    def finish_reason(self, request_id: int) -> Optional[str]:
+        """``eos`` / ``length`` / ``cancelled`` / ``deadline`` /
+        ``failed``, or None while unfinished."""
+        return self.finish_reasons.get(request_id)
+
+    def drain(self, timeout_s: Optional[float] = None
+              ) -> Dict[int, List[int]]:
+        """Run ``step`` until queue and slots are empty; returns all
+        finished outputs keyed by request id. ``timeout_s`` bounds the
+        drain on the server clock: past it, every unfinished request is
+        cancelled (partial results returned)."""
+        check_drain_timeout(timeout_s)
+        deadline = None if timeout_s is None \
+            else self._clock() + timeout_s
+        while not self.scheduler.idle:
+            if deadline is not None and self._clock() >= deadline:
+                get_event_ring().record(
+                    telemetry_events.CANCEL, source="drain_timeout",
+                    timeout_s=timeout_s,
+                    stragglers=(self.scheduler.pending_requests
+                                + self.scheduler.active_slots))
+                for req in list(self.scheduler.queue):
+                    self.cancel(req.request_id)
+                for state in list(self.scheduler.slots.values()):
+                    self.cancel(state.request.request_id)
+                break
+            self.step()
+        # the async loop can leave garbage steps in flight beside the final
+        # commits: fetch + discard them, so a drained server has no device
+        # work outstanding and fully-published metrics
+        self._flush_pipeline(self._deferred_finished, reason="drain")
+        return dict(self._results)
+
+    def close(self) -> None:
+        """Commit whatever is in flight and stop the publish worker.
+        Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        self._flush_pipeline(self._deferred_finished, reason="close")
+        self._worker.close()
+
+    # ------------------------------------------------------------ stats
+
+    @property
+    def stats(self) -> dict:
+        """Serving telemetry, with the JAX server's keys. ``decode_traces``,
+        ``prefill_traces``, ``chunk_traces``, ``verify_traces`` and
+        ``retraces`` count JAX executables and read -1 here; the sections of
+        unbuilt components (step profile, pool accounting, ledger,
+        capacity, SLO, alerts, canary, incidents) read None."""
+        self._drain_publishing()
+        units = self._step_clock * self.num_slots
+        alloc = self.scheduler.allocator
+        return {
+            "decode_steps": self._step_clock,
+            "prefills": self._prefills,
+            "prefill_chunks": self._prefill_chunks,
+            "prefill_token_units": self._prefill_token_units,
+            "decode_step_slot_units": units,
+            "active_slot_steps": self._active_slot_steps,
+            "slot_occupancy": (self._active_slot_steps / units
+                               if units else 0.0),
+            "decode_traces": -1,
+            "prefill_traces": -1,
+            "chunk_traces": -1 if self.chunk_tokens else 0,
+            "retraces": -1,
+            "num_slots": self.num_slots,
+            "block_size": self.block_size,
+            "role": self.role,
+            "free_blocks": alloc.free_blocks,
+            "queued": self.scheduler.pending_requests,
+            "prefix_caching": self.prefix_caching,
+            "prefill_chunk_tokens": self.chunk_tokens,
+            "prefix_cache_hits": self.scheduler.prefix_hits,
+            "prefix_cache_misses": self.scheduler.prefix_misses,
+            "prefix_cached_blocks": alloc.cached_blocks,
+            "prefix_cache_evictions": alloc.evictions,
+            "prefix_tokens_skipped": self._prefix_tokens_skipped,
+            "tail_blocks_reclaimed": self._tail_reclaimed,
+            "cancelled": self._lifecycle_counts["cancelled"],
+            "deadline_expired": self._lifecycle_counts["deadline"],
+            "preempted": self._lifecycle_counts["preempted"],
+            "shed": self._lifecycle_counts["shed"],
+            "failed": self._lifecycle_counts["failed"],
+            "requeue_depth": self.scheduler.requeue_depth,
+            "speculation": {
+                "k": self.spec_tokens,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "acceptance_rate": round(
+                    self._spec_accepted / self._spec_proposed, 4)
+                if self._spec_proposed else None,
+                "verify_steps": self._spec_steps,
+                "committed_tokens": self._spec_committed,
+                "tokens_per_forward": round(
+                    self._spec_committed / self._spec_slot_steps, 3)
+                if self._spec_slot_steps else None,
+                "verify_traces": -1 if self.spec_tokens else 0,
+                "draft": "prompt-lookup",
+                "draft_prefill_traces": 0,
+                "draft_decode_traces": 0,
+            },
+            "kv_tier": {
+                "kv_dtype": self.kv_dtype,
+                "pool_bytes": int(
+                    self._cache.k.nbytes + self._cache.v.nbytes),
+                "host_offload": False,
+                "host_blocks": 0,
+                "host_bytes": 0,
+                "host_dropped": 0,
+                "demotions": 0,
+                "swap_ins": 0,
+                "thrash_alarm": False,
+            },
+            "fault_injection": None,
+            "async_loop": {
+                "enabled": self._async,
+                "commit_lag": len(self._inflight),
+                "max_commit_lag": self._max_lag,
+                "prefill_chain": self._prefill_chain,
+                "pipeline_starts": self._async_stats["pipeline_starts"],
+                "pipelined_steps": self._async_stats["pipelined_steps"],
+                "flushes": dict(self._async_stats["flushes"]),
+                "flush_depths": {
+                    reason: {str(d): n for d, n in sorted(depths.items())}
+                    for reason, depths in sorted(
+                        self._async_stats["flush_depths"].items())},
+                "discarded_tokens": self._async_stats["discarded_tokens"],
+                "garbage_steps": self._async_stats["garbage_steps"],
+                "worker": self._worker.snapshot(),
+            },
+            "step_profile": None,
+            "kv_pool": None,
+            "traces_started": 0,
+            "traces_kept": 0,
+            "slo_compliance": None,
+            "accounting": None,
+            "capacity": None,
+            "alerts": None,
+            "canary": None,
+            "incidents": None,
+        }

@@ -2,15 +2,21 @@
 
 Counterpart of ``deepspeed_tpu/model_implementations/transformer.py``:
 the same configuration, the same parameter tree and the same functions
-(``prefill``, ``decode_step``, ``causal_forward``), written as plain
-functions on tensors over a parameter dict. Prefill attention runs the
-flash kernel (``ops/flash_attention.py``) and each decode step the dense
-decode kernel (``ops/decode_attention.py``) — on a CUDA tensor the CUDA
-kernels, on a CPU tensor their plain versions. ALiBi, sliding windows and
-padded-key masks have no kernel in either package and take the plain
-einsum path here, as they take the XLA path there. The large products
-around attention (projections, MLP, LM head) are ``torch`` matmuls, as
-the JAX package leaves them to XLA.
+(``prefill``, ``decode_step``, ``causal_forward``, and the paged-pool
+functions ``paged_prefill``, ``paged_prefill_chunk``, ``paged_decode_step``
+and ``paged_verify_step`` the server runs), written as plain functions on
+tensors over a parameter dict. Prefill attention runs the flash kernel
+(``ops/flash_attention.py``), a dense decode step the dense decode kernel
+and the paged steps the paged decode, chunk and verify kernels
+(``ops/decode_attention.py``) — on a CUDA tensor the CUDA kernels, on a
+CPU tensor their plain versions. ALiBi, sliding windows and padded-key
+masks have no kernel in either package and take the plain einsum path here
+(over the pool gathered through the block tables, for the paged steps), as
+they take the XLA path there. The large products around attention
+(projections, MLP, LM head) are ``torch`` matmuls, as the JAX package
+leaves them to XLA. The paged functions take the slot, the chunk start and
+the prompt length as host ints where JAX traces scalars, and none of them
+reads a device value on the host.
 
 Parameter schema (nested dict of tensors)::
 
@@ -21,8 +27,8 @@ Parameter schema (nested dict of tensors)::
       mlp  {wi [E, F], bi [F], wo [F, E], bo [E]}
 
 Not in this slice (ROADMAP.md queue C): MoE layers, int8 weight leaves,
-tensor/expert/sequence-parallel meshes, speculative ``decode_chunk``, the
-paged-pool functions and the encoder path.
+tensor/expert/sequence-parallel meshes, speculative ``decode_chunk`` over
+the dense cache, and the encoder path.
 """
 from __future__ import annotations
 
@@ -33,10 +39,13 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.inference.kv_cache import (KVCache, advance,
-                                                    append_token,
-                                                    write_prompt)
-from deepspeed_tpu_torch.ops.decode_attention import decode_attention
+from deepspeed_tpu_torch.inference.kv_cache import (
+    KVCache, PagedKVCache, advance, append_token, paged_advance,
+    paged_append_token, paged_gather_kv, paged_gather_slot_kv,
+    paged_write_chunk, paged_write_prompt, paged_write_tokens, write_prompt)
+from deepspeed_tpu_torch.ops.decode_attention import (
+    decode_attention, paged_chunk_attention, paged_decode_attention,
+    paged_verify_attention)
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_reference)
 
@@ -294,6 +303,81 @@ def _decode_attention(q, k_cache, v_cache, live,
                         _repeat_kv(v_cache, H // KH).float()).to(q.dtype)
 
 
+def _paged_kernel(cfg, window) -> bool:
+    """Causal, non-ALiBi, unwindowed layers take the paged kernels; the
+    rest gather through the block tables onto the plain path."""
+    return cfg.positional != "alibi" and window is None
+
+
+def _paged_decode_attention(q, cache: PagedKVCache, layer_idx: int,
+                            cfg: InferenceTransformerConfig, live,
+                            window=None):
+    """One-token attention through the paged pool. q ``[S, H, D]``,
+    ``live [S]`` = valid positions including the just-appended token."""
+    if _paged_kernel(cfg, window):
+        return paged_decode_attention(q, cache.k[layer_idx],
+                                      cache.v[layer_idx],
+                                      cache.block_tables, live,
+                                      scale=cfg.scale)
+    k_cache, v_cache = paged_gather_kv(cache, layer_idx)
+    return _decode_attention(q, k_cache, v_cache, live, cfg, window=window)
+
+
+def _chunk_attention(q, k_cache, v_cache, lengths,
+                     cfg: InferenceTransformerConfig, window=None):
+    """Attention of ``q [B, K, H, D]`` at positions
+    ``lengths[b]..lengths[b]+K-1`` against a cache that already holds the
+    chunk's own k/v: key position s is visible to chunk query i iff
+    ``s < lengths[b] + i + 1`` (the plain path of verify and chunked
+    prefill)."""
+    B, K, H, D = q.shape
+    KH, S = k_cache.shape[2], k_cache.shape[1]
+    s = torch.einsum("bkhd,bshd->bhks", q.float(),
+                     _repeat_kv(k_cache, H // KH).float()) * cfg.scale
+    pos = torch.arange(S, device=q.device)[None, None, None, :]
+    qpos = lengths[:, None] + torch.arange(K, device=q.device)[None, :]
+    if cfg.positional == "alibi":
+        slopes = alibi_slopes(H, q.device) * cfg.alibi_scale
+        s = s + slopes[None, :, None, None] * (pos - qpos[:, None, :, None])
+    s = s.masked_fill(pos >= (qpos + 1)[:, None, :, None], NEG_INF)
+    if window is not None:
+        s = s.masked_fill(pos <= qpos[:, None, :, None] - window, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhks,bshd->bkhd", p,
+                        _repeat_kv(v_cache, H // KH).float()).to(q.dtype)
+
+
+def _paged_verify_attention(q, cache: PagedKVCache, layer_idx: int,
+                            cfg: InferenceTransformerConfig, window=None):
+    """Verify attention for ALL slots: ``q [S, K, H, D]``, each slot's K
+    candidates at ``lengths[s]..lengths[s]+K-1``, through the tables."""
+    if _paged_kernel(cfg, window):
+        return paged_verify_attention(q, cache.k[layer_idx],
+                                      cache.v[layer_idx],
+                                      cache.block_tables, cache.lengths,
+                                      scale=cfg.scale)
+    k_cache, v_cache = paged_gather_kv(cache, layer_idx)
+    return _chunk_attention(q, k_cache, v_cache, cache.lengths, cfg,
+                            window=window)
+
+
+def _paged_chunk_attention(q, cache: PagedKVCache, layer_idx: int,
+                           cfg: InferenceTransformerConfig, slot: int,
+                           start: int, window=None):
+    """Chunked-prefill attention: ``q [1, C, H, D]`` at positions
+    ``start..start+C-1`` attends slot ``slot``'s resident prefix and the
+    chunk itself through its table row."""
+    if _paged_kernel(cfg, window):
+        return paged_chunk_attention(q[0], cache.k[layer_idx],
+                                     cache.v[layer_idx],
+                                     cache.block_tables[slot], start,
+                                     scale=cfg.scale)[None]
+    k_cache, v_cache = paged_gather_slot_kv(cache, layer_idx, slot)
+    return _chunk_attention(q, k_cache, v_cache,
+                            torch.full((1,), start, device=q.device), cfg,
+                            window=window)
+
+
 # ---------------------------------------------------------------- blocks
 
 def _qkv(x, a, cfg, positions):
@@ -351,14 +435,18 @@ def _window(cfg, layer_idx):
 
 
 def _block_seq(x, layer, cfg, positions, lengths, cache, layer_idx,
-               causal=True, key_mask=None, reference=False):
+               causal=True, key_mask=None, reference=False, slot=None):
     """Full-sequence block (prefill). x [B, T, E]; writes the prompt's k/v
-    into ``cache`` when one is given."""
+    into ``cache`` when one is given — into pool slot ``slot``'s blocks for
+    a :class:`PagedKVCache` (prompt-internal attention never needs the
+    pool)."""
     a = layer["attn"]
     ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
     h = ln1_out if cfg.pre_layer_norm else x
     q, k, v = _qkv(h, a, cfg, positions)
-    if cache is not None:
+    if isinstance(cache, PagedKVCache):
+        cache = paged_write_prompt(cache, layer_idx, k[0], v[0], slot)
+    elif cache is not None:
         cache = write_prompt(cache, layer_idx, k, v, lengths)
     attn = _prefill_attention(q, k, v, cfg, causal=causal, key_mask=key_mask,
                               window=_window(cfg, layer_idx),
@@ -389,7 +477,10 @@ def _embed(params, cfg, ids, positions):
     if cfg.embed_scale != 1.0:   # Gemma: x * sqrt(E), head reads raw wte
         x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
     if cfg.positional == "learned":
-        x = x + params["wpe"][positions].to(cfg.dtype)
+        # a position past the table (a garbage row of the pipelined server
+        # loop) reads its last row, as JAX's gather clamps
+        wpe = params["wpe"]
+        x = x + wpe[positions.clamp(max=wpe.shape[0] - 1)].to(cfg.dtype)
     if "wtte" in params:   # BERT token-type embeddings
         x = x + params["wtte"][torch.zeros_like(ids)].to(cfg.dtype)
     if "ln_emb" in params:   # BLOOM word_embeddings_layernorm
@@ -413,7 +504,7 @@ def _check_causal(cfg):
 
 
 def _causal_trunk(params, cfg, input_ids, lengths, cache, key_mask=None,
-                  reference=False):
+                  reference=False, slot=None):
     """Shared causal trunk: embed → blocks → final LN. ``prefill`` and
     ``causal_forward`` both run through here."""
     _check_causal(cfg)
@@ -424,7 +515,7 @@ def _causal_trunk(params, cfg, input_ids, lengths, cache, key_mask=None,
     for i, layer in enumerate(params["layers"]):
         x, cache = _block_seq(x, layer, cfg, positions, lengths, cache, i,
                               causal=True, key_mask=key_mask,
-                              reference=reference)
+                              reference=reference, slot=slot)
     return _layer_norm(x, params["ln_f"], cfg.layer_norm_eps), cache
 
 
@@ -448,6 +539,129 @@ def decode_step(params, cfg: InferenceTransformerConfig, tokens,
         x, cache = _block_decode(x, layer, cfg, cache, i, live)
     x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
     return _logits(params, cfg, x), advance(cache)
+
+
+# ---------------------------------------------------------------- paged
+
+def _block_decode_paged(x, layer, cfg, cache: PagedKVCache, layer_idx,
+                        live):
+    """Single-token block over the paged pool. x [S, E] (one token per
+    slot); appends into each slot's current block."""
+    a = layer["attn"]
+    ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
+    h = ln1_out if cfg.pre_layer_norm else x
+    q, k, v = _qkv(h, a, cfg, cache.lengths)
+    cache = paged_append_token(cache, layer_idx, k, v)
+    attn = _paged_decode_attention(q, cache, layer_idx, cfg, live,
+                                   window=_window(cfg, layer_idx))
+    attn_out = torch.einsum("bhd,hde->be", attn,
+                            _w(a["wo"], x.dtype)) + a["bo"]
+    return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
+
+
+def paged_prefill(params, cfg: InferenceTransformerConfig, input_ids,
+                  length: int, cache: PagedKVCache, slot: int):
+    """Admit one prompt into pool slot ``slot``: run the right-padded
+    ``[1, T]`` prompt through the trunk (T a multiple of the block size),
+    scattering each layer's k/v into the slot's blocks, and pin
+    ``lengths[slot] = length``. Returns (next-token logits ``[1, V]``,
+    cache)."""
+    _check_causal(cfg)
+    x, cache = _causal_trunk(params, cfg, input_ids, None, cache, slot=slot)
+    cache.lengths[slot] = length
+    return _logits(params, cfg, x[:, length - 1]), cache
+
+
+def _block_chunk_paged(x, layer, cfg, cache: PagedKVCache, layer_idx,
+                       slot: int, start: int):
+    """Chunked-prefill block over the paged pool. x ``[1, C, E]`` at
+    positions ``start..start+C-1``; scatters the chunk's k/v into the
+    slot's blocks, then attends resident prefix + chunk through the
+    table."""
+    a = layer["attn"]
+    ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
+    h = ln1_out if cfg.pre_layer_norm else x
+    positions = start + torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _qkv(h, a, cfg, positions)
+    cache = paged_write_chunk(cache, layer_idx, k[0], v[0], slot, start)
+    attn = _paged_chunk_attention(q, cache, layer_idx, cfg, slot, start,
+                                  window=_window(cfg, layer_idx))
+    attn_out = torch.einsum("...hd,hde->...e", attn,
+                            _w(a["wo"], x.dtype)) + a["bo"]
+    return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
+
+
+def paged_prefill_chunk(params, cfg: InferenceTransformerConfig, input_ids,
+                        start: int, length: int, cache: PagedKVCache,
+                        slot: int):
+    """One chunk of an incremental prefill: the C-token chunk
+    ``input_ids [1, C]`` at positions ``start..start+C-1`` (block-aligned)
+    runs through the trunk, scattering each layer's k/v into slot
+    ``slot``'s blocks and attending the already-resident prefix through
+    the table. ``lengths[slot]`` advances to ``min(start + C, length)``.
+    Returns (next-token logits ``[1, V]``, cache); the logits are the
+    prompt's last token's on the final chunk, the chunk tail's (discarded
+    by the caller) before it."""
+    _check_causal(cfg)
+    C = input_ids.shape[1]
+    positions = start + torch.arange(C, device=input_ids.device)[None, :]
+    x = _embed(params, cfg, input_ids, positions)
+    for i, layer in enumerate(params["layers"]):
+        x, cache = _block_chunk_paged(x, layer, cfg, cache, i, slot, start)
+    x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
+    cache.lengths[slot] = min(start + C, length)
+    last = min(max(length - 1 - start, 0), C - 1)
+    return _logits(params, cfg, x[:, last]), cache
+
+
+def _block_verify_paged(x, layer, cfg, cache: PagedKVCache, layer_idx):
+    """K-token speculative-verify block over the paged pool. x
+    ``[S, K, E]``; writes each slot's chunk k/v at ``lengths[s]..
+    lengths[s]+K-1`` through the tables without advancing lengths."""
+    a = layer["attn"]
+    ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
+    h = ln1_out if cfg.pre_layer_norm else x
+    positions = cache.lengths[:, None] + torch.arange(
+        x.shape[1], device=x.device)[None, :]
+    q, k, v = _qkv(h, a, cfg, positions)
+    cache = paged_write_tokens(cache, layer_idx, k, v)
+    attn = _paged_verify_attention(q, cache, layer_idx, cfg,
+                                   window=_window(cfg, layer_idx))
+    attn_out = torch.einsum("...hd,hde->...e", attn,
+                            _w(a["wo"], x.dtype)) + a["bo"]
+    return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
+
+
+def paged_verify_step(params, cfg: InferenceTransformerConfig, tokens,
+                      cache: PagedKVCache):
+    """Speculative verify for ALL resident slots: score each slot's K
+    candidates ``tokens [S, K]`` in one forward at positions
+    ``lengths[s]..lengths[s]+K-1`` → (logits ``[S, K, V]``, cache). The
+    chunk's k/v are written through the tables; lengths are NOT advanced —
+    the caller commits the accepted prefix."""
+    _check_causal(cfg)
+    positions = cache.lengths[:, None] + torch.arange(
+        tokens.shape[1], device=tokens.device)[None, :]
+    x = _embed(params, cfg, tokens, positions)
+    for i, layer in enumerate(params["layers"]):
+        x, cache = _block_verify_paged(x, layer, cfg, cache, i)
+    x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
+    return _logits(params, cfg, x), cache
+
+
+def paged_decode_step(params, cfg: InferenceTransformerConfig, tokens,
+                      cache: PagedKVCache, active):
+    """One generation step for ALL resident slots: ``tokens [S]`` →
+    (logits ``[S, V]``, cache). Appends each slot's token at
+    ``lengths[s]`` and advances only ``active`` slots — idle slots stay at
+    length 0, writing into the null block."""
+    _check_causal(cfg)
+    x = _embed(params, cfg, tokens[:, None], cache.lengths[:, None])[:, 0]
+    live = cache.lengths + 1
+    for i, layer in enumerate(params["layers"]):
+        x, cache = _block_decode_paged(x, layer, cfg, cache, i, live)
+    x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
+    return _logits(params, cfg, x), paged_advance(cache, active)
 
 
 def causal_forward(params, cfg: InferenceTransformerConfig, input_ids,

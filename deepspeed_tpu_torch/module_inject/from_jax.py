@@ -1,12 +1,14 @@
-"""The JAX package's parameter tree → the port's tensors.
+"""The JAX package's parameter tree and paged KV pool → the port's
+tensors.
 
 ``deepspeed_tpu.model_implementations.transformer`` keeps its weights as a
 nested dict/list pytree (``wte``, ``wpe``, ``ln_f``, ``lm_head``,
 ``layers[i].{ln1, attn.{wq, wk, wv, bq, bk, bv, wo, bo}, mlp.{wi, bi, wo,
 bo}, ln2}``). The port's transformer reads the same keys with the same
 shapes, so converting the leaves is all it takes for both to compute the
-same function. The tree arrives as numpy arrays (``jax.device_get``); this
-module imports no JAX.
+same function. :func:`paged_cache_from_numpy` does the same for a
+``PagedKVCache``, so both packages can start a step from one pool. Both
+take numpy arrays (``jax.device_get``); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -33,3 +35,19 @@ def params_from_numpy(tree: Any, device=None, dtype=None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device) if device is not None else t
+
+
+def paged_cache_from_numpy(cache, device=None, dtype=None):
+    """A JAX ``PagedKVCache`` whose leaves are numpy arrays (any object
+    with ``k``, ``v``, ``block_tables`` and ``lengths``) → the port's
+    :class:`~deepspeed_tpu_torch.inference.kv_cache.PagedKVCache`. int8
+    pools (with ``k_scale``) are a later slice."""
+    from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache
+    if getattr(cache, "k_scale", None) is not None:
+        raise NotImplementedError(
+            "int8 paged pools are not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP.md queue C)")
+    k, v = (params_from_numpy(x, device, dtype) for x in (cache.k, cache.v))
+    tables, lengths = (params_from_numpy(x, device).to(torch.int32)
+                       for x in (cache.block_tables, cache.lengths))
+    return PagedKVCache(k=k, v=v, block_tables=tables, lengths=lengths)

@@ -22,26 +22,15 @@
 //  * every lane group keeps its own f32 online-softmax state; the groups
 //    merge by shuffles, the warps through shared memory at the end.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
+
+using namespace dstt;
 
 constexpr int NUM_WARPS = 8;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int UNROLL = 4;
-
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
-template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 
 struct Strides {
   long long q_b, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_h;

@@ -1,19 +1,31 @@
-"""Decode attention over the dense KV cache — a hand-written CUDA kernel.
+"""Decode attention over the dense KV cache and over the paged pool —
+hand-written CUDA kernels.
 
-Replaces the Pallas ``_decode_kernel``
-(``deepspeed_tpu/ops/pallas/decode_attention.py:78``, public entry
-``decode_attention :115``). The kernel is ``ops/csrc/decode_attention.cu``;
-its source note gives the design and what bounds it on the H100.
+Replaces four Pallas kernels of
+``deepspeed_tpu/ops/pallas/decode_attention.py``:
 
-Layout: q ``[B, H, D]`` (one query token per row), the cache in its
-storage layout ``[B, S, KH, D]`` with ``KH | H`` — typically the layer view
-``cache.k[layer]`` of a ``[L, B, S, KH, D]`` cache, read through its strides
-— and ``lengths [B]`` int32: row ``b`` attends positions ``< lengths[b]``.
-A row of length 0 gives zeros, as the TPU kernel does.
+* ``_decode_kernel`` (:78, entry ``decode_attention :115``) by
+  ``ops/csrc/decode_attention.cu``: one query token per row against the
+  dense cache ``[B, S, KH, D]`` (typically the layer view ``cache.k[layer]``
+  of a ``[L, B, S, KH, D]`` cache, read through its strides), row ``b``
+  attending positions ``< lengths[b]``;
+* ``_paged_decode_kernel`` (:164, entry ``paged_decode_attention :217``)
+  and ``_paged_verify_kernel`` (:421, entry ``paged_verify_attention
+  :479``) by ``ops/csrc/paged_attention.cu``: one query per slot, or each
+  slot's K candidate tokens, through block tables ``[S, MB]`` into the
+  pool ``[NB, BS, KH, D]`` (the layer view of ``PagedKVCache.k``);
+* ``_paged_chunk_kernel`` (:292, entry ``paged_chunk_attention :350``) by
+  ``ops/csrc/paged_chunk_attention.cu``: one slot's prefill chunk through
+  its table row.
 
-On a CPU tensor :func:`decode_attention` runs
-:func:`decode_attention_reference`, the plain PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+Each source's note gives its design and what bounds it on the H100. A row
+with no visible key gives zeros, as the TPU kernels do. The paged kernels
+take full-precision pools only: int8 pools with scale tiles are a later
+slice (ROADMAP.md queue C).
+
+On CPU tensors each wrapper runs its plain PyTorch version (the
+``*_reference`` function beside it); on CUDA tensors it launches its kernel
+or raises. Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -79,41 +91,51 @@ def decode_attention_reference(q, k_cache, v_cache, lengths,
     return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
-def _check_kernel_args(q, k_cache, v_cache, lengths):
+def _check_operands(name, floats, ints, groups=None):
+    """Raise unless the kernel ``name`` can take these CUDA operands:
+    ``floats`` (q first, then caches or pools) of one float dtype with a
+    contiguous head dim of 64 or 128, 16-byte aligned rows and strides that
+    are whole 16-byte vectors; ``ints`` (lengths, block tables) int32 with
+    a contiguous last dim; ``groups`` the query heads per kv head the
+    kernel was built for (None: any)."""
+    q = floats[0]
     dev = q.device
-    if not (k_cache.device == v_cache.device == lengths.device == dev):
-        raise ValueError("q, caches and lengths must be on one device")
+    if any(x.device != dev for x in (*floats, *ints)):
+        raise ValueError(f"{name}: q, caches, tables and lengths must be on "
+                         f"one device")
     if dev.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu tensors, "
-                         f"got {dev}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
     if dev.index not in (None, torch.cuda.current_device()):
-        raise ValueError(f"decode_attention launches on the current device "
+        raise ValueError(f"{name} launches on the current device "
                          f"cuda:{torch.cuda.current_device()}, tensors are "
                          f"on {dev}")
-    if not (q.dtype == k_cache.dtype == v_cache.dtype) \
-            or q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"decode_attention kernel takes float32, float16 "
-                        f"or bfloat16 q/caches of one dtype, got {q.dtype}, "
-                        f"{k_cache.dtype}, {v_cache.dtype}")
-    if lengths.dtype != torch.int32 or not lengths.is_contiguous():
-        raise TypeError("decode_attention kernel takes contiguous int32 "
-                        "lengths")
-    D = q.shape[2]
+    if any(x.dtype != q.dtype for x in floats) or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} kernel takes float32, float16 or bfloat16 "
+                        f"q/caches of one dtype, got "
+                        f"{[str(x.dtype) for x in floats]}")
+    if any(x.dtype != torch.int32 or x.stride(-1) != 1 for x in ints):
+        raise TypeError(f"{name} kernel takes int32 lengths and tables with "
+                        f"a contiguous last dim")
+    D = q.shape[-1]
     if D not in _HEAD_DIMS:
-        raise ValueError(f"decode_attention kernel takes head dim "
-                         f"{_HEAD_DIMS}, got {D}")
-    if q.shape[1] // k_cache.shape[2] not in _GROUP_SIZES:
-        raise ValueError(f"decode_attention kernel takes query groups of "
-                         f"{_GROUP_SIZES} heads per kv head, got "
-                         f"{q.shape[1] // k_cache.shape[2]}")
+        raise ValueError(f"{name} kernel takes head dim {_HEAD_DIMS}, got {D}")
+    rep = q.shape[-2] // floats[1].shape[-2]
+    if groups is not None and rep not in groups:
+        raise ValueError(f"{name} kernel takes query groups of {groups} "
+                         f"heads per kv head, got {rep}")
     vec = 16 // q.element_size()
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:-1]) \
+    for x in floats:
+        if x.stride(-1) != 1 or any(st % vec for st in x.stride()[:-1]) \
                 or x.data_ptr() % 16:
             raise ValueError(
-                f"decode_attention kernel needs {name} with a contiguous "
-                f"head dim, 16-byte aligned rows and strides that are "
-                f"multiples of {vec} elements; got strides {x.stride()}")
+                f"{name} kernel needs q and caches with a contiguous head "
+                f"dim, 16-byte aligned rows and strides that are multiples "
+                f"of {vec} elements; got strides {x.stride()}")
+
+
+def _check_kernel_args(q, k_cache, v_cache, lengths):
+    _check_operands("decode_attention", (q, k_cache, v_cache), (lengths,),
+                    _GROUP_SIZES)
 
 
 def decode_attention(q, k_cache, v_cache, lengths,
@@ -141,3 +163,236 @@ def decode_attention(q, k_cache, v_cache, lengths,
 
 
 decode_attention.launches = 0
+
+
+# ------------------------------------------------------------------ paged
+
+_LATER_INT8 = ("int8 pools (k_scale/v_scale) are not ported to "
+               "deepspeed_tpu_torch yet (ROADMAP.md queue C)")
+
+
+def _bind_paged(lib: ctypes.CDLL) -> None:
+    lib.dstt_paged_decode_attention.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 11
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_paged_decode_attention.restype = ctypes.c_int
+    lib.dstt_paged_verify_attention.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 13
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_paged_verify_attention.restype = ctypes.c_int
+
+
+def _bind_chunk(lib: ctypes.CDLL) -> None:
+    lib.dstt_paged_chunk_attention.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_paged_chunk_attention.restype = ctypes.c_int
+
+
+PAGED_BUILDER = CUDAOpBuilder("paged_attention", _bind_paged)
+CHUNK_BUILDER = CUDAOpBuilder("paged_chunk_attention", _bind_chunk)
+
+
+def _check_pools(name, q, k_pool, v_pool, k_scale, v_scale):
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(_LATER_INT8)
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"{name} wants pools [NB, BS, KH, D], got "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
+    if q.shape[-1] != k_pool.shape[3] or q.shape[-2] % k_pool.shape[2]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match the "
+                         f"pool {tuple(k_pool.shape)} (head dim, or q heads "
+                         f"not divisible by kv heads)")
+
+
+def _check_tables(name, S, block_tables, lengths):
+    if block_tables.dim() != 2 or block_tables.shape[0] != S \
+            or tuple(lengths.shape) != (S,):
+        raise ValueError(f"{name} wants block_tables [S={S}, MB] and lengths "
+                         f"[S], got {tuple(block_tables.shape)}, "
+                         f"{tuple(lengths.shape)}")
+
+
+def _scale(scale, D):
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+
+def _on_cpu(*xs):
+    return all(x.device.type == "cpu" for x in xs)
+
+
+def _gather(pool, table):
+    """Per-slot contiguous copies through the tables: ``[..., MB]`` ids →
+    ``[..., MB * BS, KH, D]`` (gathered position j is position j)."""
+    g = pool[table.long()]
+    return g.reshape(*table.shape[:-1], -1, *pool.shape[2:])
+
+
+def _masked_softmax(s, visible):
+    """Unnormalised f32 softmax of ``s`` over its last dim where
+    ``visible``, and its normaliser; a row with nothing visible gives
+    zeros (the kernels' contract)."""
+    s = s.masked_fill(~visible, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    return p, p.sum(-1, keepdim=True).clamp_min(1e-30)
+
+
+def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
+                                     lengths, scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Plain version of the paged decode kernel: gather each slot's cache
+    through its table, then the dense decode's plain version."""
+    _check_pools("paged_decode_attention", q, k_pool, v_pool, None, None)
+    _check_tables("paged_decode_attention", q.shape[0], block_tables,
+                  lengths)
+    return decode_attention_reference(q, _gather(k_pool, block_tables),
+                                      _gather(v_pool, block_tables), lengths,
+                                      scale)
+
+
+def paged_chunk_attention_reference(q, k_pool, v_pool, block_table, start,
+                                    scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """Plain version of the paged chunk kernel: gather the slot's cache
+    through its table row, f32 softmax with ``col <= start + qi``."""
+    _check_pools("paged_chunk_attention", q, k_pool, v_pool, None, None)
+    C, H, D = q.shape
+    rep = H // k_pool.shape[2]
+    kc = _gather(k_pool, block_table).repeat_interleave(rep, dim=1)
+    vc = _gather(v_pool, block_table).repeat_interleave(rep, dim=1)
+    s = torch.einsum("chd,shd->chs", q.float() * _scale(scale, D), kc.float())
+    col = torch.arange(kc.shape[0], device=q.device)
+    qi = torch.arange(C, device=q.device)
+    visible = (col[None, None, :] <= start + qi[:, None, None])
+    p, norm = _masked_softmax(s, visible)
+    return (torch.einsum("chs,shd->chd", p, vc.float()) / norm).to(q.dtype)
+
+
+def paged_verify_attention_reference(q, k_pool, v_pool, block_tables,
+                                     lengths, scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Plain version of the paged verify kernel: gather each slot's cache
+    through its table, f32 softmax with ``col <= lengths[s] + qi``."""
+    _check_pools("paged_verify_attention", q, k_pool, v_pool, None, None)
+    S, K, H, D = q.shape
+    _check_tables("paged_verify_attention", S, block_tables, lengths)
+    rep = H // k_pool.shape[2]
+    kc = _gather(k_pool, block_tables).repeat_interleave(rep, dim=2)
+    vc = _gather(v_pool, block_tables).repeat_interleave(rep, dim=2)
+    s = torch.einsum("skhd,sphd->shkp", q.float() * _scale(scale, D),
+                     kc.float())
+    col = torch.arange(kc.shape[1], device=q.device)
+    qi = torch.arange(K, device=q.device)
+    visible = col[None, None, None, :] <= (
+        lengths.to(q.device)[:, None, None, None] + qi[None, None, :, None])
+    p, norm = _masked_softmax(s, visible)
+    return (torch.einsum("shkp,sphd->skhd", p, vc.float())
+            / norm.permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                           scale: Optional[float] = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """One-token attention per slot through the paged pool, GQA-native:
+    q ``[S, H, D]``, pools ``[NB, BS, KH, D]``, ``block_tables [S, MB]``
+    int32 (dead entries point at a valid block — the null block 0),
+    ``lengths [S]`` int32 → ``[S, H, D]``."""
+    _check_pools("paged_decode_attention", q, k_pool, v_pool, k_scale,
+                 v_scale)
+    if q.dim() != 3:
+        raise ValueError(f"paged_decode_attention wants q [S, H, D], got "
+                         f"{tuple(q.shape)}")
+    S, H, D = q.shape
+    _check_tables("paged_decode_attention", S, block_tables, lengths)
+    if _on_cpu(q, k_pool, v_pool, block_tables, lengths):
+        return paged_decode_attention_reference(q, k_pool, v_pool,
+                                                block_tables, lengths, scale)
+    _check_operands("paged_decode_attention", (q, k_pool, v_pool),
+                    (block_tables, lengths))
+    NB, BS, KH = k_pool.shape[:3]
+    o = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
+    lib = PAGED_BUILDER.load()
+    rc = lib.dstt_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), S, H, KH,
+        D, NB, BS, block_tables.shape[1], *q.stride()[:2],
+        *k_pool.stride()[:3], *v_pool.stride()[:3], block_tables.stride(0),
+        *o.stride()[:2], _scale(scale, D), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, "paged_decode_attention", rc)
+    paged_decode_attention.launches += 1
+    return o
+
+
+def paged_chunk_attention(q, k_pool, v_pool, block_table, start: int,
+                          scale: Optional[float] = None, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
+    """Chunked-prefill attention for one slot through the paged pool:
+    q ``[C, H, D]`` at absolute positions ``start..start+C-1`` (the
+    chunk's own k/v already in the pool), pools ``[NB, BS, KH, D]``, the
+    slot's table row ``[MB]`` int32, ``start`` a host int → ``[C, H, D]``."""
+    _check_pools("paged_chunk_attention", q, k_pool, v_pool, k_scale,
+                 v_scale)
+    if q.dim() != 3 or block_table.dim() != 1:
+        raise ValueError(f"paged_chunk_attention wants q [C, H, D] and one "
+                         f"table row [MB], got {tuple(q.shape)}, "
+                         f"{tuple(block_table.shape)}")
+    start = int(start)
+    if _on_cpu(q, k_pool, v_pool, block_table):
+        return paged_chunk_attention_reference(q, k_pool, v_pool,
+                                               block_table, start, scale)
+    _check_operands("paged_chunk_attention", (q, k_pool, v_pool),
+                    (block_table,))
+    C, H, D = q.shape
+    NB, BS, KH = k_pool.shape[:3]
+    o = torch.empty((C, H, D), dtype=q.dtype, device=q.device)
+    lib = CHUNK_BUILDER.load()
+    rc = lib.dstt_paged_chunk_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_table.data_ptr(), o.data_ptr(), C, H, KH, D, NB, BS,
+        block_table.shape[0], start, *q.stride()[:2], *k_pool.stride()[:3],
+        *v_pool.stride()[:3], *o.stride()[:2], _scale(scale, D),
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, "paged_chunk_attention", rc)
+    paged_chunk_attention.launches += 1
+    return o
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths,
+                           scale: Optional[float] = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Speculative-verify attention for every slot through the paged pool:
+    q ``[S, K, H, D]`` at positions ``lengths[s]..lengths[s]+K-1`` (their
+    k/v already in the pool), pools ``[NB, BS, KH, D]``, ``block_tables
+    [S, MB]`` and ``lengths [S]`` int32 → ``[S, K, H, D]``."""
+    _check_pools("paged_verify_attention", q, k_pool, v_pool, k_scale,
+                 v_scale)
+    if q.dim() != 4:
+        raise ValueError(f"paged_verify_attention wants q [S, K, H, D], got "
+                         f"{tuple(q.shape)}")
+    S, K, H, D = q.shape
+    _check_tables("paged_verify_attention", S, block_tables, lengths)
+    if _on_cpu(q, k_pool, v_pool, block_tables, lengths):
+        return paged_verify_attention_reference(q, k_pool, v_pool,
+                                                block_tables, lengths, scale)
+    _check_operands("paged_verify_attention", (q, k_pool, v_pool),
+                    (block_tables, lengths))
+    NB, BS, KH = k_pool.shape[:3]
+    o = torch.empty((S, K, H, D), dtype=q.dtype, device=q.device)
+    lib = PAGED_BUILDER.load()
+    rc = lib.dstt_paged_verify_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), S, K, H,
+        KH, D, NB, BS, block_tables.shape[1], *q.stride()[:3],
+        *k_pool.stride()[:3], *v_pool.stride()[:3], block_tables.stride(0),
+        *o.stride()[:3], _scale(scale, D), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, "paged_verify_attention", rc)
+    paged_verify_attention.launches += 1
+    return o
+
+
+paged_decode_attention.launches = 0
+paged_chunk_attention.launches = 0
+paged_verify_attention.launches = 0

@@ -7,8 +7,9 @@ first use, by itself, into a shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/deepspeed_tpu_torch_kernels/<name>-<hash>.so
 
-cached by a hash of the source and the flags, and loaded with ctypes. The
-source includes no PyTorch header, so a build takes seconds.
+cached by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, and loaded with ctypes. No source includes a PyTorch header, so a
+build takes seconds.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
 A build that fails raises: there is no path around a missing kernel.
 """
@@ -60,6 +61,8 @@ class CUDAOpBuilder:
 
     def so_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):   # shared device helpers
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

@@ -1,0 +1,209 @@
+"""Flight-recorder event ring: the last N structured lifecycle events.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/events.py`` without its fault
+dump (``install_fault_dump``, ``dump_ring``), which no ported path uses
+yet (ROADMAP.md queue A7).
+
+Metrics (registry.py) answer "what is slow"; the event ring answers "why
+was it slow" after the fact: a bounded buffer of compile/retrace/
+admission/checkpoint/step events that costs O(capacity) memory forever
+and can be dumped as JSON at any moment — from the scrape endpoint
+(``/debug/events``), from the hang watchdog, or automatically at process
+fault. The design constraints mirror the registry's:
+
+* **Bounded** — a ring of ``capacity`` events; a million-step run holds
+  the most recent window, never grows.
+* **Host-pure** — no jax import; recording is a deque append under a
+  lock, cheap enough for every compile/admission event (NOT for every
+  decode step of a tight loop — step events are recorded at the
+  engines' print/telemetry cadence, see the call sites).
+* **Thread-safe** — the scrape endpoint and the watchdog read while the
+  serving loop writes.
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from typing import Any, List
+
+# canonical event kinds (free-form kinds are allowed; these are the ones
+# the engines emit and docs/observability.md documents)
+COMPILE_BEGIN = "compile_begin"
+COMPILE_END = "compile_end"
+RETRACE = "retrace"
+ADMISSION_REJECT = "admission_reject"
+CHECKPOINT = "checkpoint"
+STEP_BEGIN = "step_begin"
+STEP_END = "step_end"
+WATCHDOG_DUMP = "watchdog_dump"
+NUMERICS_NONFINITE = "numerics_nonfinite"
+LOSS_SPIKE = "loss_spike"
+SLO_VIOLATION = "slo_violation"
+# request-lifecycle events (docs/serving.md "Request lifecycle &
+# overload behavior"): every degradation-ladder rung leaves a ring entry
+CANCEL = "cancel"
+DEADLINE_EXPIRED = "deadline_expired"
+PREEMPT = "preempt"
+SHED = "shed"
+REQUEST_FAILED = "request_failed"
+PREFIX_EVICT = "prefix_evict"
+FAULT_INJECTED = "fault_injected"
+# speculative serving (docs/serving.md "Per-slot speculative
+# decoding"): rolling acceptance rate collapsed — every verify forward
+# is wasted width until the workload turns lookup-friendly again
+SPEC_COLLAPSE = "spec_collapse"
+# serving step observatory (telemetry/step_profile.py): every Nth
+# step's ordered phase slices — dump_timeline's "server host" track
+SERVER_STEP_PROFILE = "server_step_profile"
+# KV-pool famine (telemetry/memory.py KVPoolAccountant): an allocation
+# the pool could not cover froze the allocator state here — one event
+# per famine episode, re-armed by the next successful allocation
+POOL_FAMINE = "pool_famine"
+# replicated serving (docs/serving.md "Replicated serving & failover"):
+# every replica health transition (healthy <-> degraded -> dead, plus
+# draining/re-admission) leaves one entry naming the replica, the edge,
+# and the reason the state machine took it
+REPLICA_HEALTH = "replica_health"
+# one entry per failed-over request: which replica lost it, how many
+# committed tokens fold into the replayed prompt, and the running
+# failover count the bounded-retry policy judges
+REPLICA_FAILOVER = "replica_failover"
+# fault-tolerant training (docs/training.md "Fault-tolerant training &
+# verified checkpoints"): the loader rejected a tag (corruption, missing
+# manifest, stale `latest`) and fell back to the previous good one —
+# one entry per rejected tag, naming the verify reason
+CKPT_FALLBACK = "ckpt_fallback"
+# bounded checkpoint retention reclaimed old tags (runtime/
+# checkpointing.py; one entry per GC pass that deleted something)
+CKPT_GC = "ckpt_gc"
+# TrainingSupervisor (runtime/resilience.py): one entry per caught
+# training fault (kind, step, restart count)…
+TRAIN_FAULT = "train_fault"
+# …and one per completed recovery (rollback tag, replayed-from step,
+# recovery seconds) — the pair brackets every restart in the ring
+TRAIN_RESUME = "train_resume"
+# disaggregated prefill/decode (docs/serving.md "Disaggregated
+# prefill/decode"): one entry per handoff stage — "published" (the
+# prefill replica's block-aligned KV landed in the shared tier),
+# "consumed" (a decode replica imported it at routing), "fallback"
+# (publication failed — the prefill replica died mid-export — and the
+# decode replica recomputes the prefix from the folded prompt), or
+# "skipped" (nothing worth publishing: the chain is already warm on
+# every decode-capable replica, or the prompt has no full block)
+KV_HANDOFF = "kv_handoff"
+# KV host tiering (docs/serving.md "KV quantization & host tiering"):
+# the swap-in rate over the rolling window crossed the thrash
+# threshold — blocks are cycling device<->host faster than they serve,
+# so the pool is undersized for the working set; one event per
+# episode, re-armed when the rate recovers
+KV_SWAP_THRASH = "kv_swap_thrash"
+# request-level cost accounting (docs/observability.md "Cost accounting
+# & capacity"): one entry per finished request carrying its closed
+# ledger — device-seconds, KV block-seconds, queue wait, swapped/handoff
+# bytes, speculation counts, tenant — the forensic twin of the
+# serve_request_* cost histograms
+REQUEST_COST = "request_cost"
+# SLO burn-rate alerting (docs/observability.md "SLOs, alerting &
+# incidents"): one entry when a rule's state machine enters firing —
+# naming the rule, the signal, the breaching fast/slow observations,
+# and the threshold…
+ALERT_FIRE = "alert_fire"
+# …and one when that rule resolves (healthy dwell satisfied), carrying
+# how long the episode burned — the pair brackets every alert episode
+ALERT_RESOLVE = "alert_resolve"
+# one entry per captured incident bundle (telemetry/incident.py):
+# the trigger (alert rule or watchdog), the bundle id, and the on-disk
+# path when telemetry.incident.dir is set
+INCIDENT_CAPTURE = "incident_capture"
+# synthetic canary prober (telemetry/canary.py): one entry per FAILED
+# probe (mismatch against the pinned tokens, timeout, or submit
+# rejection) — successful probes only tick counters
+CANARY_FAIL = "canary_fail"
+
+
+class EventRing:
+    """Bounded ring of ``{ts, kind, data}`` events, newest last."""
+
+    def __init__(self, capacity: int = 512):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = int(capacity)
+        self._lock = threading.RLock()
+        self._events: deque = deque(maxlen=self.capacity)
+        self._dropped = 0
+        self._total = 0
+
+    def record(self, kind: str, **data: Any) -> None:
+        """Append one event. ``data`` values should be JSON-able (the
+        ring is dumped with ``json.dumps``; a non-serializable value is
+        stringified at dump time rather than rejected here — recording
+        must never throw into an engine's step path)."""
+        with self._lock:
+            self._total += 1
+            if len(self._events) == self.capacity:
+                self._dropped += 1
+            self._events.append(
+                {"ts": time.time(), "kind": str(kind), "data": data})
+
+    def snapshot(self) -> List[dict]:
+        """Copy of the buffered events, oldest first."""
+        with self._lock:
+            return [dict(e) for e in self._events]
+
+    def resize(self, capacity: int) -> None:
+        """Change capacity in place, keeping the newest events — how a
+        config's ``events_capacity`` is applied to the process ring
+        without dropping what other subsystems already recorded."""
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        with self._lock:
+            if capacity == self.capacity:
+                return
+            self.capacity = int(capacity)
+            self._events = deque(self._events, maxlen=self.capacity)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self._dropped = 0
+            self._total = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    def to_json(self) -> str:
+        """The dump format every surface shares (``/debug/events``, the
+        watchdog dump, the fault hook): ring metadata + events."""
+        with self._lock:
+            payload = {
+                "capacity": self.capacity,
+                "total_recorded": self._total,
+                "dropped": self._dropped,
+                "events": [dict(e) for e in self._events],
+            }
+        return json.dumps(payload, default=str)
+
+
+_default_ring = EventRing()
+
+
+def get_event_ring() -> EventRing:
+    """The process-wide ring every subsystem records into by default —
+    one ``/debug/events`` dump interleaves training, serving, and
+    compile events in true time order."""
+    return _default_ring
+
+
+def set_event_ring(ring: EventRing) -> EventRing:
+    """Swap the process default (tests); returns the previous one."""
+    global _default_ring
+    prev, _default_ring = _default_ring, ring
+    return prev
+
+
+def record_event(kind: str, **data: Any) -> None:
+    """Record into the process-wide ring."""
+    _default_ring.record(kind, **data)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of deepspeed_tpu_torch's one-shot generation goes, on one
-NVIDIA GPU.
+"""Where the time of deepspeed_tpu_torch's generation and serving goes, on
+one NVIDIA GPU.
 
 Builds GPT-2 XL at its published widths (random weights from a seed), runs
-one prefill of 8 prompts (64-900 tokens, the prompts of chip_smoke.py) and
-then 8 decode steps under ``torch.profiler``, and prints for each phase:
+one prefill of 8 prompts (64-900 tokens, the prompts of chip_smoke.py),
+then 8 decode steps, then 8 steady-state steps of the paged
+``ContinuousBatchingServer`` (default config, 8 resident requests, the
+async loop) under ``torch.profiler``, and prints for each phase:
 the host wall time, the summed device time of all kernels, the device's
 busy share of the wall (kernel time / wall), the device time by kind of
 kernel, and the kernels that take the most device time. Given a
@@ -36,7 +38,7 @@ def device_us(evt) -> float:
 
 
 def category(kernel: str) -> str:
-    if "flash_fwd" in kernel or "decode_kernel" in kernel:
+    if any(s in kernel for s in ("flash_fwd", "decode_kernel", "paged_")):
         return "port kernels (attention)"
     if any(s in kernel for s in ("nvjet", "gemm", "cutlass", "sm90_")):
         return "GEMM (cuBLAS)"
@@ -116,7 +118,29 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         report("decode_x8", prof, wall, trace_dir)
+    serve_x8(engine, ids, lens, act, trace_dir)
     return 0
+
+
+def serve_x8(engine, ids, lens, act, trace_dir):
+    """8 steady-state server steps: every slot resident and decoding, no
+    queue, so each step() dispatches one decode program and commits the
+    one before it."""
+    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+    srv = ContinuousBatchingServer(engine)
+    for b, n in enumerate(lens):
+        srv.submit(ids[b, :n].tolist(), max_new_tokens=64)
+    for _ in range(4):   # admission (prefills) and the pipeline's start
+        srv.step()
+    torch.cuda.synchronize()
+    with profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            srv.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report("serve_x8", prof, wall, trace_dir)
+    srv.close()
 
 
 if __name__ == "__main__":

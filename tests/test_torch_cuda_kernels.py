@@ -7,10 +7,11 @@ it runs on the GPU machine as it is:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Tolerances: bf16/fp16 outputs are compared at 2e-2 for flash attention (the
-output is rounded to 16 bits and P is rounded to the storage dtype before
-P.V on both sides, so the two may land one rounding step apart) and 1e-2 for
-decode attention (f32 math on both sides, output rounded); f32 inputs at
+Tolerances: bf16/fp16 outputs are compared at 2e-2 for flash attention and
+the paged chunk kernel (the output is rounded to 16 bits and the kernel
+rounds q.scale and P to the storage dtype before its products, so the two
+may land one rounding step apart) and 1e-2 for the dense and paged decode
+and verify kernels (f32 math on both sides, output rounded); f32 inputs at
 1e-4 (only the order of the sums differs); the f32 LSE at 1e-3 for 16-bit
 inputs.
 """
@@ -139,3 +140,134 @@ def test_generate_on_card_runs_through_the_kernels(cuda_device):
     for row, p in zip(out, prompts):
         assert row[:len(p)] == p and len(row) == len(p) + 6
         assert all(0 <= t < cfg.vocab_size for t in row)
+
+
+# ------------------------------------------------------------------ paged
+
+def _paged_case(g, dtype, H, KH, D, NB=40, BS=32, MB=8, S=4):
+    """Pools as the layer view of a 2-layer pool; shuffled tables with a
+    shared first block (slots 0 and 1) and dead entries at block 0."""
+    kp = _randn(g, (2, NB, BS, KH, D), dtype)[1]
+    vp = _randn(g, (2, NB, BS, KH, D), dtype)[1]
+    perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(0))
+    ids = (perm + 1).tolist()
+    lens = [1, 77, BS * MB - 5, 0][:S]
+    tables = torch.zeros((S, MB), dtype=torch.int32)
+    for s_, n in enumerate(lens):
+        for j in range(-(-(n + 4) // BS)):
+            tables[s_, j] = tables[0, j] if s_ == 1 and j == 0 else ids.pop()
+    dev = g.device
+    return (kp, vp, tables.to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+PAGED_CASES = [(torch.bfloat16, 25, 25, 64, 128), (torch.bfloat16, 32, 8,
+                                                   128, 32),
+               (torch.float16, 8, 2, 64, 32), (torch.float32, 8, 1, 128, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,KH,D,BS", PAGED_CASES)
+def test_paged_decode_and_verify_kernels_match_plain_on_card(
+        cuda_device, dtype, H, KH, D, BS):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    kp, vp, tables, lens = _paged_case(g, dtype, H, KH, D, BS=BS,
+                                       MB=256 // BS)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    q = _randn(g, (4, H, D), dtype)
+    n = port_decode.paged_decode_attention.launches
+    out = port_decode.paged_decode_attention(q, kp, vp, tables, lens)
+    ref = port_decode.paged_decode_attention_reference(q, kp, vp, tables,
+                                                       lens)
+    torch.cuda.synchronize()
+    assert port_decode.paged_decode_attention.launches == n + 1
+    assert torch.equal(out[3], torch.zeros_like(out[3]))   # length 0
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    for K in (1, 4, 5):
+        qv = _randn(g, (4, K, H, D), dtype)
+        out = port_decode.paged_verify_attention(qv, kp, vp, tables, lens)
+        ref = port_decode.paged_verify_attention_reference(qv, kp, vp,
+                                                           tables, lens)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,KH,D,BS", PAGED_CASES)
+def test_paged_chunk_kernel_matches_plain_on_card(cuda_device, dtype, H, KH,
+                                                  D, BS):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    kp, vp, tables, _ = _paged_case(g, dtype, H, KH, D, BS=BS, MB=256 // BS)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    row = tables[2]
+    for start, C in ((0, 64), (BS, 96), (256 - BS, 64)):   # last: past row
+        qc = _randn(g, (C, H, D), dtype)
+        n = port_decode.paged_chunk_attention.launches
+        out = port_decode.paged_chunk_attention(qc, kp, vp, row, start)
+        ref = port_decode.paged_chunk_attention_reference(qc, kp, vp, row,
+                                                          start)
+        torch.cuda.synchronize()
+        assert port_decode.paged_chunk_attention.launches == n + 1
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    kp, vp, tables, lens = _paged_case(g, torch.bfloat16, 4, 4, 64)
+    with pytest.raises(TypeError, match="int32"):
+        port_decode.paged_decode_attention(
+            _randn(g, (4, 4, 64), torch.bfloat16), kp, vp, tables.long(),
+            lens)
+    kp48 = _randn(g, (8, 32, 4, 48), torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        port_decode.paged_verify_attention(
+            _randn(g, (4, 2, 4, 48), torch.bfloat16), kp48, kp48, tables,
+            lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [{}, {"enable_prefix_caching": True,
+                                        "prefill_chunk_tokens": 64},
+                                   {"speculation_tokens": 4}])
+def test_server_on_card_runs_through_the_paged_kernels(cuda_device, knobs):
+    """A small bf16 model through ContinuousBatchingServer: one kernel
+    launch per layer and program, never the dense decode kernel."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        InferenceTransformerConfig, init_params)
+    cfg = InferenceTransformerConfig(vocab_size=512, n_positions=256,
+                                     n_embd=256, n_layer=2, n_head=4)
+    params = init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg)
+    eng = deepspeed_tpu_torch.init_inference(
+        (cfg, params), dtype="bf16", max_out_tokens=256, block_size=32,
+        num_slots=2, **knobs)
+    prompts = [[1, 2, 3], list(range(100)), [7] * 40, list(range(70))]
+    fns = (port_flash.flash_attention_fwd, port_decode.decode_attention,
+           port_decode.paged_decode_attention,
+           port_decode.paged_chunk_attention,
+           port_decode.paged_verify_attention)
+    for f in fns:
+        f.launches = 0
+    srv = ContinuousBatchingServer(eng)
+    ids = [srv.submit(p, max_new_tokens=6) for p in prompts]
+    out = srv.drain()
+    flash, dense, dec, chunk, ver = (f.launches for f in fns)
+    st = srv.stats
+    srv.close()
+    steps = st["decode_steps"] + st["async_loop"]["garbage_steps"]
+    assert dense == 0
+    assert chunk == cfg.n_layer * st["prefill_chunks"]
+    if knobs.get("prefill_chunk_tokens"):
+        assert flash == 0 and chunk > 0
+    else:
+        assert flash == cfg.n_layer * st["prefills"] > 0
+    if knobs.get("speculation_tokens"):
+        assert ver == cfg.n_layer * steps > 0 and dec == 0
+    else:
+        assert dec == cfg.n_layer * steps > 0 and ver == 0
+    for rid, p in zip(ids, prompts):
+        assert out[rid][:len(p)] == p and len(out[rid]) == len(p) + 6
+        assert all(0 <= t < cfg.vocab_size for t in out[rid])
