@@ -9,8 +9,8 @@ Phases, in order; any failed check raises and the script exits non-zero
 before its last line:
 
 1. build  — compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
-   (one nvcc per source, in parallel): flash, dense decode, paged
-   decode/verify and paged chunk.
+   (one nvcc per source, in parallel): flash forward, flash backward (dq,
+   dk/dv), dense decode, paged decode/verify and paged chunk.
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T and a full (non-causal) case.
@@ -22,12 +22,17 @@ before its last line:
    versions in bf16 at GPT-2 XL shapes and in a GQA case, over shuffled,
    non-contiguous block tables that share prefix blocks between slots and
    point dead entries at the null block.
-5. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
+5. flash_bwd — the flash backward kernels (B2 dq, B3 dk/dv) against their
+   plain PyTorch versions: bf16 at the GPT-2 1.3B training shape (B=8,
+   T=1024, H=16, D=128, causal, q/k/v as strided views of one fused
+   projection), at GPT-2 XL shape (H=25, D=64), a GQA case (H=32, KH=8,
+   D=128), a ragged T (1000), a non-causal case, fp16 and fp32.
+6. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
    width (48 layers, n_embd 1600, 25 heads, bf16, random weights from a
    seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy.
    Then decode == prefill: decode-path logits against ``causal_forward``
    logits taken with the flash kernel's plain version.
-6. serve  — ``ContinuousBatchingServer`` over one engine of the same weights,
+7. serve  — ``ContinuousBatchingServer`` over one engine of the same weights,
    three servers in turn: (a) the default config (monolithic prefill,
    async loop, lag 1) on 16 requests submitted 8, 4 steps, 8 more; (b)
    prefix caching with 256-token chunks on 8 requests sharing a 512-token
@@ -37,9 +42,22 @@ before its last line:
    a tie-tolerant oracle on two requests: every served token is within
    E2E_MAX_TOL of the maximum logit of a forward through no attention
    kernel.
+8. train  — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
+   → ``train_batch`` on ``GPT2LMModel(config_for("gpt2-1.3b"))`` at full
+   width (24 layers, n_embd 2048, 16 heads of 128, T=1024; random weights
+   from a seeded generator), bf16, AdamW (lr 1e-4, weight decay 0.01),
+   gradient clipping 1.0, micro-batch 8, 2 accumulation steps, remat on;
+   one warm-up step, then TRAIN_STEPS timed steps on one repeated batch.
+   It asserts the launch counts (forward 24 x 2 (remat) x 2 x steps, dq and
+   dk/dv 24 x 2 x steps, no decode kernel), finite losses and gradient
+   norms, a falling loss, and an in-situ gradient oracle: one micro-batch of
+   2 sequences through the kernels and through the flash kernels' plain
+   version under autograd, the losses within TRAIN_LOSS_TOL and every
+   layer's ``c_attn.kernel`` gradient within TRAIN_GRAD_TOL relative L2.
 
 The kernel launch counts are set to 0 just before each main-path run (the
-e2e generate and each server) and read just after.
+e2e generate, each server and the timed training steps) and read just
+after.
 
 It prints the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel numbers, and, last, ``{"ok": true, "device": {...}}``. It exits
@@ -73,6 +91,31 @@ DECODE_TOL = 1e-2   # f32 math on both sides, output rounded to bf16
 # moves them by O(1)
 E2E_MAX_TOL = 0.35
 E2E_MEAN_TOL = 0.05
+# flash backward: two gates on each of dq, dk and dv.
+# * element-wise |kernel - plain| <= atol + rtol * |plain|: 16-bit outputs
+#   land one or two rounding steps apart where the two sides' exp or dot
+#   differ in the last bits (a bf16 step is 2^-8 relative, 0.0156 for
+#   |x| in [2, 4)); bf16 read at most 0.0156 on NVIDIA H100 80GB HBM3,
+#   700 W, where |dv| reaches ~4.
+# * relative L2 over each tile of 64 positions along T (and over the whole
+#   tensor): rows and keys late in a causal sequence hold values ~20x
+#   smaller than the first ones, so a tile the kernel skips, masks wrongly
+#   or takes from the wrong q block reads ~1 there, while sums of 16-bit
+#   products in another order read ~1e-4 over the whole tensor. A tile
+#   whose plain rms is below atol / 10 is measured against that floor.
+# f32 inputs: the same sums in another order (read ~3e-6 and ~5e-7). The
+# f32 delta = rowsum(dO * O) is held to the f32 limits in every case.
+BWD_TOL = {"16": dict(atol=2e-2, rtol=1e-2, l2=1e-2),
+           "32": dict(atol=1e-4, rtol=1e-4, l2=1e-4)}
+BWD_TILE = 64
+# in-situ oracle of the train phase (bf16 model, random weights): the
+# kernels and the plain attention under autograd round P, dS and the
+# attention output to bf16 at different places, and the backward carries
+# those one-step differences through 24 layers; a wrong kernel gradient
+# moves a layer's c_attn gradient by O(1) relative
+TRAIN_LOSS_TOL = 1e-2   # relative
+TRAIN_GRAD_TOL = 5e-2   # relative L2, per layer
+TRAIN_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -106,7 +149,8 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
 def _builders():
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
-    return [fa.BUILDER, da.BUILDER, da.PAGED_BUILDER, da.CHUNK_BUILDER]
+    return [fa.BUILDER, fa.BWD_BUILDER, da.BUILDER, da.PAGED_BUILDER,
+            da.CHUNK_BUILDER]
 
 
 def phase_build():
@@ -387,6 +431,221 @@ def phase_paged(flush):
             for k, v in out.items()}
 
 
+def bwd_error(a, r, atol, rtol, l2):
+    """How far ``a`` lies from ``r``: the largest error and reference, the
+    worst element's share of ``atol + rtol * |r|``, the relative L2 error,
+    and the worst relative L2 error over tiles of BWD_TILE positions along
+    dim 1 (T of [B, T, H, D]; H of delta's [B, H, T], where it is not
+    gated)."""
+    a, r = a.float(), r.float()
+    d = a - r
+    dims = [i for i in range(d.dim()) if i != 1]
+    d2, r2 = d.square().sum(dims), r.square().sum(dims)
+    pad = -d2.numel() % BWD_TILE
+    d2, r2 = (torch.nn.functional.pad(x, (0, pad)).view(-1, BWD_TILE).sum(1)
+              for x in (d2, r2))
+    per_tile = r.numel() / r.shape[1] * BWD_TILE
+    floor = (atol / 10) ** 2 * per_tile
+    return dict(
+        max_err=d.abs().max().item(), max_ref=r.abs().max().item(),
+        elem=(d.abs() / (atol + rtol * r.abs())).max().item(),
+        rel_l2=(d.norm() / r.norm().clamp_min(1e-30)).item(),
+        tile_l2=(d2 / r2.clamp_min(floor)).sqrt().max().item())
+
+
+def phase_flash_bwd(flush):
+    """B2 and B3 against their plain versions; the row of each kernel is
+    its GPT-2 1.3B training case, with the worst error over all cases.
+    SDPA's backward (dq, dk and dv together) is the library time of
+    both."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [("gpt2-1.3b train", 8, 1024, 16, 16, 128, True, bf16),
+             ("gpt2-xl", 8, 1024, 25, 25, 64, True, bf16),
+             ("gqa H=32 KH=8 D=128", 2, 1024, 32, 8, 128, True, bf16),
+             ("ragged T=1000", 8, 1000, 16, 16, 128, True, bf16),
+             ("full T=300", 2, 300, 16, 16, 128, False, bf16),
+             ("fp16", 2, 1024, 16, 16, 128, True, f16),
+             ("fp32", 1, 256, 16, 16, 128, True, f32)]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    rows = {}
+    for name, B, T, H, KH, D, causal, dt in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda", dtype=dt)
+        if name == "gpt2-1.3b train":
+            # the model's views of its fused c_attn output
+            q, k, v = (x.reshape(B, T, H, D) for x in
+                       rnd(B, T, 3 * H * D).split(H * D, -1))
+        else:
+            q, k, v = rnd(B, T, H, D), rnd(B, T, KH, D), rnd(B, T, KH, D)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        do = rnd(B, T, H, D)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, o, lse, do, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+        scale = 1.0 / math.sqrt(D)
+        rq, rdelta = fa._bwd_dq_reference(q, k, v, o, lse, do, causal, scale)
+        rk, rv = fa._bwd_dkv_reference(q, k, v, lse, rdelta, do, causal,
+                                       scale)
+        torch.cuda.synchronize()
+        tol = BWD_TOL["32" if dt == f32 else "16"]
+        stats = {key: bwd_error(a, r, **tol) for key, a, r in
+                 (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))}
+        stats["delta"] = bwd_error(delta, rdelta, **BWD_TOL["32"])
+        for key, st in stats.items():
+            lim = BWD_TOL["32"]["l2"] if key == "delta" else tol["l2"]
+            check(math.isfinite(st["max_err"]) and st["elem"] <= 1.0,
+                  f"flash bwd {name}: {key} off its element-wise limit "
+                  f"({st})")
+            check(key == "delta" or (st["rel_l2"] <= lim
+                                     and st["tile_l2"] <= lim),
+                  f"flash bwd {name}: {key} relative L2 over {lim} ({st})")
+        worst["dq"] = max(worst["dq"], stats["dq"]["max_err"])
+        worst["dkv"] = max(worst["dkv"], stats["dk"]["max_err"],
+                           stats["dv"]["max_err"])
+        pairs = T * (T + 1) // 2 if causal else T * T
+        esz = q.element_size()
+        peak = H100_F32_FLOPS if dt == f32 else H100_BF16_FLOPS
+        bhtd, bktd, bht = B * T * H * D, B * T * KH * D, B * H * T
+        b_dq = _bound(esz * (4 * bhtd + 2 * bktd) + 8 * bht,
+                      6 * B * H * D * pairs, peak)
+        b_dkv = _bound(esz * (2 * bhtd + 4 * bktd) + 8 * bht,
+                       8 * B * H * D * pairs, peak)
+        ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, o, lse, do, causal), 20, flush)
+        ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, lse, delta, do, causal), 20, flush)
+        plain_dq = cuda_ms(lambda: fa._bwd_dq_reference(
+            q, k, v, o, lse, do, causal, scale), 3, flush)
+        plain_dkv = cuda_ms(lambda: fa._bwd_dkv_reference(
+            q, k, v, lse, delta, do, causal, scale), 3, flush)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=KH != H)
+        dot = do.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 20, flush)
+        errs = "; ".join(
+            f"{key} max|err| {st['max_err']!r} (max|ref| {st['max_ref']!r}, "
+            f"{st['elem']:.3f} of the element limit) rel L2 "
+            f"{st['rel_l2']:.2e} worst tile {st['tile_l2']:.2e}"
+            for key, st in stats.items())
+        log(f"[flash_bwd] {name}: {errs} (limits {tol}); dq kernel {ms_dq!r} "
+            f"ms (plain {plain_dq!r}, bound {b_dq[0]!r} {b_dq[1]}, "
+            f"{6 * B * H * D * pairs / ms_dq / 1e9:.1f} TFLOP/s), dk/dv "
+            f"kernel {ms_dkv!r} ms (plain {plain_dkv!r}, bound "
+            f"{b_dkv[0]!r} {b_dkv[1]}, "
+            f"{8 * B * H * D * pairs / ms_dkv / 1e9:.1f} TFLOP/s); SDPA "
+            f"backward, dq+dk+dv together, {lib!r} ms")
+        if name == "gpt2-1.3b train":
+            rows = {
+                "flash_attention_bwd_dq": dict(
+                    ms=ms_dq, plain_ms=plain_dq, bound_ms=b_dq[0],
+                    bound_by=b_dq[1], library_ms=lib),
+                "flash_attention_bwd_dkv": dict(
+                    ms=ms_dkv, plain_ms=plain_dkv, bound_ms=b_dkv[0],
+                    bound_by=b_dkv[1], library_ms=lib)}
+        del q, k, v, o, lse, do, dq, dk, dv, rq, rk, rv, out, qt, kt, vt
+    rows["flash_attention_bwd_dq"]["max_abs_err"] = worst["dq"]
+    rows["flash_attention_bwd_dkv"]["max_abs_err"] = worst["dkv"]
+    return rows
+
+
+def phase_train():
+    """The training main path at GPT-2 1.3B width; returns its launch
+    counts, read just after the timed steps."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
+    cfg = config_for("gpt2-1.3b")
+    L = cfg.n_layer
+    model = GPT2LMModel(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.param_count(params)
+    check(n_params == 1313722368, f"gpt2-1.3b has {n_params} parameters")
+    micro, gas = 8, 2
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params, config={
+            "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas, "gradient_clipping": 1.0,
+            "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}}})
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    log(f"[train] gpt2-1.3b: {n_params} parameters, random weights and "
+        f"engine in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(6)
+    T = cfg.n_positions
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro * gas, T),
+                                       dtype=np.int32)}
+    first = engine.train_batch(batch)   # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    walls, metrics = [], []
+    for _ in range(TRAIN_STEPS):   # THE main path
+        t = time.perf_counter()
+        metrics.append(engine.train_batch(batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = TRAIN_STEPS * gas
+    check(counts["flash_attention_fwd"] == 2 * L * n,
+          f"train: flash forward launched {counts['flash_attention_fwd']} "
+          f"times, expected {2 * L * n} (24 layers x 2 with remat x {n} "
+          f"micro-batches)")
+    for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        check(counts[k] == L * n,
+              f"train: {k} launched {counts[k]} times, expected {L * n}")
+    for k in _PAGED_KERNELS[1:]:
+        check(counts[k] == 0, f"train: decode kernel {k} launched")
+    losses = [float(m["loss"]) for m in [first] + metrics]
+    gnorms = [float(m["grad_norm"]) for m in [first] + metrics]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"train: non-finite loss or grad norm: {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"train: loss did not fall on a repeated batch: {losses}")
+    step_s = float(np.median(walls))
+    tok_s = micro * gas * T / step_s
+    mfu = model.flops_per_token() * tok_s / H100_BF16_FLOPS
+    log(f"[train] {TRAIN_STEPS} steps of {micro} x {gas} x {T} tokens: "
+        f"step ms {[w * 1e3 for w in walls]!r}, median {step_s * 1e3!r} ms; "
+        f"{tok_s!r} tokens/s; MFU {mfu!r} (6N flops per token at 989 "
+        f"TFLOP/s); peak memory {peak} bytes; losses {losses!r}; grad "
+        f"norms {gnorms!r}; launches {counts}")
+
+    # in-situ gradient oracle: one micro-batch of 2 sequences from the
+    # trained weights, through the kernels and through the flash kernels'
+    # plain version under autograd
+    mb = {"input_ids": torch.as_tensor(batch["input_ids"][:2],
+                                       device="cuda")}
+    names = [f"h_{i}.attn.c_attn.kernel" for i in range(L)]
+    out = []
+    for ref in (False, True):
+        loss = model.loss_fn(engine.params, mb, reference_attention=ref)
+        out.append((loss.item(), torch.autograd.grad(
+            loss, [engine.params[n] for n in names])))
+    (lk, gk), (lr_, gr) = out
+    rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
+            for a, b in zip(gk, gr)]
+    log(f"[train] gradient oracle on 2 sequences: loss kernels {lk!r} vs "
+        f"plain attention {lr_!r}; c_attn.kernel gradient relative L2 "
+        f"error per layer max {max(rels)!r}, mean {float(np.mean(rels))!r} "
+        f"(tol {TRAIN_GRAD_TOL})")
+    check(abs(lk - lr_) <= TRAIN_LOSS_TOL * abs(lr_),
+          f"train oracle: loss {lk} vs {lr_}")
+    check(all(math.isfinite(r) and r <= TRAIN_GRAD_TOL for r in rels),
+          f"train oracle: c_attn gradient rel errors {rels}")
+    del engine, out, gk, gr
+    torch.cuda.empty_cache()
+    return counts
+
+
 def gpt2_xl_config():
     from deepspeed_tpu_torch.model_implementations.transformer import \
         InferenceTransformerConfig
@@ -528,13 +787,15 @@ def phase_e2e(cfg, params, dev="cuda"):
 _PAGED_KERNELS = ("flash_attention_fwd", "decode_attention",
                   "paged_decode_attention", "paged_chunk_attention",
                   "paged_verify_attention")
+_BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 def _launch_counts(reset=False):
-    """The five wrappers' launch counts (set to 0 first when ``reset``)."""
+    """Every wrapper's launch count (set to 0 first when ``reset``)."""
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
     fns = {"flash_attention_fwd": fa.flash_attention_fwd,
+           **{n: getattr(fa, n) for n in _BWD_KERNELS},
            **{n: getattr(da, n) for n in _PAGED_KERNELS[1:]}}
     if reset:
         for f in fns.values():
@@ -765,11 +1026,15 @@ def main() -> int:
     phase_build()
     kernels = {"flash_attention_fwd": phase_flash(flush),
                "decode_attention": phase_decode(flush),
-               **phase_paged(flush)}
+               **phase_paged(flush),
+               **phase_flash_bwd(flush)}
     cfg = gpt2_xl_config()
     params = make_params(cfg)
     runs = {"e2e": phase_e2e(cfg, params)}
     runs.update(phase_serve(cfg, params))
+    del params, flush   # the serving weights; training needs the room
+    torch.cuda.empty_cache()
+    runs["train"] = phase_train()
     # launches: summed over the main-path runs, each read just after it
     launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels}
     for k, n in launches.items():
@@ -779,6 +1044,12 @@ def main() -> int:
         "flash_attention_fwd": (
             "deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu",
             "deepspeed_tpu/ops/pallas/flash_attention.py:65"),
+        "flash_attention_bwd_dq": (
+            "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "deepspeed_tpu/ops/pallas/flash_attention.py:167"),
+        "flash_attention_bwd_dkv": (
+            "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "deepspeed_tpu/ops/pallas/flash_attention.py:215"),
         "decode_attention": (
             "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
             "deepspeed_tpu/ops/pallas/decode_attention.py:78"),

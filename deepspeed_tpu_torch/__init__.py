@@ -6,10 +6,11 @@ kernel on its path is a CUDA kernel written for Hopper
 (``ops/csrc/``). It imports neither JAX nor ``deepspeed_tpu``.
 
 Ported so far: one-shot inference (:func:`init_inference` →
-``InferenceEngine.generate``) and the paged continuous-batching server
+``InferenceEngine.generate``), the paged continuous-batching server
 (``inference.ContinuousBatchingServer(engine)`` → ``submit`` / ``step`` /
-``drain``). Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``drain``) and single-device training (:func:`initialize` →
+``DeepSpeedEngine.train_batch``, with ``models.gpt2``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 from deepspeed_tpu_torch.utils.logging import logger  # noqa: F401
 
@@ -43,3 +44,11 @@ def default_inference_config():
     """Default inference configuration dict."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     return DeepSpeedInferenceConfig().model_dump()
+
+
+def initialize(*args, **kwargs):
+    """``(engine, optimizer, training_dataloader, lr_scheduler)`` for
+    single-device training (counterpart of ``deepspeed_tpu.initialize``;
+    see :func:`deepspeed_tpu_torch.runtime.engine.initialize`)."""
+    from deepspeed_tpu_torch.runtime.engine import initialize as _init
+    return _init(*args, **kwargs)

@@ -1,0 +1,511 @@
+"""DeepSpeed-compatible JSON training config.
+
+Counterpart of ``deepspeed_tpu/config/config.py``, the port's own copy:
+the same JSON keys, the same sections with the same defaults, the same
+unknown-key error and batch-triad resolution. The sections name options
+the port's single-device engine does not build (ZeRO stages, offload, the
+mesh); ``runtime/engine.py`` refuses those with ``NotImplementedError``.
+``MeshConfig`` is copied from ``deepspeed_tpu/comm/mesh.py:53``, whose
+module imports JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, Literal, Optional, Union
+
+from pydantic import ConfigDict, Field, model_validator
+
+from deepspeed_tpu_torch.config.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
+from deepspeed_tpu_torch.utils.logging import logger
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Degrees for each parallel axis; -1 on data = absorb remaining
+    devices."""
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    seq: int = 1
+    pipe: int = 1
+
+    def resolve(self, n_devices: int) -> dict:
+        fixed = self.fsdp * self.tensor * self.seq * self.pipe
+        data = self.data
+        if data == -1:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"device count {n_devices} not divisible by "
+                    f"fsdp*tensor*seq*pipe={fixed}")
+            data = n_devices // fixed
+        if data * fixed != n_devices:
+            raise ValueError(
+                f"mesh {data}x{self.fsdp}x{self.seq}x{self.tensor}x{self.pipe}"
+                f" != device count {n_devices}")
+        return dict(pipe=self.pipe, data=data, fsdp=self.fsdp, seq=self.seq,
+                    tensor=self.tensor)
+
+
+# ---------------------------------------------------------------------------
+# Precision (reference: runtime/fp16 + bf16 config keys, runtime/config.py)
+# ---------------------------------------------------------------------------
+
+class FP16Config(DeepSpeedConfigModel):
+    """fp16 section (reference keys: runtime/constants.py FP16_*)."""
+    enabled: bool = False
+    loss_scale: float = 0.0  # 0 => dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    min_loss_scale: float = 1.0
+    auto_cast: bool = False
+
+    @property
+    def dynamic_loss_scale(self) -> bool:
+        return self.loss_scale == 0.0
+
+
+class BF16Config(DeepSpeedConfigModel):
+    """bf16 section: bf16 compute with f32 master weights."""
+    enabled: bool = False
+
+
+# ---------------------------------------------------------------------------
+# ZeRO (reference: runtime/zero/config.py:76 DeepSpeedZeroConfig)
+# ---------------------------------------------------------------------------
+
+class OffloadParamConfig(DeepSpeedConfigModel):
+    device: Literal["cpu", "nvme", "none"] = "cpu"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    pin_memory: bool = False
+
+
+class OffloadOptimizerConfig(DeepSpeedConfigModel):
+    device: Literal["cpu", "nvme", "none"] = "cpu"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    # how the JAX package realizes the host tier (kept for config
+    # compatibility; the port builds no offload yet)
+    implementation: Literal["auto", "stream", "host"] = "auto"
+
+
+class ZeroConfig(DeepSpeedConfigModel):
+    """zero_optimization section (reference runtime/zero/config.py). The
+    port's single-device engine runs stage 0 only; the other keys are
+    accepted for config compatibility."""
+    stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 500_000_000
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 500_000_000
+    overlap_comm: bool = True
+    offload_param: Optional[OffloadParamConfig] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
+    sub_group_size: int = 1_000_000_000
+    stage3_max_live_parameters: int = 1_000_000_000
+    stage3_max_reuse_distance: int = 1_000_000_000
+    stage3_prefetch_bucket_size: int = 50_000_000
+    stage3_param_persistence_threshold: int = 100_000
+    stage3_gather_16bit_weights_on_model_save: bool = False
+    zero_hpz_partition_size: int = 1
+    round_robin_gradients: bool = False
+    ignore_unused_parameters: bool = True
+    cpu_offload: Optional[bool] = None  # deprecated alias
+
+    @model_validator(mode="after")
+    def _resolve_deprecated(self):
+        if self.cpu_offload and self.offload_optimizer is None:
+            object.__setattr__(self, "offload_optimizer",
+                               OffloadOptimizerConfig(device="cpu"))
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Optimizer / scheduler sections (reference: runtime/config.py optimizer keys)
+# ---------------------------------------------------------------------------
+
+class OptimizerConfig(DeepSpeedConfigModel):
+    type: str = "AdamW"
+    params: Dict[str, Any] = Field(default_factory=dict)
+
+
+class SchedulerConfig(DeepSpeedConfigModel):
+    type: str = "WarmupLR"
+    params: Dict[str, Any] = Field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# Aux sections
+# ---------------------------------------------------------------------------
+
+class CommsLoggerConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+
+
+class TensorBoardConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+class WandbConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: Optional[str] = None
+
+
+class CSVConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+class ActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """activation_checkpointing section (reference:
+    runtime/activation_checkpointing/checkpointing.py ``configure``).
+    Accepted for config compatibility; the GPT-2 model's ``remat`` field
+    decides what is recomputed."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
+class FlopsProfilerConfig(DeepSpeedConfigModel):
+    """flops_profiler section (reference profiling/config.py)."""
+    enabled: bool = False
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
+class AMPConfig(DeepSpeedConfigModel):
+    """``amp`` section (reference runtime/constants.py:177-192: Apex AMP
+    pass-through kwargs). ``amp.enabled`` maps to bf16 mixed precision
+    (fp32 master + bf16 compute) — the contract O1/O2 provide, as in the
+    JAX package. Unknown passthrough kwargs are surfaced, not silently
+    swallowed."""
+    enabled: bool = False
+    opt_level: Literal["O0", "O1", "O2", "O3"] = "O1"
+
+    model_config = ConfigDict(extra="allow", validate_assignment=True,
+                              populate_by_name=True)
+
+
+class EigenvalueConfig(DeepSpeedConfigModel):
+    """``eigenvalue`` section (reference runtime/config.py:540
+    get_eigenvalue_config) — drives MoQ precision switching. The reference
+    asserts this off at v0.8.0 ("temporarily disabled"); here it works."""
+    enabled: bool = False
+    verbose: bool = False
+    max_iter: int = Field(100, ge=1)
+    tol: float = 1e-2
+    stability: float = 1e-6
+    gas_boundary_resolution: int = Field(1, ge=1)
+    layer_name: str = ""
+    layer_num: int = Field(0, ge=0)
+
+
+class DataTypesConfig(DeepSpeedConfigModel):
+    """``data_types`` section (reference runtime/constants.py:389-394):
+    dtype used for the gradient-accumulation buffer under GAS."""
+    grad_accum_dtype: Optional[Literal["fp32", "fp16", "bf16"]] = None
+
+
+class CheckpointConfig(DeepSpeedConfigModel):
+    """``checkpoint`` section. Beyond the reference keys, the integrity
+    knobs drive the verified atomic-commit protocol
+    (runtime/checkpointing.py; docs/training.md "Fault-tolerant training
+    & verified checkpoints"): every published tag carries a per-file
+    sha256 manifest, ``latest`` advances only after the manifest
+    verifies, and load walks a fallback ladder past corrupted tags."""
+    tag_validation: Literal["Ignore", "Warn", "Fail", "ignore", "warn", "fail"] = "Warn"
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: Dict[str, Any] = Field(default_factory=dict)
+    # "sync" (Torch engine analog) | "async"/"nebula" (background persist)
+    engine: Literal["sync", "async", "nebula", "orbax", "torch"] = "sync"
+    # integrity manifest: hash every file at publish, re-verify before
+    # 'latest' advances, verify again (deep) before any load; false
+    # restores the reference's trust-the-directory behavior
+    verify: bool = True
+    # bounded retention: keep the newest N committed tags, GC the rest
+    # after each publish (reclaimed bytes -> ckpt_gc_reclaimed_total);
+    # 0 keeps everything
+    keep_last: int = Field(0, ge=0)
+
+    @model_validator(mode="after")
+    def _keep_last_needs_verify(self):
+        # retention GC walks committed (manifest-bearing) tags; with
+        # verify=false no manifest is ever written, so keep_last would
+        # silently never delete anything — reject the inert combination
+        if self.keep_last > 0 and not self.verify:
+            raise ValueError(
+                "checkpoint.keep_last requires checkpoint.verify: "
+                "retention GC only considers committed (manifest-"
+                "bearing) tags, and verify=false writes no manifests")
+        return self
+
+
+class ResilienceConfig(DeepSpeedConfigModel):
+    """``resilience`` section — the TrainingSupervisor's policy
+    (runtime/resilience.py; docs/training.md "Fault-tolerant training &
+    verified checkpoints"): checkpoint cadence, bounded restart budget
+    with exponential backoff, and the NaN/data-stall tripwires. The
+    supervisor guarantees forward progress or a loud terminal
+    ``failed`` — never a hang. Opt-in is by CONSTRUCTION — wrapping the
+    loop in a ``TrainingSupervisor`` arms it; there is deliberately no
+    ``enabled`` flag here, because the engine does not own the train
+    loop and a config bit that silently did nothing would be worse
+    than none."""
+    # save a verified checkpoint every N supervised steps (an initial
+    # one is always written before step 0 so rollback always has a rung)
+    checkpoint_every: int = Field(50, ge=1)
+    # restarts allowed across the whole run before the supervisor ends
+    # in 'failed' (each fault kind counts against the same budget)
+    max_restarts: int = Field(3, ge=0)
+    # exponential backoff between a fault and its restart:
+    # min(backoff_base_s * 2**(restart-1), backoff_max_s)
+    backoff_base_s: float = Field(0.5, ge=0.0)
+    backoff_max_s: float = Field(30.0, ge=0.0)
+    # a batch fetch slower than this is a data_stall fault (None = no
+    # data tripwire)
+    data_stall_timeout_s: Optional[float] = Field(None, gt=0.0)
+    # treat a non-finite loss (or a numerics-watch non-finite step) as a
+    # nan_burst fault and roll back; false lets NaN steps through to the
+    # caller unchanged
+    restart_on_nan: bool = True
+
+
+class DeepSpeedConfig:
+    """Top-level config (reference: runtime/config.py:702).
+
+    Accepts a dict or a path to a JSON file. Resolves the
+    train_batch_size = micro_batch * grad_accum * dp_world_size triad exactly
+    as ``_set_batch_related_parameters`` (runtime/config.py:942) does.
+    """
+
+    def __init__(self, config: Union[str, dict], dp_world_size: Optional[int] = None):
+        if isinstance(config, str):
+            with open(config) as f:
+                self._param_dict = json.load(f)
+        elif isinstance(config, dict):
+            self._param_dict = dict(config)
+        else:
+            raise ValueError(f"expected dict or json path, got {type(config)}")
+
+        pd = self._param_dict
+        self._validate_keys(pd)
+        self.train_batch_size: Optional[int] = pd.get("train_batch_size")
+        self.train_micro_batch_size_per_gpu: Optional[int] = pd.get(
+            "train_micro_batch_size_per_gpu")
+        self.gradient_accumulation_steps: Optional[int] = pd.get(
+            "gradient_accumulation_steps")
+        self.steps_per_print: int = pd.get("steps_per_print", 10)
+        self.wall_clock_breakdown: bool = pd.get("wall_clock_breakdown", False)
+        self.memory_breakdown: bool = pd.get("memory_breakdown", False)
+        self.prescale_gradients: bool = pd.get("prescale_gradients", False)
+        self.gradient_predivide_factor: float = pd.get("gradient_predivide_factor", 1.0)
+        self.gradient_clipping: float = pd.get("gradient_clipping", 0.0)
+        self.dump_state: bool = pd.get("dump_state", False)
+        self.seed: int = pd.get("seed", 42)
+
+        self.fp16 = FP16Config(**pd.get("fp16", {}))
+        self.bf16 = BF16Config(**pd.get("bf16", pd.get("bfloat16", {})))
+        self.zero_config = ZeroConfig(**pd.get("zero_optimization", {}))
+        self.optimizer = (OptimizerConfig(**pd["optimizer"])
+                          if "optimizer" in pd else None)
+        self.scheduler = (SchedulerConfig(**pd["scheduler"])
+                          if "scheduler" in pd else None)
+        self.comms_logger = CommsLoggerConfig(**pd.get("comms_logger", {}))
+        self.tensorboard = TensorBoardConfig(**pd.get("tensorboard", {}))
+        self.wandb = WandbConfig(**pd.get("wandb", {}))
+        self.csv_monitor = CSVConfig(**pd.get("csv_monitor", {}))
+        # metrics registry + optional scrape endpoint (shared schema with
+        # DeepSpeedInferenceConfig; docs/observability.md)
+        self.telemetry = TelemetryConfig(**pd.get("telemetry", {}))
+        self.activation_checkpointing = ActivationCheckpointingConfig(
+            **pd.get("activation_checkpointing", {}))
+        self.checkpoint_config = CheckpointConfig(**pd.get("checkpoint", {}))
+        # fault-tolerant training supervisor (runtime/resilience.py)
+        self.resilience = ResilienceConfig(**pd.get("resilience", {}))
+        self.mesh = MeshConfig(**pd.get("mesh", {}))
+        self.compile_cache_dir: Optional[str] = pd.get("compile_cache_dir")
+        self.flops_profiler = FlopsProfilerConfig(
+            **pd.get("flops_profiler", {}))
+        # data-efficiency: either the modern nested section or the legacy
+        # top-level curriculum_learning (engine.py:1807)
+        de = pd.get("data_efficiency", {})
+        self.curriculum_learning: dict = pd.get(
+            "curriculum_learning",
+            de.get("data_sampling", {}).get("curriculum_learning", {}))
+
+        # communication_data_type (reference constants.py:119): the DP
+        # gradient-reduction dtype; engine maps it onto the accumulation
+        # buffer (reduction happens at the accumulated dtype under GSPMD)
+        cdt = pd.get("communication_data_type")
+        if cdt is not None:
+            cdt = {"fp32": "fp32", "float32": "fp32", "fp16": "fp16",
+                   "float16": "fp16", "bf16": "bf16",
+                   "bfloat16": "bf16"}.get(str(cdt))
+            if cdt is None:
+                raise ValueError(
+                    f"communication_data_type must be fp32/fp16/bf16, "
+                    f"got {pd.get('communication_data_type')!r}")
+        self.communication_data_type: Optional[str] = cdt
+        self.amp = AMPConfig(**pd.get("amp", {}))
+        # validate the comm-dtype/accum-dtype pairing HERE — a conflict
+        # must not survive until the first train_batch of a pod job
+        _acc = pd.get("data_types", {}).get("grad_accum_dtype")
+        if _acc and cdt and _acc != cdt:
+            raise ValueError(
+                f"data_types.grad_accum_dtype={_acc!r} conflicts with "
+                f"communication_data_type={cdt!r} — they name the same "
+                "buffer (grads reduce at their accumulated dtype under "
+                "GSPMD)")
+        self.eigenvalue = EigenvalueConfig(**pd.get("eigenvalue", {}))
+        self.data_types = DataTypesConfig(**pd.get("data_types", {}))
+        self.sparse_gradients: bool = pd.get("sparse_gradients", False)
+        # parsed-section parity with reference DeepSpeedConfig.
+        # compression_config: consumed by the engine's MoQ setup
+        # (MoQConfig.from_compression_config) and by user-driven
+        # compression.init_compression
+        self.compression_config: dict = pd.get("compression_training", {})
+
+        if self.fp16.enabled and self.bf16.enabled:
+            raise ValueError("fp16 and bf16 cannot both be enabled")
+        if self.amp.enabled:
+            if self.fp16.enabled or self.bf16.enabled:
+                raise ValueError(
+                    "amp is mutually exclusive with fp16/bf16 (the "
+                    "reference engine has the same restriction)")
+            if self.amp.opt_level == "O3":
+                raise ValueError(
+                    "amp opt_level O3 (pure half, no master weights) is "
+                    "numerically unsafe and unsupported; use O1/O2")
+            extra = {k: v for k, v in pd.get("amp", {}).items()
+                     if k not in ("enabled", "opt_level")}
+            if extra:
+                logger.warning(
+                    "amp passthrough kwargs %s are Apex-specific and have "
+                    "no meaning here; amp maps to bf16 mixed "
+                    "precision here", sorted(extra))
+        if self.eigenvalue.enabled and not self.eigenvalue.layer_name:
+            raise ValueError("eigenvalue.enabled requires layer_name "
+                             "(reference eigenvalue.py asserts the same)")
+
+        self.zero_enabled = self.zero_config.stage > 0
+        self.zero_optimization_stage = self.zero_config.stage
+
+        if dp_world_size is not None:
+            self.resolve_batch_config(dp_world_size)
+
+    KNOWN_KEYS = frozenset({
+        "train_batch_size", "train_micro_batch_size_per_gpu",
+        "gradient_accumulation_steps", "steps_per_print",
+        "wall_clock_breakdown", "memory_breakdown", "prescale_gradients",
+        "gradient_predivide_factor", "gradient_clipping", "dump_state",
+        "seed", "fp16", "bf16", "bfloat16", "zero_optimization", "optimizer",
+        "scheduler", "comms_logger", "tensorboard", "wandb", "csv_monitor",
+        "activation_checkpointing", "checkpoint", "mesh",
+        "compile_cache_dir", "flops_profiler", "monitor", "elasticity",
+        "autotuning", "compression_training", "data_efficiency",
+        "curriculum_learning", "aio", "sparse_attention",
+        "zero_allow_untested_optimizer", "communication_data_type",
+        "sparse_gradients", "amp", "pipeline", "inference", "data_types",
+        "eigenvalue", "progressive_layer_drop", "nebula", "telemetry",
+        "resilience",
+    })
+
+    @classmethod
+    def _validate_keys(cls, pd: dict) -> None:
+        """Reject unknown top-level keys — typos must fail loudly (the
+        reference warns via pydantic extra-field handling; we error, since a
+        silently-ignored ``zero_optimizatoin`` can cost a training run)."""
+        import difflib
+        unknown = [k for k in pd if k not in cls.KNOWN_KEYS]
+        if unknown:
+            hints = []
+            for k in unknown:
+                close = difflib.get_close_matches(k, cls.KNOWN_KEYS, n=1)
+                hints.append(f"{k!r}" + (f" (did you mean {close[0]!r}?)"
+                                         if close else ""))
+            raise ValueError(
+                f"unknown config key(s): {', '.join(hints)}")
+
+    # -- batch triad (reference: runtime/config.py:942 + assertions :918) ----
+    def resolve_batch_config(self, dp_world_size: int) -> None:
+        train_batch = self.train_batch_size
+        micro_batch = self.train_micro_batch_size_per_gpu
+        grad_acc = self.gradient_accumulation_steps
+
+        if train_batch is not None and micro_batch is not None and grad_acc is not None:
+            pass
+        elif train_batch is not None and micro_batch is not None:
+            grad_acc = train_batch // micro_batch
+            grad_acc //= dp_world_size
+        elif train_batch is not None and grad_acc is not None:
+            micro_batch = train_batch // dp_world_size
+            micro_batch //= grad_acc
+        elif micro_batch is not None and grad_acc is not None:
+            train_batch = micro_batch * grad_acc * dp_world_size
+        elif train_batch is not None:
+            grad_acc = 1
+            micro_batch = train_batch // dp_world_size
+        elif micro_batch is not None:
+            train_batch = micro_batch * dp_world_size
+            grad_acc = 1
+        else:
+            raise ValueError(
+                "Either train_batch_size or train_micro_batch_size_per_gpu "
+                "needs to be provided")
+
+        if train_batch <= 0 or micro_batch <= 0 or grad_acc <= 0:
+            raise ValueError(
+                f"batch config resolved to non-positive values: "
+                f"train={train_batch} micro={micro_batch} gas={grad_acc}")
+        if train_batch != micro_batch * grad_acc * dp_world_size:
+            raise ValueError(
+                f"Check batch related parameters. train_batch_size is not equal"
+                f" to micro_batch_per_gpu * gradient_acc_step * world_size "
+                f"{train_batch} != {micro_batch} * {grad_acc} * {dp_world_size}")
+
+        self.train_batch_size = train_batch
+        self.train_micro_batch_size_per_gpu = micro_batch
+        self.gradient_accumulation_steps = grad_acc
+        logger.info(f"batch config: global={train_batch} micro={micro_batch} "
+                    f"gas={grad_acc} dp={dp_world_size}")
+
+    @property
+    def precision_dtype(self) -> str:
+        if self.fp16.enabled:
+            return "float16"
+        if self.bf16.enabled:
+            return "bfloat16"
+        if self.amp.enabled and self.amp.opt_level in ("O1", "O2"):
+            # Apex O1/O2 ≈ fp32 master + half compute; the half here is
+            # bf16 (no loss scaling needed — amp's dynamic scaler is an
+            # fp16 artifact). O0 is Apex's fp32-passthrough baseline mode
+            # and stays fp32.
+            return "bfloat16"
+        return "float32"
+
+    def print_config(self) -> None:
+        logger.info(json.dumps(self._param_dict, indent=2, sort_keys=True))

@@ -1,0 +1,306 @@
+"""GPT-2 model family for training.
+
+Counterpart of ``deepspeed_tpu/models/gpt2.py``: the same presets, the same
+function and the same parameter names and layouts as the flax model, so
+that carrying weights across is a rename (``module_inject/from_jax.py``).
+Parameters form a flat dict with the flax paths joined by dots: ``wte``
+``[padded_vocab, C]``, ``wpe``, ``h_{i}.ln_1.{scale,bias}``,
+``h_{i}.attn.c_attn.{kernel,bias}`` (kernel ``[in, out]``),
+``h_{i}.attn.c_proj``, ``h_{i}.ln_2``, ``h_{i}.mlp.c_fc``,
+``h_{i}.mlp.c_proj``, ``ln_f``.
+
+The ``nn.Module`` tree holds the structure and the names; the weights are
+passed to :meth:`GPT2LMModel.apply` and ``loss_fn`` as that dict (the
+engine's compute-dtype copy), as the JAX model takes its params. By
+default the modules are built on the ``meta`` device, so they hold no
+memory. With ``remat`` each block runs under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant) and is recomputed
+in the backward pass, flash forward included.
+
+Numerics follow flax: LayerNorm with ``epsilon=1e-6`` and fast variance
+(``E[x^2] - E[x]^2``) in f32, output in the compute dtype; Dense layers
+round the product and then the bias add in the compute dtype; tanh GELU;
+logits ``x @ wte.T`` in the compute dtype, the loss in f32 over all padded
+vocabulary columns with the labels masked to ``[0, vocab_size)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from deepspeed_tpu_torch.ops.attention import causal_attention
+from deepspeed_tpu_torch.ops.flash_attention import flash_attention_reference
+
+Params = Dict[str, torch.Tensor]
+LN_EPS = 1e-6   # flax nn.LayerNorm's default
+_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    dropout: float = 0.0
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+    use_flash_attention: bool = True
+    # pad the vocabulary to a multiple of 128, as the JAX model does
+    vocab_pad_multiple: int = 128
+    # options of the JAX model that this port refuses (queue C)
+    sequence_parallel: bool = False
+    offload_params: bool = False
+    num_experts: int = 0
+    int8_training: bool = False
+
+    @property
+    def padded_vocab_size(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+
+PRESETS: Dict[str, dict] = {
+    "gpt2-125m": dict(n_embd=768, n_layer=12, n_head=12),
+    "gpt2-350m": dict(n_embd=1024, n_layer=24, n_head=16),
+    "gpt2-760m": dict(n_embd=1536, n_layer=24, n_head=16),
+    "gpt2-1.3b": dict(n_embd=2048, n_layer=24, n_head=16),
+    "gpt2-2.7b": dict(n_embd=2560, n_layer=32, n_head=32),
+    "gpt2-6.7b": dict(n_embd=4096, n_layer=32, n_head=32),
+}
+
+
+def config_for(name: str, **overrides) -> GPT2Config:
+    if name not in PRESETS:
+        raise ValueError(f"unknown preset {name!r}: {sorted(PRESETS)}")
+    return GPT2Config(**{**PRESETS[name], **overrides})
+
+
+def layer_norm(x, scale, bias, dtype, eps: float = LN_EPS):
+    """flax ``nn.LayerNorm``: f32 statistics with the fast variance
+    (clipped at 0), output in ``dtype``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * scale.float())
+    return (y + bias.float()).to(dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, n: int, dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(n, device=device))
+        self.bias = nn.Parameter(torch.zeros(n, device=device))
+
+    def forward(self, x):
+        return layer_norm(x, self.scale, self.bias, self.dtype)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: kernel ``[in, out]``; inputs and weights in
+    ``dtype``, the product rounded before the bias add."""
+
+    def __init__(self, n_in: int, n_out: int, dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(n_in, n_out, device=device))
+        self.bias = nn.Parameter(torch.zeros(n_out, device=device))
+
+    def forward(self, x):
+        d = self.dtype
+        return x.to(d) @ self.kernel.to(d) + self.bias.to(d)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        C = cfg.n_embd
+        self.c_attn = Dense(C, 3 * C, cfg.dtype, device)
+        self.c_proj = Dense(C, C, cfg.dtype, device)
+
+    def forward(self, x, reference_attention: bool = False):
+        cfg = self.cfg
+        B, T, C = x.shape
+        H, D = cfg.n_head, cfg.head_dim
+        # views of the fused projection, strides (T*3C, 3C, D, 1): the
+        # flash kernels read them in place
+        q, k, v = (t.reshape(B, T, H, D)
+                   for t in self.c_attn(x).split(C, dim=-1))
+        if reference_attention:
+            y = flash_attention_reference(q, k, v, causal=True)[0]
+        elif cfg.use_flash_attention:
+            y = causal_attention(q, k, v)
+        else:
+            # the JAX model's plain path: scale in the compute dtype, mask
+            # at the dtype's min, softmax in f32
+            scale = 1.0 / torch.tensor(math.sqrt(D), dtype=cfg.dtype)
+            att = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale.to(x.device)
+            mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+            att = att.masked_fill(~mask, torch.finfo(att.dtype).min)
+            att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
+            y = torch.einsum("bhqk,bkhd->bqhd", att, v)
+        return self.c_proj(y.reshape(B, T, C))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        C = cfg.n_embd
+        self.c_fc = Dense(C, 4 * C, cfg.dtype, device)
+        self.c_proj = Dense(4 * C, C, cfg.dtype, device)
+
+    def forward(self, x):
+        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(cfg.n_embd, cfg.dtype, device)
+        self.attn = CausalSelfAttention(cfg, device)
+        self.ln_2 = LayerNorm(cfg.n_embd, cfg.dtype, device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, reference_attention: bool = False):
+        x = x + self.attn(self.ln_1(x), reference_attention)
+        return x + self.mlp(self.ln_2(x))
+
+
+def _run_block(block: Block, params: Params, x, reference_attention: bool):
+    return torch.func.functional_call(block, params, (x,),
+                                      {"reference_attention":
+                                       reference_attention})
+
+
+class GPT2(nn.Module):
+    """Causal LM; ``forward`` returns logits ``[B, T, padded_vocab]`` in
+    the compute dtype."""
+
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        C = cfg.n_embd
+        self.wte = nn.Parameter(torch.empty(cfg.padded_vocab_size, C,
+                                            device=device))
+        self.wpe = nn.Parameter(torch.empty(cfg.n_positions, C,
+                                            device=device))
+        for i in range(cfg.n_layer):
+            self.add_module(f"h_{i}", Block(cfg, device))
+        self.ln_f = LayerNorm(C, cfg.dtype, device)
+        self._block_keys = [n for n, _ in self.h_0.named_parameters()]
+
+    def forward(self, input_ids, params: Optional[Params] = None,
+                reference_attention: bool = False):
+        """``params`` (default: the module's own) is the flat dict of
+        weights; ``reference_attention`` takes attention through the
+        kernels' plain version under autograd instead of the kernels."""
+        cfg = self.cfg
+        if params is None:
+            params = dict(self.named_parameters())
+        T = input_ids.shape[1]
+        wte = params["wte"]
+        # gather rows, then cast (as the JAX model does)
+        x = (wte[input_ids.long()].to(cfg.dtype)
+             + params["wpe"][:T].to(cfg.dtype)[None])
+        for i in range(cfg.n_layer):
+            bp = {n: params[f"h_{i}.{n}"] for n in self._block_keys}
+            block = self.get_submodule(f"h_{i}")
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(_run_block, block, bp, x, reference_attention,
+                               use_reentrant=False)
+            else:
+                x = _run_block(block, bp, x, reference_attention)
+        x = layer_norm(x, params["ln_f.scale"], params["ln_f.bias"], cfg.dtype)
+        return x @ wte.to(cfg.dtype).T
+
+
+class GPT2LMModel:
+    """Engine-facing wrapper: ``init``, ``apply``, ``loss_fn``.
+
+    ``loss_fn(params, batch, rng=None)``: ``batch`` holds ``input_ids``
+    ``[B, T]`` (next-token prediction) and optionally ``labels``. The
+    module tree is built on ``device`` (default ``meta``: it holds no
+    weights; they are passed to ``apply`` and ``loss_fn``)."""
+
+    def __init__(self, config: GPT2Config, device="meta"):
+        for bad, what in ((config.dropout > 0.0, "dropout > 0"),
+                          (config.num_experts > 0, "MoE layers"),
+                          (config.int8_training, "int8_training"),
+                          (config.sequence_parallel, "sequence_parallel"),
+                          (config.offload_params, "offload_params")):
+            if bad:
+                raise NotImplementedError(f"GPT-2 with {what} {_LATER}")
+        self.config = config
+        self.module = GPT2(config, device=device)
+
+    def init(self, generator: torch.Generator) -> Params:
+        """f32 weights on ``generator.device`` with the flax model's
+        distributions: ``wte`` normal(0.02), ``wpe`` normal(0.01), Dense
+        kernels lecun-normal (a normal truncated at 2 std, std
+        ``sqrt(1/fan_in) / 0.8796``), zero biases, LayerNorm 1 and 0."""
+        params = {}
+        for name, p in self.module.named_parameters():
+            t = torch.empty(p.shape, dtype=torch.float32,
+                            device=generator.device)
+            if name == "wte":
+                t.normal_(0.0, 0.02, generator=generator)
+            elif name == "wpe":
+                t.normal_(0.0, 0.01, generator=generator)
+            elif name.endswith(".kernel"):
+                std = math.sqrt(1.0 / p.shape[0]) / 0.87962566103423978
+                nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+            elif name.endswith(".scale"):
+                t.fill_(1.0)
+            else:
+                t.zero_()
+            params[name] = t
+        return params
+
+    def apply(self, params: Params, input_ids,
+              reference_attention: bool = False):
+        """Logits ``[B, T, padded_vocab]`` in the compute dtype."""
+        return self.module(input_ids, params, reference_attention)
+
+    def loss_fn(self, params: Params, batch, rng=None,
+                reference_attention: bool = False):
+        """Mean next-token cross entropy in f32 (``rng`` is unused: the
+        port has no dropout)."""
+        input_ids = batch["input_ids"]
+        labels = batch.get("labels")
+        logits = self.apply(params, input_ids, reference_attention)
+        if labels is None:
+            labels = input_ids[:, 1:]
+            logits = logits[:, :-1]
+        logits = logits.float()
+        labels = labels.long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(
+            -1, labels.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        mask = (labels >= 0) & (labels < self.config.vocab_size)
+        return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+    def param_count(self, params: Params) -> int:
+        return sum(p.numel() for p in params.values())
+
+    def flops_per_token(self) -> float:
+        """~6 x parameters per token (training forward + backward), as the
+        JAX model counts it."""
+        cfg = self.config
+        n = (cfg.padded_vocab_size * cfg.n_embd
+             + cfg.n_positions * cfg.n_embd
+             + cfg.n_layer * 12 * cfg.n_embd ** 2)
+        return 6.0 * n

@@ -7,8 +7,10 @@ nested dict/list pytree (``wte``, ``wpe``, ``ln_f``, ``lm_head``,
 bo}, ln2}``). The port's transformer reads the same keys with the same
 shapes, so converting the leaves is all it takes for both to compute the
 same function. :func:`paged_cache_from_numpy` does the same for a
-``PagedKVCache``, so both packages can start a step from one pool. Both
-take numpy arrays (``jax.device_get``); this module imports no JAX.
+``PagedKVCache``, so both packages can start a step from one pool, and
+:func:`gpt2_params_from_flax` for the training GPT-2's flax params (with
+its inverse :func:`gpt2_params_to_numpy`). All take numpy arrays
+(``jax.device_get``); this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -51,3 +53,36 @@ def paged_cache_from_numpy(cache, device=None, dtype=None):
     tables, lengths = (params_from_numpy(x, device).to(torch.int32)
                        for x in (cache.block_tables, cache.lengths))
     return PagedKVCache(k=k, v=v, block_tables=tables, lengths=lengths)
+
+
+def gpt2_params_from_flax(tree: Any, device=None, dtype=None):
+    """The flax ``GPT2LMModel``'s nested params (numpy leaves, from
+    ``jax.device_get``) → the port's flat dict of tensors, keyed by the
+    flax paths joined with dots (``h_0.attn.c_attn.kernel``). Layouts are
+    the same, so nothing is transposed."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            name = f"{prefix}{k}"
+            if isinstance(v, dict) or hasattr(v, "items"):
+                walk(v, name + ".")
+            else:
+                flat[name] = params_from_numpy(v, device, dtype)
+    walk(tree, "")
+    return flat
+
+
+def gpt2_params_to_numpy(params) -> dict:
+    """The inverse of :func:`gpt2_params_from_flax`: a flat dict of
+    tensors → the flax nested dict of numpy arrays (floating leaves as
+    float32), to compare with the JAX model's params."""
+    tree: dict = {}
+    for name, t in params.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        t = t.detach().cpu()
+        node[leaf] = (t.float() if t.is_floating_point() else t).numpy()
+    return tree

@@ -1,19 +1,23 @@
-"""Flash attention forward — a hand-written CUDA kernel for Hopper.
+"""Flash attention, forward and backward — hand-written CUDA kernels for
+Hopper.
 
-Replaces the Pallas ``_fwd_kernel``
-(``deepspeed_tpu/ops/pallas/flash_attention.py:65``, public entry
-``flash_attention :389``). The kernel is ``ops/csrc/flash_attention_fwd.cu``;
-its source note gives the design and what bounds it on the H100.
+Replaces the Pallas kernels of ``deepspeed_tpu/ops/pallas/flash_attention.py``:
+``_fwd_kernel`` (:65, in ``ops/csrc/flash_attention_fwd.cu``) and the two
+backward kernels ``_bwd_dq_kernel`` (:167) and ``_bwd_dkv_kernel`` (:215,
+both in ``ops/csrc/flash_attention_bwd.cu``), with the ``custom_vjp``
+(:363) as :class:`FlashAttentionFunction`. The source notes give each
+kernel's design and what bounds it on the H100.
 
 Layout at the public functions is the JAX package's: q ``[B, T, H, D]``,
 k/v ``[B, T, KH, D]`` with ``KH | H`` (grouped-query attention reads kv head
 ``h // (H // KH)``, nothing is repeated). Unlike the TPU kernel, any
 ``T >= 1`` is taken: the kernel masks the ragged edge itself.
 
-On a CPU tensor the functions run :func:`flash_attention_reference`, the
-plain PyTorch version with the same numerics (scale folded into q in the
-storage dtype, P rounded to the storage dtype before P.V, f32
-accumulation). On a CUDA tensor they launch the kernel or raise.
+On a CPU tensor the functions run the plain PyTorch versions,
+:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`,
+with the same numerics (scale folded into q, or into k for dk/dv, in the
+storage dtype; P and dS rounded to the storage dtype before their products;
+f32 accumulation). On a CUDA tensor they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -36,7 +40,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dstt_flash_attention_fwd.restype = ctypes.c_int
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    # dq reads q, k, v, o and dO (15 strides), dk/dv reads no o (12)
+    for fn, n_strides in ((lib.dstt_flash_attention_bwd_dq, 15),
+                          (lib.dstt_flash_attention_bwd_dkv, 12)):
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * n_strides
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+
 BUILDER = CUDAOpBuilder("flash_attention_fwd", _bind)
+BWD_BUILDER = CUDAOpBuilder("flash_attention_bwd", _bind_bwd)
 
 
 def _check_shapes(q, k, v):
@@ -98,14 +114,21 @@ def _check_kernel_args(q, k, v):
     if q.shape[3] not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dim "
                          f"{_HEAD_DIMS}, got {q.shape[3]}")
-    vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) \
-                or x.data_ptr() % 16:
+        if not _rows_ok(x):
             raise ValueError(
                 f"flash_attention kernel needs {name} with a contiguous "
                 f"head dim, 16-byte aligned rows and strides that are "
-                f"multiples of {vec} elements; got strides {x.stride()}")
+                f"multiples of {16 // x.element_size()} elements; got "
+                f"strides {x.stride()}")
+
+
+def _rows_ok(x: torch.Tensor) -> bool:
+    """Contiguous head dim, 16-byte aligned rows: what the kernels'
+    16-byte loads need."""
+    vec = 16 // x.element_size()
+    return (x.stride(3) == 1 and not any(s % vec for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True,
@@ -142,3 +165,195 @@ def flash_attention(q, k, v, causal: bool = True,
     """Fused attention, ``q [B, T, H, D] -> [B, T, H, D]`` (see
     :func:`flash_attention_fwd`)."""
     return flash_attention_fwd(q, k, v, causal, scale)[0]
+
+
+# ---------------------------------------------------------------- backward
+
+def _group_sum(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """``[B, T, H, D]`` f32 per q head -> ``[B, T, KH, D]``: the sum over
+    each GQA group, in f32 (the TPU kernel's scratch carry)."""
+    B, T, H, D = x.shape
+    return x.reshape(B, T, kv_heads, H // kv_heads, D).sum(3)
+
+
+def _scores(a, b, causal, lse):
+    """``exp(a.b^T - lse)`` in f32 as ``[B, H, T, T]`` (query rows), with
+    masked scores at -1e30 as in the TPU kernels."""
+    s = torch.einsum("bqhd,bkhd->bhqk", a.float(), b.float())
+    if causal:
+        T = a.shape[1]
+        vis = torch.ones(T, T, dtype=torch.bool, device=a.device).tril()
+        s = s.masked_fill(~vis, -1e30)
+    return torch.exp(s - lse[..., None])
+
+
+def _expand_kv(x, heads):
+    rep = heads // x.shape[2]
+    return x.repeat_interleave(rep, dim=2) if rep > 1 else x
+
+
+def _bwd_dq_reference(q, k, v, o, lse, do, causal, scale):
+    """Plain version of B2 (with the delta it computes): ``(dq [B, T, H,
+    D], delta [B, H, T] f32)``."""
+    H = q.shape[2]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    qs = (q.float() * scale).to(q.dtype)
+    kx, vx = _expand_kv(k, H), _expand_kv(v, H)
+    p = _scores(qs, kx, causal, lse)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vx.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx.float())
+    return (dq * scale).to(q.dtype), delta
+
+
+def _bwd_dkv_reference(q, k, v, lse, delta, do, causal, scale):
+    """Plain version of B3: ``(dk, dv)``, each ``[B, T, KH, D]``."""
+    H, KH = q.shape[2], k.shape[2]
+    ks = (k.float() * scale).to(k.dtype)
+    p = _scores(q, _expand_kv(ks, H), causal, lse)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(k.dtype).float(), do.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(),
+                      _expand_kv(v, H).float())
+    ds = (p * (dp - delta[..., None])).to(k.dtype).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return ((_group_sum(dk, KH) * scale).to(k.dtype),
+            _group_sum(dv, KH).to(v.dtype))
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = True,
+                                  scale: Optional[float] = None):
+    """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)`` from
+    the forward's ``o`` and f32 ``lse [B, H, T]`` and the output gradient
+    ``do``, with the numerics of the TPU kernels."""
+    _check_shapes(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    dq, delta = _bwd_dq_reference(q, k, v, o, lse, do, causal, scale)
+    dk, dv = _bwd_dkv_reference(q, k, v, lse, delta, do, causal, scale)
+    return dq, dk, dv
+
+
+def _bwd_args(q, k, v, lse, do, o=None):
+    """Check what the backward kernels take. ``do`` is copied to a
+    contiguous tensor only when its head dim is not contiguous or its rows
+    are not 16-byte aligned; q, k, v and o are read through their
+    strides."""
+    _check_shapes(q, k, v)
+    _check_kernel_args(q, k, v)
+    for name, x in (("o", o), ("do", do)):
+        if x is None:
+            continue
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must match q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if o is not None and not _rows_ok(o):
+        raise ValueError(f"flash_attention_bwd needs o with a contiguous "
+                         f"head dim and 16-byte aligned rows; got strides "
+                         f"{o.stride()}")
+    if not _rows_ok(do):
+        do = do.contiguous()
+    B, T, H, _ = q.shape
+    if (lse.shape != (B, H, T) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd needs the forward's lse, a "
+                         f"contiguous float32 [B, H, T] = {(B, H, T)} "
+                         f"tensor; got {tuple(lse.shape)} {lse.dtype}")
+    return do
+
+
+def _strides(*xs):
+    """The (batch, time, head) strides of each tensor, in order."""
+    return [s for x in xs for s in x.stride()[:3]]
+
+
+def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
+                           scale: Optional[float] = None):
+    """B2: ``(dq [B, T, H, D], delta [B, H, T] f32)``; ``delta =
+    rowsum(do * o)`` is what :func:`flash_attention_bwd_dkv` takes."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if all(x.device.type == "cpu" for x in (q, k, v, o, lse, do)):
+        _check_shapes(q, k, v)
+        return _bwd_dq_reference(q, k, v, o, lse, do, causal, scale)
+    do = _bwd_args(q, k, v, lse, do, o)
+    B, T, H, D = q.shape
+    dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = BWD_BUILDER.load()
+    rc = lib.dstt_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T,
+        H, k.shape[2], D, *_strides(q, k, v, o, do), float(scale),
+        int(bool(causal)), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, "flash_attention_bwd_dq", rc)
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
+                            scale: Optional[float] = None):
+    """B3: ``(dk, dv)``, each ``[B, T, KH, D]``, summed over each GQA
+    group; ``delta`` comes from :func:`flash_attention_bwd_dq`."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if all(x.device.type == "cpu" for x in (q, k, v, lse, delta, do)):
+        _check_shapes(q, k, v)
+        return _bwd_dkv_reference(q, k, v, lse, delta, do, causal, scale)
+    do = _bwd_args(q, k, v, lse, do)
+    if delta.shape != lse.shape or delta.dtype != torch.float32 \
+            or not delta.is_contiguous() or delta.device != q.device:
+        raise ValueError(f"flash_attention_bwd_dkv needs delta like lse, a "
+                         f"contiguous float32 {tuple(lse.shape)} tensor; got "
+                         f"{tuple(delta.shape)} {delta.dtype}")
+    B, T, H, D = q.shape
+    KH = k.shape[2]
+    dk = torch.empty((B, T, KH, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, T, KH, D), dtype=v.dtype, device=q.device)
+    lib = BWD_BUILDER.load()
+    rc = lib.dstt_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T,
+        H, KH, D, *_strides(q, k, v, do), float(scale),
+        int(bool(causal)), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, "flash_attention_bwd_dkv", rc)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Attention backward, ``(dq, dk, dv)``: B2 then B3 on one stream (B3
+    reads the delta B2 writes)."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention (the TPU package's ``custom_vjp``,
+    ``flash_attention.py:363``): the forward kernel saves ``(q, k, v, o,
+    lse)``, the backward runs B2 and B3. ``apply(q, k, v, causal,
+    scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None

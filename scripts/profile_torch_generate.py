@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of deepspeed_tpu_torch's generation and serving goes, on
-one NVIDIA GPU.
+"""Where the time of deepspeed_tpu_torch's generation, serving and
+training goes, on one NVIDIA GPU.
 
 Builds GPT-2 XL at its published widths (random weights from a seed), runs
 one prefill of 8 prompts (64-900 tokens, the prompts of chip_smoke.py),
 then 8 decode steps, then 8 steady-state steps of the paged
 ``ContinuousBatchingServer`` (default config, 8 resident requests, the
-async loop) under ``torch.profiler``, and prints for each phase:
+async loop); then, with those weights freed, one ``train_batch`` of the
+GPT-2 1.3B preset in bf16 (chip_smoke.py's train configuration: micro-batch
+8, 2 accumulation steps, T=1024, remat, AdamW), all under
+``torch.profiler``, and prints for each phase:
 the host wall time, the summed device time of all kernels, the device's
 busy share of the wall (kernel time / wall), the device time by kind of
 kernel, and the kernels that take the most device time. Given a
@@ -38,8 +41,12 @@ def device_us(evt) -> float:
 
 
 def category(kernel: str) -> str:
+    if any(s in kernel for s in ("bwd_dq", "bwd_dkv")):
+        return "port kernels (flash backward)"
     if any(s in kernel for s in ("flash_fwd", "decode_kernel", "paged_")):
         return "port kernels (attention)"
+    if "multi_tensor" in kernel or "foreach" in kernel:
+        return "optimizer and gradient passes (foreach)"
     if any(s in kernel for s in ("nvjet", "gemm", "cutlass", "sm90_")):
         return "GEMM (cuBLAS)"
     if "copy" in kernel:
@@ -119,7 +126,36 @@ def main() -> int:
             wall = time.perf_counter() - t0
         report("decode_x8", prof, wall, trace_dir)
     serve_x8(engine, ids, lens, act, trace_dir)
+    del engine, params, cache, lg, tok
+    torch.cuda.empty_cache()
+    train_step(act, trace_dir)
     return 0
+
+
+def train_step(act, trace_dir):
+    """One optimizer step of GPT-2 1.3B after a warm-up step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
+    model = GPT2LMModel(config_for("gpt2-1.3b"))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model,
+        model_parameters=model.init(
+            torch.Generator(device="cuda").manual_seed(0)),
+        config={"train_micro_batch_size_per_gpu": 8,
+                "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+                "bf16": {"enabled": True},
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 1e-4, "weight_decay": 0.01}}})
+    batch = {"input_ids": np.random.default_rng(6).integers(
+        0, 50257, (16, 1024), dtype=np.int32)}
+    engine.train_batch(batch)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report("train_step", prof, wall, trace_dir)
 
 
 def serve_x8(engine, ids, lens, act, trace_dir):

@@ -14,6 +14,14 @@ may land one rounding step apart) and 1e-2 for the dense and paged decode
 and verify kernels (f32 math on both sides, output rounded); f32 inputs at
 1e-4 (only the order of the sums differs); the f32 LSE at 1e-3 for 16-bit
 inputs.
+The flash backward kernels (B2 dq, B3 dk/dv) are held, as in
+``chip_smoke.py``, element-wise to ``atol + rtol * |plain|`` (2e-2 and 1e-2
+in bf16 and fp16: the outputs land one or two 16-bit rounding steps apart
+where the two sides' exp or dot differ in the last bits) and to 1e-2
+relative L2 over each tile of 64 positions along T (late rows and keys of
+a causal sequence hold values ~20x smaller than the first, so a skipped or
+mis-masked tile reads ~1 there; the sums in another order read ~1e-4); in
+f32 to 1e-4 on all three.
 """
 import pytest
 import torch
@@ -140,6 +148,132 @@ def test_generate_on_card_runs_through_the_kernels(cuda_device):
     for row, p in zip(out, prompts):
         assert row[:len(p)] == p and len(row) == len(p) + 6
         assert all(0 <= t < cfg.vocab_size for t in row)
+
+
+# --------------------------------------------------------- flash backward
+
+def _bwd_case(g, B, T, H, KH, D, dtype, causal, strided=False):
+    """q/k/v (views of one fused projection when ``strided``), the
+    forward's o and lse, and a seeded output gradient."""
+    if strided:
+        assert H == KH
+        qkv = _randn(g, (B, T, 3 * H * D), dtype)
+        q, k, v = (x.reshape(B, T, H, D) for x in qkv.split(H * D, -1))
+    else:
+        q, k, v = (_randn(g, (B, T, h, D), dtype) for h in (H, KH, KH))
+    o, lse = port_flash.flash_attention_fwd(q, k, v, causal=causal)
+    do = _randn(g, (B, T, H, D), dtype)
+    return q, k, v, o, lse, do
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _bwd_errors(a, r, atol, rtol, tile=64):
+    """``(worst element's share of atol + rtol*|r|, worst relative L2
+    over tiles of ``tile`` positions along T)``; a tile whose plain rms is
+    below ``atol / 10`` is measured against that floor."""
+    a, r = a.float(), r.float()
+    d = a - r
+    d2, r2 = d.square().sum((0, 2, 3)), r.square().sum((0, 2, 3))
+    pad = -d2.numel() % tile
+    d2, r2 = (torch.nn.functional.pad(x, (0, pad)).view(-1, tile).sum(1)
+              for x in (d2, r2))
+    floor = (atol / 10) ** 2 * r.numel() / r.shape[1] * tile
+    return ((d.abs() / (atol + rtol * r.abs())).max().item(),
+            (d2 / r2.clamp_min(floor)).sqrt().max().item())
+
+
+BWD_CASES = [
+    (2, 1024, 16, 16, 128, torch.bfloat16, True, True),    # 1.3B, strided
+    (2, 1024, 25, 25, 64, torch.bfloat16, True, False),    # GPT-2 XL
+    (1, 1024, 32, 8, 128, torch.bfloat16, True, False),    # GQA
+    (2, 1000, 16, 16, 128, torch.bfloat16, True, False),   # ragged T
+    (2, 300, 8, 8, 64, torch.bfloat16, False, False),      # full attention
+    (2, 77, 8, 2, 64, torch.float16, True, False),
+    (1, 130, 4, 4, 128, torch.float32, True, False),
+    (1, 1, 4, 4, 64, torch.bfloat16, True, False),         # one token
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KH,D,dtype,causal,strided", BWD_CASES)
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, B, T, H, KH, D,
+                                               dtype, causal, strided):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, o, lse, do = _bwd_case(g, B, T, H, KH, D, dtype, causal,
+                                    strided)
+    n_dq = port_flash.flash_attention_bwd_dq.launches
+    n_dkv = port_flash.flash_attention_bwd_dkv.launches
+    dq, dk, dv = port_flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    rq, rk, rv = port_flash.flash_attention_bwd_reference(q, k, v, o, lse,
+                                                          do, causal)
+    torch.cuda.synchronize()
+    assert port_flash.flash_attention_bwd_dq.launches == n_dq + 1
+    assert port_flash.flash_attention_bwd_dkv.launches == n_dkv + 1
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    atol, rtol, l2 = ((1e-4, 1e-4, 1e-4) if dtype == torch.float32
+                      else (2e-2, 1e-2, 1e-2))
+    for name, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert a.dtype == dtype and bool(torch.isfinite(a).all()), name
+        elem, tile_l2 = _bwd_errors(a, r, atol, rtol)
+        assert elem <= 1.0 and tile_l2 <= l2, (name, elem, tile_l2,
+                                               _rel(a, r))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_on_card(cuda_device):
+    """FlashAttentionFunction: the forward kernel, then B2 and B3, against
+    autograd through the plain forward."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v, _, _, do = _bwd_case(g, 2, 256, 8, 4, 64, torch.bfloat16, True)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = port_flash.FlashAttentionFunction.apply(*leaves, True, 0.125)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    o_ref, _ = port_flash.flash_attention_reference(*ref, True, 0.125)
+    rgrads = torch.autograd.grad(o_ref, ref, do.float())
+    for a, r in zip(grads, rgrads):
+        assert _rel(a, r) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_train_batch_on_card_runs_through_the_kernels(cuda_device):
+    """A small bf16 GPT-2 through initialize -> train_batch: per micro-batch
+    one forward launch per layer and one more under remat, one dq and one
+    dk/dv launch per layer; the loss falls on a repeated batch."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMModel
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    cfg = GPT2Config(vocab_size=500, n_positions=256, n_embd=256, n_layer=2,
+                     n_head=2)
+    model = GPT2LMModel(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params, config={
+            "train_micro_batch_size_per_gpu": 2,
+            "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+            "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}})
+    ids = np.random.default_rng(0).integers(0, 500, (4, 256), np.int32)
+    fns = (port_flash.flash_attention_fwd, port_flash.flash_attention_bwd_dq,
+           port_flash.flash_attention_bwd_dkv, da.decode_attention)
+    for f in fns:
+        f.launches = 0
+    metrics = [engine.train_batch({"input_ids": ids}) for _ in range(2)]
+    # a bf16 step reads nothing back from the device
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics.append(engine.train_batch({"input_ids": ids}))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses = [float(m["loss"]) for m in metrics]
+    fwd, dq, dkv, dec = (f.launches for f in fns)
+    assert fwd == 2 * 2 * 2 * 3 and dq == dkv == 2 * 2 * 3 and dec == 0
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
 # ------------------------------------------------------------------ paged
