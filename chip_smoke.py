@@ -10,7 +10,8 @@ before its last line:
 
 1. build  — compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel): flash forward, flash backward (dq,
-   dk/dv), dense decode, paged decode/verify and paged chunk.
+   dk/dv), dense decode, paged decode/verify, paged chunk, block-sparse
+   attention and LayerNorm (forward, backward).
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T and a full (non-causal) case.
@@ -27,12 +28,25 @@ before its last line:
    T=1024, H=16, D=128, causal, q/k/v as strided views of one fused
    projection), at GPT-2 XL shape (H=25, D=64), a GQA case (H=32, KH=8,
    D=128), a ragged T (1000), a non-causal case, fp16 and fp32.
-6. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
+6. sparse — the block-sparse kernel (B8) against its plain version: (i) the
+   GPT-2 1.3B attention geometry (B=2, T=4096, 16 heads of 128, bf16,
+   Fixed layout of blocks of 64, causal, q/k/v strided views of one fused
+   projection), (ii) BigBird at the same shape, (iii) GPT-2 XL heads (25
+   of 64) with BSLongformer blocks of 128, (iv) blocks 16 and 32
+   (Variable, LocalSlidingWindow), (v) a per-head Fixed layout, (vi) rows
+   that see no key (exactly 0), (vii) fp16 and fp32. Each within atol of
+   the plain version and within 1e-2 (f32: 1e-4) relative L2 over every
+   tile of 64 rows.
+7. layer_norm — the LayerNorm kernels (B9 forward, B10 backward) against
+   their plain versions at the GPT-2 1.3B training shape (x [8, 1024,
+   2048] bf16, f32 weights), GPT-2 XL width, a ragged R, fp16 and fp32;
+   B10 twice on the same inputs must give the same bits.
+8. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
    width (48 layers, n_embd 1600, 25 heads, bf16, random weights from a
    seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy.
    Then decode == prefill: decode-path logits against ``causal_forward``
    logits taken with the flash kernel's plain version.
-7. serve  — ``ContinuousBatchingServer`` over one engine of the same weights,
+9. serve  — ``ContinuousBatchingServer`` over one engine of the same weights,
    three servers in turn: (a) the default config (monolithic prefill,
    async loop, lag 1) on 16 requests submitted 8, 4 steps, 8 more; (b)
    prefix caching with 256-token chunks on 8 requests sharing a 512-token
@@ -42,7 +56,7 @@ before its last line:
    a tie-tolerant oracle on two requests: every served token is within
    E2E_MAX_TOL of the maximum logit of a forward through no attention
    kernel.
-8. train  — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
+10. train — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
    → ``train_batch`` on ``GPT2LMModel(config_for("gpt2-1.3b"))`` at full
    width (24 layers, n_embd 2048, 16 heads of 128, T=1024; random weights
    from a seeded generator), bf16, AdamW (lr 1e-4, weight decay 0.01),
@@ -54,10 +68,18 @@ before its last line:
    2 sequences through the kernels and through the flash kernels' plain
    version under autograd, the losses within TRAIN_LOSS_TOL and every
    layer's ``c_attn.kernel`` gradient within TRAIN_GRAD_TOL relative L2.
+11. sparse run — ``SparseSelfAttention`` with layout (i), three calls at
+   T=4096 and one at T=2048: 4 kernel launches, one LUT per length, every
+   output within SPARSE_TOL of the plain version.
+12. layer_norm run — ``fused_layer_norm`` and ``fused_residual_layer_norm``
+   under autograd at the 1.3B training shape: 2 forward and 2 backward
+   launches; the gradients against autograd through
+   ``layer_norm_reference``.
 
 The kernel launch counts are set to 0 just before each main-path run (the
-e2e generate, each server and the timed training steps) and read just
-after.
+e2e generate, each server, the timed training steps and the sparse and
+layer_norm runs) and read just after. Kernel times are device times
+(CUDA events behind a device spin, after an L2 flush).
 
 It prints the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel numbers, and, last, ``{"ok": true, "device": {...}}``. It exits
@@ -116,6 +138,11 @@ BWD_TILE = 64
 TRAIN_LOSS_TOL = 1e-2   # relative
 TRAIN_GRAD_TOL = 5e-2   # relative L2, per layer
 TRAIN_STEPS = 4
+# ~1 ms of device spin ahead of each timed launch (the clock is ~2 GHz),
+# far longer than a wrapper's host time to enqueue its kernel (Python
+# checks, allocation, the ctypes launch), which without the spin lands
+# between the events whenever the kernel is shorter
+SPIN_CYCLES = 2_000_000
 
 
 def log(msg: str) -> None:
@@ -130,12 +157,16 @@ def check(cond: bool, msg: str) -> None:
 def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each after
     ``flush`` is rewritten (it is larger than the 50 MB L2, so every launch
-    finds its inputs in device memory, as the model's call does)."""
+    finds its inputs in device memory, as the model's call does). Before
+    each start event the device spins for SPIN_CYCLES, so the host has
+    enqueued all of ``fn`` before the device reaches it: the events bracket
+    device work, not the wrapper's host time."""
     fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s, e = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
         s.record()
@@ -147,10 +178,12 @@ def cuda_ms(fn, iters: int, flush: torch.Tensor) -> float:
 
 
 def _builders():
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import layer_norm as ln
     return [fa.BUILDER, fa.BWD_BUILDER, da.BUILDER, da.PAGED_BUILDER,
-            da.CHUNK_BUILDER]
+            da.CHUNK_BUILDER, bsa.BUILDER, ln.BUILDER]
 
 
 def phase_build():
@@ -553,6 +586,363 @@ def phase_flash_bwd(flush):
     return rows
 
 
+# B8, two gates on o: max |o - plain| <= atol, where bf16/fp16 outputs land
+# one or two rounding steps apart, as in flash attention (P is rounded to 16
+# bits on both sides, at different running maxima); and relative L2 over
+# each tile of 64 positions along T, as for the flash backward: late rows of
+# a long sparse sequence average ~1000 keys, so |o| is ~0.05 there and a
+# wrong or skipped block moves a tile by O(1) relative while staying inside
+# atol. f32: the sums in another order
+SPARSE_TOL = {"16": dict(atol=FLASH_TOL, l2=1e-2),
+              "32": dict(atol=1e-4, l2=1e-4)}
+# B9/B10: o and dx element-wise within atol + rtol * |plain| in 16 bits (the
+# same f32 values rounded to 16 bits land at most a step or two apart, a
+# bf16 step being 2^-8 relative) and 1e-4 in f32; mean and rstd are f32 on
+# both sides (1e-5 relative); dw and db are f32 sums over the rows in
+# another order (1e-4 relative L2; 1e-3 against autograd through the
+# reference, whose sums run in yet another order)
+LN_TOL = {"16": dict(atol=2e-2, rtol=1e-2), "32": dict(atol=1e-4, rtol=0.0)}
+LN_STAT_TOL = 1e-5
+LN_SUM_TOL = 1e-4
+LN_GRAD_SUM_TOL = 1e-3
+
+
+def _fixed_1p3b(sa):
+    """The sparse main path's layout: Fixed, GPT-2 1.3B heads, causal."""
+    return sa.FixedSparsityConfig(num_heads=16, block=64,
+                                  num_local_blocks=4, num_global_blocks=1,
+                                  attention="unidirectional")
+
+
+def _visible_entries(lut, counts, causal):
+    """LUT entries the kernel multiplies, the first ``count`` of each row:
+    ``(full, diagonal)``. Causal: blocks above the diagonal are dropped and
+    a diagonal block needs only its block(block+1)/2 causal pairs, so it is
+    counted apart; otherwise every entry is full."""
+    H, nb, A = lut.shape
+    live = np.arange(A)[None, None, :] < counts[..., None]
+    if not causal:
+        return int(live.sum()), 0
+    row = np.arange(nb)[None, :, None]
+    return int((live & (lut < row)).sum()), int((live & (lut == row)).sum())
+
+
+def _sparse_error(out, ref, tol):
+    """B8's gates on ``[B, T, H, D]`` outputs (see SPARSE_TOL): the stats
+    of :func:`bwd_error` with ``elem`` the share of atol, and whether both
+    gates hold."""
+    st = bwd_error(out, ref, atol=tol["atol"], rtol=0.0, l2=tol["l2"])
+    ok = (math.isfinite(st["max_err"]) and st["elem"] <= 1.0
+          and st["rel_l2"] <= tol["l2"] and st["tile_l2"] <= tol["l2"])
+    return st, ok
+
+
+def phase_sparse(flush):
+    """B8 against its plain version on the card; the row is case (i), the
+    GPT-2 1.3B attention geometry, with the worst error over all cases."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import layout_to_dense_mask
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    nb = 1024 // 64
+    dead = np.zeros((16, nb, nb), np.int64)   # the JAX test's layout
+    dead[:, 0, 1] = 1              # row block 0 sees only the future block 1
+    for i in range(1, nb):
+        dead[:, i, i] = 1
+    # name, B, T, H, D, block, layout, causal, dtype, q/k/v as strided views
+    cases = [
+        ("(i) gpt2-1.3b fixed", 2, 4096, 16, 128, 64,
+         _fixed_1p3b(sa).make_layout(4096), True, bf16, True),
+        ("(ii) bigbird", 2, 4096, 16, 128, 64,
+         sa.BigBirdSparsityConfig(num_heads=16, block=64).make_layout(4096),
+         False, bf16, True),
+        ("(iii) gpt2-xl longformer", 2, 2048, 25, 64, 128,
+         sa.BSLongformerSparsityConfig(num_heads=25, block=128
+                                       ).make_layout(2048), False, bf16,
+         False),
+        ("(iv) variable block 16", 2, 1024, 16, 64, 16,
+         sa.VariableSparsityConfig(num_heads=16, block=16,
+                                   num_random_blocks=2,
+                                   local_window_blocks=[4],
+                                   global_block_indices=[0]
+                                   ).make_layout(1024), False, bf16, False),
+        ("(iv) sliding window block 32", 2, 1024, 16, 64, 32,
+         sa.LocalSlidingWindowSparsityConfig(
+             num_heads=16, block=32, num_sliding_window_blocks=5
+         ).make_layout(1024), True, bf16, False),
+        ("(v) fixed per-head", 2, 2048, 16, 128, 64,
+         sa.FixedSparsityConfig(num_heads=16, block=64, num_local_blocks=4,
+                                different_layout_per_head=True,
+                                num_different_global_patterns=4
+                                ).make_layout(2048), False, bf16, False),
+        ("(vi) causally dead rows", 2, 1024, 16, 128, 64, dead, True, bf16,
+         False),
+        ("(vii) fp16", 2, 2048, 16, 128, 64,
+         _fixed_1p3b(sa).make_layout(2048), True, f16, True),
+        ("(vii) fp32", 1, 1024, 16, 128, 64,
+         _fixed_1p3b(sa).make_layout(1024), True, f32, False),
+    ]
+    worst, main = 0.0, None
+    for name, B, T, H, D, block, lay, causal, dt, strided in cases:
+        lut_np, counts_np = bsa.build_lut(lay)
+        lut, counts = (torch.as_tensor(x, device="cuda")
+                       for x in (lut_np, counts_np))
+        if strided:   # [B, H, T, D] views of a fused [B, T, 3, H, D] output
+            q, k, v = (x.transpose(1, 2) for x in torch.randn(
+                (B, T, 3, H, D), generator=g, device="cuda",
+                dtype=dt).unbind(2))
+        else:
+            q, k, v = (torch.randn((B, H, T, D), generator=g, device="cuda",
+                                   dtype=dt) for _ in range(3))
+        args = (q, k, v, lut, counts, block, causal)
+        out = bsa.block_sparse_attention(*args)
+        ref = bsa.block_sparse_attention_reference(*args)
+        torch.cuda.synchronize()
+        tol = SPARSE_TOL["32" if dt == f32 else "16"]
+        st, ok = _sparse_error(out.transpose(1, 2), ref.transpose(1, 2), tol)
+        check(ok, f"sparse {name}: o off its limits {tol} ({st})")
+        if lay is dead:
+            check(bool((out[:, :, :block] == 0).all())
+                  and bool((ref[:, :, :block] == 0).all()),
+                  f"sparse {name}: rows that see no key must be exactly 0")
+        err = st["max_err"]
+        worst = max(worst, err)
+        full, diag = _visible_entries(lut_np, counts_np, causal)
+        visible = full + diag
+        flops = 4 * B * D * (block * block * full
+                             + block * (block + 1) // 2 * diag)
+        bound, by = _bound(4 * B * T * H * D * q.element_size()
+                           + lut_np.nbytes + counts_np.nbytes, flops,
+                           H100_F32_FLOPS if dt == f32 else H100_BF16_FLOPS)
+        ms = cuda_ms(lambda: bsa.block_sparse_attention(*args), 20, flush)
+        extra = ""
+        if name.startswith("(i)"):
+            plain = cuda_ms(lambda: bsa.block_sparse_attention_reference(
+                *args), 3, flush)
+            mask = torch.as_tensor(layout_to_dense_mask(lay, block, causal),
+                                   device="cuda")[None]
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), 20, flush)
+            lib_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                       .float() - ref.float()).abs().max().item()
+            main = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                        library_ms=lib)
+            extra = (f"; plain {plain!r} ms, sdpa with the dense mask {lib!r} "
+                     f"ms (max |sdpa - plain| {lib_err!r})")
+            del mask
+        log(f"[sparse] {name}: B={B} T={T} H={H} D={D} block={block} "
+            f"{str(dt).replace('torch.', '')}, {visible} visible blocks "
+            f"({diag} on the causal diagonal) of {counts_np.size} rows, "
+            f"max|o err| {err!r} (max|ref| {st['max_ref']!r}), rel L2 "
+            f"{st['rel_l2']:.2e}, worst 64-row tile {st['tile_l2']:.2e} "
+            f"(limits {tol}); kernel {ms!r} ms, bound {bound!r} ms ({by}), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s{extra}")
+        del q, k, v, out, ref, lut, counts
+        torch.cuda.empty_cache()
+    return dict(main, max_abs_err=worst)
+
+
+def _ln_elem_ok(a, r, tol):
+    a, r = a.float(), r.float()
+    return bool(((a - r).abs() <= tol["atol"] + tol["rtol"] * r.abs()).all())
+
+
+def _rel_l2(a, r):
+    return ((a.float() - r.float()).norm() / r.float().norm()).item()
+
+
+def phase_layer_norm(flush):
+    """B9 and B10 against their plain versions on the card; the rows are
+    the GPT-2 1.3B training shape, with the worst errors over all cases."""
+    from deepspeed_tpu_torch.ops import layer_norm as ln
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(12)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [("gpt2-1.3b train", (8, 1024, 2048), bf16),
+             ("gpt2-xl width", (8192, 1600), bf16),
+             ("ragged", (1000, 768), bf16),
+             ("fp16", (4096, 2048), f16),
+             ("fp32", (4096, 2048), f32)]
+    worst = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
+    rows = {}
+    for name, shape, dt in cases:
+        N = shape[-1]
+        x = torch.randn(shape, generator=g, device="cuda", dtype=dt) * 2 + 0.5
+        go = torch.randn(shape, generator=g, device="cuda", dtype=dt)
+        w = torch.randn(N, generator=g, device="cuda") + 1
+        b = torch.randn(N, generator=g, device="cuda")
+        x2, go2 = x.reshape(-1, N), go.reshape(-1, N)
+        R = x2.shape[0]
+        o, mean, rstd = ln.layer_norm_fwd(x2, w, b)
+        dx, dw, db = ln.layer_norm_bwd(x2, w, mean, rstd, go2)
+        dx_, dw_, db_ = ln.layer_norm_bwd(x2, w, mean, rstd, go2)
+        ro, rmean, rrstd = ln.layer_norm_fwd_reference(x2, w, b, 1e-5)
+        rdx, rdw, rdb = ln.layer_norm_bwd_reference(x2, w, mean, rstd, go2)
+        torch.cuda.synchronize()
+        tol = LN_TOL["32" if dt == f32 else "16"]
+        stat = max(((a - r).abs() / r.abs().clamp_min(1e-30)).max().item()
+                   for a, r in ((mean, rmean), (rstd, rrstd)))
+        sums = max(_rel_l2(dw, rdw), _rel_l2(db, rdb))
+        err_o = (o.float() - ro.float()).abs().max().item()
+        err_dx = (dx.float() - rdx.float()).abs().max().item()
+        check(_ln_elem_ok(o, ro, tol), f"layer_norm {name}: o off its "
+              f"element-wise limit {tol} (max err {err_o})")
+        check(_ln_elem_ok(dx, rdx, tol), f"layer_norm {name}: dx off its "
+              f"element-wise limit {tol} (max err {err_dx})")
+        check(stat <= LN_STAT_TOL, f"layer_norm {name}: mean/rstd relative "
+              f"error {stat} > {LN_STAT_TOL}")
+        check(sums <= LN_SUM_TOL, f"layer_norm {name}: dw/db relative L2 "
+              f"{sums} > {LN_SUM_TOL}")
+        check(torch.equal(dx, dx_) and torch.equal(dw, dw_)
+              and torch.equal(db, db_),
+              f"layer_norm {name}: B10 gave other bits on the same inputs")
+        worst["layer_norm_fwd"] = max(worst["layer_norm_fwd"], err_o)
+        worst["layer_norm_bwd"] = max(worst["layer_norm_bwd"], err_dx)
+        esz = x.element_size()
+        b_f = _bound(2 * R * N * esz + 8 * N + 8 * R, 8 * R * N,
+                     H100_F32_FLOPS)
+        b_b = _bound(3 * R * N * esz + 4 * N + 8 * R + 8 * N, 14 * R * N,
+                     H100_F32_FLOPS)
+        ms_f = cuda_ms(lambda: ln.layer_norm_fwd(x2, w, b), 50, flush)
+        ms_b = cuda_ms(lambda: ln.layer_norm_bwd(x2, w, mean, rstd, go2), 50,
+                       flush)
+        msg = (f"[layer_norm] {name}: x {list(shape)} "
+               f"{str(dt).replace('torch.', '')}, f32 weights; max|o err| "
+               f"{err_o!r}, max|dx err| {err_dx!r} (limits {tol}), mean/rstd "
+               f"relative {stat:.2e}, dw/db relative L2 {sums:.2e}, B10 "
+               f"bit-identical twice; B9 {ms_f!r} ms (bound {b_f[0]!r} "
+               f"{b_f[1]}, {(2 * R * N * esz) / ms_f / 1e6:.1f} GB/s), B10 "
+               f"{ms_b!r} ms (bound {b_b[0]!r} {b_b[1]}, "
+               f"{(3 * R * N * esz) / ms_b / 1e6:.1f} GB/s)")
+        if name == "gpt2-1.3b train":
+            plain_f = cuda_ms(lambda: ln.layer_norm_fwd_reference(
+                x2, w, b, 1e-5), 10, flush)
+            plain_b = cuda_ms(lambda: ln.layer_norm_bwd_reference(
+                x2, w, mean, rstd, go2), 10, flush)
+            # PyTorch's own LayerNorm, its weights in x's dtype
+            wl, bl = w.to(dt), b.to(dt)
+            lib_f = cuda_ms(lambda: F.layer_norm(x2, (N,), wl, bl, 1e-5), 50,
+                            flush)
+            _, lmean, lrstd = torch.ops.aten.native_layer_norm(
+                x2, [N], wl, bl, 1e-5)
+            lib_b = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                go2, x2, [N], lmean, lrstd, wl, bl, [True, True, True]), 50,
+                flush)
+            rows = {"layer_norm_fwd": dict(ms=ms_f, plain_ms=plain_f,
+                                           bound_ms=b_f[0], bound_by=b_f[1],
+                                           library_ms=lib_f),
+                    "layer_norm_bwd": dict(ms=ms_b, plain_ms=plain_b,
+                                           bound_ms=b_b[0], bound_by=b_b[1],
+                                           library_ms=lib_b)}
+            msg += (f"; plain B9 {plain_f!r} ms, B10 {plain_b!r} ms; "
+                    f"F.layer_norm {lib_f!r} ms, native_layer_norm_backward "
+                    f"{lib_b!r} ms")
+        log(msg)
+        del x, go, x2, go2, o, dx, dx_, ro, rdx
+    for k in rows:
+        rows[k]["max_abs_err"] = worst[k]
+    return rows
+
+
+def run_sparse():
+    """The sparse main path: ``SparseSelfAttention`` with the Fixed layout
+    of case (i), three calls at T=4096 and one at T=2048 on [B, T, H, D]
+    views of fused projections; counts set to 0 just before, read just
+    after."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    g = torch.Generator(device="cuda").manual_seed(13)
+    op = sa.SparseSelfAttention(_fixed_1p3b(sa))
+    inputs = [torch.randn((2, T, 3, 16, 128), generator=g, device="cuda",
+                          dtype=torch.bfloat16).unbind(2)
+              for T in (4096, 4096, 4096, 2048)]
+    torch.cuda.synchronize()
+    _launch_counts(reset=True)
+    t0 = time.perf_counter()
+    outs = [op(q, k, v) for q, k, v in inputs]   # THE main path
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launch_counts()
+    check(counts["block_sparse_attention"] == 4,
+          f"sparse: {counts['block_sparse_attention']} launches for 4 calls")
+    check(sorted(op._cache) == [2048, 4096],
+          f"sparse: LUT cache holds lengths {sorted(op._cache)}, expected "
+          f"one entry per length")
+    tol, errs = SPARSE_TOL["16"], []
+    for (q, k, v), out in zip(inputs, outs):
+        T = q.shape[1]
+        _, lut, cnt = op._entry(T)
+        ref = bsa.block_sparse_attention_reference(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lut, cnt,
+            64, True).transpose(1, 2)
+        check(out.shape == (2, T, 16, 128), f"sparse: output {out.shape}")
+        st, ok = _sparse_error(out, ref, tol)
+        check(ok, f"sparse: call at T={T} off its limits {tol} ({st})")
+        errs.append((st["max_err"], st["max_ref"], st["tile_l2"]))
+    log(f"[sparse] SparseSelfAttention, 4 calls (T=4096 x 3, 2048): "
+        f"{wall * 1e3!r} ms of host wall incl. the LUT builds; per call "
+        f"(max|o err|, max|ref|, worst 64-row tile rel L2) {errs!r} (limits "
+        f"{tol}); launches {counts}")
+    return counts
+
+
+def run_layer_norm():
+    """The LayerNorm main path: ``fused_layer_norm`` and
+    ``fused_residual_layer_norm`` under autograd, forward and backward, at
+    the GPT-2 1.3B training shape; counts set to 0 just before, read just
+    after; gradients against autograd through ``layer_norm_reference``."""
+    from deepspeed_tpu_torch.ops import layer_norm as ln
+    g = torch.Generator(device="cuda").manual_seed(14)
+    shape, N = (8, 1024, 2048), 2048
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    x, r, g1, g2 = rnd(*shape), rnd(*shape), rnd(*shape), rnd(*shape)
+    w = torch.randn(N, generator=g, device="cuda") + 1
+    b = torch.randn(N, generator=g, device="cuda")
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_() for t in ts]
+    plain_leaves, res_leaves = leaves(x, w, b), leaves(x, r, w, b)
+    torch.cuda.synchronize()
+    _launch_counts(reset=True)
+    y1 = ln.fused_layer_norm(*plain_leaves)   # THE main path
+    y1.backward(g1)
+    y2, s = ln.fused_residual_layer_norm(*res_leaves)
+    y2.backward(g2)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    check(counts["layer_norm_fwd"] == 2 and counts["layer_norm_bwd"] == 2,
+          f"layer_norm: launches {counts}, expected 2 forward and 2 "
+          f"backward")
+    tol = LN_TOL["16"]
+    ref1 = leaves(x, w, b)
+    ln.layer_norm_reference(*ref1).backward(g1)
+    ref2 = leaves(x, r, w, b)
+    ln.layer_norm_reference(ref2[0] + ref2[1], *ref2[2:]).backward(g2)
+    stats = []
+    for ours, theirs in ((plain_leaves, ref1), (res_leaves, ref2)):
+        n_x = len(ours) - 2
+        for a, rf in zip(ours[:n_x], theirs[:n_x]):
+            check(_ln_elem_ok(a.grad, rf.grad, tol),
+                  f"layer_norm: dx off its element-wise limit {tol}")
+        rel = [_rel_l2(a.grad, rf.grad) for a, rf in
+               zip(ours[n_x:], theirs[n_x:])]
+        check(all(e <= LN_GRAD_SUM_TOL for e in rel),
+              f"layer_norm: dw/db relative L2 {rel} > {LN_GRAD_SUM_TOL}")
+        stats.append(rel)
+    check(torch.equal(s, x + r), "layer_norm: residual sum differs")
+    log(f"[layer_norm] fused_layer_norm + fused_residual_layer_norm under "
+        f"autograd at {list(shape)} bf16: dx within {tol} of autograd "
+        f"through layer_norm_reference, dw/db relative L2 {stats!r} (tol "
+        f"{LN_GRAD_SUM_TOL}); launches {counts}")
+    return counts
+
+
 def phase_train():
     """The training main path at GPT-2 1.3B width; returns its launch
     counts, read just after the timed steps."""
@@ -792,11 +1182,16 @@ _BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 def _launch_counts(reset=False):
     """Every wrapper's launch count (set to 0 first when ``reset``)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import layer_norm as ln
     fns = {"flash_attention_fwd": fa.flash_attention_fwd,
            **{n: getattr(fa, n) for n in _BWD_KERNELS},
-           **{n: getattr(da, n) for n in _PAGED_KERNELS[1:]}}
+           **{n: getattr(da, n) for n in _PAGED_KERNELS[1:]},
+           "block_sparse_attention": bsa.block_sparse_attention,
+           "layer_norm_fwd": ln.layer_norm_fwd,
+           "layer_norm_bwd": ln.layer_norm_bwd}
     if reset:
         for f in fns.values():
             f.launches = 0
@@ -1027,7 +1422,9 @@ def main() -> int:
     kernels = {"flash_attention_fwd": phase_flash(flush),
                "decode_attention": phase_decode(flush),
                **phase_paged(flush),
-               **phase_flash_bwd(flush)}
+               **phase_flash_bwd(flush),
+               "block_sparse_attention": phase_sparse(flush),
+               **phase_layer_norm(flush)}
     cfg = gpt2_xl_config()
     params = make_params(cfg)
     runs = {"e2e": phase_e2e(cfg, params)}
@@ -1035,6 +1432,8 @@ def main() -> int:
     del params, flush   # the serving weights; training needs the room
     torch.cuda.empty_cache()
     runs["train"] = phase_train()
+    runs["sparse"] = run_sparse()
+    runs["layer_norm"] = run_layer_norm()
     # launches: summed over the main-path runs, each read just after it
     launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels}
     for k, n in launches.items():
@@ -1062,6 +1461,15 @@ def main() -> int:
         "paged_verify_attention": (
             "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
             "deepspeed_tpu/ops/pallas/decode_attention.py:421"),
+        "block_sparse_attention": (
+            "deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+            "deepspeed_tpu/ops/pallas/block_sparse_attention.py:44"),
+        "layer_norm_fwd": (
+            "deepspeed_tpu_torch/ops/csrc/layer_norm.cu",
+            "deepspeed_tpu/ops/pallas/layer_norm.py:28"),
+        "layer_norm_bwd": (
+            "deepspeed_tpu_torch/ops/csrc/layer_norm.cu",
+            "deepspeed_tpu/ops/pallas/layer_norm.py:41"),
     }
     rows = []
     for name, nums in kernels.items():

@@ -1,0 +1,193 @@
+"""Block-sparse attention — a hand-written CUDA kernel for Hopper.
+
+Replaces the Pallas kernel ``_kernel`` of
+``deepspeed_tpu/ops/pallas/block_sparse_attention.py`` (:44, entry
+``block_sparse_attention`` :91) by ``ops/csrc/block_sparse_attention.cu``
+(kernel B8). Each (batch row, head, query block) walks only the active key
+blocks its LUT row lists, ``lut[h, qb, :counts[h, qb]]``, with an online
+softmax, so the sparse attention matrix never exists in device memory and
+inactive blocks cost nothing. The source's note gives its design and what
+bounds it on the H100.
+
+Layout at :func:`block_sparse_attention` is the JAX package's: q/k/v
+``[B, H, T, D]``, read through their strides (``[B, T, H, D]`` views of a
+fused projection need no copy). Numerics follow the TPU kernel: scores are
+``dot(q, k)`` in f32, *then* multiplied by ``scale``; a causal mask hides
+``col > row``; the softmax runs in f32 and P is rounded to the storage
+dtype before ``P.V``; a row with no visible key (count 0, or every visible
+block causally masked) gives exactly 0.
+
+On CPU tensors the wrapper runs :func:`block_sparse_attention_reference`;
+on CUDA tensors it launches the kernel or raises. It counts its launches in
+``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
+
+NEG_INF = -1e30
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_HEAD_DIMS = (64, 128)
+_BLOCKS = (16, 32, 64, 128)   # the upstream Triton set; 16 is the default
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.dstt_block_sparse_attention.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_block_sparse_attention.restype = ctypes.c_int
+
+
+BUILDER = CUDAOpBuilder("block_sparse_attention", _bind)
+
+
+def build_lut(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """layout [H, nb, nb] → (lut [H, nb, max_active] int32 padded with 0,
+    counts [H, nb] int32). Host-side, as in the JAX package."""
+    H, nb, _ = layout.shape
+    counts = layout.sum(-1).astype(np.int32)
+    max_active = max(1, int(counts.max()))
+    lut = np.zeros((H, nb, max_active), np.int32)
+    for h in range(H):
+        for qb in range(nb):
+            cols = np.nonzero(layout[h, qb])[0]
+            lut[h, qb, :len(cols)] = cols
+    return lut, counts
+
+
+def _check_shapes(q, k, v, lut, counts, block):
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"block_sparse_attention wants q/k/v [B, H, T, D] of "
+                         f"one shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, T, D = q.shape
+    if T % block:
+        raise ValueError(f"seq {T} not divisible by block {block}")
+    nb = T // block
+    if (lut.dim() != 3 or tuple(lut.shape[:2]) != (H, nb)
+            or tuple(counts.shape) != (H, nb)):
+        raise ValueError(f"lut must be [H={H}, nb={nb}, max_active] and "
+                         f"counts [H, nb], got {tuple(lut.shape)}, "
+                         f"{tuple(counts.shape)}")
+
+
+def block_sparse_attention_reference(q, k, v, lut, counts, block: int,
+                                     causal: bool = False,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on ``[B, H, T, D]``: each query
+    block's active key blocks are gathered through the LUT (entries past the
+    count are masked), then one f32 softmax per row with the TPU kernel's
+    numerics."""
+    _check_shapes(q, k, v, lut, counts, block)
+    B, H, T, D = q.shape
+    nb = T // block
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    lut, counts = lut.long(), counts.long()
+    A = lut.shape[-1]
+    heads = torch.arange(H, device=q.device)[:, None, None]
+    kg = k.reshape(B, H, nb, block, D)[:, heads, lut]   # [B, H, nb, A, blk, D]
+    vg = v.reshape(B, H, nb, block, D)[:, heads, lut]
+    qb = q.reshape(B, H, nb, block, D)
+    s = torch.einsum("bhnqd,bhnakd->bhnqak", qb.float(), kg.float()) * scale
+    live = (torch.arange(A, device=q.device) < counts[..., None])[:, :, None,
+                                                                  :, None]
+    if causal:
+        row = (torch.arange(nb, device=q.device)[:, None] * block
+               + torch.arange(block, device=q.device))      # [nb, blk]
+        col = (lut[..., None] * block
+               + torch.arange(block, device=q.device))      # [H, nb, A, blk]
+        live = live & (col[:, :, None] <= row[None, :, :, None, None])
+    s = s.masked_fill(~live, NEG_INF).reshape(B, H, nb, block, A * block)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhnqj,bhnjd->bhnqd", p.to(q.dtype).float(),
+                       vg.reshape(B, H, nb, A * block, D).float())
+    out = torch.where(m > NEG_INF / 2, acc / l.clamp_min(1e-30), 0.0)
+    return out.to(q.dtype).reshape(B, H, T, D)
+
+
+def _check_kernel_args(q, k, v, lut, counts, out, block):
+    dev = q.device
+    if dev.type != "cuda" or any(x.device != dev for x in (k, v, lut, counts,
+                                                           out)):
+        raise ValueError(f"block_sparse_attention runs on cuda or cpu "
+                         f"tensors, all on one device; got q on {dev}, k "
+                         f"{k.device}, v {v.device}, lut {lut.device}, counts "
+                         f"{counts.device}, out {out.device}")
+    if dev.index not in (None, torch.cuda.current_device()):
+        raise ValueError(f"block_sparse_attention launches on the current "
+                         f"device cuda:{torch.cuda.current_device()}, tensors "
+                         f"are on {dev}")
+    if not (q.dtype == k.dtype == v.dtype == out.dtype) \
+            or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"block_sparse_attention kernel takes float32, "
+                        f"float16 or bfloat16 q/k/v/out of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
+    if block not in _BLOCKS:
+        raise ValueError(f"block_sparse_attention kernel takes blocks "
+                         f"{_BLOCKS}, got {block}")
+    if q.shape[3] not in _HEAD_DIMS:
+        raise ValueError(f"block_sparse_attention kernel takes head dim "
+                         f"{_HEAD_DIMS}, got {q.shape[3]}")
+    for name, t in (("lut", lut), ("counts", counts)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"block_sparse_attention kernel takes a "
+                            f"contiguous int32 {name}, got {t.dtype} with "
+                            f"strides {t.stride()}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
+        vec = 16 // x.element_size()
+        if (x.stride(3) != 1 or any(s % vec for s in x.stride()[:3])
+                or x.data_ptr() % 16):
+            raise ValueError(
+                f"block_sparse_attention kernel needs {name} with a "
+                f"contiguous head dim, 16-byte aligned rows and strides that "
+                f"are multiples of {vec} elements; got strides {x.stride()}")
+
+
+def block_sparse_attention(q, k, v, lut, counts, block: int,
+                           causal: bool = False,
+                           scale: Optional[float] = None,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q/k/v ``[B, H, T, D]`` + LUT ``[H, nb, max_active]`` and counts
+    ``[H, nb]`` (int32, from :func:`build_lut`) → ``[B, H, T, D]``. Rows with
+    no visible key give zeros. ``out``, when given, is a ``[B, H, T, D]``
+    tensor (any strides with a contiguous head dim) written in place and
+    returned, so a ``[B, T, H, D]`` result needs no transpose copy."""
+    _check_shapes(q, k, v, lut, counts, block)
+    if out is not None and out.shape != q.shape:
+        raise ValueError(f"out must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if all(x.device.type == "cpu" for x in (q, k, v, lut, counts)):
+        o = block_sparse_attention_reference(q, k, v, lut, counts, block,
+                                             causal, scale)
+        return o if out is None else out.copy_(o)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _check_kernel_args(q, k, v, lut, counts, out, block)
+    B, H, T, D = q.shape
+    lib = BUILDER.load()
+    rc = lib.dstt_block_sparse_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lut.data_ptr(), counts.data_ptr(), B, H, T, D, block, lut.shape[2],
+        *[s for x in (q, k, v, out) for s in x.stride()[:3]], float(scale),
+        int(bool(causal)), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, "block_sparse_attention", rc)
+    block_sparse_attention.launches += 1
+    return out
+
+
+block_sparse_attention.launches = 0

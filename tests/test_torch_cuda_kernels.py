@@ -22,12 +22,25 @@ relative L2 over each tile of 64 positions along T (late rows and keys of
 a causal sequence hold values ~20x smaller than the first, so a skipped or
 mis-masked tile reads ~1 there; the sums in another order read ~1e-4); in
 f32 to 1e-4 on all three.
+The block-sparse kernel (B8) is held to 2e-2 in bf16/fp16 (as flash
+attention) and 1e-4 in f32, and to 1e-2 (f32: 1e-4) relative L2 over each
+tile of 64 rows (late rows of a long sparse sequence are small, so a wrong
+block can hide inside the absolute limit); rows that see no key must be
+exactly 0. The
+LayerNorm kernels (B9, B10): o and dx element-wise within 2e-2 + 1e-2 *
+|plain| in 16 bits (one or two rounding steps of outputs up to ~4) and 1e-4
+in f32; mean and rstd 1e-5 relative (f32 on both sides); dw and db 1e-4
+relative L2 (f32 sums over the rows in another order); B10 twice on the
+same inputs gives the same bits.
 """
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import block_sparse_attention as port_bsa
 from deepspeed_tpu_torch.ops import decode_attention as port_decode
 from deepspeed_tpu_torch.ops import flash_attention as port_flash
+from deepspeed_tpu_torch.ops import layer_norm as port_ln
+from deepspeed_tpu_torch.ops import sparse_attention as port_sparse
 
 
 @pytest.fixture
@@ -405,3 +418,211 @@ def test_server_on_card_runs_through_the_paged_kernels(cuda_device, knobs):
     for rid, p in zip(ids, prompts):
         assert out[rid][:len(p)] == p and len(out[rid]) == len(p) + 6
         assert all(0 <= t < cfg.vocab_size for t in out[rid])
+
+
+# ------------------------------------------------------------ block sparse
+
+SPARSE_CASES = [   # block, head dim, dtype, layout, causal, strided
+    (16, 64, torch.bfloat16, "fixed", True, False),
+    (32, 128, torch.bfloat16, "bigbird", False, False),
+    (64, 128, torch.bfloat16, "fixed", True, True),
+    (128, 64, torch.float16, "longformer", False, False),
+    (128, 128, torch.bfloat16, "variable", True, True),
+    (64, 64, torch.float32, "fixed", True, False),
+    (16, 128, torch.float32, "bigbird", False, False),
+]
+
+
+def _sparse_layout(name, H, block, T):
+    cfg = {"fixed": lambda: port_sparse.FixedSparsityConfig(
+               num_heads=H, block=block, num_local_blocks=4,
+               attention="unidirectional"),
+           "bigbird": lambda: port_sparse.BigBirdSparsityConfig(
+               num_heads=H, block=block, different_layout_per_head=True),
+           "longformer": lambda: port_sparse.BSLongformerSparsityConfig(
+               num_heads=H, block=block, global_block_indices=[1]),
+           "variable": lambda: port_sparse.VariableSparsityConfig(
+               num_heads=H, block=block, num_random_blocks=1,
+               local_window_blocks=[2], global_block_indices=[0])}[name]()
+    return cfg.make_layout(T)
+
+
+def _assert_sparse_close(out, ref, dtype):
+    """B8's gates on ``[B, H, T, D]`` outputs: max |out - ref| <= atol, and
+    relative L2 over every tile of 64 rows along T."""
+    atol, l2 = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+    elem, tile_l2 = _bwd_errors(out.transpose(1, 2), ref.transpose(1, 2),
+                                atol, 0.0)
+    assert elem <= 1.0 and tile_l2 <= l2, (elem, tile_l2, _rel(out, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,D,dtype,layout,causal,strided",
+                         SPARSE_CASES)
+def test_block_sparse_kernel_matches_plain_on_card(cuda_device, block, D,
+                                                   dtype, layout, causal,
+                                                   strided):
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    B, H, T = 2, 4, 1024
+    lut, counts = (torch.as_tensor(x, device=cuda_device) for x in
+                   port_bsa.build_lut(_sparse_layout(layout, H, block, T)))
+    if strided:   # [B, H, T, D] views of a fused [B, T, 3, H, D] projection
+        q, k, v = (x.transpose(1, 2) for x in
+                   _randn(g, (B, T, 3, H, D), dtype).unbind(2))
+    else:
+        q, k, v = (_randn(g, (B, H, T, D), dtype) for _ in range(3))
+    n = port_bsa.block_sparse_attention.launches
+    out = port_bsa.block_sparse_attention(q, k, v, lut, counts, block, causal)
+    ref = port_bsa.block_sparse_attention_reference(q, k, v, lut, counts,
+                                                    block, causal)
+    torch.cuda.synchronize()
+    assert port_bsa.block_sparse_attention.launches == n + 1
+    assert out.dtype == dtype and out.shape == (B, H, T, D)
+    _assert_sparse_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_sparse_dead_rows_are_zero_on_card(cuda_device, dtype):
+    """Row block 0 lists only a block above the diagonal (causal) and the
+    last row block lists nothing: both give exactly 0."""
+    import numpy as np
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    H, block, T, D = 2, 64, 512, 64
+    nb = T // block
+    lay = np.zeros((H, nb, nb), np.int64)
+    lay[:, 0, 1] = 1
+    for i in range(1, nb - 1):
+        lay[:, i, :i + 1] = 1
+    lut, counts = (torch.as_tensor(x, device=cuda_device)
+                   for x in port_bsa.build_lut(lay))
+    q, k, v = (_randn(g, (2, H, T, D), dtype) for _ in range(3))
+    out = port_bsa.block_sparse_attention(q, k, v, lut, counts, block, True)
+    ref = port_bsa.block_sparse_attention_reference(q, k, v, lut, counts,
+                                                    block, True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :, :block], torch.zeros_like(out[:, :, :block]))
+    assert torch.equal(out[:, :, -block:],
+                       torch.zeros_like(out[:, :, -block:]))
+    _assert_sparse_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_sparse_self_attention_on_card(cuda_device):
+    """The front-end on CUDA tensors: one kernel launch per call, the LUT
+    built once per length, the output [B, T, H, D]."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    cfg = port_sparse.FixedSparsityConfig(num_heads=4, block=64,
+                                          num_local_blocks=4,
+                                          attention="unidirectional")
+    op = port_sparse.SparseSelfAttention(cfg)
+    n = port_bsa.block_sparse_attention.launches
+    for T in (512, 512, 256):
+        q, k, v = (_randn(g, (2, T, 4, 64), torch.bfloat16) for _ in range(3))
+        out = op(q, k, v)
+        ref = port_sparse.sparse_attention_reference(q, k, v, op.layout(T),
+                                                     64, True)
+        torch.cuda.synchronize()
+        assert out.shape == (2, T, 4, 64)
+        _assert_sparse_close(out.transpose(1, 2), ref.transpose(1, 2),
+                             torch.bfloat16)
+    assert port_bsa.block_sparse_attention.launches == n + 3
+    assert sorted(op._cache) == [256, 512]
+
+
+@pytest.mark.cuda
+def test_block_sparse_refuses_what_the_kernel_does_not_take(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    lut = torch.zeros((2, 8, 1), dtype=torch.int32, device=cuda_device)
+    counts = torch.ones((2, 8), dtype=torch.int32, device=cuda_device)
+    q = _randn(g, (1, 2, 64, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="blocks"):
+        port_bsa.block_sparse_attention(q, q, q, lut, counts, 8)
+    q = _randn(g, (1, 2, 128, 96), torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        port_bsa.block_sparse_attention(q, q, q, lut, counts, 16)
+    q = _randn(g, (1, 2, 128, 64), torch.bfloat16)
+    with pytest.raises(TypeError, match="int32"):
+        port_bsa.block_sparse_attention(q, q, q, lut.long(), counts, 16)
+
+
+# ------------------------------------------------------------- layer norm
+
+LN_CASES = [   # R, N, dtype
+    (2048, 2048, torch.bfloat16),   # GPT-2 1.3B width
+    (1000, 1600, torch.bfloat16),   # GPT-2 XL width, ragged R
+    (1000, 768, torch.float16),
+    (333, 2048, torch.float32),
+    (64, 37, torch.bfloat16),       # scalar path: rows not 16-byte sized
+    (17, 20000, torch.bfloat16),    # 8 chunks a thread in B10
+    (4, 30000, torch.float32),      # rows too wide to cache in B9
+]
+
+
+def _ln_gates(a, r, dtype):
+    a, r = a.float(), r.float()
+    if dtype == torch.float32:
+        return (a - r).abs().max().item() <= 1e-4
+    return bool(((a - r).abs() <= 2e-2 + 1e-2 * r.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,dtype", LN_CASES)
+def test_layer_norm_kernels_match_plain_on_card(cuda_device, R, N, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    x = _randn(g, (R, N), dtype) * 2 + 0.5
+    w = _randn(g, (N,), torch.float32) + 1
+    b = _randn(g, (N,), torch.float32)
+    go = _randn(g, (R, N), dtype)
+    nf, nb_ = port_ln.layer_norm_fwd.launches, port_ln.layer_norm_bwd.launches
+    o, mean, rstd = port_ln.layer_norm_fwd(x, w, b)
+    ro, rmean, rrstd = port_ln.layer_norm_fwd_reference(x, w, b, 1e-5)
+    dx, dw, db = port_ln.layer_norm_bwd(x, w, mean, rstd, go)
+    dx2, dw2, db2 = port_ln.layer_norm_bwd(x, w, mean, rstd, go)
+    rdx, rdw, rdb = port_ln.layer_norm_bwd_reference(x, w, mean, rstd, go)
+    torch.cuda.synchronize()
+    assert (port_ln.layer_norm_fwd.launches,
+            port_ln.layer_norm_bwd.launches) == (nf + 1, nb_ + 2)
+    assert o.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    assert _ln_gates(o, ro, dtype) and _ln_gates(dx, rdx, dtype)
+    for a, r in ((mean, rmean), (rstd, rrstd)):
+        assert ((a - r).abs() <= 1e-5 * r.abs() + 1e-7).all()
+    for a, r in ((dw, rdw), (db, rdb)):
+        assert ((a - r).norm() / r.norm()).item() <= 1e-4
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2) \
+        and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_fused_layer_norm_autograd_on_card(cuda_device):
+    """FusedLayerNormFunction (B9 forward, B10 backward) and the residual
+    variant against autograd through layer_norm_reference."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    x = _randn(g, (4, 256, 1024), torch.bfloat16)
+    r = _randn(g, (4, 256, 1024), torch.bfloat16)
+    w = (_randn(g, (1024,), torch.float32) + 1).requires_grad_()
+    b = _randn(g, (1024,), torch.float32).requires_grad_()
+    go = _randn(g, (4, 256, 1024), torch.bfloat16)
+    leaves = [x.clone().requires_grad_(), r.clone().requires_grad_(), w, b]
+    o, s = port_ln.fused_residual_layer_norm(*leaves)
+    grads = torch.autograd.grad(o, leaves, go)
+    ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    ro = port_ln.layer_norm_reference(ref_leaves[0] + ref_leaves[1],
+                                      *ref_leaves[2:])
+    rgrads = torch.autograd.grad(ro, ref_leaves, go)
+    assert torch.equal(s, x + r) and _ln_gates(o, ro, torch.bfloat16)
+    for a, rg in zip(grads, rgrads):
+        assert a.dtype == rg.dtype
+        assert ((a.float() - rg.float()).norm()
+                / rg.float().norm()).item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_layer_norm_refuses_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros((4, 64), dtype=torch.float64, device=cuda_device)
+    w = torch.ones(64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        port_ln.layer_norm_fwd(x, w, w)
+    x = torch.zeros((64, 8), dtype=torch.bfloat16, device=cuda_device).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        port_ln.layer_norm_fwd(x, w[:8].repeat(8), w[:8].repeat(8))
