@@ -22,7 +22,10 @@ before its last line:
    at start 0, 256, 512) and verify (K=4) kernels against their plain
    versions in bf16 at GPT-2 XL shapes and in a GQA case, over shuffled,
    non-contiguous block tables that share prefix blocks between slots and
-   point dead entries at the null block.
+   point dead entries at the null block. Then their int8 variants (B5i,
+   B6i, B7i) at the same shapes over int8 pools quantized per (position,
+   head) row from seeded K/V (scales vary per row), with bf16, fp16 and
+   f32 queries and a slot of length 0.
 5. flash_bwd — the flash backward kernels (B2 dq, B3 dk/dv) against their
    plain PyTorch versions: bf16 at the GPT-2 1.3B training shape (B=8,
    T=1024, H=16, D=128, causal, q/k/v as strided views of one fused
@@ -51,11 +54,17 @@ before its last line:
    async loop, lag 1) on 16 requests submitted 8, 4 steps, 8 more; (b)
    prefix caching with 256-token chunks on 8 requests sharing a 512-token
    prefix and 4 cold ones; (c) prompt-lookup speculation, K=4, on prompts
-   that repeat a 24-token phrase. Each asserts its launch counts (48 per
-   prefill, chunk, decode or verify program; no dense decode launch), and
-   a tie-tolerant oracle on two requests: every served token is within
-   E2E_MAX_TOL of the maximum logit of a forward through no attention
-   kernel.
+   that repeat a 24-token phrase; (d) an int8 pool with prefix caching,
+   256-token chunks and the host tier under pool pressure (4 slots of 8
+   blocks; five 768-token prefixes with short tails through two rounds),
+   which must demote and swap in with no eviction or preemption, and serve
+   the same tokens as a control server whose pool never demotes; (e) an
+   int8 pool with speculation K=4 on (c)'s prompts. Each asserts its launch
+   counts (48 per prefill, chunk, decode or verify program; no dense
+   decode launch; no fp paged launch over an int8 pool), and a
+   tie-tolerant oracle on two requests: every served token is within
+   E2E_MAX_TOL (int8 pools: INT8_E2E_MAX_TOL) of the maximum logit of a
+   forward through no attention kernel.
 10. train — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
    → ``train_batch`` on ``GPT2LMModel(config_for("gpt2-1.3b"))`` at full
    width (24 layers, n_embd 2048, 16 heads of 128, T=1024; random weights
@@ -113,6 +122,12 @@ DECODE_TOL = 1e-2   # f32 math on both sides, output rounded to bf16
 # moves them by O(1)
 E2E_MAX_TOL = 0.35
 E2E_MEAN_TOL = 0.05
+# the same oracle over an int8 pool: each cached k/v element is off its
+# value by at most amax/254 of its (position, head) row, a perturbation of
+# the scores and attention outputs of the size of one or two bf16 steps of
+# the row's largest elements, so the logits move by about as much as the
+# bf16 rounding the limit above already absorbs
+INT8_E2E_MAX_TOL = E2E_MAX_TOL
 # flash backward: two gates on each of dq, dk and dv.
 # * element-wise |kernel - plain| <= atol + rtol * |plain|: 16-bit outputs
 #   land one or two rounding steps apart where the two sides' exp or dot
@@ -326,9 +341,19 @@ def _paged_tables(rng, spans, NB, MB):
     return tables
 
 
+def _int8_layer_pool(x2):
+    """A 2-layer fp pool [2, NB, BS, KH, D] quantized per (position, head)
+    row with the port's quantize_int8 → the int8 layer view [NB, BS, KH, D]
+    and the scale tiles' layer view [NB, KH, BS], as the server keeps them."""
+    from deepspeed_tpu_torch.ops.quant_core import quantize_int8
+    q, s = quantize_int8(x2, -1)
+    return q[1], s[..., 0].transpose(-1, -2).contiguous()[1]
+
+
 def phase_paged(flush):
     """B5, B6 and B7 against their plain versions in bf16 at GPT-2 XL
-    shapes (S=8 slots, BS=128, MB=8, NB=65 blocks) and a GQA case."""
+    shapes (S=8 slots, BS=128, MB=8, NB=65 blocks) and a GQA case; then
+    their int8 variants over int8 pools at the same shapes."""
     from deepspeed_tpu_torch.ops import decode_attention as da
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -454,11 +479,153 @@ def phase_paged(flush):
             f"ms, plain {rec['plain_ms']!r} ms, sdpa over the cache already "
             f"gathered {rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
         out.setdefault("paged_verify_attention", []).append((name, rec))
+
+        # ---- int8 pools: B5i, B6i, B7i with bf16, fp16 and f32 queries
+        kq, ks = _int8_layer_pool(rnd(2, NB, BS, KH, D))
+        vq, vs = _int8_layer_pool(rnd(2, NB, BS, KH, D))
+        sc = dict(k_scale=ks, v_scale=vs)
+
+        def deq(tables):
+            """the cache gathered and dequantized to bf16 for SDPA"""
+            t = tables.long()
+            return [(p[t].float() * sp[t].transpose(-1, -2)[..., None]
+                     ).to(torch.bfloat16).reshape(t.shape[0], span, KH, D)
+                    .transpose(1, 2) for p, sp in ((kq, ks), (vq, vs))]
+
+        def int8_err(fn, ref, args, dt, tol, what):
+            e = (fn(*args, **sc).float() - ref(*args, **sc).float()
+                 ).abs().max().item()
+            check(math.isfinite(e) and e <= tol,
+                  f"{what} {name} {dt}: max err {e} > {tol}")
+            return e
+
+        lens_np = rng.integers(1, span + 1, S).astype(np.int32)
+        lens_np[-1] = 0   # an idle slot: zeros
+        tables = torch.as_tensor(_paged_tables(rng, -(-lens_np // BS), NB,
+                                               MB), device="cuda")
+        lens = torch.as_tensor(lens_np, device="cuda")
+        vlens_np = rng.integers(1, span - K + 1, S).astype(np.int32)
+        vtables = torch.as_tensor(_paged_tables(
+            rng, -(-(vlens_np + K) // BS), NB, MB), device="cuda")
+        vlens = torch.as_tensor(vlens_np, device="cuda")
+        errs = {"paged_decode_attention_int8": [],
+                "paged_chunk_attention_int8": [],
+                "paged_verify_attention_int8": []}
+        for dt in (torch.bfloat16, torch.float16, torch.float32):
+            tol = 1e-4 if dt == torch.float32 else DECODE_TOL
+            q = rnd(S, H, D).to(dt)
+            o = da.paged_decode_attention_int8(q, kq, vq, tables, lens, ks,
+                                               vs)
+            check(bool((o[-1] == 0).all()) and bool(torch.isfinite(o).all()),
+                  f"paged decode int8 {name} {dt}: a length-0 slot must "
+                  f"give zeros")
+            errs["paged_decode_attention_int8"].append(int8_err(
+                da.paged_decode_attention, da.paged_decode_attention_reference,
+                (q, kq, vq, tables, lens), dt, tol, "paged decode int8"))
+            errs["paged_verify_attention_int8"].append(int8_err(
+                da.paged_verify_attention, da.paged_verify_attention_reference,
+                (rnd(S, K, H, D).to(dt), kq, vq, vtables, vlens), dt, tol,
+                "paged verify int8"))
+            ctol = 1e-4 if dt == torch.float32 else FLASH_TOL
+            for start in ((0, 256, 512) if dt == torch.bfloat16 else (256,)):
+                errs["paged_chunk_attention_int8"].append(int8_err(
+                    da.paged_chunk_attention,
+                    da.paged_chunk_attention_reference,
+                    (rnd(C, H, D).to(dt), kq, vq, row, start), dt, ctol,
+                    f"paged chunk int8 start {start}"))
+        # timed in bf16, at the fp cases' shapes: B5i
+        q = rnd(S, H, D)
+        args = (q, kq, vq, tables, lens, ks, vs)
+        live = int(lens_np.sum())
+        bound, by = _bound((2 * D + 8) * live * KH + 2 * 2 * S * H * D
+                           + 4 * S * (MB + 1), 4 * live * H * D,
+                           H100_F32_FLOPS)
+        kc, vc = deq(tables)
+        mask = (torch.arange(span, device="cuda")[None, :] < lens[:, None]
+                )[:, None, None, :]
+        rec = dict(
+            ms=cuda_ms(lambda: da.paged_decode_attention_int8(*args), 50,
+                       flush),
+            plain_ms=cuda_ms(lambda: da.paged_decode_attention_reference(
+                *args[:5], None, ks, vs), 10, flush),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=KH != H),
+                50, flush),
+            bound_ms=bound, bound_by=by,
+            max_abs_err=max(errs["paged_decode_attention_int8"]))
+        log(f"[paged] decode int8 {name}: lengths sum {live} (one slot 0), "
+            f"max|o err| bf16/fp16/f32 {errs['paged_decode_attention_int8']!r}"
+            f" (tol {DECODE_TOL}, f32 1e-4); kernel {rec['ms']!r} ms, plain "
+            f"{rec['plain_ms']!r} ms, sdpa over the cache already gathered "
+            f"and dequantized {rec['library_ms']!r} ms, bound {bound!r} ms "
+            f"({by})")
+        out.setdefault("paged_decode_attention_int8", []).append((name, rec))
+        # B6i at start 256
+        start = 256
+        qc = rnd(C, H, D)
+        cargs = (qc, kq, vq, row, start, ks, vs)
+        keys, pairs = start + C, C * start + C * (C + 1) // 2
+        bound, by = _bound((2 * D + 8) * keys * KH + 2 * 2 * C * H * D
+                           + 4 * MB, 4 * pairs * H * D, H100_BF16_FLOPS)
+        kc1, vc1 = (x[0][None] for x in deq(row[None]))
+        cmask = (torch.arange(span, device="cuda")[None, :]
+                 <= start + torch.arange(C, device="cuda")[:, None])
+        qt = qc.transpose(0, 1)[None]
+        rec = dict(
+            ms=cuda_ms(lambda: da.paged_chunk_attention_int8(*cargs), 20,
+                       flush),
+            plain_ms=cuda_ms(lambda: da.paged_chunk_attention_reference(
+                *cargs[:5], None, ks, vs), 5, flush),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kc1, vc1, attn_mask=cmask, enable_gqa=KH != H), 20,
+                flush),
+            bound_ms=bound, bound_by=by,
+            max_abs_err=max(errs["paged_chunk_attention_int8"]))
+        log(f"[paged] chunk int8 {name} C={C} start={start}: max|o err| "
+            f"(starts 0/256/512 bf16, 256 fp16/f32) "
+            f"{errs['paged_chunk_attention_int8']!r} (tol {FLASH_TOL}, f32 "
+            f"1e-4); kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, "
+            f"sdpa over the cache already gathered and dequantized "
+            f"{rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
+        out.setdefault("paged_chunk_attention_int8", []).append(
+            (f"{name} start={start}", rec))
+        # B7i
+        qv = rnd(S, K, H, D)
+        vargs = (qv, kq, vq, vtables, vlens, ks, vs)
+        keys = int(vlens_np.sum()) + S * K
+        pairs = sum(K * int(n) + K * (K + 1) // 2 for n in vlens_np)
+        bound, by = _bound((2 * D + 8) * keys * KH + 2 * 2 * S * K * H * D
+                           + 4 * S * (MB + 1), 4 * pairs * H * D,
+                           H100_F32_FLOPS)
+        kc, vc = deq(vtables)
+        vmask = (torch.arange(span, device="cuda")[None, None, :]
+                 <= vlens[:, None, None]
+                 + torch.arange(K, device="cuda")[None, :, None])[:, None]
+        qt = qv.transpose(1, 2)
+        rec = dict(
+            ms=cuda_ms(lambda: da.paged_verify_attention_int8(*vargs), 50,
+                       flush),
+            plain_ms=cuda_ms(lambda: da.paged_verify_attention_reference(
+                *vargs[:5], None, ks, vs), 10, flush),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kc, vc, attn_mask=vmask, enable_gqa=KH != H), 50, flush),
+            bound_ms=bound, bound_by=by,
+            max_abs_err=max(errs["paged_verify_attention_int8"]))
+        log(f"[paged] verify int8 {name} K={K}: lengths sum "
+            f"{int(vlens_np.sum())}, max|o err| bf16/fp16/f32 "
+            f"{errs['paged_verify_attention_int8']!r} (tol {DECODE_TOL}, f32 "
+            f"1e-4); kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, "
+            f"sdpa over the cache already gathered and dequantized "
+            f"{rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
+        out.setdefault("paged_verify_attention_int8", []).append((name, rec))
     # the row of each kernel: its GPT-2 XL case (B6 at start 256), with the
     # worst error over all cases
     main = {"paged_decode_attention": "gpt2-xl",
             "paged_chunk_attention": "gpt2-xl start=256",
-            "paged_verify_attention": "gpt2-xl"}
+            "paged_verify_attention": "gpt2-xl",
+            "paged_decode_attention_int8": "gpt2-xl",
+            "paged_chunk_attention_int8": "gpt2-xl start=256",
+            "paged_verify_attention_int8": "gpt2-xl"}
     return {k: dict(dict(v)[main[k]],
                     max_abs_err=max(r["max_abs_err"] for _, r in v))
             for k, v in out.items()}
@@ -1176,7 +1343,8 @@ def phase_e2e(cfg, params, dev="cuda"):
 
 _PAGED_KERNELS = ("flash_attention_fwd", "decode_attention",
                   "paged_decode_attention", "paged_chunk_attention",
-                  "paged_verify_attention")
+                  "paged_verify_attention", "paged_decode_attention_int8",
+                  "paged_chunk_attention_int8", "paged_verify_attention_int8")
 _BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
@@ -1198,11 +1366,13 @@ def _launch_counts(reset=False):
     return {n: f.launches for n, f in fns.items()}
 
 
-def _serve_run(engine, name, knobs, batches, new, between=None):
+def _serve_run(engine, name, knobs, batches, new, between=None,
+               drain_each=False):
     """One server over ``engine`` with config ``knobs``: submit each batch
-    of prompts in turn, stepping ``between(srv, i)`` steps after batch i,
-    then drain. The kernel counts are set to 0 just before and read just
-    after. Returns (server, request ids, outputs, counts, step walls)."""
+    of prompts in turn, stepping ``between(srv, i)`` steps after batch i
+    (or, with ``drain_each``, until the batch is served), then drain. The
+    kernel counts are set to 0 just before and read just after. Returns
+    (server, request ids, outputs, counts)."""
     from deepspeed_tpu_torch.inference import (ContinuousBatchingServer,
                                                DeepSpeedInferenceConfig)
     engine.config = DeepSpeedInferenceConfig(dtype="bfloat16", **knobs)
@@ -1214,6 +1384,10 @@ def _serve_run(engine, name, knobs, batches, new, between=None):
     for i, batch in enumerate(batches):
         ids += [srv.submit(p, max_new_tokens=new) for p in batch]
         for _ in range(between(srv, i) if between else 0):
+            ts = time.perf_counter()
+            srv.step()
+            walls.append(time.perf_counter() - ts)
+        while drain_each and not srv.scheduler.idle:
             ts = time.perf_counter()
             srv.step()
             walls.append(time.perf_counter() - ts)
@@ -1236,14 +1410,15 @@ def _serve_run(engine, name, knobs, batches, new, between=None):
         f"chunks {st['prefill_chunks']}, prefix hits "
         f"{st['prefix_cache_hits']}, verify steps "
         f"{st['speculation']['verify_steps']}, tokens/forward "
-        f"{st['speculation']['tokens_per_forward']}; launches {counts}")
+        f"{st['speculation']['tokens_per_forward']}; kv tier "
+        f"{st['kv_tier']}; launches {counts}")
     return srv, ids, out, counts
 
 
-def _serve_oracle(engine, name, prompts, rows, new):
+def _serve_oracle(engine, name, prompts, rows, new, tol=E2E_MAX_TOL):
     """Tie-tolerant oracle on two requests: each served token's logit in
     a forward over prompt + served tokens through no attention kernel
-    (the flash kernel's plain version) is within E2E_MAX_TOL of that
+    (the flash kernel's plain version) is within ``tol`` of that
     position's maximum. Also counts served tokens equal to generate's."""
     from deepspeed_tpu_torch.model_implementations.transformer import \
         causal_forward
@@ -1265,11 +1440,46 @@ def _serve_oracle(engine, name, prompts, rows, new):
                for a, b in zip(g[len(p):], r[len(p):]))
     total = sum(len(r) - len(p) for r, p in zip(rows, prompts))
     log(f"[serve] {name} oracle on 2 requests: worst (max logit - served "
-        f"token's logit) {worst!r} (tol {E2E_MAX_TOL}); {same} of {total} "
-        f"served tokens equal generate's")
-    check(math.isfinite(worst) and worst <= E2E_MAX_TOL,
+        f"token's logit) {worst!r} (tol {tol}); {same} of {total} served "
+        f"tokens equal generate's")
+    check(math.isfinite(worst) and worst <= tol,
           f"serve {name}: a served token is not a near-argmax of the "
-          f"reference forward ({worst} > {E2E_MAX_TOL})")
+          f"reference forward ({worst} > {tol})")
+
+
+def _bf16_step(x: float) -> float:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _same_as_control(engine, name, ids, prompts, out, ref):
+    """Served tokens against a control server's, request by request. Where
+    a token differs, the request passes only if the two tokens' logits at
+    that position, in a forward over the common prefix through no
+    attention kernel, lie within one bf16 step of each other (a tie)."""
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        causal_forward
+    differ = []
+    for r, p in zip(ids, prompts):
+        a, b = out[r], ref[r]
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if pos is None:
+            check(len(a) == len(b), f"serve {name}: request {r} length "
+                  f"{len(a)} != control {len(b)}")
+            continue
+        with torch.inference_mode():
+            lg = causal_forward(engine.params, engine.model_config,
+                                torch.as_tensor([a[:pos]], device="cuda"),
+                                reference_attention=True)[0, -1].float()
+        la, lb = lg[a[pos]].item(), lg[b[pos]].item()
+        step = _bf16_step(max(abs(la), abs(lb)))
+        differ.append((r, pos - len(p), la, lb))
+        check(abs(la - lb) <= step,
+              f"serve {name}: request {r} differs from the control at "
+              f"generated position {pos - len(p)} (logits {la!r} vs {lb!r}, "
+              f"more than one bf16 step {step!r} apart)")
+    log(f"[serve] {name}: {len(ids) - len(differ)} of {len(ids)} requests "
+        f"token-identical to the control; ties {differ}")
 
 
 def phase_serve(cfg, params):
@@ -1287,7 +1497,8 @@ def phase_serve(cfg, params):
     engine.generate([[1, 2, 3]], max_new_tokens=2)   # warm-up
     runs = {}
 
-    def verify(name, srv, ids, out, prompts, counts, expect):
+    def verify(name, srv, ids, out, prompts, counts, expect,
+               tol=E2E_MAX_TOL):
         check(counts["decode_attention"] == 0,
               f"serve {name}: {counts['decode_attention']} dense decode "
               f"launches (the server must use the paged kernels)")
@@ -1300,7 +1511,7 @@ def phase_serve(cfg, params):
                   and all(0 <= t < V for t in out[r][len(p):]),
                   f"serve {name}: request {r} malformed")
         _serve_oracle(engine, name, [prompts[0], prompts[-1]],
-                      [out[ids[0]], out[ids[-1]]], new)
+                      [out[ids[0]], out[ids[-1]]], new, tol)
         runs[name] = counts
         srv.close()
 
@@ -1311,6 +1522,7 @@ def phase_serve(cfg, params):
         engine, "default", {}, [prompts[:8], prompts[8:]], new,
         between=lambda srv, i: 4 if i == 0 else 0)
     st = srv.stats
+    fp_pool = (st["kv_tier"]["pool_bytes"], srv._cache.num_blocks)
     verify("default", srv, ids, out, prompts, counts, {
         "flash_attention_fwd": L * st["prefills"],
         "paged_decode_attention": L * (
@@ -1390,6 +1602,73 @@ def phase_serve(cfg, params):
             st["speculation"]["verify_steps"]
             + st["async_loop"]["garbage_steps"])})
     del srv
+    spec_prompts = prompts
+
+    # (d) int8 pool + prefix caching + 256-token chunks + the host tier,
+    # under pool pressure: 4 slots of 8 blocks (32 usable) against five
+    # 768-token prefixes (30 blocks) with short tails, served in two rounds
+    int8_knobs = {"kv_cache_dtype": "int8", "enable_prefix_caching": True,
+                  "prefill_chunk_tokens": 256, "num_slots": 4}
+    prefixes = [rng.integers(0, V, 768).tolist() for _ in range(5)]
+    rounds = [[p + rng.integers(0, V, n).tolist() for p, n in
+               zip(prefixes, rng.integers(8, 65, 5))] for _ in range(2)]
+    prompts = rounds[0] + rounds[1]
+    srv, ids, out, counts = _serve_run(
+        engine, "int8+prefix+chunked+offload",
+        {**int8_knobs, "kv_host_offload": True, "max_out_tokens": 1024},
+        rounds, new, drain_each=True)
+    st = srv.stats
+    tier = st["kv_tier"]
+    check(tier["kv_dtype"] == "int8" and tier["demotions"] > 0
+          and tier["swap_ins"] > 0,
+          f"serve int8+offload: no demotion or swap-in ({tier})")
+    check(st["prefix_cache_evictions"] == 0 and st["preempted"] == 0,
+          f"serve int8+offload: {st['prefix_cache_evictions']} evictions, "
+          f"{st['preempted']} preemptions (the tier must take the pressure)")
+    check(sum(counts[k] for k in _PAGED_KERNELS[2:5]) == 0,
+          f"serve int8+offload: fp paged launches over an int8 pool "
+          f"({counts})")
+    int8_pool = (tier["pool_bytes"], srv._cache.num_blocks)
+    verify("int8+prefix+chunked+offload", srv, ids, out, prompts, counts, {
+        "paged_chunk_attention_int8": L * st["prefill_chunks"],
+        "paged_decode_attention_int8": L * (
+            st["decode_steps"] + st["async_loop"]["garbage_steps"])},
+        tol=INT8_E2E_MAX_TOL)
+    del srv
+    # the control: the same int8 server with a pool that never demotes
+    srv, cids, ref, _ = _serve_run(
+        engine, "int8+prefix+chunked control",
+        {**int8_knobs, "max_out_tokens": 2048}, rounds, new, drain_each=True)
+    st = srv.stats
+    check(st["kv_tier"]["demotions"] == 0
+          and st["prefix_cache_evictions"] == 0 and cids == ids,
+          f"serve int8 control: it demoted or evicted ({st['kv_tier']})")
+    srv.close()
+    del srv
+    _same_as_control(engine, "int8+prefix+chunked+offload", ids, prompts,
+                     out, ref)
+    log(f"[serve] pool bytes: fp (a) {fp_pool[0]} for {fp_pool[1]} blocks, "
+        f"int8 (d) {int8_pool[0]} for {int8_pool[1]} blocks; per block "
+        f"int8/fp {int8_pool[0] / int8_pool[1] / (fp_pool[0] / fp_pool[1])!r}")
+
+    # (e) int8 pool + prompt-lookup speculation K=4 on (c)'s prompts
+    srv, ids, out, counts = _serve_run(
+        engine, "int8 speculation K=4",
+        {"kv_cache_dtype": "int8", "speculation_tokens": 4}, [spec_prompts],
+        new)
+    st = srv.stats
+    tpf = st["speculation"]["tokens_per_forward"]
+    check(tpf is not None and tpf > 1,
+          f"serve int8 speculation: {tpf} tokens per forward, not > 1")
+    check(sum(counts[k] for k in _PAGED_KERNELS[2:5]) == 0,
+          f"serve int8 speculation: fp paged launches over an int8 pool "
+          f"({counts})")
+    verify("int8 speculation K=4", srv, ids, out, spec_prompts, counts, {
+        "flash_attention_fwd": L * st["prefills"],
+        "paged_verify_attention_int8": L * (
+            st["speculation"]["verify_steps"]
+            + st["async_loop"]["garbage_steps"])}, tol=INT8_E2E_MAX_TOL)
+    del srv
     return runs
 
 
@@ -1459,6 +1738,16 @@ def main() -> int:
             "deepspeed_tpu_torch/ops/csrc/paged_chunk_attention.cu",
             "deepspeed_tpu/ops/pallas/decode_attention.py:292"),
         "paged_verify_attention": (
+            "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:421"),
+        # the int8 branch (_deq_tile :46) of the same three TPU kernels
+        "paged_decode_attention_int8": (
+            "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:164"),
+        "paged_chunk_attention_int8": (
+            "deepspeed_tpu_torch/ops/csrc/paged_chunk_attention.cu",
+            "deepspeed_tpu/ops/pallas/decode_attention.py:292"),
+        "paged_verify_attention_int8": (
             "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
             "deepspeed_tpu/ops/pallas/decode_attention.py:421"),
         "block_sparse_attention": (

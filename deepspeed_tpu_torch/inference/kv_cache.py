@@ -18,9 +18,13 @@ while ``lengths`` is replaced by the step functions. Where a JAX gather
 clamps an index or a JAX scatter drops one, the port clamps or redirects
 it explicitly: torch indexing would fault on the device instead.
 
-Not in this slice (ROADMAP.md queue C): int8 pools with scale tiles
-(``quantized=True``), the host tier (``HostKVTier``, ``paged_read_block``,
-``paged_swap_in``) and the allocator's demote/swap-in hooks.
+int8 pools (``quantized=True``, JAX :180-253) store int8 payloads with
+per-block-per-head f32 scale tiles ``[L, NB, KH, BS]``: the writers quantize
+each written (position, head) row, the gathers dequantize to f32. The host
+tier (``HostKVTier``, ``paged_read_block``, ``paged_swap_in``, JAX :463-616)
+keeps demoted prefix blocks in host memory, and the allocator demotes and
+swaps them in through its owner's callbacks. Not in this slice (ROADMAP.md
+queue C): the KV-pool accountant's hooks and famine reservations.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
+from deepspeed_tpu_torch.ops.quant_core import dequantize_int8, quantize_int8
 
 
 @dataclasses.dataclass
@@ -134,13 +138,23 @@ class PagedKVCache:
     block_tables: ``[num_slots, max_blocks]`` int32 — pool block ids per
     slot, in logical order (entry j covers positions ``j*block_size ..
     (j+1)*block_size-1``); unallocated entries are 0 (the null block).
-    lengths: ``[num_slots]`` int32 live context length per slot."""
+    lengths: ``[num_slots]`` int32 live context length per slot.
+
+    int8 storage: k/v hold int8 payloads and ``k_scale``/``v_scale`` the
+    scale tiles ``[L, NB, KH, BS]`` f32, one symmetric amax/127 scale per
+    written (position, head) row, block_size last so a kernel reads a
+    block's scales for one head contiguously. ``None`` scales: a
+    full-precision pool."""
     k: torch.Tensor
     v: torch.Tensor
     block_tables: torch.Tensor
     lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None   # [L, NB, KH, BS] f32 | None
+    v_scale: Optional[torch.Tensor] = None
 
-    quantized = False   # int8 pools are a later slice
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def block_size(self) -> int:
@@ -172,16 +186,35 @@ def init_paged_cache(num_layers: int, num_slots: int, num_blocks: int,
                      num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
                      quantized: bool = False, device=None) -> PagedKVCache:
     """``num_blocks`` INCLUDES the reserved null block 0, so the usable
-    pool is ``num_blocks - 1`` blocks."""
-    if quantized:
-        raise NotImplementedError(f"int8 paged pools {_LATER}")
+    pool is ``num_blocks - 1`` blocks. ``quantized=True`` builds the int8
+    pool (payload int8 whatever ``dtype``) with two separate all-ones
+    scale tensors: unwritten positions dequantize to exact zeros."""
     shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
+    pool_dtype = torch.int8 if quantized else dtype
+
+    def scales():
+        if not quantized:
+            return None
+        return torch.ones((num_layers, num_blocks, num_kv_heads, block_size),
+                          dtype=torch.float32, device=device)
+
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=torch.zeros(shape, dtype=pool_dtype, device=device),
+        v=torch.zeros(shape, dtype=pool_dtype, device=device),
         block_tables=torch.zeros((num_slots, max_blocks_per_slot),
                                  dtype=torch.int32, device=device),
-        lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device))
+        lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
+        k_scale=scales(), v_scale=scales())
+
+
+def _quant_rows(cache: PagedKVCache, x: torch.Tensor):
+    """The writers' one quantization seam: for an int8 pool, ``[..., KH,
+    D]`` quantized per (position, head) row along D → (int8 payload,
+    scales ``[..., KH]``); for an fp pool, cast, and no scales."""
+    if cache.k_scale is None:
+        return x.to(cache.k.dtype), None
+    q, s = quantize_int8(x, -1)
+    return q, s[..., 0]
 
 
 def _scatter_blocks(cache: PagedKVCache, layer: int, idx: torch.Tensor,
@@ -189,11 +222,19 @@ def _scatter_blocks(cache: PagedKVCache, layer: int, idx: torch.Tensor,
     """Whole-block scatter shared by the prompt and chunk writers:
     ``[nb*BS, KH, D]`` k/v into pool blocks ``idx [nb]``, in place. Entries
     pointing at the null block may repeat; which write lands there does
-    not matter (block 0 is garbage by contract)."""
+    not matter (block 0 is garbage by contract). An int8 pool takes the
+    quantized rows and their ``[nb, KH, BS]`` scale tiles at the same
+    indices."""
     nb, BS = idx.shape[0], cache.block_size
     idx = idx.long()
-    cache.k[layer][idx] = k.reshape(nb, BS, *k.shape[1:]).to(cache.k.dtype)
-    cache.v[layer][idx] = v.reshape(nb, BS, *v.shape[1:]).to(cache.v.dtype)
+    qk, sk = _quant_rows(cache, k)
+    qv, sv = _quant_rows(cache, v)
+    cache.k[layer][idx] = qk.reshape(nb, BS, *k.shape[1:])
+    cache.v[layer][idx] = qv.reshape(nb, BS, *v.shape[1:])
+    if sk is not None:
+        KH = k.shape[1]
+        cache.k_scale[layer][idx] = sk.reshape(nb, BS, KH).transpose(1, 2)
+        cache.v_scale[layer][idx] = sv.reshape(nb, BS, KH).transpose(1, 2)
     return cache
 
 
@@ -211,10 +252,18 @@ def _scatter_positions(cache: PagedKVCache, layer: int, blk: torch.Tensor,
                        off: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> PagedKVCache:
     """Per-position scatter shared by the append and verify writers: k/v
-    ``[..., KH, D]`` with leading dims matching ``blk``/``off``."""
+    ``[..., KH, D]`` with leading dims matching ``blk``/``off``. The scale
+    scatter ``k_scale[layer][blk, :, off]`` has its two index tensors apart,
+    so (as in numpy and JAX) their dims come first: ``[..., KH]``, the
+    shape :func:`_quant_rows` returns."""
     blk, off = blk.long(), off.long()
-    cache.k[layer][blk, off] = k.to(cache.k.dtype)
-    cache.v[layer][blk, off] = v.to(cache.v.dtype)
+    qk, sk = _quant_rows(cache, k)
+    qv, sv = _quant_rows(cache, v)
+    cache.k[layer][blk, off] = qk
+    cache.v[layer][blk, off] = qv
+    if sk is not None:
+        cache.k_scale[layer][blk, :, off] = sk
+        cache.v_scale[layer][blk, :, off] = sv
     return cache
 
 
@@ -270,11 +319,20 @@ def paged_write_chunk(cache: PagedKVCache, layer: int, k: torch.Tensor,
     return _scatter_blocks(cache, layer, row[first:first + nb], k, v)
 
 
+def _dequant_blocks(x, scale):
+    """Gathered int8 blocks ``[..., BS, KH, D]`` times their scale tiles
+    ``[..., KH, BS]`` → f32."""
+    return dequantize_int8(x, scale.transpose(-1, -2)[..., None])
+
+
 def paged_gather_slot_kv(cache: PagedKVCache, layer: int, slot: int):
     """ONE slot's cache ``[1, max_context, KH, D]`` through its table (the
-    chunked-prefill plain path)."""
+    chunked-prefill plain path); an int8 pool dequantizes to f32."""
     row = cache.block_tables[slot].long()
     k, v = cache.k[layer][row], cache.v[layer][row]
+    if cache.quantized:
+        k = _dequant_blocks(k, cache.k_scale[layer][row])
+        v = _dequant_blocks(v, cache.v_scale[layer][row])
     return (k.reshape(1, cache.max_context, *k.shape[2:]),
             v.reshape(1, cache.max_context, *v.shape[2:]))
 
@@ -282,10 +340,14 @@ def paged_gather_slot_kv(cache: PagedKVCache, layer: int, slot: int):
 def paged_gather_kv(cache: PagedKVCache, layer: int):
     """Per-slot caches ``[S, max_context, KH, D]`` through the block tables
     — the plain path for ALiBi and windowed layers. Gathered position j is
-    logical position j, so the dense masked attention applies unchanged."""
+    logical position j, so the dense masked attention applies unchanged.
+    An int8 pool dequantizes to f32."""
     S = cache.num_slots
     bt = cache.block_tables.long()
     k, v = cache.k[layer][bt], cache.v[layer][bt]
+    if cache.quantized:
+        k = _dequant_blocks(k, cache.k_scale[layer][bt])
+        v = _dequant_blocks(v, cache.v_scale[layer][bt])
     return (k.reshape(S, cache.max_context, *k.shape[3:]),
             v.reshape(S, cache.max_context, *v.shape[3:]))
 
@@ -296,6 +358,122 @@ def paged_advance(cache: PagedKVCache, active: torch.Tensor
     their appends keep landing in the null block."""
     return dataclasses.replace(cache,
                                lengths=cache.lengths + active.to(torch.int32))
+
+
+# ------------------------------------------------------------- host tier
+# A demoted block's payload (k/v across all layers, plus the scale tiles of
+# an int8 pool) moves to host memory keyed by its chain hash and the device
+# block recycles; a later prefix hit on the hash swaps the payload back into
+# a freshly allocated block. Both copies run only inside admission-time
+# allocation, after the server has flushed every step in flight: the pool is
+# written in place, so a swap-in under a running step would corrupt it.
+
+_TIER_FIELDS = ("k", "v", "k_scale", "v_scale")
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """A host copy that is complete on return: pinned for a CUDA source (a
+    later swap-in copies it back without a sync), a plain clone on the
+    CPU."""
+    if x.device.type != "cuda":
+        return x.clone()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x)   # blocking: waits for the stream's earlier writes
+    return out
+
+
+def paged_read_block(cache: PagedKVCache, block: int) -> Dict[str, torch.Tensor]:
+    """Device→host copy of one pool block across all layers: ``{"k": [L,
+    BS, KH, D], "v": ..., ("k_scale"/"v_scale": [L, KH, BS])}`` as host
+    tensors (the demotion copy; by return the content is host-durable and
+    the device block may recycle)."""
+    return {f: _to_host(getattr(cache, f)[:, block]) for f in _TIER_FIELDS
+            if getattr(cache, f) is not None}
+
+
+def paged_swap_in(cache: PagedKVCache, block: int,
+                  payload: Dict[str, torch.Tensor]) -> PagedKVCache:
+    """Host→device copy of a demoted payload into pool ``block``, in place.
+    On CUDA the copies are stream-ordered and asynchronous: the next step
+    reads the block behind them, and the pinned payload stays allocated
+    until they complete (PyTorch's pinned-memory allocator records the
+    copy's stream before it reuses the buffer)."""
+    fields = [f for f in _TIER_FIELDS if getattr(cache, f) is not None]
+    if sorted(payload) != sorted(fields):
+        raise ValueError(f"swap-in payload holds {sorted(payload)}, the pool "
+                         f"takes {sorted(fields)}")
+    for f in fields:
+        getattr(cache, f)[:, block].copy_(payload[f], non_blocking=True)
+    return cache
+
+
+class HostKVTier:
+    """Host-memory residency for demoted KV blocks, keyed by chain hash
+    (JAX ``HostKVTier`` :534).
+
+    Host storage and bookkeeping only: the BlockAllocator decides when to
+    demote and swap in (its ``on_demote``/``on_swap_in`` callbacks do the
+    copies), this class holds payloads. Insertion order is the host LRU:
+    past ``max_blocks`` the oldest payload drops for good. ``put`` on a
+    hash already resident raises: two device blocks claimed one chain
+    hash, which first-writer-wins registration rules out."""
+
+    def __init__(self, max_blocks: Optional[int] = None):
+        if max_blocks is not None and max_blocks < 1:
+            raise ValueError(
+                f"host tier max_blocks must be >= 1 (or None for "
+                f"unbounded), got {max_blocks}")
+        self.max_blocks = max_blocks
+        self._store: "OrderedDict[bytes, Dict[str, torch.Tensor]]" = \
+            OrderedDict()
+        self._block_nbytes = 0    # payload size, learned at the first put
+        self.swap_outs = 0        # payloads demoted into the tier
+        self.swap_ins = 0         # payloads promoted back to the device
+        self.dropped = 0          # host-LRU drops (content gone for good)
+        self.superseded = 0       # payloads purged by re-registration
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    @property
+    def host_bytes(self) -> int:
+        """Bytes parked in host memory (every payload is one pool block
+        across all layers)."""
+        return len(self._store) * self._block_nbytes
+
+    def has(self, h: bytes) -> bool:
+        return h in self._store
+
+    def put(self, h: bytes, payload: Dict[str, torch.Tensor]) -> None:
+        if h in self._store:
+            raise ValueError(
+                "double demote: chain hash already host-resident — two "
+                "device blocks claimed the same prefix hash")
+        if not self._block_nbytes:
+            self._block_nbytes = sum(int(a.nbytes) for a in payload.values())
+        self._store[h] = payload
+        self.swap_outs += 1
+        while (self.max_blocks is not None
+               and len(self._store) > self.max_blocks):
+            self._store.popitem(last=False)
+            self.dropped += 1
+
+    def take(self, h: bytes) -> Dict[str, torch.Tensor]:
+        """Pop one payload for swap-in (a host copy kept beside the device
+        one could go stale against it)."""
+        payload = self._store.pop(h)
+        self.swap_ins += 1
+        return payload
+
+    def discard(self, h: bytes) -> bool:
+        """Drop a host payload whose hash was just re-registered on the
+        device (a bounded tier's capacity drop can strand a descendant
+        hash on the host after its ancestor dropped). Returns True when a
+        payload was dropped."""
+        if self._store.pop(h, None) is None:
+            return False
+        self.superseded += 1
+        return True
 
 
 def prefix_block_hashes(prompt, block_size: int) -> List[bytes]:
@@ -327,17 +505,35 @@ class BlockAllocator:
     only when an allocation outruns the free list. The free list is a
     stack (pop → low ids) with a set shadow for O(1) membership.
 
-    Not in this slice (ROADMAP.md queue C): the host tier's demote and
-    swap-in hooks (an LRU pop is a plain eviction), the KV-pool
-    accountant, famine reservations and the handoff lookups."""
+    Host offload (``host_tier``): an LRU pop DEMOTES the parked block's
+    payload to the tier instead of destroying it, and a prefix walk that
+    hits a demoted hash swaps it back in. The copies are the owner's
+    callbacks: ``on_demote(block, hash)`` makes the payload host-durable
+    before it returns, ``on_swap_in(block, payload)`` writes the already
+    reserved payload into the freshly allocated block. Until both are
+    bound an LRU pop is a plain eviction.
 
-    def __init__(self, num_blocks: int, enable_prefix_caching: bool = False):
+    Not in this slice (ROADMAP.md queue C): the KV-pool accountant, famine
+    reservations and the handoff lookups."""
+
+    def __init__(self, num_blocks: int, enable_prefix_caching: bool = False,
+                 host_tier: Optional[HostKVTier] = None):
         if num_blocks < 2:
             raise ValueError(
                 f"need >= 2 pool blocks (1 usable + the null block), "
                 f"got {num_blocks}")
+        if host_tier is not None and not enable_prefix_caching:
+            raise ValueError(
+                "host offload tiers demoted PREFIX blocks — it needs "
+                "enable_prefix_caching (a hashless block has no identity "
+                "to swap back in under)")
         self.num_blocks = num_blocks
         self.enable_prefix_caching = enable_prefix_caching
+        self.host_tier = host_tier
+        self.on_demote = None
+        self.on_swap_in = None
+        self.demotions = 0     # LRU pops that kept the content on the host
+        self.swap_ins = 0      # host hits promoted back to the device
         self._free = list(range(num_blocks - 1, 0, -1))  # pop() -> low ids
         self._free_set = set(self._free)
         self._refcount: Dict[int, int] = {}       # live blocks only
@@ -374,13 +570,21 @@ class BlockAllocator:
             b = self._free.pop()
             self._free_set.discard(b)
             return b
-        # free list dry: evict the least-recently-released cached block
-        # (its hash is forgotten, so a later identical prefix re-prefills)
+        # free list dry: pop the least-recently-released cached block. With
+        # a wired host tier its payload demotes under its chain hash (before
+        # the preemption rung ever fires); without one the content is gone
+        # (the hash is forgotten, so a later identical prefix re-prefills)
         b, _ = self._lru.popitem(last=False)
+        h = self._block_hash.get(b)
         self._drop_hash(b)
-        self.evictions += 1
-        if self.on_evict is not None:
-            self.on_evict(b)
+        if (h is not None and self.host_tier is not None
+                and self.on_demote is not None):
+            self.on_demote(b, h)   # device→host, durable on return
+            self.demotions += 1
+        else:
+            self.evictions += 1
+            if self.on_evict is not None:
+                self.on_evict(b)
         return b
 
     def _drop_hash(self, b: int) -> None:
@@ -427,12 +631,17 @@ class BlockAllocator:
     def match_prefix(self, hashes) -> list:
         """Walk a prompt's chain hashes in prefix order, acquiring every
         consecutive hit (refcount++ on resident blocks, resurrection out of
-        the LRU for evictable ones). Stops at the first miss."""
+        the LRU for evictable ones, swap-in of demoted ones through
+        :meth:`_swap_in_hit`). Stops at the first miss."""
         out = []
         for h in hashes:
             b = self._hash_to_block.get(h)
             if b is None:
-                break
+                b = self._swap_in_hit(h)
+                if b is None:
+                    break
+                out.append(b)
+                continue
             if b in self._lru:
                 del self._lru[b]
                 self._refcount[b] = 1
@@ -440,6 +649,24 @@ class BlockAllocator:
                 self._refcount[b] = self._refcount[b] + 1
             out.append(b)
         return out
+
+    def _swap_in_hit(self, h: bytes):
+        """Promote one demoted block back to the device for a prefix hit.
+        The payload is popped BEFORE the staging allocation: that pop may
+        itself demote a colder parked block, and a bounded tier's capacity
+        drop could otherwise evict this very hash. Returns the block id, or
+        None for a true miss or when no block can stage the swap-in."""
+        if (self.host_tier is None or self.on_swap_in is None
+                or not self.host_tier.has(h) or self.free_blocks < 1):
+            return None
+        payload = self.host_tier.take(h)
+        b = self._pop_free()
+        self._refcount[b] = 1
+        self.on_swap_in(b, payload)   # host→device into block b
+        self._hash_to_block[h] = b
+        self._block_hash[b] = h
+        self.swap_ins += 1
+        return b
 
     def register_prefix(self, block: int, h: bytes) -> bool:
         """Publish a live, fully-written prefix block under its chain hash.
@@ -454,4 +681,7 @@ class BlockAllocator:
             return False
         self._hash_to_block[h] = block
         self._block_hash[block] = h
+        if self.host_tier is not None:
+            # a hash is never both device-registered and host-resident
+            self.host_tier.discard(h)
         return True

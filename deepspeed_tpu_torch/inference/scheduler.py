@@ -2,9 +2,10 @@
 
 Host-pure copy of ``deepspeed_tpu/inference/scheduler.py`` (``Request``
 :53, ``SlotState`` :117, ``Scheduler`` :136) over the port's
-``BlockAllocator``. The request tracer, the KV-pool accountant and the
-host tier are later slices (ROADMAP.md queue C): the JAX scheduler's
-``tracer``, ``pool_accountant`` and ``host_tier`` arguments are not taken.
+``BlockAllocator``, which it hands the host KV tier (``host_tier``). The
+request tracer and the KV-pool accountant are later slices (ROADMAP.md
+queue C): the JAX scheduler's ``tracer`` and ``pool_accountant`` arguments
+are not taken.
 
 The Orca-style control loop over the paged pool (kv_cache.PagedKVCache):
 requests queue FIFO, admission is block-budget aware (a request is
@@ -149,7 +150,7 @@ class Scheduler:
                  max_blocks_per_slot: int, max_queued_requests: int,
                  registry: Optional[MetricRegistry] = None,
                  enable_prefix_caching: bool = False,
-                 spec_margin: int = 0):
+                 spec_margin: int = 0, host_tier=None):
         self.num_slots = num_slots
         # speculative-verify overshoot (speculation_tokens - 1): every
         # request's block span reserves this many extra cache positions
@@ -160,8 +161,12 @@ class Scheduler:
         self.max_blocks_per_slot = max_blocks_per_slot
         self.max_queued_requests = max_queued_requests
         self.enable_prefix_caching = enable_prefix_caching
+        # host offload: the tier changes only what an LRU pop does with a
+        # parked block (demote vs destroy) and what a prefix walk can hit
+        # (host-resident blocks swap back in); admission is untouched
         self.allocator = BlockAllocator(
-            num_blocks, enable_prefix_caching=enable_prefix_caching)
+            num_blocks, enable_prefix_caching=enable_prefix_caching,
+            host_tier=host_tier)
         self.queue: Deque[Request] = deque()
         self.slots: Dict[int, SlotState] = {}   # slot id -> state
         self._free_slots = list(range(num_slots - 1, -1, -1))

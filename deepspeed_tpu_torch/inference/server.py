@@ -13,7 +13,9 @@ The serving core is ported: submit / step / drain; admission through the
 block allocator with prefix caching; monolithic and chunked prefill (with
 ``prefill_chain``); plain decode under the async (lag-N) loop or the
 synchronous one; prompt-lookup speculation; deadlines, cancel and
-priority preemption. Every request ends in exactly one finish reason:
+priority preemption; int8 pools (``kv_cache_dtype="int8"``) and the host
+KV tier (``kv_host_offload``, ``kv_host_blocks``) with its swap-thrash
+detector. Every request ends in exactly one finish reason:
 ``eos`` / ``length``, ``cancelled``, ``deadline`` or ``failed``
 (preemption retries exhausted).
 
@@ -24,14 +26,14 @@ decode path reads a device value on the host except the lagged token fetch
 (:class:`~deepspeed_tpu_torch.inference.async_loop.TokenFetch`).
 
 Not in this slice (ROADMAP.md queue C), each raising
-``NotImplementedError``: int8 pools, host offload, draft-model
-speculation, supervised replicas, roles and KV handoff (``export_prefix``
-/ ``import_prefix``), load shedding, SLO monitoring, canaries, incidents,
-the HTTP endpoint and fault injection. The step profiler, KV-pool
-accounting, request ledger and capacity model — on by default in JAX —
-are not built; the served tokens do not depend on them. The JAX trace
-counters of ``stats`` (``decode_traces`` and the like) report -1, JAX's
-own value for "unknown": PyTorch runs eagerly.
+``NotImplementedError``: draft-model speculation, supervised replicas,
+roles and KV handoff (``export_prefix`` / ``import_prefix``), load
+shedding, SLO monitoring, canaries, incidents, the HTTP endpoint and fault
+injection. The step profiler, KV-pool accounting, request ledger, capacity
+model and the ``/debug/memory`` host component of the tier — on by default
+in JAX — are not built; the served tokens do not depend on them. The JAX
+trace counters of ``stats`` (``decode_traces`` and the like) report -1,
+JAX's own value for "unknown": PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -46,8 +48,10 @@ import torch
 from deepspeed_tpu_torch.inference.async_loop import (InFlightStep,
                                                       PublishWorker)
 from deepspeed_tpu_torch.inference.engine import InferenceEngine, _bucket
-from deepspeed_tpu_torch.inference.kv_cache import (PagedKVCache,
-                                                    init_paged_cache)
+from deepspeed_tpu_torch.inference.kv_cache import (HostKVTier, PagedKVCache,
+                                                    init_paged_cache,
+                                                    paged_read_block,
+                                                    paged_swap_in)
 from deepspeed_tpu_torch.inference.scheduler import Request, Scheduler
 from deepspeed_tpu_torch.inference.speculation import (LookupIndex,
                                                        greedy_accept_host)
@@ -110,9 +114,6 @@ def _check_slice(cfg, fault_injector, supervised, role, handoff_import,
     tcfg = cfg.telemetry
     on = tcfg.enabled
     later = {
-        "kv_cache_dtype='int8' (int8 paged pools)":
-            cfg.kv_cache_dtype == "int8",
-        "kv_host_offload (the host KV tier)": cfg.kv_host_offload,
         "draft-model speculation (draft_engine / speculation_draft)":
             draft_engine is not None or cfg.speculation_draft is not None,
         "supervised replicas (ServingFrontend)": supervised,
@@ -193,6 +194,12 @@ class ContinuousBatchingServer:
                 "(telemetry.step_profile / telemetry.accounting) are not "
                 "ported to deepspeed_tpu_torch yet (ROADMAP.md queue C) and "
                 "are not built; served tokens do not depend on them")
+        if cfg.kv_host_offload:
+            logger.info(
+                "ContinuousBatchingServer: the host KV tier's /debug/memory "
+                "component and its pool-accountant hooks are not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP.md queue C); stats"
+                "['kv_tier'] reports the tier")
         self.max_preemptions = cfg.max_preemptions
         self._backoff_steps = cfg.preemption_backoff_steps
         reg = self.telemetry
@@ -255,7 +262,16 @@ class ContinuousBatchingServer:
         self._h_spec_commit = reg.histogram(
             "serve_spec_committed_per_forward",
             help="tokens committed per active slot per verify forward")
+        # KV tiering: int8 pool storage and/or a host tier for demoted
+        # prefix blocks (both change what a pool block holds and where it
+        # lives, not the programs that run)
         self.kv_dtype = cfg.kv_cache_dtype
+        self.host_tier = (HostKVTier(cfg.kv_host_blocks)
+                          if cfg.kv_host_offload else None)
+        # swap-thrash detector: rolling window of per-step swap-in counts
+        self._swap_window: Deque[int] = deque(maxlen=self._SWAP_WINDOW_STEPS)
+        self._swap_seen = 0
+        self._swap_alarm = False
         self._submit_ts: Dict[int, float] = {}
         # when the request last ENTERED the queue (submit or preemption
         # requeue); _submit_ts stays the birth time for TTFT/latency
@@ -272,8 +288,18 @@ class ContinuousBatchingServer:
             max_queued_requests=cfg.max_queued_requests,
             registry=self.telemetry,
             enable_prefix_caching=self.prefix_caching,
-            spec_margin=max(self.spec_tokens - 1, 0))
+            spec_margin=max(self.spec_tokens - 1, 0),
+            host_tier=self.host_tier)
         self._cache = self._make_pool(num_blocks)
+        if self.host_tier is not None:
+            # the allocator decides WHEN to tier; the server owns the pool,
+            # so the copies are its callbacks. Both run only inside
+            # admission-time allocation, which step() reaches only after
+            # flushing every step in flight: the pool is written in place,
+            # and a copy under a running step would corrupt it
+            alloc = self.scheduler.allocator
+            alloc.on_demote = self._demote_block
+            alloc.on_swap_in = self._swap_in_block
         self._results: Dict[int, List[int]] = {}
         self._next_id = 0
         self._step_clock = 0           # decode steps executed
@@ -336,6 +362,14 @@ class ContinuousBatchingServer:
     _SPEC_COLLAPSE_RATE = 0.05
     _SPEC_RECOVER_RATE = 0.10
 
+    # swap-thrash detector (host tiering): over the last _SWAP_WINDOW_STEPS
+    # steps, a mean swap-in rate above _KV_THRASH_SWAPS_PER_STEP fires one
+    # kv_swap_thrash ring event; the alarm re-arms at or below
+    # _KV_THRASH_RECOVER
+    _SWAP_WINDOW_STEPS = 32
+    _KV_THRASH_SWAPS_PER_STEP = 0.5
+    _KV_THRASH_RECOVER = 0.125
+
     # ------------------------------------------------------------ setup
 
     def _make_pool(self, num_blocks: int) -> PagedKVCache:
@@ -343,7 +377,45 @@ class ContinuousBatchingServer:
         return init_paged_cache(
             mcfg.n_layer, self.num_slots, num_blocks, self.block_size,
             self.max_blocks_per_slot, mcfg.kv_heads, mcfg.head_dim,
-            dtype=self.engine._act_dtype, device=self.device)
+            dtype=self.engine._act_dtype, quantized=self.kv_dtype == "int8",
+            device=self.device)
+
+    # -------------------------------------------------- host-tier copies
+
+    def _demote_block(self, block: int, h: bytes) -> None:
+        """Allocator demotion callback: one parked block's payload
+        device→host (complete on return) into the tier under its hash."""
+        self.host_tier.put(h, paged_read_block(self._cache, block))
+
+    def _swap_in_block(self, block: int, payload: dict) -> None:
+        """Allocator swap-in callback: the (already tier-popped) payload
+        back into a freshly allocated block, stream-ordered ahead of the
+        step that next reads it."""
+        self._cache = paged_swap_in(self._cache, block, payload)
+
+    def _check_swap_thrash(self) -> None:
+        """Ring-event a swap-in storm ONCE per episode: a sustained swap-in
+        rate over the rolling window means blocks cycle device↔host faster
+        than they serve (the device pool is undersized for the live working
+        set). Re-arms after the rate recovers."""
+        if self.host_tier is None:
+            return
+        swaps = self.scheduler.allocator.swap_ins
+        self._swap_window.append(swaps - self._swap_seen)
+        self._swap_seen = swaps
+        if len(self._swap_window) < self._SWAP_WINDOW_STEPS:
+            return
+        rate = sum(self._swap_window) / len(self._swap_window)
+        if not self._swap_alarm and rate > self._KV_THRASH_SWAPS_PER_STEP:
+            self._swap_alarm = True
+            get_event_ring().record(
+                telemetry_events.KV_SWAP_THRASH,
+                swap_ins_per_step=round(rate, 4),
+                window_steps=len(self._swap_window),
+                host_blocks=len(self.host_tier),
+                free_blocks=self.scheduler.allocator.free_blocks)
+        elif self._swap_alarm and rate <= self._KV_THRASH_RECOVER:
+            self._swap_alarm = False
 
     # the four device programs: each returns its greedy tokens as an int32
     # device tensor and leaves the updated pool in self._cache
@@ -785,6 +857,8 @@ class ContinuousBatchingServer:
         while guard > 0 and self._preempt_for_head(finished):
             guard -= 1
             self._admit(finished)
+        # tier health: sample this admission round's swap-in traffic
+        self._check_swap_thrash()
         self._run_prefill_chunk(finished)
         if not self.scheduler.slots:
             return finished
@@ -1277,15 +1351,21 @@ class ContinuousBatchingServer:
             },
             "kv_tier": {
                 "kv_dtype": self.kv_dtype,
-                "pool_bytes": int(
-                    self._cache.k.nbytes + self._cache.v.nbytes),
-                "host_offload": False,
-                "host_blocks": 0,
-                "host_bytes": 0,
-                "host_dropped": 0,
-                "demotions": 0,
-                "swap_ins": 0,
-                "thrash_alarm": False,
+                "pool_bytes": sum(
+                    int(x.nbytes) for x in (self._cache.k, self._cache.v,
+                                            self._cache.k_scale,
+                                            self._cache.v_scale)
+                    if x is not None),
+                "host_offload": self.host_tier is not None,
+                "host_blocks": (len(self.host_tier)
+                                if self.host_tier is not None else 0),
+                "host_bytes": (self.host_tier.host_bytes
+                               if self.host_tier is not None else 0),
+                "host_dropped": (self.host_tier.dropped
+                                 if self.host_tier is not None else 0),
+                "demotions": alloc.demotions,
+                "swap_ins": alloc.swap_ins,
+                "thrash_alarm": self._swap_alarm,
             },
             "fault_injection": None,
             "async_loop": {

@@ -8,7 +8,8 @@ and ``paged_verify_step`` the server runs), written as plain functions on
 tensors over a parameter dict. Prefill attention runs the flash kernel
 (``ops/flash_attention.py``), a dense decode step the dense decode kernel
 and the paged steps the paged decode, chunk and verify kernels
-(``ops/decode_attention.py``) — on a CUDA tensor the CUDA kernels, on a
+(``ops/decode_attention.py``; over an int8 pool their int8 variants, given
+the layer's scale tiles) — on a CUDA tensor the CUDA kernels, on a
 CPU tensor their plain versions. ALiBi, sliding windows and padded-key
 masks have no kernel in either package and take the plain einsum path here
 (over the pool gathered through the block tables, for the paged steps), as
@@ -305,8 +306,18 @@ def _decode_attention(q, k_cache, v_cache, live,
 
 def _paged_kernel(cfg, window) -> bool:
     """Causal, non-ALiBi, unwindowed layers take the paged kernels; the
-    rest gather through the block tables onto the plain path."""
+    rest gather through the block tables (dequantizing an int8 pool) onto
+    the plain path."""
     return cfg.positional != "alibi" and window is None
+
+
+def _pool_scales(cache: PagedKVCache, layer_idx: int) -> dict:
+    """The layer's scale tiles an int8 pool adds to a paged-kernel call
+    (empty for an fp pool)."""
+    if not cache.quantized:
+        return {}
+    return {"k_scale": cache.k_scale[layer_idx],
+            "v_scale": cache.v_scale[layer_idx]}
 
 
 def _paged_decode_attention(q, cache: PagedKVCache, layer_idx: int,
@@ -318,7 +329,8 @@ def _paged_decode_attention(q, cache: PagedKVCache, layer_idx: int,
         return paged_decode_attention(q, cache.k[layer_idx],
                                       cache.v[layer_idx],
                                       cache.block_tables, live,
-                                      scale=cfg.scale)
+                                      scale=cfg.scale,
+                                      **_pool_scales(cache, layer_idx))
     k_cache, v_cache = paged_gather_kv(cache, layer_idx)
     return _decode_attention(q, k_cache, v_cache, live, cfg, window=window)
 
@@ -355,7 +367,8 @@ def _paged_verify_attention(q, cache: PagedKVCache, layer_idx: int,
         return paged_verify_attention(q, cache.k[layer_idx],
                                       cache.v[layer_idx],
                                       cache.block_tables, cache.lengths,
-                                      scale=cfg.scale)
+                                      scale=cfg.scale,
+                                      **_pool_scales(cache, layer_idx))
     k_cache, v_cache = paged_gather_kv(cache, layer_idx)
     return _chunk_attention(q, k_cache, v_cache, cache.lengths, cfg,
                             window=window)
@@ -371,7 +384,8 @@ def _paged_chunk_attention(q, cache: PagedKVCache, layer_idx: int,
         return paged_chunk_attention(q[0], cache.k[layer_idx],
                                      cache.v[layer_idx],
                                      cache.block_tables[slot], start,
-                                     scale=cfg.scale)[None]
+                                     scale=cfg.scale,
+                                     **_pool_scales(cache, layer_idx))[None]
     k_cache, v_cache = paged_gather_slot_kv(cache, layer_idx, slot)
     return _chunk_attention(q, k_cache, v_cache,
                             torch.full((1,), start, device=q.device), cfg,

@@ -7,7 +7,8 @@ nested dict/list pytree (``wte``, ``wpe``, ``ln_f``, ``lm_head``,
 bo}, ln2}``). The port's transformer reads the same keys with the same
 shapes, so converting the leaves is all it takes for both to compute the
 same function. :func:`paged_cache_from_numpy` does the same for a
-``PagedKVCache``, so both packages can start a step from one pool, and
+``PagedKVCache`` (int8 pools with their scale tiles too), so both packages
+can start a step from one pool, and
 :func:`gpt2_params_from_flax` for the training GPT-2's flax params (with
 its inverse :func:`gpt2_params_to_numpy`). All take numpy arrays
 (``jax.device_get``); this module imports no JAX.
@@ -41,18 +42,19 @@ def params_from_numpy(tree: Any, device=None, dtype=None):
 
 def paged_cache_from_numpy(cache, device=None, dtype=None):
     """A JAX ``PagedKVCache`` whose leaves are numpy arrays (any object
-    with ``k``, ``v``, ``block_tables`` and ``lengths``) → the port's
-    :class:`~deepspeed_tpu_torch.inference.kv_cache.PagedKVCache`. int8
-    pools (with ``k_scale``) are a later slice."""
+    with ``k``, ``v``, ``block_tables`` and ``lengths``, and the scale
+    tiles ``k_scale``/``v_scale`` of an int8 pool) → the port's
+    :class:`~deepspeed_tpu_torch.inference.kv_cache.PagedKVCache`. ``dtype``
+    casts an fp pool; an int8 payload stays int8 and its scales f32."""
     from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache
-    if getattr(cache, "k_scale", None) is not None:
-        raise NotImplementedError(
-            "int8 paged pools are not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP.md queue C)")
     k, v = (params_from_numpy(x, device, dtype) for x in (cache.k, cache.v))
     tables, lengths = (params_from_numpy(x, device).to(torch.int32)
                        for x in (cache.block_tables, cache.lengths))
-    return PagedKVCache(k=k, v=v, block_tables=tables, lengths=lengths)
+    scales = {f: params_from_numpy(getattr(cache, f), device).float()
+              for f in ("k_scale", "v_scale")
+              if getattr(cache, f, None) is not None}
+    return PagedKVCache(k=k, v=v, block_tables=tables, lengths=lengths,
+                        **scales)
 
 
 def gpt2_params_from_flax(tree: Any, device=None, dtype=None):

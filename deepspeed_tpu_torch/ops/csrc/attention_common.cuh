@@ -1,6 +1,6 @@
 // Device helpers shared by the attention kernels of deepspeed_tpu_torch:
-// dtype conversions, the bf16/fp16 tensor-core product (mma.sync
-// m16n8k16), ldmatrix and cp.async. Header only; each kernel source
+// dtype conversions (int8 included), the bf16/fp16 tensor-core product
+// (mma.sync m16n8k16), ldmatrix and cp.async. Header only; each kernel source
 // includes it, and the builder hashes it with every source.
 #pragma once
 
@@ -15,6 +15,7 @@ namespace dstt {
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
@@ -66,6 +67,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(gmem), "r"(n));
+}
+// 4-byte global -> shared copy (one f32 scale); zero-fills when !valid
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(gmem), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {

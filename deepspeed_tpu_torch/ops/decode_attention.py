@@ -18,14 +18,19 @@ Replaces four Pallas kernels of
   ``ops/csrc/paged_chunk_attention.cu``: one slot's prefill chunk through
   its table row.
 
+Each paged kernel has an int8 variant (the int8 branch of each Pallas
+kernel, ``_deq_tile`` :46): an int8 pool with its f32 scale tiles ``[NB,
+KH, BS]`` goes to ``paged_{decode,chunk,verify}_attention_int8``, which the
+fp wrappers call when they are given ``k_scale``/``v_scale``.
+
 Each source's note gives its design and what bounds it on the H100. A row
-with no visible key gives zeros, as the TPU kernels do. The paged kernels
-take full-precision pools only: int8 pools with scale tiles are a later
-slice (ROADMAP.md queue C).
+with no visible key gives zeros, as the TPU kernels do.
 
 On CPU tensors each wrapper runs its plain PyTorch version (the
-``*_reference`` function beside it); on CUDA tensors it launches its kernel
-or raises. Each wrapper counts its launches in ``.launches``.
+``*_reference`` function beside it, which dequantizes an int8 pool up
+front); on CUDA tensors it launches its kernel or raises. Each wrapper
+counts its launches in ``.launches``, the int8 variants apart from the fp
+ones.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
+from deepspeed_tpu_torch.ops.quant_core import dequantize_int8
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (64, 128)
@@ -91,18 +97,19 @@ def decode_attention_reference(q, k_cache, v_cache, lengths,
     return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
-def _check_operands(name, floats, ints, groups=None):
+def _check_operands(name, floats, ints, groups=None, int8=(), scales=()):
     """Raise unless the kernel ``name`` can take these CUDA operands:
-    ``floats`` (q first, then caches or pools) of one float dtype with a
-    contiguous head dim of 64 or 128, 16-byte aligned rows and strides that
-    are whole 16-byte vectors; ``ints`` (lengths, block tables) int32 with
-    a contiguous last dim; ``groups`` the query heads per kv head the
-    kernel was built for (None: any)."""
+    ``floats`` (q first, then caches or pools) of one float dtype and
+    ``int8`` pools, each with a contiguous head dim of 64 or 128, 16-byte
+    aligned rows and strides that are whole 16-byte vectors; ``scales``
+    float32 with a contiguous last dim; ``ints`` (lengths, block tables)
+    int32 with a contiguous last dim; ``groups`` the query heads per kv
+    head the kernel was built for (None: any)."""
     q = floats[0]
     dev = q.device
-    if any(x.device != dev for x in (*floats, *ints)):
-        raise ValueError(f"{name}: q, caches, tables and lengths must be on "
-                         f"one device")
+    if any(x.device != dev for x in (*floats, *int8, *scales, *ints)):
+        raise ValueError(f"{name}: q, caches, scales, tables and lengths "
+                         f"must be on one device")
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
     if dev.index not in (None, torch.cuda.current_device()):
@@ -113,18 +120,24 @@ def _check_operands(name, floats, ints, groups=None):
         raise TypeError(f"{name} kernel takes float32, float16 or bfloat16 "
                         f"q/caches of one dtype, got "
                         f"{[str(x.dtype) for x in floats]}")
+    if any(x.dtype != torch.int8 for x in int8):
+        raise TypeError(f"{name} kernel takes int8 pools, got "
+                        f"{[str(x.dtype) for x in int8]}")
+    if any(x.dtype != torch.float32 or x.stride(-1) != 1 for x in scales):
+        raise TypeError(f"{name} kernel takes float32 scale tiles with a "
+                        f"contiguous block dim")
     if any(x.dtype != torch.int32 or x.stride(-1) != 1 for x in ints):
         raise TypeError(f"{name} kernel takes int32 lengths and tables with "
                         f"a contiguous last dim")
     D = q.shape[-1]
     if D not in _HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head dim {_HEAD_DIMS}, got {D}")
-    rep = q.shape[-2] // floats[1].shape[-2]
+    rep = q.shape[-2] // (*floats[1:], *int8)[0].shape[-2]
     if groups is not None and rep not in groups:
         raise ValueError(f"{name} kernel takes query groups of {groups} "
                          f"heads per kv head, got {rep}")
-    vec = 16 // q.element_size()
-    for x in floats:
+    for x in (*floats, *int8):
+        vec = 16 // x.element_size()
         if x.stride(-1) != 1 or any(st % vec for st in x.stride()[:-1]) \
                 or x.data_ptr() % 16:
             raise ValueError(
@@ -167,9 +180,6 @@ decode_attention.launches = 0
 
 # ------------------------------------------------------------------ paged
 
-_LATER_INT8 = ("int8 pools (k_scale/v_scale) are not ported to "
-               "deepspeed_tpu_torch yet (ROADMAP.md queue C)")
-
 
 def _bind_paged(lib: ctypes.CDLL) -> None:
     lib.dstt_paged_decode_attention.argtypes = (
@@ -180,6 +190,14 @@ def _bind_paged(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 13
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_verify_attention.restype = ctypes.c_int
+    lib.dstt_paged_decode_attention_int8.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 15
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_paged_decode_attention_int8.restype = ctypes.c_int
+    lib.dstt_paged_verify_attention_int8.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 17
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_paged_verify_attention_int8.restype = ctypes.c_int
 
 
 def _bind_chunk(lib: ctypes.CDLL) -> None:
@@ -187,6 +205,10 @@ def _bind_chunk(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_chunk_attention.restype = ctypes.c_int
+    lib.dstt_paged_chunk_attention_int8.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 14
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_paged_chunk_attention_int8.restype = ctypes.c_int
 
 
 PAGED_BUILDER = CUDAOpBuilder("paged_attention", _bind_paged)
@@ -194,8 +216,6 @@ CHUNK_BUILDER = CUDAOpBuilder("paged_chunk_attention", _bind_chunk)
 
 
 def _check_pools(name, q, k_pool, v_pool, k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_LATER_INT8)
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"{name} wants pools [NB, BS, KH, D], got "
                          f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
@@ -203,6 +223,18 @@ def _check_pools(name, q, k_pool, v_pool, k_scale, v_scale):
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match the "
                          f"pool {tuple(k_pool.shape)} (head dim, or q heads "
                          f"not divisible by kv heads)")
+    quantized = k_scale is not None
+    if ((v_scale is not None) != quantized
+            or (k_pool.dtype == torch.int8) != quantized
+            or (v_pool.dtype == torch.int8) != quantized):
+        raise ValueError(f"{name}: int8 pools require k_scale/v_scale (and "
+                         f"fp pools must not pass them)")
+    if quantized:
+        NB, BS, KH = k_pool.shape[:3]
+        for x in (k_scale, v_scale):
+            if tuple(x.shape) != (NB, KH, BS):
+                raise ValueError(f"{name}: scale tiles must be [NB, KH, BS] "
+                                 f"= {(NB, KH, BS)}, got {tuple(x.shape)}")
 
 
 def _check_tables(name, S, block_tables, lengths):
@@ -218,7 +250,7 @@ def _scale(scale, D):
 
 
 def _on_cpu(*xs):
-    return all(x.device.type == "cpu" for x in xs)
+    return all(x.device.type == "cpu" for x in xs if x is not None)
 
 
 def _gather(pool, table):
@@ -226,6 +258,15 @@ def _gather(pool, table):
     ``[..., MB * BS, KH, D]`` (gathered position j is position j)."""
     g = pool[table.long()]
     return g.reshape(*table.shape[:-1], -1, *pool.shape[2:])
+
+
+def _dequant_pools(k_pool, v_pool, k_scale, v_scale):
+    """The plain versions' dequantization, up front: int8 pools times
+    their ``[NB, KH, BS]`` scale tiles → f32 pools (fp pools pass)."""
+    if k_scale is None:
+        return k_pool, v_pool
+    return (dequantize_int8(k_pool, k_scale.transpose(1, 2)[..., None]),
+            dequantize_int8(v_pool, v_scale.transpose(1, 2)[..., None]))
 
 
 def _masked_softmax(s, visible):
@@ -239,24 +280,32 @@ def _masked_softmax(s, visible):
 
 
 def paged_decode_attention_reference(q, k_pool, v_pool, block_tables,
-                                     lengths, scale: Optional[float] = None
+                                     lengths, scale: Optional[float] = None,
+                                     k_scale=None, v_scale=None
                                      ) -> torch.Tensor:
     """Plain version of the paged decode kernel: gather each slot's cache
-    through its table, then the dense decode's plain version."""
-    _check_pools("paged_decode_attention", q, k_pool, v_pool, None, None)
+    through its table (an int8 pool dequantized first), then the dense
+    decode's plain version."""
+    _check_pools("paged_decode_attention", q, k_pool, v_pool, k_scale,
+                 v_scale)
     _check_tables("paged_decode_attention", q.shape[0], block_tables,
                   lengths)
+    k_pool, v_pool = _dequant_pools(k_pool, v_pool, k_scale, v_scale)
     return decode_attention_reference(q, _gather(k_pool, block_tables),
                                       _gather(v_pool, block_tables), lengths,
                                       scale)
 
 
 def paged_chunk_attention_reference(q, k_pool, v_pool, block_table, start,
-                                    scale: Optional[float] = None
+                                    scale: Optional[float] = None,
+                                    k_scale=None, v_scale=None
                                     ) -> torch.Tensor:
     """Plain version of the paged chunk kernel: gather the slot's cache
-    through its table row, f32 softmax with ``col <= start + qi``."""
-    _check_pools("paged_chunk_attention", q, k_pool, v_pool, None, None)
+    through its table row (an int8 pool dequantized first), f32 softmax
+    with ``col <= start + qi``."""
+    _check_pools("paged_chunk_attention", q, k_pool, v_pool, k_scale,
+                 v_scale)
+    k_pool, v_pool = _dequant_pools(k_pool, v_pool, k_scale, v_scale)
     C, H, D = q.shape
     rep = H // k_pool.shape[2]
     kc = _gather(k_pool, block_table).repeat_interleave(rep, dim=1)
@@ -270,13 +319,17 @@ def paged_chunk_attention_reference(q, k_pool, v_pool, block_table, start,
 
 
 def paged_verify_attention_reference(q, k_pool, v_pool, block_tables,
-                                     lengths, scale: Optional[float] = None
+                                     lengths, scale: Optional[float] = None,
+                                     k_scale=None, v_scale=None
                                      ) -> torch.Tensor:
     """Plain version of the paged verify kernel: gather each slot's cache
-    through its table, f32 softmax with ``col <= lengths[s] + qi``."""
-    _check_pools("paged_verify_attention", q, k_pool, v_pool, None, None)
+    through its table (an int8 pool dequantized first), f32 softmax with
+    ``col <= lengths[s] + qi``."""
+    _check_pools("paged_verify_attention", q, k_pool, v_pool, k_scale,
+                 v_scale)
     S, K, H, D = q.shape
     _check_tables("paged_verify_attention", S, block_tables, lengths)
+    k_pool, v_pool = _dequant_pools(k_pool, v_pool, k_scale, v_scale)
     rep = H // k_pool.shape[2]
     kc = _gather(k_pool, block_tables).repeat_interleave(rep, dim=2)
     vc = _gather(v_pool, block_tables).repeat_interleave(rep, dim=2)
@@ -291,20 +344,56 @@ def paged_verify_attention_reference(q, k_pool, v_pool, block_tables,
             / norm.permute(0, 2, 1, 3)).to(q.dtype)
 
 
+def _check_decode_args(name, q, k_pool, v_pool, block_tables, lengths,
+                       k_scale, v_scale):
+    _check_pools(name, q, k_pool, v_pool, k_scale, v_scale)
+    if q.dim() != 3:
+        raise ValueError(f"{name} wants q [S, H, D], got {tuple(q.shape)}")
+    _check_tables(name, q.shape[0], block_tables, lengths)
+
+
+def _check_chunk_args(name, q, k_pool, v_pool, block_table, k_scale,
+                      v_scale):
+    _check_pools(name, q, k_pool, v_pool, k_scale, v_scale)
+    if q.dim() != 3 or block_table.dim() != 1:
+        raise ValueError(f"{name} wants q [C, H, D] and one table row [MB], "
+                         f"got {tuple(q.shape)}, {tuple(block_table.shape)}")
+
+
+def _check_verify_args(name, q, k_pool, v_pool, block_tables, lengths,
+                       k_scale, v_scale):
+    _check_pools(name, q, k_pool, v_pool, k_scale, v_scale)
+    if q.dim() != 4:
+        raise ValueError(f"{name} wants q [S, K, H, D], got "
+                         f"{tuple(q.shape)}")
+    _check_tables(name, q.shape[0], block_tables, lengths)
+
+
+def _int8_args(name, q, k_pool, v_pool, k_scale, v_scale, ints):
+    """Check the int8 kernels' operands; their pointers and the scale
+    tiles' strides (block, head) in the C argument order."""
+    _check_operands(name, (q,), ints, int8=(k_pool, v_pool),
+                    scales=(k_scale, v_scale))
+    return ([k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+             v_scale.data_ptr()],
+            [*k_scale.stride()[:2], *v_scale.stride()[:2]])
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                            scale: Optional[float] = None, k_scale=None,
                            v_scale=None) -> torch.Tensor:
     """One-token attention per slot through the paged pool, GQA-native:
     q ``[S, H, D]``, pools ``[NB, BS, KH, D]``, ``block_tables [S, MB]``
     int32 (dead entries point at a valid block — the null block 0),
-    ``lengths [S]`` int32 → ``[S, H, D]``."""
-    _check_pools("paged_decode_attention", q, k_pool, v_pool, k_scale,
-                 v_scale)
-    if q.dim() != 3:
-        raise ValueError(f"paged_decode_attention wants q [S, H, D], got "
-                         f"{tuple(q.shape)}")
+    ``lengths [S]`` int32 → ``[S, H, D]``. An int8 pool passes its scale
+    tiles ``k_scale``/``v_scale`` ``[NB, KH, BS]`` and goes to
+    :func:`paged_decode_attention_int8`."""
+    if k_scale is not None or v_scale is not None:
+        return paged_decode_attention_int8(q, k_pool, v_pool, block_tables,
+                                           lengths, k_scale, v_scale, scale)
+    _check_decode_args("paged_decode_attention", q, k_pool, v_pool,
+                       block_tables, lengths, None, None)
     S, H, D = q.shape
-    _check_tables("paged_decode_attention", S, block_tables, lengths)
     if _on_cpu(q, k_pool, v_pool, block_tables, lengths):
         return paged_decode_attention_reference(q, k_pool, v_pool,
                                                 block_tables, lengths, scale)
@@ -325,19 +414,51 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     return o
 
 
+def paged_decode_attention_int8(q, k_pool, v_pool, block_tables, lengths,
+                                k_scale, v_scale,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """:func:`paged_decode_attention` over an int8 pool: int8 pools ``[NB,
+    BS, KH, D]`` and their f32 scale tiles ``[NB, KH, BS]``, q and the
+    output in f32, f16 or bf16."""
+    name = "paged_decode_attention_int8"
+    _check_decode_args(name, q, k_pool, v_pool, block_tables, lengths,
+                       k_scale, v_scale)
+    S, H, D = q.shape
+    if _on_cpu(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_tables, lengths, scale, k_scale,
+            v_scale)
+    ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
+                                (block_tables, lengths))
+    NB, BS, KH = k_pool.shape[:3]
+    o = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
+    lib = PAGED_BUILDER.load()
+    rc = lib.dstt_paged_decode_attention_int8(
+        q.data_ptr(), *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
+        o.data_ptr(), S, H, KH, D, NB, BS, block_tables.shape[1],
+        *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3],
+        *sstrides, block_tables.stride(0), *o.stride()[:2], _scale(scale, D),
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, name, rc)
+    paged_decode_attention_int8.launches += 1
+    return o
+
+
 def paged_chunk_attention(q, k_pool, v_pool, block_table, start: int,
                           scale: Optional[float] = None, k_scale=None,
                           v_scale=None) -> torch.Tensor:
     """Chunked-prefill attention for one slot through the paged pool:
     q ``[C, H, D]`` at absolute positions ``start..start+C-1`` (the
     chunk's own k/v already in the pool), pools ``[NB, BS, KH, D]``, the
-    slot's table row ``[MB]`` int32, ``start`` a host int → ``[C, H, D]``."""
-    _check_pools("paged_chunk_attention", q, k_pool, v_pool, k_scale,
-                 v_scale)
-    if q.dim() != 3 or block_table.dim() != 1:
-        raise ValueError(f"paged_chunk_attention wants q [C, H, D] and one "
-                         f"table row [MB], got {tuple(q.shape)}, "
-                         f"{tuple(block_table.shape)}")
+    slot's table row ``[MB]`` int32, ``start`` a host int → ``[C, H, D]``.
+    An int8 pool passes its scale tiles and goes to
+    :func:`paged_chunk_attention_int8`."""
+    if k_scale is not None or v_scale is not None:
+        return paged_chunk_attention_int8(q, k_pool, v_pool, block_table,
+                                          start, k_scale, v_scale, scale)
+    _check_chunk_args("paged_chunk_attention", q, k_pool, v_pool,
+                      block_table, None, None)
     start = int(start)
     if _on_cpu(q, k_pool, v_pool, block_table):
         return paged_chunk_attention_reference(q, k_pool, v_pool,
@@ -359,20 +480,51 @@ def paged_chunk_attention(q, k_pool, v_pool, block_table, start: int,
     return o
 
 
+def paged_chunk_attention_int8(q, k_pool, v_pool, block_table, start: int,
+                               k_scale, v_scale,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """:func:`paged_chunk_attention` over an int8 pool and its f32 scale
+    tiles ``[NB, KH, BS]``."""
+    name = "paged_chunk_attention_int8"
+    _check_chunk_args(name, q, k_pool, v_pool, block_table, k_scale,
+                      v_scale)
+    start = int(start)
+    if _on_cpu(q, k_pool, v_pool, block_table, k_scale, v_scale):
+        return paged_chunk_attention_reference(
+            q, k_pool, v_pool, block_table, start, scale, k_scale, v_scale)
+    ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
+                                (block_table,))
+    C, H, D = q.shape
+    NB, BS, KH = k_pool.shape[:3]
+    o = torch.empty((C, H, D), dtype=q.dtype, device=q.device)
+    lib = CHUNK_BUILDER.load()
+    rc = lib.dstt_paged_chunk_attention_int8(
+        q.data_ptr(), *ptrs, block_table.data_ptr(), o.data_ptr(), C, H, KH,
+        D, NB, BS, block_table.shape[0], start, *q.stride()[:2],
+        *k_pool.stride()[:3], *v_pool.stride()[:3], *sstrides,
+        *o.stride()[:2], _scale(scale, D), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, name, rc)
+    paged_chunk_attention_int8.launches += 1
+    return o
+
+
 def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths,
                            scale: Optional[float] = None, k_scale=None,
                            v_scale=None) -> torch.Tensor:
     """Speculative-verify attention for every slot through the paged pool:
     q ``[S, K, H, D]`` at positions ``lengths[s]..lengths[s]+K-1`` (their
     k/v already in the pool), pools ``[NB, BS, KH, D]``, ``block_tables
-    [S, MB]`` and ``lengths [S]`` int32 → ``[S, K, H, D]``."""
-    _check_pools("paged_verify_attention", q, k_pool, v_pool, k_scale,
-                 v_scale)
-    if q.dim() != 4:
-        raise ValueError(f"paged_verify_attention wants q [S, K, H, D], got "
-                         f"{tuple(q.shape)}")
+    [S, MB]`` and ``lengths [S]`` int32 → ``[S, K, H, D]``. An int8 pool
+    passes its scale tiles and goes to
+    :func:`paged_verify_attention_int8`."""
+    if k_scale is not None or v_scale is not None:
+        return paged_verify_attention_int8(q, k_pool, v_pool, block_tables,
+                                           lengths, k_scale, v_scale, scale)
+    _check_verify_args("paged_verify_attention", q, k_pool, v_pool,
+                       block_tables, lengths, None, None)
     S, K, H, D = q.shape
-    _check_tables("paged_verify_attention", S, block_tables, lengths)
     if _on_cpu(q, k_pool, v_pool, block_tables, lengths):
         return paged_verify_attention_reference(q, k_pool, v_pool,
                                                 block_tables, lengths, scale)
@@ -393,6 +545,39 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths,
     return o
 
 
+def paged_verify_attention_int8(q, k_pool, v_pool, block_tables, lengths,
+                                k_scale, v_scale,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """:func:`paged_verify_attention` over an int8 pool and its f32 scale
+    tiles ``[NB, KH, BS]``."""
+    name = "paged_verify_attention_int8"
+    _check_verify_args(name, q, k_pool, v_pool, block_tables, lengths,
+                       k_scale, v_scale)
+    S, K, H, D = q.shape
+    if _on_cpu(q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale):
+        return paged_verify_attention_reference(
+            q, k_pool, v_pool, block_tables, lengths, scale, k_scale,
+            v_scale)
+    ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
+                                (block_tables, lengths))
+    NB, BS, KH = k_pool.shape[:3]
+    o = torch.empty((S, K, H, D), dtype=q.dtype, device=q.device)
+    lib = PAGED_BUILDER.load()
+    rc = lib.dstt_paged_verify_attention_int8(
+        q.data_ptr(), *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
+        o.data_ptr(), S, K, H, KH, D, NB, BS, block_tables.shape[1],
+        *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
+        *sstrides, block_tables.stride(0), *o.stride()[:3], _scale(scale, D),
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, name, rc)
+    paged_verify_attention_int8.launches += 1
+    return o
+
+
 paged_decode_attention.launches = 0
 paged_chunk_attention.launches = 0
 paged_verify_attention.launches = 0
+paged_decode_attention_int8.launches = 0
+paged_chunk_attention_int8.launches = 0
+paged_verify_attention_int8.launches = 0

@@ -6,7 +6,9 @@ Builds GPT-2 XL at its published widths (random weights from a seed), runs
 one prefill of 8 prompts (64-900 tokens, the prompts of chip_smoke.py),
 then 8 decode steps, then 8 steady-state steps of the paged
 ``ContinuousBatchingServer`` (default config, 8 resident requests, the
-async loop); then, with those weights freed, one ``train_batch`` of the
+async loop) over an fp pool and again over an int8 pool
+(``kv_cache_dtype="int8"``); then, with those weights freed, one
+``train_batch`` of the
 GPT-2 1.3B preset in bf16 (chip_smoke.py's train configuration: micro-batch
 8, 2 accumulation steps, T=1024, remat, AdamW), all under
 ``torch.profiler``, and prints for each phase:
@@ -125,7 +127,8 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         report("decode_x8", prof, wall, trace_dir)
-    serve_x8(engine, ids, lens, act, trace_dir)
+    for kv_dtype in ("fp", "int8"):
+        serve_x8(engine, ids, lens, act, trace_dir, kv_dtype)
     del engine, params, cache, lg, tok
     torch.cuda.empty_cache()
     train_step(act, trace_dir)
@@ -158,11 +161,14 @@ def train_step(act, trace_dir):
     report("train_step", prof, wall, trace_dir)
 
 
-def serve_x8(engine, ids, lens, act, trace_dir):
-    """8 steady-state server steps: every slot resident and decoding, no
-    queue, so each step() dispatches one decode program and commits the
-    one before it."""
-    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+def serve_x8(engine, ids, lens, act, trace_dir, kv_dtype):
+    """8 steady-state server steps over a ``kv_dtype`` pool: every slot
+    resident and decoding, no queue, so each step() dispatches one decode
+    program and commits the one before it."""
+    from deepspeed_tpu_torch.inference import (ContinuousBatchingServer,
+                                               DeepSpeedInferenceConfig)
+    engine.config = DeepSpeedInferenceConfig(dtype="bfloat16",
+                                             kv_cache_dtype=kv_dtype)
     srv = ContinuousBatchingServer(engine)
     for b, n in enumerate(lens):
         srv.submit(ids[b, :n].tolist(), max_new_tokens=64)
@@ -175,7 +181,8 @@ def serve_x8(engine, ids, lens, act, trace_dir):
             srv.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report("serve_x8", prof, wall, trace_dir)
+    report("serve_x8" if kv_dtype == "fp" else f"serve_x8_{kv_dtype}", prof,
+           wall, trace_dir)
     srv.close()
 
 

@@ -13,7 +13,9 @@ rounds q.scale and P to the storage dtype before its products, so the two
 may land one rounding step apart) and 1e-2 for the dense and paged decode
 and verify kernels (f32 math on both sides, output rounded); f32 inputs at
 1e-4 (only the order of the sums differs); the f32 LSE at 1e-3 for 16-bit
-inputs.
+inputs. The int8 variants of the paged kernels are held to the same limits
+against their plain versions over the same int8 pool (the plain versions
+dequantize it up front; the kernels fold the scales into the score and P).
 The flash backward kernels (B2 dq, B3 dk/dv) are held, as in
 ``chip_smoke.py``, element-wise to ``atol + rtol * |plain|`` (2e-2 and 1e-2
 in bf16 and fp16: the outputs land one or two 16-bit rounding steps apart
@@ -40,6 +42,7 @@ from deepspeed_tpu_torch.ops import block_sparse_attention as port_bsa
 from deepspeed_tpu_torch.ops import decode_attention as port_decode
 from deepspeed_tpu_torch.ops import flash_attention as port_flash
 from deepspeed_tpu_torch.ops import layer_norm as port_ln
+from deepspeed_tpu_torch.ops import quant_core as port_quant
 from deepspeed_tpu_torch.ops import sparse_attention as port_sparse
 
 
@@ -358,6 +361,88 @@ def test_paged_chunk_kernel_matches_plain_on_card(cuda_device, dtype, H, KH,
         assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _int8_pool(p):
+    """An int8 pool [NB, BS, KH, D] quantized per (position, head) row from
+    ``p``, and its scale tiles [NB, KH, BS] (block dim contiguous)."""
+    q, s = port_quant.quantize_int8(p, -1)
+    return q, s[..., 0].transpose(1, 2).contiguous()
+
+
+PAGED_INT8_CASES = PAGED_CASES + [(torch.float16, 25, 25, 64, 128),
+                                  (torch.float32, 8, 2, 64, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,KH,D,BS", PAGED_INT8_CASES)
+def test_paged_int8_decode_and_verify_kernels_match_plain_on_card(
+        cuda_device, dtype, H, KH, D, BS):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    kp, vp, tables, lens = _paged_case(g, dtype, H, KH, D, BS=BS,
+                                       MB=256 // BS)
+    (kq, ks), (vq, vs) = _int8_pool(kp), _int8_pool(vp)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    q = _randn(g, (4, H, D), dtype)
+    n = port_decode.paged_decode_attention_int8.launches
+    n_fp = port_decode.paged_decode_attention.launches
+    out = port_decode.paged_decode_attention(q, kq, vq, tables, lens,
+                                             k_scale=ks, v_scale=vs)
+    ref = port_decode.paged_decode_attention_reference(
+        q, kq, vq, tables, lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert port_decode.paged_decode_attention_int8.launches == n + 1
+    assert port_decode.paged_decode_attention.launches == n_fp
+    assert torch.equal(out[3], torch.zeros_like(out[3]))   # length 0
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    for K in (1, 4, 5):
+        qv = _randn(g, (4, K, H, D), dtype)
+        out = port_decode.paged_verify_attention_int8(qv, kq, vq, tables,
+                                                      lens, ks, vs)
+        ref = port_decode.paged_verify_attention_reference(
+            qv, kq, vq, tables, lens, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,KH,D,BS", PAGED_INT8_CASES)
+def test_paged_int8_chunk_kernel_matches_plain_on_card(cuda_device, dtype, H,
+                                                       KH, D, BS):
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    kp, vp, tables, _ = _paged_case(g, dtype, H, KH, D, BS=BS, MB=256 // BS)
+    (kq, ks), (vq, vs) = _int8_pool(kp), _int8_pool(vp)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    row = tables[2]
+    for start, C in ((0, 64), (BS, 96), (256 - BS, 64)):   # last: past row
+        qc = _randn(g, (C, H, D), dtype)
+        n = port_decode.paged_chunk_attention_int8.launches
+        out = port_decode.paged_chunk_attention(qc, kq, vq, row, start,
+                                                k_scale=ks, v_scale=vs)
+        ref = port_decode.paged_chunk_attention_reference(
+            qc, kq, vq, row, start, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert port_decode.paged_chunk_attention_int8.launches == n + 1
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_paged_int8_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    kp, vp, tables, lens = _paged_case(g, torch.bfloat16, 4, 4, 64)
+    kq, ks = _int8_pool(kp)
+    q = _randn(g, (4, 4, 64), torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 scale"):
+        port_decode.paged_decode_attention(q, kq, kq, tables, lens,
+                                           k_scale=ks.half(),
+                                           v_scale=ks.half())
+    with pytest.raises(TypeError, match="float32 scale"):
+        port_decode.paged_decode_attention(
+            q, kq, kq, tables, lens, k_scale=ks.transpose(1, 2).contiguous()
+            .transpose(1, 2), v_scale=ks)
+    with pytest.raises(ValueError, match="require k_scale"):
+        port_decode.paged_decode_attention(q, kq, kq, tables, lens)
+
+
 @pytest.mark.cuda
 def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(5)
@@ -418,6 +503,51 @@ def test_server_on_card_runs_through_the_paged_kernels(cuda_device, knobs):
     for rid, p in zip(ids, prompts):
         assert out[rid][:len(p)] == p and len(out[rid]) == len(p) + 6
         assert all(0 <= t < cfg.vocab_size for t in out[rid])
+
+
+@pytest.mark.cuda
+def test_int8_offload_server_on_card_runs_through_the_int8_kernels(
+        cuda_device):
+    """A small bf16 model through an int8 server with prefix caching,
+    64-token chunks and the host tier, under pool pressure: the int8
+    kernels run (one launch per layer and program), the fp paged kernels
+    never, blocks demote and swap back in."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        InferenceTransformerConfig, init_params)
+    cfg = InferenceTransformerConfig(vocab_size=512, n_positions=256,
+                                     n_embd=256, n_layer=2, n_head=4)
+    params = init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg)
+    eng = deepspeed_tpu_torch.init_inference(
+        (cfg, params), dtype="bf16", max_out_tokens=128, block_size=32,
+        num_slots=2, kv_cache_dtype="int8", enable_prefix_caching=True,
+        prefill_chunk_tokens=64, kv_host_offload=True)
+    fns = (port_decode.paged_decode_attention,
+           port_decode.paged_chunk_attention,
+           port_decode.paged_decode_attention_int8,
+           port_decode.paged_chunk_attention_int8)
+    for f in fns:
+        f.launches = 0
+    srv = ContinuousBatchingServer(eng)
+    prefixes = [[1 + (s * 7 + i) % 500 for i in range(96)] for s in range(3)]
+    outs = []
+    for i in range(6):
+        p = prefixes[i % 3] + [7 + i, 9]
+        rid = srv.submit(p, max_new_tokens=4)
+        out = srv.drain()[rid]
+        assert out[:len(p)] == p and len(out) == len(p) + 4
+        outs.append(out)
+    dec, chunk, dec8, chunk8 = (f.launches for f in fns)
+    st = srv.stats
+    srv.close()
+    steps = st["decode_steps"] + st["async_loop"]["garbage_steps"]
+    assert dec == chunk == 0
+    assert chunk8 == cfg.n_layer * st["prefill_chunks"] > 0
+    assert dec8 == cfg.n_layer * steps > 0
+    assert st["kv_tier"]["demotions"] > 0 and st["kv_tier"]["swap_ins"] > 0
+    assert st["prefix_cache_evictions"] == st["preempted"] == 0
 
 
 # ------------------------------------------------------------ block sparse

@@ -356,11 +356,11 @@ def test_out_of_slice_paths_raise_not_implemented(case):
             eng = InferenceEngine((tcfg, tp), cfg32, device="cpu")
             eng.generate_speculative([[1, 2]], draft=eng)
         elif case == "server":
-            # the paged server is ported; its int8 pool is not
+            # the paged server is ported; its disaggregated roles are not
             from deepspeed_tpu_torch import inference
             inference.ContinuousBatchingServer(InferenceEngine(
-                (tcfg, tp), DeepSpeedInferenceConfig(
-                    dtype="float32", kv_cache_dtype="int8"), device="cpu"))
+                (tcfg, tp), DeepSpeedInferenceConfig(dtype="float32"),
+                device="cpu"), role="prefill")
         elif case == "tp":
             InferenceEngine((tcfg, tp), DeepSpeedInferenceConfig(
                 dtype="float32", tensor_parallel={"tp_size": 2}),

@@ -132,8 +132,10 @@ def test_paged_wrappers_on_cpu_count_no_launch_and_check_arguments():
     tda.paged_verify_attention(*_t(qv, kp, vp, TABLES, lens))
     assert [f.launches for f in fns] == before
     tq, tkp, tvp, ttab, tlen = _t(q, kp, vp, TABLES, lens)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tda.paged_decode_attention(tq, tkp, tvp, ttab, tlen, k_scale=tlen)
+    # scale tiles beside a full-precision pool are refused, as in JAX
+    with pytest.raises(ValueError, match="must not pass"):
+        tda.paged_decode_attention(tq, tkp, tvp, ttab, tlen, k_scale=tlen,
+                                   v_scale=tlen)
     with pytest.raises(ValueError, match="block_tables"):
         tda.paged_decode_attention(tq, tkp, tvp, ttab[:2], tlen)
     with pytest.raises(ValueError, match="not divisible"):
@@ -183,8 +185,15 @@ def test_paged_cache_from_numpy_and_init_match_jax():
     z = tkv.init_paged_cache(2, 3, NB, BS, MB, 2, D, torch.float32)
     jz = jkv.init_paged_cache(2, 3, NB, BS, MB, 2, D, jnp.float32)
     _assert_pool_equal(z, jz)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tkv.init_paged_cache(2, 3, NB, BS, MB, 2, D, quantized=True)
+    # an int8 pool: int8 zeros and two separate all-ones scale tensors
+    q8 = tkv.init_paged_cache(2, 3, NB, BS, MB, 2, D, quantized=True)
+    jq8 = jkv.init_paged_cache(2, 3, NB, BS, MB, 2, D, quantized=True)
+    assert q8.quantized and jq8.quantized and not z.quantized
+    for f in ("k", "v", "k_scale", "v_scale"):
+        a, b = getattr(q8, f), np.asarray(getattr(jq8, f))
+        assert str(a.dtype).split(".")[-1] == str(b.dtype)
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert q8.k_scale.data_ptr() != q8.v_scale.data_ptr()
 
 
 def test_paged_writers_match_jax():

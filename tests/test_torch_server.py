@@ -272,8 +272,25 @@ def _engine(**knobs):
         **knobs), device="cpu")
 
 
+@pytest.mark.parametrize("case", ["int8", "host_offload"])
+def test_kv_tiering_options_build(case):
+    """int8 pools and the host tier are ported: the server builds them
+    (tests/test_torch_server_parity.py serves through them)."""
+    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+    knobs = {"int8": dict(kv_cache_dtype="int8"),
+             "host_offload": dict(kv_host_offload=True,
+                                  enable_prefix_caching=True)}[case]
+    srv = ContinuousBatchingServer(_engine(**knobs))
+    tier = srv.stats["kv_tier"]
+    assert srv._cache.quantized == (case == "int8")
+    assert tier["host_offload"] == (case == "host_offload")
+    alloc = srv.scheduler.allocator
+    assert (alloc.on_demote is not None) == (case == "host_offload")
+    srv.close()
+
+
 @pytest.mark.parametrize("case", [
-    "int8", "host_offload", "draft_engine", "speculation_draft",
+    "draft_engine", "speculation_draft",
     "supervised", "role", "handoff_import", "load_shedding", "slo", "canary",
     "incident", "http_port", "fault_injection", "fault_injector",
     "export_prefix", "import_prefix", "tp_mesh", "tracing"])
@@ -281,9 +298,6 @@ def test_out_of_slice_options_raise_not_implemented(case):
     from deepspeed_tpu_torch.inference import ContinuousBatchingServer
     slo = {"enabled": True, "queue_wait_p90_s": 1.0}
     knobs = {
-        "int8": dict(kv_cache_dtype="int8"),
-        "host_offload": dict(kv_host_offload=True,
-                             enable_prefix_caching=True),
         "speculation_draft": dict(speculation_tokens=4),
         "load_shedding": dict(enable_load_shedding=True,
                               telemetry={"slo": slo}),

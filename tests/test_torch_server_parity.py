@@ -8,6 +8,15 @@ clock moves, and requires the same outputs and finish reasons. The port's
 server must also equal the port's own one-shot ``generate`` (a prefix of
 it for a request a lifecycle action cut short) — the oracle the JAX tests
 hold the JAX server to.
+
+The KV-tiering cases (int8 pools, the host tier) are held to the JAX
+server token for token and to its ``kv_tier`` demotion and swap-in counts;
+the int8 ones are not compared with ``generate`` (its dense cache is full
+precision), and none with an fp run: chunked prefill over an int8 pool
+reads quantized prefix keys where monolithic prefill attends exact ones,
+so the two may part on a near-tie. The offload cases replay
+tests/test_kv_tiering.py:491's famine recipe (three 96-token prefixes
+through a 2-slot pool of 4 blocks a slot).
 """
 import dataclasses
 
@@ -59,7 +68,8 @@ def _engines(variant, knobs, seed=0):
               for f in dataclasses.fields(jcfg) if f.name != "dtype"}
     tcfg = tt.InferenceTransformerConfig(**fields, dtype=torch.float32)
     tp = params_from_numpy(jax.device_get(jp), "cpu", torch.float32)
-    conf = dict(dtype="float32", max_out_tokens=256, block_size=32, **knobs)
+    conf = dict(dtype="float32", max_out_tokens=256, block_size=32)
+    conf.update(knobs)
     return (JaxEngine((jcfg, jp), JaxConfig(**conf)),
             InferenceEngine((tcfg, tp), DeepSpeedInferenceConfig(**conf),
                             device="cpu"))
@@ -157,6 +167,96 @@ CASES = {
     "windowed speculation": ("windowed", {"speculation_tokens": 3}, 4,
                              _repetitive),
 }
+
+
+def _famine(srv, clock):
+    """tests/test_kv_tiering.py:491: three rotating 96-token prefixes, one
+    request at a time, through a pool too small to park all three."""
+    ids, prompts = [], []
+    for i in range(6):
+        prompts.append(FAMINE_PREFIXES[i % 3] + [7 + i, 9])
+        ids.append(srv.submit(prompts[-1], max_new_tokens=4))
+        srv.drain()
+    return ids, prompts, 4
+
+
+FAMINE_PREFIXES = [[1 + (s * 7 + i) % 120 for i in range(96)]
+                   for s in range(3)]
+OFFLOAD = {"enable_prefix_caching": True, "kv_host_offload": True,
+           "max_out_tokens": 128}
+TIER_CASES = {
+    # name: (server knobs, num_slots, scenario)
+    "int8": ({"kv_cache_dtype": "int8"}, 4, _plain),
+    "int8 chunked+prefix": ({"kv_cache_dtype": "int8",
+                             "enable_prefix_caching": True,
+                             "prefill_chunk_tokens": 32}, 2, _shared_prefix),
+    "int8 speculation-k4": ({"kv_cache_dtype": "int8",
+                             "speculation_tokens": 4}, 4, _repetitive),
+    "fp offload famine": (OFFLOAD, 2, _famine),
+    "int8 offload famine": ({**OFFLOAD, "kv_cache_dtype": "int8"}, 2,
+                            _famine),
+}
+
+
+def _serve(server_cls, eng, scenario):
+    clock = FakeClock()
+    srv = server_cls(eng, clock=clock)
+    ids, prompts, new = scenario(srv, clock)
+    out = ([srv.result(i) for i in ids], [srv.finish_reason(i) for i in ids])
+    st = srv.stats
+    srv.close()
+    return out, st, prompts, new
+
+
+@pytest.mark.parametrize("case", sorted(TIER_CASES))
+def test_tiered_server_matches_jax_server(case):
+    knobs, slots, scenario = TIER_CASES[case]
+    je, te = _engines("gpt2", {**knobs, "num_slots": slots})
+    j_out, j_st, _, _ = _serve(JaxServer, je, scenario)
+    t_out, t_st, prompts, new = _serve(ContinuousBatchingServer, te, scenario)
+    assert t_out == j_out
+    tier = ("kv_dtype", "host_offload", "demotions", "swap_ins",
+            "host_blocks", "host_dropped")
+    assert ({k: t_st["kv_tier"][k] for k in tier}
+            == {k: j_st["kv_tier"][k] for k in tier})
+    assert t_st["prefix_cache_evictions"] == j_st["prefix_cache_evictions"]
+    int8 = knobs.get("kv_cache_dtype") == "int8"
+    assert t_st["kv_tier"]["kv_dtype"] == ("int8" if int8 else "fp")
+    if "famine" in case:
+        # demotion before eviction or preemption, and swap-ins on the hits
+        assert t_st["kv_tier"]["demotions"] > 0
+        assert t_st["kv_tier"]["swap_ins"] > 0
+        assert t_st["kv_tier"]["host_bytes"] > 0
+        assert t_st["prefix_cache_evictions"] == t_st["preempted"] == 0
+    if not int8:
+        for out, p in zip(t_out[0], prompts):
+            assert out == te.generate([p], max_new_tokens=new)[0]
+    if case == "int8 offload famine":
+        # tiering is invisible to content: the same int8 server with a pool
+        # big enough that nothing demotes serves the same tokens
+        _, ge = _engines("gpt2", {**knobs, "num_slots": 4,
+                                  "max_out_tokens": 256,
+                                  "kv_host_offload": False})
+        g_out, g_st, _, _ = _serve(ContinuousBatchingServer, ge, scenario)
+        assert g_st["kv_tier"]["demotions"] == 0
+        assert g_out == t_out
+
+
+def test_int8_pool_is_smaller_and_counts_its_scales():
+    """``kv_tier.pool_bytes`` counts the int8 payload and both scale tiles:
+    int8 + f32 scales against the f32 test pool, same geometry."""
+    nbytes = {}
+    for dt in ("fp", "int8"):
+        _, te = _engines("gpt2", {"kv_cache_dtype": dt, "num_slots": 2})
+        srv = ContinuousBatchingServer(te)
+        c = srv._cache
+        nbytes[dt] = srv.stats["kv_tier"]["pool_bytes"]
+        if dt == "int8":
+            assert c.k.dtype == torch.int8 and c.quantized
+            assert nbytes[dt] == (c.k.numel() * 2 + c.k_scale.numel() * 8)
+        srv.close()
+    D = 32 // 4
+    assert nbytes["int8"] * (4 * D) == nbytes["fp"] * (D + 4)
 
 
 def _eos_case(je, srv, clock):
