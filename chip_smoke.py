@@ -11,10 +11,15 @@ before its last line:
 1. build  — compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel): flash forward, flash backward (dq,
    dk/dv), dense decode, paged decode/verify, paged chunk, block-sparse
-   attention and LayerNorm (forward, backward).
+   attention and LayerNorm (forward, backward). Prints each ptxas register
+   and spill line with its kernel's name, and fails if ptxas ignored the
+   flash forward's setmaxnreg (C7508).
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
-   GQA case (H=32, KH=8, D=128), a ragged T and a full (non-causal) case.
+   GQA case (H=32, KH=8, D=128), a ragged T, a full (non-causal) case and
+   the GPT-2 1.3B training shape (B=8, T=1024, H=16, D=128, q/k/v views of
+   one fused projection; its ms, bound and SDPA time are extra fields of
+   the kernel's row); then the wrapper's host time per call at B=1, T=128.
 3. decode — the decode-attention kernel against its plain version at
    B=8, S=1024, H=25, D=64 with seeded lengths in [1, 1024], a GQA case and
    a length-0 row.
@@ -98,6 +103,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -201,7 +208,37 @@ def _builders():
             da.CHUNK_BUILDER, bsa.BUILDER, ln.BUILDER]
 
 
+def _demangle(names):
+    """C++ names demangled by ``c++filt`` (unchanged where it is missing),
+    without the anonymous namespace and the parameter list."""
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        if len(out.splitlines()) == len(names):
+            names = out.splitlines()
+    return [re.sub(r"\(.*\)$", "",
+                   n.replace("(anonymous namespace)::", "")) for n in names]
+
+
+def ptxas_lines(log_text):
+    """Each register or spill line of a ``-Xptxas -v`` log with the entry
+    function it belongs to, demangled."""
+    entry, rows = "?", []
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            entry = m.group(1)
+        elif "registers" in line or "spill" in line:
+            rows.append((entry, line.strip()))
+    mangled = sorted({e for e, _ in rows})
+    pretty = dict(zip(mangled, _demangle(mangled)))
+    return [(pretty[e], line) for e, line in rows]
+
+
 def phase_build():
+    from deepspeed_tpu_torch.ops.flash_attention import BUILDER
     from deepspeed_tpu_torch.ops.op_builder import build_all
     t0 = time.perf_counter()
     builders = _builders()
@@ -209,9 +246,12 @@ def phase_build():
     log(f"[build] {len(builders)} kernel libraries built and loaded in "
         f"{time.perf_counter() - t0:.3f} s")
     for b in builders:
-        for line in b.ptxas_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {b.name}: {line.strip()}")
+        for entry, line in ptxas_lines(b.ptxas_log):
+            log(f"[build] {b.name}: {entry}: {line}")
+    # the flash forward's warp specialisation needs setmaxnreg honoured
+    check("C7508" not in BUILDER.ptxas_log,
+          "flash_attention_fwd: ptxas ignored setmaxnreg (C7508): "
+          + BUILDER.ptxas_log)
 
 
 def phase_flash(flush):
@@ -223,15 +263,25 @@ def phase_flash(flush):
              ("gpt2-xl T=1024", 8, 1024, 25, 25, 64, True),
              ("gqa H=32 KH=8 D=128", 2, 1024, 32, 8, 128, True),
              ("ragged T=1000", 8, 1000, 25, 25, 64, True),
-             ("full T=300", 2, 300, 25, 25, 64, False)]
-    worst, main = 0.0, None
+             ("full T=300", 2, 300, 25, 25, 64, False),
+             # the train step's shape, q/k/v views of the fused projection
+             # as models/gpt2.py makes them (strides (T 3C, 3C, D, 1))
+             ("gpt2-1.3b train T=1024", 8, 1024, 16, 16, 128, True)]
+    worst, main, train = 0.0, None, None
     for name, B, T, H, KH, D, causal in cases:
-        q = torch.randn((B, T, H, D), generator=g, device="cuda",
-                        dtype=torch.bfloat16)
-        k = torch.randn((B, T, KH, D), generator=g, device="cuda",
-                        dtype=torch.bfloat16)
-        v = torch.randn((B, T, KH, D), generator=g, device="cuda",
-                        dtype=torch.bfloat16)
+        if name.startswith("gpt2-1.3b"):
+            qkv = torch.randn((B, T, 3 * H * D), generator=g, device="cuda",
+                              dtype=torch.bfloat16)
+            q, k, v = (t.reshape(B, T, H, D)
+                       for t in qkv.split(H * D, dim=-1))
+            del qkv
+        else:
+            q = torch.randn((B, T, H, D), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            k = torch.randn((B, T, KH, D), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            v = torch.randn((B, T, KH, D), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
         o, lse = flash_attention_fwd(q, k, v, causal=causal)
         o_ref, lse_ref = flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -262,8 +312,25 @@ def phase_flash(flush):
         if name == "gpt2-xl T=1024":
             main = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                         bound_by=bound_by, library_ms=lib)
+        elif name.startswith("gpt2-1.3b"):
+            train = dict(train_shape_ms=ms, train_shape_bound_ms=bound,
+                         train_shape_library_ms=lib)
         del q, k, v, o, o_ref, lse, lse_ref
-    return dict(main, max_abs_err=worst)
+    # the wrapper's host time per call (checks, allocation, the tensor
+    # maps, the ctypes launch) at a B=1 prefill of the server, T=128
+    q = torch.randn((1, 128, 25, 64), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    for _ in range(10):
+        flash_attention_fwd(q, q, q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        flash_attention_fwd(q, q, q)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"[flash] host time per call at [1, 128, 25, 64]: {host_us!r} us "
+        f"(200 calls, no sync)")
+    return dict(main, **train, host_us=host_us, max_abs_err=worst)
 
 
 def phase_decode(flush):
@@ -1769,7 +1836,10 @@ def main() -> int:
                      "plain_ms": nums["plain_ms"],
                      "bound_ms": nums["bound_ms"],
                      "bound_by": nums["bound_by"],
-                     "library_ms": nums["library_ms"]})
+                     "library_ms": nums["library_ms"],
+                     **{k: v for k, v in nums.items() if k not in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

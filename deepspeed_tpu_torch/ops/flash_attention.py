@@ -35,7 +35,7 @@ _HEAD_DIMS = (64, 128)
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.dstt_flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_flash_attention_fwd.restype = ctypes.c_int
 
@@ -125,7 +125,8 @@ def _check_kernel_args(q, k, v):
 
 def _rows_ok(x: torch.Tensor) -> bool:
     """Contiguous head dim, 16-byte aligned rows: what the kernels'
-    16-byte loads need."""
+    16-byte loads and the forward's TMA tensor maps (base and strides
+    multiples of 16 bytes) need."""
     vec = 16 // x.element_size()
     return (x.stride(3) == 1 and not any(s % vec for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
@@ -145,11 +146,14 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         scale = 1.0 / math.sqrt(D)
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    # the counter the persistent 16-bit kernel hands its tiles out with
+    next_tile = torch.zeros(1, dtype=torch.int32, device=q.device)
     lib = BUILDER.load()
     rc = lib.dstt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B, T, H, k.shape[2], D, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], float(scale),
+        lse.data_ptr(), next_tile.data_ptr(), B, T, H, k.shape[2], D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, "flash_attention_fwd", rc)

@@ -28,16 +28,10 @@ def _qkv(B, T, H, KH, D, seed=0):
             rng.standard_normal((B, T, KH, D), np.float32))
 
 
-@pytest.mark.parametrize("causal,T,H,KH", [
-    (True, 256, 4, 4),     # causal, several q/k blocks
-    (False, 128, 4, 4),    # full attention
-    (True, 256, 4, 2),     # GQA
-    (True, 128, 4, 1),     # MQA
-])
-def test_flash_plain_matches_pallas(causal, T, H, KH):
-    B, D = 2, 32
-    q, k, v = _qkv(B, T, H, KH, D)
-    scale = 1.0 / np.sqrt(D)
+def _pallas_fwd(q, k, v, causal, scale):
+    """The Pallas forward kernel in interpret mode on [B, T, h, D] numpy
+    inputs: ``(o [B, T, H, D], lse [B, H, T])``."""
+    B, T, H, D = q.shape
 
     def to3(x):   # [B, T, h, D] -> [B*h, T, D], the kernel's layout
         return jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(-1, T, D)
@@ -45,8 +39,25 @@ def test_flash_plain_matches_pallas(causal, T, H, KH):
     o3, lse3 = jax_flash._flash_fwd(to3(q), to3(k), to3(v), scale=scale,
                                     block_q=128, block_k=128, causal=causal,
                                     interpret=True)
-    o_jax = np.swapaxes(np.asarray(o3).reshape(B, H, T, D), 1, 2)
-    lse_jax = np.asarray(lse3).reshape(B, H, T)
+    return (np.swapaxes(np.asarray(o3).reshape(B, H, T, D), 1, 2),
+            np.asarray(lse3).reshape(B, H, T))
+
+
+# the first four keep their ids from before the head dim was a parameter
+@pytest.mark.parametrize("causal,T,H,KH,D", [
+    pytest.param(True, 256, 4, 4, 32, id="True-256-4-4"),    # several blocks
+    pytest.param(False, 128, 4, 4, 32, id="False-128-4-4"),  # full attention
+    pytest.param(True, 256, 4, 2, 32, id="True-256-4-2"),    # GQA
+    pytest.param(True, 128, 4, 1, 32, id="True-128-4-1"),    # MQA
+    (True, 256, 4, 4, 128),    # the head dim of the GPT-2 1.3B preset
+    (True, 256, 4, 2, 128),    # GQA at D=128
+    (False, 128, 2, 2, 64),    # GPT-2 XL's head dim, full attention
+])
+def test_flash_plain_matches_pallas(causal, T, H, KH, D):
+    B = 2
+    q, k, v = _qkv(B, T, H, KH, D)
+    scale = 1.0 / np.sqrt(D)
+    o_jax, lse_jax = _pallas_fwd(q, k, v, causal, scale)
     o, lse = port_flash.flash_attention_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal, scale=scale)
@@ -60,6 +71,25 @@ def test_flash_plain_matches_pallas(causal, T, H, KH):
         port_flash.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                                    torch.from_numpy(v), causal).numpy(),
         np.asarray(o_pub), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("H,D", [(4, 128), (4, 64)])
+def test_flash_plain_reads_fused_qkv_views(H, D):
+    """q/k/v as strided views of one fused [B, T, 3 H D] projection, as
+    ``models/gpt2.py`` hands them over (strides (T 3C, 3C, D, 1)), against
+    the Pallas kernel in interpret mode on the same values."""
+    B, T = 2, 256
+    rng = np.random.default_rng(D)
+    qkv = rng.standard_normal((B, T, 3 * H * D), np.float32)
+    q, k, v = (t.reshape(B, T, H, D)
+               for t in torch.from_numpy(qkv).split(H * D, dim=-1))
+    assert q.stride() == (T * 3 * H * D, 3 * H * D, D, 1)
+    scale = 1.0 / np.sqrt(D)
+    o_jax, lse_jax = _pallas_fwd(*(x.contiguous().numpy() for x in (q, k, v)),
+                                 True, scale)
+    o, lse = port_flash.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    np.testing.assert_allclose(o.numpy(), o_jax, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), lse_jax, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("T", [1, 100, 130])

@@ -64,6 +64,14 @@ def _randn(g, shape, dtype):
     (False, 300, 4, 4, 64, torch.bfloat16),      # full attention
     (True, 77, 8, 2, 64, torch.float16),
     (True, 1, 4, 4, 128, torch.bfloat16),        # one token
+    # around the 128-row q tile and 128-key K/V tile
+    (True, 127, 4, 4, 64, torch.bfloat16),
+    (True, 128, 4, 4, 128, torch.bfloat16),
+    (True, 129, 4, 4, 64, torch.bfloat16),
+    (False, 257, 4, 4, 128, torch.bfloat16),
+    (True, 1024, 16, 16, 128, torch.bfloat16),   # GPT-2 1.3B training
+    (True, 300, 8, 8, 128, torch.float16),       # fp16 at D=128
+    (True, 512, 8, 2, 64, torch.bfloat16),       # GQA, KH=2
 ])
 def test_flash_kernel_matches_plain_on_card(cuda_device, causal, T, H, KH, D,
                                             dtype):
@@ -99,6 +107,22 @@ def test_flash_kernel_reads_strided_qkv(cuda_device):
                                                   k.contiguous(),
                                                   v.contiguous())
     assert (o.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_fused_projection_views(cuda_device):
+    """q/k/v as ``split`` views of one [B, T, 3 H D] projection at D=128,
+    as ``models/gpt2.py`` makes them (strides (T 3C, 3C, D, 1))."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, T, H, D = 2, 1024, 16, 128
+    qkv = _randn(g, (B, T, 3 * H * D), torch.bfloat16)
+    q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    assert q.stride() == (T * 3 * H * D, 3 * H * D, D, 1)
+    o, lse = port_flash.flash_attention_fwd(q, k, v)
+    ref, lse_ref = port_flash.flash_attention_reference(
+        q.contiguous(), k.contiguous(), v.contiguous())
+    assert (o.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
