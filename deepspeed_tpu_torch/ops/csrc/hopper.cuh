@@ -73,6 +73,24 @@ static inline bool make_tile_map(CUtensorMap* map, const void* base, long long n
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A 2-D tensor map over `rows` rows of n f32 values each (an LSE or delta
+// row per head), `stride` values apart (a multiple of 4: 16 bytes),
+// loading boxes of `box` values of one row, unswizzled. Values past n read
+// as zero. Returns false when the driver refuses it.
+static inline bool make_row_map(CUtensorMap* map, const float* base, long long n,
+                                long long rows, long long stride, int box) {
+  TensorMapEncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * 4};
+  const cuuint32_t boxes[2] = {(cuuint32_t)box, 1};
+  const cuuint32_t estride[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+                strides, boxes, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -115,6 +133,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
@@ -206,6 +232,65 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB))
   if constexpr (std::is_same<T, __nv_bfloat16>::value) DSTT_WGMMA_ASM("bf16");
   else DSTT_WGMMA_ASM("f16");
+#undef DSTT_WGMMA_ASM
+}
+
+// the same at N = 64. FRESH: the first slice of a product, D = A.B: D is
+// an output only (scale-d 0), so its old values need not stay live before
+// it (an accumulator carried across a loop otherwise holds its registers)
+template <typename T, int TA, int TB, bool FRESH = false>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+#define DSTT_WGMMA_ASM(TY, C)                                                                                    \
+  asm volatile(                                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                                    \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"                           \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"                                                                     \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),                                  \
+        C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]),                            \
+        C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]),                          \
+        C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31])                           \
+      : "l"(desc_a), "l"(desc_b), "r"(FRESH ? 0 : 1), "n"(TA), "n"(TB))
+#define DSTT_OUT(x) "=f"(x)
+#define DSTT_INOUT(x) "+f"(x)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (FRESH) DSTT_WGMMA_ASM("bf16", DSTT_OUT);
+    else DSTT_WGMMA_ASM("bf16", DSTT_INOUT);
+  } else {
+    if constexpr (FRESH) DSTT_WGMMA_ASM("f16", DSTT_OUT);
+    else DSTT_WGMMA_ASM("f16", DSTT_INOUT);
+  }
+#undef DSTT_INOUT
+#undef DSTT_OUT
+#undef DSTT_WGMMA_ASM
+}
+
+// the same at N = 32
+template <typename T, int TA, int TB, bool FRESH = false>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+#define DSTT_WGMMA_ASM(TY, C)                                                                                    \
+  asm volatile(                                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                                               \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"                                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"                                     \
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"                                                                     \
+      : C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]),                                  \
+        C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15])                             \
+      : "l"(desc_a), "l"(desc_b), "r"(FRESH ? 0 : 1), "n"(TA), "n"(TB))
+#define DSTT_OUT(x) "=f"(x)
+#define DSTT_INOUT(x) "+f"(x)
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (FRESH) DSTT_WGMMA_ASM("bf16", DSTT_OUT);
+    else DSTT_WGMMA_ASM("bf16", DSTT_INOUT);
+  } else {
+    if constexpr (FRESH) DSTT_WGMMA_ASM("f16", DSTT_OUT);
+    else DSTT_WGMMA_ASM("f16", DSTT_INOUT);
+  }
+#undef DSTT_INOUT
+#undef DSTT_OUT
 #undef DSTT_WGMMA_ASM
 }
 

@@ -41,10 +41,12 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> None:
-    # dq reads q, k, v, o and dO (15 strides), dk/dv reads no o (12)
-    for fn, n_strides in ((lib.dstt_flash_attention_bwd_dq, 15),
-                          (lib.dstt_flash_attention_bwd_dkv, 12)):
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    # dq reads q, k, v, o and dO (15 strides), dk/dv reads no o (12) and
+    # takes the distance of the lse and delta rows; each takes 8 tensors and
+    # the persistent kernel's tile counter
+    for fn, n_ints, n_strides in ((lib.dstt_flash_attention_bwd_dq, 5, 15),
+                                  (lib.dstt_flash_attention_bwd_dkv, 6, 12)):
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints
                        + [ctypes.c_longlong] * n_strides
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
@@ -125,8 +127,8 @@ def _check_kernel_args(q, k, v):
 
 def _rows_ok(x: torch.Tensor) -> bool:
     """Contiguous head dim, 16-byte aligned rows: what the kernels'
-    16-byte loads and the forward's TMA tensor maps (base and strides
-    multiples of 16 bytes) need."""
+    16-byte loads and their TMA tensor maps (base and strides multiples of
+    16 bytes) need."""
     vec = 16 // x.element_size()
     return (x.stride(3) == 1 and not any(s % vec for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
@@ -284,11 +286,13 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     B, T, H, D = q.shape
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    next_tile = torch.zeros(1, dtype=torch.int32, device=q.device)
     lib = BWD_BUILDER.load()
     rc = lib.dstt_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T,
-        H, k.shape[2], D, *_strides(q, k, v, o, do), float(scale),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        next_tile.data_ptr(), B, T, H, k.shape[2], D,
+        *_strides(q, k, v, o, do), float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, "flash_attention_bwd_dq", rc)
@@ -316,13 +320,21 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
                          f"{tuple(delta.shape)} {delta.dtype}")
     B, T, H, D = q.shape
     KH = k.shape[2]
+    # the 16-bit kernel reads lse and delta rows by TMA, whose rows start
+    # on 16 bytes: a ragged T gets rows padded to a multiple of 4
+    ld = T if q.dtype == torch.float32 else -(-T // 4) * 4
+    if ld != T:
+        pad = torch.nn.functional.pad
+        lse, delta = pad(lse, (0, ld - T)), pad(delta, (0, ld - T))
     dk = torch.empty((B, T, KH, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, T, KH, D), dtype=v.dtype, device=q.device)
+    next_tile = torch.zeros(1, dtype=torch.int32, device=q.device)
     lib = BWD_BUILDER.load()
     rc = lib.dstt_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T,
-        H, KH, D, *_strides(q, k, v, do), float(scale),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        next_tile.data_ptr(), B, T, H, KH, D, ld, *_strides(q, k, v, do),
+        float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, "flash_attention_bwd_dkv", rc)

@@ -234,6 +234,18 @@ BWD_CASES = [
     (2, 77, 8, 2, 64, torch.float16, True, False),
     (1, 130, 4, 4, 128, torch.float32, True, False),
     (1, 1, 4, 4, 64, torch.bfloat16, True, False),         # one token
+    # around the Hopper kernels' tiles: 64-row boxes, 128-row blocks
+    (1, 63, 4, 4, 128, torch.bfloat16, True, False),
+    (1, 64, 4, 4, 128, torch.bfloat16, True, False),
+    (1, 65, 4, 4, 128, torch.bfloat16, True, False),
+    (1, 127, 4, 4, 128, torch.bfloat16, True, False),
+    (1, 128, 4, 4, 128, torch.bfloat16, True, False),
+    (1, 129, 4, 4, 128, torch.bfloat16, True, False),
+    (2, 257, 4, 4, 128, torch.bfloat16, True, False),
+    (1, 129, 4, 2, 128, torch.bfloat16, False, False),    # ragged, full
+    (2, 256, 8, 8, 128, torch.float16, True, True),       # fp16, strided
+    (1, 512, 16, 4, 128, torch.bfloat16, True, False),    # GQA, rep 4
+    (2, 256, 8, 1, 64, torch.bfloat16, True, False),      # MQA
 ]
 
 
@@ -260,6 +272,25 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, B, T, H, KH, D,
         elem, tile_l2 = _bwd_errors(a, r, atol, rtol)
         assert elem <= 1.0 and tile_l2 <= l2, (name, elem, tile_l2,
                                                _rel(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH,D", [(16, 16, 128), (16, 4, 128), (8, 8, 64)])
+def test_flash_bwd_kernels_are_bit_stable_on_card(cuda_device, H, KH, D):
+    """B2 and B3 take no atomics across blocks (the GQA group sum stays in
+    the block that owns the key tile): two runs on the same inputs give the
+    same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, o, lse, do = _bwd_case(g, 2, 1000, H, KH, D, torch.bfloat16,
+                                    True, H == KH)
+    runs = []
+    for _ in range(2):
+        dq, delta = port_flash.flash_attention_bwd_dq(q, k, v, o, lse, do)
+        dk, dv = port_flash.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "delta", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

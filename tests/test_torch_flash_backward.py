@@ -40,41 +40,76 @@ def _from3(x, B, h):
     return np.swapaxes(np.asarray(x).reshape(B, h, T, D), 1, 2)
 
 
-@pytest.mark.parametrize("causal,H,KH", [
-    (True, 4, 4),     # MHA
-    (False, 4, 4),    # full attention
-    (True, 4, 2),     # GQA
-    (True, 4, 1),     # MQA
-    (False, 4, 2),
-])
-def test_bwd_plain_matches_pallas(causal, H, KH):
-    B, T, D = 2, 256, 32
-    q, k, v, do = _inputs(B, T, H, KH, D, seed=H + KH + causal)
-    scale = 1.0 / np.sqrt(D)
+def _pallas_bwd(q, k, v, do, causal, scale):
+    """The Pallas forward and backward kernels in interpret mode on
+    [B, T, h, D] numpy inputs: ``(o, lse [B, H, T], dq, dk, dv)`` as torch
+    tensors in the port's layout."""
+    B, T, H, _ = q.shape
+    KH = k.shape[2]
     o3, lse3 = jax_flash._flash_fwd(_to3(q), _to3(k), _to3(v), scale=scale,
                                     block_q=128, block_k=128, causal=causal,
                                     interpret=True)
     dq3, dk3, dv3 = jax_flash._flash_bwd(
         _to3(q), _to3(k), _to3(v), o3, lse3, _to3(do), scale=scale,
         block_q=128, block_k=128, causal=causal, interpret=True)
-    o = torch.from_numpy(_from3(o3, B, H).copy())
-    lse = torch.from_numpy(np.asarray(lse3).reshape(B, H, T).copy())
+    return (torch.from_numpy(_from3(o3, B, H).copy()),
+            torch.from_numpy(np.asarray(lse3).reshape(B, H, T).copy()),
+            _from3(dq3, B, H), _from3(dk3, B, KH), _from3(dv3, B, KH))
+
+
+# the first five keep their ids from before the head dim was a parameter
+@pytest.mark.parametrize("causal,H,KH,D", [
+    pytest.param(True, 4, 4, 32, id="True-4-4"),     # MHA
+    pytest.param(False, 4, 4, 32, id="False-4-4"),   # full attention
+    pytest.param(True, 4, 2, 32, id="True-4-2"),     # GQA
+    pytest.param(True, 4, 1, 32, id="True-4-1"),     # MQA
+    pytest.param(False, 4, 2, 32, id="False-4-2"),
+    (True, 4, 4, 128),    # the head dim of the GPT-2 1.3B preset
+    (True, 4, 1, 128),    # MQA at D=128
+    (True, 4, 2, 64),     # GPT-2 XL's head dim, GQA
+    (False, 2, 2, 64),
+])
+def test_bwd_plain_matches_pallas(causal, H, KH, D):
+    B, T = 2, 256
+    q, k, v, do = _inputs(B, T, H, KH, D, seed=H + KH + causal + D)
+    scale = 1.0 / np.sqrt(D)
+    o, lse, dq3, dk3, dv3 = _pallas_bwd(q, k, v, do, causal, scale)
     t = [torch.from_numpy(x) for x in (q, k, v)]
     dq, dk, dv = port_flash.flash_attention_bwd(*t, o, lse,
                                                 torch.from_numpy(do), causal,
                                                 scale)
-    np.testing.assert_allclose(dq.numpy(), _from3(dq3, B, H), rtol=TOL,
-                               atol=TOL)
-    np.testing.assert_allclose(dk.numpy(), _from3(dk3, B, KH), rtol=TOL,
-                               atol=TOL)
-    np.testing.assert_allclose(dv.numpy(), _from3(dv3, B, KH), rtol=TOL,
-                               atol=TOL)
+    np.testing.assert_allclose(dq.numpy(), dq3, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dk.numpy(), dk3, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dv.numpy(), dv3, rtol=TOL, atol=TOL)
     # the reference the chip holds the kernels to is the same function
     ref = port_flash.flash_attention_bwd_reference(*t, o, lse,
                                                    torch.from_numpy(do),
                                                    causal, scale)
     for a, b in zip((dq, dk, dv), ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("H,D", [(4, 64), (2, 128)])
+def test_bwd_plain_reads_fused_qkv_views(H, D):
+    """q/k/v as strided views of one fused [B, T, 3 H D] projection, as
+    ``models/gpt2.py`` hands them over (strides (T 3C, 3C, D, 1)), and dO
+    and o as the forward makes them: B2 + B3 against the Pallas backward in
+    interpret mode on the same values."""
+    B, T = 2, 256
+    rng = np.random.default_rng(D + 1)
+    qkv = rng.standard_normal((B, T, 3 * H * D), np.float32)
+    do = rng.standard_normal((B, T, H, D), np.float32)
+    q, k, v = (x.reshape(B, T, H, D)
+               for x in torch.from_numpy(qkv).split(H * D, dim=-1))
+    assert q.stride() == (T * 3 * H * D, 3 * H * D, D, 1)
+    scale = 1.0 / np.sqrt(D)
+    o, lse, dq3, dk3, dv3 = _pallas_bwd(
+        *(x.contiguous().numpy() for x in (q, k, v)), do, True, scale)
+    dq, dk, dv = port_flash.flash_attention_bwd(q, k, v, o, lse,
+                                                torch.from_numpy(do), True,
+                                                scale)
+    for a, b in ((dq, dq3), (dk, dk3), (dv, dv3)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("KH", [4, 2])
