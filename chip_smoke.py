@@ -13,8 +13,9 @@ before its last line:
    dk/dv), dense decode, paged decode/verify, paged chunk, block-sparse
    attention and LayerNorm (forward, backward). Prints each ptxas register
    and spill line with its kernel's name, and fails if ptxas ignored the
-   flash forward's or backward's setmaxnreg (C7508) or a 16-bit flash
-   backward kernel spills.
+   flash forward's or backward's setmaxnreg (C7508) or a 16-bit entry of
+   the flash backward, of B9's persistent kernel or of B5/B5i's split
+   kernel spills.
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T, a full (non-causal) case and
@@ -31,7 +32,10 @@ before its last line:
    point dead entries at the null block. Then their int8 variants (B5i,
    B6i, B7i) at the same shapes over int8 pools quantized per (position,
    head) row from seeded K/V (scales vary per row), with bf16, fp16 and
-   f32 queries and a slot of length 0.
+   f32 queries and a slot of length 0. B5 and B5i must give the same bits
+   on a second call; each row carries its GQA case's time, bound and
+   library time (``gqa_*``), and B5's the wrapper's host time per call at
+   S=8 (``host_us``).
 5. flash_bwd — the flash backward kernels (B2 dq, B3 dk/dv) against their
    plain PyTorch versions: bf16 at the GPT-2 1.3B training shape (B=8,
    T=1024, H=16, D=128, causal, q/k/v as strided views of one fused
@@ -51,7 +55,7 @@ before its last line:
 7. layer_norm — the LayerNorm kernels (B9 forward, B10 backward) against
    their plain versions at the GPT-2 1.3B training shape (x [8, 1024,
    2048] bf16, f32 weights), GPT-2 XL width, a ragged R, fp16 and fp32;
-   B10 twice on the same inputs must give the same bits.
+   B9 and B10 twice on the same inputs must give the same bits.
 8. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
    width (48 layers, n_embd 1600, 25 heads, bf16, random weights from a
    seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy.
@@ -240,7 +244,18 @@ def ptxas_lines(log_text):
     return [(pretty[e], line) for e, line in rows]
 
 
+def _spills(builder, entry):
+    """The ptxas lines of ``builder`` that report a spill in an entry whose
+    demangled name matches the regular expression ``entry``."""
+    return [(e, line) for e, line in ptxas_lines(builder.ptxas_log)
+            if re.search(entry, e) and "spill" in line
+            and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                              line)]
+
+
 def phase_build():
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    from deepspeed_tpu_torch.ops import layer_norm as ln
     from deepspeed_tpu_torch.ops.flash_attention import BUILDER, BWD_BUILDER
     from deepspeed_tpu_torch.ops.op_builder import build_all
     t0 = time.perf_counter()
@@ -256,11 +271,15 @@ def phase_build():
         check("C7508" not in b.ptxas_log,
               f"{b.name}: ptxas ignored setmaxnreg (C7508): " + b.ptxas_log)
     # and the 16-bit backward kernels fit their setmaxnreg budgets
-    spills = [(e, line) for e, line in ptxas_lines(BWD_BUILDER.ptxas_log)
-              if "wgmma" in e and "spill" in line
-              and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
-                                line)]
+    spills = _spills(BWD_BUILDER, "wgmma")
     check(not spills, f"flash_attention_bwd: 16-bit kernels spill: {spills}")
+    # no entry of B9's persistent kernel or of B5/B5i's split kernel over
+    # 16-bit queries spills
+    for b, kernel in ((ln.BUILDER, "ln_fwd_ring_kernel"),
+                      (da.PAGED_BUILDER, "paged_split_kernel")):
+        spills = _spills(b, rf"\b{kernel}<(__nv_bfloat16|__half),")
+        check(not spills, f"{b.name}: 16-bit {kernel} entries spill: "
+              f"{spills}")
 
 
 def phase_flash(flush):
@@ -457,11 +476,13 @@ def phase_paged(flush):
         lens = torch.as_tensor(lens_np, device="cuda")
         q = rnd(S, H, D)
         args = (q, kp, vp, tables, lens)
-        err = (da.paged_decode_attention(*args).float()
-               - da.paged_decode_attention_reference(*args).float()
+        o = da.paged_decode_attention(*args)
+        err = (o.float() - da.paged_decode_attention_reference(*args).float()
                ).abs().max().item()
         check(math.isfinite(err) and err <= DECODE_TOL,
               f"paged decode {name}: max err {err} > {DECODE_TOL}")
+        check(torch.equal(o, da.paged_decode_attention(*args)),
+              f"paged decode {name}: other bits on the same inputs")
         live = int(lens_np.sum())
         bound, by = _bound(2 * 2 * live * KH * D + 2 * 2 * S * H * D
                            + 4 * S * (MB + 1), 4 * live * H * D,
@@ -478,7 +499,8 @@ def phase_paged(flush):
                 50, flush),
             bound_ms=bound, bound_by=by, max_abs_err=err)
         log(f"[paged] decode {name}: lengths sum {live}, max|o err| {err!r} "
-            f"(tol {DECODE_TOL}); kernel {rec['ms']!r} ms, plain "
+            f"(tol {DECODE_TOL}), bit-identical twice; kernel "
+            f"{rec['ms']!r} ms, plain "
             f"{rec['plain_ms']!r} ms, sdpa over the cache already gathered "
             f"{rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
         out.setdefault("paged_decode_attention", []).append((name, rec))
@@ -612,6 +634,9 @@ def phase_paged(flush):
         # timed in bf16, at the fp cases' shapes: B5i
         q = rnd(S, H, D)
         args = (q, kq, vq, tables, lens, ks, vs)
+        check(torch.equal(da.paged_decode_attention_int8(*args),
+                          da.paged_decode_attention_int8(*args)),
+              f"paged decode int8 {name}: other bits on the same inputs")
         live = int(lens_np.sum())
         bound, by = _bound((2 * D + 8) * live * KH + 2 * 2 * S * H * D
                            + 4 * S * (MB + 1), 4 * live * H * D,
@@ -631,7 +656,8 @@ def phase_paged(flush):
             max_abs_err=max(errs["paged_decode_attention_int8"]))
         log(f"[paged] decode int8 {name}: lengths sum {live} (one slot 0), "
             f"max|o err| bf16/fp16/f32 {errs['paged_decode_attention_int8']!r}"
-            f" (tol {DECODE_TOL}, f32 1e-4); kernel {rec['ms']!r} ms, plain "
+            f" (tol {DECODE_TOL}, f32 1e-4), bf16 bit-identical twice; "
+            f"kernel {rec['ms']!r} ms, plain "
             f"{rec['plain_ms']!r} ms, sdpa over the cache already gathered "
             f"and dequantized {rec['library_ms']!r} ms, bound {bound!r} ms "
             f"({by})")
@@ -694,17 +720,39 @@ def phase_paged(flush):
             f"sdpa over the cache already gathered and dequantized "
             f"{rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
         out.setdefault("paged_verify_attention_int8", []).append((name, rec))
-    # the row of each kernel: its GPT-2 XL case (B6 at start 256), with the
-    # worst error over all cases
-    main = {"paged_decode_attention": "gpt2-xl",
-            "paged_chunk_attention": "gpt2-xl start=256",
-            "paged_verify_attention": "gpt2-xl",
-            "paged_decode_attention_int8": "gpt2-xl",
-            "paged_chunk_attention_int8": "gpt2-xl start=256",
-            "paged_verify_attention_int8": "gpt2-xl"}
-    return {k: dict(dict(v)[main[k]],
-                    max_abs_err=max(r["max_abs_err"] for _, r in v))
-            for k, v in out.items()}
+    # the row of each kernel: its GPT-2 XL case (B6 at start 256), the GQA
+    # case's time, bound and library time beside it, and the worst error
+    # over all cases
+    rows = {}
+    for k, v in out.items():
+        at = "start=256" if "chunk" in k else ""
+        case = dict(v)
+        main = case[f"gpt2-xl {at}".strip()]
+        gqa = case[f"gqa H=32 KH=8 D=128 {at}".strip()]
+        rows[k] = dict(main, max_abs_err=max(r["max_abs_err"] for _, r in v),
+                       **{f"gqa_{f}": gqa[f] for f in ("ms", "bound_ms",
+                                                        "library_ms")})
+    # the decode wrapper's host time per call (checks, the split plan and
+    # its scratch, the ctypes launch) at the server's S=8, GPT-2 XL heads
+    kp = torch.randn((NB, BS, 25, 64), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    q = torch.randn((S, 25, 64), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    tables = torch.arange(1, S * MB + 1, dtype=torch.int32,
+                          device="cuda").reshape(S, MB)
+    lens = torch.full((S,), 500, dtype=torch.int32, device="cuda")
+    for _ in range(10):
+        da.paged_decode_attention(q, kp, kp, tables, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        da.paged_decode_attention(q, kp, kp, tables, lens)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"[paged] decode host time per call at S={S}, [NB, {BS}, 25, 64]: "
+        f"{host_us!r} us (200 calls, no sync)")
+    rows["paged_decode_attention"]["host_us"] = host_us
+    return rows
 
 
 def bwd_error(a, r, atol, rtol, l2):
@@ -1056,6 +1104,7 @@ def phase_layer_norm(flush):
         x2, go2 = x.reshape(-1, N), go.reshape(-1, N)
         R = x2.shape[0]
         o, mean, rstd = ln.layer_norm_fwd(x2, w, b)
+        o_, mean_, rstd_ = ln.layer_norm_fwd(x2, w, b)
         dx, dw, db = ln.layer_norm_bwd(x2, w, mean, rstd, go2)
         dx_, dw_, db_ = ln.layer_norm_bwd(x2, w, mean, rstd, go2)
         ro, rmean, rrstd = ln.layer_norm_fwd_reference(x2, w, b, 1e-5)
@@ -1078,6 +1127,9 @@ def phase_layer_norm(flush):
         check(torch.equal(dx, dx_) and torch.equal(dw, dw_)
               and torch.equal(db, db_),
               f"layer_norm {name}: B10 gave other bits on the same inputs")
+        check(torch.equal(o, o_) and torch.equal(mean, mean_)
+              and torch.equal(rstd, rstd_),
+              f"layer_norm {name}: B9 gave other bits on the same inputs")
         worst["layer_norm_fwd"] = max(worst["layer_norm_fwd"], err_o)
         worst["layer_norm_bwd"] = max(worst["layer_norm_bwd"], err_dx)
         esz = x.element_size()
@@ -1091,8 +1143,8 @@ def phase_layer_norm(flush):
         msg = (f"[layer_norm] {name}: x {list(shape)} "
                f"{str(dt).replace('torch.', '')}, f32 weights; max|o err| "
                f"{err_o!r}, max|dx err| {err_dx!r} (limits {tol}), mean/rstd "
-               f"relative {stat:.2e}, dw/db relative L2 {sums:.2e}, B10 "
-               f"bit-identical twice; B9 {ms_f!r} ms (bound {b_f[0]!r} "
+               f"relative {stat:.2e}, dw/db relative L2 {sums:.2e}, B9 and "
+               f"B10 bit-identical twice; B9 {ms_f!r} ms (bound {b_f[0]!r} "
                f"{b_f[1]}, {(2 * R * N * esz) / ms_f / 1e6:.1f} GB/s), B10 "
                f"{ms_b!r} ms (bound {b_b[0]!r} {b_b[1]}, "
                f"{(3 * R * N * esz) / ms_b / 1e6:.1f} GB/s)")
@@ -1120,7 +1172,7 @@ def phase_layer_norm(flush):
                     f"F.layer_norm {lib_f!r} ms, native_layer_norm_backward "
                     f"{lib_b!r} ms")
         log(msg)
-        del x, go, x2, go2, o, dx, dx_, ro, rdx
+        del x, go, x2, go2, o, o_, dx, dx_, ro, rdx
     for k in rows:
         rows[k]["max_abs_err"] = worst[k]
     return rows

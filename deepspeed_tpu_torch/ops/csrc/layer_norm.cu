@@ -15,12 +15,30 @@
 // ~101 MB, ~0.020 ms and ~0.030 ms at 3.35 TB/s.
 //
 // Design:
-//  * B9: one warp per row, any N >= 1. 16-byte loads and stores where the
-//    row allows them (N a multiple of 16 bytes, 16-byte aligned pointers),
-//    scalar otherwise. x is read from device memory once: the first pass
-//    keeps the row in shared memory (in x's dtype) for the variance and
-//    output passes, unless 4 rows of N no longer fit, where those passes
-//    read it again (from L2).
+//  * B9: one warp per row. Rows of 16-byte chunks (N a multiple of 16
+//    bytes, 16-byte aligned pointers) of at most 8 KB (bf16/fp16 N <= 4096,
+//    f32 N <= 2048) take a persistent kernel that keeps a steady stream of
+//    loads in flight:
+//    - a grid of as many 8-warp blocks as fit on the card at once, each
+//      warp taking rows warp, warp + W, ... (W the grid's warps; a static
+//      stride, no tile counter);
+//    - each warp streams its rows through a ring of 3 row slots in shared
+//      memory by 16-byte cp.async, two rows ahead of the one it reduces;
+//      each lane copies and later reads only its own chunks (CPL 16-byte
+//      chunks a lane, a template parameter: 1, 2, 4, 8 or 16), so the ring
+//      needs no barrier;
+//    - the row under work lives in registers at 16 bits; the two-pass
+//      variance reads the registers, not memory;
+//    - w and b are staged once per block in shared memory as f32, in
+//      float4 planes by chunk (plane p of chunk c holds elements 8c+4p ..
+//      8c+4p+3 at 16-bit x), so each lane reads them as float4s without
+//      bank conflicts;
+//    - o is written with streaming stores (st.global.cs): nothing reads it
+//      back in this kernel.
+//    Other rows (scalar, or wider) take a warp per row with the row kept
+//    in shared memory (in x's dtype) for the variance and output passes,
+//    unless 4 rows of N no longer fit, where those passes read it again
+//    (from L2). Both give each row the same f32 sums in the same order.
 //  * B10: the TPU kernel sums dw and db over row blocks on its sequential
 //    grid with a VMEM carry; blocks on the card run in no order, so it takes
 //    two stages, deterministic, without atomics:
@@ -36,6 +54,8 @@
 //
 // C interface (nvcc -shared, loaded with ctypes): each launch returns
 // cudaGetLastError() so the Python wrapper can raise.
+
+#include <algorithm>
 
 #include "attention_common.cuh"
 
@@ -58,6 +78,200 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 constexpr int FWD_WARPS = 4;
 constexpr size_t FWD_MAX_SMEM = 160 * 1024;   // rows cached in shared memory
+constexpr int ROW_WARPS = 8;     // persistent kernel: warps a block
+constexpr int ROW_MAX_CPL = 16;  // 16-byte chunks a lane: rows of <= 8 KB
+
+// SMs of the current device, read once per device
+inline int sm_count() {
+  static int cache[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (!cache[dev]) cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cache[dev];
+}
+
+// Elements 2k and 2k+1 of a 16-byte chunk as f32. `dep`, a value the
+// pass depends on anyway, keeps the compiler from merging one pass's
+// conversions with another's: each pass widens the 16-bit words again, so
+// the row stays in registers at 16 bits (half the registers) between
+// passes instead of as f32 copies.
+template <typename T>
+__device__ __forceinline__ float2 pair(const uint4& c, int k, float dep);
+template <>
+__device__ __forceinline__ float2 pair<float>(const uint4& c, int k, float) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+  return make_float2(__uint_as_float(w[2 * k]), __uint_as_float(w[2 * k + 1]));
+}
+template <>
+__device__ __forceinline__ float2 pair<__nv_bfloat16>(const uint4& c, int k, float dep) {
+  const uint32_t w = k == 0 ? c.x : k == 1 ? c.y : k == 2 ? c.z : c.w;
+  float lo, hi;   // a bf16 is the high half of an f32
+  asm("{\n\t shl.b32 %0, %2, 16;\n\t and.b32 %1, %2, 0xffff0000;\n\t}"
+      : "=f"(lo), "=f"(hi) : "r"(w), "f"(dep));
+  return make_float2(lo, hi);
+}
+template <>
+__device__ __forceinline__ float2 pair<__half>(const uint4& c, int k, float dep) {
+  const uint32_t w = k == 0 ? c.x : k == 1 ? c.y : k == 2 ? c.z : c.w;
+  float lo, hi;
+  asm("{\n\t .reg .b16 l, h;\n\t mov.b32 {l, h}, %2;\n\t cvt.f32.f16 %0, l;\n\t"
+      " cvt.f32.f16 %1, h;\n\t}"
+      : "=f"(lo), "=f"(hi) : "r"(w), "f"(dep));
+  return make_float2(lo, hi);
+}
+
+// a 16-byte store marked evict-first: the output is not read again here
+__device__ __forceinline__ void store_streaming(void* dst, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1,%2,%3,%4};"
+               :: "l"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// mean and rstd of one row held as CPL 16-byte chunks a lane, then its
+// output from the staged w and b planes; the same f32 sums, in the same
+// order, as ln_fwd_row
+template <typename T, int CPL>
+__device__ __forceinline__ void ln_fwd_ring_row(const uint4 (&v)[CPL],
+                                                const float4* wb, int chunks,
+                                                T* __restrict__ orow, int N,
+                                                float eps, int lane,
+                                                float* mean_out, float* rstd_out) {
+  constexpr int V = 16 / sizeof(T), P = V / 4;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+    if (lane + 32 * i < chunks) {
+#pragma unroll
+      for (int k = 0; k < V / 2; ++k) {
+        const float2 f = pair<T>(v[i], k, 0.f);
+        s += f.x;
+        s += f.y;
+      }
+    }
+  const float mu = warp_sum(s) / N;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+    if (lane + 32 * i < chunks) {
+#pragma unroll
+      for (int k = 0; k < V / 2; ++k) {
+        const float2 f = pair<T>(v[i], k, mu);
+        ss += (f.x - mu) * (f.x - mu);
+        ss += (f.y - mu) * (f.y - mu);
+      }
+    }
+  const float rs = rsqrtf(warp_sum(ss) / N + eps);
+  Pack<T, V>* dst = reinterpret_cast<Pack<T, V>*>(orow);
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= chunks) continue;
+    Pack<T, V> out;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float4 wv = wb[p * chunks + c], bv = wb[(P + p) * chunks + c];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float2 f = pair<T>(v[i], 2 * p + k, rs);
+        const int e = 4 * p + 2 * k;
+        out.e[e] = from_float<T>((f.x - mu) * rs * lane_of(wv, 2 * k) + lane_of(bv, 2 * k));
+        out.e[e + 1] = from_float<T>((f.y - mu) * rs * lane_of(wv, 2 * k + 1) + lane_of(bv, 2 * k + 1));
+      }
+    }
+    store_streaming(dst + c, *reinterpret_cast<const uint4*>(&out));
+  }
+  if (lane == 0) {
+    *mean_out = mu;
+    *rstd_out = rs;
+  }
+}
+
+// the persistent kernel: rows of N / V 16-byte chunks, at most 32 * CPL.
+// Each warp streams its rows through a ring of ROW_DEPTH row slots in
+// shared memory by 16-byte cp.async, ROW_DEPTH - 1 rows ahead; each lane
+// copies and later reads only its own chunks, so the ring needs no barrier.
+constexpr int ROW_DEPTH = 3;
+
+template <typename T, int CPL>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+ln_fwd_ring_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ b, T* __restrict__ o,
+                   float* __restrict__ mean, float* __restrict__ rstd, int R,
+                   int N, float eps) {
+  constexpr int V = 16 / sizeof(T), P = V / 4;
+  extern __shared__ float4 wb[];   // [2][P][chunks]: w's planes, then b's;
+  const int chunks = N / V, lane = threadIdx.x % 32;   // then the rings
+  uint4* ring = reinterpret_cast<uint4*>(wb + 2 * P * chunks) +
+                (threadIdx.x / 32) * ROW_DEPTH * CPL * 32;
+  const long long stride = (long long)gridDim.x * ROW_WARPS;
+  const long long r0 = (long long)blockIdx.x * ROW_WARPS + threadIdx.x / 32;
+
+  auto issue = [&](long long row, int slot) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + row * N);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      if (lane + 32 * i < chunks)
+        cp_async16(ring + slot * CPL * 32 + lane + 32 * i, src + lane + 32 * i, true);
+  };
+#pragma unroll
+  for (int d = 0; d < ROW_DEPTH - 1; ++d) {   // in flight while w and b are staged
+    if (r0 + d * stride < R) issue(r0 + d * stride, d);
+    cp_async_commit();
+  }
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int col = i * V + 4 * p;
+      wb[p * chunks + i] = make_float4(__ldg(w + col), __ldg(w + col + 1),
+                                       __ldg(w + col + 2), __ldg(w + col + 3));
+      wb[(P + p) * chunks + i] = make_float4(__ldg(b + col), __ldg(b + col + 1),
+                                             __ldg(b + col + 2), __ldg(b + col + 3));
+    }
+  }
+  __syncthreads();   // the only block-wide barrier
+  int slot = 0;
+  for (long long r = r0; r < R; r += stride) {
+    const long long ahead = r + (ROW_DEPTH - 1) * stride;
+    if (ahead < R) issue(ahead, (slot + ROW_DEPTH - 1) % ROW_DEPTH);
+    cp_async_commit();
+    cp_async_wait<ROW_DEPTH - 1>();   // this lane's copies of row r landed
+    uint4 v[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+      if (lane + 32 * i < chunks) v[i] = ring[slot * CPL * 32 + lane + 32 * i];
+    ln_fwd_ring_row<T, CPL>(v, wb, chunks, o + r * N, N, eps, lane, mean + r, rstd + r);
+    slot = slot + 1 == ROW_DEPTH ? 0 : slot + 1;
+  }
+}
+
+template <typename T, int CPL>
+cudaError_t launch_fwd_ring(const void* x, const float* w, const float* b,
+                            void* o, float* mean, float* rstd, int R, int N,
+                            float eps, cudaStream_t s) {
+  const size_t smem = 2 * (size_t)N * sizeof(float) +
+                      (size_t)ROW_WARPS * ROW_DEPTH * CPL * 32 * 16;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ln_fwd_ring_kernel<T, CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (attr != cudaSuccess) return attr;
+  // blocks that fit on an SM, for this instantiation and the last smem size
+  static size_t last_smem = 0;
+  static int per_sm = 0;
+  if (smem != last_smem || per_sm == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ln_fwd_ring_kernel<T, CPL>, ROW_WARPS * 32, smem);
+    if (e != cudaSuccess) return e;
+    last_smem = smem;
+  }
+  const long long want = ((long long)R + ROW_WARPS - 1) / ROW_WARPS;
+  const int grid = (int)std::min<long long>(want, (long long)std::max(per_sm, 1) * sm_count());
+  if (grid <= 0) return cudaErrorInvalidValue;
+  ln_fwd_ring_kernel<T, CPL><<<grid, ROW_WARPS * 32, smem, s>>>(
+      static_cast<const T*>(x), w, b, static_cast<T*>(o), mean, rstd, R, N, eps);
+  return cudaGetLastError();
+}
 
 // Visit row `src` in chunks of VEC elements per lane: f(col, v) for each
 // element value v (as float) of column col. VEC = 1 is the scalar path.
@@ -126,10 +340,20 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     ln_fwd_row<T, 1>(x + r * N, row_cache, w, b, o + r * N, N, eps, lane, mean + r, rstd + r);
 }
 
+// rows of at most 32 * ROW_MAX_CPL 16-byte chunks take the persistent
+// kernel, the rest ln_fwd_kernel
 template <typename T>
 cudaError_t launch_fwd(const void* x, const float* w, const float* b, void* o,
                        float* mean, float* rstd, int R, int N, float eps,
                        int vec, cudaStream_t s) {
+  const int per_lane = (N / (16 / (int)sizeof(T)) + 31) / 32;
+  if (vec && per_lane <= ROW_MAX_CPL) {
+    if (per_lane <= 1) return launch_fwd_ring<T, 1>(x, w, b, o, mean, rstd, R, N, eps, s);
+    if (per_lane <= 2) return launch_fwd_ring<T, 2>(x, w, b, o, mean, rstd, R, N, eps, s);
+    if (per_lane <= 4) return launch_fwd_ring<T, 4>(x, w, b, o, mean, rstd, R, N, eps, s);
+    if (per_lane <= 8) return launch_fwd_ring<T, 8>(x, w, b, o, mean, rstd, R, N, eps, s);
+    return launch_fwd_ring<T, 16>(x, w, b, o, mean, rstd, R, N, eps, s);
+  }
   const size_t rows_bytes = (size_t)FWD_WARPS * N * sizeof(T);
   const int cache = rows_bytes <= FWD_MAX_SMEM;
   const size_t smem = cache ? rows_bytes : 0;

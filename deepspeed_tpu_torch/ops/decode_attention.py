@@ -35,12 +35,14 @@ ones.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
+from deepspeed_tpu_torch.ops.op_builder import (CUDAOpBuilder, check_launch,
+                                               sm_count)
 from deepspeed_tpu_torch.ops.quant_core import dequantize_int8
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -183,7 +185,7 @@ decode_attention.launches = 0
 
 def _bind_paged(lib: ctypes.CDLL) -> None:
     lib.dstt_paged_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 11
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 11
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_decode_attention.restype = ctypes.c_int
     lib.dstt_paged_verify_attention.argtypes = (
@@ -191,7 +193,7 @@ def _bind_paged(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_verify_attention.restype = ctypes.c_int
     lib.dstt_paged_decode_attention_int8.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 15
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 15
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_decode_attention_int8.restype = ctypes.c_int
     lib.dstt_paged_verify_attention_int8.argtypes = (
@@ -213,6 +215,59 @@ def _bind_chunk(lib: ctypes.CDLL) -> None:
 
 PAGED_BUILDER = CUDAOpBuilder("paged_attention", _bind_paged)
 CHUNK_BUILDER = CUDAOpBuilder("paged_chunk_attention", _bind_chunk)
+
+_MAX_SPLITS = 16   # the kernel merges at most 16 partials a unit
+
+
+@functools.lru_cache(maxsize=None)
+def paged_split_plan(span: int, units: int, sms: int) -> Tuple[int, int]:
+    """How the paged decode kernel (``paged_attention.cu``) cuts the key
+    range ``[0, span)`` (span = MB * BS) of each of its ``units`` (slot,
+    kv head, row group) triples among blocks: ``(splits, chunk)``, split
+    ``i`` taking keys ``[i * chunk, min((i + 1) * chunk, span))``.
+
+    A split takes 128 keys when the units alone do not fill the SMs, else
+    256 (a split's fixed cost, its query rows and its merge, is paid per
+    block); more only past 16 splits. The chunk does not depend on the
+    span below that, so two servers of one model whose pools differ in
+    blocks a slot sum each key in the same place and give the same bits.
+    Static sizes only: lengths stay on the device, and a split past a
+    slot's length loads nothing."""
+    chunk = 128 if units < sms else 256
+    if span > _MAX_SPLITS * chunk:
+        chunk = -(-span // (_MAX_SPLITS * 128)) * 128
+    return -(-span // chunk), chunk
+
+
+def paged_row_groups(nrows: int) -> int:
+    """Blocks a (slot, kv head) takes for its ``nrows`` = H / KH query
+    rows: up to 8 rows a block, as ``paged_attention.cu`` groups them."""
+    return -(-nrows // 8)
+
+
+_SPLITS = {}   # (stream, S, KH, R, span, D) -> launch args
+
+
+def _split_args(q, stream, S, KH, MB, BS):
+    """The plan of a paged decode launch and its scratch, as the C
+    interface takes them: ``(tickets, partials, splits, chunk)``, kept per
+    (device, stream) and shape, so a call pays one dict lookup. The
+    tickets start at zero and the kernel leaves them so; the partials live
+    only within a launch, and launches on one stream run in order."""
+    R, D = q.shape[1] // KH, q.shape[-1]
+    key = (stream, S, KH, R, MB * BS, D)   # a stream is on one device
+    hit = _SPLITS.get(key)
+    if hit is None:
+        sms = sm_count(q.device)
+        units = S * KH * paged_row_groups(R)
+        splits, chunk = paged_split_plan(MB * BS, units, sms)
+        rows = 1 << (min(R, 8) - 1).bit_length()
+        tickets = torch.zeros(units, dtype=torch.int32, device=q.device)
+        part = torch.empty(units * splits * rows * (D + 2),
+                           dtype=torch.float32, device=q.device)
+        hit = _SPLITS[key] = (tickets, part, (tickets.data_ptr(),
+                                              part.data_ptr(), splits, chunk))
+    return hit[2]
 
 
 def _check_pools(name, q, k_pool, v_pool, k_scale, v_scale):
@@ -400,15 +455,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     _check_operands("paged_decode_attention", (q, k_pool, v_pool),
                     (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
+    MB = block_tables.shape[1]
     o = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, part, splits, chunk = _split_args(q, stream, S, KH, MB, BS)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), S, H, KH,
-        D, NB, BS, block_tables.shape[1], *q.stride()[:2],
+        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), tickets,
+        part, S, H, KH, D, NB, BS, MB, splits, chunk, *q.stride()[:2],
         *k_pool.stride()[:3], *v_pool.stride()[:3], block_tables.stride(0),
-        *o.stride()[:2], _scale(scale, D), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *o.stride()[:2], _scale(scale, D), _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "paged_decode_attention", rc)
     paged_decode_attention.launches += 1
     return o
@@ -432,14 +489,17 @@ def paged_decode_attention_int8(q, k_pool, v_pool, block_tables, lengths,
     ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
                                 (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
+    MB = block_tables.shape[1]
     o = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, part, splits, chunk = _split_args(q, stream, S, KH, MB, BS)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_decode_attention_int8(
         q.data_ptr(), *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), S, H, KH, D, NB, BS, block_tables.shape[1],
+        o.data_ptr(), tickets, part, S, H, KH, D, NB, BS, MB, splits, chunk,
         *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3],
         *sstrides, block_tables.stride(0), *o.stride()[:2], _scale(scale, D),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, name, rc)
     paged_decode_attention_int8.launches += 1
     return o

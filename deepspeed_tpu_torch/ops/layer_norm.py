@@ -20,12 +20,12 @@ launch their kernels or raise. Each counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
+from deepspeed_tpu_torch.ops.op_builder import (CUDAOpBuilder, check_launch,
+                                               sm_count)
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _BWD_MAX_CHUNKS = 8192   # 1024 threads x 8 chunks of a row in B10's stage 1
@@ -136,16 +136,10 @@ def layer_norm_fwd(x2, weight, bias, eps: float = 1e-5
 layer_norm_fwd.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _bwd_partition(R: int, device: torch.device) -> Tuple[int, int]:
     """(P, rows per block) of B10's stage 1: 4 blocks per SM, each over a
     contiguous range of rows; fixed for a card, so the sums are too."""
-    sms = _sm_count(torch.cuda.current_device() if device.index is None
-                    else device.index)
+    sms = sm_count(device)
     rows_per = -(-R // min(R, 4 * sms))
     return -(-R // rows_per), rows_per
 

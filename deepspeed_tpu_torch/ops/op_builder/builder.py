@@ -16,6 +16,7 @@ A build that fails raises: there is no path around a missing kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,6 +113,21 @@ def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:
         msg = lib.dstt_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """SMs of the CUDA ``device`` (a ``torch.device``; the current device
+    when it has no index), read once per device: the kernels' grids and
+    split plans are sized from it."""
+    import torch
+    return _sms(torch.cuda.current_device() if device.index is None
+                else device.index)
 
 
 def build_all(builders: Iterable[CUDAOpBuilder]) -> Dict[str, ctypes.CDLL]:

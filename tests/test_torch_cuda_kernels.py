@@ -605,6 +605,82 @@ def test_int8_offload_server_on_card_runs_through_the_int8_kernels(
     assert st["prefix_cache_evictions"] == st["preempted"] == 0
 
 
+def _split_edge_case(g, dtype, H, KH, D, BS, span=1024):
+    """Lengths 0, 1, BS-1, BS, BS+1 and MB*BS in one batch over ``span``
+    keys a slot, so the paged decode kernel's splits are empty, partial
+    and full; shuffled tables into the layer view of a 2-layer pool."""
+    MB = span // BS
+    lens = [0, 1, BS - 1, BS, BS + 1, MB * BS]
+    NB = len(lens) * MB + 1
+    kp = _randn(g, (2, NB, BS, KH, D), dtype)[1]
+    vp = _randn(g, (2, NB, BS, KH, D), dtype)[1]
+    perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(1))
+    tables = (perm[:len(lens) * MB] + 1).reshape(len(lens), MB)
+    return (kp, vp, tables.to(torch.int32).to(g.device),
+            torch.tensor(lens, dtype=torch.int32, device=g.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype,H,KH,D,BS", PAGED_INT8_CASES)
+def test_paged_decode_splits_on_card(cuda_device, dtype, H, KH, D, BS, pool):
+    """B5 / B5i over split key ranges: against the plain version, exact
+    zeros for a length-0 slot, and the same bits on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    kp, vp, tables, lens = _split_edge_case(g, dtype, H, KH, D, BS)
+    sc = {}
+    if pool == "int8":
+        (kp, ks), (vp, vs) = _int8_pool(kp), _int8_pool(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    S, MB = tables.shape
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert port_decode.paged_split_plan(MB * BS, S * KH, sms)[0] > 1
+    q = _randn(g, (S, H, D), dtype)
+    out = port_decode.paged_decode_attention(q, kp, vp, tables, lens, **sc)
+    again = port_decode.paged_decode_attention(q, kp, vp, tables, lens, **sc)
+    ref = port_decode.paged_decode_attention_reference(q, kp, vp, tables,
+                                                       lens, **sc)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert torch.equal(out, again)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))   # length 0
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_server_decode_steps_add_no_host_sync_on_card(cuda_device):
+    """Steady-state ContinuousBatchingServer decode steps (the async loop)
+    under set_sync_debug_mode("error"): the paged decode wrapper, its
+    split plan and its scratch read nothing back from the device."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        InferenceTransformerConfig, init_params)
+    cfg = InferenceTransformerConfig(vocab_size=512, n_positions=256,
+                                     n_embd=256, n_layer=2, n_head=4)
+    params = init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg)
+    eng = deepspeed_tpu_torch.init_inference(
+        (cfg, params), dtype="bf16", max_out_tokens=256, block_size=32,
+        num_slots=2)
+    srv = ContinuousBatchingServer(eng)
+    ids = [srv.submit(p, max_new_tokens=24)
+           for p in ([1, 2, 3], list(range(100)))]
+    for _ in range(4):   # admission and prefill read tokens back by design
+        srv.step()
+    n = port_decode.paged_decode_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            srv.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert port_decode.paged_decode_attention.launches == n + 4 * cfg.n_layer
+    out = srv.drain()
+    srv.close()
+    assert all(len(out[r]) == n_p + 24 for r, n_p in zip(ids, (3, 100)))
+
+
 # ------------------------------------------------------------ block sparse
 
 SPARSE_CASES = [   # block, head dim, dtype, layout, causal, strided
@@ -776,6 +852,53 @@ def test_layer_norm_kernels_match_plain_on_card(cuda_device, R, N, dtype):
         assert ((a - r).norm() / r.norm()).item() <= 1e-4
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2) \
         and torch.equal(db, db2)
+
+
+# B9 around its register and template thresholds: chunks a lane of 1, 2,
+# 4, 8 and 16 and the rows past them (the shared-memory path), R below,
+# at and above one row a warp of the persistent grid
+LN_FWD_CASES = ([(R, N, torch.bfloat16)
+                 for R in (1, 3, 1000, 8192)
+                 for N in (1, 37, 768, 1600, 2048, 4096, 8192, 20000)]
+                + [(1000, N, torch.float16) for N in (768, 4096, 8192)]
+                + [(1000, N, torch.float32) for N in (1024, 2048, 4096)])
+
+
+def _ln_fwd_gates(x, w, b, dtype):
+    o, mean, rstd = port_ln.layer_norm_fwd(x, w, b)
+    o2, mean2, rstd2 = port_ln.layer_norm_fwd(x, w, b)
+    ro, rmean, rrstd = port_ln.layer_norm_fwd_reference(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and mean.shape == rstd.shape == (x.shape[0], 1)
+    assert _ln_gates(o, ro, dtype)
+    for a, r in ((mean, rmean), (rstd, rrstd)):
+        assert ((a - r).abs() <= 1e-5 * r.abs() + 1e-7).all()
+    assert torch.equal(o, o2) and torch.equal(mean, mean2) \
+        and torch.equal(rstd, rstd2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,dtype", LN_FWD_CASES)
+def test_layer_norm_fwd_widths_on_card(cuda_device, R, N, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    x = _randn(g, (R, N), dtype) * 2 + 0.5
+    w = _randn(g, (N,), torch.float32) + 1
+    b = _randn(g, (N,), torch.float32)
+    _ln_fwd_gates(x, w, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [768, 2048])
+def test_layer_norm_fwd_unaligned_rows_on_card(cuda_device, N):
+    """Rows that start 2 bytes past a 16-byte boundary take the scalar
+    path."""
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    x = (_randn(g, (1000 * N + 1,), torch.bfloat16) * 2 + 0.5)[1:]
+    x = x.view(1000, N)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = _randn(g, (N,), torch.float32) + 1
+    b = _randn(g, (N,), torch.float32)
+    _ln_fwd_gates(x, w, b, torch.bfloat16)
 
 
 @pytest.mark.cuda
