@@ -14,8 +14,8 @@ before its last line:
    attention and LayerNorm (forward, backward). Prints each ptxas register
    and spill line with its kernel's name, and fails if ptxas ignored the
    flash forward's or backward's setmaxnreg (C7508) or a 16-bit entry of
-   the flash backward, of B9's persistent kernel or of B5/B5i's split
-   kernel spills.
+   the flash backward, of B9's persistent kernel, of B5/B5i's split kernel
+   or of the B6/B6i and B7/B7i tensor-core kernels spills.
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T, a full (non-causal) case and
@@ -32,10 +32,11 @@ before its last line:
    point dead entries at the null block. Then their int8 variants (B5i,
    B6i, B7i) at the same shapes over int8 pools quantized per (position,
    head) row from seeded K/V (scales vary per row), with bf16, fp16 and
-   f32 queries and a slot of length 0. B5 and B5i must give the same bits
-   on a second call; each row carries its GQA case's time, bound and
-   library time (``gqa_*``), and B5's the wrapper's host time per call at
-   S=8 (``host_us``).
+   f32 queries and a slot of length 0. B5, B5i, B6, B6i, B7 and B7i must
+   give the same bits on a second call; each row carries its GQA case's
+   time, bound and library time (``gqa_*``), and B5's, B6's and B7's the
+   wrapper's host time per call (``host_us``: decode and verify K=4 at
+   S=8, a C=256 chunk at start 256).
 5. flash_bwd — the flash backward kernels (B2 dq, B3 dk/dv) against their
    plain PyTorch versions: bf16 at the GPT-2 1.3B training shape (B=8,
    T=1024, H=16, D=128, causal, q/k/v as strided views of one fused
@@ -273,10 +274,12 @@ def phase_build():
     # and the 16-bit backward kernels fit their setmaxnreg budgets
     spills = _spills(BWD_BUILDER, "wgmma")
     check(not spills, f"flash_attention_bwd: 16-bit kernels spill: {spills}")
-    # no entry of B9's persistent kernel or of B5/B5i's split kernel over
-    # 16-bit queries spills
+    # no entry of B9's persistent kernel, of B5/B5i's split kernel or of
+    # the B7/B7i and B6/B6i tensor-core kernels over 16-bit queries spills
     for b, kernel in ((ln.BUILDER, "ln_fwd_ring_kernel"),
-                      (da.PAGED_BUILDER, "paged_split_kernel")):
+                      (da.PAGED_BUILDER, "paged_split_kernel"),
+                      (da.PAGED_BUILDER, "paged_verify_mma_kernel"),
+                      (da.CHUNK_BUILDER, "paged_chunk_mma_kernel")):
         spills = _spills(b, rf"\b{kernel}<(__nv_bfloat16|__half),")
         check(not spills, f"{b.name}: 16-bit {kernel} entries spill: "
               f"{spills}")
@@ -511,12 +514,16 @@ def phase_paged(flush):
         for start in (0, 256, 512):
             qc = rnd(C, H, D)
             cargs = (qc, kp, vp, row, start)
-            err = (da.paged_chunk_attention(*cargs).float()
+            o = da.paged_chunk_attention(*cargs)
+            err = (o.float()
                    - da.paged_chunk_attention_reference(*cargs).float()
                    ).abs().max().item()
             check(math.isfinite(err) and err <= FLASH_TOL,
                   f"paged chunk {name} start {start}: max err {err} > "
                   f"{FLASH_TOL}")
+            check(torch.equal(o, da.paged_chunk_attention(*cargs)),
+                  f"paged chunk {name} start {start}: other bits on the "
+                  f"same inputs")
             keys = start + C
             pairs = C * start + C * (C + 1) // 2
             bound, by = _bound(2 * 2 * keys * KH * D + 2 * 2 * C * H * D
@@ -536,7 +543,8 @@ def phase_paged(flush):
                     flush),
                 bound_ms=bound, bound_by=by, max_abs_err=err)
             log(f"[paged] chunk {name} C={C} start={start}: max|o err| "
-                f"{err!r} (tol {FLASH_TOL}); kernel {rec['ms']!r} ms, plain "
+                f"{err!r} (tol {FLASH_TOL}), bit-identical twice; kernel "
+                f"{rec['ms']!r} ms, plain "
                 f"{rec['plain_ms']!r} ms, sdpa over the cache already "
                 f"gathered {rec['library_ms']!r} ms, bound {bound!r} ms "
                 f"({by}), {4 * pairs * H * D / rec['ms'] / 1e9:.1f} TFLOP/s")
@@ -550,16 +558,19 @@ def phase_paged(flush):
         lens = torch.as_tensor(lens_np, device="cuda")
         qv = rnd(S, K, H, D)
         vargs = (qv, kp, vp, tables, lens)
-        err = (da.paged_verify_attention(*vargs).float()
+        o = da.paged_verify_attention(*vargs)
+        err = (o.float()
                - da.paged_verify_attention_reference(*vargs).float()
                ).abs().max().item()
         check(math.isfinite(err) and err <= DECODE_TOL,
               f"paged verify {name}: max err {err} > {DECODE_TOL}")
+        check(torch.equal(o, da.paged_verify_attention(*vargs)),
+              f"paged verify {name}: other bits on the same inputs")
         keys = int(lens_np.sum()) + S * K
         pairs = sum(K * int(n) + K * (K + 1) // 2 for n in lens_np)
         bound, by = _bound(2 * 2 * keys * KH * D + 2 * 2 * S * K * H * D
                            + 4 * S * (MB + 1), 4 * pairs * H * D,
-                           H100_F32_FLOPS)
+                           H100_BF16_FLOPS)
         kc, vc = gathered(tables)
         vmask = (torch.arange(span, device="cuda")[None, None, :]
                  <= lens[:, None, None]
@@ -573,9 +584,10 @@ def phase_paged(flush):
                 qt, kc, vc, attn_mask=vmask, enable_gqa=KH != H), 50, flush),
             bound_ms=bound, bound_by=by, max_abs_err=err)
         log(f"[paged] verify {name} K={K}: lengths sum {int(lens_np.sum())}, "
-            f"max|o err| {err!r} (tol {DECODE_TOL}); kernel {rec['ms']!r} "
-            f"ms, plain {rec['plain_ms']!r} ms, sdpa over the cache already "
-            f"gathered {rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
+            f"max|o err| {err!r} (tol {DECODE_TOL}), bit-identical twice; "
+            f"kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, sdpa "
+            f"over the cache already gathered {rec['library_ms']!r} ms, "
+            f"bound {bound!r} ms ({by})")
         out.setdefault("paged_verify_attention", []).append((name, rec))
 
         # ---- int8 pools: B5i, B6i, B7i with bf16, fp16 and f32 queries
@@ -666,6 +678,9 @@ def phase_paged(flush):
         start = 256
         qc = rnd(C, H, D)
         cargs = (qc, kq, vq, row, start, ks, vs)
+        check(torch.equal(da.paged_chunk_attention_int8(*cargs),
+                          da.paged_chunk_attention_int8(*cargs)),
+              f"paged chunk int8 {name}: other bits on the same inputs")
         keys, pairs = start + C, C * start + C * (C + 1) // 2
         bound, by = _bound((2 * D + 8) * keys * KH + 2 * 2 * C * H * D
                            + 4 * MB, 4 * pairs * H * D, H100_BF16_FLOPS)
@@ -686,19 +701,23 @@ def phase_paged(flush):
         log(f"[paged] chunk int8 {name} C={C} start={start}: max|o err| "
             f"(starts 0/256/512 bf16, 256 fp16/f32) "
             f"{errs['paged_chunk_attention_int8']!r} (tol {FLASH_TOL}, f32 "
-            f"1e-4); kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, "
-            f"sdpa over the cache already gathered and dequantized "
-            f"{rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
+            f"1e-4), bf16 bit-identical twice; kernel {rec['ms']!r} ms, "
+            f"plain {rec['plain_ms']!r} ms, sdpa over the cache already "
+            f"gathered and dequantized {rec['library_ms']!r} ms, bound "
+            f"{bound!r} ms ({by})")
         out.setdefault("paged_chunk_attention_int8", []).append(
             (f"{name} start={start}", rec))
         # B7i
         qv = rnd(S, K, H, D)
         vargs = (qv, kq, vq, vtables, vlens, ks, vs)
+        check(torch.equal(da.paged_verify_attention_int8(*vargs),
+                          da.paged_verify_attention_int8(*vargs)),
+              f"paged verify int8 {name}: other bits on the same inputs")
         keys = int(vlens_np.sum()) + S * K
         pairs = sum(K * int(n) + K * (K + 1) // 2 for n in vlens_np)
         bound, by = _bound((2 * D + 8) * keys * KH + 2 * 2 * S * K * H * D
                            + 4 * S * (MB + 1), 4 * pairs * H * D,
-                           H100_F32_FLOPS)
+                           H100_BF16_FLOPS)
         kc, vc = deq(vtables)
         vmask = (torch.arange(span, device="cuda")[None, None, :]
                  <= vlens[:, None, None]
@@ -716,7 +735,8 @@ def phase_paged(flush):
         log(f"[paged] verify int8 {name} K={K}: lengths sum "
             f"{int(vlens_np.sum())}, max|o err| bf16/fp16/f32 "
             f"{errs['paged_verify_attention_int8']!r} (tol {DECODE_TOL}, f32 "
-            f"1e-4); kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, "
+            f"1e-4), bf16 bit-identical twice; kernel {rec['ms']!r} ms, "
+            f"plain {rec['plain_ms']!r} ms, "
             f"sdpa over the cache already gathered and dequantized "
             f"{rec['library_ms']!r} ms, bound {bound!r} ms ({by})")
         out.setdefault("paged_verify_attention_int8", []).append((name, rec))
@@ -732,26 +752,37 @@ def phase_paged(flush):
         rows[k] = dict(main, max_abs_err=max(r["max_abs_err"] for _, r in v),
                        **{f"gqa_{f}": gqa[f] for f in ("ms", "bound_ms",
                                                         "library_ms")})
-    # the decode wrapper's host time per call (checks, the split plan and
-    # its scratch, the ctypes launch) at the server's S=8, GPT-2 XL heads
+    # each wrapper's host time per call (checks, the plan and its scratch,
+    # the ctypes launch) at the server's shapes, GPT-2 XL heads: decode and
+    # verify (K=4) at S=8, a C=256 chunk at start 256
     kp = torch.randn((NB, BS, 25, 64), generator=g, device="cuda",
                      dtype=torch.bfloat16)
-    q = torch.randn((S, 25, 64), generator=g, device="cuda",
-                    dtype=torch.bfloat16)
     tables = torch.arange(1, S * MB + 1, dtype=torch.int32,
                           device="cuda").reshape(S, MB)
     lens = torch.full((S,), 500, dtype=torch.int32, device="cuda")
-    for _ in range(10):
-        da.paged_decode_attention(q, kp, kp, tables, lens)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        da.paged_decode_attention(q, kp, kp, tables, lens)
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    log(f"[paged] decode host time per call at S={S}, [NB, {BS}, 25, 64]: "
-        f"{host_us!r} us (200 calls, no sync)")
-    rows["paged_decode_attention"]["host_us"] = host_us
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+    calls = {"paged_decode_attention": (f"S={S}", (rnd(S, 25, 64), kp, kp,
+                                                   tables, lens)),
+             "paged_verify_attention": (f"S={S} K={K}", (
+                 rnd(S, K, 25, 64), kp, kp, tables, lens)),
+             "paged_chunk_attention": (f"C={C} start=256", (
+                 rnd(C, 25, 64), kp, kp, tables[0], 256))}
+    for k, (shape, args) in calls.items():
+        fn = getattr(da, k)
+        for _ in range(10):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(*args)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        log(f"[paged] {k} host time per call at {shape}, [NB, {BS}, 25, "
+            f"64]: {host_us!r} us (200 calls, no sync)")
+        rows[k]["host_us"] = host_us
     return rows
 
 

@@ -623,7 +623,7 @@ def paged_prefill_chunk(params, cfg: InferenceTransformerConfig, input_ids,
     for i, layer in enumerate(params["layers"]):
         x, cache = _block_chunk_paged(x, layer, cfg, cache, i, slot, start)
     x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
-    cache.lengths[slot] = min(start + C, length)
+    cache.lengths[slot].fill_(min(start + C, length))   # no host copy
     last = min(max(length - 1 - start, 0), C - 1)
     return _logits(params, cfg, x[:, last]), cache
 

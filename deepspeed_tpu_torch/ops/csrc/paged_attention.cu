@@ -62,15 +62,45 @@
 //    TPU kernel's function up to the order of f32 sums.
 //  * a table entry is clamped into [0, NB) before use, so a corrupt table
 //    cannot read outside the pool.
-// The verify kernel (B7, B7i) keeps its one-block-per-unit design (below):
-// split the same way it was slower (an A/B in one process on the H100 at
-// K=4: 0.0292 against 0.0255 ms at GPT-2 XL, 0.0960 against 0.0597 at
-// H=32/KH=8, scripts/compare_paged_decode.py).
+// Design of the verify kernel (B7, B7i) over 16-bit queries
+// (`paged_verify_mma_kernel`): B5's split-and-merge, with the query rows on
+// the tensor cores.
+//  * unit = one (slot, kv head, group of <= 16 query rows): row j of the
+//    unit is candidate j / R of head kh*R + j % R, and all K*R <= 16 rows
+//    of a (slot, kv head) are the 16-row A operand of mma.sync m16n8k16,
+//    so K/V are read once per (slot, kv head) and 16 rows cost the
+//    products of one (on the CUDA cores every f32 FMA repeats per row:
+//    the split kernel at K*R rows is bound by them). Row j keeps its own
+//    bound col <= lengths[s] + j/R.
+//  * the key range of a unit is cut into splits of 256 keys
+//    (`paged_verify_plan` in the wrapper: static sizes only, never MB below
+//    the cap); a dead split ends at the length read, and the live splits
+//    merge in the same launch in split order with arrival tickets
+//    (`finish_split`, shared with B5).
+//  * copies: a ring of 3 stages of 64 keys filled by 16-byte cp.async
+//    through the table (paged_tiles.cuh); q's loads and the first stages'
+//    table entries are issued beside the length read. Each of the 4 warps
+//    takes 16 keys of every stage: S = Q.K^T on two n8 tiles, the online
+//    softmax in f32, P from registers into O += P.V; the warps merge
+//    through shared memory.
+//  * numerics at f32's precision, as the decode kernel's: q enters the
+//    product as it is (q.K^T is exact in f32) and the scale multiplies S in
+//    f32; P goes into P.V as three bf16 terms (P rounded, then its
+//    remainders) or one fp16 term, so the output is held to one rounding
+//    of the f32 result (DECODE_TOL).
+//  * int8 pools: the tiles stay int8 in shared memory and are widened in
+//    registers as the fragments are built (paged_tiles.cuh); scale_k scales
+//    S per key column, scale_v scales P before its rounding, l sums the
+//    unscaled P.
+// f32 queries take the decode kernel's split kernel (`paged_split_kernel`,
+// units of <= 8 rows, the same plan): f32 has no tensor-core product of its
+// precision, and the main path runs 16-bit queries.
 
 #include <algorithm>
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "paged_tiles.cuh"
 
 namespace {
 
@@ -81,13 +111,7 @@ constexpr int NUM_THREADS = NUM_WARPS * 32;
 constexpr int STAGES = 2;           // ring depth
 constexpr int STAGE_BYTES = 8192;   // K and V rows of one stage
 constexpr int MAX_SPLITS = 16;      // splits a unit, at most
-constexpr int VERIFY_WARPS = 8;     // the verify kernel: warps a block
-constexpr int VERIFY_THREADS = VERIFY_WARPS * 32;
-constexpr int UNROLL = 4;           // its load steps in flight a warp
-
-template <int BYTES> struct Raw;
-template <> struct Raw<16> { using type = uint4; };
-template <> struct Raw<8> { using type = uint2; };
+constexpr int RING = 3;             // the mma verify kernel: stages at most
 
 // The ring's geometry for key rows of D elements of KV
 template <typename KV, int D>
@@ -116,6 +140,7 @@ struct Args {
   int nrows;           // query rows per (slot, kv head): K * R
   int extra;           // row j sees col < lengths[s] + extra + j / R
   int chunk;           // keys a split
+  int slots;           // the mma verify kernel's ring stages
   int* tickets;        // [units] arrivals, zero between launches
   float* part;         // [units][splits][ROWS * (D + 2)] partials
   long long q_s, q_k, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, o_k, o_h;
@@ -146,6 +171,159 @@ __device__ __forceinline__ void row_vec(const KV* p, float (&f)[VEC]) {
   }
 }
 
+// The decode kernel's warps' partials (shared memory at ws: m, l
+// [NUM_WARPS][ROWS], acc [NUM_WARPS][ROWS][D]) merged in warp order into
+// the block's, after them: acc [ROWS][D], m [ROWS], l [ROWS]; the block's
+// first nr rows. Returns the block's partial.
+template <int D, int ROWS>
+__device__ __forceinline__ float* merge_warps(float* ws, int nr) {
+  float* wm = ws;                               // [NUM_WARPS][ROWS]
+  float* wl = wm + NUM_WARPS * ROWS;            // [NUM_WARPS][ROWS]
+  float* wacc = wl + NUM_WARPS * ROWS;          // [NUM_WARPS][ROWS][D]
+  float* bacc = wacc + NUM_WARPS * ROWS * D;
+  float* bm = bacc + ROWS * D;
+  float* bl = bm + ROWS;
+  // one thread per (row, column)
+  for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS) {
+    const int r = idx / D, d = idx % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NUM_WARPS; ++w) mx = fmaxf(mx, wm[w * ROWS + r]);
+    const float ref = mx == -INFINITY ? 0.f : mx;
+    float lt = 0.f, at = 0.f;
+#pragma unroll
+    for (int w = 0; w < NUM_WARPS; ++w) {
+      const float f = __expf(wm[w * ROWS + r] - ref);
+      lt += wl[w * ROWS + r] * f;
+      at += wacc[(w * ROWS + r) * D + d] * f;
+    }
+    bacc[idx] = at;
+    if (d == 0) {
+      bm[r] = mx;
+      bl[r] = lt;
+    }
+  }
+  __syncthreads();
+  return bacc;
+}
+
+// The end of a unit's split, shared by the decode and the verify kernel,
+// from the block's partial in shared memory at bp (acc [ROWS][D], m
+// [ROWS], l [ROWS], the first nr rows live, written before a barrier). A
+// unit with one live split writes it as the output. Otherwise each live
+// split publishes its partial and takes an arrival ticket; the last to
+// arrive merges the partials in split order (the loads of all splits in
+// flight together), writes the output and resets the ticket to zero for
+// the next launch (no memset, no second launch; the same bits on every
+// run).
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void finish_split(const float* bp, int nr, int live, int split,
+                                             int nsplit, long long unit, T* o, const Args& a,
+                                             int s, int kh, int row0) {
+  __shared__ int is_last;
+  // floats of one split's partial: acc [ROWS][D], m [ROWS], l [ROWS],
+  // padded to whole float4s (the wrappers allocate ROWS * (D + 4))
+  constexpr int PART = ROWS * D + (2 * ROWS > 4 ? 2 * ROWS : 4);
+  const float* bacc = bp;
+  const float* bl = bp + ROWS * D + ROWS;
+  auto out = [&](int r, int d) -> T& {
+    const int j = row0 + r;
+    return o[s * a.o_s + (j / a.R) * a.o_k + (kh * a.R + j % a.R) * a.o_h + d];
+  };
+  if (live == 1) {   // the unit's only split: its partial is the output
+    for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS) {
+      const int r = idx / D;
+      out(r, idx % D) = from_float<T>(bacc[idx] / fmaxf(bl[r], 1e-30f));
+    }
+    DSTT_STAMP(4);
+    return;
+  }
+
+  // publish the partial; the last split of the unit to arrive merges them
+  // all in split order and resets the unit's ticket for the next launch
+  float* part = a.part + unit * nsplit * PART;
+  for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS)
+    part[split * PART + idx] = bacc[idx];
+  if (threadIdx.x < 2 * ROWS)   // m and l
+    part[split * PART + ROWS * D + threadIdx.x] = bacc[ROWS * D + threadIdx.x];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(a.tickets + unit, 1) == live - 1;
+  __syncthreads();
+  DSTT_STAMP(3);
+  if (!is_last) {
+    DSTT_STAMP(4);
+    return;
+  }
+  __threadfence();
+  if constexpr (ROWS * D <= 4 * NUM_THREADS) {
+    // a few elements a thread (the decode kernel's units): each merges all
+    // splits at once
+    for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS) {
+      const int r = idx / D;
+      float ms[MAX_SPLITS], ls[MAX_SPLITS], av[MAX_SPLITS];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int p = 0; p < MAX_SPLITS; ++p) {
+        ms[p] = -INFINITY;
+        ls[p] = av[p] = 0.f;
+        if (p < live) {
+          ms[p] = __ldcg(part + p * PART + ROWS * D + r);
+          ls[p] = __ldcg(part + p * PART + ROWS * D + ROWS + r);
+          av[p] = __ldcg(part + p * PART + idx);
+        }
+        mx = fmaxf(mx, ms[p]);
+      }
+      const float ref = mx == -INFINITY ? 0.f : mx;
+      float lt = 0.f, at = 0.f;
+#pragma unroll
+      for (int p = 0; p < MAX_SPLITS; ++p) {
+        const float f = __expf(ms[p] - ref);
+        lt += ls[p] * f;
+        at += av[p] * f;
+      }
+      out(r, idx % D) = from_float<T>(at / fmaxf(lt, 1e-30f));
+    }
+  } else {
+    // many (the verify kernel's 16 rows): a float4 of acc a thread, each
+    // loading its row's m and l and its float4 of every split at once
+    for (int i4 = threadIdx.x; i4 < nr * D / 4; i4 += NUM_THREADS) {
+      const int r = i4 * 4 / D;
+      float ms[MAX_SPLITS], ls[MAX_SPLITS];
+      float4 av[MAX_SPLITS];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int p = 0; p < MAX_SPLITS; ++p) {
+        ms[p] = -INFINITY;
+        ls[p] = 0.f;
+        av[p] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (p < live) {
+          ms[p] = __ldcg(part + p * PART + ROWS * D + r);
+          ls[p] = __ldcg(part + p * PART + ROWS * D + ROWS + r);
+          av[p] = __ldcg(reinterpret_cast<const float4*>(part + p * PART) + i4);
+        }
+        mx = fmaxf(mx, ms[p]);
+      }
+      const float ref = mx == -INFINITY ? 0.f : mx;
+      float lt = 0.f, at[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int p = 0; p < MAX_SPLITS; ++p) {
+        const float f = __expf(ms[p] - ref);
+        lt += ls[p] * f;
+        at[0] += av[p].x * f;
+        at[1] += av[p].y * f;
+        at[2] += av[p].z * f;
+        at[3] += av[p].w * f;
+      }
+      const float lv = fmaxf(lt, 1e-30f);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out(r, i4 * 4 % D + c) = from_float<T>(at[c] / lv);
+    }
+  }
+  if (threadIdx.x == 0) a.tickets[unit] = 0;
+  DSTT_STAMP(4);
+}
+
 // grid (splits, KH * row groups, S); unit = one (slot, kv head, row group)
 template <typename T, typename KV, int D, int ROWS>
 __global__ void __launch_bounds__(NUM_THREADS, ROWS <= 2 ? 8 : 16 / ROWS)
@@ -160,7 +338,6 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   static_assert(QCH >= 1 && QCH * 16 == VEC * (int)sizeof(T), "q vector");
   extern __shared__ __align__(16) unsigned char smem[];
   float* scales = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
-  __shared__ int is_last;
 
   const int split = blockIdx.z, nsplit = gridDim.z;
   const int groups = (a.nrows + ROWS - 1) / ROWS;
@@ -350,13 +527,10 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     }
   }
   // the ring and the scales are free now (the launch gives the block room
-  // for whichever is larger): the warps' partials, then the block's
+  // for whichever is larger): the warps' partials (finish_split's layout)
   float* wm = reinterpret_cast<float*>(smem);   // [NUM_WARPS][ROWS]
   float* wl = wm + NUM_WARPS * ROWS;            // [NUM_WARPS][ROWS]
   float* wacc = wl + NUM_WARPS * ROWS;          // [NUM_WARPS][ROWS][D]
-  float* bm = wacc + NUM_WARPS * ROWS * D;      // [ROWS]; then bl [ROWS]
-  float* bl = bm + ROWS;                        // and bacc [ROWS][D]: the
-  float* bacc = bl + ROWS;                      // block's partial, contiguous
   if (grp == 0) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
@@ -369,245 +543,251 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     }
   }
   __syncthreads();
-  // merge the warps: one thread per (row, column)
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += NUM_THREADS) {
-    const int r = idx / D, d = idx % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NUM_WARPS; ++w) mx = fmaxf(mx, wm[w * ROWS + r]);
-    const float ref = mx == -INFINITY ? 0.f : mx;
-    float lt = 0.f, at = 0.f;
-#pragma unroll
-    for (int w = 0; w < NUM_WARPS; ++w) {
-      const float f = __expf(wm[w * ROWS + r] - ref);
-      lt += wl[w * ROWS + r] * f;
-      at += wacc[(w * ROWS + r) * D + d] * f;
-    }
-    bacc[idx] = at;
-    if (d == 0) {
-      bm[r] = mx;
-      bl[r] = lt;
-    }
-  }
-  __syncthreads();
-  auto out = [&](int r, int d) -> T& {
-    const int j = row0 + r;
-    return o[s * a.o_s + (j / a.R) * a.o_k + (kh * a.R + j % a.R) * a.o_h + d];
-  };
-  if (live == 1) {   // the unit's only split: its partial is the output
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += NUM_THREADS) {
-      const int r = idx / D;
-      if (row0 + r < a.nrows) out(r, idx % D) = from_float<T>(bacc[idx] / fmaxf(bl[r], 1e-30f));
-    }
-    return;
-  }
-
-  // publish the partial; the last split of the unit to arrive merges them
-  // all in split order and resets the unit's ticket for the next launch
-  constexpr int PART = ROWS * (D + 2);
-  float* part = a.part + unit * nsplit * PART;
-  for (int idx = threadIdx.x; idx < PART; idx += NUM_THREADS) part[split * PART + idx] = bm[idx];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(a.tickets + unit, 1) == live - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += NUM_THREADS) {
-    const int r = idx / D;
-    if (row0 + r >= a.nrows) continue;
-    float ms[MAX_SPLITS], ls[MAX_SPLITS], av[MAX_SPLITS];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int p = 0; p < MAX_SPLITS; ++p) {
-      ms[p] = -INFINITY;
-      ls[p] = av[p] = 0.f;
-      if (p < live) {
-        ms[p] = __ldcg(part + p * PART + r);
-        ls[p] = __ldcg(part + p * PART + ROWS + r);
-        av[p] = __ldcg(part + p * PART + 2 * ROWS + idx);
-      }
-      mx = fmaxf(mx, ms[p]);
-    }
-    const float ref = mx == -INFINITY ? 0.f : mx;
-    float lt = 0.f, at = 0.f;
-#pragma unroll
-    for (int p = 0; p < MAX_SPLITS; ++p) {
-      const float f = __expf(ms[p] - ref);
-      lt += ls[p] * f;
-      at += av[p] * f;
-    }
-    out(r, idx % D) = from_float<T>(at / fmaxf(lt, 1e-30f));
-  }
-  if (threadIdx.x == 0) a.tickets[unit] = 0;
+  const int nr = min(ROWS, a.nrows - row0);   // live rows
+  finish_split<T, D, ROWS>(merge_warps<D, ROWS>(wm, nr), nr, live, split, nsplit, unit, o,
+                           a, s, kh, row0);
 }
 
-// The verify kernel (B7, B7i): one block of 8 warps per (kv head, slot,
-// group of <= 8 query rows) walks the whole key range, each key row read
-// with vector loads by D/VEC neighbouring lanes (16 bytes a lane; int8 rows
-// at 8 bytes once a block holds more than 2 query rows), UNROLL steps of
-// loads issued before any is used; lane groups merge by shuffles, warps
-// through shared memory. Same numerics as the split kernel.
-template <typename T, typename KV, int D, int ROWS>
-__global__ void __launch_bounds__(VERIFY_THREADS)
-paged_verify_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
-                  const KV* __restrict__ vp, T* __restrict__ o, Args a) {
-  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
-  constexpr int VEC = Q8 ? (ROWS <= 2 ? 16 : 8) : 16 / sizeof(KV);  // per lane
-  using KRaw = typename Raw<VEC * sizeof(KV)>::type;
-  constexpr int QCH = VEC * sizeof(T) / 16;   // 16-byte loads of q per lane
-  constexpr int LPK = D / VEC;          // lanes per key row
-  constexpr int KPW = 32 / LPK;         // keys per warp per step
-  constexpr int STEP = VERIFY_WARPS * KPW; // keys per block per step
-  static_assert(D % VEC == 0 && 32 % LPK == 0, "unsupported head dim");
-  static_assert(QCH >= 1 && QCH * 16 == VEC * sizeof(T), "unsupported q vector");
+// The verify kernel over 16-bit queries (B7, B7i; design in the note at
+// the top). grid (KH * row groups, S, splits); 4 warps.
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(NUM_THREADS, D == 64 ? 4 : 2)   // no spill
+paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                        const KV* __restrict__ vp, T* __restrict__ o, Args a) {
+  using TL = KVTile<KV, D>;
+  using CP = TileCopy<KV, D, NUM_THREADS>;
+  constexpr bool Q8 = TL::Q8;
+  constexpr int CPT = CP::CPT, ROWS = 16;
+  // P in bf16 terms enough to carry its f32 value: the output is held to
+  // the f32 math's (one rounding of it), as the decode kernel's is
+  constexpr int NP = std::is_same<T, __nv_bfloat16>::value ? 3 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];   // as the split kernel's
 
-  __shared__ float sm_m[VERIFY_WARPS][ROWS];
-  __shared__ float sm_l[VERIFY_WARPS][ROWS];
-  __shared__ float sm_acc[VERIFY_WARPS][ROWS][D];
-
-  const int kh = blockIdx.x, s = blockIdx.y, row0 = blockIdx.z * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane / LPK, d0 = (lane % LPK) * VEC;
-  const int len = a.lengths[s];
+  const int split = blockIdx.z, nsplit = gridDim.z;
+  const int groups = (a.nrows + ROWS - 1) / ROWS;
+  const int kh = blockIdx.x / groups, row0 = (blockIdx.x % groups) * ROWS;
+  const int s = blockIdx.y;
+  const long long unit = (long long)s * gridDim.x + blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   const int span = a.MB * a.BS;
   const int* table = a.tables + s * a.t_s;
+  const int beg = split * a.chunk;
+  const int slots = a.slots;
+  DSTT_STAMP(0);
 
-  // per-row exclusive bound on visible positions; the loop runs to the
-  // largest of them (uniform across the block)
-  int lim[ROWS];
-  int hi = 0;
-  float qv[ROWS][VEC], acc[ROWS][VEC], m[ROWS], l[ROWS];
+  // table entry of position pos (clamped into the row) and block id
+  // (clamped into [0, NB)); the first stages' ids depend on the static
+  // range only and load beside the length
+  auto block_of = [&](int pos) {
+    return min(max(table[min(pos / a.BS, a.MB - 1)], 0), a.NB - 1);
+  };
+  int pblk[RING][CPT], sblk[RING];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int j = row0 + r;
-    lim[r] = j < a.nrows ? max(0, min(len + a.extra + j / a.R, span)) : 0;
-    hi = max(hi, lim[r]);
-    uint4 raw[QCH];
+  for (int st = 0; st < RING; ++st) {
 #pragma unroll
-    for (int c = 0; c < QCH; ++c) {
-      raw[c] = make_uint4(0, 0, 0, 0);
-      if (j < a.nrows)
-        raw[c] = *reinterpret_cast<const uint4*>(q + s * a.q_s + (j / a.R) * a.q_k + (kh * a.R + j % a.R) * a.q_h + d0 + c * (16 / sizeof(T)));
-    }
-    const T* e = reinterpret_cast<const T*>(raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      qv[r][i] = to_float(e[i]) * a.scale;
-      acc[r][i] = 0.f;
-    }
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+    for (int i = 0; i < CPT; ++i)
+      pblk[st][i] = st < slots ? block_of(beg + st * TILE_KEYS + CP::row(i, threadIdx.x)) : 0;
+    sblk[st] = Q8 && st < slots ? block_of(beg + st * TILE_KEYS + threadIdx.x % TILE_KEYS) : 0;
   }
-
-  const KV* kb = kp + kh * a.k_h + d0;
-  const KV* vb = vp + kh * a.v_h + d0;
-  // the loop bound is uniform across the warp, so the shuffles below always
-  // run with all 32 lanes; positions past a row's bound are masked instead
-  for (int base = warp * KPW; base < hi; base += STEP * UNROLL) {
-    KRaw kr[UNROLL], vr[UNROLL];
-    float ksc[UNROLL], vsc[UNROLL];
+  // the A fragments of q as it is, loaded first (ahead of the copies, and
+  // not used before them): q.k^T is exact in f32 and the scale multiplies
+  // it there. Rows past the unit's repeat its last row; none is written.
+  uint32_t qf[D / 16][4];
+  const int ja = row0 + g, jb = ja + 8;   // this thread's rows
+  auto qpair = [&](int j, int d) -> uint32_t {
+    j = min(j, a.nrows - 1);
+    return *reinterpret_cast<const uint32_t*>(
+        q + s * a.q_s + (j / a.R) * a.q_k + (kh * a.R + j % a.R) * a.q_h + d);
+  };
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int pos = base + u * STEP + grp;
-      kr[u] = vr[u] = KRaw{};
-      ksc[u] = vsc[u] = 0.f;
-      if (pos < hi) {
-        const long long blk = min(max(table[pos / a.BS], 0), a.NB - 1);
-        const long long off = pos % a.BS;
-        kr[u] = *reinterpret_cast<const KRaw*>(kb + blk * a.k_n + off * a.k_b);
-        vr[u] = *reinterpret_cast<const KRaw*>(vb + blk * a.v_n + off * a.v_b);
-        if constexpr (Q8) {
-          ksc[u] = a.ks[blk * a.ks_n + kh * a.ks_h + off];
-          vsc[u] = a.vs[blk * a.vs_n + kh * a.vs_h + off];
-        }
-      }
-    }
+  for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      float sc[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const KV* ke = reinterpret_cast<const KV*>(&kr[u]);
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) dot = fmaf(qv[r][i], to_float(ke[i]), dot);
-#pragma unroll
-        for (int off = LPK / 2; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if constexpr (Q8) dot *= ksc[u];
-        sc[u] = base + u * STEP + grp < lim[r] ? dot : -INFINITY;
-      }
-      float mn = m[r];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) mn = fmaxf(mn, sc[u]);
-      const float ref = mn == -INFINITY ? 0.f : mn;
-      const float alpha = __expf(m[r] - ref);
-      l[r] *= alpha;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[r][i] *= alpha;
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const float p = __expf(sc[u] - ref);
-        const float pv = Q8 ? p * vsc[u] : p;
-        const KV* ve = reinterpret_cast<const KV*>(&vr[u]);
-        l[r] += p;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(pv, to_float(ve[i]), acc[r][i]);
-      }
-      m[r] = mn;
+    for (int h = 0; h < 2; ++h) {
+      qf[kk][2 * h] = qpair(ja, TL::qdim(kk, t4, h));
+      qf[kk][2 * h + 1] = qpair(jb, TL::qdim(kk, t4, h));
     }
   }
 
-  // merge the lane groups of this warp (lanes that differ by multiples of LPK)
+  const int len = a.lengths[s];
+
+  // exclusive bound on the positions row j sees; it grows with j, so the
+  // unit's range ends at its last live row's and lo is its first row's
+  auto lim_of = [&](int j) { return max(0, min(len + a.extra + j / a.R, span)); };
+  const int hi = lim_of(min(row0 + ROWS, a.nrows) - 1), lo = lim_of(row0);
+  // splits with keys; split 0 always runs (zeros for a unit that sees none)
+  const int live = hi > 0 ? (hi + a.chunk - 1) / a.chunk : 1;
+  if (split >= live) {
+    DSTT_STAMP(5);
+    return;
+  }
+  const int end = min(beg + a.chunk, hi);
+  const int nstages = end > beg ? (end - beg + TILE_KEYS - 1) / TILE_KEYS : 0;
+  const int lim_a = ja < a.nrows ? lim_of(ja) : 0, lim_b = jb < a.nrows ? lim_of(jb) : 0;
+
+  const KV* kb = kp + kh * a.k_h;
+  const KV* vb = vp + kh * a.v_h;
+  auto issue = [&](int st, const int (&blk)[CPT], int sb) {
+    unsigned char* stage = smem + (st % slots) * TL::STAGE;
+    const int p0 = beg + st * TILE_KEYS;
+    CP::issue(stage, kb, vb, blk, p0, end, a.BS, a.k_n, a.k_b, a.v_n, a.v_b, threadIdx.x);
+    if constexpr (Q8)
+      CP::issue_scales(stage, a.ks + kh * a.ks_h, a.vs + kh * a.vs_h, sb, p0, end, a.BS,
+                       a.ks_n, a.vs_n, threadIdx.x);
+  };
 #pragma unroll
-  for (int off = LPK; off < 32; off *= 2) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
-      const float mn = fmaxf(m[r], mo);
-      const float ref = mn == -INFINITY ? 0.f : mn;
-      const float ca = __expf(m[r] - ref), cb = __expf(mo - ref);
-      l[r] = l[r] * ca + lo * cb;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        const float ao = __shfl_xor_sync(0xffffffffu, acc[r][i], off);
-        acc[r][i] = acc[r][i] * ca + ao * cb;
-      }
-      m[r] = mn;
+  for (int st = 0; st < RING; ++st) {
+    if (st < slots) {
+      if (st < nstages) issue(st, pblk[st], sblk[st]);
+      cp_async_commit();
     }
   }
-  if (grp == 0) {
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (d0 == 0) {
-        sm_m[warp][r] = m[r];
-        sm_l[warp][r] = l[r];
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int r0 = warp * 16;   // this warp's tile rows
+  for (int st = 0; st < nstages; ++st) {
+    cp_async_wait_dyn(slots - 1);
+    __syncthreads();   // stage st landed for every thread's copies
+    if (st == 0) DSTT_STAMP(1);
+    const unsigned char* kt = smem + (st % slots) * TL::STAGE;
+    const unsigned char* vt = kt + TL::BYTES;
+    const float* sc = reinterpret_cast<const float*>(vt + TL::BYTES);   // int8: K, V scales
+    const int p = beg + st * TILE_KEYS + r0;   // position of tile row r0
+
+    float sf[2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) sf[t][0] = sf[t][1] = sf[t][2] = sf[t][3] = 0.f;
+    qk_rows16<T, KV, D>(sf, qf, kt, r0, lane);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sf[t][e] *= a.scale;   // S = (scale q) . K^T
+        if constexpr (Q8) sf[t][e] *= sc[r0 + s_row<KV, D>(t, e, t4)];   // K = scale_k K_int
       }
+    if (p + 16 > lo) {   // some key at or past a row's bound
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) sm_acc[warp][r][d0 + i] = acc[r][i];
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (p + s_row<KV, D>(t, e, t4) >= (e < 2 ? lim_a : lim_b)) sf[t][e] = -INFINITY;
+    }
+
+    // online softmax of rows g (e 0, 1) and g + 8 (e 2, 3)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      mx[0] = fmaxf(mx[0], fmaxf(sf[t][0], sf[t][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sf[t][2], sf[t][3]));
+    }
+    float base[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+      alpha[i] = __expf(m[i] - base[i]);
+      m[i] = mx[i];
+    }
+    float pe[2][4];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pe[t][e] = __expf(sf[t][e] - base[e / 2]);
+        rs[e / 2] += pe[t][e];
+        if constexpr (Q8) pe[t][e] *= sc[TILE_KEYS + r0 + s_row<KV, D>(t, e, t4)];
+      }
+    }
+    uint32_t pf[NP][4];
+    p_frags<T, NP>(pf, pe);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+    pv_step<T, KV, D, NP>(acc, pf, vt, r0, lane);
+    __syncthreads();   // every warp is done with the slot before it refills
+    if (st + slots < nstages) {
+      const int nxt = st + slots;
+      int nb[CPT];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) nb[i] = block_of(beg + nxt * TILE_KEYS + CP::row(i, threadIdx.x));
+      issue(nxt, nb, Q8 ? block_of(beg + nxt * TILE_KEYS + threadIdx.x % TILE_KEYS) : 0);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  DSTT_STAMP(2);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {   // the row sums over the quad
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+
+  // warps 1-3's partials into warp 0's through shared memory, register by
+  // register (a lane holds the same rows and dims in every warp; a
+  // register's column of 32 lanes is free of bank conflicts), in warp
+  // order; the ring is free: every warp passed the loop's last barrier.
+  // Then warp 0 writes the block's partial for finish_split.
+  constexpr int NR = D / 2 + 4;                  // floats a lane: acc, m, l
+  float* x = reinterpret_cast<float*>(smem);     // [NUM_WARPS - 1][NR][32]
+  float* bp = x + (NUM_WARPS - 1) * NR * 32;     // acc [16][D], m, l [16]
+  if (warp > 0) {
+    float* y = x + (warp - 1) * NR * 32;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) y[(4 * j + k) * 32 + lane] = acc[j][k];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      y[(D / 2 + h) * 32 + lane] = m[h];
+      y[(D / 2 + 2 + h) * 32 + lane] = l[h];
     }
   }
   __syncthreads();
-
-  // merge the warps: one thread per (row, column)
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += VERIFY_THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int j = row0 + r;
-    if (j >= a.nrows) continue;
-    float mx = -INFINITY;
+  if (warp == 0) {
+#pragma unroll 1
+    for (int w = 0; w < NUM_WARPS - 1; ++w) {
+      const float* y = x + w * NR * 32;
 #pragma unroll
-    for (int w = 0; w < VERIFY_WARPS; ++w) mx = fmaxf(mx, sm_m[w][r]);
-    const float ref = mx == -INFINITY ? 0.f : mx;
-    float lt = 0.f, at = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const float m1 = y[(D / 2 + h) * 32 + lane], mx = fmaxf(m[h], m1);
+        const float ref = mx == -INFINITY ? 0.f : mx;
+        const float f0 = __expf(m[h] - ref), f1 = __expf(m1 - ref);
+        l[h] = l[h] * f0 + y[(D / 2 + 2 + h) * 32 + lane] * f1;
+        m[h] = mx;
 #pragma unroll
-    for (int w = 0; w < VERIFY_WARPS; ++w) {
-      const float f = __expf(sm_m[w][r] - ref);
-      lt += sm_l[w][r] * f;
-      at += sm_acc[w][r][d] * f;
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc[j][2 * h + e] = acc[j][2 * h + e] * f0 + y[(4 * j + 2 * h + e) * 32 + lane] * f1;
+      }
     }
-    o[s * a.o_s + (j / a.R) * a.o_k + (kh * a.R + j % a.R) * a.o_h + d] = from_float<T>(at / fmaxf(lt, 1e-30f));
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        bp[g * D + TL::dim(j, e, t4)] = acc[j][e];
+        bp[(g + 8) * D + TL::dim(j, e, t4)] = acc[j][2 + e];
+      }
+    if (t4 == 0) {
+      bp[ROWS * D + g] = m[0];
+      bp[ROWS * D + g + 8] = m[1];
+      bp[ROWS * D + ROWS + g] = l[0];
+      bp[ROWS * D + ROWS + g + 8] = l[1];
+    }
   }
+  __syncthreads();
+  finish_split<T, D, ROWS>(bp, min(ROWS, a.nrows - row0), live, split, nsplit, unit, o, a, s,
+                           kh, row0);
 }
 
 template <typename T, typename KV, int D, int ROWS>
@@ -616,59 +796,66 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
                          cudaStream_t stream) {
   dim3 grid(KH * ((a.nrows + ROWS - 1) / ROWS), S, splits);
   const int smem = std::max(Ring<KV, D>::SMEM, (NUM_WARPS * ROWS * (D + 2) + ROWS * (D + 2)) * 4);
+  static_assert(MAX_SPLITS * ROWS + ROWS <= NUM_WARPS * ROWS * (D + 2), "merge factors fit");
   paged_split_kernel<T, KV, D, ROWS><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<T*>(o), a);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV, int D, int ROWS>
-cudaError_t launch_verify(const void* q, const void* k, const void* v,
-                          void* o, int S, int KH, int, const Args& a,
-                          cudaStream_t stream) {
-  dim3 grid(KH, S, (a.nrows + ROWS - 1) / ROWS);
-  paged_verify_kernel<T, KV, D, ROWS><<<grid, VERIFY_THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<T*>(o), a);
-  return cudaGetLastError();
-}
-
-template <bool SPLIT, typename T, typename KV, int D, int ROWS>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int S, int KH, int splits, const Args& a,
-                   cudaStream_t stream) {
-  if constexpr (SPLIT) return launch_split<T, KV, D, ROWS>(q, k, v, o, S, KH, splits, a, stream);
-  else return launch_verify<T, KV, D, ROWS>(q, k, v, o, S, KH, splits, a, stream);
-}
-
-// rows per block: the smallest power of two >= K*R, at most 8
-template <bool SPLIT, typename T, typename KV, int D>
+// rows per block: the smallest power of two >= the unit's rows, at most 8
+template <typename T, typename KV, int D>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o,
                         int S, int KH, int splits, const Args& a,
                         cudaStream_t stream) {
-  if (a.nrows <= 1) return launch<SPLIT, T, KV, D, 1>(q, k, v, o, S, KH, splits, a, stream);
-  if (a.nrows <= 2) return launch<SPLIT, T, KV, D, 2>(q, k, v, o, S, KH, splits, a, stream);
-  if (a.nrows <= 4) return launch<SPLIT, T, KV, D, 4>(q, k, v, o, S, KH, splits, a, stream);
-  return launch<SPLIT, T, KV, D, 8>(q, k, v, o, S, KH, splits, a, stream);
+  if (a.nrows <= 1) return launch_split<T, KV, D, 1>(q, k, v, o, S, KH, splits, a, stream);
+  if (a.nrows <= 2) return launch_split<T, KV, D, 2>(q, k, v, o, S, KH, splits, a, stream);
+  if (a.nrows <= 4) return launch_split<T, KV, D, 4>(q, k, v, o, S, KH, splits, a, stream);
+  return launch_split<T, KV, D, 8>(q, k, v, o, S, KH, splits, a, stream);
+}
+
+template <typename T, typename KV, int D>
+cudaError_t launch_verify_mma(const void* q, const void* k, const void* v, void* o, int S,
+                              int KH, int splits, Args a, cudaStream_t stream) {
+  using TL = KVTile<KV, D>;
+  a.slots = std::min(RING, a.chunk / TILE_KEYS);
+  constexpr int ROWS = 16;
+  const int merge = ((NUM_WARPS - 1) * (D / 2 + 4) * 32 + ROWS * (D + 2)) * 4;
+  const int smem = std::max(a.slots * TL::STAGE, merge);
+  const cudaError_t e = allow_smem<paged_verify_mma_kernel<T, KV, D>>(smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(KH * ((a.nrows + ROWS - 1) / ROWS), S, splits);
+  paged_verify_mma_kernel<T, KV, D><<<grid, NUM_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<T*>(o), a);
+  return cudaGetLastError();
 }
 
 template <bool SPLIT, typename T, typename KV>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* o, int S, int KH, int splits, const Args& a,
                      cudaStream_t stream) {
-  if (D == 64) return launch_rows<SPLIT, T, KV, 64>(q, k, v, o, S, KH, splits, a, stream);
-  if (D == 128) return launch_rows<SPLIT, T, KV, 128>(q, k, v, o, S, KH, splits, a, stream);
+  if constexpr (!SPLIT && !std::is_same<T, float>::value) {
+    if (D == 64) return launch_verify_mma<T, KV, 64>(q, k, v, o, S, KH, splits, a, stream);
+    if (D == 128) return launch_verify_mma<T, KV, 128>(q, k, v, o, S, KH, splits, a, stream);
+  } else {
+    if (D == 64) return launch_rows<T, KV, 64>(q, k, v, o, S, KH, splits, a, stream);
+    if (D == 128) return launch_rows<T, KV, 128>(q, k, v, o, S, KH, splits, a, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
-// SPLIT: the decode kernel, whose plan must cover the key range (1 <=
-// splits <= 16, splits * chunk >= MB*BS), else the verify kernel. Q8: int8
-// pools (with a.ks / a.vs); else the pools have q's dtype.
+// SPLIT: the decode kernel, else the verify kernel (whose f32 queries run
+// the decode kernel's split kernel, in units of <= 8 rows). The plan of
+// either must cover the key range: 1 <= splits <= 16, splits * chunk >=
+// MB*BS, and for the verify kernel chunk a multiple of 64. Q8: int8 pools
+// (with a.ks / a.vs); else the pools have q's dtype.
 template <bool SPLIT, bool Q8>
 int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
              void* o, int S, int KH, int splits, const Args& a, void* stream) {
-  if (SPLIT && (splits < 1 || splits > MAX_SPLITS || a.chunk < 1 ||
-                (long long)splits * a.chunk < (long long)a.MB * a.BS))
+  if (splits < 1 || splits > MAX_SPLITS || a.chunk < 1 ||
+      (long long)splits * a.chunk < (long long)a.MB * a.BS ||
+      (!SPLIT && a.chunk % TILE_KEYS))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -716,7 +903,7 @@ void set_scales(Args& a, const void* ks, const void* vs, long long ks_n,
 // `splits` (1..16) ranges of `chunk` keys, splits * chunk >= MB*BS. Its
 // scratch: tickets, int32 [S * KH * row groups], all zero (the kernel
 // leaves them zero), and part, f32 [S * KH * row groups * splits * rows *
-// (D + 2)] (rows: the smallest power of two >= H/KH, at most 8; row
+// (D + 4)] (rows: the smallest power of two >= H/KH, at most 8; row
 // groups: ceil(H/KH / 8)). Launches that share a scratch must run in order
 // (one stream).
 extern "C" int dstt_paged_decode_attention(
@@ -732,19 +919,24 @@ extern "C" int dstt_paged_decode_attention(
   return dispatch<true, false>(dtype, D, q, k, v, o, S, KH, splits, a, stream);
 }
 
-// As above with q and o [S, K, H, D] by (q_s, q_k, q_h) and (o_s, o_k, o_h);
-// no plan.
+// As above with q and o [S, K, H, D] by (q_s, q_k, q_h) and (o_s, o_k, o_h),
+// the units (slot, kv head, group of <= 16 of the K * H/KH query rows) and
+// the plan chunk a multiple of 64: tickets int32 [S * KH * groups], part
+// f32 [S * KH * groups * splits * 16 * (D + 4)]. f32 queries take units of
+// <= 8 rows (the decode kernel's): tickets int32 [S * KH * ceil(K * H/KH /
+// 8)] (part as above suffices).
 extern "C" int dstt_paged_verify_attention(
     const void* q, const void* k, const void* v, const void* tables,
-    const void* lengths, void* o, int S, int K, int H, int KH, int D, int NB,
-    int BS, int MB, long long q_s, long long q_k, long long q_h, long long k_n,
-    long long k_b, long long k_h, long long v_n, long long v_b, long long v_h,
-    long long t_s, long long o_s, long long o_k, long long o_h, float scale,
-    int dtype, void* stream) {
+    const void* lengths, void* o, void* tickets, void* part, int S, int K,
+    int H, int KH, int D, int NB, int BS, int MB, int splits, int chunk,
+    long long q_s, long long q_k, long long q_h, long long k_n, long long k_b,
+    long long k_h, long long v_n, long long v_b, long long v_h, long long t_s,
+    long long o_s, long long o_k, long long o_h, float scale, int dtype,
+    void* stream) {
   if (S <= 0 || K <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(tables, lengths, nullptr, nullptr, NB, BS, MB, 0, H / KH, K * (H / KH), 1,
+  const Args a = make_args(tables, lengths, tickets, part, NB, BS, MB, chunk, H / KH, K * (H / KH), 1,
                            q_s, q_k, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, o_k, o_h, scale);
-  return dispatch<false, false>(dtype, D, q, k, v, o, S, KH, 0, a, stream);
+  return dispatch<false, false>(dtype, D, q, k, v, o, S, KH, splits, a, stream);
 }
 
 // int8 pools: k, v int8 [NB, BS, KH, D]; ks, vs f32 scale tiles [NB, KH, BS]
@@ -767,18 +959,18 @@ extern "C" int dstt_paged_decode_attention_int8(
 
 extern "C" int dstt_paged_verify_attention_int8(
     const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* tables, const void* lengths, void* o, int S,
-    int K, int H, int KH, int D, int NB, int BS, int MB, long long q_s,
-    long long q_k, long long q_h, long long k_n, long long k_b, long long k_h,
-    long long v_n, long long v_b, long long v_h, long long ks_n,
-    long long ks_h, long long vs_n, long long vs_h, long long t_s,
-    long long o_s, long long o_k, long long o_h, float scale, int dtype,
-    void* stream) {
+    const void* vs, const void* tables, const void* lengths, void* o,
+    void* tickets, void* part, int S, int K, int H, int KH, int D, int NB,
+    int BS, int MB, int splits, int chunk, long long q_s, long long q_k,
+    long long q_h, long long k_n, long long k_b, long long k_h, long long v_n,
+    long long v_b, long long v_h, long long ks_n, long long ks_h,
+    long long vs_n, long long vs_h, long long t_s, long long o_s,
+    long long o_k, long long o_h, float scale, int dtype, void* stream) {
   if (S <= 0 || K <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0) return (int)cudaErrorInvalidValue;
-  Args a = make_args(tables, lengths, nullptr, nullptr, NB, BS, MB, 0, H / KH, K * (H / KH), 1,
+  Args a = make_args(tables, lengths, tickets, part, NB, BS, MB, chunk, H / KH, K * (H / KH), 1,
                      q_s, q_k, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, o_k, o_h, scale);
   set_scales(a, ks, vs, ks_n, ks_h, vs_n, vs_h);
-  return dispatch<false, true>(dtype, D, q, k, v, o, S, KH, 0, a, stream);
+  return dispatch<false, true>(dtype, D, q, k, v, o, S, KH, splits, a, stream);
 }
 
 extern "C" const char* dstt_cuda_error_string(int code) {

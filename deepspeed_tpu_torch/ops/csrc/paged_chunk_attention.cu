@@ -10,48 +10,70 @@
 // Pools are [NB, BS, KH, D], read through their strides: of q's dtype, or
 // int8 with f32 scale tiles [NB, KH, BS] (the kernel's int8 branch,
 // `_deq_tile` :46). Numerics: scale folded into q, f32 online softmax (m, l
-// and the accumulator), output acc / l. On the tensor cores q.scale and P
-// are rounded to the storage dtype before their products, as in the flash
-// kernel.
+// and the accumulator), output acc / max(l, 1e-30). On the tensor cores
+// q.scale and P are rounded to the storage dtype before their products, as
+// in the flash kernel.
 //
-// What bounds it on the H100: at the smoke's shape (C = 256 rows per head,
-// D = 64, up to 768 keys of prefix) the bytes of q, o and the visible K/V
-// and the 4.C.H.keys.D operations take about the same least time, so it is
-// built like the flash kernel (flash_attention_fwd.cu), with the block
-// table in the K/V loads:
-//  * one block of 4 warps per (64-row q tile, q head); each warp owns 16
-//    rows. GQA reads kv head h / (H / KH); nothing is repeated.
-//  * the TPU's sequential table-entry grid axis becomes the loop over
-//    64-key tiles. Each row of a tile is copied from pool block
-//    table[pos / BS] at offset pos % BS with cp.async (16 bytes a thread),
-//    two buffers deep; the loop stops at the tile holding this q tile's
-//    last visible key, so blocks past the chunk are never read.
-//  * S = Q.K^T and O += P.V run on mma.sync m16n8k16 with P kept in
-//    registers; only tiles that reach past the causal bound of the tile's
-//    first row (or past the table) pay for the mask.
-//  * int8 pools: an int8 value of at most 127 in magnitude is exact in bf16
-//    and fp16, so the tensor-core path is unchanged. The int8 tile and its
-//    two scale columns are copied with cp.async (a 64-wide int8 row is 4
-//    16-byte chunks, not 8, so the copy has its own layout in shared
-//    memory), converted to q's dtype WITHOUT the scale into the tile the
-//    ldmatrix addressing expects, and the scales are applied around the
-//    products: scale_k per key column to S in f32 after Q.K^T, scale_v per
-//    key to P before it is rounded for P.V, while l sums the unscaled P.
+// What bounds it on the H100: at the main path's shape (C = 256, D = 64, up
+// to 768 keys) the least time is ~1.5 us of bytes, far below a launch's
+// fixed cost, so the kernel is bound by latency: the first K/V tile's
+// arrival, then each 64-key tile's products in series (~1.3 us a tile for
+// 4 warps on an H100 SM). Its design (`paged_chunk_mma_kernel`, 16-bit
+// queries):
+//  * one block per (64-row q tile, kv head). The rows of a kv head are its
+//    R query heads stacked as (position c, head r), row c*R + r, as the
+//    Pallas kernel's (KH, C*R, D) block: a K/V tile is read once per kv
+//    head, not once per q head.
+//  * two warp groups of 4 warps, each warp owning 16 rows; group g takes
+//    the tile's 64-key stages g, g + 2, ..., copies them itself and waits
+//    at its own named barrier, so the groups run apart and a q tile's
+//    chain of tiles is half as long; group 1's partial merges into group
+//    0's through shared memory at the end, register by register.
+//  * no key split across blocks: a tile's whole visible range is one
+//    block's, so the grid does not depend on start and a key is summed in
+//    the same place whatever the pool's geometry. Splits of 256 keys
+//    merged through device memory by arrival tickets were measured on the
+//    H100: slower at C=256 (0.0258 against 0.0198 ms at start 256), and at
+//    C=64 and 128, where the q tiles leave most SMs idle, faster only at
+//    C=64 over 960 keys (by 7-11%) and up to 2x slower elsewhere
+//    (scripts/compare_paged_decode.py against a checkout with the split).
+//  * a ring of 2 stages a group filled by 16-byte cp.async through the
+//    table (paged_tiles.cuh): one computed, the next in flight. q's loads
+//    are issued before the copies and used only after them (used right
+//    after, each stalled its thread: the first tile landed ~3 us later on
+//    the H100).
+//  * mma.sync m16n8k16 rather than wgmma: a warp's 16 rows are a small
+//    product that waits on latency, and the int8 path needs B operands from
+//    registers (wgmma reads B from shared memory only, which would bring
+//    back a shared-memory conversion pass). S = Q.K^T and O += P.V with P
+//    in registers; only tiles that reach a row's causal bound (or the
+//    table's end) pay for the mask.
+//  * int8 pools: the tiles stay int8 in shared memory and are widened to
+//    q's dtype in registers as the fragments are built (paged_tiles.cuh);
+//    scale_k per key column to S in f32 after Q.K^T, scale_v per key to P
+//    before it is rounded for P.V, while l sums the unscaled P.
 //  * float32 inputs take a plain FMA kernel: one warp per query row (int8
 //    pools fold the scales into the score and into P, as above).
 
+#include <algorithm>
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
+#include "paged_tiles.cuh"
 
 namespace {
 
 using namespace dstt;
 
 constexpr int BLOCK_M = 64;   // query rows per block (4 warps x 16)
-constexpr int BLOCK_N = 64;   // keys per tile
-constexpr int NUM_WARPS = 4;
+constexpr int NUM_WARPS = 4;             // warps of a group (the f32 kernel: a block)
 constexpr int NUM_THREADS = NUM_WARPS * 32;
+
+// The mma kernel's warp groups of 4 warps (one 16-row warp each), each
+// taking every other stage of the keys. Four (at D=64, 128 registers a
+// thread: 20 bytes spilled) were slower on the H100.
+constexpr int G = 2;
 
 struct Args {
   const int* table;    // [MB] block ids of the slot
@@ -65,271 +87,264 @@ struct Args {
 
 // pool row of key position pos (clamped into the pool)
 __device__ __forceinline__ long long pool_block(const Args& a, int pos) {
-  return min(max(a.table[pos / a.BS], 0), a.NB - 1);
+  return min(max(a.table[min(pos / a.BS, a.MB - 1)], 0), a.NB - 1);
 }
 
-// shared memory of the mma kernel: the q tile and the K/V tiles of q's
-// dtype (two deep for fp pools; one converted tile for int8 pools, whose
-// int8 tiles and scale columns are the two-deep copies)
-template <typename T, int D, bool Q8>
-constexpr size_t mma_smem_bytes() {
-  return (size_t)(BLOCK_M + (Q8 ? 2 : 4) * BLOCK_N) * (D + 8) * sizeof(T)
-         + (Q8 ? (size_t)2 * 2 * BLOCK_N * (D + (int)sizeof(float)) : 0);
-}
-
-template <typename T, int D, bool Q8>
-__global__ void __launch_bounds__(NUM_THREADS)
-paged_chunk_mma_kernel(const T* __restrict__ q, const void* __restrict__ kp_,
-                       const void* __restrict__ vp_, T* __restrict__ o, Args a) {
-  using KV = std::conditional_t<Q8, int8_t, T>;
-  constexpr int LD = D + 8;          // padded shared row, in elements
-  constexpr int VEC = 8;             // elements per 16-byte chunk
-  constexpr int CHUNKS = D / VEC;    // chunks per row
-  constexpr int CHUNKS8 = D / 16;    // 16-byte chunks per int8 row
-  constexpr int KV_BUFS = Q8 ? 1 : 2;
-  const KV* kp = static_cast<const KV*>(kp_);
-  const KV* vp = static_cast<const KV*>(vp_);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);   // [BLOCK_M][LD]
-  T* sK = sQ + BLOCK_M * LD;                // [KV_BUFS][BLOCK_N][LD]
-  T* sV = sK + KV_BUFS * BLOCK_N * LD;      // [KV_BUFS][BLOCK_N][LD]
-  // int8 pools only: [2][BLOCK_N][D] int8 tiles, [2][BLOCK_N] f32 scales
-  int8_t* sK8 = reinterpret_cast<int8_t*>(sV + KV_BUFS * BLOCK_N * LD);
-  int8_t* sV8 = sK8 + 2 * BLOCK_N * D;
-  float* sKs = reinterpret_cast<float*>(sV8 + 2 * BLOCK_N * D);
-  float* sVs = sKs + 2 * BLOCK_N;
+// grid (q tiles, KH); the design is in the note at the top
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(G * NUM_THREADS, 1)
+paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                       const KV* __restrict__ vp, T* __restrict__ o, Args a) {
+  using TL = KVTile<KV, D>;
+  using CP = TileCopy<KV, D, NUM_THREADS>;   // a group copies its own stages
+  constexpr bool Q8 = TL::Q8;
+  constexpr int CPT = CP::CPT;
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
-  const int h = blockIdx.y;
-  const int kh = h / (a.H / a.KH);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = qt * BLOCK_M;
+  const int kh = blockIdx.y;
+  // warp group gr takes the tile's stages gr, gr + G, ...; warp w of a
+  // group owns rows 16w..16w+15 of the q tile
+  const int gr = threadIdx.x / NUM_THREADS, warp = threadIdx.x / 32 % NUM_WARPS;
+  const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int R = a.H / a.KH, rows = a.C * R;
   const int span = a.MB * a.BS;
+  DSTT_STAMP(0);
 
-  const T* qb = q + h * a.q_h;
-  const KV* kb = kp + kh * a.k_h;
-  const KV* vb = vp + kh * a.v_h;
+  // exclusive bound on the keys row `row` (= c * R + r) sees; rows past the
+  // chunk take the last one's (they are never written)
+  auto lim_of = [&](int row) { return min(a.start + min(row, rows - 1) / R + 1, span); };
+  const int q0 = qt * BLOCK_M;
+  const int end = lim_of(q0 + BLOCK_M - 1);   // the tile's keys [0, end), end >= 1
+  const int nstages = (end + TILE_KEYS - 1) / TILE_KEYS;
 
-  // keys this q tile can see: positions < start + (its last row) + 1
-  const int hi = min(a.start + min(q0 + BLOCK_M, a.C), span);
-  const int n_kt = (hi + BLOCK_N - 1) / BLOCK_N;
-
-  auto load_kv = [&](int tile, int buf) {
-    const int k0 = tile * BLOCK_N;
-    if constexpr (Q8) {
-      int8_t* dK = sK8 + buf * BLOCK_N * D;
-      int8_t* dV = sV8 + buf * BLOCK_N * D;
-      for (int c = tid; c < BLOCK_N * CHUNKS8; c += NUM_THREADS) {
-        const int r = c / CHUNKS8, col = (c % CHUNKS8) * 16;
-        const int pos = k0 + r;
-        const bool ok = pos < hi;
-        const int p = ok ? pos : 0;
-        const long long blk = pool_block(a, p);
-        const long long off = p % a.BS;
-        cp_async16(dK + r * D + col, kb + blk * a.k_n + off * a.k_b + col, ok);
-        cp_async16(dV + r * D + col, vb + blk * a.v_n + off * a.v_b + col, ok);
-      }
-      for (int r = tid; r < BLOCK_N; r += NUM_THREADS) {
-        const int pos = k0 + r;
-        const bool ok = pos < hi;
-        const int p = ok ? pos : 0;
-        const long long blk = pool_block(a, p);
-        const long long off = p % a.BS;
-        cp_async4(sKs + buf * BLOCK_N + r, a.ks + blk * a.ks_n + kh * a.ks_h + off, ok);
-        cp_async4(sVs + buf * BLOCK_N + r, a.vs + blk * a.vs_n + kh * a.vs_h + off, ok);
-      }
-    } else {
-      T* dK = sK + buf * BLOCK_N * LD;
-      T* dV = sV + buf * BLOCK_N * LD;
-      for (int c = tid; c < BLOCK_N * CHUNKS; c += NUM_THREADS) {
-        const int r = c / CHUNKS, col = (c % CHUNKS) * VEC;
-        const int pos = k0 + r;
-        const bool ok = pos < hi;
-        const int p = ok ? pos : 0;
-        const long long blk = pool_block(a, p);
-        const long long off = p % a.BS;
-        cp_async16(dK + r * LD + col, kb + blk * a.k_n + off * a.k_b + col, ok);
-        cp_async16(dV + r * LD + col, vb + blk * a.v_n + off * a.v_b + col, ok);
-      }
-    }
-    cp_async_commit();
-  };
-
-  // int8 pools: the arrived int8 tile of buffer buf -> the tile of q's dtype
-  // (values as they are; the scales are applied around the products)
-  auto convert_kv = [&](int buf) {
-    const int8_t* cK8 = sK8 + buf * BLOCK_N * D;
-    const int8_t* cV8 = sV8 + buf * BLOCK_N * D;
-    for (int c = tid; c < 2 * BLOCK_N * CHUNKS8; c += NUM_THREADS) {
-      const int which = c / (BLOCK_N * CHUNKS8), cc = c % (BLOCK_N * CHUNKS8);
-      const int r = cc / CHUNKS8, col = (cc % CHUNKS8) * 16;
-      const int4 raw = *reinterpret_cast<const int4*>((which ? cV8 : cK8) + r * D + col);
-      const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-      uint32_t w[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) w[i] = pack2<T>(to_float(e[2 * i]), to_float(e[2 * i + 1]));
-      T* dst = (which ? sV : sK) + r * LD + col;
-      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-      *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
-    }
-  };
-
-  load_kv(0, 0);
-
-  // Q tile, scaled in the storage dtype: (q * scale).astype(q.dtype)
-  for (int c = tid; c < BLOCK_M * CHUNKS; c += NUM_THREADS) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * VEC;
-    const int row = q0 + r;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row < a.C) raw = *reinterpret_cast<const uint4*>(qb + (long long)row * a.q_c + col);
-    T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) e[i] = from_float<T>(to_float(e[i]) * a.scale);
-    *reinterpret_cast<uint4*>(sQ + r * LD + col) = raw;
-  }
-  __syncthreads();
-
-  const int wr = warp * 16;
+  // this thread's rows, their bounds, and q's words for the A fragments
+  // (rows past the chunk zero): all loads issued ahead of the copies, and
+  // none used before the copies are issued (a use would stall the thread
+  // on its first load and serialise the rest)
+  const int wr = q0 + warp * 16;
+  const int ra = wr + g, rb = ra + 8;
+  const int lim_a = lim_of(ra), lim_b = lim_of(rb), lo = lim_of(wr);
+  const T* qa = q + (long long)(min(ra, rows - 1) / R) * a.q_c + (kh * R + ra % R) * a.q_h;
+  const T* qb = q + (long long)(min(rb, rows - 1) / R) * a.q_c + (kh * R + rb % R) * a.q_h;
   uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (wr + (lane % 8) + ((lane / 8) % 2) * 8) * LD + kk * 16 + (lane / 16) * 8);
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = TL::qdim(kk, t4, h);
+      qf[kk][2 * h] = *reinterpret_cast<const uint32_t*>(qa + d);
+      qf[kk][2 * h + 1] = *reinterpret_cast<const uint32_t*>(qb + d);
+    }
+  }
 
-  const int g = lane / 4, t4 = lane % 4;
-  const int row_a = q0 + wr + g, row_b = row_a + 8;
+  const KV* kb = kp + kh * a.k_h;
+  const KV* vb = vp + kh * a.v_h;
+  // group gr's i-th stage is the tile's stage gr + G*i, in ring slot
+  // 2gr + i % 2; the group's threads copy it (tid: a thread's index in its
+  // group)
+  const int tid = threadIdx.x % NUM_THREADS;
+  auto issue = [&](int i) {
+    unsigned char* stage = smem + (2 * gr + i % 2) * TL::STAGE;
+    const int p0 = (gr + G * i) * TILE_KEYS;
+    int blk[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) blk[c] = pool_block(a, min(p0 + CP::row(c, tid), end - 1));
+    CP::issue(stage, kb, vb, blk, p0, end, a.BS, a.k_n, a.k_b, a.v_n, a.v_b, tid);
+    if constexpr (Q8)
+      CP::issue_scales(stage, a.ks + kh * a.ks_h, a.vs + kh * a.vs_h,
+                       pool_block(a, min(p0 + tid % TILE_KEYS, end - 1)), p0, end, a.BS,
+                       a.ks_n, a.vs_n, tid);
+  };
+  // a group's stages: one computed, the next one in flight (a third slot a
+  // group measured the same on the H100: a stage's product takes longer
+  // than its copy)
+  const int nmine = nstages > gr ? (nstages - gr + G - 1) / G : 0;   // this group's
+  if (nmine > 0) issue(0);
+  cp_async_commit();
+
+  // the A fragments: q.scale rounded to q's dtype, as the flash kernel
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const T* e = reinterpret_cast<const T*>(&qf[kk][i]);
+      const bool live_row = (i % 2 ? rb : ra) < rows;
+      qf[kk][i] = live_row ? pack2<T>(to_float(e[0]) * a.scale, to_float(e[1]) * a.scale) : 0u;
+    }
+  }
+
   float m_r[2] = {-INFINITY, -INFINITY};
   float l_r[2] = {0.f, 0.f};   // per-thread partial row sums, reduced at the end
   float acc[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  for (int j = 0; j < n_kt; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kt) {
-      load_kv(j + 1, buf ^ 1);
+  // the groups run apart: each waits on its own copies at its own barrier
+  for (int i = 0; i < nmine; ++i) {
+    if (i + 1 < nmine) {   // the group's next stage into its other slot
+      issue(i + 1);
+      cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
-    if constexpr (Q8) {
-      convert_kv(buf);
-      __syncthreads();
-    }
-    const T* cK = sK + (Q8 ? 0 : buf) * BLOCK_N * LD;
-    const T* cV = sV + (Q8 ? 0 : buf) * BLOCK_N * LD;
+    named_barrier(1 + gr, NUM_THREADS);   // the stage landed for the group's copies
+    if (i == 0) DSTT_STAMP(1);
+    const int st = gr + G * i;
+    {
+      const unsigned char* kt = smem + (2 * gr + i % 2) * TL::STAGE;
+      const unsigned char* vt = kt + TL::BYTES;
+      const float* sc = reinterpret_cast<const float*>(vt + TL::BYTES);   // int8: K, V scales
+      const int p0 = st * TILE_KEYS;
 
-    // S = Qs . K^T, 16 x 64 per warp
-    float s[BLOCK_N / 8][4];
+      // S = Qs . K^T, 16 x 64 per warp: four groups of 16 keys
+      float s[4][2][4];
 #pragma unroll
-    for (int i = 0; i < BLOCK_N / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      for (int kq = 0; kq < 4; ++kq) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BLOCK_N / 16; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, cK + (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8);
-        mma16816<T>(s[2 * np], qf[kk], bf);
-        mma16816<T>(s[2 * np + 1], qf[kk], bf + 2);
+        for (int t = 0; t < 2; ++t) s[kq][t][0] = s[kq][t][1] = s[kq][t][2] = s[kq][t][3] = 0.f;
+        qk_rows16<T, KV, D>(s[kq], qf, kt, 16 * kq, lane);
       }
-    }
-
-    if constexpr (Q8) {   // S = Qs . (scale_k * K_int)^T
-      const float* ksc = sKs + buf * BLOCK_N;
+      if constexpr (Q8) {   // S = Qs . (scale_k * K_int)^T
 #pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
+        for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= ksc[nt * 8 + 2 * t4 + (e & 1)];
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[kq][t][e] *= sc[16 * kq + s_row<KV, D>(t, e, t4)];
       }
-    }
+      if (p0 + TILE_KEYS > lo) {   // some key at or past a row's bound
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (p0 + 16 * kq + s_row<KV, D>(t, e, t4) >= (e < 2 ? lim_a : lim_b))
+                s[kq][t][e] = -INFINITY;
+      }
 
-    const int k0 = j * BLOCK_N;
-    if (k0 + BLOCK_N - 1 > a.start + q0 || k0 + BLOCK_N > span) {
+      // online softmax: new running max, rescale factor, P in registers
+      float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
+      for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + nt * 8 + 2 * t4 + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          if (col >= span || col > a.start + row) s[nt][e] = -INFINITY;
+        for (int t = 0; t < 2; ++t) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[kq][t][0], s[kq][t][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[kq][t][2], s[kq][t][3]));
         }
+      float base[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+        alpha[i] = __expf(m_r[i] - base[i]);
+        m_r[i] = mx[i];
       }
-    }
+      uint32_t pf[4][1][4];   // P rounded to q's dtype, as the flash kernel
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          float pe[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pe[e] = __expf(s[kq][t][e] - base[e / 2]);
+            rs[e / 2] += pe[e];
+            // O += (P * scale_v) . V_int; l keeps the unscaled P
+            if constexpr (Q8) pe[e] *= sc[TILE_KEYS + 16 * kq + s_row<KV, D>(t, e, t4)];
+          }
+          pf[kq][0][2 * t] = pack2<T>(pe[0], pe[1]);
+          pf[kq][0][2 * t + 1] = pack2<T>(pe[2], pe[3]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
 
-    // online softmax: new running max, rescale factor, P in registers
-    float mx[2] = {m_r[0], m_r[1]};
+      // O += P . V
 #pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      for (int kq = 0; kq < 4; ++kq) pv_step<T, KV, D, 1>(acc, pf[kq], vt, 16 * kq, lane);
     }
-    float base[2], alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
-      alpha[i] = __expf(m_r[i] - base[i]);
-      m_r[i] = mx[i];
-    }
-    uint32_t pf[BLOCK_N / 16][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      float p0 = __expf(s[nt][0] - base[0]), p1 = __expf(s[nt][1] - base[0]);
-      float p2 = __expf(s[nt][2] - base[1]), p3 = __expf(s[nt][3] - base[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      if constexpr (Q8) {   // O += (P * scale_v) . V_int; l keeps the unscaled P
-        const float* vsc = sVs + buf * BLOCK_N + nt * 8 + 2 * t4;
-        p0 *= vsc[0];
-        p1 *= vsc[1];
-        p2 *= vsc[0];
-        p3 *= vsc[1];
-      }
-      pf[nt / 2][(nt % 2) * 2 + 0] = pack2<T>(p0, p1);
-      pf[nt / 2][(nt % 2) * 2 + 1] = pack2<T>(p2, p3);
-    }
-    l_r[0] = l_r[0] * alpha[0] + rs[0];
-    l_r[1] = l_r[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= alpha[0];
-      acc[i][1] *= alpha[0];
-      acc[i][2] *= alpha[1];
-      acc[i][3] *= alpha[1];
-    }
-
-    // O += P . V
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, cV + (kk * 16 + ((lane / 8) % 2) * 8 + (lane % 8)) * LD + dp * 16 + (lane / 16) * 8);
-        mma16816<T>(acc[2 * dp], pf[kk], bf);
-        mma16816<T>(acc[2 * dp + 1], pf[kk], bf + 2);
-      }
-    }
-    __syncthreads();   // this buffer is refilled by the next prefetch
+    named_barrier(1 + gr, NUM_THREADS);   // the group is done with the slot
   }
-
+  __syncthreads();   // both groups are done with the ring
+  DSTT_STAMP(2);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
   }
-  T* ob = o + h * a.o_h;
+
+  // group 1's partial into group 0's through shared memory, register by
+  // register: thread t of group 1 holds the rows and dims thread t of group
+  // 0 does, and a register's column of 128 threads is free of bank
+  // conflicts (the ring is free: every warp passed the loop's last barrier)
+  {
+    float* x = reinterpret_cast<float*>(smem);   // [D / 2 + 4][128]
+    const int t = threadIdx.x % NUM_THREADS;
+    if (gr == 1) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int d = i * 8 + 2 * t4;
-    if (row_a < a.C)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row_a * a.o_c + d) =
-          pack2<T>(acc[i][0] / fmaxf(l_r[0], 1e-30f), acc[i][1] / fmaxf(l_r[0], 1e-30f));
-    if (row_b < a.C)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row_b * a.o_c + d) =
-          pack2<T>(acc[i][2] / fmaxf(l_r[1], 1e-30f), acc[i][3] / fmaxf(l_r[1], 1e-30f));
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[(4 * j + k) * NUM_THREADS + t] = acc[j][k];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        x[(D / 2 + h) * NUM_THREADS + t] = m_r[h];
+        x[(D / 2 + 2 + h) * NUM_THREADS + t] = l_r[h];
+      }
+    }
+    __syncthreads();
+    if (gr == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m1 = x[(D / 2 + h) * NUM_THREADS + t], mx = fmaxf(m_r[h], m1);
+        const float ref = mx == -INFINITY ? 0.f : mx;
+        const float f0 = __expf(m_r[h] - ref), f1 = __expf(m1 - ref);
+        l_r[h] = l_r[h] * f0 + x[(D / 2 + 2 + h) * NUM_THREADS + t] * f1;
+        m_r[h] = mx;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            acc[j][2 * h + e] = acc[j][2 * h + e] * f0 + x[(4 * j + 2 * h + e) * NUM_THREADS + t] * f1;
+      }
+    }
   }
+
+  auto out_row = [&](int row) -> T* {
+    return o + (long long)(row / R) * a.o_c + (kh * R + row % R) * a.o_h;
+  };
+  if (gr) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h ? rb : ra;
+    if (row >= rows) continue;
+    T* orow = out_row(row);
+    const float lv = fmaxf(l_r[h], 1e-30f);
+    if constexpr (Q8) {   // dims (D/8) * n + j: pairs of neighbouring tiles
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < D / 8; j += 2)
+          *reinterpret_cast<uint32_t*>(orow + TL::dim(j, e, t4)) =
+              pack2<T>(acc[j][2 * h + e] / lv, acc[j + 1][2 * h + e] / lv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + TL::dim(j, 0, t4)) =
+            pack2<T>(acc[j][2 * h] / lv, acc[j][2 * h + 1] / lv);
+    }
+  }
+  DSTT_STAMP(4);
 }
 
 // float32: one warp per query row, each lane holding D/32 columns
@@ -382,16 +397,17 @@ paged_chunk_f32_kernel(const float* __restrict__ q, const void* __restrict__ kp_
 }
 
 template <typename T, int D, bool Q8>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       const Args& a, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<T, D, Q8>();
-  // per device, so it is set on every launch (a host-side call, no sync)
-  cudaError_t e = cudaFuncSetAttribute(paged_chunk_mma_kernel<T, D, Q8>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, const Args& a,
+                       cudaStream_t stream) {
+  using KV = std::conditional_t<Q8, int8_t, T>;
+  using TL = KVTile<KV, D>;
+  const int smem = std::max(2 * G * TL::STAGE, (D / 2 + 4) * NUM_THREADS * 4);
+  const cudaError_t e = allow_smem<paged_chunk_mma_kernel<T, KV, D>>(smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.C + BLOCK_M - 1) / BLOCK_M, a.H);
-  paged_chunk_mma_kernel<T, D, Q8><<<grid, NUM_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), k, v, static_cast<T*>(o), a);
+  dim3 grid((a.C * (a.H / a.KH) + BLOCK_M - 1) / BLOCK_M, a.KH);
+  paged_chunk_mma_kernel<T, KV, D><<<grid, G * NUM_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      static_cast<T*>(o), a);
   return cudaGetLastError();
 }
 
@@ -463,8 +479,8 @@ extern "C" int dstt_paged_chunk_attention_int8(
     void* stream) {
   if (C <= 0 || H <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 || start < 0)
     return (int)cudaErrorInvalidValue;
-  Args a = make_args(table, C, H, KH, NB, BS, MB, start, q_c, q_h, k_n, k_b, k_h,
-                     v_n, v_b, v_h, o_c, o_h, scale);
+  Args a = make_args(table, C, H, KH, NB, BS, MB, start, q_c, q_h, k_n, k_b, k_h, v_n,
+                     v_b, v_h, o_c, o_h, scale);
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);
   a.ks_n = ks_n; a.ks_h = ks_h; a.vs_n = vs_n; a.vs_h = vs_h;

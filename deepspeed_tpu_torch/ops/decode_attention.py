@@ -189,7 +189,7 @@ def _bind_paged(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_decode_attention.restype = ctypes.c_int
     lib.dstt_paged_verify_attention.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 13
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 13
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_verify_attention.restype = ctypes.c_int
     lib.dstt_paged_decode_attention_int8.argtypes = (
@@ -197,7 +197,7 @@ def _bind_paged(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_decode_attention_int8.restype = ctypes.c_int
     lib.dstt_paged_verify_attention_int8.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 17
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 17
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_verify_attention_int8.restype = ctypes.c_int
 
@@ -245,29 +245,67 @@ def paged_row_groups(nrows: int) -> int:
     return -(-nrows // 8)
 
 
-_SPLITS = {}   # (stream, S, KH, R, span, D) -> launch args
+def paged_verify_plan(span: int, S: int, KH: int,
+                      rows: int) -> Tuple[int, int, int]:
+    """How the paged verify kernel (``paged_attention.cu``) cuts its work:
+    ``(units, splits, chunk)``. A unit is one (slot, kv head, group of up
+    to 16 of the ``rows`` = K * H/KH query rows, the rows of one tensor-core
+    tile); each unit's key range ``[0, span)`` is cut into splits of 256
+    keys, more only past 16 splits (measured on the H100 at S=8 over 1024
+    keys: 256 beat 128 and 512 at GPT-2 XL and at H=32/KH=8). The chunk
+    does not depend on the span below that cap, so servers whose pools
+    differ in blocks a slot sum each key in the same place. Static sizes
+    only: lengths stay on the device."""
+    chunk = 256
+    if span > _MAX_SPLITS * chunk:
+        chunk = -(-span // (_MAX_SPLITS * 128)) * 128
+    return S * KH * -(-rows // 16), -(-span // chunk), chunk
+
+
+_SCRATCH = {}   # (kernel, stream, shape) -> (tickets, partials, launch args)
+
+
+def _scratch(key, device, units, part, plan):
+    """Arrival tickets for ``units`` units (zero; the kernels leave them
+    so) and ``part`` f32 partials, kept per ``key`` (a stream is on one
+    device, and launches on one stream run in order; the partials live only
+    within a launch), with the C arguments ``(tickets, part, *plan)``."""
+    tickets = torch.zeros(units, dtype=torch.int32, device=device)
+    buf = torch.empty(part, dtype=torch.float32, device=device)
+    hit = _SCRATCH[key] = (tickets, buf, (tickets.data_ptr(),
+                                           buf.data_ptr(), *plan))
+    return hit[2]
 
 
 def _split_args(q, stream, S, KH, MB, BS):
     """The plan of a paged decode launch and its scratch, as the C
-    interface takes them: ``(tickets, partials, splits, chunk)``, kept per
-    (device, stream) and shape, so a call pays one dict lookup. The
-    tickets start at zero and the kernel leaves them so; the partials live
-    only within a launch, and launches on one stream run in order."""
+    interface takes them: ``(tickets, partials, splits, chunk)``, so a call
+    pays one dict lookup."""
     R, D = q.shape[1] // KH, q.shape[-1]
-    key = (stream, S, KH, R, MB * BS, D)   # a stream is on one device
-    hit = _SPLITS.get(key)
-    if hit is None:
-        sms = sm_count(q.device)
-        units = S * KH * paged_row_groups(R)
-        splits, chunk = paged_split_plan(MB * BS, units, sms)
-        rows = 1 << (min(R, 8) - 1).bit_length()
-        tickets = torch.zeros(units, dtype=torch.int32, device=q.device)
-        part = torch.empty(units * splits * rows * (D + 2),
-                           dtype=torch.float32, device=q.device)
-        hit = _SPLITS[key] = (tickets, part, (tickets.data_ptr(),
-                                              part.data_ptr(), splits, chunk))
-    return hit[2]
+    key = ("decode", stream, S, KH, R, MB * BS, D)
+    hit = _SCRATCH.get(key)
+    if hit is not None:
+        return hit[2]
+    units = S * KH * paged_row_groups(R)
+    splits, chunk = paged_split_plan(MB * BS, units, sm_count(q.device))
+    rows = 1 << (min(R, 8) - 1).bit_length()
+    return _scratch(key, q.device, units, units * splits * rows * (D + 4),
+                    (splits, chunk))
+
+
+def _verify_args(q, stream, KH, MB, BS):
+    """:func:`_split_args` of a paged verify launch (q ``[S, K, H, D]``,
+    16 rows a unit; f32 queries take the decode kernel's units of up to 8
+    rows, so the tickets count those)."""
+    S, K, H, D = q.shape
+    rows = K * (H // KH)
+    key = ("verify", stream, S, KH, rows, MB * BS, D)
+    hit = _SCRATCH.get(key)
+    if hit is not None:
+        return hit[2]
+    units, splits, chunk = paged_verify_plan(MB * BS, S, KH, rows)
+    return _scratch(key, q.device, S * KH * paged_row_groups(rows),
+                    units * splits * 16 * (D + 4), (splits, chunk))
 
 
 def _check_pools(name, q, k_pool, v_pool, k_scale, v_scale):
@@ -591,15 +629,17 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths,
     _check_operands("paged_verify_attention", (q, k_pool, v_pool),
                     (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
+    MB = block_tables.shape[1]
     o = torch.empty((S, K, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, part, splits, chunk = _verify_args(q, stream, KH, MB, BS)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_verify_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), S, K, H,
-        KH, D, NB, BS, block_tables.shape[1], *q.stride()[:3],
+        block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), tickets,
+        part, S, K, H, KH, D, NB, BS, MB, splits, chunk, *q.stride()[:3],
         *k_pool.stride()[:3], *v_pool.stride()[:3], block_tables.stride(0),
-        *o.stride()[:3], _scale(scale, D), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *o.stride()[:3], _scale(scale, D), _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "paged_verify_attention", rc)
     paged_verify_attention.launches += 1
     return o
@@ -622,14 +662,17 @@ def paged_verify_attention_int8(q, k_pool, v_pool, block_tables, lengths,
     ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
                                 (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
+    MB = block_tables.shape[1]
     o = torch.empty((S, K, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, part, splits, chunk = _verify_args(q, stream, KH, MB, BS)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_verify_attention_int8(
         q.data_ptr(), *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), S, K, H, KH, D, NB, BS, block_tables.shape[1],
+        o.data_ptr(), tickets, part, S, K, H, KH, D, NB, BS, MB, splits, chunk,
         *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
         *sstrides, block_tables.stride(0), *o.stride()[:3], _scale(scale, D),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, name, rc)
     paged_verify_attention_int8.launches += 1
     return o

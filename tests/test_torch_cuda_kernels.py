@@ -647,6 +647,81 @@ def test_paged_decode_splits_on_card(cuda_device, dtype, H, KH, D, BS, pool):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+# B6/B6i and B7/B7i over every cp.async geometry: BS 16, 32 and 128
+VERIFY_CHUNK_CASES = PAGED_INT8_CASES + [(torch.bfloat16, 8, 2, 64, 16),
+                                         (torch.float16, 32, 8, 128, 16)]
+
+
+def _pool_case(g, dtype, H, KH, D, BS, pool):
+    """:func:`_split_edge_case`'s pools, tables and lengths, the pools int8
+    (with their scale tiles in ``sc``) for ``pool == "int8"``."""
+    kp, vp, tables, lens = _split_edge_case(g, dtype, H, KH, D, BS)
+    sc = {}
+    if pool == "int8":
+        (kp, ks), (vp, vs) = _int8_pool(kp), _int8_pool(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    return kp, vp, tables, lens, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 4, 8])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype,H,KH,D,BS", VERIFY_CHUNK_CASES)
+def test_paged_verify_splits_on_card(cuda_device, dtype, H, KH, D, BS, pool,
+                                     K):
+    """B7 / B7i over split key ranges with lengths 0, 1, BS-1, BS, BS+1 and
+    MB*BS-K in one batch (K*R up to 32 rows: two tensor-core row groups):
+    against the plain version, and the same bits on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    kp, vp, tables, lens, sc = _pool_case(g, dtype, H, KH, D, BS, pool)
+    S, MB = tables.shape
+    lens[-1] = MB * BS - K
+    q = _randn(g, (S, K, H, D), dtype)
+    fn = (port_decode.paged_verify_attention_int8 if sc
+          else port_decode.paged_verify_attention)
+    n = fn.launches
+    out = port_decode.paged_verify_attention(q, kp, vp, tables, lens, **sc)
+    again = port_decode.paged_verify_attention(q, kp, vp, tables, lens, **sc)
+    ref = port_decode.paged_verify_attention_reference(q, kp, vp, tables,
+                                                       lens, **sc)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert fn.launches == n + 2
+    assert torch.equal(out, again)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype,H,KH,D,BS", VERIFY_CHUNK_CASES)
+def test_paged_chunk_splits_on_card(cuda_device, dtype, H, KH, D, BS, pool):
+    """B6 / B6i with C in {1, 17, 64, 256} at start {0, 1, 255, 256, 512}
+    through a full table row (1024 keys): q tiles of 1 to 12 64-key stages
+    split between the two warp groups (one group idle at 1), against the
+    plain version, and the same bits on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    kp, vp, tables, _, sc = _pool_case(g, dtype, H, KH, D, BS, pool)
+    row = tables[-1]
+    fn = (port_decode.paged_chunk_attention_int8 if sc
+          else port_decode.paged_chunk_attention)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for C in (1, 17, 64, 256):
+        for start in (0, 1, 255, 256, 512):
+            qc = _randn(g, (C, H, D), dtype)
+            n = fn.launches
+            out = port_decode.paged_chunk_attention(qc, kp, vp, row, start,
+                                                    **sc)
+            again = port_decode.paged_chunk_attention(qc, kp, vp, row,
+                                                      start, **sc)
+            ref = port_decode.paged_chunk_attention_reference(
+                qc, kp, vp, row, start, **sc)
+            torch.cuda.synchronize()
+            assert fn.launches == n + 2
+            assert torch.equal(out, again), (C, start)
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= tol, (C, start, err)
+
+
 @pytest.mark.cuda
 def test_server_decode_steps_add_no_host_sync_on_card(cuda_device):
     """Steady-state ContinuousBatchingServer decode steps (the async loop)
@@ -679,6 +754,51 @@ def test_server_decode_steps_add_no_host_sync_on_card(cuda_device):
     out = srv.drain()
     srv.close()
     assert all(len(out[r]) == n_p + 24 for r, n_p in zip(ids, (3, 100)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["verify", "chunk"])
+def test_server_verify_and_chunk_steps_add_no_host_sync_on_card(
+        cuda_device, program):
+    """As the decode test above: steady-state speculative verify steps
+    (K=4, the async loop) and a non-final chunk step of a 64-token chunked
+    prefill under set_sync_debug_mode("error"). The verify and chunk
+    wrappers, their plans and their scratch read nothing back from the
+    device."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        InferenceTransformerConfig, init_params)
+    cfg = InferenceTransformerConfig(vocab_size=512, n_positions=256,
+                                     n_embd=256, n_layer=2, n_head=4)
+    params = init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg)
+    knobs = ({"speculation_tokens": 4} if program == "verify" else
+             {"enable_prefix_caching": True, "prefill_chunk_tokens": 64})
+    eng = deepspeed_tpu_torch.init_inference(
+        (cfg, params), dtype="bf16", max_out_tokens=256, block_size=32,
+        num_slots=2, **knobs)
+    srv = ContinuousBatchingServer(eng)
+    if program == "verify":
+        fn, steps, warm = port_decode.paged_verify_attention, 4, 4
+        prompts = [[1, 2, 3], list(range(100))]
+    else:   # one 200-token prompt: four chunks, one a step
+        fn, steps, warm = port_decode.paged_chunk_attention, 1, 1
+        prompts = [list(range(1, 201))]
+    ids = [srv.submit(p, max_new_tokens=24) for p in prompts]
+    for _ in range(warm):   # admission and prefill read tokens back by design
+        srv.step()
+    n = fn.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(steps):
+            srv.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fn.launches == n + steps * cfg.n_layer
+    out = srv.drain()
+    srv.close()
+    assert all(len(out[r]) == len(p) + 24 for r, p in zip(ids, prompts))
 
 
 # ------------------------------------------------------------ block sparse
