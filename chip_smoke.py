@@ -13,18 +13,23 @@ before its last line:
    dk/dv), dense decode, paged decode/verify, paged chunk, block-sparse
    attention and LayerNorm (forward, backward). Prints each ptxas register
    and spill line with its kernel's name, and fails if ptxas ignored the
-   flash forward's or backward's setmaxnreg (C7508) or a 16-bit entry of
-   the flash backward, of B9's persistent kernel, of B5/B5i's split kernel
-   or of the B6/B6i and B7/B7i tensor-core kernels spills.
+   flash forward's or backward's or B8's setmaxnreg (C7508) or a 16-bit
+   entry of the flash backward, of B9's persistent kernel, of B5/B5i's
+   split kernel, of the B6/B6i and B7/B7i tensor-core kernels, of B4's
+   kernel or of B8's tensor-core kernel spills.
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T, a full (non-causal) case and
    the GPT-2 1.3B training shape (B=8, T=1024, H=16, D=128, q/k/v views of
    one fused projection; its ms, bound and SDPA time are extra fields of
    the kernel's row); then the wrapper's host time per call at B=1, T=128.
-3. decode — the decode-attention kernel against its plain version at
-   B=8, S=1024, H=25, D=64 with seeded lengths in [1, 1024], a GQA case and
-   a length-0 row.
+3. decode — the decode-attention kernel (B4) against its plain version at
+   B=8, S=1024, H=25, D=64 with seeded lengths in [1, 1024], a GQA case
+   (H=32, KH=8, D=128: its time, bound and SDPA time are the ``gqa_*``
+   fields of the row), R=3 and R=7 (28 heads over 4, Qwen2-7B's layout),
+   each bit-identical on a second call, and a length-0 row; then the
+   wrapper's host time per call (``host_us``, median of 2000 calls, each
+   after a sync).
 4. paged  — the paged decode (S=8 slots, BS=128, MB=8, NB=65), chunk (C=256
    at start 0, 256, 512) and verify (K=4) kernels against their plain
    versions in bf16 at GPT-2 XL shapes and in a GQA case, over shuffled,
@@ -50,9 +55,11 @@ before its last line:
    projection), (ii) BigBird at the same shape, (iii) GPT-2 XL heads (25
    of 64) with BSLongformer blocks of 128, (iv) blocks 16 and 32
    (Variable, LocalSlidingWindow), (v) a per-head Fixed layout, (vi) rows
-   that see no key (exactly 0), (vii) fp16 and fp32. Each within atol of
-   the plain version and within 1e-2 (f32: 1e-4) relative L2 over every
-   tile of 64 rows.
+   that see no key (exactly 0), (vii) fp16 and fp32, each with the tile
+   order ``SparseSelfAttention`` caches. Each within atol of the plain
+   version and within 1e-2 (f32: 1e-4) relative L2 over every tile of 64
+   rows; case (i) bit-identical on a second call, and its row carries the
+   wrapper's host time per call (``host_us``).
 7. layer_norm — the LayerNorm kernels (B9 forward, B10 backward) against
    their plain versions at the GPT-2 1.3B training shape (x [8, 1024,
    2048] bf16, f32 weights), GPT-2 XL width, a ragged R, fp16 and fp32;
@@ -212,8 +219,8 @@ def _builders():
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import layer_norm as ln
-    return [fa.BUILDER, fa.BWD_BUILDER, da.BUILDER, da.PAGED_BUILDER,
-            da.CHUNK_BUILDER, bsa.BUILDER, ln.BUILDER]
+    return [fa.BUILDER, fa.BWD_BUILDER, da.PAGED_BUILDER, da.CHUNK_BUILDER,
+            bsa.BUILDER, ln.BUILDER]
 
 
 def _demangle(names):
@@ -255,6 +262,7 @@ def _spills(builder, entry):
 
 
 def phase_build():
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import decode_attention as da
     from deepspeed_tpu_torch.ops import layer_norm as ln
     from deepspeed_tpu_torch.ops.flash_attention import BUILDER, BWD_BUILDER
@@ -267,19 +275,23 @@ def phase_build():
     for b in builders:
         for entry, line in ptxas_lines(b.ptxas_log):
             log(f"[build] {b.name}: {entry}: {line}")
-    # the flash kernels' warp specialisation needs setmaxnreg honoured
-    for b in (BUILDER, BWD_BUILDER):
+    # the warp-specialised kernels (flash forward and backward, B8's
+    # tensor-core kernel) need setmaxnreg honoured
+    for b in (BUILDER, BWD_BUILDER, bsa.BUILDER):
         check("C7508" not in b.ptxas_log,
               f"{b.name}: ptxas ignored setmaxnreg (C7508): " + b.ptxas_log)
     # and the 16-bit backward kernels fit their setmaxnreg budgets
     spills = _spills(BWD_BUILDER, "wgmma")
     check(not spills, f"flash_attention_bwd: 16-bit kernels spill: {spills}")
-    # no entry of B9's persistent kernel, of B5/B5i's split kernel or of
-    # the B7/B7i and B6/B6i tensor-core kernels over 16-bit queries spills
+    # no entry of B9's persistent kernel, of B5/B5i's split kernel, of the
+    # B7/B7i and B6/B6i tensor-core kernels, of B4's kernel or of B8's
+    # tensor-core kernel over 16-bit queries spills
     for b, kernel in ((ln.BUILDER, "ln_fwd_ring_kernel"),
                       (da.PAGED_BUILDER, "paged_split_kernel"),
                       (da.PAGED_BUILDER, "paged_verify_mma_kernel"),
-                      (da.CHUNK_BUILDER, "paged_chunk_mma_kernel")):
+                      (da.CHUNK_BUILDER, "paged_chunk_mma_kernel"),
+                      (da.PAGED_BUILDER, "decode_dense_kernel"),
+                      (bsa.BUILDER, "bsa_wgmma_kernel")):
         spills = _spills(b, rf"\b{kernel}<(__nv_bfloat16|__half),")
         check(not spills, f"{b.name}: 16-bit {kernel} entries spill: "
               f"{spills}")
@@ -364,15 +376,39 @@ def phase_flash(flush):
     return dict(main, **train, host_us=host_us, max_abs_err=worst)
 
 
+def host_us(fn, calls=2000):
+    """Median host wall of one call of ``fn`` (checks, plan, allocation,
+    the ctypes launch) over ``calls`` calls timed one by one, each after a
+    sync (outside the timing) so that a kernel longer than its call never
+    fills the launch queue and throttles the next: the shared host swings
+    by 10-30 us between calls, so a median."""
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
 def phase_decode(flush):
+    """B4 against its plain version: GPT-2 XL (the row), H=32/KH=8/D=128
+    (its ``gqa_*`` fields), R=3 and R=7 (Qwen2-7B's 28 heads over 4), each
+    twice on the same inputs for the same bits; a length-0 row; the
+    wrapper's host time per call."""
     from deepspeed_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(2)
     rng = np.random.default_rng(2)
-    cases = [("gpt2-xl", 8, 1024, 25, 25, 64), ("gqa H=32 KH=8 D=128", 8,
-                                                  1024, 32, 8, 128)]
-    worst, main = 0.0, None
+    cases = [("gpt2-xl", 8, 1024, 25, 25, 64),
+             ("gqa H=32 KH=8 D=128", 8, 1024, 32, 8, 128),
+             ("R=3 H=24 KH=8 D=128", 8, 1024, 24, 8, 128),
+             ("R=7 H=28 KH=4 D=128", 8, 1024, 28, 4, 128)]
+    worst, recs = 0.0, {}
     for name, B, S, H, KH, D in cases:
         # the layer view of a 2-layer cache, as the model passes it
         kc = torch.randn((2, B, S, KH, D), generator=g, device="cuda",
@@ -384,18 +420,18 @@ def phase_decode(flush):
         lens = torch.as_tensor(rng.integers(1, S + 1, B), dtype=torch.int32,
                                device="cuda")
         o = decode_attention(q, kc, vc, lens)
+        again = decode_attention(q, kc, vc, lens)
         o_ref = decode_attention_reference(q, kc, vc, lens)
         torch.cuda.synchronize()
         err = (o.float() - o_ref.float()).abs().max().item()
         check(math.isfinite(err) and err <= DECODE_TOL,
               f"decode {name}: max |o - o_ref| = {err} > {DECODE_TOL}")
+        check(torch.equal(o, again),
+              f"decode {name}: other bits on the same inputs")
         worst = max(worst, err)
         live = int(lens.sum())
-        nbytes = 2 * 2 * live * KH * D + 2 * 2 * B * H * D + 4 * B
-        flops = 4 * live * H * D
-        bound = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
-        bound_by = ("bytes" if nbytes / H100_BYTES_PER_S
-                    >= flops / H100_F32_FLOPS else "operations")
+        bound, bound_by = _bound(2 * 2 * live * KH * D + 2 * 2 * B * H * D
+                                 + 4 * B, 4 * live * H * D, H100_F32_FLOPS)
         ms = cuda_ms(lambda: decode_attention(q, kc, vc, lens), 50, flush)
         plain = cuda_ms(lambda: decode_attention_reference(q, kc, vc, lens),
                         10, flush)
@@ -405,18 +441,30 @@ def phase_decode(flush):
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=mask, enable_gqa=KH != H), 50, flush)
         log(f"[decode] {name}: lengths sum {live}, max|o err| {err!r} "
-            f"(tol {DECODE_TOL}); kernel {ms!r} ms, plain {plain!r} ms, "
-            f"sdpa {lib!r} ms, bound {bound!r} ms ({bound_by}), "
-            f"{nbytes / ms / 1e6:.1f} GB/s")
-        if name == "gpt2-xl":
-            main = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                        bound_by=bound_by, library_ms=lib)
+            f"(tol {DECODE_TOL}), bit-identical twice; kernel {ms!r} ms, "
+            f"plain {plain!r} ms, sdpa {lib!r} ms, bound {bound!r} ms "
+            f"({bound_by}), {2 * 2 * live * KH * D / ms / 1e6:.1f} GB/s")
+        recs[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                          bound_by=bound_by, library_ms=lib)
     # a length-0 row gives zeros, as the TPU kernel does
-    lens = torch.tensor([0, 5], dtype=torch.int32, device="cuda")
-    o = decode_attention(q[:2], kc[:2], vc[:2], lens)
+    lens0 = torch.tensor([0, 5], dtype=torch.int32, device="cuda")
+    o = decode_attention(q[:2], kc[:2], vc[:2], lens0)
     check(bool((o[0] == 0).all()) and bool(torch.isfinite(o).all()),
           "decode: a length-0 row must give zeros")
-    return dict(main, max_abs_err=worst)
+    # the wrapper's host time per call at generate's GPT-2 XL shape
+    B, S, H, D = 8, 1024, 25, 64
+    kc = torch.randn((2, B, S, H, D), generator=g, device="cuda",
+                     dtype=torch.bfloat16)[1]
+    q = torch.randn((B, H, D), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    lens = torch.full((B,), 500, dtype=torch.int32, device="cuda")
+    us = host_us(lambda: decode_attention(q, kc, kc, lens))
+    log(f"[decode] host time per call at q [8, 25, 64], cache [8, 1024, 25, "
+        f"64]: {us!r} us (median of 2000 calls, each after a sync)")
+    gqa = recs["gqa H=32 KH=8 D=128"]
+    return dict(recs["gpt2-xl"], max_abs_err=worst, host_us=us,
+                **{f"gqa_{f}": gqa[f] for f in ("ms", "bound_ms",
+                                                "library_ms")})
 
 
 def _bound(nbytes, flops, peak_flops):
@@ -1048,6 +1096,9 @@ def phase_sparse(flush):
         lut_np, counts_np = bsa.build_lut(lay)
         lut, counts = (torch.as_tensor(x, device="cuda")
                        for x in (lut_np, counts_np))
+        # the tile order SparseSelfAttention caches with the LUT
+        order = torch.as_tensor(bsa.tile_order(lut_np, counts_np, causal),
+                                device="cuda")
         if strided:   # [B, H, T, D] views of a fused [B, T, 3, H, D] output
             q, k, v = (x.transpose(1, 2) for x in torch.randn(
                 (B, T, 3, H, D), generator=g, device="cuda",
@@ -1056,9 +1107,13 @@ def phase_sparse(flush):
             q, k, v = (torch.randn((B, H, T, D), generator=g, device="cuda",
                                    dtype=dt) for _ in range(3))
         args = (q, k, v, lut, counts, block, causal)
-        out = bsa.block_sparse_attention(*args)
+        out = bsa.block_sparse_attention(*args, order=order)
         ref = bsa.block_sparse_attention_reference(*args)
         torch.cuda.synchronize()
+        if name.startswith("(i)"):
+            check(torch.equal(out, bsa.block_sparse_attention(
+                *args, order=order)),
+                  f"sparse {name}: other bits on the same inputs")
         tol = SPARSE_TOL["32" if dt == f32 else "16"]
         st, ok = _sparse_error(out.transpose(1, 2), ref.transpose(1, 2), tol)
         check(ok, f"sparse {name}: o off its limits {tol} ({st})")
@@ -1075,7 +1130,8 @@ def phase_sparse(flush):
         bound, by = _bound(4 * B * T * H * D * q.element_size()
                            + lut_np.nbytes + counts_np.nbytes, flops,
                            H100_F32_FLOPS if dt == f32 else H100_BF16_FLOPS)
-        ms = cuda_ms(lambda: bsa.block_sparse_attention(*args), 20, flush)
+        ms = cuda_ms(lambda: bsa.block_sparse_attention(*args, order=order),
+                     20, flush)
         extra = ""
         if name.startswith("(i)"):
             plain = cuda_ms(lambda: bsa.block_sparse_attention_reference(
@@ -1086,10 +1142,14 @@ def phase_sparse(flush):
                 q, k, v, attn_mask=mask), 20, flush)
             lib_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
                        .float() - ref.float()).abs().max().item()
+            us = host_us(lambda: bsa.block_sparse_attention(*args,
+                                                             order=order))
             main = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                        library_ms=lib)
+                        library_ms=lib, host_us=us)
             extra = (f"; plain {plain!r} ms, sdpa with the dense mask {lib!r} "
-                     f"ms (max |sdpa - plain| {lib_err!r})")
+                     f"ms (max |sdpa - plain| {lib_err!r}); bit-identical "
+                     f"twice; host time per call {us!r} us (median of 2000 "
+                     f"calls, each after a sync)")
             del mask
         log(f"[sparse] {name}: B={B} T={T} H={H} D={D} block={block} "
             f"{str(dt).replace('torch.', '')}, {visible} visible blocks "
@@ -1098,7 +1158,7 @@ def phase_sparse(flush):
             f"{st['rel_l2']:.2e}, worst 64-row tile {st['tile_l2']:.2e} "
             f"(limits {tol}); kernel {ms!r} ms, bound {bound!r} ms ({by}), "
             f"{flops / ms / 1e9:.1f} TFLOP/s{extra}")
-        del q, k, v, out, ref, lut, counts
+        del q, k, v, out, ref, lut, counts, order
         torch.cuda.empty_cache()
     return dict(main, max_abs_err=worst)
 
@@ -1924,7 +1984,7 @@ def main() -> int:
             "deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "deepspeed_tpu/ops/pallas/flash_attention.py:215"),
         "decode_attention": (
-            "deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+            "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",
             "deepspeed_tpu/ops/pallas/decode_attention.py:78"),
         "paged_decode_attention": (
             "deepspeed_tpu_torch/ops/csrc/paged_attention.cu",

@@ -38,14 +38,18 @@ _HEAD_DIMS = (64, 128)
 _BLOCKS = (16, 32, 64, 128)   # the upstream Triton set; 16 is the default
 
 
+HEAD_GROUP = 8   # heads of a batch row whose tiles the kernel takes together
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.dstt_block_sparse_attention.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_block_sparse_attention.restype = ctypes.c_int
 
 
 BUILDER = CUDAOpBuilder("block_sparse_attention", _bind)
+_COUNTERS = {}   # stream -> the persistent kernel's tile counter (the kernel leaves it 0)
 
 
 def build_lut(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -60,6 +64,37 @@ def build_lut(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
             cols = np.nonzero(layout[h, qb])[0]
             lut[h, qb, :len(cols)] = cols
     return lut, counts
+
+
+def visible_entries(lut: np.ndarray, counts: np.ndarray,
+                    causal: bool) -> np.ndarray:
+    """How many LUT entries of each (head, query block) the kernel
+    multiplies → ``[H, nb]``: the first ``count`` of the row, inside
+    ``[0, nb)``, and under the causal mask not above the diagonal."""
+    H, nb, A = lut.shape
+    live = ((np.arange(A) < counts[..., None]) & (lut >= 0) & (lut < nb))
+    if causal:
+        live &= lut <= np.arange(nb)[None, :, None]
+    return live.sum(-1)
+
+
+def tile_order(lut: np.ndarray, counts: np.ndarray,
+               causal: bool) -> np.ndarray:
+    """The order in which the kernel takes the tiles of a batch row, for
+    blocks of 64 and 128: ``int32 [H * nb]`` of ``h * nb + qb``, the tiles
+    of each group of HEAD_GROUP heads together (their K/V stay in L2),
+    groups in head order, and within a group the tile with the most
+    visible entries first (ties: the later query block, then the lower
+    head). Host-side, from the LUT's numpy arrays, once per LUT."""
+    H, nb, _ = lut.shape
+    vis = visible_entries(lut, counts, causal)
+    out = []
+    for first in range(0, H, HEAD_GROUP):
+        heads = np.arange(first, min(first + HEAD_GROUP, H))
+        hh, qq = np.meshgrid(heads, np.arange(nb), indexing="ij")
+        hh, qq = hh.ravel(), qq.ravel()
+        out.append((hh * nb + qq)[np.lexsort((hh, -qq, -vis[hh, qq]))])
+    return np.concatenate(out).astype(np.int32)
 
 
 def _check_shapes(q, k, v, lut, counts, block):
@@ -116,7 +151,7 @@ def block_sparse_attention_reference(q, k, v, lut, counts, block: int,
     return out.to(q.dtype).reshape(B, H, T, D)
 
 
-def _check_kernel_args(q, k, v, lut, counts, out, block):
+def _check_kernel_args(q, k, v, lut, counts, out, block, order):
     dev = q.device
     if dev.type != "cuda" or any(x.device != dev for x in (k, v, lut, counts,
                                                            out)):
@@ -139,7 +174,15 @@ def _check_kernel_args(q, k, v, lut, counts, out, block):
     if q.shape[3] not in _HEAD_DIMS:
         raise ValueError(f"block_sparse_attention kernel takes head dim "
                          f"{_HEAD_DIMS}, got {q.shape[3]}")
-    for name, t in (("lut", lut), ("counts", counts)):
+    ints = (("lut", lut), ("counts", counts))
+    if order is not None:
+        H, nb = counts.shape
+        if tuple(order.shape) != (H * nb,) or order.device != dev:
+            raise ValueError(f"block_sparse_attention: order must be [H * nb "
+                             f"= {H * nb}] on {dev}, got {tuple(order.shape)} "
+                             f"on {order.device}")
+        ints += (("order", order),)
+    for name, t in ints:
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"block_sparse_attention kernel takes a "
                             f"contiguous int32 {name}, got {t.dtype} with "
@@ -157,13 +200,17 @@ def _check_kernel_args(q, k, v, lut, counts, out, block):
 def block_sparse_attention(q, k, v, lut, counts, block: int,
                            causal: bool = False,
                            scale: Optional[float] = None,
-                           out: Optional[torch.Tensor] = None
+                           out: Optional[torch.Tensor] = None,
+                           order: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """q/k/v ``[B, H, T, D]`` + LUT ``[H, nb, max_active]`` and counts
     ``[H, nb]`` (int32, from :func:`build_lut`) → ``[B, H, T, D]``. Rows with
     no visible key give zeros. ``out``, when given, is a ``[B, H, T, D]``
     tensor (any strides with a contiguous head dim) written in place and
-    returned, so a ``[B, T, H, D]`` result needs no transpose copy."""
+    returned, so a ``[B, T, H, D]`` result needs no transpose copy.
+    ``order``, when given, is :func:`tile_order` of the LUT on q's device:
+    the order in which the kernel takes its tiles at blocks of 64 and 128
+    (without it, the later query blocks first). It moves no result."""
     _check_shapes(q, k, v, lut, counts, block)
     if out is not None and out.shape != q.shape:
         raise ValueError(f"out must be {tuple(q.shape)}, got "
@@ -176,15 +223,21 @@ def block_sparse_attention(q, k, v, lut, counts, block: int,
         return o if out is None else out.copy_(o)
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _check_kernel_args(q, k, v, lut, counts, out, block)
+    _check_kernel_args(q, k, v, lut, counts, out, block, order)
     B, H, T, D = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counter = _COUNTERS.get(stream)
+    if counter is None:
+        counter = _COUNTERS[stream] = torch.zeros(1, dtype=torch.int32,
+                                                  device=q.device)
     lib = BUILDER.load()
     rc = lib.dstt_block_sparse_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lut.data_ptr(), counts.data_ptr(), B, H, T, D, block, lut.shape[2],
+        lut.data_ptr(), counts.data_ptr(),
+        None if order is None else order.data_ptr(), counter.data_ptr(), B, H,
+        T, D, block, lut.shape[2],
         *[s for x in (q, k, v, out) for s in x.stride()[:3]], float(scale),
-        int(bool(causal)), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "block_sparse_attention", rc)
     block_sparse_attention.launches += 1
     return out

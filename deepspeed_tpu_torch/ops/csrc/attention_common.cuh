@@ -1,6 +1,6 @@
 // Device helpers shared by the attention kernels of deepspeed_tpu_torch:
 // dtype conversions (int8 included), the bf16/fp16 tensor-core product
-// (mma.sync m16n8k16), ldmatrix and cp.async. Header only; each kernel source
+// (mma.sync m16n8k16), ldmatrix and cp.async, and the timing hooks. Header only; each kernel source
 // includes it, and the builder hashes it with every source.
 #pragma once
 
@@ -9,6 +9,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// Timing hooks of the attention kernels: DSTT_STAMP(k) marks point k of a
+// block's run (0 entry, 1 first K/V stage landed, 2 key loop done, 3
+// arrival ticket taken, 4 exit, 5 exit of a split with no key). Empty
+// unless the source defines DSTT_STAMPS and a device function
+// `dstt_stamp(int)` ahead of its includes, as scripts/stamp_paged_kernels.py
+// and scripts/stamp_decode_sparse.py do in an instrumented copy.
+#ifdef DSTT_STAMPS
+#define DSTT_STAMP(k) dstt_stamp(k)
+#else
+#define DSTT_STAMP(k) ((void)0)
+#endif
 
 namespace dstt {
 

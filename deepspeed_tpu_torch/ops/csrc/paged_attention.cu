@@ -1,15 +1,19 @@
-// Paged decode and paged verify attention for Hopper (sm_90a).
+// Paged decode, dense decode and paged verify attention for Hopper (sm_90a).
 //
-// Replaces two Pallas kernels of deepspeed_tpu/ops/pallas/decode_attention.py:
+// Replaces three Pallas kernels of deepspeed_tpu/ops/pallas/decode_attention.py:
 //  * `_paged_decode_kernel` (:164, entry `paged_decode_attention` :217):
 //    one query token per slot attends that slot's keys through its block
 //    table; key position `col` is visible iff col < lengths[s];
+//  * `_decode_kernel` (:78, entry `decode_attention` :115): the same over
+//    the dense cache [B, S, KH, D] (the layer view of the engine's
+//    [L, B, S, KH, D] cache, read through its strides), row b attending
+//    positions < lengths[b], the lengths clamped into [0, S];
 //  * `_paged_verify_kernel` (:421, entry `paged_verify_attention` :479):
 //    every slot's K candidate tokens at positions lengths[s]..lengths[s]+K-1
 //    attend the slot's keys; query k sees col <= lengths[s] + k.
-// Each in two variants: full-precision pools (the pool dtype is q's), and
-// int8 pools with f32 scale tiles [NB, KH, BS] (the kernels' int8 branch,
-// `_deq_tile` :46, which dequantizes each tile in VMEM).
+// The paged ones in two variants: full-precision pools (the pool dtype is
+// q's), and int8 pools with f32 scale tiles [NB, KH, BS] (the kernels' int8
+// branch, `_deq_tile` :46, which dequantizes each tile in VMEM).
 // The pools are [NB, BS, KH, D] (the layer view of the server's
 // [L, NB, BS, KH, D] pool, read through its strides) and block-table entry
 // j of slot s covers positions j*BS .. (j+1)*BS-1. Scale folded into q in
@@ -35,7 +39,8 @@
 //    scheduled first, kv heads fastest (neighbouring blocks read
 //    neighbouring rows of the same pages).
 //  * A slot's R = H/KH query heads of one kv head share a block, so its
-//    keys stream once for the whole GQA group.
+//    keys stream once for the whole GQA group; any R: a (slot, kv head)
+//    takes ceil(R / 8) units.
 //  * copies: the block streams its range through a ring of 2 stages in
 //    shared memory (8 KB of K and V rows a stage) with 16-byte cp.async,
 //    one table lookup tables[s][pos / BS] per key row; the first stages'
@@ -62,6 +67,35 @@
 //    TPU kernel's function up to the order of f32 sums.
 //  * a table entry is clamped into [0, NB) before use, so a corrupt table
 //    cannot read outside the pool.
+// Design of the dense decode kernel (B4, `decode_dense_kernel`): B5's
+// units, plan and merge on a kernel of its own.
+//  * unit = one (batch row, kv head, group of <= 8 query rows): any R =
+//    H / KH takes ceil(R / 8) units, and a unit's keys stream once for its
+//    rows. Its key range [0, S) is cut into `splits` ranges of `chunk`
+//    keys (`dense_split_plan` in the wrapper, from static sizes only: S and
+//    the units against the SM count; below the cap of 16 splits the chunk
+//    does not depend on S). One block of 8 warps a (unit, split); a split
+//    past the row's length exits after reading it. A unit with one live
+//    split merges its warps straight into the output; otherwise the live
+//    splits merge in split order by arrival tickets (`finish_split`, B5's).
+//  * copies: each lane holds 4 steps of 16-byte loads of K and V in
+//    registers (32 KB in flight a block), as streaming loads (`__ldcs`:
+//    first in line for eviction, so the stream does not evict lines other
+//    kernels wrote and L2 would have to write back); positions are
+//    addressed through the cache's strides, no table.
+//  * why not B5's body: a dense cache is a pool whose table is the
+//    identity, and B5's split kernel took it as such (a template policy),
+//    with a ring of 3 stages of 64 keys and a persistent grid that numbered
+//    only the live splits. At phase decode's GPT-2 XL case it ran 0.0221
+//    to 0.0264 ms against 0.0202-0.0206 for this kernel without streaming
+//    loads (PERF.md, B4's design steps): behind an L2 flush the K/V
+//    stream is bound by the HBM, and every variant with more bytes in
+//    flight (the ring, 8 steps a lane) finished later.
+// What bounds B4 at phase decode's shapes: the HBM and the launch. The
+// live K/V of GPT-2 XL's 8 rows (~21 MB) take 0.0146-0.0160 ms to read
+// once after the flush (streaming and plain loads of a kernel that does
+// nothing else, scripts/stamp_decode_sparse.py), against 6.4 µs at
+// 3.35 TB/s; an empty launch takes 0.0046.
 // Design of the verify kernel (B7, B7i) over 16-bit queries
 // (`paged_verify_mma_kernel`): B5's split-and-merge, with the query rows on
 // the tensor cores.
@@ -175,24 +209,24 @@ __device__ __forceinline__ void row_vec(const KV* p, float (&f)[VEC]) {
 // [NUM_WARPS][ROWS], acc [NUM_WARPS][ROWS][D]) merged in warp order into
 // the block's, after them: acc [ROWS][D], m [ROWS], l [ROWS]; the block's
 // first nr rows. Returns the block's partial.
-template <int D, int ROWS>
+template <int D, int ROWS, int WARPS = NUM_WARPS>
 __device__ __forceinline__ float* merge_warps(float* ws, int nr) {
-  float* wm = ws;                               // [NUM_WARPS][ROWS]
-  float* wl = wm + NUM_WARPS * ROWS;            // [NUM_WARPS][ROWS]
-  float* wacc = wl + NUM_WARPS * ROWS;          // [NUM_WARPS][ROWS][D]
-  float* bacc = wacc + NUM_WARPS * ROWS * D;
+  float* wm = ws;                               // [WARPS][ROWS]
+  float* wl = wm + WARPS * ROWS;                // [WARPS][ROWS]
+  float* wacc = wl + WARPS * ROWS;              // [WARPS][ROWS][D]
+  float* bacc = wacc + WARPS * ROWS * D;
   float* bm = bacc + ROWS * D;
   float* bl = bm + ROWS;
   // one thread per (row, column)
-  for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS) {
+  for (int idx = threadIdx.x; idx < nr * D; idx += WARPS * 32) {
     const int r = idx / D, d = idx % D;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NUM_WARPS; ++w) mx = fmaxf(mx, wm[w * ROWS + r]);
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w * ROWS + r]);
     const float ref = mx == -INFINITY ? 0.f : mx;
     float lt = 0.f, at = 0.f;
 #pragma unroll
-    for (int w = 0; w < NUM_WARPS; ++w) {
+    for (int w = 0; w < WARPS; ++w) {
       const float f = __expf(wm[w * ROWS + r] - ref);
       lt += wl[w * ROWS + r] * f;
       at += wacc[(w * ROWS + r) * D + d] * f;
@@ -216,7 +250,7 @@ __device__ __forceinline__ float* merge_warps(float* ws, int nr) {
 // flight together), writes the output and resets the ticket to zero for
 // the next launch (no memset, no second launch; the same bits on every
 // run).
-template <typename T, int D, int ROWS>
+template <typename T, int D, int ROWS, int THREADS = NUM_THREADS>
 __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, int split,
                                              int nsplit, long long unit, T* o, const Args& a,
                                              int s, int kh, int row0) {
@@ -231,7 +265,7 @@ __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, 
     return o[s * a.o_s + (j / a.R) * a.o_k + (kh * a.R + j % a.R) * a.o_h + d];
   };
   if (live == 1) {   // the unit's only split: its partial is the output
-    for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS) {
+    for (int idx = threadIdx.x; idx < nr * D; idx += THREADS) {
       const int r = idx / D;
       out(r, idx % D) = from_float<T>(bacc[idx] / fmaxf(bl[r], 1e-30f));
     }
@@ -242,24 +276,31 @@ __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, 
   // publish the partial; the last split of the unit to arrive merges them
   // all in split order and resets the unit's ticket for the next launch
   float* part = a.part + unit * nsplit * PART;
-  for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS)
+  for (int idx = threadIdx.x; idx < nr * D; idx += THREADS)
     part[split * PART + idx] = bacc[idx];
   if (threadIdx.x < 2 * ROWS)   // m and l
     part[split * PART + ROWS * D + threadIdx.x] = bacc[ROWS * D + threadIdx.x];
-  __threadfence();
+  // the barrier orders every thread's stores before thread 0's ticket,
+  // whose release makes them visible to the unit's other splits and whose
+  // acquire (with the barrier after it) makes theirs visible here: one
+  // round trip, where a fence by every thread and then the atomic took two
   __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(a.tickets + unit, 1) == live - 1;
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], 1;\n"
+                 : "=r"(old) : "l"(a.tickets + unit) : "memory");
+    is_last = old == live - 1;
+  }
   __syncthreads();
   DSTT_STAMP(3);
   if (!is_last) {
     DSTT_STAMP(4);
     return;
   }
-  __threadfence();
-  if constexpr (ROWS * D <= 4 * NUM_THREADS) {
+  if constexpr (ROWS * D <= 4 * THREADS) {
     // a few elements a thread (the decode kernel's units): each merges all
     // splits at once
-    for (int idx = threadIdx.x; idx < nr * D; idx += NUM_THREADS) {
+    for (int idx = threadIdx.x; idx < nr * D; idx += THREADS) {
       const int r = idx / D;
       float ms[MAX_SPLITS], ls[MAX_SPLITS], av[MAX_SPLITS];
       float mx = -INFINITY;
@@ -287,7 +328,7 @@ __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, 
   } else {
     // many (the verify kernel's 16 rows): a float4 of acc a thread, each
     // loading its row's m and l and its float4 of every split at once
-    for (int i4 = threadIdx.x; i4 < nr * D / 4; i4 += NUM_THREADS) {
+    for (int i4 = threadIdx.x; i4 < nr * D / 4; i4 += THREADS) {
       const int r = i4 * 4 / D;
       float ms[MAX_SPLITS], ls[MAX_SPLITS];
       float4 av[MAX_SPLITS];
@@ -324,7 +365,7 @@ __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, 
   DSTT_STAMP(4);
 }
 
-// grid (splits, KH * row groups, S); unit = one (slot, kv head, row group)
+// grid (KH * row groups, S, splits); unit = one (slot, kv head, row group)
 template <typename T, typename KV, int D, int ROWS>
 __global__ void __launch_bounds__(NUM_THREADS, ROWS <= 2 ? 8 : 16 / ROWS)
 paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
@@ -349,6 +390,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const int span = a.MB * a.BS;
   const int* table = a.tables + s * a.t_s;
   const int beg = split * a.chunk;
+  DSTT_STAMP(0);
 
   // table entry of position pos (clamped into the row: a position past the
   // range reads the last entry, which is never used) and block id (clamped
@@ -380,7 +422,10 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   }
   // splits with keys; split 0 always runs (zeros for a unit that sees none)
   const int live = hi > 0 ? (hi + a.chunk - 1) / a.chunk : 1;
-  if (split >= live) return;
+  if (split >= live) {
+    DSTT_STAMP(5);
+    return;
+  }
   const int end = min(beg + a.chunk, hi);
   const int nstages = end > beg ? (end - beg + KS - 1) / KS : 0;
 
@@ -442,6 +487,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   for (int st = 0; st < nstages; ++st) {
     cp_async_wait<STAGES - 1>();
     __syncthreads();   // stage st landed for every thread's copies
+    if (st == 0) DSTT_STAMP(1);
     const KV* kbuf = reinterpret_cast<const KV*>(smem + (st % STAGES) * STAGE_BYTES);
     const KV* vbuf = kbuf + KS * D;
     const float* sk = scales + (st % STAGES) * 2 * KS;
@@ -506,6 +552,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     cp_async_commit();
   }
   cp_async_wait<0>();
+  DSTT_STAMP(2);
 
   // merge the lane groups of this warp (lanes that differ by multiples of LPK)
 #pragma unroll
@@ -546,6 +593,187 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const int nr = min(ROWS, a.nrows - row0);   // live rows
   finish_split<T, D, ROWS>(merge_warps<D, ROWS>(wm, nr), nr, live, split, nsplit, unit, o,
                            a, s, kh, row0);
+}
+
+// The dense decode (B4; design in the note at the top): one block of 8
+// warps per (kv head and row group, batch row, split of the plan).
+constexpr int DENSE_WARPS = 8, DENSE_THREADS = DENSE_WARPS * 32;
+constexpr int DENSE_UNROLL = 4;   // steps of 16-byte loads in flight a lane
+
+template <typename T, int D, int ROWS>
+__global__ void __launch_bounds__(DENSE_THREADS)
+decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, T* __restrict__ o, Args a) {
+  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr int LPK = D / VEC;          // lanes per key row
+  constexpr int KPW = 32 / LPK;         // keys per warp per step
+  constexpr int STEP = DENSE_WARPS * KPW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = (a.nrows + ROWS - 1) / ROWS;
+  const int kh = blockIdx.x / groups, row0 = (blockIdx.x % groups) * ROWS;
+  const int b = blockIdx.y, split = blockIdx.z, nsplit = gridDim.z;
+  const long long unit = (long long)b * gridDim.x + blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / LPK, d0 = (lane % LPK) * VEC;
+  DSTT_STAMP(0);
+  const int len = max(0, min(a.lengths[b], a.BS));
+  const int live = len > 0 ? (len + a.chunk - 1) / a.chunk : 1;
+  if (split >= live) {
+    DSTT_STAMP(5);
+    return;
+  }
+  const int beg = split * a.chunk, end = min(beg + a.chunk, len);
+
+  float qv[ROWS][VEC], acc[ROWS][VEC], m[ROWS], l[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int j = min(row0 + r, a.nrows - 1);   // rows past the unit repeat its last
+    const uint4 raw = *reinterpret_cast<const uint4*>(q + b * a.q_s + (kh * a.R + j) * a.q_h + d0);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      qv[r][i] = to_float(e[i]) * a.scale;
+      acc[r][i] = 0.f;
+    }
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  const T* kb = kc + b * a.k_n + kh * a.k_h + d0;
+  const T* vb = vc + b * a.v_n + kh * a.v_h + d0;
+  // the loop bound is uniform across the warp, so the shuffles below always
+  // run with all 32 lanes; positions past end are masked instead
+  for (int base = beg + warp * KPW; base < end; base += STEP * DENSE_UNROLL) {
+    uint4 kr[DENSE_UNROLL], vr[DENSE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < DENSE_UNROLL; ++u) {
+      const int pos = base + u * STEP + grp;
+      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      if (pos < end) {   // read once: streaming loads, first in line for eviction
+        kr[u] = __ldcs(reinterpret_cast<const uint4*>(kb + pos * a.k_b));
+        vr[u] = __ldcs(reinterpret_cast<const uint4*>(vb + pos * a.v_b));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      float sc[DENSE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < DENSE_UNROLL; ++u) {
+        const T* ke = reinterpret_cast<const T*>(&kr[u]);
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dot = fmaf(qv[r][i], to_float(ke[i]), dot);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        sc[u] = base + u * STEP + grp < end ? dot : -INFINITY;
+      }
+      float mn = m[r];
+#pragma unroll
+      for (int u = 0; u < DENSE_UNROLL; ++u) mn = fmaxf(mn, sc[u]);
+      const float ref = mn == -INFINITY ? 0.f : mn;
+      const float alpha = __expf(m[r] - ref);
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[r][i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < DENSE_UNROLL; ++u) {
+        const float p = __expf(sc[u] - ref);
+        const T* ve = reinterpret_cast<const T*>(&vr[u]);
+        l[r] += p;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(p, to_float(ve[i]), acc[r][i]);
+      }
+      m[r] = mn;
+    }
+    if (base == beg + warp * KPW) DSTT_STAMP(1);
+  }
+  DSTT_STAMP(2);
+  // merge the lane groups of this warp (lanes that differ by multiples of LPK)
+#pragma unroll
+  for (int off = LPK; off < 32; off *= 2) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mn = fmaxf(m[r], mo);
+      const float ref = mn == -INFINITY ? 0.f : mn;
+      const float ca = __expf(m[r] - ref), cb = __expf(mo - ref);
+      l[r] = l[r] * ca + lo * cb;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[r][i], off);
+        acc[r][i] = acc[r][i] * ca + ao * cb;
+      }
+      m[r] = mn;
+    }
+  }
+  float* wm = reinterpret_cast<float*>(smem);   // [DENSE_WARPS][ROWS]
+  float* wl = wm + DENSE_WARPS * ROWS;          // [DENSE_WARPS][ROWS]
+  float* wacc = wl + DENSE_WARPS * ROWS;        // [DENSE_WARPS][ROWS][D]
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (d0 == 0) {
+        wm[warp * ROWS + r] = m[r];
+        wl[warp * ROWS + r] = l[r];
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) wacc[(warp * ROWS + r) * D + d0 + i] = acc[r][i];
+    }
+  }
+  __syncthreads();
+  const int nr = min(ROWS, a.nrows - row0);   // live rows
+  if (live == 1) {
+    // the unit's only split: merge the warps straight into the output,
+    // one thread a (row, column), in warp order
+    for (int idx = threadIdx.x; idx < nr * D; idx += DENSE_THREADS) {
+      const int r = idx / D, d = idx % D;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < DENSE_WARPS; ++w) mx = fmaxf(mx, wm[w * ROWS + r]);
+      const float ref = mx == -INFINITY ? 0.f : mx;
+      float lt = 0.f, at = 0.f;
+#pragma unroll
+      for (int w = 0; w < DENSE_WARPS; ++w) {
+        const float f = __expf(wm[w * ROWS + r] - ref);
+        lt += wl[w * ROWS + r] * f;
+        at += wacc[(w * ROWS + r) * D + d] * f;
+      }
+      o[b * a.o_s + (kh * a.R + row0 + r) * a.o_h + d] = from_float<T>(at / fmaxf(lt, 1e-30f));
+    }
+    DSTT_STAMP(4);
+    return;
+  }
+  finish_split<T, D, ROWS, DENSE_THREADS>(merge_warps<D, ROWS, DENSE_WARPS>(wm, nr), nr, live,
+                                          split, nsplit, unit, o, a, b, kh, row0);
+}
+
+template <typename T, int D, int ROWS>
+cudaError_t launch_dense(const void* q, const void* k, const void* v, void* o, int B, int KH,
+                         int splits, const Args& a, cudaStream_t stream) {
+  dim3 grid(KH * ((a.nrows + ROWS - 1) / ROWS), B, splits);
+  const int smem = (DENSE_WARPS * ROWS * (D + 2) + ROWS * (D + 2)) * 4;
+  static_assert(MAX_SPLITS * ROWS + ROWS <= DENSE_WARPS * ROWS * (D + 2), "merge factors fit");
+  decode_dense_kernel<T, D, ROWS><<<grid, DENSE_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dense_rows(const void* q, const void* k, const void* v, void* o, int B,
+                              int KH, int splits, const Args& a, cudaStream_t stream) {
+  if (a.nrows <= 1) return launch_dense<T, D, 1>(q, k, v, o, B, KH, splits, a, stream);
+  if (a.nrows <= 2) return launch_dense<T, D, 2>(q, k, v, o, B, KH, splits, a, stream);
+  if (a.nrows <= 4) return launch_dense<T, D, 4>(q, k, v, o, B, KH, splits, a, stream);
+  return launch_dense<T, D, 8>(q, k, v, o, B, KH, splits, a, stream);
+}
+
+template <typename T>
+cudaError_t launch_dense_d(int D, const void* q, const void* k, const void* v, void* o, int B,
+                           int KH, int splits, const Args& a, cudaStream_t stream) {
+  if (D == 64) return launch_dense_rows<T, 64>(q, k, v, o, B, KH, splits, a, stream);
+  if (D == 128) return launch_dense_rows<T, 128>(q, k, v, o, B, KH, splits, a, stream);
+  return cudaErrorInvalidValue;
 }
 
 // The verify kernel over 16-bit queries (B7, B7i; design in the note at
@@ -917,6 +1145,35 @@ extern "C" int dstt_paged_decode_attention(
   const Args a = make_args(tables, lengths, tickets, part, NB, BS, MB, chunk, H / KH, H / KH, 0,
                            q_s, 0, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, 0, o_h, scale);
   return dispatch<true, false>(dtype, D, q, k, v, o, S, KH, splits, a, stream);
+}
+
+// The dense decode (B4): q and o [B, H, D] by (q_b, q_h) and (o_b, o_h);
+// caches [B, S, KH, D] by (k_b, k_s, k_h) and (v_b, v_s, v_h); lengths [B]
+// int32, clamped into [0, S]; all on the device, the head dim contiguous.
+// The plan: each key range [0, S) in `splits` (1..16) ranges of `chunk`
+// keys, splits * chunk >= S. Its scratch: tickets, int32 [B * KH * row
+// groups], all zero (the kernel leaves them zero), and part, f32 [B * KH *
+// row groups * splits * rows * (D + 4)] (rows: the smallest power of two
+// >= H/KH, at most 8, at most 4 at D = 128; row groups: ceil(H/KH / that
+// cap)). Launches that share a scratch must run in order.
+extern "C" int dstt_decode_attention(
+    const void* q, const void* k, const void* v, const void* lengths, void* o,
+    void* tickets, void* part, int B, int S, int H, int KH, int D, int splits,
+    int chunk, long long q_b, long long q_h, long long k_b, long long k_s,
+    long long k_h, long long v_b, long long v_s, long long v_h, long long o_b,
+    long long o_h, float scale, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || KH <= 0 || H % KH || splits < 1 || splits > MAX_SPLITS || chunk < 1 ||
+      (long long)splits * chunk < S)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(nullptr, lengths, tickets, part, B, S, 1, chunk, H / KH, H / KH, 0,
+                           q_b, 0, q_h, k_b, k_s, k_h, v_b, v_s, v_h, 0, o_b, 0, o_h, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_dense_d<float>(D, q, k, v, o, B, KH, splits, a, st);
+    case 1: return (int)launch_dense_d<__half>(D, q, k, v, o, B, KH, splits, a, st);
+    case 2: return (int)launch_dense_d<__nv_bfloat16>(D, q, k, v, o, B, KH, splits, a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // As above with q and o [S, K, H, D] by (q_s, q_k, q_h) and (o_s, o_k, o_h),

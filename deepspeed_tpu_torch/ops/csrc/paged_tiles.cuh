@@ -27,18 +27,6 @@
 
 #include "attention_common.cuh"
 
-// Timing hooks of the paged verify and chunk kernels: DSTT_STAMP(k) marks
-// point k of a block's run (0 entry, 1 first K/V stage landed, 2 key loop
-// done, 3 arrival ticket taken, 4 exit, 5 exit of a split with no key).
-// Empty unless the source defines DSTT_STAMPS and a device function
-// `dstt_stamp(int)` ahead of its includes, as scripts/stamp_paged_kernels.py
-// does in an instrumented copy.
-#ifdef DSTT_STAMPS
-#define DSTT_STAMP(k) dstt_stamp(k)
-#else
-#define DSTT_STAMP(k) ((void)0)
-#endif
-
 namespace dstt {
 
 constexpr int TILE_KEYS = 64;

@@ -5,10 +5,10 @@ Replaces four Pallas kernels of
 ``deepspeed_tpu/ops/pallas/decode_attention.py``:
 
 * ``_decode_kernel`` (:78, entry ``decode_attention :115``) by
-  ``ops/csrc/decode_attention.cu``: one query token per row against the
-  dense cache ``[B, S, KH, D]`` (typically the layer view ``cache.k[layer]``
-  of a ``[L, B, S, KH, D]`` cache, read through its strides), row ``b``
-  attending positions ``< lengths[b]``;
+  ``decode_dense_kernel`` of ``ops/csrc/paged_attention.cu``: one query
+  token per row against ``[B, S, KH, D]`` (typically the layer view
+  ``cache.k[layer]`` of a ``[L, B, S, KH, D]`` cache, read through its
+  strides), row ``b`` attending positions ``< lengths[b]``, any ``H / KH``;
 * ``_paged_decode_kernel`` (:164, entry ``paged_decode_attention :217``)
   and ``_paged_verify_kernel`` (:421, entry ``paged_verify_attention
   :479``) by ``ops/csrc/paged_attention.cu``: one query per slot, or each
@@ -47,17 +47,6 @@ from deepspeed_tpu_torch.ops.quant_core import dequantize_int8
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (64, 128)
-_GROUP_SIZES = (1, 2, 4, 8)
-
-
-def _bind(lib: ctypes.CDLL) -> None:
-    lib.dstt_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.dstt_decode_attention.restype = ctypes.c_int
-
-
-BUILDER = CUDAOpBuilder("decode_attention", _bind)
 
 
 def _check_shapes(q, k_cache, v_cache, lengths):
@@ -99,14 +88,13 @@ def decode_attention_reference(q, k_cache, v_cache, lengths,
     return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
-def _check_operands(name, floats, ints, groups=None, int8=(), scales=()):
+def _check_operands(name, floats, ints, int8=(), scales=()):
     """Raise unless the kernel ``name`` can take these CUDA operands:
     ``floats`` (q first, then caches or pools) of one float dtype and
     ``int8`` pools, each with a contiguous head dim of 64 or 128, 16-byte
     aligned rows and strides that are whole 16-byte vectors; ``scales``
     float32 with a contiguous last dim; ``ints`` (lengths, block tables)
-    int32 with a contiguous last dim; ``groups`` the query heads per kv
-    head the kernel was built for (None: any)."""
+    int32 with a contiguous last dim."""
     q = floats[0]
     dev = q.device
     if any(x.device != dev for x in (*floats, *int8, *scales, *ints)):
@@ -134,10 +122,6 @@ def _check_operands(name, floats, ints, groups=None, int8=(), scales=()):
     D = q.shape[-1]
     if D not in _HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head dim {_HEAD_DIMS}, got {D}")
-    rep = q.shape[-2] // (*floats[1:], *int8)[0].shape[-2]
-    if groups is not None and rep not in groups:
-        raise ValueError(f"{name} kernel takes query groups of {groups} "
-                         f"heads per kv head, got {rep}")
     for x in (*floats, *int8):
         vec = 16 // x.element_size()
         if x.stride(-1) != 1 or any(st % vec for st in x.stride()[:-1]) \
@@ -149,8 +133,7 @@ def _check_operands(name, floats, ints, groups=None, int8=(), scales=()):
 
 
 def _check_kernel_args(q, k_cache, v_cache, lengths):
-    _check_operands("decode_attention", (q, k_cache, v_cache), (lengths,),
-                    _GROUP_SIZES)
+    _check_operands("decode_attention", (q, k_cache, v_cache), (lengths,))
 
 
 def decode_attention(q, k_cache, v_cache, lengths,
@@ -162,16 +145,16 @@ def decode_attention(q, k_cache, v_cache, lengths,
     _check_kernel_args(q, k_cache, v_cache, lengths)
     B, H, D = q.shape
     S, KH = k_cache.shape[1], k_cache.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    lib = BUILDER.load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, part, splits, chunk = _dense_args(q, stream, B, S, KH)
+    lib = PAGED_BUILDER.load()
     rc = lib.dstt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), o.data_ptr(), B, S, H, KH, D, *q.stride()[:2],
-        *k_cache.stride()[:3], *v_cache.stride()[:3], *o.stride()[:2],
-        float(scale), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), o.data_ptr(), tickets, part, B, S, H, KH, D,
+        splits, chunk, *q.stride()[:2], *k_cache.stride()[:3],
+        *v_cache.stride()[:3], *o.stride()[:2], _scale(scale, D),
+        _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "decode_attention", rc)
     decode_attention.launches += 1
     return o
@@ -184,6 +167,10 @@ decode_attention.launches = 0
 
 
 def _bind_paged(lib: ctypes.CDLL) -> None:
+    lib.dstt_decode_attention.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.dstt_decode_attention.restype = ctypes.c_int
     lib.dstt_paged_decode_attention.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 11
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -239,6 +226,29 @@ def paged_split_plan(span: int, units: int, sms: int) -> Tuple[int, int]:
     return -(-span // chunk), chunk
 
 
+@functools.lru_cache(maxsize=None)
+def dense_split_plan(S: int, units: int, sms: int) -> Tuple[int, int]:
+    """How the dense decode (B4, ``decode_dense_kernel`` in
+    ``paged_attention.cu``) cuts the key range ``[0, S)`` of each of its
+    ``units`` (batch row, kv head, row group) triples among blocks:
+    ``(splits, chunk)``, split ``i`` taking keys ``[i * chunk, min((i + 1)
+    * chunk, S))``.
+
+    A split takes 384 keys when the units alone do not fill the SMs, else
+    1024 (measured on the H100 at S=1024: at H=32/KH=8's 64 units 384
+    beat 256 and 512; at GPT-2 XL's 200 units splits of 512 keys ran 2%
+    faster behind an L2 flush but 3% slower inside ``generate``'s decode
+    step, whose merges the flush hid); more only past 16 splits. The chunk
+    does not depend on S below that, so two caches of one model that
+    differ in length sum each key in the same place and give the same
+    bits. Static sizes only: lengths stay on the device, and a split past
+    a row's length loads nothing."""
+    chunk = 384 if units < sms else 1024
+    if S > _MAX_SPLITS * chunk:
+        chunk = -(-S // (_MAX_SPLITS * 128)) * 128
+    return -(-S // chunk), chunk
+
+
 def paged_row_groups(nrows: int) -> int:
     """Blocks a (slot, kv head) takes for its ``nrows`` = H / KH query
     rows: up to 8 rows a block, as ``paged_attention.cu`` groups them."""
@@ -288,6 +298,22 @@ def _split_args(q, stream, S, KH, MB, BS):
         return hit[2]
     units = S * KH * paged_row_groups(R)
     splits, chunk = paged_split_plan(MB * BS, units, sm_count(q.device))
+    rows = 1 << (min(R, 8) - 1).bit_length()
+    return _scratch(key, q.device, units, units * splits * rows * (D + 4),
+                    (splits, chunk))
+
+
+def _dense_args(q, stream, B, S, KH):
+    """:func:`_split_args` of a dense decode launch: the plan of the cache
+    ``[B, S, KH, D]`` and its scratch, kept per (stream, B, KH, R, S, D),
+    all static in ``generate``."""
+    R, D = q.shape[1] // KH, q.shape[-1]
+    key = ("dense", stream, B, KH, R, S, D)
+    hit = _SCRATCH.get(key)
+    if hit is not None:
+        return hit[2]
+    units = B * KH * paged_row_groups(R)
+    splits, chunk = dense_split_plan(S, units, sm_count(q.device))
     rows = 1 << (min(R, 8) - 1).bit_length()
     return _scratch(key, q.device, units, units * splits * rows * (D + 4),
                     (splits, chunk))

@@ -2,9 +2,9 @@
 
 Counterpart of ``deepspeed_tpu/ops/sparse_attention/sparse_self_attention.py``:
 takes q/k/v ``[B, T, H, D]`` and a :class:`SparsityConfig`, caches the
-layout and the device LUT per sequence length, and runs the block-sparse
-kernel (B8, ``ops/block_sparse_attention.py``) on CUDA tensors, or its plain
-version on CPU tensors. The kernel reads the ``[B, T, H, D]`` inputs and
+layout, the device LUT and the kernel's tile order per sequence length,
+and runs the block-sparse kernel (B8, ``ops/block_sparse_attention.py``)
+on CUDA tensors, or its plain version on CPU tensors. The kernel reads the ``[B, T, H, D]`` inputs and
 writes the ``[B, T, H, D]`` output through their strides: no transpose is
 copied.
 """
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.block_sparse_attention import (
-    block_sparse_attention, build_lut)
+    block_sparse_attention, build_lut, tile_order)
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
     FixedSparsityConfig, SparsityConfig)
 
@@ -87,6 +87,7 @@ class SparseSelfAttention:
         self.attn_mask_mode = attn_mask_mode
         self._cache: Dict[int, Tuple[np.ndarray, torch.Tensor,
                                      torch.Tensor]] = {}
+        self._orders: Dict[int, torch.Tensor] = {}   # the kernel's tile order
 
     @property
     def causal(self) -> bool:
@@ -124,8 +125,14 @@ class SparseSelfAttention:
             kpm = torch.as_tensor(key_padding_mask, device=query.device)
             mask = mask & kpm[:, None, None, :].bool()
             return _masked_attention(query, key, value, mask)
+        order = self._orders.get(T)
+        if order is None or order.device != query.device:
+            lut_np, counts_np = build_lut(lay)
+            order = self._orders[T] = torch.as_tensor(
+                tile_order(lut_np, counts_np, self.causal),
+                device=query.device)
         out = block_sparse_attention(
             query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2),
             lut, counts, block=self.sparsity_config.block, causal=self.causal,
-            out=_bthd_out(query))
+            out=_bthd_out(query), order=order)
         return out.transpose(1, 2)

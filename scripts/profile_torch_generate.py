@@ -33,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from chip_smoke import gpt2_xl_config  # noqa: E402
 
@@ -45,7 +46,8 @@ def device_us(evt) -> float:
 def category(kernel: str) -> str:
     if any(s in kernel for s in ("bwd_dq", "bwd_dkv")):
         return "port kernels (flash backward)"
-    if any(s in kernel for s in ("flash_fwd", "decode_kernel", "paged_")):
+    if any(s in kernel for s in ("flash_fwd", "decode_kernel", "paged_",
+                                 "decode_dense")):
         return "port kernels (attention)"
     if "multi_tensor" in kernel or "foreach" in kernel:
         return "optimizer and gradient passes (foreach)"
@@ -75,6 +77,13 @@ def report(name, prof, wall_s, trace_dir):
     for e in sorted(kernels, key=device_us, reverse=True)[:12]:
         print(f"[{name}]   {device_us(e) / 1e3:10.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}")
+    # B4, the dense decode kernel (either checkout's name for it)
+    b4 = [e for e in kernels if any(k in e.key for k in (
+        "decode_dense_kernel", "decode_kernel<"))]
+    if b4:
+        n = sum(e.count for e in b4)
+        print(f"[{name}] B4 (dense decode) device time per launch "
+              f"{sum(device_us(e) for e in b4) / n!r} us over {n} launches")
     if trace_dir:
         prof.export_chrome_trace(os.path.join(trace_dir,
                                               f"trace_{name}.json"))
@@ -87,7 +96,15 @@ def main() -> int:
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.model_implementations.transformer import (
         decode_step, init_params, prefill)
-    trace_dir = sys.argv[1] if len(sys.argv) > 1 else None
+    args = sys.argv[1:]
+    other = None
+    if "--other" in args:
+        i = args.index("--other")
+        other = args[i + 1]
+        del args[i:i + 2]
+    decode_only = "--decode-only" in args
+    args = [a for a in args if a != "--decode-only"]
+    trace_dir = args[0] if args else None
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -118,15 +135,36 @@ def main() -> int:
             wall = time.perf_counter() - t0
         report("prefill", prof, wall, trace_dir)
         tok = lg.argmax(-1)
-        with profile(activities=act) as prof:
-            t0 = time.perf_counter()
-            for _ in range(8):
-                lg, cache = decode_step(engine.params, engine.model_config,
-                                        tok, cache)
-                tok = lg.argmax(-1)
+        import deepspeed_tpu_torch.model_implementations.transformer as tt
+        turns = [("decode_x8", tt.decode_attention)]
+        if other:
+            from other_checkout import load_wrapper
+            from stamp_decode_sparse import _decode_builders
+            mod = load_wrapper(other, "decode_attention",
+                               _decode_builders(other))
+            turns += [("decode_x8_other", mod.decode_attention),
+                      ("decode_x8", tt.decode_attention)]
+        for name, fn in turns:
+            tt.decode_attention = fn   # the model's dense decode
+            step_cache = cache.clone() if hasattr(cache, "clone") else cache
+            step_tok = tok
+            for _ in range(2):   # warm-up (the other's first build)
+                decode_step(engine.params, engine.model_config, step_tok,
+                            step_cache)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        report("decode_x8", prof, wall, trace_dir)
+            with profile(activities=act) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    lg, step_cache = decode_step(engine.params,
+                                                 engine.model_config,
+                                                 step_tok, step_cache)
+                    step_tok = lg.argmax(-1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            report(name, prof, wall, trace_dir)
+        tt.decode_attention = turns[0][1]
+    if decode_only:
+        return 0
     for kv_dtype in ("fp", "int8"):
         serve_x8(engine, ids, lens, act, trace_dir, kv_dtype)
     del engine, params, cache, lg, tok

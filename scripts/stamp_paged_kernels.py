@@ -7,7 +7,7 @@ spends its time, on one NVIDIA GPU: per-block ``%globaltimer`` stamps.
 Copies this checkout's ``deepspeed_tpu_torch`` to ``build/stamps/this``
 (and OTHER_CHECKOUT's, e.g. ``git archive <commit> deepspeed_tpu_torch |
 tar -x -C build/parent``, to ``build/stamps/other``) and turns on the
-kernels' ``DSTT_STAMP`` hooks (``ops/csrc/paged_tiles.cuh``) in the copy: a
+kernels' ``DSTT_STAMP`` hooks (``ops/csrc/attention_common.cuh``) in the copy: a
 stamp by thread 0 of every block at its entry (0), its first stage of K/V
 landed (1), the end of its key loop (2), its arrival ticket taken (3), its
 exit (4) and the exit of a split with no key (5). Loads the copies beside
@@ -100,7 +100,7 @@ def _patch(src: str, kernel: str, edits) -> str:
 
 def instrument(checkout: Path, dst: Path) -> dict:
     """Copy ``checkout``'s package to ``dst`` with stamps in its paged
-    sources: a source with ``DSTT_STAMP`` hooks (paged_tiles.cuh) gets
+    sources: a source with ``DSTT_STAMP`` hooks (attention_common.cuh) gets
     ``DSTT_STAMPS`` and the stamp function ahead of its includes; one
     without takes LEGACY's text edits. Returns ``{source name: "hooks" or
     "legacy"}`` of the sources instrumented."""

@@ -150,16 +150,47 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, H, KH, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 7, 8, 12, 16])
+def test_decode_kernel_takes_any_group_on_card(cuda_device, R, D, dtype):
+    """B4 at any R = H / KH (units of up to 8 query rows: R = 12 and 16
+    take two), over the layer view of a 5-D cache, with lengths 0, 1, 63,
+    64, 65, S - 1 and S in one batch (splits empty, partial and full), and
+    the same bits on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(R * 10 + D)
+    KH, S = 2, 1000
+    lens = torch.tensor([0, 1, 63, 64, 65, S - 1, S], dtype=torch.int32,
+                        device=cuda_device)
+    B = lens.numel()
+    kc = _randn(g, (2, B, S, KH, D), dtype)[1]
+    vc = _randn(g, (2, B, S, KH, D), dtype)[1]
+    q = _randn(g, (B, KH * R, D), dtype)
+    n = port_decode.decode_attention.launches
+    out = port_decode.decode_attention(q, kc, vc, lens)
+    again = port_decode.decode_attention(q, kc, vc, lens)
+    ref = port_decode.decode_attention_reference(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert port_decode.decode_attention.launches == n + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     q = _randn(g, (1, 16, 2, 48), torch.bfloat16)     # head dim 48
     with pytest.raises(ValueError, match="head dim"):
         port_flash.flash_attention(q, q, q)
     q = _randn(g, (2, 12, 64), torch.bfloat16)
-    kc = _randn(g, (2, 32, 1, 64), torch.bfloat16)    # group of 12
-    with pytest.raises(ValueError, match="groups"):
-        port_decode.decode_attention(
-            q, kc, kc, torch.ones(2, dtype=torch.int32, device=cuda_device))
+    kc = _randn(g, (2, 32, 1, 64), torch.bfloat16)    # a group of 12: taken
+    lens = torch.tensor([5, 32], dtype=torch.int32, device=cuda_device)
+    out = port_decode.decode_attention(q, kc, kc, lens)
+    ref = port_decode.decode_attention_reference(q, kc, kc, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
     kc = _randn(g, (2, 32, 12, 64), torch.bfloat16)
     with pytest.raises(TypeError, match="int32"):
         port_decode.decode_attention(
@@ -188,6 +219,41 @@ def test_generate_on_card_runs_through_the_kernels(cuda_device):
     for row, p in zip(out, prompts):
         assert row[:len(p)] == p and len(row) == len(p) + 6
         assert all(0 <= t < cfg.vocab_size for t in row)
+
+
+@pytest.mark.cuda
+def test_generate_decode_steps_add_no_host_sync_on_card(cuda_device):
+    """``generate``'s decode steps under set_sync_debug_mode("error"): the
+    dense decode wrapper, its split plan and its scratch read nothing back
+    from the device."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import (
+        InferenceTransformerConfig, decode_step, init_params, prefill)
+    cfg = InferenceTransformerConfig(vocab_size=512, n_positions=256,
+                                     n_embd=256, n_layer=2, n_head=4)
+    params = init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg)
+    eng = deepspeed_tpu_torch.init_inference((cfg, params), dtype="bf16")
+    ids = torch.zeros((2, 128), dtype=torch.long, device=cuda_device)
+    ids[0, :3] = torch.tensor([1, 2, 3])
+    ids[1, :100] = torch.arange(100)
+    lens = torch.tensor([3, 100], device=cuda_device)
+    cache = eng._make_cache(2, 256)
+    with torch.inference_mode():
+        lg, cache = prefill(eng.params, eng.model_config, ids, lens, cache)
+        tok = lg.argmax(-1)
+        lg, cache = decode_step(eng.params, eng.model_config, tok, cache)
+        torch.cuda.synchronize()
+        n = port_decode.decode_attention.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                lg, cache = decode_step(eng.params, eng.model_config,
+                                        lg.argmax(-1), cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert port_decode.decode_attention.launches == n + 3 * cfg.n_layer
+    assert bool(torch.isfinite(lg.float()).all())
 
 
 # --------------------------------------------------------- flash backward
@@ -812,6 +878,16 @@ SPARSE_CASES = [   # block, head dim, dtype, layout, causal, strided
     (64, 64, torch.float32, "fixed", True, False),
     (16, 128, torch.float32, "bigbird", False, False),
 ]
+# B8's tensor-core kernel (blocks of 64 and 128) over every layout that
+# chip_smoke.py's phase sparse uses, q/k/v as strided views
+WGMMA_CASES = [(block, D, dtype, layout, causal)
+               for block, D in ((64, 128), (128, 64), (64, 64), (128, 128))
+               for dtype in (torch.bfloat16, torch.float16)
+               for layout, causal in (("fixed", True), ("bigbird", False),
+                                      ("longformer", False),
+                                      ("fixed_per_head", False),
+                                      ("variable", False),
+                                      ("sliding", True))]
 
 
 def _sparse_layout(name, H, block, T):
@@ -824,7 +900,14 @@ def _sparse_layout(name, H, block, T):
                num_heads=H, block=block, global_block_indices=[1]),
            "variable": lambda: port_sparse.VariableSparsityConfig(
                num_heads=H, block=block, num_random_blocks=1,
-               local_window_blocks=[2], global_block_indices=[0])}[name]()
+               local_window_blocks=[2], global_block_indices=[0]),
+           "fixed_per_head": lambda: port_sparse.FixedSparsityConfig(
+               num_heads=H, block=block, num_local_blocks=4,
+               different_layout_per_head=True,
+               num_different_global_patterns=4),
+           "sliding": lambda: port_sparse.LocalSlidingWindowSparsityConfig(
+               num_heads=H, block=block, num_sliding_window_blocks=5)
+           }[name]()
     return cfg.make_layout(T)
 
 
@@ -859,6 +942,60 @@ def test_block_sparse_kernel_matches_plain_on_card(cuda_device, block, D,
     torch.cuda.synchronize()
     assert port_bsa.block_sparse_attention.launches == n + 1
     assert out.dtype == dtype and out.shape == (B, H, T, D)
+    _assert_sparse_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,D,dtype,layout,causal", WGMMA_CASES)
+def test_block_sparse_wgmma_kernel_matches_plain_on_card(
+        cuda_device, block, D, dtype, layout, causal):
+    """B8 at blocks of 64 and 128 on strided views of a fused projection,
+    with and without the host's tile order (the same bits either way and
+    on a second call), a LUT row with padding and an out-of-range entry,
+    and a query block whose only entry lies above the diagonal (causal)
+    or that lists nothing: exactly 0."""
+    import numpy as np
+    g = torch.Generator(device=cuda_device).manual_seed(block + D)
+    B, H, T = 2, 4, 1024
+    nb = T // block
+    lay = _sparse_layout(layout, H, block, T)
+    lay[:, 0] = 0
+    lay[:, 0, 1] = 1
+    lay[:, -1] = 0
+    lut_np, counts_np = port_bsa.build_lut(lay)
+    clean = [torch.as_tensor(x, device=cuda_device)
+             for x in (lut_np, counts_np)]
+    # padding past the counts out of range, and row 1 listing nb and -1
+    # too: the kernel must load none of them (the plain version, which
+    # gathers every entry, takes the clean LUT)
+    lut_np = np.concatenate([lut_np, np.full((H, nb, 2), nb + 7, np.int32)],
+                            -1)
+    for h in range(H):
+        c = counts_np[h, 1]
+        lut_np[h, 1, c:c + 2] = nb, -1
+        counts_np[h, 1] = c + 2
+    lut_np[lut_np == 0] = np.where(
+        np.arange(lut_np.shape[-1]) >= counts_np[..., None], nb + 7, 0)[
+            lut_np == 0]
+    lut, counts = (torch.as_tensor(np.ascontiguousarray(x),
+                                   device=cuda_device)
+                   for x in (lut_np, counts_np))
+    order = torch.as_tensor(port_bsa.tile_order(lut_np, counts_np, causal),
+                            device=cuda_device)
+    q, k, v = (x.transpose(1, 2) for x in
+               _randn(g, (B, T, 3, H, D), dtype).unbind(2))
+    out = port_bsa.block_sparse_attention(q, k, v, lut, counts, block,
+                                          causal)
+    again = port_bsa.block_sparse_attention(q, k, v, lut, counts, block,
+                                            causal, order=order)
+    ref = port_bsa.block_sparse_attention_reference(q, k, v, *clean, block,
+                                                    causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.equal(out[:, :, -block:], torch.zeros_like(out[:, :, -block:]))
+    if causal:
+        assert torch.equal(out[:, :, :block],
+                           torch.zeros_like(out[:, :, :block]))
     _assert_sparse_close(out, ref, dtype)
 
 
