@@ -6,7 +6,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, in order; any failed check raises and the script exits non-zero
-before its last line:
+before its last line. Phases 2-6 end with their kernels at head dims 80
+and 96 (the 128-wide instantiation at a smaller true head dim): B1-B3 at
+gpt2-2.7b's [8, 1024, 32, 80] and gpt2-760m's [8, 1024, 16, 96] (plus B1
+through the padded route at D=36 beside the native route at 40), B4-B7
+and B5i-B7i at Pythia-2.8B's serving geometry (32 kv heads of 80) and
+GPT-NeoX-20B's (64 of 96), B8 at [2, 4096, 32, 80] and [2, 4096, 16, 96];
+each against its plain version on every head, bit-identical on a second
+call, on inputs that are ``[..., :D]`` views of buffers whose guard
+columns hold NaN (B8 also writes into one, whose guard columns must stay
+NaN); their times, bounds (true D) and SDPA times are the ``d80_*`` /
+``d96_*`` fields of each kernel's row.
 
 1. build  — compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel): flash forward, flash backward (dq,
@@ -85,6 +95,14 @@ before its last line:
    tie-tolerant oracle on two requests: every served token is within
    E2E_MAX_TOL (int8 pools: INT8_E2E_MAX_TOL) of the maximum logit of a
    forward through no attention kernel.
+9b. pythia — Pythia-2.8B at its published widths and depth (HF
+   EleutherAI/pythia-2.8b config.json: 32 layers, 32 heads of 80, parallel
+   residual, rotary_pct 0.25, exact GELU, untied head; random weights,
+   2,775,208,960 parameters): phase e2e's ``generate`` and gates (B1, B4),
+   then four servers over one engine: prefix caching with 256-token chunks
+   (B6, B5) and speculation K=4 (B1, B7), over an fp and an int8 pool
+   (B6i, B5i, B7i), each with its launch counts and the served-token
+   oracle.
 10. train — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
    → ``train_batch`` on ``GPT2LMModel(config_for("gpt2-1.3b"))`` at full
    width (24 layers, n_embd 2048, 16 heads of 128, T=1024; random weights
@@ -97,9 +115,12 @@ before its last line:
    2 sequences through the kernels and through the flash kernels' plain
    version under autograd, the losses within TRAIN_LOSS_TOL and every
    layer's ``c_attn.kernel`` gradient within TRAIN_GRAD_TOL relative L2.
+   The same for ``gpt2-760m`` (24 layers, 16 heads of 96) and
+   ``gpt2-2.7b`` (32 layers, 32 heads of 80), at full depth.
 11. sparse run — ``SparseSelfAttention`` with layout (i), three calls at
    T=4096 and one at T=2048: 4 kernel launches, one LUT per length, every
-   output within SPARSE_TOL of the plain version.
+   output within SPARSE_TOL of the plain version; then the same at 32
+   heads of 80.
 12. layer_norm run — ``fused_layer_norm`` and ``fused_residual_layer_norm``
    under autograd at the 1.3B training shape: 2 forward and 2 backward
    launches; the gradients against autograd through
@@ -107,7 +128,8 @@ before its last line:
 
 The kernel launch counts are set to 0 just before each main-path run (the
 e2e generate, each server, the timed training steps and the sparse and
-layer_norm runs) and read just after. Kernel times are device times
+layer_norm runs) and read just after. Every attention kernel, int8 ones
+included, must have launched on a main-path run at head dim 80 or 96. Kernel times are device times
 (CUDA events behind a device spin, after an L2 flush).
 
 It prints the card's name and power limit (nvidia-smi), one JSON line of
@@ -297,6 +319,391 @@ def phase_build():
               f"{spills}")
 
 
+# ------------------------------------------------------- head dims to 128
+# Every attention kernel runs a head dim D <= 128 on its 64- or 128-wide
+# instantiation, reading zeros past D and writing nothing there. Each phase
+# below holds its kernels at D = 80 (gpt2-2.7b, Pythia-2.8B) and D = 96
+# (gpt2-760m, GPT-NeoX-20B) against their plain versions on every head,
+# twice for the same bits, on inputs that are views of buffers whose guard
+# columns past D hold NaN (a load past D poisons the result); B8 also
+# writes into such a view, whose guard columns must stay NaN. Bounds count
+# the true D.
+
+def _guarded(x, fill=float("nan")):
+    """``x`` as the ``[..., :D]`` view of a ``[..., DK + 16]`` buffer whose
+    guard columns past D hold ``fill`` (NaN; int8 has none, so 127)."""
+    D = x.shape[-1]
+    buf = torch.full((*x.shape[:-1], (64 if D <= 64 else 128) + 16), fill,
+                     dtype=x.dtype, device=x.device)
+    buf[..., :D] = x
+    return buf[..., :D]
+
+
+def _head_dim_case(what, D, run, plain, lib, tol, nbytes, flops, peak,
+                   flush, iters=20, guard=None):
+    """One kernel at head dim D: ``run()`` returns its output, held to
+    ``plain()`` within ``tol`` on every head, the same bits on a second
+    call (and, given ``guard``, the buffer ``run()`` writes into, its guard
+    columns past D still NaN); then timed beside its plain version, the
+    library call ``lib()`` and the bound. Returns the row's ``d{D}_*``
+    fields and the error."""
+    o = run().clone()
+    o2 = run()
+    ref = plain()
+    torch.cuda.synchronize()
+    d = (o.float() - ref.float()).abs()
+    heads = d.amax(dim=tuple(i for i in range(d.dim()) if i != d.dim() - 2))
+    err = heads.max().item()
+    check(bool(torch.isfinite(heads).all()) and err <= tol,
+          f"{what} D={D}: max |o - plain| over the heads {heads.tolist()} "
+          f"> {tol}")
+    check(torch.equal(o, o2), f"{what} D={D}: other bits on a second call")
+    if guard is not None:
+        check(bool(torch.isnan(guard[..., D:]).all()),
+              f"{what} D={D}: a store past the head dim touched a guard "
+              f"column")
+    bound, by = _bound(nbytes, flops, peak)
+    ms = cuda_ms(run, iters, flush)
+    plain_ms = cuda_ms(plain, 3, flush)
+    lib_ms = cuda_ms(lib, iters, flush)
+    log(f"[head_dims] {what} D={D}: max|o err| {err!r} (tol {tol}, every "
+        f"head), bit-identical twice, NaN guard columns unread"
+        f"{', its own untouched' if guard is not None else ''}; kernel "
+        f"{ms!r} ms, plain {plain_ms!r} ms, library {lib_ms!r} ms, bound "
+        f"{bound!r} ms ({by}, true D)")
+    return {f"d{D}_ms": ms, f"d{D}_plain_ms": plain_ms,
+            f"d{D}_library_ms": lib_ms, f"d{D}_bound_ms": bound,
+            f"d{D}_bound_by": by, f"d{D}_max_abs_err": err}, err
+
+
+def _fused_qkv(g, B, T, H, D):
+    """q, k and v ``[B, T, H, D]`` as views of one guarded fused
+    ``[B, T, 3, H, D]`` bf16 projection."""
+    return _guarded(torch.randn((B, T, 3, H, D), generator=g, device="cuda",
+                                dtype=torch.bfloat16)).unbind(2)
+
+
+def _flash_head_dims(flush):
+    """B1 at gpt2-2.7b's [8, 1024, 32, 80] and gpt2-760m's [8, 1024, 16,
+    96], q/k/v views of the fused projection; then the padded route at
+    D = 36 against the native route at D = 40 ([8, 1024, 32, D])."""
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_attention_reference)
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fields, worst = {}, 0.0
+    for D, B, T, H in ((80, 8, 1024, 32), (96, 8, 1024, 16)):
+        q, k, v = _fused_qkv(g, B, T, H, D)
+        lses = [flash_attention_fwd(q, k, v)[1] for _ in range(2)]
+        lse_ref = flash_attention_reference(q, k, v)[1]
+        lerr = (lses[0] - lse_ref).abs().max().item()
+        check(lerr <= LSE_TOL and torch.equal(lses[0], lses[1]),
+              f"flash D={D}: lse off by {lerr} or not bit-stable")
+        pairs = T * (T + 1) // 2
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        f, err = _head_dim_case(
+            f"flash [{B}, {T}, {H}, {D}]", D,
+            lambda: flash_attention_fwd(q, k, v)[0],
+            lambda: flash_attention_reference(q, k, v)[0],
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            FLASH_TOL, 2 * 4 * B * T * H * D + 4 * B * H * T,
+            4 * B * H * D * pairs, H100_BF16_FLOPS, flush)
+        log(f"[head_dims] flash D={D}: the 128-wide tile issues "
+            f"{4 * B * H * 128 * pairs / 1e9:.1f} GFLOP of tensor-core work "
+            f"for {4 * B * H * D * pairs / 1e9:.1f} GFLOP of the true D; "
+            f"max|lse err| {lerr!r}")
+        fields.update(f)
+        worst = max(worst, err)
+        del q, k, v, qt, kt, vt
+    for D in (36, 40):
+        q, k, v = (torch.randn((8, 1024, 32, D), generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        o = flash_attention_fwd(q, k, v)[0]
+        err = (o.float() - flash_attention_reference(q, k, v)[0].float()
+               ).abs().max().item()
+        check(err <= FLASH_TOL, f"flash D={D}: max err {err}")
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v), 20, flush)
+        route = "padded" if D == 36 else "native"
+        fields[f"{'pad' if D == 36 else 'native'}{D}_ms"] = ms
+        log(f"[head_dims] flash [8, 1024, 32, {D}], the {route} route: "
+            f"max|o err| {err!r}; {ms!r} ms")
+        worst = max(worst, err)
+    torch.cuda.empty_cache()
+    return fields, worst
+
+
+def _flash_bwd_head_dims(flush):
+    """B2 and B3 at the two training shapes of _flash_head_dims, q, k, v
+    and dO guarded views, gated as the other backward cases; SDPA's
+    backward is the library time of both."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(22)
+    fields = {"flash_attention_bwd_dq": {}, "flash_attention_bwd_dkv": {}}
+    worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
+    tol = BWD_TOL["16"]
+    for D, B, T, H in ((80, 8, 1024, 32), (96, 8, 1024, 16)):
+        q, k, v = _fused_qkv(g, B, T, H, D)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        do = _guarded(torch.randn((B, T, H, D), generator=g, device="cuda",
+                                  dtype=torch.bfloat16))
+
+        def run_dq():
+            return fa.flash_attention_bwd_dq(q, k, v, o, lse, do)
+
+        dq, delta = run_dq()
+
+        def run_dkv():
+            return fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+
+        dk, dv = run_dkv()
+        dq2, delta2 = run_dq()
+        dk2, dv2 = run_dkv()
+        scale = 1.0 / math.sqrt(D)
+        rq, rdelta = fa._bwd_dq_reference(q, k, v, o, lse, do, True, scale)
+        rk, rv = fa._bwd_dkv_reference(q, k, v, lse, rdelta, do, True, scale)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in
+                  zip((dq, dk, dv, delta), (dq2, dk2, dv2, delta2))),
+              f"flash bwd D={D}: other bits on a second run")
+        stats = {key: bwd_error(a, r, **tol) for key, a, r in
+                 (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))}
+        stats["delta"] = bwd_error(delta, rdelta, **BWD_TOL["32"])
+        for key, st in stats.items():
+            lim = BWD_TOL["32"]["l2"] if key == "delta" else tol["l2"]
+            check(math.isfinite(st["max_err"]) and st["elem"] <= 1.0
+                  and (key == "delta" or (st["rel_l2"] <= lim
+                                          and st["tile_l2"] <= lim)),
+                  f"flash bwd D={D}: {key} off its limits ({st})")
+        pairs = T * (T + 1) // 2
+        bhtd, bht = B * T * H * D, B * H * T
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib = cuda_ms(lambda: torch.autograd.grad(
+            sdpa, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 20,
+            flush)
+        for name, run, plain, nbytes, flops, errs in (
+                ("flash_attention_bwd_dq", run_dq,
+                 lambda: fa._bwd_dq_reference(q, k, v, o, lse, do, True,
+                                              scale),
+                 2 * 6 * bhtd + 8 * bht, 6 * B * H * D * pairs,
+                 [stats["dq"]["max_err"]]),
+                ("flash_attention_bwd_dkv", run_dkv,
+                 lambda: fa._bwd_dkv_reference(q, k, v, lse, delta, do,
+                                               True, scale),
+                 2 * 6 * bhtd + 8 * bht, 8 * B * H * D * pairs,
+                 [stats["dk"]["max_err"], stats["dv"]["max_err"]])):
+            bound, by = _bound(nbytes, flops, H100_BF16_FLOPS)
+            ms = cuda_ms(run, 20, flush)
+            plain_ms = cuda_ms(plain, 3, flush)
+            fields[name].update({
+                f"d{D}_ms": ms, f"d{D}_plain_ms": plain_ms,
+                f"d{D}_library_ms": lib, f"d{D}_bound_ms": bound,
+                f"d{D}_bound_by": by, f"d{D}_max_abs_err": max(errs)})
+            worst[name] = max(worst[name], *errs)
+            log(f"[head_dims] {name} [{B}, {T}, {H}, {D}]: max|err| "
+                f"{max(errs)!r}, bit-identical twice, NaN guard columns "
+                f"unread; kernel {ms!r} ms, plain {plain_ms!r} ms, SDPA "
+                f"backward (dq+dk+dv) {lib!r} ms, bound {bound!r} ms ({by}, "
+                f"true D), {flops / ms / 1e9:.1f} TFLOP/s of the true D")
+        log(f"[head_dims] flash bwd D={D}: " + "; ".join(
+            f"{key} max|err| {st['max_err']!r} rel L2 {st['rel_l2']:.2e} "
+            f"worst tile {st['tile_l2']:.2e}" for key, st in stats.items()))
+        del q, k, v, o, lse, do, dq, dk, dv, dq2, dk2, dv2, rq, rk, rv
+        del sdpa, qt, kt, vt
+        torch.cuda.empty_cache()
+    return fields, worst
+
+
+def _decode_head_dims(flush):
+    """B4 at Pythia-2.8B's decode geometry (8 rows, S=2048, 32 heads of
+    80) and GPT-NeoX-20B's (64 heads of 96), seeded lengths, the cache and
+    q guarded views."""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference)
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rng = np.random.default_rng(23)
+    fields, worst = {}, 0.0
+    for D, H in ((80, 32), (96, 64)):
+        B, S = 8, 2048
+
+        def rnd(*shape):
+            return _guarded(torch.randn(shape, generator=g, device="cuda",
+                                        dtype=torch.bfloat16))
+
+        kc, vc = rnd(2, B, S, H, D)[1], rnd(2, B, S, H, D)[1]
+        q = rnd(B, 3, H, D)[:, 0]
+        lens = torch.as_tensor(rng.integers(1, S + 1, B), dtype=torch.int32,
+                               device="cuda")
+        live = int(lens.sum())
+        mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
+                )[:, None, None, :]
+        q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        f, err = _head_dim_case(
+            f"decode [{B}, {S}, {H}, {D}]", D,
+            lambda: decode_attention(q, kc, vc, lens),
+            lambda: decode_attention_reference(q, kc, vc, lens),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=mask),
+            DECODE_TOL, 2 * 2 * live * H * D + 2 * 2 * B * H * D + 4 * B,
+            4 * live * H * D, H100_F32_FLOPS, flush, iters=50)
+        fields.update(f)
+        worst = max(worst, err)
+        del kc, vc, q, q4, k4, v4, mask
+    torch.cuda.empty_cache()
+    return fields, worst
+
+
+def _paged_head_dims(flush):
+    """B5-B7 and B5i-B7i at Pythia-2.8B's serving geometry (S=8 slots of
+    2048 positions, BS=128, 32 kv heads of 80) and GPT-NeoX-20B's (64 of
+    96): decode, a C=256 chunk at start 256, verify K=4, fp and int8 pools,
+    bf16 queries; q and the pools guarded views (int8 guard columns hold
+    127)."""
+    from deepspeed_tpu_torch.ops import decode_attention as da
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(24)
+    rng = np.random.default_rng(24)
+    S, BS, MB, K, C, start = 8, 128, 16, 4, 256, 256
+    NB, span = S * MB + 1, MB * BS
+    fields, worst = {}, {}
+    for D, H in ((80, 32), (96, 64)):
+        def rnd(*shape):
+            return _guarded(torch.randn(shape, generator=g, device="cuda",
+                                        dtype=torch.bfloat16))
+        kp2, vp2 = rnd(2, NB, BS, H, D), rnd(2, NB, BS, H, D)
+        kq, ks = _int8_layer_pool(kp2)
+        vq, vs = _int8_layer_pool(vp2)
+        kq, vq = _guarded(kq, 127), _guarded(vq, 127)
+        pools = {"": (kp2[1], vp2[1], {}),
+                 "_int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}
+        lens_np = rng.integers(1, span - K + 1, S).astype(np.int32)
+        tables = torch.as_tensor(_paged_tables(rng, -(-(lens_np + K) // BS),
+                                               NB, MB), device="cuda")
+        lens = torch.as_tensor(lens_np, device="cuda")
+        row = torch.as_tensor(_paged_tables(rng, [MB], NB, MB)[0],
+                              device="cuda")
+        qd, qc, qv = rnd(S, 3, H, D)[:, 0], rnd(C, H, D), rnd(S, K, H, D)
+        for suffix, (kp, vp, sc) in pools.items():
+            q8 = bool(sc)
+
+            def gathered(t):
+                """the cache through the tables (dequantized), [n, H, span,
+                D] for SDPA"""
+                t = t.long()
+                if not q8:
+                    return [p[t].reshape(t.shape[0], span, H, D)
+                            .transpose(1, 2) for p in (kp, vp)]
+                return [(p[t].float() * sp[t].transpose(-1, -2)[..., None]
+                         ).to(torch.bfloat16).reshape(t.shape[0], span, H, D)
+                        .transpose(1, 2) for p, sp in ((kq, ks), (vq, vs))]
+
+            kc, vc = gathered(tables)
+            kc1, vc1 = (x[:1] for x in gathered(row[None]))
+            # bytes of one key row and head: K and V (+ their f32 scales)
+            row_bytes = 2 * D + 8 if q8 else 2 * 2 * D
+            live = int(lens_np.sum())
+            dmask = (torch.arange(span, device="cuda")[None, :]
+                     < lens[:, None])[:, None, None, :]
+            cmask = (torch.arange(span, device="cuda")[None, :]
+                     <= start + torch.arange(C, device="cuda")[:, None])
+            vmask = (torch.arange(span, device="cuda")[None, None, :]
+                     <= lens[:, None, None]
+                     + torch.arange(K, device="cuda")[None, :, None])[:, None]
+            vkeys = live + S * K
+            vpairs = sum(K * int(n) + K * (K + 1) // 2 for n in lens_np)
+            cpairs = C * start + C * (C + 1) // 2
+            for kind, q, fn, ref, tol, lib, nbytes, flops, peak in (
+                    ("decode", qd, da.paged_decode_attention,
+                     da.paged_decode_attention_reference, DECODE_TOL,
+                     lambda: F.scaled_dot_product_attention(
+                         qd[:, :, None], kc, vc, attn_mask=dmask),
+                     row_bytes * live * H + 2 * 2 * S * H * D
+                     + 4 * S * (MB + 1), 4 * live * H * D, H100_F32_FLOPS),
+                    ("chunk", qc, da.paged_chunk_attention,
+                     da.paged_chunk_attention_reference, FLASH_TOL,
+                     lambda: F.scaled_dot_product_attention(
+                         qc.transpose(0, 1)[None], kc1, vc1,
+                         attn_mask=cmask),
+                     row_bytes * (start + C) * H + 2 * 2 * C * H * D
+                     + 4 * MB, 4 * cpairs * H * D, H100_BF16_FLOPS),
+                    ("verify", qv, da.paged_verify_attention,
+                     da.paged_verify_attention_reference, DECODE_TOL,
+                     lambda: F.scaled_dot_product_attention(
+                         qv.transpose(1, 2), kc, vc, attn_mask=vmask),
+                     row_bytes * vkeys * H + 2 * 2 * S * K * H * D
+                     + 4 * S * (MB + 1), 4 * vpairs * H * D,
+                     H100_BF16_FLOPS)):
+                rest = ((row, start) if kind == "chunk" else (tables, lens))
+                name = f"paged_{kind}_attention{suffix}"
+                f, err = _head_dim_case(
+                    f"{name} H={H}", D,
+                    lambda: fn(q, kp, vp, *rest, **sc),
+                    lambda: ref(q, kp, vp, *rest, **sc), lib, tol, nbytes,
+                    flops, peak, flush)
+                fields.setdefault(name, {}).update(f)
+                worst[name] = max(worst.get(name, 0.0), err)
+            del kc, vc, kc1, vc1
+        del kp2, vp2, kq, vq, pools
+        torch.cuda.empty_cache()
+    return fields, worst
+
+
+def _sparse_head_dims(flush):
+    """B8 on layout (i) (Fixed, blocks of 64, causal) at gpt2-2.7b's
+    [2, 4096, 32, 80] and gpt2-760m's [2, 4096, 16, 96], q/k/v views of a
+    guarded fused projection, the output a guarded [B, T, H, D] view (B8
+    takes ``out``, for SparseSelfAttention), with the tile order
+    SparseSelfAttention caches; SDPA with the dense mask is the library
+    time."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import layout_to_dense_mask
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(25)
+    fields, worst = {}, 0.0
+    for D, B, T, H in ((80, 2, 4096, 32), (96, 2, 4096, 16)):
+        lay = _fixed_1p3b(sa, H).make_layout(T)
+        lut_np, counts_np = bsa.build_lut(lay)
+        lut, counts = (torch.as_tensor(x, device="cuda")
+                       for x in (lut_np, counts_np))
+        order = torch.as_tensor(bsa.tile_order(lut_np, counts_np, True),
+                                device="cuda")
+        q, k, v = (x.transpose(1, 2) for x in _fused_qkv(g, B, T, H, D))
+        o = _guarded(torch.full((B, T, H, D), float("nan"), device="cuda",
+                                dtype=torch.bfloat16))
+        buf, out = o._base, o.transpose(1, 2)
+        args = (q, k, v, lut, counts, 64, True)
+        ref = bsa.block_sparse_attention_reference(*args)
+        st, ok = _sparse_error(bsa.block_sparse_attention(
+            *args, out=out, order=order).transpose(1, 2),
+            ref.transpose(1, 2), SPARSE_TOL["16"])
+        check(ok, f"sparse D={D}: o off its limits ({st})")
+        full, diag = _visible_entries(lut_np, counts_np, True)
+        mask = torch.as_tensor(layout_to_dense_mask(lay, 64, True),
+                               device="cuda")[None]
+        f, err = _head_dim_case(
+            f"sparse (i) [{B}, {T}, {H}, {D}]", D,
+            lambda: bsa.block_sparse_attention(*args, out=out, order=order),
+            lambda: bsa.block_sparse_attention_reference(*args),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            SPARSE_TOL["16"]["atol"],
+            4 * B * T * H * D * 2 + lut_np.nbytes + counts_np.nbytes,
+            4 * B * D * (64 * 64 * full + 64 * 65 // 2 * diag),
+            H100_BF16_FLOPS, flush, guard=buf)
+        log(f"[head_dims] sparse D={D}: rel L2 {st['rel_l2']:.2e}, worst "
+            f"64-row tile {st['tile_l2']:.2e} (limits {SPARSE_TOL['16']})")
+        fields.update(f)
+        worst = max(worst, err)
+        del q, k, v, buf, o, out, ref, mask, lut, counts, order
+        torch.cuda.empty_cache()
+    return fields, worst
+
+
 def phase_flash(flush):
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_reference)
@@ -373,7 +780,9 @@ def phase_flash(flush):
     torch.cuda.synchronize()
     log(f"[flash] host time per call at [1, 128, 25, 64]: {host_us!r} us "
         f"(200 calls, no sync)")
-    return dict(main, **train, host_us=host_us, max_abs_err=worst)
+    fields, err = _flash_head_dims(flush)
+    return dict(main, **train, host_us=host_us, max_abs_err=max(worst, err),
+                **fields)
 
 
 def host_us(fn, calls=2000):
@@ -462,9 +871,10 @@ def phase_decode(flush):
     log(f"[decode] host time per call at q [8, 25, 64], cache [8, 1024, 25, "
         f"64]: {us!r} us (median of 2000 calls, each after a sync)")
     gqa = recs["gqa H=32 KH=8 D=128"]
-    return dict(recs["gpt2-xl"], max_abs_err=worst, host_us=us,
+    fields, err = _decode_head_dims(flush)
+    return dict(recs["gpt2-xl"], max_abs_err=max(worst, err), host_us=us,
                 **{f"gqa_{f}": gqa[f] for f in ("ms", "bound_ms",
-                                                "library_ms")})
+                                                "library_ms")}, **fields)
 
 
 def _bound(nbytes, flops, peak_flops):
@@ -831,6 +1241,9 @@ def phase_paged(flush):
         log(f"[paged] {k} host time per call at {shape}, [NB, {BS}, 25, "
             f"64]: {host_us!r} us (200 calls, no sync)")
         rows[k]["host_us"] = host_us
+    fields, worst = _paged_head_dims(flush)
+    for k, row in rows.items():
+        row.update(fields[k], max_abs_err=max(row["max_abs_err"], worst[k]))
     return rows
 
 
@@ -986,9 +1399,11 @@ def phase_flash_bwd(flush):
     log(f"[flash_bwd] host time per call of the pair at [1, 128, 16, 128]: "
         f"{host_us!r} us (200 calls, no sync); B2 and B3 bit-identical on "
         f"a second run")
+    fields, new_worst = _flash_bwd_head_dims(flush)
     for name, key in (("flash_attention_bwd_dq", "dq"),
                       ("flash_attention_bwd_dkv", "dkv")):
-        rows[name].update(max_abs_err=worst[key], host_us_pair=host_us)
+        rows[name].update(max_abs_err=max(worst[key], new_worst[name]),
+                          host_us_pair=host_us, **fields[name])
     return rows
 
 
@@ -1013,9 +1428,10 @@ LN_SUM_TOL = 1e-4
 LN_GRAD_SUM_TOL = 1e-3
 
 
-def _fixed_1p3b(sa):
-    """The sparse main path's layout: Fixed, GPT-2 1.3B heads, causal."""
-    return sa.FixedSparsityConfig(num_heads=16, block=64,
+def _fixed_1p3b(sa, heads=16):
+    """The sparse main path's layout: Fixed, causal, over GPT-2 1.3B's 16
+    heads (or ``heads``)."""
+    return sa.FixedSparsityConfig(num_heads=heads, block=64,
                                   num_local_blocks=4, num_global_blocks=1,
                                   attention="unidirectional")
 
@@ -1160,7 +1576,8 @@ def phase_sparse(flush):
             f"{flops / ms / 1e9:.1f} TFLOP/s{extra}")
         del q, k, v, out, ref, lut, counts, order
         torch.cuda.empty_cache()
-    return dict(main, max_abs_err=worst)
+    fields, err = _sparse_head_dims(flush)
+    return dict(main, max_abs_err=max(worst, err), **fields)
 
 
 def _ln_elem_ok(a, r, tol):
@@ -1269,16 +1686,16 @@ def phase_layer_norm(flush):
     return rows
 
 
-def run_sparse():
+def run_sparse(heads=16, D=128):
     """The sparse main path: ``SparseSelfAttention`` with the Fixed layout
     of case (i), three calls at T=4096 and one at T=2048 on [B, T, H, D]
-    views of fused projections; counts set to 0 just before, read just
-    after."""
+    views of fused projections, GPT-2 1.3B's 16 heads of 128 (or ``heads``
+    of ``D``); counts set to 0 just before, read just after."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     from deepspeed_tpu_torch.ops import sparse_attention as sa
     g = torch.Generator(device="cuda").manual_seed(13)
-    op = sa.SparseSelfAttention(_fixed_1p3b(sa))
-    inputs = [torch.randn((2, T, 3, 16, 128), generator=g, device="cuda",
+    op = sa.SparseSelfAttention(_fixed_1p3b(sa, heads))
+    inputs = [torch.randn((2, T, 3, heads, D), generator=g, device="cuda",
                           dtype=torch.bfloat16).unbind(2)
               for T in (4096, 4096, 4096, 2048)]
     torch.cuda.synchronize()
@@ -1300,11 +1717,12 @@ def run_sparse():
         ref = bsa.block_sparse_attention_reference(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lut, cnt,
             64, True).transpose(1, 2)
-        check(out.shape == (2, T, 16, 128), f"sparse: output {out.shape}")
+        check(out.shape == (2, T, heads, D), f"sparse: output {out.shape}")
         st, ok = _sparse_error(out, ref, tol)
         check(ok, f"sparse: call at T={T} off its limits {tol} ({st})")
         errs.append((st["max_err"], st["max_ref"], st["tile_l2"]))
-    log(f"[sparse] SparseSelfAttention, 4 calls (T=4096 x 3, 2048): "
+    log(f"[sparse] SparseSelfAttention, {heads} heads of {D}, 4 calls "
+        f"(T=4096 x 3, 2048): "
         f"{wall * 1e3!r} ms of host wall incl. the LUT builds; per call "
         f"(max|o err|, max|ref|, worst 64-row tile rel L2) {errs!r} (limits "
         f"{tol}); launches {counts}")
@@ -1365,18 +1783,24 @@ def run_layer_norm():
     return counts
 
 
-def phase_train():
-    """The training main path at GPT-2 1.3B width; returns its launch
-    counts, read just after the timed steps."""
+# the training presets' parameter counts at full depth (the port's leaves)
+TRAIN_PARAMS = {"gpt2-760m": 758799360, "gpt2-1.3b": 1313722368,
+                "gpt2-2.7b": 2649052160}
+
+
+def phase_train(preset="gpt2-1.3b"):
+    """The training main path of a GPT-2 preset at full width and depth;
+    returns its launch counts, read just after the timed steps."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
-    cfg = config_for("gpt2-1.3b")
+    cfg = config_for(preset)
     L = cfg.n_layer
     model = GPT2LMModel(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     n_params = model.param_count(params)
-    check(n_params == 1313722368, f"gpt2-1.3b has {n_params} parameters")
+    check(n_params == TRAIN_PARAMS[preset],
+          f"{preset} has {n_params} parameters")
     micro, gas = 8, 2
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         model=model, model_parameters=params, config={
@@ -1388,8 +1812,9 @@ def phase_train():
     del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    log(f"[train] gpt2-1.3b: {n_params} parameters, random weights and "
-        f"engine in {time.perf_counter() - t0:.3f} s")
+    log(f"[train] {preset}: {L} layers, {cfg.n_head} heads of "
+        f"{cfg.head_dim}, {n_params} parameters, random weights and engine "
+        f"in {time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(6)
     T = cfg.n_positions
     batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro * gas, T),
@@ -1409,7 +1834,7 @@ def phase_train():
     n = TRAIN_STEPS * gas
     check(counts["flash_attention_fwd"] == 2 * L * n,
           f"train: flash forward launched {counts['flash_attention_fwd']} "
-          f"times, expected {2 * L * n} (24 layers x 2 with remat x {n} "
+          f"times, expected {2 * L * n} ({L} layers x 2 with remat x {n} "
           f"micro-batches)")
     for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         check(counts[k] == L * n,
@@ -1425,7 +1850,8 @@ def phase_train():
     step_s = float(np.median(walls))
     tok_s = micro * gas * T / step_s
     mfu = model.flops_per_token() * tok_s / H100_BF16_FLOPS
-    log(f"[train] {TRAIN_STEPS} steps of {micro} x {gas} x {T} tokens: "
+    log(f"[train] {preset}: {TRAIN_STEPS} steps of {micro} x {gas} x {T} "
+        f"tokens: "
         f"step ms {[w * 1e3 for w in walls]!r}, median {step_s * 1e3!r} ms; "
         f"{tok_s!r} tokens/s; MFU {mfu!r} (6N flops per token at 989 "
         f"TFLOP/s); peak memory {peak} bytes; losses {losses!r}; grad "
@@ -1445,7 +1871,8 @@ def phase_train():
     (lk, gk), (lr_, gr) = out
     rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
             for a, b in zip(gk, gr)]
-    log(f"[train] gradient oracle on 2 sequences: loss kernels {lk!r} vs "
+    log(f"[train] {preset}: gradient oracle on 2 sequences: loss kernels "
+        f"{lk!r} vs "
         f"plain attention {lr_!r}; c_attn.kernel gradient relative L2 "
         f"error per layer max {max(rels)!r}, mean {float(np.mean(rels))!r} "
         f"(tol {TRAIN_GRAD_TOL})")
@@ -1468,8 +1895,26 @@ def gpt2_xl_config():
         positional="learned", tied_lm_head=True, dtype=torch.bfloat16)
 
 
+def pythia_2p8b_config():
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        InferenceTransformerConfig
+    # HF EleutherAI/pythia-2.8b config.json, at its published widths and
+    # depth: GPT-NeoX blocks (use_parallel_residual: attention and MLP in
+    # parallel, each behind its own LayerNorm), rotary_pct 0.25 of the
+    # head dim 80, not interleaved, base 10000, exact GELU, untied head
+    return InferenceTransformerConfig(
+        vocab_size=50304, n_positions=2048, n_embd=2560, n_layer=32,
+        n_head=32, intermediate_size=10240, positional="rotary",
+        rotary_dim=20, rotary_interleaved=False, rotary_base=10000.0,
+        parallel_attn_mlp=True, activation="gelu", layer_norm_eps=1e-5,
+        tied_lm_head=False, dtype=torch.bfloat16)
+
+
+PYTHIA_PARAMS = 2775208960   # pythia-2.8b's published count
+
+
 def make_params(cfg, dev="cuda"):
-    """Random GPT-2 XL weights from a generator seeded 0, on the card."""
+    """Random weights of ``cfg`` from a generator seeded 0, on the card."""
     from deepspeed_tpu_torch.model_implementations.transformer import \
         init_params
     t0 = time.perf_counter()
@@ -1481,14 +1926,15 @@ def make_params(cfg, dev="cuda"):
     return params
 
 
-def phase_e2e(cfg, params, dev="cuda"):
+def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.model_implementations.transformer import (
         causal_forward, decode_step, prefill)
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd
     engine = deepspeed_tpu_torch.init_inference(
-        (cfg, params), dtype=str(cfg.dtype).replace("torch.", ""), device=dev)
+        (cfg, params), dtype=str(cfg.dtype).replace("torch.", ""), device=dev,
+        max_out_tokens=cfg.n_positions)
     rng = np.random.default_rng(0)
     lens = rng.integers(cfg.n_positions // 16, cfg.n_positions * 7 // 8 + 5, 8)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
@@ -1521,7 +1967,7 @@ def phase_e2e(cfg, params, dev="cuda"):
               f"row {b}: token out of range")
     per_tok = [(tg - tp) / steps * 1e3 for tg, tp in
                ((t_gen, t_pre), (t_gen2, t_pre2))]
-    log(f"[e2e] generate 8 x {new} tokens: {t_gen!r} s and {t_gen2!r} s; "
+    log(f"[{tag}] generate 8 x {new} tokens: {t_gen!r} s and {t_gen2!r} s; "
         f"prefill (generate of 1 token) {t_pre * 1e3!r} ms and "
         f"{t_pre2 * 1e3!r} ms; decode {per_tok[0]!r} and {per_tok[1]!r} "
         f"ms per step; {8 * new / t_gen!r} tokens/s; peak memory "
@@ -1551,7 +1997,7 @@ def phase_e2e(cfg, params, dev="cuda"):
             tok = lg.argmax(-1)
             torch.cuda.synchronize()
             dev_ms.append(s.elapsed_time(e))
-    log(f"[e2e] one decode step (B=8): host enqueue "
+    log(f"[{tag}] one decode step (B=8): host enqueue "
         f"{float(np.median(host)) * 1e3!r} ms, device "
         f"{float(np.median(dev_ms))!r} ms "
         f"(medians of 8)")
@@ -1588,7 +2034,7 @@ def phase_e2e(cfg, params, dev="cuda"):
                 errs.append((d.max().item(), d.mean().item()))
     mx = max(e[0] for e in errs)
     mean = max(e[1] for e in errs)
-    log(f"[e2e] decode == prefill on rows {rows}, {k_steps + 1} positions "
+    log(f"[{tag}] decode == prefill on rows {rows}, {k_steps + 1} positions "
         f"each: max |logit diff| {mx!r} (tol {E2E_MAX_TOL}), worst mean "
         f"{mean!r} (tol {E2E_MEAN_TOL})")
     check(math.isfinite(mx) and mx <= E2E_MAX_TOL and mean <= E2E_MEAN_TOL,
@@ -1737,6 +2183,27 @@ def _same_as_control(engine, name, ids, prompts, out, ref):
         f"token-identical to the control; ties {differ}")
 
 
+def _check_served(engine, name, ids, out, prompts, counts, expect, new,
+                  tol=E2E_MAX_TOL):
+    """A server run's gates: no dense decode launch, each kernel of
+    ``expect`` launched exactly as often as its count says (and at least
+    once), well-formed outputs, and the oracle on the first and last
+    request."""
+    V = engine.model_config.vocab_size
+    check(counts["decode_attention"] == 0,
+          f"serve {name}: {counts['decode_attention']} dense decode "
+          f"launches (the server must use the paged kernels)")
+    for k, n in expect.items():
+        check(counts[k] == n and n > 0,
+              f"serve {name}: {k} launched {counts[k]} times, expected {n}")
+    for r, p in zip(ids, prompts):
+        check(out[r][:len(p)] == p and len(out[r]) == len(p) + new
+              and all(0 <= t < V for t in out[r][len(p):]),
+              f"serve {name}: request {r} malformed")
+    _serve_oracle(engine, name, [prompts[0], prompts[-1]],
+                  [out[ids[0]], out[ids[-1]]], new, tol)
+
+
 def phase_serve(cfg, params):
     """The paged server at GPT-2 XL width through three configurations,
     each server closed before the next; launch counts are set to 0 just
@@ -1754,19 +2221,8 @@ def phase_serve(cfg, params):
 
     def verify(name, srv, ids, out, prompts, counts, expect,
                tol=E2E_MAX_TOL):
-        check(counts["decode_attention"] == 0,
-              f"serve {name}: {counts['decode_attention']} dense decode "
-              f"launches (the server must use the paged kernels)")
-        for k, n in expect.items():
-            check(counts[k] == n and n > 0,
-                  f"serve {name}: {k} launched {counts[k]} times, expected "
-                  f"{n}")
-        for r, p in zip(ids, prompts):
-            check(out[r][:len(p)] == p and len(out[r]) == len(p) + new
-                  and all(0 <= t < V for t in out[r][len(p):]),
-                  f"serve {name}: request {r} malformed")
-        _serve_oracle(engine, name, [prompts[0], prompts[-1]],
-                      [out[ids[0]], out[ids[-1]]], new, tol)
+        _check_served(engine, name, ids, out, prompts, counts, expect, new,
+                      tol)
         runs[name] = counts
         srv.close()
 
@@ -1927,6 +2383,86 @@ def phase_serve(cfg, params):
     return runs
 
 
+def phase_pythia():
+    """Pythia-2.8B (32 heads of 80) at its published widths and depth,
+    random weights from a seed: ``generate`` through B1 and B4 (phase
+    e2e's gates), then four paged servers over one engine, fp and int8
+    pools: prefix caching with 256-token chunks (B6/B6i and B5/B5i) and
+    prompt-lookup speculation K=4 (B1 and B7/B7i; a speculative server
+    verifies every round, so its decode runs through B7). Each server's
+    launch counts are set to 0 just before it and read just after; each is
+    held to the served-token oracle."""
+    import deepspeed_tpu_torch
+    cfg = pythia_2p8b_config()
+    params = make_params(cfg)
+    n_params = sum(p.numel() for p in _leaves(params))
+    check(n_params == PYTHIA_PARAMS,
+          f"pythia-2.8b has {n_params} parameters, not {PYTHIA_PARAMS}")
+    runs = {"pythia e2e": phase_e2e(cfg, params, tag="pythia")}
+    engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                dtype="bfloat16")
+    L, V, new = cfg.n_layer, cfg.vocab_size, 32
+    rng = np.random.default_rng(15)
+    engine.generate([[1, 2, 3]], max_new_tokens=2)   # warm-up
+    prefix = rng.integers(0, V, 512).tolist()
+    shared = [prefix + rng.integers(0, V, n).tolist()
+              for n in rng.integers(8, 200, 8)]
+    cold = [rng.integers(0, V, n).tolist() for n in rng.integers(64, 701, 4)]
+    phrase = rng.integers(0, V, 24).tolist()
+    spec = [rng.integers(0, V, n).tolist() + phrase * r
+            for n, r in zip(rng.integers(1, 40, 8), rng.integers(2, 8, 8))]
+
+    def until_first_prefilled(srv, i):
+        if i == 0:
+            while srv.stats["prefills"] == 0:
+                srv.step()
+        return 0
+
+    for pool in ("fp", "int8"):
+        sfx, tol = (("", E2E_MAX_TOL) if pool == "fp"
+                    else ("_int8", INT8_E2E_MAX_TOL))
+        knobs = {} if pool == "fp" else {"kv_cache_dtype": "int8"}
+        name = f"pythia {pool} prefix+chunked"
+        srv, ids, out, counts = _serve_run(
+            engine, name, {**knobs, "enable_prefix_caching": True,
+                           "prefill_chunk_tokens": 256},
+            [shared[:1], shared[1:] + cold], new,
+            between=until_first_prefilled)
+        st = srv.stats
+        check(st["prefix_cache_hits"] > 0, f"serve {name}: no prefix hit")
+        if pool == "int8":
+            check(sum(counts[k] for k in _PAGED_KERNELS[2:5]) == 0,
+                  f"serve {name}: fp paged launches over an int8 pool")
+        _check_served(engine, name, ids, out, shared + cold, counts, {
+            f"paged_chunk_attention{sfx}": L * st["prefill_chunks"],
+            f"paged_decode_attention{sfx}": L * (
+                st["decode_steps"] + st["async_loop"]["garbage_steps"])},
+            new, tol)
+        runs[name] = counts
+        srv.close()
+        name = f"pythia {pool} speculation K=4"
+        srv, ids, out, counts = _serve_run(
+            engine, name, {**knobs, "speculation_tokens": 4}, [spec], new)
+        st = srv.stats
+        tpf = st["speculation"]["tokens_per_forward"]
+        check(tpf is not None and tpf > 1,
+              f"serve {name}: {tpf} tokens per forward, not > 1")
+        if pool == "int8":
+            check(sum(counts[k] for k in _PAGED_KERNELS[2:5]) == 0,
+                  f"serve {name}: fp paged launches over an int8 pool")
+        _check_served(engine, name, ids, out, spec, counts, {
+            "flash_attention_fwd": L * st["prefills"],
+            f"paged_verify_attention{sfx}": L * (
+                st["speculation"]["verify_steps"]
+                + st["async_loop"]["garbage_steps"])}, new, tol)
+        runs[name] = counts
+        srv.close()
+        del srv
+    del engine, params
+    torch.cuda.empty_cache()
+    return runs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1965,13 +2501,27 @@ def main() -> int:
     runs.update(phase_serve(cfg, params))
     del params, flush   # the serving weights; training needs the room
     torch.cuda.empty_cache()
+    # the main-path runs at head dims outside {64, 128}: Pythia-2.8B (80),
+    # gpt2-760m (96), gpt2-2.7b (80), the sparse run at 32 heads of 80
+    new_d = phase_pythia()
+    runs.update(new_d)
     runs["train"] = phase_train()
+    for preset in ("gpt2-760m", "gpt2-2.7b"):
+        runs[f"train {preset}"] = new_d[f"train {preset}"] = phase_train(
+            preset)
     runs["sparse"] = run_sparse()
+    runs["sparse 32 x 80"] = new_d["sparse 32 x 80"] = run_sparse(32, 80)
     runs["layer_norm"] = run_layer_norm()
     # launches: summed over the main-path runs, each read just after it
     launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels}
     for k, n in launches.items():
         check(n > 0, f"{k} was never launched on the main path")
+    # every attention kernel, int8 ones included, also ran on a main path
+    # at a head dim its instantiation is wider than (LayerNorm has none)
+    for k in kernels:
+        if not k.startswith("layer_norm"):
+            check(sum(r.get(k, 0) for r in new_d.values()) > 0,
+                  f"{k} never launched at head dim 80 or 96 on a main path")
     log(f"[launches] per run {runs}")
     meta = {
         "flash_attention_fwd": (

@@ -28,6 +28,7 @@ from deepspeed_tpu_torch.inference.kv_cache import (KVCache, auto_max_tokens,
 from deepspeed_tpu_torch.model_implementations.transformer import (
     InferenceTransformerConfig, causal_forward, decode_step, init_params,
     prefill)
+from deepspeed_tpu_torch.ops.head_dim import warn_if_padded
 from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
 
 _LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
@@ -157,6 +158,8 @@ class InferenceEngine:
 
     def _make_cache(self, batch: int, max_seq: int) -> KVCache:
         cfg = self.model_config
+        warn_if_padded("dense KV cache", cfg.head_dim,
+                       self._act_dtype.itemsize, self.device)
         return init_cache(cfg.n_layer, batch, max_seq, cfg.kv_heads,
                           cfg.head_dim, dtype=self._act_dtype,
                           device=self.device)

@@ -57,6 +57,7 @@ from deepspeed_tpu_torch.inference.speculation import (LookupIndex,
                                                        greedy_accept_host)
 from deepspeed_tpu_torch.model_implementations.transformer import (
     paged_decode_step, paged_prefill, paged_prefill_chunk, paged_verify_step)
+from deepspeed_tpu_torch.ops.head_dim import warn_if_padded
 from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
 from deepspeed_tpu_torch.telemetry import events as telemetry_events
 from deepspeed_tpu_torch.telemetry.events import get_event_ring
@@ -374,10 +375,14 @@ class ContinuousBatchingServer:
 
     def _make_pool(self, num_blocks: int) -> PagedKVCache:
         mcfg = self.engine.model_config
+        quantized = self.kv_dtype == "int8"
+        warn_if_padded("paged KV pool", mcfg.head_dim,
+                       1 if quantized else self.engine._act_dtype.itemsize,
+                       self.device)
         return init_paged_cache(
             mcfg.n_layer, self.num_slots, num_blocks, self.block_size,
             self.max_blocks_per_slot, mcfg.kv_heads, mcfg.head_dim,
-            dtype=self.engine._act_dtype, quantized=self.kv_dtype == "int8",
+            dtype=self.engine._act_dtype, quantized=quantized,
             device=self.device)
 
     # -------------------------------------------------- host-tier copies

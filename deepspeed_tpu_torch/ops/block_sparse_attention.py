@@ -17,6 +17,14 @@ fused projection need no copy). Numerics follow the TPU kernel: scores are
 dtype before ``P.V``; a row with no visible key (count 0, or every visible
 block causally masked) gives exactly 0.
 
+Head dims: any ``D <= 128`` (:func:`~deepspeed_tpu_torch.ops.head_dim.
+head_dim_route`). Where a row of ``D`` elements is whole 16-byte chunks
+(16-bit: ``D % 8 == 0``, f32: ``D % 4 == 0``) the kernel runs its 64- or
+128-wide instantiation on the tensors as they are; any other ``D`` (the
+padded route, correct and slow) zero-pads q, k and v to that width, one
+copy each, and writes the first ``D`` columns of the result. ``D > 128``
+raises (fault D1b).
+
 On CPU tensors the wrapper runs :func:`block_sparse_attention_reference`;
 on CUDA tensors it launches the kernel or raises. It counts its launches in
 ``.launches``.
@@ -30,11 +38,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.ops.head_dim import (head_dim_route, pad_head_dim,
+                                              unpad_head_dim)
 from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
 _BLOCKS = (16, 32, 64, 128)   # the upstream Triton set; 16 is the default
 
 
@@ -43,7 +52,7 @@ HEAD_GROUP = 8   # heads of a batch row whose tiles the kernel takes together
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.dstt_block_sparse_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_block_sparse_attention.restype = ctypes.c_int
 
@@ -171,9 +180,6 @@ def _check_kernel_args(q, k, v, lut, counts, out, block, order):
     if block not in _BLOCKS:
         raise ValueError(f"block_sparse_attention kernel takes blocks "
                          f"{_BLOCKS}, got {block}")
-    if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"block_sparse_attention kernel takes head dim "
-                         f"{_HEAD_DIMS}, got {q.shape[3]}")
     ints = (("lut", lut), ("counts", counts))
     if order is not None:
         H, nb = counts.shape
@@ -221,10 +227,15 @@ def block_sparse_attention(q, k, v, lut, counts, block: int,
         o = block_sparse_attention_reference(q, k, v, lut, counts, block,
                                              causal, scale)
         return o if out is None else out.copy_(o)
+    B, H, T, D = q.shape
+    DK, pad = head_dim_route(D, q.element_size())
+    if pad:   # the padded route: one zero-padded copy of each operand
+        return unpad_head_dim(block_sparse_attention(
+            *(pad_head_dim(x, DK) for x in (q, k, v)), lut, counts, block,
+            causal, scale, order=order), D, out)
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _check_kernel_args(q, k, v, lut, counts, out, block, order)
-    B, H, T, D = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counter = _COUNTERS.get(stream)
     if counter is None:
@@ -235,7 +246,7 @@ def block_sparse_attention(q, k, v, lut, counts, block: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lut.data_ptr(), counts.data_ptr(),
         None if order is None else order.data_ptr(), counter.data_ptr(), B, H,
-        T, D, block, lut.shape[2],
+        T, DK, D, block, lut.shape[2],
         *[s for x in (q, k, v, out) for s in x.stride()[:3]], float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "block_sparse_attention", rc)

@@ -68,6 +68,11 @@
 // row), listed K/V blocks through a 2-deep cp.async buffer, products on
 // mma.sync.m16n8k16, P from registers. float32 inputs take a plain FMA
 // kernel: one warp per query row.
+// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
+// true head dim Dv <= DK whose rows are whole 16-byte chunks. The tensor
+// maps are encoded with Dv as their innermost extent (TMA reads zeros past
+// it), the cp.async and pointer loads zero-fill past it, and every store
+// stops at Dv; zero columns change neither q.k nor P.V.
 //
 // C interface (nvcc -shared, loaded with ctypes): the launch returns
 // cudaGetLastError() so the Python wrapper can raise.
@@ -103,7 +108,7 @@ __global__ void __launch_bounds__(BLOCK * 2)
 bsa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                const int* __restrict__ lut, const int* __restrict__ counts,
-               int nb, int max_active, Strides st, float scale, int causal) {
+               int nb, int max_active, int Dv, Strides st, float scale, int causal) {
   constexpr int NUM_THREADS = BLOCK * 2;   // BLOCK / 16 warps
   static_assert(BLOCK <= 32, "blocks of 64 and 128 take bsa_wgmma_kernel");
   constexpr int KN = BLOCK;                // keys per softmax step
@@ -131,8 +136,9 @@ bsa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vs = vbase + (long long)kb * BLOCK * st.v_t;
     for (int c = tid; c < BLOCK * CHUNKS; c += NUM_THREADS) {
       const int r = c / CHUNKS, col = (c % CHUNKS) * VEC;
-      cp_async16(dK + r * LD + col, ks + (long long)r * st.k_t + col, true);
-      cp_async16(dV + r * LD + col, vs + (long long)r * st.v_t + col, true);
+      const bool ok = col < Dv;   // zero-filled past the head dim
+      cp_async16(dK + r * LD + col, ks + (long long)r * st.k_t + (ok ? col : 0), ok);
+      cp_async16(dV + r * LD + col, vs + (long long)r * st.v_t + (ok ? col : 0), ok);
     }
     cp_async_commit();
   };
@@ -144,7 +150,8 @@ bsa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = tid; c < BLOCK * CHUNKS; c += NUM_THREADS) {
     const int r = c / CHUNKS, col = (c % CHUNKS) * VEC;
     *reinterpret_cast<uint4*>(sQ + r * LD + col) =
-        *reinterpret_cast<const uint4*>(qp + (long long)r * st.q_t + col);
+        col < Dv ? *reinterpret_cast<const uint4*>(qp + (long long)r * st.q_t + col)
+                 : make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
 
@@ -273,6 +280,7 @@ bsa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int d = i * 8 + 2 * t4;
+    if (d >= Dv) continue;
     *reinterpret_cast<uint32_t*>(ob + (long long)row_a * st.o_t + d) =
         pack2<T>(acc[i][0] * inv_a, acc[i][1] * inv_a);
     *reinterpret_cast<uint32_t*>(ob + (long long)row_b * st.o_t + d) =
@@ -327,7 +335,7 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                  const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
                  const int* __restrict__ lut, const int* __restrict__ counts,
                  const int* __restrict__ order, int* __restrict__ next_tile, int B, int H,
-                 int nb, int max_active, long long o_b, long long o_h, long long o_t,
+                 int nb, int max_active, int Dv, long long o_b, long long o_h, long long o_t,
                  float scale, int causal) {
   using L = SparseTiles<D, BLOCK>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -646,6 +654,7 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
       for (int x = 0; x < D / 8; ++x) {
         const int d = x * 8 + 2 * t4;
+        if (d >= Dv) continue;
         __stcs(reinterpret_cast<unsigned*>(ob + (long long)ra * o_t + d),
                pack2<T>(acc[x * 4] * inv_a, acc[x * 4 + 1] * inv_a));
         __stcs(reinterpret_cast<unsigned*>(ob + (long long)rb * o_t + d),
@@ -695,13 +704,13 @@ bool cached_map(CUtensorMap* map, const void* p, long long D, long long H, long 
 template <typename T, int D, int BLOCK>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          const int* lut, const int* counts, const int* order, int* next_tile,
-                         int B, int H, int T_len, int max_active, const Strides& st,
+                         int B, int H, int T_len, int max_active, int Dv, const Strides& st,
                          float scale, int causal, cudaStream_t stream) {
   using L = SparseTiles<D, BLOCK>;
   CUtensorMap tq, tk, tv;
-  if (!cached_map<T>(&tq, q, D, H, T_len, B, st.q_h, st.q_t, st.q_b, 64) ||
-      !cached_map<T>(&tk, k, D, H, T_len, B, st.k_h, st.k_t, st.k_b, BLOCK) ||
-      !cached_map<T>(&tv, v, D, H, T_len, B, st.v_h, st.v_t, st.v_b, BLOCK))
+  if (!cached_map<T>(&tq, q, Dv, H, T_len, B, st.q_h, st.q_t, st.q_b, 64) ||
+      !cached_map<T>(&tk, k, Dv, H, T_len, B, st.k_h, st.k_t, st.k_b, BLOCK) ||
+      !cached_map<T>(&tv, v, Dv, H, T_len, B, st.v_h, st.v_t, st.v_b, BLOCK))
     return cudaErrorInvalidValue;
   // per device, looked up once: the shared-memory limit of the function
   // and the number of SMs (one persistent block each)
@@ -722,20 +731,21 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const long long pipes_needed = ((long long)nb * H * B + L::PIPES - 1) / L::PIPES;
   const int grid = (int)min(pipes_needed, (long long)sms[dev]);
   bsa_wgmma_kernel<T, D, BLOCK><<<grid, L::THREADS, L::SMEM, stream>>>(
-      tq, tk, tv, static_cast<T*>(o), lut, counts, order, next_tile, B, H, nb, max_active,
+      tq, tk, tv, static_cast<T*>(o), lut, counts, order, next_tile, B, H, nb, max_active, Dv,
       st.o_b, st.o_h, st.o_t, scale, causal);
   return cudaGetLastError();
 }
 
 constexpr int F32_WARPS = 4;
 
-// float32: one warp per query row, each lane holding D/32 columns
+// float32: one warp per query row, each lane holding D/32 columns; a column
+// past Dv reads column Dv - 1 times a zero q and is not written
 template <int D>
 __global__ void __launch_bounds__(F32_WARPS * 32)
 bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                const int* __restrict__ lut, const int* __restrict__ counts,
-               int nb, int max_active, int block, Strides st, float scale,
+               int nb, int max_active, int block, int Dv, Strides st, float scale,
                int causal) {
   constexpr int E = D / 32;
   const int row = blockIdx.x * F32_WARPS + threadIdx.x / 32;   // < T: T % 4 == 0
@@ -748,9 +758,11 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb_ = k + b * st.k_b + h * st.k_h;
   const float* vb_ = v + b * st.v_b + h * st.v_h;
   float qv[E], acc[E];
+  int col[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    qv[i] = qr[lane + 32 * i];
+    col[i] = min(lane + 32 * i, Dv - 1);
+    qv[i] = lane + 32 * i < Dv ? qr[col[i]] : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -763,7 +775,7 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* kr = kb_ + key * st.k_t;
       float s = 0.f;
 #pragma unroll
-      for (int i = 0; i < E; ++i) s = fmaf(qv[i], kr[lane + 32 * i], s);
+      for (int i = 0; i < E; ++i) s = fmaf(qv[i], kr[col[i]], s);
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
       s *= scale;
@@ -772,20 +784,21 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l = l * alpha + p;
       const float* vr = vb_ + key * st.v_t;
 #pragma unroll
-      for (int i = 0; i < E; ++i) acc[i] = fmaf(p, vr[lane + 32 * i], acc[i] * alpha);
+      for (int i = 0; i < E; ++i) acc[i] = fmaf(p, vr[col[i]], acc[i] * alpha);
       m = mn;
     }
   }
   const float inv = m == -INFINITY ? 0.f : 1.f / l;
   float* orow = o + b * st.o_b + h * st.o_h + (long long)row * st.o_t;
 #pragma unroll
-  for (int i = 0; i < E; ++i) orow[lane + 32 * i] = acc[i] * inv;
+  for (int i = 0; i < E; ++i)
+    if (lane + 32 * i < Dv) orow[lane + 32 * i] = acc[i] * inv;
 }
 
 template <typename T, int D, int BLOCK>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        const int* lut, const int* counts, int B, int H, int nb,
-                       int max_active, const Strides& st, float scale,
+                       int max_active, int Dv, const Strides& st, float scale,
                        int causal, cudaStream_t stream) {
   const size_t smem = (size_t)5 * BLOCK * (D + 8) * sizeof(T);   // Q + 2 x (K, V)
   // per device, so it is set on every launch (a host-side call, no sync)
@@ -795,7 +808,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   dim3 grid(nb, H, B);
   bsa_mma_kernel<T, D, BLOCK><<<grid, BLOCK * 2, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lut, counts, nb, max_active, st, scale, causal);
+      static_cast<T*>(o), lut, counts, nb, max_active, Dv, st, scale, causal);
   return cudaGetLastError();
 }
 
@@ -803,13 +816,13 @@ template <typename T, int D>
 cudaError_t launch_block(int block, const void* q, const void* k, const void* v,
                          void* o, const int* lut, const int* counts,
                          const int* order, int* next_tile, int B, int H, int nb,
-                         int max_active, const Strides& st, float scale,
+                         int max_active, int Dv, const Strides& st, float scale,
                          int causal, cudaStream_t s) {
   switch (block) {
-    case 16: return launch_mma<T, D, 16>(q, k, v, o, lut, counts, B, H, nb, max_active, st, scale, causal, s);
-    case 32: return launch_mma<T, D, 32>(q, k, v, o, lut, counts, B, H, nb, max_active, st, scale, causal, s);
-    case 64: return launch_wgmma<T, D, 64>(q, k, v, o, lut, counts, order, next_tile, B, H, nb * 64, max_active, st, scale, causal, s);
-    case 128: return launch_wgmma<T, D, 128>(q, k, v, o, lut, counts, order, next_tile, B, H, nb * 128, max_active, st, scale, causal, s);
+    case 16: return launch_mma<T, D, 16>(q, k, v, o, lut, counts, B, H, nb, max_active, Dv, st, scale, causal, s);
+    case 32: return launch_mma<T, D, 32>(q, k, v, o, lut, counts, B, H, nb, max_active, Dv, st, scale, causal, s);
+    case 64: return launch_wgmma<T, D, 64>(q, k, v, o, lut, counts, order, next_tile, B, H, nb * 64, max_active, Dv, st, scale, causal, s);
+    case 128: return launch_wgmma<T, D, 128>(q, k, v, o, lut, counts, order, next_tile, B, H, nb * 128, max_active, Dv, st, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -817,13 +830,13 @@ cudaError_t launch_block(int block, const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch_f32(int block, const void* q, const void* k, const void* v,
                        void* o, const int* lut, const int* counts, int B,
-                       int H, int nb, int max_active, const Strides& st,
+                       int H, int nb, int max_active, int Dv, const Strides& st,
                        float scale, int causal, cudaStream_t s) {
   dim3 grid(nb * block / F32_WARPS, H, B);
   bsa_f32_kernel<D><<<grid, F32_WARPS * 32, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lut, counts, nb,
-      max_active, block, st, scale, causal);
+      max_active, block, Dv, st, scale, causal);
   return cudaGetLastError();
 }
 
@@ -837,11 +850,13 @@ cudaError_t launch_f32(int block, const void* q, const void* k, const void* v,
 // kernel takes the tiles of each batch row. next_tile: one int32 on the
 // device, 0 before the first launch (the kernel leaves it 0); launches that
 // share it run in order. dtype: 0 float32, 1 float16, 2 bfloat16. block in
-// {16, 32, 64, 128}, T = nb * block, D in {64, 128}.
+// {16, 32, 64, 128}, T = nb * block, D (the kernel width) in {64, 128} and
+// Dv, the true head dim of q, k, v and o, 1 <= Dv <= D with rows of Dv
+// elements whole 16-byte chunks.
 extern "C" int dstt_block_sparse_attention(
     const void* q, const void* k, const void* v, void* o, const void* lut,
     const void* counts, const void* order, void* next_tile, int B, int H,
-    int T_len, int D, int block, int max_active, long long q_b, long long q_h,
+    int T_len, int D, int Dv, int block, int max_active, long long q_b, long long q_h,
     long long q_t, long long k_b, long long k_h, long long k_t, long long v_b,
     long long v_h, long long v_t, long long o_b, long long o_h, long long o_t,
     float scale, int causal, int dtype, void* stream) {
@@ -851,16 +866,17 @@ extern "C" int dstt_block_sparse_attention(
   const int* ord = static_cast<const int*>(order);
   int* nt = static_cast<int*>(next_tile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || block <= 0 || T_len <= 0 || T_len % block || max_active <= 0)
+  if (B <= 0 || H <= 0 || block <= 0 || T_len <= 0 || T_len % block || max_active <= 0 ||
+      Dv < 1 || Dv > D)
     return (int)cudaErrorInvalidValue;
   const int nb = T_len / block;
-  if (dtype == 2 && D == 64) return (int)launch_block<__nv_bfloat16, 64>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, st, scale, causal, s);
-  if (dtype == 2 && D == 128) return (int)launch_block<__nv_bfloat16, 128>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, st, scale, causal, s);
-  if (dtype == 1 && D == 64) return (int)launch_block<__half, 64>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, st, scale, causal, s);
-  if (dtype == 1 && D == 128) return (int)launch_block<__half, 128>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, st, scale, causal, s);
+  if (dtype == 2 && D == 64) return (int)launch_block<__nv_bfloat16, 64>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
+  if (dtype == 2 && D == 128) return (int)launch_block<__nv_bfloat16, 128>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
+  if (dtype == 1 && D == 64) return (int)launch_block<__half, 64>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
+  if (dtype == 1 && D == 128) return (int)launch_block<__half, 128>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
   if (block != 16 && block != 32 && block != 64 && block != 128) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64) return (int)launch_f32<64>(block, q, k, v, o, l, c, B, H, nb, max_active, st, scale, causal, s);
-  if (dtype == 0 && D == 128) return (int)launch_f32<128>(block, q, k, v, o, l, c, B, H, nb, max_active, st, scale, causal, s);
+  if (dtype == 0 && D == 64) return (int)launch_f32<64>(block, q, k, v, o, l, c, B, H, nb, max_active, Dv, st, scale, causal, s);
+  if (dtype == 0 && D == 128) return (int)launch_f32<128>(block, q, k, v, o, l, c, B, H, nb, max_active, Dv, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -73,6 +73,13 @@
 //    that drops rows past T.
 // float32 inputs take plain FMA kernels: one warp per query row (dq) or
 // per key row (dk/dv).
+// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
+// true head dim Dv <= DK whose rows are whole 16-byte chunks. Every tensor
+// map is encoded with Dv as its innermost extent (dq, dk and dv are packed
+// [B, T, heads, Dv]), so TMA reads the columns past Dv as zeros and the
+// stores drop them; dq's pointer loads of O are zero past Dv, so
+// delta = rowsum(dO o O) gains nothing from them. The f32 kernels read
+// clamped columns times a zero operand and write only the first Dv.
 //
 // C interface (route (b) of the build: nvcc -shared, loaded with ctypes):
 // each launch returns cudaGetLastError() so the Python wrapper can raise.
@@ -88,7 +95,7 @@ constexpr float NEG_BIG = -1e30f;   // the TPU kernels' NEG_INF
 constexpr float LOG2E = 1.4426950408889634f;
 
 // element strides of q, k, v, o and dO (batch, time, head); the head dim is
-// contiguous. dq, dk and dv are written contiguous [B, T, heads, D].
+// contiguous. dq, dk and dv are written packed [B, T, heads, Dv].
 struct Strides {
   long long q_b, q_t, q_h, k_b, k_t, k_h, v_b, v_t, v_h, o_b, o_t, o_h,
       do_b, do_t, do_h;
@@ -255,7 +262,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
                     const __grid_constant__ CUtensorMap tm_dq, const T* __restrict__ o,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    int* __restrict__ next_tile, int T_len, int H, int KH, int B,
+                    int* __restrict__ next_tile, int T_len, int H, int KH, int B, int Dv,
                     long long os_b, long long os_t, long long os_h, float scale, int causal) {
   using L = DqTiles<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -390,16 +397,19 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int row_a = qr + warp * 16 + g, row_b = row_a + 8;
         const long long bh = (long long)b * H + h;
         // this thread's quarter of its two rows of O (16-byte chunks t4,
-        // t4 + 4, ...) and the rows' lse times log2(e), read ahead of use
+        // t4 + 4, ...; zero past Dv) and the rows' lse times log2(e), read
+        // ahead of use
         uint4 o_a[CH], o_b[CH];
         const T* ob = o + b * os_b + h * os_h;
 #pragma unroll
         for (int x = 0; x < CH; ++x) {
           const int col = (t4 + 4 * x) * 8;
-          o_a[x] = row_a < T_len ? *reinterpret_cast<const uint4*>(ob + row_a * os_t + col)
-                                 : make_uint4(0, 0, 0, 0);
-          o_b[x] = row_b < T_len ? *reinterpret_cast<const uint4*>(ob + row_b * os_t + col)
-                                 : make_uint4(0, 0, 0, 0);
+          o_a[x] = row_a < T_len && col < Dv
+                       ? *reinterpret_cast<const uint4*>(ob + row_a * os_t + col)
+                       : make_uint4(0, 0, 0, 0);
+          o_b[x] = row_b < T_len && col < Dv
+                       ? *reinterpret_cast<const uint4*>(ob + row_b * os_t + col)
+                       : make_uint4(0, 0, 0, 0);
         }
         const float lse_a = row_a < T_len ? lse[bh * T_len + row_a] * LOG2E : 0.f;
         const float lse_b = row_b < T_len ? lse[bh * T_len + row_b] * LOG2E : 0.f;
@@ -782,14 +792,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// dq: one warp per query row, each lane holding D/32 columns
+// dq: one warp per query row, each lane holding D/32 columns; a column past
+// Dv reads column Dv - 1 times a zero q and dO and is not written
 template <int D>
 __global__ void __launch_bounds__(NUM_THREADS)
 bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ o,
                   const float* __restrict__ dout, const float* __restrict__ lse,
                   float* __restrict__ delta, float* __restrict__ dq, int T_len,
-                  int H, int KH, Strides st, float scale, int causal) {
+                  int H, int KH, int Dv, Strides st, float scale, int causal) {
   constexpr int E = D / 32;
   const int row = blockIdx.x * NUM_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -803,11 +814,14 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * st.k_b + kh * st.k_h;
   const float* vb = v + b * st.v_b + kh * st.v_h;
   float qv[E], dov[E], acc[E], dl = 0.f;
+  int col[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    qv[i] = qr[lane + 32 * i] * scale;
-    dov[i] = dr[lane + 32 * i];
-    dl += dov[i] * orow[lane + 32 * i];
+    const bool live = lane + 32 * i < Dv;
+    col[i] = min(lane + 32 * i, Dv - 1);
+    qv[i] = live ? qr[col[i]] * scale : 0.f;
+    dov[i] = live ? dr[col[i]] : 0.f;
+    dl += live ? dov[i] * orow[col[i]] : 0.f;
     acc[i] = 0.f;
   }
   dl = warp_sum(dl);
@@ -820,29 +834,31 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s = 0.f, dp = 0.f;
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      s = fmaf(qv[i], kr[lane + 32 * i], s);
-      dp = fmaf(dov[i], vr[lane + 32 * i], dp);
+      s = fmaf(qv[i], kr[col[i]], s);
+      dp = fmaf(dov[i], vr[col[i]], dp);
     }
     s = warp_sum(s);
     dp = warp_sum(dp);
     const float ds = __expf(s - L) * (dp - dl);
 #pragma unroll
-    for (int i = 0; i < E; ++i) acc[i] = fmaf(ds, kr[lane + 32 * i], acc[i]);
+    for (int i = 0; i < E; ++i) acc[i] = fmaf(ds, kr[col[i]], acc[i]);
   }
-  float* out = dq + ((long long)b * T_len + row) * H * D + h * D;
+  float* out = dq + (((long long)b * T_len + row) * H + h) * Dv;
 #pragma unroll
-  for (int i = 0; i < E; ++i) out[lane + 32 * i] = acc[i] * scale;
+  for (int i = 0; i < E; ++i)
+    if (lane + 32 * i < Dv) out[lane + 32 * i] = acc[i] * scale;
 }
 
 // dk/dv: one warp per key row, looping over the GQA group and the query
-// rows that see it
+// rows that see it; a column past Dv reads column Dv - 1 times a zero k and
+// v and is not written
 template <int D>
 __global__ void __launch_bounds__(NUM_THREADS)
 bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    float* __restrict__ dk, float* __restrict__ dv, int T_len,
-                   int H, int KH, Strides st, float scale, int causal) {
+                   int H, int KH, int Dv, Strides st, float scale, int causal) {
   constexpr int E = D / 32;
   const int row = blockIdx.x * NUM_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -852,10 +868,13 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kr = k + b * st.k_b + (long long)row * st.k_t + kh * st.k_h;
   const float* vr = v + b * st.v_b + (long long)row * st.v_t + kh * st.v_h;
   float ks[E], vv[E], dka[E], dva[E];
+  int col[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    ks[i] = kr[lane + 32 * i] * scale;
-    vv[i] = vr[lane + 32 * i];
+    const bool live = lane + 32 * i < Dv;
+    col[i] = min(lane + 32 * i, Dv - 1);
+    ks[i] = live ? kr[col[i]] * scale : 0.f;
+    vv[i] = live ? vr[col[i]] : 0.f;
     dka[i] = dva[i] = 0.f;
   }
   for (int hh = kh * rep; hh < (kh + 1) * rep; ++hh) {
@@ -866,8 +885,8 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float s = 0.f, dp = 0.f, qv[E], dov[E];
 #pragma unroll
       for (int i = 0; i < E; ++i) {
-        qv[i] = qr[lane + 32 * i];
-        dov[i] = dr[lane + 32 * i];
+        qv[i] = qr[col[i]];
+        dov[i] = dr[col[i]];
         s = fmaf(qv[i], ks[i], s);
         dp = fmaf(dov[i], vv[i], dp);
       }
@@ -882,11 +901,13 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
-  const long long off = ((long long)b * T_len + row) * KH * D + kh * D;
+  const long long off = (((long long)b * T_len + row) * KH + kh) * Dv;
+  float *dkr = dk + off, *dvr = dv + off;
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    dk[off + lane + 32 * i] = dka[i] * scale;
-    dv[off + lane + 32 * i] = dva[i];
+    if (lane + 32 * i >= Dv) continue;
+    dkr[lane + 32 * i] = dka[i] * scale;
+    dvr[lane + 32 * i] = dva[i];
   }
 }
 
@@ -899,6 +920,7 @@ struct Args {
   void *dq, *dk, *dv;
   int* next_tile;
   int B, T_len, H, KH;
+  int Dv;   // the true head dim (<= the kernel width D)
   int ld;   // lse and delta rows are ld floats apart (dk/dv)
   Strides st;
   float scale;
@@ -930,14 +952,15 @@ template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
   using L = DqTiles<D>;
   const Strides& st = a.st;
-  const long long hd = (long long)a.H * D;
-  // maps over (D, heads, T, B), boxes of 64 rows; dq is contiguous
+  const int Dv = a.Dv;
+  const long long hd = (long long)a.H * Dv;
+  // maps over (Dv, heads, T, B), boxes of 64 rows; dq is packed
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!make_tile_map<T>(&tq, a.q, D, a.H, a.T_len, a.B, st.q_h, st.q_t, st.q_b, 64) ||
-      !make_tile_map<T>(&tk, a.k, D, a.KH, a.T_len, a.B, st.k_h, st.k_t, st.k_b, 64) ||
-      !make_tile_map<T>(&tv, a.v, D, a.KH, a.T_len, a.B, st.v_h, st.v_t, st.v_b, 64) ||
-      !make_tile_map<T>(&tdo, a.dout, D, a.H, a.T_len, a.B, st.do_h, st.do_t, st.do_b, 64) ||
-      !make_tile_map<T>(&tdq, a.dq, D, a.H, a.T_len, a.B, D, hd, hd * a.T_len, 64))
+  if (!make_tile_map<T>(&tq, a.q, Dv, a.H, a.T_len, a.B, st.q_h, st.q_t, st.q_b, 64) ||
+      !make_tile_map<T>(&tk, a.k, Dv, a.KH, a.T_len, a.B, st.k_h, st.k_t, st.k_b, 64) ||
+      !make_tile_map<T>(&tv, a.v, Dv, a.KH, a.T_len, a.B, st.v_h, st.v_t, st.v_b, 64) ||
+      !make_tile_map<T>(&tdo, a.dout, Dv, a.H, a.T_len, a.B, st.do_h, st.do_t, st.do_b, 64) ||
+      !make_tile_map<T>(&tdq, a.dq, Dv, a.H, a.T_len, a.B, Dv, hd, hd * a.T_len, 64))
     return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t e = prepare<bwd_dq_wgmma_kernel<T, D>>(L::SMEM, &sms);
@@ -946,7 +969,7 @@ cudaError_t launch_dq(const Args& a) {
   const int grid = (int)min(tiles, (long long)sms);
   bwd_dq_wgmma_kernel<T, D><<<grid, L::THREADS, L::SMEM, a.stream>>>(
       tq, tk, tv, tdo, tdq, static_cast<const T*>(a.o), a.lse, a.delta, a.next_tile, a.T_len,
-      a.H, a.KH, a.B, st.o_b, st.o_t, st.o_h, a.scale, a.causal);
+      a.H, a.KH, a.B, Dv, st.o_b, st.o_t, st.o_h, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -954,16 +977,17 @@ template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
   using L = DkvTiles<D>;
   const Strides& st = a.st;
-  const long long kd = (long long)a.KH * D, rows = (long long)a.B * a.H;
+  const int Dv = a.Dv;
+  const long long kd = (long long)a.KH * Dv, rows = (long long)a.B * a.H;
   CUtensorMap tq, tk, tv, tdo, tl, tdl, tdk, tdv;
-  if (!make_tile_map<T>(&tq, a.q, D, a.H, a.T_len, a.B, st.q_h, st.q_t, st.q_b, 64) ||
-      !make_tile_map<T>(&tk, a.k, D, a.KH, a.T_len, a.B, st.k_h, st.k_t, st.k_b, 64) ||
-      !make_tile_map<T>(&tv, a.v, D, a.KH, a.T_len, a.B, st.v_h, st.v_t, st.v_b, 64) ||
-      !make_tile_map<T>(&tdo, a.dout, D, a.H, a.T_len, a.B, st.do_h, st.do_t, st.do_b, 64) ||
+  if (!make_tile_map<T>(&tq, a.q, Dv, a.H, a.T_len, a.B, st.q_h, st.q_t, st.q_b, 64) ||
+      !make_tile_map<T>(&tk, a.k, Dv, a.KH, a.T_len, a.B, st.k_h, st.k_t, st.k_b, 64) ||
+      !make_tile_map<T>(&tv, a.v, Dv, a.KH, a.T_len, a.B, st.v_h, st.v_t, st.v_b, 64) ||
+      !make_tile_map<T>(&tdo, a.dout, Dv, a.H, a.T_len, a.B, st.do_h, st.do_t, st.do_b, 64) ||
       !make_row_map(&tl, a.lse, a.T_len, rows, a.ld, 64) ||
       !make_row_map(&tdl, a.delta, a.T_len, rows, a.ld, 64) ||
-      !make_tile_map<T>(&tdk, a.dk, D, a.KH, a.T_len, a.B, D, kd, kd * a.T_len, 64) ||
-      !make_tile_map<T>(&tdv, a.dv, D, a.KH, a.T_len, a.B, D, kd, kd * a.T_len, 64))
+      !make_tile_map<T>(&tdk, a.dk, Dv, a.KH, a.T_len, a.B, Dv, kd, kd * a.T_len, 64) ||
+      !make_tile_map<T>(&tdv, a.dv, Dv, a.KH, a.T_len, a.B, Dv, kd, kd * a.T_len, 64))
     return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t e = prepare<bwd_dkv_wgmma_kernel<T, D>>(L::SMEM, &sms);
@@ -983,7 +1007,7 @@ cudaError_t launch_dq_f32(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), a.lse, a.delta, static_cast<float*>(a.dq), a.T_len,
-      a.H, a.KH, a.st, a.scale, a.causal);
+      a.H, a.KH, a.Dv, a.st, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -993,37 +1017,39 @@ cudaError_t launch_dkv_f32(const Args& a) {
   bwd_dkv_f32_kernel<D><<<grid, NUM_THREADS, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.T_len, a.H, a.KH, a.st, a.scale,
-      a.causal);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.T_len, a.H, a.KH, a.Dv, a.st,
+      a.scale, a.causal);
   return cudaGetLastError();
 }
 
 
-bool bad_shape(int B, int T_len, int H, int KH) {
-  return B <= 0 || T_len <= 0 || H <= 0 || KH <= 0 || H % KH;
+bool bad_shape(int B, int T_len, int H, int KH, int D, int Dv) {
+  return B <= 0 || T_len <= 0 || H <= 0 || KH <= 0 || H % KH || Dv < 1 || Dv > D;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. Strides (in elements, 15 of
-// them: q, k, v, o, dO, each batch/time/head) with a contiguous head dim;
-// for 16-bit inputs every base 16-byte aligned and every stride a multiple
-// of 8 elements (TMA's rules). lse and delta are [B, H, T] float32,
-// contiguous; dq is a contiguous [B, T, H, D]. next_tile is a zeroed int32,
-// the persistent 16-bit kernel's tile counter. Writes delta = rowsum(dO o
-// O) for the dk/dv kernel.
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
+// 128), Dv the true head dim (1 <= Dv <= D, rows of Dv elements whole
+// 16-byte chunks). Strides (in elements, 15 of them: q, k, v, o, dO, each
+// batch/time/head) with a contiguous head dim; for 16-bit inputs every base
+// 16-byte aligned and every stride a multiple of 8 elements (TMA's rules).
+// lse and delta are [B, H, T] float32, contiguous; dq is a contiguous
+// [B, T, H, Dv]. next_tile is a zeroed int32, the persistent 16-bit
+// kernel's tile counter. Writes delta = rowsum(dO o O) for the dk/dv
+// kernel.
 extern "C" int dstt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* delta, void* dq, void* next_tile, int B, int T_len, int H, int KH,
-    int D, long long q_b, long long q_t, long long q_h, long long k_b, long long k_t,
+    int D, int Dv, long long q_b, long long q_t, long long q_h, long long k_b, long long k_t,
     long long k_h, long long v_b, long long v_t, long long v_h, long long o_b,
     long long o_t, long long o_h, long long do_b, long long do_t, long long do_h,
     float scale, int causal, int dtype, void* stream) {
-  if (bad_shape(B, T_len, H, KH)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, T_len, H, KH, D, Dv)) return (int)cudaErrorInvalidValue;
   const Strides st{q_b, q_t, q_h, k_b, k_t, k_h, v_b, v_t, v_h, o_b, o_t, o_h, do_b, do_t, do_h};
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
-               dq, nullptr, nullptr, static_cast<int*>(next_tile), B, T_len, H, KH, T_len, st,
-               scale, causal, static_cast<cudaStream_t>(stream)};
+               dq, nullptr, nullptr, static_cast<int*>(next_tile), B, T_len, H, KH, Dv, T_len,
+               st, scale, causal, static_cast<cudaStream_t>(stream)};
   if (dtype == 2 && D == 64) return (int)launch_dq<__nv_bfloat16, 64>(a);
   if (dtype == 2 && D == 128) return (int)launch_dq<__nv_bfloat16, 128>(a);
   if (dtype == 1 && D == 64) return (int)launch_dq<__half, 64>(a);
@@ -1036,20 +1062,20 @@ extern "C" int dstt_flash_attention_bwd_dq(
 // Reads q, k, v and dO (12 strides: each batch/time/head) and the delta the
 // dq kernel wrote; no o. lse and delta rows are ld floats apart: T for f32
 // inputs, T rounded up to a multiple of 4 (TMA's 16 bytes) for 16-bit ones.
-// dk and dv are contiguous [B, T, KH, D]; next_tile a zeroed int32 of its
+// dk and dv are contiguous [B, T, KH, Dv]; next_tile a zeroed int32 of its
 // own.
 extern "C" int dstt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dk, void* dv, void* next_tile, int B, int T_len, int H, int KH,
-    int D, int ld, long long q_b, long long q_t, long long q_h, long long k_b, long long k_t,
+    int D, int Dv, int ld, long long q_b, long long q_t, long long q_h, long long k_b, long long k_t,
     long long k_h, long long v_b, long long v_t, long long v_h, long long do_b,
     long long do_t, long long do_h, float scale, int causal, int dtype, void* stream) {
-  if (bad_shape(B, T_len, H, KH) || ld < T_len || (dtype == 0 ? ld != T_len : ld % 4))
+  if (bad_shape(B, T_len, H, KH, D, Dv) || ld < T_len || (dtype == 0 ? ld != T_len : ld % 4))
     return (int)cudaErrorInvalidValue;
   const Strides st{q_b, q_t, q_h, k_b, k_t, k_h, v_b, v_t, v_h, 0, 0, 0, do_b, do_t, do_h};
   const Args a{q, k, v, nullptr, dout, static_cast<const float*>(lse),
                const_cast<float*>(static_cast<const float*>(delta)), nullptr, dk, dv,
-               static_cast<int*>(next_tile), B, T_len, H, KH, ld, st, scale, causal,
+               static_cast<int*>(next_tile), B, T_len, H, KH, Dv, ld, st, scale, causal,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 2 && D == 64) return (int)launch_dkv<__nv_bfloat16, 64>(a);
   if (dtype == 2 && D == 128) return (int)launch_dkv<__nv_bfloat16, 128>(a);

@@ -52,6 +52,13 @@
 //    in shared memory to a TMA store that drops rows past T; the LSE is
 //    written from registers.
 // float32 inputs take a plain FMA kernel: one warp per query row.
+// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
+// true head dim Dv <= DK whose rows are whole 16-byte chunks (the wrapper's
+// `head_dim_route`). The tensor maps are encoded with Dv as their innermost
+// extent, so TMA reads the columns past Dv as zeros (and the mbarriers still
+// count whole boxes) and the O store drops them; zero columns change
+// neither q.k nor P.V. The f32 kernel reads clamped columns times a zero q
+// and writes only the first Dv.
 //
 // C interface (route (b) of the build: nvcc -shared, loaded with ctypes):
 // the launch returns cudaGetLastError() so the Python wrapper can raise.
@@ -433,16 +440,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float* lse, int* next_tile, int B, int T_len, int H, int KH,
-                         const Strides& st, float scale, int causal,
+                         int Dv, const Strides& st, float scale, int causal,
                          cudaStream_t stream) {
   using L = Tiles<D>;
-  // maps over (D, heads, T, B): q in boxes of BLOCK_M rows, k/v in tiles of
+  // maps over (Dv, heads, T, B): q in boxes of BLOCK_M rows, k/v in tiles of
   // 128 keys, o stored 64 rows (one warpgroup) at a time
   CUtensorMap tq, tk, tv, to;
-  if (!make_tile_map<T>(&tq, q, D, H, T_len, B, st.q_h, st.q_t, st.q_b, 64) ||
-      !make_tile_map<T>(&tk, k, D, KH, T_len, B, st.k_h, st.k_t, st.k_b, BLOCK_N) ||
-      !make_tile_map<T>(&tv, v, D, KH, T_len, B, st.v_h, st.v_t, st.v_b, BLOCK_N) ||
-      !make_tile_map<T>(&to, o, D, H, T_len, B, st.o_h, st.o_t, st.o_b, 64))
+  if (!make_tile_map<T>(&tq, q, Dv, H, T_len, B, st.q_h, st.q_t, st.q_b, 64) ||
+      !make_tile_map<T>(&tk, k, Dv, KH, T_len, B, st.k_h, st.k_t, st.k_b, BLOCK_N) ||
+      !make_tile_map<T>(&tv, v, Dv, KH, T_len, B, st.v_h, st.v_t, st.v_b, BLOCK_N) ||
+      !make_tile_map<T>(&to, o, Dv, H, T_len, B, st.o_h, st.o_t, st.o_b, 64))
     return cudaErrorInvalidValue;
   // per device, looked up once: the shared-memory limit of the function
   // (an attribute) and the number of SMs (one persistent block each)
@@ -470,12 +477,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 constexpr int F32_WARPS = 4;
 
-// one warp per query row, each lane holding D/32 columns
+// one warp per query row, each lane holding D/32 columns; a column past Dv
+// reads column Dv - 1 times a zero q and is not written
 template <int D>
 __global__ void __launch_bounds__(F32_WARPS * 32)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int T_len, int H, int KH,
+                     float* __restrict__ lse, int T_len, int H, int KH, int Dv,
                      Strides st, float scale, int causal) {
   constexpr int E = D / 32;
   const int row = blockIdx.x * F32_WARPS + threadIdx.x / 32;
@@ -487,9 +495,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * st.k_b + kh * st.k_h;
   const float* vb = v + b * st.v_b + kh * st.v_h;
   float qv[E], acc[E];
+  int col[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    qv[i] = qr[lane + 32 * i] * scale;
+    col[i] = min(lane + 32 * i, Dv - 1);
+    qv[i] = lane + 32 * i < Dv ? qr[col[i]] * scale : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -498,7 +508,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* kr = kb + (long long)c * st.k_t;
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < E; ++i) s = fmaf(qv[i], kr[lane + 32 * i], s);
+    for (int i = 0; i < E; ++i) s = fmaf(qv[i], kr[col[i]], s);
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
     const float mn = fmaxf(m, s);
@@ -506,37 +516,40 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l = l * alpha + p;
     const float* vr = vb + (long long)c * st.v_t;
 #pragma unroll
-    for (int i = 0; i < E; ++i) acc[i] = fmaf(p, vr[lane + 32 * i], acc[i] * alpha);
+    for (int i = 0; i < E; ++i) acc[i] = fmaf(p, vr[col[i]], acc[i] * alpha);
     m = mn;
   }
   float* orow = o + b * st.o_b + (long long)row * st.o_t + h * st.o_h;
 #pragma unroll
-  for (int i = 0; i < E; ++i) orow[lane + 32 * i] = acc[i] / l;
+  for (int i = 0; i < E; ++i)
+    if (lane + 32 * i < Dv) orow[lane + 32 * i] = acc[i] / l;
   if (lane == 0) lse[((long long)b * H + h) * T_len + row] = m + logf(l);
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int T_len, int H, int KH,
+                       float* lse, int B, int T_len, int H, int KH, int Dv,
                        const Strides& st, float scale, int causal,
                        cudaStream_t stream) {
   dim3 grid((T_len + F32_WARPS - 1) / F32_WARPS, H, B);
   flash_fwd_f32_kernel<D><<<grid, F32_WARPS * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, T_len, H, KH,
-      st, scale, causal);
+      Dv, st, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. Strides are in elements; the
-// head dim must be contiguous, and for 16-bit inputs the base 16-byte
-// aligned and every stride a multiple of 8 elements (TMA's rules). lse is
-// [B, H, T] float32, contiguous.
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
+// 128) and Dv the true head dim, 1 <= Dv <= D, rows of Dv elements whole
+// 16-byte chunks. Strides are in elements; the head dim must be
+// contiguous, and for 16-bit inputs the base 16-byte aligned and every
+// stride a multiple of 8 elements (TMA's rules). lse is [B, H, T] float32,
+// contiguous.
 extern "C" int dstt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, void* next_tile, int B,
-    int T_len, int H, int KH, int D, long long q_b, long long q_t,
+    int T_len, int H, int KH, int D, int Dv, long long q_b, long long q_t,
     long long q_h, long long k_b, long long k_t, long long k_h, long long v_b,
     long long v_t, long long v_h, long long o_b, long long o_t, long long o_h,
     float scale, int causal, int dtype, void* stream) {
@@ -544,13 +557,14 @@ extern "C" int dstt_flash_attention_fwd(
   float* l = static_cast<float*>(lse);
   int* nt = static_cast<int*>(next_tile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T_len <= 0 || H <= 0 || KH <= 0 || H % KH) return (int)cudaErrorInvalidValue;
-  if (dtype == 2 && D == 64) return (int)launch_wgmma<__nv_bfloat16, 64>(q, k, v, o, l, nt, B, T_len, H, KH, st, scale, causal, s);
-  if (dtype == 2 && D == 128) return (int)launch_wgmma<__nv_bfloat16, 128>(q, k, v, o, l, nt, B, T_len, H, KH, st, scale, causal, s);
-  if (dtype == 1 && D == 64) return (int)launch_wgmma<__half, 64>(q, k, v, o, l, nt, B, T_len, H, KH, st, scale, causal, s);
-  if (dtype == 1 && D == 128) return (int)launch_wgmma<__half, 128>(q, k, v, o, l, nt, B, T_len, H, KH, st, scale, causal, s);
-  if (dtype == 0 && D == 64) return (int)launch_f32<64>(q, k, v, o, l, B, T_len, H, KH, st, scale, causal, s);
-  if (dtype == 0 && D == 128) return (int)launch_f32<128>(q, k, v, o, l, B, T_len, H, KH, st, scale, causal, s);
+  if (B <= 0 || T_len <= 0 || H <= 0 || KH <= 0 || H % KH || Dv < 1 || Dv > D)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 2 && D == 64) return (int)launch_wgmma<__nv_bfloat16, 64>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 2 && D == 128) return (int)launch_wgmma<__nv_bfloat16, 128>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 1 && D == 64) return (int)launch_wgmma<__half, 64>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 1 && D == 128) return (int)launch_wgmma<__half, 128>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 0 && D == 64) return (int)launch_f32<64>(q, k, v, o, l, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 0 && D == 128) return (int)launch_f32<128>(q, k, v, o, l, B, T_len, H, KH, Dv, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -46,12 +46,16 @@ static inline TensorMapEncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
-// A 4-D tensor map over a [n3][n2][n1][64 * k] array of 16-bit values read
+// A 4-D tensor map over a [n3][n2][n1][n0] array of 16-bit values read
 // through its strides (in elements; the innermost dimension is contiguous),
 // loading or storing boxes of `rows` rows along dimension 2 by 64 columns,
-// with the 128-byte swizzle. Elements past the array read as zero and are
-// not written. Returns false when the driver refuses the map (a base not
-// 16-byte aligned, a stride not a multiple of 16 bytes).
+// with the 128-byte swizzle. n0 is the true head dim, any multiple of 8 up
+// to the kernel's width (64 * k): a box at column 64 j holds the columns
+// from 64 j up to n0 and zeros after them. Elements past the array (rows
+// or columns) read as zero and are not written; a load's mbarrier still
+// counts the whole box's bytes. Returns false when cuTensorMapEncodeTiled
+// refuses the map (a base not 16-byte aligned, a stride not a multiple of
+// 16 bytes).
 template <typename T>
 static inline bool make_tile_map(CUtensorMap* map, const void* base, long long n0,
                                  long long n1, long long n2, long long n3,

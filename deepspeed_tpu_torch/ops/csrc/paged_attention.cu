@@ -129,6 +129,17 @@
 // f32 queries take the decode kernel's split kernel (`paged_split_kernel`,
 // units of <= 8 rows, the same plan): f32 has no tensor-core product of its
 // precision, and the main path runs 16-bit queries.
+// Head dims: every kernel is instantiated at DK = 64 and 128 (the template
+// D; the ring, the tiles, the partials and their scratch keep that width)
+// and takes any true head dim Dv <= DK whose rows are whole 16-byte chunks
+// (a.Dv). A chunk past Dv adds nothing to q.k or P.V: B5-B7 zero-fill it
+// in the copy to shared memory (the copy's row test gains the column
+// test), and B4's lanes past Dv hold a zero q and read their key rows'
+// first columns, so the key loops gain no instruction and no register. The
+// outputs are written only below Dv. B7's kernel takes the column tests
+// as a template flag (PARTIAL), so Dv = D runs the code it ran before
+// them: with them it measured 12-21% slower at D = 64 and 128, B4 and B5
+// within 2% (PERF.md §6).
 
 #include <algorithm>
 #include <type_traits>
@@ -175,6 +186,7 @@ struct Args {
   int extra;           // row j sees col < lengths[s] + extra + j / R
   int chunk;           // keys a split
   int slots;           // the mma verify kernel's ring stages
+  int Dv;              // the true head dim, <= the kernel width D
   int* tickets;        // [units] arrivals, zero between launches
   float* part;         // [units][splits][ROWS * (D + 2)] partials
   long long q_s, q_k, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, o_k, o_h;
@@ -250,7 +262,7 @@ __device__ __forceinline__ float* merge_warps(float* ws, int nr) {
 // flight together), writes the output and resets the ticket to zero for
 // the next launch (no memset, no second launch; the same bits on every
 // run).
-template <typename T, int D, int ROWS, int THREADS = NUM_THREADS>
+template <typename T, int D, int ROWS, int THREADS = NUM_THREADS, bool PARTIAL = true>
 __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, int split,
                                              int nsplit, long long unit, T* o, const Args& a,
                                              int s, int kh, int row0) {
@@ -267,7 +279,8 @@ __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, 
   if (live == 1) {   // the unit's only split: its partial is the output
     for (int idx = threadIdx.x; idx < nr * D; idx += THREADS) {
       const int r = idx / D;
-      out(r, idx % D) = from_float<T>(bacc[idx] / fmaxf(bl[r], 1e-30f));
+      if (!PARTIAL || idx % D < a.Dv)
+        out(r, idx % D) = from_float<T>(bacc[idx] / fmaxf(bl[r], 1e-30f));
     }
     DSTT_STAMP(4);
     return;
@@ -302,6 +315,7 @@ __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, 
     // splits at once
     for (int idx = threadIdx.x; idx < nr * D; idx += THREADS) {
       const int r = idx / D;
+      if (PARTIAL && idx % D >= a.Dv) continue;
       float ms[MAX_SPLITS], ls[MAX_SPLITS], av[MAX_SPLITS];
       float mx = -INFINITY;
 #pragma unroll
@@ -330,6 +344,7 @@ __device__ __forceinline__ void finish_split(const float* bp, int nr, int live, 
     // loading its row's m and l and its float4 of every split at once
     for (int i4 = threadIdx.x; i4 < nr * D / 4; i4 += THREADS) {
       const int r = i4 * 4 / D;
+      if (PARTIAL && i4 * 4 % D >= a.Dv) continue;   // Dv is a multiple of 4
       float ms[MAX_SPLITS], ls[MAX_SPLITS];
       float4 av[MAX_SPLITS];
       float mx = -INFINITY;
@@ -439,9 +454,9 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     for (int i = 0; i < CPT; ++i) {
       const int c = threadIdx.x + i * NUM_THREADS;
       const int pos = p0 + c / CPR;
-      const bool ok = pos < end;
-      const long long off = ok ? pos % a.BS : 0;
       const int e0 = (c % CPR) * (16 / (int)sizeof(KV));
+      const bool ok = pos < end && e0 < a.Dv;   // zero-filled past the head dim
+      const long long off = ok ? pos % a.BS : 0;
       cp_async16(kbuf + c * 16, kp + blks[i] * a.k_n + off * a.k_b + kh * a.k_h + e0, ok);
       cp_async16(vbuf + c * 16, vp + blks[i] * a.v_n + off * a.v_b + kh * a.v_h + e0, ok);
     }
@@ -471,7 +486,7 @@ paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 #pragma unroll
     for (int c = 0; c < QCH; ++c) {
       raw[c] = make_uint4(0, 0, 0, 0);
-      if (j < a.nrows)
+      if (j < a.nrows && d0 + c * (16 / (int)sizeof(T)) < a.Dv)
         raw[c] = *reinterpret_cast<const uint4*>(q + s * a.q_s + (j / a.R) * a.q_k + (kh * a.R + j % a.R) * a.q_h + d0 + c * (16 / sizeof(T)));
     }
     const T* e = reinterpret_cast<const T*>(raw);
@@ -624,11 +639,17 @@ decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   const int beg = split * a.chunk, end = min(beg + a.chunk, len);
 
+  // a lane whose columns lie past the head dim holds a zero q and reads
+  // the first columns of its key rows (the addresses its row's first lane
+  // reads, so no bytes more): its products add 0, and the columns of V it
+  // sums are never written
+  const bool dlive = d0 < a.Dv;
   float qv[ROWS][VEC], acc[ROWS][VEC], m[ROWS], l[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int j = min(row0 + r, a.nrows - 1);   // rows past the unit repeat its last
-    const uint4 raw = *reinterpret_cast<const uint4*>(q + b * a.q_s + (kh * a.R + j) * a.q_h + d0);
+    const uint4 raw = dlive ? *reinterpret_cast<const uint4*>(q + b * a.q_s + (kh * a.R + j) * a.q_h + d0)
+                            : make_uint4(0, 0, 0, 0);
     const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
@@ -638,8 +659,8 @@ decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     m[r] = -INFINITY;
     l[r] = 0.f;
   }
-  const T* kb = kc + b * a.k_n + kh * a.k_h + d0;
-  const T* vb = vc + b * a.v_n + kh * a.v_h + d0;
+  const T* kb = kc + b * a.k_n + kh * a.k_h + (dlive ? d0 : 0);
+  const T* vb = vc + b * a.v_n + kh * a.v_h + (dlive ? d0 : 0);
   // the loop bound is uniform across the warp, so the shuffles below always
   // run with all 32 lanes; positions past end are masked instead
   for (int base = beg + warp * KPW; base < end; base += STEP * DENSE_UNROLL) {
@@ -727,6 +748,7 @@ decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     // one thread a (row, column), in warp order
     for (int idx = threadIdx.x; idx < nr * D; idx += DENSE_THREADS) {
       const int r = idx / D, d = idx % D;
+      if (d >= a.Dv) continue;
       float mx = -INFINITY;
 #pragma unroll
       for (int w = 0; w < DENSE_WARPS; ++w) mx = fmaxf(mx, wm[w * ROWS + r]);
@@ -777,8 +799,9 @@ cudaError_t launch_dense_d(int D, const void* q, const void* k, const void* v, v
 }
 
 // The verify kernel over 16-bit queries (B7, B7i; design in the note at
-// the top). grid (KH * row groups, S, splits); 4 warps.
-template <typename T, typename KV, int D>
+// the top). grid (KH * row groups, S, splits); 4 warps. PARTIAL: the true
+// head dim a.Dv is below D.
+template <typename T, typename KV, int D, bool PARTIAL>
 __global__ void __launch_bounds__(NUM_THREADS, D == 64 ? 4 : 2)   // no spill
 paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                         const KV* __restrict__ vp, T* __restrict__ o, Args a) {
@@ -822,8 +845,10 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   // it there. Rows past the unit's repeat its last row; none is written.
   uint32_t qf[D / 16][4];
   const int ja = row0 + g, jb = ja + 8;   // this thread's rows
+  // (zero past the head dim)
   auto qpair = [&](int j, int d) -> uint32_t {
     j = min(j, a.nrows - 1);
+    if (PARTIAL && d >= a.Dv) return 0u;
     return *reinterpret_cast<const uint32_t*>(
         q + s * a.q_s + (j / a.R) * a.q_k + (kh * a.R + j % a.R) * a.q_h + d);
   };
@@ -857,7 +882,8 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   auto issue = [&](int st, const int (&blk)[CPT], int sb) {
     unsigned char* stage = smem + (st % slots) * TL::STAGE;
     const int p0 = beg + st * TILE_KEYS;
-    CP::issue(stage, kb, vb, blk, p0, end, a.BS, a.k_n, a.k_b, a.v_n, a.v_b, threadIdx.x);
+    CP::template issue<PARTIAL>(stage, kb, vb, blk, p0, end, a.BS, a.k_n, a.k_b, a.v_n, a.v_b,
+                                a.Dv, threadIdx.x);
     if constexpr (Q8)
       CP::issue_scales(stage, a.ks + kh * a.ks_h, a.vs + kh * a.vs_h, sb, p0, end, a.BS,
                        a.ks_n, a.vs_n, threadIdx.x);
@@ -1014,8 +1040,8 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     }
   }
   __syncthreads();
-  finish_split<T, D, ROWS>(bp, min(ROWS, a.nrows - row0), live, split, nsplit, unit, o, a, s,
-                           kh, row0);
+  finish_split<T, D, ROWS, NUM_THREADS, PARTIAL>(bp, min(ROWS, a.nrows - row0), live, split,
+                                                 nsplit, unit, o, a, s, kh, row0);
 }
 
 template <typename T, typename KV, int D, int ROWS>
@@ -1042,7 +1068,7 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, void* o,
   return launch_split<T, KV, D, 8>(q, k, v, o, S, KH, splits, a, stream);
 }
 
-template <typename T, typename KV, int D>
+template <typename T, typename KV, int D, bool PARTIAL>
 cudaError_t launch_verify_mma(const void* q, const void* k, const void* v, void* o, int S,
                               int KH, int splits, Args a, cudaStream_t stream) {
   using TL = KVTile<KV, D>;
@@ -1050,10 +1076,10 @@ cudaError_t launch_verify_mma(const void* q, const void* k, const void* v, void*
   constexpr int ROWS = 16;
   const int merge = ((NUM_WARPS - 1) * (D / 2 + 4) * 32 + ROWS * (D + 2)) * 4;
   const int smem = std::max(a.slots * TL::STAGE, merge);
-  const cudaError_t e = allow_smem<paged_verify_mma_kernel<T, KV, D>>(smem);
+  const cudaError_t e = allow_smem<paged_verify_mma_kernel<T, KV, D, PARTIAL>>(smem);
   if (e != cudaSuccess) return e;
   dim3 grid(KH * ((a.nrows + ROWS - 1) / ROWS), S, splits);
-  paged_verify_mma_kernel<T, KV, D><<<grid, NUM_THREADS, smem, stream>>>(
+  paged_verify_mma_kernel<T, KV, D, PARTIAL><<<grid, NUM_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<T*>(o), a);
   return cudaGetLastError();
@@ -1064,8 +1090,13 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* o, int S, int KH, int splits, const Args& a,
                      cudaStream_t stream) {
   if constexpr (!SPLIT && !std::is_same<T, float>::value) {
-    if (D == 64) return launch_verify_mma<T, KV, 64>(q, k, v, o, S, KH, splits, a, stream);
-    if (D == 128) return launch_verify_mma<T, KV, 128>(q, k, v, o, S, KH, splits, a, stream);
+    const bool partial = a.Dv < D;
+    if (D == 64)
+      return partial ? launch_verify_mma<T, KV, 64, true>(q, k, v, o, S, KH, splits, a, stream)
+                     : launch_verify_mma<T, KV, 64, false>(q, k, v, o, S, KH, splits, a, stream);
+    if (D == 128)
+      return partial ? launch_verify_mma<T, KV, 128, true>(q, k, v, o, S, KH, splits, a, stream)
+                     : launch_verify_mma<T, KV, 128, false>(q, k, v, o, S, KH, splits, a, stream);
   } else {
     if (D == 64) return launch_rows<T, KV, 64>(q, k, v, o, S, KH, splits, a, stream);
     if (D == 128) return launch_rows<T, KV, 128>(q, k, v, o, S, KH, splits, a, stream);
@@ -1095,7 +1126,8 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
 }
 
 Args make_args(const void* tables, const void* lengths, void* tickets,
-               void* part, int NB, int BS, int MB, int chunk, int R, int nrows, int extra, long long q_s,
+               void* part, int Dv, int NB, int BS, int MB, int chunk, int R, int nrows, int extra,
+               long long q_s,
                long long q_k, long long q_h, long long k_n, long long k_b,
                long long k_h, long long v_n, long long v_b, long long v_h,
                long long t_s, long long o_s, long long o_k, long long o_h,
@@ -1105,7 +1137,7 @@ Args make_args(const void* tables, const void* lengths, void* tickets,
   a.lengths = static_cast<const int*>(lengths);
   a.tickets = static_cast<int*>(tickets);
   a.part = static_cast<float*>(part);
-  a.NB = NB; a.BS = BS; a.MB = MB; a.chunk = chunk;
+  a.Dv = Dv; a.NB = NB; a.BS = BS; a.MB = MB; a.chunk = chunk;
   a.R = R; a.nrows = nrows; a.extra = extra;
   a.q_s = q_s; a.q_k = q_k; a.q_h = q_h;
   a.k_n = k_n; a.k_b = k_b; a.k_h = k_h;
@@ -1124,7 +1156,10 @@ void set_scales(Args& a, const void* ks, const void* vs, long long ks_n,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. Strides are in elements, the
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
+// 128), Dv the true head dim (1 <= Dv <= D, rows of Dv elements of q and
+// of the pools whole 16-byte chunks); the shapes below are of width Dv, the
+// scratch of width D. Strides are in elements, the
 // head dim contiguous. q and o [S, H, D]; pools [NB, BS, KH, D] by
 // (k_n, k_b, k_h); tables [S, MB] int32 with row stride t_s; lengths [S]
 // int32; all on the device. The plan: each key range [0, MB*BS) in
@@ -1137,12 +1172,14 @@ void set_scales(Args& a, const void* ks, const void* vs, long long ks_n,
 extern "C" int dstt_paged_decode_attention(
     const void* q, const void* k, const void* v, const void* tables,
     const void* lengths, void* o, void* tickets, void* part, int S, int H,
-    int KH, int D, int NB, int BS, int MB, int splits, int chunk,
+    int KH, int D, int Dv, int NB, int BS, int MB, int splits, int chunk,
     long long q_s, long long q_h, long long k_n, long long k_b, long long k_h,
     long long v_n, long long v_b, long long v_h, long long t_s, long long o_s,
     long long o_h, float scale, int dtype, void* stream) {
-  if (S <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(tables, lengths, tickets, part, NB, BS, MB, chunk, H / KH, H / KH, 0,
+  if (S <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 ||
+      Dv < 1 || Dv > D)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(tables, lengths, tickets, part, Dv, NB, BS, MB, chunk, H / KH, H / KH, 0,
                            q_s, 0, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, 0, o_h, scale);
   return dispatch<true, false>(dtype, D, q, k, v, o, S, KH, splits, a, stream);
 }
@@ -1158,14 +1195,14 @@ extern "C" int dstt_paged_decode_attention(
 // cap)). Launches that share a scratch must run in order.
 extern "C" int dstt_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths, void* o,
-    void* tickets, void* part, int B, int S, int H, int KH, int D, int splits,
+    void* tickets, void* part, int B, int S, int H, int KH, int D, int Dv, int splits,
     int chunk, long long q_b, long long q_h, long long k_b, long long k_s,
     long long k_h, long long v_b, long long v_s, long long v_h, long long o_b,
     long long o_h, float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH || splits < 1 || splits > MAX_SPLITS || chunk < 1 ||
-      (long long)splits * chunk < S)
+      (long long)splits * chunk < S || Dv < 1 || Dv > D)
     return (int)cudaErrorInvalidValue;
-  const Args a = make_args(nullptr, lengths, tickets, part, B, S, 1, chunk, H / KH, H / KH, 0,
+  const Args a = make_args(nullptr, lengths, tickets, part, Dv, B, S, 1, chunk, H / KH, H / KH, 0,
                            q_b, 0, q_h, k_b, k_s, k_h, v_b, v_s, v_h, 0, o_b, 0, o_h, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -1185,13 +1222,15 @@ extern "C" int dstt_decode_attention(
 extern "C" int dstt_paged_verify_attention(
     const void* q, const void* k, const void* v, const void* tables,
     const void* lengths, void* o, void* tickets, void* part, int S, int K,
-    int H, int KH, int D, int NB, int BS, int MB, int splits, int chunk,
+    int H, int KH, int D, int Dv, int NB, int BS, int MB, int splits, int chunk,
     long long q_s, long long q_k, long long q_h, long long k_n, long long k_b,
     long long k_h, long long v_n, long long v_b, long long v_h, long long t_s,
     long long o_s, long long o_k, long long o_h, float scale, int dtype,
     void* stream) {
-  if (S <= 0 || K <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(tables, lengths, tickets, part, NB, BS, MB, chunk, H / KH, K * (H / KH), 1,
+  if (S <= 0 || K <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 ||
+      Dv < 1 || Dv > D)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(tables, lengths, tickets, part, Dv, NB, BS, MB, chunk, H / KH, K * (H / KH), 1,
                            q_s, q_k, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, o_k, o_h, scale);
   return dispatch<false, false>(dtype, D, q, k, v, o, S, KH, splits, a, stream);
 }
@@ -1201,14 +1240,16 @@ extern "C" int dstt_paged_verify_attention(
 extern "C" int dstt_paged_decode_attention_int8(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* tables, const void* lengths, void* o,
-    void* tickets, void* part, int S, int H, int KH, int D, int NB, int BS,
+    void* tickets, void* part, int S, int H, int KH, int D, int Dv, int NB, int BS,
     int MB, int splits, int chunk, long long q_s, long long q_h, long long k_n,
     long long k_b, long long k_h, long long v_n, long long v_b, long long v_h,
     long long ks_n, long long ks_h, long long vs_n, long long vs_h,
     long long t_s, long long o_s, long long o_h, float scale, int dtype,
     void* stream) {
-  if (S <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0) return (int)cudaErrorInvalidValue;
-  Args a = make_args(tables, lengths, tickets, part, NB, BS, MB, chunk, H / KH, H / KH, 0,
+  if (S <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 ||
+      Dv < 1 || Dv > D)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(tables, lengths, tickets, part, Dv, NB, BS, MB, chunk, H / KH, H / KH, 0,
                      q_s, 0, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, 0, o_h, scale);
   set_scales(a, ks, vs, ks_n, ks_h, vs_n, vs_h);
   return dispatch<true, true>(dtype, D, q, k, v, o, S, KH, splits, a, stream);
@@ -1217,14 +1258,16 @@ extern "C" int dstt_paged_decode_attention_int8(
 extern "C" int dstt_paged_verify_attention_int8(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* tables, const void* lengths, void* o,
-    void* tickets, void* part, int S, int K, int H, int KH, int D, int NB,
+    void* tickets, void* part, int S, int K, int H, int KH, int D, int Dv, int NB,
     int BS, int MB, int splits, int chunk, long long q_s, long long q_k,
     long long q_h, long long k_n, long long k_b, long long k_h, long long v_n,
     long long v_b, long long v_h, long long ks_n, long long ks_h,
     long long vs_n, long long vs_h, long long t_s, long long o_s,
     long long o_k, long long o_h, float scale, int dtype, void* stream) {
-  if (S <= 0 || K <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0) return (int)cudaErrorInvalidValue;
-  Args a = make_args(tables, lengths, tickets, part, NB, BS, MB, chunk, H / KH, K * (H / KH), 1,
+  if (S <= 0 || K <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 ||
+      Dv < 1 || Dv > D)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(tables, lengths, tickets, part, Dv, NB, BS, MB, chunk, H / KH, K * (H / KH), 1,
                      q_s, q_k, q_h, k_n, k_b, k_h, v_n, v_b, v_h, t_s, o_s, o_k, o_h, scale);
   set_scales(a, ks, vs, ks_n, ks_h, vs_n, vs_h);
   return dispatch<false, true>(dtype, D, q, k, v, o, S, KH, splits, a, stream);

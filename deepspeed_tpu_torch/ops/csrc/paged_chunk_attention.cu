@@ -54,6 +54,13 @@
 //    before it is rounded for P.V, while l sums the unscaled P.
 //  * float32 inputs take a plain FMA kernel: one warp per query row (int8
 //    pools fold the scales into the score and into P, as above).
+// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
+// true head dim Dv <= DK whose rows are whole 16-byte chunks (a.Dv): q's
+// words and the tiles' chunks past Dv are zero (paged_tiles.cuh), and the
+// stores stop at Dv. The tensor-core kernel takes those tests as a
+// template flag (PARTIAL), so Dv = D runs the code it ran before them
+// (with them it measured 6-10% slower at D = 64 and 128: PERF.md §6).
+// The f32 kernel reads clamped columns times a zero q.
 
 #include <algorithm>
 #include <type_traits>
@@ -80,6 +87,7 @@ struct Args {
   const float* ks;     // int8 pools: scale tiles [NB, KH, BS] by (ks_n, ks_h)
   const float* vs;
   int C, H, KH, NB, BS, MB, start;
+  int Dv;   // the true head dim, <= the kernel width D
   long long q_c, q_h, k_n, k_b, k_h, v_n, v_b, v_h, o_c, o_h;
   long long ks_n, ks_h, vs_n, vs_h;
   float scale;
@@ -90,8 +98,9 @@ __device__ __forceinline__ long long pool_block(const Args& a, int pos) {
   return min(max(a.table[min(pos / a.BS, a.MB - 1)], 0), a.NB - 1);
 }
 
-// grid (q tiles, KH); the design is in the note at the top
-template <typename T, typename KV, int D>
+// grid (q tiles, KH); the design is in the note at the top. PARTIAL: the
+// true head dim a.Dv is below D.
+template <typename T, typename KV, int D, bool PARTIAL>
 __global__ void __launch_bounds__(G * NUM_THREADS, 1)
 paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                        const KV* __restrict__ vp, T* __restrict__ o, Args a) {
@@ -133,8 +142,9 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int d = TL::qdim(kk, t4, h);
-      qf[kk][2 * h] = *reinterpret_cast<const uint32_t*>(qa + d);
-      qf[kk][2 * h + 1] = *reinterpret_cast<const uint32_t*>(qb + d);
+      const bool live = !PARTIAL || d < a.Dv;   // zero past the head dim
+      qf[kk][2 * h] = live ? *reinterpret_cast<const uint32_t*>(qa + d) : 0u;
+      qf[kk][2 * h + 1] = live ? *reinterpret_cast<const uint32_t*>(qb + d) : 0u;
     }
   }
 
@@ -150,7 +160,8 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     int blk[CPT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) blk[c] = pool_block(a, min(p0 + CP::row(c, tid), end - 1));
-    CP::issue(stage, kb, vb, blk, p0, end, a.BS, a.k_n, a.k_b, a.v_n, a.v_b, tid);
+    CP::template issue<PARTIAL>(stage, kb, vb, blk, p0, end, a.BS, a.k_n, a.k_b, a.v_n, a.v_b,
+                                a.Dv, tid);
     if constexpr (Q8)
       CP::issue_scales(stage, a.ks + kh * a.ks_h, a.vs + kh * a.vs_h,
                        pool_block(a, min(p0 + tid % TILE_KEYS, end - 1)), p0, end, a.BS,
@@ -335,19 +346,22 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       for (int e = 0; e < 2; ++e)
 #pragma unroll
         for (int j = 0; j < D / 8; j += 2)
-          *reinterpret_cast<uint32_t*>(orow + TL::dim(j, e, t4)) =
-              pack2<T>(acc[j][2 * h + e] / lv, acc[j + 1][2 * h + e] / lv);
+          if (!PARTIAL || TL::dim(j, e, t4) < a.Dv)
+            *reinterpret_cast<uint32_t*>(orow + TL::dim(j, e, t4)) =
+                pack2<T>(acc[j][2 * h + e] / lv, acc[j + 1][2 * h + e] / lv);
     } else {
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + TL::dim(j, 0, t4)) =
-            pack2<T>(acc[j][2 * h] / lv, acc[j][2 * h + 1] / lv);
+        if (!PARTIAL || TL::dim(j, 0, t4) < a.Dv)
+          *reinterpret_cast<uint32_t*>(orow + TL::dim(j, 0, t4)) =
+              pack2<T>(acc[j][2 * h] / lv, acc[j][2 * h + 1] / lv);
     }
   }
   DSTT_STAMP(4);
 }
 
-// float32: one warp per query row, each lane holding D/32 columns
+// float32: one warp per query row, each lane holding D/32 columns; a column
+// past Dv reads column Dv - 1 times a zero q and is not written
 template <int D, bool Q8>
 __global__ void __launch_bounds__(NUM_THREADS)
 paged_chunk_f32_kernel(const float* __restrict__ q, const void* __restrict__ kp_,
@@ -365,9 +379,11 @@ paged_chunk_f32_kernel(const float* __restrict__ q, const void* __restrict__ kp_
   const KV* kb = kp + kh * a.k_h;
   const KV* vb = vp + kh * a.v_h;
   float qv[E], acc[E];
+  int col[E];
 #pragma unroll
   for (int i = 0; i < E; ++i) {
-    qv[i] = qr[lane + 32 * i] * a.scale;
+    col[i] = min(lane + 32 * i, a.Dv - 1);
+    qv[i] = lane + 32 * i < a.Dv ? qr[col[i]] * a.scale : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -377,7 +393,7 @@ paged_chunk_f32_kernel(const float* __restrict__ q, const void* __restrict__ kp_
     const KV* kr = kb + blk * a.k_n + off * a.k_b;
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < E; ++i) s = fmaf(qv[i], to_float(kr[lane + 32 * i]), s);
+    for (int i = 0; i < E; ++i) s = fmaf(qv[i], to_float(kr[col[i]]), s);
 #pragma unroll
     for (int sh = 16; sh > 0; sh /= 2) s += __shfl_xor_sync(0xffffffffu, s, sh);
     if constexpr (Q8) s *= a.ks[blk * a.ks_n + kh * a.ks_h + off];
@@ -388,27 +404,35 @@ paged_chunk_f32_kernel(const float* __restrict__ q, const void* __restrict__ kp_
     if constexpr (Q8) pv *= a.vs[blk * a.vs_n + kh * a.vs_h + off];
     const KV* vr = vb + blk * a.v_n + off * a.v_b;
 #pragma unroll
-    for (int i = 0; i < E; ++i) acc[i] = fmaf(pv, to_float(vr[lane + 32 * i]), acc[i] * alpha);
+    for (int i = 0; i < E; ++i) acc[i] = fmaf(pv, to_float(vr[col[i]]), acc[i] * alpha);
     m = mn;
   }
   float* orow = o + (long long)row * a.o_c + h * a.o_h;
 #pragma unroll
-  for (int i = 0; i < E; ++i) orow[lane + 32 * i] = acc[i] / fmaxf(l, 1e-30f);
+  for (int i = 0; i < E; ++i)
+    if (lane + 32 * i < a.Dv) orow[lane + 32 * i] = acc[i] / fmaxf(l, 1e-30f);
+}
+
+template <typename T, int D, bool Q8, bool PARTIAL>
+cudaError_t launch_mma_kernel(const void* q, const void* k, const void* v, void* o,
+                              const Args& a, cudaStream_t stream) {
+  using KV = std::conditional_t<Q8, int8_t, T>;
+  using TL = KVTile<KV, D>;
+  const int smem = std::max(2 * G * TL::STAGE, (D / 2 + 4) * NUM_THREADS * 4);
+  const cudaError_t e = allow_smem<paged_chunk_mma_kernel<T, KV, D, PARTIAL>>(smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.C * (a.H / a.KH) + BLOCK_M - 1) / BLOCK_M, a.KH);
+  paged_chunk_mma_kernel<T, KV, D, PARTIAL><<<grid, G * NUM_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      static_cast<T*>(o), a);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, bool Q8>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, const Args& a,
                        cudaStream_t stream) {
-  using KV = std::conditional_t<Q8, int8_t, T>;
-  using TL = KVTile<KV, D>;
-  const int smem = std::max(2 * G * TL::STAGE, (D / 2 + 4) * NUM_THREADS * 4);
-  const cudaError_t e = allow_smem<paged_chunk_mma_kernel<T, KV, D>>(smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.C * (a.H / a.KH) + BLOCK_M - 1) / BLOCK_M, a.KH);
-  paged_chunk_mma_kernel<T, KV, D><<<grid, G * NUM_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-      static_cast<T*>(o), a);
-  return cudaGetLastError();
+  return a.Dv < D ? launch_mma_kernel<T, D, Q8, true>(q, k, v, o, a, stream)
+                  : launch_mma_kernel<T, D, Q8, false>(q, k, v, o, a, stream);
 }
 
 template <int D, bool Q8>
@@ -433,13 +457,13 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-Args make_args(const void* table, int C, int H, int KH, int NB, int BS, int MB,
+Args make_args(const void* table, int C, int H, int KH, int Dv, int NB, int BS, int MB,
                int start, long long q_c, long long q_h, long long k_n,
                long long k_b, long long k_h, long long v_n, long long v_b,
                long long v_h, long long o_c, long long o_h, float scale) {
   Args a{};
   a.table = static_cast<const int*>(table);
-  a.C = C; a.H = H; a.KH = KH; a.NB = NB; a.BS = BS; a.MB = MB; a.start = start;
+  a.C = C; a.H = H; a.KH = KH; a.Dv = Dv; a.NB = NB; a.BS = BS; a.MB = MB; a.start = start;
   a.q_c = q_c; a.q_h = q_h;
   a.k_n = k_n; a.k_b = k_b; a.k_h = k_h;
   a.v_n = v_n; a.v_b = v_b; a.v_h = v_h;
@@ -450,19 +474,22 @@ Args make_args(const void* table, int C, int H, int KH, int NB, int BS, int MB,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. Strides are in elements, the
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
+// 128), Dv the true head dim (1 <= Dv <= D, rows of Dv elements whole
+// 16-byte chunks) of q, o and the pools. Strides are in elements, the
 // head dim contiguous. q and o [C, H, D]; pools [NB, BS, KH, D] by
 // (k_n, k_b, k_h); table [MB] int32 (the slot's block-table row); start is
 // the chunk's first absolute position.
 extern "C" int dstt_paged_chunk_attention(
     const void* q, const void* k, const void* v, const void* table, void* o,
-    int C, int H, int KH, int D, int NB, int BS, int MB, int start,
+    int C, int H, int KH, int D, int Dv, int NB, int BS, int MB, int start,
     long long q_c, long long q_h, long long k_n, long long k_b, long long k_h,
     long long v_n, long long v_b, long long v_h, long long o_c, long long o_h,
     float scale, int dtype, void* stream) {
-  if (C <= 0 || H <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 || start < 0)
+  if (C <= 0 || H <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 || start < 0 ||
+      Dv < 1 || Dv > D)
     return (int)cudaErrorInvalidValue;
-  const Args a = make_args(table, C, H, KH, NB, BS, MB, start, q_c, q_h, k_n, k_b,
+  const Args a = make_args(table, C, H, KH, Dv, NB, BS, MB, start, q_c, q_h, k_n, k_b,
                            k_h, v_n, v_b, v_h, o_c, o_h, scale);
   return dispatch<false>(dtype, D, q, k, v, o, a, stream);
 }
@@ -471,15 +498,16 @@ extern "C" int dstt_paged_chunk_attention(
 // by (ks_n, ks_h), the block dim contiguous. dtype is q's and o's.
 extern "C" int dstt_paged_chunk_attention_int8(
     const void* q, const void* k, const void* v, const void* ks,
-    const void* vs, const void* table, void* o, int C, int H, int KH, int D,
+    const void* vs, const void* table, void* o, int C, int H, int KH, int D, int Dv,
     int NB, int BS, int MB, int start, long long q_c, long long q_h,
     long long k_n, long long k_b, long long k_h, long long v_n, long long v_b,
     long long v_h, long long ks_n, long long ks_h, long long vs_n,
     long long vs_h, long long o_c, long long o_h, float scale, int dtype,
     void* stream) {
-  if (C <= 0 || H <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 || start < 0)
+  if (C <= 0 || H <= 0 || KH <= 0 || H % KH || NB <= 0 || BS <= 0 || MB <= 0 || start < 0 ||
+      Dv < 1 || Dv > D)
     return (int)cudaErrorInvalidValue;
-  Args a = make_args(table, C, H, KH, NB, BS, MB, start, q_c, q_h, k_n, k_b, k_h, v_n,
+  Args a = make_args(table, C, H, KH, Dv, NB, BS, MB, start, q_c, q_h, k_n, k_b, k_h, v_n,
                      v_b, v_h, o_c, o_h, scale);
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);

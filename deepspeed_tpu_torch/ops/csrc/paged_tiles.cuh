@@ -4,8 +4,10 @@
 // Header only; the builder hashes it with every source.
 //
 // A tile holds 64 key rows of one kv head, copied from the pool
-// [NB, BS, KH, D] row by row through the block table with 16-byte cp.async
-// (a row of a 64-key tile may lie in any page, so any BS works).
+// [NB, BS, KH, Dv] row by row through the block table with 16-byte cp.async
+// (a row of a 64-key tile may lie in any page, so any BS works). D is the
+// kernel width (64 or 128); the chunks of a row past the true head dim Dv
+// are zero-filled, not read, so they add nothing to q.k or P.V.
 //  * 16-bit pools (q's dtype): rows of D + 8 elements (the padding keeps
 //    ldmatrix conflict-free); fragments by ldmatrix.
 //  * int8 pools: rows of D bytes, their 16-byte chunks XOR-swizzled
@@ -90,8 +92,9 @@ __device__ __forceinline__ uint32_t widen2(uint32_t xa, int ja, uint32_t xb, int
 // cp.async of tile rows [0, 64) of one stage by THREADS threads (tid: this
 // thread's index among them): row r is pool position p0 + r, valid below
 // `end` (else zero-filled), its block id from blk[i] for this thread's
-// copy i (tile row row(i, tid)). K and V share the ids; kb, vb (and ks,
-// vs) point at the kv head already.
+// copy i (tile row row(i, tid)); with PARTIAL, a chunk past the head dim
+// dv is zero-filled (without, every chunk is copied and dv is not read).
+// K and V share the ids; kb, vb (and ks, vs) point at the kv head already.
 template <typename KV, int D, int THREADS>
 struct TileCopy {
   using TL = KVTile<KV, D>;
@@ -100,20 +103,23 @@ struct TileCopy {
   static_assert(N % THREADS == 0 || THREADS % N == 0, "whole copies");
   // the tile row of this thread's copy i
   __device__ static __forceinline__ int row(int i, int tid) { return (tid + i * THREADS) / TL::CH; }
+  template <bool PARTIAL>
   __device__ static __forceinline__ void issue(unsigned char* stage, const KV* kb, const KV* vb,
                                                const int (&blk)[CPT], int p0, int end, int BS,
                                                long long k_n, long long k_b, long long v_n,
-                                               long long v_b, int tid) {
+                                               long long v_b, int dv, int tid) {
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
       const int cc = tid + i * THREADS;
       if (N < THREADS && cc >= N) break;
       const int r = cc / TL::CH, c = cc % TL::CH;
       const int pos = p0 + r;
-      const bool ok = pos < end;
+      const bool ok = pos < end && (!PARTIAL || c * TL::E < dv);
       const long long o = ok ? pos % BS : 0;
-      cp_async16(stage + TL::off(r, c), kb + blk[i] * k_n + o * k_b + c * TL::E, ok);
-      cp_async16(stage + TL::BYTES + TL::off(r, c), vb + blk[i] * v_n + o * v_b + c * TL::E, ok);
+      // a copy that reads nothing still takes an address inside the pool
+      const int e = PARTIAL && !ok ? 0 : c * TL::E;
+      cp_async16(stage + TL::off(r, c), kb + blk[i] * k_n + o * k_b + e, ok);
+      cp_async16(stage + TL::BYTES + TL::off(r, c), vb + blk[i] * v_n + o * v_b + e, ok);
     }
   }
   // int8 pools: the scales of the stage's rows (threads 0..63 K, 64..127 V;

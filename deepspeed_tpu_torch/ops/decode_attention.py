@@ -26,6 +26,15 @@ fp wrappers call when they are given ``k_scale``/``v_scale``.
 Each source's note gives its design and what bounds it on the H100. A row
 with no visible key gives zeros, as the TPU kernels do.
 
+Head dims: any ``D <= 128`` (:func:`~deepspeed_tpu_torch.ops.head_dim.
+head_dim_route`). Where a row of ``D`` elements of q and of the cache or
+pool is whole 16-byte chunks (16-bit: ``D % 8 == 0``, f32: ``D % 4 == 0``,
+an int8 pool: ``D % 16 == 0``) the kernels run their 64- or 128-wide
+instantiation on the tensors as they are; any other ``D`` (the padded
+route, correct and slow: it copies the whole cache or pool of the layer on
+every call) zero-pads q and the cache or pools to that width and slices the
+output back. ``D > 128`` raises (fault D1b).
+
 On CPU tensors each wrapper runs its plain PyTorch version (the
 ``*_reference`` function beside it, which dequantizes an int8 pool up
 front); on CUDA tensors it launches its kernel or raises. Each wrapper
@@ -41,12 +50,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch.ops.head_dim import (head_dim_route, pad_head_dim,
+                                              unpad_head_dim)
 from deepspeed_tpu_torch.ops.op_builder import (CUDAOpBuilder, check_launch,
                                                sm_count)
 from deepspeed_tpu_torch.ops.quant_core import dequantize_int8
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
 
 
 def _check_shapes(q, k_cache, v_cache, lengths):
@@ -88,13 +98,20 @@ def decode_attention_reference(q, k_cache, v_cache, lengths,
     return (acc / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
 
 
+def _route(q, int8: bool):
+    """``(kernel width, pad)`` of q's head dim over q and its cache or
+    pools (an int8 pool's rows are the narrowest)."""
+    return head_dim_route(q.shape[-1], 1 if int8 else q.element_size())
+
+
 def _check_operands(name, floats, ints, int8=(), scales=()):
     """Raise unless the kernel ``name`` can take these CUDA operands:
     ``floats`` (q first, then caches or pools) of one float dtype and
-    ``int8`` pools, each with a contiguous head dim of 64 or 128, 16-byte
-    aligned rows and strides that are whole 16-byte vectors; ``scales``
-    float32 with a contiguous last dim; ``ints`` (lengths, block tables)
-    int32 with a contiguous last dim."""
+    ``int8`` pools, each with a contiguous head dim, 16-byte aligned rows
+    and strides that are whole 16-byte vectors; ``scales`` float32 with a
+    contiguous last dim; ``ints`` (lengths, block tables) int32 with a
+    contiguous last dim. The callers take the padded route first, so the
+    head dim needs no check here."""
     q = floats[0]
     dev = q.device
     if any(x.device != dev for x in (*floats, *int8, *scales, *ints)):
@@ -119,9 +136,6 @@ def _check_operands(name, floats, ints, int8=(), scales=()):
     if any(x.dtype != torch.int32 or x.stride(-1) != 1 for x in ints):
         raise TypeError(f"{name} kernel takes int32 lengths and tables with "
                         f"a contiguous last dim")
-    D = q.shape[-1]
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{name} kernel takes head dim {_HEAD_DIMS}, got {D}")
     for x in (*floats, *int8):
         vec = 16 // x.element_size()
         if x.stride(-1) != 1 or any(st % vec for st in x.stride()[:-1]) \
@@ -142,18 +156,24 @@ def decode_attention(q, k_cache, v_cache, lengths,
     _check_shapes(q, k_cache, v_cache, lengths)
     if q.device.type == k_cache.device.type == v_cache.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, lengths, scale)
-    _check_kernel_args(q, k_cache, v_cache, lengths)
     B, H, D = q.shape
+    scale = _scale(scale, D)
+    DK, pad = _route(q, False)
+    if pad:   # the padded route: copies of q and the whole cache
+        return unpad_head_dim(decode_attention(
+            *(pad_head_dim(x, DK) for x in (q, k_cache, v_cache)), lengths,
+            scale), D)
+    _check_kernel_args(q, k_cache, v_cache, lengths)
     S, KH = k_cache.shape[1], k_cache.shape[2]
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets, part, splits, chunk = _dense_args(q, stream, B, S, KH)
+    tickets, part, splits, chunk = _dense_args(q, stream, B, S, KH, DK)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), o.data_ptr(), tickets, part, B, S, H, KH, D,
+        lengths.data_ptr(), o.data_ptr(), tickets, part, B, S, H, KH, DK, D,
         splits, chunk, *q.stride()[:2], *k_cache.stride()[:3],
-        *v_cache.stride()[:3], *o.stride()[:2], _scale(scale, D),
+        *v_cache.stride()[:3], *o.stride()[:2], scale,
         _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "decode_attention", rc)
     decode_attention.launches += 1
@@ -168,34 +188,34 @@ decode_attention.launches = 0
 
 def _bind_paged(lib: ctypes.CDLL) -> None:
     lib.dstt_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_decode_attention.restype = ctypes.c_int
     lib.dstt_paged_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 11
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 11
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_decode_attention.restype = ctypes.c_int
     lib.dstt_paged_verify_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 13
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_longlong] * 13
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_verify_attention.restype = ctypes.c_int
     lib.dstt_paged_decode_attention_int8.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 15
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 15
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_decode_attention_int8.restype = ctypes.c_int
     lib.dstt_paged_verify_attention_int8.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 17
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_longlong] * 17
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_verify_attention_int8.restype = ctypes.c_int
 
 
 def _bind_chunk(lib: ctypes.CDLL) -> None:
     lib.dstt_paged_chunk_attention.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_chunk_attention.restype = ctypes.c_int
     lib.dstt_paged_chunk_attention_int8.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 14
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 14
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_paged_chunk_attention_int8.restype = ctypes.c_int
 
@@ -272,7 +292,8 @@ def paged_verify_plan(span: int, S: int, KH: int,
     return S * KH * -(-rows // 16), -(-span // chunk), chunk
 
 
-_SCRATCH = {}   # (kernel, stream, shape) -> (tickets, partials, launch args)
+# (kernel, stream, shape, kernel width) -> (tickets, partials, launch args)
+_SCRATCH = {}
 
 
 def _scratch(key, device, units, part, plan):
@@ -287,51 +308,51 @@ def _scratch(key, device, units, part, plan):
     return hit[2]
 
 
-def _split_args(q, stream, S, KH, MB, BS):
+def _split_args(q, stream, S, KH, MB, BS, DK):
     """The plan of a paged decode launch and its scratch, as the C
     interface takes them: ``(tickets, partials, splits, chunk)``, so a call
-    pays one dict lookup."""
-    R, D = q.shape[1] // KH, q.shape[-1]
-    key = ("decode", stream, S, KH, R, MB * BS, D)
+    pays one dict lookup. The partials are of the kernel width ``DK``."""
+    R = q.shape[1] // KH
+    key = ("decode", stream, S, KH, R, MB * BS, DK)
     hit = _SCRATCH.get(key)
     if hit is not None:
         return hit[2]
     units = S * KH * paged_row_groups(R)
     splits, chunk = paged_split_plan(MB * BS, units, sm_count(q.device))
     rows = 1 << (min(R, 8) - 1).bit_length()
-    return _scratch(key, q.device, units, units * splits * rows * (D + 4),
+    return _scratch(key, q.device, units, units * splits * rows * (DK + 4),
                     (splits, chunk))
 
 
-def _dense_args(q, stream, B, S, KH):
+def _dense_args(q, stream, B, S, KH, DK):
     """:func:`_split_args` of a dense decode launch: the plan of the cache
-    ``[B, S, KH, D]`` and its scratch, kept per (stream, B, KH, R, S, D),
+    ``[B, S, KH, D]`` and its scratch, kept per (stream, B, KH, R, S, DK),
     all static in ``generate``."""
-    R, D = q.shape[1] // KH, q.shape[-1]
-    key = ("dense", stream, B, KH, R, S, D)
+    R = q.shape[1] // KH
+    key = ("dense", stream, B, KH, R, S, DK)
     hit = _SCRATCH.get(key)
     if hit is not None:
         return hit[2]
     units = B * KH * paged_row_groups(R)
     splits, chunk = dense_split_plan(S, units, sm_count(q.device))
     rows = 1 << (min(R, 8) - 1).bit_length()
-    return _scratch(key, q.device, units, units * splits * rows * (D + 4),
+    return _scratch(key, q.device, units, units * splits * rows * (DK + 4),
                     (splits, chunk))
 
 
-def _verify_args(q, stream, KH, MB, BS):
+def _verify_args(q, stream, KH, MB, BS, DK):
     """:func:`_split_args` of a paged verify launch (q ``[S, K, H, D]``,
     16 rows a unit; f32 queries take the decode kernel's units of up to 8
     rows, so the tickets count those)."""
-    S, K, H, D = q.shape
+    S, K, H, _ = q.shape
     rows = K * (H // KH)
-    key = ("verify", stream, S, KH, rows, MB * BS, D)
+    key = ("verify", stream, S, KH, rows, MB * BS, DK)
     hit = _SCRATCH.get(key)
     if hit is not None:
         return hit[2]
     units, splits, chunk = paged_verify_plan(MB * BS, S, KH, rows)
     return _scratch(key, q.device, S * KH * paged_row_groups(rows),
-                    units * splits * 16 * (D + 4), (splits, chunk))
+                    units * splits * 16 * (DK + 4), (splits, chunk))
 
 
 def _check_pools(name, q, k_pool, v_pool, k_scale, v_scale):
@@ -514,22 +535,28 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
                        block_tables, lengths, None, None)
     S, H, D = q.shape
     if _on_cpu(q, k_pool, v_pool, block_tables, lengths):
-        return paged_decode_attention_reference(q, k_pool, v_pool,
-                                                block_tables, lengths, scale)
+        return paged_decode_attention_reference(
+            q, k_pool, v_pool, block_tables, lengths, scale)
+    scale = _scale(scale, D)
+    DK, pad = _route(q, False)
+    if pad:   # the padded route: copies of q and the whole pools
+        return unpad_head_dim(paged_decode_attention(
+            *(pad_head_dim(x, DK) for x in (q, k_pool, v_pool)),
+            block_tables, lengths, scale), D)
     _check_operands("paged_decode_attention", (q, k_pool, v_pool),
                     (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
     MB = block_tables.shape[1]
     o = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets, part, splits, chunk = _split_args(q, stream, S, KH, MB, BS)
+    tickets, part, splits, chunk = _split_args(q, stream, S, KH, MB, BS, DK)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), tickets,
-        part, S, H, KH, D, NB, BS, MB, splits, chunk, *q.stride()[:2],
+        part, S, H, KH, DK, D, NB, BS, MB, splits, chunk, *q.stride()[:2],
         *k_pool.stride()[:3], *v_pool.stride()[:3], block_tables.stride(0),
-        *o.stride()[:2], _scale(scale, D), _DTYPE_CODE[q.dtype], stream)
+        *o.stride()[:2], scale, _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "paged_decode_attention", rc)
     paged_decode_attention.launches += 1
     return o
@@ -550,19 +577,26 @@ def paged_decode_attention_int8(q, k_pool, v_pool, block_tables, lengths,
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, lengths, scale, k_scale,
             v_scale)
+    scale = _scale(scale, D)
+    DK, pad = _route(q, True)
+    if pad:   # the padded route: copies of q and the whole pools
+        return unpad_head_dim(paged_decode_attention_int8(
+            *(pad_head_dim(x, DK) for x in (q, k_pool, v_pool)),
+            block_tables, lengths, k_scale, v_scale,
+            scale), D)
     ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
                                 (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
     MB = block_tables.shape[1]
     o = torch.empty((S, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets, part, splits, chunk = _split_args(q, stream, S, KH, MB, BS)
+    tickets, part, splits, chunk = _split_args(q, stream, S, KH, MB, BS, DK)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_decode_attention_int8(
         q.data_ptr(), *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), tickets, part, S, H, KH, D, NB, BS, MB, splits, chunk,
-        *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3],
-        *sstrides, block_tables.stride(0), *o.stride()[:2], _scale(scale, D),
+        o.data_ptr(), tickets, part, S, H, KH, DK, D, NB, BS, MB, splits,
+        chunk, *q.stride()[:2], *k_pool.stride()[:3], *v_pool.stride()[:3],
+        *sstrides, block_tables.stride(0), *o.stride()[:2], scale,
         _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, name, rc)
     paged_decode_attention_int8.launches += 1
@@ -585,19 +619,25 @@ def paged_chunk_attention(q, k_pool, v_pool, block_table, start: int,
                       block_table, None, None)
     start = int(start)
     if _on_cpu(q, k_pool, v_pool, block_table):
-        return paged_chunk_attention_reference(q, k_pool, v_pool,
-                                               block_table, start, scale)
+        return paged_chunk_attention_reference(
+            q, k_pool, v_pool, block_table, start, scale)
+    C, H, D = q.shape
+    scale = _scale(scale, D)
+    DK, pad = _route(q, False)
+    if pad:   # the padded route: copies of q and the whole pools
+        return unpad_head_dim(paged_chunk_attention(
+            *(pad_head_dim(x, DK) for x in (q, k_pool, v_pool)), block_table,
+            start, scale), D)
     _check_operands("paged_chunk_attention", (q, k_pool, v_pool),
                     (block_table,))
-    C, H, D = q.shape
     NB, BS, KH = k_pool.shape[:3]
     o = torch.empty((C, H, D), dtype=q.dtype, device=q.device)
     lib = CHUNK_BUILDER.load()
     rc = lib.dstt_paged_chunk_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_table.data_ptr(), o.data_ptr(), C, H, KH, D, NB, BS,
+        block_table.data_ptr(), o.data_ptr(), C, H, KH, DK, D, NB, BS,
         block_table.shape[0], start, *q.stride()[:2], *k_pool.stride()[:3],
-        *v_pool.stride()[:3], *o.stride()[:2], _scale(scale, D),
+        *v_pool.stride()[:3], *o.stride()[:2], scale,
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, "paged_chunk_attention", rc)
     paged_chunk_attention.launches += 1
@@ -617,17 +657,23 @@ def paged_chunk_attention_int8(q, k_pool, v_pool, block_table, start: int,
     if _on_cpu(q, k_pool, v_pool, block_table, k_scale, v_scale):
         return paged_chunk_attention_reference(
             q, k_pool, v_pool, block_table, start, scale, k_scale, v_scale)
+    C, H, D = q.shape
+    scale = _scale(scale, D)
+    DK, pad = _route(q, True)
+    if pad:   # the padded route: copies of q and the whole pools
+        return unpad_head_dim(paged_chunk_attention_int8(
+            *(pad_head_dim(x, DK) for x in (q, k_pool, v_pool)), block_table,
+            start, k_scale, v_scale, scale), D)
     ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
                                 (block_table,))
-    C, H, D = q.shape
     NB, BS, KH = k_pool.shape[:3]
     o = torch.empty((C, H, D), dtype=q.dtype, device=q.device)
     lib = CHUNK_BUILDER.load()
     rc = lib.dstt_paged_chunk_attention_int8(
         q.data_ptr(), *ptrs, block_table.data_ptr(), o.data_ptr(), C, H, KH,
-        D, NB, BS, block_table.shape[0], start, *q.stride()[:2],
+        DK, D, NB, BS, block_table.shape[0], start, *q.stride()[:2],
         *k_pool.stride()[:3], *v_pool.stride()[:3], *sstrides,
-        *o.stride()[:2], _scale(scale, D), _DTYPE_CODE[q.dtype],
+        *o.stride()[:2], scale, _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, name, rc)
     paged_chunk_attention_int8.launches += 1
@@ -650,22 +696,28 @@ def paged_verify_attention(q, k_pool, v_pool, block_tables, lengths,
                        block_tables, lengths, None, None)
     S, K, H, D = q.shape
     if _on_cpu(q, k_pool, v_pool, block_tables, lengths):
-        return paged_verify_attention_reference(q, k_pool, v_pool,
-                                                block_tables, lengths, scale)
+        return paged_verify_attention_reference(
+            q, k_pool, v_pool, block_tables, lengths, scale)
+    scale = _scale(scale, D)
+    DK, pad = _route(q, False)
+    if pad:   # the padded route: copies of q and the whole pools
+        return unpad_head_dim(paged_verify_attention(
+            *(pad_head_dim(x, DK) for x in (q, k_pool, v_pool)),
+            block_tables, lengths, scale), D)
     _check_operands("paged_verify_attention", (q, k_pool, v_pool),
                     (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
     MB = block_tables.shape[1]
     o = torch.empty((S, K, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets, part, splits, chunk = _verify_args(q, stream, KH, MB, BS)
+    tickets, part, splits, chunk = _verify_args(q, stream, KH, MB, BS, DK)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_verify_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(), tickets,
-        part, S, K, H, KH, D, NB, BS, MB, splits, chunk, *q.stride()[:3],
+        part, S, K, H, KH, DK, D, NB, BS, MB, splits, chunk, *q.stride()[:3],
         *k_pool.stride()[:3], *v_pool.stride()[:3], block_tables.stride(0),
-        *o.stride()[:3], _scale(scale, D), _DTYPE_CODE[q.dtype], stream)
+        *o.stride()[:3], scale, _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, "paged_verify_attention", rc)
     paged_verify_attention.launches += 1
     return o
@@ -685,19 +737,26 @@ def paged_verify_attention_int8(q, k_pool, v_pool, block_tables, lengths,
         return paged_verify_attention_reference(
             q, k_pool, v_pool, block_tables, lengths, scale, k_scale,
             v_scale)
+    scale = _scale(scale, D)
+    DK, pad = _route(q, True)
+    if pad:   # the padded route: copies of q and the whole pools
+        return unpad_head_dim(paged_verify_attention_int8(
+            *(pad_head_dim(x, DK) for x in (q, k_pool, v_pool)),
+            block_tables, lengths, k_scale, v_scale,
+            scale), D)
     ptrs, sstrides = _int8_args(name, q, k_pool, v_pool, k_scale, v_scale,
                                 (block_tables, lengths))
     NB, BS, KH = k_pool.shape[:3]
     MB = block_tables.shape[1]
     o = torch.empty((S, K, H, D), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets, part, splits, chunk = _verify_args(q, stream, KH, MB, BS)
+    tickets, part, splits, chunk = _verify_args(q, stream, KH, MB, BS, DK)
     lib = PAGED_BUILDER.load()
     rc = lib.dstt_paged_verify_attention_int8(
         q.data_ptr(), *ptrs, block_tables.data_ptr(), lengths.data_ptr(),
-        o.data_ptr(), tickets, part, S, K, H, KH, D, NB, BS, MB, splits, chunk,
-        *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
-        *sstrides, block_tables.stride(0), *o.stride()[:3], _scale(scale, D),
+        o.data_ptr(), tickets, part, S, K, H, KH, DK, D, NB, BS, MB, splits,
+        chunk, *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
+        *sstrides, block_tables.stride(0), *o.stride()[:3], scale,
         _DTYPE_CODE[q.dtype], stream)
     check_launch(lib, name, rc)
     paged_verify_attention_int8.launches += 1

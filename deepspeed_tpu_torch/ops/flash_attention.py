@@ -13,6 +13,14 @@ k/v ``[B, T, KH, D]`` with ``KH | H`` (grouped-query attention reads kv head
 ``h // (H // KH)``, nothing is repeated). Unlike the TPU kernel, any
 ``T >= 1`` is taken: the kernel masks the ragged edge itself.
 
+Head dims: any ``D <= 128`` (:func:`~deepspeed_tpu_torch.ops.head_dim.
+head_dim_route`). Where a row of ``D`` elements is whole 16-byte chunks
+(16-bit: ``D % 8 == 0``, f32: ``D % 4 == 0``) the kernels run their 64- or
+128-wide instantiation on the tensors as they are, reading zeros past ``D``
+and writing nothing there; any other ``D`` (the padded route, correct and
+slow) zero-pads q, k, v, o and dO to that width with one copy each and
+slices the results back. ``D > 128`` raises (fault D1b).
+
 On a CPU tensor the functions run the plain PyTorch versions,
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`,
 with the same numerics (scale folded into q, or into k for dk/dv, in the
@@ -27,15 +35,16 @@ from typing import Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch.ops.head_dim import (head_dim_route, pad_head_dim,
+                                              unpad_head_dim)
 from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.dstt_flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_flash_attention_fwd.restype = ctypes.c_int
 
@@ -44,8 +53,8 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     # dq reads q, k, v, o and dO (15 strides), dk/dv reads no o (12) and
     # takes the distance of the lse and delta rows; each takes 8 tensors and
     # the persistent kernel's tile counter
-    for fn, n_ints, n_strides in ((lib.dstt_flash_attention_bwd_dq, 5, 15),
-                                  (lib.dstt_flash_attention_bwd_dkv, 6, 12)):
+    for fn, n_ints, n_strides in ((lib.dstt_flash_attention_bwd_dq, 6, 15),
+                                  (lib.dstt_flash_attention_bwd_dkv, 7, 12)):
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * n_ints
                        + [ctypes.c_longlong] * n_strides
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -99,6 +108,8 @@ def flash_attention_reference(q, k, v, causal: bool = True,
 
 
 def _check_kernel_args(q, k, v):
+    """Raise unless the kernels take q, k and v as they are (the callers
+    take the padded route first, so the head dim needs no check here)."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
@@ -113,9 +124,6 @@ def _check_kernel_args(q, k, v):
         raise TypeError(f"flash_attention kernel takes float32, float16 or "
                         f"bfloat16 q/k/v of one dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim "
-                         f"{_HEAD_DIMS}, got {q.shape[3]}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not _rows_ok(x):
             raise ValueError(
@@ -142,10 +150,15 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     _check_shapes(q, k, v)
     if q.device.type == k.device.type == v.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
-    _check_kernel_args(q, k, v)
     B, T, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    DK, pad = head_dim_route(D, q.element_size())
+    if pad:   # the padded route: one zero-padded copy of each operand
+        o, lse = flash_attention_fwd(*(pad_head_dim(x, DK) for x in (q, k, v)),
+                                     causal, scale)
+        return unpad_head_dim(o, D), lse
+    _check_kernel_args(q, k, v)
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     # the counter the persistent 16-bit kernel hands its tiles out with
@@ -153,7 +166,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     lib = BUILDER.load()
     rc = lib.dstt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), next_tile.data_ptr(), B, T, H, k.shape[2], D,
+        lse.data_ptr(), next_tile.data_ptr(), B, T, H, k.shape[2], DK, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype],
@@ -268,6 +281,12 @@ def _bwd_args(q, k, v, lse, do, o=None):
     return do
 
 
+def _route(q, k, v):
+    """``(kernel width, pad)`` of the head dim of q, k and v."""
+    _check_shapes(q, k, v)
+    return head_dim_route(q.shape[3], q.element_size())
+
+
 def _strides(*xs):
     """The (batch, time, head) strides of each tensor, in order."""
     return [s for x in xs for s in x.stride()[:3]]
@@ -282,6 +301,12 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     if all(x.device.type == "cpu" for x in (q, k, v, o, lse, do)):
         _check_shapes(q, k, v)
         return _bwd_dq_reference(q, k, v, o, lse, do, causal, scale)
+    DK, pad = _route(q, k, v)
+    if pad:   # the padded route: one zero-padded copy of each operand
+        dq, delta = flash_attention_bwd_dq(
+            *(pad_head_dim(x, DK) for x in (q, k, v, o)), lse,
+            pad_head_dim(do, DK), causal, scale)
+        return unpad_head_dim(dq, q.shape[3]), delta
     do = _bwd_args(q, k, v, lse, do, o)
     B, T, H, D = q.shape
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
@@ -291,7 +316,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, causal: bool = True,
     rc = lib.dstt_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        next_tile.data_ptr(), B, T, H, k.shape[2], D,
+        next_tile.data_ptr(), B, T, H, k.shape[2], DK, D,
         *_strides(q, k, v, o, do), float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -312,6 +337,12 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
     if all(x.device.type == "cpu" for x in (q, k, v, lse, delta, do)):
         _check_shapes(q, k, v)
         return _bwd_dkv_reference(q, k, v, lse, delta, do, causal, scale)
+    DK, pad = _route(q, k, v)
+    if pad:   # the padded route: one zero-padded copy of each operand
+        res = flash_attention_bwd_dkv(
+            *(pad_head_dim(x, DK) for x in (q, k, v)), lse, delta,
+            pad_head_dim(do, DK), causal, scale)
+        return tuple(unpad_head_dim(r, q.shape[3]) for r in res)
     do = _bwd_args(q, k, v, lse, do)
     if delta.shape != lse.shape or delta.dtype != torch.float32 \
             or not delta.is_contiguous() or delta.device != q.device:
@@ -333,8 +364,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal: bool = True,
     rc = lib.dstt_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        next_tile.data_ptr(), B, T, H, KH, D, ld, *_strides(q, k, v, do),
-        float(scale),
+        next_tile.data_ptr(), B, T, H, KH, DK, D, ld,
+        *_strides(q, k, v, do), float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, "flash_attention_bwd_dkv", rc)

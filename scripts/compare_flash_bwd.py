@@ -8,7 +8,8 @@ one process.
 Builds ``OTHER_CHECKOUT/deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu``
 with this checkout's nvcc flags into ``build/`` and loads it beside this
 checkout's library (the C interface of either: with or without the
-persistent kernels' tile counter). At two shapes, causal bf16 with q/k/v as
+persistent kernels' tile counter, with or without the true head dim beside
+the kernel width). At two shapes, causal bf16 with q/k/v as
 views of one fused [B, T, 3 H D] projection (as the models hand them over):
 
 * the GPT-2 1.3B training step, [8, 1024, 16, 128];
@@ -52,12 +53,16 @@ def load_other(checkout: str) -> ctypes.CDLL:
     subprocess.run([builder.find_nvcc(), *builder.NVCC_FLAGS, src, "-o", out],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(out)
-    lib.counter = "void* next_tile" in open(src).read()
+    text = open(src).read()
+    lib.counter = "void* next_tile" in text
+    lib.dv = "int D, int Dv" in text
     # the persistent kernels' C interface adds the tile counter and, for
-    # dk/dv, the distance of the lse and delta rows
+    # dk/dv, the distance of the lse and delta rows; the head-dim route the
+    # true head dim beside the kernel width
     for fn, n_ints, n_strides in (
-            (lib.dstt_flash_attention_bwd_dq, 5, 15),
-            (lib.dstt_flash_attention_bwd_dkv, 6 if lib.counter else 5, 12)):
+            (lib.dstt_flash_attention_bwd_dq, 5 + lib.dv, 15),
+            (lib.dstt_flash_attention_bwd_dkv,
+             (6 if lib.counter else 5) + lib.dv, 12)):
         fn.argtypes = ([ctypes.c_void_p] * (9 if lib.counter else 8)
                        + [ctypes.c_int] * n_ints + [ctypes.c_longlong] * n_strides
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -83,7 +88,8 @@ def launch_dq(lib, q, k, v, o, lse, do, dq, delta):
     _check(lib, lib.dstt_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_counter(lib), B, T,
-        H, k.shape[2], D, *fa._strides(q, k, v, o, do), 1.0 / math.sqrt(D),
+        H, k.shape[2], D, *([D] if lib.dv else []),
+        *fa._strides(q, k, v, o, do), 1.0 / math.sqrt(D),
         1, 2, torch.cuda.current_stream().cuda_stream))
 
 
@@ -92,7 +98,8 @@ def launch_dkv(lib, q, k, v, lse, delta, do, dk, dv):
     _check(lib, lib.dstt_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_counter(lib), B, T, H, k.shape[2], D, *([T] if lib.counter else []),
+        *_counter(lib), B, T, H, k.shape[2], D, *([D] if lib.dv else []),
+        *([T] if lib.counter else []),
         *fa._strides(q, k, v, do),
         1.0 / math.sqrt(D), 1, 2, torch.cuda.current_stream().cuda_stream))
 
@@ -102,7 +109,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     this, other = fa.BWD_BUILDER.load(), load_other(sys.argv[1])
-    this.counter = True
+    this.counter = this.dv = True
     F = torch.nn.functional
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(7)

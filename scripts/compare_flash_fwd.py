@@ -7,7 +7,8 @@ of another checkout of the repository, on one NVIDIA GPU, in one process.
 Builds ``OTHER_CHECKOUT/deepspeed_tpu_torch/ops/csrc/flash_attention_fwd.cu``
 with this checkout's nvcc flags into ``build/`` and loads it beside this
 checkout's library (the C interface of either: with or without the
-persistent kernel's tile counter). At two shapes, causal
+persistent kernel's tile counter, with or without the true head dim beside
+the kernel width). At two shapes, causal
 bf16 with q/k/v as views of one fused [B, T, 3 H D] projection (as the
 models hand them over):
 
@@ -51,9 +52,12 @@ def load_other(checkout: str) -> ctypes.CDLL:
     subprocess.run([builder.find_nvcc(), *builder.NVCC_FLAGS, src, "-o", out],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(out)
-    lib.counter = "void* next_tile" in open(src).read()
+    text = open(src).read()
+    lib.counter = "void* next_tile" in text
+    lib.dv = "int D, int Dv" in text
     lib.dstt_flash_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * (6 if lib.counter else 5) + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * (6 if lib.counter else 5)
+        + [ctypes.c_int] * (6 if lib.dv else 5)
         + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_flash_attention_fwd.restype = ctypes.c_int
@@ -70,7 +74,8 @@ def launch(lib, q, k, v, o, lse):
                if lib.counter else [])
     rc = lib.dstt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *counter, B, T, H, k.shape[2], D, *q.stride()[:3],
+        lse.data_ptr(), *counter, B, T, H, k.shape[2], D,
+        *([D] if lib.dv else []), *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         1.0 / math.sqrt(D), 1, 2, torch.cuda.current_stream().cuda_stream)
     if rc:
@@ -82,7 +87,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     this, other = fa.BUILDER.load(), load_other(sys.argv[1])
-    this.counter = True
+    this.counter = this.dv = True
     F = torch.nn.functional
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(7)

@@ -34,6 +34,14 @@ LayerNorm kernels (B9, B10): o and dx element-wise within 2e-2 + 1e-2 *
 in f32; mean and rstd 1e-5 relative (f32 on both sides); dw and db 1e-4
 relative L2 (f32 sums over the rows in another order); B10 twice on the
 same inputs gives the same bits.
+Head dims: every attention kernel also runs at D in {32, 40, 48, 80, 96,
+112} (int8 pools: {32, 48, 80, 96}) on its 64- or 128-wide instantiation,
+under the same limits, on inputs that are ``[..., :D]`` views of
+``[..., DK + 16]`` buffers whose guard columns hold NaN (a load past D
+poisons the result), every head of the packed output held to the plain
+version, and the same bits on a second call; B8 also writes into a
+NaN-guarded view, whose guard columns must stay NaN. D = 36 takes the
+padded route and D > 128 raises, naming fault D1b.
 """
 import pytest
 import torch
@@ -182,8 +190,12 @@ def test_decode_kernel_takes_any_group_on_card(cuda_device, R, D, dtype):
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    q = _randn(g, (1, 16, 2, 48), torch.bfloat16)     # head dim 48
-    with pytest.raises(ValueError, match="head dim"):
+    q = _randn(g, (1, 16, 2, 48), torch.bfloat16)     # head dim 48: taken
+    out = port_flash.flash_attention(q, q, q)
+    ref, _ = port_flash.flash_attention_reference(q, q, q)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    q = _randn(g, (1, 16, 2, 256), torch.bfloat16)    # head dim 256: D1b
+    with pytest.raises(ValueError, match="D1b"):
         port_flash.flash_attention(q, q, q)
     q = _randn(g, (2, 12, 64), torch.bfloat16)
     kc = _randn(g, (2, 32, 1, 64), torch.bfloat16)    # a group of 12: taken
@@ -572,10 +584,16 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         port_decode.paged_decode_attention(
             _randn(g, (4, 4, 64), torch.bfloat16), kp, vp, tables.long(),
             lens)
-    kp48 = _randn(g, (8, 32, 4, 48), torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    kp48 = _randn(g, (40, 32, 4, 48), torch.bfloat16)   # head dim 48: taken
+    q48 = _randn(g, (4, 2, 4, 48), torch.bfloat16)
+    out = port_decode.paged_verify_attention(q48, kp48, kp48, tables, lens)
+    ref = port_decode.paged_verify_attention_reference(q48, kp48, kp48,
+                                                       tables, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= 1e-2
+    kp256 = _randn(g, (40, 32, 4, 256), torch.bfloat16)
+    with pytest.raises(ValueError, match="D1b"):
         port_decode.paged_verify_attention(
-            _randn(g, (4, 2, 4, 48), torch.bfloat16), kp48, kp48, tables,
+            _randn(g, (4, 2, 4, 256), torch.bfloat16), kp256, kp256, tables,
             lens)
 
 
@@ -1056,8 +1074,12 @@ def test_block_sparse_refuses_what_the_kernel_does_not_take(cuda_device):
     q = _randn(g, (1, 2, 64, 64), torch.bfloat16)
     with pytest.raises(ValueError, match="blocks"):
         port_bsa.block_sparse_attention(q, q, q, lut, counts, 8)
-    q = _randn(g, (1, 2, 128, 96), torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    q = _randn(g, (1, 2, 128, 96), torch.bfloat16)    # head dim 96: taken
+    out = port_bsa.block_sparse_attention(q, q, q, lut, counts, 16)
+    ref = port_bsa.block_sparse_attention_reference(q, q, q, lut, counts, 16)
+    _assert_sparse_close(out, ref, torch.bfloat16)
+    q = _randn(g, (1, 2, 128, 256), torch.bfloat16)
+    with pytest.raises(ValueError, match="D1b"):
         port_bsa.block_sparse_attention(q, q, q, lut, counts, 16)
     q = _randn(g, (1, 2, 128, 64), torch.bfloat16)
     with pytest.raises(TypeError, match="int32"):
@@ -1191,3 +1213,285 @@ def test_layer_norm_refuses_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros((64, 8), dtype=torch.bfloat16, device=cuda_device).t()
     with pytest.raises(ValueError, match="contiguous"):
         port_ln.layer_norm_fwd(x, w[:8].repeat(8), w[:8].repeat(8))
+
+
+# --------------------------------------------------- head dims up to 128
+
+# head dims that run natively on the 64- and 128-wide instantiations (rows
+# of whole 16-byte chunks), in every dtype; int8 pools need D % 16 == 0
+HEAD_DIMS = [32, 40, 48, 80, 96, 112]
+INT8_HEAD_DIMS = [32, 48, 80, 96]
+HEAD_DTYPES = [torch.float16, torch.bfloat16, torch.float32]
+
+
+def _guarded(x, fill=float("nan")):
+    """``x`` as the ``[..., :D]`` view of a ``[..., DK + 16]`` buffer whose
+    guard columns past D hold ``fill`` (NaN; int8 has none, so 127): a
+    kernel that loads past D takes NaN into its result, and its strides
+    are those of a wider tensor."""
+    D = x.shape[-1]
+    buf = torch.full((*x.shape[:-1], (64 if D <= 64 else 128) + 16), fill,
+                     dtype=x.dtype, device=x.device)
+    buf[..., :D] = x
+    return buf[..., :D]
+
+
+def _fused(g, lead, H, D, dtype):
+    """q, k and v as views of one fused ``[*lead, 3, H, D]`` projection
+    with NaN guard columns past D."""
+    return _guarded(_randn(g, (*lead, 3, H, D), dtype)).unbind(len(lead))
+
+
+def _head_err(o, ref):
+    """The worst |o - ref| of each head (dim -2): a store past D lands in
+    the next head of the kernel's packed output."""
+    d = (o.float() - ref.float()).abs()
+    return d.amax(dim=tuple(i for i in range(d.dim()) if i != d.dim() - 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_fwd_takes_head_dims_to_128_on_card(cuda_device, D, dtype):
+    """B1 on the 64- or 128-wide instantiation at a true head dim D, q/k/v
+    views of a fused projection with NaN guard columns: every head of the
+    packed output against the plain version, the same bits on a second
+    call."""
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    q, k, v = _fused(g, (2, 200), 4, D, dtype)
+    n = port_flash.flash_attention_fwd.launches
+    o, lse = port_flash.flash_attention_fwd(q, k, v)
+    o2, lse2 = port_flash.flash_attention_fwd(q, k, v)
+    ref, lse_ref = port_flash.flash_attention_reference(
+        q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert port_flash.flash_attention_fwd.launches == n + 2
+    assert o.shape == (2, 200, 4, D) and o.is_contiguous()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (_head_err(o, ref) <= tol).all()
+    assert (lse - lse_ref).abs().max().item() <= (
+        1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_bwd_takes_head_dims_to_128_on_card(cuda_device, D, dtype):
+    """B2 and B3 at a true head dim D (GQA: 4 q heads over 2 kv heads), q,
+    k and v views of a fused projection, o and dO views, all with NaN
+    guard columns: the backward gates on every head of dq, dk and dv, the
+    same bits on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(100 + D)
+    B, T, H, KH = 2, 300, 4, 2
+    qkv = _guarded(_randn(g, (B, T, H + 2 * KH, D), dtype))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KH], qkv[:, :, H + KH:]
+    o, lse = port_flash.flash_attention_fwd(q, k, v)
+    o = _guarded(o)
+    do = _guarded(_randn(g, (B, T, H, D), dtype))
+    runs = []
+    for _ in range(2):
+        dq, delta = port_flash.flash_attention_bwd_dq(q, k, v, o, lse, do)
+        dk, dv = port_flash.flash_attention_bwd_dkv(q, k, v, lse, delta, do)
+        runs.append((dq, dk, dv, delta))
+    rq, rk, rv = port_flash.flash_attention_bwd_reference(q, k, v, o, lse,
+                                                          do)
+    torch.cuda.synchronize()
+    atol, rtol, l2 = ((1e-4, 1e-4, 1e-4) if dtype == torch.float32
+                      else (2e-2, 1e-2, 1e-2))
+    for name, a, r in zip(("dq", "dk", "dv"), runs[0], (rq, rk, rv)):
+        assert a.shape == r.shape and a.is_contiguous(), name
+        for h in range(a.shape[2]):
+            elem, tile_l2 = _bwd_errors(a[:, :, h:h + 1], r[:, :, h:h + 1],
+                                        atol, rtol)
+            assert elem <= 1.0 and tile_l2 <= l2, (name, h, elem, tile_l2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_decode_takes_head_dims_to_128_on_card(cuda_device, D, dtype):
+    """B4 at a true head dim D (R = 4) over the layer view of a 5-D cache,
+    q a view of a fused projection, cache and q with NaN guard columns:
+    every head against the plain version, the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(200 + D)
+    B, S, KH, R = 4, 700, 2, 4
+    kc = _guarded(_randn(g, (2, B, S, KH, D), dtype))[1]
+    vc = _guarded(_randn(g, (2, B, S, KH, D), dtype))[1]
+    q = _guarded(_randn(g, (B, 3, KH * R, D), dtype))[:, 0]
+    lens = torch.tensor([0, 1, 400, S], dtype=torch.int32,
+                        device=cuda_device)
+    o = port_decode.decode_attention(q, kc, vc, lens)
+    o2 = port_decode.decode_attention(q, kc, vc, lens)
+    ref = port_decode.decode_attention_reference(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert o.shape == (B, KH * R, D) and o.is_contiguous()
+    assert torch.equal(o, o2)
+    assert torch.equal(o[0], torch.zeros_like(o[0]))
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (_head_err(o, ref) <= tol).all()
+
+
+def _paged_head_dim_runs(g, q_dtype, D, kp, vp, tables, lens, scales):
+    """B5, B7 (K = 4) and B6 over one pool, q with NaN guard columns, each
+    twice: ``[(name, output, plain, second output)]``."""
+    H = 8
+    sc = {} if scales is None else dict(k_scale=scales[0],
+                                        v_scale=scales[1])
+    runs = []
+    cases = (
+        ("decode", (4, H, D), port_decode.paged_decode_attention,
+         port_decode.paged_decode_attention_reference, (tables, lens)),
+        ("verify", (4, 4, H, D), port_decode.paged_verify_attention,
+         port_decode.paged_verify_attention_reference, (tables, lens)),
+        ("chunk", (96, H, D), port_decode.paged_chunk_attention,
+         port_decode.paged_chunk_attention_reference, (tables[2], 32)))
+    for name, shape, fn, plain, rest in cases:
+        q = _guarded(_randn(g, shape, q_dtype))
+        o = fn(q, kp, vp, *rest, **sc)
+        o2 = fn(q, kp, vp, *rest, **sc)
+        runs.append((name, o, plain(q, kp, vp, *rest, **sc), o2))
+    return runs
+
+
+def _check_paged_runs(runs, dtype, D):
+    for name, o, ref, o2 in runs:
+        tol = (1e-4 if dtype == torch.float32
+               else 2e-2 if name == "chunk" else 1e-2)
+        assert o.shape[-1] == D and o.is_contiguous(), name
+        assert torch.equal(o, o2), name
+        assert (_head_err(o, ref) <= tol).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_paged_kernels_take_head_dims_to_128_on_card(cuda_device, D, dtype):
+    """B5, B6 and B7 at a true head dim D (8 q heads over 2 kv heads) over
+    the layer view of a pool with shuffled tables, pools and q with NaN
+    guard columns: every head against the plain versions, the same bits on
+    a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(300 + D)
+    kp, vp, tables, lens = _paged_case(g, dtype, 8, 2, D, BS=32, MB=8)
+    kp, vp = _guarded(kp), _guarded(vp)
+    fp = (port_decode.paged_decode_attention,
+          port_decode.paged_chunk_attention,
+          port_decode.paged_verify_attention)
+    n = [f.launches for f in fp]
+    runs = _paged_head_dim_runs(g, dtype, D, kp, vp, tables, lens, None)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fp] == [x + 2 for x in n]
+    _check_paged_runs(runs, dtype, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", INT8_HEAD_DIMS)
+def test_paged_int8_kernels_take_head_dims_to_128_on_card(cuda_device, D,
+                                                          dtype):
+    """B5i, B6i and B7i at a true head dim D over int8 pools quantized per
+    row (guard columns of 127): as the fp test, and no fp paged launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(400 + D)
+    kp, vp, tables, lens = _paged_case(g, dtype, 8, 2, D, BS=32, MB=8)
+    (kq, ks), (vq, vs) = _int8_pool(kp), _int8_pool(vp)
+    kq, vq = _guarded(kq, 127), _guarded(vq, 127)
+    i8 = (port_decode.paged_decode_attention_int8,
+          port_decode.paged_chunk_attention_int8,
+          port_decode.paged_verify_attention_int8)
+    n, n_fp = [f.launches for f in i8], port_decode.paged_decode_attention \
+        .launches
+    runs = _paged_head_dim_runs(g, dtype, D, kq, vq, tables, lens, (ks, vs))
+    torch.cuda.synchronize()
+    assert [f.launches for f in i8] == [x + 2 for x in n]
+    assert port_decode.paged_decode_attention.launches == n_fp
+    _check_paged_runs(runs, dtype, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [16, 64])
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_block_sparse_takes_head_dims_to_128_on_card(cuda_device, D, dtype,
+                                                     block):
+    """B8 at a true head dim D, blocks of 16 (mma.sync) and 64 (wgmma),
+    q/k/v strided views of a fused projection with NaN guard columns, the
+    output a view of a NaN-filled buffer (B8 takes ``out``, for
+    SparseSelfAttention): the sparse gates, the output's guard columns
+    untouched, the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(500 + D + block)
+    B, H, T = 2, 4, 512
+    lut, counts = (torch.as_tensor(x, device=cuda_device) for x in
+                   port_bsa.build_lut(_sparse_layout("fixed", H, block, T)))
+    q, k, v = (x.transpose(1, 2) for x in _fused(g, (B, T), H, D, dtype))
+    o = _guarded(torch.full((B, T, H, D), float("nan"), dtype=dtype,
+                            device=cuda_device))
+    buf = o._base
+    out = o.transpose(1, 2)
+    port_bsa.block_sparse_attention(q, k, v, lut, counts, block, True,
+                                    out=out)
+    first = buf.clone()
+    port_bsa.block_sparse_attention(q, k, v, lut, counts, block, True,
+                                    out=out)
+    ref = port_bsa.block_sparse_attention_reference(q, k, v, lut, counts,
+                                                    block, True)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(buf[..., D:]).all())
+    assert torch.equal(buf[..., :D], first[..., :D])
+    _assert_sparse_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+def test_padded_route_runs_odd_head_dims_on_card(cuda_device):
+    """D = 36 is no whole number of 16-byte chunks in 16 bits: the wrappers
+    zero-pad to 64 and slice back. B1 + B2/B3 under autograd against
+    autograd through the plain forward, and B5 against its plain version,
+    each one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(36)
+    q, k, v = (_randn(g, (2, 256, 4, 36), torch.bfloat16) for _ in range(3))
+    do = _randn(g, (2, 256, 4, 36), torch.bfloat16)
+    fns = (port_flash.flash_attention_fwd, port_flash.flash_attention_bwd_dq,
+           port_flash.flash_attention_bwd_dkv,
+           port_decode.paged_decode_attention)
+    n = [f.launches for f in fns]
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = port_flash.FlashAttentionFunction.apply(*leaves, True, 1 / 6)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    o_ref, _ = port_flash.flash_attention_reference(*ref, True, 1 / 6)
+    rgrads = torch.autograd.grad(o_ref, ref, do.float())
+    assert out.shape == q.shape
+    assert (out.float() - o_ref).abs().max().item() <= 2e-2
+    for a, r in zip(grads, rgrads):
+        assert a.shape == r.shape and _rel(a, r) <= 2e-2
+    kp, vp, tables, lens = _paged_case(g, torch.bfloat16, 4, 4, 36)
+    qd = _randn(g, (4, 4, 36), torch.bfloat16)
+    o = port_decode.paged_decode_attention(qd, kp, vp, tables, lens)
+    r = port_decode.paged_decode_attention_reference(qd, kp, vp, tables,
+                                                     lens)
+    torch.cuda.synchronize()
+    assert o.shape == qd.shape
+    assert (o.float() - r.float()).abs().max().item() <= 1e-2
+    assert [f.launches for f in fns] == [x + 1 for x in n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [160, 256])
+def test_head_dims_past_128_raise_naming_d1b_on_card(cuda_device, D):
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    q = _randn(g, (1, 64, 2, D), torch.bfloat16)
+    with pytest.raises(ValueError, match="D1b"):
+        port_flash.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="D1b"):
+        port_decode.decode_attention(
+            q[:, 0], q, q, torch.tensor([5], dtype=torch.int32,
+                                        device=cuda_device))
+    kp, vp, tables, lens = _paged_case(g, torch.bfloat16, 2, 2, D)
+    with pytest.raises(ValueError, match="D1b"):
+        port_decode.paged_decode_attention(q[0, :4], kp, vp, tables, lens)
+    lut = torch.zeros((2, 4, 1), dtype=torch.int32, device=cuda_device)
+    counts = torch.ones((2, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="D1b"):
+        qb = q.transpose(1, 2)
+        port_bsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)

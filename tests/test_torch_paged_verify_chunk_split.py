@@ -96,7 +96,7 @@ def test_verify_scratch_covers_both_kernels(S, K, H, KH, D, MB, BS):
     max(2R, 4)), all tickets zero."""
     tda._SCRATCH.clear()
     q = torch.zeros((S, K, H, D), dtype=torch.bfloat16)
-    tp, pp, splits, chunk = tda._verify_args(q, 0, KH, MB, BS)
+    tp, pp, splits, chunk = tda._verify_args(q, 0, KH, MB, BS, D)
     tickets, part, _ = tda._SCRATCH[("verify", 0, S, KH, K * (H // KH),
                                      MB * BS, D)]
     assert (tickets.data_ptr(), part.data_ptr()) == (tp, pp)
