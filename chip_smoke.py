@@ -12,11 +12,14 @@ gpt2-2.7b's [8, 1024, 32, 80] and gpt2-760m's [8, 1024, 16, 96] (plus B1
 through the padded route at D=36 beside the native route at 40), B4-B7
 and B5i-B7i at Pythia-2.8B's serving geometry (32 kv heads of 80) and
 GPT-NeoX-20B's (64 of 96), B8 at [2, 4096, 32, 80] and [2, 4096, 16, 96];
-each against its plain version on every head, bit-identical on a second
-call, on inputs that are ``[..., :D]`` views of buffers whose guard
-columns hold NaN (B8 also writes into one, whose guard columns must stay
-NaN); their times, bounds (true D) and SDPA times are the ``d80_*`` /
-``d96_*`` fields of each kernel's row.
+and the serving kernels at head dim 256 (the 256-wide instantiation):
+B1 at GPT-J-6B's [8, 1024, 16, 256], B4-B7 and B5i-B7i at its serving
+geometry (16 kv heads of 256); each against its plain version on every
+head, bit-identical on a second call, on inputs that are ``[..., :D]``
+views of buffers whose guard columns hold NaN (B8 also writes into one,
+whose guard columns must stay NaN); their times, bounds (true D) and
+SDPA times are the ``d80_*`` / ``d96_*`` / ``d256_*`` fields of each
+kernel's row.
 
 1. build  — compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
    (one nvcc per source, in parallel): flash forward, flash backward (dq,
@@ -24,9 +27,10 @@ NaN); their times, bounds (true D) and SDPA times are the ``d80_*`` /
    attention and LayerNorm (forward, backward). Prints each ptxas register
    and spill line with its kernel's name, and fails if ptxas ignored the
    flash forward's or backward's or B8's setmaxnreg (C7508) or a 16-bit
-   entry of the flash backward, of B9's persistent kernel, of B5/B5i's
-   split kernel, of the B6/B6i and B7/B7i tensor-core kernels, of B4's
-   kernel or of B8's tensor-core kernel spills.
+   entry of the flash backward, of B1's 256-wide kernel, of B9's
+   persistent kernel, of B5/B5i's split kernel, of the B6/B6i and B7/B7i
+   tensor-core kernels, of B4's kernel or of B8's tensor-core kernel
+   spills.
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T, a full (non-causal) case and
@@ -103,6 +107,12 @@ NaN); their times, bounds (true D) and SDPA times are the ``d80_*`` /
    (B6, B5) and speculation K=4 (B1, B7), over an fp and an int8 pool
    (B6i, B5i, B7i), each with its launch counts and the served-token
    oracle.
+9c. gptj — GPT-J-6B at its published widths and depth (HF
+   EleutherAI/gpt-j-6b config.json: 28 layers, 4096 wide, 16 heads of
+   256, rotary_dim 64 interleaved, attention and MLP in parallel behind
+   one shared LayerNorm, gelu_new, an untied head with a bias; random
+   weights, 6,050,882,784 parameters): phase pythia's ``generate`` and
+   four servers, every serving kernel on its 256-wide instantiation.
 10. train — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
    → ``train_batch`` on ``GPT2LMModel(config_for("gpt2-1.3b"))`` at full
    width (24 layers, n_embd 2048, 16 heads of 128, T=1024; random weights
@@ -129,8 +139,10 @@ NaN); their times, bounds (true D) and SDPA times are the ``d80_*`` /
 The kernel launch counts are set to 0 just before each main-path run (the
 e2e generate, each server, the timed training steps and the sparse and
 layer_norm runs) and read just after. Every attention kernel, int8 ones
-included, must have launched on a main-path run at head dim 80 or 96. Kernel times are device times
-(CUDA events behind a device spin, after an L2 flush).
+included, must have launched on a main-path run at head dim 80, 96 or
+256, and every serving kernel (B1, B4-B7, B5i-B7i) at 256 on the gptj
+path. Kernel times are device times (CUDA events behind a device spin,
+after an L2 flush).
 
 It prints the card's name and power limit (nvidia-smi), one JSON line of
 per-kernel numbers, and, last, ``{"ok": true, "device": {...}}``. It exits
@@ -302,9 +314,14 @@ def phase_build():
     for b in (BUILDER, BWD_BUILDER, bsa.BUILDER):
         check("C7508" not in b.ptxas_log,
               f"{b.name}: ptxas ignored setmaxnreg (C7508): " + b.ptxas_log)
-    # and the 16-bit backward kernels fit their setmaxnreg budgets
+    # and the 16-bit backward kernels and B1's 256-wide entries fit their
+    # setmaxnreg budgets
     spills = _spills(BWD_BUILDER, "wgmma")
     check(not spills, f"flash_attention_bwd: 16-bit kernels spill: {spills}")
+    spills = _spills(
+        BUILDER, r"\bflash_fwd_wgmma_kernel<(__nv_bfloat16|__half), 256>")
+    check(not spills, f"flash_attention_fwd: 16-bit 256-wide entries spill: "
+          f"{spills}")
     # no entry of B9's persistent kernel, of B5/B5i's split kernel, of the
     # B7/B7i and B6/B6i tensor-core kernels, of B4's kernel or of B8's
     # tensor-core kernel over 16-bit queries spills
@@ -319,22 +336,29 @@ def phase_build():
               f"{spills}")
 
 
-# ------------------------------------------------------- head dims to 128
+# ------------------------------------------------------- head dims to 256
 # Every attention kernel runs a head dim D <= 128 on its 64- or 128-wide
-# instantiation, reading zeros past D and writing nothing there. Each phase
-# below holds its kernels at D = 80 (gpt2-2.7b, Pythia-2.8B) and D = 96
-# (gpt2-760m, GPT-NeoX-20B) against their plain versions on every head,
-# twice for the same bits, on inputs that are views of buffers whose guard
-# columns past D hold NaN (a load past D poisons the result); B8 also
-# writes into such a view, whose guard columns must stay NaN. Bounds count
-# the true D.
+# instantiation, and the serving kernels (B1, B4-B7, B5i-B7i) a D <= 256
+# on their 256-wide one, reading zeros past D and writing nothing there.
+# Each phase below holds its kernels at D = 80 (gpt2-2.7b, Pythia-2.8B)
+# and D = 96 (gpt2-760m, GPT-NeoX-20B), and the serving kernels at D = 256
+# (GPT-J-6B), against their plain versions on every head, twice for the
+# same bits, on inputs that are views of buffers whose guard columns past
+# D hold NaN (a load past D poisons the result); B8 also writes into such
+# a view, whose guard columns must stay NaN. Bounds count the true D.
+
+def _width(D):
+    """The kernel width a head dim D runs at (the wrappers' route)."""
+    from deepspeed_tpu_torch.ops.head_dim import head_dim_route
+    return head_dim_route(D, 2)[0]
+
 
 def _guarded(x, fill=float("nan")):
     """``x`` as the ``[..., :D]`` view of a ``[..., DK + 16]`` buffer whose
     guard columns past D hold ``fill`` (NaN; int8 has none, so 127)."""
     D = x.shape[-1]
-    buf = torch.full((*x.shape[:-1], (64 if D <= 64 else 128) + 16), fill,
-                     dtype=x.dtype, device=x.device)
+    buf = torch.full((*x.shape[:-1], _width(D) + 16), fill, dtype=x.dtype,
+                     device=x.device)
     buf[..., :D] = x
     return buf[..., :D]
 
@@ -384,15 +408,17 @@ def _fused_qkv(g, B, T, H, D):
 
 
 def _flash_head_dims(flush):
-    """B1 at gpt2-2.7b's [8, 1024, 32, 80] and gpt2-760m's [8, 1024, 16,
-    96], q/k/v views of the fused projection; then the padded route at
-    D = 36 against the native route at D = 40 ([8, 1024, 32, D])."""
+    """B1 at gpt2-2.7b's [8, 1024, 32, 80], gpt2-760m's [8, 1024, 16, 96]
+    and GPT-J-6B's [8, 1024, 16, 256], q/k/v views of the fused
+    projection; then the padded route at D = 36 against the native route
+    at D = 40 ([8, 1024, 32, D])."""
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_reference)
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(21)
     fields, worst = {}, 0.0
-    for D, B, T, H in ((80, 8, 1024, 32), (96, 8, 1024, 16)):
+    for D, B, T, H in ((80, 8, 1024, 32), (96, 8, 1024, 16),
+                       (256, 8, 1024, 16)):
         q, k, v = _fused_qkv(g, B, T, H, D)
         lses = [flash_attention_fwd(q, k, v)[1] for _ in range(2)]
         lse_ref = flash_attention_reference(q, k, v)[1]
@@ -409,8 +435,9 @@ def _flash_head_dims(flush):
                                                    is_causal=True),
             FLASH_TOL, 2 * 4 * B * T * H * D + 4 * B * H * T,
             4 * B * H * D * pairs, H100_BF16_FLOPS, flush)
-        log(f"[head_dims] flash D={D}: the 128-wide tile issues "
-            f"{4 * B * H * 128 * pairs / 1e9:.1f} GFLOP of tensor-core work "
+        log(f"[head_dims] flash D={D}: the {_width(D)}-wide tile issues "
+            f"{4 * B * H * _width(D) * pairs / 1e9:.1f} GFLOP of "
+            f"tensor-core work "
             f"for {4 * B * H * D * pairs / 1e9:.1f} GFLOP of the true D; "
             f"max|lse err| {lerr!r}")
         fields.update(f)
@@ -519,15 +546,15 @@ def _flash_bwd_head_dims(flush):
 
 def _decode_head_dims(flush):
     """B4 at Pythia-2.8B's decode geometry (8 rows, S=2048, 32 heads of
-    80) and GPT-NeoX-20B's (64 heads of 96), seeded lengths, the cache and
-    q guarded views."""
+    80), GPT-NeoX-20B's (64 heads of 96) and GPT-J-6B's (16 heads of 256),
+    seeded lengths, the cache and q guarded views."""
     from deepspeed_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(23)
     rng = np.random.default_rng(23)
     fields, worst = {}, 0.0
-    for D, H in ((80, 32), (96, 64)):
+    for D, H in ((80, 32), (96, 64), (256, 16)):
         B, S = 8, 2048
 
         def rnd(*shape):
@@ -559,10 +586,10 @@ def _decode_head_dims(flush):
 
 def _paged_head_dims(flush):
     """B5-B7 and B5i-B7i at Pythia-2.8B's serving geometry (S=8 slots of
-    2048 positions, BS=128, 32 kv heads of 80) and GPT-NeoX-20B's (64 of
-    96): decode, a C=256 chunk at start 256, verify K=4, fp and int8 pools,
-    bf16 queries; q and the pools guarded views (int8 guard columns hold
-    127)."""
+    2048 positions, BS=128, 32 kv heads of 80), GPT-NeoX-20B's (64 of 96)
+    and GPT-J-6B's (16 of 256): decode, a C=256 chunk at start 256, verify
+    K=4, fp and int8 pools, bf16 queries; q and the pools guarded views
+    (int8 guard columns hold 127)."""
     from deepspeed_tpu_torch.ops import decode_attention as da
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(24)
@@ -570,7 +597,7 @@ def _paged_head_dims(flush):
     S, BS, MB, K, C, start = 8, 128, 16, 4, 256, 256
     NB, span = S * MB + 1, MB * BS
     fields, worst = {}, {}
-    for D, H in ((80, 32), (96, 64)):
+    for D, H in ((80, 32), (96, 64), (256, 16)):
         def rnd(*shape):
             return _guarded(torch.randn(shape, generator=g, device="cuda",
                                         dtype=torch.bfloat16))
@@ -1913,6 +1940,26 @@ def pythia_2p8b_config():
 PYTHIA_PARAMS = 2775208960   # pythia-2.8b's published count
 
 
+def gptj_6b_config():
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        InferenceTransformerConfig
+    # HF EleutherAI/gpt-j-6b config.json, at its published widths and
+    # depth: 16 heads of 256, rotary_dim 64 interleaved (GPT-J's pairs),
+    # attention and MLP in parallel behind one shared LayerNorm, gelu_new,
+    # n_inner null (4 x 4096), an untied head with a bias
+    return InferenceTransformerConfig(
+        vocab_size=50400, n_positions=2048, n_embd=4096, n_layer=28,
+        n_head=16, positional="rotary", rotary_dim=64,
+        rotary_interleaved=True, rotary_base=10000.0,
+        parallel_attn_mlp=True, activation="gelu_new", layer_norm_eps=1e-5,
+        tied_lm_head=False, dtype=torch.bfloat16)
+
+
+# GPT-J-6B's count (GPTJForCausalLM on the meta device): its q, k, v and
+# out projections have no bias, where init_params adds zero ones
+GPTJ_PARAMS = 6050882784
+
+
 def make_params(cfg, dev="cuda"):
     """Random weights of ``cfg`` from a generator seeded 0, on the card."""
     from deepspeed_tpu_torch.model_implementations.transformer import \
@@ -2383,26 +2430,21 @@ def phase_serve(cfg, params):
     return runs
 
 
-def phase_pythia():
-    """Pythia-2.8B (32 heads of 80) at its published widths and depth,
-    random weights from a seed: ``generate`` through B1 and B4 (phase
-    e2e's gates), then four paged servers over one engine, fp and int8
-    pools: prefix caching with 256-token chunks (B6/B6i and B5/B5i) and
-    prompt-lookup speculation K=4 (B1 and B7/B7i; a speculative server
-    verifies every round, so its decode runs through B7). Each server's
-    launch counts are set to 0 just before it and read just after; each is
-    held to the served-token oracle."""
+def phase_model(tag, cfg, params, seed):
+    """A served model at its published widths and depth: ``generate``
+    through B1 and B4 (phase e2e's gates), then four paged servers over one
+    engine, fp and int8 pools: prefix caching with 256-token chunks
+    (B6/B6i and B5/B5i) and prompt-lookup speculation K=4 (B1 and B7/B7i; a
+    speculative server verifies every round, so its decode runs through
+    B7). Each server's launch counts are set to 0 just before it and read
+    just after; each is held to the served-token oracle. Returns the runs'
+    launch counts by name."""
     import deepspeed_tpu_torch
-    cfg = pythia_2p8b_config()
-    params = make_params(cfg)
-    n_params = sum(p.numel() for p in _leaves(params))
-    check(n_params == PYTHIA_PARAMS,
-          f"pythia-2.8b has {n_params} parameters, not {PYTHIA_PARAMS}")
-    runs = {"pythia e2e": phase_e2e(cfg, params, tag="pythia")}
+    runs = {f"{tag} e2e": phase_e2e(cfg, params, tag=tag)}
     engine = deepspeed_tpu_torch.init_inference((cfg, params),
                                                 dtype="bfloat16")
     L, V, new = cfg.n_layer, cfg.vocab_size, 32
-    rng = np.random.default_rng(15)
+    rng = np.random.default_rng(seed)
     engine.generate([[1, 2, 3]], max_new_tokens=2)   # warm-up
     prefix = rng.integers(0, V, 512).tolist()
     shared = [prefix + rng.integers(0, V, n).tolist()
@@ -2422,7 +2464,7 @@ def phase_pythia():
         sfx, tol = (("", E2E_MAX_TOL) if pool == "fp"
                     else ("_int8", INT8_E2E_MAX_TOL))
         knobs = {} if pool == "fp" else {"kv_cache_dtype": "int8"}
-        name = f"pythia {pool} prefix+chunked"
+        name = f"{tag} {pool} prefix+chunked"
         srv, ids, out, counts = _serve_run(
             engine, name, {**knobs, "enable_prefix_caching": True,
                            "prefill_chunk_tokens": 256},
@@ -2440,7 +2482,7 @@ def phase_pythia():
             new, tol)
         runs[name] = counts
         srv.close()
-        name = f"pythia {pool} speculation K=4"
+        name = f"{tag} {pool} speculation K=4"
         srv, ids, out, counts = _serve_run(
             engine, name, {**knobs, "speculation_tokens": 4}, [spec], new)
         st = srv.stats
@@ -2458,7 +2500,43 @@ def phase_pythia():
         runs[name] = counts
         srv.close()
         del srv
-    del engine, params
+    del engine
+    return runs
+
+
+def phase_pythia():
+    """Pythia-2.8B (32 heads of 80) at its published widths and depth,
+    random weights from a seed, through ``phase_model``."""
+    cfg = pythia_2p8b_config()
+    params = make_params(cfg)
+    n_params = sum(p.numel() for p in _leaves(params))
+    check(n_params == PYTHIA_PARAMS,
+          f"pythia-2.8b has {n_params} parameters, not {PYTHIA_PARAMS}")
+    runs = phase_model("pythia", cfg, params, 15)
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_gptj():
+    """GPT-J-6B (16 heads of 256: B1 and B4-B7, B5i-B7i on their 256-wide
+    instantiation) at its published widths and depth, random weights from
+    a seed (and a random head bias: GPT-J's head has one), through
+    ``phase_model``. The parameter gate counts the leaves less the zero
+    q, k, v and out biases ``init_params`` adds, which GPT-J lacks."""
+    cfg = gptj_6b_config()
+    params = make_params(cfg)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params["lm_head_bias"] = (0.02 * torch.randn(
+        cfg.vocab_size, generator=g, device="cuda")).to(cfg.dtype)
+    zero_biases = sum(lay["attn"][k].numel() for lay in params["layers"]
+                      for k in ("bq", "bk", "bv", "bo"))
+    n_params = sum(p.numel() for p in _leaves(params)) - zero_biases
+    check(n_params == GPTJ_PARAMS,
+          f"gpt-j-6b has {n_params} parameters, not {GPTJ_PARAMS}")
+    check(cfg.head_dim == 256, f"gpt-j-6b head dim {cfg.head_dim}")
+    runs = phase_model("gptj", cfg, params, 16)
+    del params
     torch.cuda.empty_cache()
     return runs
 
@@ -2502,8 +2580,11 @@ def main() -> int:
     del params, flush   # the serving weights; training needs the room
     torch.cuda.empty_cache()
     # the main-path runs at head dims outside {64, 128}: Pythia-2.8B (80),
-    # gpt2-760m (96), gpt2-2.7b (80), the sparse run at 32 heads of 80
+    # GPT-J-6B (256), gpt2-760m (96), gpt2-2.7b (80), the sparse run at 32
+    # heads of 80
     new_d = phase_pythia()
+    gptj = phase_gptj()
+    new_d.update(gptj)
     runs.update(new_d)
     runs["train"] = phase_train()
     for preset in ("gpt2-760m", "gpt2-2.7b"):
@@ -2521,7 +2602,12 @@ def main() -> int:
     for k in kernels:
         if not k.startswith("layer_norm"):
             check(sum(r.get(k, 0) for r in new_d.values()) > 0,
-                  f"{k} never launched at head dim 80 or 96 on a main path")
+                  f"{k} never launched at head dim 80, 96 or 256 on a main "
+                  f"path")
+    # every serving kernel ran at head dim 256 on GPT-J-6B's path
+    for k in _PAGED_KERNELS:
+        check(sum(r.get(k, 0) for r in gptj.values()) > 0,
+              f"{k} never launched at head dim 256 on the gptj path")
     log(f"[launches] per run {runs}")
     meta = {
         "flash_attention_fwd": (

@@ -51,10 +51,19 @@
 //  * Epilogue: O times 1 / l, rounded, goes through the warpgroup's q rows
 //    in shared memory to a TMA store that drops rows past T; the LSE is
 //    written from registers.
+// At D = 256 (GPT-J, Gemma) the tiles above do not fit the SM: a
+// double-buffered 128-row q tile and two-slot rings of 128-key tiles take
+// 384 KB of shared memory, and O (128 registers a thread) beside S and P of
+// 128 keys exceeds setmaxnreg's 240. So `Tiles<256>` takes 64-key K/V tiles
+// (S 32 and P 16 registers: O + S + P = 176), one q buffer (64 KB: the
+// producer loads the next tile's q once this one's O is stored) and
+// two-slot rings of 32 KB tiles: 192 KB. S = Qs.K^T is wgmma m64n64k16;
+// O += P.V is two m64n128k16 a slice of 16 keys, one per 128-column half
+// of V. The template width keeps D = 64 and 128 on the code they had.
 // float32 inputs take a plain FMA kernel: one warp per query row.
-// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
-// true head dim Dv <= DK whose rows are whole 16-byte chunks (the wrapper's
-// `head_dim_route`). The tensor maps are encoded with Dv as their innermost
+// Head dims: the kernels are instantiated at DK = 64, 128 and 256 and take
+// any true head dim Dv <= DK whose rows are whole 16-byte chunks (the
+// wrapper's `head_dim_route`). The tensor maps are encoded with Dv as their innermost
 // extent, so TMA reads the columns past Dv as zeros (and the mbarriers still
 // count whole boxes) and the O store drops them; zero columns change
 // neither q.k nor P.V. The f32 kernel reads clamped columns times a zero q
@@ -76,7 +85,6 @@ struct Strides {
 
 // ------------------------------------------------- 16-bit: TMA + wgmma
 
-constexpr int BLOCK_N = 128;   // keys per K/V tile
 constexpr int WG_THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
@@ -91,8 +99,14 @@ __device__ __forceinline__ float ex2(float x) {
 template <int D> struct Tiles {
   // consumer warpgroups of 64 q rows: 3 at D = 64, where the exp2 work
   // weighs as much as the products and a third warpgroup keeps the tensor
-  // cores fed; 2 at D = 128, where S, P and O take 160 registers a thread
+  // cores fed; 2 at D = 128, where S, P and O take 160 registers a thread,
+  // and at D = 256 (176)
   static constexpr int CONSUMERS = D == 64 ? 3 : 2;
+  // keys a K/V tile: 64 at D = 256, where a 128-key tile's S and P beside
+  // O would pass the consumers' 240 registers and its ring the SM
+  static constexpr int BLOCK_N = D == 256 ? 64 : 128;
+  // q buffers: one at D = 256 (a second would not fit beside the rings)
+  static constexpr int Q_BUFS = D == 256 ? 1 : 2;
   static constexpr int BLOCK_M = 64 * CONSUMERS;   // q rows a tile
   static constexpr int THREADS = (CONSUMERS + 1) * WG_THREADS;   // the producer's last
   // registers a thread after setmaxnreg: 24 + CONSUMERS x CONSUMER_REGS
@@ -105,10 +119,12 @@ template <int D> struct Tiles {
   static constexpr int KV_HALF = BLOCK_N * 128;    // bytes of one box of a K or V tile
   static constexpr int Q_BYTES = HALVES * Q_HALF;
   static constexpr int KV_BYTES = HALVES * KV_HALF;
-  // 2 q buffers | K ring | V ring | mbarriers: full and empty of each q
-  // buffer, then full and empty of K and V per slot | 2 tile indices
-  static constexpr int BARRIERS = 2 * Q_BYTES + 2 * STAGES * KV_BYTES;
+  // q buffers | K ring | V ring | mbarriers: full and empty of each q
+  // buffer (room for 2), then full and empty of K and V per slot | 2 tile
+  // indices
+  static constexpr int BARRIERS = Q_BUFS * Q_BYTES + 2 * STAGES * KV_BYTES;
   static constexpr int SMEM = BARRIERS + 8 * (4 + 4 * STAGES) + 8 + 1024;   // + room to align
+  static_assert(SMEM <= 232448, "the SM's shared memory");
   // tiles are handed out head group by head group: the K/V of 16 heads
   // (4 MB at D = 64, 8 MB at D = 128, T = 1024) stay in L2 while every q
   // tile of those heads is taken, heaviest q tile first
@@ -124,18 +140,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        float* __restrict__ lse, int* __restrict__ next_tile, int T_len,
                        int H, int KH, int B, float scale, int causal) {
   using L = Tiles<D>;
+  constexpr int BLOCK_N = L::BLOCK_N, QB = L::Q_BUFS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: boxes start on that grid
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sQ = smem_u32(smem);
-  const uint32_t sK = sQ + 2 * L::Q_BYTES;
+  const uint32_t sK = sQ + QB * L::Q_BYTES;
   const uint32_t sV = sK + L::STAGES * L::KV_BYTES;
   const uint32_t bars = sQ + L::BARRIERS;
   volatile int* tile_slot =
       reinterpret_cast<volatile int*>(smem + L::BARRIERS + 8 * (4 + 4 * L::STAGES));
-  // q buffer u % 2 holds the block's u-th tile, in phase (u / 2) & 1
-  auto full_q = [&](int u) { return bars + 8 * (u % 2); };
-  auto empty_q = [&](int u) { return bars + 8 * (2 + u % 2); };
+  // q buffer u % QB holds the block's u-th tile, in phase (u / QB) & 1
+  auto full_q = [&](int u) { return bars + 8 * (u % QB); };
+  auto empty_q = [&](int u) { return bars + 8 * (2 + u % QB); };
   // key tile j (counted over every tile the block takes) sits in slot
   // j % STAGES of both rings, in phase (j / STAGES) & 1
   auto slot = [](int j) { return j % L::STAGES; };
@@ -165,7 +182,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
 
   if (threadIdx.x == 0) {
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < QB; ++u) {
       mbar_init(full_q(u), 1);
       mbar_init(empty_q(u), 4 * L::CONSUMERS);   // lane 0 of each consumer warp
     }
@@ -186,10 +203,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == L::CONSUMERS * WG_THREADS) {
       int base = 0;
       for (int u = 0;; ++u) {
-        // the q buffer of tile u - 2 is free once its O has been stored
-        mbar_wait(empty_q(u), ((u / 2) & 1) ^ 1);
+        // the q buffer of tile u - QB is free once its O has been stored
+        mbar_wait(empty_q(u), ((u / QB) & 1) ^ 1);
         const int i = atomicAdd(next_tile, 1);
-        tile_slot[u % 2] = i;   // published by the arrival on full_q
+        tile_slot[u % QB] = i;   // published by the arrival on full_q
         if (i >= n_tiles) {
           mbar_arrive(full_q(u));
           break;
@@ -203,7 +220,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(full_q(u), (L::CONSUMERS - w0) * 64 * D * 2);
         for (int w = w0; w < L::CONSUMERS; ++w)
           for (int hf = 0; hf < L::HALVES; ++hf)
-            tma_load_4d(sQ + (u % 2) * L::Q_BYTES + hf * L::Q_HALF + w * 64 * 128, &tm_q,
+            tma_load_4d(sQ + (u % QB) * L::Q_BYTES + hf * L::Q_HALF + w * 64 * 128, &tm_q,
                         full_q(u), hf * 64, h, q0 + 64 * w, b);
         // key tile j of one ring, once its slot's previous tile is released
         auto load = [&](const CUtensorMap* map, uint32_t ring, bool is_k, int j) {
@@ -241,12 +258,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float alpha[2];
     int base = 0;
     for (int u = 0;; ++u) {
-      mbar_wait(full_q(u), (u / 2) & 1);
-      const int i = tile_slot[u % 2];
+      mbar_wait(full_q(u), (u / QB) & 1);
+      const int i = tile_slot[u % QB];
       if (i >= n_tiles) break;
       int q0, h, b, n_kt;
       tile_of(i, q0, h, b, n_kt);
-      const uint32_t my_q = sQ + (u % 2) * L::Q_BYTES + r0 * 128;   // its rows in each box
+      const uint32_t my_q = sQ + (u % QB) * L::Q_BYTES + r0 * 128;   // its rows in each box
       // key tiles this warpgroup multiplies: through its own diagonal, none
       // when its rows lie before row 0; it still releases every tile of the
       // ring
@@ -260,7 +277,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int hf = 0; hf < L::HALVES; ++hf) {
           uint4* p =
-              reinterpret_cast<uint4*>(smem + (u % 2) * L::Q_BYTES + hf * L::Q_HALF + r0 * 128);
+              reinterpret_cast<uint4*>(smem + (u % QB) * L::Q_BYTES + hf * L::Q_HALF + r0 * 128);
 #pragma unroll
           for (int x = tid; x < 64 * 128 / 16; x += WG_THREADS) {
             uint4 raw = p[x];
@@ -281,24 +298,43 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         m_r[0] = m_r[1] = -INFINITY;
         l_r[0] = l_r[1] = 0.f;
 
-        // S = Qs . K^T, 64 x 128: both operands K-major; slice kk of 16
+        // S = Qs . K^T, 64 x BLOCK_N: both operands K-major; slice kk of 16
         // columns is 32 bytes into the rows of box kk / 4
         auto issue_qk = [&](int jg) {
           const uint32_t kt = sK + slot(jg) * L::KV_BYTES;
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
-            wgmma_ss_m64n128k16<T, 0, 0>(
-                s, wgmma_desc(my_q + (kk / 4) * L::Q_HALF + (kk % 4) * 32, 16, 1024),
-                wgmma_desc(kt + (kk / 4) * L::KV_HALF + (kk % 4) * 32, 16, 1024), kk > 0);
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint64_t da = wgmma_desc(my_q + (kk / 4) * L::Q_HALF + (kk % 4) * 32, 16, 1024);
+            const uint64_t db = wgmma_desc(kt + (kk / 4) * L::KV_HALF + (kk % 4) * 32, 16, 1024);
+            if constexpr (BLOCK_N == 128) {
+              wgmma_ss_m64n128k16<T, 0, 0>(s, da, db, kk > 0);
+            } else if (kk == 0) {
+              wgmma_ss_m64n64k16<T, 0, 0, true>(s, da, db);
+            } else {
+              wgmma_ss_m64n64k16<T, 0, 0>(s, da, db);
+            }
+          }
           wgmma_commit();
         };
         // O += P . V: V is MN-major (D contiguous); slice kk of 16 keys is 16
-        // rows = 2048 bytes on, the second 64-column box KV_HALF bytes on
+        // rows = 2048 bytes on, the next 64-column box KV_HALF bytes on
         auto issue_pv = [&](int jg) {
           const uint32_t vt = sV + slot(jg) * L::KV_BYTES;
 #pragma unroll
-          for (int kk = 0; kk < BLOCK_N / 16; ++kk)
-            WgmmaRS<T, D, 1>::run(o, pf[kk], wgmma_desc(vt + kk * 2048, L::KV_HALF, 1024), 1);
+          for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
+            if constexpr (D == 256) {
+              // O's 128-column halves (V's boxes 0-1 and 2-3), each the
+              // accumulator of one m64n128k16: registers 4i + e of the
+              // m64n256 layout, column 8i + 2 t4 + (e & 1), are the same
+              float(&o_lo)[64] = *reinterpret_cast<float(*)[64]>(o);
+              float(&o_hi)[64] = *reinterpret_cast<float(*)[64]>(o + 64);
+              WgmmaRS<T, 128, 1>::run(o_lo, pf[kk], wgmma_desc(vt + kk * 2048, L::KV_HALF, 1024), 1);
+              WgmmaRS<T, 128, 1>::run(o_hi, pf[kk],
+                                      wgmma_desc(vt + 2 * L::KV_HALF + kk * 2048, L::KV_HALF, 1024), 1);
+            } else {
+              WgmmaRS<T, D, 1>::run(o, pf[kk], wgmma_desc(vt + kk * 2048, L::KV_HALF, 1024), 1);
+            }
+          }
           wgmma_commit();
         };
         // mask, new running max, rescale factor alpha, S -> P in place, l
@@ -398,7 +434,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         // the swizzled layout a TMA store reads; the store drops rows past T
         const int ra = warp * 16 + g;
         const float inv[2] = {1.f / l_r[0], 1.f / l_r[1]};
-        unsigned char* rows = smem + (u % 2) * L::Q_BYTES + r0 * 128;
+        unsigned char* rows = smem + (u % QB) * L::Q_BYTES + r0 * 128;
 #pragma unroll
         for (int x = 0; x < D / 8; ++x) {
           const int c = x * 8 + 2 * t4, cc = c % 64;
@@ -443,12 +479,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int Dv, const Strides& st, float scale, int causal,
                          cudaStream_t stream) {
   using L = Tiles<D>;
-  // maps over (Dv, heads, T, B): q in boxes of BLOCK_M rows, k/v in tiles of
-  // 128 keys, o stored 64 rows (one warpgroup) at a time
+  // maps over (Dv, heads, T, B): q in boxes of 64 rows, k/v in tiles of
+  // BLOCK_N keys, o stored 64 rows (one warpgroup) at a time
   CUtensorMap tq, tk, tv, to;
   if (!make_tile_map<T>(&tq, q, Dv, H, T_len, B, st.q_h, st.q_t, st.q_b, 64) ||
-      !make_tile_map<T>(&tk, k, Dv, KH, T_len, B, st.k_h, st.k_t, st.k_b, BLOCK_N) ||
-      !make_tile_map<T>(&tv, v, Dv, KH, T_len, B, st.v_h, st.v_t, st.v_b, BLOCK_N) ||
+      !make_tile_map<T>(&tk, k, Dv, KH, T_len, B, st.k_h, st.k_t, st.k_b, L::BLOCK_N) ||
+      !make_tile_map<T>(&tv, v, Dv, KH, T_len, B, st.v_h, st.v_t, st.v_b, L::BLOCK_N) ||
       !make_tile_map<T>(&to, o, Dv, H, T_len, B, st.o_h, st.o_t, st.o_b, 64))
     return cudaErrorInvalidValue;
   // per device, looked up once: the shared-memory limit of the function
@@ -541,8 +577,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
-// 128) and Dv the true head dim, 1 <= Dv <= D, rows of Dv elements whole
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64, 128
+// or 256) and Dv the true head dim, 1 <= Dv <= D, rows of Dv elements whole
 // 16-byte chunks. Strides are in elements; the head dim must be
 // contiguous, and for 16-bit inputs the base 16-byte aligned and every
 // stride a multiple of 8 elements (TMA's rules). lse is [B, H, T] float32,
@@ -561,10 +597,13 @@ extern "C" int dstt_flash_attention_fwd(
     return (int)cudaErrorInvalidValue;
   if (dtype == 2 && D == 64) return (int)launch_wgmma<__nv_bfloat16, 64>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
   if (dtype == 2 && D == 128) return (int)launch_wgmma<__nv_bfloat16, 128>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 2 && D == 256) return (int)launch_wgmma<__nv_bfloat16, 256>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
   if (dtype == 1 && D == 64) return (int)launch_wgmma<__half, 64>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
   if (dtype == 1 && D == 128) return (int)launch_wgmma<__half, 128>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 1 && D == 256) return (int)launch_wgmma<__half, 256>(q, k, v, o, l, nt, B, T_len, H, KH, Dv, st, scale, causal, s);
   if (dtype == 0 && D == 64) return (int)launch_f32<64>(q, k, v, o, l, B, T_len, H, KH, Dv, st, scale, causal, s);
   if (dtype == 0 && D == 128) return (int)launch_f32<128>(q, k, v, o, l, B, T_len, H, KH, Dv, st, scale, causal, s);
+  if (dtype == 0 && D == 256) return (int)launch_f32<256>(q, k, v, o, l, B, T_len, H, KH, Dv, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

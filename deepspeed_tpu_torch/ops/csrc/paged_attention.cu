@@ -129,8 +129,9 @@
 // f32 queries take the decode kernel's split kernel (`paged_split_kernel`,
 // units of <= 8 rows, the same plan): f32 has no tensor-core product of its
 // precision, and the main path runs 16-bit queries.
-// Head dims: every kernel is instantiated at DK = 64 and 128 (the template
-// D; the ring, the tiles, the partials and their scratch keep that width)
+// Head dims: every kernel is instantiated at DK = 64, 128 and 256 (the
+// template D; the ring, the tiles, the partials and their scratch keep that
+// width)
 // and takes any true head dim Dv <= DK whose rows are whole 16-byte chunks
 // (a.Dv). A chunk past Dv adds nothing to q.k or P.V: B5-B7 zero-fill it
 // in the copy to shared memory (the copy's row test gains the column
@@ -140,6 +141,17 @@
 // as a template flag (PARTIAL), so Dv = D runs the code it ran before
 // them: with them it measured 12-21% slower at D = 64 and 128, B4 and B5
 // within 2% (PERF.md §6).
+// At D = 256 (GPT-J, Gemma), behind the template width so that D = 64 and
+// 128 compile to the code they had:
+//  * B5: a key row is 32 lanes of 8 values, so a warp step takes one key
+//    and a stage of 8 KB holds 8 keys of 16-bit rows (16 of int8);
+//  * B4: f32 rows take two 16-byte loads a lane (a row is still one warp);
+//    the warps' partials (74 KB at 8 rows) need the opt-in shared memory;
+//  * B7: the 16 query rows' A fragments (64 registers a thread beside the
+//    128 of the f32 accumulator) would spill, so q sits in shared memory
+//    in fragment order (paged_tiles.cuh's QTile) and each k-step loads its
+//    fragment by ldmatrix; three stages of 64 keys (66 KB each at 16 bits)
+//    and the q tile take 207 KB.
 
 #include <algorithm>
 #include <type_traits>
@@ -619,7 +631,11 @@ template <typename T, int D, int ROWS>
 __global__ void __launch_bounds__(DENSE_THREADS)
 decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, T* __restrict__ o, Args a) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr int VEC1 = 16 / sizeof(T);  // elements per 16-byte load
+  // 16-byte loads a lane takes of a key row: a row is at most one warp (2
+  // for f32 at D = 256, else 1)
+  constexpr int NV = D / VEC1 > 32 ? D / VEC1 / 32 : 1;
+  constexpr int VEC = NV * VEC1;        // elements a lane
   constexpr int LPK = D / VEC;          // lanes per key row
   constexpr int KPW = 32 / LPK;         // keys per warp per step
   constexpr int STEP = DENSE_WARPS * KPW;
@@ -639,18 +655,27 @@ decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   const int beg = split * a.chunk, end = min(beg + a.chunk, len);
 
-  // a lane whose columns lie past the head dim holds a zero q and reads
-  // the first columns of its key rows (the addresses its row's first lane
-  // reads, so no bytes more): its products add 0, and the columns of V it
-  // sums are never written
-  const bool dlive = d0 < a.Dv;
+  // a lane's load whose columns lie past the head dim takes a zero q and
+  // reads the first columns of its key rows (the addresses its row's first
+  // lane reads, so no bytes more): its products add 0, and the columns of
+  // V it sums are never written
+  bool dlive[NV];
+  int col[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    dlive[c] = d0 + c * VEC1 < a.Dv;
+    col[c] = dlive[c] ? d0 + c * VEC1 : 0;
+  }
   float qv[ROWS][VEC], acc[ROWS][VEC], m[ROWS], l[ROWS];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int j = min(row0 + r, a.nrows - 1);   // rows past the unit repeat its last
-    const uint4 raw = dlive ? *reinterpret_cast<const uint4*>(q + b * a.q_s + (kh * a.R + j) * a.q_h + d0)
-                            : make_uint4(0, 0, 0, 0);
-    const T* e = reinterpret_cast<const T*>(&raw);
+    uint4 raw[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      raw[c] = dlive[c] ? *reinterpret_cast<const uint4*>(q + b * a.q_s + (kh * a.R + j) * a.q_h + col[c])
+                        : make_uint4(0, 0, 0, 0);
+    const T* e = reinterpret_cast<const T*>(raw);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       qv[r][i] = to_float(e[i]) * a.scale;
@@ -659,19 +684,22 @@ decode_dense_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     m[r] = -INFINITY;
     l[r] = 0.f;
   }
-  const T* kb = kc + b * a.k_n + kh * a.k_h + (dlive ? d0 : 0);
-  const T* vb = vc + b * a.v_n + kh * a.v_h + (dlive ? d0 : 0);
+  const T* kb = kc + b * a.k_n + kh * a.k_h;
+  const T* vb = vc + b * a.v_n + kh * a.v_h;
   // the loop bound is uniform across the warp, so the shuffles below always
   // run with all 32 lanes; positions past end are masked instead
   for (int base = beg + warp * KPW; base < end; base += STEP * DENSE_UNROLL) {
-    uint4 kr[DENSE_UNROLL], vr[DENSE_UNROLL];
+    uint4 kr[DENSE_UNROLL][NV], vr[DENSE_UNROLL][NV];
 #pragma unroll
     for (int u = 0; u < DENSE_UNROLL; ++u) {
       const int pos = base + u * STEP + grp;
-      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
-      if (pos < end) {   // read once: streaming loads, first in line for eviction
-        kr[u] = __ldcs(reinterpret_cast<const uint4*>(kb + pos * a.k_b));
-        vr[u] = __ldcs(reinterpret_cast<const uint4*>(vb + pos * a.v_b));
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        kr[u][c] = vr[u][c] = make_uint4(0, 0, 0, 0);
+        if (pos < end) {   // read once: streaming loads, first in line for eviction
+          kr[u][c] = __ldcs(reinterpret_cast<const uint4*>(kb + pos * a.k_b + col[c]));
+          vr[u][c] = __ldcs(reinterpret_cast<const uint4*>(vb + pos * a.v_b + col[c]));
+        }
       }
     }
 #pragma unroll
@@ -775,6 +803,10 @@ cudaError_t launch_dense(const void* q, const void* k, const void* v, void* o, i
   dim3 grid(KH * ((a.nrows + ROWS - 1) / ROWS), B, splits);
   const int smem = (DENSE_WARPS * ROWS * (D + 2) + ROWS * (D + 2)) * 4;
   static_assert(MAX_SPLITS * ROWS + ROWS <= DENSE_WARPS * ROWS * (D + 2), "merge factors fit");
+  if constexpr (D == 256) {   // above 48 KB at 8 rows
+    const cudaError_t e = allow_smem<decode_dense_kernel<T, D, ROWS>>(smem);
+    if (e != cudaSuccess) return e;
+  }
   decode_dense_kernel<T, D, ROWS><<<grid, DENSE_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), a);
@@ -795,6 +827,7 @@ cudaError_t launch_dense_d(int D, const void* q, const void* k, const void* v, v
                            int KH, int splits, const Args& a, cudaStream_t stream) {
   if (D == 64) return launch_dense_rows<T, 64>(q, k, v, o, B, KH, splits, a, stream);
   if (D == 128) return launch_dense_rows<T, 128>(q, k, v, o, B, KH, splits, a, stream);
+  if (D == 256) return launch_dense_rows<T, 256>(q, k, v, o, B, KH, splits, a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -802,13 +835,16 @@ cudaError_t launch_dense_d(int D, const void* q, const void* k, const void* v, v
 // the top). grid (KH * row groups, S, splits); 4 warps. PARTIAL: the true
 // head dim a.Dv is below D.
 template <typename T, typename KV, int D, bool PARTIAL>
-__global__ void __launch_bounds__(NUM_THREADS, D == 64 ? 4 : 2)   // no spill
+__global__ void __launch_bounds__(NUM_THREADS, D == 64 ? 4 : D == 128 ? 2 : 1)   // no spill
 paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                         const KV* __restrict__ vp, T* __restrict__ o, Args a) {
   using TL = KVTile<KV, D>;
   using CP = TileCopy<KV, D, NUM_THREADS>;
   constexpr bool Q8 = TL::Q8;
   constexpr int CPT = CP::CPT, ROWS = 16;
+  // D = 256: q's fragments from a tile in shared memory after the ring
+  constexpr bool QS = D > 128;
+  using QT = QTile<T, KV, D, ROWS>;
   // P in bf16 terms enough to carry its f32 value: the output is held to
   // the f32 math's (one rounding of it), as the decode kernel's is
   constexpr int NP = std::is_same<T, __nv_bfloat16>::value ? 3 : 1;
@@ -843,7 +879,7 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   // the A fragments of q as it is, loaded first (ahead of the copies, and
   // not used before them): q.k^T is exact in f32 and the scale multiplies
   // it there. Rows past the unit's repeat its last row; none is written.
-  uint32_t qf[D / 16][4];
+  uint32_t qf[QS ? 1 : D / 16][4];
   const int ja = row0 + g, jb = ja + 8;   // this thread's rows
   // (zero past the head dim)
   auto qpair = [&](int j, int d) -> uint32_t {
@@ -852,14 +888,25 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     return *reinterpret_cast<const uint32_t*>(
         q + s * a.q_s + (j / a.R) * a.q_k + (kh * a.R + j % a.R) * a.q_h + d);
   };
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      qf[kk][2 * h] = qpair(ja, TL::qdim(kk, t4, h));
-      qf[kk][2 * h + 1] = qpair(jb, TL::qdim(kk, t4, h));
+      for (int h = 0; h < 2; ++h) {
+        qf[kk][2 * h] = qpair(ja, TL::qdim(kk, t4, h));
+        qf[kk][2 * h + 1] = qpair(jb, TL::qdim(kk, t4, h));
+      }
     }
   }
+  T* qs = reinterpret_cast<T*>(smem + slots * TL::STAGE);   // QS: the q tile
+  auto qa = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (QS) {
+      QT::frag(f, qs, 0, kk, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = qf[kk][i];
+    }
+  };
 
   const int len = a.lengths[s];
 
@@ -895,6 +942,14 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       cp_async_commit();
     }
   }
+  if constexpr (QS) {
+    // the q tile, filled while the first stages are in flight; the loop's
+    // first barrier makes it visible
+    for (int i = threadIdx.x; i < ROWS * D / 2; i += NUM_THREADS) {
+      const int r = i / (D / 2), c = 2 * (i % (D / 2));
+      *reinterpret_cast<uint32_t*>(qs + r * QT::ROW + c) = qpair(row0 + r, QT::dim_at(c));
+    }
+  }
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[D / 8][4];
@@ -913,7 +968,7 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     float sf[2][4];
 #pragma unroll
     for (int t = 0; t < 2; ++t) sf[t][0] = sf[t][1] = sf[t][2] = sf[t][3] = 0.f;
-    qk_rows16<T, KV, D>(sf, qf, kt, r0, lane);
+    qk_rows16<T, KV, D>(sf, qa, kt, r0, lane);
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
@@ -1075,7 +1130,8 @@ cudaError_t launch_verify_mma(const void* q, const void* k, const void* v, void*
   a.slots = std::min(RING, a.chunk / TILE_KEYS);
   constexpr int ROWS = 16;
   const int merge = ((NUM_WARPS - 1) * (D / 2 + 4) * 32 + ROWS * (D + 2)) * 4;
-  const int smem = std::max(a.slots * TL::STAGE, merge);
+  const int qtile = D > 128 ? QTile<T, KV, D, ROWS>::BYTES : 0;
+  const int smem = std::max(a.slots * TL::STAGE + qtile, merge);
   const cudaError_t e = allow_smem<paged_verify_mma_kernel<T, KV, D, PARTIAL>>(smem);
   if (e != cudaSuccess) return e;
   dim3 grid(KH * ((a.nrows + ROWS - 1) / ROWS), S, splits);
@@ -1097,9 +1153,13 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     if (D == 128)
       return partial ? launch_verify_mma<T, KV, 128, true>(q, k, v, o, S, KH, splits, a, stream)
                      : launch_verify_mma<T, KV, 128, false>(q, k, v, o, S, KH, splits, a, stream);
+    if (D == 256)
+      return partial ? launch_verify_mma<T, KV, 256, true>(q, k, v, o, S, KH, splits, a, stream)
+                     : launch_verify_mma<T, KV, 256, false>(q, k, v, o, S, KH, splits, a, stream);
   } else {
     if (D == 64) return launch_rows<T, KV, 64>(q, k, v, o, S, KH, splits, a, stream);
     if (D == 128) return launch_rows<T, KV, 128>(q, k, v, o, S, KH, splits, a, stream);
+    if (D == 256) return launch_rows<T, KV, 256>(q, k, v, o, S, KH, splits, a, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1156,8 +1216,8 @@ void set_scales(Args& a, const void* ks, const void* vs, long long ks_n,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
-// 128), Dv the true head dim (1 <= Dv <= D, rows of Dv elements of q and
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64, 128
+// or 256), Dv the true head dim (1 <= Dv <= D, rows of Dv elements of q and
 // of the pools whole 16-byte chunks); the shapes below are of width Dv, the
 // scratch of width D. Strides are in elements, the
 // head dim contiguous. q and o [S, H, D]; pools [NB, BS, KH, D] by

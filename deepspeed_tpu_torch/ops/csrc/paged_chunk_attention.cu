@@ -54,8 +54,14 @@
 //    before it is rounded for P.V, while l sums the unscaled P.
 //  * float32 inputs take a plain FMA kernel: one warp per query row (int8
 //    pools fold the scales into the score and into P, as above).
-// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
-// true head dim Dv <= DK whose rows are whole 16-byte chunks (a.Dv): q's
+// At D = 256 (GPT-J, Gemma), behind the template width: a 16-bit stage of
+// 64 keys is 66 KB, so a group keeps one stage (its copy no longer overlaps
+// its own products, only the other group's: 132 KB; int8 stages, 33 KB,
+// keep two), and q's A fragments (64 registers a thread beside the 128 of
+// the accumulator and S's 32) sit in shared memory in fragment order
+// (paged_tiles.cuh's QTile, 33 KB), loaded by ldmatrix at each k-step.
+// Head dims: the kernels are instantiated at DK = 64, 128 and 256 and take
+// any true head dim Dv <= DK whose rows are whole 16-byte chunks (a.Dv): q's
 // words and the tiles' chunks past Dv are zero (paged_tiles.cuh), and the
 // stores stop at Dv. The tensor-core kernel takes those tests as a
 // template flag (PARTIAL), so Dv = D runs the code it ran before them
@@ -108,6 +114,11 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   using CP = TileCopy<KV, D, NUM_THREADS>;   // a group copies its own stages
   constexpr bool Q8 = TL::Q8;
   constexpr int CPT = CP::CPT;
+  // D = 256: q's fragments from a tile in shared memory after the ring, and
+  // one 16-bit stage a group
+  constexpr bool QS = D > 128;
+  constexpr int SLOTS = QS && !Q8 ? 1 : 2;   // ring slots a group
+  using QT = QTile<T, KV, D, BLOCK_M>;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
@@ -136,15 +147,17 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   const int lim_a = lim_of(ra), lim_b = lim_of(rb), lo = lim_of(wr);
   const T* qa = q + (long long)(min(ra, rows - 1) / R) * a.q_c + (kh * R + ra % R) * a.q_h;
   const T* qb = q + (long long)(min(rb, rows - 1) / R) * a.q_c + (kh * R + rb % R) * a.q_h;
-  uint32_t qf[D / 16][4];
+  uint32_t qf[QS ? 1 : D / 16][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int d = TL::qdim(kk, t4, h);
-      const bool live = !PARTIAL || d < a.Dv;   // zero past the head dim
-      qf[kk][2 * h] = live ? *reinterpret_cast<const uint32_t*>(qa + d) : 0u;
-      qf[kk][2 * h + 1] = live ? *reinterpret_cast<const uint32_t*>(qb + d) : 0u;
+      for (int h = 0; h < 2; ++h) {
+        const int d = TL::qdim(kk, t4, h);
+        const bool live = !PARTIAL || d < a.Dv;   // zero past the head dim
+        qf[kk][2 * h] = live ? *reinterpret_cast<const uint32_t*>(qa + d) : 0u;
+        qf[kk][2 * h + 1] = live ? *reinterpret_cast<const uint32_t*>(qb + d) : 0u;
+      }
     }
   }
 
@@ -155,7 +168,7 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   // group)
   const int tid = threadIdx.x % NUM_THREADS;
   auto issue = [&](int i) {
-    unsigned char* stage = smem + (2 * gr + i % 2) * TL::STAGE;
+    unsigned char* stage = smem + (SLOTS * gr + i % SLOTS) * TL::STAGE;
     const int p0 = (gr + G * i) * TILE_KEYS;
     int blk[CPT];
 #pragma unroll
@@ -175,15 +188,39 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   cp_async_commit();
 
   // the A fragments: q.scale rounded to q's dtype, as the flash kernel
+  T* qs = reinterpret_cast<T*>(smem + G * SLOTS * TL::STAGE);   // QS: the q tile
+  if constexpr (QS) {
+    // the tile's rows (rows past the chunk zero), filled by both groups
+    // while their first stages are in flight
+    for (int i = threadIdx.x; i < BLOCK_M * D / 2; i += G * NUM_THREADS) {
+      const int r = i / (D / 2), c = 2 * (i % (D / 2)), row = q0 + r, d = QT::dim_at(c);
+      uint32_t w = 0u;
+      if (row < rows && (!PARTIAL || d < a.Dv)) {
+        const T* e = q + (long long)(row / R) * a.q_c + (kh * R + row % R) * a.q_h + d;
+        w = pack2<T>(to_float(e[0]) * a.scale, to_float(e[1]) * a.scale);
+      }
+      *reinterpret_cast<uint32_t*>(qs + r * QT::ROW + c) = w;
+    }
+    __syncthreads();
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const T* e = reinterpret_cast<const T*>(&qf[kk][i]);
-      const bool live_row = (i % 2 ? rb : ra) < rows;
-      qf[kk][i] = live_row ? pack2<T>(to_float(e[0]) * a.scale, to_float(e[1]) * a.scale) : 0u;
+      for (int i = 0; i < 4; ++i) {
+        const T* e = reinterpret_cast<const T*>(&qf[kk][i]);
+        const bool live_row = (i % 2 ? rb : ra) < rows;
+        qf[kk][i] = live_row ? pack2<T>(to_float(e[0]) * a.scale, to_float(e[1]) * a.scale) : 0u;
+      }
     }
   }
+  auto qfrag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (QS) {
+      QT::frag(f, qs, warp * 16, kk, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = qf[kk][i];
+    }
+  };
 
   float m_r[2] = {-INFINITY, -INFINITY};
   float l_r[2] = {0.f, 0.f};   // per-thread partial row sums, reduced at the end
@@ -193,7 +230,7 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 
   // the groups run apart: each waits on its own copies at its own barrier
   for (int i = 0; i < nmine; ++i) {
-    if (i + 1 < nmine) {   // the group's next stage into its other slot
+    if (SLOTS == 2 && i + 1 < nmine) {   // the group's next stage into its other slot
       issue(i + 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -204,7 +241,7 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     if (i == 0) DSTT_STAMP(1);
     const int st = gr + G * i;
     {
-      const unsigned char* kt = smem + (2 * gr + i % 2) * TL::STAGE;
+      const unsigned char* kt = smem + (SLOTS * gr + i % SLOTS) * TL::STAGE;
       const unsigned char* vt = kt + TL::BYTES;
       const float* sc = reinterpret_cast<const float*>(vt + TL::BYTES);   // int8: K, V scales
       const int p0 = st * TILE_KEYS;
@@ -215,7 +252,7 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       for (int kq = 0; kq < 4; ++kq) {
 #pragma unroll
         for (int t = 0; t < 2; ++t) s[kq][t][0] = s[kq][t][1] = s[kq][t][2] = s[kq][t][3] = 0.f;
-        qk_rows16<T, KV, D>(s[kq], qf, kt, 16 * kq, lane);
+        qk_rows16<T, KV, D>(s[kq], qfrag, kt, 16 * kq, lane);
       }
       if constexpr (Q8) {   // S = Qs . (scale_k * K_int)^T
 #pragma unroll
@@ -286,6 +323,10 @@ paged_chunk_mma_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
       for (int kq = 0; kq < 4; ++kq) pv_step<T, KV, D, 1>(acc, pf[kq], vt, 16 * kq, lane);
     }
     named_barrier(1 + gr, NUM_THREADS);   // the group is done with the slot
+    if (SLOTS == 1 && i + 1 < nmine) {   // one slot: the next stage into it now
+      issue(i + 1);
+      cp_async_commit();
+    }
   }
   __syncthreads();   // both groups are done with the ring
   DSTT_STAMP(2);
@@ -418,7 +459,11 @@ cudaError_t launch_mma_kernel(const void* q, const void* k, const void* v, void*
                               const Args& a, cudaStream_t stream) {
   using KV = std::conditional_t<Q8, int8_t, T>;
   using TL = KVTile<KV, D>;
-  const int smem = std::max(2 * G * TL::STAGE, (D / 2 + 4) * NUM_THREADS * 4);
+  // the ring (one 16-bit slot a group at D = 256) and the q tile, or the
+  // groups' merge
+  const int ring = (D > 128 && !Q8 ? 1 : 2) * G * TL::STAGE;
+  const int qtile = D > 128 ? QTile<T, KV, D, BLOCK_M>::BYTES : 0;
+  const int smem = std::max(ring + qtile, (D / 2 + 4) * NUM_THREADS * 4);
   const cudaError_t e = allow_smem<paged_chunk_mma_kernel<T, KV, D, PARTIAL>>(smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.C * (a.H / a.KH) + BLOCK_M - 1) / BLOCK_M, a.KH);
@@ -452,8 +497,11 @@ int dispatch(int dtype, int D, const void* q, const void* k, const void* v,
   if (dtype == 2 && D == 128) return (int)launch_mma<__nv_bfloat16, 128, Q8>(q, k, v, o, a, s);
   if (dtype == 1 && D == 64) return (int)launch_mma<__half, 64, Q8>(q, k, v, o, a, s);
   if (dtype == 1 && D == 128) return (int)launch_mma<__half, 128, Q8>(q, k, v, o, a, s);
+  if (dtype == 2 && D == 256) return (int)launch_mma<__nv_bfloat16, 256, Q8>(q, k, v, o, a, s);
+  if (dtype == 1 && D == 256) return (int)launch_mma<__half, 256, Q8>(q, k, v, o, a, s);
   if (dtype == 0 && D == 64) return (int)launch_f32<64, Q8>(q, k, v, o, a, s);
   if (dtype == 0 && D == 128) return (int)launch_f32<128, Q8>(q, k, v, o, a, s);
+  if (dtype == 0 && D == 256) return (int)launch_f32<256, Q8>(q, k, v, o, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -474,8 +522,8 @@ Args make_args(const void* table, int C, int H, int KH, int Dv, int NB, int BS, 
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
-// 128), Dv the true head dim (1 <= Dv <= D, rows of Dv elements whole
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64, 128
+// or 256), Dv the true head dim (1 <= Dv <= D, rows of Dv elements whole
 // 16-byte chunks) of q, o and the pools. Strides are in elements, the
 // head dim contiguous. q and o [C, H, D]; pools [NB, BS, KH, D] by
 // (k_n, k_b, k_h); table [MB] int32 (the slot's block-table row); start is

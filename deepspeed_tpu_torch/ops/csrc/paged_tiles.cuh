@@ -6,8 +6,8 @@
 // A tile holds 64 key rows of one kv head, copied from the pool
 // [NB, BS, KH, Dv] row by row through the block table with 16-byte cp.async
 // (a row of a 64-key tile may lie in any page, so any BS works). D is the
-// kernel width (64 or 128); the chunks of a row past the true head dim Dv
-// are zero-filled, not read, so they add nothing to q.k or P.V.
+// kernel width (64, 128 or 256); the chunks of a row past the true head dim
+// Dv are zero-filled, not read, so they add nothing to q.k or P.V.
 //  * 16-bit pools (q's dtype): rows of D + 8 elements (the padding keeps
 //    ldmatrix conflict-free); fragments by ldmatrix.
 //  * int8 pools: rows of D bytes, their 16-byte chunks XOR-swizzled
@@ -23,6 +23,10 @@
 //    the n8 output tiles of P.V take dims P*n + j (P = D / 8) so that a V
 //    row's chunk serves every tile at once.
 //    Each tile carries its 64 f32 scales of K and of V after its rows.
+// The A fragments of q come from the caller (`qk_rows16`'s `qa`): from
+// registers at D = 64 and 128, and at D = 256, where a warp's q fragments
+// (64 registers) beside its 16 x 256 f32 accumulator (128) would spill,
+// from a q tile in shared memory (`QTile`) by ldmatrix.
 #pragma once
 
 #include <type_traits>
@@ -42,7 +46,7 @@ struct KVTile {
   static constexpr int BYTES = TILE_KEYS * ROW;                    // rows of one tile
   // a stage: the K tile, the V tile, and for int8 the K and V scales
   static constexpr int STAGE = 2 * BYTES + (Q8 ? 2 * TILE_KEYS * 4 : 0);
-  static_assert(CH >= 4 && CH % 4 == 0, "head dim 64 or 128");
+  static_assert(CH >= 4 && CH % 4 == 0, "head dim 64, 128 or 256");
 
   __device__ static __forceinline__ int swz(int r) {
     return Q8 ? (((r & 1) << 2) ^ (((r >> 2) & 1) << 1)) : 0;
@@ -152,11 +156,32 @@ __device__ __forceinline__ void cp_async_wait_dyn(int n) {
 
 // ------------------------------------------------------------ the products
 
-// S (16 x 16, f32: two n8 tiles) += Q (16 rows, fragments qf) . K^T over
-// tile rows r0..r0+15 (r0 a multiple of 16), every k-step
-template <typename T, typename KV, int D>
-__device__ __forceinline__ void qk_rows16(float (&s)[2][4], const uint32_t (&qf)[D / 16][4],
-                                          const unsigned char* kt, int r0, int lane) {
+// A q tile of ROWS rows in shared memory for ldmatrix: rows of D + 8 values
+// of T (the padding keeps ldmatrix conflict-free), each row's values in
+// fragment order: position 16 kk + 2 t4 + 8 h (+1) holds q's dims qdim(kk,
+// t4, h) (+1), so a plain ldmatrix_x4 gives the fragments the K tile's
+// layout wants (the identity for 16-bit pools).
+template <typename T, typename KV, int D, int ROWS>
+struct QTile {
+  static constexpr int ROW = D + 8;                          // values a row
+  static constexpr int BYTES = ROWS * ROW * (int)sizeof(T);
+  // the q dim that position c (even) of a row holds
+  __device__ static __forceinline__ int dim_at(int c) {
+    return KVTile<KV, D>::qdim(c / 16, (c % 8) / 2, (c % 16) / 8);
+  }
+  // the A fragment of k-step kk of tile rows r0..r0+15
+  __device__ static __forceinline__ void frag(uint32_t (&a)[4], const T* qs, int r0, int kk,
+                                              int lane) {
+    ldmatrix_x4(a, qs + (r0 + ((lane / 8) % 2) * 8 + lane % 8) * ROW + kk * 16 + (lane / 16) * 8);
+  }
+};
+
+// S (16 x 16, f32: two n8 tiles) += Q (16 rows) . K^T over tile rows
+// r0..r0+15 (r0 a multiple of 16), every k-step; qa(kk, a) gives the A
+// fragment of k-step kk
+template <typename T, typename KV, int D, typename QA>
+__device__ __forceinline__ void qk_rows16(float (&s)[2][4], QA&& qa, const unsigned char* kt,
+                                          int r0, int lane) {
   using TL = KVTile<KV, D>;
   const int g = lane / 4, t4 = lane % 4;
   if constexpr (TL::Q8) {
@@ -170,7 +195,9 @@ __device__ __forceinline__ void qk_rows16(float (&s)[2][4], const uint32_t (&qf)
 #pragma unroll
         for (int h = 0; h < 4; ++h) {
           const uint32_t b[2] = {widen2<T>(x[h], 0, x[h], 1), widen2<T>(x[h], 2, x[h], 3)};
-          mma16816<T>(s[t], qf[4 * i + h], b);
+          uint32_t a[4];
+          qa(4 * i + h, a);
+          mma16816<T>(s[t], a, b);
         }
       }
     }
@@ -181,8 +208,10 @@ __device__ __forceinline__ void qk_rows16(float (&s)[2][4], const uint32_t (&qf)
       ldmatrix_x4(b, reinterpret_cast<const T*>(kt) +
                          (r0 + (lane / 16) * 8 + (lane % 8)) * (D + 8) + kk * 16 +
                          ((lane / 8) % 2) * 8);
-      mma16816<T>(s[0], qf[kk], b);
-      mma16816<T>(s[1], qf[kk], b + 2);
+      uint32_t a[4];
+      qa(kk, a);
+      mma16816<T>(s[0], a, b);
+      mma16816<T>(s[1], a, b + 2);
     }
   }
 }
@@ -208,11 +237,15 @@ __device__ __forceinline__ void pv_step(float (&acc)[D / 8][4], const uint32_t (
         x[k][0] = w.x ^ 0x80808080u;
         x[k][1] = w.y ^ 0x80808080u;
       } else {
-        const uint4 w = *reinterpret_cast<const uint4*>(vt + TL::off(r, g));
-        x[k][0] = w.x ^ 0x80808080u;
-        x[k][1] = w.y ^ 0x80808080u;
-        x[k][2] = w.z ^ 0x80808080u;
-        x[k][3] = w.w ^ 0x80808080u;
+        // chunks (W / 4) g .. of the row: one at D = 128, two at 256
+#pragma unroll
+        for (int c = 0; c < W / 4; ++c) {
+          const uint4 w = *reinterpret_cast<const uint4*>(vt + TL::off(r, (W / 4) * g + c));
+          x[k][4 * c] = w.x ^ 0x80808080u;
+          x[k][4 * c + 1] = w.y ^ 0x80808080u;
+          x[k][4 * c + 2] = w.z ^ 0x80808080u;
+          x[k][4 * c + 3] = w.w ^ 0x80808080u;
+        }
       }
     }
 #pragma unroll

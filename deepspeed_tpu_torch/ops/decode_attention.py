@@ -26,14 +26,14 @@ fp wrappers call when they are given ``k_scale``/``v_scale``.
 Each source's note gives its design and what bounds it on the H100. A row
 with no visible key gives zeros, as the TPU kernels do.
 
-Head dims: any ``D <= 128`` (:func:`~deepspeed_tpu_torch.ops.head_dim.
+Head dims: any ``D <= 256`` (:func:`~deepspeed_tpu_torch.ops.head_dim.
 head_dim_route`). Where a row of ``D`` elements of q and of the cache or
 pool is whole 16-byte chunks (16-bit: ``D % 8 == 0``, f32: ``D % 4 == 0``,
-an int8 pool: ``D % 16 == 0``) the kernels run their 64- or 128-wide
+an int8 pool: ``D % 16 == 0``) the kernels run their 64-, 128- or 256-wide
 instantiation on the tensors as they are; any other ``D`` (the padded
 route, correct and slow: it copies the whole cache or pool of the layer on
 every call) zero-pads q and the cache or pools to that width and slices the
-output back. ``D > 128`` raises (fault D1b).
+output back. ``D > 256`` raises (fault D1c).
 
 On CPU tensors each wrapper runs its plain PyTorch version (the
 ``*_reference`` function beside it, which dequantizes an int8 pool up

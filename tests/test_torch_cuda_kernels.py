@@ -41,7 +41,11 @@ under the same limits, on inputs that are ``[..., :D]`` views of
 poisons the result), every head of the packed output held to the plain
 version, and the same bits on a second call; B8 also writes into a
 NaN-guarded view, whose guard columns must stay NaN. D = 36 takes the
-padded route and D > 128 raises, naming fault D1b.
+padded route. The serving kernels (B1, B4-B7 and B5i-B7i) also run at D
+in {136, 160, 192, 256} on their 256-wide instantiation, and at 256 with 8
+q heads on one kv head (Gemma-2B's layout), under the same limits and
+guards; D = 132 takes their padded route. The flash backward and B8 raise
+above 128, naming fault D1b-ii; every kernel raises above 256 (D1c).
 """
 import pytest
 import torch
@@ -52,6 +56,7 @@ from deepspeed_tpu_torch.ops import flash_attention as port_flash
 from deepspeed_tpu_torch.ops import layer_norm as port_ln
 from deepspeed_tpu_torch.ops import quant_core as port_quant
 from deepspeed_tpu_torch.ops import sparse_attention as port_sparse
+from deepspeed_tpu_torch.ops.head_dim import head_dim_route
 
 
 @pytest.fixture
@@ -194,8 +199,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     out = port_flash.flash_attention(q, q, q)
     ref, _ = port_flash.flash_attention_reference(q, q, q)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
-    q = _randn(g, (1, 16, 2, 256), torch.bfloat16)    # head dim 256: D1b
-    with pytest.raises(ValueError, match="D1b"):
+    q = _randn(g, (1, 16, 2, 256), torch.bfloat16)    # head dim 256: taken
+    out = port_flash.flash_attention(q, q, q)
+    ref, lse = port_flash.flash_attention_reference(q, q, q)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    with pytest.raises(ValueError, match="D1b-ii"):   # not by the backward
+        port_flash.flash_attention_bwd_dq(q, q, q, ref, lse, q)
+    q = _randn(g, (1, 16, 2, 320), torch.bfloat16)    # head dim 320: D1c
+    with pytest.raises(ValueError, match="D1c"):
         port_flash.flash_attention(q, q, q)
     q = _randn(g, (2, 12, 64), torch.bfloat16)
     kc = _randn(g, (2, 32, 1, 64), torch.bfloat16)    # a group of 12: taken
@@ -590,10 +601,10 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     ref = port_decode.paged_verify_attention_reference(q48, kp48, kp48,
                                                        tables, lens)
     assert (out.float() - ref.float()).abs().max().item() <= 1e-2
-    kp256 = _randn(g, (40, 32, 4, 256), torch.bfloat16)
-    with pytest.raises(ValueError, match="D1b"):
+    kp320 = _randn(g, (40, 32, 4, 320), torch.bfloat16)
+    with pytest.raises(ValueError, match="D1c"):
         port_decode.paged_verify_attention(
-            _randn(g, (4, 2, 4, 256), torch.bfloat16), kp256, kp256, tables,
+            _randn(g, (4, 2, 4, 320), torch.bfloat16), kp320, kp320, tables,
             lens)
 
 
@@ -1230,8 +1241,9 @@ def _guarded(x, fill=float("nan")):
     kernel that loads past D takes NaN into its result, and its strides
     are those of a wider tensor."""
     D = x.shape[-1]
-    buf = torch.full((*x.shape[:-1], (64 if D <= 64 else 128) + 16), fill,
-                     dtype=x.dtype, device=x.device)
+    DK, _ = head_dim_route(D, x.element_size())
+    buf = torch.full((*x.shape[:-1], DK + 16), fill, dtype=x.dtype,
+                     device=x.device)
     buf[..., :D] = x
     return buf[..., :D]
 
@@ -1479,19 +1491,169 @@ def test_padded_route_runs_odd_head_dims_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [160, 256])
 def test_head_dims_past_128_raise_naming_d1b_on_card(cuda_device, D):
+    """B2, B3 and B8 stop at 128 (fault D1b-ii); the serving kernels take
+    D (the tests below); every kernel raises at 264 (fault D1c)."""
     g = torch.Generator(device=cuda_device).manual_seed(D)
     q = _randn(g, (1, 64, 2, D), torch.bfloat16)
-    with pytest.raises(ValueError, match="D1b"):
+    o, lse = port_flash.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="D1b-ii"):
+        port_flash.flash_attention_bwd_dq(q, q, q, o, lse, q)
+    with pytest.raises(ValueError, match="D1b-ii"):
+        port_flash.flash_attention_bwd_dkv(q, q, q, lse, lse, q)
+    lut = torch.zeros((2, 4, 1), dtype=torch.int32, device=cuda_device)
+    counts = torch.ones((2, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="D1b-ii"):
+        qb = q.transpose(1, 2)
+        port_bsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
+    q = _randn(g, (1, 64, 2, 264), torch.bfloat16)
+    with pytest.raises(ValueError, match="D1c"):
         port_flash.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="D1b"):
+    with pytest.raises(ValueError, match="D1c"):
         port_decode.decode_attention(
             q[:, 0], q, q, torch.tensor([5], dtype=torch.int32,
                                         device=cuda_device))
-    kp, vp, tables, lens = _paged_case(g, torch.bfloat16, 2, 2, D)
-    with pytest.raises(ValueError, match="D1b"):
+    kp, vp, tables, lens = _paged_case(g, torch.bfloat16, 2, 2, 264)
+    with pytest.raises(ValueError, match="D1c"):
         port_decode.paged_decode_attention(q[0, :4], kp, vp, tables, lens)
-    lut = torch.zeros((2, 4, 1), dtype=torch.int32, device=cuda_device)
-    counts = torch.ones((2, 4), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="D1b"):
+    with pytest.raises(ValueError, match="D1c"):
         qb = q.transpose(1, 2)
         port_bsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
+
+
+# ------------------------------------------ serving head dims up to 256
+
+# head dims on the serving kernels' 256-wide instantiation (int8 pools of
+# 136 take the padded route: 136 bytes are no whole 16-byte chunks)
+WIDE_HEAD_DIMS = [136, 160, 192, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_flash_fwd_takes_head_dims_to_256_on_card(cuda_device, D, dtype):
+    """B1 on the 256-wide instantiation at a true head dim D (GQA: 4 q
+    heads over 2 kv heads, a ragged T), q/k/v views of one guarded
+    projection: every head against the plain version, the LSE, the same
+    bits on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(600 + D)
+    B, T, H, KH = 2, 333, 4, 2
+    qkv = _guarded(_randn(g, (B, T, H + 2 * KH, D), dtype))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KH], qkv[:, :, H + KH:]
+    for causal in (True, False):
+        n = port_flash.flash_attention_fwd.launches
+        o, lse = port_flash.flash_attention_fwd(q, k, v, causal)
+        o2, lse2 = port_flash.flash_attention_fwd(q, k, v, causal)
+        ref, lse_ref = port_flash.flash_attention_reference(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal)
+        torch.cuda.synchronize()
+        assert port_flash.flash_attention_fwd.launches == n + 2
+        assert o.shape == (B, T, H, D) and o.is_contiguous()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert (_head_err(o, ref) <= tol).all(), causal
+        assert (lse - lse_ref).abs().max().item() <= (
+            1e-4 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_decode_takes_head_dims_to_256_on_card(cuda_device, D, dtype):
+    """B4 at a true head dim D on the 256-wide instantiation, R = 4 and
+    R = 8 over one kv head (Gemma-2B), guarded views: every head against
+    the plain version, the same bits twice, a length-0 row exactly 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(700 + D)
+    B, S = 4, 700
+    lens = torch.tensor([0, 1, 400, S], dtype=torch.int32,
+                        device=cuda_device)
+    for KH, R in ((2, 4), (1, 8)):
+        kc = _guarded(_randn(g, (2, B, S, KH, D), dtype))[1]
+        vc = _guarded(_randn(g, (2, B, S, KH, D), dtype))[1]
+        q = _guarded(_randn(g, (B, 3, KH * R, D), dtype))[:, 0]
+        o = port_decode.decode_attention(q, kc, vc, lens)
+        o2 = port_decode.decode_attention(q, kc, vc, lens)
+        ref = port_decode.decode_attention_reference(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        assert o.shape == (B, KH * R, D) and o.is_contiguous()
+        assert torch.equal(o, o2)
+        assert torch.equal(o[0], torch.zeros_like(o[0]))
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        assert (_head_err(o, ref) <= tol).all(), R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_paged_kernels_take_head_dims_to_256_on_card(cuda_device, D, dtype):
+    """B5, B6 and B7 at a true head dim D on the 256-wide instantiation, 8
+    q heads over 2 kv heads and (D = 256) over one, guarded pools and q:
+    every head against the plain versions, the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(800 + D)
+    fp = (port_decode.paged_decode_attention,
+          port_decode.paged_chunk_attention,
+          port_decode.paged_verify_attention)
+    for KH in ((2, 1) if D == 256 else (2,)):
+        kp, vp, tables, lens = _paged_case(g, dtype, 8, KH, D, BS=32, MB=8)
+        kp, vp = _guarded(kp), _guarded(vp)
+        n = [f.launches for f in fp]
+        runs = _paged_head_dim_runs(g, dtype, D, kp, vp, tables, lens, None)
+        torch.cuda.synchronize()
+        assert [f.launches for f in fp] == [x + 2 for x in n]
+        _check_paged_runs(runs, dtype, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_paged_int8_kernels_take_head_dims_to_256_on_card(cuda_device, D,
+                                                          dtype):
+    """B5i, B6i and B7i at a true head dim D over int8 pools quantized per
+    row (guard columns of 127), 8 q heads over 2 kv heads and (D = 256)
+    over one: as the fp test, and no fp paged launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(900 + D)
+    i8 = (port_decode.paged_decode_attention_int8,
+          port_decode.paged_chunk_attention_int8,
+          port_decode.paged_verify_attention_int8)
+    for KH in ((2, 1) if D == 256 else (2,)):
+        kp, vp, tables, lens = _paged_case(g, dtype, 8, KH, D, BS=32, MB=8)
+        (kq, ks), (vq, vs) = _int8_pool(kp), _int8_pool(vp)
+        kq, vq = _guarded(kq, 127), _guarded(vq, 127)
+        n = [f.launches for f in i8]
+        n_fp = port_decode.paged_decode_attention.launches
+        runs = _paged_head_dim_runs(g, dtype, D, kq, vq, tables, lens,
+                                    (ks, vs))
+        torch.cuda.synchronize()
+        assert [f.launches for f in i8] == [x + 2 for x in n]
+        assert port_decode.paged_decode_attention.launches == n_fp
+        _check_paged_runs(runs, dtype, D)
+
+
+@pytest.mark.cuda
+def test_padded_route_runs_head_dim_132_on_card(cuda_device):
+    """D = 132 is no whole number of 16-byte chunks in 16 bits: B1, B4 and
+    B5-B7 zero-pad to 256 and slice back, one launch each, against their
+    plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(132)
+    D, dt = 132, torch.bfloat16
+    q, k, v = (_randn(g, (2, 200, 4, D), dt) for _ in range(3))
+    n = port_flash.flash_attention_fwd.launches
+    o = port_flash.flash_attention(q, k, v)
+    ref, _ = port_flash.flash_attention_reference(q, k, v)
+    assert o.shape == q.shape
+    assert (o.float() - ref.float()).abs().max().item() <= 2e-2
+    assert port_flash.flash_attention_fwd.launches == n + 1
+    kc, vc = (_randn(g, (2, 300, 2, D), dt) for _ in range(2))
+    qd = _randn(g, (2, 4, D), dt)
+    lens = torch.tensor([7, 300], dtype=torch.int32, device=cuda_device)
+    o = port_decode.decode_attention(qd, kc, vc, lens)
+    ref = port_decode.decode_attention_reference(qd, kc, vc, lens)
+    assert (o.float() - ref.float()).abs().max().item() <= 1e-2
+    kp, vp, tables, lens = _paged_case(g, dt, 8, 2, D, BS=32, MB=8)
+    fp = (port_decode.paged_decode_attention,
+          port_decode.paged_chunk_attention,
+          port_decode.paged_verify_attention)
+    n = [f.launches for f in fp]
+    runs = _paged_head_dim_runs(g, dt, D, kp, vp, tables, lens, None)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fp] == [x + 2 for x in n]
+    _check_paged_runs(runs, dt, D)

@@ -1,19 +1,23 @@
-"""Head dims up to 128 in the port (fault D1a) on the CPU.
+"""Head dims up to 256 in the port (faults D1a and D1b-i) on the CPU.
 
 The CUDA attention kernels run any head dim D <= 128 on their 64- or
-128-wide instantiations: columns past D are read as zeros and never
-written, and the scale comes from the true D. What the CPU can check:
+128-wide instantiations, and the serving kernels (B1, B4-B7, B5i-B7i) any
+D <= 256 on their 256-wide one: columns past D are read as zeros and
+never written, and the scale comes from the true D. What the CPU can
+check:
 
-* ``head_dim_route`` for every D in 1..256 and operand sizes 1, 2 and 4:
-  the kernel width, the padded route, and the D1b error above 128; and
+* ``head_dim_route`` for every D in 1..320 and operand sizes 1, 2 and 4:
+  the kernel width, the padded route, the D1b-ii error of the flash
+  backward and B8 above 128, the D1c error of every kernel above 256; and
   ``warn_if_padded``, the warning the cache builders give for that route.
 * Each attention kernel's plain version against its JAX function, run as
   the JAX tests run it (Pallas in interpret mode), at D in {32, 40, 80, 96,
-  112}: flash forward + LSE, the flash backward, dense decode, paged
-  decode, chunk and verify over fp and int8 pools, and block-sparse
-  attention on layout (i) (Fixed, causal). Tolerance 1e-5 in f32: both
-  sides compute an exact f32 softmax and its gradients; only the order of
-  the sums differs.
+  112}, and the serving kernels' also at D in {132, 160, 192, 256} (int8
+  pools at those of whole 16-byte rows): flash forward + LSE, the flash
+  backward, dense decode, paged decode, chunk and verify over fp and int8
+  pools, and block-sparse attention on layout (i) (Fixed, causal).
+  Tolerance 1e-5 in f32: both sides compute an exact f32 softmax and its
+  gradients; only the order of the sums differs.
 * The zero-fill identity the kernels rely on: each plain version on inputs
   zero-padded to the kernel width, with the scale of the true D, sliced
   back, equals its result at the true D within 1e-6 in f32 (the padded
@@ -23,7 +27,11 @@ written, and the scale comes from the true D. What the CPU can check:
   D = 96 (192, 2) against the JAX model (the tolerances of
   tests/test_torch_gpt2.py), and a NeoX-style parallel-residual model at
   D = 80 with rotary_dim 20: greedy tokens of ``generate`` and of the paged
-  server equal to the JAX engine's and server's, token for token.
+  server equal to the JAX engine's and server's, token for token; and a
+  GPT-J-shaped model (2 heads of 256, rotary_dim 64 interleaved, one
+  shared LayerNorm, an untied head with a bias) the same way, through
+  prefix caching with chunked prefill and speculation K=4, over fp and
+  int8 pools.
 """
 import dataclasses
 
@@ -53,12 +61,15 @@ from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import sparse_attention as tsparse
-from deepspeed_tpu_torch.ops.head_dim import (MAX_HEAD_DIM, head_dim_route,
-                                              pad_head_dim, warn_if_padded)
+from deepspeed_tpu_torch.ops.head_dim import (MAX_HEAD_DIM, TRAIN_HEAD_DIM,
+                                              head_dim_route, pad_head_dim,
+                                              warn_if_padded)
 
 TOL = 1e-5
 PAD_TOL = 1e-6
 DIMS = [32, 40, 80, 96, 112]
+# the serving kernels' 256-wide instantiation; 132 takes its padded route
+WIDE_DIMS = [132, 160, 192, 256]
 # the paged pools: 12 blocks of 32, tables with out-of-order ids
 NB, BS = 12, 32
 TABLES = np.array([[3, 5, 0, 0], [1, 2, 7, 9], [11, 0, 0, 0]], np.int32)
@@ -90,19 +101,47 @@ def _close(got, want, tol=TOL):
 
 @pytest.mark.parametrize("elem", [1, 2, 4])
 def test_head_dim_route_for_every_head_dim(elem):
-    """DK = 64 up to 64, 128 up to 128; the padded route exactly where a
-    row of D elements is no whole number of 16-byte chunks; D1b above."""
+    """DK = 64 up to 64, 128 up to 128, 256 up to 256 (the serving
+    kernels); the padded route exactly where a row of D elements is no
+    whole number of 16-byte chunks; D1c above 256."""
     per_chunk = 16 // elem
+    assert MAX_HEAD_DIM == 256
     for D in range(1, MAX_HEAD_DIM + 1):
         DK, pad = head_dim_route(D, elem)
-        assert DK == (64 if D <= 64 else 128), D
+        assert DK == (64 if D <= 64 else 128 if D <= 128 else 256), D
         assert pad == (D % per_chunk != 0), D
-    for D in range(MAX_HEAD_DIM + 1, 257):
-        with pytest.raises(ValueError, match="D1b"):
+    for D in range(MAX_HEAD_DIM + 1, 321):
+        with pytest.raises(ValueError, match="D1c"):
             head_dim_route(D, elem)
     # the public models' head dims all take the native route in 16 bits
     assert all(not head_dim_route(D, 2)[1] for D in (32, 40, 48, 80, 96,
-                                                       112))
+                                                       112, 256))
+
+
+@pytest.mark.parametrize("elem", [1, 2, 4])
+def test_training_kernels_route_stops_at_128(elem):
+    """The flash backward and B8 (widest 128): the same route up to 128,
+    D1b-ii in (128, 256], D1c above; and their wrappers ask for it."""
+    for D in range(1, TRAIN_HEAD_DIM + 1):
+        assert head_dim_route(D, elem, TRAIN_HEAD_DIM) == head_dim_route(
+            D, elem)
+    for D in range(TRAIN_HEAD_DIM + 1, 321):
+        with pytest.raises(ValueError, match="D1b-ii" if D <= 256
+                           else "D1c"):
+            head_dim_route(D, elem, TRAIN_HEAD_DIM)
+    # the wrappers route before they launch; a 'meta' tensor is no CPU
+    # tensor, so they take the kernel path and refuse at the route
+    q = torch.empty((1, 16, 2, 256), device="meta")
+    lse = torch.empty((1, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="D1b-ii"):
+        tfa.flash_attention_bwd_dq(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="D1b-ii"):
+        tfa.flash_attention_bwd_dkv(q, q, q, lse, lse, q)
+    lut = torch.zeros((2, 1, 1), dtype=torch.int32, device="meta")
+    counts = torch.ones((2, 1), dtype=torch.int32, device="meta")
+    qb = q.transpose(1, 2)
+    with pytest.raises(ValueError, match="D1b-ii"):
+        tbsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
 
 
 @pytest.mark.parametrize("D,elem,device,padded", [
@@ -112,7 +151,10 @@ def test_head_dim_route_for_every_head_dim(elem):
     (80, 2, "cuda", False),
     (40, 2, "cuda", False),
     (40, 1, "cpu", False),      # the plain versions copy nothing
-    (256, 2, "cuda", False),    # D1b: the first call raises instead
+    (256, 2, "cuda", False),    # GPT-J's 256: native on the 256-wide tile
+    (132, 2, "cuda", True),     # padded to 256
+    (136, 1, "cuda", True),     # an int8 pool of 136: 8.5 chunks a row
+    (320, 2, "cuda", False),    # D1c: the first call raises instead
 ])
 def test_cache_builders_warn_of_the_padded_route(D, elem, device, padded):
     """The engine and the server warn when their cache or pool would be
@@ -140,7 +182,7 @@ def _flash_inputs(D):
             _normal(rng, (B, T, KH, D)), _normal(rng, (B, T, H, D)))
 
 
-@pytest.mark.parametrize("D", DIMS)
+@pytest.mark.parametrize("D", DIMS + WIDE_DIMS)
 def test_flash_fwd_plain_matches_pallas(D):
     q, k, v, _ = _flash_inputs(D)
     scale = 1.0 / np.sqrt(D)
@@ -170,7 +212,7 @@ def test_flash_bwd_plain_matches_pallas(D):
         _close(got, _from3(want, 2, h))
 
 
-@pytest.mark.parametrize("D", DIMS)
+@pytest.mark.parametrize("D", DIMS + WIDE_DIMS)
 def test_decode_plain_matches_pallas(D):
     rng = _rng(2, D)
     B, S, H, KH = 3, 256, 8, 2
@@ -202,8 +244,8 @@ def _paged_inputs(D, pool):
     return qs, (kq, vq), {"k_scale": ks, "v_scale": vs}
 
 
-PAGED_CASES = ([(D, "fp") for D in DIMS]
-               + [(D, "int8") for D in DIMS if D % 16 == 0])
+PAGED_CASES = ([(D, "fp") for D in DIMS + WIDE_DIMS]
+               + [(D, "int8") for D in DIMS + WIDE_DIMS if D % 16 == 0])
 
 
 @pytest.mark.parametrize("D,pool", PAGED_CASES)
@@ -435,3 +477,65 @@ def test_neox_head_dim_80_serves_like_jax(case):
     assert t_out == t_gen
     if case == "chunked+prefix":
         assert st["prefix_cache_hits"] > 0 and st["prefill_chunks"] > 0
+
+
+# a GPT-J-shaped model at D = 256: parallel attention and MLP behind one
+# shared LayerNorm (no ln2), a quarter of the head dim rotated in GPT-J's
+# interleaved pairs (rotary_dim 64), gelu_new, an untied head with a bias
+GPTJ = dict(vocab_size=128, n_positions=256, n_embd=512, n_layer=2,
+            n_head=2, positional="rotary", rotary_dim=64,
+            rotary_interleaved=True, parallel_attn_mlp=True,
+            activation="gelu_new", tied_lm_head=False, layer_norm_eps=1e-5)
+
+
+def _gptj_engines(knobs):
+    jcfg = jt.InferenceTransformerConfig(**GPTJ, dtype=jnp.float32)
+    jp = jax.device_get(jt.init_params(jax.random.PRNGKey(1), jcfg))
+    jp["lm_head_bias"] = _normal(_rng(7), (GPTJ["vocab_size"],))
+    assert all("ln2" not in lay for lay in jp["layers"])
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(jcfg) if f.name != "dtype"}
+    tcfg = tt.InferenceTransformerConfig(**fields, dtype=torch.float32)
+    assert tcfg.head_dim == 256
+    tp = params_from_numpy(jp, "cpu", torch.float32)
+    assert "lm_head_bias" in tp
+    conf = dict(dtype="float32", max_out_tokens=256, block_size=32,
+                num_slots=2)
+    conf.update(knobs)
+    return (JaxEngine((jcfg, jax.tree_util.tree_map(jnp.asarray, jp)),
+                      JaxConfig(**conf)),
+            InferenceEngine((tcfg, tp), DeepSpeedInferenceConfig(**conf),
+                            device="cpu"))
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("case", ["chunked+prefix", "speculation-k4"])
+def test_gptj_head_dim_256_serves_like_jax(case, pool):
+    """Greedy tokens of the port's generate and paged server against the
+    JAX engine's and server's; over an fp pool also the server against
+    generate (an int8 pool's chunks read quantized prefix keys)."""
+    knobs, prompts = {
+        "chunked+prefix": ({"enable_prefix_caching": True,
+                            "prefill_chunk_tokens": 32},
+                           [SHARED + [100 + i] * (i + 1) for i in range(3)]
+                           + PROMPTS[:2]),
+        "speculation-k4": ({"speculation_tokens": 4},
+                           [[1, 2, 3, 1, 2, 3, 1, 2], [5, 6, 5, 6, 5],
+                            [9, 8, 7, 9, 8]]),
+    }[case]
+    if pool == "int8":
+        knobs = dict(knobs, kv_cache_dtype="int8")
+    je, te = _gptj_engines(knobs)
+    new = 6
+    t_gen = te.generate(prompts, max_new_tokens=new)
+    assert t_gen == [list(r) for r in je.generate(prompts,
+                                                  max_new_tokens=new)]
+    j_out, _ = _serve(JaxServer, je, prompts, new)
+    t_out, st = _serve(ContinuousBatchingServer, te, prompts, new)
+    assert t_out == j_out
+    if pool == "fp":
+        assert t_out == t_gen
+    if case == "chunked+prefix":
+        assert st["prefix_cache_hits"] > 0 and st["prefill_chunks"] > 0
+    else:
+        assert st["speculation"]["verify_steps"] > 0
