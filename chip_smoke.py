@@ -12,9 +12,10 @@ gpt2-2.7b's [8, 1024, 32, 80] and gpt2-760m's [8, 1024, 16, 96] (plus B1
 through the padded route at D=36 beside the native route at 40), B4-B7
 and B5i-B7i at Pythia-2.8B's serving geometry (32 kv heads of 80) and
 GPT-NeoX-20B's (64 of 96), B8 at [2, 4096, 32, 80] and [2, 4096, 16, 96];
-and the serving kernels at head dim 256 (the 256-wide instantiation):
+and every attention kernel at head dim 256 (the 256-wide instantiation):
 B1 at GPT-J-6B's [8, 1024, 16, 256], B4-B7 and B5i-B7i at its serving
-geometry (16 kv heads of 256); each against its plain version on every
+geometry (16 kv heads of 256), B2 and B3 at [8, 1024, 8, 256] (gpt2-1.3b
+with 8 heads of 256), B8 at [2, 4096, 8, 256]; each against its plain version on every
 head, bit-identical on a second call, on inputs that are ``[..., :D]``
 views of buffers whose guard columns hold NaN (B8 also writes into one,
 whose guard columns must stay NaN); their times, bounds (true D) and
@@ -29,8 +30,8 @@ kernel's row.
    flash forward's or backward's or B8's setmaxnreg (C7508) or a 16-bit
    entry of the flash backward, of B1's 256-wide kernel, of B9's
    persistent kernel, of B5/B5i's split kernel, of the B6/B6i and B7/B7i
-   tensor-core kernels, of B4's kernel or of B8's tensor-core kernel
-   spills.
+   tensor-core kernels, of B4's kernel or of B8's two kernels spills, or
+   any entry of B10's kernels.
 2. flash  — the flash-attention kernel against its plain PyTorch version in
    bf16 at GPT-2 XL prefill shapes (B=8, T in {128, 1024}, H=25, D=64), a
    GQA case (H=32, KH=8, D=128), a ragged T, a full (non-causal) case and
@@ -62,7 +63,9 @@ kernel's row.
    projection), at GPT-2 XL shape (H=25, D=64), a GQA case (H=32, KH=8,
    D=128), a ragged T (1000), a non-causal case, fp16 and fp32. A second
    run of both on the training case must give the same bits; then the
-   wrappers' host time per call of the pair at B=1, T=128.
+   wrappers' host time per call of the pair at B=1, T=128; the build
+   fails on a spill in any 16-bit entry, B3's 256-wide role split
+   (`bwd_dkv_split_kernel`) included.
 6. sparse — the block-sparse kernel (B8) against its plain version: (i) the
    GPT-2 1.3B attention geometry (B=2, T=4096, 16 heads of 128, bf16,
    Fixed layout of blocks of 64, causal, q/k/v strided views of one fused
@@ -76,8 +79,11 @@ kernel's row.
    wrapper's host time per call (``host_us``).
 7. layer_norm — the LayerNorm kernels (B9 forward, B10 backward) against
    their plain versions at the GPT-2 1.3B training shape (x [8, 1024,
-   2048] bf16, f32 weights), GPT-2 XL width, a ragged R, fp16 and fp32;
-   B9 and B10 twice on the same inputs must give the same bits.
+   2048] bf16, f32 weights), GPT-2 XL width, a ragged R, fp16, fp32 and
+   rows of 10001 elements (wider than 8192, no whole 16-byte chunks: B10's
+   wide kernel; its time is the ``wide_*`` fields of B10's row); B9 and
+   B10 twice on the same inputs must give the same bits; B10 is timed
+   beside ``native_layer_norm_backward`` in every case.
 8. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
    width (48 layers, n_embd 1600, 25 heads, bf16, random weights from a
    seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy.
@@ -125,12 +131,14 @@ kernel's row.
    2 sequences through the kernels and through the flash kernels' plain
    version under autograd, the losses within TRAIN_LOSS_TOL and every
    layer's ``c_attn.kernel`` gradient within TRAIN_GRAD_TOL relative L2.
-   The same for ``gpt2-760m`` (24 layers, 16 heads of 96) and
-   ``gpt2-2.7b`` (32 layers, 32 heads of 80), at full depth.
+   The same for ``gpt2-760m`` (24 layers, 16 heads of 96),
+   ``gpt2-2.7b`` (32 layers, 32 heads of 80) and ``gpt2-1.3b`` with
+   ``n_head=8`` (8 heads of 256: B1-B3 on their 256-wide instantiations),
+   at full depth.
 11. sparse run — ``SparseSelfAttention`` with layout (i), three calls at
    T=4096 and one at T=2048: 4 kernel launches, one LUT per length, every
    output within SPARSE_TOL of the plain version; then the same at 32
-   heads of 80.
+   heads of 80 and at 8 heads of 256.
 12. layer_norm run — ``fused_layer_norm`` and ``fused_residual_layer_norm``
    under autograd at the 1.3B training shape: 2 forward and 2 backward
    launches; the gradients against autograd through
@@ -140,7 +148,8 @@ The kernel launch counts are set to 0 just before each main-path run (the
 e2e generate, each server, the timed training steps and the sparse and
 layer_norm runs) and read just after. Every attention kernel, int8 ones
 included, must have launched on a main-path run at head dim 80, 96 or
-256, and every serving kernel (B1, B4-B7, B5i-B7i) at 256 on the gptj
+256, every serving kernel (B1, B4-B7, B5i-B7i) at 256 on the gptj path,
+and B1-B3 and B8 at 256 on the train gpt2-1.3b 8x256 or sparse 8 x 256
 path. Kernel times are device times (CUDA events behind a device spin,
 after an L2 flush).
 
@@ -314,9 +323,9 @@ def phase_build():
     for b in (BUILDER, BWD_BUILDER, bsa.BUILDER):
         check("C7508" not in b.ptxas_log,
               f"{b.name}: ptxas ignored setmaxnreg (C7508): " + b.ptxas_log)
-    # and the 16-bit backward kernels and B1's 256-wide entries fit their
-    # setmaxnreg budgets
-    spills = _spills(BWD_BUILDER, "wgmma")
+    # and the 16-bit backward kernels (B3's role split at 256 too) and B1's
+    # 256-wide entries fit their setmaxnreg budgets
+    spills = _spills(BWD_BUILDER, "wgmma|split")
     check(not spills, f"flash_attention_bwd: 16-bit kernels spill: {spills}")
     spills = _spills(
         BUILDER, r"\bflash_fwd_wgmma_kernel<(__nv_bfloat16|__half), 256>")
@@ -324,16 +333,20 @@ def phase_build():
           f"{spills}")
     # no entry of B9's persistent kernel, of B5/B5i's split kernel, of the
     # B7/B7i and B6/B6i tensor-core kernels, of B4's kernel or of B8's
-    # tensor-core kernel over 16-bit queries spills
+    # two kernels over 16-bit queries spills
     for b, kernel in ((ln.BUILDER, "ln_fwd_ring_kernel"),
                       (da.PAGED_BUILDER, "paged_split_kernel"),
                       (da.PAGED_BUILDER, "paged_verify_mma_kernel"),
                       (da.CHUNK_BUILDER, "paged_chunk_mma_kernel"),
                       (da.PAGED_BUILDER, "decode_dense_kernel"),
-                      (bsa.BUILDER, "bsa_wgmma_kernel")):
+                      (bsa.BUILDER, "bsa_wgmma_kernel"),
+                      (bsa.BUILDER, "bsa_mma_kernel")):
         spills = _spills(b, rf"\b{kernel}<(__nv_bfloat16|__half),")
         check(not spills, f"{b.name}: 16-bit {kernel} entries spill: "
               f"{spills}")
+    # nor any entry of B10's kernels
+    spills = _spills(ln.BUILDER, r"\bln_bwd_\w+_kernel<")
+    check(not spills, f"{ln.BUILDER.name}: B10 entries spill: {spills}")
 
 
 # ------------------------------------------------------- head dims to 256
@@ -461,16 +474,18 @@ def _flash_head_dims(flush):
 
 
 def _flash_bwd_head_dims(flush):
-    """B2 and B3 at the two training shapes of _flash_head_dims, q, k, v
-    and dO guarded views, gated as the other backward cases; SDPA's
-    backward is the library time of both."""
+    """B2 and B3 at the two training shapes of _flash_head_dims and at
+    [8, 1024, 8, 256] (gpt2-1.3b with 8 heads of 256), q, k, v and dO
+    guarded views, gated as the other backward cases; SDPA's backward is
+    the library time of both."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(22)
     fields = {"flash_attention_bwd_dq": {}, "flash_attention_bwd_dkv": {}}
     worst = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
     tol = BWD_TOL["16"]
-    for D, B, T, H in ((80, 8, 1024, 32), (96, 8, 1024, 16)):
+    for D, B, T, H in ((80, 8, 1024, 32), (96, 8, 1024, 16),
+                       (256, 8, 1024, 8)):
         q, k, v = _fused_qkv(g, B, T, H, D)
         o, lse = fa.flash_attention_fwd(q, k, v)
         do = _guarded(torch.randn((B, T, H, D), generator=g, device="cuda",
@@ -681,7 +696,8 @@ def _paged_head_dims(flush):
 
 def _sparse_head_dims(flush):
     """B8 on layout (i) (Fixed, blocks of 64, causal) at gpt2-2.7b's
-    [2, 4096, 32, 80] and gpt2-760m's [2, 4096, 16, 96], q/k/v views of a
+    [2, 4096, 32, 80], gpt2-760m's [2, 4096, 16, 96] and 8 heads of 256
+    ([2, 4096, 8, 256], the bytes and operations of case (i)), q/k/v views of a
     guarded fused projection, the output a guarded [B, T, H, D] view (B8
     takes ``out``, for SparseSelfAttention), with the tile order
     SparseSelfAttention caches; SDPA with the dense mask is the library
@@ -693,7 +709,8 @@ def _sparse_head_dims(flush):
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(25)
     fields, worst = {}, 0.0
-    for D, B, T, H in ((80, 2, 4096, 32), (96, 2, 4096, 16)):
+    for D, B, T, H in ((80, 2, 4096, 32), (96, 2, 4096, 16),
+                       (256, 2, 4096, 8)):
         lay = _fixed_1p3b(sa, H).make_layout(T)
         lut_np, counts_np = bsa.build_lut(lay)
         lut, counts = (torch.as_tensor(x, device="cuda")
@@ -1627,7 +1644,10 @@ def phase_layer_norm(flush):
              ("gpt2-xl width", (8192, 1600), bf16),
              ("ragged", (1000, 768), bf16),
              ("fp16", (4096, 2048), f16),
-             ("fp32", (4096, 2048), f32)]
+             ("fp32", (4096, 2048), f32),
+             # rows wider than 8192 that are no whole 16-byte chunks: B10's
+             # wide kernel, scalar loads
+             ("wide unaligned", (2048, 10001), bf16)]
     worst = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
     rows = {}
     for name, shape, dt in cases:
@@ -1675,6 +1695,13 @@ def phase_layer_norm(flush):
         ms_f = cuda_ms(lambda: ln.layer_norm_fwd(x2, w, b), 50, flush)
         ms_b = cuda_ms(lambda: ln.layer_norm_bwd(x2, w, mean, rstd, go2), 50,
                        flush)
+        # PyTorch's own LayerNorm backward, its weights in x's dtype
+        wl, bl = w.to(dt), b.to(dt)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(
+            x2, [N], wl, bl, 1e-5)
+        lib_b = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            go2, x2, [N], lmean, lrstd, wl, bl, [True, True, True]), 50,
+            flush)
         msg = (f"[layer_norm] {name}: x {list(shape)} "
                f"{str(dt).replace('torch.', '')}, f32 weights; max|o err| "
                f"{err_o!r}, max|dx err| {err_dx!r} (limits {tol}), mean/rstd "
@@ -1682,21 +1709,17 @@ def phase_layer_norm(flush):
                f"B10 bit-identical twice; B9 {ms_f!r} ms (bound {b_f[0]!r} "
                f"{b_f[1]}, {(2 * R * N * esz) / ms_f / 1e6:.1f} GB/s), B10 "
                f"{ms_b!r} ms (bound {b_b[0]!r} {b_b[1]}, "
-               f"{(3 * R * N * esz) / ms_b / 1e6:.1f} GB/s)")
+               f"{(3 * R * N * esz) / ms_b / 1e6:.1f} GB/s), "
+               f"native_layer_norm_backward {lib_b!r} ms (B10 / native "
+               f"{ms_b / lib_b:.3f})")
         if name == "gpt2-1.3b train":
             plain_f = cuda_ms(lambda: ln.layer_norm_fwd_reference(
                 x2, w, b, 1e-5), 10, flush)
             plain_b = cuda_ms(lambda: ln.layer_norm_bwd_reference(
                 x2, w, mean, rstd, go2), 10, flush)
             # PyTorch's own LayerNorm, its weights in x's dtype
-            wl, bl = w.to(dt), b.to(dt)
             lib_f = cuda_ms(lambda: F.layer_norm(x2, (N,), wl, bl, 1e-5), 50,
                             flush)
-            _, lmean, lrstd = torch.ops.aten.native_layer_norm(
-                x2, [N], wl, bl, 1e-5)
-            lib_b = cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                go2, x2, [N], lmean, lrstd, wl, bl, [True, True, True]), 50,
-                flush)
             rows = {"layer_norm_fwd": dict(ms=ms_f, plain_ms=plain_f,
                                            bound_ms=b_f[0], bound_by=b_f[1],
                                            library_ms=lib_f),
@@ -1704,10 +1727,12 @@ def phase_layer_norm(flush):
                                            bound_ms=b_b[0], bound_by=b_b[1],
                                            library_ms=lib_b)}
             msg += (f"; plain B9 {plain_f!r} ms, B10 {plain_b!r} ms; "
-                    f"F.layer_norm {lib_f!r} ms, native_layer_norm_backward "
-                    f"{lib_b!r} ms")
+                    f"F.layer_norm {lib_f!r} ms")
+        elif name == "wide unaligned":
+            rows["layer_norm_bwd"].update(
+                wide_ms=ms_b, wide_bound_ms=b_b[0], wide_library_ms=lib_b)
         log(msg)
-        del x, go, x2, go2, o, o_, dx, dx_, ro, rdx
+        del x, go, x2, go2, o, o_, dx, dx_, ro, rdx, lmean, lrstd
     for k in rows:
         rows[k]["max_abs_err"] = worst[k]
     return rows
@@ -1810,17 +1835,19 @@ def run_layer_norm():
     return counts
 
 
-# the training presets' parameter counts at full depth (the port's leaves)
+# the training presets' parameter counts at full depth (the port's leaves);
+# a head-count override keeps the preset's count
 TRAIN_PARAMS = {"gpt2-760m": 758799360, "gpt2-1.3b": 1313722368,
                 "gpt2-2.7b": 2649052160}
 
 
-def phase_train(preset="gpt2-1.3b"):
-    """The training main path of a GPT-2 preset at full width and depth;
-    returns its launch counts, read just after the timed steps."""
+def phase_train(preset="gpt2-1.3b", n_head=None):
+    """The training main path of a GPT-2 preset at full width and depth
+    (``n_head`` overrides its head count: gpt2-1.3b with 8 heads has heads
+    of 256); returns its launch counts, read just after the timed steps."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
-    cfg = config_for(preset)
+    cfg = config_for(preset, **({} if n_head is None else {"n_head": n_head}))
     L = cfg.n_layer
     model = GPT2LMModel(cfg)
     t0 = time.perf_counter()
@@ -2590,8 +2617,14 @@ def main() -> int:
     for preset in ("gpt2-760m", "gpt2-2.7b"):
         runs[f"train {preset}"] = new_d[f"train {preset}"] = phase_train(
             preset)
+    # heads of 256 in training and in the sparse run (Gemma-2B's query
+    # geometry: 8 heads of 256 at 2048 wide)
+    d256 = {"train gpt2-1.3b 8x256": phase_train("gpt2-1.3b", n_head=8)}
     runs["sparse"] = run_sparse()
     runs["sparse 32 x 80"] = new_d["sparse 32 x 80"] = run_sparse(32, 80)
+    d256["sparse 8 x 256"] = run_sparse(8, 256)
+    new_d.update(d256)
+    runs.update(d256)
     runs["layer_norm"] = run_layer_norm()
     # launches: summed over the main-path runs, each read just after it
     launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels}
@@ -2608,6 +2641,11 @@ def main() -> int:
     for k in _PAGED_KERNELS:
         check(sum(r.get(k, 0) for r in gptj.values()) > 0,
               f"{k} never launched at head dim 256 on the gptj path")
+    # and B1-B3 and B8 at 256 on the training and sparse paths
+    for k in ("flash_attention_fwd", *_BWD_KERNELS, "block_sparse_attention"):
+        check(sum(r.get(k, 0) for r in d256.values()) > 0,
+              f"{k} never launched at head dim 256 on the train gpt2-1.3b "
+              f"8x256 or sparse 8 x 256 path")
     log(f"[launches] per run {runs}")
     meta = {
         "flash_attention_fwd": (

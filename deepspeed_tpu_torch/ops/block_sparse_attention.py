@@ -17,13 +17,13 @@ fused projection need no copy). Numerics follow the TPU kernel: scores are
 dtype before ``P.V``; a row with no visible key (count 0, or every visible
 block causally masked) gives exactly 0.
 
-Head dims: any ``D <= 128`` (:func:`~deepspeed_tpu_torch.ops.head_dim.
+Head dims: any ``D <= 256`` (:func:`~deepspeed_tpu_torch.ops.head_dim.
 head_dim_route`). Where a row of ``D`` elements is whole 16-byte chunks
-(16-bit: ``D % 8 == 0``, f32: ``D % 4 == 0``) the kernel runs its 64- or
-128-wide instantiation on the tensors as they are; any other ``D`` (the
-padded route, correct and slow) zero-pads q, k and v to that width, one
-copy each, and writes the first ``D`` columns of the result. ``D > 128``
-raises (fault D1b-ii).
+(16-bit: ``D % 8 == 0``, f32: ``D % 4 == 0``) the kernel runs its 64-,
+128- or 256-wide instantiation on the tensors as they are; any other ``D``
+(the padded route, correct and slow) zero-pads q, k and v to that width,
+one copy each, and writes the first ``D`` columns of the result. ``D >
+256`` raises (fault D1c).
 
 On CPU tensors the wrapper runs :func:`block_sparse_attention_reference`;
 on CUDA tensors it launches the kernel or raises. It counts its launches in
@@ -38,8 +38,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.head_dim import (TRAIN_HEAD_DIM, head_dim_route,
-                                              pad_head_dim, unpad_head_dim)
+from deepspeed_tpu_torch.ops.head_dim import (head_dim_route, pad_head_dim,
+                                              unpad_head_dim)
 from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
 
 NEG_INF = -1e30
@@ -228,7 +228,7 @@ def block_sparse_attention(q, k, v, lut, counts, block: int,
                                              causal, scale)
         return o if out is None else out.copy_(o)
     B, H, T, D = q.shape
-    DK, pad = head_dim_route(D, q.element_size(), TRAIN_HEAD_DIM)
+    DK, pad = head_dim_route(D, q.element_size())
     if pad:   # the padded route: one zero-padded copy of each operand
         return unpad_head_dim(block_sparse_attention(
             *(pad_head_dim(x, DK) for x in (q, k, v)), lut, counts, block,

@@ -68,8 +68,16 @@
 // row), listed K/V blocks through a 2-deep cp.async buffer, products on
 // mma.sync.m16n8k16, P from registers. float32 inputs take a plain FMA
 // kernel: one warp per query row.
-// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
-// true head dim Dv <= DK whose rows are whole 16-byte chunks. The tensor
+// At D = 256 a K or V block of 128 keys is 64 KB and O holds 128 registers
+// a thread: `bsa_wgmma_kernel` then streams each listed block through its
+// rings as tiles of 32 keys (2 a block of 64, 4 a block of 128; at 64-key
+// tiles S and P beside O spill), reads q from shared memory for Q.K^T
+// (m64n32k16) and runs P.V as two m64n128k16, one per 128-column half of
+// V: block 64 keeps its two pipelines (2 x 96 KB, 2-slot rings), block 128
+// its one (192 KB, 4-slot rings). `bsa_mma_kernel` at
+// 256 reads q's fragments from its resident q block where it uses them.
+// Head dims: the kernels are instantiated at DK = 64, 128 and 256 and take
+// any true head dim Dv <= DK whose rows are whole 16-byte chunks. The tensor
 // maps are encoded with Dv as their innermost extent (TMA reads zeros past
 // it), the cp.async and pointer loads zero-fill past it, and every store
 // stops at Dv; zero columns change neither q.k nor P.V.
@@ -156,10 +164,17 @@ bsa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const int wr = warp * 16;
-  uint32_t qf[D / 16][4];
+  // q's A fragments, held in registers below D = 256; at 256 (64 registers
+  // beside O's 128) each is read from the resident q block where it is used
+  constexpr bool QF_REGS = D < 256;
+  auto q_frag = [&](uint32_t (&f)[4], int kk) {
+    ldmatrix_x4(f, sQ + (wr + (lane % 8) + ((lane / 8) % 2) * 8) * LD + kk * 16 + (lane / 16) * 8);
+  };
+  uint32_t qf[QF_REGS ? D / 16 : 1][4];
+  if constexpr (QF_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (wr + (lane % 8) + ((lane / 8) % 2) * 8) * LD + kk * 16 + (lane / 16) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) q_frag(qf[kk], kk);
+  }
 
   const int g = lane / 4, t4 = lane % 4;
   const int row_a = wr + g, row_b = row_a + 8;   // rows within the block
@@ -195,12 +210,21 @@ bsa_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < KN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        auto qk_slice = [&](const uint32_t (&a)[4]) {
 #pragma unroll
-        for (int np = 0; np < KN / 16; ++np) {
-          uint32_t bf[4];
-          ldmatrix_x4(bf, cK + (n0 + np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8);
-          mma16816<T>(s[2 * np], qf[kk], bf);
-          mma16816<T>(s[2 * np + 1], qf[kk], bf + 2);
+          for (int np = 0; np < KN / 16; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, cK + (n0 + np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8);
+            mma16816<T>(s[2 * np], a, bf);
+            mma16816<T>(s[2 * np + 1], a, bf + 2);
+          }
+        };
+        if constexpr (QF_REGS) {
+          qk_slice(qf[kk]);
+        } else {
+          uint32_t a[4];
+          q_frag(a, kk);
+          qk_slice(a);
         }
       }
 #pragma unroll
@@ -313,16 +337,28 @@ template <int D, int BLOCK> struct SparseTiles {
   static constexpr int PRODUCER_REGS = 56;
   static constexpr int CONSUMER_REGS = 224;
   static constexpr int HALVES = D / 64;               // 64-column boxes a row
-  static constexpr int STAGES = D == 64 ? 4 : 3;      // slots of the K ring and the V ring
+  // keys a ring tile: a whole block below D = 256; at 256 32 keys (a
+  // block of 128 is 64 KB of K or V, and S and P of 64 keys beside O's 128
+  // registers spill at setmaxnreg's 224), so the two pipelines at block 64
+  // fit two-slot rings beside their q tiles (2 x 96 KB) and the one at 128
+  // a four-slot ring (192 KB)
+  static constexpr int KN = D == 256 ? 32 : BLOCK;
+  static constexpr int SUB = BLOCK / KN;              // ring tiles a listed block
+  static constexpr int STAGES =
+      D == 64 ? 4 : D == 256 ? (BLOCK == 128 ? 4 : 2) : 3;   // slots of the K and V rings
+  // block 64 below D = 256: q's A fragments in registers (at 256 they would
+  // take 64 registers beside O's 128, so Q.K^T reads q from shared memory)
+  static constexpr bool Q_REGS = BLOCK == 64 && D < 256;
   static constexpr int Q_HALF = BLOCK * 128;          // bytes of one box of a q tile
-  static constexpr int KV_HALF = BLOCK * 128;         // bytes of one box of a K or V block
+  static constexpr int KV_HALF = KN * 128;            // bytes of one box of a K or V tile
   static constexpr int Q_BYTES = HALVES * Q_HALF;
   static constexpr int KV_BYTES = HALVES * KV_HALF;
   static constexpr int PIPE_BYTES = Q_BYTES + 2 * STAGES * KV_BYTES;
   // per pipeline: full and empty of q, then full and empty of K and V a slot
   static constexpr int BARS = 2 + 4 * STAGES;
   // bytes a pipeline after the tiles: barriers, tile info (4 ints), the
-  // block index of each slot; a multiple of 8 (the next one's barriers)
+  // ring tile of each slot (block index x SUB + its half); a multiple of 8
+  // (the next one's barriers)
   static constexpr int META = (8 * BARS + 16 + 4 * STAGES + 7) / 8 * 8;
   // pipelines' tiles | pipelines' META | room to align
   static constexpr int SMEM = PIPES * PIPE_BYTES + PIPES * META + 1024;
@@ -449,33 +485,38 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                             qb * BLOCK + 64 * c, b);
           }
         }
-        // visible entry j of one ring, once its slot's previous block is released
-        auto load = [&](const CUtensorMap* map, uint32_t ring, bool is_k, int j, int kb) {
+        // ring tile j (tile t of the keys: block t / SUB, its part t % SUB)
+        // of one ring, once its slot's previous tile is released
+        auto load = [&](const CUtensorMap* map, uint32_t ring, bool is_k, int j, int t) {
           const int jg = base + j;
           mbar_wait(is_k ? empty_k(jg) : empty_v(jg), parity(jg) ^ 1);
-          if (is_k) slot_kb[slot(jg)] = kb;   // published by the arrival below
+          if (is_k) slot_kb[slot(jg)] = t;   // published by the arrival below
           const uint32_t full = is_k ? full_k(jg) : full_v(jg);
           mbar_expect_tx(full, L::KV_BYTES);
           for (int hf = 0; hf < L::HALVES; ++hf)
             tma_load_4d(ring + slot(jg) * L::KV_BYTES + hf * L::KV_HALF, map, full, hf * 64, h,
-                        kb * BLOCK, b);
+                        t * L::KN, b);
         };
-        // K runs one entry ahead of V, in the order the consumers take them
+        // K runs one tile ahead of V, in the order the consumers take them
         int v = 0, prev = 0;
         for (int j0 = 0; j0 < count; j0 += 32) {
           int kb;
           for (unsigned m = entry(j0, kb); m; m &= m - 1) {
             const int e = __shfl_sync(0xffffffffu, kb, __ffs(m) - 1);
-            if (lane == 0) {
-              load(&tm_k, sK, true, v, e);
-              if (v > 0) load(&tm_v, sV, false, v - 1, prev);
+#pragma unroll
+            for (int sb = 0; sb < L::SUB; ++sb) {
+              const int t = e * L::SUB + sb;
+              if (lane == 0) {
+                load(&tm_k, sK, true, v, t);
+                if (v > 0) load(&tm_v, sV, false, v - 1, prev);
+              }
+              prev = t;
+              ++v;
             }
-            prev = e;
-            ++v;
           }
         }
-        if (lane == 0 && n_vis > 0) load(&tm_v, sV, false, n_vis - 1, prev);
-        base += n_vis;
+        if (lane == 0 && n_vis > 0) load(&tm_v, sV, false, n_vis * L::SUB - 1, prev);
+        base += n_vis * L::SUB;
         // the next tile and its LUT row, read while this one is multiplied
         fetch();
       }
@@ -490,11 +531,12 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     auto arrive = [&](uint32_t bar) {
       if (lane == 0) mbar_arrive(bar);
     };
+    constexpr int KN = L::KN;
     float acc[D / 2];
     float m_r[2], l_r[2];   // running row max (of S times scale times log2(e)); partial sums
-    float s[BLOCK / 2];     // S of entry j, then its P in f32
-    uint32_t pf[BLOCK / 16][4];   // P of entry j - 1: the A fragment of each 16 keys
-    uint32_t qf[BLOCK == 64 ? D / 16 : 1][4];   // block 64: q's A fragments
+    float s[KN / 2];        // S of ring tile j, then its P in f32
+    uint32_t pf[KN / 16][4];   // P of ring tile j - 1: the A fragment of each 16 keys
+    uint32_t qf[L::Q_REGS ? D / 16 : 1][4];   // q's A fragments (Q_REGS)
     float alpha[2];
     int base = 0;
     for (int u = 0;; ++u) {
@@ -517,7 +559,7 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         // tile's q lands while this one runs and Q.K^T reads only K from
         // shared memory (m64n64k16 with both operands there would take all
         // of its bandwidth)
-        if constexpr (BLOCK == 64) {
+        if constexpr (L::Q_REGS) {
           const unsigned char* qs = smem + pipe * L::PIPE_BYTES + r0 * 128;
           const int row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
 #pragma unroll
@@ -527,45 +569,64 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           }
           arrive(empty_q);
         }
-        // S = Q . K^T, 64 x BLOCK: K K-major in shared memory (q too at
-        // block 128); slice kk of 16 columns is 32 bytes into the rows of
-        // box kk / 4
+        // S = Q . K^T, 64 x KN: K K-major in shared memory (q too unless
+        // Q_REGS: m64n128k16 at block 128, m64n32k16 at D = 256); slice kk
+        // of 16 columns is 32 bytes into the rows of box kk / 4
         auto issue_qk = [&](int jg) {
           const uint32_t kt = sK + slot(jg) * L::KV_BYTES;
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
             const uint64_t db = wgmma_desc(kt + (kk / 4) * L::KV_HALF + (kk % 4) * 32, 16, 1024);
-            if constexpr (BLOCK == 128) {
-              const uint64_t da = wgmma_desc(my_q + (kk / 4) * L::Q_HALF + (kk % 4) * 32, 16, 1024);
-              wgmma_ss_m64n128k16<T, 0, 0>(s, da, db, kk > 0);
-            } else {
+            if constexpr (L::Q_REGS) {
               WgmmaRS<T, 64, 0>::run(s, qf[kk], db, kk > 0);
+            } else {
+              const uint64_t da = wgmma_desc(my_q + (kk / 4) * L::Q_HALF + (kk % 4) * 32, 16, 1024);
+              if constexpr (KN == 128) {
+                wgmma_ss_m64n128k16<T, 0, 0>(s, da, db, kk > 0);
+              } else {   // 32 keys at D = 256
+                if (kk == 0) wgmma_ss_m64n32k16<T, 0, 0, true>(s, da, db);
+                else wgmma_ss_m64n32k16<T, 0, 0>(s, da, db);
+              }
             }
           }
           wgmma_commit();
         };
         // O += P . V: V is MN-major (D contiguous); slice kk of 16 keys is
-        // 16 rows = 2048 bytes on, the second 64-column box KV_HALF bytes on
+        // 16 rows = 2048 bytes on, the next 64-column box KV_HALF bytes on.
+        // At D = 256, O's 128-column halves (V's boxes 0-1 and 2-3) are each
+        // the accumulator of one m64n128k16 (registers 4i + e of the m64n256
+        // layout, column 8i + 2 t4 + (e & 1), are the same)
         auto issue_pv = [&](int jg) {
           const uint32_t vt = sV + slot(jg) * L::KV_BYTES;
 #pragma unroll
-          for (int kk = 0; kk < BLOCK / 16; ++kk)
-            WgmmaRS<T, D, 1>::run(acc, pf[kk], wgmma_desc(vt + kk * 2048, L::KV_HALF, 1024), 1);
+          for (int kk = 0; kk < KN / 16; ++kk) {
+            if constexpr (D == 256) {
+              float(&o_lo)[64] = *reinterpret_cast<float(*)[64]>(acc);
+              float(&o_hi)[64] = *reinterpret_cast<float(*)[64]>(acc + 64);
+              WgmmaRS<T, 128, 1>::run(o_lo, pf[kk], wgmma_desc(vt + kk * 2048, L::KV_HALF, 1024), 1);
+              WgmmaRS<T, 128, 1>::run(o_hi, pf[kk],
+                                      wgmma_desc(vt + 2 * L::KV_HALF + kk * 2048, L::KV_HALF, 1024), 1);
+            } else {
+              WgmmaRS<T, D, 1>::run(acc, pf[kk], wgmma_desc(vt + kk * 2048, L::KV_HALF, 1024), 1);
+            }
+          }
           wgmma_commit();
         };
         // scale, diagonal mask, new running max, rescale factor alpha,
         // S -> P in place, l
         auto softmax = [&](int jg) {
-          if (causal && slot_kb[slot(jg)] == qb) {
+          const int t = slot_kb[slot(jg)];   // block t / SUB, keys from (t % SUB) KN
+          if (causal && t / L::SUB == qb) {
+            const int c0 = (t % L::SUB) * KN;
 #pragma unroll
-            for (int nt = 0; nt < BLOCK / 8; ++nt)
+            for (int nt = 0; nt < KN / 8; ++nt)
 #pragma unroll
               for (int e = 0; e < 4; ++e)
-                if (nt * 8 + 2 * t4 + (e & 1) > (e < 2 ? ra : rb)) s[nt * 4 + e] = -INFINITY;
+                if (c0 + nt * 8 + 2 * t4 + (e & 1) > (e < 2 ? ra : rb)) s[nt * 4 + e] = -INFINITY;
           }
           float rm[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-          for (int nt = 0; nt < BLOCK / 8; ++nt) {
+          for (int nt = 0; nt < KN / 8; ++nt) {
             rm[0] = fmaxf(rm[0], fmaxf(s[nt * 4], s[nt * 4 + 1]));
             rm[1] = fmaxf(rm[1], fmaxf(s[nt * 4 + 2], s[nt * 4 + 3]));
           }
@@ -580,7 +641,7 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             m_r[x] = mx;
           }
 #pragma unroll
-          for (int x = 0; x < BLOCK / 2; ++x) {
+          for (int x = 0; x < KN / 2; ++x) {
             s[x] = ex2(fmaf(s[x], sl2, -bias[(x / 2) % 2]));
             rs[(x / 2) % 2] += s[x];
           }
@@ -592,7 +653,7 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
           for (int x = 0; x < D / 2; ++x) acc[x] *= alpha[(x / 2) % 2];
 #pragma unroll
-          for (int nt = 0; nt < BLOCK / 8; ++nt) {
+          for (int nt = 0; nt < KN / 8; ++nt) {
             pf[nt / 2][(nt % 2) * 2 + 0] = pack2<T>(s[nt * 4], s[nt * 4 + 1]);
             pf[nt / 2][(nt % 2) * 2 + 1] = pack2<T>(s[nt * 4 + 2], s[nt * 4 + 3]);
           }
@@ -608,7 +669,8 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         softmax(base);
         arrive(empty_k(base));
         rescale_and_pack();
-        for (int j = 1; j < n_vis; ++j) {
+        const int n_t = n_vis * L::SUB;   // ring tiles of the tile's visible entries
+        for (int j = 1; j < n_t; ++j) {
           const int jg = base + j;
           mbar_wait(full_k(jg), parity(jg));
           mbar_wait(full_v(jg - 1), parity(jg - 1));
@@ -626,9 +688,9 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           arrive(empty_v(jg - 1));
           rescale_and_pack();
         }
-        if constexpr (BLOCK == 128)
+        if constexpr (!L::Q_REGS)
           arrive(empty_q);   // every Q.K^T of the tile is done: q may take the next tile
-        const int jl = base + n_vis - 1;
+        const int jl = base + n_t - 1;
         mbar_wait(full_v(jl), parity(jl));
         wgmma_fence_operands(acc);
         wgmma_fence();
@@ -636,7 +698,7 @@ bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         wgmma_wait<0>();
         wgmma_fence_operands(acc);
         arrive(empty_v(jl));
-        base += n_vis;
+        base += n_t;
       } else {
         arrive(empty_q);
       }
@@ -709,8 +771,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   using L = SparseTiles<D, BLOCK>;
   CUtensorMap tq, tk, tv;
   if (!cached_map<T>(&tq, q, Dv, H, T_len, B, st.q_h, st.q_t, st.q_b, 64) ||
-      !cached_map<T>(&tk, k, Dv, H, T_len, B, st.k_h, st.k_t, st.k_b, BLOCK) ||
-      !cached_map<T>(&tv, v, Dv, H, T_len, B, st.v_h, st.v_t, st.v_b, BLOCK))
+      !cached_map<T>(&tk, k, Dv, H, T_len, B, st.k_h, st.k_t, st.k_b, L::KN) ||
+      !cached_map<T>(&tv, v, Dv, H, T_len, B, st.v_h, st.v_t, st.v_b, L::KN))
     return cudaErrorInvalidValue;
   // per device, looked up once: the shared-memory limit of the function
   // and the number of SMs (one persistent block each)
@@ -850,7 +912,7 @@ cudaError_t launch_f32(int block, const void* q, const void* k, const void* v,
 // kernel takes the tiles of each batch row. next_tile: one int32 on the
 // device, 0 before the first launch (the kernel leaves it 0); launches that
 // share it run in order. dtype: 0 float32, 1 float16, 2 bfloat16. block in
-// {16, 32, 64, 128}, T = nb * block, D (the kernel width) in {64, 128} and
+// {16, 32, 64, 128}, T = nb * block, D (the kernel width) in {64, 128, 256} and
 // Dv, the true head dim of q, k, v and o, 1 <= Dv <= D with rows of Dv
 // elements whole 16-byte chunks.
 extern "C" int dstt_block_sparse_attention(
@@ -872,11 +934,14 @@ extern "C" int dstt_block_sparse_attention(
   const int nb = T_len / block;
   if (dtype == 2 && D == 64) return (int)launch_block<__nv_bfloat16, 64>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
   if (dtype == 2 && D == 128) return (int)launch_block<__nv_bfloat16, 128>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
+  if (dtype == 2 && D == 256) return (int)launch_block<__nv_bfloat16, 256>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
   if (dtype == 1 && D == 64) return (int)launch_block<__half, 64>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
   if (dtype == 1 && D == 128) return (int)launch_block<__half, 128>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
+  if (dtype == 1 && D == 256) return (int)launch_block<__half, 256>(block, q, k, v, o, l, c, ord, nt, B, H, nb, max_active, Dv, st, scale, causal, s);
   if (block != 16 && block != 32 && block != 64 && block != 128) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64) return (int)launch_f32<64>(block, q, k, v, o, l, c, B, H, nb, max_active, Dv, st, scale, causal, s);
   if (dtype == 0 && D == 128) return (int)launch_f32<128>(block, q, k, v, o, l, c, B, H, nb, max_active, Dv, st, scale, causal, s);
+  if (dtype == 0 && D == 256) return (int)launch_f32<256>(block, q, k, v, o, l, c, B, H, nb, max_active, Dv, st, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

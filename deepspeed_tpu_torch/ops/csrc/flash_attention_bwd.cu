@@ -71,10 +71,23 @@
 //  * Epilogue: dq (x scale), dk (x scale) and dv, rounded, go through the
 //    warpgroup's rows of its resident tile (no longer read) to a TMA store
 //    that drops rows past T.
+// At D = 256 (Gemma-shaped heads) these tiles do not fit the SM:
+//  * dq: a double-buffered Q and dO pair of 128 rows alone takes 256 KB,
+//    and dQ holds 128 registers a thread. `DqTiles<256>` keeps one (Q, dO)
+//    buffer (128 KB: the producer loads the next tile's once this one's dq
+//    is stored) and streams K and V in tiles of 32 keys through 3-slot
+//    rings (96 KB): S and dP are m64n32k16 (16 registers each beside dQ's
+//    128), dQ += dS.K two m64n128k16 a slice of 16 keys, one per
+//    128-column half of K. Two warpgroups of 64 rows keep a 128-row tile,
+//    so each K/V tile still serves 128 q rows.
+//  * dk/dv: dK and dV of one warpgroup's 64 keys would be 256 registers a
+//    thread. `bwd_dkv_split_kernel` gives the two warpgroups one tile of 64
+//    keys and a role each (dV, dK), passing P^T between them through shared
+//    memory; its note below gives the design.
 // float32 inputs take plain FMA kernels: one warp per query row (dq) or
 // per key row (dk/dv).
-// Head dims: the kernels are instantiated at DK = 64 and 128 and take any
-// true head dim Dv <= DK whose rows are whole 16-byte chunks. Every tensor
+// Head dims: the kernels are instantiated at DK = 64, 128 and 256 and take
+// any true head dim Dv <= DK whose rows are whole 16-byte chunks. Every tensor
 // map is encoded with Dv as its innermost extent (dq, dk and dv are packed
 // [B, T, heads, Dv]), so TMA reads the columns past Dv as zeros and the
 // stores drop them; dq's pointer loads of O are zero past Dv, so
@@ -131,15 +144,25 @@ template <int D, int C = 2> struct Tiles {
   static constexpr int HEAD_GROUP = 16;
 };
 
-// dq: 2 q buffers (Q, dO) | K ring | V ring | mbarriers: full and empty of
-// each q buffer, then full and empty of K and V per slot | 2 tile indices
+// dq: q buffers (Q, dO) | K ring | V ring | mbarriers: full and empty of
+// each q buffer (room for 2), then full and empty of K and V per slot | 2
+// tile indices
 template <int D> struct DqTiles : Tiles<D, D == 64 ? 3 : 2> {
   using B_ = Tiles<D, D == 64 ? 3 : 2>;
+  // keys a K/V tile: 32 at D = 256, where a Q and dO pair of 128 rows takes
+  // 128 KB and the rings what is left; S and dP of 32 keys (16 registers
+  // each) sit beside dQ's 128
+  static constexpr int KN = D == 256 ? 32 : 64;
+  // (Q, dO) buffers: one at D = 256 (a second would not fit beside the rings)
+  static constexpr int Q_BUFS = D == 256 ? 1 : 2;
+  static constexpr int KV_HALF = KN * 128;                  // one box of a K or V tile
+  static constexpr int KV_BYTES = B_::HALVES * KV_HALF;     // a K or V tile
   // depth of the K ring and the V ring: a K tile is held until dQ of the
   // next key tile's turn is done, so two stages would leave none to prefetch
   static constexpr int STAGES = D == 64 ? 4 : 3;
-  static constexpr int BARRIERS = 4 * B_::RES_BYTES + 2 * STAGES * B_::STREAM_BYTES;
+  static constexpr int BARRIERS = Q_BUFS * 2 * B_::RES_BYTES + 2 * STAGES * KV_BYTES;
   static constexpr int SMEM = BARRIERS + 8 * (4 + 4 * STAGES) + 8 + 1024;   // + room to align
+  static_assert(SMEM <= 232448, "the SM's shared memory");
 };
 
 // dk/dv: 2 kv buffers (K, V) | q ring of stages (Q, dO) | each stage's 64
@@ -228,10 +251,10 @@ __device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
 }
 
 // d = A.B^T over D columns, 64 x N (N = 64 or 32), both operands K-major
-// tiles of 128-byte rows (A's box columns `a_half` bytes apart, B's a box
-// apart): slice kk of 16 columns is 32 bytes into the rows of box kk / 4.
+// tiles of 128-byte rows (A's box columns `a_half` bytes apart, B's
+// B_HALF): slice kk of 16 columns is 32 bytes into the rows of box kk / 4.
 // The first slice overwrites d.
-template <typename T, int D, int N>
+template <typename T, int D, int N, int B_HALF = 64 * 128>
 __device__ __forceinline__ void kmajor_product(float (&d)[N / 2], uint32_t a, int a_half,
                                                uint32_t b) {
   // the descriptors are built here, each before its product: hoisted out of
@@ -241,7 +264,7 @@ __device__ __forceinline__ void kmajor_product(float (&d)[N / 2], uint32_t a, in
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t da = wgmma_desc(a + (kk / 4) * a_half + (kk % 4) * 32, 16, 1024);
-    const uint64_t db = wgmma_desc(b + (kk / 4) * Tiles<D>::BOX + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = wgmma_desc(b + (kk / 4) * B_HALF + (kk % 4) * 32, 16, 1024);
     if constexpr (N == 64) {
       if (kk == 0) wgmma_ss_m64n64k16<T, 0, 0, true>(d, da, db);
       else wgmma_ss_m64n64k16<T, 0, 0>(d, da, db);
@@ -265,19 +288,20 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     int* __restrict__ next_tile, int T_len, int H, int KH, int B, int Dv,
                     long long os_b, long long os_t, long long os_h, float scale, int causal) {
   using L = DqTiles<D>;
+  constexpr int KN = L::KN, QB = L::Q_BUFS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: boxes start on that grid
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t s0 = smem_u32(smem);
-  const uint32_t sK = s0 + 4 * L::RES_BYTES;
-  const uint32_t sV = sK + L::STAGES * L::STREAM_BYTES;
+  const uint32_t sK = s0 + QB * 2 * L::RES_BYTES;
+  const uint32_t sV = sK + L::STAGES * L::KV_BYTES;
   const uint32_t bars = s0 + L::BARRIERS;
   volatile int* tile_slot =
       reinterpret_cast<volatile int*>(smem + L::BARRIERS + 8 * (4 + 4 * L::STAGES));
-  // q buffer u % 2 (Q, then dO) holds the block's u-th tile, in phase (u / 2) & 1
-  auto qbuf = [](int u) { return (u % 2) * 2 * L::RES_BYTES; };
-  auto full_q = [&](int u) { return bars + 8 * (u % 2); };
-  auto empty_q = [&](int u) { return bars + 8 * (2 + u % 2); };
+  // q buffer u % QB (Q, then dO) holds the block's u-th tile, in phase (u / QB) & 1
+  auto qbuf = [](int u) { return (u % QB) * 2 * L::RES_BYTES; };
+  auto full_q = [&](int u) { return bars + 8 * (u % QB); };
+  auto empty_q = [&](int u) { return bars + 8 * (2 + u % QB); };
   // key tile j (counted over every tile the block takes) sits in slot
   // j % STAGES of both rings, in phase (j / STAGES) & 1
   auto slot = [](int j) { return j % L::STAGES; };
@@ -293,7 +317,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // would stick out past row 0 is the lightest under a causal mask, and its
   // warpgroup of rows < 0 sits out
   const int T64 = (T_len + 63) / 64 * 64;
-  const int n_keys = T64 / 64;   // key tiles of 64
+  const int n_keys = (T_len + KN - 1) / KN;   // key tiles of KN
   auto tile_of = [&](int i, int& q0, int& h, int& b, int& n_kt) {
     const int group = i / (n_qt * L::HEAD_GROUP);
     const int first = group * L::HEAD_GROUP;
@@ -302,11 +326,11 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     q0 = T64 - (1 + w / size) * L::BLOCK_M;   // heaviest first
     h = (first + w % size) % H;
     b = (first + w % size) / H;
-    n_kt = causal ? min(n_keys, (q0 + L::BLOCK_M) / 64) : n_keys;   // through the diagonal
+    n_kt = causal ? min(n_keys, (q0 + L::BLOCK_M) / KN) : n_keys;   // through the diagonal
   };
 
   if (threadIdx.x == 0) {
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < QB; ++u) {
       mbar_init(full_q(u), 1);
       mbar_init(empty_q(u), 4 * L::CONSUMERS);   // lane 0 of each consumer warp
     }
@@ -327,10 +351,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == L::CONSUMERS * WG_THREADS) {
       int base = 0;
       for (int u = 0;; ++u) {
-        // the q buffer of tile u - 2 is free once its dq has been stored
-        mbar_wait(empty_q(u), ((u / 2) & 1) ^ 1);
+        // the q buffer of tile u - QB is free once its dq has been stored
+        mbar_wait(empty_q(u), ((u / QB) & 1) ^ 1);
         const int i = atomicAdd(next_tile, 1);
-        tile_slot[u % 2] = i;   // published by the arrival on full_q
+        tile_slot[u % QB] = i;   // published by the arrival on full_q
         if (i >= n_tiles) {
           mbar_arrive(full_q(u));
           break;
@@ -354,10 +378,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         int j) {
           const int jg = base + j;
           mbar_wait(empty, parity(jg) ^ 1);
-          mbar_expect_tx(full, L::STREAM_BYTES);
+          mbar_expect_tx(full, L::KV_BYTES);
           for (int hf = 0; hf < L::HALVES; ++hf)
-            tma_load_4d(ring + slot(jg) * L::STREAM_BYTES + hf * L::BOX, map, full, hf * 64, kh,
-                        j * 64, b);
+            tma_load_4d(ring + slot(jg) * L::KV_BYTES + hf * L::KV_HALF, map, full, hf * 64, kh,
+                        j * KN, b);
         };
         for (int j = 0; j < n_kt; ++j) {
           load(&tm_k, sK, full_k(base + j), empty_k(base + j), j);
@@ -377,19 +401,19 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       __syncwarp();
     };
     constexpr int CH = D / 32;   // 16-byte chunks of a row each of its four threads sums
-    float s[32], dp[32], dq[D / 2];
-    uint32_t dsf[4][4];   // dS of key tile j - 1: the A fragment of each 16 keys
+    float s[KN / 2], dp[KN / 2], dq[D / 2];
+    uint32_t dsf[KN / 16][4];   // dS of key tile j - 1: the A fragment of each 16 keys
     int base = 0;
     for (int u = 0;; ++u) {
-      mbar_wait(full_q(u), (u / 2) & 1);
-      const int i = tile_slot[u % 2];
+      mbar_wait(full_q(u), (u / QB) & 1);
+      const int i = tile_slot[u % QB];
       if (i >= n_tiles) break;
       int q0, h, b, n_kt;
       tile_of(i, q0, h, b, n_kt);
       const int qr = q0 + r0;   // first row of this warpgroup
       // key tiles this warpgroup multiplies: through its own diagonal, none
       // when its rows lie before row 0; it still releases every tile
-      int n_wg = causal ? min(n_kt, qr / 64 + 1) : n_kt;
+      int n_wg = causal ? min(n_kt, (qr + 64) / KN) : n_kt;
       if (qr < 0) n_wg = 0;
       if (n_wg > 0) {
         unsigned char* q_rows = smem + qbuf(u) + r0 * 128;   // its rows in each box
@@ -418,35 +442,50 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         scale_rows<T, D>(q_rows, L::RES_HALF, scale, tid);
         fence_proxy_async();
         named_barrier(1 + wg, WG_THREADS);
+        if constexpr (D != 256) {
 #pragma unroll
-        for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+          for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+        }
 
-        // S = Qs.K^T and dP = dO.V^T, 64 x 64: all operands K-major; slice
+        // S = Qs.K^T and dP = dO.V^T, 64 x KN: all operands K-major; slice
         // kk of 16 columns is 32 bytes into the rows of box kk / 4
         auto issue_sdp = [&](int jg) {
-          const uint32_t kt = sK + slot(jg) * L::STREAM_BYTES;
-          const uint32_t vt = sV + slot(jg) * L::STREAM_BYTES;
-          kmajor_product<T, D, 64>(s, my_q, L::RES_HALF, kt);
-          kmajor_product<T, D, 64>(dp, my_do, L::RES_HALF, vt);
+          const uint32_t kt = sK + slot(jg) * L::KV_BYTES;
+          const uint32_t vt = sV + slot(jg) * L::KV_BYTES;
+          kmajor_product<T, D, KN, L::KV_HALF>(s, my_q, L::RES_HALF, kt);
+          kmajor_product<T, D, KN, L::KV_HALF>(dp, my_do, L::RES_HALF, vt);
           wgmma_commit();
         };
         // dQ += dS.K: K is MN-major (D contiguous); slice kk of 16 keys is 16
-        // rows = 2048 bytes on, the second 64-column box BOX bytes on
+        // rows = 2048 bytes on, the next 64-column box KV_HALF bytes on. At
+        // D = 256, dQ's 128-column halves (K's boxes 0-1 and 2-3) are each
+        // the accumulator of one m64n128k16: registers 4i + e of the m64n256
+        // layout, column 8i + 2 t4 + (e & 1), are the same
         auto issue_dq = [&](int jg) {
-          uint32_t kt = sK + slot(jg) * L::STREAM_BYTES;
+          uint32_t kt = sK + slot(jg) * L::KV_BYTES;
           opaque(kt);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            WgmmaRS<T, D, 1>::run(dq, dsf[kk], wgmma_desc(kt + kk * 2048, L::BOX, 1024), 1);
+          for (int kk = 0; kk < KN / 16; ++kk) {
+            if constexpr (D == 256) {
+              float(&dq_lo)[64] = *reinterpret_cast<float(*)[64]>(dq);
+              float(&dq_hi)[64] = *reinterpret_cast<float(*)[64]>(dq + 64);
+              WgmmaRS<T, 128, 1>::run(dq_lo, dsf[kk], wgmma_desc(kt + kk * 2048, L::KV_HALF, 1024),
+                                      1);
+              WgmmaRS<T, 128, 1>::run(
+                  dq_hi, dsf[kk], wgmma_desc(kt + 2 * L::KV_HALF + kk * 2048, L::KV_HALF, 1024), 1);
+            } else {
+              WgmmaRS<T, D, 1>::run(dq, dsf[kk], wgmma_desc(kt + kk * 2048, L::KV_HALF, 1024), 1);
+            }
+          }
           wgmma_commit();
         };
         float dl_a, dl_b;
         // P = exp(s - lse) and dS = P o (dP - delta) in f32, in dp's registers
         auto make_ds = [&](int j) {
-          const int k0 = j * 64;
-          const bool masked = (causal && k0 + 63 > qr) || k0 + 64 > T_len;
+          const int k0 = j * KN;
+          const bool masked = (causal && k0 + KN - 1 > qr) || k0 + KN > T_len;
 #pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
+          for (int nt = 0; nt < KN / 8; ++nt) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = k0 + nt * 8 + 2 * t4 + (e & 1);
@@ -491,12 +530,16 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
           __syncwarp();
         }
+        if constexpr (D == 256) {   // dQ's zeros are not held through delta's loads
+#pragma unroll
+          for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+        }
         wgmma_wait<0>();
         wgmma_fence_operands(s);
         wgmma_fence_operands(dp);
         arrive(empty_v(base));
         make_ds(0);
-        pack_frags<T, 64>(dsf, dp);
+        pack_frags<T, KN>(dsf, dp);
         // S and dP of key tile j are issued with dQ of j - 1; the exp/dS
         // work of j runs while dQ of j - 1 is on the tensor cores
         for (int j = 1; j < n_wg; ++j) {
@@ -517,7 +560,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_wait<0>();
           wgmma_fence_operands(dq);
           arrive(empty_k(jg - 1));
-          pack_frags<T, 64>(dsf, dp);
+          pack_frags<T, KN>(dsf, dp);
         }
         const int jl = base + n_wg - 1;
         wgmma_fence_operands(dq);
@@ -781,6 +824,274 @@ bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------- B3 at D = 256: a role split
+//
+// dK and dV of 64 keys at 256 columns are 256 f32 registers a thread, past
+// the 255 a thread can hold, so at D = 256 a block's two consumer
+// warpgroups share one tile of 64 keys and split the work by role, each
+// with one 128-register accumulator:
+//  * the dV warpgroup computes S^T = Ks.Q^T and P^T = exp(S^T - lse),
+//    hands P^T in f32 to the other through shared memory, and accumulates
+//    dV += P^T.dO;
+//  * the dK warpgroup computes dP^T = V.dO^T, takes P^T, forms dS^T =
+//    P^T o (dP^T - delta) and accumulates dK += dS^T.Q.
+// The products are those of the two-consumer kernel above (none is done
+// twice); only P^T crosses between the warpgroups, 16 KB a q tile through
+// two slots. K and V (64 KB) have one buffer; Q and dO stream through two
+// stages of 64 rows (128 KB). Each warpgroup stores its result through the
+// resident tile it alone reads: dV through K's rows, dK through V's.
+struct DkvSplitTiles {
+  static constexpr int D = 256;
+  static constexpr int CONSUMERS = 2;               // the dV and the dK warpgroup
+  static constexpr int THREADS = 3 * WG_THREADS;    // the producer's last
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int HALVES = D / 64;             // 64-column boxes a row
+  static constexpr int BOX = 64 * 128;              // bytes of a box of 64 rows
+  static constexpr int TILE_BYTES = HALVES * BOX;   // 64 rows of K, V, Q or dO
+  static constexpr int STAGES = 2;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;   // Q, then dO
+  static constexpr int P_BYTES = 64 * 64 * 4;          // P^T of 64 keys x 64 q rows, f32
+  static constexpr int ROWS = 2 * TILE_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int PX = ROWS + STAGES * 2 * 64 * 4;   // after each stage's lse and delta
+  static constexpr int BARRIERS = PX + 2 * P_BYTES;
+  // mbarriers: full and empty of K/V, of each stage, of each P slot | tile index
+  static constexpr int SMEM = BARRIERS + 8 * (2 + 2 * STAGES + 4) + 8 + 1024;
+  static constexpr int HEAD_GROUP = 16;
+  static_assert(SMEM <= 232448, "the SM's shared memory");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(DkvSplitTiles::THREADS, 1)
+bwd_dkv_split_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const __grid_constant__ CUtensorMap tm_lse,
+                     const __grid_constant__ CUtensorMap tm_delta,
+                     const __grid_constant__ CUtensorMap tm_dk,
+                     const __grid_constant__ CUtensorMap tm_dv, int* __restrict__ next_tile,
+                     int T_len, int H, int KH, int B, float scale, int causal) {
+  using L = DkvSplitTiles;
+  constexpr int D = L::D;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = smem_u32(smem);   // K, then V
+  const uint32_t bars = s0 + L::BARRIERS;
+  volatile int* tile_slot =
+      reinterpret_cast<volatile int*>(smem + L::BARRIERS + 8 * (2 + 2 * L::STAGES + 4));
+  // the block's u-th tile holds K/V in phase u & 1; q tile j (counted over
+  // every tile the block takes) sits in stage j % STAGES, in phase
+  // (j / STAGES) & 1; P^T of the n-th q tile a warpgroup multiplies sits in
+  // slot n % 2, in phase (n / 2) & 1
+  const uint32_t full_kv = bars, empty_kv = bars + 8;
+  auto stage = [](int j) { return 2 * L::TILE_BYTES + (j % L::STAGES) * L::STAGE_BYTES; };
+  auto rows_at = [](int j) { return L::ROWS + (j % L::STAGES) * 2 * 64 * 4; };
+  auto parity = [](int j) { return (uint32_t)(j / L::STAGES) & 1; };
+  auto full_r = [&](int j) { return bars + 8 * (2 + j % L::STAGES); };
+  auto empty_r = [&](int j) { return bars + 8 * (2 + L::STAGES + j % L::STAGES); };
+  auto full_p = [&](int n) { return bars + 8 * (2 + 2 * L::STAGES + n % 2); };
+  auto empty_p = [&](int n) { return bars + 8 * (4 + 2 * L::STAGES + n % 2); };
+
+  const int rep = H / KH;
+  const int n_kt = (T_len + 63) / 64;   // key tiles of 64
+  const int n_tiles = n_kt * KH * B;
+  const int n_qt = (T_len + 63) / 64;   // q tiles of 64
+  auto tile_of = [&](int i, int& k0, int& kh, int& b, int& q_first) {
+    const int group = i / (n_kt * L::HEAD_GROUP);
+    const int first = group * L::HEAD_GROUP;
+    const int size = min(L::HEAD_GROUP, KH * B - first);
+    const int w = i - group * n_kt * L::HEAD_GROUP;
+    k0 = (w / size) * 64;   // under a causal mask the first keys see the most rows
+    kh = (first + w % size) % KH;
+    b = (first + w % size) / KH;
+    q_first = causal ? k0 / 64 : 0;   // earlier q tiles see none of these keys
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, 4 * L::CONSUMERS);   // lane 0 of each consumer warp
+    for (int j = 0; j < L::STAGES; ++j) {
+      mbar_init(full_r(j), 1);
+      mbar_init(empty_r(j), 4 * L::CONSUMERS);
+    }
+    for (int n = 0; n < 2; ++n) {
+      mbar_init(full_p(n), WG_THREADS);    // every thread of the dV warpgroup
+      mbar_init(empty_p(n), WG_THREADS);   // every thread of the dK warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == L::CONSUMERS) {
+    // ---- producer
+    setmaxnreg_dec<L::PRODUCER_REGS>();
+    if (threadIdx.x == L::CONSUMERS * WG_THREADS) {
+      int base = 0;
+      for (int u = 0;; ++u) {
+        mbar_wait(empty_kv, (u & 1) ^ 1);
+        const int i = atomicAdd(next_tile, 1);
+        tile_slot[0] = i;   // published by the arrival on full_kv
+        if (i >= n_tiles) {
+          mbar_arrive(full_kv);
+          break;
+        }
+        int k0, kh, b, q_first;
+        tile_of(i, k0, kh, b, q_first);
+        mbar_expect_tx(full_kv, 2 * L::TILE_BYTES);
+        for (int hf = 0; hf < L::HALVES; ++hf) {
+          tma_load_4d(s0 + hf * L::BOX, &tm_k, full_kv, hf * 64, kh, k0, b);
+          tma_load_4d(s0 + L::TILE_BYTES + hf * L::BOX, &tm_v, full_kv, hf * 64, kh, k0, b);
+        }
+        // for each member of the group, each q tile from the first visible
+        const int per_head = n_qt - q_first, n_it = rep * per_head;
+        for (int it = 0; it < n_it; ++it) {
+          const int jg = base + it;
+          const int hh = kh * rep + it / per_head, q0 = (q_first + it % per_head) * 64;
+          mbar_wait(empty_r(jg), parity(jg) ^ 1);
+          const uint32_t full = full_r(jg), st = s0 + stage(jg);
+          mbar_expect_tx(full, L::STAGE_BYTES + 2 * 64 * 4);
+          for (int hf = 0; hf < L::HALVES; ++hf) {
+            tma_load_4d(st + hf * L::BOX, &tm_q, full, hf * 64, hh, q0, b);
+            tma_load_4d(st + L::TILE_BYTES + hf * L::BOX, &tm_do, full, hf * 64, hh, q0, b);
+          }
+          const uint32_t rows = s0 + rows_at(jg);
+          tma_load_2d(rows, &tm_lse, full, q0, b * H + hh);
+          tma_load_2d(rows + 256, &tm_delta, full, q0, b * H + hh);
+        }
+        base += n_it;
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 0 accumulates dV, warpgroup 1 dK, of the
+    // tile's 64 keys
+    setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG_THREADS, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const bool dv_role = wg == 0;
+    auto arrive = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+      __syncwarp();
+    };
+    float acc[D / 2], s[32];   // dV or dK; S^T (then P^T) or dP^T (then dS^T) of 64 q rows
+    uint32_t f[4][4];          // P^T or dS^T: the A fragment of each 16 q rows
+    float(&acc_lo)[64] = *reinterpret_cast<float(*)[64]>(acc);
+    float(&acc_hi)[64] = *reinterpret_cast<float(*)[64]>(acc + 64);
+    const uint32_t my_k = s0, my_v = s0 + L::TILE_BYTES;
+    int base = 0, n = 0;
+    for (int u = 0;; ++u) {
+      mbar_wait(full_kv, u & 1);
+      const int i = tile_slot[0];
+      if (i >= n_tiles) break;
+      int k0, kh, b, q_first;
+      tile_of(i, k0, kh, b, q_first);
+      const int per_head = n_qt - q_first, n_it = rep * per_head;
+      const int row_a = k0 + warp * 16 + g, row_b = row_a + 8;   // key rows of this thread
+      if (dv_role) {
+        // Ks = (k * scale).astype(k.dtype), in place (only this warpgroup
+        // reads K), made visible to wgmma
+        scale_rows<T, D>(smem, L::BOX, scale, tid);
+        fence_proxy_async();
+        named_barrier(1 + wg, WG_THREADS);
+      }
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+      for (int it = 0; it < n_it; ++it) {
+        const int jg = base + it;
+        const int qt = q_first + it % per_head;
+        mbar_wait(full_r(jg), parity(jg));
+        {
+          const uint32_t sq = s0 + stage(jg), sdo = sq + L::TILE_BYTES;
+          const uint32_t lse_r = s0 + rows_at(jg), dl_r = lse_r + 256;
+          const int q0 = qt * 64;
+          const bool masked = (causal && qt == q_first) || q0 + 64 > T_len;
+          float* px = reinterpret_cast<float*>(smem + L::PX + (n % 2) * L::P_BYTES);
+          // S^T = Ks.Q^T (dV) or dP^T = V.dO^T (dK), 64 x 64, both K-major
+          wgmma_fence_operands(acc);
+          __syncwarp();
+          wgmma_fence();
+          kmajor_product<T, D, 64>(s, dv_role ? my_k : my_v, L::BOX, dv_role ? sq : sdo);
+          wgmma_commit();
+          wgmma_wait<0>();   // and the previous tile's dV or dK
+          wgmma_fence_operands(s);
+          wgmma_fence_operands(acc);
+          if (dv_role) {
+            // P^T = exp(S^T - lse), to the dK warpgroup in f32 (thread by
+            // thread: the other warpgroup's thread tid holds dP^T's same
+            // elements), then rounded for P^T.dO
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+              const int c = nt * 8 + 2 * t4;
+              const float2 l = ld_shared_f2(lse_r + 4 * c);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = q0 + c + (e & 1);
+                const int row = e < 2 ? row_a : row_b;
+                float x = s[nt * 4 + e];
+                if (masked && (col >= T_len || (causal && col < row))) x = NEG_BIG;
+                s[nt * 4 + e] = ex2(fmaf(x, LOG2E, -(e & 1 ? l.y : l.x) * LOG2E));
+              }
+            }
+            mbar_wait(empty_p(n), ((n / 2) & 1) ^ 1);
+#pragma unroll
+            for (int x = 0; x < 32; ++x) px[x * WG_THREADS + tid] = s[x];
+            mbar_arrive(full_p(n));
+            pack_frags<T, 64>(f, s);
+          } else {
+            // dS^T = P^T o (dP^T - delta)
+            mbar_wait(full_p(n), (n / 2) & 1);
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+              const float2 dl = ld_shared_f2(dl_r + 4 * (nt * 8 + 2 * t4));
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[nt * 4 + e] = px[(nt * 4 + e) * WG_THREADS + tid] *
+                                (s[nt * 4 + e] - (e & 1 ? dl.y : dl.x));
+            }
+            mbar_arrive(empty_p(n));
+            pack_frags<T, 64>(f, s);
+          }
+          // dV += P^T.dO or dK += dS^T.Q: register A, dO or Q MN-major (slice
+          // kk of 16 q rows 2048 bytes on), 128 columns a product
+          uint32_t src = dv_role ? sdo : sq;
+          opaque(src);
+          __syncwarp();
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            WgmmaRS<T, 128, 1>::run(acc_lo, f[kk], wgmma_desc(src + kk * 2048, L::BOX, 1024), 1);
+            WgmmaRS<T, 128, 1>::run(acc_hi, f[kk],
+                                    wgmma_desc(src + 2 * L::BOX + kk * 2048, L::BOX, 1024), 1);
+          }
+          wgmma_commit();
+          ++n;
+        }
+        // the stage is free once this warpgroup's products have read it
+        wgmma_wait<0>();
+        wgmma_fence_operands(acc);
+        arrive(empty_r(jg));
+      }
+      // dV into K's rows (read only by the dV warpgroup), dK x scale into
+      // V's rows (read only by the dK warpgroup); the TMA stores drop rows
+      // past T
+      const uint32_t rows = dv_role ? my_k : my_v;
+      stage_rows<T, D>(smem + (dv_role ? 0 : L::TILE_BYTES), L::BOX, acc,
+                       dv_role ? 1.f : scale, warp, g, t4);
+      fence_proxy_async();
+      named_barrier(1 + wg, WG_THREADS);
+      if (tid == 0) {
+        for (int hf = 0; hf < L::HALVES; ++hf)
+          tma_store_4d(dv_role ? &tm_dv : &tm_dk, rows + hf * L::BOX, hf * 64, kh, k0, b);
+        tma_store_wait();
+      }
+      named_barrier(1 + wg, WG_THREADS);
+      arrive(empty_kv);   // K and V may take tile u + 1
+      base += n_it;
+    }
+  }
+}
+
 // ------------------------------------------------------------ float32 path
 
 constexpr int NUM_WARPS = 4;
@@ -954,11 +1265,12 @@ cudaError_t launch_dq(const Args& a) {
   const Strides& st = a.st;
   const int Dv = a.Dv;
   const long long hd = (long long)a.H * Dv;
-  // maps over (Dv, heads, T, B), boxes of 64 rows; dq is packed
+  // maps over (Dv, heads, T, B), boxes of 64 rows (K and V: of KN); dq
+  // is packed
   CUtensorMap tq, tk, tv, tdo, tdq;
   if (!make_tile_map<T>(&tq, a.q, Dv, a.H, a.T_len, a.B, st.q_h, st.q_t, st.q_b, 64) ||
-      !make_tile_map<T>(&tk, a.k, Dv, a.KH, a.T_len, a.B, st.k_h, st.k_t, st.k_b, 64) ||
-      !make_tile_map<T>(&tv, a.v, Dv, a.KH, a.T_len, a.B, st.v_h, st.v_t, st.v_b, 64) ||
+      !make_tile_map<T>(&tk, a.k, Dv, a.KH, a.T_len, a.B, st.k_h, st.k_t, st.k_b, L::KN) ||
+      !make_tile_map<T>(&tv, a.v, Dv, a.KH, a.T_len, a.B, st.v_h, st.v_t, st.v_b, L::KN) ||
       !make_tile_map<T>(&tdo, a.dout, Dv, a.H, a.T_len, a.B, st.do_h, st.do_t, st.do_b, 64) ||
       !make_tile_map<T>(&tdq, a.dq, Dv, a.H, a.T_len, a.B, Dv, hd, hd * a.T_len, 64))
     return cudaErrorInvalidValue;
@@ -975,7 +1287,6 @@ cudaError_t launch_dq(const Args& a) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  using L = DkvTiles<D>;
   const Strides& st = a.st;
   const int Dv = a.Dv;
   const long long kd = (long long)a.KH * Dv, rows = (long long)a.B * a.H;
@@ -990,13 +1301,25 @@ cudaError_t launch_dkv(const Args& a) {
       !make_tile_map<T>(&tdv, a.dv, Dv, a.KH, a.T_len, a.B, Dv, kd, kd * a.T_len, 64))
     return cudaErrorInvalidValue;
   int sms = 0;
-  cudaError_t e = prepare<bwd_dkv_wgmma_kernel<T, D>>(L::SMEM, &sms);
-  if (e != cudaSuccess) return e;
-  const long long tiles = (long long)((a.T_len + L::BLOCK_M - 1) / L::BLOCK_M) * a.KH * a.B;
-  const int grid = (int)min(tiles, (long long)sms);
-  bwd_dkv_wgmma_kernel<T, D><<<grid, L::THREADS, L::SMEM, a.stream>>>(
-      tq, tk, tv, tdo, tl, tdl, tdk, tdv, a.next_tile, a.T_len, a.H, a.KH, a.B, a.scale,
-      a.causal);
+  if constexpr (D == 256) {
+    using L = DkvSplitTiles;
+    cudaError_t e = prepare<bwd_dkv_split_kernel<T>>(L::SMEM, &sms);
+    if (e != cudaSuccess) return e;
+    const long long tiles = (long long)((a.T_len + 63) / 64) * a.KH * a.B;
+    const int grid = (int)min(tiles, (long long)sms);
+    bwd_dkv_split_kernel<T><<<grid, L::THREADS, L::SMEM, a.stream>>>(
+        tq, tk, tv, tdo, tl, tdl, tdk, tdv, a.next_tile, a.T_len, a.H, a.KH, a.B, a.scale,
+        a.causal);
+  } else {
+    using L = DkvTiles<D>;
+    cudaError_t e = prepare<bwd_dkv_wgmma_kernel<T, D>>(L::SMEM, &sms);
+    if (e != cudaSuccess) return e;
+    const long long tiles = (long long)((a.T_len + L::BLOCK_M - 1) / L::BLOCK_M) * a.KH * a.B;
+    const int grid = (int)min(tiles, (long long)sms);
+    bwd_dkv_wgmma_kernel<T, D><<<grid, L::THREADS, L::SMEM, a.stream>>>(
+        tq, tk, tv, tdo, tl, tdl, tdk, tdv, a.next_tile, a.T_len, a.H, a.KH, a.B, a.scale,
+        a.causal);
+  }
   return cudaGetLastError();
 }
 
@@ -1029,8 +1352,8 @@ bool bad_shape(int B, int T_len, int H, int KH, int D, int Dv) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64 or
-// 128), Dv the true head dim (1 <= Dv <= D, rows of Dv elements whole
+// dtype: 0 float32, 1 float16, 2 bfloat16. D is the kernel width (64, 128
+// or 256), Dv the true head dim (1 <= Dv <= D, rows of Dv elements whole
 // 16-byte chunks). Strides (in elements, 15 of them: q, k, v, o, dO, each
 // batch/time/head) with a contiguous head dim; for 16-bit inputs every base
 // 16-byte aligned and every stride a multiple of 8 elements (TMA's rules).
@@ -1052,10 +1375,13 @@ extern "C" int dstt_flash_attention_bwd_dq(
                st, scale, causal, static_cast<cudaStream_t>(stream)};
   if (dtype == 2 && D == 64) return (int)launch_dq<__nv_bfloat16, 64>(a);
   if (dtype == 2 && D == 128) return (int)launch_dq<__nv_bfloat16, 128>(a);
+  if (dtype == 2 && D == 256) return (int)launch_dq<__nv_bfloat16, 256>(a);
   if (dtype == 1 && D == 64) return (int)launch_dq<__half, 64>(a);
   if (dtype == 1 && D == 128) return (int)launch_dq<__half, 128>(a);
+  if (dtype == 1 && D == 256) return (int)launch_dq<__half, 256>(a);
   if (dtype == 0 && D == 64) return (int)launch_dq_f32<64>(a);
   if (dtype == 0 && D == 128) return (int)launch_dq_f32<128>(a);
+  if (dtype == 0 && D == 256) return (int)launch_dq_f32<256>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1079,10 +1405,13 @@ extern "C" int dstt_flash_attention_bwd_dkv(
                static_cast<cudaStream_t>(stream)};
   if (dtype == 2 && D == 64) return (int)launch_dkv<__nv_bfloat16, 64>(a);
   if (dtype == 2 && D == 128) return (int)launch_dkv<__nv_bfloat16, 128>(a);
+  if (dtype == 2 && D == 256) return (int)launch_dkv<__nv_bfloat16, 256>(a);
   if (dtype == 1 && D == 64) return (int)launch_dkv<__half, 64>(a);
   if (dtype == 1 && D == 128) return (int)launch_dkv<__half, 128>(a);
+  if (dtype == 1 && D == 256) return (int)launch_dkv<__half, 256>(a);
   if (dtype == 0 && D == 64) return (int)launch_dkv_f32<64>(a);
   if (dtype == 0 && D == 128) return (int)launch_dkv_f32<128>(a);
+  if (dtype == 0 && D == 256) return (int)launch_dkv_f32<256>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -14,14 +14,13 @@ k/v ``[B, T, KH, D]`` with ``KH | H`` (grouped-query attention reads kv head
 ``T >= 1`` is taken: the kernel masks the ragged edge itself.
 
 Head dims (:func:`~deepspeed_tpu_torch.ops.head_dim.head_dim_route`): the
-forward takes any ``D <= 256``, the backward any ``D <= 128``. Where a row
-of ``D`` elements is whole 16-byte chunks (16-bit: ``D % 8 == 0``, f32:
-``D % 4 == 0``) the kernels run their 64-, 128- or (forward) 256-wide
-instantiation on the tensors as they are, reading zeros past ``D`` and
-writing nothing there; any other ``D`` (the padded route, correct and
-slow) zero-pads q, k, v, o and dO to that width with one copy each and
-slices the results back. The backward raises above 128 (fault D1b-ii),
-every kernel above 256 (fault D1c).
+forward and the backward take any ``D <= 256``. Where a row of ``D``
+elements is whole 16-byte chunks (16-bit: ``D % 8 == 0``, f32: ``D % 4 ==
+0``) the kernels run their 64-, 128- or 256-wide instantiation on the
+tensors as they are, reading zeros past ``D`` and writing nothing there;
+any other ``D`` (the padded route, correct and slow) zero-pads q, k, v, o
+and dO to that width with one copy each and slices the results back. Every
+kernel raises above 256 (fault D1c).
 
 On a CPU tensor the functions run the plain PyTorch versions,
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`,
@@ -37,8 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.head_dim import (TRAIN_HEAD_DIM, head_dim_route,
-                                              pad_head_dim, unpad_head_dim)
+from deepspeed_tpu_torch.ops.head_dim import (head_dim_route, pad_head_dim,
+                                              unpad_head_dim)
 from deepspeed_tpu_torch.ops.op_builder import CUDAOpBuilder, check_launch
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -285,9 +284,9 @@ def _bwd_args(q, k, v, lse, do, o=None):
 
 def _route(q, k, v):
     """``(kernel width, pad)`` of the head dim of q, k and v for the
-    backward kernels (128 wide at most: fault D1b-ii)."""
+    backward kernels."""
     _check_shapes(q, k, v)
-    return head_dim_route(q.shape[3], q.element_size(), TRAIN_HEAD_DIM)
+    return head_dim_route(q.shape[3], q.element_size())
 
 
 def _strides(*xs):

@@ -1,15 +1,13 @@
 """Which kernel width the attention kernels run a head dim at.
 
-The CUDA attention kernels are instantiated at widths ``DK`` = 64, 128 and,
-for the serving kernels (B1 and B4-B7, the int8 B5i-B7i too), 256. A head
-dim ``D <= DK`` runs on the narrowest ``DK`` that holds it, with the true
-``D`` passed to the kernel: every load reads zeros past ``D`` and every
-store stops there, and zero columns change neither ``q.k`` nor ``P.V``.
-That needs each row of ``D`` elements to be a whole number of 16-byte
-chunks (the kernels' copy unit); any other ``D`` is zero-padded to ``DK``
-by the wrapper, one copy per operand. The flash backward (B2, B3) and
-block-sparse attention (B8) stop at 128: fault D1b-ii. No kernel takes a
-head dim above 256: fault D1c.
+Every CUDA attention kernel (B1-B8, the int8 B5i-B7i too) is
+instantiated at widths ``DK`` = 64, 128 and 256. A head dim ``D <= DK``
+runs on the narrowest ``DK`` that holds it, with the true ``D`` passed to
+the kernel: every load reads zeros past ``D`` and every store stops there,
+and zero columns change neither ``q.k`` nor ``P.V``. That needs each row
+of ``D`` elements to be a whole number of 16-byte chunks (the kernels'
+copy unit); any other ``D`` is zero-padded to ``DK`` by the wrapper, one
+copy per operand. No kernel takes a head dim above 256: fault D1c.
 """
 from __future__ import annotations
 
@@ -20,29 +18,23 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.utils.logging import logger
 
-MAX_HEAD_DIM = 256      # the serving kernels' widest instantiation
-TRAIN_HEAD_DIM = 128    # the flash backward's and B8's (fault D1b-ii)
+MAX_HEAD_DIM = 256      # the kernels' widest instantiation
 
 
-def head_dim_route(D: int, elem_size: int,
-                   widest: int = MAX_HEAD_DIM) -> Tuple[int, bool]:
+def head_dim_route(D: int, elem_size: int) -> Tuple[int, bool]:
     """``(DK, pad)`` for head dim ``D`` of operands ``elem_size`` bytes an
-    element (the narrowest operand's: 1 for an int8 pool), on a kernel
-    whose widest instantiation is ``widest`` (256 or 128): the kernel
-    width ``DK`` (64, 128 or 256, the narrowest that holds ``D``) and
-    whether the operands must be zero-padded to ``DK`` (a row of ``D``
-    elements is not a whole number of 16-byte chunks). Raises
-    ``ValueError`` above ``widest``, naming the fault that logs it."""
+    element (the narrowest operand's: 1 for an int8 pool): the kernel width
+    ``DK`` (64, 128 or 256, the narrowest that holds ``D``) and whether the
+    operands must be zero-padded to ``DK`` (a row of ``D`` elements is not
+    a whole number of 16-byte chunks). Raises ``ValueError`` above 256,
+    naming the fault that logs it."""
     if D < 1:
         raise ValueError(f"head dim must be >= 1, got {D}")
-    if D > widest:
-        fault = ("fault D1c: no kernel takes a head dim above 256"
-                 if D > MAX_HEAD_DIM else
-                 "fault D1b-ii: the flash backward and block-sparse "
-                 "attention take head dims up to 128")
+    if D > MAX_HEAD_DIM:
         raise ValueError(
-            f"this attention kernel takes head dims up to {widest}, got {D} "
-            f"({fault}); the plain version on the CPU takes it")
+            f"the attention kernels take head dims up to {MAX_HEAD_DIM}, got "
+            f"{D} (fault D1c: no kernel takes a head dim above 256); the "
+            f"plain version on the CPU takes it")
     DK = 64 if D <= 64 else 128 if D <= 128 else 256
     return DK, (D * elem_size) % 16 != 0
 

@@ -28,7 +28,10 @@ from deepspeed_tpu_torch.ops.op_builder import (CUDAOpBuilder, check_launch,
                                                sm_count)
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_BWD_MAX_CHUNKS = 8192   # 1024 threads x 8 chunks of a row in B10's stage 1
+_BWD_THREADS = 256   # a block of B10 (BWD_THREADS in layer_norm.cu)
+_BWD_MIN_ROWS = 8    # rows a block of B10 takes at least, where R allows
+# B10's grid-barrier counters, one pair per stream (the kernel leaves them 0)
+_BWD_BARRIERS = {}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -37,7 +40,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.dstt_layer_norm_fwd.restype = ctypes.c_int
     lib.dstt_layer_norm_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.dstt_layer_norm_bwd.restype = ctypes.c_int
 
 
@@ -136,12 +139,19 @@ def layer_norm_fwd(x2, weight, bias, eps: float = 1e-5
 layer_norm_fwd.launches = 0
 
 
-def _bwd_partition(R: int, device: torch.device) -> Tuple[int, int]:
-    """(P, rows per block) of B10's stage 1: 4 blocks per SM, each over a
-    contiguous range of rows; fixed for a card, so the sums are too."""
-    sms = sm_count(device)
-    rows_per = -(-R // min(R, 4 * sms))
-    return -(-R // rows_per), rows_per
+def _bwd_partition(R: int, N: int, elem: int, vec: bool,
+                   device: torch.device) -> Tuple[int, bool]:
+    """(P, ring) of B10: P persistent blocks, block p over rows [R p / P,
+    R (p + 1) / P), at least 8 rows each where R allows (fewer partial
+    rows to merge); ``ring`` when the ring kernel takes the rows (rows of
+    16-byte chunks, at most 4 x 256 of them, ``vec``): two blocks an SM
+    (one where a thread holds 4 chunks), else the wide kernel: one block
+    of 512 threads an SM. Fixed for a card and shape, so the sums are
+    too."""
+    chunks = N * elem // 16
+    ring = vec and chunks <= 4 * _BWD_THREADS
+    per_sm = 2 if ring and chunks <= 2 * _BWD_THREADS else 1
+    return min(-(-R // _BWD_MIN_ROWS), per_sm * sm_count(device)), ring
 
 
 def layer_norm_bwd(x2, weight, mean, rstd, g2
@@ -164,22 +174,29 @@ def layer_norm_bwd(x2, weight, mean, rstd, g2
             raise ValueError(f"layer_norm_bwd needs B9's {name}, a contiguous "
                              f"float32 [R, 1] tensor on {x2.device}; got "
                              f"{t.dtype} on {t.device}")
-    vec_elems = 16 // x2.element_size() if vec else 1
-    if N > _BWD_MAX_CHUNKS * vec_elems:
-        raise ValueError(f"layer_norm_bwd kernel takes rows of at most "
-                         f"{_BWD_MAX_CHUNKS * vec_elems} elements here "
-                         f"({_BWD_MAX_CHUNKS} chunks of {vec_elems}), got "
-                         f"N={N}")
-    P, rows_per = _bwd_partition(R, x2.device)
-    part = torch.empty((2, P, N), dtype=torch.float32, device=x2.device)
+    P, ring = _bwd_partition(R, N, x2.element_size(), vec, x2.device)
+    # the wide kernel reads rows that are no whole 16-byte chunks by aligned
+    # loads, where every row tensor starts on 16 bytes
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, g2, dx))
+    # partial rows of N rounded up to 4 floats (16-byte rows for the merge)
+    part = torch.empty((2, P, -(-N // 4) * 4), dtype=torch.float32,
+                       device=x2.device)
+    stats = None if ring else torch.empty((R, 2), dtype=torch.float32,
+                                          device=x2.device)
     dw = torch.empty(N, dtype=torch.float32, device=x2.device)
     db = torch.empty(N, dtype=torch.float32, device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    bar = _BWD_BARRIERS.get(stream)
+    if bar is None:
+        bar = _BWD_BARRIERS[stream] = torch.zeros(2, dtype=torch.int32,
+                                                  device=x2.device)
     lib = BUILDER.load()
     rc = lib.dstt_layer_norm_bwd(
         x2.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        g2.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), R, N, P, rows_per, int(vec), _DTYPE_CODE[x2.dtype],
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        g2.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        None if stats is None else stats.data_ptr(), bar.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), R, N, P, int(aligned),
+        _DTYPE_CODE[x2.dtype], stream)
     check_launch(lib, "layer_norm_bwd", rc)
     layer_norm_bwd.launches += 1
     return dx, dw, db

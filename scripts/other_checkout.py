@@ -15,17 +15,38 @@ from __future__ import annotations
 
 import importlib.util
 import subprocess
+import sys
 from pathlib import Path
 
 
-def load_wrapper(checkout: str, module: str, builders):
-    """The other checkout's ``deepspeed_tpu_torch/ops/<module>.py``, its
-    ``builders`` (attribute names) building from its own ``ops/csrc``."""
-    ops = Path(checkout).resolve() / "deepspeed_tpu_torch" / "ops"
-    spec = importlib.util.spec_from_file_location(f"other_{module}",
-                                                  ops / f"{module}.py")
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_wrapper(checkout: str, module: str, builders, own=("head_dim",)):
+    """The other checkout's ``deepspeed_tpu_torch/ops/<module>.py``, its
+    ``builders`` (attribute names) building from its own ``ops/csrc``. The
+    ``ops`` modules named in ``own`` that the other checkout has (the
+    head-dim route, whose names change between checkouts) are its own while
+    its wrapper imports them; everything else is this checkout's."""
+    ops = Path(checkout).resolve() / "deepspeed_tpu_torch" / "ops"
+    saved = {}
+    for name in own:
+        if (ops / f"{name}.py").is_file():
+            key = f"deepspeed_tpu_torch.ops.{name}"
+            saved[key] = sys.modules.get(key)
+            sys.modules[key] = _load(ops / f"{name}.py", f"other_{name}")
+    try:
+        mod = _load(ops / f"{module}.py", f"other_{module}")
+    finally:
+        for key, m in saved.items():
+            if m is None:
+                sys.modules.pop(key, None)
+            else:
+                sys.modules[key] = m
     for attr in builders:
         b = getattr(mod, attr)
         b.source = ops / "csrc" / f"{b.name}.cu"

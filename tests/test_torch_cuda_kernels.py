@@ -33,7 +33,8 @@ LayerNorm kernels (B9, B10): o and dx element-wise within 2e-2 + 1e-2 *
 |plain| in 16 bits (one or two rounding steps of outputs up to ~4) and 1e-4
 in f32; mean and rstd 1e-5 relative (f32 on both sides); dw and db 1e-4
 relative L2 (f32 sums over the rows in another order); B10 twice on the
-same inputs gives the same bits.
+same inputs gives the same bits, also on rows wider than 8192 (N 20000,
+65544, 100000 at R 1, 3 and 8192: its wide kernel).
 Head dims: every attention kernel also runs at D in {32, 40, 48, 80, 96,
 112} (int8 pools: {32, 48, 80, 96}) on its 64- or 128-wide instantiation,
 under the same limits, on inputs that are ``[..., :D]`` views of
@@ -44,8 +45,10 @@ NaN-guarded view, whose guard columns must stay NaN. D = 36 takes the
 padded route. The serving kernels (B1, B4-B7 and B5i-B7i) also run at D
 in {136, 160, 192, 256} on their 256-wide instantiation, and at 256 with 8
 q heads on one kv head (Gemma-2B's layout), under the same limits and
-guards; D = 132 takes their padded route. The flash backward and B8 raise
-above 128, naming fault D1b-ii; every kernel raises above 256 (D1c).
+guards; D = 132 takes their padded route. The flash backward (B2, B3)
+and B8 run at D in {136, 160, 192, 256} the same way (B2/B3 also with one
+and with four kv heads at 256, B8 at 256 over blocks of 16, 32, 64 and
+128); every kernel raises above 256 (D1c).
 """
 import pytest
 import torch
@@ -203,8 +206,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     out = port_flash.flash_attention(q, q, q)
     ref, lse = port_flash.flash_attention_reference(q, q, q)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
-    with pytest.raises(ValueError, match="D1b-ii"):   # not by the backward
-        port_flash.flash_attention_bwd_dq(q, q, q, ref, lse, q)
+    dq, _ = port_flash.flash_attention_bwd_dq(q, q, q, ref, lse, q)
+    rq, _ = port_flash._bwd_dq_reference(q, q, q, ref, lse, q, True,
+                                         256 ** -0.5)   # and by B2
+    assert (dq.float() - rq.float()).abs().max().item() <= 2e-2 + 1e-2 * (
+        rq.float().abs().max().item())
     q = _randn(g, (1, 16, 2, 320), torch.bfloat16)    # head dim 320: D1c
     with pytest.raises(ValueError, match="D1c"):
         port_flash.flash_attention(q, q, q)
@@ -1089,8 +1095,12 @@ def test_block_sparse_refuses_what_the_kernel_does_not_take(cuda_device):
     out = port_bsa.block_sparse_attention(q, q, q, lut, counts, 16)
     ref = port_bsa.block_sparse_attention_reference(q, q, q, lut, counts, 16)
     _assert_sparse_close(out, ref, torch.bfloat16)
-    q = _randn(g, (1, 2, 128, 256), torch.bfloat16)
-    with pytest.raises(ValueError, match="D1b"):
+    q = _randn(g, (1, 2, 128, 256), torch.bfloat16)   # head dim 256: taken
+    out = port_bsa.block_sparse_attention(q, q, q, lut, counts, 16)
+    ref = port_bsa.block_sparse_attention_reference(q, q, q, lut, counts, 16)
+    _assert_sparse_close(out, ref, torch.bfloat16)
+    q = _randn(g, (1, 2, 128, 320), torch.bfloat16)
+    with pytest.raises(ValueError, match="D1c"):
         port_bsa.block_sparse_attention(q, q, q, lut, counts, 16)
     q = _randn(g, (1, 2, 128, 64), torch.bfloat16)
     with pytest.raises(TypeError, match="int32"):
@@ -1105,7 +1115,7 @@ LN_CASES = [   # R, N, dtype
     (1000, 768, torch.float16),
     (333, 2048, torch.float32),
     (64, 37, torch.bfloat16),       # scalar path: rows not 16-byte sized
-    (17, 20000, torch.bfloat16),    # 8 chunks a thread in B10
+    (17, 20000, torch.bfloat16),    # B10's wide kernel
     (4, 30000, torch.float32),      # rows too wide to cache in B9
 ]
 
@@ -1142,6 +1152,61 @@ def test_layer_norm_kernels_match_plain_on_card(cuda_device, R, N, dtype):
         assert ((a - r).norm() / r.norm()).item() <= 1e-4
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2) \
         and torch.equal(db, db2)
+
+
+def _ln_bwd_gates(x, go, dtype):
+    """B10 against its plain version from B9's statistics: dx element-wise,
+    dw and db 1e-4 relative L2, the same bits on a second call."""
+    N = x.shape[1]
+    g = torch.Generator(device=x.device).manual_seed(N)
+    w = _randn(g, (N,), torch.float32) + 1
+    _, mean, rstd = port_ln.layer_norm_fwd(x, w, torch.zeros_like(w))
+    runs = [port_ln.layer_norm_bwd(x, w, mean, rstd, go) for _ in range(2)]
+    rdx, rdw, rdb = port_ln.layer_norm_bwd_reference(x, w, mean, rstd, go)
+    torch.cuda.synchronize()
+    dx, dw, db = runs[0]
+    assert dx.dtype == dtype and _ln_gates(dx, rdx, dtype)
+    for a, r in ((dw, rdw), (db, rdb)):
+        assert ((a - r).norm() / r.norm()).item() <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# B10's wide kernel: rows wider than its ring kernel takes (4 x 256
+# chunks), from one row to 8192, aligned and not
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 3, 8192])
+@pytest.mark.parametrize("N", [20000, 65544, 100000])
+def test_layer_norm_bwd_wide_rows_on_card(cuda_device, R, N):
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    for dtype in ((torch.bfloat16, torch.float32) if R < 8192
+                  else (torch.bfloat16,)):
+        x = _randn(g, (R, N), dtype) * 2 + 0.5
+        _ln_bwd_gates(x, _randn(g, (R, N), dtype), dtype)
+        del x
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [3, 1000])
+@pytest.mark.parametrize("N", [8, 64, 256, 520, 1024])
+def test_layer_norm_bwd_narrow_rows_on_card(cuda_device, R, N, dtype):
+    """Rows of at most 128 chunks: B10's ring kernel in groups of 8 rows;
+    at f32 N = 256 its 48 KB of ring beside the static shared memory
+    pass the default limit, which the launch raises."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    x = _randn(g, (R, N), dtype) * 2 + 0.5
+    _ln_bwd_gates(x, _randn(g, (R, N), dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", [(8, 10001), (2048, 10001), (1000, 2048)])
+def test_layer_norm_bwd_unaligned_rows_on_card(cuda_device, R, N):
+    """Rows of an odd width, or that start 2 bytes past a 16-byte
+    boundary, take B10's wide kernel with scalar loads."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    x = (_randn(g, (R * N + 1,), torch.bfloat16) * 2 + 0.5)[1:].view(R, N)
+    _ln_bwd_gates(x, _randn(g, (R, N), torch.bfloat16), torch.bfloat16)
 
 
 # B9 around its register and template thresholds: chunks a lane of 1, 2,
@@ -1490,21 +1555,30 @@ def test_padded_route_runs_odd_head_dims_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [160, 256])
-def test_head_dims_past_128_raise_naming_d1b_on_card(cuda_device, D):
-    """B2, B3 and B8 stop at 128 (fault D1b-ii); the serving kernels take
-    D (the tests below); every kernel raises at 264 (fault D1c)."""
+def test_head_dims_past_128_run_and_d1c_holds_on_card(cuda_device, D):
+    """B2, B3 and B8 run at D (one launch each, against their plain
+    versions); every kernel raises at 264 (fault D1c)."""
     g = torch.Generator(device=cuda_device).manual_seed(D)
     q = _randn(g, (1, 64, 2, D), torch.bfloat16)
     o, lse = port_flash.flash_attention_fwd(q, q, q)
-    with pytest.raises(ValueError, match="D1b-ii"):
-        port_flash.flash_attention_bwd_dq(q, q, q, o, lse, q)
-    with pytest.raises(ValueError, match="D1b-ii"):
-        port_flash.flash_attention_bwd_dkv(q, q, q, lse, lse, q)
+    fns = (port_flash.flash_attention_bwd_dq,
+           port_flash.flash_attention_bwd_dkv, port_bsa.block_sparse_attention)
+    n = [f.launches for f in fns]
+    dq, delta = port_flash.flash_attention_bwd_dq(q, q, q, o, lse, q)
+    dk, dv = port_flash.flash_attention_bwd_dkv(q, q, q, lse, delta, q)
     lut = torch.zeros((2, 4, 1), dtype=torch.int32, device=cuda_device)
     counts = torch.ones((2, 4), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="D1b-ii"):
-        qb = q.transpose(1, 2)
-        port_bsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
+    qb = q.transpose(1, 2)
+    out = port_bsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
+    refs = (port_flash.flash_attention_bwd_reference(q, q, q, o, lse, q),
+            port_bsa.block_sparse_attention_reference(qb, qb, qb, lut,
+                                                      counts, 16))
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [x + 1 for x in n]
+    for a, r in zip((dq, dk, dv), refs[0]):
+        elem, tile_l2 = _bwd_errors(a, r, 2e-2, 1e-2)
+        assert elem <= 1.0 and tile_l2 <= 1e-2
+    _assert_sparse_close(out, refs[1], torch.bfloat16)
     q = _randn(g, (1, 64, 2, 264), torch.bfloat16)
     with pytest.raises(ValueError, match="D1c"):
         port_flash.flash_attention(q, q, q)
@@ -1518,6 +1592,10 @@ def test_head_dims_past_128_raise_naming_d1b_on_card(cuda_device, D):
     with pytest.raises(ValueError, match="D1c"):
         qb = q.transpose(1, 2)
         port_bsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
+    with pytest.raises(ValueError, match="D1c"):
+        port_flash.flash_attention_bwd_dq(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="D1c"):
+        port_flash.flash_attention_bwd_dkv(q, q, q, lse, lse, q)
 
 
 # ------------------------------------------ serving head dims up to 256
@@ -1657,3 +1735,90 @@ def test_padded_route_runs_head_dim_132_on_card(cuda_device):
     torch.cuda.synchronize()
     assert [f.launches for f in fp] == [x + 2 for x in n]
     _check_paged_runs(runs, dt, D)
+
+
+# ------------------------------------ training head dims up to 256 (D1b-ii)
+
+def _flash_bwd_guarded(g, B, T, H, KH, D, dtype, causal=True):
+    """B2 and B3 twice at a true head dim D, q/k/v views of one guarded
+    projection, o and dO guarded views: every head of dq, dk and dv held
+    to the backward gates, the same bits on the second call."""
+    qkv = _guarded(_randn(g, (B, T, H + 2 * KH, D), dtype))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KH], qkv[:, :, H + KH:]
+    o, lse = port_flash.flash_attention_fwd(q, k, v, causal)
+    o = _guarded(o)
+    do = _guarded(_randn(g, (B, T, H, D), dtype))
+    runs = []
+    for _ in range(2):
+        dq, delta = port_flash.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                      causal)
+        dk, dv = port_flash.flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                    causal)
+        runs.append((dq, dk, dv, delta))
+    rq, rk, rv = port_flash.flash_attention_bwd_reference(q, k, v, o, lse,
+                                                          do, causal)
+    torch.cuda.synchronize()
+    atol, rtol, l2 = ((1e-4, 1e-4, 1e-4) if dtype == torch.float32
+                      else (2e-2, 1e-2, 1e-2))
+    for name, a, r in zip(("dq", "dk", "dv"), runs[0], (rq, rk, rv)):
+        assert a.shape == r.shape and a.is_contiguous(), name
+        for h in range(a.shape[2]):
+            elem, tile_l2 = _bwd_errors(a[:, :, h:h + 1], r[:, :, h:h + 1],
+                                        atol, rtol)
+            assert elem <= 1.0 and tile_l2 <= l2, (name, h, elem, tile_l2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+def test_flash_bwd_takes_head_dims_to_256_on_card(cuda_device, D, dtype):
+    """B2 and B3 on the 256-wide instantiation (B3 as its role split) at a
+    true head dim D, GQA (4 q heads over 2 kv heads), a ragged T, causal
+    and not."""
+    g = torch.Generator(device=cuda_device).manual_seed(700 + D)
+    for causal in (True, False):
+        _flash_bwd_guarded(g, 2, 333, 4, 2, D, dtype, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("KH", [1, 4])
+def test_flash_bwd_head_dim_256_kv_groups_on_card(cuda_device, KH):
+    """B2 and B3 at 256 with 8 q heads on one kv head (MQA) and on four:
+    B3 sums each group in a fixed order."""
+    g = torch.Generator(device=cuda_device).manual_seed(800 + KH)
+    _flash_bwd_guarded(g, 2, 512, 8, KH, 256, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("D,block", [
+    (D, block) for D in WIDE_HEAD_DIMS
+    for block in ((16, 32, 64, 128) if D == 256 else (16, 64))])
+def test_block_sparse_takes_head_dims_to_256_on_card(cuda_device, D, block,
+                                                     dtype):
+    """B8 on the 256-wide instantiation at a true head dim D (at 256 over
+    every block size: half-block ring tiles at 64 and 128), q/k/v strided
+    views of a guarded projection, the output a guarded view: the sparse
+    gates, the guard columns untouched, the same bits twice."""
+    g = torch.Generator(device=cuda_device).manual_seed(900 + D + block)
+    B, H, T = 2, 4, 512
+    lut, counts = (torch.as_tensor(x, device=cuda_device) for x in
+                   port_bsa.build_lut(_sparse_layout("fixed", H, block, T)))
+    q, k, v = (x.transpose(1, 2) for x in _fused(g, (B, T), H, D, dtype))
+    o = _guarded(torch.full((B, T, H, D), float("nan"), dtype=dtype,
+                            device=cuda_device))
+    buf = o._base
+    out = o.transpose(1, 2)
+    port_bsa.block_sparse_attention(q, k, v, lut, counts, block, True,
+                                    out=out)
+    first = buf.clone()
+    port_bsa.block_sparse_attention(q, k, v, lut, counts, block, True,
+                                    out=out)
+    ref = port_bsa.block_sparse_attention_reference(q, k, v, lut, counts,
+                                                    block, True)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(buf[..., D:]).all())
+    assert torch.equal(buf[..., :D], first[..., :D])
+    _assert_sparse_close(out, ref, dtype)

@@ -1,21 +1,21 @@
-"""Head dims up to 256 in the port (faults D1a and D1b-i) on the CPU.
+"""Head dims up to 256 in the port (faults D1a, D1b-i and D1b-ii) on the CPU.
 
-The CUDA attention kernels run any head dim D <= 128 on their 64- or
-128-wide instantiations, and the serving kernels (B1, B4-B7, B5i-B7i) any
-D <= 256 on their 256-wide one: columns past D are read as zeros and
-never written, and the scale comes from the true D. What the CPU can
+Every CUDA attention kernel (B1-B8, B5i-B7i) runs any head dim D <= 256 on
+its 64-, 128- or 256-wide instantiation: columns past D are read as zeros
+and never written, and the scale comes from the true D. What the CPU can
 check:
 
 * ``head_dim_route`` for every D in 1..320 and operand sizes 1, 2 and 4:
-  the kernel width, the padded route, the D1b-ii error of the flash
-  backward and B8 above 128, the D1c error of every kernel above 256; and
-  ``warn_if_padded``, the warning the cache builders give for that route.
+  the kernel width, the padded route, the D1c error of every kernel above
+  256, one route for every kernel (the flash backward's and B8's wrappers
+  take B1's); and ``warn_if_padded``, the warning the cache builders give
+  for that route.
 * Each attention kernel's plain version against its JAX function, run as
   the JAX tests run it (Pallas in interpret mode), at D in {32, 40, 80, 96,
-  112}, and the serving kernels' also at D in {132, 160, 192, 256} (int8
-  pools at those of whole 16-byte rows): flash forward + LSE, the flash
-  backward, dense decode, paged decode, chunk and verify over fp and int8
-  pools, and block-sparse attention on layout (i) (Fixed, causal).
+  112, 132, 160, 192, 256} (int8 pools at those of whole 16-byte rows):
+  flash forward + LSE, the flash backward, dense decode, paged decode,
+  chunk and verify over fp and int8 pools, and block-sparse attention on
+  layout (i) (Fixed, causal).
   Tolerance 1e-5 in f32: both sides compute an exact f32 softmax and its
   gradients; only the order of the sums differs.
 * The zero-fill identity the kernels rely on: each plain version on inputs
@@ -23,8 +23,8 @@ check:
   back, equals its result at the true D within 1e-6 in f32 (the padded
   sums add exact zeros; BLAS may block the longer sums otherwise).
 * End to end, 2 layers at narrow widths with the new head dims: the GPT-2
-  training model's loss and gradients at D = 80 (n_embd 160, 2 heads) and
-  D = 96 (192, 2) against the JAX model (the tolerances of
+  training model's loss and gradients at D = 80 (n_embd 160, 2 heads), D =
+  96 (192, 2) and D = 256 (512, 2) against the JAX model (the tolerances of
   tests/test_torch_gpt2.py), and a NeoX-style parallel-residual model at
   D = 80 with rotary_dim 20: greedy tokens of ``generate`` and of the paged
   server equal to the JAX engine's and server's, token for token; and a
@@ -61,14 +61,13 @@ from deepspeed_tpu_torch.ops import block_sparse_attention as tbsa
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops import sparse_attention as tsparse
-from deepspeed_tpu_torch.ops.head_dim import (MAX_HEAD_DIM, TRAIN_HEAD_DIM,
-                                              head_dim_route, pad_head_dim,
-                                              warn_if_padded)
+from deepspeed_tpu_torch.ops.head_dim import (MAX_HEAD_DIM, head_dim_route,
+                                              pad_head_dim, warn_if_padded)
 
 TOL = 1e-5
 PAD_TOL = 1e-6
 DIMS = [32, 40, 80, 96, 112]
-# the serving kernels' 256-wide instantiation; 132 takes its padded route
+# the kernels' 256-wide instantiation; 132 takes its padded route
 WIDE_DIMS = [132, 160, 192, 256]
 # the paged pools: 12 blocks of 32, tables with out-of-order ids
 NB, BS = 12, 32
@@ -119,29 +118,33 @@ def test_head_dim_route_for_every_head_dim(elem):
 
 
 @pytest.mark.parametrize("elem", [1, 2, 4])
-def test_training_kernels_route_stops_at_128(elem):
-    """The flash backward and B8 (widest 128): the same route up to 128,
-    D1b-ii in (128, 256], D1c above; and their wrappers ask for it."""
-    for D in range(1, TRAIN_HEAD_DIM + 1):
-        assert head_dim_route(D, elem, TRAIN_HEAD_DIM) == head_dim_route(
-            D, elem)
-    for D in range(TRAIN_HEAD_DIM + 1, 321):
-        with pytest.raises(ValueError, match="D1b-ii" if D <= 256
-                           else "D1c"):
-            head_dim_route(D, elem, TRAIN_HEAD_DIM)
+def test_every_kernel_takes_one_route_to_256(elem):
+    """The flash backward and B8 take B1's route: the same width and pad
+    for every D up to 256, D1c above; and their wrappers refuse only
+    there."""
+    dtype = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}[elem]
+    for D in range(1, MAX_HEAD_DIM + 1):
+        q = torch.empty((1, 4, 2, D), dtype=dtype, device="meta")
+        assert tfa._route(q, q, q) == head_dim_route(D, elem), D
+    for D in range(MAX_HEAD_DIM + 1, 321):
+        q = torch.empty((1, 4, 2, D), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="D1c"):
+            tfa._route(q, q, q)
     # the wrappers route before they launch; a 'meta' tensor is no CPU
-    # tensor, so they take the kernel path and refuse at the route
-    q = torch.empty((1, 16, 2, 256), device="meta")
+    # tensor, so they take the kernel path: at 256 they pass the route and
+    # stop at the device check after it, at 320 they refuse at the route
     lse = torch.empty((1, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="D1b-ii"):
-        tfa.flash_attention_bwd_dq(q, q, q, q, lse, q)
-    with pytest.raises(ValueError, match="D1b-ii"):
-        tfa.flash_attention_bwd_dkv(q, q, q, lse, lse, q)
     lut = torch.zeros((2, 1, 1), dtype=torch.int32, device="meta")
     counts = torch.ones((2, 1), dtype=torch.int32, device="meta")
-    qb = q.transpose(1, 2)
-    with pytest.raises(ValueError, match="D1b-ii"):
-        tbsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
+    for D, match in ((256, "cuda or cpu"), (320, "D1c")):
+        q = torch.empty((1, 16, 2, D), device="meta")
+        qb = q.transpose(1, 2)
+        with pytest.raises(ValueError, match=match):
+            tfa.flash_attention_bwd_dq(q, q, q, q, lse, q)
+        with pytest.raises(ValueError, match=match):
+            tfa.flash_attention_bwd_dkv(q, q, q, lse, lse, q)
+        with pytest.raises(ValueError, match=match):
+            tbsa.block_sparse_attention(qb, qb, qb, lut, counts, 16)
 
 
 @pytest.mark.parametrize("D,elem,device,padded", [
@@ -194,7 +197,7 @@ def test_flash_fwd_plain_matches_pallas(D):
     _close(lse, np.asarray(lse3).reshape(2, 4, -1))
 
 
-@pytest.mark.parametrize("D", DIMS)
+@pytest.mark.parametrize("D", DIMS + WIDE_DIMS)
 def test_flash_bwd_plain_matches_pallas(D):
     q, k, v, do = _flash_inputs(D)
     scale = 1.0 / np.sqrt(D)
@@ -286,7 +289,7 @@ def _fixed_layout(H, block, T):
         attention="unidirectional").make_layout(T)
 
 
-@pytest.mark.parametrize("D", DIMS)
+@pytest.mark.parametrize("D", DIMS + WIDE_DIMS)
 def test_block_sparse_plain_matches_pallas(D):
     rng = _rng(4, D)
     B, H, T, block = 2, 2, 256, 64
@@ -379,11 +382,12 @@ def _flatten(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("n_embd,D", [(160, 80), (192, 96)])
+@pytest.mark.parametrize("n_embd,D", [(160, 80), (192, 96), (512, 256)])
 def test_gpt2_loss_and_grads_match_jax_at_new_head_dims(n_embd, D):
     """The training GPT-2 with 2 heads of D (gpt2-2.7b's 80, gpt2-760m's
-    96), flash attention and remat on, 2 layers: the loss to 1e-5 relative
-    and every gradient leaf to 1e-4 of its largest element."""
+    96, Gemma-2B's 256), flash attention and remat on, 2 layers: the loss
+    to 1e-5 relative and every gradient leaf to 1e-4 of its largest
+    element."""
     tiny = dict(vocab_size=96, n_positions=64, n_embd=n_embd, n_layer=2,
                 n_head=2)
     jmodel = jax_gpt2.GPT2LMModel(jax_gpt2.GPT2Config(

@@ -108,6 +108,33 @@ def test_bf16_gradients_keep_their_dtypes():
                                                    ).max()))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_bwd_matches_pallas_on_a_wide_unaligned_row(dtype):
+    """B10's plain version against the Pallas backward in interpret mode on
+    rows wider than 8192 elements whose rows are no whole number of 16-byte
+    chunks (N = 10001, R = 3): rows the CUDA wrapper gives its wide kernel.
+    dx within the tolerances of the forward; dw and db, sums over the rows
+    in f32 on both sides, within 1e-5 relative of their largest element."""
+    x, w, _, g = _inputs(7, (3, 10001))
+    N = x.shape[-1]
+    jx, jg = jnp.asarray(x, dtype), jnp.asarray(g, dtype)
+    _, jmean, jrstd = jax_ln._ln_fwd(jx, jnp.asarray(w), jnp.zeros(N),
+                                     eps=1e-5, block_rows=3, interpret=True)
+    jdx, jdw, jdb = jax_ln._ln_bwd(jx, jnp.asarray(w), jmean, jrstd, jg,
+                                   block_rows=3, interpret=True)
+    tx, tg = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, g))
+    mean = torch.from_numpy(np.array(jmean))
+    rstd = torch.from_numpy(np.array(jrstd))
+    dx, dw, db = port_ln.layer_norm_bwd(tx, torch.from_numpy(w), mean, rstd,
+                                        tg)
+    assert dx.dtype == tx.dtype and dw.dtype == db.dtype == torch.float32
+    _close(dx.float(), jdx.astype(jnp.float32), dtype)
+    for a, j in ((dw, jdw), (db, jdb)):
+        j = np.asarray(j)
+        np.testing.assert_allclose(a.numpy(), j, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(j).max()))
+
+
 def test_residual_variant_matches_jax():
     x, w, b, r = _inputs(3)
     jo, js = jax_ln.fused_residual_layer_norm(*map(jnp.asarray, (x, r, w, b)))
