@@ -135,6 +135,25 @@ kernel's row.
    ``gpt2-2.7b`` (32 layers, 32 heads of 80) and ``gpt2-1.3b`` with
    ``n_head=8`` (8 heads of 256: B1-B3 on their 256-wide instantiations),
    at full depth.
+10b. checkpoint — the training engine's checkpoints and the bridge to
+   serving, under a temporary directory of the checkout's ``build/``
+   (removed at the end; the free space is printed first). The resume
+   oracle at ``gpt2-1.3b``'s full width and depth with phase train's
+   configuration: run A takes 4 steps on 4 seeded batches; run B starts
+   from the same weights, takes steps 1-2, saves (sync, verified: a 15.77
+   GB tag) and is destroyed; run C starts from other weights, loads and
+   takes steps 3-4. C's losses and every master leaf must equal A's bit
+   for bit, ``global_steps`` be 4, and every run launch B1-B3 as phase
+   train counts them; it prints the tag's bytes and the save (state
+   write, manifest hash), verify and load seconds with their GB/s. Then
+   C's params go through ``gpt2_to_inference`` into ``init_inference``
+   (bf16): ``generate`` of 8 seeded prompts x 32 greedy tokens through B1
+   and B4, the served-token oracle, a serving checkpoint saved and loaded
+   into a fresh engine that must serve the same tokens and the same
+   prefill logits bit for bit (its bytes and seconds printed). Last the
+   async engine at gpt2-1.3b's width and 4 layers: a save at step 2,
+   steps 3-4 while the write may run, ``destroy`` joins, and a fresh
+   engine loads the step-2 state bit for bit.
 11. sparse run — ``SparseSelfAttention`` with layout (i), three calls at
    T=4096 and one at T=2048: 4 kernel launches, one LUT per length, every
    output within SPARSE_TOL of the plain version; then the same at 32
@@ -145,8 +164,9 @@ kernel's row.
    ``layer_norm_reference``.
 
 The kernel launch counts are set to 0 just before each main-path run (the
-e2e generate, each server, the timed training steps and the sparse and
-layer_norm runs) and read just after. Every attention kernel, int8 ones
+e2e generate, each server, the timed training steps, the checkpoint
+phase's training runs and its ``generate``, and the sparse and layer_norm
+runs) and read just after. Every attention kernel, int8 ones
 included, must have launched on a main-path run at head dim 80, 96 or
 256, every serving kernel (B1, B4-B7, B5i-B7i) at 256 on the gptj path,
 and B1-B3 and B8 at 256 on the train gpt2-1.3b 8x256 or sparse 8 x 256
@@ -161,6 +181,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1939,6 +1960,321 @@ def phase_train(preset="gpt2-1.3b", n_head=None):
     return counts
 
 
+CKPT_STEPS = 4   # the resume oracle: steps 1-2, a save, steps 3-4
+CKPT_NEW = 32    # tokens the converted model serves a prompt
+
+
+def _ckpt_engine(cfg, seed, extra=None):
+    """Phase train's engine of ``cfg`` (bf16, AdamW, clipping 1.0, micro
+    8 x gas 2) from random weights seeded ``seed``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel
+    model = GPT2LMModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params, config={
+            "train_micro_batch_size_per_gpu": 8,
+            "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+            "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}},
+            **(extra or {})})[0]
+    del params
+    torch.cuda.synchronize()
+    return engine
+
+
+def _ckpt_batches(cfg, n, seed):
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, cfg.vocab_size,
+                                       (16, cfg.n_positions), dtype=np.int32)}
+            for _ in range(n)]
+
+
+def _ckpt_steps(name, engine, batches, L):
+    """``train_batch`` on each batch, a main-path run: the counts are set
+    to 0 just before and read just after, and held to phase train's
+    (forward 2 x L a micro-batch under remat, dq and dk/dv L)."""
+    _launch_counts(reset=True)
+    metrics = [engine.train_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    n = 2 * len(batches)
+    check(counts["flash_attention_fwd"] == 2 * L * n,
+          f"{name}: flash forward launched {counts['flash_attention_fwd']} "
+          f"times, expected {2 * L * n}")
+    for k in _BWD_KERNELS:
+        check(counts[k] == L * n,
+              f"{name}: {k} launched {counts[k]} times, expected {L * n}")
+    for k in _PAGED_KERNELS[1:]:
+        check(counts[k] == 0, f"{name}: decode kernel {k} launched")
+    losses = [float(m["loss"]) for m in metrics]
+    check(all(math.isfinite(x) for x in losses),
+          f"{name}: non-finite loss {losses}")
+    return losses, counts
+
+
+class _StageTimer:
+    """Wall seconds spent in named functions while active: each target
+    ``(owner, attribute, stage)`` is wrapped in place and restored on
+    exit."""
+
+    def __init__(self, *targets):
+        self.targets, self.s = targets, {t[2]: 0.0 for t in targets}
+
+    def __enter__(self):
+        self.saved = [getattr(o, a) for o, a, _ in self.targets]
+        for (owner, attr, stage), fn in zip(self.targets, self.saved):
+            def timed(*a, _fn=fn, _stage=stage, **k):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.s[_stage] += time.perf_counter() - t
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, attr, _), fn in zip(self.targets, self.saved):
+            setattr(owner, attr, fn)
+
+
+def _gbps(nbytes, s):
+    return nbytes / s / 1e9 if s > 0 else float("inf")
+
+
+def _ckpt_resume(save_dir):
+    """The resume oracle at gpt2-1.3b's full width and depth: run A takes
+    4 steps; run B takes steps 1-2 from the same weights, saves (sync,
+    verified) and is destroyed; run C starts from other weights, loads and
+    takes steps 3-4. Returns (launch counts by run, engine C, its config,
+    the tag's bytes)."""
+    from deepspeed_tpu_torch.checkpoint import checkpoint_engine as ce_mod
+    from deepspeed_tpu_torch.checkpoint.integrity import dir_bytes
+    from deepspeed_tpu_torch.models.gpt2 import config_for
+    from deepspeed_tpu_torch.runtime import checkpointing as ck
+    cfg = config_for("gpt2-1.3b")
+    L = cfg.n_layer
+    batches = _ckpt_batches(cfg, CKPT_STEPS, 15)
+    runs = {}
+    a = _ckpt_engine(cfg, 0)
+    losses_a, runs["checkpoint run A"] = _ckpt_steps("checkpoint run A", a,
+                                                     batches, L)
+    master_a = {k: v.detach().clone() for k, v in a.master.items()}
+    del a
+    torch.cuda.empty_cache()
+
+    b = _ckpt_engine(cfg, 0)
+    losses_b, runs["checkpoint run B"] = _ckpt_steps(
+        "checkpoint run B", b, batches[:2], L)
+    check(losses_b == losses_a[:2],
+          f"checkpoint: run B's losses {losses_b} are not run A's "
+          f"{losses_a[:2]}")
+    with _StageTimer((ce_mod.TorchCheckpointEngine, "save", "write"),
+                     (ck, "write_manifest", "hash"),
+                     (ck, "verify_checkpoint", "verify")) as sv:
+        t = time.perf_counter()
+        b.save_checkpoint(save_dir)
+        save_s = time.perf_counter() - t
+    b.destroy()
+    del b
+    torch.cuda.empty_cache()
+    tag = os.path.join(save_dir, "global_step2")
+    nbytes = dir_bytes(tag)
+    files = {os.path.relpath(os.path.join(d, f), tag): os.path.getsize(
+        os.path.join(d, f)) for d, _, fs in os.walk(tag) for f in fs}
+
+    c = _ckpt_engine(cfg, 1)   # other weights: a load that does nothing fails
+    first = next(iter(master_a))
+    check(not torch.equal(c.master[first], master_a[first]),
+          "checkpoint: run C starts from run A's weights")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with _StageTimer((ck, "verify_checkpoint", "verify"),
+                     (type(c), "_load_checkpoint_state", "restore")) as ld:
+        t = time.perf_counter()
+        c.load_checkpoint(save_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    extra = torch.cuda.max_memory_allocated() - before
+    check(c.global_steps == 2 and c._micro_steps == 4,
+          f"checkpoint: loaded counters {c.global_steps}, {c._micro_steps}")
+    losses_c, runs["checkpoint run C"] = _ckpt_steps(
+        "checkpoint run C", c, batches[2:], L)
+    diff = [k for k in master_a if not torch.equal(c.master[k], master_a[k])]
+    worst = max((float((c.master[k] - master_a[k]).abs().max())
+                 for k in diff), default=0.0)
+    log(f"[checkpoint] gpt2-1.3b resume: losses run A {losses_a!r}, run C "
+        f"(steps 3-4 after the load) {losses_c!r}; master leaves that "
+        f"differ from run A's: {len(diff)} of {len(master_a)} (max |diff| "
+        f"{worst!r}); global_steps {c.global_steps}")
+    check(losses_c == losses_a[2:],
+          f"checkpoint: resumed losses {losses_c} != uninterrupted "
+          f"{losses_a[2:]}")
+    check(not diff, f"checkpoint: master leaves differ after the resume: "
+          f"{diff[:5]} (max |diff| {worst})")
+    check(c.global_steps == CKPT_STEPS,
+          f"checkpoint: global_steps {c.global_steps} != {CKPT_STEPS}")
+    state = sum(n for f, n in files.items() if f.startswith("state"))
+    log(f"[checkpoint] gpt2-1.3b tag global_step2: {nbytes} bytes "
+        f"({files}); save {save_s!r} s ({_gbps(nbytes, save_s)!r} GB/s): "
+        f"state write {sv.s['write']!r} s ({_gbps(state, sv.s['write'])!r} "
+        f"GB/s), "
+        f"manifest hash {sv.s['hash']!r} s ({_gbps(nbytes, sv.s['hash'])!r}"
+        f" GB/s), shallow verify {sv.s['verify']!r} s; load {load_s!r} s "
+        f"({_gbps(nbytes, load_s)!r} GB/s): deep verify {ld.s['verify']!r} "
+        f"s ({_gbps(nbytes, ld.s['verify'])!r} GB/s), read and copy to the "
+        f"card {ld.s['restore']!r} s ({_gbps(nbytes, ld.s['restore'])!r} "
+        f"GB/s); the load's peak device memory above the engine's {extra} "
+        f"bytes")
+    del master_a
+    return runs, c, cfg, nbytes
+
+
+def _ckpt_serve(engine, icfg, path):
+    """The converted model served: ``generate`` of 8 seeded prompts x 32
+    greedy tokens through B1 and B4 (a main-path run), the served-token
+    oracle, then a serving checkpoint saved and loaded into a fresh engine
+    that must serve the same tokens and the same prefill logits."""
+    from deepspeed_tpu_torch.checkpoint.integrity import dir_bytes
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import (load_serving_checkpoint,
+                                                      save_serving_checkpoint)
+    L = icfg.n_layer
+    rng = np.random.default_rng(16)
+    lens = rng.integers(64, 900, 8)
+    prompts = [rng.integers(0, icfg.vocab_size, n).tolist() for n in lens]
+    engine.generate(prompts[:1], max_new_tokens=2)   # warm-up
+    _launch_counts(reset=True)
+    t = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=CKPT_NEW)
+    gen_s = time.perf_counter() - t
+    counts = _launch_counts()
+    check(counts["flash_attention_fwd"] == L,
+          f"checkpoint serve: flash launches {counts['flash_attention_fwd']}"
+          f" != {L} (one prefill)")
+    check(counts["decode_attention"] == L * (CKPT_NEW - 1),
+          f"checkpoint serve: decode launches {counts['decode_attention']} "
+          f"!= {L} x {CKPT_NEW - 1} steps")
+    for b, row in enumerate(out):
+        check(len(row) == lens[b] + CKPT_NEW and row[:lens[b]] == prompts[b]
+              and all(0 <= x < icfg.vocab_size for x in row[lens[b]:]),
+              f"checkpoint serve: row {b} malformed")
+    rows = [int(np.argmin(lens)), int(np.argmax(lens))]
+    _serve_oracle(engine, "checkpoint trained gpt2-1.3b",
+                  [prompts[r] for r in rows], [out[r] for r in rows],
+                  CKPT_NEW)
+    t = time.perf_counter()
+    save_serving_checkpoint(engine, path)
+    save_s = time.perf_counter() - t
+    nbytes = dir_bytes(path)
+    t = time.perf_counter()
+    back = load_serving_checkpoint(path, DeepSpeedInferenceConfig(
+        dtype="bfloat16", max_out_tokens=icfg.n_positions))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    out2 = back.generate(prompts, max_new_tokens=CKPT_NEW)
+    check(out2 == out, "checkpoint serve: the reloaded serving checkpoint "
+          "serves other tokens")
+    ids = np.zeros((8, int(lens.max())), np.int64)
+    for b, p in enumerate(prompts):
+        ids[b, :len(p)] = p
+    same = torch.equal(engine.forward(ids), back.forward(ids))
+    check(same, "checkpoint serve: prefill logits differ after the serving "
+          "checkpoint round trip")
+    log(f"[checkpoint] trained gpt2-1.3b served: generate 8 x {CKPT_NEW} "
+        f"tokens in {gen_s!r} s, launches {counts}; serving checkpoint "
+        f"{nbytes} bytes, save {save_s!r} s ({_gbps(nbytes, save_s)!r} "
+        f"GB/s), load {load_s!r} s ({_gbps(nbytes, load_s)!r} GB/s); "
+        f"tokens identical after the round trip, prefill logits bit for "
+        f"bit {same}")
+    return {"checkpoint serve": counts}
+
+
+def _ckpt_async(save_dir):
+    """The async engine at gpt2-1.3b's width and 4 layers: save at step 2,
+    take steps 3-4 while the write may still run, then ``destroy`` joins;
+    a fresh engine loads the step-2 state bit for bit."""
+    from deepspeed_tpu_torch.checkpoint.integrity import verify_checkpoint
+    from deepspeed_tpu_torch.models.gpt2 import config_for
+    cfg = config_for("gpt2-1.3b", n_layer=4)
+    L = cfg.n_layer
+    batches = _ckpt_batches(cfg, CKPT_STEPS, 17)
+    async_cfg = {"checkpoint": {"engine": "async"}}
+    e = _ckpt_engine(cfg, 0, async_cfg)
+    t = time.perf_counter()
+    _, first = _ckpt_steps("checkpoint async steps 1-2", e, batches[:2], L)
+    first_s = time.perf_counter() - t
+    at_save = {k: v.detach().clone() for k, v in e.master.items()}
+    t = time.perf_counter()
+    e.save_checkpoint(save_dir)
+    ret_s = time.perf_counter() - t
+    t = time.perf_counter()
+    _, counts = _ckpt_steps("checkpoint async steps 3-4", e, batches[2:], L)
+    steps_s = time.perf_counter() - t
+    at_4 = {k: v.detach().clone() for k, v in e.master.items()}
+    t = time.perf_counter()
+    e.destroy()
+    join_s = time.perf_counter() - t
+    with open(os.path.join(save_dir, "latest")) as f:
+        latest = f.read().strip()
+    tag = os.path.join(save_dir, "global_step2")
+    check(latest == "global_step2" and verify_checkpoint(tag)[0],
+          f"checkpoint async: latest {latest!r} or its manifest is wrong")
+    f_ = _ckpt_engine(cfg, 1, async_cfg)
+    f_.load_checkpoint(save_dir)
+    torch.cuda.synchronize()
+    same = all(torch.equal(f_.master[k], v) for k, v in at_save.items())
+    moved = any(not torch.equal(at_4[k], v) for k, v in at_save.items())
+    check(same and moved and f_.global_steps == 2,
+          f"checkpoint async: the loaded state is not the step-2 state "
+          f"(equal {same}, steps 3-4 moved the master {moved}, "
+          f"global_steps {f_.global_steps})")
+    f_.destroy()
+    log(f"[checkpoint] async, gpt2-1.3b width at {L} layers: steps 1-2 took "
+        f"{first_s!r} s; save returned after {ret_s!r} s (host snapshot), "
+        f"steps 3-4 took {steps_s!r} s while the write ran, destroy joined "
+        f"in {join_s!r} s; the loaded state equals step 2's bit for bit")
+    return {"checkpoint async steps 1-2": first,
+            "checkpoint async steps 3-4": counts}
+
+
+def phase_checkpoint():
+    """Train, save a verified checkpoint, resume, convert to serving
+    weights, save a serving checkpoint, load it and serve; then the async
+    engine. Everything is written under a temporary directory of the
+    checkout's ``build/`` that is removed at the end. Returns the launch
+    counts of its main-path runs by name."""
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.module_inject import gpt2_to_inference
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    du = shutil.disk_usage(root)
+    log(f"[checkpoint] disk under {root}: {du.free} of {du.total} bytes "
+        f"free")
+    tmp = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=root)
+    try:
+        runs, c, cfg, _ = _ckpt_resume(os.path.join(tmp, "train"))
+        shutil.rmtree(os.path.join(tmp, "train"))
+        icfg, ip = gpt2_to_inference(cfg, c.params, torch.bfloat16)
+        c.destroy()
+        del c
+        torch.cuda.empty_cache()
+        engine = deepspeed_tpu_torch.init_inference(
+            (icfg, ip), dtype="bfloat16", max_out_tokens=icfg.n_positions)
+        del ip
+        runs.update(_ckpt_serve(engine, icfg, os.path.join(tmp, "serving")))
+        del engine
+        torch.cuda.empty_cache()
+        runs.update(_ckpt_async(os.path.join(tmp, "async")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return runs
+
+
 def gpt2_xl_config():
     from deepspeed_tpu_torch.model_implementations.transformer import \
         InferenceTransformerConfig
@@ -2580,6 +2916,7 @@ def _leaves(tree):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2620,6 +2957,9 @@ def main() -> int:
     # heads of 256 in training and in the sparse run (Gemma-2B's query
     # geometry: 8 heads of 256 at 2048 wide)
     d256 = {"train gpt2-1.3b 8x256": phase_train("gpt2-1.3b", n_head=8)}
+    t_ckpt = time.perf_counter()
+    runs.update(phase_checkpoint())
+    t_ckpt = time.perf_counter() - t_ckpt
     runs["sparse"] = run_sparse()
     runs["sparse 32 x 80"] = new_d["sparse 32 x 80"] = run_sparse(32, 80)
     d256["sparse 8 x 256"] = run_sparse(8, 256)
@@ -2702,6 +3042,8 @@ def main() -> int:
                      **{k: v for k, v in nums.items() if k not in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
+    log(f"[wall] chip_smoke.py {time.perf_counter() - t_start!r} s, of "
+        f"which phase checkpoint {t_ckpt!r} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

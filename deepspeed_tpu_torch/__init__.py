@@ -8,13 +8,37 @@ kernel on its path is a CUDA kernel written for Hopper
 Ported so far: one-shot inference (:func:`init_inference` →
 ``InferenceEngine.generate``), the paged continuous-batching server
 (``inference.ContinuousBatchingServer(engine)`` → ``submit`` / ``step`` /
-``drain``) and single-device training (:func:`initialize` →
-``DeepSpeedEngine.train_batch``, with ``models.gpt2``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``drain``), single-device training (:func:`initialize` →
+``DeepSpeedEngine.train_batch``, with ``models.gpt2``) with verified
+checkpoints (``save_checkpoint`` / ``load_checkpoint``, the
+``checkpoint`` toolkit), and the bridge from a trained GPT-2 to the server
+(``module_inject.convert_trained_model``, ``inference.engine.
+save_serving_checkpoint`` / ``load_serving_checkpoint``). Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from deepspeed_tpu_torch.utils.logging import logger  # noqa: F401
 
 __version__ = "0.1.0"
+
+# the JAX package's top-level names, resolved on first use (PEP 562) so
+# that importing the package stays light
+_LAZY = {
+    "DeepSpeedConfig": ("deepspeed_tpu_torch.config.config",
+                        "DeepSpeedConfig"),
+    "DeepSpeedEngine": ("deepspeed_tpu_torch.runtime.engine",
+                        "DeepSpeedEngine"),
+    "checkpoint": ("deepspeed_tpu_torch.checkpoint", None),
+    "module_inject": ("deepspeed_tpu_torch.module_inject", None),
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    mod, attr = _LAZY[name]
+    m = importlib.import_module(mod)
+    return m if attr is None else getattr(m, attr)
 
 
 def init_inference(model=None, config=None, **kwargs):
@@ -52,3 +76,17 @@ def initialize(*args, **kwargs):
     see :func:`deepspeed_tpu_torch.runtime.engine.initialize`)."""
     from deepspeed_tpu_torch.runtime.engine import initialize as _init
     return _init(*args, **kwargs)
+
+
+def add_config_arguments(parser):
+    """Augment an argparse parser with the DeepSpeed flags (reference
+    ``deepspeed/__init__.py:210``)."""
+    group = parser.add_argument_group("DeepSpeed-TPU",
+                                      "DeepSpeed-TPU configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed-TPU (helper flag)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to DeepSpeed-TPU json configuration")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Discover ranks via MPI environment")
+    return parser

@@ -9,6 +9,10 @@ device whether every row is done only every ``DONE_CHECK_EVERY`` steps;
 rows that finished earlier keep decoding until then, but their tokens are
 masked to 0 and not counted, so the check changes only time, never output.
 
+:func:`save_serving_checkpoint` / :func:`load_serving_checkpoint` write and
+read the JAX package's serving layout (a config JSON and one safetensors
+file), in both directions.
+
 Not in this slice (ROADMAP.md queue C): beams, speculative decoding,
 HF conversion and checkpoint loading, int8 weights, meshes (TP/EP/SP), MoE,
 the encoder path and request tracing.
@@ -353,3 +357,89 @@ def _pad_batch(input_ids, attention_mask=None):
         padded[:, :ids.shape[1]] = ids
         ids = padded
     return ids, lengths
+
+
+def _flatten_tree(tree, prefix=""):
+    """``{'layers/0/attn/wq': leaf}``: ``/``-joined dict keys and list
+    indices, the JAX package's ``flatten_with_names``."""
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        name = f"{prefix}{k}"
+        if isinstance(v, dict) and set(v) == {"q", "scale"}:
+            raise NotImplementedError(
+                f"int8 weight leaves ({name}: {{q, scale}}) in a serving "
+                f"checkpoint {_LATER[:-1]}, A4)")
+        if isinstance(v, (dict, list, tuple)):
+            out.update(_flatten_tree(v, name + "/"))
+        else:
+            out[name] = v
+    return out
+
+
+def save_serving_checkpoint(engine: InferenceEngine, path: str) -> None:
+    """Write the engine's converted serving state to disk (the reference's
+    ``save_mp_checkpoint_path``), in the JAX package's layout, so either
+    package loads the other's:
+
+        <path>/serving_config.json   InferenceTransformerConfig fields
+        <path>/serving.safetensors   flat '/'-joined param leaves
+    """
+    import json
+    import os
+
+    from deepspeed_tpu_torch.utils.safetensors_io import save_file
+
+    flat = _flatten_tree(engine.params)
+    os.makedirs(path, exist_ok=True)
+    cfg = dataclasses.asdict(engine.model_config)
+    cfg["dtype"] = str(engine.model_config.dtype).replace("torch.", "")
+    for k, v in list(cfg.items()):
+        if isinstance(v, tuple):
+            cfg[k] = list(v)
+    with open(os.path.join(path, "serving_config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    save_file(flat, os.path.join(path, "serving.safetensors"))
+
+
+def load_serving_checkpoint(path: str,
+                            config: Optional[DeepSpeedInferenceConfig]
+                            = None, device=None) -> InferenceEngine:
+    """Rebuild an :class:`InferenceEngine` from ``save_serving_checkpoint``
+    output (this package's or the JAX package's) — no conversion."""
+    import json
+    import os
+
+    from deepspeed_tpu_torch.utils.safetensors_io import load_file
+
+    with open(os.path.join(path, "serving_config.json")) as f:
+        raw = json.load(f)
+    raw["dtype"] = getattr(torch, raw["dtype"])
+    for k in ("local_windows", "moe_layers"):
+        if raw.get(k) is not None:
+            raw[k] = tuple(raw[k])
+    model_cfg = InferenceTransformerConfig(**raw)
+
+    # rebuild the nested tree from '/'-joined names
+    tree: dict = {}
+    for name, t in load_file(os.path.join(path, "serving.safetensors")
+                             ).items():
+        parts = name.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+
+    def listify(node, name=""):
+        if isinstance(node, dict):
+            if set(node) == {"q", "scale"}:
+                raise NotImplementedError(
+                    f"int8 weight leaves ({name}: {{q, scale}}) in a "
+                    f"serving checkpoint {_LATER[:-1]}, A4)")
+            if node and all(k.isdigit() for k in node):
+                return [listify(node[str(i)], f"{name}/{i}")
+                        for i in range(len(node))]
+            return {k: listify(v, f"{name}/{k}".lstrip("/"))
+                    for k, v in node.items()}
+        return node
+    return InferenceEngine((model_cfg, listify(tree)), config, device=device)

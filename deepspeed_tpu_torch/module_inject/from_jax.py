@@ -10,7 +10,10 @@ same function. :func:`paged_cache_from_numpy` does the same for a
 ``PagedKVCache`` (int8 pools with their scale tiles too), so both packages
 can start a step from one pool, and
 :func:`gpt2_params_from_flax` for the training GPT-2's flax params (with
-its inverse :func:`gpt2_params_to_numpy`). All take numpy arrays
+its inverse :func:`gpt2_params_to_numpy`), and
+:func:`load_engine_state_from_numpy` carries a JAX training engine's state
+(the master, the optimizer's moments and count, the loss scale and the
+step counters) into a port engine. All take numpy arrays
 (``jax.device_get``); this module imports no JAX.
 """
 from __future__ import annotations
@@ -57,22 +60,26 @@ def paged_cache_from_numpy(cache, device=None, dtype=None):
                         **scales)
 
 
+def _flat(tree: Any, prefix: str = "") -> dict:
+    """A nested dict of leaves → ``{dotted path: leaf}`` (the port's
+    parameter names); a flat dict passes through."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(_flat(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
 def gpt2_params_from_flax(tree: Any, device=None, dtype=None):
     """The flax ``GPT2LMModel``'s nested params (numpy leaves, from
     ``jax.device_get``) → the port's flat dict of tensors, keyed by the
     flax paths joined with dots (``h_0.attn.c_attn.kernel``). Layouts are
     the same, so nothing is transposed."""
-    flat = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            name = f"{prefix}{k}"
-            if isinstance(v, dict) or hasattr(v, "items"):
-                walk(v, name + ".")
-            else:
-                flat[name] = params_from_numpy(v, device, dtype)
-    walk(tree, "")
-    return flat
+    return {k: params_from_numpy(v, device, dtype)
+            for k, v in _flat(tree).items()}
 
 
 def gpt2_params_to_numpy(params) -> dict:
@@ -88,3 +95,43 @@ def gpt2_params_to_numpy(params) -> dict:
         t = t.detach().cpu()
         node[leaf] = (t.float() if t.is_floating_point() else t).numpy()
     return tree
+
+
+def load_engine_state_from_numpy(engine, state: dict) -> None:
+    """Install a JAX training engine's state into a port
+    ``DeepSpeedEngine`` built on the same model and config, so the port
+    continues the JAX run. ``state`` holds numpy leaves:
+
+    * ``master`` — the f32 weights (``state.master``, or ``state.params``
+      in fp32), nested as the flax params or flat by dotted name;
+    * ``opt_state`` — the optimizer state's fields: ``count`` and the
+      moment trees (``mu``/``nu``, or ``accum``), nested like ``master``;
+    * ``loss_scale`` — ``scale``, ``growth_tracker`` and ``hysteresis``;
+    * ``global_steps``, ``skipped_steps`` and ``micro_steps``.
+
+    The compute params are cast from the master by the step's own cast."""
+    import dataclasses
+
+    def host(tree):
+        return {k: torch.from_numpy(np.array(v, np.float32))
+                for k, v in _flat(tree).items()}
+
+    opt = {"type": type(engine.opt_state).__name__}
+    for f in dataclasses.fields(engine.opt_state):
+        v = state["opt_state"].get(f.name)
+        if v is not None:
+            opt[f.name] = host(v) if hasattr(v, "items") else int(np.asarray(v))
+    ls = state["loss_scale"]
+    engine._load_checkpoint_state({
+        "master": host(state["master"]),
+        "optimizer": opt,
+        "loss_scale": {
+            "scale": torch.tensor(float(np.asarray(ls["scale"])),
+                                  dtype=torch.float32),
+            "growth_tracker": torch.tensor(
+                int(np.asarray(ls["growth_tracker"])), dtype=torch.int32),
+            "hysteresis": torch.tensor(int(np.asarray(ls["hysteresis"])),
+                                       dtype=torch.int32)}})
+    engine.global_steps = int(state["global_steps"])
+    engine.skipped_steps = int(state["skipped_steps"])
+    engine._micro_steps = int(state["micro_steps"])

@@ -12,6 +12,13 @@ Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``
 * ``forward`` / ``backward`` / ``step`` — the same step split per
   micro-batch (``backward`` takes the micro-batch, as the JAX engine's
   does).
+* ``save_checkpoint`` / ``load_checkpoint`` — the verified checkpoints of
+  ``runtime/checkpointing.py`` (sync or async); ``save_16bit_model``,
+  ``module_state_dict`` / ``load_module_state_dict`` and ``destroy``.
+
+A ``loss_fn`` may return ``(loss, aux)``: ``aux`` is a dict of scalars,
+averaged over the micro-batches into the step's metrics (JAX
+``_split_loss_out``).
 
 The JAX engine compiles that step into one XLA program; here it is eager
 PyTorch around the flash kernels. No bf16 or fp32 step reads a device
@@ -20,13 +27,14 @@ learning rate is a host float. An fp16 step reads one bool, whether the
 gradients are finite, to skip the update (the JAX engine reads the same
 flag per step). Gradients, moments and the master are updated in place.
 
-Not in this slice (ROADMAP.md queue C; checkpoints are A3b): meshes and
-ZeRO stages > 0, offload, the 1-bit and sparse gradient exchanges, MoQ,
-eigenvalue, curriculum learning, the flops profiler, checkpoints and the
-training telemetry planes.
+Not in this slice (ROADMAP.md queue C): meshes and ZeRO stages > 0,
+offload, the 1-bit and sparse gradient exchanges, MoQ, eigenvalue,
+curriculum learning, the flops profiler and the training telemetry
+planes.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -40,6 +48,7 @@ from deepspeed_tpu_torch.runtime.precision import (PRECISION_DTYPES,
                                                    make_loss_scale,
                                                    update_loss_scale)
 from deepspeed_tpu_torch.runtime.utils import clip_coef, global_norm
+from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
 from deepspeed_tpu_torch.utils.logging import logger
 
 _LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
@@ -69,10 +78,34 @@ def _refuse_unported(config: DeepSpeedConfig) -> None:
             raise NotImplementedError(f"{what} {_LATER}")
 
 
-def _loss(out):
-    if isinstance(out, tuple):
-        raise NotImplementedError(f"a loss_fn returning (loss, aux) {_LATER}")
-    return out
+_RESERVED_METRICS = {"loss", "grad_norm", "lr", "loss_scale", "skipped",
+                     "finite", "_numerics"}
+
+
+def _split_loss_out(out):
+    """loss_fn may return a bare scalar or ``(loss, aux_dict)`` (the
+    reference's multi-output models: extra per-step scalars ride into the
+    step metrics). Reserved metric names stay the engine's."""
+    if not isinstance(out, tuple):
+        return out, {}
+    loss, aux = out
+    if not isinstance(aux, dict):
+        raise TypeError(
+            "loss_fn returning a tuple must be (loss, aux_dict); "
+            f"got aux of type {type(aux).__name__}")
+    bad = _RESERVED_METRICS & set(aux)
+    if bad:
+        raise ValueError(
+            f"aux metric names {sorted(bad)} collide with engine "
+            "metrics — rename them")
+    aux = {k: torch.as_tensor(v).detach().to(torch.float32)
+           for k, v in aux.items()}
+    nonscalar = [k for k, v in aux.items() if v.dim() != 0]
+    if nonscalar:
+        raise ValueError(
+            f"aux metrics must be scalars, got non-scalar "
+            f"{sorted(nonscalar)} (reduce them in loss_fn)")
+    return loss, aux
 
 
 class DeepSpeedEngine:
@@ -112,7 +145,20 @@ class DeepSpeedEngine:
         self.skipped_steps = 0
         self._micro_steps = 0
         self._false = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._train_mode = True
+        self._last_skipped = None
+        self._last_grad_norm = None
+        # checkpointing (runtime/checkpointing.py): the checkpoint engine,
+        # an async finalize in flight and its stashed error, and the
+        # chaos hook a caller may set (``check_ckpt_write(tag)``)
+        self._ckpt_engine = None
+        self._ckpt_finalize_thread = None
+        self._ckpt_finalize_error = None
+        self.fault_injector = None
         tc = config.telemetry
+        # process-wide registry; telemetry.enabled=false records into a
+        # private one, so nothing reaches the process scrape surface
+        self.telemetry = get_registry() if tc.enabled else MetricRegistry()
         if tc.enabled and (tc.numerics_enabled or tc.goodput
                            or tc.trace_sample_rate > 0
                            or tc.http_port is not None):
@@ -143,10 +189,11 @@ class DeepSpeedEngine:
             p.requires_grad_(True)
         self.opt_state = self.optimizer.init(
             {k: v.detach() for k, v in self._master().items()})
-        self.loss_scale = make_loss_scale(self.config.fp16 if self.fp16
-                                          else None, self.device)
+        self._loss_scale = make_loss_scale(self.config.fp16 if self.fp16
+                                           else None, self.device)
         self._acc = None   # f32 gradient accumulators, made on first use
         self._acc_losses = []   # the loss of each micro-batch in _acc
+        self._acc_aux = []      # and its aux metrics
 
     def _master(self):
         return self.master if self.mixed_precision else self.params
@@ -164,18 +211,18 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------ the gradient
     def _micro_grads(self, mb, scale):
-        """``(loss, grads)``: the gradient of ``loss * scale / gas`` (f32)
-        w.r.t. the compute params, in their dtype."""
-        loss = _loss(self.loss_fn(self.params, mb, None))
+        """``(loss, aux, grads)``: the gradient of ``loss * scale / gas``
+        (f32) w.r.t. the compute params, in their dtype."""
+        loss, aux = _split_loss_out(self.loss_fn(self.params, mb, None))
         scaled = (loss * scale / self.gas).float()
-        return loss.detach(), torch.autograd.grad(
+        return loss.detach(), aux, torch.autograd.grad(
             scaled, list(self.params.values()))
 
     def _apply(self, grads, mean_loss):
         """Unscale, overflow check (fp16), clip, update or skip, loss-scale
         update; the step's metrics. ``grads`` (f32, a list in param order)
         are modified in place."""
-        scale = self.loss_scale.scale
+        scale = self._loss_scale.scale
         if self.fp16:
             torch._foreach_mul_(grads, 1.0 / scale)
             finite = grads_finite(grads)
@@ -201,18 +248,19 @@ class DeepSpeedEngine:
                         [self.params[n].detach() for n in names],
                         [master[n] for n in names])
         if self.fp16:
-            self.loss_scale = update_loss_scale(self.loss_scale, finite)
+            self._loss_scale = update_loss_scale(self._loss_scale, finite)
             self.skipped_steps += int(skip)
         self.global_steps += 1
+        self._last_skipped = ~finite if self.fp16 else self._false
+        self._last_grad_norm = gnorm
         return {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
-                "loss_scale": scale,
-                "skipped": ~finite if self.fp16 else self._false}
+                "loss_scale": scale, "skipped": self._last_skipped}
 
     # ----------------------------------------------------------- public
     def train_batch(self, batch=None) -> Dict[str, Any]:
         """One optimizer step over ``micro * gas`` rows; returns ``loss``
         (the mean over micro-batches), ``grad_norm``, ``lr``,
-        ``loss_scale`` and ``skipped``."""
+        ``loss_scale``, ``skipped`` and the mean of each aux metric."""
         if batch is None:
             batch = next(self.training_dataloader)
         batch = self._upload(batch)
@@ -233,13 +281,14 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Loss of one micro-batch, without gradients."""
         with torch.no_grad():
-            return _loss(self.loss_fn(self.params, self._upload(batch), None))
+            return _split_loss_out(
+                self.loss_fn(self.params, self._upload(batch), None))[0]
 
     def backward(self, batch):
         """Accumulate the f32 gradients of one micro-batch; returns its
         loss."""
-        loss, grads = self._micro_grads(self._upload(batch),
-                                        self.loss_scale.scale)
+        loss, aux, grads = self._micro_grads(self._upload(batch),
+                                             self._loss_scale.scale)
         if self._acc is None:
             self._acc = [torch.empty(p.shape, dtype=torch.float32,
                                      device=self.device)
@@ -250,6 +299,7 @@ class DeepSpeedEngine:
             torch._foreach_copy_(self._acc, grads)
         del grads
         self._acc_losses.append(loss)
+        self._acc_aux.append(aux)
         self._micro_steps += 1
         return loss
 
@@ -260,18 +310,48 @@ class DeepSpeedEngine:
         """Apply the gradients accumulated by ``backward``; a no-op (None)
         off the accumulation boundary."""
         if not self.is_gradient_accumulation_boundary():
+            self._last_skipped = True   # a no-op step: nothing applied
             return None
         if not self._acc_losses:
             raise RuntimeError("step() called with no accumulated gradients")
         losses, self._acc_losses = self._acc_losses, []
-        return self._apply(self._acc, sum(losses) / len(losses))
+        auxes, self._acc_aux = self._acc_aux, []
+        metrics = self._apply(self._acc, sum(losses) / len(losses))
+        if auxes and auxes[0]:
+            for k in auxes[0]:
+                metrics[k] = sum(a[k] for a in auxes) / len(auxes)
+        return metrics
 
     # --------------------------------------------------------- accessors
     def get_lr(self):
         return [self.lr_scheduler(self.global_steps)]
 
     def get_loss_scale(self) -> float:
-        return float(self.loss_scale.scale) if self.fp16 else 1.0
+        """The current dynamic loss scale (fp16) or 1.0."""
+        return float(self._loss_scale.scale) if self.fp16 else 1.0
+
+    def loss_scale(self) -> float:
+        return self.get_loss_scale()
+
+    @property
+    def global_samples(self) -> int:
+        """Samples consumed so far (reference engine.global_samples)."""
+        return self.global_steps * self.train_batch_size
+
+    def get_global_grad_norm(self):
+        """The global gradient norm of the latest step as a host float, or
+        None before the first one."""
+        g = self._last_grad_norm
+        return None if g is None else float(g)
+
+    def was_step_applied(self) -> bool:
+        """True if the latest step updated the parameters; False after an
+        fp16 overflow skip or a step() off the accumulation boundary. The
+        flag stays on the device until asked for."""
+        skipped = self._last_skipped
+        if skipped is None:
+            return False
+        return not bool(skipped)
 
     def fp32_master_params(self) -> Dict[str, torch.Tensor]:
         """The f32 master weights, copied to the host."""
@@ -287,15 +367,229 @@ class DeepSpeedEngine:
     def zero_optimization_stage(self) -> int:
         return 0
 
+    def zero_optimization(self) -> bool:
+        return False
+
+    def zero_cpu_offload(self) -> bool:
+        return False
+
+    def zero_offload_optimizer(self):
+        return None
+
+    def zero_offload_param(self):
+        return None
+
+    def sparse_gradients_enabled(self) -> bool:
+        return self.config.sparse_gradients
+
+    def curriculum_enabled(self) -> bool:
+        return False
+
+    # config accessors of the reference engine (engine.py:428-1030)
+    def get_batch_info(self):
+        """(train_batch_size, micro_batch_size, gas)."""
+        return self.train_batch_size, self.micro_batch_size, self.gas
+
+    def optimizer_name(self):
+        return self.config.optimizer.type if self.config.optimizer else None
+
+    def optimizer_params(self):
+        return dict(self.config.optimizer.params) \
+            if self.config.optimizer else None
+
+    def scheduler_name(self):
+        return self.config.scheduler.type if self.config.scheduler else None
+
+    def scheduler_params(self):
+        return dict(self.config.scheduler.params) \
+            if self.config.scheduler else None
+
+    def get_mom(self):
+        """Momentum (SGD/RMSprop) or betas (the Adam family)."""
+        params = self.optimizer_params() or {}
+        if (self.optimizer_name() or "").lower() in ("sgd", "rmsprop"):
+            return [params.get("momentum", 0.0)]
+        return [tuple(params.get("betas", (0.9, 0.999)))]
+
+    def gradient_clipping(self) -> float:
+        return self.config.gradient_clipping
+
+    def dynamic_loss_scale(self) -> bool:
+        return self.fp16 and self.config.fp16.dynamic_loss_scale
+
+    def steps_per_print(self) -> int:
+        return self.config.steps_per_print
+
+    def wall_clock_breakdown(self) -> bool:
+        return self.config.wall_clock_breakdown
+
+    def memory_breakdown(self) -> bool:
+        return self.config.memory_breakdown
+
+    def communication_data_type(self):
+        return self.config.communication_data_type
+
+    def train(self, mode: bool = True):
+        """Training/eval mode toggle. The port's ``loss_fn`` gets no rng
+        in either mode (no dropout), so the mode changes nothing yet."""
+        self._train_mode = bool(mode)
+
+    def eval(self):
+        self.train(False)
+
+    def zero_grad(self) -> None:
+        """Drop the gradients accumulated by ``backward`` and roll the
+        micro-step counter back to the last boundary."""
+        self._acc_losses = []
+        self._acc_aux = []
+        self._micro_steps -= self._micro_steps % self.gas
+
+    # ------------------------------------------------------- module state
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The compute-dtype weights, copied to the host, by the engine's
+        names."""
+        return {k: v.detach().cpu() for k, v in self.params.items()}
+
+    def load_module_state_dict(self, state_dict) -> None:
+        """Load the module weights only: each is cast to its param's
+        dtype, the optimizer state is untouched and the f32 master is
+        cast from the loaded params (as ``load_checkpoint(
+        load_module_only=True)`` keeps the optimizer). Names may be the
+        engine's or the JAX package's ``/``-joined ones."""
+        sd = {k.replace("/", "."): v for k, v in state_dict.items()}
+        missing = set(self.params) - set(sd)
+        if missing:
+            raise KeyError(f"state_dict missing params: {sorted(missing)[:5]}")
+        with torch.no_grad():
+            for n, p in self.params.items():
+                v = sd[n] if torch.is_tensor(sd[n]) else torch.tensor(sd[n])
+                p.detach().copy_(v.reshape(p.shape))
+            if self.mixed_precision:
+                for n, m in self.master.items():
+                    m.copy_(self.params[n].detach())
+
+    def save_16bit_model(self, save_dir,
+                         save_filename: str = "model.safetensors") -> str:
+        """The compute-precision weights as ONE safetensors file with the
+        engine's dotted names (reference ``save_16bit_model``)."""
+        import os
+
+        from deepspeed_tpu_torch.utils.safetensors_io import save_file
+        os.makedirs(save_dir, exist_ok=True)
+        out = os.path.join(save_dir, save_filename)
+        save_file({k: v.detach() for k, v in self.params.items()}, out)
+        logger.info(f"saved 16-bit model: {out} ({len(self.params)} "
+                    "tensors)")
+        return out
+
+    # ------------------------------------------------------- checkpoints
+    def _checkpoint_state(self) -> Dict[str, Dict[str, Any]]:
+        """The groups a checkpoint holds: the f32 master, the optimizer
+        state (its dataclass fields: ``count`` a host int, the moment
+        dicts) and the loss scale's dynamic fields. Device tensors, not
+        copies: the checkpoint engine copies them to the host."""
+        opt = {"type": type(self.opt_state).__name__}
+        for f in dataclasses.fields(self.opt_state):
+            v = getattr(self.opt_state, f.name)
+            if v is not None:
+                opt[f.name] = ({k: t.detach() for k, t in v.items()}
+                               if isinstance(v, dict) else v)
+        ls = self._loss_scale
+        return {"master": {k: v.detach() for k, v in self._master().items()},
+                "optimizer": opt,
+                "loss_scale": {"scale": ls.scale,
+                               "growth_tracker": ls.growth_tracker,
+                               "hysteresis": ls.hysteresis}}
+
+    @staticmethod
+    def _copy_into(dst: Dict[str, torch.Tensor], src, what: str) -> None:
+        if set(dst) != set(src):
+            raise ValueError(
+                f"checkpoint {what} does not match the engine: missing "
+                f"{sorted(set(dst) - set(src))[:5]}, unexpected "
+                f"{sorted(set(src) - set(dst))[:5]}")
+        for k, t in dst.items():
+            if tuple(src[k].shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint {what} {k!r} has shape "
+                                 f"{tuple(src[k].shape)}, the engine "
+                                 f"{tuple(t.shape)}")
+            t.detach().copy_(src[k])
+
+    def _load_checkpoint_state(self, state, load_optimizer_states=True):
+        """Copy a checkpoint's groups (host tensors) into the engine's own
+        tensors, then cast the compute params from the master by the
+        step's own cast (``_foreach_copy_``), so their bits are the
+        saved step's."""
+        with torch.no_grad():
+            master = self._master()
+            self._copy_into(master, state["master"], "master")
+            if self.mixed_precision:
+                names = list(master)
+                torch._foreach_copy_([self.params[n].detach() for n in names],
+                                     [master[n] for n in names])
+            ls = state["loss_scale"]
+            self._loss_scale = dataclasses.replace(
+                self._loss_scale, **{k: ls[k].to(self.device, copy=True)
+                                     for k in ("scale", "growth_tracker",
+                                               "hysteresis")})
+            if not load_optimizer_states:
+                return
+            opt = state["optimizer"]
+            if opt.get("type") != type(self.opt_state).__name__:
+                raise ValueError(
+                    f"checkpoint optimizer state is {opt.get('type')!r}, "
+                    f"the engine's {type(self.opt_state).__name__!r}")
+            for f in dataclasses.fields(self.opt_state):
+                cur = getattr(self.opt_state, f.name)
+                if isinstance(cur, dict):
+                    self._copy_into(cur, opt[f.name], f"optimizer {f.name}")
+                elif cur is not None:
+                    setattr(self.opt_state, f.name, int(opt[f.name]))
+
     def save_checkpoint(self, save_dir, tag=None, client_state=None):
-        raise NotImplementedError(
-            "save_checkpoint is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP.md A3b)")
+        """A verified checkpoint under ``save_dir/<tag>`` (default
+        ``global_step<N>``); returns the tag dir. See
+        ``runtime/checkpointing.py``."""
+        from deepspeed_tpu_torch.runtime.checkpointing import save_checkpoint
+        from deepspeed_tpu_torch.telemetry import events as _ev
+        out = save_checkpoint(self, save_dir, tag=tag,
+                              client_state=client_state or {})
+        _ev.record_event(_ev.CHECKPOINT, dir=str(save_dir), tag=str(tag),
+                         step=self.global_steps)
+        return out
 
     def load_checkpoint(self, load_dir, tag=None, **kwargs):
-        raise NotImplementedError(
-            "load_checkpoint is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP.md A3b)")
+        """``(tag dir, client_state)`` of the restored checkpoint; keyword
+        arguments ``load_optimizer_states``, ``load_lr_scheduler_states``
+        and ``load_module_only`` as in the reference."""
+        from deepspeed_tpu_torch.runtime.checkpointing import load_checkpoint
+        return load_checkpoint(self, load_dir, tag=tag, **kwargs)
+
+    def destroy(self) -> None:
+        """Join an in-flight async checkpoint finalize FIRST — a teardown
+        must never abandon a checkpoint mid-publication, and a finalize
+        that failed surfaces here, after the rest of the teardown — then
+        release the checkpoint engine and the gradient accumulators."""
+        from deepspeed_tpu_torch.runtime.checkpointing import (
+            _join_pending_finalize)
+        ckpt_err = None
+        try:
+            _join_pending_finalize(self)
+        except RuntimeError as e:
+            ckpt_err = e
+        finally:
+            ce, self._ckpt_engine = self._ckpt_engine, None
+            if ce is not None:
+                try:
+                    ce.close()
+                except Exception as e:  # noqa: BLE001
+                    if ckpt_err is None:
+                        ckpt_err = RuntimeError(
+                            f"checkpoint engine close failed: {e!r}")
+        self.zero_grad()
+        self._acc = None
+        if ckpt_err is not None:
+            raise ckpt_err
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
