@@ -86,9 +86,13 @@ kernel's row.
    beside ``native_layer_norm_backward`` in every case.
 8. e2e    — ``deepspeed_tpu_torch.init_inference`` → ``generate`` at GPT-2 XL
    width (48 layers, n_embd 1600, 25 heads, bf16, random weights from a
-   seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy.
-   Then decode == prefill: decode-path logits against ``causal_forward``
-   logits taken with the flash kernel's plain version.
+   seed) on 8 seeded prompts of 64-900 tokens, 32 new tokens, greedy,
+   its decode step a replayed CUDA graph; then the same ``generate`` with
+   the graph off (the eager control), which must give the same tokens
+   (both walls printed), the host enqueue and device time of one step
+   eager and replayed, and decode == prefill: the graph's decode-path
+   logits against ``causal_forward`` logits taken with the flash kernel's
+   plain version.
 9. serve  — ``ContinuousBatchingServer`` over one engine of the same weights,
    three servers in turn: (a) the default config (monolithic prefill,
    async loop, lag 1) on 16 requests submitted 8, 4 steps, 8 more; (b)
@@ -104,7 +108,11 @@ kernel's row.
    decode launch; no fp paged launch over an int8 pool), and a
    tie-tolerant oracle on two requests: every served token is within
    E2E_MAX_TOL (int8 pools: INT8_E2E_MAX_TOL) of the maximum logit of a
-   forward through no attention kernel.
+   forward through no attention kernel. Every server runs its decode or
+   verify step as a CUDA graph, which must have replayed; (a), (c) and (d)
+   are each run again with the graphs off (the eager control) and must
+   serve the same tokens. One paged decode step at S=8 is timed eager and
+   replayed (host enqueue, device time).
 9b. pythia — Pythia-2.8B at its published widths and depth (HF
    EleutherAI/pythia-2.8b config.json: 32 layers, 32 heads of 80, parallel
    residual, rotary_pct 0.25, exact GELU, untied head; random weights,
@@ -162,6 +170,11 @@ kernel's row.
    under autograd at the 1.3B training shape: 2 forward and 2 backward
    launches; the gradients against autograd through
    ``layer_norm_reference``.
+
+Each graphed path logs its captures, replays, capture seconds and the
+memory of the graph's pool, and must have replayed at least once. A
+replay adds the launches its capture recorded to each wrapper's count, so
+the launch counts stay counts of kernel executions.
 
 The kernel launch counts are set to 0 just before each main-path run (the
 e2e generate, each server, the timed training steps, the checkpoint
@@ -2349,7 +2362,10 @@ def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
     lens = rng.integers(cfg.n_positions // 16, cfg.n_positions * 7 // 8 + 5, 8)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     new = 32
-    engine.generate(prompts, max_new_tokens=2)   # warm-up: cuBLAS, allocator
+    # warm-up: cuBLAS, the allocator, and the decode step's graph (warmed
+    # up at the first step, captured at the second)
+    engine.generate(prompts, max_new_tokens=3)
+    graph = engine._kept[2]
 
     def timed(n):
         t = time.perf_counter()
@@ -2377,13 +2393,32 @@ def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
               f"row {b}: token out of range")
     per_tok = [(tg - tp) / steps * 1e3 for tg, tp in
                ((t_gen, t_pre), (t_gen2, t_pre2))]
+    kept = engine._kept[1]
+    cache_bytes = sum(x.nbytes for x in (kept.k, kept.v, kept.lengths))
     log(f"[{tag}] generate 8 x {new} tokens: {t_gen!r} s and {t_gen2!r} s; "
         f"prefill (generate of 1 token) {t_pre * 1e3!r} ms and "
         f"{t_pre2 * 1e3!r} ms; decode {per_tok[0]!r} and {per_tok[1]!r} "
         f"ms per step; {8 * new / t_gen!r} tokens/s; peak memory "
-        f"{peak} bytes; launches flash {n_flash}, decode {n_decode}")
+        f"{peak} bytes; launches flash {n_flash}, decode {n_decode}; kept "
+        f"dense cache {tuple(kept.k.shape)} {cache_bytes} bytes")
+    check(graph is not None and engine._kept[2] is graph,
+          f"{tag}: generate's decode step has no graph kept")
+    _graph_log(tag, "generate", graph)
 
-    # per-step host time: enqueue (no sync) vs device time of one step
+    # the eager control: the same generate with the graph off
+    engine._cuda_graphs = False
+    _, e_pre = timed(1)
+    ref, e_gen = timed(new)
+    engine._cuda_graphs = True
+    e_tok = (e_gen - e_pre) / steps * 1e3
+    log(f"[{tag}] eager control: generate 8 x {new} tokens {e_gen!r} s, "
+        f"prefill {e_pre * 1e3!r} ms, decode {e_tok!r} ms per step (graphs: "
+        f"{t_gen!r} s, {per_tok[0]!r} ms per step)")
+    check(ref == out, f"{tag}: generate's tokens with the decode graph "
+          f"differ from the eager control's")
+
+    # per-step host time: enqueue (no sync) vs device time of one step,
+    # eager and replayed, over the kept cache
     with torch.inference_mode():
         ids = np.zeros((8, cfg.n_positions), np.int64)
         for b, p in enumerate(prompts):
@@ -2394,26 +2429,31 @@ def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
                             torch.as_tensor(lens, device=dev), cache)
         tok = lg.argmax(-1)
         torch.cuda.synchronize()
-        host, dev_ms = [], []
-        for _ in range(8):
-            s, e = (torch.cuda.Event(enable_timing=True),
-                    torch.cuda.Event(enable_timing=True))
-            th = time.perf_counter()
-            s.record()
-            lg, cache = decode_step(engine.params, engine.model_config, tok,
-                                    cache)
-            e.record()
-            host.append(time.perf_counter() - th)
-            tok = lg.argmax(-1)
-            torch.cuda.synchronize()
-            dev_ms.append(s.elapsed_time(e))
-    log(f"[{tag}] one decode step (B=8): host enqueue "
-        f"{float(np.median(host)) * 1e3!r} ms, device "
-        f"{float(np.median(dev_ms))!r} ms "
-        f"(medians of 8)")
+        for how, step in (
+                ("eager", lambda t: decode_step(
+                    engine.params, engine.model_config, t, cache)[0]),
+                ("replayed", engine._decode_fn(cache))):
+            host, dev_ms = [], []
+            for i in range(10):
+                s, e = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                th = time.perf_counter()
+                s.record()
+                lg = step(tok)
+                e.record()
+                th = time.perf_counter() - th
+                tok = lg.argmax(-1)
+                torch.cuda.synchronize()
+                if i >= 2:   # a new graph's warm-up and capture
+                    host.append(th)
+                    dev_ms.append(s.elapsed_time(e))
+            log(f"[{tag}] one decode step (B=8), {how}: host enqueue "
+                f"{float(np.median(host)) * 1e3!r} ms, device "
+                f"{float(np.median(dev_ms))!r} ms (medians of 8)")
 
-    # decode == prefill: decode-path logits (kernels) against a forward
-    # over the same tokens through the flash kernel's plain version
+    # decode == prefill: the graph's decode-path logits (kernels) against
+    # a forward over the same tokens through the flash kernel's plain
+    # version
     rows = [int(np.argmin(lens)), int(np.argmax(lens))]
     k_steps = 4
     with torch.inference_mode():
@@ -2427,13 +2467,14 @@ def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
         lg, cache = prefill(engine.params, engine.model_config,
                             torch.as_tensor(p_ids, device=dev), plen,
                             cache)
+        step = engine._decode_fn(cache)
         dec = [lg]
         for s in range(k_steps):
             tok = torch.as_tensor([out[r][lens[r] + s] for r in rows],
                                   device=dev)
-            lg, cache = decode_step(engine.params, engine.model_config, tok,
-                                    cache)
-            dec.append(lg)
+            dec.append(step(tok))
+        check(engine._kept[2].replays == k_steps - 1,
+              f"{tag}: decode == prefill did not replay its graph")
         ref = causal_forward(engine.params, engine.model_config,
                              torch.as_tensor(f_ids, device=dev),
                              reference_attention=True)
@@ -2445,8 +2486,9 @@ def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
     mx = max(e[0] for e in errs)
     mean = max(e[1] for e in errs)
     log(f"[{tag}] decode == prefill on rows {rows}, {k_steps + 1} positions "
-        f"each: max |logit diff| {mx!r} (tol {E2E_MAX_TOL}), worst mean "
-        f"{mean!r} (tol {E2E_MEAN_TOL})")
+        f"each (the decode steps through the graph): max |logit diff| "
+        f"{mx!r} (tol {E2E_MAX_TOL}), worst mean {mean!r} (tol "
+        f"{E2E_MEAN_TOL})")
     check(math.isfinite(mx) and mx <= E2E_MAX_TOL and mean <= E2E_MEAN_TOL,
           "decode-path logits disagree with the full forward")
     return {"flash_attention_fwd": n_flash, "decode_attention": n_decode}
@@ -2461,33 +2503,40 @@ _BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 def _launch_counts(reset=False):
     """Every wrapper's launch count (set to 0 first when ``reset``)."""
-    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
-    from deepspeed_tpu_torch.ops import decode_attention as da
-    from deepspeed_tpu_torch.ops import flash_attention as fa
-    from deepspeed_tpu_torch.ops import layer_norm as ln
-    fns = {"flash_attention_fwd": fa.flash_attention_fwd,
-           **{n: getattr(fa, n) for n in _BWD_KERNELS},
-           **{n: getattr(da, n) for n in _PAGED_KERNELS[1:]},
-           "block_sparse_attention": bsa.block_sparse_attention,
-           "layer_norm_fwd": ln.layer_norm_fwd,
-           "layer_norm_bwd": ln.layer_norm_bwd}
+    from deepspeed_tpu_torch.ops import launch_counters
+    fns = launch_counters()
     if reset:
         for f in fns.values():
             f.launches = 0
     return {n: f.launches for n, f in fns.items()}
 
 
+def _graph_log(tag, name, graph):
+    """Log one step graph's captures, replays, capture seconds and pool
+    bytes; it must have been captured once and replayed."""
+    snap = graph.snapshot()
+    log(f"[{tag}] {name}: graph {graph.name}: {snap['captures']} capture "
+        f"in {snap['capture_s']!r} s, {snap['replays']} replays, graph pool "
+        f"{snap['pool_bytes']} bytes, launches a replay "
+        f"{snap['launches_per_replay']}")
+    check(snap["captures"] == 1 and snap["replays"] > 0,
+          f"{name}: the {graph.name} graph was not replayed")
+
+
 def _serve_run(engine, name, knobs, batches, new, between=None,
-               drain_each=False):
+               drain_each=False, graphs=True):
     """One server over ``engine`` with config ``knobs``: submit each batch
     of prompts in turn, stepping ``between(srv, i)`` steps after batch i
-    (or, with ``drain_each``, until the batch is served), then drain. The
-    kernel counts are set to 0 just before and read just after. Returns
-    (server, request ids, outputs, counts)."""
+    (or, with ``drain_each``, until the batch is served), then drain. Its
+    decode or verify step runs as a CUDA graph, which must have replayed,
+    unless ``graphs`` is False (the eager control). The kernel counts are
+    set to 0 just before and read just after. Returns (server, request
+    ids, outputs, counts)."""
     from deepspeed_tpu_torch.inference import (ContinuousBatchingServer,
                                                DeepSpeedInferenceConfig)
     engine.config = DeepSpeedInferenceConfig(dtype="bfloat16", **knobs)
     srv = ContinuousBatchingServer(engine)
+    srv._cuda_graphs = graphs
     torch.cuda.synchronize()
     walls, ids = [], []
     _launch_counts(reset=True)
@@ -2513,7 +2562,8 @@ def _serve_run(engine, name, knobs, batches, new, between=None,
     st = srv.stats
     tokens = sum(len(out[r]) - len(p) for r, p in
                  zip(ids, [p for b in batches for p in b]))
-    log(f"[serve] {name}: {len(ids)} requests, {tokens} tokens in {wall!r} "
+    log(f"[serve] {name} ({'graphs' if graphs else 'eager'}): {len(ids)} "
+        f"requests, {tokens} tokens in {wall!r} "
         f"s = {tokens / wall!r} tokens/s; {len(walls)} steps, median step "
         f"{float(np.median(walls)) * 1e3!r} ms; decode steps "
         f"{st['decode_steps']}, garbage steps "
@@ -2523,7 +2573,34 @@ def _serve_run(engine, name, knobs, batches, new, between=None,
         f"{st['speculation']['verify_steps']}, tokens/forward "
         f"{st['speculation']['tokens_per_forward']}; kv tier "
         f"{st['kv_tier']}; launches {counts}")
+    if graphs:
+        kind = "verify" if srv.spec_tokens else "decode"
+        check(kind in srv._graphs, f"serve {name}: no {kind} graph")
+        for g in srv._graphs.values():
+            _graph_log("serve", name, g)
+        traces = (st["speculation"]["verify_traces"] if srv.spec_tokens
+                  else st["decode_traces"])
+        check(traces == 1 and st["retraces"] == 0,
+              f"serve {name}: trace counters {traces}, {st['retraces']}")
+    else:
+        check(not srv._graphs, f"serve {name}: the eager control captured")
     return srv, ids, out, counts
+
+
+def _eager_control(engine, name, knobs, batches, new, ids, out, **kw):
+    """The same server run again with its step graphs off: it must serve
+    the graphed run's tokens exactly (the same kernels on the same
+    inputs)."""
+    srv, cids, ref, _ = _serve_run(engine, name, knobs, batches, new,
+                                   graphs=False, **kw)
+    srv.close()
+    del srv
+    same = sum(out[r] == ref[c] for r, c in zip(ids, cids))
+    log(f"[serve] {name}: {same} of {len(ids)} requests token-identical "
+        f"with and without graphs")
+    check(same == len(ids) == len(cids),
+          f"serve {name}: the graphed server's tokens differ from the "
+          f"eager control's")
 
 
 def _serve_oracle(engine, name, prompts, rows, new, tol=E2E_MAX_TOL):
@@ -2614,11 +2691,17 @@ def _check_served(engine, name, ids, out, prompts, counts, expect, new,
                   [out[ids[0]], out[ids[-1]]], new, tol)
 
 
-def phase_serve(cfg, params):
-    """The paged server at GPT-2 XL width through three configurations,
+EAGER_CONTROLS = ("default", "speculation K=4", "int8+prefix+chunked+offload")
+
+
+def phase_serve(cfg, params, eager=EAGER_CONTROLS):
+    """The paged server at GPT-2 XL width through five configurations,
     each server closed before the next; launch counts are set to 0 just
-    before each run and read just after."""
+    before each run and read just after. The servers named in ``eager``
+    are run again with their step graphs off and must serve the same
+    tokens."""
     import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
     from deepspeed_tpu_torch.inference.kv_cache import init_paged_cache
     from deepspeed_tpu_torch.model_implementations.transformer import \
         paged_decode_step
@@ -2639,9 +2722,13 @@ def phase_serve(cfg, params):
     # (a) default config: monolithic prefill, async loop, lag 1
     prompts = [rng.integers(0, V, n).tolist()
                for n in rng.integers(64, 701, 16)]
+    a_batches = [prompts[:8], prompts[8:]]
+
+    def a_between(srv, i):
+        return 4 if i == 0 else 0
+
     srv, ids, out, counts = _serve_run(
-        engine, "default", {}, [prompts[:8], prompts[8:]], new,
-        between=lambda srv, i: 4 if i == 0 else 0)
+        engine, "default", {}, a_batches, new, between=a_between)
     st = srv.stats
     fp_pool = (st["kv_tier"]["pool_bytes"], srv._cache.num_blocks)
     verify("default", srv, ids, out, prompts, counts, {
@@ -2649,6 +2736,9 @@ def phase_serve(cfg, params):
         "paged_decode_attention": L * (
             st["decode_steps"] + st["async_loop"]["garbage_steps"])})
     del srv
+    if "default" in eager:
+        _eager_control(engine, "default", {}, a_batches, new, ids, out,
+                       between=a_between)
 
     # one paged decode step at S=8 on its own: host enqueue vs device
     pool = init_paged_cache(L, 8, 65, 128, 8, cfg.kv_heads, cfg.head_dim,
@@ -2659,24 +2749,37 @@ def phase_serve(cfg, params):
     pool.lengths.copy_(torch.as_tensor(lens, device="cuda"))
     tok = torch.zeros(8, dtype=torch.long, device="cuda")
     active = torch.ones(8, dtype=torch.bool, device="cuda")
-    host, dev_ms = [], []
     with torch.inference_mode():
-        for _ in range(8):
-            s_ev, e_ev = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            th = time.perf_counter()
-            s_ev.record()
-            lg, pool = paged_decode_step(engine.params, engine.model_config,
-                                         tok, pool, active)
-            e_ev.record()
-            host.append(time.perf_counter() - th)
-            tok = lg.argmax(-1)
-            torch.cuda.synchronize()
-            dev_ms.append(s_ev.elapsed_time(e_ev))
-    log(f"[serve] one paged decode step (S=8, lengths {lens.tolist()}): "
-        f"host enqueue {float(np.median(host)) * 1e3!r} ms, device "
-        f"{float(np.median(dev_ms))!r} ms (medians of 8)")
-    del pool
+        step = GraphedStep(
+            "paged_decode_s8",
+            lambda t: paged_decode_step(engine.params, engine.model_config,
+                                        t, pool, active)[0].argmax(-1),
+            (tok,), lambda: (pool.k, pool.v, pool.lengths))
+        for how, fn in (
+                ("eager", lambda t: paged_decode_step(
+                    engine.params, engine.model_config, t, pool,
+                    active)[0].argmax(-1)),
+                ("replayed", lambda t: (tok.copy_(t), step())[1])):
+            host, dev_ms = [], []
+            t = tok.clone()
+            for i in range(10):
+                s_ev, e_ev = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                th = time.perf_counter()
+                s_ev.record()
+                t = fn(t)
+                e_ev.record()
+                if i >= 2:   # the graph's warm-up and capture
+                    host.append(time.perf_counter() - th)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    dev_ms.append(s_ev.elapsed_time(e_ev))
+            log(f"[serve] one paged decode step, {how} (S=8, lengths from "
+                f"{lens.tolist()}): host enqueue "
+                f"{float(np.median(host)) * 1e3!r} ms, device "
+                f"{float(np.median(dev_ms))!r} ms (medians of 8)")
+        _graph_log("serve", "paged decode step S=8", step)
+    del pool, step
 
     # (b) prefix caching + 256-token chunks: 8 requests share a 512-token
     # prefix (the first one prefills it, the others hit it) and 4 are cold
@@ -2692,10 +2795,11 @@ def phase_serve(cfg, params):
                 srv.step()
         return 0
 
+    b_knobs = {"enable_prefix_caching": True, "prefill_chunk_tokens": 256}
+    b_batches = [shared[:1], shared[1:] + cold]
     srv, ids, out, counts = _serve_run(
-        engine, "prefix+chunked",
-        {"enable_prefix_caching": True, "prefill_chunk_tokens": 256},
-        [shared[:1], shared[1:] + cold], new, between=until_first_prefilled)
+        engine, "prefix+chunked", b_knobs, b_batches, new,
+        between=until_first_prefilled)
     st = srv.stats
     check(st["prefix_cache_hits"] > 0,
           "serve prefix+chunked: no prefix-cache hit")
@@ -2704,6 +2808,9 @@ def phase_serve(cfg, params):
         "paged_decode_attention": L * (
             st["decode_steps"] + st["async_loop"]["garbage_steps"])})
     del srv
+    if "prefix+chunked" in eager:
+        _eager_control(engine, "prefix+chunked", b_knobs, b_batches, new,
+                       ids, out, between=until_first_prefilled)
 
     # (c) prompt-lookup speculation, K=4: prompts repeat a 24-token phrase
     phrase = rng.integers(0, V, 24).tolist()
@@ -2723,6 +2830,9 @@ def phase_serve(cfg, params):
             st["speculation"]["verify_steps"]
             + st["async_loop"]["garbage_steps"])})
     del srv
+    if "speculation K=4" in eager:
+        _eager_control(engine, "speculation K=4", {"speculation_tokens": 4},
+                       [prompts], new, ids, out)
     spec_prompts = prompts
 
     # (d) int8 pool + prefix caching + 256-token chunks + the host tier,
@@ -2734,10 +2844,10 @@ def phase_serve(cfg, params):
     rounds = [[p + rng.integers(0, V, n).tolist() for p, n in
                zip(prefixes, rng.integers(8, 65, 5))] for _ in range(2)]
     prompts = rounds[0] + rounds[1]
+    d_knobs = {**int8_knobs, "kv_host_offload": True, "max_out_tokens": 1024}
     srv, ids, out, counts = _serve_run(
-        engine, "int8+prefix+chunked+offload",
-        {**int8_knobs, "kv_host_offload": True, "max_out_tokens": 1024},
-        rounds, new, drain_each=True)
+        engine, "int8+prefix+chunked+offload", d_knobs, rounds, new,
+        drain_each=True)
     st = srv.stats
     tier = st["kv_tier"]
     check(tier["kv_dtype"] == "int8" and tier["demotions"] > 0
@@ -2756,6 +2866,9 @@ def phase_serve(cfg, params):
             st["decode_steps"] + st["async_loop"]["garbage_steps"])},
         tol=INT8_E2E_MAX_TOL)
     del srv
+    if "int8+prefix+chunked+offload" in eager:
+        _eager_control(engine, "int8+prefix+chunked+offload", d_knobs,
+                       rounds, new, ids, out, drain_each=True)
     # the control: the same int8 server with a pool that never demotes
     srv, cids, ref, _ = _serve_run(
         engine, "int8+prefix+chunked control",
@@ -2773,10 +2886,9 @@ def phase_serve(cfg, params):
         f"int8/fp {int8_pool[0] / int8_pool[1] / (fp_pool[0] / fp_pool[1])!r}")
 
     # (e) int8 pool + prompt-lookup speculation K=4 on (c)'s prompts
+    e_knobs = {"kv_cache_dtype": "int8", "speculation_tokens": 4}
     srv, ids, out, counts = _serve_run(
-        engine, "int8 speculation K=4",
-        {"kv_cache_dtype": "int8", "speculation_tokens": 4}, [spec_prompts],
-        new)
+        engine, "int8 speculation K=4", e_knobs, [spec_prompts], new)
     st = srv.stats
     tpf = st["speculation"]["tokens_per_forward"]
     check(tpf is not None and tpf > 1,
@@ -2790,18 +2902,22 @@ def phase_serve(cfg, params):
             st["speculation"]["verify_steps"]
             + st["async_loop"]["garbage_steps"])}, tol=INT8_E2E_MAX_TOL)
     del srv
+    if "int8 speculation K=4" in eager:
+        _eager_control(engine, "int8 speculation K=4", e_knobs,
+                       [spec_prompts], new, ids, out)
     return runs
 
 
-def phase_model(tag, cfg, params, seed):
+def phase_model(tag, cfg, params, seed, eager=()):
     """A served model at its published widths and depth: ``generate``
     through B1 and B4 (phase e2e's gates), then four paged servers over one
     engine, fp and int8 pools: prefix caching with 256-token chunks
     (B6/B6i and B5/B5i) and prompt-lookup speculation K=4 (B1 and B7/B7i; a
     speculative server verifies every round, so its decode runs through
     B7). Each server's launch counts are set to 0 just before it and read
-    just after; each is held to the served-token oracle. Returns the runs'
-    launch counts by name."""
+    just after; each is held to the served-token oracle. The servers named
+    in ``eager`` are run again with their step graphs off and must serve
+    the same tokens. Returns the runs' launch counts by name."""
     import deepspeed_tpu_torch
     runs = {f"{tag} e2e": phase_e2e(cfg, params, tag=tag)}
     engine = deepspeed_tpu_torch.init_inference((cfg, params),
@@ -2828,10 +2944,11 @@ def phase_model(tag, cfg, params, seed):
                     else ("_int8", INT8_E2E_MAX_TOL))
         knobs = {} if pool == "fp" else {"kv_cache_dtype": "int8"}
         name = f"{tag} {pool} prefix+chunked"
+        b_knobs = {**knobs, "enable_prefix_caching": True,
+                   "prefill_chunk_tokens": 256}
+        b_batches = [shared[:1], shared[1:] + cold]
         srv, ids, out, counts = _serve_run(
-            engine, name, {**knobs, "enable_prefix_caching": True,
-                           "prefill_chunk_tokens": 256},
-            [shared[:1], shared[1:] + cold], new,
+            engine, name, b_knobs, b_batches, new,
             between=until_first_prefilled)
         st = srv.stats
         check(st["prefix_cache_hits"] > 0, f"serve {name}: no prefix hit")
@@ -2845,9 +2962,14 @@ def phase_model(tag, cfg, params, seed):
             new, tol)
         runs[name] = counts
         srv.close()
+        del srv
+        if name in eager:
+            _eager_control(engine, name, b_knobs, b_batches, new, ids, out,
+                           between=until_first_prefilled)
         name = f"{tag} {pool} speculation K=4"
-        srv, ids, out, counts = _serve_run(
-            engine, name, {**knobs, "speculation_tokens": 4}, [spec], new)
+        c_knobs = {**knobs, "speculation_tokens": 4}
+        srv, ids, out, counts = _serve_run(engine, name, c_knobs, [spec],
+                                           new)
         st = srv.stats
         tpf = st["speculation"]["tokens_per_forward"]
         check(tpf is not None and tpf > 1,
@@ -2863,11 +2985,13 @@ def phase_model(tag, cfg, params, seed):
         runs[name] = counts
         srv.close()
         del srv
+        if name in eager:
+            _eager_control(engine, name, c_knobs, [spec], new, ids, out)
     del engine
     return runs
 
 
-def phase_pythia():
+def phase_pythia(eager=()):
     """Pythia-2.8B (32 heads of 80) at its published widths and depth,
     random weights from a seed, through ``phase_model``."""
     cfg = pythia_2p8b_config()
@@ -2875,13 +2999,13 @@ def phase_pythia():
     n_params = sum(p.numel() for p in _leaves(params))
     check(n_params == PYTHIA_PARAMS,
           f"pythia-2.8b has {n_params} parameters, not {PYTHIA_PARAMS}")
-    runs = phase_model("pythia", cfg, params, 15)
+    runs = phase_model("pythia", cfg, params, 15, eager)
     del params
     torch.cuda.empty_cache()
     return runs
 
 
-def phase_gptj():
+def phase_gptj(eager=()):
     """GPT-J-6B (16 heads of 256: B1 and B4-B7, B5i-B7i on their 256-wide
     instantiation) at its published widths and depth, random weights from
     a seed (and a random head bias: GPT-J's head has one), through
@@ -2898,7 +3022,7 @@ def phase_gptj():
     check(n_params == GPTJ_PARAMS,
           f"gpt-j-6b has {n_params} parameters, not {GPTJ_PARAMS}")
     check(cfg.head_dim == 256, f"gpt-j-6b head dim {cfg.head_dim}")
-    runs = phase_model("gptj", cfg, params, 16)
+    runs = phase_model("gptj", cfg, params, 16, eager)
     del params
     torch.cuda.empty_cache()
     return runs

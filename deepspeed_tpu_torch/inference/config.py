@@ -364,7 +364,9 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     # long-context serving: shard the KV cache sequence dim over a `seq`
     # mesh axis of this extent (flash-decoding-style distributed softmax)
     seq_parallel_size: int = Field(default=1, alias="sp_size", ge=1)
-    # accepted for API parity; the engine does not capture CUDA graphs yet
+    # accepted for API parity, with no effect: on CUDA the engine's and the
+    # server's decode (and verify) steps always run as CUDA graphs, as the
+    # JAX package's always run as jitted programs
     enable_cuda_graph: bool = False
     checkpoint: Optional[Any] = None
     base_dir: str = ""

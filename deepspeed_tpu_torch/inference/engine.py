@@ -4,10 +4,19 @@ Counterpart of ``deepspeed_tpu/inference/engine.py``: owns the weights on
 one device, the dense KV cache and a HF-style ``generate``. The JAX
 engine compiles the whole decode loop into one ``while_loop`` with one host
 sync per generation; here the loop is Python over :func:`decode_step`,
-which launches each step's kernels asynchronously. The host asks the
-device whether every row is done only every ``DONE_CHECK_EVERY`` steps;
-rows that finished earlier keep decoding until then, but their tokens are
-masked to 0 and not counted, so the check changes only time, never output.
+which on CUDA runs as a CUDA graph
+(:class:`~deepspeed_tpu_torch.inference.cuda_graph.GraphedStep`): captured
+at the second step of the first ``generate`` of a shape and replayed every
+step after, so a step costs one graph launch, not a launch per kernel.
+Sampling (repetition penalty, min_new_tokens, temperature, top-k, top-p)
+stays eager between replays. Graphs are on for every CUDA engine, as jit is
+for every JAX one; ``enable_cuda_graph`` is accepted with no effect, as in
+JAX. The engine keeps one dense cache and its graph, for the last (batch,
+cache length) bucket, so repeated calls of one shape allocate and capture
+nothing. The host asks the device whether every row is done only every
+``DONE_CHECK_EVERY`` steps; rows that finished earlier keep decoding until
+then, but their tokens are masked to 0 and not counted, so the check
+changes only time, never output.
 
 :func:`save_serving_checkpoint` / :func:`load_serving_checkpoint` write and
 read the JAX package's serving layout (a config JSON and one safetensors
@@ -27,6 +36,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
 from deepspeed_tpu_torch.inference.kv_cache import (KVCache, auto_max_tokens,
                                                     init_cache)
 from deepspeed_tpu_torch.model_implementations.transformer import (
@@ -126,6 +136,12 @@ class InferenceEngine:
         # process-wide registry; telemetry.enabled=false records into a
         # private one, so nothing reaches the process scrape surface
         self.telemetry = get_registry() if tcfg.enabled else MetricRegistry()
+        # generate's decode step as a CUDA graph; False runs it eagerly on
+        # CUDA too (the control a check compares with)
+        self._cuda_graphs = self.device.type == "cuda"
+        # ((batch, max_seq), dense cache, its decode-step graph or None):
+        # the one cache kept between generate calls
+        self._kept = None
 
     def _record_generate(self, dt: float) -> None:
         self.telemetry.histogram(
@@ -161,12 +177,48 @@ class InferenceEngine:
         return _round_up(1024, 128) if auto is None else auto
 
     def _make_cache(self, batch: int, max_seq: int) -> KVCache:
+        """The dense cache of ``batch`` rows of ``max_seq`` positions: the
+        kept one when the shape matches (its positions past a row's length
+        hold an earlier call's keys, which attention masks as it masks
+        right-pad garbage), else a new one that replaces it and its
+        graph."""
+        if self._kept is not None and self._kept[0] == (batch, max_seq):
+            return self._kept[1]
+        self._kept = None   # free the old cache and graph first
         cfg = self.model_config
         warn_if_padded("dense KV cache", cfg.head_dim,
                        self._act_dtype.itemsize, self.device)
-        return init_cache(cfg.n_layer, batch, max_seq, cfg.kv_heads,
-                          cfg.head_dim, dtype=self._act_dtype,
-                          device=self.device)
+        cache = init_cache(cfg.n_layer, batch, max_seq, cfg.kv_heads,
+                           cfg.head_dim, dtype=self._act_dtype,
+                           device=self.device)
+        self._kept = ((batch, max_seq), cache, None)
+        return cache
+
+    def _decode_fn(self, cache: KVCache):
+        """``tok [B] -> logits [B, V]``: one decode step over ``cache``,
+        advancing its lengths; on CUDA through the graph kept with the
+        cache (made at first use), else eagerly."""
+        params, cfg = self.params, self.model_config
+
+        def eager(tok):
+            return decode_step(params, cfg, tok, cache)[0]
+
+        kept = self._kept
+        if not self._cuda_graphs or kept is None or kept[1] is not cache:
+            return eager
+        graph = kept[2]
+        if graph is None:
+            graph = GraphedStep(
+                "generate_decode", eager,
+                (torch.zeros(cache.lengths.shape[0], dtype=torch.long,
+                             device=self.device),),
+                lambda: (cache.k, cache.v, cache.lengths))
+            self._kept = (kept[0], cache, graph)
+
+        def step(tok):
+            graph.inputs[0].copy_(tok)
+            return graph()
+        return step
 
     # ------------------------------------------------------------ API
 
@@ -276,6 +328,7 @@ class InferenceEngine:
         gen = torch.Generator(device=dev).manual_seed(seed) if sampled \
             else None
         rows = torch.arange(B, device=dev)
+        step_fn = self._decode_fn(cache)
         presence = None
         if rep != 1.0:
             # HF's repetition penalty scores every prior token, prompt
@@ -325,9 +378,7 @@ class InferenceEngine:
         for step in range(1, max_new_tokens):
             if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break
-            lg, cache = decode_step(self.params, self.model_config, tok,
-                                    cache)
-            nxt = select(adjust(lg, min_new - step))
+            nxt = select(adjust(step_fn(tok), min_new - step))
             if presence is not None:
                 presence[rows, nxt] = True
             out[:, step] = torch.where(done, 0, nxt)

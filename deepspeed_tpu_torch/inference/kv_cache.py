@@ -12,9 +12,12 @@ Counterpart of ``deepspeed_tpu/inference/kv_cache.py``:
   with prefix caching. Block 0 is the reserved null block: idle slots keep
   an all-zero table row and write their masked, discarded tokens there.
 
-JAX threads an immutable, donated cache through its jitted steps; here the
-writers put k/v into the buffers in place (one allocation, no copies),
-while ``lengths`` is replaced by the step functions. Where a JAX gather
+JAX threads an immutable, donated cache through its jitted steps; here
+every writer updates the buffers in place (one allocation, no copies), the
+lengths included, and returns the cache it was given: a CUDA graph of a
+step (``inference/cuda_graph.py``) bakes in the addresses of k/v,
+``lengths``, ``block_tables`` and the scale tiles, so none of them may move
+between steps. Where a JAX gather
 clamps an index or a JAX scatter drops one, the port clamps or redirects
 it explicitly: torch indexing would fault on the device instead.
 
@@ -94,7 +97,7 @@ def init_cache(num_layers: int, batch: int, max_seq: int, num_kv_heads: int,
 def write_prompt(cache: KVCache, layer: int, k: torch.Tensor,
                  v: torch.Tensor, lengths: torch.Tensor) -> KVCache:
     """Prefill: write ``[B, T, KH, D]`` keys/values at positions 0..T-1 of
-    ``layer``, IN PLACE, and set ``lengths``.
+    ``layer`` and copy ``lengths`` into ``cache.lengths``, IN PLACE.
 
     Right-padded positions hold garbage; they are either masked by decode
     (col >= lengths) or overwritten by later appends at ``lengths[b]``.
@@ -103,8 +106,8 @@ def write_prompt(cache: KVCache, layer: int, k: torch.Tensor,
     T = min(k.shape[1], cache.max_seq)
     cache.k[layer, :, :T] = k[:, :T]
     cache.v[layer, :, :T] = v[:, :T]
-    return dataclasses.replace(
-        cache, lengths=lengths.to(device=cache.k.device, dtype=torch.int32))
+    cache.lengths.copy_(lengths)
+    return cache
 
 
 def append_token(cache: KVCache, layer: int, k: torch.Tensor,
@@ -123,8 +126,9 @@ def append_token(cache: KVCache, layer: int, k: torch.Tensor,
 
 
 def advance(cache: KVCache, n: int = 1) -> KVCache:
-    """A cache whose lengths are ``n`` further on (same k/v buffers)."""
-    return dataclasses.replace(cache, lengths=cache.lengths + n)
+    """Lengths ``n`` further on, in place; returns ``cache``."""
+    cache.lengths.add_(n)
+    return cache
 
 
 # ---------------------------------------------------------------- paged
@@ -354,10 +358,11 @@ def paged_gather_kv(cache: PagedKVCache, layer: int):
 
 def paged_advance(cache: PagedKVCache, active: torch.Tensor
                   ) -> PagedKVCache:
-    """Advance live slots' lengths by one; idle slots stay pinned at 0 so
-    their appends keep landing in the null block."""
-    return dataclasses.replace(cache,
-                               lengths=cache.lengths + active.to(torch.int32))
+    """Advance live slots' lengths by one, in place; idle slots stay pinned
+    at 0 so their appends keep landing in the null block. Returns
+    ``cache``."""
+    cache.lengths.add_(active.to(torch.int32))
+    return cache
 
 
 # ------------------------------------------------------------- host tier

@@ -25,19 +25,33 @@ host arrays go up through pinned memory without a sync, and nothing on the
 decode path reads a device value on the host except the lagged token fetch
 (:class:`~deepspeed_tpu_torch.inference.async_loop.TokenFetch`).
 
+Where JAX runs its decode and verify steps as jitted programs
+(``_decode_jit`` / ``_verify_jit``), the port on CUDA runs each as a CUDA
+graph (:class:`~deepspeed_tpu_torch.inference.cuda_graph.GraphedStep`),
+captured at the step's second call and replayed from then on; greedy
+``argmax`` and the lengths advance are inside the graph, as they are inside
+JAX's programs. The host arrays of a step go up into the graph's static
+input buffers, and the pipelined loop's token feedback is a device-to-device
+copy into them. Graphs are on for every CUDA server, as jit is for every
+JAX one, and ``enable_cuda_graph`` is accepted with no effect, as it is in
+JAX. Prefill and chunked prefill stay eager: their shapes and start vary
+per call.
+
 Not in this slice (ROADMAP.md queue C), each raising
 ``NotImplementedError``: draft-model speculation, supervised replicas,
 roles and KV handoff (``export_prefix`` / ``import_prefix``), load
 shedding, SLO monitoring, canaries, incidents, the HTTP endpoint and fault
 injection. The step profiler, KV-pool accounting, request ledger, capacity
 model and the ``/debug/memory`` host component of the tier — on by default
-in JAX — are not built; the served tokens do not depend on them. The JAX
-trace counters of ``stats`` (``decode_traces`` and the like) report -1,
-JAX's own value for "unknown": PyTorch runs eagerly.
+in JAX — are not built; the served tokens do not depend on them. Of the
+trace counters of ``stats``, ``decode_traces``, ``verify_traces`` and
+``retraces`` count the graphs captured on CUDA, as JAX counts executables;
+``prefill_traces`` and ``chunk_traces``, and all of them on the CPU, where
+nothing is captured, report -1, JAX's own value for "unknown".
 """
 from __future__ import annotations
 
-import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
@@ -47,6 +61,7 @@ import torch
 
 from deepspeed_tpu_torch.inference.async_loop import (InFlightStep,
                                                       PublishWorker)
+from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
 from deepspeed_tpu_torch.inference.engine import InferenceEngine, _bucket
 from deepspeed_tpu_torch.inference.kv_cache import (HostKVTier, PagedKVCache,
                                                     init_paged_cache,
@@ -99,14 +114,53 @@ def check_drain_timeout(timeout_s) -> None:
             f"got {timeout_s}")
 
 
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device`` without a host sync: a plain
-    ``torch.as_tensor(..., device="cuda")`` waits for the stream to drain,
-    so the array is staged in pinned memory and copied asynchronously."""
+def _upload(arr: np.ndarray, device: torch.device,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A host array on ``device`` (or written into the device tensor
+    ``out``) without a host sync: a plain ``torch.as_tensor(...,
+    device="cuda")`` waits for the stream to drain, so the array is staged
+    in pinned memory and copied asynchronously."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if device.type != "cuda":
-        return t.clone()
-    return t.pin_memory().to(device, non_blocking=True)
+        return t.clone() if out is None else out.copy_(t)
+    t = t.pin_memory()
+    return (t.to(device, non_blocking=True) if out is None
+            else out.copy_(t, non_blocking=True))
+
+
+def _stage(x, out: torch.Tensor) -> None:
+    """A step input into its graph's static buffer ``out``: a host array
+    (of ``out``'s dtype) through :func:`_upload`, a device tensor by a
+    device-to-device copy."""
+    if isinstance(x, np.ndarray):
+        _upload(x, out.device, out)
+    else:
+        out.copy_(x)
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, -1).to(torch.int32)
+
+
+def _step_programs(params, cfg, cache: PagedKVCache):
+    """The decode and verify steps over ``cache``, each returning its
+    greedy tokens: the functions the server runs eagerly or captures. They
+    close over the pool, not the server, so a graph that holds them keeps
+    no server alive."""
+    def decode(tokens, active):
+        return _greedy(paged_decode_step(params, cfg, tokens, cache,
+                                         active)[0])
+
+    def verify(tokens):
+        return _greedy(paged_verify_step(params, cfg, tokens, cache)[0])
+
+    return decode, verify
+
+
+def _pool_tensors(cache: PagedKVCache):
+    """What a captured step reads and writes besides its inputs."""
+    return (cache.k, cache.v, cache.block_tables, cache.lengths,
+            cache.k_scale, cache.v_scale)
 
 
 def _check_slice(cfg, fault_injector, supervised, role, handoff_import,
@@ -292,6 +346,14 @@ class ContinuousBatchingServer:
             spec_margin=max(self.spec_tokens - 1, 0),
             host_tier=self.host_tier)
         self._cache = self._make_pool(num_blocks)
+        # the pool object and its tensors stay the same for the server's
+        # life: the step graphs are captured over them
+        self._decode_fn, self._verify_fn = _step_programs(
+            engine.params, engine.model_config, self._cache)
+        # decode / verify step graphs, made at first use; False runs the
+        # steps eagerly on CUDA too (the control a check compares with)
+        self._cuda_graphs = self.device.type == "cuda"
+        self._graphs: Dict[str, GraphedStep] = {}
         if self.host_tier is not None:
             # the allocator decides WHEN to tier; the server owns the pool,
             # so the copies are its callbacks. Both run only inside
@@ -396,7 +458,7 @@ class ContinuousBatchingServer:
         """Allocator swap-in callback: the (already tier-popped) payload
         back into a freshly allocated block, stream-ordered ahead of the
         step that next reads it."""
-        self._cache = paged_swap_in(self._cache, block, payload)
+        paged_swap_in(self._cache, block, payload)
 
     def _check_swap_thrash(self) -> None:
         """Ring-event a swap-in storm ONCE per episode: a sustained swap-in
@@ -423,37 +485,68 @@ class ContinuousBatchingServer:
             self._swap_alarm = False
 
     # the four device programs: each returns its greedy tokens as an int32
-    # device tensor and leaves the updated pool in self._cache
+    # device tensor and writes the pool in place. Decode and verify run as
+    # CUDA graphs on CUDA (_graph); prefill and chunks run eagerly
 
     @torch.no_grad()
     def _prefill(self, ids: np.ndarray, length: int, slot: int):
-        logits, self._cache = paged_prefill(
+        logits, _ = paged_prefill(
             self.engine.params, self.engine.model_config,
             _upload(ids.astype(np.int64), self.device), length, self._cache,
             slot)
-        return torch.argmax(logits, -1).to(torch.int32)
+        return _greedy(logits)
 
     @torch.no_grad()
     def _chunk(self, ids: np.ndarray, start: int, length: int, slot: int):
-        logits, self._cache = paged_prefill_chunk(
+        logits, _ = paged_prefill_chunk(
             self.engine.params, self.engine.model_config,
             _upload(ids.astype(np.int64), self.device), start, length,
             self._cache, slot)
-        return torch.argmax(logits, -1).to(torch.int32)
+        return _greedy(logits)
+
+    def _graph(self, kind: str) -> Optional[GraphedStep]:
+        """The graph of the ``decode`` or ``verify`` step, made at its first
+        use, over static inputs of the step's fixed shapes (tokens ``[S]``
+        and ``active [S]``, or tokens ``[S, K]``); None where the steps run
+        eagerly."""
+        if not self._cuda_graphs:
+            return None
+        g = self._graphs.get(kind)
+        if g is None:
+            S, dev = self.num_slots, self.device
+            if kind == "decode":
+                fn, inputs = self._decode_fn, (
+                    torch.zeros(S, dtype=torch.long, device=dev),
+                    torch.zeros(S, dtype=torch.bool, device=dev))
+            else:
+                fn, inputs = self._verify_fn, (torch.zeros(
+                    (S, self.spec_tokens), dtype=torch.long, device=dev),)
+            g = self._graphs[kind] = GraphedStep(
+                f"serve_{kind}", fn, inputs,
+                functools.partial(_pool_tensors, self._cache))
+        return g
 
     @torch.no_grad()
-    def _decode(self, tokens: torch.Tensor, active: np.ndarray):
-        logits, self._cache = paged_decode_step(
-            self.engine.params, self.engine.model_config, tokens.long(),
-            self._cache, _upload(active, self.device))
-        return torch.argmax(logits, -1).to(torch.int32)
+    def _decode(self, tokens, active: np.ndarray):
+        """``tokens``: the slots' pending tokens, an int64 host array, or
+        the previous step's device tokens (the pipelined feedback)."""
+        g = self._graph("decode")
+        if g is None:
+            if isinstance(tokens, np.ndarray):
+                tokens = _upload(tokens, self.device)
+            return self._decode_fn(tokens.long(), _upload(active, self.device))
+        _stage(tokens, g.inputs[0])
+        _stage(active, g.inputs[1])
+        return g()
 
     @torch.no_grad()
     def _verify(self, tokens: np.ndarray):
-        logits, self._cache = paged_verify_step(
-            self.engine.params, self.engine.model_config,
-            _upload(tokens.astype(np.int64), self.device), self._cache)
-        return torch.argmax(logits, -1).to(torch.int32)
+        tokens = tokens.astype(np.int64)
+        g = self._graph("verify")
+        if g is None:
+            return self._verify_fn(_upload(tokens, self.device))
+        _stage(tokens, g.inputs[0])
+        return g()
 
     # ----------------------------------------------- prefill/decode handoff
 
@@ -918,10 +1011,9 @@ class ContinuousBatchingServer:
         active[list(states)] = True
         if rec is None:
             # pipeline start: host-built inputs, dispatched without a fetch
-            tokens = np.zeros((S,), np.int32)
+            tok_in = np.zeros((S,), np.int64)
             for slot, state in states.items():
-                tokens[slot] = state.pending
-            tok_in = _upload(tokens, self.device)
+                tok_in[slot] = state.pending
         else:
             tok_in = rec.tokens    # device-side token feedback
         t0 = self._clock()
@@ -1088,9 +1180,7 @@ class ContinuousBatchingServer:
                 retire.append(slot)
             else:
                 state.pending = committed[-1]
-        self._cache = dataclasses.replace(
-            self._cache,
-            lengths=self._cache.lengths + _upload(adv, self.device))
+        self._cache.lengths.add_(_upload(adv, self.device))
         for slot in retire:
             self._retire(slot, self.scheduler.slots[slot], finished)
         n_live = len(live)
@@ -1182,13 +1272,13 @@ class ContinuousBatchingServer:
         states = self._active_states()
         if not states:
             return   # every resident slot is mid-prefill
-        tokens = np.zeros((self.num_slots,), np.int32)
+        tokens = np.zeros((self.num_slots,), np.int64)
         active = np.zeros((self.num_slots,), bool)
         for slot, state in states.items():
             tokens[slot] = state.pending
             active[slot] = True
         t0 = self._clock()
-        nxt = self._decode(_upload(tokens, self.device), active)
+        nxt = self._decode(tokens, active)
         self._step_clock += 1
         n_active = len(states)
         self._active_slot_steps += n_active
@@ -1295,13 +1385,24 @@ class ContinuousBatchingServer:
 
     # ------------------------------------------------------------ stats
 
+    def _traces(self, kind: str) -> int:
+        """Graphs captured for the ``kind`` step; -1 where steps run
+        eagerly."""
+        if not self._cuda_graphs:
+            return -1
+        g = self._graphs.get(kind)
+        return g.captures if g is not None else 0
+
     @property
     def stats(self) -> dict:
-        """Serving telemetry, with the JAX server's keys. ``decode_traces``,
-        ``prefill_traces``, ``chunk_traces``, ``verify_traces`` and
-        ``retraces`` count JAX executables and read -1 here; the sections of
-        unbuilt components (step profile, pool accounting, ledger,
-        capacity, SLO, alerts, canary, incidents) read None."""
+        """Serving telemetry, with the JAX server's keys. Where JAX counts
+        executables, ``decode_traces`` and ``verify_traces`` count the
+        graphs captured on CUDA (one per step kind at most: the shapes are
+        static) and ``retraces`` those captured again (none: a graph is
+        never recaptured); ``prefill_traces`` and ``chunk_traces`` (eager
+        programs) and every counter on the CPU read -1, "unknown". The
+        sections of unbuilt components (step profile, pool accounting,
+        ledger, capacity, SLO, alerts, canary, incidents) read None."""
         self._drain_publishing()
         units = self._step_clock * self.num_slots
         alloc = self.scheduler.allocator
@@ -1314,10 +1415,11 @@ class ContinuousBatchingServer:
             "active_slot_steps": self._active_slot_steps,
             "slot_occupancy": (self._active_slot_steps / units
                                if units else 0.0),
-            "decode_traces": -1,
+            "decode_traces": self._traces("decode"),
             "prefill_traces": -1,
             "chunk_traces": -1 if self.chunk_tokens else 0,
-            "retraces": -1,
+            # a step's graph is captured once and never again
+            "retraces": 0 if self._cuda_graphs else -1,
             "num_slots": self.num_slots,
             "block_size": self.block_size,
             "role": self.role,
@@ -1349,7 +1451,8 @@ class ContinuousBatchingServer:
                 "tokens_per_forward": round(
                     self._spec_committed / self._spec_slot_steps, 3)
                 if self._spec_slot_steps else None,
-                "verify_traces": -1 if self.spec_tokens else 0,
+                "verify_traces": (self._traces("verify")
+                                  if self.spec_tokens else 0),
                 "draft": "prompt-lookup",
                 "draft_prefill_traces": 0,
                 "draft_decode_traces": 0,

@@ -40,7 +40,15 @@ def head_dim_route(D: int, elem_size: int) -> Tuple[int, bool]:
 
 
 def pad_head_dim(x: torch.Tensor, DK: int) -> torch.Tensor:
-    """``x`` with its last dim zero-padded to ``DK``: a contiguous copy."""
+    """``x`` with its last dim zero-padded to ``DK``: a contiguous copy.
+    Raises while a CUDA graph is being captured: a captured copy of a
+    layer's whole cache or pool would live in the graph's private memory
+    pool for the graph's life, beside the pool it copies."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"the padded head-dim route (head dim {x.shape[-1]} padded to "
+            f"{DK}) copies the whole cache or pool on every call, so a "
+            f"step that takes it is not captured in a CUDA graph")
     return F.pad(x, (0, DK - x.shape[-1]))
 
 

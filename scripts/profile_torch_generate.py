@@ -4,10 +4,13 @@ training goes, on one NVIDIA GPU.
 
 Builds GPT-2 XL at its published widths (random weights from a seed), runs
 one prefill of 8 prompts (64-900 tokens, the prompts of chip_smoke.py),
-then 8 decode steps, then 8 steady-state steps of the paged
-``ContinuousBatchingServer`` (default config, 8 resident requests, the
-async loop) over an fp pool and again over an int8 pool
-(``kv_cache_dtype="int8"``); then, with those weights freed, one
+then 8 decode steps eagerly (``decode_x8``) and 8 as replays of
+``generate``'s CUDA graph of the step (``decode_x8_graphs``), then 8
+steady-state steps of the paged ``ContinuousBatchingServer`` (default
+config, 8 resident requests, the async loop) over an fp pool and again
+over an int8 pool (``kv_cache_dtype="int8"``), each with its step graph
+(``serve_x8``, ``serve_x8_int8``) and eagerly (``..._eager``), in turns:
+graphs, eager, eager, graphs; then, with those weights freed, one
 ``train_batch`` of the
 GPT-2 1.3B preset in bf16 (chip_smoke.py's train configuration: micro-batch
 8, 2 accumulation steps, T=1024, remat, AdamW), all under
@@ -136,6 +139,18 @@ def main() -> int:
         report("prefill", prof, wall, trace_dir)
         tok = lg.argmax(-1)
         import deepspeed_tpu_torch.model_implementations.transformer as tt
+        graphed = engine._decode_fn(cache)   # the graph generate kept
+        for _ in range(2):   # its warm-up and capture, if it has none yet
+            graphed(tok)
+        torch.cuda.synchronize()
+        with profile(activities=act) as prof:
+            t0 = time.perf_counter()
+            step_tok = tok
+            for _ in range(8):
+                step_tok = graphed(step_tok).argmax(-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report("decode_x8_graphs", prof, wall, trace_dir)
         turns = [("decode_x8", tt.decode_attention)]
         if other:
             from other_checkout import load_wrapper
@@ -166,7 +181,8 @@ def main() -> int:
     if decode_only:
         return 0
     for kv_dtype in ("fp", "int8"):
-        serve_x8(engine, ids, lens, act, trace_dir, kv_dtype)
+        for graphs in (True, False, False, True):
+            serve_x8(engine, ids, lens, act, trace_dir, kv_dtype, graphs)
     del engine, params, cache, lg, tok
     torch.cuda.empty_cache()
     train_step(act, trace_dir)
@@ -199,19 +215,21 @@ def train_step(act, trace_dir):
     report("train_step", prof, wall, trace_dir)
 
 
-def serve_x8(engine, ids, lens, act, trace_dir, kv_dtype):
+def serve_x8(engine, ids, lens, act, trace_dir, kv_dtype, graphs):
     """8 steady-state server steps over a ``kv_dtype`` pool: every slot
     resident and decoding, no queue, so each step() dispatches one decode
-    program and commits the one before it."""
+    program (a replay of its graph, or eagerly when ``graphs`` is False)
+    and commits the one before it."""
     from deepspeed_tpu_torch.inference import (ContinuousBatchingServer,
                                                DeepSpeedInferenceConfig)
     engine.config = DeepSpeedInferenceConfig(dtype="bfloat16",
                                              kv_cache_dtype=kv_dtype)
     srv = ContinuousBatchingServer(engine)
+    srv._cuda_graphs = graphs
     for b, n in enumerate(lens):
         srv.submit(ids[b, :n].tolist(), max_new_tokens=64)
-    for _ in range(4):   # admission (prefills) and the pipeline's start
-        srv.step()
+    for _ in range(4):   # admission (prefills), the pipeline's start, and
+        srv.step()       # the step graph's warm-up and capture
     torch.cuda.synchronize()
     with profile(activities=act) as prof:
         t0 = time.perf_counter()
@@ -219,8 +237,13 @@ def serve_x8(engine, ids, lens, act, trace_dir, kv_dtype):
             srv.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report("serve_x8" if kv_dtype == "fp" else f"serve_x8_{kv_dtype}", prof,
-           wall, trace_dir)
+    name = "serve_x8" + ("" if kv_dtype == "fp" else f"_{kv_dtype}") + (
+        "" if graphs else "_eager")
+    if graphs:
+        g = srv._graphs["decode"]
+        print(f"[{name}] graph: capture {g.capture_s!r} s, {g.replays} "
+              f"replays, graph pool {g.pool_bytes} bytes")
+    report(name, prof, wall, trace_dir)
     srv.close()
 
 
