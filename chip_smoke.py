@@ -113,6 +113,31 @@ kernel's row.
    are each run again with the graphs off (the eager control) and must
    serve the same tokens. One paged decode step at S=8 is timed eager and
    replayed (host enqueue, device time).
+9a. spec — speculative decoding and beam search over phase e2e's weights,
+   with a GPT-2 (124M) draft at its published widths and depth (HF
+   openai-community/gpt2 config.json: 12 layers, 768 wide, 12 heads of
+   64, tied head; random weights from a seed, 124,439,808 parameters):
+   ``generate_speculative`` on phase e2e's 8 prompts, 32 new tokens, K=4,
+   with the 124M draft, with a second engine over the target's own
+   weights and with the target as its own draft (full acceptance: >= 3.5
+   tokens a round; the target keeps a second cache for the draft role)
+   and by prompt lookup
+   on prompts that repeat a 24-token phrase, each equal to greedy
+   ``generate`` up to near-ties (where the two part, both tokens'
+   logits within SPEC_TIE_TOL of each other, and every speculative token
+   within it of the maximum, in a forward through no attention kernel),
+   its verify chunk and draft decode steps replayed graphs, launching B1
+   and B4 and no paged kernel; sampled speculation
+   at temperature 1.0 (well formed) and 1e-6 (greedy, ties excepted);
+   ``generate(num_beams=4)`` on 2 prompts, graphed and eager, token for
+   token (the beam step's ms printed); then servers with a draft engine
+   (the 124M draft; the target's weights, >= 3 tokens per forward) on 16
+   requests of 64-700 tokens, K=4: one capture of each graph (verify and
+   draft decode), B5 on the draft pool and B7, the served-token oracle
+   within SPEC_TIE_TOL, and for the 124M draft an eager control; and the same requests without
+   speculation. The ms per committed token, tokens per round, the beam
+   step's ms and the servers' tokens/s are printed with the card's name
+   and power limit.
 9b. pythia — Pythia-2.8B at its published widths and depth (HF
    EleutherAI/pythia-2.8b config.json: 32 layers, 32 heads of 80, parallel
    residual, rotary_pct 0.25, exact GELU, untied head; random weights,
@@ -227,6 +252,16 @@ E2E_MEAN_TOL = 0.05
 # the row's largest elements, so the logits move by about as much as the
 # bf16 rounding the limit above already absorbs
 INT8_E2E_MAX_TOL = E2E_MAX_TOL
+# speculative tokens against greedy generate's: the verify chunk scores K
+# tokens a row through plain attention and GEMMs over B x K rows, where a
+# greedy step runs B4 and GEMMs over B rows, so their logits part by a few
+# bf16 steps of the top logits (~4.4 on random GPT-2 XL weights, a step
+# 0.03125; the readings: 0 to 0.0625); where the two paths pick different
+# tokens, both must lie within four such steps of each other in a forward
+# through no attention kernel, and every speculative token within them of
+# that forward's maximum (the oracle logs the reference's top-1 - top-2
+# gaps, which this limit must sit below)
+SPEC_TIE_TOL = 0.125
 # flash backward: two gates on each of dq, dk and dv.
 # * element-wise |kernel - plain| <= atol + rtol * |plain|: 16-bit outputs
 #   land one or two rounding steps apart where the two sides' exp or dot
@@ -2524,18 +2559,19 @@ def _graph_log(tag, name, graph):
 
 
 def _serve_run(engine, name, knobs, batches, new, between=None,
-               drain_each=False, graphs=True):
-    """One server over ``engine`` with config ``knobs``: submit each batch
-    of prompts in turn, stepping ``between(srv, i)`` steps after batch i
-    (or, with ``drain_each``, until the batch is served), then drain. Its
-    decode or verify step runs as a CUDA graph, which must have replayed,
+               drain_each=False, graphs=True, draft=None):
+    """One server over ``engine`` with config ``knobs`` (and the draft
+    engine ``draft``): submit each batch of prompts in turn, stepping
+    ``between(srv, i)`` steps after batch i (or, with ``drain_each``, until
+    the batch is served), then drain. Its decode or verify step (and a
+    draft's decode step) runs as a CUDA graph, which must have replayed,
     unless ``graphs`` is False (the eager control). The kernel counts are
     set to 0 just before and read just after. Returns (server, request
-    ids, outputs, counts)."""
+    ids, outputs, counts, tokens per second)."""
     from deepspeed_tpu_torch.inference import (ContinuousBatchingServer,
                                                DeepSpeedInferenceConfig)
     engine.config = DeepSpeedInferenceConfig(dtype="bfloat16", **knobs)
-    srv = ContinuousBatchingServer(engine)
+    srv = ContinuousBatchingServer(engine, draft_engine=draft)
     srv._cuda_graphs = graphs
     torch.cuda.synchronize()
     walls, ids = [], []
@@ -2584,15 +2620,15 @@ def _serve_run(engine, name, knobs, batches, new, between=None,
               f"serve {name}: trace counters {traces}, {st['retraces']}")
     else:
         check(not srv._graphs, f"serve {name}: the eager control captured")
-    return srv, ids, out, counts
+    return srv, ids, out, counts, tokens / wall
 
 
 def _eager_control(engine, name, knobs, batches, new, ids, out, **kw):
     """The same server run again with its step graphs off: it must serve
     the graphed run's tokens exactly (the same kernels on the same
     inputs)."""
-    srv, cids, ref, _ = _serve_run(engine, name, knobs, batches, new,
-                                   graphs=False, **kw)
+    srv, cids, ref, _, _ = _serve_run(engine, name, knobs, batches, new,
+                                      graphs=False, **kw)
     srv.close()
     del srv
     same = sum(out[r] == ref[c] for r, c in zip(ids, cids))
@@ -2603,8 +2639,9 @@ def _eager_control(engine, name, knobs, batches, new, ids, out, **kw):
           f"eager control's")
 
 
-def _serve_oracle(engine, name, prompts, rows, new, tol=E2E_MAX_TOL):
-    """Tie-tolerant oracle on two requests: each served token's logit in
+def _serve_oracle(engine, name, prompts, rows, new, tol=E2E_MAX_TOL,
+                  tag="serve"):
+    """Tie-tolerant oracle on some requests: each served token's logit in
     a forward over prompt + served tokens through no attention kernel
     (the flash kernel's plain version) is within ``tol`` of that
     position's maximum. Also counts served tokens equal to generate's."""
@@ -2618,20 +2655,28 @@ def _serve_oracle(engine, name, prompts, rows, new, tol=E2E_MAX_TOL):
         ref = causal_forward(engine.params, engine.model_config,
                              torch.as_tensor(ids, device="cuda"),
                              reference_attention=True)
-    worst = 0.0
+    worst, gaps = 0.0, []
     for i, (p, r) in enumerate(zip(prompts, rows)):
-        for pos in range(len(p), len(r)):
-            lg = ref[i, pos - 1]
-            worst = max(worst, (lg.max() - lg[r[pos]]).item())
+        if len(r) == len(p):
+            continue
+        lg = ref[i, len(p) - 1:len(r) - 1].float()
+        top = lg.topk(2, dim=-1).values
+        served = lg.gather(1, torch.as_tensor(r[len(p):],
+                                              device=lg.device)[:, None])
+        worst = max(worst, (top[:, 0] - served[:, 0]).max().item())
+        gaps.append(top[:, 0] - top[:, 1])
+    gaps = torch.cat(gaps)
     gen = engine.generate(prompts, max_new_tokens=new)
     same = sum(a == b for g, r, p in zip(gen, rows, prompts)
                for a, b in zip(g[len(p):], r[len(p):]))
     total = sum(len(r) - len(p) for r, p in zip(rows, prompts))
-    log(f"[serve] {name} oracle on 2 requests: worst (max logit - served "
-        f"token's logit) {worst!r} (tol {tol}); {same} of {total} served "
-        f"tokens equal generate's")
+    log(f"[{tag}] {name} oracle on {len(rows)} requests: worst (max logit - "
+        f"served token's logit) {worst!r} (tol {tol}); {same} of {total} "
+        f"served tokens equal generate's; the reference's top-1 - top-2 "
+        f"gaps: median {gaps.median().item()!r}, "
+        f"{int((gaps <= tol).sum())} of {gaps.numel()} within tol")
     check(math.isfinite(worst) and worst <= tol,
-          f"serve {name}: a served token is not a near-argmax of the "
+          f"{tag} {name}: a served token is not a near-argmax of the "
           f"reference forward ({worst} > {tol})")
 
 
@@ -2640,11 +2685,15 @@ def _bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
 
 
-def _same_as_control(engine, name, ids, prompts, out, ref):
-    """Served tokens against a control server's, request by request. Where
-    a token differs, the request passes only if the two tokens' logits at
-    that position, in a forward over the common prefix through no
-    attention kernel, lie within one bf16 step of each other (a tie)."""
+def _same_as_control(engine, name, ids, prompts, out, ref, tag="serve",
+                     tol=None):
+    """Served tokens against a control's (a server's or ``generate``'s),
+    request by request (``out[r]``, ``ref[r]`` for ``r`` in ``ids``).
+    Where a token differs, the request passes only if the two tokens'
+    logits at that position, in a forward over the common prefix through
+    no attention kernel, lie within ``tol`` of each other (default: one
+    bf16 step, a tie). Returns the ties as (request, generated position,
+    logits)."""
     from deepspeed_tpu_torch.model_implementations.transformer import \
         causal_forward
     differ = []
@@ -2652,7 +2701,7 @@ def _same_as_control(engine, name, ids, prompts, out, ref):
         a, b = out[r], ref[r]
         pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if pos is None:
-            check(len(a) == len(b), f"serve {name}: request {r} length "
+            check(len(a) == len(b), f"{tag} {name}: request {r} length "
                   f"{len(a)} != control {len(b)}")
             continue
         with torch.inference_mode():
@@ -2660,14 +2709,15 @@ def _same_as_control(engine, name, ids, prompts, out, ref):
                                 torch.as_tensor([a[:pos]], device="cuda"),
                                 reference_attention=True)[0, -1].float()
         la, lb = lg[a[pos]].item(), lg[b[pos]].item()
-        step = _bf16_step(max(abs(la), abs(lb)))
+        step = _bf16_step(max(abs(la), abs(lb))) if tol is None else tol
         differ.append((r, pos - len(p), la, lb))
         check(abs(la - lb) <= step,
-              f"serve {name}: request {r} differs from the control at "
+              f"{tag} {name}: request {r} differs from the control at "
               f"generated position {pos - len(p)} (logits {la!r} vs {lb!r}, "
-              f"more than one bf16 step {step!r} apart)")
-    log(f"[serve] {name}: {len(ids) - len(differ)} of {len(ids)} requests "
+              f"more than {step!r} apart)")
+    log(f"[{tag}] {name}: {len(ids) - len(differ)} of {len(ids)} requests "
         f"token-identical to the control; ties {differ}")
+    return differ
 
 
 def _check_served(engine, name, ids, out, prompts, counts, expect, new,
@@ -2727,7 +2777,7 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
     def a_between(srv, i):
         return 4 if i == 0 else 0
 
-    srv, ids, out, counts = _serve_run(
+    srv, ids, out, counts, _ = _serve_run(
         engine, "default", {}, a_batches, new, between=a_between)
     st = srv.stats
     fp_pool = (st["kv_tier"]["pool_bytes"], srv._cache.num_blocks)
@@ -2797,7 +2847,7 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
 
     b_knobs = {"enable_prefix_caching": True, "prefill_chunk_tokens": 256}
     b_batches = [shared[:1], shared[1:] + cold]
-    srv, ids, out, counts = _serve_run(
+    srv, ids, out, counts, _ = _serve_run(
         engine, "prefix+chunked", b_knobs, b_batches, new,
         between=until_first_prefilled)
     st = srv.stats
@@ -2817,7 +2867,7 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
     prompts = [rng.integers(0, V, n).tolist() + phrase * r
                for n, r in zip(rng.integers(1, 40, 8),
                                rng.integers(2, 8, 8))]
-    srv, ids, out, counts = _serve_run(
+    srv, ids, out, counts, _ = _serve_run(
         engine, "speculation K=4", {"speculation_tokens": 4}, [prompts],
         new)
     st = srv.stats
@@ -2845,7 +2895,7 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
                zip(prefixes, rng.integers(8, 65, 5))] for _ in range(2)]
     prompts = rounds[0] + rounds[1]
     d_knobs = {**int8_knobs, "kv_host_offload": True, "max_out_tokens": 1024}
-    srv, ids, out, counts = _serve_run(
+    srv, ids, out, counts, _ = _serve_run(
         engine, "int8+prefix+chunked+offload", d_knobs, rounds, new,
         drain_each=True)
     st = srv.stats
@@ -2870,7 +2920,7 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
         _eager_control(engine, "int8+prefix+chunked+offload", d_knobs,
                        rounds, new, ids, out, drain_each=True)
     # the control: the same int8 server with a pool that never demotes
-    srv, cids, ref, _ = _serve_run(
+    srv, cids, ref, _, _ = _serve_run(
         engine, "int8+prefix+chunked control",
         {**int8_knobs, "max_out_tokens": 2048}, rounds, new, drain_each=True)
     st = srv.stats
@@ -2887,7 +2937,7 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
 
     # (e) int8 pool + prompt-lookup speculation K=4 on (c)'s prompts
     e_knobs = {"kv_cache_dtype": "int8", "speculation_tokens": 4}
-    srv, ids, out, counts = _serve_run(
+    srv, ids, out, counts, _ = _serve_run(
         engine, "int8 speculation K=4", e_knobs, [spec_prompts], new)
     st = srv.stats
     tpf = st["speculation"]["tokens_per_forward"]
@@ -2905,6 +2955,236 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
     if "int8 speculation K=4" in eager:
         _eager_control(engine, "int8 speculation K=4", e_knobs,
                        [spec_prompts], new, ids, out)
+    return runs
+
+
+def gpt2_small_config():
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        InferenceTransformerConfig
+    # HF openai-community/gpt2 config.json, at its published widths and
+    # depth: 12 layers, 768 wide, 12 heads of 64, 1024 positions, tied head
+    return InferenceTransformerConfig(
+        vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+        n_head=12, activation="gelu_new", layer_norm_eps=1e-5,
+        positional="learned", tied_lm_head=True, dtype=torch.bfloat16)
+
+
+GPT2_PARAMS = 124439808   # GPT-2 (124M)'s count, the tied head once
+
+
+def phase_spec(cfg, params, smi):
+    """Speculative decoding and beam search at GPT-2 XL's full width and
+    depth (the serving weights), with a GPT-2 (124M) draft of random
+    weights from a seed: ``generate_speculative`` at B=8, 32 new tokens,
+    K=4, with the 124M draft (the rejection path), with a second engine
+    over the target's own weights and with the target as its own draft
+    (full acceptance) and with prompt lookup
+    on repetitive prompts, each against greedy ``generate`` (near-ties
+    within SPEC_TIE_TOL excepted) and with its launch counts (B1, B4, no
+    paged kernel); sampled speculation at temperature 1.0 (well formed) and
+    1e-6 (greedy); ``generate(num_beams=4)`` on 2 prompts, graphed against
+    eager, token for token; then servers with a draft engine (the 124M
+    draft, and the target's own weights), graphed, with an eager control,
+    and the same requests without speculation. Returns the runs' launch
+    counts by name."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        init_params
+    dcfg = gpt2_small_config()
+    dparams = init_params(torch.Generator(device="cuda").manual_seed(1),
+                          dcfg)
+    n_params = sum(p.numel() for p in _leaves(dparams))
+    check(n_params == GPT2_PARAMS,
+          f"the gpt2 draft has {n_params} parameters, not {GPT2_PARAMS}")
+
+    def engine(c, p):
+        return deepspeed_tpu_torch.init_inference(
+            (c, p), dtype="bfloat16", max_out_tokens=cfg.n_positions)
+
+    target, draft = engine(cfg, params), engine(dcfg, dparams)
+    twin = engine(cfg, params)   # the target's own weights, not copied
+    L, Ld, V, new, K = cfg.n_layer, dcfg.n_layer, cfg.vocab_size, 32, 4
+    rng = np.random.default_rng(0)   # phase e2e's prompts
+    lens = rng.integers(cfg.n_positions // 16, cfg.n_positions * 7 // 8 + 5,
+                        8)
+    prompts = [rng.integers(0, V, n).tolist() for n in lens]
+    rng = np.random.default_rng(21)
+    phrase = rng.integers(0, V, 24).tolist()
+    rep_prompts = [rng.integers(0, V, n).tolist() + phrase * r
+                   for n, r in zip(rng.integers(1, 40, 8),
+                                   rng.integers(2, 8, 8))]
+    rows = list(range(8))
+    runs = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # the controls: greedy generate of both prompt sets, warm
+    target.generate(prompts, max_new_tokens=3)
+    greedy = {}
+    for key, ps in (("e2e", prompts), ("repetitive", rep_prompts)):
+        target.generate(ps, max_new_tokens=3)
+        out, wall = timed(lambda: target.generate(ps, max_new_tokens=new))
+        greedy[key] = (out, wall / (len(ps) * new) * 1e3)
+
+    forms = (("124M draft", prompts, draft, "e2e", Ld),
+             ("self-draft", prompts, twin, "e2e", L),
+             ("draft is self", prompts, target, "e2e", L),
+             ("prompt lookup", rep_prompts, None, "repetitive", 0))
+    for name, ps, d, key, d_layers in forms:
+        def run():
+            return target.generate_speculative(ps, d, max_new_tokens=new,
+                                               draft_tokens=K)
+        run()   # warm-up: the verify and draft graphs warm up and capture
+        _launch_counts(reset=True)
+        out, wall = timed(run)   # THE main path
+        counts = _launch_counts()
+        st = dict(target.last_speculative_stats)
+        ref, ms_greedy = greedy[key]
+        ms_tok = wall / st["tokens"] * 1e3
+        log(f"[spec] {smi}: generate_speculative {name}, B=8, {new} new "
+            f"tokens, K={K}: {ms_tok!r} ms per committed token against "
+            f"{ms_greedy!r} for greedy generate; tokens per round a row "
+            f"{st['tokens_per_round'] / len(ps)!r}; {st}; launches "
+            f"{counts}")
+        ties = _same_as_control(target, name, rows, ps, dict(enumerate(out)),
+                                dict(enumerate(ref)), tag="spec",
+                                tol=SPEC_TIE_TOL)
+        _serve_oracle(target, name, ps, out, new, SPEC_TIE_TOL, tag="spec")
+        check(st["tokens"] == 8 * new and all(
+            len(r) == len(p) + new for r, p in zip(out, ps)),
+            f"spec {name}: {st['tokens']} tokens")
+        chunk = target._chunk_graph[1]
+        _graph_log("spec", f"{name} verify", chunk)
+        runs[f"spec {name}"] = counts
+        check(sum(counts[k] for k in _PAGED_KERNELS[2:]) == 0,
+              f"spec {name}: a paged kernel launched ({counts})")
+        if d is None:
+            check(st["draft"] == "prompt-lookup"
+                  and counts["flash_attention_fwd"] == L
+                  and counts["decode_attention"] == 0,
+                  f"spec {name}: launches {counts}")
+            check(st["tokens_per_round"] > 1,
+                  f"spec {name}: {st['tokens_per_round']} tokens a round")
+            continue
+        _graph_log("spec", f"{name} draft decode", d._kept_draft[2])
+        # the draft runs K decode steps a round; the host learns a round
+        # late that no row is live, so one round may run past the end
+        # (and change nothing)
+        steps, rem = divmod(counts["decode_attention"], d_layers * K)
+        check(counts["flash_attention_fwd"] == L + d_layers and rem == 0
+              and st["rounds"] <= steps <= st["rounds"] + 1,
+              f"spec {name}: launches {counts} for {st['rounds']} rounds")
+        if d is not draft:
+            # the stat counts the batch's tokens, as JAX's does
+            check(st["tokens_per_round"] / len(ps) >= 3.5,
+                  f"spec {name}: {st['tokens_per_round'] / len(ps)} tokens "
+                  f"a round a row (full acceptance gives 3.5 or more), "
+                  f"ties {ties}")
+        if d is target:
+            check(target._kept_draft[1] is not target._kept[1],
+                  "spec draft is self: the draft role shares the main cache")
+
+    # sampled speculation with the 124M draft
+    hot = target.generate_speculative(prompts, draft, max_new_tokens=new,
+                                      draft_tokens=K, temperature=1.0,
+                                      seed=5)
+    check(all(len(r) == len(p) + new and r[:len(p)] == p
+              and all(0 <= t < V for t in r[len(p):])
+              for r, p in zip(hot, prompts)),
+          "spec sampled T=1.0: malformed rows")
+    log(f"[spec] sampled T=1.0: {target.last_speculative_stats}")
+    cold = target.generate_speculative(prompts, draft, max_new_tokens=new,
+                                       draft_tokens=K, temperature=1e-6,
+                                       seed=5)
+    _same_as_control(target, "sampled T=1e-6", rows, prompts,
+                     dict(enumerate(cold)), dict(enumerate(greedy["e2e"][0])),
+                     tag="spec", tol=SPEC_TIE_TOL)
+
+    # beams: 2 prompts x 4 beams, graphed and eager
+    bp = prompts[:2]
+
+    def beams(n):
+        return timed(lambda: target.generate(bp, max_new_tokens=n,
+                                             num_beams=4))
+
+    beams(3)
+    _, t1 = beams(1)
+    _launch_counts(reset=True)
+    b_out, t_b = beams(new)   # THE main path
+    counts = _launch_counts()
+    graph = target._kept[2]
+    check(counts["flash_attention_fwd"] == L
+          and counts["decode_attention"] == L * (new - 1),
+          f"spec beams: launches {counts}")
+    runs["spec beams"] = counts
+    _graph_log("spec", "beams", graph)
+    target._cuda_graphs = False
+    _, e1 = beams(1)
+    e_out, e_b = beams(new)
+    target._cuda_graphs = True
+    check(e_out == b_out, "spec beams: the graphed beams' tokens differ "
+          "from the eager control's")
+    log(f"[spec] {smi}: generate(num_beams=4), 2 prompts, {new} new tokens: "
+        f"beam step {(t_b - t1) / (new - 1) * 1e3!r} ms graphed, "
+        f"{(e_b - e1) / (new - 1) * 1e3!r} ms eager; tokens identical; "
+        f"launches {counts}")
+    del greedy, hot, cold
+
+    # servers: 16 requests of 64-700 tokens, 8 slots, K=4
+    rng = np.random.default_rng(17)
+    sp = [rng.integers(0, V, n).tolist() for n in rng.integers(64, 701, 16)]
+    batches = [sp[:8], sp[8:]]
+
+    def between(srv, i):
+        return 4 if i == 0 else 0
+
+    knobs = {"speculation_tokens": K}
+    tps = {}
+    for name, d, d_layers in (("124M draft K=4", draft, Ld),
+                              ("self-draft K=4", twin, L)):
+        srv, ids, out, counts, rate = _serve_run(
+            target, name, knobs, batches, new, between=between, draft=d)
+        st = srv.stats
+        spc = st["speculation"]
+        rounds = spc["verify_steps"] + st["async_loop"]["garbage_steps"]
+        check(spc["draft"] == "model" and spc["draft_decode_traces"] == 1
+              and spc["verify_traces"] == 1
+              and spc["draft_prefill_traces"] == -1,
+              f"serve {name}: speculation stats {spc}")
+        _check_served(target, name, ids, out, sp, counts, {
+            "flash_attention_fwd": (L + d_layers) * st["prefills"],
+            "paged_verify_attention": L * rounds,
+            "paged_decode_attention": d_layers * K * rounds}, new,
+            SPEC_TIE_TOL)
+        tps[name] = (rate, spc["tokens_per_forward"])
+        if d is twin:
+            check(spc["tokens_per_forward"] >= 3,
+                  f"serve {name}: {spc['tokens_per_forward']} tokens per "
+                  f"forward (full acceptance gives 3 or more)")
+        runs[f"serve {name}"] = counts
+        srv.close()
+        del srv
+        if d is draft:
+            _eager_control(target, name, knobs, batches, new, ids, out,
+                           between=between, draft=d)
+    srv, ids, out, counts, rate = _serve_run(target, "no speculation", {},
+                                             batches, new, between=between)
+    st = srv.stats
+    _check_served(target, "no speculation", ids, out, sp, counts, {
+        "flash_attention_fwd": L * st["prefills"],
+        "paged_decode_attention": L * (
+            st["decode_steps"] + st["async_loop"]["garbage_steps"])}, new)
+    tps["no speculation"] = (rate, None)
+    runs["serve no speculation"] = counts
+    srv.close()
+    del srv, target, twin, draft, dparams
+    log(f"[spec] {smi}: server tokens/s and tokens per forward, 16 requests "
+        f"x {new} tokens, graphs: {tps}")
     return runs
 
 
@@ -2947,7 +3227,7 @@ def phase_model(tag, cfg, params, seed, eager=()):
         b_knobs = {**knobs, "enable_prefix_caching": True,
                    "prefill_chunk_tokens": 256}
         b_batches = [shared[:1], shared[1:] + cold]
-        srv, ids, out, counts = _serve_run(
+        srv, ids, out, counts, _ = _serve_run(
             engine, name, b_knobs, b_batches, new,
             between=until_first_prefilled)
         st = srv.stats
@@ -2968,8 +3248,8 @@ def phase_model(tag, cfg, params, seed, eager=()):
                            between=until_first_prefilled)
         name = f"{tag} {pool} speculation K=4"
         c_knobs = {**knobs, "speculation_tokens": 4}
-        srv, ids, out, counts = _serve_run(engine, name, c_knobs, [spec],
-                                           new)
+        srv, ids, out, counts, _ = _serve_run(engine, name, c_knobs,
+                                              [spec], new)
         st = srv.stats
         tpf = st["speculation"]["tokens_per_forward"]
         check(tpf is not None and tpf > 1,
@@ -3065,6 +3345,7 @@ def main() -> int:
     params = make_params(cfg)
     runs = {"e2e": phase_e2e(cfg, params)}
     runs.update(phase_serve(cfg, params))
+    runs.update(phase_spec(cfg, params, smi))
     del params, flush   # the serving weights; training needs the room
     torch.cuda.empty_cache()
     # the main-path runs at head dims outside {64, 128}: Pythia-2.8B (80),

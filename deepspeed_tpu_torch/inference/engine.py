@@ -18,13 +18,32 @@ nothing. The host asks the device whether every row is done only every
 then, but their tokens are masked to 0 and not counted, so the check
 changes only time, never output.
 
+The other ways to generate are JAX's too, each a host loop over graphed
+steps where JAX runs one ``while_loop``:
+
+* ``generate(num_beams>1)``, JAX's ``_beam_loop``: beams decode through
+  the decode graph over ``B * num_beams`` rows, and each step reorders the
+  cache rows by parent in place (an ``index_select`` into scratch, then
+  ``copy_``), so the graph's cache never moves.
+* ``generate_speculative`` (and ``generate(assistant_model=...)``): a
+  draft engine, or prompt lookup (``draft=None``), proposes ``K-1`` tokens
+  a round and the target scores them in one :func:`decode_chunk`, itself a
+  graph (``generate_verify``) over the kept cache; greedy acceptance, or
+  rejection sampling when ``temperature > 0``. The draft keeps a cache and
+  a decode graph of its own for the draft role, apart from its main cache,
+  so a target may be its own draft. Acceptance and commit stay on the
+  device; the host reads whether any row is live one round late, so it
+  never waits for the round it has just enqueued.
+* ``profile_model_time`` / ``model_times`` time each ``forward`` call,
+  with CUDA events on the card.
+
 :func:`save_serving_checkpoint` / :func:`load_serving_checkpoint` write and
 read the JAX package's serving layout (a config JSON and one safetensors
 file), in both directions.
 
-Not in this slice (ROADMAP.md queue C): beams, speculative decoding,
-HF conversion and checkpoint loading, int8 weights, meshes (TP/EP/SP), MoE,
-the encoder path and request tracing.
+Not in this slice (ROADMAP.md queue C): HF conversion and checkpoint
+loading, int8 weights, meshes (TP/EP/SP), MoE, the encoder path and request
+tracing.
 """
 from __future__ import annotations
 
@@ -35,13 +54,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference.async_loop import TokenFetch
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
 from deepspeed_tpu_torch.inference.kv_cache import (KVCache, auto_max_tokens,
                                                     init_cache)
+from deepspeed_tpu_torch.inference.speculation import (
+    commit_speculative_block, greedy_accept, lookup_proposals)
 from deepspeed_tpu_torch.model_implementations.transformer import (
-    InferenceTransformerConfig, causal_forward, decode_step, init_params,
-    prefill)
+    InferenceTransformerConfig, causal_forward, decode_chunk, decode_step,
+    init_params, prefill)
 from deepspeed_tpu_torch.ops.head_dim import warn_if_padded
 from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
 
@@ -72,6 +94,31 @@ def _fit_to_budget(need: int, budget: int) -> int:
     if _round_up(need, 128) > budget:
         return 0
     return min(_bucket(need), budget)
+
+
+def check_draft_compat(target, draft) -> None:
+    """Validate a draft engine against its speculation target: LM heads
+    on both sides and interchangeable token ids. Shared by the one-shot
+    ``generate_speculative(draft=...)`` path and the paged server's
+    ``speculation_draft`` wiring so both reject the same mismatches
+    with the same message."""
+    if target.model_config.head == "none" or \
+            draft.model_config.head == "none":
+        raise ValueError("speculative decoding needs LM heads on "
+                         "both engines")
+    if target.model_config.vocab_size != draft.model_config.vocab_size:
+        raise ValueError(
+            f"target/draft vocab sizes differ "
+            f"({target.model_config.vocab_size} vs "
+            f"{draft.model_config.vocab_size}) — token ids must be "
+            "interchangeable")
+
+
+def _categorical(lg: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """One draw per row from ``softmax(lg)``: the Gumbel-max trick, as
+    ``jax.random.categorical`` draws."""
+    u = torch.rand(lg.shape, generator=gen, device=lg.device)
+    return torch.argmax(lg - torch.log(-torch.log(u.clamp_min(1e-20))), -1)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -142,6 +189,15 @@ class InferenceEngine:
         # ((batch, max_seq), dense cache, its decode-step graph or None):
         # the one cache kept between generate calls
         self._kept = None
+        # the same for the draft role of generate_speculative, so that an
+        # engine that drafts for itself has a second cache
+        self._kept_draft = None
+        # (K, graph) of the verify chunk over the kept cache
+        self._chunk_graph = None
+        # profile_model_time: forward() calls timed, read by model_times
+        self.model_profile_enabled = False
+        self._profile_events = False
+        self._model_times: list = []
 
     def _record_generate(self, dt: float) -> None:
         self.telemetry.histogram(
@@ -176,22 +232,28 @@ class InferenceEngine:
                                device=self.device)
         return _round_up(1024, 128) if auto is None else auto
 
-    def _make_cache(self, batch: int, max_seq: int) -> KVCache:
-        """The dense cache of ``batch`` rows of ``max_seq`` positions: the
-        kept one when the shape matches (its positions past a row's length
-        hold an earlier call's keys, which attention masks as it masks
-        right-pad garbage), else a new one that replaces it and its
-        graph."""
-        if self._kept is not None and self._kept[0] == (batch, max_seq):
-            return self._kept[1]
-        self._kept = None   # free the old cache and graph first
+    def _make_cache(self, batch: int, max_seq: int,
+                    role: str = "main") -> KVCache:
+        """The dense cache of ``batch`` rows of ``max_seq`` positions for
+        ``role`` (``"main"``, or ``"draft"`` when the engine drafts for
+        ``generate_speculative``): the one kept for the role when the
+        shape matches (its positions past a row's length hold an earlier
+        call's keys, which attention masks as it masks right-pad garbage),
+        else a new one that replaces it and its graphs."""
+        attr = "_kept" if role == "main" else "_kept_draft"
+        kept = getattr(self, attr)
+        if kept is not None and kept[0] == (batch, max_seq):
+            return kept[1]
+        setattr(self, attr, None)   # free the old cache and graphs first
+        if role == "main":
+            self._chunk_graph = None
         cfg = self.model_config
         warn_if_padded("dense KV cache", cfg.head_dim,
                        self._act_dtype.itemsize, self.device)
         cache = init_cache(cfg.n_layer, batch, max_seq, cfg.kv_heads,
                            cfg.head_dim, dtype=self._act_dtype,
                            device=self.device)
-        self._kept = ((batch, max_seq), cache, None)
+        setattr(self, attr, ((batch, max_seq), cache, None))
         return cache
 
     def _decode_fn(self, cache: KVCache):
@@ -203,24 +265,78 @@ class InferenceEngine:
         def eager(tok):
             return decode_step(params, cfg, tok, cache)[0]
 
-        kept = self._kept
-        if not self._cuda_graphs or kept is None or kept[1] is not cache:
+        attr = next((a for a in ("_kept", "_kept_draft")
+                     if getattr(self, a) is not None
+                     and getattr(self, a)[1] is cache), None)
+        if not self._cuda_graphs or attr is None:
             return eager
+        kept = getattr(self, attr)
         graph = kept[2]
         if graph is None:
             graph = GraphedStep(
-                "generate_decode", eager,
+                "generate_decode" if attr == "_kept"
+                else "generate_draft_decode", eager,
                 (torch.zeros(cache.lengths.shape[0], dtype=torch.long,
                              device=self.device),),
                 lambda: (cache.k, cache.v, cache.lengths))
-            self._kept = (kept[0], cache, graph)
+            setattr(self, attr, (kept[0], cache, graph))
 
         def step(tok):
             graph.inputs[0].copy_(tok)
             return graph()
         return step
 
+    def _chunk_fn(self, cache: KVCache, K: int):
+        """``tokens [B, K] -> logits [B, K, V]``: the speculative verify
+        chunk over ``cache`` (lengths not advanced); on CUDA through a
+        graph kept with the main cache (made at first use), else
+        eagerly."""
+        params, cfg = self.params, self.model_config
+
+        def eager(tokens):
+            return decode_chunk(params, cfg, tokens, cache)[0]
+
+        if not self._cuda_graphs or self._kept is None \
+                or self._kept[1] is not cache:
+            return eager
+        if self._chunk_graph is None or self._chunk_graph[0] != K:
+            self._chunk_graph = (K, GraphedStep(
+                "generate_verify", eager,
+                (torch.zeros((cache.lengths.shape[0], K), dtype=torch.long,
+                             device=self.device),),
+                lambda: (cache.k, cache.v, cache.lengths)))
+        graph = self._chunk_graph[1]
+
+        def step(tokens):
+            graph.inputs[0].copy_(tokens)
+            return graph()
+        return step
+
     # ------------------------------------------------------------ API
+
+    def profile_model_time(self, use_cuda_events: bool = True) -> None:
+        """Time every ``forward`` call from now on (JAX
+        ``profile_model_time`` :379): with CUDA events on the card, by the
+        host clock on the CPU. ``use_cuda_events`` is accepted for
+        signature parity, as JAX does."""
+        del use_cuda_events
+        self.model_profile_enabled = True
+        self._profile_events = self.device.type == "cuda"
+
+    def model_times(self) -> list:
+        """The collected per-call latencies in seconds; clears on read
+        (JAX ``model_times`` :390). Raises when profiling is off."""
+        if not self.model_profile_enabled:
+            raise AssertionError("model profiling is not enabled — call "
+                                 "profile_model_time() first")
+        out, self._model_times = self._model_times, []
+
+        def seconds(t):
+            if isinstance(t, float):
+                return t
+            t[1].synchronize()
+            return t[0].elapsed_time(t[1]) / 1e3
+        return [seconds(t) for t in out]
 
     @torch.inference_mode()
     def forward(self, input_ids, attention_mask=None):
@@ -230,8 +346,21 @@ class InferenceEngine:
         if attention_mask is not None:
             attention_mask = torch.as_tensor(np.asarray(attention_mask),
                                              device=self.device)
-        return causal_forward(self.params, self.model_config, ids,
-                              attention_mask=attention_mask)
+        ev = t0 = None
+        if self.model_profile_enabled and self._profile_events:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        elif self.model_profile_enabled:
+            t0 = time.perf_counter()
+        out = causal_forward(self.params, self.model_config, ids,
+                             attention_mask=attention_mask)
+        if ev is not None:
+            ev[1].record()
+            self._model_times.append(ev)
+        elif t0 is not None:
+            self._model_times.append(time.perf_counter() - t0)
+        return out
 
     __call__ = forward
 
@@ -261,20 +390,28 @@ class InferenceEngine:
                  min_new_tokens: int = 0,
                  eos_token_id: Optional[int] = None,
                  attention_mask=None, seed: int = 0,
-                 assistant_model=None) -> list:
-        """Greedy/sampled generation. ``input_ids``: a list of token lists,
-        or a right-padded ``[B, T]`` array with its HF-style
-        ``attention_mask``. Returns a list of token lists (prompt +
-        generated). Sampling draws from a ``torch.Generator`` seeded with
-        ``seed``."""
-        del length_penalty   # beam search only
+                 assistant_model: Optional["InferenceEngine"] = None
+                 ) -> list:
+        """Greedy/sampled generation, or beam search (``num_beams > 1``).
+        ``input_ids``: a list of token lists, or a right-padded ``[B, T]``
+        array with its HF-style ``attention_mask``. Returns a list of token
+        lists (prompt + generated). Sampling draws from a
+        ``torch.Generator`` seeded with ``seed``. ``assistant_model`` is
+        HF's spelling of :meth:`generate_speculative` with that draft."""
         if self.model_config.head == "none":
             raise ValueError("this model has no LM head — use forward() "
                              "for hidden states")
         if assistant_model is not None:
-            raise NotImplementedError(f"speculative decoding {_LATER}")
-        if num_beams > 1:
-            raise NotImplementedError(f"beam search (_beam_loop) {_LATER}")
+            if (top_k or top_p or num_beams > 1 or min_new_tokens or
+                    float(repetition_penalty) != 1.0):
+                raise ValueError(
+                    "assistant_model composes with plain greedy/sampled "
+                    "decoding only (no top-k/top-p/beams/penalties/"
+                    "min_new_tokens) — see generate_speculative")
+            return self.generate_speculative(
+                input_ids, assistant_model, max_new_tokens,
+                temperature=temperature, eos_token_id=eos_token_id,
+                attention_mask=attention_mask, seed=seed)
         t0 = time.perf_counter()
         ids, lengths = _pad_batch(input_ids, attention_mask)
         B, T = ids.shape
@@ -284,7 +421,7 @@ class InferenceEngine:
                     for b in range(B)]
         self._check_schedulable(B, max_new_tokens)
         need = int(lengths.max()) + max_new_tokens
-        budget = self._max_out_budget(B)
+        budget = self._max_out_budget(B * max(num_beams, 1))
         max_seq = _fit_to_budget(need, budget)
         if not max_seq:
             raise ValueError(
@@ -292,30 +429,336 @@ class InferenceEngine:
                 f"token KV cache but the budget is {budget} tokens "
                 f"(max_out_tokens={self.config.max_out_tokens!r}; set "
                 "max_out_tokens='auto' to size it from free memory)")
-        if float(repetition_penalty) <= 0.0:
-            raise ValueError("repetition_penalty must be strictly positive; "
-                             "1.0 disables it")
-        if (int(top_k) > 0 or float(top_p) > 0.0) and \
-                float(temperature) <= 0.0:
-            raise ValueError(
-                "top_k/top_p are sampling filters — pass temperature>0; "
-                "temperature=0 means greedy and would silently ignore them")
+        if num_beams > 1:
+            if float(temperature) > 0.0 or top_k or top_p:
+                raise ValueError(
+                    "beam search composes with greedy scoring only "
+                    "(sampling+beams is not supported, matching HF's "
+                    "separate code paths)")
+            if float(repetition_penalty) != 1.0 or min_new_tokens:
+                raise NotImplementedError(
+                    "repetition_penalty/min_new_tokens are wired into "
+                    "the greedy/sampled loop, not beam search")
+        else:
+            if float(repetition_penalty) <= 0.0:
+                raise ValueError("repetition_penalty must be strictly "
+                                 "positive; 1.0 disables it")
+            if (int(top_k) > 0 or float(top_p) > 0.0) and \
+                    float(temperature) <= 0.0:
+                raise ValueError(
+                    "top_k/top_p are sampling filters — pass temperature>0; "
+                    "temperature=0 means greedy and would silently ignore "
+                    "them")
+        eos = -1 if eos_token_id is None else int(eos_token_id)
         with torch.inference_mode():
-            cache = self._make_cache(B, max_seq)
-            logits, cache = prefill(
-                self.params, self.model_config,
-                torch.as_tensor(ids, dtype=torch.long, device=self.device),
-                torch.as_tensor(lengths, device=self.device), cache)
-            out, n_gen = self._generate_loop(
-                logits, cache, ids, lengths, max_new_tokens,
-                float(temperature), int(top_k), float(top_p),
-                -1 if eos_token_id is None else int(eos_token_id),
-                float(repetition_penalty), int(min_new_tokens), seed)
+            if num_beams > 1:
+                # every beam shares the prefix: a tiled prefill, one row a
+                # beam
+                cache = self._make_cache(B * num_beams, max_seq)
+                logits, cache = prefill(
+                    self.params, self.model_config,
+                    torch.as_tensor(np.repeat(ids, num_beams, axis=0),
+                                    dtype=torch.long, device=self.device),
+                    torch.as_tensor(np.repeat(lengths, num_beams, axis=0),
+                                    device=self.device), cache)
+                out, n_gen = self._beam_loop(logits, cache, lengths,
+                                             max_new_tokens, num_beams, eos,
+                                             float(length_penalty))
+            else:
+                cache = self._make_cache(B, max_seq)
+                logits, cache = prefill(
+                    self.params, self.model_config,
+                    torch.as_tensor(ids, dtype=torch.long,
+                                    device=self.device),
+                    torch.as_tensor(lengths, device=self.device), cache)
+                out, n_gen = self._generate_loop(
+                    logits, cache, ids, lengths, max_new_tokens,
+                    float(temperature), int(top_k), float(top_p), eos,
+                    float(repetition_penalty), int(min_new_tokens), seed)
         self._record_generate(time.perf_counter() - t0)
         return self._assemble_output(ids, lengths, out, n_gen)
 
-    def generate_speculative(self, *args, **kwargs):
-        raise NotImplementedError(f"generate_speculative {_LATER}")
+    def generate_speculative(self, input_ids,
+                             draft: Optional["InferenceEngine"] = None,
+                             max_new_tokens: int = 32,
+                             draft_tokens: int = 4, *,
+                             temperature: float = 0.0,
+                             eos_token_id: Optional[int] = None,
+                             attention_mask=None, seed: int = 0) -> list:
+        """Speculative decoding (JAX ``generate_speculative`` :623). Each
+        round the draft proposes ``draft_tokens - 1`` tokens one after the
+        other, and the target scores the whole candidate chunk in ONE
+        :func:`decode_chunk` forward, committing 1 to ``draft_tokens``
+        tokens.
+
+        ``temperature == 0``: greedy acceptance, the tokens of greedy
+        ``generate``. ``temperature > 0``: rejection sampling (Leviathan et
+        al.; Chen et al.): proposal ``d_i`` is accepted with probability
+        ``min(1, p_t(d_i)/p_d(d_i))`` and the first rejection resampled
+        from ``norm(max(p_t - p_d, 0))``, so the committed stream is
+        distributed as sampling from the target alone. ``draft=None``:
+        prompt lookup, greedy only — the proposals are the tokens that
+        followed the latest earlier occurrence of the current bigram in
+        the row's own history.
+
+        The verify chunk and the draft's decode steps run as CUDA graphs on
+        the card; the rounds are a host loop that reads one flag a round,
+        a round late, so it never waits for the device.
+        ``last_speculative_stats`` holds
+        the rounds (verify forwards), the tokens and their ratio."""
+        t0 = time.perf_counter()
+        if draft_tokens < 2:
+            raise ValueError(f"draft_tokens must be >= 2, got "
+                             f"{draft_tokens} (1 draft proposal minimum)")
+        if draft is not None:
+            check_draft_compat(self, draft)
+            if draft.device != self.device:
+                raise ValueError(f"the draft engine is on {draft.device}, "
+                                 f"the target on {self.device}")
+        elif self.model_config.head == "none":
+            raise ValueError("speculative decoding needs LM heads on "
+                             "both engines")
+        if draft is None and float(temperature) > 0.0:
+            raise NotImplementedError(
+                "prompt-lookup speculative decoding (draft=None) is "
+                "greedy-only: its proposals are deterministic, so "
+                "rejection sampling degenerates — pass a draft engine "
+                "for sampled speculation")
+        ids, lengths = _pad_batch(input_ids, attention_mask)
+        B, T = ids.shape
+        if max_new_tokens <= 0:
+            self._record_generate(time.perf_counter() - t0)
+            return [np.asarray(ids[b, :lengths[b]]).tolist()
+                    for b in range(B)]
+        self._check_schedulable(B, max_new_tokens)
+        K = int(draft_tokens)
+        # margin: the draft runs K appends past the last committed token,
+        # and the final round may overshoot max_new by up to K
+        need = int(lengths.max()) + max_new_tokens + 2 * K
+        max_seq = None
+        for eng in ((self,) if draft is None else (self, draft)):
+            budget = eng._max_out_budget(B)
+            fit = _fit_to_budget(need, budget)
+            if not fit:
+                raise ValueError(
+                    f"prompt + max_new_tokens + draft margin needs a "
+                    f"{_round_up(need, 128)}-token KV cache but the "
+                    f"{'draft' if eng is draft else 'target'} budget is "
+                    f"{budget} tokens (max_out_tokens="
+                    f"{eng.config.max_out_tokens!r})")
+            max_seq = fit if max_seq is None else min(max_seq, fit)
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        with torch.inference_mode():
+            ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+            len_t = torch.as_tensor(lengths, device=self.device)
+            cache_t = self._make_cache(B, max_seq)
+            logits_t, cache_t = prefill(self.params, self.model_config,
+                                        ids_t, len_t, cache_t)
+            if draft is None:
+                out, n_gen, rounds = self._lookup_loop(
+                    logits_t, cache_t, ids_t, len_t, max_new_tokens, K, eos)
+            else:
+                cache_d = draft._make_cache(B, max_seq, role="draft")
+                prefill(draft.params, draft.model_config, ids_t, len_t,
+                        cache_d)
+                out, n_gen, rounds = self._speculative_loop(
+                    draft, logits_t, cache_t, cache_d, max_new_tokens, K,
+                    eos, float(temperature), seed)
+            out_np = out[:, :max_new_tokens].cpu().numpy()
+            n_np = np.minimum(n_gen.cpu().numpy(), max_new_tokens)
+            rounds = int(rounds)
+        total = int(n_np.sum())
+        self.last_speculative_stats = {
+            "rounds": rounds, "tokens": total,
+            "draft": "prompt-lookup" if draft is None else "model",
+            "tokens_per_round": round(total / max(rounds, 1), 3)}
+        self._record_generate(time.perf_counter() - t0)
+        return self._assemble_output(ids, lengths, out_np, n_np)
+
+    @staticmethod
+    def _round_gate(done, n_gen, max_new_tokens, rounds):
+        """JAX's loop condition for one round, on the device: whether any
+        row is live. Counts the round when it is, and returns the ``done``
+        the round's commit starts from (every row, when none is live, so
+        a round run past the end changes nothing), and the flag's copy on
+        its way to the host: the loop reads it one round later, so the
+        host never waits for the round it has just enqueued and runs at
+        most one round past the end."""
+        go = (~done & (n_gen < max_new_tokens)).any()
+        rounds += go.long()
+        return TokenFetch(go), done | ~go
+
+    def _lookup_loop(self, logits, cache, ids, lengths, max_new_tokens, K,
+                     eos):
+        """Prompt-lookup rounds (JAX ``_lookup_loop`` :735): proposals
+        from the row's own history buffer, verified like a draft's."""
+        B, T = ids.shape
+        dev = self.device
+        S = T + max_new_tokens + 2 * K
+        ar = torch.arange(B, device=dev)
+        iota = torch.arange(K, device=dev)[None, :]
+        hist = torch.zeros((B, S), dtype=torch.long, device=dev)
+        hist[:, :T] = ids
+        hlen = lengths.long().clone()
+        cur = torch.argmax(logits, -1)                   # token 0
+        hist[ar, hlen] = cur
+        hlen += 1
+        out = torch.zeros((B, max_new_tokens + K), dtype=torch.long,
+                          device=dev)
+        out[:, 0] = cur
+        n_gen = torch.ones((B,), dtype=torch.long, device=dev)
+        done = cur == eos
+        rounds = torch.zeros((), dtype=torch.long, device=dev)
+        verify = self._chunk_fn(cache, K)
+        go = None
+        for _ in range(max_new_tokens - 1):
+            if go is not None and not go.wait():
+                break
+            go, done = self._round_gate(done, n_gen, max_new_tokens, rounds)
+            props = lookup_proposals(hist, hlen, cur, K)   # [B, K-1]
+            t_toks = torch.argmax(
+                verify(torch.cat([cur[:, None], props], 1)), -1)
+            m, correction, committed = greedy_accept(t_toks, props, K)
+            out, n_gen, done, adv, active = commit_speculative_block(
+                committed, m, done, n_gen, out, eos, K, max_new_tokens)
+            cache.lengths.add_(adv.int())
+            # the history leads the cache by the pending token: it also
+            # takes the correction
+            hcols = (hlen[:, None] + iota).clamp(0, S - 1)
+            hmask = (iota <= m[:, None]) & active[:, None]
+            hist[ar[:, None], hcols] = torch.where(
+                hmask, committed, hist[ar[:, None], hcols])
+            hlen += adv
+            cur = torch.where(active, correction[:, 0], cur)
+        return out, n_gen, rounds
+
+    def _speculative_loop(self, draft, logits, cache_t, cache_d,
+                          max_new_tokens, K, eos, temperature, seed):
+        """Draft → verify → commit rounds (JAX ``_speculative_loop``
+        :805), greedy or by rejection sampling."""
+        B = logits.shape[0]
+        dev = self.device
+        sampled = temperature > 0.0
+        temp = max(temperature, 1e-6)
+        gen = torch.Generator(device=dev).manual_seed(seed) if sampled \
+            else None
+        iota = torch.arange(K, device=dev)[None, :]
+        ar = torch.arange(B, device=dev)
+        cur = _categorical(logits / temp, gen) if sampled \
+            else torch.argmax(logits, -1)
+        out = torch.zeros((B, max_new_tokens + K), dtype=torch.long,
+                          device=dev)
+        out[:, 0] = cur
+        n_gen = torch.ones((B,), dtype=torch.long, device=dev)
+        done = cur == eos
+        rounds = torch.zeros((), dtype=torch.long, device=dev)
+        draft_step = draft._decode_fn(cache_d)
+        verify = self._chunk_fn(cache_t, K)
+        go = None
+        for _ in range(max_new_tokens - 1):
+            if go is not None and not go.wait():
+                break
+            go, done = self._round_gate(done, n_gen, max_new_tokens, rounds)
+            # 1) K draft steps propose d1..d_{K-1}; the K-th only writes
+            # d_{K-1}'s k/v, so a full accept leaves no hole in the cache
+            tok, drafts, pds = cur, [], []
+            for i in range(K):
+                lg = draft_step(tok)
+                if sampled:
+                    tok = _categorical(lg / temp, gen)
+                    if i < K - 1:
+                        pds.append(torch.softmax(lg / temp, -1))
+                else:
+                    tok = torch.argmax(lg, -1)
+                drafts.append(tok)
+            drafts = torch.stack(drafts, 1)              # [B, K]
+            props = drafts[:, :K - 1]
+            # 2) the target verifies [cur, d1..d_{K-1}] in one forward
+            lg_t = verify(torch.cat([cur[:, None], props], 1))
+            if sampled:
+                # accept d_{i+1} while u_i < pt_i(d_{i+1}) / pd_i(d_{i+1});
+                # the correction comes from the residual norm(max(pt - pd,
+                # 0)) after a rejection, from pt at the bonus position
+                pt = torch.softmax(lg_t / temp, -1)       # [B, K, V]
+                pd = torch.stack(pds, 1)                  # [B, K-1, V]
+                p_t_at = torch.gather(pt[:, :K - 1], 2, props[..., None])[
+                    ..., 0]
+                p_d_at = torch.gather(pd, 2, props[..., None])[..., 0]
+                u = torch.rand((B, K - 1), generator=gen, device=dev)
+                accept = u * p_d_at.clamp_min(1e-30) < p_t_at
+                m = torch.argmax(torch.cat(
+                    [~accept, torch.ones((B, 1), dtype=torch.bool,
+                                         device=dev)], 1).int(), 1)
+                dists = torch.cat([(pt[:, :K - 1] - pd).clamp_min(0.0),
+                                   pt[:, K - 1:]], 1)
+                correction = _categorical(
+                    torch.log(dists[ar, m] + 1e-30), gen)[:, None]
+                committed = torch.where(iota < m[:, None], drafts,
+                                        correction)
+            else:
+                m, correction, committed = greedy_accept(
+                    torch.argmax(lg_t, -1), props, K)
+            out, n_gen, done, adv, active = commit_speculative_block(
+                committed, m, done, n_gen, out, eos, K, max_new_tokens)
+            # the context gains [cur, d1..dm] on active rows; the draft
+            # steps back from its K appends to the same point
+            cache_t.lengths.add_(adv.int())
+            cache_d.lengths.add_((adv - K).int())
+            cur = torch.where(active, correction[:, 0], cur)
+        return out, n_gen, rounds
+
+    def _beam_loop(self, logits, cache, prompt_lens, max_new_tokens, nb,
+                   eos, length_penalty):
+        """Beam search (JAX ``_beam_loop`` :941). Beams are seeded with the
+        top-``nb`` first tokens of beam 0; a finished beam stays frozen,
+        emitting pad 0 at an unchanged score; each step takes the top
+        ``nb`` of ``nb * V`` candidates and reorders the beams' cache rows,
+        tokens and counts by parent. The best beam ranks by ``score /
+        (prompt_len + n_gen) ** length_penalty``. Returns the best beam's
+        tokens and counts ``[B, max_new]``, ``[B]`` as numpy."""
+        Bnb, V = logits.shape
+        B = Bnb // nb
+        dev = self.device
+        logp0 = torch.log_softmax(logits.float(), -1).reshape(B, nb, V)
+        scores, tok = torch.topk(logp0[:, 0], nb)           # [B, nb]
+        out = torch.zeros((B, nb, max_new_tokens), dtype=torch.long,
+                          device=dev)
+        out[:, :, 0] = tok
+        finished = tok == eos
+        n_gen = torch.ones((B, nb), dtype=torch.long, device=dev)
+        pad_row = torch.full((V,), float("-inf"), device=dev)
+        pad_row[0] = 0.0
+        base = (torch.arange(B, device=dev) * nb)[:, None]
+        step_fn = self._decode_fn(cache)
+        # the cache rows to reorder: positions below the longest row
+        hi = int(prompt_lens.max())
+        for step in range(1, max_new_tokens):
+            if step % DONE_CHECK_EVERY == 0 and bool(finished.all()):
+                break
+            logp = torch.log_softmax(step_fn(tok.reshape(-1)).float(),
+                                     -1).reshape(B, nb, V)
+            logp = torch.where(finished[:, :, None], pad_row, logp)
+            cand = scores[:, :, None] + logp                 # [B, nb, V]
+            scores, flat = torch.topk(cand.reshape(B, nb * V), nb)
+            parent = flat // V                               # [B, nb]
+            tok = flat % V
+            rows = (base + parent).reshape(-1)
+            hi = min(hi + 1, cache.max_seq)
+            for x in (cache.k, cache.v):
+                x[:, :, :hi].copy_(x[:, :, :hi].index_select(1, rows))
+            cache.lengths.copy_(cache.lengths.index_select(0, rows))
+            out = torch.gather(out, 1, parent[:, :, None].expand_as(out))
+            finished = torch.gather(finished, 1, parent)
+            n_gen = torch.gather(n_gen, 1, parent)
+            out[:, :, step] = torch.where(finished, 0, tok)
+            n_gen += (~finished).long()
+            finished = finished | (tok == eos)
+        full_len = (torch.as_tensor(prompt_lens, device=dev)[:, None]
+                    + n_gen).float()
+        best = torch.argmax(scores / full_len ** length_penalty, 1)  # [B]
+        rows = torch.arange(B, device=dev)
+        return (out[rows, best].cpu().numpy(),
+                n_gen[rows, best].cpu().numpy())
 
     def _generate_loop(self, logits, cache, ids, lengths, max_new_tokens,
                        temperature, top_k, top_p, eos, rep, min_new, seed):
@@ -363,10 +806,7 @@ class InferenceEngine:
                 cutoff = srt.masked_fill(~keep, float("-inf")).amax(
                     -1, keepdim=True)
                 lg = lg.masked_fill(lg < cutoff, NEG_INF)
-            # Gumbel-max draw, as jax.random.categorical
-            u = torch.rand(lg.shape, generator=gen, device=dev)
-            return torch.argmax(lg - torch.log(-torch.log(
-                u.clamp_min(1e-20))), -1)
+            return _categorical(lg, gen)
 
         tok = select(adjust(logits, min_new))
         if presence is not None:
@@ -420,7 +860,7 @@ def _flatten_tree(tree, prefix=""):
         if isinstance(v, dict) and set(v) == {"q", "scale"}:
             raise NotImplementedError(
                 f"int8 weight leaves ({name}: {{q, scale}}) in a serving "
-                f"checkpoint {_LATER[:-1]}, A4)")
+                f"checkpoint {_LATER[:-1]}, A4b)")
         if isinstance(v, (dict, list, tuple)):
             out.update(_flatten_tree(v, name + "/"))
         else:
@@ -486,7 +926,7 @@ def load_serving_checkpoint(path: str,
             if set(node) == {"q", "scale"}:
                 raise NotImplementedError(
                     f"int8 weight leaves ({name}: {{q, scale}}) in a "
-                    f"serving checkpoint {_LATER[:-1]}, A4)")
+                    f"serving checkpoint {_LATER[:-1]}, A4b)")
             if node and all(k.isdigit() for k in node):
                 return [listify(node[str(i)], f"{name}/{i}")
                         for i in range(len(node))]

@@ -4,7 +4,8 @@ Counterpart of ``deepspeed_tpu/inference/kv_cache.py``:
 
 * the dense cache (``KVCache`` through ``advance``, :28-151): keys and
   values ``[L, B, S_max, KH, D]`` plus per-sequence live ``lengths [B]``
-  (int32, on the cache's device);
+  (int32, on the cache's device), with the prompt, token and speculative
+  chunk writers (``write_prompt``, ``append_token``, ``write_chunk``);
 * the paged pool (``PagedKVCache`` through ``paged_advance``, :154-460, and
   ``BlockAllocator`` :619): one global block pool ``[L, NB, BS, KH, D]``
   shared by every resident sequence, per-slot int32 block tables mapping
@@ -120,6 +121,26 @@ def append_token(cache: KVCache, layer: int, k: torch.Tensor,
     """
     rows = torch.arange(k.shape[0], device=cache.k.device)
     pos = cache.lengths.long()
+    cache.k[layer, rows, pos] = k.to(cache.k.dtype)
+    cache.v[layer, rows, pos] = v.to(cache.v.dtype)
+    return cache
+
+
+def write_chunk(cache: KVCache, layer: int, k: torch.Tensor,
+                v: torch.Tensor) -> KVCache:
+    """Speculative verify: write a K-token chunk's ``[B, K, KH, D]`` k/v at
+    positions ``lengths[b] .. lengths[b]+K-1`` of ``layer``, IN PLACE.
+
+    Lengths are NOT advanced: the caller commits only the accepted prefix,
+    and rejected positions stay as garbage past ``lengths``, masked like
+    right-padding. A chunk that would run past the cache's end starts
+    earlier so that it fits, as JAX's ``dynamic_update_slice`` clamps
+    its start."""
+    B, K = k.shape[:2]
+    dev = cache.k.device
+    start = cache.lengths.long().clamp(0, max(cache.max_seq - K, 0))
+    pos = start[:, None] + torch.arange(K, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
     cache.k[layer, rows, pos] = k.to(cache.k.dtype)
     cache.v[layer, rows, pos] = v.to(cache.v.dtype)
     return cache

@@ -12,8 +12,10 @@ verify) and the flash kernel for a monolithic prefill.
 The serving core is ported: submit / step / drain; admission through the
 block allocator with prefix caching; monolithic and chunked prefill (with
 ``prefill_chain``); plain decode under the async (lag-N) loop or the
-synchronous one; prompt-lookup speculation; deadlines, cancel and
-priority preemption; int8 pools (``kv_cache_dtype="int8"``) and the host
+synchronous one; speculation, by prompt lookup or by a draft model
+(``draft_engine`` / ``speculation_draft``: the draft keeps a paged pool of
+its own over the target's block tables); deadlines, cancel and priority
+preemption; int8 pools (``kv_cache_dtype="int8"``) and the host
 KV tier (``kv_host_offload``, ``kv_host_blocks``) with its swap-thrash
 detector. Every request ends in exactly one finish reason:
 ``eos`` / ``length``, ``cancelled``, ``deadline`` or ``failed``
@@ -25,9 +27,9 @@ host arrays go up through pinned memory without a sync, and nothing on the
 decode path reads a device value on the host except the lagged token fetch
 (:class:`~deepspeed_tpu_torch.inference.async_loop.TokenFetch`).
 
-Where JAX runs its decode and verify steps as jitted programs
-(``_decode_jit`` / ``_verify_jit``), the port on CUDA runs each as a CUDA
-graph (:class:`~deepspeed_tpu_torch.inference.cuda_graph.GraphedStep`),
+Where JAX runs its decode, verify and draft decode steps as jitted programs
+(``_decode_jit`` / ``_verify_jit`` / ``_draft_decode_jit``), the port on
+CUDA runs each as a CUDA graph (:class:`~deepspeed_tpu_torch.inference.cuda_graph.GraphedStep`),
 captured at the step's second call and replayed from then on; greedy
 ``argmax`` and the lengths advance are inside the graph, as they are inside
 JAX's programs. The host arrays of a step go up into the graph's static
@@ -38,16 +40,16 @@ JAX. Prefill and chunked prefill stay eager: their shapes and start vary
 per call.
 
 Not in this slice (ROADMAP.md queue C), each raising
-``NotImplementedError``: draft-model speculation, supervised replicas,
-roles and KV handoff (``export_prefix`` / ``import_prefix``), load
+``NotImplementedError``: supervised replicas, roles and KV handoff (``export_prefix`` / ``import_prefix``), load
 shedding, SLO monitoring, canaries, incidents, the HTTP endpoint and fault
 injection. The step profiler, KV-pool accounting, request ledger, capacity
 model and the ``/debug/memory`` host component of the tier — on by default
 in JAX — are not built; the served tokens do not depend on them. Of the
-trace counters of ``stats``, ``decode_traces``, ``verify_traces`` and
-``retraces`` count the graphs captured on CUDA, as JAX counts executables;
-``prefill_traces`` and ``chunk_traces``, and all of them on the CPU, where
-nothing is captured, report -1, JAX's own value for "unknown".
+trace counters of ``stats``, ``decode_traces``, ``verify_traces``,
+``draft_decode_traces`` and ``retraces`` count the graphs captured on CUDA,
+as JAX counts executables; ``prefill_traces``, ``chunk_traces`` and
+``draft_prefill_traces`` (eager programs), and all of them on the CPU,
+where nothing is captured, report -1, JAX's own value for "unknown".
 """
 from __future__ import annotations
 
@@ -62,13 +64,15 @@ import torch
 from deepspeed_tpu_torch.inference.async_loop import (InFlightStep,
                                                       PublishWorker)
 from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
-from deepspeed_tpu_torch.inference.engine import InferenceEngine, _bucket
+from deepspeed_tpu_torch.inference.engine import (InferenceEngine, _bucket,
+                                                  check_draft_compat)
 from deepspeed_tpu_torch.inference.kv_cache import (HostKVTier, PagedKVCache,
                                                     init_paged_cache,
                                                     paged_read_block,
                                                     paged_swap_in)
 from deepspeed_tpu_torch.inference.scheduler import Request, Scheduler
 from deepspeed_tpu_torch.inference.speculation import (LookupIndex,
+                                                       draft_propose,
                                                        greedy_accept_host)
 from deepspeed_tpu_torch.model_implementations.transformer import (
     paged_decode_step, paged_prefill, paged_prefill_chunk, paged_verify_step)
@@ -163,14 +167,12 @@ def _pool_tensors(cache: PagedKVCache):
             cache.k_scale, cache.v_scale)
 
 
-def _check_slice(cfg, fault_injector, supervised, role, handoff_import,
-                 draft_engine) -> None:
+def _check_slice(cfg, fault_injector, supervised, role,
+                 handoff_import) -> None:
     """Raise on every option this slice does not port."""
     tcfg = cfg.telemetry
     on = tcfg.enabled
     later = {
-        "draft-model speculation (draft_engine / speculation_draft)":
-            draft_engine is not None or cfg.speculation_draft is not None,
         "supervised replicas (ServingFrontend)": supervised,
         f"serving role {role!r} (disaggregated prefill/decode)":
             role != "mixed",
@@ -212,8 +214,7 @@ class ContinuousBatchingServer:
                 "unsupported — the paged pool is already the "
                 "long-context memory lever")
         cfg = engine.config
-        _check_slice(cfg, fault_injector, supervised, role, handoff_import,
-                     draft_engine)
+        _check_slice(cfg, fault_injector, supervised, role, handoff_import)
         self.engine = engine
         self.role = role
         self._closed = False
@@ -236,9 +237,27 @@ class ContinuousBatchingServer:
         self.chunk_tokens = cfg.prefill_chunk_tokens or (
             self.block_size if cfg.enable_prefix_caching else 0)
         # per-slot speculative decoding: K = chunk width of the batched
-        # verify forward (pending token + K-1 prompt-lookup proposals per
-        # active slot); 0 = off
+        # verify forward (pending token + K-1 proposals per active slot,
+        # by prompt lookup or, with a draft engine, by K chained draft
+        # decode steps); 0 = off
         self.spec_tokens = cfg.speculation_tokens
+        self.draft = draft_engine if draft_engine is not None \
+            else cfg.speculation_draft
+        if self.draft is not None:
+            if self.spec_tokens < 2:
+                raise ValueError(
+                    "draft_engine proposes speculation_tokens-1 "
+                    "candidates per slot — it requires "
+                    "speculation_tokens >= 2")
+            check_draft_compat(engine, self.draft)
+            if self.draft.model_config.seq_shard_kv:
+                raise NotImplementedError(
+                    f"a draft engine with a sequence-sharded KV cache "
+                    f"(seq_shard_kv) {_LATER}")
+            if self.draft.device != self.device:
+                raise ValueError(
+                    f"the draft engine is on {self.draft.device}, the "
+                    f"target on {self.device}")
         tcfg = cfg.telemetry
         self.telemetry = registry or (get_registry() if tcfg.enabled
                                       else MetricRegistry())
@@ -350,6 +369,17 @@ class ContinuousBatchingServer:
         # life: the step graphs are captured over them
         self._decode_fn, self._verify_fn = _step_programs(
             engine.params, engine.model_config, self._cache)
+        # draft-model speculation: the draft's own fp pool with the
+        # target's geometry, over the target's block tables (one tensor,
+        # written in place), so draft k/v land block for block beside the
+        # target k/v they shadow and every allocator decision covers both
+        self._draft_cache = None
+        self._draft_decode_fn = None
+        if self.draft is not None:
+            self._draft_cache = self._make_draft_pool(num_blocks)
+            self._draft_decode_fn = _step_programs(
+                self.draft.params, self.draft.model_config,
+                self._draft_cache)[0]
         # decode / verify step graphs, made at first use; False runs the
         # steps eagerly on CUDA too (the control a check compares with)
         self._cuda_graphs = self.device.type == "cuda"
@@ -435,6 +465,21 @@ class ContinuousBatchingServer:
 
     # ------------------------------------------------------------ setup
 
+    def _make_draft_pool(self, num_blocks: int) -> PagedKVCache:
+        """The draft model's pool: the target pool's slots, blocks and
+        block size with the draft's layers and head dims, full precision
+        whatever the target's (JAX ``_make_draft_pool`` :1035). Its block
+        tables are the target's tensor."""
+        dcfg = self.draft.model_config
+        warn_if_padded("draft paged KV pool", dcfg.head_dim,
+                       self.draft._act_dtype.itemsize, self.device)
+        pool = init_paged_cache(
+            dcfg.n_layer, self.num_slots, num_blocks, self.block_size,
+            self.max_blocks_per_slot, dcfg.kv_heads, dcfg.head_dim,
+            dtype=self.draft._act_dtype, quantized=False, device=self.device)
+        pool.block_tables = self._cache.block_tables
+        return pool
+
     def _make_pool(self, num_blocks: int) -> PagedKVCache:
         mcfg = self.engine.model_config
         quantized = self.kv_dtype == "int8"
@@ -505,48 +550,101 @@ class ContinuousBatchingServer:
         return _greedy(logits)
 
     def _graph(self, kind: str) -> Optional[GraphedStep]:
-        """The graph of the ``decode`` or ``verify`` step, made at its first
-        use, over static inputs of the step's fixed shapes (tokens ``[S]``
-        and ``active [S]``, or tokens ``[S, K]``); None where the steps run
-        eagerly."""
+        """The graph of the ``decode``, ``verify`` or ``draft_decode`` step,
+        made at its first use, over static inputs of the step's fixed
+        shapes (tokens ``[S]`` and ``active [S]``, or tokens ``[S, K]``);
+        None where the steps run eagerly."""
         if not self._cuda_graphs:
             return None
         g = self._graphs.get(kind)
         if g is None:
             S, dev = self.num_slots, self.device
-            if kind == "decode":
-                fn, inputs = self._decode_fn, (
-                    torch.zeros(S, dtype=torch.long, device=dev),
-                    torch.zeros(S, dtype=torch.bool, device=dev))
-            else:
+            pool = self._draft_cache if kind == "draft_decode" \
+                else self._cache
+            if kind == "verify":
                 fn, inputs = self._verify_fn, (torch.zeros(
                     (S, self.spec_tokens), dtype=torch.long, device=dev),)
+            else:
+                fn = self._decode_fn if kind == "decode" \
+                    else self._draft_decode_fn
+                inputs = (torch.zeros(S, dtype=torch.long, device=dev),
+                          torch.zeros(S, dtype=torch.bool, device=dev))
             g = self._graphs[kind] = GraphedStep(
                 f"serve_{kind}", fn, inputs,
-                functools.partial(_pool_tensors, self._cache))
+                functools.partial(_pool_tensors, pool))
         return g
 
     @torch.no_grad()
-    def _decode(self, tokens, active: np.ndarray):
-        """``tokens``: the slots' pending tokens, an int64 host array, or
-        the previous step's device tokens (the pipelined feedback)."""
-        g = self._graph("decode")
+    def _decode(self, tokens, active, kind: str = "decode"):
+        """One decode step over all slots of the target (``kind``
+        ``"decode"``) or of the draft (``"draft_decode"``). ``tokens``: the
+        slots' pending tokens, an int64 host array, or the previous step's
+        device tokens (the pipelined feedback, a draft's chain);
+        ``active``: a host or device bool array."""
+        g = self._graph(kind)
         if g is None:
+            fn = self._decode_fn if kind == "decode" \
+                else self._draft_decode_fn
             if isinstance(tokens, np.ndarray):
                 tokens = _upload(tokens, self.device)
-            return self._decode_fn(tokens.long(), _upload(active, self.device))
+            if isinstance(active, np.ndarray):
+                active = _upload(active, self.device)
+            return fn(tokens.long(), active)
         _stage(tokens, g.inputs[0])
         _stage(active, g.inputs[1])
         return g()
 
     @torch.no_grad()
-    def _verify(self, tokens: np.ndarray):
-        tokens = tokens.astype(np.int64)
+    def _verify(self, tokens):
+        """``tokens [S, K]``: an int host array, or the device tokens a
+        draft proposal round built."""
+        if isinstance(tokens, np.ndarray):
+            tokens = tokens.astype(np.int64)
         g = self._graph("verify")
         if g is None:
-            return self._verify_fn(_upload(tokens, self.device))
+            if isinstance(tokens, np.ndarray):
+                tokens = _upload(tokens, self.device)
+            return self._verify_fn(tokens.long())
         _stage(tokens, g.inputs[0])
         return g()
+
+    @torch.no_grad()
+    def _draft_prefill_slot(self, slot: int, state) -> None:
+        """Admit one slot's FULL scheduled prompt into the draft pool (JAX
+        ``_draft_prefill_slot`` :1933), right after the target's prefill
+        completes. The draft always prefills from position 0, even under
+        prefix caching or chunked prefill: shared prefix blocks are
+        rewritten with the same content, and a preemption's re-admission
+        rebuilds the whole draft state the reset scrubbed."""
+        if self.draft is None:
+            return
+        sched_prompt = state.request.sched_prompt
+        plen = len(sched_prompt)
+        T = min(max(_bucket(plen), self.block_size),
+                self.max_blocks_per_slot * self.block_size)
+        ids = np.zeros((1, T), np.int64)
+        ids[0, :plen] = sched_prompt
+        paged_prefill(self.draft.params, self.draft.model_config,
+                      _upload(ids, self.device), plen, self._draft_cache,
+                      slot)
+
+    def _draft_propose(self, states: Dict[int, object]):
+        """One draft proposal round for the given slots (JAX
+        ``_draft_propose`` :1959): K chained draft decode steps over all
+        slots, on the device. Returns ``(verify tokens [S, K], props [S,
+        K-1])``, both device tensors."""
+        S = self.num_slots
+        pend = np.zeros((S,), np.int64)
+        active = np.zeros((S,), bool)
+        for slot, state in states.items():
+            pend[slot] = state.pending
+            active[slot] = True
+        active = _upload(active, self.device)
+        pend_t = _upload(pend, self.device)
+        props = draft_propose(
+            lambda t: self._decode(t, active, "draft_decode"), pend_t,
+            self.spec_tokens)
+        return torch.cat([pend_t[:, None], props.long()], 1), props
 
     # ----------------------------------------------- prefill/decode handoff
 
@@ -624,6 +722,10 @@ class ContinuousBatchingServer:
         old row)."""
         self._cache.lengths[slot] = 0
         self._cache.block_tables[slot] = 0
+        if self._draft_cache is not None:
+            # the draft shares the tables; its length must not let stale
+            # draft k/v read as live context
+            self._draft_cache.lengths[slot] = 0
         # every slot-vacating path runs through here: drop its lookup state
         self._spec_hist.pop(slot, None)
 
@@ -830,6 +932,7 @@ class ContinuousBatchingServer:
                     now_t - self._submit_ts.get(req.request_id, now_t))
             self._c_prefills.inc()
             self._c_tokens.inc()
+            self._draft_prefill_slot(slot, state)
             state.generated.append(tok0)
             state.pending = tok0
             if self._finished(state, tok0):
@@ -884,6 +987,7 @@ class ContinuousBatchingServer:
         self._c_prefills.inc()
         self._c_tokens.inc()
         self._prefills += 1
+        self._draft_prefill_slot(slot, state)
         state.generated.append(tok0)
         state.pending = tok0
         if self._finished(state, tok0):
@@ -1113,13 +1217,26 @@ class ContinuousBatchingServer:
         states = self._active_states()
         if not states:
             return
-        tokens, props = self._propose(states)
-        t0 = self._clock()
-        t_toks = self._verify(tokens)
+        t0, t_toks, props = self._dispatch_verify(states)
         if rec is None:
             self._async_stats["pipeline_starts"] += 1
         chain.append(InFlightStep("verify", t_toks, states, t0, props=props,
                                   prev_fetch=prev_fetch))
+
+    def _dispatch_verify(self, states: Dict[int, object]):
+        """Propose for ``states`` and dispatch the batched verify. Returns
+        ``(t0, tokens, props)``: with prompt lookup the verify's argmaxes
+        ``[S, K]`` and the per-slot host proposals; with a draft engine
+        the argmaxes and the device proposals side by side, ``[S, 2K-1]``,
+        so one copy brings both to the host, and ``props`` None."""
+        if self.draft is None:
+            tokens, props = self._propose(states)
+            t0 = self._clock()
+            return t0, self._verify(tokens), props
+        t0 = self._clock()
+        tokens, d_props = self._draft_propose(states)
+        t_toks = self._verify(tokens)
+        return t0, torch.cat([t_toks, d_props.to(t_toks.dtype)], 1), None
 
     def _commit_verify_record(self, rec: InFlightStep, finished: List[int],
                               discard_rid: Optional[int] = None) -> float:
@@ -1127,7 +1244,7 @@ class ContinuousBatchingServer:
         proposals it was scored with, append/EOS-check/retire per
         surviving slot, and advance lengths over the accepted prefixes in
         ONE device update."""
-        t_np = rec.fetch.wait()
+        t_np, props = self._split_verify(rec.fetch.wait(), rec.props)
         t1 = self._clock()
         dt = t1 - (rec.prev_fetch if rec.prev_fetch is not None
                    else rec.t_dispatch)
@@ -1142,9 +1259,18 @@ class ContinuousBatchingServer:
         if not live:
             self._async_stats["garbage_steps"] += 1
             return t1
-        self._accept_and_commit(live, t_np, rec.props, dt, finished,
+        self._accept_and_commit(live, t_np, props, dt, finished,
                                 inline=False)
         return t1
+
+    def _split_verify(self, t_np: np.ndarray, props):
+        """A fetched verify round's argmaxes and the proposals they were
+        scored with: the draft's columns of the fetched block when the
+        round had no host proposals (see :meth:`_dispatch_verify`)."""
+        if props is not None:
+            return t_np, props
+        K = self.spec_tokens
+        return t_np[:, :K], t_np[:, K:]
 
     def _accept_and_commit(self, live: Dict[int, object], t_np, props,
                            dt: float, finished: List[int],
@@ -1181,6 +1307,14 @@ class ContinuousBatchingServer:
             else:
                 state.pending = committed[-1]
         self._cache.lengths.add_(_upload(adv, self.device))
+        if self._draft_cache is not None:
+            # the proposal round advanced the draft pool by K a slot;
+            # reconcile each surviving slot to its committed prefix before
+            # the retire loop zeroes this round's finishers
+            d_adj = np.zeros((self.num_slots,), np.int32)
+            for slot in live:
+                d_adj[slot] = int(adv[slot]) - K
+            self._draft_cache.lengths.add_(_upload(d_adj, self.device))
         for slot in retire:
             self._retire(slot, self.scheduler.slots[slot], finished)
         n_live = len(live)
@@ -1312,9 +1446,8 @@ class ContinuousBatchingServer:
         states = self._active_states()
         if not states:
             return
-        tokens, props = self._propose(states)
-        t0 = self._clock()
-        t_np = self._verify(tokens).cpu().numpy()   # host sync
+        t0, t_toks, props = self._dispatch_verify(states)
+        t_np, props = self._split_verify(t_toks.cpu().numpy(), props)
         self._accept_and_commit(states, t_np, props, self._clock() - t0,
                                 finished, inline=True)
 
@@ -1396,11 +1529,12 @@ class ContinuousBatchingServer:
     @property
     def stats(self) -> dict:
         """Serving telemetry, with the JAX server's keys. Where JAX counts
-        executables, ``decode_traces`` and ``verify_traces`` count the
-        graphs captured on CUDA (one per step kind at most: the shapes are
-        static) and ``retraces`` those captured again (none: a graph is
-        never recaptured); ``prefill_traces`` and ``chunk_traces`` (eager
-        programs) and every counter on the CPU read -1, "unknown". The
+        executables, ``decode_traces``, ``verify_traces`` and
+        ``draft_decode_traces`` count the graphs captured on CUDA (one per
+        step kind at most: the shapes are static) and ``retraces`` those
+        captured again (none: a graph is never recaptured);
+        ``prefill_traces``, ``chunk_traces`` and ``draft_prefill_traces``
+        (eager programs) and every counter on the CPU read -1, "unknown". The
         sections of unbuilt components (step profile, pool accounting,
         ledger, capacity, SLO, alerts, canary, incidents) read None."""
         self._drain_publishing()
@@ -1453,9 +1587,13 @@ class ContinuousBatchingServer:
                 if self._spec_slot_steps else None,
                 "verify_traces": (self._traces("verify")
                                   if self.spec_tokens else 0),
-                "draft": "prompt-lookup",
-                "draft_prefill_traces": 0,
-                "draft_decode_traces": 0,
+                "draft": ("model" if self.draft is not None
+                          else "prompt-lookup"),
+                # the draft's prefill is eager; its decode step a graph
+                "draft_prefill_traces": (-1 if self.draft is not None
+                                         else 0),
+                "draft_decode_traces": (self._traces("draft_decode")
+                                        if self.draft is not None else 0),
             },
             "kv_tier": {
                 "kv_dtype": self.kv_dtype,

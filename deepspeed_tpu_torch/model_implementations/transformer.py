@@ -2,22 +2,24 @@
 
 Counterpart of ``deepspeed_tpu/model_implementations/transformer.py``:
 the same configuration, the same parameter tree and the same functions
-(``prefill``, ``decode_step``, ``causal_forward``, and the paged-pool
-functions ``paged_prefill``, ``paged_prefill_chunk``, ``paged_decode_step``
-and ``paged_verify_step`` the server runs), written as plain functions on
-tensors over a parameter dict. Prefill attention runs the flash kernel
-(``ops/flash_attention.py``), a dense decode step the dense decode kernel
-and the paged steps the paged decode, chunk and verify kernels
-(``ops/decode_attention.py``; over an int8 pool their int8 variants, given
-the layer's scale tiles) — on a CUDA tensor the CUDA kernels, on a
-CPU tensor their plain versions. ALiBi, sliding windows and padded-key
-masks have no kernel in either package and take the plain einsum path here
-(over the pool gathered through the block tables, for the paged steps), as
-they take the XLA path there. The large products around attention
-(projections, MLP, LM head) are ``torch`` matmuls, as the JAX package
-leaves them to XLA. The paged functions take the slot, the chunk start and
-the prompt length as host ints where JAX traces scalars, and none of them
-reads a device value on the host.
+(``prefill``, ``decode_step``, ``decode_chunk``, ``causal_forward``, and
+the paged-pool functions ``paged_prefill``, ``paged_prefill_chunk``,
+``paged_decode_step`` and ``paged_verify_step`` the server runs), written
+as plain functions on tensors over a parameter dict. Prefill attention
+runs the flash kernel (``ops/flash_attention.py``), a dense decode step
+the dense decode kernel and the paged steps the paged decode, chunk and
+verify kernels (``ops/decode_attention.py``; over an int8 pool their int8
+variants, given the layer's scale tiles) — on a CUDA tensor the CUDA
+kernels, on a CPU tensor their plain versions. ALiBi, sliding windows and
+padded-key masks have no kernel in either package and take the plain
+einsum path here (over the pool gathered through the block tables, for
+the paged steps), as they take the XLA path there; so does the dense
+speculative verify ``decode_chunk``, whose attention JAX leaves to an XLA
+einsum. The large products around attention (projections, MLP, LM head)
+are ``torch`` matmuls, as the JAX package leaves them to XLA. The paged
+functions take the slot, the chunk start and the prompt length as host
+ints where JAX traces scalars, and none of them reads a device value on
+the host.
 
 Parameter schema (nested dict of tensors)::
 
@@ -28,8 +30,7 @@ Parameter schema (nested dict of tensors)::
       mlp  {wi [E, F], bi [F], wo [F, E], bo [E]}
 
 Not in this slice (ROADMAP.md queue C): MoE layers, int8 weight leaves,
-tensor/expert/sequence-parallel meshes, speculative ``decode_chunk`` over
-the dense cache, and the encoder path.
+tensor/expert/sequence-parallel meshes and the encoder path.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.inference.kv_cache import (
     KVCache, PagedKVCache, advance, append_token, paged_advance,
     paged_append_token, paged_gather_kv, paged_gather_slot_kv,
-    paged_write_chunk, paged_write_prompt, paged_write_tokens, write_prompt)
+    paged_write_chunk, paged_write_prompt, paged_write_tokens, write_chunk,
+    write_prompt)
 from deepspeed_tpu_torch.ops.decode_attention import (
     decode_attention, paged_chunk_attention, paged_decode_attention,
     paged_verify_attention)
@@ -335,17 +337,38 @@ def _paged_decode_attention(q, cache: PagedKVCache, layer_idx: int,
     return _decode_attention(q, k_cache, v_cache, live, cfg, window=window)
 
 
+def _bmm_f32(a, b):
+    """``torch.bmm`` with an f32 result: 16-bit operands enter the GEMM as
+    they are and accumulate in f32 (JAX's ``preferred_element_type``), so
+    on the card neither is copied to f32 first."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def _chunk_attention(q, k_cache, v_cache, lengths,
                      cfg: InferenceTransformerConfig, window=None):
     """Attention of ``q [B, K, H, D]`` at positions
     ``lengths[b]..lengths[b]+K-1`` against a cache that already holds the
     chunk's own k/v: key position s is visible to chunk query i iff
     ``s < lengths[b] + i + 1`` (the plain path of verify and chunked
-    prefill)."""
+    prefill).
+
+    The cache is read where it lies, never copied or cast: row b's heads
+    are one strided batch of GEMMs, scores come out in f32, and the f32
+    probabilities enter P.V as their rounding to the cache's dtype plus
+    the remainder, stacked into one GEMM (16 bits of P)."""
     B, K, H, D = q.shape
     KH, S = k_cache.shape[2], k_cache.shape[1]
-    s = torch.einsum("bkhd,bshd->bhks", q.float(),
-                     _repeat_kv(k_cache, H // KH).float()) * cfg.scale
+    G = H // KH
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    k_cache, v_cache = k_cache.to(dt), v_cache.to(dt)
+    # [B, KH, G*K, D]: the query rows of each kv head (a small copy)
+    qg = q.to(dt).permute(0, 2, 1, 3).reshape(B, KH, G * K, D)
+    s = torch.stack([_bmm_f32(qg[b], k_cache[b].permute(1, 2, 0))
+                     for b in range(B)]).view(B, H, K, S) * cfg.scale
     pos = torch.arange(S, device=q.device)[None, None, None, :]
     qpos = lengths[:, None] + torch.arange(K, device=q.device)[None, :]
     if cfg.positional == "alibi":
@@ -355,8 +378,15 @@ def _chunk_attention(q, k_cache, v_cache, lengths,
     if window is not None:
         s = s.masked_fill(pos <= qpos[:, None, :, None] - window, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhks,bshd->bkhd", p,
-                        _repeat_kv(v_cache, H // KH).float()).to(q.dtype)
+    if dt != torch.float32:
+        hi = p.to(dt)
+        p = torch.cat([hi, (p - hi.float()).to(dt)], dim=2)
+    terms = p.shape[2] // K
+    pg = p.view(B, KH, G * terms * K, S)
+    o = torch.stack([_bmm_f32(pg[b], v_cache[b].transpose(0, 1))
+                     for b in range(B)])
+    o = o.view(B, H, terms, K, D).sum(2)
+    return o.transpose(1, 2).to(q.dtype)
 
 
 def _paged_verify_attention(q, cache: PagedKVCache, layer_idx: int,
@@ -484,6 +514,25 @@ def _block_decode(x, layer, cfg, cache, layer_idx, live):
     return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
 
 
+def _block_chunk(x, layer, cfg, cache, layer_idx):
+    """K-token verify block (speculative decoding). x ``[B, K, E]``; writes
+    the chunk's k/v at ``lengths[b]..lengths[b]+K-1`` in place without
+    advancing lengths."""
+    a = layer["attn"]
+    ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
+    h = ln1_out if cfg.pre_layer_norm else x
+    positions = cache.lengths[:, None] + torch.arange(
+        x.shape[1], device=x.device)[None, :]
+    q, k, v = _qkv(h, a, cfg, positions)
+    cache = write_chunk(cache, layer_idx, k, v)
+    attn = _chunk_attention(q, cache.k[layer_idx], cache.v[layer_idx],
+                            cache.lengths, cfg,
+                            window=_window(cfg, layer_idx))
+    attn_out = torch.einsum("...hd,hde->...e", attn,
+                            _w(a["wo"], x.dtype)) + a["bo"]
+    return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
+
+
 # ---------------------------------------------------------------- model
 
 def _embed(params, cfg, ids, positions):
@@ -553,6 +602,25 @@ def decode_step(params, cfg: InferenceTransformerConfig, tokens,
         x, cache = _block_decode(x, layer, cfg, cache, i, live)
     x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
     return _logits(params, cfg, x), advance(cache)
+
+
+def decode_chunk(params, cfg: InferenceTransformerConfig, tokens,
+                 cache: KVCache):
+    """Speculative verify over the dense cache: score K candidate tokens
+    ``[B, K]`` in ONE forward at positions ``lengths[b]..lengths[b]+K-1``
+    → (logits ``[B, K, V]``, cache). The chunk's k/v are written into the
+    cache in place; lengths are NOT advanced — the caller commits the
+    accepted prefix by advancing per row (rejected positions remain
+    masked garbage). Attention is plain torch (f32 scores), as JAX
+    computes it outside any Pallas kernel."""
+    _check_causal(cfg)
+    positions = cache.lengths[:, None] + torch.arange(
+        tokens.shape[1], device=tokens.device)[None, :]
+    x = _embed(params, cfg, tokens, positions)
+    for i, layer in enumerate(params["layers"]):
+        x, cache = _block_chunk(x, layer, cfg, cache, i)
+    x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
+    return _logits(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------- paged

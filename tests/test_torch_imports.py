@@ -17,7 +17,8 @@ BANNED = {"jax", "jaxlib", "flax", "deepspeed_tpu"}
 PORT_FILES = sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "deepspeed_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "scripts/profile_torch_generate.py"])
+    + ["chip_smoke.py", "scripts/profile_torch_generate.py",
+       "scripts/profile_speculation.py"])
 
 
 def banned_imports(source: str):

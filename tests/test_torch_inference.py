@@ -345,16 +345,22 @@ def test_init_inference_entry_point_and_telemetry():
 def test_out_of_slice_paths_raise_not_implemented(case):
     _, _, tcfg, tp = _pair("gpt2")
     cfg32 = DeepSpeedInferenceConfig(dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # beams and speculation are ported: on their paths only what the JAX
+    # engine refuses too, and sequence-sharded caches (queue C), remain
+    match = {"beams": "not beam search",
+             "speculative": "greedy-only"}.get(case, "ROADMAP")
+    with pytest.raises(NotImplementedError, match=match):
         if case == "beams":
             InferenceEngine((tcfg, tp), cfg32, device="cpu").generate(
-                [[1, 2]], num_beams=2)
+                [[1, 2]], num_beams=2, repetition_penalty=1.3)
         elif case == "assistant":
-            eng = InferenceEngine((tcfg, tp), cfg32, device="cpu")
+            eng = InferenceEngine(
+                (dataclasses.replace(tcfg, seq_shard_kv=True), tp), cfg32,
+                device="cpu")
             eng.generate([[1, 2]], assistant_model=eng)
         elif case == "speculative":
             eng = InferenceEngine((tcfg, tp), cfg32, device="cpu")
-            eng.generate_speculative([[1, 2]], draft=eng)
+            eng.generate_speculative([[1, 2]], draft=None, temperature=0.5)
         elif case == "server":
             # the paged server is ported; its disaggregated roles are not
             from deepspeed_tpu_torch import inference

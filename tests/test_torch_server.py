@@ -298,6 +298,7 @@ def test_out_of_slice_options_raise_not_implemented(case):
     from deepspeed_tpu_torch.inference import ContinuousBatchingServer
     slo = {"enabled": True, "queue_wait_p90_s": 1.0}
     knobs = {
+        "draft_engine": dict(speculation_tokens=4),
         "speculation_draft": dict(speculation_tokens=4),
         "load_shedding": dict(enable_load_shedding=True,
                               telemetry={"slo": slo}),
@@ -310,7 +311,15 @@ def test_out_of_slice_options_raise_not_implemented(case):
         "tp_mesh": dict(tensor_parallel={"tp_size": 2}),
         "tracing": dict(telemetry={"trace_sample_rate": 1.0}),
     }.get(case, {})
-    kwargs = {"draft_engine": dict(draft_engine=object()),
+    sharded = None
+    if case in ("draft_engine", "speculation_draft"):
+        # draft-model speculation is ported; a draft over a
+        # sequence-sharded KV cache is not
+        _, _, tcfg, tp = _pair("gpt2")
+        sharded = InferenceEngine(
+            (dataclasses.replace(tcfg, seq_shard_kv=True), tp),
+            DeepSpeedInferenceConfig(dtype="float32"), device="cpu")
+    kwargs = {"draft_engine": dict(draft_engine=sharded),
               "supervised": dict(supervised=True),
               "role": dict(role="prefill"),
               "handoff_import": dict(handoff_import=True),
@@ -318,7 +327,7 @@ def test_out_of_slice_options_raise_not_implemented(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng = _engine(**knobs)
         if case == "speculation_draft":
-            eng.config.speculation_draft = eng
+            eng.config.speculation_draft = sharded
         srv = ContinuousBatchingServer(eng, **kwargs)
         if case == "export_prefix":
             srv.export_prefix([b"h"])
