@@ -138,6 +138,23 @@ kernel's row.
    speculation. The ms per committed token, tokens per round, the beam
    step's ms and the servers' tokens/s are printed with the card's name
    and power limit.
+9a'. int8 — phase e2e's GPT-2 XL weights served from int8 storage:
+   weight bytes (``tree_weight_bytes``, ``memory_allocated``) in bf16,
+   row-group int8 (``dtype="int8"``) and per-output-channel int8 (w8a8);
+   ``generate`` on phase e2e's 8 prompts, 32 new tokens, graphed, for
+   bf16, int8 and w8a8 (B1, B4), decode ms per step of each; the int8
+   tokens must equal a bf16 engine's over the dequantized weights (the
+   same products on the same values) and its eager control's; w8a8:
+   ``_int_mm`` (rows padded to 17) exact against the integer product at
+   one layer's q/k/v, attention-out and MLP shapes at M = 8 (eager and
+   replayed from a graph) and at the prefill's M = 8192, every int8 GEMM
+   weight stored column-major, its first-step logits within W8A8_LOGIT_L2
+   of the dequantized path over the same weights; greedy agreement with
+   bf16 logged; phase serve's default server (16 requests, 32 new tokens)
+   over each engine with its launch counts and the served-token oracle,
+   tokens/s printed; an int8 serving checkpoint saved, reloaded (the int8
+   leaves as stored) and serving the same tokens, its bytes and seconds
+   printed, all with the card's name and power limit.
 9b. pythia — Pythia-2.8B at its published widths and depth (HF
    EleutherAI/pythia-2.8b config.json: 32 layers, 32 heads of 80, parallel
    residual, rotary_pct 0.25, exact GELU, untied head; random weights,
@@ -168,6 +185,14 @@ kernel's row.
    ``gpt2-2.7b`` (32 layers, 32 heads of 80) and ``gpt2-1.3b`` with
    ``n_head=8`` (8 heads of 256: B1-B3 on their 256-wide instantiations),
    at full depth.
+10a. int8 train — ``gpt2-1.3b`` at full width and depth with
+   ``int8_training=True`` (SwitchBack: the four projections of every
+   block and the logits run int8 forward and dx GEMMs) beside bf16, from
+   the same weights on the same INT8_TRAIN_STEPS + 1 seeded batches,
+   phase train's configuration: ``_int_mm`` exact at the forward, dx and
+   logits shapes in SwitchBack's layouts, the launch counts of both runs,
+   finite int8 losses within INT8_TRAIN_MARGIN of bf16's and not equal to
+   them, and both runs' ms per step.
 10b. checkpoint — the training engine's checkpoints and the bridge to
    serving, under a temporary directory of the checkout's ``build/``
    (removed at the end; the free space is printed first). The resume
@@ -202,7 +227,8 @@ replay adds the launches its capture recorded to each wrapper's count, so
 the launch counts stay counts of kernel executions.
 
 The kernel launch counts are set to 0 just before each main-path run (the
-e2e generate, each server, the timed training steps, the checkpoint
+e2e generate, each server, phase int8's ``generate`` calls, servers and
+training runs, the timed training steps, the checkpoint
 phase's training runs and its ``generate``, and the sparse and layer_norm
 runs) and read just after. Every attention kernel, int8 ones
 included, must have launched on a main-path run at head dim 80, 96 or
@@ -217,6 +243,8 @@ non-zero with no result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -3188,6 +3216,387 @@ def phase_spec(cfg, params, smi):
     return runs
 
 
+# phase int8. w8a8 first-step logits against the dequantized path over the
+# same per-output-channel weights: the only difference is the activation's
+# per-token int8 quant, an error of at most amax/254 an element (~0.5% of a
+# row's rms for a Gaussian-like row of 1600), entering each of the 192
+# projections of GPT-2 XL; through 48 random-weight layers such input
+# noise compounds to a few percent of the logits, where a wrong scale, a
+# transposed weight or a garbage pad row moves them by O(1) relative
+W8A8_LOGIT_L2 = 0.1   # relative L2 over the [8, V] logits
+# int8 training's losses against bf16 training on the same batches from
+# the same weights: SwitchBack adds per-token int8 noise to the forward
+# and dx products; after a few AdamW steps at lr 1e-4 the trajectories
+# part by far less than the 11.2 -> ~10 fall of the loss, while a wrong
+# gradient scale or a transposed product stalls or diverges it
+INT8_TRAIN_MARGIN = 2e-2   # relative, per step
+INT8_TRAIN_STEPS = 3
+
+
+def _graphed_once(fn, *args):
+    """``fn(*args)`` through the port's graph runner: warmed up, captured,
+    replayed once; the replay's output."""
+    from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
+    step = GraphedStep("int8_mm check", fn, args, lambda: ())
+    step()   # warm-up
+    out = step()
+    check(step.captures == 1 and step.replays == 1,
+          "the int8_mm check did not replay a graph")
+    return out
+
+
+def _int_mm_exact(tag, shapes, make_b):
+    """``int8_mm`` (``torch._int_mm``, rows padded to 17) against the
+    exact integer product (f64 GEMM: every partial sum is an integer below
+    2**53) for each (name, M, K, N), eagerly and, for M <= 16 (the padded
+    rows), replayed from a captured graph."""
+    from deepspeed_tpu_torch.ops.int8_gemm import int8_mm
+    g = torch.Generator(device="cuda").manual_seed(7)
+    done = []
+    for name, M, K, N in shapes:
+        a = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
+                          dtype=torch.int8)
+        b = make_b(name, K, N, g)
+        want = a.double() @ b.double()
+        outs = [int8_mm(a, b)] + ([_graphed_once(int8_mm, a, b)]
+                                  if M < 17 else [])
+        for out in outs:
+            check(out.dtype == torch.int32 and torch.equal(out.double(), want),
+                  f"[{tag}] _int_mm {name} at M={M}: not the exact integer "
+                  f"product")
+        done.append(f"{name} [{M}, {K}] x [{K}, {N}]"
+                    + (" (+graph)" if M < 17 else ""))
+        del a, b, want, outs
+    log(f"[{tag}] _int_mm exact against the integer product: {done}")
+
+
+def phase_int8(cfg, params, smi):
+    """GPT-2 XL (phase e2e's weights) served from int8 weights: weight
+    bytes in bf16, row-group int8 and per-output-channel int8; ``generate``
+    with ``dtype="int8"`` (graphed) against a bf16 engine over the
+    dequantized weights (the same tokens) and its eager control; w8a8
+    (``quant.activation``): ``_int_mm`` exact at one layer's shapes, its
+    first-step logits against the dequantized path over the same weights,
+    its greedy agreement with bf16; the default server over each engine
+    (the served-token oracle, tokens/s); and an int8 serving checkpoint
+    round trip. Returns the runs' launch counts by name."""
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint.integrity import dir_bytes
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.engine import (load_serving_checkpoint,
+                                                      save_serving_checkpoint)
+    from deepspeed_tpu_torch.model_implementations.transformer import prefill
+    from deepspeed_tpu_torch.module_inject.quantize import tree_weight_bytes
+    from deepspeed_tpu_torch.ops.int8_gemm import is_quantized, weight_as
+    L, V, new, steps = cfg.n_layer, cfg.vocab_size, 32, 31
+    rng = np.random.default_rng(0)   # phase e2e's prompts
+    lens = rng.integers(cfg.n_positions // 16, cfg.n_positions * 7 // 8 + 5, 8)
+    prompts = [rng.integers(0, V, n).tolist() for n in lens]
+    runs, decode_ms, engines = {}, {}, {}
+
+    def build(name, p, **kw):
+        gc.collect()   # engines and their graphs hold reference cycles
+        torch.cuda.synchronize()
+        m0, t = torch.cuda.memory_allocated(), time.perf_counter()
+        eng = deepspeed_tpu_torch.init_inference(
+            (cfg, p), max_out_tokens=cfg.n_positions, **kw)
+        torch.cuda.synchronize()
+        log(f"[int8] {name} engine: weights {tree_weight_bytes(eng.params)} "
+            f"bytes (tree_weight_bytes), {torch.cuda.memory_allocated() - m0}"
+            f" bytes newly allocated (memory_allocated; bf16 leaves are "
+            f"shared with the caller's), placed and quantized in "
+            f"{time.perf_counter() - t!r} s")
+        engines[name] = eng
+        return eng
+
+    def timed(eng, n):
+        t = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=n)
+        return out, time.perf_counter() - t
+
+    def gen(name, eng):
+        """Graphed generate of 8 x 32 tokens, its launches read just
+        around it, and decode ms per step from two (32 - 1 token) pairs."""
+        timed(eng, 3)   # warm-up: cuBLAS, the decode graph's capture
+        _, t_pre = timed(eng, 1)
+        _launch_counts(reset=True)
+        out, t_gen = timed(eng, new)   # a main path
+        counts = _launch_counts()
+        _, t_pre2 = timed(eng, 1)
+        _, t_gen2 = timed(eng, new)
+        check(counts["flash_attention_fwd"] == L
+              and counts["decode_attention"] == L * steps,
+              f"[int8] {name}: launches {counts}")
+        for b, row in enumerate(out):
+            check(len(row) == lens[b] + new and row[:lens[b]] == prompts[b]
+                  and all(0 <= x < V for x in row[lens[b]:]),
+                  f"[int8] {name}: row {b} malformed")
+        graph = eng._kept[2]
+        check(graph is not None and graph.replays > 0,
+              f"[int8] {name}: the decode step did not replay a graph")
+        ms = [(a - b) / steps * 1e3 for a, b in ((t_gen, t_pre),
+                                                 (t_gen2, t_pre2))]
+        decode_ms[name] = ms
+        log(f"[int8] {name} generate 8 x {new} tokens (graphed): {t_gen!r} "
+            f"s; decode {ms[0]!r} and {ms[1]!r} ms per step; prefill "
+            f"{t_pre * 1e3!r} ms; {smi}")
+        runs[f"int8 phase generate {name}"] = counts
+        return out
+
+    bf16_bytes = tree_weight_bytes(params)
+    log(f"[int8] bf16 weights: {bf16_bytes} bytes (tree_weight_bytes)")
+    ref16 = gen("bf16", build("bf16", params, dtype="bfloat16"))
+
+    # weight-only int8 (row-group scales), against a bf16 engine over the
+    # dequantized weights: the same products on the same values
+    eng8 = build("int8", params, dtype="int8")
+    w = eng8.params["layers"][0]["mlp"]["wi"]
+    check(is_quantized(w) and w["q"].dtype == torch.int8
+          and w["scale"].dtype == torch.float32,
+          "[int8] dtype='int8' did not store int8 q/scale leaves")
+    out8 = gen("int8", eng8)
+
+    def deq(x):
+        if is_quantized(x):
+            return weight_as(x, torch.bfloat16)
+        if isinstance(x, dict):
+            return {k: deq(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [deq(v) for v in x]
+        return x
+    engd = deepspeed_tpu_torch.init_inference(
+        (cfg, deq(eng8.params)), dtype="bfloat16",
+        max_out_tokens=cfg.n_positions)
+    outd = engd.generate(prompts, max_new_tokens=new)
+    del engd
+    torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(out8, outd))
+    log(f"[int8] dequant oracle: {same} of 8 rows of the int8 engine equal "
+        f"a bf16 engine's over the dequantized weights")
+    check(same == 8, "[int8] int8 generate differs from bf16 over the "
+          "dequantized weights")
+    eng8._cuda_graphs = False
+    t = time.perf_counter()
+    oute = eng8.generate(prompts, max_new_tokens=new)
+    eng8._cuda_graphs = True
+    log(f"[int8] int8 eager control: {time.perf_counter() - t!r} s, "
+        f"{sum(a == b for a, b in zip(out8, oute))} of 8 rows equal the "
+        f"graphed run's")
+    check(oute == out8, "[int8] graphed int8 generate differs from eager")
+
+    # w8a8: per-output-channel int8, every projection an int8 GEMM
+    engw = build("w8a8", params, dtype="bfloat16",
+                 quant={"enabled": True, "activation": {"enabled": True}})
+    lay = engw.params["layers"][0]
+    mats = {"qkv (wq)": lay["attn"]["wq"], "attn out": lay["attn"]["wo"],
+            "mlp in": lay["mlp"]["wi"], "mlp out": lay["mlp"]["wo"]}
+    two_d = {}
+    for name, node in mats.items():
+        c = 2 if name == "attn out" else 1
+        q2 = node["q"].reshape(node["q"].shape[:c].numel(), -1)
+        check("oscale" in node and q2.stride(0) == 1,
+              f"[int8] w8a8 {name}: not an oscale leaf stored column-major")
+        two_d[name] = q2
+    _int_mm_exact("int8", [(n, M, *two_d[n].shape) for n in two_d
+                           for M in (8, 8 * cfg.n_positions)],
+                  lambda n, K, N, g: two_d[n])
+    ids = np.zeros((8, cfg.n_positions), np.int64)
+    for b, p in enumerate(prompts):
+        ids[b, :len(p)] = p
+    first = []
+    with torch.inference_mode():
+        for mc in (engw.model_config, dataclasses.replace(
+                engw.model_config, int8_compute=False)):
+            cache = engw._make_cache(8, cfg.n_positions)
+            first.append(prefill(engw.params, mc,
+                                 torch.as_tensor(ids, device="cuda"),
+                                 torch.as_tensor(lens, device="cuda"),
+                                 cache)[0].float())
+    l2 = ((first[0] - first[1]).norm() / first[1].norm()).item()
+    agree = int((first[0].argmax(-1) == first[1].argmax(-1)).sum())
+    log(f"[int8] w8a8 first-step logits against the dequantized path over "
+        f"the same weights: relative L2 {l2!r} (tol {W8A8_LOGIT_L2}), max "
+        f"|diff| {(first[0] - first[1]).abs().max().item()!r} at max |logit| "
+        f"{first[1].abs().max().item()!r}; argmax equal on {agree} of 8 rows")
+    check(math.isfinite(l2) and l2 <= W8A8_LOGIT_L2,
+          "[int8] w8a8 logits far from the dequantized path's")
+    del first
+    outw = gen("w8a8", engw)
+
+    def agreement(out):
+        """Generated tokens equal to bf16's up to each row's first
+        divergence, of 8 x 32."""
+        n = 0
+        for a, b, p in zip(out, ref16, prompts):
+            for x, y in zip(a[len(p):], b[len(p):]):
+                if x != y:
+                    break
+                n += 1
+        return n
+    log(f"[int8] greedy agreement with bf16 (tokens before each row's first "
+        f"divergence, of {8 * new}): int8 {agreement(out8)}, w8a8 "
+        f"{agreement(outw)}; decode ms per step (graphed, B=8) bf16 "
+        f"{decode_ms['bf16']!r}, int8 {decode_ms['int8']!r}, w8a8 "
+        f"{decode_ms['w8a8']!r}; {smi}")
+
+    # the default server (phase serve's (a): 16 requests of 64-700 tokens,
+    # 8 then 8) over each engine
+    srng = np.random.default_rng(5)
+    sprompts = [srng.integers(0, V, n).tolist()
+                for n in srng.integers(64, 701, 16)]
+    tps = {}
+    for name, eng in engines.items():
+        srv, sids, sout, counts, tps[name] = _serve_run(
+            eng, f"default over {name} weights", {},
+            [sprompts[:8], sprompts[8:]], new,
+            between=lambda s, i: 4 if i == 0 else 0)
+        st = srv.stats
+        _check_served(eng, f"default over {name} weights", sids, sout,
+                      sprompts, counts, {
+                          "flash_attention_fwd": L * st["prefills"],
+                          "paged_decode_attention": L * (
+                              st["decode_steps"]
+                              + st["async_loop"]["garbage_steps"])}, new)
+        runs[f"int8 phase serve {name}"] = counts
+        srv.close()
+        del srv
+    log(f"[int8] default server tokens/s: bf16 {tps['bf16']!r}, int8 "
+        f"{tps['int8']!r}, w8a8 {tps['w8a8']!r}; {smi}")
+    del engines["bf16"], engines["w8a8"], engw
+    torch.cuda.empty_cache()
+
+    # an int8 serving checkpoint round trip
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="int8_serving_", dir=root)
+    try:
+        t = time.perf_counter()
+        save_serving_checkpoint(eng8, tmp)
+        save_s = time.perf_counter() - t
+        nbytes = dir_bytes(tmp)
+        t = time.perf_counter()
+        back = load_serving_checkpoint(tmp, DeepSpeedInferenceConfig(
+            dtype="bfloat16", max_out_tokens=cfg.n_positions))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        node = back.params["layers"][0]["mlp"]["wi"]
+        check(set(node) == {"q", "scale"} and node["q"].dtype == torch.int8
+              and node["scale"].dtype == torch.float32,
+              "[int8] the reloaded checkpoint's int8 leaves changed dtype")
+        outb = back.generate(prompts, max_new_tokens=new)
+        check(outb == out8, "[int8] the reloaded int8 serving checkpoint "
+              "serves other tokens")
+        log(f"[int8] int8 serving checkpoint: {nbytes} bytes, save "
+            f"{save_s!r} s, load {load_s!r} s; the reloaded engine serves "
+            f"the same tokens")
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del eng8, engines
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_int8_train(preset="gpt2-1.3b"):
+    """SwitchBack int8 training of a GPT-2 preset at full width and depth
+    (phase train's configuration) against bf16 training from the same
+    weights on the same batches: ``_int_mm`` exact at the forward and dx
+    shapes, launch counts, finite losses within INT8_TRAIN_MARGIN of
+    bf16's, step ms of both. Returns the runs' launch counts by name."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
+    from deepspeed_tpu_torch.ops.int8_training import switchback_matmul
+    from deepspeed_tpu_torch.ops.quant_core import quantize_int8
+    base = config_for(preset)
+    L, T, C = base.n_layer, base.n_positions, base.n_embd
+    micro, gas = 8, 2
+    M = micro * T
+
+    def quantized_weight(name, K, N, g):
+        # as SwitchBack quantizes: the forward's per-column q(w) (row-major,
+        # made column-major by int8_mm), dx's per-tensor q(w^T) (a
+        # column-major view), the logits' q(wte^T)
+        if name.startswith("dx"):
+            w = torch.randn(N, K, generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            return quantize_int8(w.float().t(), None)[0]
+        if name == "logits":
+            w = torch.randn(N, K, generator=g, device="cuda",
+                            dtype=torch.bfloat16).t()
+        else:
+            w = torch.randn(K, N, generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+        return quantize_int8(w, 0)[0]
+    _int_mm_exact("int8 train", [
+        ("fwd c_attn", M, C, 3 * C), ("fwd c_fc", M, C, 4 * C),
+        ("dx c_fc", M, 4 * C, C), ("dx c_attn", M, 3 * C, C),
+        ("logits", M, C, base.padded_vocab_size)], quantized_weight)
+
+    rng = np.random.default_rng(7)
+    batches = [{"input_ids": rng.integers(0, base.vocab_size,
+                                          (micro * gas, T), dtype=np.int32)}
+               for _ in range(INT8_TRAIN_STEPS + 1)]
+    res, runs = {}, {}
+    for int8 in (False, True):
+        name = "int8" if int8 else "bf16"
+        model = GPT2LMModel(dataclasses.replace(base, int8_training=int8))
+        check((model.module.h_0.mlp.c_fc.matmul is switchback_matmul) == int8,
+              f"[int8 train] {name}: Dense products not routed as asked")
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model,
+            model_parameters=model.init(
+                torch.Generator(device="cuda").manual_seed(0)),
+            config={"train_micro_batch_size_per_gpu": micro,
+                    "gradient_accumulation_steps": gas,
+                    "gradient_clipping": 1.0, "bf16": {"enabled": True},
+                    "optimizer": {"type": "AdamW", "params": {
+                        "lr": 1e-4, "weight_decay": 0.01}}})
+        torch.cuda.empty_cache()
+        losses = [float(engine.train_batch(batches[0])["loss"])]   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _launch_counts(reset=True)
+        walls = []
+        for b in batches[1:]:   # a main path
+            t = time.perf_counter()
+            losses.append(float(engine.train_batch(b)["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        counts = _launch_counts()
+        n = INT8_TRAIN_STEPS * gas
+        check(counts["flash_attention_fwd"] == 2 * L * n
+              and counts["flash_attention_bwd_dq"] == L * n
+              and counts["flash_attention_bwd_dkv"] == L * n,
+              f"[int8 train] {name}: launches {counts}")
+        check(all(math.isfinite(x) for x in losses),
+              f"[int8 train] {name}: non-finite loss {losses}")
+        step = float(np.median(walls))
+        tok_s = micro * gas * T / step
+        mfu = model.flops_per_token() * tok_s / H100_BF16_FLOPS
+        log(f"[int8 train] {preset} {name}: {INT8_TRAIN_STEPS} steps of "
+            f"{micro} x {gas} x {T} tokens after a warm-up: step ms "
+            f"{[x * 1e3 for x in walls]!r}, median {step * 1e3!r} ms; "
+            f"{tok_s!r} tokens/s; MFU {mfu!r} (6N at 989 TFLOP/s); peak memory "
+            f"{torch.cuda.max_memory_allocated()} bytes; losses {losses!r}")
+        res[name] = (losses, step)
+        runs[f"train {name} (int8 phase)"] = counts
+        del engine, model
+        torch.cuda.empty_cache()
+    (l16, s16), (l8, s8) = res["bf16"], res["int8"]
+    rel = [abs(a - b) / b for a, b in zip(l8, l16)]
+    log(f"[int8 train] {preset}: int8 against bf16 on the same batches: "
+        f"losses {l8!r} vs {l16!r}, relative differences {rel!r} (margin "
+        f"{INT8_TRAIN_MARGIN}); step ms int8 {s8 * 1e3!r}, bf16 "
+        f"{s16 * 1e3!r}")
+    check(l8 != l16, "[int8 train] int8 losses equal bf16's bit for bit: "
+          "SwitchBack did not run")
+    check(max(rel) <= INT8_TRAIN_MARGIN,
+          "[int8 train] int8 losses outside the margin of bf16's")
+    return runs
+
+
 def phase_model(tag, cfg, params, seed, eager=()):
     """A served model at its published widths and depth: ``generate``
     through B1 and B4 (phase e2e's gates), then four paged servers over one
@@ -3346,6 +3755,7 @@ def main() -> int:
     runs = {"e2e": phase_e2e(cfg, params)}
     runs.update(phase_serve(cfg, params))
     runs.update(phase_spec(cfg, params, smi))
+    runs.update(phase_int8(cfg, params, smi))
     del params, flush   # the serving weights; training needs the room
     torch.cuda.empty_cache()
     # the main-path runs at head dims outside {64, 128}: Pythia-2.8B (80),
@@ -3356,6 +3766,7 @@ def main() -> int:
     new_d.update(gptj)
     runs.update(new_d)
     runs["train"] = phase_train()
+    runs.update(phase_int8_train())
     for preset in ("gpt2-760m", "gpt2-2.7b"):
         runs[f"train {preset}"] = new_d[f"train {preset}"] = phase_train(
             preset)

@@ -37,6 +37,11 @@ its side stream, its ``torch.cuda.CUDAGraph`` and its static output:
   (``ops.launch_counters``). A capture takes back what it counted, and each
   replay adds the captured counts again, so every count stays a count of
   kernel executions.
+* **Garbage collection.** Destroying a graph while another is being
+  captured invalidates that capture, and a cyclic garbage collection
+  during a capture may destroy an earlier runner's unreachable graph
+  (``torch.cuda.graph`` no longer collects before it captures). So a
+  capture collects first and holds the collector off until it ends.
 * **No fallback.** A capture or a replay that fails raises. The callers
   create a GraphedStep only for a CUDA device; on the CPU their steps run
   eagerly.
@@ -49,6 +54,7 @@ replays them.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -114,11 +120,16 @@ class GraphedStep:
         before = {k: f.launches for k, f in self._counters.items()}
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=self.stream):
                 reserved = torch.cuda.memory_reserved(self.stream.device)
                 out = self._fn(*self.inputs)
         finally:
+            if gc_on:
+                gc.enable()
             # the capture executed nothing: take back what it counted
             counted = {k: f.launches - before[k]
                        for k, f in self._counters.items()}

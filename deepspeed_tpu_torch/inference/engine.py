@@ -41,9 +41,16 @@ steps where JAX runs one ``while_loop``:
 read the JAX package's serving layout (a config JSON and one safetensors
 file), in both directions.
 
+Int8 weights, as in JAX: ``dtype="int8"`` stores the projection weights
+as int8 with row-group scales and runs activations in bf16;
+``quant.enabled`` does the same at the config's dtype; and
+``quant.activation.enabled`` (w8a8) quantizes with per-output-channel
+scales and runs every projection as an int8 x int8 GEMM
+(``ops/int8_gemm.py``). Weights are quantized on the device, after the
+cast to the activation dtype.
+
 Not in this slice (ROADMAP.md queue C): HF conversion and checkpoint
-loading, int8 weights, meshes (TP/EP/SP), MoE, the encoder path and request
-tracing.
+loading, meshes (TP/EP/SP), MoE, the encoder path and request tracing.
 """
 from __future__ import annotations
 
@@ -64,6 +71,9 @@ from deepspeed_tpu_torch.inference.speculation import (
 from deepspeed_tpu_torch.model_implementations.transformer import (
     InferenceTransformerConfig, causal_forward, decode_chunk, decode_step,
     init_params, prefill)
+from deepspeed_tpu_torch.module_inject.quantize import GroupQuantizer
+from deepspeed_tpu_torch.ops.int8_gemm import (int8_compute_layout,
+                                               is_quantized)
 from deepspeed_tpu_torch.ops.head_dim import warn_if_padded
 from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
 
@@ -147,12 +157,13 @@ class InferenceEngine:
         c = self.config
         if c.injection_policy is not None:
             raise NotImplementedError(f"injection_policy {_LATER}")
-        if c.torch_dtype == torch.int8 or c.quant.enabled:
-            raise NotImplementedError(f"int8 weights and w8a8 {_LATER}")
         if c.tp_size > 1 or c.seq_parallel_size > 1:
             raise NotImplementedError(
                 f"tensor/sequence-parallel meshes {_LATER}")
-        self._act_dtype = c.torch_dtype
+        # dtype="int8" means int8 weight storage with bf16 activations
+        int8 = c.torch_dtype == torch.int8
+        self._weight_quant = int8 or c.quant.enabled
+        self._act_dtype = torch.bfloat16 if int8 else c.torch_dtype
         if isinstance(model, tuple):
             self.model_config, params = model
         elif isinstance(model, InferenceTransformerConfig):
@@ -176,6 +187,16 @@ class InferenceEngine:
             raise NotImplementedError(
                 "triangular_masking=False on a causal LM (bidirectional "
                 "decoding) is not supported")
+        if c.quant.activation.enabled:
+            # w8a8 needs int8 weights: quantized here, or stored so (a
+            # serving checkpoint's)
+            if not self._weight_quant and not _has_int8(params):
+                raise ValueError(
+                    "quant.activation.enabled (w8a8 GEMMs) requires int8 "
+                    "weight storage — set dtype='int8'/quant.enabled or "
+                    "load an int8 serving checkpoint")
+            self.model_config = dataclasses.replace(self.model_config,
+                                                    int8_compute=True)
         self.params = self._place_params(params)
         tcfg = c.telemetry
         if tcfg.enabled and tcfg.trace_sample_rate > 0:
@@ -210,14 +231,30 @@ class InferenceEngine:
     # ------------------------------------------------------------ setup
 
     def _place_params(self, params):
+        """Weights on the device in the activation dtype — an int8 node's
+        leaves moved as they are, so its scales stay f32 — then, with
+        int8 storage, quantized (per output channel under w8a8), and
+        under w8a8 every int8 GEMM's weight stored column-major."""
         def place(x):
+            if is_quantized(x):
+                return {k: torch.as_tensor(v, device=self.device)
+                        for k, v in x.items()}
             if isinstance(x, dict):
                 return {k: place(v) for k, v in x.items()}
             if isinstance(x, list):
                 return [place(v) for v in x]
             x = torch.as_tensor(x, device=self.device)
             return x.to(self._act_dtype) if x.is_floating_point() else x
-        return place(params)
+        params = place(params)
+        if self._weight_quant:
+            wq = self.config.quant.weight
+            params = GroupQuantizer(
+                num_bits=wq.num_bits, group_size=wq.group_size,
+                out_mode=self.model_config.int8_compute
+            ).quantize_tree(params)
+        if self.model_config.int8_compute:
+            params = int8_compute_layout(params)
+        return params
 
     def _max_out_budget(self, batch: int) -> int:
         """KV-token budget per sequence: explicit ``max_out_tokens``, or —
@@ -850,17 +887,23 @@ def _pad_batch(input_ids, attention_mask=None):
     return ids, lengths
 
 
+def _has_int8(tree) -> bool:
+    """Whether a param tree holds an int8 node."""
+    if is_quantized(tree):
+        return True
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return isinstance(tree, (list, tuple)) and any(map(_has_int8, tree))
+
+
 def _flatten_tree(tree, prefix=""):
     """``{'layers/0/attn/wq': leaf}``: ``/``-joined dict keys and list
-    indices, the JAX package's ``flatten_with_names``."""
+    indices, the JAX package's ``flatten_with_names`` (an int8 node's
+    leaves as ``.../wq/q`` and ``.../wq/scale`` or ``.../wq/oscale``)."""
     out = {}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, dict) and set(v) == {"q", "scale"}:
-            raise NotImplementedError(
-                f"int8 weight leaves ({name}: {{q, scale}}) in a serving "
-                f"checkpoint {_LATER[:-1]}, A4b)")
         if isinstance(v, (dict, list, tuple)):
             out.update(_flatten_tree(v, name + "/"))
         else:
@@ -897,7 +940,8 @@ def load_serving_checkpoint(path: str,
                             config: Optional[DeepSpeedInferenceConfig]
                             = None, device=None) -> InferenceEngine:
     """Rebuild an :class:`InferenceEngine` from ``save_serving_checkpoint``
-    output (this package's or the JAX package's) — no conversion."""
+    output (this package's or the JAX package's) — no conversion and no
+    requantization: int8 nodes reload as stored."""
     import json
     import os
 
@@ -921,16 +965,10 @@ def load_serving_checkpoint(path: str,
             node = node.setdefault(p, {})
         node[parts[-1]] = t
 
-    def listify(node, name=""):
+    def listify(node):
         if isinstance(node, dict):
-            if set(node) == {"q", "scale"}:
-                raise NotImplementedError(
-                    f"int8 weight leaves ({name}: {{q, scale}}) in a "
-                    f"serving checkpoint {_LATER[:-1]}, A4b)")
             if node and all(k.isdigit() for k in node):
-                return [listify(node[str(i)], f"{name}/{i}")
-                        for i in range(len(node))]
-            return {k: listify(v, f"{name}/{k}".lstrip("/"))
-                    for k, v in node.items()}
+                return [listify(node[str(i)]) for i in range(len(node))]
+            return {k: listify(v) for k, v in node.items()}
         return node
     return InferenceEngine((model_cfg, listify(tree)), config, device=device)

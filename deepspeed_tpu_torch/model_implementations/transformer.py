@@ -16,7 +16,11 @@ einsum path here (over the pool gathered through the block tables, for
 the paged steps), as they take the XLA path there; so does the dense
 speculative verify ``decode_chunk``, whose attention JAX leaves to an XLA
 einsum. The large products around attention (projections, MLP, LM head)
-are ``torch`` matmuls, as the JAX package leaves them to XLA. The paged
+are ``torch`` matmuls, as the JAX package leaves them to XLA. A projection
+weight may be an int8 node (``{"q", "scale"}`` or ``{"q", "oscale"}``,
+``module_inject/quantize.py``): it is dequantized into the activation
+dtype, or, with ``int8_compute`` (w8a8), multiplied as int8 x int8 with an
+int32 accumulator (``ops/int8_gemm.py``). The paged
 functions take the slot, the chunk start and the prompt length as host
 ints where JAX traces scalars, and none of them reads a device value on
 the host.
@@ -29,8 +33,8 @@ Parameter schema (nested dict of tensors)::
       attn {wq, wk, wv [E, H, D], bq, bk, bv [H, D], wo [H, D, E], bo [E]}
       mlp  {wi [E, F], bi [F], wo [F, E], bo [E]}
 
-Not in this slice (ROADMAP.md queue C): MoE layers, int8 weight leaves,
-tensor/expert/sequence-parallel meshes and the encoder path.
+Not in this slice (ROADMAP.md queue C): MoE layers, tensor/expert/
+sequence-parallel meshes and the encoder path.
 """
 from __future__ import annotations
 
@@ -51,6 +55,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_verify_attention)
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_reference)
+from deepspeed_tpu_torch.ops.int8_gemm import (maybe_int8_einsum,
+                                               maybe_int8_matmul)
 
 NEG_INF = -1e30
 _LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
@@ -170,14 +176,6 @@ def init_params(generator: torch.Generator, cfg: InferenceTransformerConfig,
 
 
 # ---------------------------------------------------------------- math
-
-def _w(w, dtype):
-    """A weight leaf in ``dtype``; int8 ``{"q", "scale"}`` leaves are a
-    later slice."""
-    if isinstance(w, dict):
-        raise NotImplementedError(f"int8 weight leaves {_LATER}")
-    return w if w.dtype == dtype else w.to(dtype)
-
 
 def _layer_norm(x, p, eps):
     """LayerNorm, or RMSNorm when the param dict carries no bias; f32
@@ -426,10 +424,12 @@ def _paged_chunk_attention(q, cache: PagedKVCache, layer_idx: int,
 
 def _qkv(x, a, cfg, positions):
     """x [..., E] → q [..., H, D], k/v [..., KH, D] with rotary applied."""
-    dt = x.dtype
-    q = torch.einsum("...e,ehd->...hd", x, _w(a["wq"], dt)) + a["bq"]
-    k = torch.einsum("...e,ehd->...hd", x, _w(a["wk"], dt)) + a["bk"]
-    v = torch.einsum("...e,ehd->...hd", x, _w(a["wv"], dt)) + a["bv"]
+    def proj(w):
+        return maybe_int8_einsum("...e,ehd->...hd", x, w, x.dtype,
+                                 cfg.int8_compute, 1, 2)
+    q = proj(a["wq"]) + a["bq"]
+    k = proj(a["wk"]) + a["bk"]
+    v = proj(a["wv"]) + a["bv"]
     if cfg.positional == "rotary":
         q = apply_rotary(q, positions, cfg.rotary_dim, cfg.rotary_base,
                          cfg.rotary_interleaved)
@@ -439,16 +439,24 @@ def _qkv(x, a, cfg, positions):
 
 
 def _mlp(x, m, cfg):
-    up = x @ _w(m["wi"], x.dtype) + m["bi"]
+    up = maybe_int8_matmul(x, m["wi"], x.dtype, cfg.int8_compute) + m["bi"]
     if "wg" in m:
         # gated MLP (LLaMA SwiGLU): down(act(gate(x)) * up(x))
-        g = x @ _w(m["wg"], x.dtype)
+        g = maybe_int8_matmul(x, m["wg"], x.dtype, cfg.int8_compute)
         if "bg" in m:
             g = g + m["bg"]
         h = _act(g.float(), cfg.activation) * up.float()
     else:
         h = _act(up.float(), cfg.activation)
-    return h.to(x.dtype) @ _w(m["wo"], x.dtype) + m["bo"]
+    return maybe_int8_matmul(h.to(x.dtype), m["wo"], x.dtype,
+                             cfg.int8_compute) + m["bo"]
+
+
+def _attn_out(subscripts, attn, a, dtype, cfg):
+    """The attention output projection ``[..., H, D] x wo [H, D, E]``,
+    plus its bias."""
+    return maybe_int8_einsum(subscripts, attn, a["wo"], dtype,
+                             cfg.int8_compute, 2, 1) + a["bo"]
 
 
 def _ffn(x, layer, cfg):
@@ -495,8 +503,7 @@ def _block_seq(x, layer, cfg, positions, lengths, cache, layer_idx,
     attn = _prefill_attention(q, k, v, cfg, causal=causal, key_mask=key_mask,
                               window=_window(cfg, layer_idx),
                               reference=reference)
-    attn_out = torch.einsum("...hd,hde->...e", attn,
-                            _w(a["wo"], x.dtype)) + a["bo"]
+    attn_out = _attn_out("...hd,hde->...e", attn, a, x.dtype, cfg)
     return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
 
 
@@ -509,8 +516,7 @@ def _block_decode(x, layer, cfg, cache, layer_idx, live):
     cache = append_token(cache, layer_idx, k, v)
     attn = _decode_attention(q, cache.k[layer_idx], cache.v[layer_idx],
                              live, cfg, window=_window(cfg, layer_idx))
-    attn_out = torch.einsum("bhd,hde->be", attn,
-                            _w(a["wo"], x.dtype)) + a["bo"]
+    attn_out = _attn_out("bhd,hde->be", attn, a, x.dtype, cfg)
     return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
 
 
@@ -528,8 +534,7 @@ def _block_chunk(x, layer, cfg, cache, layer_idx):
     attn = _chunk_attention(q, cache.k[layer_idx], cache.v[layer_idx],
                             cache.lengths, cfg,
                             window=_window(cfg, layer_idx))
-    attn_out = torch.einsum("...hd,hde->...e", attn,
-                            _w(a["wo"], x.dtype)) + a["bo"]
+    attn_out = _attn_out("...hd,hde->...e", attn, a, x.dtype, cfg)
     return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
 
 
@@ -636,8 +641,7 @@ def _block_decode_paged(x, layer, cfg, cache: PagedKVCache, layer_idx,
     cache = paged_append_token(cache, layer_idx, k, v)
     attn = _paged_decode_attention(q, cache, layer_idx, cfg, live,
                                    window=_window(cfg, layer_idx))
-    attn_out = torch.einsum("bhd,hde->be", attn,
-                            _w(a["wo"], x.dtype)) + a["bo"]
+    attn_out = _attn_out("bhd,hde->be", attn, a, x.dtype, cfg)
     return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
 
 
@@ -668,8 +672,7 @@ def _block_chunk_paged(x, layer, cfg, cache: PagedKVCache, layer_idx,
     cache = paged_write_chunk(cache, layer_idx, k[0], v[0], slot, start)
     attn = _paged_chunk_attention(q, cache, layer_idx, cfg, slot, start,
                                   window=_window(cfg, layer_idx))
-    attn_out = torch.einsum("...hd,hde->...e", attn,
-                            _w(a["wo"], x.dtype)) + a["bo"]
+    attn_out = _attn_out("...hd,hde->...e", attn, a, x.dtype, cfg)
     return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
 
 
@@ -709,8 +712,7 @@ def _block_verify_paged(x, layer, cfg, cache: PagedKVCache, layer_idx):
     cache = paged_write_tokens(cache, layer_idx, k, v)
     attn = _paged_verify_attention(q, cache, layer_idx, cfg,
                                    window=_window(cfg, layer_idx))
-    attn_out = torch.einsum("...hd,hde->...e", attn,
-                            _w(a["wo"], x.dtype)) + a["bo"]
+    attn_out = _attn_out("...hd,hde->...e", attn, a, x.dtype, cfg)
     return _post_attn(x, ln1_out, attn_out, layer, cfg), cache
 
 

@@ -21,7 +21,10 @@ Numerics follow flax: LayerNorm with ``epsilon=1e-6`` and fast variance
 (``E[x^2] - E[x]^2``) in f32, output in the compute dtype; Dense layers
 round the product and then the bias add in the compute dtype; tanh GELU;
 logits ``x @ wte.T`` in the compute dtype, the loss in f32 over all padded
-vocabulary columns with the labels masked to ``[0, vocab_size)``.
+vocabulary columns with the labels masked to ``[0, vocab_size)``. With
+``int8_training`` the Dense products and the logits run through SwitchBack
+(``ops/int8_training.py``), as the JAX model routes its Dense layers and
+``lm_logits``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.attention import causal_attention
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention_reference
+from deepspeed_tpu_torch.ops.int8_training import lm_logits, maybe_switchback
 
 Params = Dict[str, torch.Tensor]
 LN_EPS = 1e-6   # flax nn.LayerNorm's default
@@ -55,11 +59,13 @@ class GPT2Config:
     use_flash_attention: bool = True
     # pad the vocabulary to a multiple of 128, as the JAX model does
     vocab_pad_multiple: int = 128
+    # SwitchBack (ops/int8_training.py): the four projections of a block
+    # and the logits run int8 forward and dx products
+    int8_training: bool = False
     # options of the JAX model that this port refuses (queue C)
     sequence_parallel: bool = False
     offload_params: bool = False
     num_experts: int = 0
-    int8_training: bool = False
 
     @property
     def padded_vocab_size(self) -> int:
@@ -110,17 +116,20 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: kernel ``[in, out]``; inputs and weights in
-    ``dtype``, the product rounded before the bias add."""
+    ``dtype``, the product (SwitchBack's with ``int8``) rounded before the
+    bias add."""
 
-    def __init__(self, n_in: int, n_out: int, dtype, device=None):
+    def __init__(self, n_in: int, n_out: int, dtype, device=None,
+                 int8: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.matmul = maybe_switchback(int8)
         self.kernel = nn.Parameter(torch.empty(n_in, n_out, device=device))
         self.bias = nn.Parameter(torch.zeros(n_out, device=device))
 
     def forward(self, x):
         d = self.dtype
-        return x.to(d) @ self.kernel.to(d) + self.bias.to(d)
+        return self.matmul(x.to(d), self.kernel.to(d)) + self.bias.to(d)
 
 
 class CausalSelfAttention(nn.Module):
@@ -128,8 +137,8 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         C = cfg.n_embd
-        self.c_attn = Dense(C, 3 * C, cfg.dtype, device)
-        self.c_proj = Dense(C, C, cfg.dtype, device)
+        self.c_attn = Dense(C, 3 * C, cfg.dtype, device, cfg.int8_training)
+        self.c_proj = Dense(C, C, cfg.dtype, device, cfg.int8_training)
 
     def forward(self, x, reference_attention: bool = False):
         cfg = self.cfg
@@ -159,8 +168,8 @@ class MLP(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
         C = cfg.n_embd
-        self.c_fc = Dense(C, 4 * C, cfg.dtype, device)
-        self.c_proj = Dense(4 * C, C, cfg.dtype, device)
+        self.c_fc = Dense(C, 4 * C, cfg.dtype, device, cfg.int8_training)
+        self.c_proj = Dense(4 * C, C, cfg.dtype, device, cfg.int8_training)
 
     def forward(self, x):
         return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
@@ -224,7 +233,7 @@ class GPT2(nn.Module):
             else:
                 x = _run_block(block, bp, x, reference_attention)
         x = layer_norm(x, params["ln_f.scale"], params["ln_f.bias"], cfg.dtype)
-        return x @ wte.to(cfg.dtype).T
+        return lm_logits(x, wte.to(cfg.dtype), cfg.int8_training)
 
 
 class GPT2LMModel:
@@ -238,7 +247,6 @@ class GPT2LMModel:
     def __init__(self, config: GPT2Config, device="meta"):
         for bad, what in ((config.dropout > 0.0, "dropout > 0"),
                           (config.num_experts > 0, "MoE layers"),
-                          (config.int8_training, "int8_training"),
                           (config.sequence_parallel, "sequence_parallel"),
                           (config.offload_params, "offload_params")):
             if bad:

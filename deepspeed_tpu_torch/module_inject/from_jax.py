@@ -26,9 +26,13 @@ import torch
 
 def params_from_numpy(tree: Any, device=None, dtype=None):
     """Nested dict/list of numpy arrays → the same structure of tensors on
-    ``device``; floating leaves are cast to ``dtype`` when given. bfloat16
-    arrays (``ml_dtypes``) go through float32, which holds them exactly."""
+    ``device``; floating leaves are cast to ``dtype`` when given, except
+    an int8 node's scales (``{"q", "scale"|"oscale"}``), which stay f32 as
+    in JAX. bfloat16 arrays (``ml_dtypes``) go through float32, which
+    holds them exactly."""
     if isinstance(tree, dict):
+        if "q" in tree:
+            dtype = None
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

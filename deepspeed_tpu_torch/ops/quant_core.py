@@ -1,8 +1,10 @@
 """Per-axis symmetric int8 quantization — the port's copy of
 ``deepspeed_tpu/ops/quant_core.py`` (``quantize_int8`` :35,
-``dequantize_int8`` :47), the part the int8 paged KV pool needs: its
-writers quantize each written (position, head) row along the head dim, and
-its gathers and the paged kernels' plain versions dequantize.
+``dequantize_int8`` :47). The int8 paged KV pool's writers quantize each
+written (position, head) row along the head dim, and its gathers and the
+paged kernels' plain versions dequantize; SwitchBack int8 training
+(``ops/int8_training.py``) quantizes activations per token and weights per
+column or per tensor.
 
 * ``scale = amax / 127`` along ``axis`` (or one scale for the whole tensor
   when ``axis=None``); an all-zero slice gets scale 1.0, so its dequant is
@@ -34,7 +36,8 @@ def quantize_int8(x: torch.Tensor, axis):
     return q.to(torch.int8), s
 
 
-def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``q * scale`` in f32 — the inverse of :func:`quantize_int8` up to
-    the ``scale / 2`` rounding bound."""
-    return q.float() * scale
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """``q * scale`` in f32, cast to ``dtype`` — the inverse of
+    :func:`quantize_int8` up to the ``scale / 2`` rounding bound."""
+    return (q.float() * scale).to(dtype)

@@ -20,8 +20,11 @@ nothing back to the host, one capture for repeated calls of one shape, and
 the same logits bit for bit from one state, replayed and eager.
 Launch counts stay counts of kernel executions: a capture takes back what
 it counted and each replay adds the captured launches. A capture that
-fails raises: nothing falls back to the eager path.
+fails raises: nothing falls back to the eager path; a capture runs with the
+Python garbage collector held off.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -220,3 +223,22 @@ def test_a_capture_that_syncs_raises(cuda_device):
         g()
     assert g.graph is None and g.replays == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_the_collector_is_held_off_during_a_capture(cuda_device):
+    """Destroying a graph while another is captured invalidates that
+    capture, and a cyclic collection during a capture may destroy an
+    earlier runner's unreachable graph: the runner collects first and
+    captures with the collector off, then turns it back on."""
+    seen = []
+
+    def step(t):
+        seen.append(gc.isenabled())
+        return t + 1
+
+    g = GraphedStep("gc", step, (torch.zeros(4, device=cuda_device),),
+                    lambda: ())
+    g()
+    assert g().sum().item() == 4.0 and g.captures == 1
+    assert seen == [True, False] and gc.isenabled()

@@ -146,7 +146,7 @@ def test_params_round_trip(jax_params):
 
 
 def test_queue_c_model_options_raise():
-    for kw in ({"dropout": 0.1}, {"num_experts": 4}, {"int8_training": True},
+    for kw in ({"dropout": 0.1}, {"num_experts": 4},
                {"sequence_parallel": True}, {"offload_params": True}):
         with pytest.raises(NotImplementedError, match="queue C"):
             port_gpt2.GPT2LMModel(port_gpt2.GPT2Config(**TINY, **kw))

@@ -14,7 +14,9 @@ port against the JAX package, on the CPU.
 * The port's ``.safetensors`` files read back with the ``safetensors``
   package (bf16 included) and the package's files with the port's reader.
 * ``save_16bit_model`` writes JAX's names, shapes and dtypes.
-* The refusals name their queue: LLaMA (A5), MoE (A8), int8 leaves (A4).
+* The refusals name their queue: LLaMA (A5), MoE (A8). Int8 leaves
+  (``{"q", "scale"}`` nodes) are no longer refused: they are written and
+  read as JAX's layout names them (``.../wi/q``, ``.../wi/scale``).
 """
 import json
 import os
@@ -177,21 +179,31 @@ def test_bf16_round_trip_is_bit_identical(flax_params, tmp_path):
 
 
 def test_int8_leaves_refused_naming_a4(flax_params, tmp_path):
+    """Int8 leaves, refused before they were ported, now round-trip: the
+    port writes a ``{"q", "scale"}`` node as two tensors under JAX's names
+    and reads a JAX-layout file's node back as stored (int8, f32)."""
     eng = _port_engine(_port_converted(flax_params))
-    eng.params["layers"][0]["mlp"]["wi"] = {
-        "q": torch.zeros(64, 256, dtype=torch.int8),
-        "scale": torch.ones(256)}
-    with pytest.raises(NotImplementedError, match="A4"):
-        save_serving_checkpoint(eng, str(tmp_path / "a"))
+    node = {"q": torch.arange(64 * 256, dtype=torch.int32).remainder(
+        255).sub(127).to(torch.int8).reshape(64, 256),
+        "scale": torch.full((64, 1), 0.01)}
+    eng.params["layers"][0]["mlp"]["wi"] = node
+    save_serving_checkpoint(eng, str(tmp_path / "a"))
+    flat = load_file(str(tmp_path / "a" / "serving.safetensors"))
+    assert "layers/0/mlp/wi" not in flat
+    assert torch.equal(flat["layers/0/mlp/wi/q"], node["q"])
+    assert torch.equal(flat["layers/0/mlp/wi/scale"], node["scale"])
     jeng = _jax_engine(_jax_converted(flax_params))
     jax_save_serving(jeng, str(tmp_path / "b"))
     flat = load_file(str(tmp_path / "b" / "serving.safetensors"))
     w = flat.pop("layers/0/mlp/wi")
     flat["layers/0/mlp/wi/q"] = w.to(torch.int8)
-    flat["layers/0/mlp/wi/scale"] = torch.ones(w.shape[-1])
+    flat["layers/0/mlp/wi/scale"] = torch.ones(w.shape[0], 1)
     save_file(flat, str(tmp_path / "b" / "serving.safetensors"))
-    with pytest.raises(NotImplementedError, match="A4"):
-        load_serving_checkpoint(str(tmp_path / "b"), device="cpu")
+    back = load_serving_checkpoint(str(tmp_path / "b"), device="cpu")
+    wi = back.params["layers"][0]["mlp"]["wi"]
+    assert set(wi) == {"q", "scale"}
+    assert wi["q"].dtype == torch.int8 and wi["scale"].dtype == torch.float32
+    assert torch.equal(wi["q"], w.to(torch.int8))
 
 
 SAMPLES = {
