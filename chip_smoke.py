@@ -169,6 +169,23 @@ kernel's row.
    one shared LayerNorm, gelu_new, an untied head with a bias; random
    weights, 6,050,882,784 parameters): phase pythia's ``generate`` and
    four servers, every serving kernel on its 256-wide instantiation.
+9d. hf — an HF checkpoint of the Mistral-7B-v0.2 layout (HF
+   mistralai/Mistral-7B-v0.2 config.json: 32 layers, 4096 wide, 32 heads
+   of 128 over 8 KV heads, FFN 14336, vocab 32000, rope_theta 1e6, no
+   sliding window, untied head; the repo's llama-7b-gqa widths; random
+   weights from a seed, 7,241,732,096 parameters) served through the
+   policy table: (a) its HF-named bf16 state dict made on the card, in a
+   ``CheckpointModelView`` with its config, converted by
+   ``init_inference(view)`` (``LlamaPolicy``, on the card; the config
+   and every leaf's shape gated), the state dict freed, then phase
+   pythia's ``generate`` (over 2048 tokens) and its fp-pool servers
+   (prefix caching with 256-token chunks: B6, B5; prompt lookup: B7);
+   (b) the layout cut to 2 layers for time, written by the port's writers
+   as sharded safetensors (>= 2 shards and an index) and as
+   ``pytorch_model.bin`` under a temporary dir of ``build/`` (removed at
+   the end): ``init_inference(path)`` gives the in-memory tree bit for
+   bit and its 8 x 16 greedy tokens; the load seconds and GB/s printed
+   with the card's name and power limit.
 10. train — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
    → ``train_batch`` on ``GPT2LMModel(config_for("gpt2-1.3b"))`` at full
    width (24 layers, n_embd 2048, 16 heads of 128, T=1024; random weights
@@ -227,8 +244,9 @@ replay adds the launches its capture recorded to each wrapper's count, so
 the launch counts stay counts of kernel executions.
 
 The kernel launch counts are set to 0 just before each main-path run (the
-e2e generate, each server, phase int8's ``generate`` calls, servers and
-training runs, the timed training steps, the checkpoint
+e2e generate, each server, phase hf's ``generate`` calls, phase int8's
+``generate`` calls, servers and training runs, the timed training steps,
+the checkpoint
 phase's training runs and its ``generate``, and the sparse and layer_norm
 runs) and read just after. Every attention kernel, int8 ones
 included, must have launched on a main-path run at head dim 80, 96 or
@@ -2412,17 +2430,23 @@ def make_params(cfg, dev="cuda"):
     return params
 
 
-def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
+def phase_e2e(cfg, params, dev="cuda", tag="e2e", engine=None, n_ctx=None):
+    """``generate`` of 8 seeded prompts of ``n_ctx // 16`` to ``n_ctx *
+    7 // 8`` tokens (``n_ctx`` defaults to the model's ``n_positions``)
+    and its gates, over ``engine`` (one whose ``max_out_tokens`` is
+    ``n_ctx``) or a new engine over ``(cfg, params)``."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.model_implementations.transformer import (
         causal_forward, decode_step, prefill)
     from deepspeed_tpu_torch.ops.decode_attention import decode_attention
     from deepspeed_tpu_torch.ops.flash_attention import flash_attention_fwd
-    engine = deepspeed_tpu_torch.init_inference(
-        (cfg, params), dtype=str(cfg.dtype).replace("torch.", ""), device=dev,
-        max_out_tokens=cfg.n_positions)
+    n_ctx = n_ctx or cfg.n_positions
+    if engine is None:
+        engine = deepspeed_tpu_torch.init_inference(
+            (cfg, params), dtype=str(cfg.dtype).replace("torch.", ""),
+            device=dev, max_out_tokens=n_ctx)
     rng = np.random.default_rng(0)
-    lens = rng.integers(cfg.n_positions // 16, cfg.n_positions * 7 // 8 + 5, 8)
+    lens = rng.integers(n_ctx // 16, n_ctx * 7 // 8 + 5, 8)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     new = 32
     # warm-up: cuBLAS, the allocator, and the decode step's graph (warmed
@@ -2483,10 +2507,10 @@ def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
     # per-step host time: enqueue (no sync) vs device time of one step,
     # eager and replayed, over the kept cache
     with torch.inference_mode():
-        ids = np.zeros((8, cfg.n_positions), np.int64)
+        ids = np.zeros((8, n_ctx), np.int64)
         for b, p in enumerate(prompts):
             ids[b, :len(p)] = p
-        cache = engine._make_cache(8, cfg.n_positions)
+        cache = engine._make_cache(8, n_ctx)
         lg, cache = prefill(engine.params, engine.model_config,
                             torch.as_tensor(ids, device=dev),
                             torch.as_tensor(lens, device=dev), cache)
@@ -2520,13 +2544,13 @@ def phase_e2e(cfg, params, dev="cuda", tag="e2e"):
     rows = [int(np.argmin(lens)), int(np.argmax(lens))]
     k_steps = 4
     with torch.inference_mode():
-        p_ids = np.zeros((2, cfg.n_positions), np.int64)
-        f_ids = np.zeros((2, cfg.n_positions), np.int64)
+        p_ids = np.zeros((2, n_ctx), np.int64)
+        f_ids = np.zeros((2, n_ctx), np.int64)
         for i, r in enumerate(rows):
             p_ids[i, :lens[r]] = prompts[r]
             f_ids[i, :lens[r] + k_steps] = out[r][:lens[r] + k_steps]
         plen = torch.as_tensor(lens[rows], device=dev)
-        cache = engine._make_cache(2, cfg.n_positions)
+        cache = engine._make_cache(2, n_ctx)
         lg, cache = prefill(engine.params, engine.model_config,
                             torch.as_tensor(p_ids, device=dev), plen,
                             cache)
@@ -3597,20 +3621,25 @@ def phase_int8_train(preset="gpt2-1.3b"):
     return runs
 
 
-def phase_model(tag, cfg, params, seed, eager=()):
+def phase_model(tag, cfg, params, seed, eager=(), pools=("fp", "int8"),
+                engine=None, n_ctx=None):
     """A served model at its published widths and depth: ``generate``
-    through B1 and B4 (phase e2e's gates), then four paged servers over one
-    engine, fp and int8 pools: prefix caching with 256-token chunks
-    (B6/B6i and B5/B5i) and prompt-lookup speculation K=4 (B1 and B7/B7i; a
-    speculative server verifies every round, so its decode runs through
-    B7). Each server's launch counts are set to 0 just before it and read
-    just after; each is held to the served-token oracle. The servers named
-    in ``eager`` are run again with their step graphs off and must serve
-    the same tokens. Returns the runs' launch counts by name."""
+    through B1 and B4 (phase e2e's gates, over ``n_ctx`` tokens), then two
+    paged servers a pool of ``pools`` (fp, int8) over one engine (``engine``
+    or a new one over ``(cfg, params)``): prefix caching with 256-token
+    chunks (B6/B6i and B5/B5i) and prompt-lookup speculation K=4 (B1 and
+    B7/B7i; a speculative server verifies every round, so its decode runs
+    through B7). Each server's launch counts are set to 0 just before it
+    and read just after; each is held to the served-token oracle. The
+    servers named in ``eager`` are run again with their step graphs off
+    and must serve the same tokens. Returns the runs' launch counts by
+    name."""
     import deepspeed_tpu_torch
-    runs = {f"{tag} e2e": phase_e2e(cfg, params, tag=tag)}
-    engine = deepspeed_tpu_torch.init_inference((cfg, params),
-                                                dtype="bfloat16")
+    runs = {f"{tag} e2e": phase_e2e(cfg, params, tag=tag, engine=engine,
+                                    n_ctx=n_ctx)}
+    if engine is None:
+        engine = deepspeed_tpu_torch.init_inference((cfg, params),
+                                                    dtype="bfloat16")
     L, V, new = cfg.n_layer, cfg.vocab_size, 32
     rng = np.random.default_rng(seed)
     engine.generate([[1, 2, 3]], max_new_tokens=2)   # warm-up
@@ -3628,7 +3657,7 @@ def phase_model(tag, cfg, params, seed, eager=()):
                 srv.step()
         return 0
 
-    for pool in ("fp", "int8"):
+    for pool in pools:
         sfx, tol = (("", E2E_MAX_TOL) if pool == "fp"
                     else ("_int8", INT8_E2E_MAX_TOL))
         knobs = {} if pool == "fp" else {"kv_cache_dtype": "int8"}
@@ -3717,6 +3746,233 @@ def phase_gptj(eager=()):
     return runs
 
 
+# HF mistralai/Mistral-7B-v0.2 config.json (the repo's llama-7b-gqa widths,
+# JAX models/llama.py:111, with Mistral's context and rope_theta)
+MISTRAL_7B = {
+    "architectures": ["MistralForCausalLM"], "model_type": "mistral",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "hidden_act": "silu",
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0, "sliding_window": None,
+    "tie_word_embeddings": False, "bos_token_id": 1, "eos_token_id": 2,
+    "torch_dtype": "bfloat16"}
+MISTRAL_PARAMS = 7241732096   # Mistral-7B's count (MistralForCausalLM)
+HF_CTX = 2048                 # phase hf's generate and dense cache length
+HF_FILE_LAYERS = 2            # the file route's depth (a cut for time)
+
+
+def mistral_state_dict(hf, seed, dev="cuda"):
+    """HF-named Mistral weights from a seeded generator on the card, bf16:
+    each projection ``[out, in]`` N(0, 1) / sqrt(in) (``init_params``'s
+    scheme), the RMSNorm weights 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E, F, V = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    H, KH = hf["num_attention_heads"], hf["num_key_value_heads"]
+    D = E // H
+
+    def dense(out, inp):
+        w = torch.randn((out, inp), generator=g, device=dev,
+                        dtype=torch.float32)
+        return (w / math.sqrt(inp)).to(torch.bfloat16)
+
+    def ones():
+        return torch.ones(E, dtype=torch.bfloat16, device=dev)
+    sd = {"model.embed_tokens.weight": dense(V, E), "model.norm.weight":
+          ones(), "lm_head.weight": dense(V, E)}
+    for i in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": ones(),
+            p + "post_attention_layernorm.weight": ones(),
+            p + "self_attn.q_proj.weight": dense(H * D, E),
+            p + "self_attn.k_proj.weight": dense(KH * D, E),
+            p + "self_attn.v_proj.weight": dense(KH * D, E),
+            p + "self_attn.o_proj.weight": dense(E, H * D),
+            p + "mlp.gate_proj.weight": dense(F, E),
+            p + "mlp.up_proj.weight": dense(F, E),
+            p + "mlp.down_proj.weight": dense(E, F)})
+    torch.cuda.synchronize()
+    return sd
+
+
+def _llama_tree_shapes(cfg):
+    """The shapes of a converted LLaMA-layout tree of ``cfg``: what
+    ``InferenceTransformerConfig`` prescribes (GQA k/v of ``kv_heads``,
+    zero biases where the checkpoint has none)."""
+    E, H, KH, D, F = (cfg.n_embd, cfg.n_head, cfg.kv_heads, cfg.head_dim,
+                      cfg.ffn)
+    layer = {"ln1": {"scale": (E,)}, "ln2": {"scale": (E,)},
+             "attn": {"wq": (E, H, D), "wk": (E, KH, D), "wv": (E, KH, D),
+                      "bq": (H, D), "bk": (KH, D), "bv": (KH, D),
+                      "wo": (H, D, E), "bo": (E,)},
+             "mlp": {"wg": (E, F), "bg": (F,), "wi": (E, F), "bi": (F,),
+                     "wo": (F, E), "bo": (E,)}}
+    return {"wte": (cfg.vocab_size, E), "ln_f": {"scale": (E,)},
+            "lm_head": (E, cfg.vocab_size),
+            "layers": [layer] * cfg.n_layer}
+
+
+def _shape_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _shape_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shape_tree(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def _same_tree(a, b, path=""):
+    """``a`` and ``b`` hold the same keys and bit-identical leaves."""
+    if isinstance(b, dict):
+        check(isinstance(a, dict) and set(a) == set(b),
+              f"tree keys differ at {path or 'the root'}")
+        for k in b:
+            _same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(b, list):
+        check(isinstance(a, list) and len(a) == len(b),
+              f"tree lists differ at {path}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{path}.{i}")
+    else:
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and torch.equal(a, b), f"leaf {path} differs")
+
+
+def phase_hf(smi):
+    """An HF checkpoint of the Mistral-7B-v0.2 layout served through the
+    policy table. (a) At full width and depth: an HF-named bf16 state dict
+    made from a seed on the card, wrapped with its config in a
+    ``CheckpointModelView`` and converted by ``init_inference(view)``
+    (``LlamaPolicy``, on the card); the state dict freed, phase e2e's
+    ``generate`` and gates over ``HF_CTX`` tokens (B1, B4), then an fp-pool
+    server with prefix caching and 256-token chunks (B6, B5) and a
+    prompt-lookup server (B7), each with its launch counts and the
+    served-token oracle. (b) At ``HF_FILE_LAYERS`` layers: the same layout
+    written with the port's writers as sharded safetensors and as
+    ``pytorch_model.bin`` under a temporary dir of ``build/`` (removed at
+    the end), each loaded by ``init_inference(path)`` into a tree bit for
+    bit the in-memory route's that serves its greedy tokens. Returns the
+    runs' launch counts by name."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        InferenceTransformerConfig
+    from deepspeed_tpu_torch.module_inject.policies import convert_hf_model
+    from deepspeed_tpu_torch.module_inject.state_dict_loader import \
+        CheckpointModelView
+    from deepspeed_tpu_torch.utils.safetensors_io import save_sharded
+
+    # (a) the in-memory route at full width and depth
+    t0 = time.perf_counter()
+    sd = mistral_state_dict(MISTRAL_7B, seed=0)
+    n_params = sum(t.numel() for t in sd.values())
+    sd_bytes = sum(t.nbytes for t in sd.values())
+    log(f"[hf] Mistral-7B-v0.2 layout state dict on the card: {n_params} "
+        f"parameters, {sd_bytes} bytes in {time.perf_counter() - t0!r} s")
+    check(n_params == MISTRAL_PARAMS,
+          f"mistral-7b has {n_params} parameters, not {MISTRAL_PARAMS}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(
+        CheckpointModelView(sd, SimpleNamespace(**MISTRAL_7B)),
+        dtype="bf16", max_out_tokens=HF_CTX)
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = engine.model_config
+    log(f"[hf] init_inference(CheckpointModelView) converted through "
+        f"LlamaPolicy on the card in {t_conv!r} s (peak memory {peak} "
+        f"bytes; {smi})")
+    expect = InferenceTransformerConfig(
+        vocab_size=32000, n_positions=32768, n_embd=4096, n_layer=32,
+        n_head=32, n_kv_head=8, intermediate_size=14336,
+        positional="rotary", rotary_dim=128, rotary_base=1e6,
+        activation="silu", norm_type="rmsnorm", gated_mlp=True,
+        layer_norm_eps=1e-5, tied_lm_head=False, dtype=torch.bfloat16)
+    check(cfg == expect, f"converted config {cfg} is not {expect}")
+    check(_shape_tree(engine.params) == _llama_tree_shapes(cfg),
+          "the converted tree's shapes are not the config's")
+    check(all(t.is_cuda and t.dtype == torch.bfloat16
+              for t in _leaves(engine.params)),
+          "a converted leaf is off the card or not bf16")
+    runs = phase_model("hf", cfg, engine.params, 19, pools=("fp",),
+                       engine=engine, n_ctx=HF_CTX)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the file route at HF_FILE_LAYERS layers
+    hf2 = {**MISTRAL_7B, "num_hidden_layers": HF_FILE_LAYERS}
+    sd2 = mistral_state_dict(hf2, seed=1)
+    ref_cfg, ref = convert_hf_model(
+        CheckpointModelView(sd2, SimpleNamespace(**hf2)), torch.bfloat16)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in rng.integers(32, 400, 8)]
+    mem = deepspeed_tpu_torch.init_inference((ref_cfg, ref), dtype="bf16",
+                                             max_out_tokens=512)
+    _launch_counts(reset=True)
+    want = mem.generate(prompts, max_new_tokens=16)
+    runs["hf file in-memory"] = _launch_counts()
+    del mem
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="hf_smoke_", dir=root)
+    try:
+        host = {k: v.cpu() for k, v in sd2.items()}
+        del sd2
+        dirs = {"sharded safetensors": os.path.join(tmp, "safetensors"),
+                "pytorch_model.bin": os.path.join(tmp, "bin")}
+        t0 = time.perf_counter()
+        os.makedirs(dirs["sharded safetensors"])
+        files = save_sharded(host, dirs["sharded safetensors"], 512 * 2**20)
+        os.makedirs(dirs["pytorch_model.bin"])
+        torch.save(host, os.path.join(dirs["pytorch_model.bin"],
+                                      "pytorch_model.bin"))
+        for d in dirs.values():
+            with open(os.path.join(d, "config.json"), "w") as f:
+                json.dump(hf2, f)
+        log(f"[hf] wrote {len(files)} safetensors shards and an index, and "
+            f"pytorch_model.bin, in {time.perf_counter() - t0!r} s")
+        check(len(files) >= 2, f"{len(files)} shard files, not >= 2")
+        del host
+        for layout, d in dirs.items():
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = deepspeed_tpu_torch.init_inference(d, dtype="bf16",
+                                                     max_out_tokens=512)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            check(eng.model_config == ref_cfg,
+                  f"{layout}: config {eng.model_config} != {ref_cfg}")
+            _same_tree(eng.params, ref)
+            _launch_counts(reset=True)
+            out = eng.generate(prompts, max_new_tokens=16)
+            counts = runs[f"hf file {layout}"] = _launch_counts()
+            check(out == want, f"{layout}: generate's tokens differ from "
+                  f"the in-memory route's")
+            check(counts["flash_attention_fwd"] > 0
+                  and counts["decode_attention"] > 0,
+                  f"{layout}: generate launched {counts}")
+            log(f"[hf] init_inference({layout} dir, {HF_FILE_LAYERS} "
+                f"layers): {nbytes} bytes loaded and converted in "
+                f"{t_load!r} s = {nbytes / t_load / 1e9!r} GB/s (page cache "
+                f"warm: written just before); tree bit for bit the "
+                f"in-memory route's; 8 x 16 greedy tokens equal; {smi}")
+            del eng
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3765,6 +4021,9 @@ def main() -> int:
     gptj = phase_gptj()
     new_d.update(gptj)
     runs.update(new_d)
+    t_hf = time.perf_counter()
+    runs.update(phase_hf(smi))
+    t_hf = time.perf_counter() - t_hf
     runs["train"] = phase_train()
     runs.update(phase_int8_train())
     for preset in ("gpt2-760m", "gpt2-2.7b"):
@@ -3859,7 +4118,7 @@ def main() -> int:
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
     log(f"[wall] chip_smoke.py {time.perf_counter() - t_start!r} s, of "
-        f"which phase checkpoint {t_ckpt!r} s")
+        f"which phase checkpoint {t_ckpt!r} s, phase hf {t_hf!r} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,13 @@ Ported so far: one-shot inference (:func:`init_inference` →
 ``drain``), single-device training (:func:`initialize` →
 ``DeepSpeedEngine.train_batch``, with ``models.gpt2``) with verified
 checkpoints (``save_checkpoint`` / ``load_checkpoint``, the
-``checkpoint`` toolkit), and the bridge from a trained GPT-2 to the server
+``checkpoint`` toolkit), the bridge from a trained GPT-2 to the server
 (``module_inject.convert_trained_model``, ``inference.engine.
-save_serving_checkpoint`` / ``load_serving_checkpoint``). Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+save_serving_checkpoint`` / ``load_serving_checkpoint``), and HF models
+and checkpoint directories of the policy table's eighteen architectures
+served through ``init_inference`` (``module_inject/policies.py``,
+``state_dict_loader.py``, ``megatron_shards.py``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 from deepspeed_tpu_torch.utils.logging import logger  # noqa: F401
 
@@ -45,22 +48,62 @@ def init_inference(model=None, config=None, **kwargs):
     """Build an :class:`~deepspeed_tpu_torch.inference.InferenceEngine`
     (counterpart of ``deepspeed_tpu.init_inference``).
 
-    ``model`` is an ``(InferenceTransformerConfig, params)`` pair or a bare
-    ``InferenceTransformerConfig`` (random weights). ``config`` is a
-    ``DeepSpeedInferenceConfig`` or its dict, merged with the keyword
-    arguments; ``device`` (default ``"cuda"``) is taken from those."""
+    ``model`` is an ``(InferenceTransformerConfig, params)`` pair, a bare
+    ``InferenceTransformerConfig`` (random weights), an HF model (a live
+    ``transformers`` model or a
+    ``module_inject.state_dict_loader.CheckpointModelView``), or the path
+    of an HF checkpoint directory, whose files are read and converted on
+    the engine's device with no model object (safetensors, sharded,
+    ``.bin`` or Megatron ``mp_rank_*``); ``config.checkpoint`` names such
+    a directory too (a string, a one-item list or a dict, under
+    ``config.base_dir``). ``config`` is a ``DeepSpeedInferenceConfig`` or
+    its dict, merged with the keyword arguments; ``device`` (default
+    ``"cuda"``) is taken from those."""
+    import os
+
+    import torch
+
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
-    from deepspeed_tpu_torch.inference.engine import InferenceEngine
-    device = kwargs.pop("device", None)
+    from deepspeed_tpu_torch.inference.engine import (InferenceEngine,
+                                                      resolve_device)
+    device = resolve_device(kwargs.pop("device", None))
     if config is None:
         config = {}
     if isinstance(config, dict):
         config = DeepSpeedInferenceConfig(**{**config, **kwargs})
-    if config.checkpoint is not None or isinstance(model, str):
-        raise NotImplementedError(
-            "loading an HF checkpoint (module_inject/state_dict_loader.py) "
-            "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C); "
-            "pass (InferenceTransformerConfig, params)")
+    if config.checkpoint is not None:
+        if model is not None:
+            raise ValueError(
+                "pass ONE weight source: either a model/path argument or "
+                "config.checkpoint — with both, which weights serve "
+                "would be ambiguous (the reference overwrites the live "
+                "module from the checkpoint; here load from the "
+                "checkpoint alone)")
+        ckpt = config.checkpoint
+        if isinstance(ckpt, dict):
+            ckpt = ckpt.get("checkpoint") or ckpt.get("path") or \
+                ckpt.get("checkpoints")
+        if isinstance(ckpt, (list, tuple)):
+            if len(ckpt) != 1:
+                raise NotImplementedError(
+                    "multi-file 'checkpoints' lists are model-parallel "
+                    "shards — point at the directory instead (Megatron "
+                    "mp_rank_* layouts merge automatically)")
+            ckpt = ckpt[0]
+        if not isinstance(ckpt, str):
+            raise ValueError(
+                "config.checkpoint must be a path (or a dict with a "
+                f"'checkpoint'/'path' entry), got {config.checkpoint!r}")
+        model = (os.path.join(config.base_dir, ckpt) if config.base_dir
+                 else ckpt)
+    if isinstance(model, str):
+        from deepspeed_tpu_torch.module_inject.state_dict_loader import (
+            load_inference_checkpoint)
+        # dtype="int8" loads in bf16; the engine quantizes on placement
+        load_dtype = (torch.bfloat16 if config.torch_dtype == torch.int8
+                      else config.torch_dtype)
+        model = load_inference_checkpoint(model, dtype=load_dtype,
+                                          device=device)
     return InferenceEngine(model, config, device=device)
 
 

@@ -22,21 +22,22 @@ param boundary with ceil-partition padding. Constants match
 The result is a flat ``{dotted_name: host tensor}``; :func:`to_param_tree`
 applies the renames' transposes and :func:`import_into_engine` installs
 it. These foreign pickles are the one place the port loads with
-``weights_only=False`` (they carry argparse Namespaces and other
-objects); its own checkpoints load with ``weights_only=True``.
+``weights_only=False``, through ``utils/lenient_pickle.py`` (they carry
+argparse Namespaces and other objects); its own checkpoints load with
+``weights_only=True``.
 """
 from __future__ import annotations
 
 import fnmatch
 import glob
-import io
 import math
 import os
-import pickle
 import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from deepspeed_tpu_torch.utils.lenient_pickle import LenientUnpickler
 
 OPTIMIZER_STATE_DICT = "optimizer_state_dict"
 FP32_FLAT_GROUPS = "fp32_flat_groups"
@@ -46,26 +47,6 @@ PARTITION_COUNT = "partition_count"
 PARAM_SHAPES = "param_shapes"
 BUFFER_NAMES = "buffer_names"
 DS_VERSION = "ds_version"
-
-
-class _LenientUnpickler:
-    """pickle module shim for ``torch.load`` (a copy of
-    ``deepspeed_tpu/module_inject/megatron_shards.py:210``): checkpoint
-    blobs carry argparse Namespaces / megatron.* / deepspeed.* classes
-    that are not importable here — unknown classes deserialize as inert
-    stubs so the tensors still load."""
-
-    class Unpickler(pickle.Unpickler):
-        def find_class(self, module, name):
-            try:
-                return super().find_class(module, name)
-            except (ImportError, AttributeError):
-                return type(name, (), {"__setstate__": lambda s, _: None,
-                                       "__reduce__": lambda s: (dict, ())})
-
-    @classmethod
-    def loads(cls, data, **kwargs):
-        return cls.Unpickler(io.BytesIO(data), **kwargs).load()
 
 
 def _t(x) -> torch.Tensor:
@@ -83,7 +64,7 @@ def _natural(text: str):
 
 def _torch_load(path: str):
     return torch.load(path, map_location="cpu", weights_only=False,
-                      pickle_module=_LenientUnpickler)
+                      pickle_module=LenientUnpickler)
 
 
 def resolve_tag_dir(checkpoint_dir: str, tag: Optional[str] = None) -> str:

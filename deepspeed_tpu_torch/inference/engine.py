@@ -49,8 +49,15 @@ scales and runs every projection as an int8 x int8 GEMM
 (``ops/int8_gemm.py``). Weights are quantized on the device, after the
 cast to the activation dtype.
 
-Not in this slice (ROADMAP.md queue C): HF conversion and checkpoint
-loading, meshes (TP/EP/SP), MoE, the encoder path and request tracing.
+``model`` may also be an HF model: a live ``transformers`` model or a
+``module_inject.state_dict_loader.CheckpointModelView`` over a state dict
+(``init_inference(path)`` builds one over checkpoint files). The policy
+table (``module_inject/policies.py``) converts it in the activation dtype
+on the device its tensors lie on. Encoder configs (``pre_layer_norm=
+False``: BERT, DistilBERT) run ``encoder_forward`` in :meth:`forward`.
+
+Not in this slice (ROADMAP.md queue C): meshes (TP/EP/SP), MoE and
+request tracing.
 """
 from __future__ import annotations
 
@@ -70,7 +77,8 @@ from deepspeed_tpu_torch.inference.speculation import (
     commit_speculative_block, greedy_accept, lookup_proposals)
 from deepspeed_tpu_torch.model_implementations.transformer import (
     InferenceTransformerConfig, causal_forward, decode_chunk, decode_step,
-    init_params, prefill)
+    encoder_forward, init_params, prefill)
+from deepspeed_tpu_torch.module_inject.policies import convert_hf_model
 from deepspeed_tpu_torch.module_inject.quantize import GroupQuantizer
 from deepspeed_tpu_torch.ops.int8_gemm import (int8_compute_layout,
                                                is_quantized)
@@ -145,9 +153,11 @@ def resolve_device(device=None) -> torch.device:
 class InferenceEngine:
     """Generation engine over the fused transformer.
 
-    ``model`` is ``(InferenceTransformerConfig, params)`` or a bare
+    ``model`` is ``(InferenceTransformerConfig, params)``, a bare
     ``InferenceTransformerConfig`` (random weights from a generator seeded
-    0). Weights move to ``device`` in the engine dtype.
+    0), or an HF model (live, or a ``CheckpointModelView``) that the
+    policy table converts. Weights move to ``device`` in the engine
+    dtype.
     """
 
     def __init__(self, model, config: Optional[DeepSpeedInferenceConfig] = None,
@@ -156,7 +166,12 @@ class InferenceEngine:
         self.device = resolve_device(device)
         c = self.config
         if c.injection_policy is not None:
-            raise NotImplementedError(f"injection_policy {_LATER}")
+            # checked from the config alone, before any conversion or load
+            raise NotImplementedError(
+                "custom injection_policy dicts are torch-module surgery "
+                "(reference replace_module.py) — register a conversion "
+                "policy instead: subclass HFPolicy and decorate with "
+                "deepspeed_tpu_torch.module_inject.policies.register_policy")
         if c.tp_size > 1 or c.seq_parallel_size > 1:
             raise NotImplementedError(
                 f"tensor/sequence-parallel meshes {_LATER}")
@@ -173,20 +188,21 @@ class InferenceEngine:
                 dataclasses.replace(model, dtype=self._act_dtype),
                 self.device)
         else:
-            raise NotImplementedError(
-                f"HF model conversion (module_inject/policies.py) {_LATER}; "
-                "pass (InferenceTransformerConfig, params)")
+            # an HF model, live or a CheckpointModelView: the policy table,
+            # on the device its tensors lie on
+            self.model_config, params = convert_hf_model(
+                model, dtype=self._act_dtype)
         # the engine dtype wins over the model config's
         self.model_config = dataclasses.replace(self.model_config,
                                                 dtype=self._act_dtype)
         if self.model_config.num_experts > 0:
             raise NotImplementedError(f"MoE layers (_moe_mlp) {_LATER}")
-        if not self.model_config.pre_layer_norm:
-            raise NotImplementedError(f"the encoder path {_LATER}")
-        if not c.triangular_masking and self.model_config.head != "none":
+        if not c.triangular_masking and self.model_config.pre_layer_norm \
+                and self.model_config.head != "none":
             raise NotImplementedError(
                 "triangular_masking=False on a causal LM (bidirectional "
-                "decoding) is not supported")
+                "decoding) is not supported; encoder models are already "
+                "bidirectional and ignore the flag")
         if c.quant.activation.enabled:
             # w8a8 needs int8 weights: quantized here, or stored so (a
             # serving checkpoint's)
@@ -377,7 +393,9 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def forward(self, input_ids, attention_mask=None):
-        """Full-sequence logits ``[B, T, V]`` for causal models."""
+        """Encoder forward (the post-LN BERT family) → hidden states
+        ``[B, T, E]``, or full-sequence logits ``[B, T, V]`` for causal
+        models (hidden states where the model has no LM head)."""
         ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
                               device=self.device)
         if attention_mask is not None:
@@ -390,8 +408,10 @@ class InferenceEngine:
             ev[0].record()
         elif self.model_profile_enabled:
             t0 = time.perf_counter()
-        out = causal_forward(self.params, self.model_config, ids,
-                             attention_mask=attention_mask)
+        fwd = (causal_forward if self.model_config.pre_layer_norm
+               else encoder_forward)
+        out = fwd(self.params, self.model_config, ids,
+                  attention_mask=attention_mask)
         if ev is not None:
             ev[1].record()
             self._model_times.append(ev)

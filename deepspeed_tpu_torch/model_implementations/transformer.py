@@ -2,28 +2,28 @@
 
 Counterpart of ``deepspeed_tpu/model_implementations/transformer.py``:
 the same configuration, the same parameter tree and the same functions
-(``prefill``, ``decode_step``, ``decode_chunk``, ``causal_forward``, and
-the paged-pool functions ``paged_prefill``, ``paged_prefill_chunk``,
-``paged_decode_step`` and ``paged_verify_step`` the server runs), written
-as plain functions on tensors over a parameter dict. Prefill attention
-runs the flash kernel (``ops/flash_attention.py``), a dense decode step
-the dense decode kernel and the paged steps the paged decode, chunk and
-verify kernels (``ops/decode_attention.py``; over an int8 pool their int8
-variants, given the layer's scale tiles) — on a CUDA tensor the CUDA
-kernels, on a CPU tensor their plain versions. ALiBi, sliding windows and
-padded-key masks have no kernel in either package and take the plain
-einsum path here (over the pool gathered through the block tables, for
-the paged steps), as they take the XLA path there; so does the dense
+(``prefill``, ``decode_step``, ``decode_chunk``, ``causal_forward``,
+``encoder_forward``, and the paged-pool functions ``paged_prefill``,
+``paged_prefill_chunk``, ``paged_decode_step`` and ``paged_verify_step``
+the server runs), written as plain functions on tensors over a parameter
+dict. Prefill attention runs the flash kernel
+(``ops/flash_attention.py``), a dense decode step the dense decode kernel
+and the paged steps the paged decode, chunk and verify kernels
+(``ops/decode_attention.py``; over an int8 pool their int8 variants, given
+the layer's scale tiles) — on a CUDA tensor the CUDA kernels, on a CPU
+tensor their plain versions. ALiBi, sliding windows and padded-key masks
+(the encoder's too) have no kernel in either package and take the plain
+einsum path here (over the pool gathered through the block tables, for the
+paged steps), as they take the XLA path there; so does the dense
 speculative verify ``decode_chunk``, whose attention JAX leaves to an XLA
 einsum. The large products around attention (projections, MLP, LM head)
 are ``torch`` matmuls, as the JAX package leaves them to XLA. A projection
 weight may be an int8 node (``{"q", "scale"}`` or ``{"q", "oscale"}``,
 ``module_inject/quantize.py``): it is dequantized into the activation
 dtype, or, with ``int8_compute`` (w8a8), multiplied as int8 x int8 with an
-int32 accumulator (``ops/int8_gemm.py``). The paged
-functions take the slot, the chunk start and the prompt length as host
-ints where JAX traces scalars, and none of them reads a device value on
-the host.
+int32 accumulator (``ops/int8_gemm.py``). The paged functions take the
+slot, the chunk start and the prompt length as host ints where JAX traces
+scalars, and none of them reads a device value on the host.
 
 Parameter schema (nested dict of tensors)::
 
@@ -33,8 +33,12 @@ Parameter schema (nested dict of tensors)::
       attn {wq, wk, wv [E, H, D], bq, bk, bv [H, D], wo [H, D, E], bo [E]}
       mlp  {wi [E, F], bi [F], wo [F, E], bo [E]}
 
-Not in this slice (ROADMAP.md queue C): MoE layers, tensor/expert/
-sequence-parallel meshes and the encoder path.
+plus, by architecture, ``ln_emb`` (BLOOM, BERT), ``wtte`` (BERT's
+token-type table), ``lm_head_bias``, and ``mlp.{wg, bg}`` (gated MLPs).
+``pre_layer_norm=False`` is the post-LN order of BERT and DistilBERT.
+
+Not in this slice (ROADMAP.md queue C): MoE layers and tensor/expert/
+sequence-parallel meshes.
 """
 from __future__ import annotations
 
@@ -540,7 +544,7 @@ def _block_chunk(x, layer, cfg, cache, layer_idx):
 
 # ---------------------------------------------------------------- model
 
-def _embed(params, cfg, ids, positions):
+def _embed(params, cfg, ids, positions, token_type_ids=None):
     x = params["wte"][ids].to(cfg.dtype)
     if cfg.embed_scale != 1.0:   # Gemma: x * sqrt(E), head reads raw wte
         x = x * torch.tensor(cfg.embed_scale, dtype=cfg.dtype)
@@ -550,8 +554,10 @@ def _embed(params, cfg, ids, positions):
         wpe = params["wpe"]
         x = x + wpe[positions.clamp(max=wpe.shape[0] - 1)].to(cfg.dtype)
     if "wtte" in params:   # BERT token-type embeddings
-        x = x + params["wtte"][torch.zeros_like(ids)].to(cfg.dtype)
-    if "ln_emb" in params:   # BLOOM word_embeddings_layernorm
+        tt = (token_type_ids if token_type_ids is not None
+              else torch.zeros_like(ids))
+        x = x + params["wtte"][tt].to(cfg.dtype)
+    if "ln_emb" in params:   # BLOOM word_embeddings_layernorm / BERT's
         x = _layer_norm(x, params["ln_emb"], cfg.layer_norm_eps)
     return x
 
@@ -761,3 +767,24 @@ def causal_forward(params, cfg: InferenceTransformerConfig, input_ids,
     if cfg.head == "none":
         return x
     return _logits(params, cfg, x)
+
+
+def encoder_forward(params, cfg: InferenceTransformerConfig, input_ids,
+                    attention_mask=None, token_type_ids=None):
+    """Bidirectional encoder forward (the BERT and DistilBERT policies'
+    post-LN trees): final hidden states ``[B, T, E]``. ``attention_mask
+    [B, T]`` masks pad keys (default: none masked); with a key mask,
+    attention takes the plain path, as in JAX."""
+    B, T = input_ids.shape
+    positions = torch.arange(T, device=input_ids.device)[None, :].expand(
+        B, T)
+    x = _embed(params, cfg, input_ids, positions, token_type_ids)
+    mask = (attention_mask if attention_mask is not None
+            else torch.ones((B, T), dtype=torch.int32,
+                            device=input_ids.device))
+    for i, layer in enumerate(params["layers"]):
+        x, _ = _block_seq(x, layer, cfg, positions, None, None, i,
+                          causal=False, key_mask=mask)
+    if cfg.pre_layer_norm:
+        x = _layer_norm(x, params["ln_f"], cfg.layer_norm_eps)
+    return x

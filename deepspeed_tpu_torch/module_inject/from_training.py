@@ -39,7 +39,7 @@ def convert_trained_model(model, params, dtype=None
         return gpt2_to_inference(model.config, params, dtype)
     raise NotImplementedError(
         f"no training->inference conversion for {type(model).__name__}; "
-        "supported: GPT2LMModel (" + _later("models/llama.py", "A5") + ")")
+        "supported: GPT2LMModel (" + _later("models/llama.py", "A5b") + ")")
 
 
 def gpt2_to_inference(cfg, params, dtype=None):
@@ -98,4 +98,4 @@ def llama_to_inference(cfg, params, dtype=None):
     """``models/llama.py`` is not ported yet, so there is no trained
     LLaMA to convert."""
     raise NotImplementedError(
-        _later("llama_to_inference (models/llama.py)", "A5"))
+        _later("llama_to_inference (models/llama.py)", "A5b"))

@@ -1,9 +1,11 @@
 """Import guard for the PyTorch/CUDA port.
 
 ``deepspeed_tpu_torch/``, ``chip_smoke.py`` and the port's scripts run on a
-machine without JAX, so none of them may import ``jax``, ``jaxlib``,
-``flax`` or the JAX package ``deepspeed_tpu`` (the exact package: the port's
-own ``deepspeed_tpu_torch`` is fine). ``scripts/check_imports.py`` lints only
+machine without JAX, ``transformers`` or ``safetensors``, so none of them
+may import ``jax``, ``jaxlib``, ``flax``, the JAX package ``deepspeed_tpu``
+(the exact package: the port's own ``deepspeed_tpu_torch`` is fine),
+``transformers`` or ``safetensors`` (the port reads HF models by
+attribute and has its own safetensors reader). ``scripts/check_imports.py`` lints only
 the JAX tree; this walks the AST of every port file, so an import inside a
 function is caught too.
 """
@@ -13,7 +15,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = {"jax", "jaxlib", "flax", "deepspeed_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "deepspeed_tpu", "transformers",
+          "safetensors"}
 PORT_FILES = sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "deepspeed_tpu_torch").rglob("*.py")]
@@ -40,9 +43,14 @@ def test_guard_tells_the_port_from_the_jax_package():
     src = ("import jax.numpy as jnp\nfrom flax import linen\n"
            "import deepspeed_tpu_torch\nfrom deepspeed_tpu.ops import x\n"
            "def f():\n    import jaxlib\n"
-           "from deepspeed_tpu_torch.ops import flash_attention\n")
+           "from deepspeed_tpu_torch.ops import flash_attention\n"
+           "def g():\n    from transformers import GPT2Config\n"
+           "    import safetensors.torch\n"
+           "from deepspeed_tpu_torch.utils import safetensors_io\n")
     assert banned_imports(src) == [(1, "jax.numpy"), (2, "flax"),
-                                   (4, "deepspeed_tpu.ops"), (6, "jaxlib")]
+                                   (4, "deepspeed_tpu.ops"), (6, "jaxlib"),
+                                   (9, "transformers"),
+                                   (10, "safetensors.torch")]
 
 
 def test_the_port_has_files_to_guard():

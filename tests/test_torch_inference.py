@@ -345,10 +345,14 @@ def test_init_inference_entry_point_and_telemetry():
 def test_out_of_slice_paths_raise_not_implemented(case):
     _, _, tcfg, tp = _pair("gpt2")
     cfg32 = DeepSpeedInferenceConfig(dtype="float32")
-    # beams and speculation are ported: on their paths only what the JAX
-    # engine refuses too, and sequence-sharded caches (queue C), remain
+    # beams, speculation, the encoder path and HF checkpoints are ported:
+    # on their paths only what the JAX package refuses too, and
+    # sequence-sharded caches (queue C), remain
     match = {"beams": "not beam search",
-             "speculative": "greedy-only"}.get(case, "ROADMAP")
+             "speculative": "greedy-only",
+             "encoder": "bidirectional decoding",
+             "checkpoint": "model-parallel shards",
+             "hf_model": "no policy for model_type"}.get(case, "ROADMAP")
     with pytest.raises(NotImplementedError, match=match):
         if case == "beams":
             InferenceEngine((tcfg, tp), cfg32, device="cpu").generate(
@@ -382,12 +386,17 @@ def test_out_of_slice_paths_raise_not_implemented(case):
             InferenceEngine(dataclasses.replace(tcfg, num_experts=4), cfg32,
                             device="cpu")
         elif case == "encoder":
-            InferenceEngine((dataclasses.replace(tcfg, pre_layer_norm=False),
-                             tp), cfg32, device="cpu")
+            # post-LN encoders are bidirectional; a causal LM is not
+            InferenceEngine((tcfg, tp), DeepSpeedInferenceConfig(
+                dtype="float32", triangular_masking=False), device="cpu")
         elif case == "checkpoint":
-            deepspeed_tpu_torch.init_inference("/some/hf/dir", device="cpu")
+            deepspeed_tpu_torch.init_inference(
+                config={"checkpoint": ["/a/mp_rank_00", "/a/mp_rank_01"]},
+                device="cpu")
         elif case == "hf_model":
-            InferenceEngine(object(), cfg32, device="cpu")
+            class Unknown:
+                config = type("Config", (), {"model_type": "made-up"})
+            InferenceEngine(Unknown(), cfg32, device="cpu")
         else:
             InferenceEngine((tcfg, tp), DeepSpeedInferenceConfig(
                 dtype="float32", telemetry={"enabled": True,
