@@ -186,22 +186,45 @@ kernel's row.
    the end): ``init_inference(path)`` gives the in-memory tree bit for
    bit and its 8 x 16 greedy tokens; the load seconds and GB/s printed
    with the card's name and power limit.
+9e. llama_bert — the training LLaMA and BERT (``models/llama.py``,
+   ``models/bert.py`` on ``ops/transformer.py``), bf16, phase train's
+   engine: (a) ``llama-1b`` (JAX's preset: 16 layers, 2048 wide, 16 heads
+   of 128, FFN 5504, vocab 32000, untied; 940,640,256 parameters) at full
+   width and depth, micro 4 x gas 2 x T 2048, remat: the first loss
+   against the same weights through no attention kernel, a warm-up step,
+   TRAIN_STEPS timed steps on a repeated batch (B1 2 x 16 x micro-batches,
+   B2 and B3 16 x micro-batches, finite, falling), the q/k/v gradient
+   oracle of every layer on one sequence; then the trained weights
+   through ``convert_trained_model`` into ``init_inference``: phase e2e's
+   ``generate`` and gates over 2048 tokens (B1, B4) and the served-token
+   oracle. (b) ``llama-7b-gqa`` at full width (32 heads of 128 over 8 KV
+   heads, FFN 14336: Mistral-7B's geometry) and 8 of its 32 layers
+   (2,007,044,096 parameters), micro 2 x gas 1 x T 4096: the same gates,
+   B3 summing 4 query heads into each KV head. (c) ``bert-large`` (24
+   layers, 1024 wide, 16 heads of 64, FFN 4096, NSP; 336,226,108
+   parameters; dropout ratios 0) at full width and depth, micro 16 x gas
+   2 x T 512: unmasked batches launch B1, B2 and B3 non-causal (24 each a
+   micro-batch), the first loss against the einsum route (a key mask of
+   ones); then one step with a key padding mask, which takes the einsum
+   route and launches none of them. Step ms, tokens/s, MFU and peak
+   memory printed with the card's name and power limit.
 10. train — with the serving weights freed: ``deepspeed_tpu_torch.initialize``
    → ``train_batch`` on ``GPT2LMModel(config_for("gpt2-1.3b"))`` at full
    width (24 layers, n_embd 2048, 16 heads of 128, T=1024; random weights
    from a seeded generator), bf16, AdamW (lr 1e-4, weight decay 0.01),
    gradient clipping 1.0, micro-batch 8, 2 accumulation steps, remat on;
-   one warm-up step, then TRAIN_STEPS timed steps on one repeated batch.
-   It asserts the launch counts (forward 24 x 2 (remat) x 2 x steps, dq and
+   the first step's loss against the same weights' through the flash
+   kernel's plain version, one warm-up step, then TRAIN_STEPS timed steps
+   on one repeated batch. It asserts the launch counts (forward 24 x 2 (remat) x 2 x steps, dq and
    dk/dv 24 x 2 x steps, no decode kernel), finite losses and gradient
    norms, a falling loss, and an in-situ gradient oracle: one micro-batch of
    2 sequences through the kernels and through the flash kernels' plain
    version under autograd, the losses within TRAIN_LOSS_TOL and every
    layer's ``c_attn.kernel`` gradient within TRAIN_GRAD_TOL relative L2.
-   The same for ``gpt2-760m`` (24 layers, 16 heads of 96),
-   ``gpt2-2.7b`` (32 layers, 32 heads of 80) and ``gpt2-1.3b`` with
-   ``n_head=8`` (8 heads of 256: B1-B3 on their 256-wide instantiations),
-   at full depth.
+   The same for ``gpt2-760m`` (16 heads of 96) and ``gpt2-2.7b`` (32
+   heads of 80) at full width and 8 of their 24 and 32 layers, and for
+   ``gpt2-1.3b`` with ``n_head=8`` (8 heads of 256: B1-B3 on their
+   256-wide instantiations) at full depth.
 10a. int8 train — ``gpt2-1.3b`` at full width and depth with
    ``int8_training=True`` (SwitchBack: the four projections of every
    block and the logits run int8 forward and dx GEMMs) beside bf16, from
@@ -244,7 +267,8 @@ replay adds the launches its capture recorded to each wrapper's count, so
 the launch counts stay counts of kernel executions.
 
 The kernel launch counts are set to 0 just before each main-path run (the
-e2e generate, each server, phase hf's ``generate`` calls, phase int8's
+e2e generate, each server, phase hf's ``generate`` calls, phase
+llama_bert's timed steps, ``generate`` and masked step, phase int8's
 ``generate`` calls, servers and training runs, the timed training steps,
 the checkpoint
 phase's training runs and its ``generate``, and the sparse and layer_norm
@@ -1442,6 +1466,7 @@ def phase_flash_bwd(flush):
              ("gqa H=32 KH=8 D=128", 2, 1024, 32, 8, 128, True, bf16),
              ("ragged T=1000", 8, 1000, 16, 16, 128, True, bf16),
              ("full T=300", 2, 300, 16, 16, 128, False, bf16),
+             ("bert-large full", 16, 512, 16, 16, 64, False, bf16),
              ("fp16", 2, 1024, 16, 16, 128, True, f16),
              ("fp32", 1, 256, 16, 16, 128, True, f32)]
     worst = {"dq": 0.0, "dkv": 0.0}
@@ -1950,27 +1975,19 @@ def run_layer_norm():
     return counts
 
 
-# the training presets' parameter counts at full depth (the port's leaves);
-# a head-count override keeps the preset's count
-TRAIN_PARAMS = {"gpt2-760m": 758799360, "gpt2-1.3b": 1313722368,
-                "gpt2-2.7b": 2649052160}
+# the training runs' parameter counts (the port's leaves) by preset and
+# depth (None: the preset's); a head-count override keeps the count
+TRAIN_PARAMS = {("gpt2-760m", 8): 305495040, ("gpt2-1.3b", None): 1313722368,
+                ("gpt2-2.7b", 8): 760816640}
+# the depth of the D = 96 and D = 80 runs: 8 of their 24 and 32 layers,
+# full width, which keeps chip_smoke.py inside its time limit
+NEW_D_TRAIN_LAYERS = 8
 
 
-def phase_train(preset="gpt2-1.3b", n_head=None):
-    """The training main path of a GPT-2 preset at full width and depth
-    (``n_head`` overrides its head count: gpt2-1.3b with 8 heads has heads
-    of 256); returns its launch counts, read just after the timed steps."""
+def train_engine(model, params, micro, gas):
+    """The training engine of phases train and llama_bert: bf16, AdamW
+    (lr 1e-4, weight decay 0.01), gradient clipping 1.0."""
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
-    cfg = config_for(preset, **({} if n_head is None else {"n_head": n_head}))
-    L = cfg.n_layer
-    model = GPT2LMModel(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    n_params = model.param_count(params)
-    check(n_params == TRAIN_PARAMS[preset],
-          f"{preset} has {n_params} parameters")
-    micro, gas = 8, 2
     engine, _, _, _ = deepspeed_tpu_torch.initialize(
         model=model, model_parameters=params, config={
             "train_micro_batch_size_per_gpu": micro,
@@ -1978,16 +1995,26 @@ def phase_train(preset="gpt2-1.3b", n_head=None):
             "bf16": {"enabled": True},
             "optimizer": {"type": "AdamW",
                           "params": {"lr": 1e-4, "weight_decay": 0.01}}})
-    del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    log(f"[train] {preset}: {L} layers, {cfg.n_head} heads of "
-        f"{cfg.head_dim}, {n_params} parameters, random weights and engine "
-        f"in {time.perf_counter() - t0:.3f} s")
-    rng = np.random.default_rng(6)
-    T = cfg.n_positions
-    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro * gas, T),
-                                       dtype=np.int32)}
+    return engine
+
+
+def _train_model_run(tag, model, engine, batch, micro, gas, tokens,
+                     plain_loss):
+    """The training main path and its oracles on ``engine``: the loss of
+    the initial weights through no attention kernel
+    (``plain_loss(engine.params, micro_batch)``, the mean over the
+    micro-batches) against the first step's, then one warm-up step and
+    TRAIN_STEPS timed steps on the repeated batch, the counts set to 0
+    just before and read just after; finite losses and gradient norms, a
+    falling loss. Logs step ms, tokens/s, MFU and peak memory; returns
+    the launch counts."""
+    shapes = {k: v.shape for k, v in batch.items()}
+    with torch.no_grad():
+        ref = float(np.mean([plain_loss(engine.params, {
+            k: torch.as_tensor(v[i * micro:(i + 1) * micro], device="cuda")
+            for k, v in batch.items()}).item() for i in range(gas)]))
     first = engine.train_batch(batch)   # warm-up: cuBLAS, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2000,56 +2027,98 @@ def phase_train(preset="gpt2-1.3b", n_head=None):
         walls.append(time.perf_counter() - t)
     counts = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in [first] + metrics]
+    gnorms = [float(m["grad_norm"]) for m in [first] + metrics]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{tag}: non-finite loss or grad norm: {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"{tag}: loss did not fall on a repeated batch: {losses}")
+    check(abs(losses[0] - ref) <= TRAIN_LOSS_TOL * abs(ref),
+          f"{tag}: first loss {losses[0]} vs {ref} through no attention "
+          f"kernel")
+    step_s = float(np.median(walls))
+    tok_s = tokens / step_s
+    mfu = model.flops_per_token() * tok_s / H100_BF16_FLOPS
+    log(f"[train] {tag}: {TRAIN_STEPS} steps of {micro} x {gas} "
+        f"({shapes}): step ms {[w * 1e3 for w in walls]!r}, median "
+        f"{step_s * 1e3!r} ms; {tok_s!r} tokens/s; MFU {mfu!r} (6N flops "
+        f"per token at 989 TFLOP/s); peak memory {peak} bytes; losses "
+        f"{losses!r} (first against {ref!r} through no attention kernel, "
+        f"tol {TRAIN_LOSS_TOL}); grad norms {gnorms!r}; launches {counts}")
+    return counts
+
+
+def _grad_oracle(tag, loss_fn, plain_loss, params, mb, names):
+    """In-situ gradient oracle: the gradients of ``names`` on one
+    micro-batch through the kernels (``loss_fn``) and through no
+    attention kernel (``plain_loss``), the losses within TRAIN_LOSS_TOL
+    and each gradient within TRAIN_GRAD_TOL relative L2."""
+    out = []
+    for fn in (loss_fn, plain_loss):
+        loss = fn(params, mb)
+        out.append((loss.item(), torch.autograd.grad(
+            loss, [params[n] for n in names])))
+    (lk, gk), (lr_, gr) = out
+    rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
+            for a, b in zip(gk, gr)]
+    log(f"[train] {tag}: gradient oracle on {mb['input_ids'].shape[0]} "
+        f"sequence(s): loss kernels {lk!r} vs plain attention {lr_!r}; "
+        f"{len(names)} gradients' relative L2 max {max(rels)!r}, mean "
+        f"{float(np.mean(rels))!r} (tol {TRAIN_GRAD_TOL})")
+    check(abs(lk - lr_) <= TRAIN_LOSS_TOL * abs(lr_),
+          f"{tag} oracle: loss {lk} vs {lr_}")
+    check(all(math.isfinite(r) and r <= TRAIN_GRAD_TOL for r in rels),
+          f"{tag} oracle: gradient rel errors {rels}")
+
+
+def phase_train(preset="gpt2-1.3b", n_head=None, n_layer=None):
+    """The training main path of a GPT-2 preset at full width, at its own
+    depth or ``n_layer`` (``n_head`` overrides its head count: gpt2-1.3b
+    with 8 heads has heads of 256), through ``_train_model_run`` and
+    ``_grad_oracle`` (2 sequences, every layer's ``c_attn.kernel``);
+    returns its launch counts, read just after the timed steps."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
+    over = {k: v for k, v in (("n_head", n_head), ("n_layer", n_layer))
+            if v is not None}
+    cfg = config_for(preset, **over)
+    L = cfg.n_layer
+    model = GPT2LMModel(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.param_count(params)
+    check(n_params == TRAIN_PARAMS[preset, n_layer],
+          f"{preset} at {L} layers has {n_params} parameters")
+    micro, gas = 8, 2
+    engine = train_engine(model, params, micro, gas)
+    del params
+    log(f"[train] {preset}: {L} layers, {cfg.n_head} heads of "
+        f"{cfg.head_dim}, {n_params} parameters, random weights and engine "
+        f"in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(6)
+    T = cfg.n_positions
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro * gas, T),
+                                       dtype=np.int32)}
+
+    def plain(p, mb):
+        return model.loss_fn(p, mb, reference_attention=True)
+    counts = _train_model_run(preset, model, engine, batch, micro, gas,
+                              micro * gas * T, plain)
     n = TRAIN_STEPS * gas
     check(counts["flash_attention_fwd"] == 2 * L * n,
           f"train: flash forward launched {counts['flash_attention_fwd']} "
           f"times, expected {2 * L * n} ({L} layers x 2 with remat x {n} "
           f"micro-batches)")
-    for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+    for k in _BWD_KERNELS:
         check(counts[k] == L * n,
               f"train: {k} launched {counts[k]} times, expected {L * n}")
     for k in _PAGED_KERNELS[1:]:
         check(counts[k] == 0, f"train: decode kernel {k} launched")
-    losses = [float(m["loss"]) for m in [first] + metrics]
-    gnorms = [float(m["grad_norm"]) for m in [first] + metrics]
-    check(all(math.isfinite(x) for x in losses + gnorms),
-          f"train: non-finite loss or grad norm: {losses} {gnorms}")
-    check(losses[-1] < losses[0],
-          f"train: loss did not fall on a repeated batch: {losses}")
-    step_s = float(np.median(walls))
-    tok_s = micro * gas * T / step_s
-    mfu = model.flops_per_token() * tok_s / H100_BF16_FLOPS
-    log(f"[train] {preset}: {TRAIN_STEPS} steps of {micro} x {gas} x {T} "
-        f"tokens: "
-        f"step ms {[w * 1e3 for w in walls]!r}, median {step_s * 1e3!r} ms; "
-        f"{tok_s!r} tokens/s; MFU {mfu!r} (6N flops per token at 989 "
-        f"TFLOP/s); peak memory {peak} bytes; losses {losses!r}; grad "
-        f"norms {gnorms!r}; launches {counts}")
-
-    # in-situ gradient oracle: one micro-batch of 2 sequences from the
-    # trained weights, through the kernels and through the flash kernels'
-    # plain version under autograd
+    # one micro-batch of 2 sequences from the trained weights
     mb = {"input_ids": torch.as_tensor(batch["input_ids"][:2],
                                        device="cuda")}
-    names = [f"h_{i}.attn.c_attn.kernel" for i in range(L)]
-    out = []
-    for ref in (False, True):
-        loss = model.loss_fn(engine.params, mb, reference_attention=ref)
-        out.append((loss.item(), torch.autograd.grad(
-            loss, [engine.params[n] for n in names])))
-    (lk, gk), (lr_, gr) = out
-    rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
-            for a, b in zip(gk, gr)]
-    log(f"[train] {preset}: gradient oracle on 2 sequences: loss kernels "
-        f"{lk!r} vs "
-        f"plain attention {lr_!r}; c_attn.kernel gradient relative L2 "
-        f"error per layer max {max(rels)!r}, mean {float(np.mean(rels))!r} "
-        f"(tol {TRAIN_GRAD_TOL})")
-    check(abs(lk - lr_) <= TRAIN_LOSS_TOL * abs(lr_),
-          f"train oracle: loss {lk} vs {lr_}")
-    check(all(math.isfinite(r) and r <= TRAIN_GRAD_TOL for r in rels),
-          f"train oracle: c_attn gradient rel errors {rels}")
-    del engine, out, gk, gr
+    _grad_oracle(preset, model.loss_fn, plain, engine.params, mb,
+                 [f"h_{i}.attn.c_attn.kernel" for i in range(L)])
+    del engine
     torch.cuda.empty_cache()
     return counts
 
@@ -3973,6 +4042,192 @@ def phase_hf(smi):
     return runs
 
 
+# the training runs of phase llama_bert, shared with
+# scripts/profile_train_models.py: (preset, config overrides, micro, gas,
+# T, parameters: JAX's trees counted with jax.eval_shape). llama-7b-gqa
+# runs 8 of its 32 layers; bert-large's dropout ratios are 0 until A9
+LLAMA_RUNS = (("llama-1b", {}, 4, 2, 2048, 940640256),
+              ("llama-7b-gqa", {"n_layer": 8}, 2, 1, 4096, 2007044096))
+BERT_RUN = ("bert-large", {"hidden_dropout_prob": 0.0,
+                           "attention_probs_dropout_prob": 0.0},
+            16, 2, 512, 336226108)
+BERT_PAD = 64   # the masked step's padding keys at the end of every row
+
+
+def bert_batch(cfg, rng, B, T):
+    """A BERT pre-training batch of B rows of T tokens: random ids, token
+    type 0 then 1 over the two halves, 15% live MLM labels, NSP labels."""
+    labels = rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    labels[rng.random((B, T)) >= 0.15] = -100
+    return {"input_ids": rng.integers(0, cfg.vocab_size, (B, T),
+                                      dtype=np.int32),
+            "token_type_ids": np.repeat(
+                (np.arange(T) >= T // 2)[None].astype(np.int32), B, 0),
+            "mlm_labels": labels,
+            "nsp_labels": rng.integers(0, 2, (B,)).astype(np.int32)}
+
+
+def bert_padding_mask(B, T):
+    """A key padding mask whose last BERT_PAD keys of every row are
+    padding: the BERT layer's einsum route."""
+    mask = np.ones((B, T), np.int32)
+    mask[:, T - BERT_PAD:] = 0
+    return mask
+
+
+def phase_llama_bert(smi):
+    """LLaMA and BERT train on the card, and a trained LLaMA serves.
+    (a) ``llama-1b`` (JAX's preset: 16 layers, 2048 wide, 16 heads of 128,
+    FFN 5504, vocab 32000, untied) at full width and depth, bf16, micro 4
+    x gas 2 x T 2048: phase train's path and oracles (B1-B3); then its
+    trained weights through ``convert_trained_model`` into
+    ``init_inference``: phase e2e's ``generate`` and gates over 2048
+    tokens (B1, B4, the decode graph) and the served-token oracle.
+    (b) ``llama-7b-gqa`` at full width (32 heads of 128 over 8 KV heads,
+    FFN 14336) and 8 of its 32 layers, micro 2 x gas 1 x T 4096: B3's
+    group sum at 4 query heads a KV head, the same oracles. (c)
+    ``bert-large`` (24 layers, 1024 wide, 16 heads of 64, FFN 4096, T 512,
+    NSP; dropout ratios 0) at full width and depth, micro 16 x gas 2,
+    unmasked batches: B1, B2 and B3 non-causal; then one step of batches
+    with a key padding mask, which takes the einsum route and launches
+    none of them. Returns the runs' launch counts by name."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bert as bert_mod
+    from deepspeed_tpu_torch.models import llama as llama_mod
+    from deepspeed_tpu_torch.module_inject import convert_trained_model
+    runs = {}
+    rng = np.random.default_rng(20)
+
+    def llama(name, over, micro, gas, T, n_params):
+        cfg = llama_mod.config_for(name, **over)
+        model = llama_mod.LlamaLMModel(cfg)
+        plain = llama_mod.LlamaLMModel(dataclasses.replace(
+            cfg, use_flash_attention=False))
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(20))
+        n = model.param_count(params)
+        check(n == n_params, f"{name}: {n} parameters, expected {n_params}")
+        engine = train_engine(model, params, micro, gas)
+        del params
+        L = cfg.n_layer
+        log(f"[llama_bert] {name}: {L} layers, {cfg.n_head} heads of "
+            f"{cfg.head_dim} over {cfg.n_kv_head} KV heads, FFN "
+            f"{cfg.intermediate_size}, {n} parameters, random weights and "
+            f"engine in {time.perf_counter() - t0:.3f} s")
+        batch = {"input_ids": rng.integers(0, cfg.vocab_size,
+                                           (micro * gas, T), dtype=np.int32)}
+        counts = _train_model_run(name, model, engine, batch, micro, gas,
+                                  micro * gas * T, plain.loss_fn)
+        k = TRAIN_STEPS * gas
+        check(counts["flash_attention_fwd"] == 2 * L * k,
+              f"{name}: flash forward launched "
+              f"{counts['flash_attention_fwd']} times, expected "
+              f"{2 * L * k} ({L} layers x 2 with remat x {k} micro-batches)")
+        for kk in _BWD_KERNELS:
+            check(counts[kk] == L * k,
+                  f"{name}: {kk} launched {counts[kk]} times, expected "
+                  f"{L * k}")
+        # the gradient oracle on one sequence: the attention projections
+        # of every layer, where a wrong dq or dk/dv (a wrong group sum)
+        # shows
+        mb = {"input_ids": torch.as_tensor(batch["input_ids"][:1],
+                                           device="cuda")}
+        names = [f"layers_{i}.attn.{w}.kernel" for i in range(L)
+                 for w in ("wq", "wk", "wv")]
+        _grad_oracle(name, model.loss_fn, plain.loss_fn, engine.params, mb,
+                     names)
+        return model, engine, counts
+
+    (name_1b, *run_1b), (name_gqa, *run_gqa) = LLAMA_RUNS
+    # (a) llama-1b trains, then serves
+    model, engine, runs[f"train {name_1b}"] = llama(name_1b, *run_1b)
+    t0 = time.perf_counter()
+    icfg, tree = convert_trained_model(model, engine.params)
+    del engine
+    torch.cuda.empty_cache()
+    serve = deepspeed_tpu_torch.init_inference(
+        (icfg, tree), dtype="bfloat16", device="cuda", max_out_tokens=2048)
+    del tree
+    torch.cuda.synchronize()
+    check(icfg.n_kv_head == 16 and icfg.norm_type == "rmsnorm"
+          and icfg.gated_mlp and icfg.positional == "rotary"
+          and not icfg.tied_lm_head,
+          f"llama-1b: converted config {icfg}")
+    log(f"[llama_bert] llama-1b: convert_trained_model + init_inference "
+        f"in {time.perf_counter() - t0:.3f} s")
+    runs["serve llama-1b"] = phase_e2e(icfg, serve.params, tag="llama-1b",
+                                       engine=serve, n_ctx=2048)
+    prompts = [rng.integers(0, icfg.vocab_size, n).tolist()
+               for n in (300, 1500)]
+    rows = serve.generate(prompts, max_new_tokens=32)
+    _serve_oracle(serve, "llama-1b generate", prompts, rows, 32,
+                  tag="llama_bert")
+    del serve, rows, model
+    torch.cuda.empty_cache()
+
+    # (b) Mistral-7B's attention geometry at 8 of 32 layers
+    _, engine, runs[f"train {name_gqa} x8"] = llama(name_gqa, *run_gqa)
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) bert-large: unmasked batches through B1-B3 non-causal, then a
+    # masked step through the einsum route
+    name, over, micro, gas, T, n_params = BERT_RUN
+    cfg = bert_mod.config_for(name, **over)
+    model = bert_mod.BertPreTrainingModel(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(21))
+    n = model.param_count(params)
+    check(n == n_params, f"{name}: {n} parameters, expected {n_params}")
+    engine = train_engine(model, params, micro, gas)
+    del params
+    L = cfg.num_hidden_layers
+    log(f"[llama_bert] {name}: {L} layers, {cfg.num_attention_heads} "
+        f"heads of {cfg.hidden_size // cfg.num_attention_heads}, {n} "
+        f"parameters, random weights and engine in "
+        f"{time.perf_counter() - t0:.3f} s")
+    B = micro * gas
+    batch = bert_batch(cfg, rng, B, T)
+
+    # the plain route of the oracles: the same batch with a key mask of
+    # ones (the einsum route, no kernel)
+    def plain(p, mb):
+        return model.loss_fn(p, dict(
+            mb, attention_mask=torch.ones_like(mb["input_ids"])))
+    counts = runs[f"train {name}"] = _train_model_run(
+        name, model, engine, batch, micro, gas, B * T, plain)
+    k = TRAIN_STEPS * gas
+    for kk in ("flash_attention_fwd", *_BWD_KERNELS):
+        check(counts[kk] == L * k,
+              f"{name}: {kk} launched {counts[kk]} times, expected "
+              f"{L * k} (non-causal, no remat)")
+    # the gradient oracle on 2 sequences: every layer's fused qkv weight,
+    # whose gradient goes through non-causal dq and dk/dv at this path's
+    # [2, 512, 16, 64]
+    mb = {key: torch.as_tensor(v[:2], device="cuda")
+          for key, v in batch.items()}
+    _grad_oracle(name, model.loss_fn, plain, engine.params, mb,
+                 [f"layers.{i}.attn_qkvw" for i in range(L)])
+    pad = dict(batch, attention_mask=bert_padding_mask(B, T))
+    _launch_counts(reset=True)
+    t = time.perf_counter()
+    m = engine.train_batch(pad)   # THE masked path
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    counts = runs[f"{name} masked step"] = _launch_counts()
+    check(math.isfinite(float(m["loss"])),
+          f"{name} masked step: loss {m['loss']}")
+    check(all(counts[kk] == 0 for kk in ("flash_attention_fwd",
+                                         *_BWD_KERNELS)),
+          f"{name} masked step launched {counts}")
+    log(f"[llama_bert] {name}: one step with a key padding mask (the "
+        f"einsum route) in {t * 1e3!r} ms, loss {float(m['loss'])!r}, "
+        f"launches {counts}; {smi}")
+    del engine
+    torch.cuda.empty_cache()
+    return runs
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4024,11 +4279,14 @@ def main() -> int:
     t_hf = time.perf_counter()
     runs.update(phase_hf(smi))
     t_hf = time.perf_counter() - t_hf
+    t_lb = time.perf_counter()
+    runs.update(phase_llama_bert(smi))
+    t_lb = time.perf_counter() - t_lb
     runs["train"] = phase_train()
     runs.update(phase_int8_train())
     for preset in ("gpt2-760m", "gpt2-2.7b"):
         runs[f"train {preset}"] = new_d[f"train {preset}"] = phase_train(
-            preset)
+            preset, n_layer=NEW_D_TRAIN_LAYERS)
     # heads of 256 in training and in the sparse run (Gemma-2B's query
     # geometry: 8 heads of 256 at 2048 wide)
     d256 = {"train gpt2-1.3b 8x256": phase_train("gpt2-1.3b", n_head=8)}
@@ -4118,7 +4376,8 @@ def main() -> int:
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
     log(f"[wall] chip_smoke.py {time.perf_counter() - t_start!r} s, of "
-        f"which phase checkpoint {t_ckpt!r} s, phase hf {t_hf!r} s")
+        f"which phase checkpoint {t_ckpt!r} s, phase hf {t_hf!r} s, phase "
+        f"llama_bert {t_lb!r} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,11 @@ Ported so far: one-shot inference (:func:`init_inference` →
 ``InferenceEngine.generate``), the paged continuous-batching server
 (``inference.ContinuousBatchingServer(engine)`` → ``submit`` / ``step`` /
 ``drain``), single-device training (:func:`initialize` →
-``DeepSpeedEngine.train_batch``, with ``models.gpt2``) with verified
+``DeepSpeedEngine.train_batch``, with ``models.gpt2``, ``models.llama``
+and ``models.bert`` on the BERT layer ``ops.transformer``) with verified
 checkpoints (``save_checkpoint`` / ``load_checkpoint``, the
-``checkpoint`` toolkit), the bridge from a trained GPT-2 to the server
-(``module_inject.convert_trained_model``, ``inference.engine.
+``checkpoint`` toolkit), the bridge from a trained GPT-2 or LLaMA to the
+server (``module_inject.convert_trained_model``, ``inference.engine.
 save_serving_checkpoint`` / ``load_serving_checkpoint``), and HF models
 and checkpoint directories of the policy table's eighteen architectures
 served through ``init_inference`` (``module_inject/policies.py``,

@@ -10,7 +10,8 @@ same function. :func:`paged_cache_from_numpy` does the same for a
 ``PagedKVCache`` (int8 pools with their scale tiles too), so both packages
 can start a step from one pool, and
 :func:`gpt2_params_from_flax` for the training GPT-2's flax params (with
-its inverse :func:`gpt2_params_to_numpy`), and
+its inverse :func:`gpt2_params_to_numpy`), :func:`llama_params_from_flax`
+and :func:`bert_params_from_jax` for the training LLaMA's and BERT's, and
 :func:`load_engine_state_from_numpy` carries a JAX training engine's state
 (the master, the optimizer's moments and count, the loss scale and the
 step counters) into a port engine. All take numpy arrays
@@ -65,12 +66,15 @@ def paged_cache_from_numpy(cache, device=None, dtype=None):
 
 
 def _flat(tree: Any, prefix: str = "") -> dict:
-    """A nested dict of leaves → ``{dotted path: leaf}`` (the port's
-    parameter names); a flat dict passes through."""
+    """A nested dict (or list) of leaves → ``{dotted path: leaf}`` (the
+    port's parameter names; a list's items by index); a flat dict passes
+    through."""
+    items = (enumerate(tree) if isinstance(tree, (list, tuple))
+             else tree.items())
     out = {}
-    for k, v in tree.items():
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, dict) or hasattr(v, "items"):
+        if hasattr(v, "items") or isinstance(v, (list, tuple)):
             out.update(_flat(v, name + "."))
         else:
             out[name] = v
@@ -78,12 +82,18 @@ def _flat(tree: Any, prefix: str = "") -> dict:
 
 
 def gpt2_params_from_flax(tree: Any, device=None, dtype=None):
-    """The flax ``GPT2LMModel``'s nested params (numpy leaves, from
+    """A JAX training model's nested params (numpy leaves, from
     ``jax.device_get``) → the port's flat dict of tensors, keyed by the
-    flax paths joined with dots (``h_0.attn.c_attn.kernel``). Layouts are
-    the same, so nothing is transposed."""
+    paths joined with dots (GPT-2's ``h_0.attn.c_attn.kernel``, LLaMA's
+    ``layers_0.attn.wq.kernel``, BERT's ``layers.0.attn_qkvw``: its
+    ``layers`` list by index). The port keeps JAX's layouts, so nothing is
+    transposed; leaves keep their dtypes unless ``dtype`` is given."""
     return {k: params_from_numpy(v, device, dtype)
             for k, v in _flat(tree).items()}
+
+
+# the training LLaMA's and BERT's trees flatten the same way
+llama_params_from_flax = bert_params_from_jax = gpt2_params_from_flax
 
 
 def gpt2_params_to_numpy(params) -> dict:

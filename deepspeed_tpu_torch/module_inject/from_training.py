@@ -5,8 +5,9 @@ reference's ``init_inference(model)`` injects fused kernels into the SAME
 torch module that was trained; here the training GPT-2 keeps a flat dict
 of weights and the inference engine a nested one, so the bridge is a tree
 conversion: ``convert_trained_model(model, params)`` maps a
-``GPT2LMModel`` and its trained params onto ``(InferenceTransformerConfig,
-params)``, which ``init_inference`` takes as it is.
+``GPT2LMModel`` or ``LlamaLMModel`` and its trained params onto
+``(InferenceTransformerConfig, params)``, which ``init_inference`` takes
+as it is. Every leaf is a copy on the params' device.
 """
 from __future__ import annotations
 
@@ -35,11 +36,14 @@ def convert_trained_model(model, params, dtype=None
                                      Dict[str, Any]]:
     """Dispatch on the training-model wrapper type."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel
+    from deepspeed_tpu_torch.models.llama import LlamaLMModel
     if isinstance(model, GPT2LMModel):
         return gpt2_to_inference(model.config, params, dtype)
+    if isinstance(model, LlamaLMModel):
+        return llama_to_inference(model.config, params, dtype)
     raise NotImplementedError(
         f"no training->inference conversion for {type(model).__name__}; "
-        "supported: GPT2LMModel (" + _later("models/llama.py", "A5b") + ")")
+        "supported: GPT2LMModel, LlamaLMModel")
 
 
 def gpt2_to_inference(cfg, params, dtype=None):
@@ -95,7 +99,56 @@ def gpt2_to_inference(cfg, params, dtype=None):
 
 
 def llama_to_inference(cfg, params, dtype=None):
-    """``models/llama.py`` is not ported yet, so there is no trained
-    LLaMA to convert."""
-    raise NotImplementedError(
-        _later("llama_to_inference (models/llama.py)", "A5b"))
+    """The port's flat LLaMA training params (``layers_{i}.attn.wq.kernel``,
+    ...) → the inference tree (LlamaPolicy layout): zero biases, ``wk`` /
+    ``wv`` as ``[E, KH, D]``, the untied head transposed to ``[C, V]``
+    (training keeps it ``[V, C]``), rotary at the full head dim."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(_later("converting an MoE LLaMA", "A8"))
+    dt = dtype or cfg.dtype
+    E, H, KH = cfg.n_embd, cfg.n_head, cfg.n_kv_head
+    D = cfg.head_dim
+    Fh = cfg.intermediate_size
+    icfg = InferenceTransformerConfig(
+        vocab_size=cfg.vocab_size, n_positions=cfg.n_positions, n_embd=E,
+        n_layer=cfg.n_layer, n_head=H, n_kv_head=KH,
+        intermediate_size=Fh, positional="rotary", rotary_dim=D,
+        rotary_base=cfg.rope_theta, activation="silu",
+        norm_type="rmsnorm", gated_mlp=True,
+        layer_norm_eps=cfg.rms_eps,
+        tied_lm_head=cfg.tie_embeddings,
+        # inert without experts; set as JAX sets them
+        moe_top_k=cfg.moe_top_k, moe_renormalize=cfg.moe_top_k != 1,
+        dtype=dt)
+    dev = params["embed"].device
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    out: Dict[str, Any] = {
+        "wte": _f(params["embed"], dt),
+        "ln_f": {"scale": _f(params["ln_f"], dt)},
+        "layers": [],
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = _f(params["lm_head"].t(), dt)
+    for i in range(cfg.n_layer):
+        p = f"layers_{i}."
+        out["layers"].append({
+            "ln1": {"scale": _f(params[p + "ln_attn"], dt)},
+            "ln2": {"scale": _f(params[p + "ln_mlp"], dt)},
+            "attn": {
+                "wq": _f(params[p + "attn.wq.kernel"], dt).reshape(E, H, D),
+                "wk": _f(params[p + "attn.wk.kernel"], dt).reshape(E, KH, D),
+                "wv": _f(params[p + "attn.wv.kernel"], dt).reshape(E, KH, D),
+                "bq": zeros(H, D), "bk": zeros(KH, D), "bv": zeros(KH, D),
+                "wo": _f(params[p + "attn.wo.kernel"], dt).reshape(H, D, E),
+                "bo": zeros(E),
+            },
+            "mlp": {"wg": _f(params[p + "mlp.gate.kernel"], dt),
+                    "bg": zeros(Fh),
+                    "wi": _f(params[p + "mlp.up.kernel"], dt),
+                    "bi": zeros(Fh),
+                    "wo": _f(params[p + "mlp.down.kernel"], dt),
+                    "bo": zeros(E)},
+        })
+    return icfg, out

@@ -21,7 +21,8 @@ PORT_FILES = sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "deepspeed_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "scripts/profile_torch_generate.py",
-       "scripts/profile_speculation.py", "scripts/profile_int8.py"])
+       "scripts/profile_speculation.py", "scripts/profile_int8.py",
+       "scripts/profile_train_models.py"])
 
 
 def banned_imports(source: str):

@@ -47,6 +47,7 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.engine import (load_serving_checkpoint,
                                                   save_serving_checkpoint)
 from deepspeed_tpu_torch.models import gpt2 as port_gpt2
+from deepspeed_tpu_torch.models import llama as port_llama
 from deepspeed_tpu_torch.module_inject import (convert_trained_model,
                                                gpt2_to_inference,
                                                llama_to_inference)
@@ -126,9 +127,13 @@ def test_gpt2_to_inference_matches_jax(flax_params):
 
 
 def test_conversion_refusals_name_their_queue(flax_params):
-    with pytest.raises(NotImplementedError, match="A5"):
-        llama_to_inference(None, {})
-    with pytest.raises(NotImplementedError, match="A5"):
+    # an MoE LLaMA converts with A8; a model of no training family is
+    # refused with the list of those that convert
+    moe_llama = port_llama.config_for("mixtral-tiny")
+    with pytest.raises(NotImplementedError, match="A8"):
+        llama_to_inference(moe_llama, {})
+    with pytest.raises(NotImplementedError,
+                       match="supported: GPT2LMModel, LlamaLMModel"):
         convert_trained_model(object(), {})
     moe = port_gpt2.GPT2Config(**TINY, num_experts=2)
     with pytest.raises(NotImplementedError, match="A8"):
