@@ -236,11 +236,11 @@ kernel's row.
 10b. checkpoint — the training engine's checkpoints and the bridge to
    serving, under a temporary directory of the checkout's ``build/``
    (removed at the end; the free space is printed first). The resume
-   oracle at ``gpt2-1.3b``'s full width and depth with phase train's
+   oracle at ``gpt2-1.3b``'s full width and 4 of its 24 layers
+   (CKPT_LAYERS, a cut for the time limit) with phase train's
    configuration: run A takes 4 steps on 4 seeded batches; run B starts
-   from the same weights, takes steps 1-2, saves (sync, verified: a 15.77
-   GB tag) and is destroyed; run C starts from other weights, loads and
-   takes steps 3-4. C's losses and every master leaf must equal A's bit
+   from the same weights, takes steps 1-2, saves (sync, verified) and is
+   destroyed; run C starts from other weights, loads and takes steps 3-4. C's losses and every master leaf must equal A's bit
    for bit, ``global_steps`` be 4, and every run launch B1-B3 as phase
    train counts them; it prints the tag's bytes and the save (state
    write, manifest hash), verify and load seconds with their GB/s. Then
@@ -252,6 +252,27 @@ kernel's row.
    async engine at gpt2-1.3b's width and 4 layers: a save at step 2,
    steps 3-4 while the write may run, ``destroy`` joins, and a fresh
    engine loads the step-2 state bit for bit.
+10c. offload — ZeRO-Offload. (i) ``llama-7b-gqa`` at full width and 24
+   of its 32 layers (5,496,836,096 parameters), bf16, AdamW, ``stage 1,
+   offload_optimizer: {device: cpu, implementation: host}``, micro 2 x
+   gas 1 x T 4096, remat, two steps: the port's
+   ``estimate_zero_model_states_mem_needs`` puts the in-HBM state above
+   the card's memory; each step's time split into device (forward and
+   backward), D2H, host Adam and H2D, the device peak and the host RSS
+   peak; finite losses; the first step's host master of layer 0's ``wq``
+   and of the embedding against ``ops/adam.py`` applied to the same
+   gradient (OFFLOAD_ADAM_TOL of the update); every bf16 param on the card
+   equal to the RNE cast of its host master; B1-B3 counted (B3 at R = 4).
+   (ii) ``gpt2-1.3b`` at its width and 4 layers, phase train's
+   configuration, four engines from the same weights over the same 3
+   batches: (a) in-HBM, (b) ``offload_optimizer`` host, (c) ``stream``,
+   (d) stage 3 with ``offload_param`` (the model fetching its layers) and
+   the host optimizer. (c) equals (a) bit for bit; (b) is within
+   TRAIN_LOSS_TOL of (a)'s losses and OFFLOAD_UPDATE_TOL relative L2 of
+   each leaf's update; (d) equals (b) bit for bit with a lower device
+   peak and its params in pinned host memory between steps; (b) saved at
+   step 2 and resumed from other weights gives step 3's loss and host
+   master bit for bit.
 11. sparse run — ``SparseSelfAttention`` with layout (i), three calls at
    T=4096 and one at T=2048: 4 kernel launches, one LUT per length, every
    output within SPARSE_TOL of the plain version; then the same at 32
@@ -271,16 +292,17 @@ e2e generate, each server, phase hf's ``generate`` calls, phase
 llama_bert's timed steps, ``generate`` and masked step, phase int8's
 ``generate`` calls, servers and training runs, the timed training steps,
 the checkpoint
-phase's training runs and its ``generate``, and the sparse and layer_norm
-runs) and read just after. Every attention kernel, int8 ones
+phase's training runs and its ``generate``, phase offload's training
+runs, and the sparse and layer_norm runs) and read just after. Every attention kernel, int8 ones
 included, must have launched on a main-path run at head dim 80, 96 or
 256, every serving kernel (B1, B4-B7, B5i-B7i) at 256 on the gptj path,
 and B1-B3 and B8 at 256 on the train gpt2-1.3b 8x256 or sparse 8 x 256
 path. Kernel times are device times (CUDA events behind a device spin,
 after an L2 flush).
 
-It prints the card's name and power limit (nvidia-smi), one JSON line of
-per-kernel numbers, and, last, ``{"ok": true, "device": {...}}``. It exits
+It prints the wall of every phase, the card's name and power limit
+(nvidia-smi), one JSON line of per-kernel numbers, and, last, ``{"ok":
+true, "device": {...}}``. It exits
 non-zero with no result when no CUDA device is present.
 """
 from __future__ import annotations
@@ -2125,6 +2147,10 @@ def phase_train(preset="gpt2-1.3b", n_head=None, n_layer=None):
 
 CKPT_STEPS = 4   # the resume oracle: steps 1-2, a save, steps 3-4
 CKPT_NEW = 32    # tokens the converted model serves a prompt
+# the resume oracle's depth: gpt2-1.3b's full width at 4 of its 24 layers
+# (every gate kept; the full depth wrote 15.8 GB in 113-133 s of host and
+# disk time, which the time limit no longer affords)
+CKPT_LAYERS = 4
 
 
 def _ckpt_engine(cfg, seed, extra=None):
@@ -2207,16 +2233,16 @@ def _gbps(nbytes, s):
 
 
 def _ckpt_resume(save_dir):
-    """The resume oracle at gpt2-1.3b's full width and depth: run A takes
-    4 steps; run B takes steps 1-2 from the same weights, saves (sync,
-    verified) and is destroyed; run C starts from other weights, loads and
-    takes steps 3-4. Returns (launch counts by run, engine C, its config,
-    the tag's bytes)."""
+    """The resume oracle at gpt2-1.3b's full width and CKPT_LAYERS of its
+    24 layers: run A takes 4 steps; run B takes steps 1-2 from the same
+    weights, saves (sync, verified) and is destroyed; run C starts from
+    other weights, loads and takes steps 3-4. Returns (launch counts by
+    run, engine C, its config, the tag's bytes)."""
     from deepspeed_tpu_torch.checkpoint import checkpoint_engine as ce_mod
     from deepspeed_tpu_torch.checkpoint.integrity import dir_bytes
     from deepspeed_tpu_torch.models.gpt2 import config_for
     from deepspeed_tpu_torch.runtime import checkpointing as ck
-    cfg = config_for("gpt2-1.3b")
+    cfg = config_for("gpt2-1.3b", n_layer=CKPT_LAYERS)
     L = cfg.n_layer
     batches = _ckpt_batches(cfg, CKPT_STEPS, 15)
     runs = {}
@@ -2267,7 +2293,8 @@ def _ckpt_resume(save_dir):
     diff = [k for k in master_a if not torch.equal(c.master[k], master_a[k])]
     worst = max((float((c.master[k] - master_a[k]).abs().max())
                  for k in diff), default=0.0)
-    log(f"[checkpoint] gpt2-1.3b resume: losses run A {losses_a!r}, run C "
+    log(f"[checkpoint] gpt2-1.3b x{L} resume: losses run A {losses_a!r}, "
+        f"run C "
         f"(steps 3-4 after the load) {losses_c!r}; master leaves that "
         f"differ from run A's: {len(diff)} of {len(master_a)} (max |diff| "
         f"{worst!r}); global_steps {c.global_steps}")
@@ -2279,7 +2306,7 @@ def _ckpt_resume(save_dir):
     check(c.global_steps == CKPT_STEPS,
           f"checkpoint: global_steps {c.global_steps} != {CKPT_STEPS}")
     state = sum(n for f, n in files.items() if f.startswith("state"))
-    log(f"[checkpoint] gpt2-1.3b tag global_step2: {nbytes} bytes "
+    log(f"[checkpoint] gpt2-1.3b x{L} tag global_step2: {nbytes} bytes "
         f"({files}); save {save_s!r} s ({_gbps(nbytes, save_s)!r} GB/s): "
         f"state write {sv.s['write']!r} s ({_gbps(state, sv.s['write'])!r} "
         f"GB/s), "
@@ -2324,7 +2351,7 @@ def _ckpt_serve(engine, icfg, path):
               and all(0 <= x < icfg.vocab_size for x in row[lens[b]:]),
               f"checkpoint serve: row {b} malformed")
     rows = [int(np.argmin(lens)), int(np.argmax(lens))]
-    _serve_oracle(engine, "checkpoint trained gpt2-1.3b",
+    _serve_oracle(engine, f"checkpoint trained gpt2-1.3b x{L}",
                   [prompts[r] for r in rows], [out[r] for r in rows],
                   CKPT_NEW)
     t = time.perf_counter()
@@ -2345,7 +2372,8 @@ def _ckpt_serve(engine, icfg, path):
     same = torch.equal(engine.forward(ids), back.forward(ids))
     check(same, "checkpoint serve: prefill logits differ after the serving "
           "checkpoint round trip")
-    log(f"[checkpoint] trained gpt2-1.3b served: generate 8 x {CKPT_NEW} "
+    log(f"[checkpoint] trained gpt2-1.3b x{L} served: generate 8 x "
+        f"{CKPT_NEW} "
         f"tokens in {gen_s!r} s, launches {counts}; serving checkpoint "
         f"{nbytes} bytes, save {save_s!r} s ({_gbps(nbytes, save_s)!r} "
         f"GB/s), load {load_s!r} s ({_gbps(nbytes, load_s)!r} GB/s); "
@@ -2432,6 +2460,342 @@ def phase_checkpoint():
         del engine
         torch.cuda.empty_cache()
         runs.update(_ckpt_async(os.path.join(tmp, "async")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return runs
+
+
+# phase offload: llama-7b-gqa at 24 of its 32 layers, whose in-HBM state
+# (bf16 params, f32 master, mu, nu, grads: 18 bytes a parameter) exceeds
+# the card; the optimizer state goes to the host (12 bytes a parameter)
+OFFLOAD_LLAMA = ("llama-7b-gqa", {"n_layer": 24}, 2, 1, 4096, 5496836096)
+OFFLOAD_STEPS = 2
+OFFLOAD_GPT2_LAYERS = 4     # gpt2-1.3b's width, the four engines
+OFFLOAD_GPT2_STEPS = 3
+# the C++ step against ops/adam.py on the same grads: the largest
+# difference over the largest update of the leaf (the two order their f32
+# arithmetic differently: a few ulps of the master against an update of
+# ~lr)
+OFFLOAD_ADAM_TOL = 1e-3
+# host against in-HBM after OFFLOAD_GPT2_STEPS: losses to TRAIN_LOSS_TOL
+# relative, each leaf's update of the master to this relative L2 (the key
+# third of c_attn.bias, whose exact gradient is zero, to Adam's bound)
+OFFLOAD_UPDATE_TOL = 5e-2
+
+
+class _HostRss:
+    """The process's resident set, sampled every 20 ms on a thread while
+    active (``/proc/self/statm``): ``peak`` bytes."""
+
+    def __init__(self):
+        import threading
+        self.peak, self._stop = 0, threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def now() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.now())
+            self._stop.wait(0.02)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.now())
+
+
+def _zero_engine(model, params, micro, gas, zero):
+    """Phase train's engine (bf16, AdamW lr 1e-4, weight decay 0.01,
+    clipping 1.0) with a ``zero_optimization`` section."""
+    import deepspeed_tpu_torch
+    engine = deepspeed_tpu_torch.initialize(
+        model=model, model_parameters=params, config={
+            "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas, "gradient_clipping": 1.0,
+            "bf16": {"enabled": True}, "zero_optimization": zero,
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}}})[0]
+    torch.cuda.synchronize()
+    return engine
+
+
+def _adam_gate(tag, engine, name, master0, lr):
+    """The host master of leaf ``name`` after the first step against the
+    port's device AdamW (``ops/adam.py``) applied to the same (clipped)
+    gradient from the same master; returns the relative error."""
+    from deepspeed_tpu_torch.ops.adam import AdamState, adam
+    g = engine._acc[engine._index[name]].detach()
+    m0 = master0.to("cuda", non_blocking=True).reshape(g.shape)
+    opt = adam(weight_decay=0.01)
+    state = AdamState(count=0, mu={name: torch.zeros_like(m0)},
+                      nu={name: torch.zeros_like(m0)})
+    upd, _ = opt.update({name: g}, state, {name: m0}, lr)
+    want = m0 + upd[name]
+    got = engine.host_opt.master[name].to("cuda").reshape(g.shape)
+    err = float((got - want).abs().max())
+    scale = float(upd[name].abs().max())
+    rel = err / scale
+    log(f"[offload] {tag}: step 1's host master of {name} {tuple(g.shape)} "
+        f"against ops/adam.py on the same gradient: max |diff| {err!r}, "
+        f"largest update {scale!r}, relative {rel!r} (tol "
+        f"{OFFLOAD_ADAM_TOL})")
+    check(rel <= OFFLOAD_ADAM_TOL,
+          f"{tag}: host Adam of {name} off by {rel} of the update")
+    return rel
+
+
+def _offload_llama(smi):
+    """(i) llama-7b-gqa at 24 of 32 layers with offload_optimizer host:
+    the estimate, two steps with their split, the Adam gate, the bf16
+    params against the host master, B3 at R = 4."""
+    from deepspeed_tpu_torch.models import llama as llama_mod
+    from deepspeed_tpu_torch.runtime.zero import \
+        estimate_zero_model_states_mem_needs
+    name, over, micro, gas, T, n_params = OFFLOAD_LLAMA
+    cfg = llama_mod.config_for(name, **over)
+    L = cfg.n_layer
+    model = llama_mod.LlamaLMModel(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    shapes = {n: p.shape for n, p in model.module.named_parameters()}
+    n = sum(math.prod(s) for s in shapes.values())
+    largest = max(math.prod(s) for s in shapes.values())
+    check(n == n_params, f"{name} x{L}: {n} parameters, expected {n_params}")
+    est = {off: estimate_zero_model_states_mem_needs(
+        n, largest, stage=1, offload_optimizer=off) for off in (False, True)}
+    log(f"[offload] {name} x{L}: {n} parameters (largest leaf {largest}); "
+        f"estimate_zero_model_states_mem_needs stage 1: in HBM "
+        f"{est[False]}, offload_optimizer {est[True]}; the card holds "
+        f"{total} bytes")
+    check(est[False]["hbm_per_chip"] > total,
+          f"{name} x{L}: the in-HBM estimate {est[False]} fits the card's "
+          f"{total} bytes")
+    rng = np.random.default_rng(22)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (micro * gas, T),
+                                       dtype=np.int32)}
+    with _HostRss() as rss:
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(22))
+        engine = _zero_engine(model, params, micro, gas, {
+            "stage": 1, "offload_optimizer": {"device": "cpu",
+                                              "implementation": "host"}})
+        del params
+        torch.cuda.empty_cache()
+        init_s = time.perf_counter() - t0
+        check(engine.host_opt is not None and engine.master is None,
+              f"{name}: the optimizer state is not on the host")
+        gated = ("layers_0.attn.wq.kernel", "embed")
+        master0 = {k: engine.host_opt.master[k].clone() for k in gated}
+        rss_init = _HostRss.now()
+        torch.cuda.reset_peak_memory_stats()
+        _launch_counts(reset=True)
+        metrics, walls, times = [], [], []
+        for step in range(OFFLOAD_STEPS):   # THE main path
+            t = time.perf_counter()
+            metrics.append(engine.train_batch(batch))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            times.append(dict(engine.offload_step_times))
+            if step == 0:   # launches no kernel of the table
+                rels = [_adam_gate(f"{name} x{L}", engine, k, master0[k],
+                                   float(metrics[0]["lr"])) for k in gated]
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{name} x{L} offload: non-finite loss or grad norm {losses} "
+          f"{gnorms}")
+    k = OFFLOAD_STEPS * gas
+    check(counts["flash_attention_fwd"] == 2 * L * k,
+          f"{name} x{L} offload: flash forward launched "
+          f"{counts['flash_attention_fwd']} times, expected {2 * L * k}")
+    for kk in _BWD_KERNELS:
+        check(counts[kk] == L * k,
+              f"{name} x{L} offload: {kk} launched {counts[kk]} times, "
+              f"expected {L * k} (B3 sums {cfg.n_head // cfg.n_kv_head} "
+              f"query heads into each KV head)")
+    # the bf16 params on the card are the RNE cast of the host master
+    t = time.perf_counter()
+    bad = [k for k, p in engine.params.items() if not torch.equal(
+        p.detach(), engine.host_opt.master[k].to(
+            "cuda", non_blocking=True).reshape(p.shape).to(torch.bfloat16))]
+    cmp_s = time.perf_counter() - t
+    check(not bad, f"{name} x{L} offload: bf16 params differ from the host "
+          f"master's cast: {bad[:5]}")
+    tokens = micro * gas * T
+    log(f"[offload] {name} x{L}, offload_optimizer host, {micro} x {gas} x "
+        f"T {T}: random weights and engine in {init_s!r} s (host RSS "
+        f"{rss_init} bytes after); steps {[w * 1e3 for w in walls]!r} ms "
+        f"({[tokens / w for w in walls]!r} tokens/s); split by step "
+        f"{times!r} (device_s: forward and backward until the gradients "
+        f"are final; d2h_s and h2d_s: the copy streams' busy seconds; "
+        f"adam_s: the host Adam; wait_s: the host's waits for gradient "
+        f"chunks; tail_s: the last payload copies; total_s: the optimizer "
+        f"step); losses {losses!r}; grad norms {gnorms!r}; device peak "
+        f"{peak} bytes (estimate {est[True]['hbm_per_chip']}); host RSS "
+        f"peak {rss.peak} bytes; Adam gates {rels!r}; all {len(engine.params)}"
+        f" bf16 params equal the host master's RNE cast ({cmp_s!r} s); "
+        f"launches {counts}; {smi}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"offload {name} x{L}": counts}
+
+
+def _offload_gpt2_runs(save_dir):
+    """(ii) gpt2-1.3b at OFFLOAD_GPT2_LAYERS layers: four engines over the
+    same batches from the same weights; a checkpoint of (b) at step 2."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
+    cfg = config_for("gpt2-1.3b", n_layer=OFFLOAD_GPT2_LAYERS)
+    L = cfg.n_layer
+    batches = _ckpt_batches(cfg, OFFLOAD_GPT2_STEPS, 23)
+    host = {"device": "cpu", "implementation": "host"}
+    engines = {
+        "a in-HBM": ({"stage": 0}, False),
+        "b host": ({"stage": 1, "offload_optimizer": host}, False),
+        "c stream": ({"stage": 1, "offload_optimizer": {
+            "device": "cpu", "implementation": "stream"}}, False),
+        "d stage 3 param+host": ({"stage": 3, "offload_optimizer": host,
+                                  "offload_param": {"device": "cpu"}}, True)}
+    out, runs = {}, {}
+    init = None
+    for tag, (zero, fetch) in engines.items():
+        model = GPT2LMModel(dataclasses.replace(cfg, offload_params=fetch))
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        if init is None:
+            init = {k: v.detach().cpu() for k, v in params.items()}
+        engine = _zero_engine(model, params, 8, 2, zero)
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _launch_counts(reset=True)
+        losses, walls, times = [], [], []
+        for i, b in enumerate(batches):   # THE main path
+            t = time.perf_counter()
+            losses.append(float(engine.train_batch(b)["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            times.append(dict(engine.offload_step_times))
+            if tag == "b host" and i == 1:
+                t_save = time.perf_counter()
+                engine.save_checkpoint(save_dir)
+                t_save = time.perf_counter() - t_save
+        counts = runs[f"offload gpt2-1.3b x{L} {tag}"] = _launch_counts()
+        n = 2 * len(batches)
+        check(counts["flash_attention_fwd"] == 2 * L * n and all(
+            counts[k] == L * n for k in _BWD_KERNELS),
+            f"offload gpt2 {tag}: launches {counts}")
+        check(all(math.isfinite(x) for x in losses),
+              f"offload gpt2 {tag}: losses {losses}")
+        out[tag] = {"losses": losses,
+                    "master": engine.fp32_master_params(),
+                    "params": {k: v.detach().cpu()
+                               for k, v in engine.params.items()},
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "walls": walls, "times": times}
+        on_host = all(p.device.type == "cpu" for p in engine.params.values())
+        log(f"[offload] gpt2-1.3b x{L} ({tag}): losses {losses!r}; steps "
+            f"{[w * 1e3 for w in walls]!r} ms; split {times!r}; device peak "
+            f"{out[tag]['peak']} bytes; params on the host between steps "
+            f"{on_host}; launches {counts}")
+        if tag.startswith("d"):
+            check(on_host and all(p.is_pinned()
+                                  for p in engine.params.values()),
+                  "offload gpt2 (d): the params are not in pinned host "
+                  "memory between steps")
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the checkpoint of (b) at step 2, resumed from other weights
+    model = GPT2LMModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    engine = _zero_engine(model, params, 8, 2, engines["b host"][0])
+    del params
+    t = time.perf_counter()
+    engine.load_checkpoint(save_dir)
+    load_s = time.perf_counter() - t
+    _launch_counts(reset=True)
+    loss3 = float(engine.train_batch(batches[2])["loss"])
+    torch.cuda.synchronize()
+    runs[f"offload gpt2-1.3b x{L} b resumed"] = _launch_counts()
+    b = out["b host"]
+    same_master = all(torch.equal(engine.host_opt.master[k].reshape(v.shape),
+                                  v) for k, v in b["master"].items())
+    log(f"[offload] gpt2-1.3b x{L} (b) checkpoint at step 2: save "
+        f"{t_save!r} s, load {load_s!r} s; step 3 after the load {loss3!r} "
+        f"against {b['losses'][2]!r}; host master after it equal {same_master}")
+    check(loss3 == b["losses"][2] and same_master,
+          f"offload gpt2 (b): the resumed step 3 ({loss3}) is not the "
+          f"uninterrupted one ({b['losses'][2]}), master equal {same_master}")
+    del engine, model
+    # the gates
+    a, c, d = out["a in-HBM"], out["c stream"], out["d stage 3 param+host"]
+    check(c["losses"] == a["losses"] and all(
+        torch.equal(c["master"][k], v) for k, v in a["master"].items()),
+        f"offload gpt2: stream is not the in-HBM path bit for bit "
+        f"({c['losses']} against {a['losses']})")
+    rel_loss = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                         a["losses"]))
+    # the key third of c_attn.bias has an exact gradient of zero (a bias
+    # on every key shifts a row's scores by one constant), so both
+    # engines move it by rounding noise: it is held to Adam's bound only
+    C, key_max = cfg.n_embd, 0.0
+    rel_upd = {}
+    for k, am in a["master"].items():
+        bm, da = b["master"][k], a["master"][k] - init[k]
+        if k.endswith("c_attn.bias"):
+            key_max = max(key_max, float((bm[C:2 * C] - init[k][C:2 * C])
+                                         .abs().max()))
+            keep = torch.cat([torch.arange(C), torch.arange(2 * C, 3 * C)])
+            bm, am, da = bm[keep], am[keep], da[keep]
+        rel_upd[k] = float((bm - am).norm() / da.norm().clamp_min(1e-30))
+    top = sorted(rel_upd, key=rel_upd.get, reverse=True)[:3]
+    bound = OFFLOAD_GPT2_STEPS * 1e-4 * 1.01
+    log(f"[offload] gpt2-1.3b x{L}: (b) host against (a) in-HBM: losses "
+        f"within {rel_loss!r} relative (tol {TRAIN_LOSS_TOL}); updates of "
+        f"the master within {[(k, rel_upd[k]) for k in top]!r} relative L2 "
+        f"at worst, mean {float(np.mean(list(rel_upd.values())))!r} (tol "
+        f"{OFFLOAD_UPDATE_TOL}); the key third of c_attn.bias moved at most "
+        f"{key_max!r} (Adam's bound {bound!r}); (c) stream equals (a) bit "
+        f"for bit; (d) peak {d['peak']} against (b) {b['peak']} bytes")
+    check(rel_loss <= TRAIN_LOSS_TOL and rel_upd[top[0]] <= OFFLOAD_UPDATE_TOL
+          and key_max <= bound,
+          f"offload gpt2: host against in-HBM: losses {rel_loss}, worst "
+          f"update {top[0]} {rel_upd[top[0]]}, key bias {key_max}")
+    check(d["losses"] == b["losses"] and all(
+        torch.equal(d["master"][k], v) and torch.equal(d["params"][k],
+                                                       b["params"][k])
+        for k, v in b["master"].items()),
+        f"offload gpt2: stage 3 with offload_param is not (b) bit for bit "
+        f"({d['losses']} against {b['losses']})")
+    check(d["peak"] < b["peak"],
+          f"offload gpt2: offload_param's device peak {d['peak']} is not "
+          f"below (b)'s {b['peak']}")
+    return runs
+
+
+def phase_offload(smi):
+    """ZeRO-Offload on the card: (i) llama-7b-gqa at 24 of its 32 layers,
+    whose in-HBM training state exceeds the card, with the optimizer state
+    on the host; (ii) gpt2-1.3b's four engines. Writes its checkpoint under
+    a temporary directory of the checkout's ``build/``, removed at the
+    end. Returns the launch counts of its main-path runs by name."""
+    import tempfile
+    runs = _offload_llama(smi)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="offload_smoke_", dir=root)
+    try:
+        runs.update(_offload_gpt2_runs(os.path.join(tmp, "ckpt")))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4254,51 +4618,56 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    phase_build()
-    kernels = {"flash_attention_fwd": phase_flash(flush),
-               "decode_attention": phase_decode(flush),
-               **phase_paged(flush),
-               **phase_flash_bwd(flush),
-               "block_sparse_attention": phase_sparse(flush),
-               **phase_layer_norm(flush)}
+    walls = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
+    timed("build", phase_build)
+    kernels = {"flash_attention_fwd": timed("flash", phase_flash, flush),
+               "decode_attention": timed("decode", phase_decode, flush),
+               **timed("paged", phase_paged, flush),
+               **timed("flash_bwd", phase_flash_bwd, flush),
+               "block_sparse_attention": timed("sparse", phase_sparse, flush),
+               **timed("layer_norm", phase_layer_norm, flush)}
     cfg = gpt2_xl_config()
-    params = make_params(cfg)
-    runs = {"e2e": phase_e2e(cfg, params)}
-    runs.update(phase_serve(cfg, params))
-    runs.update(phase_spec(cfg, params, smi))
-    runs.update(phase_int8(cfg, params, smi))
+    params = timed("e2e", make_params, cfg)
+    runs = {"e2e": timed("e2e", phase_e2e, cfg, params)}
+    runs.update(timed("serve", phase_serve, cfg, params))
+    runs.update(timed("spec", phase_spec, cfg, params, smi))
+    runs.update(timed("int8", phase_int8, cfg, params, smi))
     del params, flush   # the serving weights; training needs the room
     torch.cuda.empty_cache()
     # the main-path runs at head dims outside {64, 128}: Pythia-2.8B (80),
     # GPT-J-6B (256), gpt2-760m (96), gpt2-2.7b (80), the sparse run at 32
     # heads of 80
-    new_d = phase_pythia()
-    gptj = phase_gptj()
+    new_d = timed("pythia", phase_pythia)
+    gptj = timed("gptj", phase_gptj)
     new_d.update(gptj)
     runs.update(new_d)
-    t_hf = time.perf_counter()
-    runs.update(phase_hf(smi))
-    t_hf = time.perf_counter() - t_hf
-    t_lb = time.perf_counter()
-    runs.update(phase_llama_bert(smi))
-    t_lb = time.perf_counter() - t_lb
-    runs["train"] = phase_train()
-    runs.update(phase_int8_train())
+    runs.update(timed("hf", phase_hf, smi))
+    runs.update(timed("llama_bert", phase_llama_bert, smi))
+    runs["train"] = timed("train", phase_train)
+    runs.update(timed("int8 train", phase_int8_train))
     for preset in ("gpt2-760m", "gpt2-2.7b"):
-        runs[f"train {preset}"] = new_d[f"train {preset}"] = phase_train(
-            preset, n_layer=NEW_D_TRAIN_LAYERS)
+        runs[f"train {preset}"] = new_d[f"train {preset}"] = timed(
+            "train", phase_train, preset, n_layer=NEW_D_TRAIN_LAYERS)
     # heads of 256 in training and in the sparse run (Gemma-2B's query
     # geometry: 8 heads of 256 at 2048 wide)
-    d256 = {"train gpt2-1.3b 8x256": phase_train("gpt2-1.3b", n_head=8)}
-    t_ckpt = time.perf_counter()
-    runs.update(phase_checkpoint())
-    t_ckpt = time.perf_counter() - t_ckpt
-    runs["sparse"] = run_sparse()
-    runs["sparse 32 x 80"] = new_d["sparse 32 x 80"] = run_sparse(32, 80)
-    d256["sparse 8 x 256"] = run_sparse(8, 256)
+    d256 = {"train gpt2-1.3b 8x256": timed("train", phase_train, "gpt2-1.3b",
+                                           n_head=8)}
+    runs.update(timed("checkpoint", phase_checkpoint))
+    runs.update(timed("offload", phase_offload, smi))
+    runs["sparse"] = timed("runs", run_sparse)
+    runs["sparse 32 x 80"] = new_d["sparse 32 x 80"] = timed(
+        "runs", run_sparse, 32, 80)
+    d256["sparse 8 x 256"] = timed("runs", run_sparse, 8, 256)
     new_d.update(d256)
     runs.update(d256)
-    runs["layer_norm"] = run_layer_norm()
+    runs["layer_norm"] = timed("runs", run_layer_norm)
     # launches: summed over the main-path runs, each read just after it
     launches = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels}
     for k, n in launches.items():
@@ -4375,9 +4744,8 @@ def main() -> int:
                      **{k: v for k, v in nums.items() if k not in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms")}})
-    log(f"[wall] chip_smoke.py {time.perf_counter() - t_start!r} s, of "
-        f"which phase checkpoint {t_ckpt!r} s, phase hf {t_hf!r} s, phase "
-        f"llama_bert {t_lb!r} s")
+    log(f"[wall] chip_smoke.py {time.perf_counter() - t_start!r} s; by "
+        f"phase (s): {walls!r}")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -209,15 +209,28 @@ def import_into_engine(engine, fp32_tree: Dict[str, torch.Tensor]) -> None:
             "imported names/shapes do not match the engine's params — "
             "map names (to_param_tree + renames) first")
     with torch.no_grad():
+        if engine.host_opt is not None:
+            # ZeRO-Offload: the master and the moments live on the host;
+            # the params take the weights and the master is re-seeded
+            # from them (JAX import_deepspeed.py:218-224)
+            for k, p in engine.params.items():
+                p.detach().copy_(torch.as_tensor(fp32_tree[k]))
+            engine.host_opt.sync_master_from(engine.params)
+            return
+        engine._sync_host_state()
         master = engine._master()
         for k, m in master.items():
             m.detach().copy_(torch.as_tensor(fp32_tree[k]).float())
-        if engine.mixed_precision:
-            names = list(master)
-            torch._foreach_copy_([engine.params[n].detach() for n in names],
-                                 [master[n] for n in names])
-    engine.opt_state = engine.optimizer.init(
-        {k: v.detach() for k, v in engine._master().items()})
+        if master is not engine.params:
+            engine._cast_params_from(master)
+    if engine._stream_opt is not None:   # restart the pinned moments
+        for f in engine._stream_opt.fields:
+            for t in getattr(engine.opt_state, f).values():
+                t.zero_()
+        engine.opt_state.count = 0
+    else:
+        engine.opt_state = engine.optimizer.init(
+            {k: v.detach() for k, v in engine._master().items()})
 
 
 def to_param_tree(flat: Dict[str, torch.Tensor],

@@ -108,8 +108,9 @@ def reshape_checkpoint(src_dir: str, dst_dir: str,
     os.makedirs(os.path.join(dst_dir, src.tag), exist_ok=True)
     TorchCheckpointEngine().save(state, os.path.join(dst_dir, src.tag,
                                                      "state"))
-    # sidecar files (client_state.json, the manifest, user blobs) travel
-    # with the checkpoint
+    # sidecar files (host_optimizer.npz, client_state.json, the manifest,
+    # user blobs) travel with the checkpoint — dropping host_optimizer.npz
+    # would silently reset offloaded Adam moments on restore
     for name in os.listdir(src.dir):
         src_path = os.path.join(src.dir, name)
         if name != "state" and os.path.isfile(src_path):

@@ -5,7 +5,9 @@ Counterpart of ``deepspeed_tpu/checkpoint/zero_to_fp32.py`` (reference
 stitches per-rank flat shards back into parameters; the port's checkpoint
 already holds whole tensors, so consolidation is: read the f32 master,
 write one file (``torch.save``, as the reference writes its
-``pytorch_model.bin``).
+``pytorch_model.bin``). A ZeRO-Offload checkpoint keeps its master in
+``host_optimizer.npz`` beside the state (JAX
+``checkpoint/zero_to_fp32.py:38``), which is read then.
 
 CLI::
 
@@ -14,6 +16,7 @@ CLI::
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Dict, Optional
 
 import torch
@@ -25,9 +28,25 @@ from deepspeed_tpu_torch.utils.logging import logger
 def get_fp32_state_dict_from_zero_checkpoint(
         ckpt_dir: str, tag: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """``{param name: fp32 host tensor}`` — the master weights (in fp32
-    training, the params themselves)."""
-    state = DeepSpeedCheckpoint(ckpt_dir, tag).load()
+    training, the params themselves; with the host offload, the host
+    master in the leaves' shapes)."""
+    ck = DeepSpeedCheckpoint(ckpt_dir, tag)
+    state = ck.load()
     master = state.get("master")
+    host_npz = os.path.join(ck.dir, "host_optimizer.npz")
+    if not master and os.path.isfile(host_npz):
+        import numpy as np
+        params = state.get("params") or {}
+        blob = np.load(host_npz)
+        out = {}
+        for key in blob.files:
+            if key.startswith("master::"):
+                name = key[len("master::"):].replace("/", ".")
+                t = torch.from_numpy(blob[key].astype(np.float32))
+                out[name] = t.reshape(tuple(params[name].shape)) \
+                    if name in params else t
+        if out:
+            return out
     if not master:
         raise ValueError(f"checkpoint {ckpt_dir} has no master weights")
     return {k: v.to(torch.float32, copy=True) for k, v in master.items()}

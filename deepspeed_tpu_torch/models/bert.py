@@ -20,6 +20,12 @@ Batch schema (BingBertSquad-style pre-training):
     mlm_labels     [B, T] int, -100 = not masked     (MLM loss)
     nsp_labels     [B] int in {0, 1}                 optional (NSP loss)
 
+A label outside its range (``[0, V)`` for MLM, ``[0, 2)`` for NSP), -100
+included, is masked out of its loss and its gather is clamped, the rule
+of the port's GPT-2 and LLaMA losses: the loss stays finite and no index
+leaves the table (JAX's ``take_along_axis`` wraps a negative label and
+gives NaN above the range).
+
 An unmasked batch takes the layers' flash route (B1-B3, non-causal); a
 batch with ``attention_mask`` takes their plain einsum route, as in JAX.
 The port's engine calls ``loss_fn`` with ``rng=None`` (as it calls every
@@ -164,9 +170,10 @@ class BertPreTrainingModel:
 
     # -- losses ------------------------------------------------------------
     def loss_fn(self, params: Params, batch, rng=None):
-        """Mean MLM cross entropy over the live labels (``!= -100``), in
-        f32, plus the mean NSP cross entropy when ``nsp_labels`` is in the
-        batch."""
+        """Mean MLM cross entropy over the live labels (those in ``[0,
+        V)``; -100 marks a position that is not masked), in f32, plus the
+        mean NSP cross entropy over the rows whose ``nsp_labels`` is 0 or
+        1 when the batch has them."""
         cfg = self.config
         x = self.encode(params, batch["input_ids"],
                         batch.get("attention_mask"),
@@ -181,10 +188,10 @@ class BertPreTrainingModel:
         logits = lm_logits(h, params["wte"].to(h.dtype),
                            cfg.int8_training).float() + params["mlm_bias"]
         labels = batch["mlm_labels"].long()
-        live = labels != -100
-        safe = torch.where(live, labels, 0)
+        live = (labels >= 0) & (labels < cfg.vocab_size)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, safe[..., None])[..., 0]
+        gold = logits.gather(
+            -1, labels.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
         loss = -torch.where(live, gold - lse, 0.0).sum() / torch.clamp(
             live.sum(), min=1)
         if cfg.with_nsp and "nsp_labels" in batch:
@@ -192,9 +199,12 @@ class BertPreTrainingModel:
                                 + params["pooler.b"])
             nsp_logits = (pooled @ params["nsp.w"].to(pooled.dtype)
                           ).float() + params["nsp.b"]
+            nsp = batch["nsp_labels"].long()
+            nsp_live = (nsp >= 0) & (nsp < nsp_logits.shape[-1])
             nsp_ll = torch.log_softmax(nsp_logits, -1).gather(
-                -1, batch["nsp_labels"].long()[:, None])[:, 0]
-            loss = loss - nsp_ll.mean()
+                -1, nsp.clamp(0, nsp_logits.shape[-1] - 1)[:, None])[:, 0]
+            loss = loss - torch.where(nsp_live, nsp_ll, 0.0).sum() / \
+                torch.clamp(nsp_live.sum(), min=1)
         return loss
 
     def param_count(self, params: Params) -> int:

@@ -25,6 +25,16 @@ vocabulary columns with the labels masked to ``[0, vocab_size)``. With
 ``int8_training`` the Dense products and the logits run through SwitchBack
 (``ops/int8_training.py``), as the JAX model routes its Dense layers and
 ``lm_logits``.
+
+With ``offload_params`` the model takes part in ZeRO-3 parameter offload
+(``runtime/zero/param_offload.py``): ``handles_param_offload`` tells the
+engine so, and the engine installs its fetch with
+:meth:`GPT2LMModel.set_param_fetch`. The weights then stay on the host and
+the model fetches each block's weights inside its checkpointed
+``_run_block`` (so the backward recompute fetches them again), ``wte``
+once at the start (the embedding and the tied logits use the same copy),
+``wpe`` and ``ln_f`` at their use, as JAX's ``models/gpt2.py:236-375``
+places its fetches.
 """
 from __future__ import annotations
 
@@ -62,9 +72,10 @@ class GPT2Config:
     # SwitchBack (ops/int8_training.py): the four projections of a block
     # and the logits run int8 forward and dx products
     int8_training: bool = False
+    # ZeRO-3 parameter offload: fetch each block's weights at its use
+    offload_params: bool = False
     # options of the JAX model that this port refuses (queue C)
     sequence_parallel: bool = False
-    offload_params: bool = False
     num_experts: int = 0
 
     @property
@@ -188,7 +199,10 @@ class Block(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
-def _run_block(block: Block, params: Params, x, reference_attention: bool):
+def _run_block(block: Block, params: Params, x, reference_attention: bool,
+               fetch=None, prefix: str = ""):
+    if fetch is not None:   # inside the checkpoint: recompute re-fetches
+        params = {n: fetch(prefix + n, p) for n, p in params.items()}
     return torch.func.functional_call(block, params, (x,),
                                       {"reference_attention":
                                        reference_attention})
@@ -210,6 +224,8 @@ class GPT2(nn.Module):
             self.add_module(f"h_{i}", Block(cfg, device))
         self.ln_f = LayerNorm(C, cfg.dtype, device)
         self._block_keys = [n for n, _ in self.h_0.named_parameters()]
+        # the engine's parameter fetch (offload_params), None: identity
+        self.fetch = None
 
     def forward(self, input_ids, params: Optional[Params] = None,
                 reference_attention: bool = False):
@@ -219,20 +235,25 @@ class GPT2(nn.Module):
         cfg = self.cfg
         if params is None:
             params = dict(self.named_parameters())
+        fetch = self.fetch if cfg.offload_params else None
+
+        def get(name):
+            p = params[name]
+            return p if fetch is None else fetch(name, p)
         T = input_ids.shape[1]
-        wte = params["wte"]
+        wte = get("wte")
         # gather rows, then cast (as the JAX model does)
         x = (wte[input_ids.long()].to(cfg.dtype)
-             + params["wpe"][:T].to(cfg.dtype)[None])
+             + get("wpe")[:T].to(cfg.dtype)[None])
         for i in range(cfg.n_layer):
             bp = {n: params[f"h_{i}.{n}"] for n in self._block_keys}
             block = self.get_submodule(f"h_{i}")
+            args = (block, bp, x, reference_attention, fetch, f"h_{i}.")
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(_run_block, block, bp, x, reference_attention,
-                               use_reentrant=False)
+                x = checkpoint(_run_block, *args, use_reentrant=False)
             else:
-                x = _run_block(block, bp, x, reference_attention)
-        x = layer_norm(x, params["ln_f.scale"], params["ln_f.bias"], cfg.dtype)
+                x = _run_block(*args)
+        x = layer_norm(x, get("ln_f.scale"), get("ln_f.bias"), cfg.dtype)
         return lm_logits(x, wte.to(cfg.dtype), cfg.int8_training)
 
 
@@ -247,12 +268,24 @@ class GPT2LMModel:
     def __init__(self, config: GPT2Config, device="meta"):
         for bad, what in ((config.dropout > 0.0, "dropout > 0"),
                           (config.num_experts > 0, "MoE layers"),
-                          (config.sequence_parallel, "sequence_parallel"),
-                          (config.offload_params, "offload_params")):
+                          (config.sequence_parallel, "sequence_parallel")):
             if bad:
                 raise NotImplementedError(f"GPT-2 with {what} {_LATER}")
         self.config = config
         self.module = GPT2(config, device=device)
+
+    @property
+    def handles_param_offload(self) -> bool:
+        """Engine hint: with ``offload_params`` the model fetches its own
+        weights layer by layer, so the engine must not stage the whole
+        tree."""
+        return self.config.offload_params
+
+    def set_param_fetch(self, fetch) -> None:
+        """The engine's fetch (``runtime/zero/param_offload.ParamFetcher``:
+        ``fetch(name, host_tensor)`` gives the weight on the card); None
+        turns the fetches off."""
+        self.module.fetch = fetch
 
     def init(self, generator: torch.Generator) -> Params:
         """f32 weights on ``generator.device`` with the flax model's

@@ -12,6 +12,13 @@ flags, and loaded with ctypes. No source includes a PyTorch header, so a
 build takes seconds.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
 A build that fails raises: there is no path around a missing kernel.
+
+:class:`HostOpBuilder` does the same for the host ops under
+``ops/csrc/<name>.cpp`` (the ZeRO-Offload Adam) with g++ and the JAX
+package's flags (``HOST_CXX_FLAGS``), cached by a hash of the source, the
+flags and the host CPU (``-march=native`` code must not reach another
+CPU). There is no retry without ``-march=native`` or ``-fopenmp`` and no
+numpy fallback behind a failed build: it raises.
 """
 from __future__ import annotations
 
@@ -128,6 +135,69 @@ def sm_count(device) -> int:
     import torch
     return _sms(torch.cuda.current_device() if device.index is None
                 else device.index)
+
+
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
+                  "-fopenmp"]
+
+
+def find_cxx() -> str:
+    """``g++`` (else ``c++``) on the PATH; raises when there is none."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++) on the PATH: the host ops "
+                           "of deepspeed_tpu_torch are built from source on "
+                           "first use")
+    return cxx
+
+
+def _host_cpu() -> bytes:
+    """The host CPU's model and feature flags, for the cache key."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return b""
+    keep = [ln for ln in lines if ln.startswith((b"model name", b"flags"))]
+    return b"\n".join(keep[:2])
+
+
+class HostOpBuilder:
+    """One ``ops/csrc/<name>.cpp`` → one cached ``.so`` built by g++ and
+    loaded with ctypes; ``bind`` sets the functions' signatures."""
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.source = CSRC / f"{name}.cpp"
+        self._bind = bind
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def so_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(HOST_CXX_FLAGS).encode())
+        h.update(_host_cpu())
+        return BUILD_DIR / f"{self.name}-host-{h.hexdigest()[:16]}.so"
+
+    def load(self) -> ctypes.CDLL:
+        """Build (if needed) and load the library; raise if g++ fails."""
+        if self._lib is None:
+            so = self.so_path()
+            if not so.is_file():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                cmd = [find_cxx(), *HOST_CXX_FLAGS, str(self.source), "-o",
+                       tmp]
+                logger.info(f"building host op {self.name}: {' '.join(cmd)}")
+                r = subprocess.run(cmd, capture_output=True, text=True)
+                if r.returncode != 0:
+                    raise RuntimeError(
+                        f"g++ failed to build {self.name} (exit "
+                        f"{r.returncode}):\n{r.stdout}\n{r.stderr}")
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(str(so))
+            self._bind(lib)
+            self._lib = lib
+        return self._lib
 
 
 def build_all(builders: Iterable[CUDAOpBuilder]) -> Dict[str, ctypes.CDLL]:

@@ -29,15 +29,27 @@ committed tag rather than ever restoring garbage params.
 
 Layout under ``save_dir``::
 
-    latest                  — text file with the newest tag
-    <tag>/state/*.pt        — master, optimizer, loss_scale
-    <tag>/client_state.json — step counters + user state
-    <tag>/manifest.json     — per-file sha256 + step/config fingerprint
+    latest                       — text file with the newest tag
+    <tag>/state/*.pt             — master, optimizer, loss_scale
+    <tag>/host_optimizer.npz     — ZeRO-Offload's host state (below)
+    <tag>/client_state.json      — step counters + user state
+    <tag>/manifest.json          — per-file sha256 + step/config fingerprint
+
+With ``offload_optimizer`` ``implementation='host'`` the f32 master and
+the Adam moments live on the host: ``<tag>/state`` then holds the compute
+params (``params.pt``) and the loss scale, and ``host_optimizer.npz``
+beside it the host state under JAX's keys (``step``, ``master::<path>``,
+``state::<path>::m``/``v``, flat f32, ``<path>`` the JAX tree's
+``/``-joined path of the port's dotted name; JAX
+``runtime/checkpointing.py:196-229``). A load with the optimizer state
+restores it; a load without it (``load_module_only`` or
+``load_optimizer_states=False``) or of a tag without the file re-seeds
+the master from the restored params (JAX ``:512-545``).
 
 Not here yet: the cross-process tag check and barrier (one process;
-ROADMAP.md A6), the offloaded optimizer's host state (A6) and the MoQ
-schedule (A9). The JAX package also saves its PRNG key; the port's
-``loss_fn`` gets no key (no dropout), so there is none to save.
+ROADMAP.md A6b) and the MoQ schedule (A9). The JAX package also saves its
+PRNG key; the port's ``loss_fn`` gets no key (no dropout), so there is
+none to save.
 """
 from __future__ import annotations
 
@@ -153,6 +165,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     ce = _engine_for(engine)
     ce.create(tag)
     ce.save(engine._checkpoint_state(), state_path)
+    if getattr(engine, "host_opt", None) is not None:
+        _save_host_optimizer(engine.host_opt, ckpt_dir)
 
     # Counters are snapshotted NOW: an async finalize that read them live
     # at commit time would stamp a later step onto this state snapshot.
@@ -419,9 +433,17 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     ckpt_dir = os.path.join(load_dir, str(tag))
     state_path = os.path.abspath(os.path.join(ckpt_dir, "state"))
     state = _engine_for(engine).load(state_path)
-    engine._load_checkpoint_state(
-        state, load_optimizer_states=load_optimizer_states
-        and not load_module_only)
+    with_opt = load_optimizer_states and not load_module_only
+    engine._load_checkpoint_state(state, load_optimizer_states=with_opt)
+    if getattr(engine, "host_opt", None) is not None:
+        host_path = os.path.join(ckpt_dir, HOST_OPTIMIZER_FILE)
+        if with_opt and os.path.isfile(host_path):
+            engine.host_opt.load_state_dict(_load_host_optimizer(host_path))
+        else:
+            # no host state restored: re-seed the fp32 master from the
+            # restored params, else the next step would overwrite them
+            # with the construction-time master
+            engine.host_opt.sync_master_from(engine.params)
 
     meta_path = os.path.join(ckpt_dir, "client_state.json")
     client_state = {}
@@ -434,6 +456,53 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         client_state = meta.get("client_state", {})
     logger.info(f"loaded checkpoint {tag} from {load_dir}")
     return ckpt_dir, client_state
+
+
+HOST_OPTIMIZER_FILE = "host_optimizer.npz"
+
+
+def _save_host_optimizer(host_opt, ckpt_dir: str) -> None:
+    """The host master and moments as one ``.npz`` with JAX's keys,
+    written atomically (tmp, fsync, rename) before the tag commits, so the
+    manifest hashes it."""
+    import numpy as np
+    sd = host_opt.state_dict()
+    blob = {"step": np.int64(sd["step"])}
+    for k, w in sd["master"].items():
+        blob[f"master::{_jax_name(k)}"] = w.numpy()
+    for k, st in sd["state"].items():
+        for part, arr in st.items():
+            blob[f"state::{_jax_name(k)}::{part}"] = arr.numpy()
+    final = os.path.join(ckpt_dir, HOST_OPTIMIZER_FILE)
+    tmp = final + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **blob)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, final)
+
+
+def _load_host_optimizer(path: str) -> Dict[str, Any]:
+    import numpy as np
+    blob = np.load(path)
+    sd = {"step": int(blob["step"]), "master": {}, "state": {}}
+    for key in blob.files:
+        if key.startswith("master::"):
+            sd["master"][_port_name(key[len("master::"):])] = blob[key]
+        elif key.startswith("state::"):
+            _, leaf, part = key.split("::")
+            sd["state"].setdefault(_port_name(leaf), {})[part] = blob[key]
+    return sd
+
+
+def _jax_name(name: str) -> str:
+    """The port's dotted param name as the JAX tree's ``/``-joined path
+    (``flatten_with_names``), the key format of ``host_optimizer.npz``."""
+    return name.replace(".", "/")
+
+
+def _port_name(path: str) -> str:
+    return path.replace("/", ".")
 
 
 def checkpoint_integrity_report(save_dir: str) -> dict:

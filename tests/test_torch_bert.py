@@ -276,6 +276,48 @@ def test_pretraining_loss_and_grads_match_jax(nsp, masked, live, int8):
     np.testing.assert_allclose(got, want, rtol=LOSS_TOL, atol=1e-7)
 
 
+def test_out_of_range_labels_are_masked():
+    """An MLM label outside [0, V) (64 and -5 at V = 64) and an NSP label
+    outside [0, 2) are masked out of their losses and clamped in the
+    gather, as the GPT-2 and LLaMA losses treat labels: no index error
+    (on the card a device-side assert), a finite loss equal to the loss
+    of the same batch with those labels set to -100. In-range batches are
+    held to JAX's loss by the test above, and the in-range NSP rows here
+    to the mean NSP term of the rows that stay."""
+    jcfg, pcfg = _bert_cfgs(vocab_size=64)
+    params = bert_params_from_jax(_bert_params(jcfg))
+    batch = _bert_batch(5, B=4, T=16, live=0.5)
+    batch["input_ids"] %= 64
+    batch["mlm_labels"] = np.where(batch["mlm_labels"] >= 64, 7,
+                                   batch["mlm_labels"]).astype(np.int32)
+    bad = dict(batch, mlm_labels=batch["mlm_labels"].copy(),
+               nsp_labels=np.array([0, 2, 1, -1], np.int32))
+    bad["mlm_labels"][0, 3] = 64
+    bad["mlm_labels"][1, 5] = -5
+    clean = dict(bad, mlm_labels=bad["mlm_labels"].copy(),
+                 nsp_labels=np.array([0, -100, 1, -100], np.int32))
+    clean["mlm_labels"][0, 3] = clean["mlm_labels"][1, 5] = -100
+    model = port_bert.BertPreTrainingModel(pcfg)
+
+    def loss(b, keep=None):
+        b = {k: torch.from_numpy(v) for k, v in b.items()}
+        if keep is not None:
+            b = {k: v[keep] for k, v in b.items()}
+        with torch.no_grad():
+            return model.loss_fn(params, b).item()
+    got = loss(bad)
+    assert np.isfinite(got)
+    assert got == loss(clean)
+    # the NSP term averages over the live rows only: rows 0 and 2 alone
+    # give the same NSP term, so the gap between the two losses is the
+    # MLM terms' gap
+    mlm_only = {k: v for k, v in clean.items() if k != "nsp_labels"}
+    nsp_term = got - loss(mlm_only)
+    keep = torch.tensor([0, 2])
+    np.testing.assert_allclose(
+        nsp_term, loss(clean, keep) - loss(mlm_only, keep), rtol=1e-5)
+
+
 def test_init_presets_counts_and_refusals():
     for name in jax_bert.PRESETS:
         jd = dataclasses.asdict(jax_bert.config_for(name))

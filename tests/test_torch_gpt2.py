@@ -147,6 +147,10 @@ def test_params_round_trip(jax_params):
 
 def test_queue_c_model_options_raise():
     for kw in ({"dropout": 0.1}, {"num_experts": 4},
-               {"sequence_parallel": True}, {"offload_params": True}):
+               {"sequence_parallel": True}):
         with pytest.raises(NotImplementedError, match="queue C"):
             port_gpt2.GPT2LMModel(port_gpt2.GPT2Config(**TINY, **kw))
+    # offload_params is ported (ZeRO-3 parameter offload: the model
+    # fetches its own layers; tests/test_torch_param_offload.py)
+    assert port_gpt2.GPT2LMModel(port_gpt2.GPT2Config(
+        **TINY, offload_params=True)).handles_param_offload

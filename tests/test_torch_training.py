@@ -273,9 +273,13 @@ def test_config_errors_match_jax():
 
 
 @pytest.mark.parametrize("extra", [
-    {"zero_optimization": {"stage": 1}},
-    {"zero_optimization": {"offload_optimizer": {"device": "cpu"}}},
-    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+    # ZeRO stages 1-3 and the cpu offload tiers run (test_torch_offload.py,
+    # test_torch_param_offload.py); the NVMe tier and meshes do not
+    {"zero_optimization": {"stage": 1, "offload_optimizer": {
+        "device": "nvme", "nvme_path": "swap", "implementation": "host"}}},
+    {"zero_optimization": {"stage": 3, "offload_param": {
+        "device": "nvme", "nvme_path": "swap"}}},
+    {"zero_optimization": {"stage": 3}, "mesh": {"fsdp": 2}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
     {"sparse_gradients": True},
     {"mesh": {"tensor": 2}},
