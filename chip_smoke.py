@@ -236,7 +236,7 @@ kernel's row.
 10b. checkpoint — the training engine's checkpoints and the bridge to
    serving, under a temporary directory of the checkout's ``build/``
    (removed at the end; the free space is printed first). The resume
-   oracle at ``gpt2-1.3b``'s full width and 4 of its 24 layers
+   oracle at ``gpt2-1.3b``'s full width and 2 of its 24 layers
    (CKPT_LAYERS, a cut for the time limit) with phase train's
    configuration: run A takes 4 steps on 4 seeded batches; run B starts
    from the same weights, takes steps 1-2, saves (sync, verified) and is
@@ -249,7 +249,7 @@ kernel's row.
    and B4, the served-token oracle, a serving checkpoint saved and loaded
    into a fresh engine that must serve the same tokens and the same
    prefill logits bit for bit (its bytes and seconds printed). Last the
-   async engine at gpt2-1.3b's width and 4 layers: a save at step 2,
+   async engine at gpt2-1.3b's width and 2 layers: a save at step 2,
    steps 3-4 while the write may run, ``destroy`` joins, and a fresh
    engine loads the step-2 state bit for bit.
 10c. offload — ZeRO-Offload. (i) ``llama-7b-gqa`` at full width and 24
@@ -263,7 +263,7 @@ kernel's row.
    and of the embedding against ``ops/adam.py`` applied to the same
    gradient (OFFLOAD_ADAM_TOL of the update); every bf16 param on the card
    equal to the RNE cast of its host master; B1-B3 counted (B3 at R = 4).
-   (ii) ``gpt2-1.3b`` at its width and 4 layers, phase train's
+   (ii) ``gpt2-1.3b`` at its width and 2 layers, phase train's
    configuration, four engines from the same weights over the same 3
    batches: (a) in-HBM, (b) ``offload_optimizer`` host, (c) ``stream``,
    (d) stage 3 with ``offload_param`` (the model fetching its layers) and
@@ -271,8 +271,25 @@ kernel's row.
    TRAIN_LOSS_TOL of (a)'s losses and OFFLOAD_UPDATE_TOL relative L2 of
    each leaf's update; (d) equals (b) bit for bit with a lower device
    peak and its params in pinned host memory between steps; (b) saved at
-   step 2 and resumed from other weights gives step 3's loss and host
-   master bit for bit.
+   step 2 (unhashed: phase checkpoint gates the manifest) and resumed from
+   other weights gives step 3's loss and host master bit for bit.
+10d. dist — ZeRO over ``torch.distributed``: ``gpt2-1.3b`` at its width
+   and 4 layers, phase train's configuration, 3 steps, (a) on the
+   single-process engine; then NCCL in this process at world size 1 (the
+   card box has one card; a ``FileStore`` under ``build/``), (b) stage 3
+   with GPT-2's per-layer gather (an all-gather of each layer's blocks,
+   whose backward reduce-scatters the gradient) and (c) stage 2, from the
+   same weights: both equal (a) bit for bit (losses, whole master and
+   params; every collective is an identity at one rank), the comms logger
+   counts all-gathers and reduce-scatters, B1-B3 launch through them; the
+   step ms of each, the median of 5 after a warm-up step (the collective
+   path's cost at one rank), then ``benchmarks_comm.run_sweep`` at 1 and
+   64 MB, world size 1, with nothing else running. Last (d) two ranks
+   spawned after them on the one card over gloo (CUDA tensors; NCCL
+   refuses two ranks on a device) at 2 layers, stage 3 with the
+   per-layer gather, 2 steps, against one rank on all their rows: losses
+   within 1e-2 relative and each leaf's update within 0.1 relative L2
+   (the CPU parity test's bf16 tolerances).
 11. sparse run — ``SparseSelfAttention`` with layout (i), three calls at
    T=4096 and one at T=2048: 4 kernel launches, one LUT per length, every
    output within SPARSE_TOL of the plain version; then the same at 32
@@ -292,8 +309,8 @@ e2e generate, each server, phase hf's ``generate`` calls, phase
 llama_bert's timed steps, ``generate`` and masked step, phase int8's
 ``generate`` calls, servers and training runs, the timed training steps,
 the checkpoint
-phase's training runs and its ``generate``, phase offload's training
-runs, and the sparse and layer_norm runs) and read just after. Every attention kernel, int8 ones
+phase's training runs and its ``generate``, phase offload's and phase
+dist's training runs, and the sparse and layer_norm runs) and read just after. Every attention kernel, int8 ones
 included, must have launched on a main-path run at head dim 80, 96 or
 256, every serving kernel (B1, B4-B7, B5i-B7i) at 256 on the gptj path,
 and B1-B3 and B8 at 256 on the train gpt2-1.3b 8x256 or sparse 8 x 256
@@ -308,6 +325,7 @@ non-zero with no result when no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import gc
 import json
 import math
@@ -2147,10 +2165,11 @@ def phase_train(preset="gpt2-1.3b", n_head=None, n_layer=None):
 
 CKPT_STEPS = 4   # the resume oracle: steps 1-2, a save, steps 3-4
 CKPT_NEW = 32    # tokens the converted model serves a prompt
-# the resume oracle's depth: gpt2-1.3b's full width at 4 of its 24 layers
-# (every gate kept; the full depth wrote 15.8 GB in 113-133 s of host and
-# disk time, which the time limit no longer affords)
-CKPT_LAYERS = 4
+# the resume oracle's and the async engine's depth: gpt2-1.3b's full width
+# at 2 of its 24 layers (every gate kept; the full depth wrote 15.8 GB in
+# 113-133 s of host and disk time, 4 layers 3.7 GB in ~45 s, which the
+# time limit no longer affords)
+CKPT_LAYERS = 2
 
 
 def _ckpt_engine(cfg, seed, extra=None):
@@ -2383,12 +2402,12 @@ def _ckpt_serve(engine, icfg, path):
 
 
 def _ckpt_async(save_dir):
-    """The async engine at gpt2-1.3b's width and 4 layers: save at step 2,
+    """The async engine at gpt2-1.3b's width and CKPT_LAYERS: save at step 2,
     take steps 3-4 while the write may still run, then ``destroy`` joins;
     a fresh engine loads the step-2 state bit for bit."""
     from deepspeed_tpu_torch.checkpoint.integrity import verify_checkpoint
     from deepspeed_tpu_torch.models.gpt2 import config_for
-    cfg = config_for("gpt2-1.3b", n_layer=4)
+    cfg = config_for("gpt2-1.3b", n_layer=CKPT_LAYERS)
     L = cfg.n_layer
     batches = _ckpt_batches(cfg, CKPT_STEPS, 17)
     async_cfg = {"checkpoint": {"engine": "async"}}
@@ -2471,7 +2490,7 @@ def phase_checkpoint():
 # the card; the optimizer state goes to the host (12 bytes a parameter)
 OFFLOAD_LLAMA = ("llama-7b-gqa", {"n_layer": 24}, 2, 1, 4096, 5496836096)
 OFFLOAD_STEPS = 2
-OFFLOAD_GPT2_LAYERS = 4     # gpt2-1.3b's width, the four engines
+OFFLOAD_GPT2_LAYERS = 2     # gpt2-1.3b's width, the four engines
 OFFLOAD_GPT2_STEPS = 3
 # the C++ step against ops/adam.py on the same grads: the largest
 # difference over the largest update of the leaf (the two order their f32
@@ -2513,7 +2532,7 @@ class _HostRss:
         self.peak = max(self.peak, self.now())
 
 
-def _zero_engine(model, params, micro, gas, zero):
+def _zero_engine(model, params, micro, gas, zero, extra=None):
     """Phase train's engine (bf16, AdamW lr 1e-4, weight decay 0.01,
     clipping 1.0) with a ``zero_optimization`` section."""
     import deepspeed_tpu_torch
@@ -2523,7 +2542,8 @@ def _zero_engine(model, params, micro, gas, zero):
             "gradient_accumulation_steps": gas, "gradient_clipping": 1.0,
             "bf16": {"enabled": True}, "zero_optimization": zero,
             "optimizer": {"type": "AdamW",
-                          "params": {"lr": 1e-4, "weight_decay": 0.01}}})[0]
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}},
+            **(extra or {})})[0]
     torch.cuda.synchronize()
     return engine
 
@@ -2651,6 +2671,10 @@ def _offload_llama(smi):
     return {f"offload {name} x{L}": counts}
 
 
+# (b)'s tag is not hashed: phase checkpoint holds the manifest's gates
+UNVERIFIED = {"checkpoint": {"verify": False}}
+
+
 def _offload_gpt2_runs(save_dir):
     """(ii) gpt2-1.3b at OFFLOAD_GPT2_LAYERS layers: four engines over the
     same batches from the same weights; a checkpoint of (b) at step 2."""
@@ -2673,7 +2697,8 @@ def _offload_gpt2_runs(save_dir):
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         if init is None:
             init = {k: v.detach().cpu() for k, v in params.items()}
-        engine = _zero_engine(model, params, 8, 2, zero)
+        engine = _zero_engine(model, params, 8, 2, zero,
+                              UNVERIFIED if tag == "b host" else None)
         del params
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2718,7 +2743,8 @@ def _offload_gpt2_runs(save_dir):
     # the checkpoint of (b) at step 2, resumed from other weights
     model = GPT2LMModel(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(1))
-    engine = _zero_engine(model, params, 8, 2, engines["b host"][0])
+    engine = _zero_engine(model, params, 8, 2, engines["b host"][0],
+                          UNVERIFIED)
     del params
     t = time.perf_counter()
     engine.load_checkpoint(save_dir)
@@ -2799,6 +2825,280 @@ def phase_offload(smi):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    return runs
+
+
+# phase dist: gpt2-1.3b at its width and DIST_LAYERS layers, phase train's
+# configuration (bf16, AdamW, clipping 1.0, micro 8 x gas 2 x T 1024)
+DIST_LAYERS = 4
+DIST_STEPS = 6      # the first compiles and warms up; 5 timed
+DIST_SWEEP_MB = (1, 64)
+
+
+def _dist_engine(cfg, params, zero, micro=8, gas=2):
+    """Phase train's engine with a ``zero_optimization`` section and the
+    comms logger on."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel
+    engine = deepspeed_tpu_torch.initialize(
+        model=GPT2LMModel(cfg), model_parameters=params, config={
+            "train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas, "gradient_clipping": 1.0,
+            "bf16": {"enabled": True}, "zero_optimization": zero,
+            "comms_logger": {"enabled": True},
+            "optimizer": {"type": "AdamW",
+                          "params": {"lr": 1e-4, "weight_decay": 0.01}}})[0]
+    torch.cuda.synchronize()
+    return engine
+
+
+def _dist_steps(tag, engine, batches, L):
+    """``train_batch`` on each batch, a main-path run (counts set to 0
+    just before, read just after; phase train's expected launches); the
+    losses, step walls, counts, whole master and params on the host."""
+    from deepspeed_tpu_torch.comm import comm
+    comm.comms_logger.reset()
+    _launch_counts(reset=True)
+    losses, walls = [], []
+    for b in batches:
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(b)["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    counts = _launch_counts()
+    comms = {k: dict(v) for k, v in comm.comms_logger.comms_dict.items()}
+    n = engine.gas * len(batches)
+    check(counts["flash_attention_fwd"] == 2 * L * n and all(
+        counts[k] == L * n for k in _BWD_KERNELS),
+        f"dist {tag}: launches {counts}")
+    check(all(math.isfinite(x) for x in losses),
+          f"dist {tag}: losses {losses}")
+    return {"losses": losses, "walls": walls, "counts": counts,
+            "comms": comms, "master": engine.fp32_master_params(),
+            "params": engine.module_state_dict()}
+
+
+# two ranks on the one card over gloo (NCCL refuses two ranks on a device;
+# gloo takes CUDA tensors in every collective the engine makes:
+# scripts/probe_gloo_cuda.py) at DIST_GLOO_LAYERS, DIST_GLOO_STEPS, each
+# rank micro 2 x gas 1 of the 1-rank run's micro 4 rows (gloo moves CUDA
+# tensors through pinned host memory and TCP: ~0.65 GB/s); held to the CPU
+# parity test's bf16 tolerances (tests/test_torch_dist_parity.py)
+DIST_GLOO_LAYERS = 2
+DIST_GLOO_STEPS = 2
+DIST_GLOO_LOSS_TOL = 1e-2      # relative
+DIST_GLOO_UPDATE_TOL = 0.1     # relative L2 of each leaf's update
+DIST_GLOO_DEADLINE = 240       # seconds from the ranks' start
+
+
+def _gloo_rank(rank, ws, tmp, cfg, batches):
+    """One of the two gloo ranks: stage 3 with the per-layer gather from
+    seeded weights; it builds its engine, waits for the ``go`` file (the
+    parent's reference run finishes first), then trains on its rows; rank 0
+    saves its losses, counts, step walls and whole master under ``tmp``."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    comm.init_distributed(store=dist.FileStore(os.path.join(tmp, "store"),
+                                               ws), num_processes=ws,
+                          process_id=rank, dist_backend="gloo",
+                          timeout=datetime.timedelta(seconds=120))
+    try:
+        params = GPT2LMModel(cfg).init(
+            torch.Generator(device="cuda").manual_seed(25))
+        engine = _dist_engine(dataclasses.replace(cfg, offload_params=True),
+                              params, {"stage": 3}, micro=2, gas=1)
+        del params
+        mine = [{k: v[rank * 2:(rank + 1) * 2] for k, v in b.items()}
+                for b in batches]
+        while not os.path.exists(os.path.join(tmp, "go")):
+            time.sleep(0.05)
+        out = _dist_steps(f"gloo rank {rank}", engine, mine, cfg.n_layer)
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "rank0.pt"))
+    finally:
+        comm.destroy_process_group()
+
+
+def _gloo_start(cfg, batches, root):
+    """Spawn the two gloo ranks; they start (imports, the card, their
+    engines) while the parent runs their reference."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="dist_gloo_", dir=root)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, tmp, cfg, batches),
+                         daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs, tmp, time.perf_counter()
+
+
+def _gloo_finish(started, cfg, ref, init):
+    """Let the gloo ranks train, join them against the deadline (killed
+    past it) and hold rank 0's trajectory to ``ref``, one rank on all the
+    rows."""
+    procs, tmp, t0 = started
+    try:
+        t = time.perf_counter()
+        with open(os.path.join(tmp, "go"), "w"):
+            pass
+        for p in procs:
+            p.join(max(1.0, DIST_GLOO_DEADLINE - (time.perf_counter() - t0)))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        wall = time.perf_counter() - t
+        check(not hung and all(p.exitcode == 0 for p in procs),
+              f"dist gloo: ranks exited {[p.exitcode for p in procs]} "
+              f"(killed {DIST_GLOO_DEADLINE} s after their start: "
+              f"{bool(hung)})")
+        got = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel_loss = max(abs(x - y) / abs(y) for x, y in zip(got["losses"],
+                                                         ref["losses"]))
+    C, rel = cfg.n_embd, {}
+    for k, rm in ref["master"].items():
+        gm, dr = got["master"][k], rm - init[k]
+        if k.endswith("c_attn.bias"):   # the key third: exact gradient 0
+            keep = torch.cat([torch.arange(C), torch.arange(2 * C, 3 * C)])
+            gm, rm, dr = gm[keep], rm[keep], dr[keep]
+        rel[k] = float((gm - rm).norm() / dr.norm().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    log(f"[dist] gpt2-1.3b x{cfg.n_layer}, 2 ranks on the one card over "
+        f"gloo (stage 3, per-layer gather, CUDA tensors; micro 2 x gas 1 a "
+        f"rank): losses {got['losses']!r} against one rank's "
+        f"{ref['losses']!r} (within {rel_loss!r} relative, tol "
+        f"{DIST_GLOO_LOSS_TOL}); each leaf's update within {rel[worst]!r} "
+        f"relative L2 at worst ({worst}; tol {DIST_GLOO_UPDATE_TOL}); steps "
+        f"{[w * 1e3 for w in got['walls']]!r} ms; comms {got['comms']}; "
+        f"launches {got['counts']}; {wall!r} s from 'go' to joined")
+    check(rel_loss <= DIST_GLOO_LOSS_TOL and rel[worst] <= DIST_GLOO_UPDATE_TOL,
+          f"dist gloo: 2 ranks against 1: losses {rel_loss}, {worst} "
+          f"{rel[worst]}")
+    return got["counts"]
+
+
+def phase_dist(smi):
+    """ZeRO over ``torch.distributed``. (a) gpt2-1.3b x DIST_LAYERS on the
+    single-process engine; then NCCL in this process at world size 1 (a
+    ``FileStore`` under the checkout's ``build/``) and (b) stage 3 with
+    GPT-2's per-layer gather (the fetch all-gathers each layer's blocks,
+    its backward reduce-scatters the gradient), (c) stage 2 (the gradient
+    reduce-scattered, the new params all-gathered). At one rank every
+    collective is an identity: (b) and (c) equal (a) bit for bit (losses,
+    whole master and params), with all-gathers and reduce-scatters
+    counted by the comms logger. Then ``benchmarks_comm.run_sweep`` at
+    DIST_SWEEP_MB. Nothing else runs on the card or the host while these
+    are timed. Last (d) two ranks on the one card over gloo at
+    DIST_GLOO_LAYERS, stage 3, against one rank on all their rows (the
+    CPU test's bf16 tolerances). Returns the launch counts of its runs by
+    name."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import benchmarks_comm
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    cfg = config_for("gpt2-1.3b", n_layer=DIST_LAYERS)
+    L = cfg.n_layer
+    batches = _ckpt_batches(cfg, DIST_STEPS, 24)
+    params = GPT2LMModel(cfg).init(
+        torch.Generator(device="cuda").manual_seed(24))
+    engine = _dist_engine(cfg, params, {"stage": 0})
+    out = {"a single process": _dist_steps("a", engine, batches, L)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="dist_smoke_", dir=root)
+    try:
+        t = time.perf_counter()
+        comm.init_distributed(
+            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            num_processes=1, process_id=0, dist_backend="nccl",
+            timeout=datetime.timedelta(seconds=120))
+        init_s = time.perf_counter() - t
+        for tag, zero, fetch in (("b stage 3", {"stage": 3}, True),
+                                 ("c stage 2", {"stage": 2}, False)):
+            engine = _dist_engine(dataclasses.replace(
+                cfg, offload_params=fetch), params, zero)
+            check(engine._dist and engine.dp == 1,
+                  f"dist {tag}: the engine is not on the process group")
+            out[tag] = _dist_steps(tag, engine, batches, L)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        sweep = benchmarks_comm.run_sweep(DIST_SWEEP_MB, trials=20)
+    finally:
+        comm.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params
+    torch.cuda.empty_cache()
+    # (d) after every timed run: the gloo ranks start (imports, the card,
+    # their engines) while this process runs their reference, one rank
+    # on all their rows
+    gcfg = config_for("gpt2-1.3b", n_layer=DIST_GLOO_LAYERS)
+    gbatches = [{k: v[:4] for k, v in b.items()}
+                for b in _ckpt_batches(gcfg, DIST_GLOO_STEPS, 26)]
+    started = _gloo_start(gcfg, gbatches, root)
+    try:
+        gparams = GPT2LMModel(gcfg).init(
+            torch.Generator(device="cuda").manual_seed(25))
+        ginit = {k: v.detach().cpu() for k, v in gparams.items()}
+        engine = _dist_engine(gcfg, gparams, {"stage": 0}, micro=4, gas=1)
+        del gparams
+        one = _dist_steps("d one rank", engine, gbatches, gcfg.n_layer)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        gloo = _gloo_finish(started, gcfg, one, ginit)
+    finally:
+        for p in started[0]:   # a failure above: stop the ranks
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(started[1], ignore_errors=True)
+    a = out["a single process"]
+    med = {k: float(np.median(v["walls"][1:])) * 1e3 for k, v in out.items()}
+    for tag in ("b stage 3", "c stage 2"):
+        r = out[tag]
+        same = r["losses"] == a["losses"] and all(
+            torch.equal(r["master"][k], v) and torch.equal(
+                r["params"][k], a["params"][k])
+            for k, v in a["master"].items())
+        gathers = sum(v["count"] for k, v in r["comms"].items()
+                      if k.startswith("all_gather["))
+        scatters = sum(v["count"] for k, v in r["comms"].items()
+                       if k.startswith("reduce_scatter["))
+        log(f"[dist] gpt2-1.3b x{L} ({tag}, NCCL world size 1): losses "
+            f"{r['losses']!r}; steps {[w * 1e3 for w in r['walls']]!r} ms "
+            f"(median after the first {med[tag]!r}, single process "
+            f"{med['a single process']!r}: the collective path "
+            f"{med[tag] - med['a single process']!r} ms a step); comms "
+            f"{r['comms']}; launches {r['counts']}; equal to (a) bit for "
+            f"bit {same}")
+        check(same, f"dist {tag}: not the single-process engine bit for "
+              f"bit ({r['losses']} against {a['losses']})")
+        check(gathers > 0 and scatters > 0,
+              f"dist {tag}: all-gathers {gathers}, reduce-scatters "
+              f"{scatters}: the collective path did not run")
+    log(f"[dist] gpt2-1.3b x{L} (a single process): losses {a['losses']!r};"
+        f" steps {[w * 1e3 for w in a['walls']]!r} ms; NCCL start "
+        f"{init_s!r} s; {smi}")
+    for r in sweep:
+        log(f"[dist] run_sweep world size 1: {json.dumps(r)}")
+    runs = {f"dist gpt2-1.3b x{L} {k}": v["counts"] for k, v in out.items()}
+    runs[f"dist gpt2-1.3b x{gcfg.n_layer} one rank"] = one["counts"]
+    runs[f"dist gpt2-1.3b x{gcfg.n_layer} gloo rank 0"] = gloo
     return runs
 
 
@@ -4661,6 +4961,7 @@ def main() -> int:
                                            n_head=8)}
     runs.update(timed("checkpoint", phase_checkpoint))
     runs.update(timed("offload", phase_offload, smi))
+    runs.update(timed("dist", phase_dist, smi))
     runs["sparse"] = timed("runs", run_sparse)
     runs["sparse 32 x 80"] = new_d["sparse 32 x 80"] = timed(
         "runs", run_sparse, 32, 80)

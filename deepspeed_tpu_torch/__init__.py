@@ -17,8 +17,11 @@ server (``module_inject.convert_trained_model``, ``inference.engine.
 save_serving_checkpoint`` / ``load_serving_checkpoint``), and HF models
 and checkpoint directories of the policy table's eighteen architectures
 served through ``init_inference`` (``module_inject/policies.py``,
-``state_dict_loader.py``, ``megatron_shards.py``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``state_dict_loader.py``, ``megatron_shards.py``), and data-parallel
+training over ``torch.distributed`` ranks with ZeRO stages 0-3
+(:func:`init_distributed`, then :func:`initialize` on each rank; the
+``comm`` facade and mesh, ``zero.Init`` / ``GatheredParameters``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from deepspeed_tpu_torch.utils.logging import logger  # noqa: F401
 
@@ -33,6 +36,8 @@ _LAZY = {
                         "DeepSpeedEngine"),
     "checkpoint": ("deepspeed_tpu_torch.checkpoint", None),
     "module_inject": ("deepspeed_tpu_torch.module_inject", None),
+    "comm": ("deepspeed_tpu_torch.comm", None),
+    "zero": ("deepspeed_tpu_torch.zero", None),
 }
 
 
@@ -116,9 +121,18 @@ def default_inference_config():
 
 def initialize(*args, **kwargs):
     """``(engine, optimizer, training_dataloader, lr_scheduler)`` for
-    single-device training (counterpart of ``deepspeed_tpu.initialize``;
-    see :func:`deepspeed_tpu_torch.runtime.engine.initialize`)."""
+    training on one device or over the ranks of a process group
+    (counterpart of ``deepspeed_tpu.initialize``; see
+    :func:`deepspeed_tpu_torch.runtime.engine.initialize`)."""
     from deepspeed_tpu_torch.runtime.engine import initialize as _init
+    return _init(*args, **kwargs)
+
+
+def init_distributed(*args, **kwargs):
+    """Start the process group the launcher's environment names
+    (torchrun's or the JAX launcher's variables; see
+    :func:`deepspeed_tpu_torch.comm.comm.init_distributed`)."""
+    from deepspeed_tpu_torch.comm.comm import init_distributed as _init
     return _init(*args, **kwargs)
 
 

@@ -3,49 +3,20 @@
 Counterpart of ``deepspeed_tpu/config/config.py``, the port's own copy:
 the same JSON keys, the same sections with the same defaults, the same
 unknown-key error and batch-triad resolution. The sections name options
-the port's single-device engine does not build (ZeRO stages, offload, the
-mesh); ``runtime/engine.py`` refuses those with ``NotImplementedError``.
-``MeshConfig`` is copied from ``deepspeed_tpu/comm/mesh.py:53``, whose
-module imports JAX.
+the port does not build yet; ``runtime/engine.py`` refuses those with
+``NotImplementedError``. ``MeshConfig`` is ``comm/mesh.py``'s.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 from typing import Any, Dict, Literal, Optional, Union
 
 from pydantic import ConfigDict, Field, model_validator
 
+from deepspeed_tpu_torch.comm.mesh import MeshConfig
 from deepspeed_tpu_torch.config.config_utils import DeepSpeedConfigModel
 from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
 from deepspeed_tpu_torch.utils.logging import logger
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """Degrees for each parallel axis; -1 on data = absorb remaining
-    devices."""
-    data: int = -1
-    fsdp: int = 1
-    tensor: int = 1
-    seq: int = 1
-    pipe: int = 1
-
-    def resolve(self, n_devices: int) -> dict:
-        fixed = self.fsdp * self.tensor * self.seq * self.pipe
-        data = self.data
-        if data == -1:
-            if n_devices % fixed != 0:
-                raise ValueError(
-                    f"device count {n_devices} not divisible by "
-                    f"fsdp*tensor*seq*pipe={fixed}")
-            data = n_devices // fixed
-        if data * fixed != n_devices:
-            raise ValueError(
-                f"mesh {data}x{self.fsdp}x{self.seq}x{self.tensor}x{self.pipe}"
-                f" != device count {n_devices}")
-        return dict(pipe=self.pipe, data=data, fsdp=self.fsdp, seq=self.seq,
-                    tensor=self.tensor)
 
 
 # ---------------------------------------------------------------------------
@@ -98,9 +69,9 @@ class OffloadOptimizerConfig(DeepSpeedConfigModel):
 
 
 class ZeroConfig(DeepSpeedConfigModel):
-    """zero_optimization section (reference runtime/zero/config.py). The
-    port's single-device engine runs stage 0 only; the other keys are
-    accepted for config compatibility."""
+    """zero_optimization section (reference runtime/zero/config.py).
+    Stages 0-3 partition over the data-parallel ranks; the bucket and
+    overlap keys are accepted for config compatibility."""
     stage: int = 0
     contiguous_gradients: bool = True
     reduce_scatter: bool = True

@@ -174,7 +174,8 @@ class InferenceEngine:
                 "deepspeed_tpu_torch.module_inject.policies.register_policy")
         if c.tp_size > 1 or c.seq_parallel_size > 1:
             raise NotImplementedError(
-                f"tensor/sequence-parallel meshes {_LATER}")
+                "tensor/sequence-parallel meshes are not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP.md queue C, A6b-ii)")
         # dtype="int8" means int8 weight storage with bf16 activations
         int8 = c.torch_dtype == torch.int8
         self._weight_quant = int8 or c.quant.enabled

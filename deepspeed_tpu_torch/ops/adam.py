@@ -193,8 +193,7 @@ def _normalize_params(params: dict) -> dict:
 def _onebit(name: str, p):
     raise NotImplementedError(
         f"the 1-bit optimizer family ({name}) is not ported to "
-        "deepspeed_tpu_torch yet (ROADMAP.md queue C): its compressed "
-        "exchange needs torch.distributed")
+        "deepspeed_tpu_torch yet (ROADMAP.md queue C, A9)")
 
 
 OPTIMIZER_REGISTRY = {

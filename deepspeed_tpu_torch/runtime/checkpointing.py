@@ -46,10 +46,19 @@ restores it; a load without it (``load_module_only`` or
 ``load_optimizer_states=False``) or of a tag without the file re-seeds
 the master from the restored params (JAX ``:512-545``).
 
-Not here yet: the cross-process tag check and barrier (one process;
-ROADMAP.md A6b) and the MoQ schedule (A9). The JAX package also saves its
-PRNG key; the port's ``loss_fn`` gets no key (no dropout), so there is
-none to save.
+Over several ranks the checkpoint keeps this one logical layout: every
+rank takes part in gathering each sharded leaf (leaf by leaf, so at most
+one whole leaf is on the card at a time), rank 0 writes the files and
+publishes the tag, and every rank reaches the barrier after the
+publication even when it failed on rank 0 (JAX ``:280-292``); the tag is
+first checked against rank 0's (``checkpoint.tag_validation``, JAX
+``:75``). Every rank loads the whole leaves (memory-mapped) and keeps its
+blocks, so a tag saved at one world size resumes at another. The async
+engine finalizes in the background at world size 1 only, as JAX.
+
+Not here yet: the MoQ schedule (A9). The JAX package also saves its PRNG
+key; the port's ``loss_fn`` gets no key (no dropout), so there is none to
+save.
 """
 from __future__ import annotations
 
@@ -65,6 +74,7 @@ from deepspeed_tpu_torch.checkpoint.integrity import (MANIFEST_NAME,
                                                       read_manifest,
                                                       verify_checkpoint,
                                                       write_manifest)
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.telemetry import events as _ev
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -87,10 +97,18 @@ def _ckpt_cfg(engine):
 
 
 def _tag_validation(tag: str, mode: str) -> None:
-    """Cross-process tag agreement (reference engine.py:3043). One
-    process has nothing to agree on; the multi-process branch comes with
-    ``torch.distributed`` (ROADMAP.md A6)."""
-    return
+    """Cross-process tag agreement check (reference
+    engine._checkpoint_tag_validation, engine.py:3043): rank 0's tag is
+    broadcast; a mismatch fails or warns by ``mode``."""
+    if comm.get_world_size() == 1 or mode.lower() == "ignore":
+        return
+    root_tag = comm.broadcast_obj(tag)
+    if str(root_tag) != str(tag):
+        msg = (f"checkpoint tag mismatch: rank {comm.get_rank()} has "
+               f"{tag!r}, rank 0 has {root_tag!r}")
+        if mode.lower() == "fail":
+            raise ValueError(msg)
+        logger.warning(msg)
 
 
 def _registry_for(engine):
@@ -129,44 +147,26 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     _join_pending_finalize(engine)
     _tag_validation(tag, _ckpt_cfg(engine).tag_validation)
     ckpt_dir = os.path.join(save_dir, str(tag))
-    os.makedirs(ckpt_dir, exist_ok=True)
-    # a re-save into a previously half-written tag must start from a
-    # clean verdict: drop the stale manifest (it hashes the OLD bytes)
-    # and any atomic-write debris before new content lands.
-    # Invalidating a COMMITTED tag that 'latest' names would open a crash
-    # window where 'latest' points at a manifest-less, torn dir (and,
-    # were it the only committed tag, the legacy rung would load the
-    # torn state unverified). Demote 'latest' to the newest OTHER
-    # committed tag — or drop the pointer — BEFORE the manifest goes
-    # away; a successful save re-advances it.
-    latest_path = os.path.join(save_dir, "latest")
-    if os.path.isfile(os.path.join(ckpt_dir, MANIFEST_NAME)) and \
-            os.path.isfile(latest_path):
-        with open(latest_path) as f:
-            current_latest = f.read().strip()
-        if current_latest == str(tag):
-            others = [name for _, name in committed_tags(save_dir)
-                      if name != str(tag)]
-            if others:
-                atomic_write_text(latest_path, others[0])
-            else:
-                try:
-                    os.unlink(latest_path)
-                except OSError:
-                    pass
-    for name in [MANIFEST_NAME] + \
-            [n for n in os.listdir(ckpt_dir) if n.endswith(".tmp")]:
-        try:
-            os.unlink(os.path.join(ckpt_dir, name))
-        except OSError:
-            pass
-
+    root = comm.get_rank() == 0
+    if root:
+        _prepare_tag_dir(save_dir, ckpt_dir, tag)
     state_path = os.path.join(ckpt_dir, "state")
     ce = _engine_for(engine)
-    ce.create(tag)
-    ce.save(engine._checkpoint_state(), state_path)
+    # every rank gathers (collectives); rank 0 alone writes
+    state = engine._checkpoint_state()
+    write_err: Optional[BaseException] = None
+    if root:
+        try:
+            ce.create(tag)
+            ce.save(state, state_path)
+        except BaseException as e:  # noqa: BLE001
+            write_err = e
+    del state
     if getattr(engine, "host_opt", None) is not None:
-        _save_host_optimizer(engine.host_opt, ckpt_dir)
+        err = _save_host_optimizer(
+            engine.host_opt.adam.step_count, engine._host_state_leaves(),
+            ckpt_dir, write=root and write_err is None)
+        write_err = write_err or err
 
     # Counters are snapshotted NOW: an async finalize that read them live
     # at commit time would stamp a later step onto this state snapshot.
@@ -201,7 +201,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                                step_snapshot, fingerprint)
         logger.info(f"saved checkpoint {tag} to {save_dir}")
 
-    if _ckpt_cfg(engine).engine in ("async", "nebula"):
+    if _ckpt_cfg(engine).engine in ("async", "nebula") and \
+            comm.get_world_size() == 1 and write_err is None:
         import threading
 
         # A failure here (a write error, disk full writing 'latest') must
@@ -225,8 +226,54 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         engine._ckpt_finalize_thread = t
         _register_atexit_join(engine)
     else:
-        _finalize()
+        err = write_err
+        if root and err is None:
+            try:
+                _finalize()
+            except BaseException as e:  # noqa: BLE001
+                err = e
+        # every rank must reach the barrier even when publication failed
+        # on rank 0: raising before it would leave the other ranks
+        # blocked in it instead of failing loudly
+        comm.barrier()
+        if err is not None:
+            raise err
     return ckpt_dir
+
+
+def _prepare_tag_dir(save_dir: str, ckpt_dir: str, tag) -> None:
+    """Make the tag dir (rank 0)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    # a re-save into a previously half-written tag must start from a
+    # clean verdict: drop the stale manifest (it hashes the OLD bytes)
+    # and any atomic-write debris before new content lands.
+    # Invalidating a COMMITTED tag that 'latest' names would open a crash
+    # window where 'latest' points at a manifest-less, torn dir (and,
+    # were it the only committed tag, the legacy rung would load the
+    # torn state unverified). Demote 'latest' to the newest OTHER
+    # committed tag — or drop the pointer — BEFORE the manifest goes
+    # away; a successful save re-advances it.
+    latest_path = os.path.join(save_dir, "latest")
+    if os.path.isfile(os.path.join(ckpt_dir, MANIFEST_NAME)) and \
+            os.path.isfile(latest_path):
+        with open(latest_path) as f:
+            current_latest = f.read().strip()
+        if current_latest == str(tag):
+            others = [name for _, name in committed_tags(save_dir)
+                      if name != str(tag)]
+            if others:
+                atomic_write_text(latest_path, others[0])
+            else:
+                try:
+                    os.unlink(latest_path)
+                except OSError:
+                    pass
+    for name in [MANIFEST_NAME] + \
+            [n for n in os.listdir(ckpt_dir) if n.endswith(".tmp")]:
+        try:
+            os.unlink(os.path.join(ckpt_dir, name))
+        except OSError:
+            pass
 
 
 # engines with an async finalize possibly in flight at interpreter exit;
@@ -438,12 +485,12 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     if getattr(engine, "host_opt", None) is not None:
         host_path = os.path.join(ckpt_dir, HOST_OPTIMIZER_FILE)
         if with_opt and os.path.isfile(host_path):
-            engine.host_opt.load_state_dict(_load_host_optimizer(host_path))
+            engine._load_host_state(*_load_host_optimizer(host_path))
         else:
             # no host state restored: re-seed the fp32 master from the
             # restored params, else the next step would overwrite them
             # with the construction-time master
-            engine.host_opt.sync_master_from(engine.params)
+            engine.host_opt.sync_master_from(engine._params_as_master())
 
     meta_path = os.path.join(ckpt_dir, "client_state.json")
     client_state = {}
@@ -461,38 +508,78 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
 HOST_OPTIMIZER_FILE = "host_optimizer.npz"
 
 
-def _save_host_optimizer(host_opt, ckpt_dir: str) -> None:
+def _save_host_optimizer(step: int, leaves, ckpt_dir: str,
+                         write: bool) -> Optional[BaseException]:
     """The host master and moments as one ``.npz`` with JAX's keys,
-    written atomically (tmp, fsync, rename) before the tag commits, so the
-    manifest hashes it."""
+    written atomically (tmp, fsync, rename) before the tag commits, so
+    the manifest hashes it. ``leaves`` (``engine._host_state_leaves()``)
+    are streamed into the archive one at a time, as ``np.savez`` stores
+    them. Every rank consumes them, since their gathers are collectives;
+    only where ``write`` is a file written. Returns the write's error."""
+    import zipfile
+
     import numpy as np
-    sd = host_opt.state_dict()
-    blob = {"step": np.int64(sd["step"])}
-    for k, w in sd["master"].items():
-        blob[f"master::{_jax_name(k)}"] = w.numpy()
-    for k, st in sd["state"].items():
-        for part, arr in st.items():
-            blob[f"state::{_jax_name(k)}::{part}"] = arr.numpy()
+
+    def put(zf, key, arr):
+        with zf.open(key + ".npy", "w", force_zip64=True) as fh:
+            np.lib.format.write_array(fh, np.asanyarray(arr),
+                                      allow_pickle=False)
+
     final = os.path.join(ckpt_dir, HOST_OPTIMIZER_FILE)
     tmp = final + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **blob)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, final)
+    err: Optional[BaseException] = None
+    f = zf = None
+    try:
+        if write:
+            f = open(tmp, "wb")
+            zf = zipfile.ZipFile(f, "w", zipfile.ZIP_STORED,
+                                 allowZip64=True)
+            put(zf, "step", np.int64(step))
+    except BaseException as e:  # noqa: BLE001
+        err = e
+    for (group, k, part), leaf in leaves:
+        if zf is None or err is not None:
+            continue
+        key = (f"master::{_jax_name(k)}" if group == "master"
+               else f"state::{_jax_name(k)}::{part}")
+        try:
+            put(zf, key, leaf.numpy())
+        except BaseException as e:  # noqa: BLE001
+            err = e
+        del leaf
+    try:
+        if zf is not None:
+            zf.close()
+        if f is not None:
+            if err is None:
+                f.flush()
+                os.fsync(f.fileno())
+            f.close()
+            if err is None:
+                os.replace(tmp, final)
+    except BaseException as e:  # noqa: BLE001
+        err = err or e
+    return err
 
 
-def _load_host_optimizer(path: str) -> Dict[str, Any]:
+def _load_host_optimizer(path: str):
+    """``(step, leaves)`` of a ``host_optimizer.npz``: ``leaves`` yields
+    ``((group, name, part), array)``, each member read from the archive
+    only when its turn comes (``engine._load_host_state``)."""
     import numpy as np
     blob = np.load(path)
-    sd = {"step": int(blob["step"]), "master": {}, "state": {}}
-    for key in blob.files:
-        if key.startswith("master::"):
-            sd["master"][_port_name(key[len("master::"):])] = blob[key]
-        elif key.startswith("state::"):
-            _, leaf, part = key.split("::")
-            sd["state"].setdefault(_port_name(leaf), {})[part] = blob[key]
-    return sd
+    step = int(blob["step"])
+
+    def leaves():
+        with blob:
+            for key in blob.files:
+                if key.startswith("master::"):
+                    yield ("master", _port_name(key[len("master::"):]),
+                           None), blob[key]
+                elif key.startswith("state::"):
+                    _, leaf, part = key.split("::")
+                    yield ("state", _port_name(leaf), part), blob[key]
+    return step, leaves()
 
 
 def _jax_name(name: str) -> str:

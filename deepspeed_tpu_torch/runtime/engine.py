@@ -1,7 +1,7 @@
-"""The training engine, on one device.
+"""The training engine, on one device or over data-parallel ranks.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` (``DeepSpeedEngine``
-:93, ``initialize`` :2213) with its single-device semantics:
+:93, ``initialize`` :2213):
 
 * ``train_batch(batch)`` — one optimizer step over ``micro * gas`` rows:
   for each micro-batch the gradient of ``loss * scale / gas`` (f32) with
@@ -20,13 +20,46 @@ A ``loss_fn`` may return ``(loss, aux)``: ``aux`` is a dict of scalars,
 averaged over the micro-batches into the step's metrics (JAX
 ``_split_loss_out``).
 
-ZeRO on one device (JAX ``runtime/engine.py:247-329``): stages 1-3 are
-accepted, and at world size 1 every placement of JAX's
-``runtime/zero/partition.py`` is the one device, so they give stage 0's
-numbers. ``offload_optimizer: {device: cpu}`` moves the optimizer state to
-the host (``runtime/zero/offload.py``); its ``implementation`` resolves as
-in JAX, with the TPU backend read as "the engine's device is CUDA":
-``auto`` gives ``stream`` on CUDA without fp16, else ``host``.
+**Several ranks.** With a process group (``comm.init_distributed``) the
+engine builds the mesh of ``config.mesh`` over it (``comm/mesh.py``; one
+process a rank, its device ``cuda:LOCAL_RANK`` or the CPU with
+``device="cpu"``) and makes the collectives of JAX's
+``runtime/zero/partition.py`` placements itself, eagerly, over the
+``("data", "fsdp")`` group (:class:`~deepspeed_tpu_torch.runtime.zero.
+partition.ZeroPartition`: each rank holds the contiguous block of a
+sharded leaf):
+
+* each rank's ``train_batch`` takes its own ``micro * gas`` rows (JAX's
+  multi-process convention); the reported loss and aux metrics are the
+  means over every rank;
+* stages 0-1 all-reduce (mean) the f32 accumulators once a step; stages
+  2-3 reduce-scatter each micro-batch's gradient onto the rank's block
+  (a leaf that stays whole is all-reduced at the step);
+* stage >= 1 keeps the f32 master and the moments of the rank's block
+  only, and the optimizer updates that block; stages 1-2 then all-gather
+  the 16-bit params, stage 3 keeps them sharded;
+* stage 3 gathers the params for the forward: a model that declares
+  ``handles_param_offload`` (GPT-2 with ``offload_params``) layer by layer
+  through the engine's fetch, an all-gather whose backward
+  reduce-scatters the gradient into the rank's accumulator (the remat
+  recompute gathers again); any other model gets the whole tree gathered
+  for the step;
+* the clip's global norm sums each sharded leaf's block over the group
+  and counts each whole leaf once; the fp16 finite flag is the minimum
+  over every rank, so every rank skips together;
+* ``sparse_gradients`` (stage 0, declared 2-D leaves): the row-sparse
+  exchange of ``runtime/sparse_tensor.py`` instead of the dense mean.
+
+Over a group of one rank (NCCL on the one card) every collective is an
+identity and the numbers are the single-process engine's bit for bit.
+Without a process group nothing of this runs. The tensor and seq axes
+are ROADMAP.md A6b-ii, the pipe axis A8.
+
+ZeRO-Offload: ``offload_optimizer: {device: cpu}`` moves the optimizer
+state (the rank's block) to the host (``runtime/zero/offload.py``); its
+``implementation`` resolves as in JAX, with the TPU backend read as "the
+engine's device is CUDA": ``auto`` gives ``stream`` on CUDA without fp16,
+else ``host``.
 
 * ``host``: the f32 master and the Adam moments in host memory, the C++
   Adam of ``ops/cpu_adam.py`` (Adam family only); the gradients leave the
@@ -56,56 +89,69 @@ learning rate is a host float. An fp16 step reads one bool, whether the
 gradients are finite, to skip the update (the JAX engine reads the same
 flag per step). Gradients, moments and the master are updated in place.
 
-Not in this slice (ROADMAP.md queue C): meshes of several devices, the
-NVMe tier, the 1-bit and sparse gradient exchanges, MoQ, eigenvalue,
-curriculum learning, the flops profiler and the training telemetry
-planes.
+Not in this slice (ROADMAP.md queue C): the tensor, seq and pipe axes
+(A6b-ii, A8), the NVMe tier (A6c), the 1-bit optimizers, MoQ, eigenvalue,
+curriculum learning and the flops profiler (A9) and the training
+telemetry planes (A7).
 """
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm.mesh import (DATA_AXES, axis_group,
+                                           get_data_parallel_world_size,
+                                           mesh_for, mesh_shape,
+                                           set_global_mesh)
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.inference.engine import resolve_device
-from deepspeed_tpu_torch.ops.adam import (Optimizer, build_optimizer,
+from deepspeed_tpu_torch.ops.adam import (ONEBIT_OPTIMIZER_KEYS, Optimizer,
+                                          build_optimizer,
                                           normalize_optimizer_key)
 from deepspeed_tpu_torch.runtime.lr_schedules import Schedule, build_schedule
 from deepspeed_tpu_torch.runtime.precision import (PRECISION_DTYPES,
                                                    cast_tree, grads_finite,
                                                    make_loss_scale,
                                                    update_loss_scale)
+from deepspeed_tpu_torch.runtime.sparse_tensor import sparse_all_mean
 from deepspeed_tpu_torch.runtime.utils import clip_coef, global_norm
 from deepspeed_tpu_torch.runtime.zero.offload import (HostOffloadOptimizer,
                                                       StreamedOffloadOptimizer,
                                                       refuse_nvme)
 from deepspeed_tpu_torch.runtime.zero.param_offload import (ParamFetcher,
                                                             stage, to_pinned)
+from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartition,
+                                                        ZeroShardingPolicy)
 from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
 from deepspeed_tpu_torch.utils.logging import logger
 
-_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
+_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C, A8)"
 
 
 def _refuse_unported(config: DeepSpeedConfig) -> None:
     mesh = config.mesh
     checks = (
-        (config.sparse_gradients, "sparse_gradients"),
-        (mesh.data not in (-1, 1) or max(mesh.fsdp, mesh.tensor, mesh.seq,
-                                         mesh.pipe) > 1,
-         f"a mesh of more than one device ({mesh})"),
+        (mesh.tensor > 1, f"a mesh with tensor={mesh.tensor}", "A6b-ii"),
+        (mesh.seq > 1, f"a mesh with seq={mesh.seq}", "A6b-ii"),
+        (mesh.pipe > 1, f"a mesh with pipe={mesh.pipe}", "A8"),
         (config.curriculum_learning.get("enabled", False),
-         "curriculum_learning"),
-        (bool(config.compression_config), "compression_training (MoQ)"),
-        (config.eigenvalue.enabled, "eigenvalue"),
-        (config.flops_profiler.enabled, "flops_profiler"),
+         "curriculum_learning", "A9"),
+        (bool(config.compression_config), "compression_training (MoQ)",
+         "A9"),
+        (config.eigenvalue.enabled, "eigenvalue", "A9"),
+        (config.flops_profiler.enabled, "flops_profiler", "A9"),
     )
-    for bad, what in checks:
+    for bad, what, item in checks:
         if bad:
-            raise NotImplementedError(f"{what} {_LATER}")
+            raise NotImplementedError(
+                f"{what} is not ported to deepspeed_tpu_torch yet "
+                f"(ROADMAP.md queue C, {item})")
 
 
 _RESERVED_METRICS = {"loss", "grad_norm", "lr", "loss_scale", "skipped",
@@ -144,10 +190,31 @@ class DeepSpeedEngine:
                  optimizer: Optional[Optimizer] = None,
                  lr_scheduler: Optional[Schedule] = None,
                  training_data=None, collate_fn=None, device=None,
-                 model_handles_param_offload: bool = False):
-        self.device = resolve_device(device)
+                 model_handles_param_offload: bool = False, mesh=None,
+                 sparse_grad_paths=None):
         _refuse_unported(config)
-        config.resolve_batch_config(1)
+        # several ranks: a process group exists (or a mesh is given)
+        self._dist = mesh is not None or dist.is_initialized()
+        if device is None and self._dist and dist.get_backend() == "nccl":
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
+        if self._dist:
+            self.mesh = mesh if mesh is not None else mesh_for(config.mesh)
+            set_global_mesh(self.mesh)
+            self.dp = get_data_parallel_world_size(self.mesh)
+            group, ranks = axis_group(DATA_AXES, self.mesh)
+            self._dp_index = ranks.index(dist.get_rank())
+        else:
+            n = config.mesh.data * config.mesh.fsdp
+            if n > 1:
+                raise ValueError(
+                    f"a mesh of {n} devices ({config.mesh}) needs {n} ranks: "
+                    "start them with torchrun (or the launcher's "
+                    "variables) and call deepspeed_tpu_torch."
+                    "init_distributed()")
+            self.mesh, self.dp, self._dp_index = None, 1, 0
+        config.resolve_batch_config(self.dp)
+        comm.configure(deepspeed_config=config)
         self.config = config
         self.loss_fn = loss_fn
         self.compute_dtype = PRECISION_DTYPES[config.precision_dtype]
@@ -157,6 +224,7 @@ class DeepSpeedEngine:
         self.micro_batch_size = config.train_micro_batch_size_per_gpu
         self.train_batch_size = config.train_batch_size
         opt_cfg = config.optimizer
+        self._resolve_sparse(config, opt_cfg, sparse_grad_paths)
         if optimizer is None:
             optimizer = build_optimizer(opt_cfg.type if opt_cfg else "AdamW",
                                         dict(opt_cfg.params) if opt_cfg
@@ -164,7 +232,7 @@ class DeepSpeedEngine:
         self.optimizer = optimizer
         self.lr_scheduler = lr_scheduler or build_schedule(
             config.scheduler, opt_cfg.params if opt_cfg else None)
-        self._resolve_zero(config, model_handles_param_offload)
+        self._resolve_zero(config, model_handles_param_offload, params)
         self._init_state(params)
         self.training_dataloader = None
         if training_data is not None:
@@ -204,13 +272,55 @@ class DeepSpeedEngine:
             ("host", self.host_opt is not None),
             ("stream", self._stream_opt is not None),
             ("param", self._param_offload_cfg is not None)) if on]
-        logger.info(f"engine ready: {n} parameters on {self.device}, "
+        logger.info(f"engine ready: {n} parameters on {self.device} "
+                    f"(rank {self._dp_index} of {self.dp}), "
                     f"dtype={config.precision_dtype} "
                     f"micro={self.micro_batch_size} gas={self.gas} "
                     f"zero_stage={self.zero_stage} offload={tiers or None}")
 
     # ------------------------------------------------------------- ZeRO
-    def _resolve_zero(self, config, model_handles_param_offload) -> None:
+    def _resolve_sparse(self, config, opt_cfg, sparse_grad_paths) -> None:
+        """``sparse_gradients`` and JAX's refusals (JAX
+        ``runtime/engine.py:176-223``): only declared 2-D leaves (fnmatch
+        patterns over the JAX tree's ``/``-joined paths) ride the sparse
+        exchange, over pure data parallelism at stage 0."""
+        self._sparse_patterns = tuple(sparse_grad_paths or ())
+        self._sparse_axes = ()
+        self._sparse_grad_caps: Dict[str, Optional[int]] = {}
+        if not config.sparse_gradients:
+            return
+        opt_type = normalize_optimizer_key(opt_cfg.type if opt_cfg
+                                           else "AdamW")
+        if opt_type in ONEBIT_OPTIMIZER_KEYS and self.dp > 1:
+            raise NotImplementedError(
+                "sparse_gradients cannot combine with the 1-bit optimizer "
+                "family (its error-feedback compression assumes dense "
+                "tensors — same as the reference)")
+        if config.fp16.enabled:
+            raise NotImplementedError(
+                "sparse_gradients + fp16 loss scaling is not wired into the "
+                "explicit-exchange step; use bf16")
+        if not self._sparse_patterns:
+            logger.warning(
+                "sparse_gradients enabled but no sparse_grad_paths declared "
+                "(model attribute or initialize kwarg) — falling back to "
+                "the dense exchange. NOTE: tied input/output embeddings "
+                "must NOT be declared (their gradient is dense through the "
+                "logits)")
+        elif self.dp > 1:
+            if config.zero_config.stage != 0:
+                raise ValueError(
+                    "sparse_gradients requires replicated parameters "
+                    "(zero_optimization.stage=0); the reference ZeRO "
+                    "optimizer rejects sparse gradients too")
+            shape = mesh_shape(self.mesh)
+            self._sparse_axes = tuple(a for a in DATA_AXES if shape[a] > 1)
+        else:
+            logger.info("sparse_gradients: no data-parallel extent, "
+                        "nothing to exchange")
+
+    def _resolve_zero(self, config, model_handles_param_offload,
+                      params) -> None:
         """The ZeRO stage, the offload tiers and their refusals, in JAX's
         order and words (JAX ``runtime/engine.py:247-329``)."""
         zc = config.zero_config
@@ -266,9 +376,25 @@ class DeepSpeedEngine:
                 "stage3.py:448 — parameter offload is a stage-3 feature)")
         if self._param_offload_cfg is not None:
             refuse_nvme(self._param_offload_cfg.device, "offload_param")
+        # the ZeRO blocks of each leaf (several ranks): params at stage 3,
+        # gradients at 2-3, the master and the moments at 1-3
+        self._p_shard = self._dist and self.zero_stage >= 3
+        self._g_shard = self._dist and self.zero_stage >= 2
+        self._m_shard = self._dist and self.zero_stage >= 1
+        self._shapes = {k: tuple(v.shape) for k, v in params.items()}
+        self.part = None
+        if self._dist:
+            threshold = (zc.stage3_param_persistence_threshold
+                         if self.zero_stage >= 3 else 0)
+            self.part = ZeroPartition(
+                ZeroShardingPolicy(self.zero_stage, self.mesh,
+                                   param_persistence_threshold=threshold),
+                self._shapes)
+        # a model that fetches its own layers: with offload_param, or to
+        # gather its stage-3 blocks layer by layer
         self._model_fetches_params = bool(
             model_handles_param_offload and
-            self._param_offload_cfg is not None)
+            (self._param_offload_cfg is not None or self._p_shard))
         # bf16 gradients leave the card in bf16 (host path only; JAX
         # native_acc_out): not with fp16, whose unscale is defined on f32
         self._native_out = (
@@ -283,40 +409,68 @@ class DeepSpeedEngine:
         self.offload_step_times: Dict[str, float] = {}
 
     # ------------------------------------------------------------ state
+    def _psh(self, n: str) -> bool:
+        """The rank holds a block of param ``n`` (stage 3)."""
+        return self._p_shard and self.part.sharded(n)
+
+    def _gsh(self, n: str) -> bool:
+        """The rank accumulates a block of the gradient of ``n``."""
+        return self._g_shard and self.part.sharded(n)
+
+    def _msh(self, n: str) -> bool:
+        """The rank holds a block of the master and moments of ``n``."""
+        return self._m_shard and self.part.sharded(n)
+
+    def _block(self, n: str, t, sharded: bool) -> torch.Tensor:
+        t = torch.as_tensor(t)
+        return self.part.shard(n, t).contiguous() if sharded else t
+
     def _init_state(self, params) -> None:
-        """f32 master (a copy of ``params``), compute params cast from it
-        (the master itself in fp32), optimizer state and loss scale. With
-        ``offload_optimizer`` the master and the optimizer state go to the
-        host (``host_opt`` or ``_stream_opt``); with ``offload_param`` the
-        compute params live in pinned host memory."""
+        """f32 master (a copy of ``params``, the rank's blocks at stage >=
+        1), compute params cast from the caller's weights (the rank's
+        blocks at stage 3; the master itself in fp32 where the layouts
+        agree), optimizer state and loss scale. With ``offload_optimizer``
+        the master and the optimizer state go to the host (``host_opt`` or
+        ``_stream_opt``); with ``offload_param`` the compute params live
+        in pinned host memory."""
+        def compute(k, v):
+            return self._block(k, v, self._psh(k)).to(
+                self.device, torch.float32, copy=not self.mixed_precision
+            ).to(self.compute_dtype)
+
         if self._offload_cfg is not None and not self._offload_stream:
             # the f32 master straight to the host, and no f32 copy on the
             # card: the compute params are cast from the caller's weights
             opt_cfg = self.config.optimizer
             self.host_opt = HostOffloadOptimizer(
-                params, opt_cfg.params if opt_cfg else {},
+                {k: self._block(k, v, self._msh(k))
+                 for k, v in params.items()},
+                opt_cfg.params if opt_cfg else {},
                 device=self._offload_cfg.device,
                 nvme_path=self._offload_cfg.nvme_path)
-            self.params = {k: torch.as_tensor(v).to(
-                self.device, torch.float32, copy=not self.mixed_precision
-            ).to(self.compute_dtype) for k, v in params.items()}
+            self.params = {k: compute(k, v) for k, v in params.items()}
             self.master = self.opt_state = None
         else:
-            master = {k: torch.as_tensor(v).to(self.device, torch.float32,
-                                               copy=True)
-                      for k, v in params.items()}
-            self.params = (cast_tree(master, self.compute_dtype)
-                           if self.mixed_precision else master)
+            master = {k: self._block(k, v, self._msh(k)).to(
+                self.device, torch.float32, copy=True)
+                for k, v in params.items()}
+            # the params are the master in fp32 unless the layouts differ
+            # (stages 1-2 over ranks) or the params leave the card
+            own = (self.mixed_precision or self._param_offload_cfg is not
+                   None or self.zero_stage in (1, 2) and self._dist)
+            if not own:
+                self.params = master
+            elif self._p_shard or not self._m_shard:
+                self.params = cast_tree(master, self.compute_dtype)
+            else:
+                self.params = {k: compute(k, v) for k, v in params.items()}
             if self._offload_stream:
                 self._stream_opt = StreamedOffloadOptimizer(
                     self.optimizer, master, self.mixed_precision)
                 self.master = self._stream_opt.master
                 self.opt_state = self._stream_opt.opt_state
             else:
-                # with offload_param the params leave the card: the master
-                # stays there, even in fp32
-                self.master = master if (self.mixed_precision or
-                                         self._param_offload_cfg) else None
+                self.master = master if own else None
                 self.opt_state = self.optimizer.init(
                     {k: v.detach() for k, v in self._master().items()})
             del master
@@ -329,18 +483,40 @@ class DeepSpeedEngine:
         self._acc = None   # gradient accumulators, made on first use
         self._acc_losses = []   # the loss of each micro-batch in _acc
         self._acc_aux = []      # and its aux metrics
+        self._step_tokens = 0   # the step's tokens (sparse capacities)
         self._index = {n: i for i, n in enumerate(self.params)}
         self._sink_first = True
 
     def install_param_fetch(self, model) -> None:
         """Give a ``handles_param_offload`` model the engine's fetch; its
-        weights' gradients then go to the accumulators (``_deposit``)."""
+        weights' gradients then go to the accumulators (``_deposit``).
+        At stage 3 over ranks the fetch all-gathers the layer's blocks."""
         if self._model_fetches_params:
-            self._fetcher = ParamFetcher(self.device, self._deposit)
+            self._fetcher = ParamFetcher(
+                self.device, self._deposit,
+                gather=self._fetch_whole if self._p_shard else None)
             model.set_param_fetch(self._fetcher)
+
+    def _fetch_whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from the rank's block on the card (a new
+        tensor)."""
+        if self._psh(name):
+            return comm.all_gather(t, DATA_AXES, axis=self.part.dims[name])
+        return t.clone()
+
+    def _to_acc(self, name: str, grad: torch.Tensor) -> torch.Tensor:
+        """A micro-batch's whole gradient in the accumulator's layout: the
+        group's mean on the rank's block (f32) where the rank accumulates
+        a block, else as it is."""
+        if not self._gsh(name) or tuple(grad.shape) != self._shapes[name]:
+            return grad
+        g = comm.reduce_scatter(grad.float(), DATA_AXES,
+                                axis=self.part.dims[name])
+        return g.div_(self.dp) if self.dp > 1 else g
 
     def _deposit(self, name: str, grad: torch.Tensor) -> None:
         acc = self._acc[self._index[name]]
+        grad = self._to_acc(name, grad)
         if self._sink_first:
             acc.copy_(grad)
         else:
@@ -348,26 +524,77 @@ class DeepSpeedEngine:
         self._deposited.add(name)
 
     def _step_params(self):
-        """The params a micro-batch runs on: the whole tree staged to the
-        card for this step (``offload_param`` with a model that does not
-        fetch its own layers), else the engine's own."""
-        if self._param_offload_cfg is None or self._fetcher is not None:
+        """The params a micro-batch runs on: the whole tree on the card
+        for this step (``offload_param`` or stage-3 blocks, with a model
+        that does not fetch its own layers), else the engine's own."""
+        if self._fetcher is not None or (self._param_offload_cfg is None
+                                         and not self._p_shard):
             return self.params
         if self._staged is None:
-            self._staged = stage(self.params, self.device)
+            self._staged = (self._gather_tree() if self._p_shard
+                            else stage(self.params, self.device))
         return self._staged
+
+    def _gather_tree(self) -> Dict[str, torch.Tensor]:
+        """Every param whole on the card for one step, autograd leaves:
+        gathered from the ranks' blocks (staged from the host first with
+        ``offload_param``); a whole param on the card is itself."""
+        out = {}
+        for n, p in self.params.items():
+            t = p.detach()
+            if self._psh(n):
+                t = comm.all_gather(t.to(self.device, non_blocking=True),
+                                    DATA_AXES, axis=self.part.dims[n])
+            elif t.device == self.device:
+                out[n] = p
+                continue
+            else:
+                t = t.to(self.device, non_blocking=True, copy=True)
+            out[n] = t.requires_grad_(True)
+        return out
+
+    def _gathers(self, n: str) -> bool:
+        """Param ``n`` is whole while its master is a block (stages
+        1-2): the updated block is all-gathered."""
+        return self._msh(n) and not self._psh(n)
 
     def _cast_params_from(self, master) -> None:
         """The compute params cast from ``master`` by the step's own cast
-        (``_foreach_copy_``; one copy a leaf across devices)."""
-        names = list(master)
+        (``_foreach_copy_``; one copy a leaf across devices); a block of a
+        whole param is cast, then all-gathered into it."""
+        names = [n for n in master if not self._gathers(n)]
         dst = [self.params[n].detach() for n in names]
         src = [master[n] for n in names]
-        if all(d.device == m.device for d, m in zip(dst, src)):
+        if not names:
+            pass
+        elif all(d.device == m.device for d, m in zip(dst, src)):
             torch._foreach_copy_(dst, src)
         else:
             for d, m in zip(dst, src):
                 d.copy_(m)
+        for n in master:
+            if self._gathers(n):
+                self._gather_into(n, master[n])
+
+    def _gather_into(self, n: str, block: torch.Tensor) -> None:
+        """All-gather the new blocks of param ``n`` (in its dtype) into
+        it."""
+        p = self.params[n].detach()
+        p.copy_(comm.all_gather(block.to(self.device, p.dtype), DATA_AXES,
+                                axis=self.part.dims[n]))
+
+    def _param_dest(self):
+        """Where an offloaded optimizer writes the new params: the param
+        itself, or a block buffer to all-gather (stages 1-2 over ranks)."""
+        return {n: (torch.empty(self.part.shard_shape(n, p.shape),
+                                dtype=p.dtype, device=p.device)
+                    if self._gathers(n) else p)
+                for n, p in self.params.items()}
+
+    def _gather_dest(self, dest) -> None:
+        for n, t in dest.items():
+            if self._gathers(n):
+                self._gather_into(n, t)
 
     def _master(self):
         return self.params if self.master is None else self.master
@@ -414,10 +641,17 @@ class DeepSpeedEngine:
         if self.fp16:
             torch._foreach_mul_(grads, 1.0 / scale)
             finite = grads_finite(grads)
+            if self._dist:   # every rank skips together
+                finite = comm.all_reduce(finite.float(), comm.MIN,
+                                         DATA_AXES) > 0
         # bf16 grads (``_native_out``, never with fp16): the norm and the
         # clip in f32, each gradient rounded back to bf16 (JAX
-        # native_acc_out)
-        gnorm = global_norm(grads)
+        # native_acc_out). Over ranks a block's squares are summed over
+        # the group and a whole leaf counts once.
+        gnorm = (global_norm(grads, sharded=[self._gsh(n)
+                                             for n in self.params],
+                             axis_name=DATA_AXES)
+                 if self._dist else global_norm(grads))
         clip = self.config.gradient_clipping
         if clip > 0.0:
             torch._foreach_mul_(grads, clip_coef(clip, gnorm))
@@ -444,19 +678,20 @@ class DeepSpeedEngine:
                 "loss_scale": scale, "skipped": self._last_skipped}
 
     def _update(self, grads, lr) -> None:
-        """The optimizer step on the master, wherever it lives, and the
-        compute params refreshed from it."""
+        """The optimizer step on the master (the rank's blocks), wherever
+        it lives, and the compute params refreshed from it."""
         names = list(self.params)
-        if self.host_opt is not None:
-            self.host_opt.step_streamed(dict(zip(names, grads)), lr,
-                                        self.params)
-            return
-        if self._stream_opt is not None:
-            self._stream_opt.step(dict(zip(names, grads)), lr, self.params)
+        grads = {n: self._to_master(n, g) for n, g in zip(names, grads)}
+        if self.host_opt is not None or self._stream_opt is not None:
+            dest = self._param_dest()
+            opt = self.host_opt or self._stream_opt
+            (opt.step_streamed if self.host_opt is not None else opt.step)(
+                grads, lr, dest)
+            self._gather_dest(dest)
             return
         master = self._master()
         updates, self.opt_state = self.optimizer.update(
-            dict(zip(names, grads)), self.opt_state,
+            grads, self.opt_state,
             {k: v.detach() for k, v in master.items()}, lr)
         torch._foreach_add_([master[n].detach() for n in names],
                             [updates[n] for n in names])
@@ -464,19 +699,65 @@ class DeepSpeedEngine:
         if master is not self.params:
             self._cast_params_from(master)
 
+    def _to_master(self, n: str, g: torch.Tensor) -> torch.Tensor:
+        """A gradient in its master's layout: the rank's block of a whole
+        gradient where the master is a block (stage 1)."""
+        if self._msh(n) and tuple(g.shape) == self._shapes[n]:
+            g = self.part.shard(n, g)
+            if not g.is_contiguous():
+                g = g.contiguous()
+        return g
+
+    def _reduce_grads(self) -> None:
+        """The group's mean of every accumulator the rank holds whole (all
+        of them at stages 0-1): a dense all-reduce, or the row-sparse
+        exchange of a declared leaf."""
+        for i, n in enumerate(self.params):
+            if self._gsh(n):
+                continue   # reduce-scattered micro-batch by micro-batch
+            g = self._acc[i]
+            cap = self._sparse_grad_caps.get(n)
+            if cap is not None:
+                r = sparse_all_mean(g, cap, self._sparse_axes)
+            else:
+                r = comm.all_reduce(g.float(), comm.SUM, DATA_AXES)
+                if self.dp > 1:
+                    r.div_(self.dp)
+            g.copy_(r)
+
+    def _sparse_caps(self) -> None:
+        """Each declared leaf's capacity from this step's tokens (JAX
+        ``_make_sparse_step_fn``), None where the sparse exchange would
+        not move fewer bytes than the dense one."""
+        self._sparse_grad_caps = {}
+        for n, shape in self._shapes.items():
+            cap = None
+            if len(shape) == 2 and any(
+                    fnmatch.fnmatch(n.replace(".", "/"), p)
+                    for p in self._sparse_patterns):
+                c = min(self._step_tokens, shape[0] - 1)
+                if 2 * c * self.dp < shape[0]:
+                    cap = c
+            self._sparse_grad_caps[n] = cap
+
     # ----------------------------------------------------------- public
     def train_batch(self, batch=None) -> Dict[str, Any]:
         """One optimizer step over ``micro * gas`` rows; returns ``loss``
         (the mean over micro-batches), ``grad_norm``, ``lr``,
-        ``loss_scale``, ``skipped`` and the mean of each aux metric."""
+        ``loss_scale``, ``skipped`` and the mean of each aux metric. Over
+        ranks ``batch`` is this rank's ``micro * gas`` rows and the loss
+        and aux metrics are the means over every rank."""
+        rows = self.micro_batch_size * self.gas
         if batch is None:
-            batch = next(self.training_dataloader)
+            # the loader yields global batches, the same on every rank
+            # (one seed): each rank takes its own rows
+            batch = {k: v[self._dp_index * rows:(self._dp_index + 1) * rows]
+                     for k, v in next(self.training_dataloader).items()}
         batch = self._upload(batch)
         leading = next(iter(batch.values())).shape[0]
-        expected = self.micro_batch_size * self.gas
-        if leading != expected:
-            raise ValueError(f"global batch leading dim {leading} != "
-                             f"micro*gas*dp = {expected}")
+        if leading != rows:
+            raise ValueError(f"batch leading dim {leading} != micro*gas = "
+                             f"{rows} (each rank's rows)")
         if self._acc_losses:
             raise RuntimeError("train_batch() called with micro-batches from "
                                "backward() not yet applied by step()")
@@ -487,28 +768,36 @@ class DeepSpeedEngine:
         return self.step()
 
     def forward(self, batch):
-        """Loss of one micro-batch, without gradients."""
+        """Loss of one micro-batch, without gradients (over ranks the mean
+        over every rank's micro-batch: every rank calls it)."""
         with torch.no_grad():
             params = self._step_params()
             if params is self._staged and not self._acc_losses:
                 self._staged = None   # no step will drop it
-            return _split_loss_out(
+            loss = _split_loss_out(
                 self.loss_fn(params, self._upload(batch), None))[0]
+            if self._dist:   # the mean over every rank's micro-batch
+                loss = comm.all_reduce(loss.float(), comm.AVG, DATA_AXES)
+            return loss
 
     def backward(self, batch):
         """Accumulate the gradients of one micro-batch (f32; bf16 with
-        ``_native_out``); returns its loss."""
+        ``_native_out``); returns its loss (this rank's)."""
         if not self._acc_losses:
             self._step_t0 = time.perf_counter()
+            self._step_tokens = 0
         if self._acc is None:
             dtype = torch.bfloat16 if self._native_out else torch.float32
-            self._acc = [torch.empty(p.shape, dtype=dtype,
-                                     device=self.device)
-                         for p in self.params.values()]
+            self._acc = [torch.empty(self.part.shard_shape(n, shape)
+                                     if self._gsh(n) else shape,
+                                     dtype=dtype, device=self.device)
+                         for n, shape in self._shapes.items()]
         self._sink_first = not self._acc_losses
-        loss, aux, grads = self._micro_grads(self._upload(batch),
-                                             self._loss_scale.scale)
+        mb = self._upload(batch)
+        self._step_tokens += max(v.numel() for v in mb.values())
+        loss, aux, grads = self._micro_grads(mb, self._loss_scale.scale)
         if grads is not None:
+            grads = [self._to_acc(n, g) for n, g in zip(self.params, grads)]
             if self._acc_losses:
                 torch._foreach_add_(self._acc, grads)
             else:
@@ -532,10 +821,20 @@ class DeepSpeedEngine:
             raise RuntimeError("step() called with no accumulated gradients")
         losses, self._acc_losses = self._acc_losses, []
         auxes, self._acc_aux = self._acc_aux, []
-        metrics = self._apply(self._acc, sum(losses) / len(losses))
-        if auxes and auxes[0]:
-            for k in auxes[0]:
-                metrics[k] = sum(a[k] for a in auxes) / len(auxes)
+        mean_loss = sum(losses) / len(losses)
+        keys = list(auxes[0]) if auxes and auxes[0] else []
+        aux = {k: sum(a[k] for a in auxes) / len(auxes) for k in keys}
+        if self._dist:
+            if self._sparse_axes:
+                self._sparse_caps()
+            self._reduce_grads()
+            # the loss and aux metrics: means over every rank, in one call
+            vals = comm.all_reduce(torch.stack(
+                [mean_loss.float()] + [aux[k] for k in keys]), comm.AVG,
+                DATA_AXES)
+            mean_loss, aux = vals[0], dict(zip(keys, vals[1:]))
+        metrics = self._apply(self._acc, mean_loss)
+        metrics.update(aux)
         return metrics
 
     # --------------------------------------------------------- accessors
@@ -570,13 +869,30 @@ class DeepSpeedEngine:
         return not bool(skipped)
 
     def fp32_master_params(self) -> Dict[str, torch.Tensor]:
-        """The f32 master weights, copied to the host."""
+        """The f32 master weights, whole, copied to the host (over ranks a
+        collective: every rank calls it)."""
         if self.host_opt is not None:
-            return {k: v.reshape(self.host_opt.shapes[k]).clone()
+            return {k: self._whole(k, v.reshape(self.host_opt.shapes[k]),
+                                   self._msh(k)).to("cpu", copy=True)
                     for k, v in self.host_opt.master.items()}
         self._sync_host_state()
-        return {k: v.detach().float().to("cpu", copy=True)
-                for k, v in self._master().items()}
+        return {k: self._whole(k, v, self._msh(k)).float().to(
+            "cpu", copy=True) for k, v in self._master().items()}
+
+    def _whole(self, n: str, t: torch.Tensor, sharded: bool) -> torch.Tensor:
+        """Leaf ``n`` whole: all-gathered from the ranks' blocks (every
+        rank calls it) or ``t`` itself."""
+        t = t.detach()
+        if not sharded:
+            return t
+        return comm.all_gather(t.to(self.device), DATA_AXES,
+                               axis=self.part.dims[n])
+
+    def _params_as_master(self) -> Dict[str, torch.Tensor]:
+        """The compute params in the master's layout (the rank's blocks
+        of whole params at stages 1-2)."""
+        return {n: self.part.shard(n, p.detach()) if self._gathers(n)
+                else p for n, p in self.params.items()}
 
     def _sync_host_state(self) -> None:
         """Wait for the streamed optimizer's copies back to the host."""
@@ -671,9 +987,10 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------- module state
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The compute-dtype weights, copied to the host, by the engine's
-        names."""
-        return {k: v.detach().cpu() for k, v in self.params.items()}
+        """The compute-dtype weights, whole, copied to the host, by the
+        engine's names (over ranks a collective)."""
+        return {k: self._whole(k, v, self._psh(k)).to("cpu", copy=True)
+                for k, v in self.params.items()}
 
     def load_module_state_dict(self, state_dict) -> None:
         """Load the module weights only: each is cast to its param's
@@ -688,13 +1005,16 @@ class DeepSpeedEngine:
         with torch.no_grad():
             for n, p in self.params.items():
                 v = sd[n] if torch.is_tensor(sd[n]) else torch.tensor(sd[n])
-                p.detach().copy_(v.reshape(p.shape))
+                v = v.reshape(self._shapes[n])
+                p.detach().copy_(self.part.shard(n, v) if self._psh(n)
+                                 else v)
             if self.host_opt is not None:
-                self.host_opt.sync_master_from(self.params)
+                self.host_opt.sync_master_from(self._params_as_master())
             elif self.master is not None:
                 self._sync_host_state()
+                src = self._params_as_master()
                 for n, m in self.master.items():
-                    m.copy_(self.params[n].detach())
+                    m.copy_(src[n].detach())
 
     def save_16bit_model(self, save_dir,
                          save_filename: str = "model.safetensors") -> str:
@@ -703,11 +1023,14 @@ class DeepSpeedEngine:
         import os
 
         from deepspeed_tpu_torch.utils.safetensors_io import save_file
-        os.makedirs(save_dir, exist_ok=True)
         out = os.path.join(save_dir, save_filename)
-        save_file({k: v.detach() for k, v in self.params.items()}, out)
-        logger.info(f"saved 16-bit model: {out} ({len(self.params)} "
-                    "tensors)")
+        sd = self.module_state_dict()   # over ranks: every rank gathers
+        if comm.get_rank() == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            save_file(sd, out)
+            logger.info(f"saved 16-bit model: {out} ({len(self.params)} "
+                        "tensors)")
+        comm.barrier()
         return out
 
     # ------------------------------------------------------- checkpoints
@@ -719,42 +1042,115 @@ class DeepSpeedEngine:
         ``host`` offload the master and the moments are not here: they go
         to ``host_optimizer.npz`` beside the state
         (``runtime/checkpointing.py``), and the state holds the compute
-        params (the JAX engine's state there: params, no master)."""
+        params (the JAX engine's state there: params, no master).
+
+        Over ranks the layout is the same logical one: each sharded leaf
+        is all-gathered leaf by leaf (at most one whole leaf on the card
+        at a time) and copied to the host on rank 0, which writes; the
+        other ranks get empty groups."""
         ls = self._loss_scale
         loss_scale = {"scale": ls.scale, "growth_tracker": ls.growth_tracker,
                       "hysteresis": ls.hysteresis}
+        host = (self._whole_on_root if self._dist
+                else lambda group, sharded: group)
         if self.host_opt is not None:
-            return {"params": {k: v.detach() for k, v in self.params.items()},
+            return {"params": host({k: v.detach() for k, v in
+                                    self.params.items()}, self._psh),
                     "loss_scale": loss_scale}
         self._sync_host_state()
         opt = {"type": type(self.opt_state).__name__}
         for f in dataclasses.fields(self.opt_state):
             v = getattr(self.opt_state, f.name)
             if v is not None:
-                opt[f.name] = ({k: t.detach() for k, t in v.items()}
+                opt[f.name] = (host({k: t.detach() for k, t in v.items()},
+                                    self._msh)
                                if isinstance(v, dict) else v)
-        return {"master": {k: v.detach() for k, v in self._master().items()},
+        return {"master": host({k: v.detach() for k, v in
+                                self._master().items()}, self._msh),
                 "optimizer": opt, "loss_scale": loss_scale}
 
-    @staticmethod
-    def _copy_into(dst: Dict[str, torch.Tensor], src, what: str) -> None:
+    def _whole_on_root(self, group, sharded) -> Dict[str, torch.Tensor]:
+        """``group``'s leaves whole on the host of rank 0, gathered one at
+        a time; empty on the other ranks."""
+        out = {}
+        for k, t in group.items():
+            w = self._whole(k, t, sharded(k))
+            if comm.get_rank() == 0:
+                out[k] = w.to("cpu", copy=True)
+            del w
+        return out
+
+    def _host_state_leaves(self):
+        """The host optimizer's leaves whole and flat, one at a time, for
+        ``host_optimizer.npz``: ``((group, name, part), leaf)`` with
+        ``group`` "master" (``part`` None) or "state". Over ranks each
+        sharded leaf is all-gathered (every rank iterates: collectives)
+        and kept on rank 0's host only (``None`` on the others), so at
+        most one whole leaf is live."""
+        host = self.host_opt
+        root = comm.get_rank() == 0
+
+        def whole(k, flat):
+            if not self._dist:
+                return flat
+            shape = (self.part.shard_shape(k, self._shapes[k])
+                     if self._msh(k) else self._shapes[k])
+            w = self._whole(k, flat.reshape(shape), self._msh(k))
+            return w.to("cpu").reshape(-1) if root else None
+        for k in host.keys:
+            yield ("master", k, None), whole(k, host.master[k])
+        for k in host.keys:
+            for p, a in host.state[k].items():
+                yield ("state", k, p), whole(k, a)
+
+    def _load_host_state(self, step: int, leaves) -> None:
+        """Copy a ``host_optimizer.npz``'s whole flat leaves (``leaves``
+        as :meth:`_host_state_leaves` yields them, read one at a time)
+        into the host optimizer, each cut to the rank's block before the
+        next is read."""
+        host = self.host_opt
+        want = {("master", k, None) for k in host.keys} | {
+            ("state", k, p) for k in host.keys for p in host.state[k]}
+        seen = set()
+        for key, leaf in leaves:
+            if key not in want:
+                raise ValueError(f"host_optimizer.npz holds {key}, which "
+                                 "the engine's host optimizer lacks")
+            group, k, p = key
+            full = torch.as_tensor(leaf).reshape(self._shapes[k])
+            dst = host.master[k] if group == "master" else host.state[k][p]
+            dst.copy_(self._block(k, full, self._msh(k)).reshape(-1))
+            seen.add(key)
+            del leaf, full
+        if seen != want:
+            raise ValueError("host_optimizer.npz lacks "
+                             f"{sorted(want - seen, key=str)[:5]}")
+        host.adam.step_count = int(step)
+
+    def _copy_into(self, dst: Dict[str, torch.Tensor], src, what: str,
+                   sharded=lambda n: False) -> None:
+        """Copy a checkpoint's whole leaves into the engine's tensors (the
+        rank's blocks where ``sharded``)."""
         if set(dst) != set(src):
             raise ValueError(
                 f"checkpoint {what} does not match the engine: missing "
                 f"{sorted(set(dst) - set(src))[:5]}, unexpected "
                 f"{sorted(set(src) - set(dst))[:5]}")
         for k, t in dst.items():
-            if tuple(src[k].shape) != tuple(t.shape):
+            full = tuple(self._shapes[k]) if k in self._shapes \
+                else tuple(t.shape)
+            if tuple(src[k].shape) != full:
                 raise ValueError(f"checkpoint {what} {k!r} has shape "
                                  f"{tuple(src[k].shape)}, the engine "
-                                 f"{tuple(t.shape)}")
-            t.detach().copy_(src[k])
+                                 f"{full}")
+            t.detach().copy_(self.part.shard(k, src[k]) if sharded(k)
+                             else src[k])
 
     def _load_checkpoint_state(self, state, load_optimizer_states=True):
-        """Copy a checkpoint's groups (host tensors) into the engine's own
-        tensors, then cast the compute params from the master by the
-        step's own cast (``_foreach_copy_``), so their bits are the
-        saved step's."""
+        """Copy a checkpoint's groups (host tensors, whole leaves) into the
+        engine's own tensors (the rank's blocks), then cast the compute
+        params from the master by the step's own cast (``_foreach_copy_``),
+        so their bits are the saved step's."""
         with torch.no_grad():
             if self.host_opt is not None:
                 if "params" not in state:
@@ -762,7 +1158,8 @@ class DeepSpeedEngine:
                         "checkpoint holds no 'params' group: it was not "
                         "saved by an engine with offload_optimizer "
                         "implementation='host'")
-                self._copy_into(self.params, state["params"], "params")
+                self._copy_into(self.params, state["params"], "params",
+                                self._psh)
             else:
                 if "master" not in state:
                     raise ValueError(
@@ -771,7 +1168,8 @@ class DeepSpeedEngine:
                         "implementation='host'")
                 self._sync_host_state()
                 master = self._master()
-                self._copy_into(master, state["master"], "master")
+                self._copy_into(master, state["master"], "master",
+                                self._msh)
                 if master is not self.params:
                     self._cast_params_from(master)
             ls = state["loss_scale"]
@@ -789,7 +1187,8 @@ class DeepSpeedEngine:
             for f in dataclasses.fields(self.opt_state):
                 cur = getattr(self.opt_state, f.name)
                 if isinstance(cur, dict):
-                    self._copy_into(cur, opt[f.name], f"optimizer {f.name}")
+                    self._copy_into(cur, opt[f.name], f"optimizer {f.name}",
+                                    self._msh)
                 elif cur is not None:
                     setattr(self.opt_state, f.name, int(opt[f.name]))
 
@@ -843,13 +1242,17 @@ class DeepSpeedEngine:
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config=None,
                config_params=None, loss_fn=None, collate_fn=None,
-               device=None):
-    """``deepspeed.initialize`` on one device: returns ``(engine,
-    optimizer, training_dataloader, lr_scheduler)``. ``model`` exposes
+               device=None, mesh=None, sparse_grad_paths=None):
+    """``deepspeed.initialize``: returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)``. ``model`` exposes
     ``loss_fn(params, batch, rng)`` (or pass ``loss_fn``);
-    ``model_parameters`` is the initial dict of weights; ``config`` a
-    ``DeepSpeedConfig``, a dict or a JSON path. ``device`` defaults to
-    ``cuda``, which needs a card."""
+    ``model_parameters`` is the initial dict of weights, whole, the same
+    on every rank; ``config`` a ``DeepSpeedConfig``, a dict or a JSON
+    path. With a process group (``init_distributed``) the engine trains
+    over its ranks on the mesh of ``config.mesh`` (or ``mesh``).
+    ``device`` defaults to ``cuda`` (``cuda:LOCAL_RANK`` over ranks),
+    which needs a card. ``sparse_grad_paths`` (or the model's attribute)
+    declares the row-sparse leaves of ``sparse_gradients``."""
     cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(
         config if config is not None else (config_params or {}))
     if getattr(model, "num_stages", 1) > 1:
@@ -867,7 +1270,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              training_data=training_data,
                              collate_fn=collate_fn, device=device,
                              model_handles_param_offload=bool(getattr(
-                                 model, "handles_param_offload", False)))
+                                 model, "handles_param_offload", False)),
+                             mesh=mesh,
+                             sparse_grad_paths=(
+                                 sparse_grad_paths if sparse_grad_paths
+                                 else getattr(model, "sparse_grad_paths",
+                                              None)))
     engine.install_param_fetch(model)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)

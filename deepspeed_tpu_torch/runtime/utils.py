@@ -2,26 +2,41 @@
 ``deepspeed_tpu/runtime/utils.py``), on flat dicts or lists of tensors."""
 from __future__ import annotations
 
-from typing import Iterable, List, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.runtime.precision import grads_finite  # noqa: F401
 
 __all__ = ["clip_grad_norm_", "clip_coef", "global_norm", "grads_finite"]
 
 
-def global_norm(grads: Iterable[torch.Tensor],
-                norm_type: float = 2.0) -> torch.Tensor:
-    """Norm over every element of every tensor, as an f32 device scalar."""
+def global_norm(grads: Iterable[torch.Tensor], norm_type: float = 2.0,
+                sharded: Optional[Sequence[bool]] = None,
+                axis_name=None) -> torch.Tensor:
+    """Norm over every element of every tensor, as an f32 device scalar.
+    With ``axis_name`` the tensors are this rank's part of a tree spread
+    over that mesh axis: a tensor flagged in ``sharded`` is a block whose
+    squares add up over the ranks, any other is the same on every rank
+    and counts once (rank 0's)."""
     grads = [g.float() for g in grads]
     if norm_type == float("inf"):
-        return torch.stack([g.abs().max() for g in grads]).max()
+        m = torch.stack([g.abs().max() for g in grads]).max()
+        return m if axis_name is None else \
+            comm.all_reduce(m, comm.MAX, axis_name)
     if norm_type == 2.0:
-        norms = torch._foreach_norm(grads, 2.0)
-        return torch.stack(norms).square().sum().sqrt()
-    acc = sum((g.abs() ** norm_type).sum() for g in grads)
-    return acc ** (1.0 / norm_type)
+        parts = torch.stack(torch._foreach_norm(grads, 2.0)).square()
+    else:
+        parts = torch.stack([(g.abs() ** norm_type).sum() for g in grads])
+    if axis_name is not None:
+        first = comm.axis_index(axis_name) == 0
+        keep = torch.tensor([bool(s) or first for s in sharded],
+                            dtype=parts.dtype, device=parts.device)
+        parts = comm.all_reduce(parts * keep, comm.SUM, axis_name)
+    if norm_type == 2.0:
+        return parts.sum().sqrt()
+    return parts.sum() ** (1.0 / norm_type)
 
 
 def clip_coef(clip: float, gnorm: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,8 @@
 """ZeRO family (counterpart of ``deepspeed_tpu/runtime/zero/``): the
-host optimizer of ZeRO-Offload (``offload.py``), parameter offload
-(``param_offload.py``) and the memory estimators.
-
-At world size 1 every placement of JAX's ``ZeroShardingPolicy`` is the one
-device, so the engine runs stages 1-3 as stage 0. ``ZeroShardingPolicy``
-and ``shard_leaf_spec`` (partitioning across ranks) come with several
-processes (ROADMAP.md A6b); ``TiledLinear`` with the long tail (A9).
+partition policy over data-parallel ranks (``partition.py``), tiled
+linear layers (``tiling.py``), the host optimizer of ZeRO-Offload
+(``offload.py``), parameter offload (``param_offload.py``) and the memory
+estimators.
 """
 from deepspeed_tpu_torch.runtime.zero.memory_estimators import (
     estimate_zero2_model_states_mem_needs_all_cold,
@@ -13,8 +10,14 @@ from deepspeed_tpu_torch.runtime.zero.memory_estimators import (
     estimate_zero3_model_states_mem_needs_all_cold,
     estimate_zero3_model_states_mem_needs_all_live,
     estimate_zero_model_states_mem_needs)
+from deepspeed_tpu_torch.runtime.zero.partition import (ZeroShardingPolicy,
+                                                        shard_leaf_spec)
+from deepspeed_tpu_torch.runtime.zero.tiling import (TiledLinear,
+                                                     TiledLinearReturnBias)
 
 __all__ = [
+    "ZeroShardingPolicy", "shard_leaf_spec", "TiledLinear",
+    "TiledLinearReturnBias",
     "estimate_zero_model_states_mem_needs",
     "estimate_zero2_model_states_mem_needs_all_live",
     "estimate_zero2_model_states_mem_needs_all_cold",

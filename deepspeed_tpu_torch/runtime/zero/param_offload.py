@@ -21,11 +21,15 @@ a device leaf) to the engine's f32 accumulator on the card, and returns
 nothing for the host tensor, so no gradient crosses to the host in the
 backward pass; the gradients leave the card once, in the optimizer step.
 
+Over several ranks at stage 3 the same fetch all-gathers the layer's
+blocks (the engine's ``gather``) and the engine's sink reduce-scatters the
+gradient onto the rank's block.
+
 The NVMe tier (``ParamSwapper``) is ROADMAP.md A6c.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -49,24 +53,30 @@ def stage(params: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
 
 class _Fetch(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, host, device, name, sink):
+    def forward(ctx, host, device, name, sink, gather):
         ctx.name, ctx.sink = name, sink
+        if gather is not None:
+            return gather(name, host.detach().to(device, non_blocking=True))
         return host.detach().to(device, non_blocking=True, copy=True)
 
     @staticmethod
     def backward(ctx, grad):
         ctx.sink(ctx.name, grad)
-        return None, None, None, None
+        return None, None, None, None, None
 
 
 class ParamFetcher:
     """The fetch a ``handles_param_offload`` model calls: ``fetch(name,
     host_tensor)`` returns the weight on ``device``; in the backward pass
-    the weight's gradient goes to ``sink(name, grad)``."""
+    the weight's gradient goes to ``sink(name, grad)``. ``gather(name,
+    t)``, when given, makes the whole weight from ``t`` on the card (the
+    engine's all-gather of a stage-3 block over ranks)."""
 
-    def __init__(self, device, sink: Callable[[str, torch.Tensor], None]):
+    def __init__(self, device, sink: Callable[[str, torch.Tensor], None],
+                 gather: Optional[Callable] = None):
         self.device = device
         self.sink = sink
+        self.gather = gather
 
     def __call__(self, name: str, host: torch.Tensor) -> torch.Tensor:
-        return _Fetch.apply(host, self.device, name, self.sink)
+        return _Fetch.apply(host, self.device, name, self.sink, self.gather)
