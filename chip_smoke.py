@@ -2835,19 +2835,21 @@ DIST_STEPS = 6      # the first compiles and warms up; 5 timed
 DIST_SWEEP_MB = (1, 64)
 
 
-def _dist_engine(cfg, params, zero, micro=8, gas=2):
-    """Phase train's engine with a ``zero_optimization`` section and the
-    comms logger on."""
+def _dist_engine(cfg, params, zero, micro=8, gas=2, mesh=None):
+    """Phase train's engine with a ``zero_optimization`` section (and a
+    ``mesh``) and the comms logger on."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel
+    config = {"train_micro_batch_size_per_gpu": micro,
+              "gradient_accumulation_steps": gas, "gradient_clipping": 1.0,
+              "bf16": {"enabled": True}, "zero_optimization": zero,
+              "comms_logger": {"enabled": True},
+              "optimizer": {"type": "AdamW",
+                            "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    if mesh:
+        config["mesh"] = mesh
     engine = deepspeed_tpu_torch.initialize(
-        model=GPT2LMModel(cfg), model_parameters=params, config={
-            "train_micro_batch_size_per_gpu": micro,
-            "gradient_accumulation_steps": gas, "gradient_clipping": 1.0,
-            "bf16": {"enabled": True}, "zero_optimization": zero,
-            "comms_logger": {"enabled": True},
-            "optimizer": {"type": "AdamW",
-                          "params": {"lr": 1e-4, "weight_decay": 0.01}}})[0]
+        model=GPT2LMModel(cfg), model_parameters=params, config=config)[0]
     torch.cuda.synchronize()
     return engine
 
@@ -2888,20 +2890,177 @@ DIST_GLOO_LAYERS = 2
 DIST_GLOO_STEPS = 2
 DIST_GLOO_LOSS_TOL = 1e-2      # relative
 DIST_GLOO_UPDATE_TOL = 0.1     # relative L2 of each leaf's update
-DIST_GLOO_DEADLINE = 240       # seconds from the ranks' start
+DIST_GLOO_DEADLINE = 420       # seconds from the ranks' start
+# (e)-(h): the same two ranks go on. (e) the Mistral-7B-v0.2 layout of
+# phase hf at full width and depth (32 heads of 128 over 8 KV heads: 16
+# over 4 a rank) at tp 2 from seeded weights each rank cuts on the card:
+# generate (B1, B4) and server (a) (8 slots, blocks of 128: B1, B5);
+# (f) the same weights at sp 2, generate (each rank's cache holds half of
+# the positions; decode attention is plain torch there, as JAX's einsum);
+# (g) gpt2-1.3b x DIST_GLOO_LAYERS at tensor 2 (8 of 16 heads a rank) and
+# (h) at seq 2 (512 of 1024 positions a rank), each rank on all of (d)'s
+# rows, against (d)'s one-rank run. Gloo moves every collective through
+# the host: their times are not a link's.
+TP_PROMPTS = 8
+TP_NEW = 16
+TP_CTX = 512   # (e)'s max_out_tokens
+SP_CTX = 256   # (f)'s: 128 positions a rank; most prompts span both
+TP_SEED = 31   # the serving weights' generator
+
+
+def _gloo_mark(tmp, name):
+    with open(os.path.join(tmp, name), "w"):
+        pass
+
+
+def _gloo_await(tmp, name):
+    while not os.path.exists(os.path.join(tmp, name)):
+        time.sleep(0.05)
+
+
+def _tp_prompts(cfg):
+    rng = np.random.default_rng(23)
+    return [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in rng.integers(16, 200, TP_PROMPTS)]
+
+
+def _tp_generate(engine, prompts):
+    """``generate`` of TP_NEW tokens a prompt, a main-path run (counts set
+    to 0 just before, read just after); its decode ms per step (the wall
+    of TP_NEW tokens less that of 1, over TP_NEW - 1) and peak memory."""
+    def timed(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = engine.generate(prompts, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+    if engine._cuda_graphs:
+        # warm-up at the timed shape: the decode graph is made at its
+        # first call and captured at its second (eager steps need none:
+        # the generate of 1 token warms the prefill)
+        engine.generate(prompts, max_new_tokens=3)
+    _, one = timed(1)
+    torch.cuda.reset_peak_memory_stats()
+    _launch_counts(reset=True)
+    out, wall = timed(TP_NEW)
+    counts = _launch_counts()
+    return {"tokens": out, "counts": counts, "wall_s": wall, "first_s": one,
+            "decode_ms": (wall - one) / (TP_NEW - 1) * 1e3,
+            "peak": torch.cuda.max_memory_allocated(),
+            "cache": tuple(engine._kept[1].k.shape)}
+
+
+def _tp_server(engine, prompts):
+    """Server (a) over ``engine``: the prompts submitted at once, TP_NEW
+    tokens each, drained; a main-path run."""
+    from deepspeed_tpu_torch.inference import ContinuousBatchingServer
+    srv = ContinuousBatchingServer(engine)
+    _launch_counts(reset=True)
+    t = time.perf_counter()
+    ids = [srv.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+    res = srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _launch_counts()
+    st = srv.stats
+    out = {"tokens": [res[i] for i in ids], "counts": counts,
+           "wall_s": wall, "prefills": st["prefills"],
+           "decode_steps": st["decode_steps"],
+           "garbage_steps": st["async_loop"]["garbage_steps"],
+           "decode_traces": st["decode_traces"],
+           "pool": tuple(srv._cache.k.shape)}
+    srv.close()
+    return out
+
+
+def _gloo_serve(rank, tmp):
+    """(e) and (f) on this rank: each engine from the seeded whole tree
+    (tp 2 keeps its cut of it; the whole tree is freed), its generate and
+    (e)'s server; saved under ``tmp``. (e)'s engine is built while the
+    parent runs its reference; the timed runs wait for ``go_e``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        init_params
+    from deepspeed_tpu_torch.module_inject.quantize import tree_weight_bytes
+    cfg = mistral_serving_config()
+    prompts = _tp_prompts(cfg)
+    out = {}
+    for tag, knobs, ctx in (
+            ("tp", {"tensor_parallel": {"tp_size": 2}, "num_slots": 8,
+                    "block_size": 128}, TP_CTX),
+            ("sp", {"sp_size": 2}, SP_CTX)):
+        params = init_params(
+            torch.Generator(device="cuda").manual_seed(TP_SEED), cfg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine = deepspeed_tpu_torch.init_inference(
+            (cfg, params), dtype="bf16", max_out_tokens=ctx, **knobs)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if tag == "tp":
+            _gloo_mark(tmp, f"e_built{rank}")
+            _gloo_await(tmp, "go_e")
+        a = engine.params["layers"][0]["attn"]
+        r = {"init_s": init_s, "weights": tree_weight_bytes(engine.params),
+             "heads": (a["wq"].shape[1], a["wk"].shape[1]),
+             "graphs": engine._cuda_graphs,
+             "generate": _tp_generate(engine, prompts)}
+        if tag == "tp":
+            r["server"] = _tp_server(engine, prompts)
+        out[tag] = r
+        del engine, a
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"serve{rank}.pt"))
+
+
+def _gloo_train(rank, tmp, cfg, batches):
+    """(g) tensor 2 and (h) seq 2 on this rank: gpt2-1.3b from (d)'s
+    seeded weights, stage 0, each rank on all of ``batches``' rows (micro
+    4 x gas 1, the one-rank run's); saved under ``tmp`` (the gathered
+    master on rank 0 only)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel
+    out = {}
+    for tag, mesh in (("tensor", {"tensor": 2}), ("seq", {"seq": 2})):
+        params = GPT2LMModel(cfg).init(
+            torch.Generator(device="cuda").manual_seed(25))
+        engine = _dist_engine(cfg, params, {"stage": 0}, micro=4, gas=1,
+                              mesh=mesh)
+        del params
+        r = _dist_steps(f"gloo {tag} 2 rank {rank}", engine, batches,
+                        cfg.n_layer)
+        r.pop("params")
+        if rank:
+            r.pop("master")
+        r["c_attn"] = tuple(engine.params["h_0.attn.c_attn.kernel"].shape)
+        r["peak"] = torch.cuda.max_memory_allocated()
+        out[tag] = r
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"train{rank}.pt"))
 
 
 def _gloo_rank(rank, ws, tmp, cfg, batches):
-    """One of the two gloo ranks: stage 3 with the per-layer gather from
-    seeded weights; it builds its engine, waits for the ``go`` file (the
-    parent's reference run finishes first), then trains on its rows; rank 0
-    saves its losses, counts, step walls and whole master under ``tmp``."""
+    """One of the two gloo ranks. (d) stage 3 with the per-layer gather
+    from seeded weights: it builds its engine, waits for the ``go`` file
+    (the parent's reference run finishes first), then trains on its rows;
+    rank 0 saves its losses, counts, step walls and whole master under
+    ``tmp``. Then (e)-(f) after ``go_e`` and (g)-(h) after ``go_g``, each
+    marking its end with a file, so that the parent's own runs never
+    share the card with the ranks' timed ones."""
+    import torch._dynamo  # noqa: F401 (the remat's first call imports it)
     import torch.distributed as dist
 
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the pinned host allocator's first use, before any timed step
+    torch.empty(1, pin_memory=True)
     comm.init_distributed(store=dist.FileStore(os.path.join(tmp, "store"),
                                                ws), num_processes=ws,
                           process_id=rank, dist_backend="gloo",
@@ -2914,11 +3073,18 @@ def _gloo_rank(rank, ws, tmp, cfg, batches):
         del params
         mine = [{k: v[rank * 2:(rank + 1) * 2] for k, v in b.items()}
                 for b in batches]
-        while not os.path.exists(os.path.join(tmp, "go")):
-            time.sleep(0.05)
+        _gloo_await(tmp, "go")
         out = _dist_steps(f"gloo rank {rank}", engine, mine, cfg.n_layer)
         if rank == 0:
             torch.save(out, os.path.join(tmp, "rank0.pt"))
+        del engine, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        _gloo_mark(tmp, f"d{rank}")
+        _gloo_serve(rank, tmp)
+        _gloo_mark(tmp, f"ef{rank}")
+        _gloo_await(tmp, "go_g")
+        _gloo_train(rank, tmp, cfg, batches)
     finally:
         comm.destroy_process_group()
 
@@ -2938,29 +3104,37 @@ def _gloo_start(cfg, batches, root):
     return procs, tmp, time.perf_counter()
 
 
-def _gloo_finish(started, cfg, ref, init):
-    """Let the gloo ranks train, join them against the deadline (killed
-    past it) and hold rank 0's trajectory to ``ref``, one rank on all the
-    rows."""
+def _gloo_wait(started, names):
+    """Wait for the ranks' marker files ``names``; fails when a rank has
+    exited before writing its marker or the deadline from their start
+    passed."""
     procs, tmp, t0 = started
-    try:
-        t = time.perf_counter()
-        with open(os.path.join(tmp, "go"), "w"):
-            pass
-        for p in procs:
-            p.join(max(1.0, DIST_GLOO_DEADLINE - (time.perf_counter() - t0)))
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-            p.join()
-        wall = time.perf_counter() - t
-        check(not hung and all(p.exitcode == 0 for p in procs),
-              f"dist gloo: ranks exited {[p.exitcode for p in procs]} "
-              f"(killed {DIST_GLOO_DEADLINE} s after their start: "
-              f"{bool(hung)})")
-        got = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    while not all(os.path.exists(os.path.join(tmp, n)) for n in names):
+        late = time.perf_counter() - t0 > DIST_GLOO_DEADLINE
+        check(not late and all(p.is_alive() for p in procs),
+              f"dist gloo: waiting for {names}: ranks exited "
+              f"{[p.exitcode for p in procs]} (the deadline of "
+              f"{DIST_GLOO_DEADLINE} s from their start passed: {late})")
+        time.sleep(0.05)
+
+
+def _gloo_join(started):
+    procs, tmp, t0 = started
+    for p in procs:
+        p.join(max(1.0, DIST_GLOO_DEADLINE - (time.perf_counter() - t0)))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    check(not hung and all(p.exitcode == 0 for p in procs),
+          f"dist gloo: ranks exited {[p.exitcode for p in procs]} (killed "
+          f"{DIST_GLOO_DEADLINE} s after their start: {bool(hung)})")
+
+
+def _gloo_against(tag, cfg, got, ref, init):
+    """A gloo run's losses and each leaf's update of the whole master
+    against ``ref``'s, one rank on the same rows (the CPU tests' bf16
+    tolerances); the worst leaf and both numbers."""
     rel_loss = max(abs(x - y) / abs(y) for x, y in zip(got["losses"],
                                                          ref["losses"]))
     C, rel = cfg.n_embd, {}
@@ -2971,18 +3145,165 @@ def _gloo_finish(started, cfg, ref, init):
             gm, rm, dr = gm[keep], rm[keep], dr[keep]
         rel[k] = float((gm - rm).norm() / dr.norm().clamp_min(1e-30))
     worst = max(rel, key=rel.get)
+    check(rel_loss <= DIST_GLOO_LOSS_TOL and rel[worst] <= DIST_GLOO_UPDATE_TOL,
+          f"dist gloo {tag}: 2 ranks against 1: losses {rel_loss}, {worst} "
+          f"{rel[worst]}")
+    return (f"losses {got['losses']!r} against one rank's "
+            f"{ref['losses']!r} (within {rel_loss!r} relative, tol "
+            f"{DIST_GLOO_LOSS_TOL}); each leaf's update within "
+            f"{rel[worst]!r} relative L2 at worst ({worst}; tol "
+            f"{DIST_GLOO_UPDATE_TOL})")
+
+
+def _gloo_finish(started, cfg, ref, init):
+    """Let the gloo ranks train (d) and hold rank 0's trajectory to
+    ``ref``, one rank on all the rows."""
+    procs, tmp, t0 = started
+    t = time.perf_counter()
+    _gloo_mark(tmp, "go")
+    _gloo_wait(started, ("d0", "d1"))
+    wall = time.perf_counter() - t
+    got = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+    os.remove(os.path.join(tmp, "rank0.pt"))
     log(f"[dist] gpt2-1.3b x{cfg.n_layer}, 2 ranks on the one card over "
         f"gloo (stage 3, per-layer gather, CUDA tensors; micro 2 x gas 1 a "
-        f"rank): losses {got['losses']!r} against one rank's "
-        f"{ref['losses']!r} (within {rel_loss!r} relative, tol "
-        f"{DIST_GLOO_LOSS_TOL}); each leaf's update within {rel[worst]!r} "
-        f"relative L2 at worst ({worst}; tol {DIST_GLOO_UPDATE_TOL}); steps "
+        f"rank): {_gloo_against('(d)', cfg, got, ref, init)}; steps "
         f"{[w * 1e3 for w in got['walls']]!r} ms; comms {got['comms']}; "
-        f"launches {got['counts']}; {wall!r} s from 'go' to joined")
-    check(rel_loss <= DIST_GLOO_LOSS_TOL and rel[worst] <= DIST_GLOO_UPDATE_TOL,
-          f"dist gloo: 2 ranks against 1: losses {rel_loss}, {worst} "
-          f"{rel[worst]}")
+        f"launches {got['counts']}; {wall!r} s from 'go' to done")
     return got["counts"]
+
+
+def _tp_served(engine, name, prompts, rows, want):
+    """A tp/sp run's rows: well-formed, and every served token within
+    E2E_MAX_TOL of the max logit of the one-process engine's forward
+    through no kernel (``_serve_oracle``, which also counts the tokens
+    equal to its generate's); the number of rows equal to ``want``."""
+    V = engine.model_config.vocab_size
+    for p, r in zip(prompts, rows):
+        check(r[:len(p)] == p and len(r) == len(p) + TP_NEW
+              and all(0 <= t < V for t in r[len(p):]),
+              f"{name}: a row is malformed")
+    _serve_oracle(engine, name, prompts, rows, TP_NEW, tag="dist")
+    return sum(a == b for a, b in zip(rows, want))
+
+
+def _tp_phases(started, smi):
+    """(e) and (f): the one-process engine over the same seeded weights
+    first (its generate and server are the reference, and its numbers the
+    tp=1 ones), then the ranks' turn, then the gates. Returns the runs'
+    launch counts by name."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        init_params
+    from deepspeed_tpu_torch.module_inject.quantize import tree_weight_bytes
+    procs, tmp, t0 = started
+    cfg = mistral_serving_config()
+    L, prompts = cfg.n_layer, _tp_prompts(cfg)
+    params = init_params(torch.Generator(device="cuda").manual_seed(TP_SEED),
+                         cfg)
+    engine = deepspeed_tpu_torch.init_inference(
+        (cfg, params), dtype="bf16", max_out_tokens=TP_CTX, num_slots=8,
+        block_size=128)
+    del params
+    one = {"generate": _tp_generate(engine, prompts),
+           "server": _tp_server(engine, prompts),
+           "weights": tree_weight_bytes(engine.params)}
+    _gloo_wait(started, ("e_built0", "e_built1"))
+    t = time.perf_counter()
+    _gloo_mark(tmp, "go_e")
+    _gloo_wait(started, ("ef0", "ef1"))
+    wall = time.perf_counter() - t
+    got = [torch.load(os.path.join(tmp, f"serve{r}.pt"), weights_only=False)
+           for r in range(2)]
+    runs = {}
+    for tag, what in (("tp", "generate"), ("tp", "server"),
+                      ("sp", "generate")):
+        name = f"dist {tag} 2 Mistral-7B {what}"
+        rows = [g[tag][what]["tokens"] for g in got]
+        check(rows[0] == rows[1], f"{name}: the two ranks' tokens differ")
+        ref = one[what]["tokens"]
+        for r, g in enumerate(got):
+            run = g[tag][what]
+            if what == "generate":
+                expect = {"flash_attention_fwd": L, "decode_attention":
+                          L * (TP_NEW - 1) if tag == "tp" else 0}
+            else:
+                expect = {"flash_attention_fwd": L * run["prefills"],
+                          "paged_decode_attention": L * (
+                              run["decode_steps"] + run["garbage_steps"]),
+                          "decode_attention": 0}
+                check(run["decode_traces"] == 0,
+                      f"{name}: {run['decode_traces']} decode graphs over "
+                      "gloo ranks")
+            for k, n in expect.items():
+                check(run["counts"][k] == n, f"{name} rank {r}: {k} "
+                      f"launched {run['counts'][k]} times, expected {n}")
+            runs[f"{name} rank {r}"] = run["counts"]
+        # the ranks' rows are equal: the oracle on rank 0's
+        same = _tp_served(engine, name, prompts, rows[0], ref)
+        g = got[0][tag]
+        run, base = g[what], one[what]
+        check(g["heads"] == ((16, 4) if tag == "tp" else (32, 8)),
+              f"{name}: a rank holds {g['heads']} query and KV heads")
+        check(not g["graphs"], f"{name}: CUDA graphs over gloo ranks")
+        log(f"[dist] {name}, 2 gloo ranks on the one card ({tag} 2; a rank "
+            f"holds {g['heads'][0]} query and {g['heads'][1]} KV heads, "
+            f"{g['weights']} weight bytes against {one['weights']} at tp 1; "
+            f"engine init {g['init_s']!r} s): {same} of {TP_PROMPTS} rows "
+            f"equal the one-process engine's; "
+            + (f"decode {run['decode_ms']!r} ms a step against "
+               f"{base['decode_ms']!r} at tp 1 (graphs); wall "
+               f"{run['wall_s']!r} s (first token {run['first_s']!r}); "
+               f"cache {run['cache']} against {base['cache']}; peak "
+               f"{run['peak']} bytes a rank against {base['peak']}"
+               if what == "generate" else
+               f"{run['wall_s']!r} s against {base['wall_s']!r} at tp 1 "
+               f"({run['prefills']} prefills, {run['decode_steps']} decode "
+               f"steps, pool {run['pool']} against {base['pool']})")
+            + f"; launches rank 0 {run['counts']}; gloo moves each "
+            f"collective through the host, its times are not a link's; "
+            f"{smi}")
+    runs["dist tp 1 Mistral-7B generate"] = one["generate"]["counts"]
+    runs["dist tp 1 Mistral-7B server"] = one["server"]["counts"]
+    log(f"[dist] (e), (f): the ranks' turn took {wall!r} s")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _tensor_seq_phases(started, cfg, ref, init):
+    """(g) and (h): the ranks' runs against (d)'s one-rank run; returns
+    their launch counts by name."""
+    procs, tmp, t0 = started
+    t = time.perf_counter()
+    _gloo_mark(tmp, "go_g")
+    _gloo_join(started)
+    wall = time.perf_counter() - t
+    got = [torch.load(os.path.join(tmp, f"train{r}.pt"), weights_only=False)
+           for r in range(2)]
+    runs = {}
+    for tag, local in (("tensor", (cfg.n_embd, 3 * cfg.n_embd // 2)),
+                       ("seq", (cfg.n_embd, 3 * cfg.n_embd))):
+        g = got[0][tag]
+        check(got[1][tag]["losses"] == g["losses"],
+              f"dist gloo {tag} 2: the ranks' losses differ")
+        check(g["c_attn"] == local, f"dist gloo {tag} 2: a rank holds "
+              f"c_attn {g['c_attn']}, not {local}")
+        log(f"[dist] gpt2-1.3b x{cfg.n_layer} at {tag} 2, 2 gloo ranks on the"
+            f" one card (stage 0, micro 4 x gas 1, every rank all of the "
+            f"one-rank run's rows; c_attn {g['c_attn']} a rank): "
+            f"{_gloo_against(tag, cfg, g, ref, init)}; steps "
+            f"{[w * 1e3 for w in g['walls']]!r} ms against one rank's "
+            f"{[w * 1e3 for w in ref['walls']]!r}; peak {g['peak']} bytes a "
+            f"rank; comms {g['comms']}; launches rank 0 {g['counts']}, rank "
+            f"1 {got[1][tag]['counts']}; gloo moves each collective through "
+            f"the host, its times are not a link's")
+        for r in range(2):
+            runs[f"dist gpt2-1.3b x{cfg.n_layer} {tag} 2 rank {r}"] = \
+                got[r][tag]["counts"]
+    log(f"[dist] (g), (h): the ranks' turn took {wall!r} s")
+    return runs
 
 
 def phase_dist(smi):
@@ -2998,8 +3319,12 @@ def phase_dist(smi):
     DIST_SWEEP_MB. Nothing else runs on the card or the host while these
     are timed. Last (d) two ranks on the one card over gloo at
     DIST_GLOO_LAYERS, stage 3, against one rank on all their rows (the
-    CPU test's bf16 tolerances). Returns the launch counts of its runs by
-    name."""
+    CPU test's bf16 tolerances), and the same two ranks go on to (e)-(h)
+    (``TP_*`` above): the Mistral-7B-v0.2 layout served at tp 2 and at sp
+    2, each rank's tokens equal and held to the one-process engine's
+    (its served-token oracle), and gpt2-1.3b trained at tensor 2 and at
+    seq 2 against (d)'s one-rank run. Returns the launch counts of its
+    runs by name."""
     import tempfile
 
     import torch.distributed as dist
@@ -3061,6 +3386,8 @@ def phase_dist(smi):
         gc.collect()
         torch.cuda.empty_cache()
         gloo = _gloo_finish(started, gcfg, one, ginit)
+        tp_runs = _tp_phases(started, smi)
+        tp_runs.update(_tensor_seq_phases(started, gcfg, one, ginit))
     finally:
         for p in started[0]:   # a failure above: stop the ranks
             if p.is_alive():
@@ -3099,6 +3426,7 @@ def phase_dist(smi):
     runs = {f"dist gpt2-1.3b x{L} {k}": v["counts"] for k, v in out.items()}
     runs[f"dist gpt2-1.3b x{gcfg.n_layer} one rank"] = one["counts"]
     runs[f"dist gpt2-1.3b x{gcfg.n_layer} gloo rank 0"] = gloo
+    runs.update(tp_runs)
     return runs
 
 
@@ -4495,6 +4823,18 @@ HF_CTX = 2048                 # phase hf's generate and dense cache length
 HF_FILE_LAYERS = 2            # the file route's depth (a cut for time)
 
 
+def mistral_serving_config():
+    """The serving config ``LlamaPolicy`` makes of ``MISTRAL_7B``."""
+    from deepspeed_tpu_torch.model_implementations.transformer import \
+        InferenceTransformerConfig
+    return InferenceTransformerConfig(
+        vocab_size=32000, n_positions=32768, n_embd=4096, n_layer=32,
+        n_head=32, n_kv_head=8, intermediate_size=14336,
+        positional="rotary", rotary_dim=128, rotary_base=1e6,
+        activation="silu", norm_type="rmsnorm", gated_mlp=True,
+        layer_norm_eps=1e-5, tied_lm_head=False, dtype=torch.bfloat16)
+
+
 def mistral_state_dict(hf, seed, dev="cuda"):
     """HF-named Mistral weights from a seeded generator on the card, bf16:
     each projection ``[out, in]`` N(0, 1) / sqrt(in) (``init_params``'s
@@ -4590,8 +4930,6 @@ def phase_hf(smi):
     from types import SimpleNamespace
 
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.model_implementations.transformer import \
-        InferenceTransformerConfig
     from deepspeed_tpu_torch.module_inject.policies import convert_hf_model
     from deepspeed_tpu_torch.module_inject.state_dict_loader import \
         CheckpointModelView
@@ -4621,12 +4959,7 @@ def phase_hf(smi):
     log(f"[hf] init_inference(CheckpointModelView) converted through "
         f"LlamaPolicy on the card in {t_conv!r} s (peak memory {peak} "
         f"bytes; {smi})")
-    expect = InferenceTransformerConfig(
-        vocab_size=32000, n_positions=32768, n_embd=4096, n_layer=32,
-        n_head=32, n_kv_head=8, intermediate_size=14336,
-        positional="rotary", rotary_dim=128, rotary_base=1e6,
-        activation="silu", norm_type="rmsnorm", gated_mlp=True,
-        layer_norm_eps=1e-5, tied_lm_head=False, dtype=torch.bfloat16)
+    expect = mistral_serving_config()
     check(cfg == expect, f"converted config {cfg} is not {expect}")
     check(_shape_tree(engine.params) == _llama_tree_shapes(cfg),
           "the converted tree's shapes are not the config's")

@@ -272,13 +272,27 @@ def get_device_count() -> int:
 # Collectives over named mesh axes (JAX comm.py:240-380)
 # ---------------------------------------------------------------------------
 
+def capturable() -> bool:
+    """Whether a CUDA graph can capture this process group's collectives:
+    NCCL's run on the device, gloo's on the host."""
+    return not dist.is_initialized() or dist.get_backend() == "nccl"
+
+
 def _group(axis_name):
-    """``(group, ranks, my index)``; no group without a mesh (size 1)."""
+    """``(group, ranks, my index)``; no group without a mesh (size 1). A
+    host (gloo) collective met inside a CUDA graph capture raises: the
+    replay would leave it out."""
     mesh = _mesh.get_global_mesh()
     if mesh is None:
         _mesh._axes(axis_name)
         return None, (0,), 0
     g, ranks = _mesh.axis_group(axis_name, mesh)
+    if (len(ranks) > 1 and not capturable() and torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            f"a collective over {axis_name!r} inside a CUDA graph capture: "
+            f"the {dist.get_backend()} backend runs it on the host, so a "
+            "replay would leave it out (run the step eagerly)")
     return g, ranks, ranks.index(dist.get_rank())
 
 

@@ -37,6 +37,7 @@ Axes = Union[str, Sequence[str]]
 
 _GLOBAL_MESH = None
 _GROUPS: Dict[Tuple, Tuple[object, Tuple[int, ...]]] = {}
+_COORDS: Dict[Tuple[int, int], Dict[str, int]] = {}
 GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 
@@ -125,8 +126,11 @@ def mesh_coordinate(mesh=None, rank: Optional[int] = None) -> Dict[str, int]:
         return {a: 0 for a in MESH_AXES}
     if rank is None:
         rank = dist.get_rank()
-    idx = (mesh.mesh == rank).nonzero()[0].tolist()
-    return dict(zip(mesh.mesh_dim_names, idx))
+    key = (id(mesh), rank)
+    if key not in _COORDS:   # read on every step of a model: made once
+        idx = (mesh.mesh == rank).nonzero()[0].tolist()
+        _COORDS[key] = dict(zip(mesh.mesh_dim_names, idx))
+    return _COORDS[key]
 
 
 def axis_index(axis_name: Axes, mesh=None) -> int:
@@ -195,6 +199,7 @@ def reset_global_mesh() -> None:
     global _GLOBAL_MESH
     _GLOBAL_MESH = None
     _GROUPS.clear()
+    _COORDS.clear()
 
 
 def seq_axis_active() -> bool:

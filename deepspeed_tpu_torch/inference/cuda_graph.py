@@ -42,6 +42,12 @@ its side stream, its ``torch.cuda.CUDAGraph`` and its static output:
   during a capture may destroy an earlier runner's unreachable graph
   (``torch.cuda.graph`` no longer collects before it captures). So a
   capture collects first and holds the collector off until it ends.
+* **Collectives.** A step over a tensor or seq mesh makes all-reduces
+  (``comm/comm.py``). NCCL's run on the device and are captured and
+  replayed with the step; gloo's run on the host, so the engine and the
+  server run such steps eagerly (decided at their construction), and a
+  gloo collective met during a capture raises rather than be left out of
+  the replay.
 * **No fallback.** A capture or a replay that fails raises. The callers
   create a GraphedStep only for a CUDA device; on the CPU their steps run
   eagerly.

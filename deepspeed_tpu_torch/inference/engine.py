@@ -56,7 +56,22 @@ table (``module_inject/policies.py``) converts it in the activation dtype
 on the device its tensors lie on. Encoder configs (``pre_layer_norm=
 False``: BERT, DistilBERT) run ``encoder_forward`` in :meth:`forward`.
 
-Not in this slice (ROADMAP.md queue C): meshes (TP/EP/SP), MoE and
+**Several ranks** (``tensor_parallel.tp_size``, ``sp_size``; one process
+a rank, started with ``init_distributed``): the engine takes a mesh of
+``seq = sp_size`` and ``tensor = tp_size`` over the process group (JAX
+``_build_mesh``: seq outside tensor) and keeps only its shard: the heads
+of wq/wk/wv/wo and the MLP's columns by ``tp_param_specs`` (int8 leaves
+quantized whole first, then cut like their weight), a dense cache of
+``kv_heads / tp`` heads and, under ``sp_size``, of this rank's block of
+``max_seq / sp`` positions (``seq_shard_kv``). The transformer states the
+all-reduces (``model_implementations/transformer.py``). Every rank must
+call ``generate`` with the same arguments (the same ``seed`` for
+sampling): each holds the same replicated logits, so each makes the same
+choices. Over NCCL the decode and verify graphs capture their
+all-reduces; under gloo (host collectives, which a graph cannot capture)
+the steps run eagerly, as the engine logs once.
+
+Not in this slice (ROADMAP.md queue C): expert-parallel meshes, MoE and
 request tracing.
 """
 from __future__ import annotations
@@ -68,6 +83,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm.mesh import (MeshConfig, axis_index, mesh_for,
+                                           mesh_shape, set_global_mesh)
 from deepspeed_tpu_torch.inference.async_loop import TokenFetch
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
@@ -83,7 +101,11 @@ from deepspeed_tpu_torch.module_inject.quantize import GroupQuantizer
 from deepspeed_tpu_torch.ops.int8_gemm import (int8_compute_layout,
                                                is_quantized)
 from deepspeed_tpu_torch.ops.head_dim import warn_if_padded
+from deepspeed_tpu_torch.parallel.tensor_parallel import (gather_tree,
+                                                          shard_tree,
+                                                          tp_param_specs)
 from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
+from deepspeed_tpu_torch.utils.logging import logger
 
 _LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
 # host checks for an all-done batch every this many decode steps
@@ -139,6 +161,17 @@ def _categorical(lg: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return torch.argmax(lg - torch.log(-torch.log(u.clamp_min(1e-20))), -1)
 
 
+def graphs_capture_mesh(mesh, who: str) -> bool:
+    """Whether CUDA graphs may capture a step over ``mesh``: yes without
+    collectives or over NCCL; over gloo (host collectives) no, and ``who``
+    says so once in the log."""
+    if mesh is None or comm.capturable():
+        return True
+    logger.info(f"{who}: the mesh's collectives run on the host (gloo), "
+                "which a CUDA graph cannot capture: its steps run eagerly")
+    return False
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` unless the caller names another device; asking for CUDA
     without a card is an error, not a quiet move to the CPU."""
@@ -161,7 +194,7 @@ class InferenceEngine:
     """
 
     def __init__(self, model, config: Optional[DeepSpeedInferenceConfig] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config or DeepSpeedInferenceConfig()
         self.device = resolve_device(device)
         c = self.config
@@ -172,10 +205,6 @@ class InferenceEngine:
                 "(reference replace_module.py) — register a conversion "
                 "policy instead: subclass HFPolicy and decorate with "
                 "deepspeed_tpu_torch.module_inject.policies.register_policy")
-        if c.tp_size > 1 or c.seq_parallel_size > 1:
-            raise NotImplementedError(
-                "tensor/sequence-parallel meshes are not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md queue C, A6b-ii)")
         # dtype="int8" means int8 weight storage with bf16 activations
         int8 = c.torch_dtype == torch.int8
         self._weight_quant = int8 or c.quant.enabled
@@ -214,6 +243,25 @@ class InferenceEngine:
                     "load an int8 serving checkpoint")
             self.model_config = dataclasses.replace(self.model_config,
                                                     int8_compute=True)
+        self.mesh = mesh if mesh is not None else self._build_mesh()
+        if c.seq_parallel_size > 1:
+            if self.mesh is None or mesh_shape(self.mesh)["seq"] <= 1:
+                raise ValueError("seq_parallel_size>1 needs a mesh with "
+                                 "a 'seq' axis")
+            self.model_config = dataclasses.replace(self.model_config,
+                                                    seq_shard_kv=True)
+        self.tp = self.sp = 1
+        if self.mesh is not None:
+            tp = c.tp_size
+            if self.model_config.kv_heads % tp or \
+                    self.model_config.n_head % tp:
+                raise ValueError(
+                    f"tp_size={tp} must divide n_head="
+                    f"{self.model_config.n_head} and kv_heads="
+                    f"{self.model_config.kv_heads}")
+            set_global_mesh(self.mesh)
+            self.tp = mesh_shape(self.mesh)["tensor"]
+            self.sp = mesh_shape(self.mesh)["seq"]
         self.params = self._place_params(params)
         tcfg = c.telemetry
         if tcfg.enabled and tcfg.trace_sample_rate > 0:
@@ -222,8 +270,10 @@ class InferenceEngine:
         # private one, so nothing reaches the process scrape surface
         self.telemetry = get_registry() if tcfg.enabled else MetricRegistry()
         # generate's decode step as a CUDA graph; False runs it eagerly on
-        # CUDA too (the control a check compares with)
-        self._cuda_graphs = self.device.type == "cuda"
+        # CUDA too (the control a check compares with). A graph cannot
+        # capture a host (gloo) collective: such a mesh runs eagerly
+        self._cuda_graphs = self.device.type == "cuda" and \
+            graphs_capture_mesh(self.mesh, "InferenceEngine")
         # ((batch, max_seq), dense cache, its decode-step graph or None):
         # the one cache kept between generate calls
         self._kept = None
@@ -247,6 +297,26 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ setup
 
+    @property
+    def kv_heads_local(self) -> int:
+        """The KV heads this rank's caches hold (``kv_heads / tp``)."""
+        return self.model_config.kv_heads // self.tp
+
+    def _build_mesh(self):
+        """A mesh of ``seq = sp_size`` and ``tensor = tp_size`` (tensor
+        innermost, JAX's order) over the process group, the rest of the
+        ranks on ``data`` (replicas); None for tp = sp = 1."""
+        tp, sp = self.config.tp_size, self.config.seq_parallel_size
+        if tp <= 1 and sp <= 1:
+            return None
+        ws = comm.get_world_size()
+        if ws < tp * sp:
+            raise ValueError(
+                f"tp_size={tp} * ep_size=1 * sp_size={sp} but only {ws} "
+                "ranks (start one process a rank and call "
+                "deepspeed_tpu_torch.init_distributed() first)")
+        return mesh_for(MeshConfig(data=-1, seq=sp, tensor=tp))
+
     def _place_params(self, params):
         """Weights on the device in the activation dtype — an int8 node's
         leaves moved as they are, so its scales stay f32 — then, with
@@ -269,6 +339,9 @@ class InferenceEngine:
                 num_bits=wq.num_bits, group_size=wq.group_size,
                 out_mode=self.model_config.int8_compute
             ).quantize_tree(params)
+        if self.tp > 1:   # this rank's shard (int8 leaves cut quantized)
+            params = shard_tree(params, tp_param_specs(params), self.tp,
+                                axis_index("tensor", self.mesh))
         if self.model_config.int8_compute:
             params = int8_compute_layout(params)
         return params
@@ -281,8 +354,11 @@ class InferenceEngine:
         if mo != "auto":
             return _round_up(int(mo), 128)
         cfg = self.model_config
+        # the cache shrinks by the heads over tensor and the positions
+        # over seq on each rank
         auto = auto_max_tokens(cfg.n_layer, batch, cfg.kv_heads,
                                cfg.head_dim, dtype=self._act_dtype,
+                               shard_factor=self.tp * self.sp,
                                device=self.device)
         return _round_up(1024, 128) if auto is None else auto
 
@@ -304,9 +380,13 @@ class InferenceEngine:
         cfg = self.model_config
         warn_if_padded("dense KV cache", cfg.head_dim,
                        self._act_dtype.itemsize, self.device)
-        cache = init_cache(cfg.n_layer, batch, max_seq, cfg.kv_heads,
-                           cfg.head_dim, dtype=self._act_dtype,
-                           device=self.device)
+        if max_seq % self.sp:
+            raise ValueError(f"a cache of {max_seq} positions does not "
+                             f"split over sp_size={self.sp}")
+        # this rank's heads and, under seq, its block of positions
+        cache = init_cache(cfg.n_layer, batch, max_seq // self.sp,
+                           self.kv_heads_local, cfg.head_dim,
+                           dtype=self._act_dtype, device=self.device)
         setattr(self, attr, ((batch, max_seq), cache, None))
         return cache
 
@@ -939,13 +1019,21 @@ def save_serving_checkpoint(engine: InferenceEngine, path: str) -> None:
 
         <path>/serving_config.json   InferenceTransformerConfig fields
         <path>/serving.safetensors   flat '/'-joined param leaves
-    """
+
+    Over ``tensor`` ranks the leaves are gathered whole (every rank calls
+    it) and the first rank writes."""
     import json
     import os
 
     from deepspeed_tpu_torch.utils.safetensors_io import save_file
 
-    flat = _flatten_tree(engine.params)
+    params = engine.params
+    if engine.tp > 1:
+        params = gather_tree(params, tp_param_specs(params))
+    if comm.get_rank() != 0:
+        comm.barrier()
+        return
+    flat = _flatten_tree(params)
     os.makedirs(path, exist_ok=True)
     cfg = dataclasses.asdict(engine.model_config)
     cfg["dtype"] = str(engine.model_config.dtype).replace("torch.", "")
@@ -955,6 +1043,7 @@ def save_serving_checkpoint(engine: InferenceEngine, path: str) -> None:
     with open(os.path.join(path, "serving_config.json"), "w") as f:
         json.dump(cfg, f, indent=1)
     save_file(flat, os.path.join(path, "serving.safetensors"))
+    comm.barrier()
 
 
 def load_serving_checkpoint(path: str,

@@ -96,33 +96,47 @@ def init_cache(num_layers: int, batch: int, max_seq: int, num_kv_heads: int,
 
 
 def write_prompt(cache: KVCache, layer: int, k: torch.Tensor,
-                 v: torch.Tensor, lengths: torch.Tensor) -> KVCache:
+                 v: torch.Tensor, lengths: torch.Tensor,
+                 offset: Optional[int] = None) -> KVCache:
     """Prefill: write ``[B, T, KH, D]`` keys/values at positions 0..T-1 of
     ``layer`` and copy ``lengths`` into ``cache.lengths``, IN PLACE.
 
     Right-padded positions hold garbage; they are either masked by decode
     (col >= lengths) or overwritten by later appends at ``lengths[b]``.
-    Pad positions past the cache's end are dropped.
+    Pad positions past the cache's end are dropped. ``offset``: the cache
+    holds positions ``offset..offset+S-1`` (a rank's block of a cache
+    split over ``seq``), so it takes the prompt's positions there.
     """
-    T = min(k.shape[1], cache.max_seq)
-    cache.k[layer, :, :T] = k[:, :T]
-    cache.v[layer, :, :T] = v[:, :T]
+    offset = offset or 0
+    T = max(min(k.shape[1] - offset, cache.max_seq), 0)
+    cache.k[layer, :, :T] = k[:, offset:offset + T]
+    cache.v[layer, :, :T] = v[:, offset:offset + T]
     cache.lengths.copy_(lengths)
     return cache
 
 
 def append_token(cache: KVCache, layer: int, k: torch.Tensor,
-                 v: torch.Tensor) -> KVCache:
+                 v: torch.Tensor, offset: Optional[int] = None) -> KVCache:
     """Decode: write one token's ``[B, KH, D]`` k/v at ``lengths[b]`` of
     ``layer``, IN PLACE.
 
     Lengths are NOT advanced here (all layers append at the same position);
-    call :func:`advance` once per step after the last layer.
+    call :func:`advance` once per step after the last layer. With an
+    ``offset`` (the cache is a rank's block of positions ``offset..
+    offset+S-1`` of a cache split over ``seq``) only the rows whose
+    position falls in the block are written.
     """
     rows = torch.arange(k.shape[0], device=cache.k.device)
     pos = cache.lengths.long()
-    cache.k[layer, rows, pos] = k.to(cache.k.dtype)
-    cache.v[layer, rows, pos] = v.to(cache.v.dtype)
+    k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if offset is not None:
+        pos = pos - offset
+        own = ((pos >= 0) & (pos < cache.max_seq))[:, None, None]
+        pos = pos.clamp(0, cache.max_seq - 1)
+        k = torch.where(own, k, cache.k[layer, rows, pos])
+        v = torch.where(own, v, cache.v[layer, rows, pos])
+    cache.k[layer, rows, pos] = k
+    cache.v[layer, rows, pos] = v
     return cache
 
 

@@ -39,6 +39,16 @@ JAX one, and ``enable_cuda_graph`` is accepted with no effect, as it is in
 JAX. Prefill and chunked prefill stay eager: their shapes and start vary
 per call.
 
+Over several ranks (an engine with ``tp_size > 1``) each rank runs the
+same server over its shard: its pools (and the draft's) hold its KV heads,
+while the block tables, the allocator and the scheduler are whole on every
+rank and make the same decisions, since every rank submits the same
+requests and reads the same replicated tokens. Decisions on the clock
+(deadlines, a drain timeout) would part the ranks, so over ranks they need
+a ``clock`` the caller makes identical on every rank. Under gloo the steps
+run eagerly (a graph cannot capture a host collective): ``decode_traces``
+reads 0. A seq-sharded engine is refused, with JAX's message.
+
 Not in this slice (ROADMAP.md queue C), each raising
 ``NotImplementedError``: supervised replicas, roles and KV handoff (``export_prefix`` / ``import_prefix``), load
 shedding, SLO monitoring, canaries, incidents, the HTTP endpoint and fault
@@ -65,7 +75,8 @@ from deepspeed_tpu_torch.inference.async_loop import (InFlightStep,
                                                       PublishWorker)
 from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
 from deepspeed_tpu_torch.inference.engine import (InferenceEngine, _bucket,
-                                                  check_draft_compat)
+                                                  check_draft_compat,
+                                                  graphs_capture_mesh)
 from deepspeed_tpu_torch.inference.kv_cache import (HostKVTier, PagedKVCache,
                                                     init_paged_cache,
                                                     paged_read_block,
@@ -222,6 +233,8 @@ class ContinuousBatchingServer:
         self.block_size = cfg.block_size
         self.num_slots = cfg.num_slots
         self._clock = clock if clock is not None else time.perf_counter
+        # over ranks the clock must be the caller's, the same on each
+        self._clock_shared = clock is not None or engine.tp == 1
         # per-slot token budget reuses the engine's memory accounting
         # (explicit max_out_tokens, or 'auto' free-memory sizing)
         per_slot = engine._max_out_budget(self.num_slots)
@@ -382,7 +395,11 @@ class ContinuousBatchingServer:
                 self._draft_cache)[0]
         # decode / verify step graphs, made at first use; False runs the
         # steps eagerly on CUDA too (the control a check compares with)
-        self._cuda_graphs = self.device.type == "cuda"
+        # over gloo ranks nothing is captured: the trace counters read 0
+        self._host_collectives = self.device.type == "cuda" and \
+            not graphs_capture_mesh(engine.mesh, "ContinuousBatchingServer")
+        self._cuda_graphs = self.device.type == "cuda" and \
+            not self._host_collectives
         self._graphs: Dict[str, GraphedStep] = {}
         if self.host_tier is not None:
             # the allocator decides WHEN to tier; the server owns the pool,
@@ -465,6 +482,13 @@ class ContinuousBatchingServer:
 
     # ------------------------------------------------------------ setup
 
+    def _check_shared_clock(self, what: str) -> None:
+        if not self._clock_shared:
+            raise ValueError(
+                f"{what} over tp_size={self.engine.tp} ranks: each rank "
+                "would decide on its own clock and the ranks would part; "
+                "pass the server a clock that is the same on every rank")
+
     def _make_draft_pool(self, num_blocks: int) -> PagedKVCache:
         """The draft model's pool: the target pool's slots, blocks and
         block size with the draft's layers and head dims, full precision
@@ -475,7 +499,8 @@ class ContinuousBatchingServer:
                        self.draft._act_dtype.itemsize, self.device)
         pool = init_paged_cache(
             dcfg.n_layer, self.num_slots, num_blocks, self.block_size,
-            self.max_blocks_per_slot, dcfg.kv_heads, dcfg.head_dim,
+            self.max_blocks_per_slot, self.draft.kv_heads_local,
+            dcfg.head_dim,
             dtype=self.draft._act_dtype, quantized=False, device=self.device)
         pool.block_tables = self._cache.block_tables
         return pool
@@ -488,7 +513,8 @@ class ContinuousBatchingServer:
                        self.device)
         return init_paged_cache(
             mcfg.n_layer, self.num_slots, num_blocks, self.block_size,
-            self.max_blocks_per_slot, mcfg.kv_heads, mcfg.head_dim,
+            self.max_blocks_per_slot, self.engine.kv_heads_local,
+            mcfg.head_dim,
             dtype=self.engine._act_dtype, quantized=quantized,
             device=self.device)
 
@@ -672,6 +698,8 @@ class ContinuousBatchingServer:
         ``tenant`` are accepted for the JAX server's signature: with
         tracing and metering unbuilt, neither is read."""
         del trace_context
+        if deadline_s is not None:
+            self._check_shared_clock("deadline_s")
         floor = max(1, self.engine.config.min_out_tokens)
         rej = submit_rejection(prompt, max_new_tokens, floor, deadline_s)
         if rej is not None:
@@ -1486,6 +1514,8 @@ class ContinuousBatchingServer:
         drain on the server clock: past it, every unfinished request is
         cancelled (partial results returned)."""
         check_drain_timeout(timeout_s)
+        if timeout_s is not None:
+            self._check_shared_clock("drain timeout_s")
         deadline = None if timeout_s is None \
             else self._clock() + timeout_s
         while not self.scheduler.idle:
@@ -1520,9 +1550,9 @@ class ContinuousBatchingServer:
 
     def _traces(self, kind: str) -> int:
         """Graphs captured for the ``kind`` step; -1 where steps run
-        eagerly."""
+        eagerly, 0 on CUDA over gloo ranks (none can be)."""
         if not self._cuda_graphs:
-            return -1
+            return 0 if self._host_collectives else -1
         g = self._graphs.get(kind)
         return g.captures if g is not None else 0
 

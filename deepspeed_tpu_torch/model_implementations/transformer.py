@@ -37,8 +37,26 @@ plus, by architecture, ``ln_emb`` (BLOOM, BERT), ``wtte`` (BERT's
 token-type table), ``lm_head_bias``, and ``mlp.{wg, bg}`` (gated MLPs).
 ``pre_layer_norm=False`` is the post-LN order of BERT and DistilBERT.
 
-Not in this slice (ROADMAP.md queue C): MoE layers and tensor/expert/
-sequence-parallel meshes.
+**Several ranks.** Under a ``tensor`` mesh axis (``tensor_parallel.
+tp_size``) each rank holds its heads of wq/wk/wv/wo and its columns of
+the MLP (``parallel/tensor_parallel.py`` ``tp_param_specs``): q/k/v and
+the cache have ``H / tp`` and ``KH / tp`` heads, every attention kernel
+runs on them as it is, and the row-parallel products (``attn.wo``,
+``mlp.wo``) are summed over the group before their bias is added, once.
+The functions tell the split from the weights' head count, so a whole
+tree runs as on one device. Under w8a8 the row-parallel activations are
+quantized with the group's row amax and the int32 products summed before
+the rescale, so the result is the one-device one. With ``seq_shard_kv``
+(``sp_size``) the dense cache holds this rank's block of positions:
+prefill writes the prompt's positions in it, decode appends a token on
+the rank that owns its position, and decode attention is plain torch
+(JAX's is an XLA einsum there): each rank's partial softmax over its
+block, merged over ``seq`` (max, then sums); a rank whose positions are
+all past ``live`` weighs 0. The paged steps and ``decode_chunk`` refuse
+it, with JAX's messages.
+
+Not in this slice (ROADMAP.md queue C): MoE layers and expert-parallel
+meshes.
 """
 from __future__ import annotations
 
@@ -61,6 +79,9 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_reference)
 from deepspeed_tpu_torch.ops.int8_gemm import (maybe_int8_einsum,
                                                maybe_int8_matmul)
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.parallel.tensor_parallel import (SEQ, TENSOR,
+                                                          axis_rank)
 
 NEG_INF = -1e30
 _LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
@@ -247,6 +268,17 @@ def alibi_slopes(n_head: int, device=None) -> torch.Tensor:
     return torch.tensor(s, dtype=torch.float32, device=device)
 
 
+def _alibi(cfg, H: int, device) -> torch.Tensor:
+    """The ALiBi slopes of this rank's ``H`` heads (of ``cfg.n_head``)."""
+    s = alibi_slopes(cfg.n_head, device) * cfg.alibi_scale
+    return s if H == cfg.n_head else s.narrow(0, axis_rank(TENSOR) * H, H)
+
+
+def _row_reduce(split: bool):
+    """The group a row-parallel product is summed over, or None."""
+    return TENSOR if split else None
+
+
 def _repeat_kv(k, n_rep):
     return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=-2)
 
@@ -270,7 +302,7 @@ def _prefill_attention(q, k, v, cfg: InferenceTransformerConfig,
     att = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * cfg.scale
     pos = torch.arange(T, device=q.device)
     if cfg.positional == "alibi":
-        slopes = alibi_slopes(H, q.device) * cfg.alibi_scale
+        slopes = _alibi(cfg, H, q.device)
         rel = (pos[None, :] - pos[:, None])[None, None]
         att = att + slopes[None, :, None, None] * rel
     if causal:
@@ -289,7 +321,10 @@ def _decode_attention(q, k_cache, v_cache, live,
     """One-token attention against the cache. q [B, H, D], cache
     [B, S, KH, D], ``live [B]`` = valid cache positions *including* the
     just-appended token → [B, H, D]. The decode kernel, except for ALiBi
-    and windowed layers, which take the plain path."""
+    and windowed layers, which take the plain path, and a seq-sharded
+    cache (:func:`_decode_attention_seq`)."""
+    if cfg.seq_shard_kv:
+        return _decode_attention_seq(q, k_cache, v_cache, live, cfg, window)
     if cfg.positional != "alibi" and window is None:
         return decode_attention(q, k_cache, v_cache, live, scale=cfg.scale)
     B, H, D = q.shape
@@ -298,7 +333,7 @@ def _decode_attention(q, k_cache, v_cache, live,
                      _repeat_kv(k_cache, H // KH).float()) * cfg.scale
     pos = torch.arange(S, device=q.device)[None, None, :]
     if cfg.positional == "alibi":
-        slopes = alibi_slopes(H, q.device) * cfg.alibi_scale
+        slopes = _alibi(cfg, H, q.device)
         s = s + slopes[None, :, None] * (pos - (live - 1)[:, None, None])
     s = s.masked_fill(pos >= live[:, None, None], NEG_INF)
     if window is not None:
@@ -306,6 +341,34 @@ def _decode_attention(q, k_cache, v_cache, live,
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p,
                         _repeat_kv(v_cache, H // KH).float()).to(q.dtype)
+
+
+def _decode_attention_seq(q, k_cache, v_cache, live,
+                          cfg: InferenceTransformerConfig, window=None):
+    """One-token attention over a cache whose positions are split over
+    ``seq``: this rank's block is ``[r * S, (r + 1) * S)``. Each rank's
+    f32 scores over its block, then the softmax merged over the group: the
+    global max by all-reduce, each block's ``exp(s - max)`` sum and
+    weighted values summed. A masked score is ``NEG_INF``, so a block
+    with no live position weighs exactly 0."""
+    B, H, D = q.shape
+    KH, S = k_cache.shape[2], k_cache.shape[1]
+    s = torch.einsum("bhd,bshd->bhs", q.float(),
+                     _repeat_kv(k_cache, H // KH).float()) * cfg.scale
+    pos = (axis_rank(SEQ) * S
+           + torch.arange(S, device=q.device))[None, None, :]
+    if cfg.positional == "alibi":
+        slopes = _alibi(cfg, H, q.device)
+        s = s + slopes[None, :, None] * (pos - (live - 1)[:, None, None])
+    s = s.masked_fill(pos >= live[:, None, None], NEG_INF)
+    if window is not None:
+        s = s.masked_fill(pos <= (live - 1 - window)[:, None, None], NEG_INF)
+    m = comm.all_reduce(s.amax(-1), comm.MAX, SEQ)
+    p = torch.exp(s - m[..., None])
+    den = comm.all_reduce(p.sum(-1), comm.SUM, SEQ)
+    o = comm.all_reduce(torch.einsum("bhs,bshd->bhd", p, _repeat_kv(
+        v_cache, H // KH).float()), comm.SUM, SEQ)
+    return (o / den[..., None]).to(q.dtype)
 
 
 def _paged_kernel(cfg, window) -> bool:
@@ -374,7 +437,7 @@ def _chunk_attention(q, k_cache, v_cache, lengths,
     pos = torch.arange(S, device=q.device)[None, None, None, :]
     qpos = lengths[:, None] + torch.arange(K, device=q.device)[None, :]
     if cfg.positional == "alibi":
-        slopes = alibi_slopes(H, q.device) * cfg.alibi_scale
+        slopes = _alibi(cfg, H, q.device)
         s = s + slopes[None, :, None, None] * (pos - qpos[:, None, :, None])
     s = s.masked_fill(pos >= (qpos + 1)[:, None, :, None], NEG_INF)
     if window is not None:
@@ -443,6 +506,8 @@ def _qkv(x, a, cfg, positions):
 
 
 def _mlp(x, m, cfg):
+    """The MLP; under ``tensor`` its columns are this rank's, and the down
+    projection is summed over the group before ``bo``."""
     up = maybe_int8_matmul(x, m["wi"], x.dtype, cfg.int8_compute) + m["bi"]
     if "wg" in m:
         # gated MLP (LLaMA SwiGLU): down(act(gate(x)) * up(x))
@@ -452,15 +517,18 @@ def _mlp(x, m, cfg):
         h = _act(g.float(), cfg.activation) * up.float()
     else:
         h = _act(up.float(), cfg.activation)
-    return maybe_int8_matmul(h.to(x.dtype), m["wo"], x.dtype,
-                             cfg.int8_compute) + m["bo"]
+    return maybe_int8_matmul(
+        h.to(x.dtype), m["wo"], x.dtype, cfg.int8_compute,
+        reduce=_row_reduce(h.shape[-1] < cfg.ffn)) + m["bo"]
 
 
 def _attn_out(subscripts, attn, a, dtype, cfg):
-    """The attention output projection ``[..., H, D] x wo [H, D, E]``,
-    plus its bias."""
-    return maybe_int8_einsum(subscripts, attn, a["wo"], dtype,
-                             cfg.int8_compute, 2, 1) + a["bo"]
+    """The attention output projection ``[..., H, D] x wo [H, D, E]``
+    (summed over ``tensor`` when the heads are this rank's), plus its
+    bias."""
+    return maybe_int8_einsum(
+        subscripts, attn, a["wo"], dtype, cfg.int8_compute, 2, 1,
+        reduce=_row_reduce(attn.shape[-2] < cfg.n_head)) + a["bo"]
 
 
 def _ffn(x, layer, cfg):
@@ -503,7 +571,8 @@ def _block_seq(x, layer, cfg, positions, lengths, cache, layer_idx,
     if isinstance(cache, PagedKVCache):
         cache = paged_write_prompt(cache, layer_idx, k[0], v[0], slot)
     elif cache is not None:
-        cache = write_prompt(cache, layer_idx, k, v, lengths)
+        cache = write_prompt(cache, layer_idx, k, v, lengths,
+                             offset=_seq_offset(cfg, cache))
     attn = _prefill_attention(q, k, v, cfg, causal=causal, key_mask=key_mask,
                               window=_window(cfg, layer_idx),
                               reference=reference)
@@ -517,7 +586,8 @@ def _block_decode(x, layer, cfg, cache, layer_idx, live):
     ln1_out = _layer_norm(x, layer["ln1"], cfg.layer_norm_eps)
     h = ln1_out if cfg.pre_layer_norm else x
     q, k, v = _qkv(h, a, cfg, cache.lengths)   # new token at lengths[b]
-    cache = append_token(cache, layer_idx, k, v)
+    cache = append_token(cache, layer_idx, k, v,
+                         offset=_seq_offset(cfg, cache))
     attn = _decode_attention(q, cache.k[layer_idx], cache.v[layer_idx],
                              live, cfg, window=_window(cfg, layer_idx))
     attn_out = _attn_out("bhd,hde->be", attn, a, x.dtype, cfg)
@@ -570,11 +640,22 @@ def _logits(params, cfg, x):
     return out
 
 
+def _seq_offset(cfg, cache: KVCache) -> Optional[int]:
+    """The first position of this rank's block of a seq-sharded cache
+    (None: the cache holds every position)."""
+    return axis_rank(SEQ) * cache.max_seq if cfg.seq_shard_kv else None
+
+
 def _check_causal(cfg):
     if cfg.num_experts > 0:
         raise NotImplementedError(f"MoE layers {_LATER}")
+
+
+def _refuse_paged_seq(cfg):
     if cfg.seq_shard_kv:
-        raise NotImplementedError(f"sequence-sharded KV caches {_LATER}")
+        raise NotImplementedError(
+            "paged serving with a seq-sharded KV pool is unsupported — "
+            "the block pool is already the long-context memory lever")
 
 
 def _causal_trunk(params, cfg, input_ids, lengths, cache, key_mask=None,
@@ -625,6 +706,10 @@ def decode_chunk(params, cfg: InferenceTransformerConfig, tokens,
     masked garbage). Attention is plain torch (f32 scores), as JAX
     computes it outside any Pallas kernel."""
     _check_causal(cfg)
+    if cfg.seq_shard_kv:
+        raise NotImplementedError(
+            "decode_chunk with seq-sharded KV is unsupported — run "
+            "speculative decoding without seq_shard_kv")
     positions = cache.lengths[:, None] + torch.arange(
         tokens.shape[1], device=tokens.device)[None, :]
     x = _embed(params, cfg, tokens, positions)
@@ -659,6 +744,7 @@ def paged_prefill(params, cfg: InferenceTransformerConfig, input_ids,
     ``lengths[slot] = length``. Returns (next-token logits ``[1, V]``,
     cache)."""
     _check_causal(cfg)
+    _refuse_paged_seq(cfg)
     x, cache = _causal_trunk(params, cfg, input_ids, None, cache, slot=slot)
     cache.lengths[slot] = length
     return _logits(params, cfg, x[:, length - 1]), cache
@@ -694,6 +780,7 @@ def paged_prefill_chunk(params, cfg: InferenceTransformerConfig, input_ids,
     prompt's last token's on the final chunk, the chunk tail's (discarded
     by the caller) before it."""
     _check_causal(cfg)
+    _refuse_paged_seq(cfg)
     C = input_ids.shape[1]
     positions = start + torch.arange(C, device=input_ids.device)[None, :]
     x = _embed(params, cfg, input_ids, positions)
@@ -730,6 +817,7 @@ def paged_verify_step(params, cfg: InferenceTransformerConfig, tokens,
     chunk's k/v are written through the tables; lengths are NOT advanced —
     the caller commits the accepted prefix."""
     _check_causal(cfg)
+    _refuse_paged_seq(cfg)
     positions = cache.lengths[:, None] + torch.arange(
         tokens.shape[1], device=tokens.device)[None, :]
     x = _embed(params, cfg, tokens, positions)

@@ -32,6 +32,14 @@ The port's engine calls ``loss_fn`` with ``rng=None`` (as it calls every
 model), so BERT trains deterministically there, as the JAX model does
 with ``rng=None``; an ``rng`` with dropout ratios above 0 in training mode
 raises ``NotImplementedError`` (dropout: ROADMAP.md queue C, A9).
+
+Under a ``tensor`` mesh axis the layers split by :meth:`BertPreTraining
+Model.tp_specs` (JAX's entries; the fused ``attn_qkvw``/``attn_qkvb`` cut
+part by part, :meth:`tp_fused`); embeddings and the MLM and NSP heads
+stay whole. Under a ``seq`` axis each rank embeds and encodes its block
+of the positions (attention gathers q/k/v along T), the MLM loss is the
+global masked mean, and the NSP term comes from the rank that holds
+position 0.
 """
 from __future__ import annotations
 
@@ -46,6 +54,11 @@ from deepspeed_tpu_torch.ops.int8_training import (lm_logits,
 from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
                                                  DeepSpeedTransformerLayer,
                                                  layer_norm_fp32, matmul)
+from deepspeed_tpu_torch.parallel.tensor_parallel import (SEQ,
+                                                          reduce_from_group,
+                                                          seq_block,
+                                                          seq_mean)
+from deepspeed_tpu_torch.runtime.zero.partition import PartitionSpec as P
 
 Params = Dict[str, torch.Tensor]
 LAYER_KEYS = ("attn_qkvw", "attn_qkvb", "attn_ow", "attn_ob", "attn_nw",
@@ -153,13 +166,13 @@ class BertPreTrainingModel:
     def encode(self, params: Params, input_ids, attention_mask=None,
                token_type_ids=None, rng=None, deterministic=True):
         """The encoder's hidden states ``[B, T, E]`` in the compute
-        dtype."""
+        dtype (this rank's block of T under seq)."""
         cfg = self.config
-        ids = input_ids.long()
-        T = ids.shape[1]
-        tt = (token_type_ids.long() if token_type_ids is not None
-              else torch.zeros_like(ids))
-        x = (params["wte"][ids] + params["wpe"][:T][None]
+        start, n = seq_block(input_ids.shape[1])
+        ids = input_ids[:, start:start + n].long()
+        tt = (token_type_ids[:, start:start + n].long()
+              if token_type_ids is not None else torch.zeros_like(ids))
+        x = (params["wte"][ids] + params["wpe"][start:start + n][None]
              + params["wtte"][tt]).to(cfg.dtype)
         x = self._ln(x, params, "emb_ln")
         for i, layer in enumerate(self.layers):
@@ -187,13 +200,13 @@ class BertPreTrainingModel:
         h = self._ln(h, params, "mlm_ln")
         logits = lm_logits(h, params["wte"].to(h.dtype),
                            cfg.int8_training).float() + params["mlm_bias"]
-        labels = batch["mlm_labels"].long()
+        start, n = seq_block(batch["input_ids"].shape[1])
+        labels = batch["mlm_labels"][:, start:start + n].long()
         live = (labels >= 0) & (labels < cfg.vocab_size)
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(
             -1, labels.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
-        loss = -torch.where(live, gold - lse, 0.0).sum() / torch.clamp(
-            live.sum(), min=1)
+        loss = seq_mean(torch.where(live, lse - gold, 0.0), live)
         if cfg.with_nsp and "nsp_labels" in batch:
             pooled = torch.tanh(matmul(x[:, 0], params["pooler.w"])
                                 + params["pooler.b"])
@@ -203,8 +216,11 @@ class BertPreTrainingModel:
             nsp_live = (nsp >= 0) & (nsp < nsp_logits.shape[-1])
             nsp_ll = torch.log_softmax(nsp_logits, -1).gather(
                 -1, nsp.clamp(0, nsp_logits.shape[-1] - 1)[:, None])[:, 0]
-            loss = loss - torch.where(nsp_live, nsp_ll, 0.0).sum() / \
+            nsp_loss = -torch.where(nsp_live, nsp_ll, 0.0).sum() / \
                 torch.clamp(nsp_live.sum(), min=1)
+            # position 0 is the first seq rank's
+            loss = loss + reduce_from_group(nsp_loss * float(start == 0),
+                                            SEQ)
         return loss
 
     def param_count(self, params: Params) -> int:
@@ -219,7 +235,29 @@ class BertPreTrainingModel:
         n = L * (4 * E * E + 2 * E * Fh) + cfg.vocab_size * E
         return 6.0 * n
 
-    def tp_specs(self):
-        raise NotImplementedError(
-            "tensor-parallel placement (tp_specs) is not ported to "
-            "deepspeed_tpu_torch yet (ROADMAP.md queue C, A6)")
+    def tp_specs(self) -> Dict[str, P]:
+        """Megatron placement, JAX's entries by the port's flat names: the
+        fused QKV and the FFN-in column-parallel, the attention and
+        FFN-out projections row-parallel (their biases whole), every
+        embedding, norm and head whole."""
+        layer = {"attn_qkvw": P(None, "tensor"), "attn_qkvb": P("tensor"),
+                 "attn_ow": P("tensor", None), "attn_ob": P(),
+                 "attn_nw": P(), "attn_nb": P(),
+                 "inter_w": P(None, "tensor"), "inter_b": P("tensor"),
+                 "output_w": P("tensor", None), "output_b": P(),
+                 "norm_w": P(), "norm_b": P()}
+        specs = {"wte": P(), "wpe": P(), "wtte": P(), "emb_ln.scale": P(),
+                 "emb_ln.bias": P(), "mlm_dense.w": P(), "mlm_dense.b": P(),
+                 "mlm_ln.scale": P(), "mlm_ln.bias": P(), "mlm_bias": P()}
+        if self.config.with_nsp:
+            specs.update({"pooler.w": P(), "pooler.b": P(), "nsp.w": P(),
+                          "nsp.b": P()})
+        for i in range(self.config.num_hidden_layers):
+            specs.update({f"layers.{i}.{k}": s for k, s in layer.items()})
+        return specs
+
+    def tp_fused(self) -> Dict[str, int]:
+        """The fused QKV leaves: q, k and v each split on their own."""
+        return {f"layers.{i}.{k}": 3
+                for i in range(self.config.num_hidden_layers)
+                for k in ("attn_qkvw", "attn_qkvb")}

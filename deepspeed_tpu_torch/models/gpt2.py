@@ -35,6 +35,20 @@ the model fetches each block's weights inside its checkpointed
 once at the start (the embedding and the tied logits use the same copy),
 ``wpe`` and ``ln_f`` at their use, as JAX's ``models/gpt2.py:236-375``
 places its fetches.
+
+Under a ``tensor`` mesh axis the engine hands each rank its shard by
+:meth:`GPT2LMModel.tp_specs` (JAX's entries) and :meth:`GPT2LMModel.
+tp_fused`: ``c_attn`` holds the rank's heads of q, of k and of v (not a
+contiguous half of the fused columns), ``c_fc`` its columns, both
+``c_proj`` their rows, and ``wte`` its rows of the padded vocabulary. The
+forward tells the split from the shapes and states the collectives
+(``parallel/tensor_parallel.py``): the column-parallel inputs are copied
+to the group, the row-parallel products summed over it before their bias,
+the embedding is the masked row lookup summed over the group, and the tied
+head gives each rank its vocabulary columns of the logits, which the
+vocab-parallel loss takes. Under a ``seq`` axis each rank takes its block
+of the T positions after the embedding, attention gathers q/k/v along T,
+and the loss is the global masked mean.
 """
 from __future__ import annotations
 
@@ -50,10 +64,23 @@ from torch.utils.checkpoint import checkpoint
 from deepspeed_tpu_torch.ops.attention import causal_attention
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention_reference
 from deepspeed_tpu_torch.ops.int8_training import lm_logits, maybe_switchback
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    copy_to_group, next_token_labels, reduce_from_group, seq_attention,
+    seq_block, seq_mean, vocab_parallel_embedding, vocab_parallel_nll)
+from deepspeed_tpu_torch.runtime.zero.partition import PartitionSpec as P
 
 Params = Dict[str, torch.Tensor]
 LN_EPS = 1e-6   # flax nn.LayerNorm's default
 _LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
+
+
+def refuse_split_switchback(int8: bool, split: bool) -> None:
+    """SwitchBack quantizes each token's row of a product's input; a
+    row-parallel input is split over the ranks, and the row's amax would
+    be a rank's."""
+    if int8 and split:
+        raise NotImplementedError(
+            f"int8_training (SwitchBack) with a tensor axis {_LATER}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,9 +165,14 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(n_in, n_out, device=device))
         self.bias = nn.Parameter(torch.zeros(n_out, device=device))
 
-    def forward(self, x):
+    def forward(self, x, reduce: bool = False):
+        """``reduce``: a row-parallel product, summed over the ``tensor``
+        group before the bias (added once)."""
         d = self.dtype
-        return self.matmul(x.to(d), self.kernel.to(d)) + self.bias.to(d)
+        out = self.matmul(x.to(d), self.kernel.to(d))
+        if reduce:
+            out = reduce_from_group(out)
+        return out + self.bias.to(d)
 
 
 class CausalSelfAttention(nn.Module):
@@ -151,28 +183,38 @@ class CausalSelfAttention(nn.Module):
         self.c_attn = Dense(C, 3 * C, cfg.dtype, device, cfg.int8_training)
         self.c_proj = Dense(C, C, cfg.dtype, device, cfg.int8_training)
 
+    def _attend(self, q, k, v, reference_attention):
+        cfg = self.cfg
+        if reference_attention:
+            return flash_attention_reference(q, k, v, causal=True)[0]
+        if cfg.use_flash_attention:
+            return causal_attention(q, k, v)
+        # the JAX model's plain path: scale in the compute dtype, mask at
+        # the dtype's min, softmax in f32
+        T = q.shape[1]
+        scale = 1.0 / torch.tensor(math.sqrt(cfg.head_dim), dtype=cfg.dtype)
+        att = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale.to(q.device)
+        mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        att = att.masked_fill(~mask, torch.finfo(att.dtype).min)
+        att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", att, v)
+
     def forward(self, x, reference_attention: bool = False):
         cfg = self.cfg
         B, T, C = x.shape
-        H, D = cfg.n_head, cfg.head_dim
-        # views of the fused projection, strides (T*3C, 3C, D, 1): the
+        D = cfg.head_dim
+        # the rank's heads of q, k and v under tensor (C of them whole)
+        Cl = self.c_attn.kernel.shape[1] // 3
+        split = Cl < C
+        refuse_split_switchback(cfg.int8_training, split)
+        if split:
+            x = copy_to_group(x)
+        # views of the fused projection, strides (T*3Cl, 3Cl, D, 1): the
         # flash kernels read them in place
-        q, k, v = (t.reshape(B, T, H, D)
-                   for t in self.c_attn(x).split(C, dim=-1))
-        if reference_attention:
-            y = flash_attention_reference(q, k, v, causal=True)[0]
-        elif cfg.use_flash_attention:
-            y = causal_attention(q, k, v)
-        else:
-            # the JAX model's plain path: scale in the compute dtype, mask
-            # at the dtype's min, softmax in f32
-            scale = 1.0 / torch.tensor(math.sqrt(D), dtype=cfg.dtype)
-            att = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale.to(x.device)
-            mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-            att = att.masked_fill(~mask, torch.finfo(att.dtype).min)
-            att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
-            y = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        return self.c_proj(y.reshape(B, T, C))
+        q, k, v = (t.reshape(B, T, Cl // D, D)
+                   for t in self.c_attn(x).split(Cl, dim=-1))
+        y = seq_attention(self._attend, q, k, v, reference_attention)
+        return self.c_proj(y.reshape(B, T, Cl), reduce=split)
 
 
 class MLP(nn.Module):
@@ -183,7 +225,11 @@ class MLP(nn.Module):
         self.c_proj = Dense(4 * C, C, cfg.dtype, device, cfg.int8_training)
 
     def forward(self, x):
-        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"))
+        split = self.c_fc.kernel.shape[1] < self.c_proj.kernel.shape[1] * 4
+        if split:   # the rank's columns of the 4C hidden units
+            x = copy_to_group(x)
+        return self.c_proj(F.gelu(self.c_fc(x), approximate="tanh"),
+                           reduce=split)
 
 
 class Block(nn.Module):
@@ -240,11 +286,16 @@ class GPT2(nn.Module):
         def get(name):
             p = params[name]
             return p if fetch is None else fetch(name, p)
-        T = input_ids.shape[1]
+        # under seq: this rank's block of the positions
+        start, n = seq_block(input_ids.shape[1])
+        ids = input_ids[:, start:start + n].long()
         wte = get("wte")
+        vocab_split = wte.shape[0] < cfg.padded_vocab_size
         # gather rows, then cast (as the JAX model does)
-        x = (wte[input_ids.long()].to(cfg.dtype)
-             + get("wpe")[:T].to(cfg.dtype)[None])
+        rows = (vocab_parallel_embedding(wte, ids) if vocab_split
+                else wte[ids])
+        x = rows.to(cfg.dtype) + get("wpe")[start:start + n].to(
+            cfg.dtype)[None]
         for i in range(cfg.n_layer):
             bp = {n: params[f"h_{i}.{n}"] for n in self._block_keys}
             block = self.get_submodule(f"h_{i}")
@@ -254,6 +305,9 @@ class GPT2(nn.Module):
             else:
                 x = _run_block(*args)
         x = layer_norm(x, get("ln_f.scale"), get("ln_f.bias"), cfg.dtype)
+        if vocab_split:   # the rank's vocabulary columns of the logits
+            refuse_split_switchback(cfg.int8_training, True)
+            x = copy_to_group(x)
         return lm_logits(x, wte.to(cfg.dtype), cfg.int8_training)
 
 
@@ -313,26 +367,59 @@ class GPT2LMModel:
 
     def apply(self, params: Params, input_ids,
               reference_attention: bool = False):
-        """Logits ``[B, T, padded_vocab]`` in the compute dtype."""
+        """Logits ``[B, T, padded_vocab]`` in the compute dtype (this
+        rank's block of T under seq, its vocabulary columns under
+        tensor)."""
         return self.module(input_ids, params, reference_attention)
 
     def loss_fn(self, params: Params, batch, rng=None,
                 reference_attention: bool = False):
         """Mean next-token cross entropy in f32 (``rng`` is unused: the
-        port has no dropout)."""
+        port has no dropout): ``logsumexp`` over every padded column minus
+        the gold logit, over the labels in ``[0, vocab_size)``; an
+        out-of-range label is clamped for the gather and masked."""
         input_ids = batch["input_ids"]
         labels = batch.get("labels")
         logits = self.apply(params, input_ids, reference_attention)
+        start, n = seq_block(input_ids.shape[1])
         if labels is None:
-            labels = input_ids[:, 1:]
-            logits = logits[:, :-1]
-        logits = logits.float()
+            labels, m = next_token_labels(input_ids, start, n)
+            logits = logits[:, :m]
+        else:
+            labels = labels[:, start:start + n]
         labels = labels.long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(
-            -1, labels.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        nll = vocab_parallel_nll(
+            logits.float(),
+            labels.clamp(0, self.config.padded_vocab_size - 1))
         mask = (labels >= 0) & (labels < self.config.vocab_size)
-        return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1)
+        return seq_mean(nll, mask)
+
+    def tp_specs(self) -> Dict[str, P]:
+        """Megatron placement, JAX's entries by the port's flat names:
+        ``c_attn`` and ``c_fc`` column-parallel, both ``c_proj``
+        row-parallel (their biases whole), ``wte`` vocab-parallel."""
+        block = {"ln_1.scale": P(), "ln_1.bias": P(), "ln_2.scale": P(),
+                 "ln_2.bias": P(),
+                 "attn.c_attn.kernel": P(None, "tensor"),
+                 "attn.c_attn.bias": P("tensor"),
+                 "attn.c_proj.kernel": P("tensor", None),
+                 "attn.c_proj.bias": P(),
+                 "mlp.c_fc.kernel": P(None, "tensor"),
+                 "mlp.c_fc.bias": P("tensor"),
+                 "mlp.c_proj.kernel": P("tensor", None),
+                 "mlp.c_proj.bias": P()}
+        specs = {"wte": P("tensor", None), "wpe": P(), "ln_f.scale": P(),
+                 "ln_f.bias": P()}
+        for i in range(self.config.n_layer):
+            specs.update({f"h_{i}.{k}": s for k, s in block.items()})
+        return specs
+
+    def tp_fused(self) -> Dict[str, int]:
+        """The leaves whose split dim holds q, k and v side by side: each
+        part is split over ``tensor`` on its own."""
+        return {f"h_{i}.attn.c_attn.{k}": 3
+                for i in range(self.config.n_layer)
+                for k in ("kernel", "bias")}
 
     def param_count(self, params: Params) -> int:
         return sum(p.numel() for p in params.values())

@@ -30,9 +30,18 @@ masked and never turns the loss NaN (JAX fills NaN there; ROADMAP.md D).
 ``flash_block`` is the JAX model's tile-size override for its Pallas
 kernel. The CUDA kernels choose their own tiles per head dim, so the port
 accepts the field, so that a JAX config carries over, and ignores it.
-MoE layers (``num_experts > 0``) and ``sequence_parallel`` are refused
-when the model is built (ROADMAP.md queue C, A8); ``tp_specs`` is refused
-(A6).
+MoE layers (``num_experts > 0``) and ``sequence_parallel`` (ring and
+Ulysses attention) are refused when the model is built (ROADMAP.md queue
+C, A8).
+
+Under a ``tensor`` mesh axis the engine hands each rank its shard by
+:meth:`LlamaLMModel.tp_specs` (JAX's entries): its heads of wq/wk/wv (k
+and v keep their ``n_kv_head / tensor`` heads unexpanded into the
+kernels), its columns of gate/up, its rows of wo/down, and its rows of
+``embed`` and the untied ``lm_head`` (vocab-parallel); the collectives are
+GPT-2's (``models/gpt2.py``). Under a ``seq`` axis each rank takes its
+block of the positions after the embedding (the rotary angles at their
+global positions), and attention gathers q/k/v along T.
 """
 from __future__ import annotations
 
@@ -47,7 +56,12 @@ from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.attention import (causal_attention,
                                                causal_attention_reference)
+from deepspeed_tpu_torch.models.gpt2 import refuse_split_switchback
 from deepspeed_tpu_torch.ops.int8_training import lm_logits, maybe_switchback
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    copy_to_group, next_token_labels, reduce_from_group, seq_attention,
+    seq_block, seq_mean, vocab_parallel_embedding, vocab_parallel_nll)
+from deepspeed_tpu_torch.runtime.zero.partition import PartitionSpec as P
 
 Params = Dict[str, torch.Tensor]
 
@@ -154,14 +168,14 @@ def _rms_norm(x, weight, eps):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
 
 
-def _rope(q, k, theta):
-    """HF rotate-half rotary embedding at positions ``arange(T)``, in f32.
-    q/k ``[B, T, H, D]``."""
+def _rope(q, k, theta, start: int = 0):
+    """HF rotate-half rotary embedding at positions ``start + arange(T)``,
+    in f32. q/k ``[B, T, H, D]``."""
     T, D = q.shape[1], q.shape[-1]
     inv = 1.0 / (theta ** (torch.arange(0, D, 2, dtype=torch.float32,
                                         device=q.device) / D))
-    ang = torch.arange(T, dtype=torch.float32, device=q.device)[:, None] \
-        * inv[None, :]                                          # [T, D/2]
+    ang = torch.arange(start, start + T, dtype=torch.float32,
+                       device=q.device)[:, None] * inv[None, :]  # [T, D/2]
     cos = torch.cat([ang.cos(), ang.cos()], -1)[None, :, None]
     sin = torch.cat([ang.sin(), ang.sin()], -1)[None, :, None]
 
@@ -185,8 +199,10 @@ class Dense(nn.Module):
         self.matmul = maybe_switchback(int8)
         self.kernel = nn.Parameter(torch.empty(n_in, n_out, device=device))
 
-    def forward(self, x):
-        return self.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+    def forward(self, x, reduce: bool = False):
+        """``reduce``: a row-parallel product, summed over ``tensor``."""
+        out = self.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        return reduce_from_group(out) if reduce else out
 
 
 class LlamaAttention(nn.Module):
@@ -201,34 +217,44 @@ class LlamaAttention(nn.Module):
         self.wv = Dense(C, KD, *args)
         self.wo = Dense(HD, C, *args)
 
-    def forward(self, x):
+    def forward(self, x, start: int = 0):
+        """``start``: the first position of ``x`` (a seq rank's block)."""
         cfg = self.cfg
         B, T, _ = x.shape
-        H, KH, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+        D = cfg.head_dim
+        # the rank's heads under tensor
+        H, KH = self.wq.kernel.shape[1] // D, self.wk.kernel.shape[1] // D
+        split = H < cfg.n_head
+        refuse_split_switchback(cfg.int8_training, split)
+        if split:
+            x = copy_to_group(x)
         q = self.wq(x).reshape(B, T, H, D)
         k = self.wk(x).reshape(B, T, KH, D)
         v = self.wv(x).reshape(B, T, KH, D)
-        q, k = _rope(q, k, cfg.rope_theta)
+        q, k = _rope(q, k, cfg.rope_theta, start)
         # k/v unexpanded: the kernels (and the oracle) read each group's
         # kv head in place
-        if cfg.use_flash_attention:
-            y = causal_attention(q, k, v)
-        else:
-            y = causal_attention_reference(q, k, v)
-        return self.wo(y.reshape(B, T, H * D))
+        attn = (causal_attention if cfg.use_flash_attention
+                else causal_attention_reference)
+        y = seq_attention(attn, q, k, v)
+        return self.wo(y.reshape(B, T, H * D), reduce=split)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         C, Fh = cfg.n_embd, cfg.intermediate_size
+        self.intermediate = Fh
         args = (cfg.dtype, device, cfg.int8_training)
         self.gate = Dense(C, Fh, *args)
         self.up = Dense(C, Fh, *args)
         self.down = Dense(Fh, C, *args)
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        split = self.gate.kernel.shape[1] < self.intermediate
+        if split:   # the rank's columns of the hidden units
+            x = copy_to_group(x)
+        return self.down(F.silu(self.gate(x)) * self.up(x), reduce=split)
 
 
 class LlamaBlock(nn.Module):
@@ -240,13 +266,13 @@ class LlamaBlock(nn.Module):
         self.ln_mlp = nn.Parameter(torch.ones(cfg.n_embd, device=device))
         self.mlp = LlamaMLP(cfg, device)
 
-    def forward(self, x):
-        x = x + self.attn(_rms_norm(x, self.ln_attn, self.eps))
+    def forward(self, x, start: int = 0):
+        x = x + self.attn(_rms_norm(x, self.ln_attn, self.eps), start)
         return x + self.mlp(_rms_norm(x, self.ln_mlp, self.eps))
 
 
-def _run_block(block: LlamaBlock, params: Params, x):
-    return torch.func.functional_call(block, params, (x,))
+def _run_block(block: LlamaBlock, params: Params, x, start: int = 0):
+    return torch.func.functional_call(block, params, (x, start))
 
 
 class Llama(nn.Module):
@@ -272,17 +298,27 @@ class Llama(nn.Module):
         if params is None:
             params = dict(self.named_parameters())
         embed = params["embed"]
-        # gather rows, then cast (as the JAX model does)
-        x = embed[input_ids.long()].to(cfg.dtype)
+        # under seq: this rank's block of the positions
+        start, n = seq_block(input_ids.shape[1])
+        ids = input_ids[:, start:start + n].long()
+        # gather rows, then cast (as the JAX model does); under tensor the
+        # rows are split over the ranks
+        x = (vocab_parallel_embedding(embed, ids)
+             if embed.shape[0] < cfg.vocab_size else embed[ids]).to(
+                 cfg.dtype)
         for i in range(cfg.n_layer):
             bp = {n: params[f"layers_{i}.{n}"] for n in self._block_keys}
             block = self.get_submodule(f"layers_{i}")
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(_run_block, block, bp, x, use_reentrant=False)
+                x = checkpoint(_run_block, block, bp, x, start,
+                               use_reentrant=False)
             else:
-                x = _run_block(block, bp, x)
+                x = _run_block(block, bp, x, start)
         x = _rms_norm(x, params["ln_f"], cfg.rms_eps)
         head = embed if cfg.tie_embeddings else params["lm_head"]
+        if head.shape[0] < cfg.vocab_size:   # vocab-parallel logits
+            refuse_split_switchback(cfg.int8_training, True)
+            x = copy_to_group(x)
         return lm_logits(x, head.to(cfg.dtype), cfg.int8_training)
 
 
@@ -326,7 +362,8 @@ class LlamaLMModel:
         return params
 
     def apply(self, params: Params, input_ids):
-        """Logits ``[B, T, V]`` in the compute dtype."""
+        """Logits ``[B, T, V]`` in the compute dtype (this rank's block of
+        T under seq, its vocabulary columns under tensor)."""
         return self.module(input_ids, params)
 
     def loss_fn(self, params: Params, batch, rng=None):
@@ -336,20 +373,36 @@ class LlamaLMModel:
         input_ids = batch["input_ids"]
         labels = batch.get("labels")
         logits = self.apply(params, input_ids)
+        start, n = seq_block(input_ids.shape[1])
         if labels is None:
-            labels = input_ids[:, 1:]
-            logits = logits[:, :-1]
-        logits = logits.float()
+            labels, m = next_token_labels(input_ids, start, n)
+            logits = logits[:, :m]
+        else:
+            labels = labels[:, start:start + n]
         labels = labels.long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(
-            -1, labels.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        nll = vocab_parallel_nll(
+            logits.float(), labels.clamp(0, self.config.vocab_size - 1))
         mask = (labels >= 0) & (labels < self.config.vocab_size)
-        return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1)
+        return seq_mean(nll, mask)
 
-    def tp_specs(self):
-        raise NotImplementedError(_later(
-            "tensor-parallel placement (tp_specs)", "A6"))
+    def tp_specs(self) -> Dict[str, P]:
+        """Megatron placement, JAX's entries by the port's flat names:
+        q/k/v/gate/up column-parallel, wo/down row-parallel, ``embed`` and
+        the untied ``lm_head`` vocab-parallel."""
+        block = {"ln_attn": P(), "ln_mlp": P(),
+                 "attn.wq.kernel": P(None, "tensor"),
+                 "attn.wk.kernel": P(None, "tensor"),
+                 "attn.wv.kernel": P(None, "tensor"),
+                 "attn.wo.kernel": P("tensor", None),
+                 "mlp.gate.kernel": P(None, "tensor"),
+                 "mlp.up.kernel": P(None, "tensor"),
+                 "mlp.down.kernel": P("tensor", None)}
+        specs = {"embed": P("tensor", None), "ln_f": P()}
+        if not self.config.tie_embeddings:
+            specs["lm_head"] = P("tensor", None)
+        for i in range(self.config.n_layer):
+            specs.update({f"layers_{i}.{k}": s for k, s in block.items()})
+        return specs
 
     def param_count(self, params: Params) -> int:
         return sum(p.numel() for p in params.values())

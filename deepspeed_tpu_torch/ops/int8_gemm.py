@@ -28,15 +28,26 @@ zero-padded up to 17 (a zero row quantizes to zero with scale 1), the
 weights are stored column-major once, at placement
 (:func:`int8_compute_layout`), and any other shape raises — it never
 falls back to the dequantizing path.
+
+A row-parallel product (``reduce``: the mesh axis its contraction is split
+over) sums its partial products over that axis's group before the bias:
+the dequantized product in the activation dtype, or, under w8a8, the int32
+accumulators, exactly, after a per-row quant whose amax is the group's,
+and the rescale after the sum, as the JAX package's GSPMD program
+computes the split contraction.
 """
 from __future__ import annotations
 
 import math
 from typing import Any
 
+import functools
+from typing import Optional
+
 import torch
 
 from deepspeed_tpu_torch.ops.quant_core import quantize_int8
+from deepspeed_tpu_torch.comm import comm
 
 INT_MM_MIN_ROWS = 17   # torch._int_mm on CUDA refuses 16 rows or fewer
 INT_MM_MULTIPLE = 8    # ... and contraction or output widths off 8
@@ -80,7 +91,17 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, _column_major(b))[:M]
 
 
-def int8_matmul(x: torch.Tensor, qw: dict, out_dtype=None) -> torch.Tensor:
+def _amax_reduce(reduce: Optional[str]):
+    return None if reduce is None else functools.partial(
+        comm.all_reduce, op=comm.MAX, axis_name=reduce)
+
+
+def _sum(y: torch.Tensor, reduce: Optional[str]) -> torch.Tensor:
+    return y if reduce is None else comm.all_reduce(y, comm.SUM, reduce)
+
+
+def int8_matmul(x: torch.Tensor, qw: dict, out_dtype=None,
+                reduce: Optional[str] = None) -> torch.Tensor:
     """``x [..., K] @ {"q": int8 [K, N], "scale": f32 [K, 1]}`` with the
     row scales folded into ``x`` before its one dynamic per-row quant."""
     q = qw["q"]
@@ -91,8 +112,9 @@ def int8_matmul(x: torch.Tensor, qw: dict, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
     K, N = q.shape
     z = x.float() * qw["scale"].float().reshape(K)
-    zq, sz = quantize_int8(z, -1)
-    y = int8_mm(zq.reshape(-1, K), q).reshape(*x.shape[:-1], N)
+    zq, sz = quantize_int8(z, -1, _amax_reduce(reduce))
+    y = _sum(int8_mm(zq.reshape(-1, K), q), reduce).reshape(
+        *x.shape[:-1], N)
     return (y.float() * sz).to(out_dtype)
 
 
@@ -122,7 +144,7 @@ def _check_subscripts(subscripts: str, x_contract_ndim: int):
 
 def int8_einsum(subscripts: str, x: torch.Tensor, qw: dict,
                 x_contract_ndim: int, w_out_ndim: int,
-                out_dtype) -> torch.Tensor:
+                out_dtype, reduce: Optional[str] = None) -> torch.Tensor:
     """w8a8 einsum for an ``{"q", "oscale"}`` leaf: one dynamic per-token
     quant over ``x``'s ``x_contract_ndim`` trailing dims, the int8 product
     as one 2-D GEMM (``x`` as ``[M, K]``, ``q`` as ``[K, N]``), one f32
@@ -131,9 +153,10 @@ def int8_einsum(subscripts: str, x: torch.Tensor, qw: dict,
     _check_subscripts(subscripts, x_contract_ndim)
     q, s = qw["q"], qw["oscale"]
     c = x_contract_ndim
-    xq, sx = quantize_int8(x, tuple(range(x.ndim - c, x.ndim)))
+    xq, sx = quantize_int8(x, tuple(range(x.ndim - c, x.ndim)),
+                           _amax_reduce(reduce))
     lead, K = x.shape[:-c], math.prod(x.shape[-c:])
-    y = int8_mm(xq.reshape(-1, K), q.reshape(K, -1)).reshape(
+    y = _sum(int8_mm(xq.reshape(-1, K), q.reshape(K, -1)), reduce).reshape(
         *lead, *q.shape[c:])
     s = s.reshape(_squeeze_leading_ones(s.shape))
     sx_out = sx.reshape(lead + (1,) * w_out_ndim)
@@ -142,25 +165,30 @@ def int8_einsum(subscripts: str, x: torch.Tensor, qw: dict,
 
 def maybe_int8_einsum(subscripts: str, x: torch.Tensor, w: Any, dtype,
                       int8_compute: bool, x_contract_ndim: int,
-                      w_out_ndim: int) -> torch.Tensor:
+                      w_out_ndim: int,
+                      reduce: Optional[str] = None) -> torch.Tensor:
     """Attention projection seam: the int8 einsum for ``oscale`` leaves
-    under w8a8; the dequantized einsum otherwise."""
+    under w8a8; the dequantized einsum otherwise. ``reduce``: the axis a
+    row-parallel contraction is split over."""
     if int8_compute and is_quantized(w) and "oscale" in w:
         return int8_einsum(subscripts, x, w, x_contract_ndim, w_out_ndim,
-                           dtype)
-    return torch.einsum(subscripts, x, weight_as(w, dtype)).to(dtype)
+                           dtype, reduce)
+    return _sum(torch.einsum(subscripts, x, weight_as(w, dtype)).to(dtype),
+                reduce)
 
 
 def maybe_int8_matmul(x: torch.Tensor, w: Any, dtype,
-                      int8_compute: bool) -> torch.Tensor:
+                      int8_compute: bool,
+                      reduce: Optional[str] = None) -> torch.Tensor:
     """2-D GEMM seam: the int8 product when the leaf is quantized and w8a8
-    is on; the dequantized matmul otherwise."""
+    is on; the dequantized matmul otherwise. ``reduce`` as in
+    :func:`maybe_int8_einsum`."""
     if int8_compute and is_quantized(w):
         if "oscale" in w:
-            return int8_einsum("...k,kn->...n", x, w, 1, 1, dtype)
+            return int8_einsum("...k,kn->...n", x, w, 1, 1, dtype, reduce)
         if w["q"].ndim == 2:
-            return int8_matmul(x, w, out_dtype=dtype)
-    return (x @ weight_as(w, dtype)).to(dtype)
+            return int8_matmul(x, w, out_dtype=dtype, reduce=reduce)
+    return _sum((x @ weight_as(w, dtype)).to(dtype), reduce)
 
 
 def int8_compute_layout(params):

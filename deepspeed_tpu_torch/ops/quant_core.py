@@ -21,16 +21,19 @@ import torch
 INT8_QMAX = 127.0
 
 
-def quantize_int8(x: torch.Tensor, axis):
+def quantize_int8(x: torch.Tensor, axis, reduce_amax=None):
     """Symmetric int8 along ``axis`` (int, tuple, or None = one scale for
     the whole tensor): returns ``(q int8, scale f32)`` with the scale
     broadcastable against ``x`` (kept dims of size 1 along ``axis`` when
-    ``axis`` is not None)."""
+    ``axis`` is not None). ``reduce_amax`` makes the amax that of a slice
+    split over ranks (each holds part of ``axis``)."""
     xf = x.float()
     if axis is None:
         amax = xf.abs().amax()
     else:
         amax = xf.abs().amax(dim=axis, keepdim=True)
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     s = torch.where(amax > 0, amax / INT8_QMAX, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / s), -INT8_QMAX, INT8_QMAX)
     return q.to(torch.int8), s

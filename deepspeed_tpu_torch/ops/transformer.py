@@ -20,6 +20,15 @@ applied (not deterministic, a rate above 0 and an ``rng`` given) the layer
 raises ``NotImplementedError``; with ``rng=None``, as the port's engine
 calls a ``loss_fn``, it is never applied, as in the JAX layer.
 
+Under a ``tensor`` mesh axis (the model's ``tp_specs``) a layer holds its
+heads of the fused ``attn_qkvw`` / ``attn_qkvb`` (its heads of q, of k and
+of v), its columns of ``inter_w`` and its rows of ``attn_ow`` and
+``output_w``; the inputs of the column-parallel products are copied to
+the group, and the row-parallel products are summed over it before
+``attn_ob`` / ``output_b`` are added, once (``parallel/
+tensor_parallel.py``). Under a ``seq`` axis the layer holds its block of
+the positions and attention gathers q/k/v along T.
+
 Parameter schema (names mirror the reference's attributes)::
 
     attn_qkvw [E, 3E]  attn_qkvb [3E]
@@ -40,6 +49,9 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.flash_attention import FlashAttentionFunction
 from deepspeed_tpu_torch.ops.int8_training import switchback_matmul
+from deepspeed_tpu_torch.parallel.tensor_parallel import (copy_to_group,
+                                                          reduce_from_group,
+                                                          seq_attention)
 
 _DROPOUT = ("training dropout is not ported to deepspeed_tpu_torch yet "
             "(ROADMAP.md queue C, A9): pass rng=None, deterministic=True "
@@ -177,17 +189,43 @@ class DeepSpeedTransformerLayer:
             return x
         raise NotImplementedError(_DROPOUT)
 
+    def _split(self, split: bool):
+        """Refuses SwitchBack on a split product (its per-token amax
+        would be a rank's); whether the product is split."""
+        if split and self.config.int8_training:
+            raise NotImplementedError(
+                "int8_training (SwitchBack) with a tensor axis is not "
+                "ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)")
+        return split
+
     def _attention(self, x, params, attention_mask, rng, deterministic):
         cfg = self.config
         B, T, E = x.shape
-        H, D = cfg.heads, E // cfg.heads
+        D = E // cfg.heads
+        # the rank's heads of q, k and v under tensor (E of them whole)
+        El = params["attn_qkvw"].shape[1] // 3
+        split = self._split(El < E)
+        if split:
+            x = copy_to_group(x)
         qkv = self._mm(x, params["attn_qkvw"]) + params["attn_qkvb"]
         # views of the fused projection: the kernels read them in place
-        q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(E, dim=-1))
-        need_mask = attention_mask is not None
+        q, k, v = (t.reshape(B, T, El // D, D)
+                   for t in qkv.split(El, dim=-1))
         if (not deterministic and cfg.attn_dropout_ratio > 0.0
                 and rng is not None):
             raise NotImplementedError(_DROPOUT)
+        y = seq_attention(self._core, q, k, v, attention_mask)
+        out = self._mm(y.reshape(B, T, El), params["attn_ow"])
+        if split:
+            out = reduce_from_group(out)
+        return out + params["attn_ob"]
+
+    @staticmethod
+    def _core(q, k, v, attention_mask):
+        """Attention over the whole sequence: flash with no mask and a T
+        its tiles take, else the plain einsum."""
+        T, D = q.shape[1], q.shape[-1]
+        need_mask = attention_mask is not None
         if not need_mask and (T <= 128 or T % 128 == 0):
             y = FlashAttentionFunction.apply(q, k, v, False,
                                              1.0 / math.sqrt(D))
@@ -201,16 +239,21 @@ class DeepSpeedTransformerLayer:
                 if m.dim() == 2:           # [B, T] HF key mask
                     m = m[:, None, None, :]
                 att = torch.where(m > 0, att.float(), -1e30)
-            att = torch.softmax(att.float(), -1).to(x.dtype)
+            att = torch.softmax(att.float(), -1).to(q.dtype)
             y = torch.einsum("bhqk,bkhd->bqhd", att, v)
-        return self._mm(y.reshape(B, T, E), params["attn_ow"]) \
-            + params["attn_ob"]
+        return y
 
     def _ffn(self, h, params):
         cfg = self.config
+        split = self._split(params["inter_w"].shape[1] < cfg.ffn)
+        if split:   # the rank's columns of the hidden units
+            h = copy_to_group(h)
         ffn = F.gelu((self._mm(h, params["inter_w"]) + params["inter_b"]
                       ).float()).to(cfg.dtype)
-        return self._mm(ffn, params["output_w"]) + params["output_b"]
+        out = self._mm(ffn, params["output_w"])
+        if split:
+            out = reduce_from_group(out)
+        return out + params["output_b"]
 
     def apply(self, params: Dict[str, Any], x, attention_mask=None,
               rng=None, deterministic: Optional[bool] = None):

@@ -52,8 +52,31 @@ sharded leaf):
 
 Over a group of one rank (NCCL on the one card) every collective is an
 identity and the numbers are the single-process engine's bit for bit.
-Without a process group nothing of this runs. The tensor and seq axes
-are ROADMAP.md A6b-ii, the pipe axis A8.
+Without a process group nothing of this runs.
+
+The ``tensor`` and ``seq`` axes of ``config.mesh`` (the model's
+``tp_specs``, JAX's entries; ``tp_fused`` names the leaves whose split dim
+holds q, k and v side by side):
+
+* each rank holds its ``tensor`` shard of each leaf
+  (:class:`~deepspeed_tpu_torch.parallel.tensor_parallel.TensorLayout`),
+  and ZeRO cuts its blocks on the dims tensor leaves free (the policy
+  gets the specs); the model states the Megatron collectives, so the
+  gradient of every leaf on a rank is that of its shard, and it is
+  reduced over ``data``/``fsdp`` only;
+* under ``seq`` each rank takes the whole batch of its data index and
+  its block of the positions (the model's forward); the gradients are
+  summed over ``seq`` before the ZeRO reduction, and the loss is the
+  model's global one;
+* the clip's norm sums a leaf's squares over the axes its blocks are
+  spread over (``data``/``fsdp`` for a ZeRO block, ``tensor`` for a
+  tensor shard) and counts it once along the others; the fp16 finite
+  flag is the minimum over every rank;
+* checkpoints, ``module_state_dict`` and ``fp32_master_params`` hold
+  whole leaves in JAX's layout (the fused leaves put back together), so a
+  tag saved at one tensor size resumes at another.
+
+The pipe axis is ROADMAP.md A8.
 
 ZeRO-Offload: ``offload_optimizer: {device: cpu}`` moves the optimizer
 state (the rank's block) to the host (``runtime/zero/offload.py``); its
@@ -89,8 +112,8 @@ learning rate is a host float. An fp16 step reads one bool, whether the
 gradients are finite, to skip the update (the JAX engine reads the same
 flag per step). Gradients, moments and the master are updated in place.
 
-Not in this slice (ROADMAP.md queue C): the tensor, seq and pipe axes
-(A6b-ii, A8), the NVMe tier (A6c), the 1-bit optimizers, MoQ, eigenvalue,
+Not in this slice (ROADMAP.md queue C): the pipe axis (A8), the NVMe
+tier (A6c), the 1-bit optimizers, MoQ, eigenvalue,
 curriculum learning and the flops profiler (A9) and the training
 telemetry planes (A7).
 """
@@ -105,7 +128,8 @@ import torch
 import torch.distributed as dist
 
 from deepspeed_tpu_torch.comm import comm
-from deepspeed_tpu_torch.comm.mesh import (DATA_AXES, axis_group,
+from deepspeed_tpu_torch.comm.mesh import (DATA_AXES, MESH_AXES,
+                                           axis_group,
                                            get_data_parallel_world_size,
                                            mesh_for, mesh_shape,
                                            set_global_mesh)
@@ -114,6 +138,7 @@ from deepspeed_tpu_torch.inference.engine import resolve_device
 from deepspeed_tpu_torch.ops.adam import (ONEBIT_OPTIMIZER_KEYS, Optimizer,
                                           build_optimizer,
                                           normalize_optimizer_key)
+from deepspeed_tpu_torch.parallel.tensor_parallel import TensorLayout
 from deepspeed_tpu_torch.runtime.lr_schedules import Schedule, build_schedule
 from deepspeed_tpu_torch.runtime.precision import (PRECISION_DTYPES,
                                                    cast_tree, grads_finite,
@@ -137,8 +162,6 @@ _LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C, A8)"
 def _refuse_unported(config: DeepSpeedConfig) -> None:
     mesh = config.mesh
     checks = (
-        (mesh.tensor > 1, f"a mesh with tensor={mesh.tensor}", "A6b-ii"),
-        (mesh.seq > 1, f"a mesh with seq={mesh.seq}", "A6b-ii"),
         (mesh.pipe > 1, f"a mesh with pipe={mesh.pipe}", "A8"),
         (config.curriculum_learning.get("enabled", False),
          "curriculum_learning", "A9"),
@@ -191,7 +214,7 @@ class DeepSpeedEngine:
                  lr_scheduler: Optional[Schedule] = None,
                  training_data=None, collate_fn=None, device=None,
                  model_handles_param_offload: bool = False, mesh=None,
-                 sparse_grad_paths=None):
+                 sparse_grad_paths=None, tp_specs=None, tp_fused=None):
         _refuse_unported(config)
         # several ranks: a process group exists (or a mesh is given)
         self._dist = mesh is not None or dist.is_initialized()
@@ -205,7 +228,8 @@ class DeepSpeedEngine:
             group, ranks = axis_group(DATA_AXES, self.mesh)
             self._dp_index = ranks.index(dist.get_rank())
         else:
-            n = config.mesh.data * config.mesh.fsdp
+            m = config.mesh
+            n = max(m.data, 1) * m.fsdp * m.tensor * m.seq
             if n > 1:
                 raise ValueError(
                     f"a mesh of {n} devices ({config.mesh}) needs {n} ranks: "
@@ -213,6 +237,7 @@ class DeepSpeedEngine:
                     "variables) and call deepspeed_tpu_torch."
                     "init_distributed()")
             self.mesh, self.dp, self._dp_index = None, 1, 0
+        self._sp = mesh_shape(self.mesh)["seq"]
         config.resolve_batch_config(self.dp)
         comm.configure(deepspeed_config=config)
         self.config = config
@@ -232,7 +257,8 @@ class DeepSpeedEngine:
         self.optimizer = optimizer
         self.lr_scheduler = lr_scheduler or build_schedule(
             config.scheduler, opt_cfg.params if opt_cfg else None)
-        self._resolve_zero(config, model_handles_param_offload, params)
+        self._resolve_zero(config, model_handles_param_offload, params,
+                           tp_specs, tp_fused)
         self._init_state(params)
         self.training_dataloader = None
         if training_data is not None:
@@ -320,7 +346,7 @@ class DeepSpeedEngine:
                         "nothing to exchange")
 
     def _resolve_zero(self, config, model_handles_param_offload,
-                      params) -> None:
+                      params, tp_specs=None, tp_fused=None) -> None:
         """The ZeRO stage, the offload tiers and their refusals, in JAX's
         order and words (JAX ``runtime/engine.py:247-329``)."""
         zc = config.zero_config
@@ -381,15 +407,22 @@ class DeepSpeedEngine:
         self._p_shard = self._dist and self.zero_stage >= 3
         self._g_shard = self._dist and self.zero_stage >= 2
         self._m_shard = self._dist and self.zero_stage >= 1
-        self._shapes = {k: tuple(v.shape) for k, v in params.items()}
+        # the whole leaves' shapes, and the rank's tensor shards' (the
+        # leaves the ZeRO blocks are cut from)
+        self._full_shapes = {k: tuple(v.shape) for k, v in params.items()}
+        self.tpl = TensorLayout(tp_specs or {}, self._full_shapes, tp_fused,
+                                size=mesh_shape(self.mesh)["tensor"])
+        self._shapes = {k: self.tpl.local_shape(k, s)
+                        for k, s in self._full_shapes.items()}
         self.part = None
         if self._dist:
             threshold = (zc.stage3_param_persistence_threshold
                          if self.zero_stage >= 3 else 0)
             self.part = ZeroPartition(
                 ZeroShardingPolicy(self.zero_stage, self.mesh,
+                                   tp_specs=tp_specs,
                                    param_persistence_threshold=threshold),
-                self._shapes)
+                self._full_shapes)
         # a model that fetches its own layers: with offload_param, or to
         # gather its stage-3 blocks layer by layer
         self._model_fetches_params = bool(
@@ -422,7 +455,11 @@ class DeepSpeedEngine:
         return self._m_shard and self.part.sharded(n)
 
     def _block(self, n: str, t, sharded: bool) -> torch.Tensor:
+        """The rank's part of whole leaf ``n``: its tensor shard, then its
+        ZeRO block where ``sharded``."""
         t = torch.as_tensor(t)
+        if self.tpl.sharded(n):
+            t = self.tpl.shard(n, t).contiguous()
         return self.part.shard(n, t).contiguous() if sharded else t
 
     def _init_state(self, params) -> None:
@@ -507,7 +544,10 @@ class DeepSpeedEngine:
     def _to_acc(self, name: str, grad: torch.Tensor) -> torch.Tensor:
         """A micro-batch's whole gradient in the accumulator's layout: the
         group's mean on the rank's block (f32) where the rank accumulates
-        a block, else as it is."""
+        a block, else as it is. Under ``seq`` the micro-batch's gradient
+        is first summed over the seq ranks (each saw its positions)."""
+        if self._sp > 1:
+            grad = comm.all_reduce(grad.float(), comm.SUM, "seq")
         if not self._gsh(name) or tuple(grad.shape) != self._shapes[name]:
             return grad
         g = comm.reduce_scatter(grad.float(), DATA_AXES,
@@ -643,14 +683,15 @@ class DeepSpeedEngine:
             finite = grads_finite(grads)
             if self._dist:   # every rank skips together
                 finite = comm.all_reduce(finite.float(), comm.MIN,
-                                         DATA_AXES) > 0
+                                         MESH_AXES) > 0
         # bf16 grads (``_native_out``, never with fp16): the norm and the
         # clip in f32, each gradient rounded back to bf16 (JAX
         # native_acc_out). Over ranks a block's squares are summed over
-        # the group and a whole leaf counts once.
-        gnorm = (global_norm(grads, sharded=[self._gsh(n)
+        # the axes it is spread over and counted once along the others.
+        gnorm = (global_norm(grads, sharded=[self._split_axes(n)
                                              for n in self.params],
-                             axis_name=DATA_AXES)
+                             axis_name=DATA_AXES + (
+                                 ("tensor",) if self.tpl.size > 1 else ()))
                  if self._dist else global_norm(grads))
         clip = self.config.gradient_clipping
         if clip > 0.0:
@@ -676,6 +717,11 @@ class DeepSpeedEngine:
         self._last_grad_norm = gnorm
         return {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
                 "loss_scale": scale, "skipped": self._last_skipped}
+
+    def _split_axes(self, n: str) -> tuple:
+        """The axes the rank's gradient of ``n`` is a block over."""
+        return ((DATA_AXES if self._gsh(n) else ()) +
+                (("tensor",) if self.tpl.sharded(n) else ()))
 
     def _update(self, grads, lr) -> None:
         """The optimizer step on the master (the rank's blocks), wherever
@@ -880,13 +926,16 @@ class DeepSpeedEngine:
             "cpu", copy=True) for k, v in self._master().items()}
 
     def _whole(self, n: str, t: torch.Tensor, sharded: bool) -> torch.Tensor:
-        """Leaf ``n`` whole: all-gathered from the ranks' blocks (every
-        rank calls it) or ``t`` itself."""
+        """Leaf ``n`` whole: all-gathered from the ranks' ZeRO blocks
+        (where ``sharded``) and tensor shards (every rank calls it), or
+        ``t`` itself."""
         t = t.detach()
-        if not sharded:
-            return t
-        return comm.all_gather(t.to(self.device), DATA_AXES,
-                               axis=self.part.dims[n])
+        if sharded:
+            t = comm.all_gather(t.to(self.device), DATA_AXES,
+                                axis=self.part.dims[n])
+        if self.tpl.sharded(n):
+            t = self.tpl.gather(n, t.to(self.device))
+        return t
 
     def _params_as_master(self) -> Dict[str, torch.Tensor]:
         """The compute params in the master's layout (the rank's blocks
@@ -1005,9 +1054,8 @@ class DeepSpeedEngine:
         with torch.no_grad():
             for n, p in self.params.items():
                 v = sd[n] if torch.is_tensor(sd[n]) else torch.tensor(sd[n])
-                v = v.reshape(self._shapes[n])
-                p.detach().copy_(self.part.shard(n, v) if self._psh(n)
-                                 else v)
+                v = v.reshape(self._full_shapes[n])
+                p.detach().copy_(self._block(n, v, self._psh(n)))
             if self.host_opt is not None:
                 self.host_opt.sync_master_from(self._params_as_master())
             elif self.master is not None:
@@ -1117,7 +1165,7 @@ class DeepSpeedEngine:
                 raise ValueError(f"host_optimizer.npz holds {key}, which "
                                  "the engine's host optimizer lacks")
             group, k, p = key
-            full = torch.as_tensor(leaf).reshape(self._shapes[k])
+            full = torch.as_tensor(leaf).reshape(self._full_shapes[k])
             dst = host.master[k] if group == "master" else host.state[k][p]
             dst.copy_(self._block(k, full, self._msh(k)).reshape(-1))
             seen.add(key)
@@ -1137,14 +1185,14 @@ class DeepSpeedEngine:
                 f"{sorted(set(dst) - set(src))[:5]}, unexpected "
                 f"{sorted(set(src) - set(dst))[:5]}")
         for k, t in dst.items():
-            full = tuple(self._shapes[k]) if k in self._shapes \
+            full = tuple(self._full_shapes[k]) if k in self._full_shapes \
                 else tuple(t.shape)
             if tuple(src[k].shape) != full:
                 raise ValueError(f"checkpoint {what} {k!r} has shape "
                                  f"{tuple(src[k].shape)}, the engine "
                                  f"{full}")
-            t.detach().copy_(self.part.shard(k, src[k]) if sharded(k)
-                             else src[k])
+            t.detach().copy_(self._block(k, src[k], sharded(k))
+                             if k in self._full_shapes else src[k])
 
     def _load_checkpoint_state(self, state, load_optimizer_states=True):
         """Copy a checkpoint's groups (host tensors, whole leaves) into the
@@ -1265,6 +1313,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if model_parameters is None:
         raise ValueError("model_parameters (the initial weights) are "
                          "required")
+    tp_specs = getattr(model, "tp_specs", None)
+    tp_fused = getattr(model, "tp_fused", None)
     engine = DeepSpeedEngine(loss_fn, dict(model_parameters), cfg,
                              optimizer=optimizer, lr_scheduler=lr_scheduler,
                              training_data=training_data,
@@ -1275,7 +1325,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              sparse_grad_paths=(
                                  sparse_grad_paths if sparse_grad_paths
                                  else getattr(model, "sparse_grad_paths",
-                                              None)))
+                                              None)),
+                             tp_specs=tp_specs() if callable(tp_specs)
+                             else tp_specs,
+                             tp_fused=tp_fused() if callable(tp_fused)
+                             else tp_fused)
     engine.install_param_fetch(model)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)

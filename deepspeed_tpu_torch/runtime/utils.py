@@ -13,13 +13,15 @@ __all__ = ["clip_grad_norm_", "clip_coef", "global_norm", "grads_finite"]
 
 
 def global_norm(grads: Iterable[torch.Tensor], norm_type: float = 2.0,
-                sharded: Optional[Sequence[bool]] = None,
+                sharded: Optional[Sequence] = None,
                 axis_name=None) -> torch.Tensor:
     """Norm over every element of every tensor, as an f32 device scalar.
-    With ``axis_name`` the tensors are this rank's part of a tree spread
-    over that mesh axis: a tensor flagged in ``sharded`` is a block whose
-    squares add up over the ranks, any other is the same on every rank
-    and counts once (rank 0's)."""
+    With ``axis_name`` (an axis or a tuple of axes) the tensors are this
+    rank's part of a tree spread over those mesh axes: a tensor flagged in
+    ``sharded`` is a block whose squares add up over the ranks, any other
+    is the same on every rank and counts once (rank 0's). A flag may name
+    the axes a tensor's blocks are spread over (a tuple): it counts once
+    along the others."""
     grads = [g.float() for g in grads]
     if norm_type == float("inf"):
         m = torch.stack([g.abs().max() for g in grads]).max()
@@ -30,10 +32,16 @@ def global_norm(grads: Iterable[torch.Tensor], norm_type: float = 2.0,
     else:
         parts = torch.stack([(g.abs() ** norm_type).sum() for g in grads])
     if axis_name is not None:
-        first = comm.axis_index(axis_name) == 0
-        keep = torch.tensor([bool(s) or first for s in sharded],
+        axes = (axis_name,) if isinstance(axis_name, str) else \
+            tuple(axis_name)
+        first = {a: comm.axis_index(a) == 0 for a in axes}
+
+        def counted(s):
+            split = axes if s is True else tuple(s or ())
+            return all(first[a] for a in axes if a not in split)
+        keep = torch.tensor([counted(s) for s in sharded],
                             dtype=parts.dtype, device=parts.device)
-        parts = comm.all_reduce(parts * keep, comm.SUM, axis_name)
+        parts = comm.all_reduce(parts * keep, comm.SUM, axes)
     if norm_type == 2.0:
         return parts.sum().sqrt()
     return parts.sum() ** (1.0 / norm_type)

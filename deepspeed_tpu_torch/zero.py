@@ -116,6 +116,5 @@ class GatheredParameters:
                 val = val.to(eng.device, p.dtype)
                 if eng._dist and dist.get_world_size() > 1:
                     dist.broadcast(val, src=self.modifier_rank)
-                p.copy_(eng.part.shard(name, val) if eng._psh(name)
-                        else val)
+                p.copy_(eng._block(name, val, eng._psh(name)))
         return False

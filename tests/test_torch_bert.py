@@ -37,6 +37,7 @@ from deepspeed_tpu.ops import transformer as jax_tf
 from deepspeed_tpu_torch.models import bert as port_bert
 from deepspeed_tpu_torch.module_inject.from_jax import bert_params_from_jax
 from deepspeed_tpu_torch.ops import transformer as port_tf
+from test_torch_llama import flat_specs
 from test_torch_llama import xla_fast_compiles  # noqa: F401 (autouse)
 
 E, H, FF = 64, 4, 128
@@ -358,8 +359,11 @@ def test_init_presets_counts_and_refusals():
         assert port_bert.BertPreTrainingModel(port_bert.config_for(
             name)).flops_per_token() == jax_bert.BertPreTrainingModel(
                 jax_bert.config_for(name)).flops_per_token()
-    with pytest.raises(NotImplementedError, match="queue C, A6"):
-        model.tp_specs()
+    # tp_specs: JAX's entries, by the port's flat names, one a leaf
+    specs = {k: tuple(v) for k, v in model.tp_specs().items()}
+    assert specs == flat_specs(jax_bert.BertPreTrainingModel(
+        jax_bert.config_for("bert-base", **small)).tp_specs())
+    assert set(specs) == set(params)
 
 
 def test_dropout_is_refused_where_it_would_apply():

@@ -294,8 +294,10 @@ def test_ranks_hold_blocks_and_agree(two):
         for k, v in r0[name]["params"].items():
             np.testing.assert_array_equal(v, r1[name]["params"][k])
     dims = r0["s3_f32"]["dims"]
-    # wte [128, 64] splits its vocab rows; the 64-wide biases their 64
-    assert dims["wte"] == 0 and dims["h_0.attn.c_attn.kernel"] == 1
+    # the model's tp_specs reach the policy, as in JAX: wte [128, 64]
+    # leaves its vocab rows to the tensor axis and splits its 64 columns,
+    # c_attn [64, 192] its 192 columns and splits its 64 rows
+    assert dims["wte"] == 1 and dims["h_0.attn.c_attn.kernel"] == 0
     assert r0["s0_f32"]["dims"]["wte"] is None
 
 
@@ -582,10 +584,11 @@ def test_gathered_parameters(four):
             rank["gathered_kernel"],
             rank["runs"]["s3_bf16"]["params"]["h_0.mlp.c_fc.kernel"])
         # rank 1's writes reached every rank: the kernel's block of
-        # [64, 256 / 4] and the whole (under the threshold) bias
+        # [64 / 4, 256] (its columns are the tensor axis's, as JAX's
+        # tp_specs leave them) and the whole (under the threshold) bias
         assert (rank["after_write"]["h_0.mlp.c_fc.kernel"] == 7.0).all()
         assert (rank["after_write"]["ln_f.bias"] == 7.0).all()
-        assert rank["param_block"] == (64, 64)
+        assert rank["param_block"] == (16, 256)
 
 
 # ---------------------------------------------------------------------------

@@ -39,8 +39,10 @@ TINY = dict(vocab_size=96, n_positions=64, n_embd=64, n_layer=2, n_head=4)
 T = 16
 
 
-def _child(fn_name, rank, ws, store_path, out_dir, args):
+def _child(fn_module, fn_name, rank, ws, store_path, out_dir, args):
     torch.set_num_threads(1)
+    import importlib
+
     import torch.distributed as dist
 
     from deepspeed_tpu_torch.comm import comm
@@ -50,7 +52,8 @@ def _child(fn_name, rank, ws, store_path, out_dir, args):
                               num_processes=ws, process_id=rank,
                               dist_backend="gloo", timeout=TIMEOUT,
                               device="cpu")
-        res = globals()[fn_name](rank, ws, out_dir, *args)
+        fn = getattr(importlib.import_module(fn_module), fn_name)
+        res = fn(rank, ws, out_dir, *args)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
@@ -65,20 +68,22 @@ def _child(fn_name, rank, ws, store_path, out_dir, args):
 # from (a fresh interpreter: no JAX, no threads); torch._dynamo is what
 # torch.utils.checkpoint imports on its first call (~5 s a process)
 PRELOAD = ["torch", "torch._dynamo", "deepspeed_tpu_torch.runtime.engine",
-           "deepspeed_tpu_torch.models.gpt2", "test_torch_dist_workers"]
+           "deepspeed_tpu_torch.models.gpt2",
+           "deepspeed_tpu_torch.inference.server", "test_torch_dist_workers",
+           "test_torch_tp_workers"]
 
 
 def run_ranks(fn, ws, tmp_path, *args, deadline=DEADLINE):
-    """Run ``fn(rank, ws, out_dir, *args)`` on ``ws`` ranks forked from a
-    fork server that imported ``PRELOAD``; the list of their return
-    values, by rank."""
+    """Run ``fn(rank, ws, out_dir, *args)`` (a function of a JAX-free test
+    module) on ``ws`` ranks forked from a fork server that imported
+    ``PRELOAD``; the list of their return values, by rank."""
     ctx = mp.get_context("forkserver")
     ctx.set_forkserver_preload(PRELOAD)
     out_dir = tmp_path / f"{fn.__name__}_{ws}"
     out_dir.mkdir(parents=True, exist_ok=True)
     store = str(out_dir / "store")
-    procs = [ctx.Process(target=_child, args=(fn.__name__, r, ws, store,
-                                              str(out_dir), args))
+    procs = [ctx.Process(target=_child, args=(fn.__module__, fn.__name__, r,
+                                              ws, store, str(out_dir), args))
              for r in range(ws)]
     for p in procs:
         p.start()

@@ -345,11 +345,13 @@ def test_init_inference_entry_point_and_telemetry():
 def test_out_of_slice_paths_raise_not_implemented(case):
     _, _, tcfg, tp = _pair("gpt2")
     cfg32 = DeepSpeedInferenceConfig(dtype="float32")
-    # beams, speculation, the encoder path and HF checkpoints are ported:
-    # on their paths only what the JAX package refuses too, and
-    # sequence-sharded caches (queue C), remain
+    # beams, speculation, the encoder path, HF checkpoints and tp/sp
+    # meshes are ported: on their paths only what the JAX package refuses
+    # too remains (a seq-sharded cache under speculation or the server)
     match = {"beams": "not beam search",
              "speculative": "greedy-only",
+             "assistant": "decode_chunk with seq-sharded KV",
+             "tp": "continuous batching with a seq-sharded KV cache",
              "encoder": "bidirectional decoding",
              "checkpoint": "model-parallel shards",
              "hf_model": "no policy for model_type"}.get(case, "ROADMAP")
@@ -372,9 +374,10 @@ def test_out_of_slice_paths_raise_not_implemented(case):
                 (tcfg, tp), DeepSpeedInferenceConfig(dtype="float32"),
                 device="cpu"), role="prefill")
         elif case == "tp":
-            InferenceEngine((tcfg, tp), DeepSpeedInferenceConfig(
-                dtype="float32", tensor_parallel={"tp_size": 2}),
-                device="cpu")
+            from deepspeed_tpu_torch import inference
+            inference.ContinuousBatchingServer(InferenceEngine(
+                (dataclasses.replace(tcfg, seq_shard_kv=True), tp), cfg32,
+                device="cpu"))
         elif case == "int8":
             # int8 weights are ported; the batched expert form of the w8a8
             # einsum waits for the MoE slice

@@ -317,6 +317,19 @@ def test_params_from_hf_match_jax(monkeypatch):
         port_llama.params_from_hf(sd, pcfg)
 
 
+def flat_specs(tree, prefix=""):
+    """A JAX spec tree as ``{dotted path: tuple}`` (list items by
+    index)."""
+    from jax.sharding import PartitionSpec
+    if isinstance(tree, PartitionSpec):
+        return {prefix[:-1]: tuple(tree)}
+    out = {}
+    for k, v in (enumerate(tree) if isinstance(tree, list)
+                 else tree.items()):
+        out.update(flat_specs(v, f"{prefix}{k}."))
+    return out
+
+
 def test_queue_c_refusals_name_their_item():
     for kw, item in (({"num_experts": 4}, "A8"),
                      ({"sequence_parallel": True}, "A8")):
@@ -324,9 +337,14 @@ def test_queue_c_refusals_name_their_item():
             port_llama.LlamaLMModel(port_llama.LlamaConfig(**TINY, **kw))
     with pytest.raises(NotImplementedError, match="queue C, A8"):
         port_llama.LlamaLMModel(port_llama.config_for("mixtral-tiny"))
-    model = port_llama.LlamaLMModel(port_llama.LlamaConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="queue C, A6"):
-        model.tp_specs()
+    # tp_specs are ported: JAX's entries, by the port's flat names
+    for tie in (False, True):
+        kw = dict(TINY, tie_embeddings=tie)
+        model = port_llama.LlamaLMModel(port_llama.LlamaConfig(**kw))
+        specs = {k: tuple(v) for k, v in model.tp_specs().items()}
+        assert specs == flat_specs(jax_llama.LlamaLMModel(
+            jax_llama.LlamaConfig(**kw)).tp_specs())
+        assert set(specs) == set(model.init(torch.Generator()))
     # flash_block is accepted and changes nothing
     jcfg, pcfg = _cfgs()
     params = llama_params_from_flax(numpy_params(jcfg))

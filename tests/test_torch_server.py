@@ -308,13 +308,14 @@ def test_out_of_slice_options_raise_not_implemented(case):
         "http_port": dict(telemetry={"http_port": 0}),
         "fault_injection": dict(telemetry={"fault_injection": {
             "enabled": True}}),
-        "tp_mesh": dict(tensor_parallel={"tp_size": 2}),
         "tracing": dict(telemetry={"trace_sample_rate": 1.0}),
     }.get(case, {})
     sharded = None
-    if case in ("draft_engine", "speculation_draft"):
+    if case in ("draft_engine", "speculation_draft", "tp_mesh"):
         # draft-model speculation is ported; a draft over a
-        # sequence-sharded KV cache is not
+        # sequence-sharded KV cache is not. tp/sp meshes are ported
+        # (tests/test_torch_tp_serving.py); a server over a seq-sharded
+        # cache is refused with JAX's message
         _, _, tcfg, tp = _pair("gpt2")
         sharded = InferenceEngine(
             (dataclasses.replace(tcfg, seq_shard_kv=True), tp),
@@ -324,8 +325,9 @@ def test_out_of_slice_options_raise_not_implemented(case):
               "role": dict(role="prefill"),
               "handoff_import": dict(handoff_import=True),
               "fault_injector": dict(fault_injector=object())}.get(case, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng = _engine(**knobs)
+    match = "seq-sharded KV cache" if case == "tp_mesh" else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=match):
+        eng = sharded if case == "tp_mesh" else _engine(**knobs)
         if case == "speculation_draft":
             eng.config.speculation_draft = sharded
         srv = ContinuousBatchingServer(eng, **kwargs)
