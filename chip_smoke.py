@@ -2111,12 +2111,17 @@ def _grad_oracle(tag, loss_fn, plain_loss, params, mb, names):
           f"{tag} oracle: gradient rel errors {rels}")
 
 
-def phase_train(preset="gpt2-1.3b", n_head=None, n_layer=None):
+def phase_train(preset="gpt2-1.3b", n_head=None, n_layer=None,
+                observe=False):
     """The training main path of a GPT-2 preset at full width, at its own
     depth or ``n_layer`` (``n_head`` overrides its head count: gpt2-1.3b
     with 8 heads has heads of 256), through ``_train_model_run`` and
     ``_grad_oracle`` (2 sequences, every layer's ``c_attn.kernel``);
-    returns its launch counts, read just after the timed steps."""
+    returns its launch counts, read just after the timed steps. With
+    ``observe``: then two steps with numerics and goodput on
+    (``_train_observed``), and beside it the activation checkpointing
+    check at 2 layers (``_act_ckpt_check``; the twin-engine check of the
+    observed steps is phase offload's (a) against (c))."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
     over = {k: v for k, v in (("n_head", n_head), ("n_layer", n_layer))
             if v is not None}
@@ -2158,9 +2163,154 @@ def phase_train(preset="gpt2-1.3b", n_head=None, n_layer=None):
                                        device="cuda")}
     _grad_oracle(preset, model.loss_fn, plain, engine.params, mb,
                  [f"h_{i}.attn.c_attn.kernel" for i in range(L)])
+    if observe:
+        _train_observed(preset, engine, batch)
     del engine
     torch.cuda.empty_cache()
+    if observe:
+        _act_ckpt_check(preset)
     return counts
+
+
+OBSERVE_STEPS = 2
+GOODPUT_TOL = 0.05        # the device bucket against CUDA events, relative
+GOODPUT_ABS_S = 0.002     # ... and absolute
+BLOCK_SQ_TOL = 1e-3       # sum of block grad norms^2 against the global's
+
+
+def _goodput_step(engine, batch):
+    """One ``train_batch`` between two CUDA events: its metrics, the
+    caller's wall, the events' seconds and the goodput meter's buckets
+    for the step (its snapshot's change)."""
+    g0 = engine.goodput.snapshot()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t = time.perf_counter()
+    ev[0].record()
+    m = engine.train_batch(batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    g1 = engine.goodput.snapshot()
+    step = {k: g1[k] - g0[k] for k in ("wall_s", "data_wait_s", "device_s",
+                                       "host_s")}
+    return m, wall, ev[0].elapsed_time(ev[1]) / 1e3, step
+
+
+def _goodput_hbm_check(tag, obs):
+    """In-HBM steps from ``_goodput_step``: the device bucket against the
+    CUDA events, host above 0, the wall inside the caller's."""
+    for _, wall, ev_s, g in obs:
+        check(abs(g["device_s"] - ev_s) <= GOODPUT_TOL * ev_s + GOODPUT_ABS_S
+              and g["host_s"] > 0 and 0 < g["wall_s"] <= wall,
+              f"{tag}: goodput {g} against CUDA events {ev_s} s and the "
+              f"caller's wall {wall} s")
+
+
+def _train_observed(tag, engine, batch):
+    """Two steps with numerics and goodput on, then two with both off:
+    each observed step's device bucket against CUDA events around the
+    step (the engine syncs at its end, so the events span dispatch to
+    the results), its host bucket above 0 (the measured device interval
+    ends inside the wall: a bucket capped at the wall leaves host 0), its
+    wall inside the caller's; the blocks' squared grad norms against the
+    global grad norm's square, no block with a non-finite gradient; the
+    step times with and without."""
+    engine.set_numerics_enabled(True)
+    engine.set_goodput_enabled(True)
+    obs = [_goodput_step(engine, batch) for _ in range(OBSERVE_STEPS)]
+    engine.set_numerics_enabled(False)
+    engine.set_goodput_enabled(False)
+    off = [_goodput_step(engine, batch)[1] for _ in range(OBSERVE_STEPS)]
+    snap = engine.numerics.snapshot()["last"]
+    blocks = snap["blocks"]
+    gsq = sum(b["grad_norm"] ** 2 for b in blocks)
+    gn = float(obs[-1][0]["grad_norm"])
+    rel = abs(gsq - gn * gn) / (gn * gn)
+    bad = [b["block"] for b in blocks if b["nonfinite"]]
+    log(f"[train] {tag}: {OBSERVE_STEPS} steps with numerics and goodput "
+        f"on, ms {[o[1] * 1e3 for o in obs]!r}, then off, ms "
+        f"{[w * 1e3 for w in off]!r}; goodput by step (s) "
+        f"{[o[3] for o in obs]!r} against CUDA events around each step "
+        f"{[o[2] for o in obs]!r} s (tol {GOODPUT_TOL} + {GOODPUT_ABS_S} "
+        f"s); {len(blocks)} blocks, sum of squared block grad norms "
+        f"{gsq!r} against the global {gn!r}^2 (relative {rel!r}, tol "
+        f"{BLOCK_SQ_TOL}); blocks with non-finite gradients {bad}; "
+        f"largest update ratio {max(b['update_ratio'] for b in blocks)!r}")
+    _goodput_hbm_check(tag, obs)
+    check(rel <= BLOCK_SQ_TOL, f"{tag}: block grad norms^2 {gsq} against "
+          f"{gn}^2")
+    check(not bad, f"{tag}: non-finite gradients in {bad}")
+
+
+def _act_ckpt_check(preset):
+    """``deepspeed_tpu_torch.checkpointing.checkpoint`` over two blocks of
+    ``preset`` at full width, ``cpu_checkpointing`` off and on: the
+    gradients of the input and the blocks' weights equal a plain
+    recompute's (``torch.utils.checkpoint``) bit for bit; the device
+    bytes each holds between its forward and its backward (the region's
+    input is an intermediate the caller drops: on the card it is the
+    checkpoint, with cpu_checkpointing it is in pinned host memory, so
+    fewer are held) and its device peak."""
+    from deepspeed_tpu_torch import checkpointing
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2LMModel, _run_block,
+                                                 config_for)
+    cfg = config_for(preset, n_layer=2)
+    model = GPT2LMModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(4))
+    mod = model.module
+    keys = mod._block_keys
+    blocks = [(mod.get_submodule(f"h_{i}"),
+               {n: params[f"h_{i}.{n}"].requires_grad_(True) for n in keys})
+              for i in range(2)]
+    weights = [w for _, bp in blocks for w in bp.values()]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x0 = torch.randn((8, cfg.n_positions, cfg.n_embd), generator=gen,
+                     device="cuda", dtype=cfg.dtype)
+
+    def two(x):
+        for blk, bp in blocks:
+            x = _run_block(blk, bp, x, False)
+        return x
+    runs = {}
+    # phase train's steps made cuBLAS's workspaces: the three compare
+    for name, ck in (("plain", None), ("off", False), ("on", True)):
+        x = x0.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        h = x * 1.0   # the region's input: an intermediate, dropped below
+        if ck is None:
+            y = torch.utils.checkpoint.checkpoint(two, h,
+                                                  use_reentrant=False)
+        else:
+            checkpointing.configure(cpu_checkpointing=ck)
+            y = checkpointing.checkpoint(two, h)
+        del h
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        loss = y.float().square().mean()
+        grads = torch.autograd.grad(loss, [x] + weights)
+        torch.cuda.synchronize()
+        runs[name] = (grads, torch.cuda.max_memory_allocated() - base, held)
+        del x, y, loss
+    checkpointing.reset()
+    same = {n: all(torch.equal(a, b) for a, b in zip(runs[n][0],
+                                                     runs["plain"][0]))
+            for n in ("off", "on")}
+    log(f"[train] {preset} x2 blocks, 8 x {cfg.n_positions}: "
+        f"checkpointing.checkpoint gradients equal a plain recompute's bit "
+        f"for bit: cpu_checkpointing off {same['off']}, on {same['on']}; "
+        f"device bytes held between forward and backward: plain "
+        f"{runs['plain'][2]}, off {runs['off'][2]}, on {runs['on'][2]}; "
+        f"device peak above the input: plain {runs['plain'][1]}, off "
+        f"{runs['off'][1]}, on {runs['on'][1]} bytes")
+    check(all(same.values()), f"{preset}: activation checkpointing "
+          f"gradients differ from a plain recompute's: {same}")
+    check(runs["on"][2] < runs["off"][2], f"{preset}: cpu_checkpointing "
+          f"held {runs['on'][2]} device bytes between forward and backward, "
+          f"not fewer than without it ({runs['off'][2]})")
+    del runs, params, blocks, weights
+    torch.cuda.empty_cache()
 
 
 CKPT_STEPS = 4   # the resume oracle: steps 1-2, a save, steps 3-4
@@ -2675,21 +2825,41 @@ def _offload_llama(smi):
 UNVERIFIED = {"checkpoint": {"verify": False}}
 
 
+def _moments(engine):
+    """The host optimizer's moments, flat, copied (read from the swap
+    files on the NVMe tier)."""
+    h = engine.host_opt
+    return {k: {p: t.clone() for p, t in h.moments(k).items()}
+            for k in h.keys}
+
+
 def _offload_gpt2_runs(save_dir):
-    """(ii) gpt2-1.3b at OFFLOAD_GPT2_LAYERS layers: four engines over the
-    same batches from the same weights; a checkpoint of (b) at step 2."""
+    """(ii) gpt2-1.3b at OFFLOAD_GPT2_LAYERS layers: six engines over the
+    same batches from the same weights; a checkpoint of (b) at step 2.
+    (e) and (f) are (b) and (d) with the NVMe tier (swap files beside
+    ``save_dir``) and goodput on: each equals its twin bit for bit. (a)
+    arms numerics and goodput for step 2 and takes step 3 with both off;
+    (c), which never arms them, must still equal it bit for bit."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMModel, config_for
     cfg = config_for("gpt2-1.3b", n_layer=OFFLOAD_GPT2_LAYERS)
     L = cfg.n_layer
     batches = _ckpt_batches(cfg, OFFLOAD_GPT2_STEPS, 23)
     host = {"device": "cpu", "implementation": "host"}
+    swap = os.path.join(os.path.dirname(save_dir), "swap")
+    nvme_opt = {"device": "nvme", "nvme_path": os.path.join(swap, "e"),
+                "implementation": "host"}
+    nvme_par = {"device": "nvme", "nvme_path": os.path.join(swap, "f")}
+    goodput = {"telemetry": {"goodput": True}}
     engines = {
         "a in-HBM": ({"stage": 0}, False),
         "b host": ({"stage": 1, "offload_optimizer": host}, False),
         "c stream": ({"stage": 1, "offload_optimizer": {
             "device": "cpu", "implementation": "stream"}}, False),
         "d stage 3 param+host": ({"stage": 3, "offload_optimizer": host,
-                                  "offload_param": {"device": "cpu"}}, True)}
+                                  "offload_param": {"device": "cpu"}}, True),
+        "e host nvme": ({"stage": 1, "offload_optimizer": nvme_opt}, False),
+        "f stage 3 param nvme+host": ({"stage": 3, "offload_optimizer": host,
+                                       "offload_param": nvme_par}, True)}
     out, runs = {}, {}
     init = None
     for tag, (zero, fetch) in engines.items():
@@ -2698,18 +2868,22 @@ def _offload_gpt2_runs(save_dir):
         if init is None:
             init = {k: v.detach().cpu() for k, v in params.items()}
         engine = _zero_engine(model, params, 8, 2, zero,
-                              UNVERIFIED if tag == "b host" else None)
+                              UNVERIFIED if tag == "b host" else
+                              goodput if tag[0] in "ef" else None)
         del params
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _launch_counts(reset=True)
-        losses, walls, times = [], [], []
+        losses, walls, times, gsteps = [], [], [], []
         for i, b in enumerate(batches):   # THE main path
-            t = time.perf_counter()
-            losses.append(float(engine.train_batch(b)["loss"]))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
+            if tag[0] == "a":
+                engine.set_numerics_enabled(i == 1)
+                engine.set_goodput_enabled(i == 1)
+            step = _goodput_step(engine, b)
+            losses.append(float(step[0]["loss"]))
+            walls.append(step[1])
             times.append(dict(engine.offload_step_times))
+            gsteps.append(step[1:] + (getattr(engine, "_param_in_s", 0.0),))
             if tag == "b host" and i == 1:
                 t_save = time.perf_counter()
                 engine.save_checkpoint(save_dir)
@@ -2721,13 +2895,17 @@ def _offload_gpt2_runs(save_dir):
             f"offload gpt2 {tag}: launches {counts}")
         check(all(math.isfinite(x) for x in losses),
               f"offload gpt2 {tag}: losses {losses}")
+        on_host = all(p.device.type == "cpu" for p in engine.params.values())
+        on_disk = all(p.device.type == "meta"
+                      for p in engine.params.values())
         out[tag] = {"losses": losses,
                     "master": engine.fp32_master_params(),
-                    "params": {k: v.detach().cpu()
-                               for k, v in engine.params.items()},
+                    "params": {k: v.detach().cpu() for k, v in
+                               engine.module_state_dict().items()},
+                    "moments": (_moments(engine) if engine.host_opt
+                                is not None and tag[0] in "bdef" else None),
                     "peak": torch.cuda.max_memory_allocated(),
                     "walls": walls, "times": times}
-        on_host = all(p.device.type == "cpu" for p in engine.params.values())
         log(f"[offload] gpt2-1.3b x{L} ({tag}): losses {losses!r}; steps "
             f"{[w * 1e3 for w in walls]!r} ms; split {times!r}; device peak "
             f"{out[tag]['peak']} bytes; params on the host between steps "
@@ -2737,6 +2915,10 @@ def _offload_gpt2_runs(save_dir):
                                   for p in engine.params.values()),
                   "offload gpt2 (d): the params are not in pinned host "
                   "memory between steps")
+        if tag[0] == "a":
+            _goodput_hbm_check("offload gpt2 (a)", [(None,) + gsteps[1][:3]])
+        if tag[0] in "ef":
+            _nvme_log(tag, engine, times, on_disk, L, gsteps)
         del engine, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2766,8 +2948,11 @@ def _offload_gpt2_runs(save_dir):
     # the gates
     a, c, d = out["a in-HBM"], out["c stream"], out["d stage 3 param+host"]
     check(c["losses"] == a["losses"] and all(
-        torch.equal(c["master"][k], v) for k, v in a["master"].items()),
-        f"offload gpt2: stream is not the in-HBM path bit for bit "
+        torch.equal(c["master"][k], v) and torch.equal(c["params"][k],
+                                                       a["params"][k])
+        for k, v in a["master"].items()),
+        f"offload gpt2: stream is not the in-HBM path, which armed "
+        f"numerics and goodput for step 2, bit for bit "
         f"({c['losses']} against {a['losses']})")
     rel_loss = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
                                                          a["losses"]))
@@ -2791,8 +2976,9 @@ def _offload_gpt2_runs(save_dir):
         f"the master within {[(k, rel_upd[k]) for k in top]!r} relative L2 "
         f"at worst, mean {float(np.mean(list(rel_upd.values())))!r} (tol "
         f"{OFFLOAD_UPDATE_TOL}); the key third of c_attn.bias moved at most "
-        f"{key_max!r} (Adam's bound {bound!r}); (c) stream equals (a) bit "
-        f"for bit; (d) peak {d['peak']} against (b) {b['peak']} bytes")
+        f"{key_max!r} (Adam's bound {bound!r}); (c) stream, never observed, "
+        f"equals (a), observed at step 2 and not at step 3, bit for bit "
+        f"(step 3's loss {a['losses'][2]!r}); (d) peak {d['peak']} against (b) {b['peak']} bytes")
     check(rel_loss <= TRAIN_LOSS_TOL and rel_upd[top[0]] <= OFFLOAD_UPDATE_TOL
           and key_max <= bound,
           f"offload gpt2: host against in-HBM: losses {rel_loss}, worst "
@@ -2806,7 +2992,63 @@ def _offload_gpt2_runs(save_dir):
     check(d["peak"] < b["peak"],
           f"offload gpt2: offload_param's device peak {d['peak']} is not "
           f"below (b)'s {b['peak']}")
+    for nv, twin in (("e host nvme", "b host"),
+                     ("f stage 3 param nvme+host", "d stage 3 param+host")):
+        x, y = out[nv], out[twin]
+        same = (x["losses"] == y["losses"] and all(
+            torch.equal(x["master"][k], v) and
+            torch.equal(x["params"][k], y["params"][k]) and
+            all(torch.equal(x["moments"][k][p], y["moments"][k][p])
+                for p in ("m", "v"))
+            for k, v in y["master"].items()))
+        log(f"[offload] gpt2-1.3b x{L}: ({nv[0]}) against ({twin[0]}): "
+            f"losses, master, moments and bf16 params equal bit for bit "
+            f"{same}")
+        check(same, f"offload gpt2: ({nv[0]}) is not ({twin[0]}) bit for "
+              f"bit ({x['losses']} against {y['losses']})")
     return runs
+
+
+def _nvme_log(tag, engine, times, on_disk, L, gsteps):
+    """(e)/(f): the swap files' bytes and rates a step, and the goodput
+    split of the engine's steps. Each step's device bucket (dispatch to
+    the final gradients) against ``offload_step_times``' ``device_s``
+    (the first backward to the same point, its own timer); the bucket
+    plus the host work timed on its own (the optimizer step, the param
+    swap-out, and from the second step on the swap-in) inside the wall,
+    so none of that work fell in device; host above 0."""
+    for i, ((wall, _, g, param_in), t) in enumerate(zip(gsteps, times)):
+        timed = t["total_s"] + t.get("param_out_s", 0.0) + (
+            param_in if tag[0] == "f" and i else 0.0)
+        check(abs(g["device_s"] - t["device_s"]) <=
+              GOODPUT_TOL * t["device_s"] + GOODPUT_ABS_S and
+              g["device_s"] + timed <= g["wall_s"] <= wall and
+              g["host_s"] > 0,
+              f"offload gpt2 ({tag[0]}) step {i + 1}: goodput {g} against "
+              f"the engine's device_s {t['device_s']} s, the host work's "
+              f"{timed} s and the caller's wall {wall} s")
+    g = engine.goodput.snapshot()
+    t = times[-1]
+    if tag[0] == "e":
+        moved = t["swap_read_bytes"] + t["swap_write_bytes"]
+        rate = (f"{moved} bytes of moments read and written a step, "
+                f"{moved / t['total_s'] / 1e9!r} GB/s over the optimizer "
+                f"step's {t['total_s']!r} s (waits for the swap files "
+                f"{t['io_s']!r} s, host Adam {t['adam_s']!r} s)")
+    else:
+        check(on_disk, "offload gpt2 (f): the params are not on disk "
+              "between steps")
+        nb = t["param_bytes"]
+        rate = (f"{nb} bytes of params out and in a step: swap-out "
+                f"{nb / t['param_out_s'] / 1e9!r} GB/s "
+                f"({t['param_out_s']!r} s), swap-in "
+                f"{nb / engine._param_in_s / 1e9!r} GB/s "
+                f"({engine._param_in_s!r} s); shapes only between steps "
+                f"{on_disk}")
+    log(f"[offload] gpt2-1.3b x{L} ({tag}): {rate}; goodput over "
+        f"{g['steps']} steps: wall {g['wall_s']!r} s = data "
+        f"{g['data_wait_s']!r} + device {g['device_s']!r} + host "
+        f"{g['host_s']!r} s (device fraction {g['fraction']!r})")
 
 
 def phase_offload(smi):
@@ -5283,7 +5525,7 @@ def main() -> int:
     runs.update(new_d)
     runs.update(timed("hf", phase_hf, smi))
     runs.update(timed("llama_bert", phase_llama_bert, smi))
-    runs["train"] = timed("train", phase_train)
+    runs["train"] = timed("train", phase_train, observe=True)
     runs.update(timed("int8 train", phase_int8_train))
     for preset in ("gpt2-760m", "gpt2-2.7b"):
         runs[f"train {preset}"] = new_d[f"train {preset}"] = timed(

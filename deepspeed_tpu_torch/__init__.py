@@ -20,7 +20,10 @@ served through ``init_inference`` (``module_inject/policies.py``,
 ``state_dict_loader.py``, ``megatron_shards.py``), and data-parallel
 training over ``torch.distributed`` ranks with ZeRO stages 0-3
 (:func:`init_distributed`, then :func:`initialize` on each rank; the
-``comm`` facade and mesh, ``zero.Init`` / ``GatheredParameters``).
+``comm`` facade and mesh, ``zero.Init`` / ``GatheredParameters``), the
+offload tiers down to NVMe (``offload_optimizer`` / ``offload_param``
+``device: nvme``), :mod:`checkpointing` (activation checkpointing) and
+the training flight recorder, numerics and goodput (``telemetry``).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from deepspeed_tpu_torch.utils.logging import logger  # noqa: F401
@@ -35,6 +38,10 @@ _LAZY = {
     "DeepSpeedEngine": ("deepspeed_tpu_torch.runtime.engine",
                         "DeepSpeedEngine"),
     "checkpoint": ("deepspeed_tpu_torch.checkpoint", None),
+    # deepspeed.checkpointing: activation checkpointing (the engine's
+    # save/load is on the engine)
+    "checkpointing": ("deepspeed_tpu_torch.runtime.activation_checkpointing",
+                      None),
     "module_inject": ("deepspeed_tpu_torch.module_inject", None),
     "comm": ("deepspeed_tpu_torch.comm", None),
     "zero": ("deepspeed_tpu_torch.zero", None),

@@ -146,9 +146,10 @@ class CSVConfig(DeepSpeedConfigModel):
 
 class ActivationCheckpointingConfig(DeepSpeedConfigModel):
     """activation_checkpointing section (reference:
-    runtime/activation_checkpointing/checkpointing.py ``configure``).
-    Accepted for config compatibility; the GPT-2 model's ``remat`` field
-    decides what is recomputed."""
+    runtime/activation_checkpointing/checkpointing.py ``configure``): the
+    engine installs it for ``deepspeed_tpu_torch.checkpointing``
+    (``runtime/activation_checkpointing.py``); the models' own ``remat``
+    fields decide what they recompute."""
     partition_activations: bool = False
     cpu_checkpointing: bool = False
     contiguous_memory_optimization: bool = False

@@ -54,9 +54,14 @@ def _lists(names, *trees):
 
 
 def _bias_corrections(b1, b2, count, bias_correction):
+    """``1 - b ** count`` in f32, as JAX computes it (``count`` cast to
+    f32): near 1 the power's f32 rounding moves the correction by ~1e-5
+    relative at the first steps, and the update with it."""
     if not bias_correction:
         return 1.0, 1.0
-    return 1.0 - b1 ** count, 1.0 - b2 ** count
+    cf = torch.tensor(float(count), dtype=torch.float32)
+    return tuple(float(1.0 - torch.tensor(b, dtype=torch.float32) ** cf)
+                 for b in (b1, b2))
 
 
 def adam(betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0,

@@ -102,8 +102,34 @@ in pinned host memory between steps (``runtime/zero/param_offload.py``):
 a model that declares ``handles_param_offload`` fetches each layer itself
 through the engine's fetch, and its gradients go straight to the engine's
 accumulators on the card; any other model gets the whole tree staged to
-the card for the step and dropped after it. ``device: nvme`` is
-ROADMAP.md A6c.
+the card for the step and dropped after it.
+
+The NVMe tier (JAX ``runtime/engine.py:268-327``): ``offload_optimizer:
+{device: nvme, nvme_path}`` (the host path) keeps the Adam moments in swap
+files and streams them through the aio pool around each leaf's host Adam
+(``HostOffloadOptimizer.step_swapped``); ``offload_param: {device: nvme,
+nvme_path}`` at stage 3 swaps the params out to files after each step
+(``engine.params`` then holds ``meta`` tensors, shapes only) and back into
+pinned host memory before the next, or before anything else reads them.
+Over ranks each rank swaps its own blocks under ``nvme_path/rank<r>``.
+Checkpoints read and write the swapped moments through
+``host_optimizer.npz`` under JAX's keys, so a tag moves between the
+``cpu`` and ``nvme`` tiers bit for bit. ``destroy()`` closes the aio
+handles.
+
+Telemetry (``telemetry`` section, JAX ``runtime/engine.py:399-427``): the
+flight recorder (event ring size and fault dump, the hang watchdog, the
+memory monitor's ``params`` and ``optimizer_state`` components), the
+numerics observatory (``numerics_enabled``: each block's grad, param and
+update norms and non-finite gradient counts, JAX's block names; over
+ranks one all-reduce of the ranks' shares; off, the step does no numerics
+work) and goodput (``goodput``: each ``train_batch``'s wall split into
+data wait, device and host; the device bucket ends at a
+``torch.cuda.synchronize()``, the one sync a step it costs, and on the
+offload paths at the final gradients, so the host Adam and the swaps
+fall in host). ``set_numerics_enabled`` / ``set_goodput_enabled`` toggle
+them; activation checkpointing's section is installed for
+``deepspeed_tpu_torch.checkpointing``.
 
 The JAX engine compiles that step into one XLA program; here it is eager
 PyTorch around the flash kernels. No bf16 or fp32 step reads a device
@@ -112,10 +138,9 @@ learning rate is a host float. An fp16 step reads one bool, whether the
 gradients are finite, to skip the update (the JAX engine reads the same
 flag per step). Gradients, moments and the master are updated in place.
 
-Not in this slice (ROADMAP.md queue C): the pipe axis (A8), the NVMe
-tier (A6c), the 1-bit optimizers, MoQ, eigenvalue,
-curriculum learning and the flops profiler (A9) and the training
-telemetry planes (A7).
+Not in this slice (ROADMAP.md queue C): the pipe axis (A8), the 1-bit
+optimizers, MoQ, eigenvalue, curriculum learning and the flops profiler
+(A9), and request tracing and the HTTP endpoint (A7b).
 """
 from __future__ import annotations
 
@@ -146,10 +171,11 @@ from deepspeed_tpu_torch.runtime.precision import (PRECISION_DTYPES,
                                                    update_loss_scale)
 from deepspeed_tpu_torch.runtime.sparse_tensor import sparse_all_mean
 from deepspeed_tpu_torch.runtime.utils import clip_coef, global_norm
-from deepspeed_tpu_torch.runtime.zero.offload import (HostOffloadOptimizer,
-                                                      StreamedOffloadOptimizer,
-                                                      refuse_nvme)
+from deepspeed_tpu_torch.runtime.zero.offload import (PARTS,
+                                                      HostOffloadOptimizer,
+                                                      StreamedOffloadOptimizer)
 from deepspeed_tpu_torch.runtime.zero.param_offload import (ParamFetcher,
+                                                            ParamSwapper,
                                                             stage, to_pinned)
 from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartition,
                                                         ZeroShardingPolicy)
@@ -257,6 +283,16 @@ class DeepSpeedEngine:
         self.optimizer = optimizer
         self.lr_scheduler = lr_scheduler or build_schedule(
             config.scheduler, opt_cfg.params if opt_cfg else None)
+        # activation checkpointing (JAX engine.py:227-238): install the
+        # JSON section for models that call deepspeed_tpu_torch.
+        # checkpointing.checkpoint(); without it, clear what an earlier
+        # engine installed and keep a user's own configure()
+        from deepspeed_tpu_torch.runtime import activation_checkpointing
+        ac = config.activation_checkpointing
+        if ac != type(ac)():
+            activation_checkpointing.configure(ac, _by_engine=True)
+        else:
+            activation_checkpointing.reset(only_engine_installed=True)
         self._resolve_zero(config, model_handles_param_offload, params,
                            tp_specs, tp_fused)
         self._init_state(params)
@@ -285,14 +321,13 @@ class DeepSpeedEngine:
         # process-wide registry; telemetry.enabled=false records into a
         # private one, so nothing reaches the process scrape surface
         self.telemetry = get_registry() if tc.enabled else MetricRegistry()
-        if tc.enabled and (tc.numerics_enabled or tc.goodput
-                           or tc.trace_sample_rate > 0
+        if tc.enabled and (tc.trace_sample_rate > 0
                            or tc.http_port is not None):
             logger.info(
-                "DeepSpeedEngine: the training telemetry planes (numerics, "
-                "goodput, tracing, the HTTP endpoint) are not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md queue C) and are not "
-                "built; training does not depend on them")
+                "DeepSpeedEngine: request tracing and the HTTP endpoint are "
+                "not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C, "
+                "A7b) and are not built; training does not depend on them")
+        self._init_telemetry(tc)
         n = sum(p.numel() for p in self.params.values())
         tiers = [t for t, on in (
             ("host", self.host_opt is not None),
@@ -303,6 +338,161 @@ class DeepSpeedEngine:
                     f"dtype={config.precision_dtype} "
                     f"micro={self.micro_batch_size} gas={self.gas} "
                     f"zero_stage={self.zero_stage} offload={tiers or None}")
+
+    # -------------------------------------------------------- telemetry
+    def _init_telemetry(self, tc) -> None:
+        """The flight recorder, the numerics observatory and goodput
+        accounting, armed as the JAX engine arms them (JAX
+        ``runtime/engine.py:399-427``). The block spec is built once from
+        the param names (JAX's block names, ``telemetry/numerics.py``)."""
+        from deepspeed_tpu_torch.telemetry.goodput import GoodputMeter
+        from deepspeed_tpu_torch.telemetry.numerics import (
+            NumericsWatch, block_spec, register_numerics_watch)
+        self._init_flight_recorder(tc)
+        self._telemetry_on = tc.enabled
+        self._numerics_spec = block_spec(self.params,
+                                         depth=tc.numerics_block_depth)
+        self._numerics_on = bool(tc.enabled and tc.numerics_enabled)
+        self.numerics = NumericsWatch(
+            self._numerics_spec.names, registry=self.telemetry,
+            window=tc.numerics_spike_window,
+            threshold=tc.numerics_spike_threshold, source="train",
+            dump_path=tc.events_dump_path)
+        if tc.enabled:
+            register_numerics_watch("train", self.numerics)
+        self.goodput = GoodputMeter(registry=self.telemetry,
+                                    enabled=bool(tc.enabled and tc.goodput),
+                                    source="train")
+        if self._numerics_on and self._sparse_axes:
+            logger.warning(
+                "telemetry.numerics_enabled is not supported with the "
+                "sparse-gradient exchange (JAX's explicit-DP step) — "
+                "numerics disabled for this engine")
+            self._numerics_on = False
+
+    def _init_flight_recorder(self, tc) -> None:
+        """The config-gated flight-recorder surfaces (JAX
+        ``_init_flight_recorder``): the event ring's size and fault dump,
+        the hang watchdog, and the memory monitor's ``params`` and
+        ``optimizer_state`` components (the f32 master and the moments,
+        on the card or the host, included) through weak references, so a
+        dropped engine never stays alive through the monitor."""
+        import weakref
+
+        from deepspeed_tpu_torch.telemetry.flight import arm_flight_recorder
+        ref = weakref.ref(self)
+
+        def _params():
+            eng = ref()
+            return None if eng is None else eng.params
+
+        def _opt_state():
+            eng = ref()
+            if eng is None:
+                return None
+            host = eng.host_opt
+            return (eng.opt_state, eng.master,
+                    None if host is None else (host.master, host.state))
+
+        self._flight = arm_flight_recorder(
+            tc, self.telemetry, "train_watchdog",
+            [("params", _params), ("optimizer_state", _opt_state)])
+        self.watchdog = self._flight.watchdog
+
+    def _numerics_weight(self, split: Callable[[str], tuple]):
+        """Which leaves this rank counts in the block sums: a leaf whose
+        part here is the same on other ranks (replicated along an axis it
+        is not split across) counts on the rank at index 0 of those axes
+        only, so the all-reduce over every axis counts it once."""
+        if not self._dist:
+            return None
+        from deepspeed_tpu_torch.comm.mesh import mesh_coordinate
+        coord = mesh_coordinate(self.mesh)
+        shape = mesh_shape(self.mesh)
+        axes = [a for a in MESH_AXES if shape[a] > 1]
+        return lambda n: all(coord[a] == 0 for a in axes
+                             if a not in split(n))
+
+    def _split_master(self, n: str) -> tuple:
+        """The axes the rank's master (and update) of ``n`` is a block
+        over."""
+        return ((DATA_AXES if self._msh(n) else ()) +
+                (("tensor",) if self.tpl.sharded(n) else ()))
+
+    def _split_params(self, n: str) -> tuple:
+        return ((DATA_AXES if self._psh(n) else ()) +
+                (("tensor",) if self.tpl.sharded(n) else ()))
+
+    def _numerics_pre(self, grads) -> list:
+        """The step's block statistics before the clip and the update
+        (JAX ``grad_core`` with ``want_numerics``): the squared norms of
+        the unscaled gradients, their non-finite counts and the squared
+        norms of the params (the f32 master on the in-HBM path; the
+        compute params on the offload paths, as in JAX)."""
+        from deepspeed_tpu_torch.telemetry.numerics import (
+            block_nonfinite_counts, block_sq_norms)
+        spec = self._numerics_spec
+        g = dict(zip(self.params, grads))
+        gw = self._numerics_weight(self._split_axes)
+        if self.host_opt is not None or self._stream_opt is not None or \
+                self.master is None:
+            src, pw = self.params, self._numerics_weight(self._split_params)
+        else:
+            src, pw = self.master, self._numerics_weight(self._split_master)
+        return [block_sq_norms(g, spec, gw),
+                block_nonfinite_counts(g, spec, gw).float(),
+                block_sq_norms(src, spec, pw).to(self.device)]
+
+    def _observe_numerics(self, pre, upd_sq, loss) -> None:
+        """One read of the step's ``[n_blocks, 4]`` statistics (over ranks
+        after one all-reduce of the ranks' shares) into the numerics
+        watch (JAX ``_observe_numerics``). Guarded: observability never
+        kills a training step."""
+        try:
+            have_upd = upd_sq is not None
+            if upd_sq is None:
+                upd_sq = torch.zeros_like(pre[0])
+            stats = torch.stack([pre[0], pre[2], upd_sq.to(pre[0].device),
+                                 pre[1]], 1)
+            if self._dist:
+                stats = comm.all_reduce(stats, comm.SUM, MESH_AXES)
+            stats = stats.cpu().double().numpy()
+            self.numerics.observe(
+                step=self.global_steps, loss=float(loss),
+                grad_norms=stats[:, 0] ** 0.5,
+                param_norms=stats[:, 1] ** 0.5,
+                update_norms=stats[:, 2] ** 0.5 if have_upd else None,
+                nonfinite=stats[:, 3].astype("int64"))
+        except Exception as e:  # noqa: BLE001
+            logger.warning(f"numerics observe failed: {e}")
+
+    def _record_step_progress(self) -> None:
+        """The flight recorder's step event and the watchdog heartbeat,
+        once an optimizer step (JAX ``_record_step_progress``)."""
+        from deepspeed_tpu_torch.telemetry import events as _ev
+        _ev.record_event(_ev.STEP_END, source="train",
+                         step=self.global_steps)
+        if self.watchdog is not None:
+            self.watchdog.notify_progress()
+
+    def set_numerics_enabled(self, enabled: bool) -> None:
+        """Turn the numerics observatory on or off between steps
+        (``telemetry.numerics_enabled`` sets the first state). Off, the
+        step runs no numerics work and reads nothing back."""
+        enabled = bool(enabled)
+        if enabled and not self._telemetry_on:
+            logger.warning("numerics requires telemetry.enabled — ignoring")
+            return
+        if enabled and self._sparse_axes:
+            logger.warning("numerics is not supported with the "
+                           "sparse-gradient exchange — ignoring")
+            return
+        self._numerics_on = enabled
+
+    def set_goodput_enabled(self, enabled: bool) -> None:
+        """Turn goodput accounting on or off (host timers; on CUDA one
+        ``torch.cuda.synchronize()`` a step while on)."""
+        self.goodput.enabled = bool(enabled)
 
     # ------------------------------------------------------------- ZeRO
     def _resolve_sparse(self, config, opt_cfg, sparse_grad_paths) -> None:
@@ -383,7 +573,6 @@ class DeepSpeedEngine:
                         f"{self.device}: no card to stream the state "
                         "through); use 'host' or 'auto'")
             self._offload_stream = impl == "stream"
-            refuse_nvme(self._offload_cfg.device, "offload_optimizer")
             if not self._offload_stream:
                 opt_cfg = config.optimizer
                 opt_type = normalize_optimizer_key(
@@ -400,8 +589,14 @@ class DeepSpeedEngine:
             raise ValueError(
                 "offload_param requires ZeRO stage 3 (reference "
                 "stage3.py:448 — parameter offload is a stage-3 feature)")
-        if self._param_offload_cfg is not None:
-            refuse_nvme(self._param_offload_cfg.device, "offload_param")
+        self._param_swapper = None
+        if self._param_offload_cfg is not None and \
+                self._param_offload_cfg.device == "nvme":
+            if not self._param_offload_cfg.nvme_path:
+                raise ValueError("offload_param.device=nvme requires "
+                                 "nvme_path")
+            self._param_swapper = ParamSwapper(
+                self._swap_dir(self._param_offload_cfg.nvme_path))
         # the ZeRO blocks of each leaf (several ranks): params at stage 3,
         # gradients at 2-3, the master and the moments at 1-3
         self._p_shard = self._dist and self.zero_stage >= 3
@@ -440,6 +635,15 @@ class DeepSpeedEngine:
         self._fetcher = None
         self._staged = None
         self.offload_step_times: Dict[str, float] = {}
+
+    def _swap_dir(self, path: str) -> str:
+        """The rank's swap directory: ``path`` itself in one process,
+        ``path/rank<r>`` over ranks (each rank swaps its own blocks, and
+        two ranks on one machine never share a file)."""
+        if not self._dist:
+            return path
+        import os
+        return os.path.join(path, f"rank{dist.get_rank()}")
 
     # ------------------------------------------------------------ state
     def _psh(self, n: str) -> bool:
@@ -484,7 +688,8 @@ class DeepSpeedEngine:
                  for k, v in params.items()},
                 opt_cfg.params if opt_cfg else {},
                 device=self._offload_cfg.device,
-                nvme_path=self._offload_cfg.nvme_path)
+                nvme_path=(self._swap_dir(self._offload_cfg.nvme_path)
+                           if self._offload_cfg.nvme_path else None))
             self.params = {k: compute(k, v) for k, v in params.items()}
             self.master = self.opt_state = None
         else:
@@ -639,6 +844,34 @@ class DeepSpeedEngine:
     def _master(self):
         return self.params if self.master is None else self.master
 
+    def _swap_params_out(self) -> None:
+        """NVMe param tier: after the step, the params go to their swap
+        files and ``self.params`` keeps their shapes only (``meta``
+        tensors); host memory between steps holds none of them."""
+        sw = self._param_swapper
+        if sw is None:
+            return
+        t = time.perf_counter()
+        self.params = sw.swap_out(self.params)
+        if self.device.type == "cuda" and hasattr(torch._C,
+                                                  "_host_emptyCache"):
+            torch._C._host_emptyCache()   # give the pinned pages back
+        self.offload_step_times["param_out_s"] = time.perf_counter() - t
+        self.offload_step_times["param_bytes"] = sw.last_bytes
+
+    def _resident(self) -> None:
+        """Read NVMe-swapped params back into pinned host memory before
+        anything reads ``self.params`` (a step, ``forward``, checkpoints,
+        the module state)."""
+        sw = self._param_swapper
+        if sw is None or not sw.on_disk:
+            return
+        t = time.perf_counter()
+        self.params = sw.swap_in()
+        for p in self.params.values():
+            p.requires_grad_(True)
+        self._param_in_s = time.perf_counter() - t
+
     def _upload(self, batch):
         """Host arrays → device tensors through pinned memory, without a
         stream sync."""
@@ -684,6 +917,10 @@ class DeepSpeedEngine:
             if self._dist:   # every rank skips together
                 finite = comm.all_reduce(finite.float(), comm.MIN,
                                          MESH_AXES) > 0
+        # the numerics' block statistics: pre-clip, as in JAX (the clip
+        # would carry one block's NaN into every block)
+        numer = self._numerics_pre(grads) if self._numerics_on else None
+        self._upd_sq = None
         # bf16 grads (``_native_out``, never with fp16): the norm and the
         # clip in f32, each gradient rounded back to bf16 (JAX
         # native_acc_out). Over ranks a block's squares are summed over
@@ -703,6 +940,7 @@ class DeepSpeedEngine:
             torch.cuda.synchronize(self.device)   # the gradients are final
             self.offload_step_times = {
                 "device_s": time.perf_counter() - self._step_t0}
+        self._grads_ready_t = time.perf_counter()
         if not skip:
             with torch.no_grad():
                 self._update(grads, lr)
@@ -715,6 +953,11 @@ class DeepSpeedEngine:
         self.global_steps += 1
         self._last_skipped = ~finite if self.fp16 else self._false
         self._last_grad_norm = gnorm
+        if numer is not None:
+            self._observe_numerics(numer, None if (
+                self.host_opt is not None or self._stream_opt is not None)
+                else self._upd_sq if self._upd_sq is not None
+                else torch.zeros_like(numer[0]), mean_loss)
         return {"loss": mean_loss, "grad_norm": gnorm, "lr": lr,
                 "loss_scale": scale, "skipped": self._last_skipped}
 
@@ -730,15 +973,23 @@ class DeepSpeedEngine:
         grads = {n: self._to_master(n, g) for n, g in zip(names, grads)}
         if self.host_opt is not None or self._stream_opt is not None:
             dest = self._param_dest()
-            opt = self.host_opt or self._stream_opt
-            (opt.step_streamed if self.host_opt is not None else opt.step)(
-                grads, lr, dest)
+            if self._stream_opt is not None:
+                self._stream_opt.step(grads, lr, dest)
+            elif self.host_opt.swapper is not None:
+                self.host_opt.step_swapped(grads, lr, dest)
+            else:
+                self.host_opt.step_streamed(grads, lr, dest)
             self._gather_dest(dest)
             return
         master = self._master()
         updates, self.opt_state = self.optimizer.update(
             grads, self.opt_state,
             {k: v.detach() for k, v in master.items()}, lr)
+        if self._numerics_on:
+            from deepspeed_tpu_torch.telemetry.numerics import block_sq_norms
+            self._upd_sq = block_sq_norms(
+                updates, self._numerics_spec,
+                self._numerics_weight(self._split_master))
         torch._foreach_add_([master[n].detach() for n in names],
                             [updates[n] for n in names])
         del updates
@@ -793,12 +1044,17 @@ class DeepSpeedEngine:
         ``loss_scale``, ``skipped`` and the mean of each aux metric. Over
         ranks ``batch`` is this rank's ``micro * gas`` rows and the loss
         and aux metrics are the means over every rank."""
+        t_wall = time.perf_counter()   # goodput: the step's wall interval
+        data_wait = 0.0
         rows = self.micro_batch_size * self.gas
         if batch is None:
             # the loader yields global batches, the same on every rank
             # (one seed): each rank takes its own rows
             batch = {k: v[self._dp_index * rows:(self._dp_index + 1) * rows]
                      for k, v in next(self.training_dataloader).items()}
+            data_wait = time.perf_counter() - t_wall
+        self._resident()   # an NVMe param swap-in falls in host
+        t_disp = time.perf_counter()
         batch = self._upload(batch)
         leading = next(iter(batch.values())).shape[0]
         if leading != rows:
@@ -811,11 +1067,27 @@ class DeepSpeedEngine:
         for i in range(self.gas):
             self.backward({k: v[i * rows:(i + 1) * rows]
                            for k, v in batch.items()})
-        return self.step()
+        metrics = self.step()
+        if self.goodput.enabled:
+            # the device bucket: dispatch to the step's results on the
+            # card (the one sync goodput costs); on the offload paths to
+            # the final gradients, so the host Adam and the swaps fall in
+            # host, as in JAX (offload_step_times' device_s is the same
+            # interval from the first backward)
+            if self.host_opt is not None:
+                device_s = self._grads_ready_t - t_disp
+            else:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                device_s = time.perf_counter() - t_disp
+            self.goodput.record_step(time.perf_counter() - t_wall,
+                                     data_wait, device_s)
+        return metrics
 
     def forward(self, batch):
         """Loss of one micro-batch, without gradients (over ranks the mean
         over every rank's micro-batch: every rank calls it)."""
+        self._resident()
         with torch.no_grad():
             params = self._step_params()
             if params is self._staged and not self._acc_losses:
@@ -830,6 +1102,7 @@ class DeepSpeedEngine:
         """Accumulate the gradients of one micro-batch (f32; bf16 with
         ``_native_out``); returns its loss (this rank's)."""
         if not self._acc_losses:
+            self._resident()
             self._step_t0 = time.perf_counter()
             self._step_tokens = 0
         if self._acc is None:
@@ -881,6 +1154,8 @@ class DeepSpeedEngine:
             mean_loss, aux = vals[0], dict(zip(keys, vals[1:]))
         metrics = self._apply(self._acc, mean_loss)
         metrics.update(aux)
+        self._swap_params_out()
+        self._record_step_progress()
         return metrics
 
     # --------------------------------------------------------- accessors
@@ -917,6 +1192,7 @@ class DeepSpeedEngine:
     def fp32_master_params(self) -> Dict[str, torch.Tensor]:
         """The f32 master weights, whole, copied to the host (over ranks a
         collective: every rank calls it)."""
+        self._resident()
         if self.host_opt is not None:
             return {k: self._whole(k, v.reshape(self.host_opt.shapes[k]),
                                    self._msh(k)).to("cpu", copy=True)
@@ -1038,6 +1314,7 @@ class DeepSpeedEngine:
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         """The compute-dtype weights, whole, copied to the host, by the
         engine's names (over ranks a collective)."""
+        self._resident()
         return {k: self._whole(k, v, self._psh(k)).to("cpu", copy=True)
                 for k, v in self.params.items()}
 
@@ -1047,6 +1324,7 @@ class DeepSpeedEngine:
         cast from the loaded params (as ``load_checkpoint(
         load_module_only=True)`` keeps the optimizer). Names may be the
         engine's or the JAX package's ``/``-joined ones."""
+        self._resident()
         sd = {k.replace("/", "."): v for k, v in state_dict.items()}
         missing = set(self.params) - set(sd)
         if missing:
@@ -1096,6 +1374,7 @@ class DeepSpeedEngine:
         is all-gathered leaf by leaf (at most one whole leaf on the card
         at a time) and copied to the host on rank 0, which writes; the
         other ranks get empty groups."""
+        self._resident()
         ls = self._loss_scale
         loss_scale = {"scale": ls.scale, "growth_tracker": ls.growth_tracker,
                       "hysteresis": ls.hysteresis}
@@ -1148,7 +1427,7 @@ class DeepSpeedEngine:
         for k in host.keys:
             yield ("master", k, None), whole(k, host.master[k])
         for k in host.keys:
-            for p, a in host.state[k].items():
+            for p, a in host.moments(k).items():   # read from disk (nvme)
                 yield ("state", k, p), whole(k, a)
 
     def _load_host_state(self, step: int, leaves) -> None:
@@ -1158,7 +1437,7 @@ class DeepSpeedEngine:
         next is read."""
         host = self.host_opt
         want = {("master", k, None) for k in host.keys} | {
-            ("state", k, p) for k in host.keys for p in host.state[k]}
+            ("state", k, p) for k in host.keys for p in PARTS}
         seen = set()
         for key, leaf in leaves:
             if key not in want:
@@ -1166,8 +1445,11 @@ class DeepSpeedEngine:
                                  "the engine's host optimizer lacks")
             group, k, p = key
             full = torch.as_tensor(leaf).reshape(self._full_shapes[k])
-            dst = host.master[k] if group == "master" else host.state[k][p]
-            dst.copy_(self._block(k, full, self._msh(k)).reshape(-1))
+            block = self._block(k, full, self._msh(k)).reshape(-1)
+            if group == "master":
+                host.master[k].copy_(block)
+            else:   # written to its swap file on the nvme tier
+                host.set_moment(k, p, block)
             seen.add(key)
             del leaf, full
         if seen != want:
@@ -1199,6 +1481,7 @@ class DeepSpeedEngine:
         engine's own tensors (the rank's blocks), then cast the compute
         params from the master by the step's own cast (``_foreach_copy_``),
         so their bits are the saved step's."""
+        self._resident()
         with torch.no_grad():
             if self.host_opt is not None:
                 if "params" not in state:
@@ -1283,6 +1566,16 @@ class DeepSpeedEngine:
         self.zero_grad()
         self._acc = None
         self._staged = None
+        if self.host_opt is not None:
+            self.host_opt.close()
+        if self._param_swapper is not None:
+            self._param_swapper.close()
+        if self._flight is not None:
+            self._flight.close()
+            self.watchdog = None
+        from deepspeed_tpu_torch.telemetry.numerics import \
+            unregister_numerics_watch
+        unregister_numerics_watch("train", self.numerics)
         if ckpt_err is not None:
             raise ckpt_err
 

@@ -23,7 +23,16 @@ the updated 16-bit params copy back). Two realizations, picked by
   (``ops/adam.py``) and copied back, the copies on two side streams
   overlapping the next leaf's update. Its numbers are the in-HBM path's.
 
-``device="nvme"`` (moments in swap files) is ROADMAP.md A6c.
+With ``device="nvme"`` (the host path only) the moments live in swap
+files under ``nvme_path`` and stream through the C++ aio pool around each
+leaf's update (``runtime/swap_tensor``), double-buffered: the next leaf's
+moments are read while the current leaf is updated, so host memory for the
+moments is two arenas of the largest leaf, whatever the model's size (JAX
+``runtime/zero/offload.py``). :meth:`~HostOffloadOptimizer.step_swapped`
+takes each leaf's gradient from the card as the pipeline reaches it (two
+pinned slots of the largest leaf), never the whole gradient tree at once.
+Its bits are the host tier's: the same kernel, one bias-correction step
+for all leaves.
 """
 from __future__ import annotations
 
@@ -40,12 +49,7 @@ CHUNK = 1 << 24       # elements a pipeline chunk (a multiple of 4096)
 SLOTS = 4             # pinned staging slots of the pipeline
 
 
-def refuse_nvme(device: str, what: str) -> None:
-    if device == "nvme":
-        raise NotImplementedError(
-            f"{what}.device='nvme' (the NVMe tier, swap files through the "
-            "aio pool) is not ported to deepspeed_tpu_torch yet (ROADMAP.md "
-            "queue C, A6c); use device='cpu'")
+PARTS = ("m", "v")    # the Adam moments of a leaf, as JAX names them
 
 
 class HostOffloadOptimizer:
@@ -54,8 +58,7 @@ class HostOffloadOptimizer:
     def __init__(self, params: Dict[str, torch.Tensor], optimizer_params,
                  device: str = "cpu", nvme_path: Optional[str] = None,
                  use_native: bool = True, chunk: int = CHUNK,
-                 slots: int = SLOTS):
-        refuse_nvme(device, "offload_optimizer")
+                 slots: int = SLOTS, aio_threads: int = 4):
         if chunk % 4096:
             raise ValueError(f"chunk {chunk} is not a multiple of 4096")
         p = dict(optimizer_params or {})
@@ -70,12 +73,35 @@ class HostOffloadOptimizer:
             "cpu", torch.float32, copy=True).reshape(-1)
             for k, v in params.items()}
         self.keys = list(self.master)
-        self.state = self.adam.init_state(self.master)
         self.chunk, self.slots = chunk, slots
         self._bf16_out = None
         self._staging = None    # pinned slots, made on the first CUDA step
         self._streams = None
+        self._arenas = None     # the NVMe tier's two moment arenas
+        self._arena_idx = 0
         self.last_times: Dict[str, float] = {}
+        self.swapper = None
+        if device == "nvme":
+            if not nvme_path:
+                raise ValueError("offload_optimizer.device=nvme requires "
+                                 "nvme_path")
+            from deepspeed_tpu_torch.runtime.swap_tensor import \
+                OptimizerStateSwapper
+            self.swapper = OptimizerStateSwapper(nvme_path, aio_threads)
+            t = time.perf_counter()
+            # zero moments on disk: files of holes, which read as zeros
+            # and are written first by the first step's write-back
+            for k, w in self.master.items():
+                self.swapper.zero_state(k, {p: 4 * w.numel()
+                                            for p in PARTS})
+            self.state = None
+            self.init_s = time.perf_counter() - t
+            gb = 8 * sum(w.numel() for w in self.master.values()) / 1e9
+            logger.info(f"optimizer state swapped to NVMe at {nvme_path}: "
+                        f"{gb:.2f} GB of zero moments made in "
+                        f"{self.init_s:.1f} s")
+        else:
+            self.state = self.adam.init_state(self.master)
         mb = sum(w.numel() * 4 for w in self.master.values()) / 2 ** 20
         logger.info(f"host-offload optimizer: {len(self.keys)} leaves, fp32 "
                     f"master {mb:.0f} MiB on host, moments on {device}, "
@@ -91,6 +117,13 @@ class HostOffloadOptimizer:
         if bf16 and self._bf16_out is None:
             self._bf16_out = {k: torch.empty(w.shape, dtype=torch.bfloat16)
                               for k, w in self.master.items()}
+        if self.swapper is not None:   # leaf by leaf over the swap files
+            out = self._bf16_out if bf16 else {
+                k: torch.empty(s, dtype=param_dtype)
+                for k, s in self.shapes.items()}
+            self.step_swapped({k: torch.as_tensor(g)
+                               for k, g in grads_host.items()}, lr, out)
+            return {k: out[k].reshape(self.shapes[k]) for k in self.keys}
         self.adam.step(self.master, grads_host, self.state, lr=lr,
                        bf16_out=self._bf16_out if bf16 else None)
         return {k: (self._bf16_out[k] if bf16
@@ -109,6 +142,9 @@ class HostOffloadOptimizer:
         the host Adam, ``wait_s`` the host's waits for gradient chunks,
         ``tail_s`` the wait for the last payload copies, ``total_s`` the
         whole call."""
+        if self.swapper is not None:
+            raise RuntimeError("step_streamed does not support NVMe-swapped "
+                               "moments; use step()")
         t0 = time.perf_counter()
         step = self.adam.step_count + 1
         cuda = any(g.is_cuda for g in grads.values())
@@ -246,6 +282,170 @@ class HostOffloadOptimizer:
                            "h2d_s": busy["h2d"], "wait_s": wait_s,
                            "tail_s": tail_s, "chunks": len(chunks)}
 
+    # ------------------------------------------------------------- NVMe
+    def _nvme_buffers(self, key: str) -> Dict[str, torch.Tensor]:
+        """The moment arenas: at most two leaves are live at a time (the
+        current one and the prefetch), so two arenas of the largest leaf
+        bound host memory whatever the model's size (JAX
+        ``_nvme_buffers``)."""
+        if self._arenas is None:
+            n = max(w.numel() for w in self.master.values())
+            self._arenas = [{p: torch.empty(n, dtype=torch.float32)
+                             for p in PARTS} for _ in range(2)]
+        n = self.master[key].numel()
+        arena = self._arenas[self._arena_idx % 2]
+        self._arena_idx += 1
+        return {p: a[:n] for p, a in arena.items()}
+
+    def step_swapped(self, grads: Dict[str, torch.Tensor], lr: float,
+                     params: Dict[str, torch.Tensor]) -> None:
+        """The NVMe tier's step: :meth:`step_streamed`'s contract (grads
+        on the card or the host in, new params written into ``params``
+        in place), leaf by leaf over ``iter_pipelined``. On the card a
+        leaf's gradient is copied to one of two pinned slots of the
+        largest leaf on a copy stream while the previous leaf is updated,
+        and its payload goes back from a second pair of slots, so the
+        whole gradient tree never sits in host memory. ``last_times``:
+        ``io_s`` the waits for the swap files, ``adam_s``, ``wait_s`` the
+        waits for gradients, ``total_s``, and the bytes read and
+        written."""
+        t0 = time.perf_counter()
+        step = self.adam.step_count + 1
+        keys = self.keys
+        cuda = any(g.is_cuda for g in grads.values())
+        slots = fetch = None
+        if cuda:
+            slots, fetch, h2d, d2h = self._swap_slots(grads, params)
+            fetch(0)
+        adam_s = wait_s = io_s = 0.0
+        t_end = time.perf_counter()
+        for i, (k, st) in enumerate(self.swapper.iter_pipelined(
+                keys, self._nvme_buffers)):
+            t = time.perf_counter()
+            io_s += t - t_end
+            n = self.master[k].numel()
+            dst = params[k].detach()
+            on_host = dst.device.type == "cpu"
+            if cuda:
+                s = slots[i % 2]
+                s["d2h"].synchronize()
+                if s["h2d"] is not None:
+                    s["h2d"].synchronize()   # the slot's payload is out
+                g = s["g"][:n]
+                if s["g32"] is not None:
+                    s["g32"][:n].copy_(g)
+                    g = s["g32"][:n]
+                if i + 1 < len(keys):
+                    fetch(i + 1)   # the next leaf's gradient, meanwhile
+            else:
+                g = grads[k].detach().reshape(-1)
+                if g.dtype != torch.float32 or not g.is_contiguous():
+                    g = g.to(torch.float32).contiguous()
+            direct = (dst.dtype == torch.bfloat16 and dst.is_contiguous()
+                      and on_host)
+            if direct:
+                out = dst.view(-1)
+            elif cuda and not on_host and dst.dtype == torch.bfloat16:
+                out = s["out"][:n]
+            else:
+                out = None
+            t1 = time.perf_counter()
+            wait_s += t1 - t
+            self.adam.step({k: self.master[k]}, {k: g}, {k: st}, lr=lr,
+                           bf16_out=None if out is None else {k: out},
+                           step=step)
+            adam_s += time.perf_counter() - t1
+            if not direct:
+                if cuda and not on_host:
+                    if out is None:
+                        out = s["out"][:n]
+                        out.copy_(self.master[k])
+                    with torch.cuda.stream(h2d):
+                        dst.view(-1).copy_(out, non_blocking=True)
+                        ev = torch.cuda.Event()
+                        ev.record(h2d)
+                    s["h2d"] = ev
+                else:
+                    dst.copy_(self.master[k].reshape(dst.shape))
+            t_end = time.perf_counter()
+        if cuda:
+            h2d.synchronize()
+            d2h.synchronize()
+            compute = torch.cuda.current_stream(h2d.device)
+            compute.wait_stream(d2h)
+            compute.wait_stream(h2d)
+        moved = 8 * sum(w.numel() for w in self.master.values())
+        self.last_times = {"io_s": io_s, "adam_s": adam_s, "wait_s": wait_s,
+                           "total_s": time.perf_counter() - t0,
+                           "swap_read_bytes": moved,
+                           "swap_write_bytes": moved}
+
+    def _swap_slots(self, grads, params):
+        """Two pinned slots of the largest leaf for :meth:`step_swapped`
+        (made once) and the copy streams; returns ``(slots, fetch, h2d,
+        d2h)``, ``fetch(i)`` queuing leaf ``i``'s gradient copy."""
+        keys = self.keys
+        g0 = grads[keys[0]]
+        gdtype, pdtype = g0.dtype, params[keys[0]].dtype
+        key = ("swap", gdtype, pdtype)
+        if self._staging is None or self._staging[0] != key:
+            n = max(w.numel() for w in self.master.values())
+
+            def pinned(dtype):
+                return torch.empty(n, dtype=dtype, pin_memory=True)
+            self._staging = (key, [
+                {"g": pinned(gdtype),
+                 "g32": pinned(torch.float32) if gdtype != torch.float32
+                 else None,
+                 "out": pinned(pdtype), "d2h": torch.cuda.Event(),
+                 "h2d": None} for _ in range(2)])
+        if self._streams is None:
+            self._streams = (torch.cuda.Stream(g0.device),
+                             torch.cuda.Stream(g0.device))
+        d2h, h2d = self._streams
+        compute = torch.cuda.current_stream(g0.device)
+        ready = torch.cuda.Event()
+        ready.record(compute)
+        d2h.wait_event(ready)
+        h2d.wait_event(ready)
+        slots = self._staging[1]
+        for s in slots:
+            s["h2d"] = None
+
+        def fetch(i):
+            k = keys[i]
+            s = slots[i % 2]
+            src = grads[k].detach().reshape(-1)
+            with torch.cuda.stream(d2h):
+                s["g"][:src.numel()].copy_(src, non_blocking=True)
+                s["d2h"].record(d2h)
+        return slots, fetch, h2d, d2h
+
+    def moments(self, key: str) -> Dict[str, torch.Tensor]:
+        """Leaf ``key``'s moments (flat f32): the host state, or read from
+        the swap files into new tensors."""
+        if self.swapper is None:
+            return self.state[key]
+        bufs = {p: torch.empty(self.master[key].numel(), dtype=torch.float32)
+                for p in PARTS}
+        self.swapper.read_state(key, bufs, sync=True)
+        return bufs
+
+    def set_moment(self, key: str, part: str, flat) -> None:
+        """Overwrite one moment of a leaf (flat f32), on disk where the
+        moments are swapped."""
+        flat = torch.as_tensor(flat).to(torch.float32).reshape(-1)
+        if self.swapper is None:
+            self.state[key][part].copy_(flat)
+        else:
+            self.swapper.write_state(key, {part: flat.contiguous()},
+                                     sync=True)
+
+    def close(self) -> None:
+        """Close the aio handle of the swap files."""
+        if self.swapper is not None:
+            self.swapper.close()
+
     # --------------------------------------------------------- restore
     def sync_master_from(self, params: Dict[str, torch.Tensor]) -> None:
         """Re-seed the fp32 master from (restored) params."""
@@ -253,7 +453,12 @@ class HostOffloadOptimizer:
             self.master[k].copy_(params[k].detach().reshape(-1))
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"master": self.master, "state": self.state,
+        """The master, the moments (read from the swap files on the NVMe
+        tier: every moment in host memory at once, as in JAX) and the
+        step."""
+        state = (self.state if self.swapper is None else
+                 {k: self.moments(k) for k in self.keys})
+        return {"master": self.master, "state": state,
                 "step": self.adam.step_count}
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
@@ -261,8 +466,8 @@ class HostOffloadOptimizer:
             self.master[k].copy_(torch.as_tensor(sd["master"][k]))
         self.adam.step_count = int(sd["step"])
         for k in self.keys:
-            for p in ("m", "v"):
-                self.state[k][p].copy_(torch.as_tensor(sd["state"][k][p]))
+            for p in PARTS:
+                self.set_moment(k, p, sd["state"][k][p])
 
 
 class StreamedOffloadOptimizer:

@@ -25,13 +25,21 @@ Over several ranks at stage 3 the same fetch all-gathers the layer's
 blocks (the engine's ``gather``) and the engine's sink reduce-scatters the
 gradient onto the rank's block.
 
-The NVMe tier (``ParamSwapper``) is ROADMAP.md A6c.
+With ``device="nvme"`` the params' home between steps is a set of swap
+files under ``nvme_path`` (:class:`ParamSwapper`, JAX's): the engine swaps
+them out after each step, leaving tensors on the ``meta`` device (shapes
+only) in ``engine.params``, and back into pinned host memory before the
+next, where the ``cpu`` tier keeps them and the fetch above finds them.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional
 
 import torch
+
+from deepspeed_tpu_torch.ops.aio import AsyncIOHandle
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 def to_pinned(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -80,3 +88,77 @@ class ParamFetcher:
 
     def __call__(self, name: str, host: torch.Tensor) -> torch.Tensor:
         return _Fetch.apply(host, self.device, name, self.sink, self.gather)
+
+
+class ParamSwapper:
+    """Spills the host-resident params to swap files between steps
+    (counterpart of JAX ``runtime/zero/param_offload.py`` ``ParamSwapper``;
+    reference ``partitioned_param_swapper.py`` + ``async_swapper.py``).
+
+    :meth:`swap_out` queues every leaf's write on the aio pool, draining
+    whenever ``inflight_bytes`` of buffers are queued, and returns tensors
+    on the ``meta`` device: shapes and dtypes only. :meth:`swap_in` queues
+    every leaf's read into pinned host memory and waits once (JAX reads
+    one leaf ahead of its ``device_put``; here the leaves stay on the
+    host, so there is nothing to overlap a read with)."""
+
+    def __init__(self, swap_dir: str, num_threads: int = 4,
+                 inflight_bytes: int = 256 << 20):
+        os.makedirs(swap_dir, exist_ok=True)
+        self.swap_dir = swap_dir
+        self.aio = AsyncIOHandle(num_threads)
+        self.inflight_bytes = inflight_bytes
+        self.on_disk = False
+        self._meta: Optional[dict] = None
+        self.last_bytes = 0
+        logger.info(f"offload_param: NVMe param swapper at {swap_dir}")
+
+    def _path(self, key: str) -> str:
+        safe = key.replace("/", "_").replace(".", "_")
+        return os.path.join(self.swap_dir, f"param_{safe}.swp")
+
+    def _drain(self, what: str) -> None:
+        if self.aio.wait() != 0:
+            raise IOError(f"param {what} failed")
+
+    def swap_out(self, params: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        if self._meta is None:
+            self._meta = {k: (tuple(v.shape), v.dtype)
+                          for k, v in params.items()}
+        staged = total = 0
+        for k, v in params.items():
+            buf = v.detach()
+            if buf.device.type != "cpu" or not buf.is_contiguous():
+                buf = buf.to("cpu").contiguous()
+            self.aio.pwrite(self._path(k), buf)
+            nbytes = buf.numel() * buf.element_size()
+            staged += nbytes
+            total += nbytes
+            if staged >= self.inflight_bytes:
+                # the handle keeps queued buffers alive until wait():
+                # drain before queuing another threshold's worth
+                self._drain("swap-out")
+                staged = 0
+        self._drain("swap-out")
+        self.on_disk = True
+        self.last_bytes = total
+        return {k: torch.empty(shape, dtype=dtype, device="meta")
+                for k, (shape, dtype) in self._meta.items()}
+
+    def swap_in(self) -> Dict[str, torch.Tensor]:
+        if not self.on_disk:
+            raise RuntimeError("swap_in with no params on disk")
+        pin = torch.cuda.is_available()
+        out = {}
+        for k, (shape, dtype) in self._meta.items():
+            out[k] = torch.empty(shape, dtype=dtype, pin_memory=pin)
+            self.aio.pread(self._path(k), out[k])
+        # every leaf stays resident: queue them all, the pool's threads
+        # share the reads, and wait once
+        self._drain("swap-in")
+        self.on_disk = False
+        return out
+
+    def close(self) -> None:
+        self.aio.close()

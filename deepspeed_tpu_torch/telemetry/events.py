@@ -1,8 +1,7 @@
 """Flight-recorder event ring: the last N structured lifecycle events.
 
-Host-pure copy of ``deepspeed_tpu/telemetry/events.py`` without its fault
-dump (``install_fault_dump``, ``dump_ring``), which no ported path uses
-yet (ROADMAP.md queue A7).
+Host-pure copy of ``deepspeed_tpu/telemetry/events.py``, its fault dump
+(``install_fault_dump``, ``dump_ring``) included.
 
 Metrics (registry.py) answer "what is slow"; the event ring answers "why
 was it slow" after the fact: a bounded buffer of compile/retrace/
@@ -22,11 +21,14 @@ fault. The design constraints mirror the registry's:
 """
 from __future__ import annotations
 
+import atexit
 import json
+import sys
 import threading
 import time
+import traceback
 from collections import deque
-from typing import Any, List
+from typing import Any, Dict, List, Optional
 
 # canonical event kinds (free-form kinds are allowed; these are the ones
 # the engines emit and docs/observability.md documents)
@@ -207,3 +209,139 @@ def set_event_ring(ring: EventRing) -> EventRing:
 def record_event(kind: str, **data: Any) -> None:
     """Record into the process-wide ring."""
     _default_ring.record(kind, **data)
+
+
+def dump_ring(path: str, reason: str,
+              extra: Optional[Dict[str, Any]] = None) -> None:
+    """Write the process ring to ``path`` now — the on-demand sibling of
+    the fault hooks (the numerics watch freezes the event window that led
+    into a loss spike this way). Best-effort: a forensic dump must never
+    throw into a step path."""
+    _dump_to_path(get_event_ring(), path, reason, extra=extra)
+
+
+# --------------------------------------------------------------- fault dump
+# The ring's whole point is the crash you did not anticipate: on an
+# unhandled exception or a hard fault, the last events must reach disk
+# before the operator starts guessing. Three layers:
+#   * faulthandler — C-level faults (SIGSEGV/SIGABRT) get thread stacks
+#     written by the interpreter itself (no Python runs at that point,
+#     so the ring cannot be JSON-dumped there; the stacks land in the
+#     same file the ring is flushed to on every record-cadence exit)
+#   * sys.excepthook — an unhandled Python exception dumps the ring
+#     (plus the traceback) before the process dies
+#   * atexit — normal interpreter exit flushes the ring so a post-mortem
+#     always has the final window, crash or not
+
+_fault_state = {"installed": False, "path": None, "prev_hook": None,
+                "prev_thread_hook": None}
+_fault_lock = threading.Lock()
+
+
+def _dump_to_path(ring: EventRing, path: str, reason: str,
+                  extra: Optional[Dict[str, Any]] = None) -> None:
+    try:
+        with open(path, "w") as f:
+            payload = json.loads(ring.to_json())
+            payload["dump_reason"] = reason
+            if extra:
+                payload.update(extra)
+            json.dump(payload, f, default=str)
+    except OSError:
+        # a fault dump must never mask the original failure
+        pass
+
+
+def _excepthook(exc_type, exc, tb):
+    ring = get_event_ring()
+    path = _fault_state["path"]
+    if path:
+        _dump_to_path(
+            ring, path, "unhandled_exception",
+            extra={"exception": "".join(
+                traceback.format_exception_only(exc_type, exc)).strip()})
+    prev = _fault_state["prev_hook"] or sys.__excepthook__
+    prev(exc_type, exc, tb)
+
+
+def _thread_excepthook(hook_args):
+    """threading.excepthook sibling — an unhandled exception in a
+    serving/sampler/watchdog THREAD never reaches sys.excepthook, and
+    those are exactly the components whose crash needs forensics."""
+    path = _fault_state["path"]
+    if path:
+        _dump_to_path(
+            get_event_ring(), path, "unhandled_thread_exception",
+            extra={"thread": getattr(hook_args.thread, "name", "?"),
+                   "exception": "".join(traceback.format_exception_only(
+                       hook_args.exc_type, hook_args.exc_value)).strip()})
+    prev = _fault_state["prev_thread_hook"] or threading.__excepthook__
+    prev(hook_args)
+
+
+def _atexit_dump():
+    path = _fault_state["path"]
+    if path:
+        _dump_to_path(get_event_ring(), path, "atexit")
+
+
+def _open_stacks_file(path: str) -> None:
+    """(Re)point faulthandler at ``path + '.stacks'``. The fd stays
+    alive for the process lifetime — faulthandler writes to it from
+    signal context — so the OLD file is closed only after the new one
+    is armed."""
+    try:
+        import faulthandler
+        old = _fault_state.pop("stacks_file", None)
+        _fault_state["stacks_file"] = open(path + ".stacks", "w")
+        faulthandler.enable(_fault_state["stacks_file"])
+        if old is not None:
+            old.close()
+    except Exception:  # noqa: BLE001 — fault hooks are best-effort
+        pass
+
+
+def install_fault_dump(path: str) -> None:
+    """Arm the fault surfaces: ring JSON to ``path`` on unhandled
+    exception (main thread and threads) and at exit, faulthandler
+    (thread stacks on hard faults) to ``path + '.stacks'``. Idempotent —
+    a second install just moves the target path, the ``.stacks`` file
+    included (the operator scrapes ``<path>.stacks`` NEXT TO the
+    configured dump path, so the two must never diverge)."""
+    with _fault_lock:
+        prev_path = _fault_state["path"]
+        _fault_state["path"] = path
+        if _fault_state["installed"]:
+            if path != prev_path:
+                _open_stacks_file(path)
+            return
+        _fault_state["installed"] = True
+        _fault_state["prev_hook"] = sys.excepthook
+        sys.excepthook = _excepthook
+        _fault_state["prev_thread_hook"] = threading.excepthook
+        threading.excepthook = _thread_excepthook
+        atexit.register(_atexit_dump)
+        _open_stacks_file(path)
+
+
+def uninstall_fault_dump() -> None:
+    """Tear down (tests): restores the previous excepthook; the atexit
+    registration stays but becomes a no-op (path cleared)."""
+    with _fault_lock:
+        if not _fault_state["installed"]:
+            return
+        sys.excepthook = _fault_state["prev_hook"] or sys.__excepthook__
+        threading.excepthook = (_fault_state["prev_thread_hook"]
+                                or threading.__excepthook__)
+        _fault_state["path"] = None
+        _fault_state["installed"] = False
+        _fault_state["prev_hook"] = None
+        _fault_state["prev_thread_hook"] = None
+        f = _fault_state.pop("stacks_file", None)
+        if f is not None:
+            try:
+                import faulthandler
+                faulthandler.disable()
+                f.close()
+            except Exception:  # noqa: BLE001
+                pass

@@ -447,3 +447,71 @@ def test_engine_trajectory_matches_jax():
             tm[k], jm[k] = (np.delete(x, np.s_[E:2 * E])
                             for x in (tm[k], jm[k]))
         np.testing.assert_allclose(tm[k], jm[k], atol=lr / 10, err_msg=k)
+
+
+def test_bf16_pooler_and_nsp_step_one_agree_with_jax():
+    """ROADMAP.md D4, by design: in bf16 on the tiny BERT of
+    ``tests/test_torch_tp_training.py`` (one micro-batch of 2 rows of 32
+    masked tokens, NSP) the NSP head's forward (the pooler's
+    pre-activation, the pooled output, the logits) and the gradients of
+    ``nsp.w`` and ``nsp.b`` equal JAX's bit for bit, given the same
+    encoder output. The pooler's gradients differ only through ``tanh``'s
+    backward: XLA rounds ``t = g * (1 - y)``, ``t * y`` and ``t + t * y``
+    each in bf16 (that sequence, run in torch, gives JAX's bits exactly),
+    where torch's ``tanh_backward`` rounds ``g * (1 - y * y)`` once. The
+    pooler's gradients are pinned at under 1e-2 relative L2 from JAX's
+    (0.49% and 0.41% measured); Adam's normalisation of a leaf that sees
+    one position of 4 rows grows that over 3 steps."""
+    jm = jax_bert.BertPreTrainingModel(jax_bert.BertConfig(
+        **TINY, dtype=jnp.bfloat16))
+    tree = jax.device_get(_draw(np.random.default_rng(5), jax.eval_shape(
+        jm._build_params, jax.random.PRNGKey(0))))
+    jp = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), tree)
+    tp = {k: v.float().to(torch.bfloat16) for k, v in
+          bert_params_from_jax(tree).items()}
+    b = _bert_batch(10, B=2, T=32, masked=True)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    x0 = jm.encode(jp, jb["input_ids"], jb["attention_mask"],
+                   jb["token_type_ids"], deterministic=True)[:, 0]
+
+    def jhead(pw, pb, nw, nb, x0):
+        pre = x0 @ pw + pb
+        pooled = jnp.tanh(pre)
+        lg = (pooled @ nw.astype(pooled.dtype)).astype(jnp.float32) + nb
+        ll = jnp.take_along_axis(jax.nn.log_softmax(lg, -1),
+                                 jb["nsp_labels"][:, None], -1)[:, 0]
+        return -jnp.mean(ll), (pre, pooled, lg)
+
+    names = ("pooler.w", "pooler.b", "nsp.w", "nsp.b")
+    (_, jfwd), jg = jax.value_and_grad(jhead, argnums=(0, 1, 2, 3),
+                                       has_aux=True)(
+        jp["pooler"]["w"], jp["pooler"]["b"], jp["nsp"]["w"],
+        jp["nsp"]["b"], x0)
+    w = [tp[n].clone().requires_grad_(True) for n in names]
+    xt = torch.tensor(np.asarray(x0, np.float32)).to(torch.bfloat16)
+    pre = port_tf.matmul(xt, w[0]) + w[1]
+    pre.retain_grad()
+    pooled = torch.tanh(pre)
+    pooled.retain_grad()
+    lg = (pooled @ w[2].to(pooled.dtype)).float() + w[3]
+    nsp = torch.as_tensor(b["nsp_labels"]).long()
+    (-torch.log_softmax(lg, -1).gather(-1, nsp[:, None])[:, 0].mean()
+     ).backward()
+    f32 = lambda t: np.asarray(t, np.float32)   # noqa: E731
+    for got, want in zip((pre, pooled, lg), jfwd):
+        np.testing.assert_array_equal(f32(got.detach().float()), f32(want))
+    for n, t, j in zip(names, w, jg):
+        got, want = f32(t.grad.float()), f32(j)
+        if n.startswith("nsp."):
+            np.testing.assert_array_equal(got, want, err_msg=n)
+        else:
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert 0 < rel < 1e-2, (n, rel)
+    # XLA's rounding order, run in torch, is JAX's pooler gradient
+    g, y = pooled.grad, pooled.detach()
+    t = g * (1 - y)
+    jdpre = jax.grad(lambda p: jhead(jp["pooler"]["w"], p, jp["nsp"]["w"],
+                                     jp["nsp"]["b"], x0)[0])(
+        jp["pooler"]["b"])
+    np.testing.assert_array_equal(f32((t + t * y).sum(0).float()),
+                                  f32(jdpre))

@@ -39,6 +39,8 @@ to every printed digit across stages); it runs stages 0 and 3 in fp32 and
 stage 3 in bf16 here, and the port's other stages (and its host offload,
 bf16 stage 2) are held to its stage 3.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -234,6 +236,14 @@ def two(tmp_path_factory):
     runs["sparse"] = (SPARSE_DS, {"sparse": True, "params":
                                   W.untied_params(),
                                   "batches": _sparse_batches()})
+    # the NVMe tier over 2 ranks: each rank swaps its blocks under
+    # nvme_path/rank<r>
+    nv = str(tmp / "nvme")
+    runs["nvme"] = (_ds(3, zero_optimization={
+        "stage": 3, "offload_optimizer": {"device": "nvme",
+                                          "nvme_path": nv},
+        "offload_param": {"device": "nvme", "nvme_path": nv}},
+        telemetry={"numerics_enabled": True}), {"fetch": True})
     runs["ck_save"] = (s3, {"fetch": True, "steps": 1, "tag_dir": "ck_dp2",
                             "save_after": 1})
     runs["ck_load"] = (s3, {"fetch": True, "first": 1, "load": True,
@@ -245,8 +255,10 @@ def two(tmp_path_factory):
     one = W.train_run(params, ONE, gb, 0, 1)
     off_resumed = W.train_run(params, off_one, gb, 0, 1, first=1, load=True,
                               tag_dir=str(tmp / "engine_runs_2" / "off_dp2"))
+    swapped = {r: sorted(os.listdir(os.path.join(nv, r)))
+               for r in sorted(os.listdir(nv))}
     return {"ranks": ranks, "params": params, "gb": gb, "resumed": resumed,
-            "one": one, "off_resumed": off_resumed}
+            "one": one, "off_resumed": off_resumed, "swapped": swapped}
 
 
 @pytest.fixture(scope="module")
@@ -327,6 +339,28 @@ def test_host_offload_at_dp2_matches_jax(two, jax_dp2):
     r0, r1 = two["ranks"]
     for k, v in r0["offload"]["params"].items():
         np.testing.assert_array_equal(v, r1["offload"]["params"][k])
+
+
+def test_nvme_at_dp2_equals_one_process(two):
+    """``offload_optimizer`` and ``offload_param`` on NVMe at stage 3 over
+    2 ranks: the ranks agree and equal one process to the fp32
+    tolerances; each rank's swap files (its blocks' moments and params)
+    sit under its own ``rank<r>``. Numerics is on in this run."""
+    r0, r1 = (r["nvme"] for r in two["ranks"])
+    assert_fp32(r0, two["one"])
+    assert r0["loss"] == r1["loss"]
+    for k, v in r0["params"].items():
+        np.testing.assert_array_equal(v, r1["params"][k])
+    # numerics over ranks: each rank's block shares, one all-reduce; the
+    # blocks' squared grad norms sum to the step's global one
+    assert r0["numerics"] == r1["numerics"]
+    gsq = sum(b["grad_norm"] ** 2 for b in r0["numerics"]["blocks"])
+    np.testing.assert_allclose(gsq, r0["grad_norm"][-1] ** 2, rtol=1e-5)
+    sw = two["swapped"]
+    assert list(sw) == ["rank0", "rank1"]
+    assert sw["rank0"] == sw["rank1"]
+    assert any(f.startswith("param_") for f in sw["rank0"])
+    assert any(f.endswith(".m.swp") for f in sw["rank0"])
 
 
 class JaxUntied:

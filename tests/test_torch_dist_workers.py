@@ -214,6 +214,8 @@ def train_run(params, ds, global_batches, rank, ws, dtype="float32",
     out["skipped_steps"] = eng.skipped_steps
     out["dims"] = dict(eng.part.dims) if eng.part is not None else None
     out["sparse_caps"] = dict(eng._sparse_grad_caps)
+    if eng._numerics_on:
+        out["numerics"] = eng.numerics.snapshot()["last"]
     out["engine"] = eng
     return out
 

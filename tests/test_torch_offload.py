@@ -14,7 +14,7 @@ training engine, against the JAX engine on the CPU.
   JAX's keys; fp16 with overflowing batches: the skipped steps and the
   loss-scale sequence exactly.
 * ZeRO stages 1-3 give stage 0's numbers bit for bit (one device).
-* JAX's refusals, with JAX's words; the NVMe tier names A6c.
+* JAX's refusals, with JAX's words (the NVMe tier: ``tests/test_torch_nvme.py``).
 * Checkpoints of the offloaded engine: ``host_optimizer.npz`` with JAX's
   keys, a resume bit for bit, ``load_module_only`` re-seeding the master,
   ``zero_to_fp32`` reading the host master, the DeepSpeed importer.
@@ -333,16 +333,6 @@ def test_offload_refuses_non_adam():
                                              "params": {"lr": 1e-3}})
     with pytest.raises(ValueError, match="Adam-family"):
         _port(ds)
-
-
-@pytest.mark.parametrize("zero", [
-    {"stage": 1, "offload_optimizer": {"device": "nvme",
-                                       "nvme_path": "swap"}},
-    {"stage": 3, "offload_param": {"device": "nvme", "nvme_path": "swap"}}],
-    ids=["optimizer", "param"])
-def test_nvme_names_a6c(zero):
-    with pytest.raises(NotImplementedError, match="queue C, A6c"):
-        _port({"zero_optimization": zero})
 
 
 # ---------------------------------------------------------- checkpoints

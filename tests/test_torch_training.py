@@ -273,15 +273,12 @@ def test_config_errors_match_jax():
 
 
 @pytest.mark.parametrize("extra", [
-    # ZeRO stages 1-3 and the cpu offload tiers run (test_torch_offload.py,
-    # test_torch_param_offload.py), and so do the data, fsdp, tensor and seq
-    # axes and sparse_gradients over ranks (test_torch_dist_parity.py,
-    # test_torch_tp_training.py); the NVMe tier and the pipe axis, beside
-    # the seq or tensor axis too, do not
-    {"zero_optimization": {"stage": 1, "offload_optimizer": {
-        "device": "nvme", "nvme_path": "swap", "implementation": "host"}}},
-    {"zero_optimization": {"stage": 3, "offload_param": {
-        "device": "nvme", "nvme_path": "swap"}}},
+    # ZeRO stages 1-3 and the cpu and nvme offload tiers run
+    # (test_torch_offload.py, test_torch_param_offload.py,
+    # test_torch_nvme.py), and so do the data, fsdp, tensor and seq axes
+    # and sparse_gradients over ranks (test_torch_dist_parity.py,
+    # test_torch_tp_training.py); the pipe axis, beside the seq or tensor
+    # axis too, does not
     {"zero_optimization": {"stage": 3}, "mesh": {"seq": 2, "pipe": 2}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
     {"mesh": {"pipe": 2}},
