@@ -112,7 +112,25 @@ kernel's row.
    verify step as a CUDA graph, which must have replayed; (a), (c) and (d)
    are each run again with the graphs off (the eager control) and must
    serve the same tokens. One paged decode step at S=8 is timed eager and
-   replayed (host enqueue, device time).
+   replayed (host enqueue, device time). The observability plane: (a) runs
+   with every piece armed (request tracing at rate 1, an SLO with load
+   shedding on a loose queue-wait objective and one tight decode objective
+   that must fire, the canary, incident bundles, the HTTP endpoint on an
+   ephemeral port of 127.0.0.1, a profiler capture of 4 decode steps) and
+   its eager control with it; every route of the endpoint answers 200 with
+   JSON or Prometheus text that parses, each request's trace covers queue
+   wait, admission, prefill and decode, the requests' ``request_cost``
+   and the canary probes' excluded records sum to the step profiler's
+   device-attributed total (within OBSERVE_COST_TOL), the profiler's
+   phases sum to its wall, the tight objective fired once and left one
+   incident bundle holding ring events, the canary scored only successes,
+   and the capture's Chrome trace names ``paged_split_kernel``. Then (a)'s
+   requests once more with ``step_profile`` and accounting off: the same
+   tokens and one decode graph (the plane's cost on the clock is
+   ``scripts/observe_cost.py``'s). (d) runs with the default plane plus
+   tracing and logs ``serve_kv_swap_seconds`` (the demotions of its first
+   round alone, then both directions) with GB/s, and the step profiler's
+   ``serve_step_phase_seconds`` for its chunk steps.
 9a. spec — speculative decoding and beam search over phase e2e's weights,
    with a GPT-2 (124M) draft at its published widths and depth (HF
    openai-community/gpt2 config.json: 12 layers, 768 wide, 12 heads of
@@ -252,8 +270,8 @@ kernel's row.
    async engine at gpt2-1.3b's width and 2 layers: a save at step 2,
    steps 3-4 while the write may run, ``destroy`` joins, and a fresh
    engine loads the step-2 state bit for bit.
-10c. offload — ZeRO-Offload. (i) ``llama-7b-gqa`` at full width and 24
-   of its 32 layers (5,496,836,096 parameters), bf16, AdamW, ``stage 1,
+10c. offload — ZeRO-Offload. (i) ``llama-7b-gqa`` at full width and 20
+   of its 32 layers (4,624,388,096 parameters), bf16, AdamW, ``stage 1,
    offload_optimizer: {device: cpu, implementation: host}``, micro 2 x
    gas 1 x T 4096, remat, two steps: the port's
    ``estimate_zero_model_states_mem_needs`` puts the in-HBM state above
@@ -2635,10 +2653,12 @@ def phase_checkpoint():
     return runs
 
 
-# phase offload: llama-7b-gqa at 24 of its 32 layers, whose in-HBM state
+# phase offload: llama-7b-gqa at 20 of its 32 layers, whose in-HBM state
 # (bf16 params, f32 master, mu, nu, grads: 18 bytes a parameter) exceeds
-# the card; the optimizer state goes to the host (12 bytes a parameter)
-OFFLOAD_LLAMA = ("llama-7b-gqa", {"n_layer": 24}, 2, 1, 4096, 5496836096)
+# the card; the optimizer state goes to the host (12 bytes a parameter).
+# 20 layers, not 24, keep chip_smoke.py inside its time: the engine init's
+# host copying and zeroing scales with the depth
+OFFLOAD_LLAMA = ("llama-7b-gqa", {"n_layer": 20}, 2, 1, 4096, 4624388096)
 OFFLOAD_STEPS = 2
 OFFLOAD_GPT2_LAYERS = 2     # gpt2-1.3b's width, the four engines
 OFFLOAD_GPT2_STEPS = 3
@@ -2724,7 +2744,7 @@ def _adam_gate(tag, engine, name, master0, lr):
 
 
 def _offload_llama(smi):
-    """(i) llama-7b-gqa at 24 of 32 layers with offload_optimizer host:
+    """(i) llama-7b-gqa at 20 of 32 layers with offload_optimizer host:
     the estimate, two steps with their split, the Adam gate, the bf16
     params against the host master, B3 at R = 4."""
     from deepspeed_tpu_torch.models import llama as llama_mod
@@ -3052,7 +3072,7 @@ def _nvme_log(tag, engine, times, on_disk, L, gsteps):
 
 
 def phase_offload(smi):
-    """ZeRO-Offload on the card: (i) llama-7b-gqa at 24 of its 32 layers,
+    """ZeRO-Offload on the card: (i) llama-7b-gqa at 20 of its 32 layers,
     whose in-HBM training state exceeds the card, with the optimizer state
     on the host; (ii) gpt2-1.3b's four engines. Writes its checkpoint under
     a temporary directory of the checkout's ``build/``, removed at the
@@ -3914,19 +3934,21 @@ def _graph_log(tag, name, graph):
 
 
 def _serve_run(engine, name, knobs, batches, new, between=None,
-               drain_each=False, graphs=True, draft=None):
+               drain_each=False, graphs=True, draft=None, registry=None):
     """One server over ``engine`` with config ``knobs`` (and the draft
-    engine ``draft``): submit each batch of prompts in turn, stepping
-    ``between(srv, i)`` steps after batch i (or, with ``drain_each``, until
-    the batch is served), then drain. Its decode or verify step (and a
-    draft's decode step) runs as a CUDA graph, which must have replayed,
-    unless ``graphs`` is False (the eager control). The kernel counts are
-    set to 0 just before and read just after. Returns (server, request
-    ids, outputs, counts, tokens per second)."""
+    engine ``draft``, the metrics registry ``registry``): submit each batch
+    of prompts in turn, stepping ``between(srv, i)`` steps after batch i
+    (or, with ``drain_each``, until the batch is served), then drain. Its
+    decode or verify step (and a draft's decode step) runs as a CUDA graph,
+    which must have replayed, unless ``graphs`` is False (the eager
+    control). The kernel counts are set to 0 just before and read just
+    after. Returns (server, request ids, outputs, counts, tokens per
+    second)."""
     from deepspeed_tpu_torch.inference import (ContinuousBatchingServer,
                                                DeepSpeedInferenceConfig)
     engine.config = DeepSpeedInferenceConfig(dtype="bfloat16", **knobs)
-    srv = ContinuousBatchingServer(engine, draft_engine=draft)
+    srv = ContinuousBatchingServer(engine, draft_engine=draft,
+                                   registry=registry)
     srv._cuda_graphs = graphs
     torch.cuda.synchronize()
     walls, ids = [], []
@@ -3982,6 +4004,9 @@ def _eager_control(engine, name, knobs, batches, new, ids, out, **kw):
     """The same server run again with its step graphs off: it must serve
     the graphed run's tokens exactly (the same kernels on the same
     inputs)."""
+    if "telemetry" in knobs:
+        from deepspeed_tpu_torch.telemetry import MetricRegistry
+        kw.setdefault("registry", MetricRegistry())
     srv, cids, ref, _, _ = _serve_run(engine, name, knobs, batches, new,
                                       graphs=False, **kw)
     srv.close()
@@ -4098,6 +4123,139 @@ def _check_served(engine, name, ids, out, prompts, counts, expect, new,
 
 EAGER_CONTROLS = ("default", "speculation K=4", "int8+prefix+chunked+offload")
 
+# server (a)'s observability plane: every piece armed. The queue-wait
+# objective is loose (nothing is shed); the decode objective is tight and
+# must fire. The canary probes every OBSERVE_CANARY_S through the real path.
+OBSERVE_TIGHT_S = 1e-5      # decode step p90 objective, seconds
+OBSERVE_CANARY_S = 0.5
+OBSERVE_TELEMETRY = {
+    "trace_sample_rate": 1.0, "http_port": 0,
+    "slo": {"enabled": True, "queue_wait_p90_s": 600.0,
+            "eval_interval_s": 0.25,
+            "objectives": {"decode_tight": {
+                "signal": "decode_p90_s", "threshold": OBSERVE_TIGHT_S,
+                "fast_window_s": 1.0, "slow_window_s": 2.0}}},
+    "canary": {"enabled": True, "interval_s": OBSERVE_CANARY_S,
+               "timeout_s": 60.0},
+    "incident": {"enabled": True},
+}
+OBSERVE_COST_TOL = 0.01     # summed request costs vs the profiler's
+OBSERVE_CAPTURE_STEPS = 4
+OFF_TELEMETRY = {"step_profile": False, "accounting": {"enabled": False}}
+
+
+def _routes(tag, port):
+    """Every route of the scrape endpoint answers 200: Prometheus text
+    naming the serving counters, or JSON that parses."""
+    import urllib.request
+
+    from deepspeed_tpu_torch.telemetry.exporter import ROUTES
+    sizes = {}
+    for path in ROUTES:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            body = r.read().decode()
+            check(r.status == 200, f"{tag}: {path} answered {r.status}")
+            ctype = r.headers["Content-Type"]
+        if ctype == "application/json":
+            json.loads(body)
+        elif path == "/metrics":
+            check("# TYPE serve_tokens_total counter" in body,
+                  f"{tag}: /metrics without the serving counters")
+        sizes[path] = len(body)
+    log(f"[{tag}] scrape endpoint on port {port}: every route answered 200 "
+        f"(bytes {sizes})")
+
+
+def _observed(tag, srv, ids, capture_dir):
+    """Server (a)'s plane gates, read while the server is still open."""
+    _routes(tag, srv.http_server.port)
+    traces = {t.trace_id: t.to_dict()["root"] for t in srv.tracer.traces()}
+    for r in ids:
+        names = {c["name"] for c in traces[r]["children"]}
+        check({"queue_wait", "admission", "prefill", "decode"} <= names,
+              f"{tag}: request {r}'s trace has only {sorted(names)}")
+    st = srv.stats
+    prof, acct = st["step_profile"], st["accounting"]
+    # every request's cost record, the canary's probes (excluded records,
+    # no tenant) among them: together they hold the profiler's device time
+    costs = {r: srv.request_cost(r) for r in range(srv._next_id)}
+    probes = [c for r, c in costs.items() if r not in ids]
+    check(all(costs[r] is not None and costs[r]["device_s"] > 0
+              and not costs[r].get("excluded") for r in ids)
+          and all(c is not None and c.get("excluded") for c in probes),
+          f"{tag}: cost records {costs}")
+    user = sum(costs[r]["device_s"] for r in ids)
+    canary_s = sum(c["device_s"] for c in probes)
+    check(abs(user + canary_s - prof["device_s"]) <= OBSERVE_COST_TOL
+          * prof["device_s"],
+          f"{tag}: request costs {user} s and canary probes {canary_s} s "
+          f"of the profiler's {prof['device_s']} s")
+    phases = sum(prof["phases_s"].values())
+    check(abs(phases - prof["wall_s"]) <= 1e-6 * prof["wall_s"],
+          f"{tag}: phases sum to {phases} s, the wall is {prof['wall_s']} s")
+    alerts, inc, canary = st["alerts"], st["incidents"], st["canary"]
+    check(alerts["fired_total"] == 1 and alerts["firing"] == [
+        "decode_tight"], f"{tag}: the tight objective: {alerts}")
+    check(inc["captured_total"] == 1 and inc["incidents"][0]["events"],
+          f"{tag}: incidents {inc['captured_total']}, bundle without ring "
+          f"events")
+    res = canary["results"]
+    check(res["success"] >= 1 and res["success"] == canary["probes"],
+          f"{tag}: canary {canary}")
+    files = [os.path.join(capture_dir, f) for f in os.listdir(capture_dir)]
+    check(len(files) == 1, f"{tag}: capture wrote {files}")
+    with open(files[0]) as f:
+        trace_text = f.read()
+    check("paged_split_kernel" in trace_text,
+          f"{tag}: the captured trace names no paged_split_kernel")
+    log(f"[{tag}] plane: {len(ids)} request traces cover queue_wait/"
+        f"admission/prefill/decode; request costs {user!r} s of device "
+        f"+ {len(probes)} canary probes {canary_s!r} s vs profiler "
+        f"{prof['device_s']!r} s; phases sum {phases!r} s = wall "
+        f"{prof['wall_s']!r} s; goodput {prof['goodput_fraction']!r}, "
+        f"dispatch gap {prof['dispatch_gap']}; tight objective fired "
+        f"{alerts['fired_total']}x, incidents {inc['captured_total']} "
+        f"(bundle keys {sorted(inc['incidents'][0])}); canary {res}, "
+        f"latency p50 {canary['latency_p50_ms']!r} ms; capture "
+        f"{os.path.basename(files[0])} ({len(trace_text)} bytes); "
+        f"capacity {srv.capacity_snapshot()}; accounting {acct}")
+
+
+def _hist(reg, name, labels=None):
+    """One series of a registry histogram: count, mean (exact: sum over
+    count), p50 and p90 (interpolated in its factor-2 buckets)."""
+    for ser in reg.snapshot()[name]["series"]:
+        if labels is None or ser["labels"] == labels:
+            n = ser["count"]
+            return {"count": n, "mean": ser["sum"] / n if n else None,
+                    "p50": ser["p50"], "p90": ser["p90"]}
+    return None
+
+
+def _swap_log(tag, srv, reg, first_round):
+    """Log (d)'s host-tier copies from ``serve_kv_swap_seconds`` (one
+    series for both directions, as JAX's): the first round's (demotions
+    alone: its prefixes are all different, so nothing is swapped in) and
+    the whole run's, with GB/s at the mean; and the step profiler's
+    ``serve_step_phase_seconds`` of its phases."""
+    nbytes = srv.host_tier.block_nbytes
+    whole = {"demotions": reg.snapshot()["serve_kv_swap_out_total"][
+        "series"][0]["value"], "swap-ins": reg.snapshot()[
+        "serve_kv_swap_in_total"]["series"][0]["value"],
+        **_hist(reg, "serve_kv_swap_seconds")}
+    parts = []
+    for what, h in (("first round", first_round), ("whole run", whole)):
+        gbs = nbytes / h["mean"] / 1e9 if h["mean"] else None
+        parts.append(f"{what} {h}: {gbs!r} GB/s at the mean")
+    log(f"[{tag}] host tier copies of {nbytes} bytes a block, "
+        f"serve_kv_swap_seconds: {'; '.join(parts)}")
+    phases = {ser["labels"]["phase"]: _hist(reg, "serve_step_phase_seconds",
+                                            ser["labels"])
+              for ser in reg.snapshot()["serve_step_phase_seconds"]["series"]}
+    log(f"[{tag}] serve_step_phase_seconds by phase: {phases}; step wall "
+        f"{_hist(reg, 'serve_step_wall_seconds')}")
+
 
 def phase_serve(cfg, params, eager=EAGER_CONTROLS):
     """The paged server at GPT-2 XL width through five configurations,
@@ -4105,11 +4263,14 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
     before each run and read just after. The servers named in ``eager``
     are run again with their step graphs off and must serve the same
     tokens."""
+    import tempfile
+
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.cuda_graph import GraphedStep
     from deepspeed_tpu_torch.inference.kv_cache import init_paged_cache
     from deepspeed_tpu_torch.model_implementations.transformer import \
         paged_decode_step
+    from deepspeed_tpu_torch.telemetry import MetricRegistry
     engine = deepspeed_tpu_torch.init_inference((cfg, params),
                                                 dtype="bfloat16")
     L, V, new = cfg.n_layer, cfg.vocab_size, 32
@@ -4132,18 +4293,46 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
     def a_between(srv, i):
         return 4 if i == 0 else 0
 
-    srv, ids, out, counts, _ = _serve_run(
-        engine, "default", {}, a_batches, new, between=a_between)
-    st = srv.stats
-    fp_pool = (st["kv_tier"]["pool_bytes"], srv._cache.num_blocks)
-    verify("default", srv, ids, out, prompts, counts, {
-        "flash_attention_fwd": L * st["prefills"],
-        "paged_decode_attention": L * (
-            st["decode_steps"] + st["async_loop"]["garbage_steps"])})
-    del srv
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    capture_dir = tempfile.mkdtemp(prefix="capture_smoke_", dir=root)
+
+    def a_capture(srv, i):
+        if i == 0:
+            srv.capture_decode_steps(OBSERVE_CAPTURE_STEPS, capture_dir)
+        return a_between(srv, i)
+
+    a_knobs = {"enable_load_shedding": True, "telemetry": OBSERVE_TELEMETRY}
+    try:
+        srv, ids, out, counts, _ = _serve_run(
+            engine, "default", a_knobs, a_batches, new, between=a_capture,
+            registry=MetricRegistry())
+        st = srv.stats
+        fp_pool = (st["kv_tier"]["pool_bytes"], srv._cache.num_blocks)
+        _observed("serve", srv, ids, capture_dir)
+        port = srv.http_server.port
+        verify("default", srv, ids, out, prompts, counts, {
+            "flash_attention_fwd": L * st["prefills"],
+            "paged_decode_attention": L * (
+                st["decode_steps"] + st["async_loop"]["garbage_steps"])})
+        check(srv.http_server is None, "serve: close() kept the endpoint")
+        del srv
+    finally:
+        shutil.rmtree(capture_dir, ignore_errors=True)
     if "default" in eager:
-        _eager_control(engine, "default", {}, a_batches, new, ids, out,
+        _eager_control(engine, "default", a_knobs, a_batches, new, ids, out,
                        between=a_between)
+    # (a)'s requests with the default plane off: the same tokens and one
+    # decode graph (the plane adds no sync and changes no captured step)
+    srv, pids, pout, _, _ = _serve_run(
+        engine, "default plane off", {"telemetry": OFF_TELEMETRY}, a_batches,
+        new, between=a_between, registry=MetricRegistry())
+    check(srv._profiler is None and srv._ledger is None
+          and [pout[r] for r in pids] == [out[r] for r in ids]
+          and srv.stats["decode_traces"] == 1,
+          "serve: the plane-off run served other tokens or captured again")
+    srv.close()
+    del srv
 
     # one paged decode step at S=8 on its own: host enqueue vs device
     pool = init_paged_cache(L, 8, 65, 128, 8, cfg.kv_heads, cfg.head_dim,
@@ -4249,12 +4438,31 @@ def phase_serve(cfg, params, eager=EAGER_CONTROLS):
     rounds = [[p + rng.integers(0, V, n).tolist() for p, n in
                zip(prefixes, rng.integers(8, 65, 5))] for _ in range(2)]
     prompts = rounds[0] + rounds[1]
-    d_knobs = {**int8_knobs, "kv_host_offload": True, "max_out_tokens": 1024}
+    d_knobs = {**int8_knobs, "kv_host_offload": True, "max_out_tokens": 1024,
+               "telemetry": {"trace_sample_rate": 1.0}}
+    d_reg, first = MetricRegistry(), {}
+
+    def after_first_round(srv, i):
+        if i == 1:
+            snap = d_reg.snapshot()
+            check(snap["serve_kv_swap_in_total"]["series"][0]["value"] == 0,
+                  "serve int8+offload: a swap-in in the first round")
+            first.update(_hist(d_reg, "serve_kv_swap_seconds"))
+        return 0
     srv, ids, out, counts, _ = _serve_run(
         engine, "int8+prefix+chunked+offload", d_knobs, rounds, new,
-        drain_each=True)
+        between=after_first_round, drain_each=True, registry=d_reg)
     st = srv.stats
     tier = st["kv_tier"]
+    _swap_log("serve", srv, d_reg, first)
+    prof = st["step_profile"]
+    log(f"[serve] int8+offload step profile: {prof['steps']} steps, wall "
+        f"{prof['wall_s']!r} s, device-attributed {prof['device_s']!r} s "
+        f"(goodput {prof['goodput_fraction']!r}), by phase (s) "
+        f"{prof['phases_s']}, dispatch gap {prof['dispatch_gap']}; "
+        f"{prof['phases_s'].get('prefill_chunk', 0.0) / max(st['prefill_chunks'], 1)!r}"
+        f" s of prefill_chunk phase a chunk over {st['prefill_chunks']} "
+        f"chunks; kv pool {st['kv_pool']}")
     check(tier["kv_dtype"] == "int8" and tier["demotions"] > 0
           and tier["swap_ins"] > 0,
           f"serve int8+offload: no demotion or swap-in ({tier})")

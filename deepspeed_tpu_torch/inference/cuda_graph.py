@@ -48,6 +48,12 @@ its side stream, its ``torch.cuda.CUDAGraph`` and its static output:
   server run such steps eagerly (decided at their construction), and a
   gloo collective met during a capture raises rather than be left out of
   the replay.
+* **Compile watch.** With ``watch`` (a
+  :class:`~deepspeed_tpu_torch.telemetry.compile_watch.WatchedFunction`)
+  the capture is recorded as the step's compile, keyed by the static
+  inputs' shapes and dtypes, with the capture's host wall as its time.
+  Replays never build a key: the static inputs are the same tensors
+  every step, so there is nothing new to see.
 * **No fallback.** A capture or a replay that fails raises. The callers
   create a GraphedStep only for a CUDA device; on the CPU their steps run
   eagerly.
@@ -79,7 +85,8 @@ class GraphedStep:
 
     def __init__(self, name: str, fn: Callable[..., torch.Tensor],
                  inputs: Sequence[torch.Tensor],
-                 state: Callable[[], Sequence[Optional[torch.Tensor]]]):
+                 state: Callable[[], Sequence[Optional[torch.Tensor]]],
+                 watch=None):
         device = inputs[0].device
         if device.type != "cuda":
             raise ValueError(f"{name}: a CUDA graph needs CUDA inputs, got "
@@ -88,6 +95,7 @@ class GraphedStep:
         self.inputs = tuple(inputs)
         self._fn = fn
         self._state = state
+        self.watch = watch
         self._counters = launch_counters()
         self.stream = torch.cuda.Stream(device)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -148,6 +156,8 @@ class GraphedStep:
         self._addresses = self._state_addresses()
         self.graph, self.output = graph, out
         self.captures += 1
+        if self.watch is not None:
+            self.watch.record_compile(self.inputs, {}, self.capture_s)
 
     def _replay(self) -> None:
         if self._state_addresses() != self._addresses:

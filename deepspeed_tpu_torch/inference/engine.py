@@ -71,8 +71,12 @@ choices. Over NCCL the decode and verify graphs capture their
 all-reduces; under gloo (host collectives, which a graph cannot capture)
 the steps run eagerly, as the engine logs once.
 
-Not in this slice (ROADMAP.md queue C): expert-parallel meshes, MoE and
-request tracing.
+``generate`` traces as JAX's does (``trace_sample_rate > 0``: a root with
+``prefill_dispatch``, ``decode_dispatch`` and ``fetch`` children), and its
+prefill and decode programs are under the compile watch (``infer_prefill``,
+``infer_decode``; a decode graph's capture is its compile).
+
+Not in this slice (ROADMAP.md queue C): expert-parallel meshes and MoE.
 """
 from __future__ import annotations
 
@@ -104,10 +108,11 @@ from deepspeed_tpu_torch.ops.head_dim import warn_if_padded
 from deepspeed_tpu_torch.parallel.tensor_parallel import (gather_tree,
                                                           shard_tree,
                                                           tp_param_specs)
-from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
+from deepspeed_tpu_torch.telemetry import (MetricRegistry, Tracer,
+                                           get_registry)
+from deepspeed_tpu_torch.telemetry.compile_watch import watched
 from deepspeed_tpu_torch.utils.logging import logger
-
-_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
+from deepspeed_tpu_torch.utils.unported import not_ported
 # host checks for an all-done batch every this many decode steps
 DONE_CHECK_EVERY = 8
 NEG_INF = -1e30
@@ -226,7 +231,7 @@ class InferenceEngine:
         self.model_config = dataclasses.replace(self.model_config,
                                                 dtype=self._act_dtype)
         if self.model_config.num_experts > 0:
-            raise NotImplementedError(f"MoE layers (_moe_mlp) {_LATER}")
+            raise NotImplementedError(not_ported("MoE layers (_moe_mlp)"))
         if not c.triangular_masking and self.model_config.pre_layer_norm \
                 and self.model_config.head != "none":
             raise NotImplementedError(
@@ -264,11 +269,26 @@ class InferenceEngine:
             self.sp = mesh_shape(self.mesh)["seq"]
         self.params = self._place_params(params)
         tcfg = c.telemetry
-        if tcfg.enabled and tcfg.trace_sample_rate > 0:
-            raise NotImplementedError(f"request tracing {_LATER}")
         # process-wide registry; telemetry.enabled=false records into a
         # private one, so nothing reaches the process scrape surface
         self.telemetry = get_registry() if tcfg.enabled else MetricRegistry()
+        # request-scoped tracing: a generate() call gets a two-level trace
+        # (root + dispatch/fetch children) under the server's sampling
+        # config
+        self.tracer = None
+        if tcfg.enabled and tcfg.trace_sample_rate > 0:
+            self.tracer = Tracer(
+                sample_rate=tcfg.trace_sample_rate,
+                ring_capacity=tcfg.trace_ring_capacity,
+                seed=tcfg.trace_seed,
+                slow_threshold_s=tcfg.trace_slow_threshold_s,
+                registry=self.telemetry)
+        # the compile watch over generate's programs (JAX's names): an
+        # eager program's new signature, or a decode graph's capture
+        self._prefill_w = watched(self._prefill_program, "infer_prefill",
+                                  registry=self.telemetry)
+        self._decode_w = watched(self._decode_program, "infer_decode",
+                                 registry=self.telemetry)
         # generate's decode step as a CUDA graph; False runs it eagerly on
         # CUDA too (the control a check compares with). A graph cannot
         # capture a host (gloo) collective: such a mesh runs eagerly
@@ -286,6 +306,19 @@ class InferenceEngine:
         self.model_profile_enabled = False
         self._profile_events = False
         self._model_times: list = []
+
+    def _prefill_program(self, input_ids, lengths, cache: KVCache):
+        return prefill(self.params, self.model_config, input_ids, lengths,
+                       cache)
+
+    def _decode_program(self, tok, cache: KVCache):
+        return decode_step(self.params, self.model_config, tok, cache)[0]
+
+    def _fail_trace(self, tr, exc: BaseException) -> None:
+        """Finish a generation trace as an error (always kept)."""
+        if tr is not None and tr.root.end is None:
+            tr.root.set("error", type(exc).__name__)
+            self.tracer.finish(tr, status="error")
 
     def _record_generate(self, dt: float) -> None:
         self.telemetry.histogram(
@@ -399,11 +432,14 @@ class InferenceEngine:
         def eager(tok):
             return decode_step(params, cfg, tok, cache)[0]
 
+        def watched_eager(tok):
+            return self._decode_w(tok, cache)
+
         attr = next((a for a in ("_kept", "_kept_draft")
                      if getattr(self, a) is not None
                      and getattr(self, a)[1] is cache), None)
         if not self._cuda_graphs or attr is None:
-            return eager
+            return watched_eager
         kept = getattr(self, attr)
         graph = kept[2]
         if graph is None:
@@ -412,7 +448,8 @@ class InferenceEngine:
                 else "generate_draft_decode", eager,
                 (torch.zeros(cache.lengths.shape[0], dtype=torch.long,
                              device=self.device),),
-                lambda: (cache.k, cache.v, cache.lengths))
+                lambda: (cache.k, cache.v, cache.lengths),
+                watch=self._decode_w)
             setattr(self, attr, (kept[0], cache, graph))
 
         def step(tok):
@@ -588,31 +625,59 @@ class InferenceEngine:
                     "temperature=0 means greedy and would silently ignore "
                     "them")
         eos = -1 if eos_token_id is None else int(eos_token_id)
-        with torch.inference_mode():
-            if num_beams > 1:
-                # every beam shares the prefix: a tiled prefill, one row a
-                # beam
-                cache = self._make_cache(B * num_beams, max_seq)
-                logits, cache = prefill(
-                    self.params, self.model_config,
-                    torch.as_tensor(np.repeat(ids, num_beams, axis=0),
-                                    dtype=torch.long, device=self.device),
-                    torch.as_tensor(np.repeat(lengths, num_beams, axis=0),
-                                    device=self.device), cache)
-                out, n_gen = self._beam_loop(logits, cache, lengths,
-                                             max_new_tokens, num_beams, eos,
-                                             float(length_penalty))
-            else:
-                cache = self._make_cache(B, max_seq)
-                logits, cache = prefill(
-                    self.params, self.model_config,
-                    torch.as_tensor(ids, dtype=torch.long,
-                                    device=self.device),
-                    torch.as_tensor(lengths, device=self.device), cache)
-                out, n_gen = self._generate_loop(
-                    logits, cache, ids, lengths, max_new_tokens,
-                    float(temperature), int(top_k), float(top_p), eos,
-                    float(repetition_penalty), int(min_new_tokens), seed)
+        # two-level request trace: root + dispatch/fetch children. The
+        # children time the dispatch intervals and the final fetch; a
+        # failure past this point finishes the trace as an error
+        tr = None
+        if self.tracer is not None:
+            tr = self.tracer.start_trace(
+                "generate", rows=B, max_new_tokens=max_new_tokens,
+                prompt_tokens=int(lengths.sum()))
+        try:
+            with torch.inference_mode():
+                if num_beams > 1:
+                    # every beam shares the prefix: a tiled prefill, one
+                    # row a beam
+                    cache = self._make_cache(B * num_beams, max_seq)
+                    sp = tr.begin("dispatch", beams=num_beams) if tr \
+                        else None
+                    logits, cache = self._prefill_w(
+                        torch.as_tensor(np.repeat(ids, num_beams, axis=0),
+                                        dtype=torch.long,
+                                        device=self.device),
+                        torch.as_tensor(np.repeat(lengths, num_beams,
+                                                  axis=0),
+                                        device=self.device), cache)
+                    out, n_gen = self._beam_loop(
+                        logits, cache, lengths, max_new_tokens, num_beams,
+                        eos, float(length_penalty))
+                else:
+                    cache = self._make_cache(B, max_seq)
+                    sp = tr.begin("prefill_dispatch", cache_len=max_seq) \
+                        if tr else None
+                    logits, cache = self._prefill_w(
+                        torch.as_tensor(ids, dtype=torch.long,
+                                        device=self.device),
+                        torch.as_tensor(lengths, device=self.device),
+                        cache)
+                    if tr:
+                        tr.end_span(sp)
+                        sp = tr.begin("decode_dispatch")
+                    out, n_gen = self._generate_loop(
+                        logits, cache, ids, lengths, max_new_tokens,
+                        float(temperature), int(top_k), float(top_p), eos,
+                        float(repetition_penalty), int(min_new_tokens),
+                        seed)
+                if tr:
+                    tr.end_span(sp)
+                    sp = tr.begin("fetch")
+                out, n_gen = out.cpu().numpy(), n_gen.cpu().numpy()
+                if tr:
+                    tr.end_span(sp)
+                    self.tracer.finish(tr)
+        except BaseException as e:  # noqa: BLE001 — recorded, re-raised
+            self._fail_trace(tr, e)
+            raise
         self._record_generate(time.perf_counter() - t0)
         return self._assemble_output(ids, lengths, out, n_gen)
 
@@ -895,8 +960,7 @@ class InferenceEngine:
                     + n_gen).float()
         best = torch.argmax(scores / full_len ** length_penalty, 1)  # [B]
         rows = torch.arange(B, device=dev)
-        return (out[rows, best].cpu().numpy(),
-                n_gen[rows, best].cpu().numpy())
+        return out[rows, best], n_gen[rows, best]
 
     def _generate_loop(self, logits, cache, ids, lengths, max_new_tokens,
                        temperature, top_k, top_p, eos, rep, min_new, seed):
@@ -963,7 +1027,7 @@ class InferenceEngine:
             n_gen += (~done).int()
             done = done | (nxt == eos)
             tok = nxt
-        return out.cpu().numpy(), n_gen.cpu().numpy()
+        return out, n_gen
 
 
 

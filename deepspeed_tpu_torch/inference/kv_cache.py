@@ -27,8 +27,9 @@ per-block-per-head f32 scale tiles ``[L, NB, KH, BS]``: the writers quantize
 each written (position, head) row, the gathers dequantize to f32. The host
 tier (``HostKVTier``, ``paged_read_block``, ``paged_swap_in``, JAX :463-616)
 keeps demoted prefix blocks in host memory, and the allocator demotes and
-swaps them in through its owner's callbacks. Not in this slice (ROADMAP.md
-queue C): the KV-pool accountant's hooks and famine reservations.
+swaps them in through its owner's callbacks. The allocator calls the KV-pool
+accountant's hooks (JAX :784, :841, :880, :908) and honours fault
+injection's famine reservations.
 """
 from __future__ import annotations
 
@@ -481,6 +482,12 @@ class HostKVTier:
         across all layers)."""
         return len(self._store) * self._block_nbytes
 
+    @property
+    def block_nbytes(self) -> int:
+        """Payload bytes of ONE tiered block (0 until the first put): the
+        cost ledger prices swap-in traffic with it."""
+        return self._block_nbytes
+
     def has(self, h: bytes) -> bool:
         return h in self._store
 
@@ -553,11 +560,14 @@ class BlockAllocator:
     reserved payload into the freshly allocated block. Until both are
     bound an LRU pop is a plain eviction.
 
-    Not in this slice (ROADMAP.md queue C): the KV-pool accountant, famine
-    reservations and the handoff lookups."""
+    Copy of JAX's allocator with its ``accountant`` hooks
+    (``telemetry/memory.py`` ``KVPoolAccountant``: acquire, release,
+    rollback, eviction, demotion, famine) and the famine reservations of
+    fault injection (:meth:`set_reserved`). The handoff lookups
+    (``lookup_prefix``) are ROADMAP.md A7b-ii."""
 
     def __init__(self, num_blocks: int, enable_prefix_caching: bool = False,
-                 host_tier: Optional[HostKVTier] = None):
+                 accountant=None, host_tier: Optional[HostKVTier] = None):
         if num_blocks < 2:
             raise ValueError(
                 f"need >= 2 pool blocks (1 usable + the null block), "
@@ -565,29 +575,64 @@ class BlockAllocator:
         if host_tier is not None and not enable_prefix_caching:
             raise ValueError(
                 "host offload tiers demoted PREFIX blocks — it needs "
-                "enable_prefix_caching (a hashless block has no identity "
-                "to swap back in under)")
+                "enable_prefix_caching (a hashless block has no "
+                "identity to swap back in under)")
         self.num_blocks = num_blocks
         self.enable_prefix_caching = enable_prefix_caching
+        # host offload (docs/serving.md "KV quantization & host
+        # tiering"): when set, an LRU pop DEMOTES the parked block's
+        # payload to host RAM instead of destroying it, and a
+        # match_prefix hit on a demoted hash swaps it back in. The
+        # copies are the owner's (the server holds the device arrays):
+        # on_demote(block, hash) must make the payload host-durable
+        # before returning, on_swap_in(block, payload) must write the
+        # already-reserved payload into the freshly allocated block.
+        # Until both callbacks are bound, demotion falls back to plain
+        # eviction — never silent data teleportation.
         self.host_tier = host_tier
         self.on_demote = None
         self.on_swap_in = None
-        self.demotions = 0     # LRU pops that kept the content on the host
-        self.swap_ins = 0      # host hits promoted back to the device
+        self.demotions = 0     # LRU pops that preserved content on host
+        self.swap_ins = 0      # host hits promoted back to device
+        # pool lifetime/fragmentation accounting (telemetry/memory.py
+        # KVPoolAccountant) or None — every hook sits behind a None
+        # check, so an unaccounted allocator costs nothing extra
+        self.accountant = accountant
         self._free = list(range(num_blocks - 1, 0, -1))  # pop() -> low ids
         self._free_set = set(self._free)
         self._refcount: Dict[int, int] = {}       # live blocks only
+        # prefix cache index: chain hash <-> block id, plus the LRU of
+        # evictable (refcount-0 but content-retained) cached blocks in
+        # release order — eviction pops the oldest
         self._hash_to_block: Dict[bytes, int] = {}
         self._block_hash: Dict[int, bytes] = {}
         self._lru: "OrderedDict[int, None]" = OrderedDict()
-        # observer for LRU evictions (the scheduler counts them)
+        # blocks withheld from the free budget (fault injection / tests
+        # simulating pool pressure — telemetry/faultinject.py); never
+        # handed out while reserved
+        self.reserved_blocks = 0
+        # observer for LRU evictions (the scheduler counts them + drops
+        # a ring event: the first rung of the degradation ladder must be
+        # visible, not silent)
         self.on_evict = None
         self.evictions = 0
 
+    def set_reserved(self, n: int) -> None:
+        """Withhold ``n`` blocks from the free budget (famine
+        injection). Already-live blocks are unaffected — the squeeze
+        lands on future admissions, exactly like real pressure."""
+        if n < 0 or n > self.usable_blocks:
+            raise ValueError(
+                f"reserved blocks must be in [0, {self.usable_blocks}], "
+                f"got {n}")
+        self.reserved_blocks = int(n)
+
     @property
     def free_blocks(self) -> int:
-        """Allocatable blocks: immediately free + evictable cached."""
-        return len(self._free) + len(self._lru)
+        """Allocatable blocks: immediately free + evictable cached,
+        minus any fault-injected reservation."""
+        return max(
+            0, len(self._free) + len(self._lru) - self.reserved_blocks)
 
     @property
     def usable_blocks(self) -> int:
@@ -596,13 +641,15 @@ class BlockAllocator:
 
     @property
     def cached_blocks(self) -> int:
-        """Blocks holding a reusable hashed prefix (resident shared +
-        evictable LRU)."""
+        """Blocks currently holding a reusable hashed prefix (resident
+        shared + evictable LRU)."""
         return len(self._hash_to_block)
 
     @property
     def live_blocks(self) -> int:
-        """DISTINCT blocks held by resident sequences."""
+        """DISTINCT blocks held by resident sequences — a shared prefix
+        block counts once however many sequences hold it, so
+        ``live + free == usable`` always."""
         return len(self._refcount)
 
     def _pop_free(self) -> int:
@@ -610,19 +657,28 @@ class BlockAllocator:
             b = self._free.pop()
             self._free_set.discard(b)
             return b
-        # free list dry: pop the least-recently-released cached block. With
-        # a wired host tier its payload demotes under its chain hash (before
-        # the preemption rung ever fires); without one the content is gone
-        # (the hash is forgotten, so a later identical prefix re-prefills)
+        # free list dry: pop the least-recently-released cached block.
+        # With a host tier armed this is a DEMOTION — the payload moves
+        # to host RAM under its chain hash and a later match_prefix hit
+        # swaps it back — and it runs during admission's allocation,
+        # i.e. BEFORE the server's preemption rung ever fires: famine
+        # demotes coldest-parked blocks first. Without a tier the
+        # content is gone for good (the hash index forgets it), so a
+        # later identical prefix re-prefills and re-registers.
         b, _ = self._lru.popitem(last=False)
         h = self._block_hash.get(b)
-        self._drop_hash(b)
         if (h is not None and self.host_tier is not None
                 and self.on_demote is not None):
-            self.on_demote(b, h)   # device→host, durable on return
+            self._drop_hash(b)
+            self.on_demote(b, h)   # device->host, durable on return
             self.demotions += 1
+            if self.accountant is not None:
+                self.accountant.on_demote(b)
         else:
+            self._drop_hash(b)
             self.evictions += 1
+            if self.accountant is not None:
+                self.accountant.on_evict(b)
             if self.on_evict is not None:
                 self.on_evict(b)
         return b
@@ -633,19 +689,58 @@ class BlockAllocator:
             del self._hash_to_block[h]
 
     def allocate(self, n: int):
-        """``n`` fresh block ids (refcount 1 each), or None (caller queues)
-        when even eviction cannot cover the span."""
+        """``n`` fresh block ids (refcount 1 each), or None (caller
+        queues) when even eviction cannot cover the span."""
         if n > self.free_blocks:
+            if self.accountant is not None:
+                # famine: freeze the allocator state into the event
+                # ring (once per episode — re-armed by the next
+                # successful allocation); fragmentation refreshed so
+                # the frozen snapshot is current, not Nth-transition
+                # stale
+                self.accountant.update_fragmentation(self._free_set)
+                self.accountant.on_famine(n, self.famine_state())
             return None
         out = [self._pop_free() for _ in range(n)]
         for b in out:
             self._refcount[b] = 1
+        if self.accountant is not None:
+            for b in out:
+                self.accountant.on_acquire(b)
+            self.accountant.on_alloc_ok()
         return out
 
+    def famine_state(self) -> dict:
+        """JSON-able allocator state for the famine ring event."""
+        return {
+            "free_list": len(self._free),
+            "evictable_lru": len(self._lru),
+            "live_blocks": len(self._refcount),
+            "cached_blocks": len(self._hash_to_block),
+            "reserved_blocks": self.reserved_blocks,
+            "usable_blocks": self.usable_blocks,
+            "host_blocks": (len(self.host_tier)
+                            if self.host_tier is not None else 0),
+        }
+
+    @property
+    def free_ids(self):
+        """Immediately-free block ids (the free list proper, evictable
+        LRU excluded) — the fragmentation gauge's input."""
+        return tuple(self._free_set)
+
     def release(self, blocks) -> None:
-        """Drop one reference per block. A block reaching refcount 0 returns
-        to the free list — unless it holds a registered prefix, in which
-        case it parks in the evictable LRU."""
+        """Drop one reference per block. A block reaching refcount 0
+        returns to the free list — unless it holds a registered prefix,
+        in which case it parks in the evictable LRU (content retained
+        for future :meth:`match_prefix` hits, memory reclaimable)."""
+        self._drop_refs(blocks, rollback=False)
+
+    def _drop_refs(self, blocks, rollback: bool) -> None:
+        """The refcount-decrement / park-or-free invariant, in ONE
+        place (release and rollback differ only in which accounting
+        hook fires at refcount 0 — duplicating the loop would leave
+        the free-list bookkeeping to drift apart by hand)."""
         for b in blocks:
             if b == 0:
                 raise ValueError("block 0 is the reserved null block")
@@ -658,21 +753,41 @@ class BlockAllocator:
                 self._refcount[b] = ref - 1
                 continue
             del self._refcount[b]
-            if b in self._block_hash:
+            parked = b in self._block_hash
+            if parked:
                 self._lru[b] = None
             else:
                 self._free.append(b)
                 self._free_set.add(b)
+            if self.accountant is not None:
+                if rollback:
+                    self.accountant.on_rollback(b)
+                else:
+                    self.accountant.on_release(b, parked)
 
-    # a match whose tail allocation failed is undone like a release (the
-    # JAX allocator's rollback differs only in its pool accounting)
-    rollback_match = release
+    def rollback_match(self, blocks) -> None:
+        """Undo a :meth:`match_prefix` acquisition whose tail
+        allocation failed (a blocked queue head retried every step):
+        refcounts drop exactly like :meth:`release`, but the pool
+        accounting is REWOUND, not observed — a rollback was never a
+        residency, so no lifetime sample is recorded and a resurrected
+        block re-parks under its ORIGINAL timestamp (flooding the
+        lifetime histogram with ~0s samples and re-stamping LRU ages
+        each retry would corrupt exactly the numbers the offload/
+        eviction decision reads)."""
+        self._drop_refs(blocks, rollback=True)
+
+    # ------------------------------------------------------- prefix cache
 
     def match_prefix(self, hashes) -> list:
         """Walk a prompt's chain hashes in prefix order, acquiring every
-        consecutive hit (refcount++ on resident blocks, resurrection out of
-        the LRU for evictable ones, swap-in of demoted ones through
-        :meth:`_swap_in_hit`). Stops at the first miss."""
+        consecutive hit (refcount++ on resident blocks, resurrection out
+        of the LRU for evictable ones, and — host tier armed — swap-in
+        of demoted blocks through :meth:`_swap_in_hit`). Stops at the
+        first miss — a deeper block is only valid under its full prefix
+        chain. Returns the acquired block ids; the caller allocates the
+        tail and, on tail-allocation failure, must ``release`` these
+        (a rolled-back swap-in parks device-side, content intact)."""
         out = []
         for h in hashes:
             b = self._hash_to_block.get(h)
@@ -685,32 +800,44 @@ class BlockAllocator:
             if b in self._lru:
                 del self._lru[b]
                 self._refcount[b] = 1
+                if self.accountant is not None:
+                    # resurrection is a fresh residency (refcount 0->1)
+                    self.accountant.on_acquire(b)
             else:
                 self._refcount[b] = self._refcount[b] + 1
             out.append(b)
         return out
 
     def _swap_in_hit(self, h: bytes):
-        """Promote one demoted block back to the device for a prefix hit.
-        The payload is popped BEFORE the staging allocation: that pop may
-        itself demote a colder parked block, and a bounded tier's capacity
-        drop could otherwise evict this very hash. Returns the block id, or
-        None for a true miss or when no block can stage the swap-in."""
+        """Promote one demoted (host-resident) block back to the device
+        for a prefix hit: POP the payload first (the staging
+        allocation below may itself demote a colder parked block, and
+        on a bounded tier that demotion's capacity drop could evict
+        exactly this hash — reserving the payload up front makes the
+        swap-in immune to its own staging), then allocate a block off
+        the free list, copy the payload in via the owner's callback,
+        and re-register the hash. Returns the block id, or None when
+        the hash is not host-resident (a true miss) or no block can
+        stage the swap-in."""
         if (self.host_tier is None or self.on_swap_in is None
                 or not self.host_tier.has(h) or self.free_blocks < 1):
             return None
         payload = self.host_tier.take(h)
         b = self._pop_free()
         self._refcount[b] = 1
-        self.on_swap_in(b, payload)   # host→device into block b
+        self.on_swap_in(b, payload)   # host->device into block b
         self._hash_to_block[h] = b
         self._block_hash[b] = h
         self.swap_ins += 1
+        if self.accountant is not None:
+            self.accountant.on_acquire(b)
         return b
 
     def register_prefix(self, block: int, h: bytes) -> bool:
-        """Publish a live, fully-written prefix block under its chain hash.
-        First writer wins. Returns True when registered."""
+        """Publish a live, fully-written prefix block under its chain
+        hash. First writer wins: if the hash is already claimed (a
+        concurrent identical prefill), this block stays private and
+        recycles normally. Returns True when registered."""
         if not self.enable_prefix_caching:
             return False
         if self._refcount.get(block, 0) <= 0:
@@ -722,6 +849,11 @@ class BlockAllocator:
         self._hash_to_block[h] = block
         self._block_hash[block] = h
         if self.host_tier is not None:
-            # a hash is never both device-registered and host-resident
+            # invariant: a hash is never BOTH device-registered and
+            # host-resident. A bounded tier's capacity drop can strand
+            # a descendant hash on host after its chain ancestor
+            # dropped; when the re-prefilled chain re-registers it
+            # here, the stale host copy must go — otherwise this
+            # block's next demotion reads as a double demote.
             self.host_tier.discard(h)
         return True

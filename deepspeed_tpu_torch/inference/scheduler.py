@@ -2,10 +2,8 @@
 
 Host-pure copy of ``deepspeed_tpu/inference/scheduler.py`` (``Request``
 :53, ``SlotState`` :117, ``Scheduler`` :136) over the port's
-``BlockAllocator``, which it hands the host KV tier (``host_tier``). The
-request tracer and the KV-pool accountant are later slices (ROADMAP.md
-queue C): the JAX scheduler's ``tracer`` and ``pool_accountant`` arguments
-are not taken.
+``BlockAllocator``, with JAX's ``tracer`` and ``pool_accountant``
+arguments.
 
 The Orca-style control loop over the paged pool (kv_cache.PagedKVCache):
 requests queue FIFO, admission is block-budget aware (a request is
@@ -52,10 +50,8 @@ from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
 
 from deepspeed_tpu_torch.inference.kv_cache import (BlockAllocator,
-                                                    prefix_block_hashes)
+                                              prefix_block_hashes)
 from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
-from deepspeed_tpu_torch.telemetry.events import (ADMISSION_REJECT,
-                                                  PREFIX_EVICT, record_event)
 
 
 @dataclasses.dataclass
@@ -150,23 +146,35 @@ class Scheduler:
                  max_blocks_per_slot: int, max_queued_requests: int,
                  registry: Optional[MetricRegistry] = None,
                  enable_prefix_caching: bool = False,
-                 spec_margin: int = 0, host_tier=None):
+                 tracer=None, spec_margin: int = 0,
+                 pool_accountant=None, host_tier=None):
         self.num_slots = num_slots
         # speculative-verify overshoot (speculation_tokens - 1): every
         # request's block span reserves this many extra cache positions
         # so a verify forward's K-token write window never runs past
         # the allocated blocks (Request.blocks_needed)
         self.spec_margin = spec_margin
+        # request tracer (telemetry/tracing.py) or None; the scheduler
+        # only records its OWN rejections — rejected requests are
+        # always-keep traces, whatever the sampling rate
+        self.tracer = tracer
         self.block_size = block_size
         self.max_blocks_per_slot = max_blocks_per_slot
         self.max_queued_requests = max_queued_requests
         self.enable_prefix_caching = enable_prefix_caching
-        # host offload: the tier changes only what an LRU pop does with a
-        # parked block (demote vs destroy) and what a prefix walk can hit
-        # (host-resident blocks swap back in); admission is untouched
+        # KV-pool lifetime/fragmentation accounting (telemetry/
+        # memory.py KVPoolAccountant) or None — hooks ride the
+        # allocator, the fragmentation gauge refreshes with the level
+        # gauges at admission-state transitions
+        self.accountant = pool_accountant
+        # host offload (docs/serving.md "KV quantization & host
+        # tiering"): the tier changes only what an LRU pop DOES with a
+        # parked block (demote vs destroy) and what a prefix hash walk
+        # can hit (host-resident blocks swap back in) — admission logic
+        # above the allocator is untouched
         self.allocator = BlockAllocator(
             num_blocks, enable_prefix_caching=enable_prefix_caching,
-            host_tier=host_tier)
+            accountant=pool_accountant, host_tier=host_tier)
         self.queue: Deque[Request] = deque()
         self.slots: Dict[int, SlotState] = {}   # slot id -> state
         self._free_slots = list(range(num_slots - 1, -1, -1))
@@ -213,6 +221,8 @@ class Scheduler:
         """LRU eviction observer: the ladder's first rung leaves a
         counter tick and a ring entry."""
         self._c_evict.inc()
+        from deepspeed_tpu_torch.telemetry.events import (PREFIX_EVICT,
+                                                    record_event)
         record_event(PREFIX_EVICT, block=block, source="scheduler")
 
     def _update_gauges(self) -> None:
@@ -226,13 +236,28 @@ class Scheduler:
         self._g_active.set(len(self.slots))
         self._g_cached.set(self.allocator.cached_blocks)
         self._g_requeue.set(self.requeue_depth)
+        if self.accountant is not None:
+            # rate-limited (every Nth transition): the O(free log free)
+            # scan must not run per retire on a large pool; snapshot
+            # consumers (stats, /debug/goodput) refresh unconditionally
+            self.accountant.maybe_update_fragmentation(
+                lambda: self.allocator.free_ids)
 
-    def _reject(self, reason: str) -> None:
+    def _reject(self, reason: str,
+                request_id: Optional[int] = None) -> None:
         self.telemetry.counter(
             "serve_admission_rejections_total",
             help="refused submit() calls, by reason",
             labels={"reason": reason}).inc()
+        from deepspeed_tpu_torch.telemetry.events import (ADMISSION_REJECT,
+                                                    record_event)
         record_event(ADMISSION_REJECT, reason=reason, source="scheduler")
+        if self.tracer is not None:
+            # auto trace id (the "t<N>" namespace), request id as an
+            # attribute: a rejected-then-retried request id must not
+            # collide with the retry's real trace on the timeline
+            self.tracer.record_rejected("request", reason,
+                                        request_id=request_id)
 
     # ------------------------------------------------------------ submit
 
@@ -242,7 +267,7 @@ class Scheduler:
         instead of deadlocking the drain loop later."""
         nb = req.blocks_needed(self.block_size, self.spec_margin)
         if nb > self.max_blocks_per_slot:
-            self._reject("span")
+            self._reject("span", req.request_id)
             margin = (f" + speculation margin ({self.spec_margin})"
                       if self.spec_margin else "")
             raise ValueError(
@@ -256,13 +281,13 @@ class Scheduler:
             # block-budget admission: even a fully drained pool could not
             # hold this request (usable_blocks excludes the null block
             # the allocator never hands out)
-            self._reject("pool")
+            self._reject("pool", req.request_id)
             raise ValueError(
                 f"request {req.request_id} needs {nb} blocks but the "
                 f"whole pool holds {self.allocator.usable_blocks} "
                 "— raise max_out_tokens / num_slots sizing")
         if len(self.queue) >= self.max_queued_requests:
-            self._reject("queue_full")
+            self._reject("queue_full", req.request_id)
             raise RuntimeError(
                 f"request queue is full ({self.max_queued_requests}); "
                 "drain with step() before submitting more, or raise "

@@ -82,9 +82,9 @@ from deepspeed_tpu_torch.ops.int8_gemm import (maybe_int8_einsum,
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.parallel.tensor_parallel import (SEQ, TENSOR,
                                                           axis_rank)
+from deepspeed_tpu_torch.utils.unported import not_ported
 
 NEG_INF = -1e30
-_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +155,7 @@ def init_params(generator: torch.Generator, cfg: InferenceTransformerConfig,
     generator's): weights ``N(0, 1) / sqrt(fan_in)`` in ``cfg.dtype``, zero
     biases, unit norm scales — the JAX package's scheme, not its numbers."""
     if cfg.num_experts > 0:
-        raise NotImplementedError(f"MoE layers {_LATER}")
+        raise NotImplementedError(not_ported("MoE layers"))
     E, H, D, F_, KH = cfg.n_embd, cfg.n_head, cfg.head_dim, cfg.ffn, \
         cfg.kv_heads
     dev = torch.device(device) if device is not None else generator.device
@@ -533,7 +533,7 @@ def _attn_out(subscripts, attn, a, dtype, cfg):
 
 def _ffn(x, layer, cfg):
     if "moe" in layer:
-        raise NotImplementedError(f"MoE layers (_moe_mlp) {_LATER}")
+        raise NotImplementedError(not_ported("MoE layers (_moe_mlp)"))
     return _mlp(x, layer["mlp"], cfg)
 
 
@@ -648,7 +648,7 @@ def _seq_offset(cfg, cache: KVCache) -> Optional[int]:
 
 def _check_causal(cfg):
     if cfg.num_experts > 0:
-        raise NotImplementedError(f"MoE layers {_LATER}")
+        raise NotImplementedError(not_ported("MoE layers"))
 
 
 def _refuse_paged_seq(cfg):

@@ -68,10 +68,10 @@ from deepspeed_tpu_torch.parallel.tensor_parallel import (
     copy_to_group, next_token_labels, reduce_from_group, seq_attention,
     seq_block, seq_mean, vocab_parallel_embedding, vocab_parallel_nll)
 from deepspeed_tpu_torch.runtime.zero.partition import PartitionSpec as P
+from deepspeed_tpu_torch.utils.unported import not_ported
 
 Params = Dict[str, torch.Tensor]
 LN_EPS = 1e-6   # flax nn.LayerNorm's default
-_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)"
 
 
 def refuse_split_switchback(int8: bool, split: bool) -> None:
@@ -80,7 +80,7 @@ def refuse_split_switchback(int8: bool, split: bool) -> None:
     be a rank's."""
     if int8 and split:
         raise NotImplementedError(
-            f"int8_training (SwitchBack) with a tensor axis {_LATER}")
+            not_ported("int8_training (SwitchBack) with a tensor axis"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,7 +324,7 @@ class GPT2LMModel:
                           (config.num_experts > 0, "MoE layers"),
                           (config.sequence_parallel, "sequence_parallel")):
             if bad:
-                raise NotImplementedError(f"GPT-2 with {what} {_LATER}")
+                raise NotImplementedError(not_ported(f"GPT-2 with {what}"))
         self.config = config
         self.module = GPT2(config, device=device)
 

@@ -62,13 +62,9 @@ from deepspeed_tpu_torch.parallel.tensor_parallel import (
     copy_to_group, next_token_labels, reduce_from_group, seq_attention,
     seq_block, seq_mean, vocab_parallel_embedding, vocab_parallel_nll)
 from deepspeed_tpu_torch.runtime.zero.partition import PartitionSpec as P
+from deepspeed_tpu_torch.utils.unported import not_ported
 
 Params = Dict[str, torch.Tensor]
-
-
-def _later(what: str, item: str) -> str:
-    return (f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md "
-            f"queue C, {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,9 +329,9 @@ class LlamaLMModel:
 
     def __init__(self, config: LlamaConfig, device="meta"):
         if config.num_experts > 0:
-            raise NotImplementedError(_later("LLaMA with MoE layers", "A8"))
+            raise NotImplementedError(not_ported("LLaMA with MoE layers", "A8"))
         if config.sequence_parallel:
-            raise NotImplementedError(_later(
+            raise NotImplementedError(not_ported(
                 "LLaMA with sequence_parallel (ring and Ulysses attention)",
                 "A8"))
         self.config = config
@@ -426,7 +422,7 @@ def params_from_hf(hf_state_dict, cfg: LlamaConfig) -> Params:
     Mixtral checkpoints (``block_sparse_moe``) are refused (A8)."""
     if cfg.num_experts > 0 or any("block_sparse_moe" in k
                                   for k in hf_state_dict):
-        raise NotImplementedError(_later("Mixtral (MoE) checkpoints", "A8"))
+        raise NotImplementedError(not_ported("Mixtral (MoE) checkpoints", "A8"))
 
     def t(name, transpose=False):
         w = torch.as_tensor(hf_state_dict[name]).detach()

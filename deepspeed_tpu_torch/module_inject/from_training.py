@@ -17,11 +17,7 @@ import torch
 
 from deepspeed_tpu_torch.model_implementations.transformer import (
     InferenceTransformerConfig)
-
-
-def _later(what: str, item: str) -> str:
-    return (f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md "
-            f"queue C, {item})")
+from deepspeed_tpu_torch.utils.unported import not_ported
 
 
 def _f(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -53,7 +49,7 @@ def gpt2_to_inference(cfg, params, dtype=None):
     vocabulary rows are stripped, and ``layer_norm_eps`` is the training
     model's 1e-6 (flax's LayerNorm default), not HF's 1e-5."""
     if getattr(cfg, "num_experts", 0) > 0:
-        raise NotImplementedError(_later("converting an MoE GPT-2", "A8"))
+        raise NotImplementedError(not_ported("converting an MoE GPT-2", "A8"))
     dt = dtype or cfg.dtype
     E, H = cfg.n_embd, cfg.n_head
     D = E // H
@@ -104,7 +100,7 @@ def llama_to_inference(cfg, params, dtype=None):
     ``wv`` as ``[E, KH, D]``, the untied head transposed to ``[C, V]``
     (training keeps it ``[V, C]``), rotary at the full head dim."""
     if cfg.num_experts > 0:
-        raise NotImplementedError(_later("converting an MoE LLaMA", "A8"))
+        raise NotImplementedError(not_ported("converting an MoE LLaMA", "A8"))
     dt = dtype or cfg.dtype
     E, H, KH = cfg.n_embd, cfg.n_head, cfg.n_kv_head
     D = cfg.head_dim

@@ -16,6 +16,7 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+from deepspeed_tpu_torch.utils.unported import not_ported
 
 Tree = Dict[str, torch.Tensor]
 
@@ -196,9 +197,8 @@ def _normalize_params(params: dict) -> dict:
 
 
 def _onebit(name: str, p):
-    raise NotImplementedError(
-        f"the 1-bit optimizer family ({name}) is not ported to "
-        "deepspeed_tpu_torch yet (ROADMAP.md queue C, A9)")
+    raise NotImplementedError(not_ported(
+        f"the 1-bit optimizer family ({name})", "A9"))
 
 
 OPTIMIZER_REGISTRY = {

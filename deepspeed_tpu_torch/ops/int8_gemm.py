@@ -48,6 +48,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.quant_core import quantize_int8
 from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.utils.unported import not_ported
 
 INT_MM_MIN_ROWS = 17   # torch._int_mm on CUDA refuses 16 rows or fewer
 INT_MM_MULTIPLE = 8    # ... and contraction or output widths off 8
@@ -135,11 +136,10 @@ def _check_subscripts(subscripts: str, x_contract_ndim: int):
     xs, ws = ins.split(",")
     c = x_contract_ndim
     if xs[-c:] != ws[:c] or out != xs[:-c] + ws[c:]:
-        raise NotImplementedError(
+        raise NotImplementedError(not_ported(
             f"int8 einsum {subscripts!r}: only x's trailing labels against "
             f"the weight's leading ones; the batched expert forms (MoE "
-            f"layers) are not ported to deepspeed_tpu_torch yet (ROADMAP.md "
-            f"queue C)")
+            f"layers)", verb="are"))
 
 
 def int8_einsum(subscripts: str, x: torch.Tensor, qw: dict,

@@ -52,10 +52,10 @@ from deepspeed_tpu_torch.ops.int8_training import switchback_matmul
 from deepspeed_tpu_torch.parallel.tensor_parallel import (copy_to_group,
                                                           reduce_from_group,
                                                           seq_attention)
+from deepspeed_tpu_torch.utils.unported import not_ported
 
-_DROPOUT = ("training dropout is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP.md queue C, A9): pass rng=None, deterministic=True "
-            "or dropout ratios of 0")
+_DROPOUT = (not_ported("training dropout", "A9")
+            + ": pass rng=None, deterministic=True or dropout ratios of 0")
 
 
 def layer_norm_fp32(x, scale, bias, eps):
@@ -193,9 +193,8 @@ class DeepSpeedTransformerLayer:
         """Refuses SwitchBack on a split product (its per-token amax
         would be a rank's); whether the product is split."""
         if split and self.config.int8_training:
-            raise NotImplementedError(
-                "int8_training (SwitchBack) with a tensor axis is not "
-                "ported to deepspeed_tpu_torch yet (ROADMAP.md queue C)")
+            raise NotImplementedError(not_ported(
+                "int8_training (SwitchBack) with a tensor axis"))
         return split
 
     def _attention(self, x, params, attention_mask, rng, deterministic):

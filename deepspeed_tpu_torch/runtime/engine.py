@@ -136,11 +136,23 @@ PyTorch around the flash kernels. No bf16 or fp32 step reads a device
 value on the host: the batch goes up through pinned memory and the
 learning rate is a host float. An fp16 step reads one bool, whether the
 gradients are finite, to skip the update (the JAX engine reads the same
-flag per step). Gradients, moments and the master are updated in place.
+flag per step). The exception is every ``steps_per_print``-th step (10
+by default): its monitor events read the loss and the gradient norm on
+the host, a sync at the step's end, as the JAX engine's do
+(``scripts/observe_cost.py`` times it). Gradients, moments and the
+master are updated in place.
+
+Telemetry as JAX's engine arms it: the flight recorder, numerics and
+goodput (``_init_telemetry``), a trace per sampled train step whose
+children come from goodput's splits (``telemetry.trace_sample_rate``), the
+HTTP endpoint on ``telemetry.http_port`` (rank 0; a port already taken is
+a warning, never a failed init), the compile watch over the step's
+program, and every ``steps_per_print`` steps the monitor events, to the
+registry sink and to ``MonitorMaster`` (CSV, TensorBoard, WandB).
 
 Not in this slice (ROADMAP.md queue C): the pipe axis (A8), the 1-bit
 optimizers, MoQ, eigenvalue, curriculum learning and the flops profiler
-(A9), and request tracing and the HTTP endpoint (A7b).
+(A9).
 """
 from __future__ import annotations
 
@@ -179,10 +191,14 @@ from deepspeed_tpu_torch.runtime.zero.param_offload import (ParamFetcher,
                                                             stage, to_pinned)
 from deepspeed_tpu_torch.runtime.zero.partition import (ZeroPartition,
                                                         ZeroShardingPolicy)
-from deepspeed_tpu_torch.telemetry import MetricRegistry, get_registry
+from deepspeed_tpu_torch.monitor.monitor import (MonitorMaster,
+                                                 RegistryMonitor)
+from deepspeed_tpu_torch.telemetry import (MetricRegistry, Tracer,
+                                           get_registry, start_http_server)
+from deepspeed_tpu_torch.telemetry.compile_watch import watched
 from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.unported import not_ported
 
-_LATER = "is not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C, A8)"
 
 
 def _refuse_unported(config: DeepSpeedConfig) -> None:
@@ -198,9 +214,7 @@ def _refuse_unported(config: DeepSpeedConfig) -> None:
     )
     for bad, what, item in checks:
         if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to deepspeed_tpu_torch yet "
-                f"(ROADMAP.md queue C, {item})")
+            raise NotImplementedError(not_ported(what, item))
 
 
 _RESERVED_METRICS = {"loss", "grad_norm", "lr", "loss_scale", "skipped",
@@ -321,12 +335,34 @@ class DeepSpeedEngine:
         # process-wide registry; telemetry.enabled=false records into a
         # private one, so nothing reaches the process scrape surface
         self.telemetry = get_registry() if tc.enabled else MetricRegistry()
-        if tc.enabled and (tc.trace_sample_rate > 0
-                           or tc.http_port is not None):
-            logger.info(
-                "DeepSpeedEngine: request tracing and the HTTP endpoint are "
-                "not ported to deepspeed_tpu_torch yet (ROADMAP.md queue C, "
-                "A7b) and are not built; training does not depend on them")
+        # step metrics go to the registry sink first; MonitorMaster (tb /
+        # wandb / csv) is one sink of several (JAX :358-363)
+        self.monitor = self._build_monitor()
+        self._registry_sink = RegistryMonitor(self.telemetry)
+        # request-scoped tracing: every sampled train step becomes a root
+        # span with data-wait / device / host children from goodput's
+        # splits
+        self.tracer = None
+        if tc.enabled and tc.trace_sample_rate > 0:
+            self.tracer = Tracer(
+                sample_rate=tc.trace_sample_rate,
+                ring_capacity=tc.trace_ring_capacity,
+                seed=tc.trace_seed,
+                slow_threshold_s=tc.trace_slow_threshold_s,
+                registry=self.telemetry)
+        self._telemetry_http = None
+        if tc.enabled and tc.http_port is not None and \
+                comm.get_rank() == 0:
+            try:
+                self._telemetry_http = start_http_server(
+                    tc.http_port, host=tc.http_host,
+                    registry=self.telemetry, tracer=self.tracer)
+            except OSError as e:   # port taken must not kill training
+                logger.warning(f"telemetry endpoint unavailable: {e}")
+        # the compile watch over the step's program: each new micro-batch
+        # signature (shapes, dtypes) is one
+        self._micro_grads_w = watched(self._micro_grads, "train_step",
+                                      registry=self.telemetry)
         self._init_telemetry(tc)
         n = sum(p.numel() for p in self.params.values())
         tiers = [t for t, on in (
@@ -1068,6 +1104,7 @@ class DeepSpeedEngine:
             self.backward({k: v[i * rows:(i + 1) * rows]
                            for k, v in batch.items()})
         metrics = self.step()
+        device_s = 0.0
         if self.goodput.enabled:
             # the device bucket: dispatch to the step's results on the
             # card (the one sync goodput costs); on the offload paths to
@@ -1082,6 +1119,8 @@ class DeepSpeedEngine:
                 device_s = time.perf_counter() - t_disp
             self.goodput.record_step(time.perf_counter() - t_wall,
                                      data_wait, device_s)
+        self._record_step_trace(time.perf_counter() - t_wall, data_wait,
+                                device_s)
         return metrics
 
     def forward(self, batch):
@@ -1114,7 +1153,7 @@ class DeepSpeedEngine:
         self._sink_first = not self._acc_losses
         mb = self._upload(batch)
         self._step_tokens += max(v.numel() for v in mb.values())
-        loss, aux, grads = self._micro_grads(mb, self._loss_scale.scale)
+        loss, aux, grads = self._micro_grads_w(mb, self._loss_scale.scale)
         if grads is not None:
             grads = [self._to_acc(n, g) for n, g in zip(self.params, grads)]
             if self._acc_losses:
@@ -1156,7 +1195,59 @@ class DeepSpeedEngine:
         metrics.update(aux)
         self._swap_params_out()
         self._record_step_progress()
+        if self.global_steps % self.config.steps_per_print == 0:
+            self._write_monitor_events(metrics)
         return metrics
+
+    def _build_monitor(self):
+        try:
+            return MonitorMaster(self.config)
+        except Exception:  # noqa: BLE001 — a monitor never stops training
+            return None
+
+    def _write_monitor_events(self, metrics) -> None:
+        """JAX's events (loss, lr and, when present, the fp16 loss scale
+        and the global grad norm) to every live sink: the registry sink
+        and MonitorMaster (JAX :2192-2210). Runs every
+        ``steps_per_print`` steps: it reads the metrics on the host."""
+        samples = self.global_steps * self.train_batch_size
+        events = [("Train/Samples/train_loss", float(metrics["loss"]),
+                   samples),
+                  ("Train/Samples/lr", float(metrics["lr"]), samples)]
+        if self.config.fp16.enabled and "loss_scale" in metrics:
+            events.append(("Train/Samples/loss_scale",
+                           float(metrics["loss_scale"]), samples))
+        if "grad_norm" in metrics and metrics["grad_norm"] is not None:
+            events.append(("Train/Samples/grad_norm",
+                           float(metrics["grad_norm"]), samples))
+        for sink in (self._registry_sink, self.monitor):
+            if sink is not None and sink.enabled:
+                sink.write_events(events)
+
+    def _record_step_trace(self, wall: float, data_wait: float,
+                           device_s: float) -> None:
+        """One trace per train step (head-sampled): a root ``train_step``
+        span whose data-wait / device / host children are laid out from
+        goodput's splits, summing to the root. With ``telemetry.goodput``
+        off the device interval is unmeasured (tracing adds no sync), so
+        the host child absorbs it."""
+        if self.tracer is None:
+            return
+        now = self.tracer.clock()
+        wall = max(float(wall), 0.0)
+        data = min(max(float(data_wait), 0.0), wall)
+        device = min(max(float(device_s), 0.0), wall - data)
+        t0 = now - wall
+        tr = self.tracer.start_trace(
+            "train_step", trace_id=self.global_steps, start=t0,
+            step=self.global_steps,
+            goodput_measured=self.goodput.enabled)
+        if data:
+            tr.add_span("data_wait", t0, t0 + data)
+        if device:
+            tr.add_span("device", t0 + data, t0 + data + device)
+        tr.add_span("host", t0 + data + device, now)
+        self.tracer.finish(tr, end=now)
 
     # --------------------------------------------------------- accessors
     def get_lr(self):
@@ -1573,6 +1664,11 @@ class DeepSpeedEngine:
         if self._flight is not None:
             self._flight.close()
             self.watchdog = None
+        if self.monitor is not None:
+            self.monitor.close()
+        if self._telemetry_http is not None:
+            self._telemetry_http.close()
+            self._telemetry_http = None
         from deepspeed_tpu_torch.telemetry.numerics import \
             unregister_numerics_watch
         unregister_numerics_watch("train", self.numerics)
@@ -1597,7 +1693,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     cfg = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(
         config if config is not None else (config_params or {}))
     if getattr(model, "num_stages", 1) > 1:
-        raise NotImplementedError(f"a pipeline model {_LATER}")
+        raise NotImplementedError(not_ported("a pipeline model", "A8"))
     if loss_fn is None:
         if model is None or not hasattr(model, "loss_fn"):
             raise ValueError("provide loss_fn or a model exposing "

@@ -1,0 +1,517 @@
+"""Request-level cost accounting: the per-request resource ledger.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/accounting.py`` (same keys, families,
+help strings and ring events), over the port's registry and event ring.
+
+The step observatory (telemetry/step_profile.py) attributes device time
+per SERVING STEP; the allocator hooks see every block acquire/release;
+the fleet's snapshot plane rolls anything up fleet-wide. Nothing joined
+them per REQUEST — this module does. :class:`RequestLedger` splits each
+worked step's device-attributed wall across the resident slots by
+tokens processed (prefill tokens weighted against decode commits),
+charges KV block-seconds over each residency's fixed block span
+(up-front allocation — scheduler.py — makes the count constant per
+residency), and accumulates queue wait, swapped/handoff bytes, and
+speculation proposals/acceptances. The closed ledger rides the finish:
+a ``cost`` record per request, a ``request_cost`` flight-recorder
+event, and the ``serve_request_device_seconds`` /
+``serve_request_kv_block_seconds`` / ``serve_request_queued_seconds``
+histograms.
+
+Closure invariant (test-pinned with a fake clock): the sum of
+per-request device-seconds equals the profiler's device-attributed wall
+EXACTLY — each settle distributes its step's device time
+remainder-corrected (the last participant absorbs float dust), and
+device time realized by a step with no per-request weights (a pipelined
+step whose survivors all finished out-of-step) falls back to the open
+records, then pending ones, then carries to the next settle — never
+silently dropped.
+
+Tenant metering (:class:`TenantMeter`): a bounded-cardinality
+``tenant=`` label — the first ``max_tenants`` distinct tenants keep
+their name, later ones fold into ``tenant="other"`` — over per-tenant
+request/token/device-second/rejection counters, fleet-federated through
+``MetricRegistry.export_state`` unchanged.
+
+Host-pure, no jax imports; every method is a dict update or two. The
+ledger is built only when accounting is enabled AND a StepProfiler
+exists (device attribution without one would be fiction), so disabled
+accounting costs nothing and registers none of these families.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+from deepspeed_tpu_torch.telemetry import events as _ev
+from deepspeed_tpu_torch.telemetry.canary import CANARY_TENANT
+from deepspeed_tpu_torch.telemetry.registry import MetricRegistry, get_registry
+
+# the label every overflow tenant folds into once max_tenants distinct
+# names are live (cardinality bound — the fleet plane multiplies every
+# label by the replica count)
+OVERFLOW_TENANT = "other"
+
+# every numeric field a cost record carries; merge_cost_legs sums these
+# across legs (request_id/tenant/finish_reason ride alongside)
+_SUM_FIELDS = (
+    "device_s", "kv_block_s", "queued_s", "swap_in_bytes",
+    "handoff_bytes", "spec_proposed", "spec_accepted",
+    "tokens_in", "tokens_out", "legs",
+)
+
+
+def new_cost_record(request_id: int, tenant: Optional[str],
+                    tokens_in: int) -> dict:
+    """A zeroed cost record (public: the frontend synthesizes one for
+    a request that died before ever reaching a replica — every finish
+    gets a bill, even a zero-cost one)."""
+    return {
+        "request_id": request_id,
+        "tenant": tenant,
+        "device_s": 0.0,       # share of device-attributed step wall
+        "kv_block_s": 0.0,     # pool block-seconds held across residencies
+        "queued_s": 0.0,       # total time spent queued (submit + requeues)
+        "swap_in_bytes": 0,    # host-tier bytes promoted for this request
+        "handoff_bytes": 0,    # prefill->decode payload bytes (frontend)
+        "spec_proposed": 0,    # draft tokens proposed for this request
+        "spec_accepted": 0,    # draft tokens the target accepted
+        "tokens_in": tokens_in,
+        "tokens_out": 0,
+        "finish_reason": None,
+        "legs": 1,             # server legs merged in (frontend merging)
+    }
+
+
+def register_cost_histograms(reg: MetricRegistry) -> tuple:
+    """The three per-request cost histograms — ONE registration site
+    shared by the server-side ledger and the frontend's merged-bill
+    observer, so the metric names and help text can never drift
+    between the two (check_metric_docs walks these literals)."""
+    return (
+        reg.histogram(
+            "serve_request_device_seconds",
+            help="device-attributed seconds charged to one finished "
+                 "request by the cost ledger (per-step device wall "
+                 "split across resident slots by tokens processed; "
+                 "sums to the step profiler's device total)"),
+        reg.histogram(
+            "serve_request_kv_block_seconds",
+            help="KV pool block-seconds held by one finished request "
+                 "across its residencies (block count x resident "
+                 "seconds; up-front allocation makes the count fixed "
+                 "per residency)"),
+        reg.histogram(
+            "serve_request_queued_seconds",
+            help="total seconds one finished request spent queued — "
+                 "initial submit() wait plus every preemption requeue"),
+    )
+
+
+def merge_cost_legs(legs: List[dict]) -> dict:
+    """Fold per-replica cost legs into ONE record (the frontend's view
+    of a request that was preempted / failed over / handed off: every
+    leg's device-seconds are real recompute and sum — no double-charge
+    because each replica's ledger only ever charged its own steps).
+    The last leg's identity fields (tenant, finish_reason) win — the
+    leg that actually finished the request."""
+    if not legs:
+        raise ValueError("merge_cost_legs needs at least one leg")
+    out = dict(legs[-1])
+    for f in _SUM_FIELDS:
+        out[f] = sum(leg.get(f) or 0 for leg in legs)
+    return out
+
+
+class TenantMeter:
+    """Bounded-cardinality per-tenant counters over a registry.
+
+    ``fold`` maps a raw tenant string to its metered label: the first
+    ``max_tenants`` distinct names keep themselves, later ones become
+    ``"other"``. ``None`` is unmetered — a deployment that never passes
+    ``tenant=`` registers no tenant series at all."""
+
+    def __init__(self, registry: Optional[MetricRegistry] = None,
+                 max_tenants: int = 32):
+        reg = registry if registry is not None else get_registry()
+        self._reg = reg
+        self.max_tenants = int(max_tenants)
+        self._labels: Dict[str, str] = {}     # raw -> metered label
+        self._lock = threading.Lock()
+        # host mirrors for tenant_snapshot (stats without a registry
+        # snapshot round-trip), keyed by metered label
+        self._mirror: Dict[str, Dict[str, float]] = {}
+
+    def fold(self, tenant: Optional[str]) -> Optional[str]:
+        # the canary probe's reserved tenant is UNMETERED by design:
+        # folding it to None here excludes it from every metered path
+        # at once (requests, finishes, rejections) — byte-identical
+        # tenant series with the prober on or off, test-pinned
+        if tenant is None or tenant == CANARY_TENANT:
+            return None
+        tenant = str(tenant)
+        with self._lock:
+            label = self._labels.get(tenant)
+            if label is None:
+                label = (tenant if len(self._labels) < self.max_tenants
+                         else OVERFLOW_TENANT)
+                self._labels[tenant] = label
+            return label
+
+    def _inc(self, counter, name: str, label: str, v: float) -> None:
+        counter.inc(v)
+        with self._lock:
+            m = self._mirror.setdefault(label, {})
+            m[name] = m.get(name, 0.0) + v
+
+    # the five metered quantities (literal metric names at each
+    # registration — the check_metric_docs walker greps these)
+
+    def count_request(self, label: str, tokens_in: int) -> None:
+        self._inc(self._reg.counter(
+            "serve_tenant_requests_total",
+            help="accepted requests, by tenant (bounded cardinality: "
+                 "overflow tenants fold into tenant=\"other\")",
+            labels={"tenant": label}),
+            "serve_tenant_requests_total", label, 1)
+        if tokens_in:
+            self._inc(self._reg.counter(
+                "serve_tenant_tokens_in_total",
+                help="prompt tokens accepted, by tenant",
+                labels={"tenant": label}),
+                "serve_tenant_tokens_in_total", label, tokens_in)
+
+    def count_finish(self, label: str, tokens_out: int,
+                     device_s: float) -> None:
+        if tokens_out:
+            self._inc(self._reg.counter(
+                "serve_tenant_tokens_out_total",
+                help="generated tokens delivered, by tenant",
+                labels={"tenant": label}),
+                "serve_tenant_tokens_out_total", label, tokens_out)
+        if device_s:
+            self.count_device(label, device_s)
+
+    def count_device(self, label: str, device_s: float) -> None:
+        self._inc(self._reg.counter(
+            "serve_tenant_device_seconds_total",
+            help="device-attributed seconds charged by the request "
+                 "ledger, by tenant (sums to the step profiler's "
+                 "device total across tenants + unlabeled requests)",
+            labels={"tenant": label}),
+            "serve_tenant_device_seconds_total", label, device_s)
+
+    def count_rejection(self, tenant: Optional[str]) -> None:
+        label = self.fold(tenant)
+        if label is None:
+            return
+        self._inc(self._reg.counter(
+            "serve_tenant_rejections_total",
+            help="refused submit() calls, by tenant",
+            labels={"tenant": label}),
+            "serve_tenant_rejections_total", label, 1)
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {label: dict(m) for label, m in self._mirror.items()}
+
+
+class RequestLedger:
+    """Per-request resource accounting over one server's lifecycle.
+
+    Wired as ``StepProfiler.on_step_device``: the serving loop
+    accumulates per-request token weights while a step runs
+    (``add_weight``), and when the profiler records a worked step's
+    device attribution, :meth:`settle_step` splits it across the
+    weights proportionally. Finishes mark a record pending-close
+    (:meth:`finish`) so the finishing step's OWN settle still reaches
+    it; the record emits (histograms + ring event + tenant counters)
+    at that settle, or immediately when harvested out-of-step
+    (:meth:`cost` / :meth:`pop_cost` — cancel/drain paths finish
+    between steps, after the last settle already fired).
+
+    Single-owner-thread like the scheduler it mirrors; ``snapshot`` and
+    ``tenant_snapshot`` read counters only.
+    """
+
+    def __init__(self, registry: Optional[MetricRegistry] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 max_tenants: int = 32, source: str = "serve",
+                 ring: Optional[_ev.EventRing] = None):
+        reg = registry if registry is not None else get_registry()
+        self._reg = reg
+        self._clock = clock
+        self._source = source
+        self._ring = ring
+        self.tenants = TenantMeter(registry=reg, max_tenants=max_tenants)
+        self._open: Dict[int, dict] = {}
+        self._pending: Dict[int, dict] = {}    # finished, last settle due
+        self._closed: Dict[int, dict] = {}     # emitted, not yet harvested
+        self._harvested: set = set()           # cost() read but not popped
+        self._weights: Dict[int, float] = {}   # rid -> this step's tokens
+        self._res: Dict[int, tuple] = {}       # rid -> (blocks, t_open)
+        self._carry = 0.0          # device time with nowhere to land yet
+        self.device_s_total = 0.0  # every device second ever distributed
+        self.settles = 0
+        self.records_closed = 0
+        self._h_device, self._h_blocks, self._h_queued = \
+            register_cost_histograms(reg)
+
+    # ------------------------------------------------------- lifecycle
+
+    def open(self, request_id: int, tokens_in: int,
+             tenant: Optional[str] = None) -> None:
+        """Start a record at submit(). Idempotent for a request id the
+        ledger already tracks (a preemption requeue re-enters through
+        the same open record, not a new one).
+
+        ``tenant="__canary"`` (telemetry/canary.py CANARY_TENANT) opens
+        an EXCLUDED record: it still exists — settle attributes the
+        probe's device seconds to it, so nobody else's bill absorbs
+        them — but it never meters a tenant and is dropped at emit
+        (no cost histograms, no ring event, no bill), keeping the money
+        paths byte-identical to a canary-off run."""
+        if (request_id in self._open or request_id in self._pending):
+            return
+        # a resubmitted id (forget() then reuse) starts a fresh record
+        self._closed.pop(request_id, None)
+        self._harvested.discard(request_id)
+        excluded = tenant == CANARY_TENANT
+        label = None if excluded else self.tenants.fold(tenant)
+        rec = new_cost_record(request_id, label, int(tokens_in))
+        if excluded:
+            rec["excluded"] = True
+        self._open[request_id] = rec
+        if label is not None:
+            self.tenants.count_request(label, int(tokens_in))
+
+    def _rec(self, request_id: int) -> Optional[dict]:
+        return (self._open.get(request_id)
+                or self._pending.get(request_id))
+
+    def note_queued(self, request_id: int, seconds: float) -> None:
+        rec = self._rec(request_id)
+        if rec is not None and seconds > 0:
+            rec["queued_s"] += seconds
+
+    def note_swap_in_bytes(self, request_id: int, nbytes: int) -> None:
+        rec = self._rec(request_id)
+        if rec is not None and nbytes:
+            rec["swap_in_bytes"] += int(nbytes)
+
+    def note_handoff_bytes(self, request_id: int, nbytes: int) -> None:
+        rec = self._rec(request_id)
+        if rec is not None and nbytes:
+            rec["handoff_bytes"] += int(nbytes)
+
+    def note_spec(self, request_id: int, proposed: int,
+                  accepted: int) -> None:
+        rec = self._rec(request_id)
+        if rec is not None:
+            rec["spec_proposed"] += int(proposed)
+            rec["spec_accepted"] += int(accepted)
+
+    # ------------------------------------------------- residency (KV)
+
+    def open_residency(self, request_id: int, blocks: int,
+                       now: Optional[float] = None) -> None:
+        """Admission: this request now holds ``blocks`` pool blocks
+        (fixed for the whole residency — up-front allocation)."""
+        if request_id in self._res:    # double-admit guard
+            self.close_residency(request_id, now)
+        self._res[request_id] = (int(blocks),
+                                 self._clock() if now is None else now)
+
+    def close_residency(self, request_id: int,
+                        now: Optional[float] = None) -> None:
+        """Slot teardown (retire / preempt / failure). Idempotent —
+        the teardown paths overlap (preemption retries exhausted tears
+        down then fails)."""
+        entry = self._res.pop(request_id, None)
+        if entry is None:
+            return
+        blocks, t0 = entry
+        t1 = self._clock() if now is None else now
+        rec = self._rec(request_id)
+        if rec is not None and t1 > t0:
+            rec["kv_block_s"] += blocks * (t1 - t0)
+
+    # ------------------------------------------------- step settlement
+
+    def add_weight(self, request_id: int, tokens: float) -> None:
+        """This request processed ``tokens`` token-units in the step
+        now being built (prefill tokens, decode commits, accepted
+        verify tokens — all the same currency: positions run through
+        the model for this request)."""
+        if tokens:
+            self._weights[request_id] = \
+                self._weights.get(request_id, 0.0) + tokens
+
+    def settle_step(self, device_s: float) -> None:
+        """Distribute one worked step's device-attributed wall across
+        the weights accumulated since the last settle (wired as
+        ``StepProfiler.on_step_device``). Exact by construction: the
+        last participant takes ``device_s - sum(others)``, so every
+        settle distributes precisely what the profiler recorded."""
+        device_s += self._carry
+        self._carry = 0.0
+        weights = self._weights
+        self._weights = {}
+        # drop weights whose record is gone (force-closed out of step:
+        # cancelled mid-flight, already harvested) — their share
+        # redistributes over the surviving participants
+        live = {rid: w for rid, w in weights.items()
+                if self._rec(rid) is not None}
+        if device_s > 0:
+            if live:
+                self._distribute(live, device_s)
+            else:
+                # a step realized device time with no attributable
+                # weights (pipelined survivors finished out-of-step):
+                # fall back to whoever is still account-able, else
+                # carry to the next settle
+                fallback = (self._open or self._pending
+                            or {rid: self._closed[rid]
+                                for rid in self._closed
+                                if rid not in self._harvested})
+                if fallback:
+                    self._distribute(
+                        dict.fromkeys(fallback, 1.0), device_s)
+                else:
+                    self._carry = device_s
+        self.settles += 1
+        # the finishing step's settle has now reached every record that
+        # finished during it — emit them
+        for rid in list(self._pending):
+            self._emit(rid)
+
+    def _distribute(self, weights: Dict[int, float],
+                    device_s: float) -> None:
+        total = sum(weights.values())
+        if total <= 0:
+            self._carry += device_s
+            return
+        rids = list(weights)
+        given = 0.0
+        for rid in rids[:-1]:
+            share = device_s * (weights[rid] / total)
+            given += self._charge(rid, share)
+        given += self._charge(rids[-1], device_s - given)
+        self.device_s_total += given
+
+    def _charge(self, rid: int, device_s: float) -> float:
+        """Land ``device_s`` on one record; returns what landed (the
+        rest carries — only reachable if a caller charges a rid the
+        ledger never saw)."""
+        rec = self._rec(rid)
+        if rec is None:
+            rec = self._closed.get(rid)
+            if rec is None:
+                self._carry += device_s
+                return 0.0
+            # post-emission top-up (fallback path only): keep the
+            # record and the tenant device counter sum-exact; the
+            # histogram already observed — bounded, documented skew
+            if rec["tenant"] is not None and device_s:
+                self.tenants.count_device(rec["tenant"], device_s)
+        rec["device_s"] += device_s
+        return device_s
+
+    # ---------------------------------------------------------- finish
+
+    def finish(self, request_id: int, tokens_out: int,
+               reason: str) -> None:
+        """The request finished; its record closes at the current
+        step's settle (or on harvest, whichever comes first)."""
+        rec = self._open.pop(request_id, None)
+        if rec is None:
+            return
+        rec["tokens_out"] = int(tokens_out)
+        rec["finish_reason"] = reason
+        # pending BEFORE closing the residency — close_residency
+        # charges through _rec(), which must still see the record
+        self._pending[request_id] = rec
+        self.close_residency(request_id)
+
+    def abandon(self, request_id: int) -> None:
+        """Force-close an OPEN record immediately (replica killed with
+        the request mid-flight: there is no finishing step coming)."""
+        if request_id in self._open:
+            self.finish(request_id, 0, "abandoned")
+            self._emit(request_id)
+
+    def flush_pending(self) -> None:
+        """Emit every pending-close record now — drain/close call this
+        once no further worked step (and therefore no further settle)
+        is coming, so post-drain scrapes see complete histograms."""
+        for rid in list(self._pending):
+            self._emit(rid)
+
+    def _emit(self, request_id: int) -> None:
+        rec = self._pending.pop(request_id, None)
+        if rec is None:
+            return
+        if rec.get("excluded"):
+            # canary probe: the record absorbed its own device seconds
+            # (so nobody else's bill did) but emits NO bill — no cost
+            # histograms, no tenant counters, no request_cost event, not
+            # counted as a closed bill. It still parks in _closed so the
+            # harvest paths (cost/pop_cost) stay id-coherent.
+            self._closed[request_id] = rec
+            return
+        self._h_device.observe(rec["device_s"])
+        self._h_blocks.observe(rec["kv_block_s"])
+        self._h_queued.observe(rec["queued_s"])
+        if rec["tenant"] is not None:
+            self.tenants.count_finish(rec["tenant"], rec["tokens_out"],
+                                      rec["device_s"])
+        ring = self._ring if self._ring is not None \
+            else _ev.get_event_ring()
+        ring.record(_ev.REQUEST_COST, source=self._source, **rec)
+        self._closed[request_id] = rec
+        self.records_closed += 1
+
+    # --------------------------------------------------------- harvest
+
+    def cost(self, request_id: int) -> Optional[dict]:
+        """The closed cost record for a finished request (a copy), or
+        None while it is still running / unknown. Forces a pending
+        record closed — an out-of-step finish (cancel, drain's tail)
+        has no further settle coming."""
+        if request_id in self._pending:
+            self._emit(request_id)
+        rec = self._closed.get(request_id)
+        if rec is None:
+            return None
+        self._harvested.add(request_id)
+        return dict(rec)
+
+    def pop_cost(self, request_id: int) -> Optional[dict]:
+        """Harvest-and-forget (the frontend collects each leg exactly
+        once; forget()/reclaim() call this so request ids stay
+        resubmittable)."""
+        rec = self.cost(request_id)
+        if rec is not None:
+            self._closed.pop(request_id, None)
+            self._harvested.discard(request_id)
+        return rec
+
+    # -------------------------------------------------------- snapshot
+
+    def tenant_snapshot(self) -> Dict[str, Dict[str, float]]:
+        return self.tenants.snapshot()
+
+    def snapshot(self) -> dict:
+        """``stats["accounting"]`` / bench view. ``residual_carry_s``
+        is device time that could not be attributed to any record and
+        is still waiting for one — 0.0 whenever closure holds."""
+        return {
+            "enabled": True,
+            "open_records": len(self._open) + len(self._pending),
+            "closed_records": self.records_closed,
+            "device_s_total": self.device_s_total,
+            "residual_carry_s": self._carry,
+            "settles": self.settles,
+            "tenants": self.tenant_snapshot(),
+        }

@@ -1,0 +1,376 @@
+"""SLO burn-rate alerting: declared objectives, state machines, pages.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/alerts.py`` (same keys, families,
+help strings and ring events), over the port's registry and event ring.
+
+:class:`SLOMonitor` (telemetry/slo.py) answers "is the objective met
+over the window right now"; this module answers the operator question —
+"should somebody be paged, and when did it start / stop". Each
+config-declared rule (``telemetry.slo.objectives``, see
+``SLOObjectiveConfig``) watches one signal over a **fast and a slow
+window** — the multi-window burn-rate idiom: the fast window catches a
+sharp burn, the slow window confirms it is sustained, and only when
+BOTH breach does the rule leave ``ok``, so a one-sample blip never
+pages. Windowed signals reuse the delta-window machinery the
+:class:`~deepspeed_tpu_torch.telemetry.capacity.CapacityModel` and
+:class:`SLOMonitor` already established: each evaluation snapshots the
+cumulative registry state once, and a window statistic is the delta
+against the snapshot at the window edge — no re-scraping, no sample
+storage. Instantaneous signals (``availability``, ``goodput``) come
+from owner-provided zero-arg sources, so the frontend's replica health
+state machine is the availability authority, not a second scrape.
+
+Each rule runs ``ok -> pending -> firing -> (resolved) -> ok`` on the
+injectable clock: a breach opens ``pending``; sustained past
+``pending_for_s`` it escalates to ``firing`` (ticking
+``serve_alerts_total{rule,state}``, raising ``serve_alert_firing{rule}``
+and recording an ``alert_fire`` ring event + the ``on_fire`` callback —
+the incident recorder's capture hook); a healthy dwell of
+``resolve_for_s`` resolves it (``alert_resolve`` event + ``on_resolve``,
+which re-arms the incident episode). Host-pure, zero threads; tier-1
+tests drive the whole lifecycle on a fake clock with zero sleeps.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+from deepspeed_tpu_torch.telemetry import events as _ev
+from deepspeed_tpu_torch.telemetry.registry import MetricRegistry, get_registry
+from deepspeed_tpu_torch.telemetry.slo import _window_quantile
+
+# rule states (also the {state=...} label values of serve_alerts_total)
+OK = "ok"
+PENDING = "pending"
+FIRING = "firing"
+RESOLVED = "resolved"
+
+# windowed signal -> (source histogram, quantile); the ratio signals
+# (error_rate, canary_success) are counter deltas handled explicitly,
+# and availability/goodput are instantaneous owner sources
+_HIST_SIGNALS: Dict[str, Tuple[str, float]] = {
+    "decode_p90_s": ("serve_token_seconds", 0.90),
+    "ttft_p90_s": ("serve_ttft_seconds", 0.90),
+    "queue_wait_p90_s": ("serve_queue_wait_seconds", 0.90),
+}
+_RATIO_SIGNALS: Dict[str, Tuple[str, str]] = {
+    # signal -> (numerator counter, denominator-partner counter);
+    # error_rate = rejected / (rejected + submitted),
+    # canary_success = ok probes / all probes
+    "error_rate": ("serve_admission_rejections_total",
+                   "serve_requests_submitted_total"),
+    "canary_success": ("serve_canary_success_total",
+                       "serve_canary_probes_started_total"),
+}
+_SOURCE_SIGNALS = ("availability", "goodput")
+
+
+class _Rule:
+    """One objective's evaluation + state machine bookkeeping."""
+
+    def __init__(self, name: str, cfg):
+        self.name = name
+        self.cfg = cfg
+        self.bound = cfg.resolved_bound()
+        self.state = OK
+        self.since: Optional[float] = None      # entered current state
+        self.breach_since: Optional[float] = None
+        self.healthy_since: Optional[float] = None
+        self.fired = 0
+        self.resolved = 0
+        self.last_fast: Optional[float] = None
+        self.last_slow: Optional[float] = None
+        self.transitions: List[dict] = []       # bounded (last 32)
+
+    def breached(self, observed: Optional[float]) -> Optional[bool]:
+        """None = no data (hold the current verdict)."""
+        if observed is None:
+            return None
+        return (observed > self.cfg.threshold if self.bound == "above"
+                else observed < self.cfg.threshold)
+
+
+class AlertEngine:
+    """Burn-rate evaluation + alert lifecycle over a registry.
+
+    ``cfg`` is a ``telemetry.SLOConfig`` whose ``objectives`` dict is
+    non-empty (the owner only builds the engine then — an empty rule
+    set registers zero instruments). ``sources`` maps the instantaneous
+    signal names (``availability``, ``goodput``) to zero-arg callables
+    returning a float or None. ``on_fire`` / ``on_resolve`` receive
+    ``(rule_name, info_dict)`` — the incident recorder's hooks.
+    """
+
+    def __init__(self, cfg, registry: Optional[MetricRegistry] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 ring: Optional[_ev.EventRing] = None,
+                 sources: Optional[Dict[str, Callable]] = None,
+                 on_fire: Optional[Callable[[str, dict], None]] = None,
+                 on_resolve: Optional[Callable[[str, dict], None]] = None):
+        self.cfg = cfg
+        self.registry = registry if registry is not None else get_registry()
+        self.clock = clock
+        self._ring = ring
+        self._sources = dict(sources or {})
+        self._on_fire = on_fire
+        self._on_resolve = on_resolve
+        self._lock = threading.Lock()
+        self._window: deque = deque()           # (ts, collected state)
+        self._last_eval: Optional[float] = None
+        self.evaluations = 0
+        self.rules: Dict[str, _Rule] = {
+            name: _Rule(name, obj)
+            for name, obj in sorted(cfg.objectives.items())}
+        # the slowest window any rule needs bounds snapshot retention
+        self._max_window = max(
+            (max(r.cfg.fast_window_s, r.cfg.slow_window_s)
+             for r in self.rules.values()), default=60.0)
+        for name in self.rules:
+            # register the firing gauge up front: a scraper sees every
+            # declared rule at 0, not just ones that have fired
+            self._g_firing(name).set(0.0)
+
+    def _g_firing(self, rule: str):
+        return self.registry.gauge(
+            "serve_alert_firing",
+            help="1 while the named alert rule is firing",
+            labels={"rule": rule})
+
+    def _c_transition(self, rule: str, state: str):
+        return self.registry.counter(
+            "serve_alerts_total",
+            help="alert state-machine transitions, by rule and "
+                 "entered state (pending / firing / resolved)",
+            labels={"rule": rule, "state": state})
+
+    def _events(self) -> _ev.EventRing:
+        # explicit None check: an empty ring is falsy
+        return self._ring if self._ring is not None else _ev.get_event_ring()
+
+    # ----------------------------------------------------------- collect
+
+    def _needed_signals(self) -> set:
+        return {r.cfg.signal for r in self.rules.values()}
+
+    def _collect(self) -> dict:
+        """One registry snapshot -> the cumulative state every windowed
+        signal needs (instantaneous sources are read at evaluate)."""
+        needed = self._needed_signals()
+        if not (needed & (set(_HIST_SIGNALS) | set(_RATIO_SIGNALS))):
+            return {}
+        snap = self.registry.snapshot()
+        state: dict = {}
+        for sig, (metric, _q) in _HIST_SIGNALS.items():
+            if sig not in needed:
+                continue
+            fam = snap.get(metric)
+            series = fam["series"] if fam else []
+            state[sig] = ([tuple(b) for b in series[0]["buckets"]]
+                          if series else [])
+        for sig, counters in _RATIO_SIGNALS.items():
+            if sig not in needed:
+                continue
+            for name in counters:
+                fam = snap.get(name)
+                state[name] = (sum(s["value"] for s in fam["series"])
+                               if fam else 0.0)
+        return state
+
+    def _baseline(self, now: float, window_s: float) -> Optional[dict]:
+        """Snapshot at/just-before ``now - window_s`` (None = the engine
+        is younger than the window: everything observed is in-window)."""
+        edge = now - window_s
+        base = None
+        for ts, state in self._window:
+            if ts <= edge:
+                base = state
+            else:
+                break
+        return base
+
+    def _observe(self, rule: _Rule, cur: dict, now: float,
+                 window_s: float) -> Optional[float]:
+        sig = rule.cfg.signal
+        if sig in _SOURCE_SIGNALS:
+            src = self._sources.get(sig)
+            if src is None:
+                return None
+            try:
+                v = src()
+            except Exception:  # noqa: BLE001 — a dying source never pages
+                return None
+            return None if v is None else float(v)
+        base = self._baseline(now, window_s) or {}
+        if sig in _HIST_SIGNALS:
+            cur_b, base_b = cur.get(sig, []), base.get(sig, [])
+            if not cur_b:
+                return None
+            deltas = ([(ub, max(c - b[1], 0.0))
+                       for (ub, c), b in zip(cur_b, base_b)]
+                      if base_b else list(cur_b))
+            return _window_quantile(deltas, _HIST_SIGNALS[sig][1])
+        num_name, den_name = _RATIO_SIGNALS[sig]
+        num = cur.get(num_name, 0.0) - base.get(num_name, 0.0)
+        den = cur.get(den_name, 0.0) - base.get(den_name, 0.0)
+        if sig == "error_rate":
+            # denominator = attempts (accepted + rejected submits)
+            attempts = num + den
+            return (num / attempts) if attempts > 0 else None
+        return (num / den) if den > 0 else None
+
+    # ---------------------------------------------------------- evaluate
+
+    def maybe_evaluate(self) -> Optional[Dict[str, dict]]:
+        """Step-cadence entry point (same contract as SLOMonitor's):
+        evaluates when ``eval_interval_s`` elapsed, None otherwise."""
+        if not self.rules:
+            return None
+        now = self.clock()
+        with self._lock:
+            due = (self._last_eval is None
+                   or now - self._last_eval >= self.cfg.eval_interval_s)
+        if not due:
+            return None
+        return self.evaluate()
+
+    def evaluate(self) -> Dict[str, dict]:
+        """Evaluate every rule now; runs the state machines and returns
+        per-rule results. Callbacks fire outside the lock."""
+        now = self.clock()
+        cur = self._collect()
+        fired: List[Tuple[str, dict]] = []
+        resolved: List[Tuple[str, dict]] = []
+        results: Dict[str, dict] = {}
+        with self._lock:
+            self._last_eval = now
+            self.evaluations += 1
+            # bounded retention, the SLOMonitor/CapacityModel idiom:
+            # spacing below max_window/64 adds memory but no baseline
+            # accuracy; entries past the slowest edge keep one baseline
+            spacing = self._max_window / 64.0
+            if not self._window or now - self._window[-1][0] >= spacing:
+                self._window.append((now, cur))
+            edge = now - self._max_window
+            while len(self._window) >= 2 and self._window[1][0] <= edge:
+                self._window.popleft()
+            for name, rule in self.rules.items():
+                fast = self._observe(rule, cur, now,
+                                     rule.cfg.fast_window_s)
+                slow = self._observe(rule, cur, now,
+                                     rule.cfg.slow_window_s)
+                rule.last_fast, rule.last_slow = fast, slow
+                bf, bs = rule.breached(fast), rule.breached(slow)
+                # multi-window: both must breach; no data on either
+                # window HOLDS the rule (a burning alert must not
+                # auto-clear because traffic paused)
+                burning = (bf and bs) if (bf is not None
+                                          and bs is not None) else None
+                info = {"rule": name, "signal": rule.cfg.signal,
+                        "threshold": rule.cfg.threshold,
+                        "bound": rule.bound,
+                        "observed_fast": fast, "observed_slow": slow}
+                if burning:
+                    rule.healthy_since = None
+                    if rule.breach_since is None:
+                        rule.breach_since = now
+                    if rule.state in (OK, RESOLVED):
+                        self._transition(rule, PENDING, now, info)
+                    if (rule.state == PENDING
+                            and now - rule.breach_since
+                            >= rule.cfg.pending_for_s):
+                        self._transition(rule, FIRING, now, info)
+                        rule.fired += 1
+                        self._g_firing(name).set(1.0)
+                        self._events().record(
+                            _ev.ALERT_FIRE, **_round_info(info))
+                        fired.append((name, dict(info)))
+                elif burning is False:
+                    rule.breach_since = None
+                    if rule.healthy_since is None:
+                        rule.healthy_since = now
+                    if rule.state == PENDING:
+                        # never fired: fold back to ok quietly
+                        rule.state, rule.since = OK, now
+                    elif (rule.state == FIRING
+                          and now - rule.healthy_since
+                          >= rule.cfg.resolve_for_s):
+                        burn_s = now - (rule.transitions[-1]["ts"]
+                                        if rule.transitions else now)
+                        self._transition(rule, RESOLVED, now, info)
+                        rule.resolved += 1
+                        self._g_firing(name).set(0.0)
+                        self._events().record(
+                            _ev.ALERT_RESOLVE,
+                            burn_seconds=round(burn_s, 3),
+                            **_round_info(info))
+                        resolved.append((name, dict(info)))
+                results[name] = {
+                    "state": rule.state, "signal": rule.cfg.signal,
+                    "threshold": rule.cfg.threshold, "bound": rule.bound,
+                    "observed_fast": fast, "observed_slow": slow,
+                    "no_data": burning is None}
+        for name, info in fired:
+            if self._on_fire is not None:
+                self._on_fire(name, info)
+        for name, info in resolved:
+            if self._on_resolve is not None:
+                self._on_resolve(name, info)
+        return results
+
+    def _transition(self, rule: _Rule, state: str, now: float,
+                    info: dict) -> None:
+        rule.state, rule.since = state, now
+        self._c_transition(rule.name, state).inc()
+        rule.transitions.append({"ts": now, "state": state,
+                                 "observed_fast": info["observed_fast"],
+                                 "observed_slow": info["observed_slow"]})
+        del rule.transitions[:-32]
+
+    # ---------------------------------------------------------- snapshot
+
+    @property
+    def firing(self) -> List[str]:
+        with self._lock:
+            return [n for n, r in self.rules.items() if r.state == FIRING]
+
+    @property
+    def fired_total(self) -> int:
+        with self._lock:
+            return sum(r.fired for r in self.rules.values())
+
+    @property
+    def resolved_total(self) -> int:
+        with self._lock:
+            return sum(r.resolved for r in self.rules.values())
+
+    def snapshot(self) -> dict:
+        """JSON-able state: the incident bundle's alert rows, the
+        /debug/incidents listing's live half, and the bench blob."""
+        with self._lock:
+            return {
+                "evaluations": self.evaluations,
+                "fired_total": sum(r.fired for r in self.rules.values()),
+                "resolved_total": sum(r.resolved
+                                      for r in self.rules.values()),
+                "firing": [n for n, r in self.rules.items()
+                           if r.state == FIRING],
+                "rules": {
+                    n: {"state": r.state, "signal": r.cfg.signal,
+                        "threshold": r.cfg.threshold, "bound": r.bound,
+                        "observed_fast": r.last_fast,
+                        "observed_slow": r.last_slow,
+                        "fired": r.fired, "resolved": r.resolved,
+                        "since": r.since,
+                        "transitions": [dict(t) for t in r.transitions]}
+                    for n, r in self.rules.items()},
+            }
+
+
+def _round_info(info: dict) -> dict:
+    out = dict(info)
+    for k in ("observed_fast", "observed_slow"):
+        if out.get(k) is not None:
+            out[k] = round(out[k], 6)
+    return out

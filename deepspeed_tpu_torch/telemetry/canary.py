@@ -1,0 +1,238 @@
+"""Synthetic canary probe through the real serving path.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/canary.py`` (same keys, families,
+help strings and ring events), over the port's registry and event ring.
+
+Dashboards built on passive metrics go quiet exactly when the server
+does: a wedged loop serves no requests and therefore observes no bad
+latency. The canary closes that hole — the serving loop periodically
+self-injects a tiny synthetic request through the **real**
+submit/step/result path (admission, scheduling, prefill, decode,
+retirement; on a role-split pool the probe crosses the
+prefill -> decode handoff like any tenant request) and scores the
+end-to-end result: latency against ``timeout_s`` and token-exactness
+against the **pinned expected output** — the first successful probe's
+tokens, so any later drift in the decode path (numerics, cache
+corruption, a bad rollout) flips the probe to ``mismatch``.
+
+Probes are marked ``tenant="__canary"`` (:data:`CANARY_TENANT`) and
+excluded from the money paths — request bills and tenant metering
+(telemetry/accounting.py drops excluded records at emit) and the
+capacity model's windowed rates (telemetry/capacity.py subtracts the
+canary counters) — pinned byte-identical by the tier-1 suite. The
+success ratio (``serve_canary_success_total`` over
+``serve_canary_probes_started_total``) feeds the ``canary_success``
+alert signal (telemetry/alerts.py).
+
+Host-pure and thread-free: the owner's step loop calls :meth:`tick`
+once per round; the injectable clock makes every timeout testable with
+zero sleeps.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, List, Optional
+
+from deepspeed_tpu_torch.telemetry import events as _ev
+from deepspeed_tpu_torch.telemetry.registry import MetricRegistry, get_registry
+
+# the reserved tenant marking a synthetic probe; accounting, tenant
+# metering, and the capacity model key their exclusions on it
+CANARY_TENANT = "__canary"
+
+# probe outcome label values (serve_canary_probes_total{result=...})
+SUCCESS = "success"
+MISMATCH = "mismatch"
+TIMEOUT = "timeout"
+ERROR = "error"
+
+
+class CanaryProber:
+    """Self-injecting end-to-end probe over one serving owner.
+
+    ``submit`` is the owner's real submit entry point, called as
+    ``submit(prompt, max_new_tokens, tenant=CANARY_TENANT)`` and
+    returning a request id (raising = admission rejected the probe —
+    scored as an error probe). ``result`` / ``finish_reason`` /
+    ``cancel`` are the owner's same-named request accessors.
+    """
+
+    def __init__(self, cfg, submit: Callable, result: Callable,
+                 finish_reason: Callable,
+                 cancel: Optional[Callable] = None,
+                 registry: Optional[MetricRegistry] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 ring: Optional[_ev.EventRing] = None,
+                 vocab_size: Optional[int] = None):
+        self.cfg = cfg
+        self._submit = submit
+        self._result = result
+        self._finish_reason = finish_reason
+        self._cancel = cancel
+        self.registry = registry if registry is not None else get_registry()
+        self.clock = clock
+        self._ring = ring
+        self._lock = threading.Lock()
+        vocab = vocab_size or (cfg.prompt_tokens + 2)
+        self.prompt: List[int] = [1 + (i % max(vocab - 1, 1))
+                                  for i in range(cfg.prompt_tokens)]
+        # the pin: set by the first successful (timely, finished) probe;
+        # every later probe must reproduce it token-for-token
+        self.expected: Optional[List[int]] = None
+        self._rid: Optional[int] = None
+        self._t0: Optional[float] = None
+        self._last_score: Optional[float] = None
+        self.latencies_ms: List[float] = []     # bounded (last 64)
+        self.results = {SUCCESS: 0, MISMATCH: 0, TIMEOUT: 0, ERROR: 0}
+        # started counts at INJECTION (the canary_success denominator):
+        # a probe the server swallows whole still burns the ratio
+        self._c_started = self.registry.counter(
+            "serve_canary_probes_started_total",
+            help="canary probes injected (the canary_success "
+                 "denominator — a swallowed probe still burns it)")
+        self._c_success = self.registry.counter(
+            "serve_canary_success_total",
+            help="canary probes that finished in time with the pinned "
+                 "tokens (the canary_success numerator)")
+        self._h_latency = self.registry.histogram(
+            "serve_canary_latency_seconds",
+            help="canary probe end-to-end latency (submit to scored "
+                 "result, server clock)")
+        # settled canary work, for the capacity model's rate exclusion:
+        # generated tokens / finished requests attributable to probes,
+        # counted when the probe scores (not mid-generation — a window
+        # straddling a live probe sees the attribution settle one
+        # evaluation late)
+        self._c_tokens = self.registry.counter(
+            "serve_canary_tokens_total",
+            help="generated tokens attributable to canary probes "
+                 "(subtracted from the capacity model's token rate)")
+        self._c_requests = self.registry.counter(
+            "serve_canary_requests_total",
+            help="finished requests attributable to canary probes "
+                 "(subtracted from the capacity model's request rate)")
+
+    def _events(self) -> _ev.EventRing:
+        # explicit None check: an empty ring is falsy
+        return self._ring if self._ring is not None else _ev.get_event_ring()
+
+    # -------------------------------------------------------------- tick
+
+    def tick(self) -> Optional[str]:
+        """One probe-lifecycle round, called from the owner's step loop:
+        score an outstanding probe that finished or timed out, else
+        inject a new one when the interval elapsed. Returns the outcome
+        scored this round (None = nothing scored)."""
+        now = self.clock()
+        with self._lock:
+            rid, t0 = self._rid, self._t0
+        if rid is not None:
+            why = self._finish_reason(rid)
+            if why is not None:
+                return self._score_finished(rid, t0, now)
+            if now - t0 >= self.cfg.timeout_s:
+                return self._score_timeout(rid, t0, now)
+            return None
+        if self._last_score is None \
+                or now - self._last_score >= self.cfg.interval_s:
+            self._inject(now)
+        return None
+
+    def _inject(self, now: float) -> None:
+        self._c_started.inc()
+        try:
+            rid = self._submit(list(self.prompt),
+                               max_new_tokens=self.cfg.max_new_tokens,
+                               tenant=CANARY_TENANT)
+        except Exception as e:  # noqa: BLE001 — a shedding server is a
+            # legitimate probe outcome, not a prober crash
+            self._finish(ERROR, 0.0, now, generated=0,
+                         finished=False, detail=repr(e)[:120])
+            return
+        with self._lock:
+            self._rid, self._t0 = rid, now
+
+    # ------------------------------------------------------------- score
+
+    def _score_finished(self, rid: int, t0: float, now: float) -> str:
+        tokens = self._result(rid)
+        generated = max(len(tokens or []) - len(self.prompt), 0)
+        latency = now - t0
+        if latency > self.cfg.timeout_s:
+            return self._finish(TIMEOUT, latency, now,
+                                generated=generated)
+        if self.expected is None:
+            # first timely finish pins the expectation
+            self.expected = list(tokens or [])
+            return self._finish(SUCCESS, latency, now,
+                                generated=generated)
+        outcome = SUCCESS if list(tokens or []) == self.expected \
+            else MISMATCH
+        return self._finish(outcome, latency, now, generated=generated)
+
+    def _score_timeout(self, rid: int, t0: float, now: float) -> str:
+        generated = 0
+        if self._cancel is not None:
+            try:
+                self._cancel(rid)
+                tokens = self._result(rid)
+                generated = max(len(tokens or []) - len(self.prompt), 0)
+            except Exception:  # noqa: BLE001 — scoring never raises
+                pass
+        return self._finish(TIMEOUT, now - t0, now, generated=generated)
+
+    def _finish(self, outcome: str, latency: float, now: float,
+                generated: int, finished: bool = True,
+                detail: Optional[str] = None) -> str:
+        with self._lock:
+            self._rid = self._t0 = None
+            self._last_score = now
+            self.results[outcome] += 1
+            self.latencies_ms.append(round(latency * 1e3, 3))
+            del self.latencies_ms[:-64]
+        self.registry.counter(
+            "serve_canary_probes_total",
+            help="scored canary probes, by outcome (success / mismatch "
+                 "/ timeout / error)",
+            labels={"result": outcome}).inc()
+        self._h_latency.observe(latency)
+        if outcome == SUCCESS:
+            self._c_success.inc()
+        else:
+            data = {"outcome": outcome,
+                    "latency_ms": round(latency * 1e3, 3)}
+            if detail:
+                data["detail"] = detail
+            self._events().record(_ev.CANARY_FAIL, **data)
+        if generated:
+            self._c_tokens.inc(generated)
+        if finished:
+            self._c_requests.inc()
+        return outcome
+
+    # ---------------------------------------------------------- snapshot
+
+    @staticmethod
+    def _quantile(vals: List[float], q: float) -> Optional[float]:
+        if not vals:
+            return None
+        s = sorted(vals)
+        return s[min(int(q * len(s)), len(s) - 1)]
+
+    def snapshot(self) -> dict:
+        """JSON-able probe health (bench's slo blob + /debug surfaces)."""
+        with self._lock:
+            lats = list(self.latencies_ms)
+            results = dict(self.results)
+            outstanding = self._rid is not None
+        total = sum(results.values())
+        return {
+            "probes": total,
+            "results": results,
+            "success_ratio": (results[SUCCESS] / total) if total else None,
+            "latency_p50_ms": self._quantile(lats, 0.50),
+            "latency_p90_ms": self._quantile(lats, 0.90),
+            "outstanding": outstanding,
+            "pinned": self.expected is not None,
+        }

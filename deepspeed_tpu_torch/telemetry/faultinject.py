@@ -1,0 +1,549 @@
+"""Fault injection: deterministic chaos for the serving loop.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/faultinject.py`` (same keys, families,
+help strings and ring events), over the port's registry and event ring.
+
+The request-lifecycle layer (deadlines, cancellation, preemption, load
+shedding — docs/serving.md "Request lifecycle & overload behavior")
+exists to survive failures that are hard to produce on demand: a wedged
+slot, an allocator famine, a prefill that dies mid-flight, a decode step
+that suddenly takes 50×. :class:`FaultInjector` produces them on
+demand — config-gated, **seeded** (the chaos tests replay the exact same
+fault schedule every run), and with zero hot-path cost when off (the
+server holds ``None`` and never calls in here).
+
+Injection sites (all consulted by ``inference/server.py`` /
+``inference/scheduler.py``, plus the replica-scoped kinds consulted by
+``inference/frontend.py``):
+
+* **step latency** — extra seconds *accounted into* the decode-step and
+  per-token histograms (and any injected clock), never slept: the SLO /
+  shedding tests drive a latency collapse with zero real sleeps.
+* **prefill failure** — the prefill for a chosen (or seeded-random)
+  request raises; the server fails the request with an always-kept
+  error trace instead of crashing the loop.
+* **allocator famine** — N pool blocks are withheld from the free list
+  (``BlockAllocator.set_reserved``), forcing the degradation ladder:
+  prefix-LRU eviction → preemption → shedding.
+* **wedged slot** — a chosen (or every-Nth) request never satisfies the
+  finish check: it decodes forever until a deadline or a bounded
+  ``drain(timeout_s=...)`` reaps it — the watchdog-clears scenario.
+
+Replica-scoped kinds (docs/serving.md "Replicated serving & failover";
+consulted by the :class:`~deepspeed_tpu_torch.inference.frontend.
+ServingFrontend` supervisor, never by a bare server):
+
+* **replica kill** — the replica's next ``step()`` raises
+  :class:`ReplicaKilled` mid-decode; the frontend declares it dead and
+  fails its queued + in-flight requests over to survivors (targeted
+  :meth:`kill_replica`, or the seeded ``replica_kill_step`` schedule —
+  one seeded-chosen victim at a configured frontend tick).
+* **replica wedge** — the replica stops being stepped (no progress, no
+  heartbeat) until unwedged: the deterministic stand-in for a step call
+  that never returns. Drives the heartbeat-deadline → failover path.
+* **replica heartbeat loss** — the replica keeps serving but the
+  frontend stops seeing its beats: the breaker opens (degraded, no new
+  routing) and past the dead deadline the frontend fails over a replica
+  that was actually fine — failover replay keeps even that false
+  positive exact.
+* **replica slow step** — extra seconds ACCOUNTED into the replica's
+  observed step wall (never slept): drives the slow-step degraded
+  breaker without real delay.
+
+Every injection is counted (``fault_injections_total`` by kind) and
+recorded into the flight-recorder event ring, so a chaos run's forensics
+look exactly like a real incident's.
+"""
+from __future__ import annotations
+
+import random
+from typing import Dict, Optional, Set
+
+from deepspeed_tpu_torch.telemetry import events as _ev
+from deepspeed_tpu_torch.telemetry.registry import MetricRegistry, get_registry
+
+# canonical injection kinds (the `kind` label on fault_injections_total
+# and the event-ring entries)
+STEP_LATENCY = "step_latency"
+PREFILL_FAILURE = "prefill_failure"
+FAMINE = "famine"
+WEDGED_SLOT = "wedged_slot"
+# replica-scoped kinds (inference/frontend.py ServingFrontend)
+REPLICA_KILL = "replica_kill"
+REPLICA_WEDGE = "replica_wedge"
+REPLICA_HEARTBEAT_LOSS = "replica_heartbeat_loss"
+REPLICA_SLOW_STEP = "replica_slow_step"
+# handoff-scoped kind (disaggregated prefill/decode — docs/serving.md
+# "Disaggregated prefill/decode"): kill the PREFILL replica mid-publish
+# (the export dies partway — nothing publishes, the decode replica
+# recomputes the prefix from the folded prompt) or right after publish
+# (the payloads are already host-durable — the handoff survives its
+# publisher). Keys are request ids; one-shot arms.
+HANDOFF_KILL = "handoff_kill"
+# training-scoped kinds (runtime/resilience.py TrainingSupervisor +
+# runtime/checkpointing.py — docs/training.md "Fault-tolerant training
+# & verified checkpoints"; a bare engine without a supervisor never
+# consults these)
+STEP_CRASH = "step_crash"
+NAN_BURST = "nan_burst"
+CKPT_WRITE_FAILURE = "ckpt_write_failure"
+CKPT_CORRUPT = "ckpt_corrupt"
+DATA_STALL = "data_stall"
+TRAIN_PREEMPT = "preempt_step"
+
+
+class PrefillFault(RuntimeError):
+    """Raised by the injector at the prefill site — distinct from real
+    prefill errors so tests can assert the injected one specifically."""
+
+
+class ReplicaKilled(RuntimeError):
+    """Raised by the injector at a replica's step site — the in-process
+    stand-in for a replica process crashing mid-decode. Distinct from
+    real step errors so chaos tests can assert the injected one."""
+
+
+class StepCrash(RuntimeError):
+    """Raised at the train-step site: the in-process stand-in for a
+    worker process dying mid-step (XLA abort, OOM kill). The
+    TrainingSupervisor rolls back to the last verified checkpoint."""
+
+
+class TrainingPreempted(RuntimeError):
+    """Raised at the train-step site at the seeded ``preempt_step``
+    tick — the preemptible-TPU-pod eviction, deterministically. Same
+    recovery path as :class:`StepCrash`, distinct so forensics (and the
+    restart counter's ``kind`` label) name the real-world cause."""
+
+
+class DataStall(RuntimeError):
+    """Raised at the batch-fetch site: stands in for a dataloader whose
+    next() exceeded the supervisor's ``data_stall_timeout_s`` (the
+    deterministic equivalent of the watchdog reaping a hung input
+    pipeline — zero real waiting in tests)."""
+
+
+class CkptWriteFault(OSError):
+    """Raised at the checkpoint write site (runtime/checkpointing.py,
+    after the state write, before the manifest publishes) — the
+    mid-save crash. The tag dir is left half-written WITHOUT a
+    manifest, so ``latest`` never advances to it and the loader's
+    fallback ladder skips it."""
+
+
+class FaultInjector:
+    """Seeded fault schedule. Built from ``telemetry.fault_injection``
+    config (:meth:`from_config`) or constructed directly by chaos tests,
+    which may also arm targeted faults (:meth:`wedge`,
+    :meth:`fail_prefill_for`) for per-request determinism."""
+
+    def __init__(self, seed: int = 0, step_latency_s: float = 0.0,
+                 prefill_failure_rate: float = 0.0,
+                 famine_blocks: int = 0, wedge_nth_request: int = 0,
+                 replica_kill_step: int = 0,
+                 step_crash_step: int = 0, preempt_step: int = 0,
+                 nan_burst_step: int = 0, data_stall_step: int = 0,
+                 ckpt_write_failure_save: int = 0,
+                 registry: Optional[MetricRegistry] = None):
+        if not 0.0 <= prefill_failure_rate <= 1.0:
+            raise ValueError(
+                f"prefill_failure_rate must be in [0, 1], got "
+                f"{prefill_failure_rate}")
+        if famine_blocks < 0 or wedge_nth_request < 0 \
+                or replica_kill_step < 0:
+            raise ValueError("famine_blocks / wedge_nth_request / "
+                             "replica_kill_step must be >= 0 "
+                             "(0 = fault off)")
+        if min(step_crash_step, preempt_step, nan_burst_step,
+               data_stall_step, ckpt_write_failure_save) < 0:
+            raise ValueError(
+                "step_crash_step / preempt_step / nan_burst_step / "
+                "data_stall_step / ckpt_write_failure_save must be "
+                ">= 0 (0 = fault off)")
+        if step_latency_s < 0:
+            raise ValueError(
+                f"step_latency_s must be >= 0, got {step_latency_s}")
+        self.seed = seed
+        self._rng = random.Random(seed)
+        self.step_latency_s = float(step_latency_s)
+        self.prefill_failure_rate = float(prefill_failure_rate)
+        self.famine_blocks = int(famine_blocks)
+        self.wedge_nth_request = int(wedge_nth_request)
+        self.replica_kill_step = int(replica_kill_step)
+        self._registry = registry
+        self._wedged: Set[int] = set()        # request ids, targeted
+        self._fail_prefill: Set[int] = set()  # request ids, targeted
+        self._submitted = 0                   # wedge_nth counter
+        # replica-scoped arms (keys are replica INDICES, not request ids)
+        self._replica_kills: Dict[int, int] = {}  # replica -> kill tick
+        self._replica_wedged: Set[int] = set()
+        self._replica_hb_lost: Set[int] = set()
+        self._replica_slow: Dict[int, float] = {}
+        # handoff-scoped arms: request id -> "mid" | "after" (one-shot)
+        self._handoff_kills: Dict[int, str] = {}
+        # training-scoped arms (keys are GLOBAL STEP numbers); each is
+        # one-shot — consumed when it fires, so a post-recovery replay
+        # of the same step is not re-killed
+        self._crash_steps: Set[int] = set()
+        self._preempt_steps: Set[int] = set()
+        self._nan_steps: Set[int] = set()
+        self._data_stall_steps: Set[int] = set()
+        self._fail_ckpt_writes = 0            # pending targeted arms
+        self.ckpt_write_failure_save = int(ckpt_write_failure_save)
+        self._ckpt_saves_seen = 0
+        if step_crash_step:
+            self._crash_steps.add(int(step_crash_step))
+        if preempt_step:
+            self._preempt_steps.add(int(preempt_step))
+        if nan_burst_step:
+            self._nan_steps.add(int(nan_burst_step))
+        if data_stall_step:
+            self._data_stall_steps.add(int(data_stall_step))
+        self.injected: dict = {}              # kind -> count (host stats)
+
+    @classmethod
+    def from_config(cls, cfg, registry: Optional[MetricRegistry] = None
+                    ) -> Optional["FaultInjector"]:
+        """``None`` unless the config section is enabled — the server
+        stores the None and pays nothing per step."""
+        if cfg is None or not cfg.enabled:
+            return None
+        return cls(seed=cfg.seed, step_latency_s=cfg.step_latency_s,
+                   prefill_failure_rate=cfg.prefill_failure_rate,
+                   famine_blocks=cfg.famine_blocks,
+                   wedge_nth_request=cfg.wedge_nth_request,
+                   replica_kill_step=cfg.replica_kill_step,
+                   step_crash_step=getattr(cfg, "step_crash_step", 0),
+                   preempt_step=getattr(cfg, "preempt_step", 0),
+                   nan_burst_step=getattr(cfg, "nan_burst_step", 0),
+                   data_stall_step=getattr(cfg, "data_stall_step", 0),
+                   ckpt_write_failure_save=getattr(
+                       cfg, "ckpt_write_failure_save", 0),
+                   registry=registry)
+
+    # ------------------------------------------------------------ account
+
+    def _count(self, kind: str, **data) -> None:
+        self.injected[kind] = self.injected.get(kind, 0) + 1
+        reg = self._registry if self._registry is not None \
+            else get_registry()
+        reg.counter("fault_injections_total",
+                    help="injected faults, by kind (telemetry/"
+                         "faultinject.py; nonzero only under chaos "
+                         "testing)",
+                    labels={"kind": kind}).inc()
+        _ev.record_event(_ev.FAULT_INJECTED, fault=kind, **data)
+
+    # ------------------------------------------------------------- sites
+
+    def on_submit(self, request_id: int) -> None:
+        """Called once per accepted submit — drives the every-Nth wedge
+        schedule (targeted :meth:`wedge` calls are independent)."""
+        self._submitted += 1
+        if (self.wedge_nth_request
+                and self._submitted % self.wedge_nth_request == 0):
+            self.wedge(request_id)
+
+    def wedge(self, request_id: int) -> None:
+        """Arm a wedge: the request never finishes (EOS and budget both
+        ignored) until cancelled/reaped."""
+        self._wedged.add(request_id)
+        self._count(WEDGED_SLOT, request_id=request_id)
+
+    def unwedge(self, request_id: int) -> None:
+        self._wedged.discard(request_id)
+
+    def is_wedged(self, request_id: int) -> bool:
+        return request_id in self._wedged
+
+    def fail_prefill_for(self, request_id: int) -> None:
+        """Arm a targeted prefill failure for one request."""
+        self._fail_prefill.add(request_id)
+
+    def check_prefill(self, request_id: int, seeded: bool = True) -> None:
+        """Prefill site: raises :class:`PrefillFault` when this request's
+        prefill is scheduled to die (targeted arm, or the seeded coin).
+
+        ``seeded=False`` skips the probabilistic coin while still honoring
+        targeted arms — the chunked prefill path flips the coin only on a
+        request's FIRST chunk, so ``prefill_failure_rate`` stays a
+        per-request probability instead of compounding with prompt
+        length."""
+        if request_id in self._fail_prefill:
+            self._fail_prefill.discard(request_id)
+            self._count(PREFILL_FAILURE, request_id=request_id)
+            raise PrefillFault(
+                f"injected prefill failure for request {request_id}")
+        if (seeded and self.prefill_failure_rate
+                and self._rng.random() < self.prefill_failure_rate):
+            self._count(PREFILL_FAILURE, request_id=request_id)
+            raise PrefillFault(
+                f"injected prefill failure for request {request_id} "
+                f"(seeded rate {self.prefill_failure_rate})")
+
+    def step_latency(self) -> float:
+        """Decode-step site: extra seconds to ACCOUNT into the step's
+        observed latency (and any injected clock). Never slept — chaos
+        tests stay real-sleep-free."""
+        if self.step_latency_s:
+            self._count(STEP_LATENCY, seconds=self.step_latency_s)
+        return self.step_latency_s
+
+    def apply_famine(self, allocator) -> None:
+        """Allocator site: withhold ``famine_blocks`` from the free
+        budget, clamped to the pool size (idempotent; counted only on
+        transitions)."""
+        target = min(self.famine_blocks, allocator.usable_blocks)
+        if allocator.reserved_blocks != target:
+            allocator.set_reserved(target)
+            if target:
+                # a transition to 0 is the chaos ENDING, not a fault
+                self._count(FAMINE, blocks=target)
+
+    # ----------------------------------------------- training-scoped sites
+    # consulted by the TrainingSupervisor (runtime/resilience.py) and the
+    # checkpoint layer (runtime/checkpointing.py); keys are global steps
+
+    def crash_at(self, step: int) -> None:
+        """Arm a one-shot step crash: ``check_train_step(step)`` raises
+        :class:`StepCrash` — the mid-step worker death."""
+        self._crash_steps.add(int(step))
+
+    def preempt_at(self, step: int) -> None:
+        """Arm a one-shot preemption at ``step`` (the seeded
+        ``preempt_step`` schedule's targeted sibling)."""
+        self._preempt_steps.add(int(step))
+
+    def nan_burst_at(self, step: int) -> None:
+        """Arm a one-shot NaN burst: ``nan_burst_due(step)`` tells the
+        supervisor to poison the step's gradients/params so the
+        numerics watch sees a real non-finite step."""
+        self._nan_steps.add(int(step))
+
+    def stall_data_at(self, step: int) -> None:
+        """Arm a one-shot dataloader stall at ``step``'s batch fetch."""
+        self._data_stall_steps.add(int(step))
+
+    def check_train_step(self, step: int) -> None:
+        """Train-step site: raises :class:`TrainingPreempted` or
+        :class:`StepCrash` when this step's arm is due. One-shot — the
+        replayed step after recovery runs clean."""
+        if step in self._preempt_steps:
+            self._preempt_steps.discard(step)
+            self._count(TRAIN_PREEMPT, step=step)
+            raise TrainingPreempted(
+                f"injected preemption at train step {step}")
+        if step in self._crash_steps:
+            self._crash_steps.discard(step)
+            self._count(STEP_CRASH, step=step)
+            raise StepCrash(f"injected crash at train step {step}")
+
+    def nan_burst_due(self, step: int) -> bool:
+        """True exactly once when the NaN burst for ``step`` is armed —
+        the supervisor then poisons the live params so the burst flows
+        through the real numerics detection, not a simulated flag."""
+        if step in self._nan_steps:
+            self._nan_steps.discard(step)
+            self._count(NAN_BURST, step=step)
+            return True
+        return False
+
+    def check_data(self, step: int) -> None:
+        """Batch-fetch site: raises :class:`DataStall` when this step's
+        fetch is scheduled to hang past the supervisor's timeout."""
+        if step in self._data_stall_steps:
+            self._data_stall_steps.discard(step)
+            self._count(DATA_STALL, step=step)
+            raise DataStall(
+                f"injected dataloader stall at train step {step}")
+
+    def fail_next_ckpt_write(self, n: int = 1) -> None:
+        """Arm the next ``n`` checkpoint writes to die mid-save (after
+        the state write, before the manifest) — the crash-consistency
+        case the atomic-commit protocol exists for."""
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        self._fail_ckpt_writes += int(n)
+
+    def check_ckpt_write(self, tag: str) -> None:
+        """Checkpoint write site: raises :class:`CkptWriteFault` for a
+        targeted arm or on the configured Nth save."""
+        self._ckpt_saves_seen += 1
+        due = self._fail_ckpt_writes > 0 or (
+            self.ckpt_write_failure_save
+            and self._ckpt_saves_seen % self.ckpt_write_failure_save == 0)
+        if due:
+            if self._fail_ckpt_writes > 0:
+                self._fail_ckpt_writes -= 1
+            self._count(CKPT_WRITE_FAILURE, tag=str(tag))
+            raise CkptWriteFault(
+                f"injected checkpoint write failure for tag {tag!r}")
+
+    def corrupt_checkpoint(self, ckpt_dir: str) -> str:
+        """Flip one mid-file byte in a seeded-chosen content file of a
+        committed tag dir — the bit-rot / torn-write case the manifest
+        checksums exist to catch. Returns the corrupted path."""
+        import os
+        files = []
+        for dirpath, _, names in os.walk(ckpt_dir):
+            for fname in sorted(names):
+                if fname == "manifest.json" or fname.endswith(".tmp"):
+                    continue
+                full = os.path.join(dirpath, fname)
+                if os.path.getsize(full) > 0:
+                    files.append(full)
+        if not files:
+            raise ValueError(f"no content files under {ckpt_dir!r}")
+        victim = self._rng.choice(sorted(files))
+        size = os.path.getsize(victim)
+        offset = self._rng.randrange(size)
+        with open(victim, "r+b") as f:
+            f.seek(offset)
+            byte = f.read(1)
+            f.seek(offset)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        self._count(CKPT_CORRUPT, path=victim, offset=offset)
+        return victim
+
+    # ------------------------------------------------ replica-scoped sites
+    # consulted by the ServingFrontend supervisor (inference/frontend.py)
+    # — a bare server never calls these; keys are replica indices
+
+    def schedule_replica_kill(self, num_replicas: int,
+                              at_tick: Optional[int] = None
+                              ) -> Optional[int]:
+        """Arm the seeded kill schedule against a pool of this size:
+        ONE seeded-chosen replica is killed at ``at_tick`` (default:
+        the configured ``replica_kill_step``; 0/None = schedule off).
+        Returns the victim index (or None when off) so chaos forensics
+        can name it up front. Callers that know their own tick clock
+        (the bench A/B arms the kill RELATIVE to its measured burst,
+        not to whatever warmup consumed) pass ``at_tick`` explicitly."""
+        if at_tick is None:
+            at_tick = self.replica_kill_step
+        if not at_tick or num_replicas < 1:
+            return None
+        victim = self._rng.randrange(num_replicas)
+        self.kill_replica(victim, at_tick=at_tick)
+        return victim
+
+    def kill_replica(self, replica: int,
+                     at_tick: Optional[int] = None) -> None:
+        """Arm a targeted kill: the replica's step raises
+        :class:`ReplicaKilled` at frontend tick ``at_tick`` (None = its
+        very next step)."""
+        self._replica_kills[replica] = 0 if at_tick is None \
+            else int(at_tick)
+
+    def check_replica_step(self, replica: int, tick: int) -> None:
+        """Replica step site: raises :class:`ReplicaKilled` when this
+        replica's kill tick has arrived. One-shot — the arm is consumed
+        (a restarted replica index is not re-killed)."""
+        due = self._replica_kills.get(replica)
+        if due is not None and tick >= due:
+            del self._replica_kills[replica]
+            self._count(REPLICA_KILL, replica=replica, tick=tick)
+            raise ReplicaKilled(
+                f"injected kill of replica {replica} at tick {tick}")
+
+    def wedge_replica(self, replica: int) -> None:
+        """Arm a replica wedge: the frontend stops stepping it (no
+        progress, no heartbeat) until :meth:`unwedge_replica`."""
+        if replica not in self._replica_wedged:
+            self._replica_wedged.add(replica)
+            self._count(REPLICA_WEDGE, replica=replica)
+
+    def unwedge_replica(self, replica: int) -> None:
+        self._replica_wedged.discard(replica)
+
+    def is_replica_wedged(self, replica: int) -> bool:
+        return replica in self._replica_wedged
+
+    def lose_heartbeat(self, replica: int) -> None:
+        """Arm heartbeat loss: the replica keeps serving but the
+        frontend stops seeing its beats (degraded, then a false-positive
+        failover past the dead deadline — which replay keeps exact)."""
+        if replica not in self._replica_hb_lost:
+            self._replica_hb_lost.add(replica)
+            self._count(REPLICA_HEARTBEAT_LOSS, replica=replica)
+
+    def restore_heartbeat(self, replica: int) -> None:
+        self._replica_hb_lost.discard(replica)
+
+    def replica_heartbeat_lost(self, replica: int) -> bool:
+        return replica in self._replica_hb_lost
+
+    def kill_prefill_mid_publish(self, request_id: int) -> None:
+        """Arm a mid-publish kill: the prefill replica dies halfway
+        through exporting this request's handoff blocks — nothing
+        publishes, and the decode replica must recompute the prefix
+        from the folded prompt (exact, chaos-pinned)."""
+        self._handoff_kills[request_id] = "mid"
+
+    def kill_prefill_after_publish(self, request_id: int) -> None:
+        """Arm a post-publish kill: the prefill replica dies the moment
+        this request's handoff publication completes — the payloads are
+        already host-durable, so the decode replica still warms from
+        them (the handoff must survive its publisher)."""
+        self._handoff_kills[request_id] = "after"
+
+    def check_handoff_block(self, request_id: int, index: int,
+                            total: int) -> None:
+        """Per-block export site: raises :class:`ReplicaKilled` at the
+        midpoint block of an armed mid-publish kill. One-shot."""
+        if (self._handoff_kills.get(request_id) == "mid"
+                and index >= total // 2):
+            del self._handoff_kills[request_id]
+            self._count(HANDOFF_KILL, request_id=request_id,
+                        when="mid_publish", block=index, total=total)
+            raise ReplicaKilled(
+                f"injected kill of the prefill replica mid-publish "
+                f"(request {request_id}, block {index}/{total})")
+
+    def check_handoff_published(self, request_id: int) -> None:
+        """Publish-complete site: raises :class:`ReplicaKilled` for an
+        armed after-publish kill. One-shot."""
+        if self._handoff_kills.get(request_id) == "after":
+            del self._handoff_kills[request_id]
+            self._count(HANDOFF_KILL, request_id=request_id,
+                        when="after_publish")
+            raise ReplicaKilled(
+                f"injected kill of the prefill replica after the "
+                f"handoff publish (request {request_id})")
+
+    def slow_replica(self, replica: int, extra_s: float) -> None:
+        """Arm (or with 0.0 clear) accounted slow-step latency for one
+        replica — never slept, drives the slow-step degraded breaker."""
+        if extra_s < 0:
+            raise ValueError(f"extra_s must be >= 0, got {extra_s}")
+        if extra_s:
+            if replica not in self._replica_slow:
+                self._count(REPLICA_SLOW_STEP, replica=replica,
+                            seconds=extra_s)
+            self._replica_slow[replica] = float(extra_s)
+        else:
+            self._replica_slow.pop(replica, None)
+
+    def replica_step_latency(self, replica: int) -> float:
+        """Extra seconds to ACCOUNT into this replica's observed step
+        wall (0.0 when unarmed)."""
+        return self._replica_slow.get(replica, 0.0)
+
+    def snapshot(self) -> dict:
+        return {"seed": self.seed, "injected": dict(self.injected),
+                "wedged": sorted(self._wedged),
+                "famine_blocks": self.famine_blocks,
+                "step_latency_s": self.step_latency_s,
+                "prefill_failure_rate": self.prefill_failure_rate,
+                "replica_kill_step": self.replica_kill_step,
+                "replica_kills_armed": dict(self._replica_kills),
+                "replicas_wedged": sorted(self._replica_wedged),
+                "replicas_heartbeat_lost": sorted(self._replica_hb_lost),
+                "replicas_slow": dict(self._replica_slow),
+                "handoff_kills_armed": dict(self._handoff_kills),
+                "train_crash_steps": sorted(self._crash_steps),
+                "train_preempt_steps": sorted(self._preempt_steps),
+                "train_nan_steps": sorted(self._nan_steps),
+                "train_data_stall_steps": sorted(self._data_stall_steps),
+                "ckpt_write_failures_armed": self._fail_ckpt_writes,
+                "ckpt_write_failure_save": self.ckpt_write_failure_save}

@@ -63,6 +63,8 @@ def _fmt(v: float) -> str:
     """Prometheus sample rendering: integral values without a decimal
     point (stable golden output), floats via repr (round-trip exact)."""
     f = float(v)
+    if math.isnan(f):   # a NaN loss gauge must not break the scrape
+        return "NaN"
     if math.isinf(f):
         return "+Inf" if f > 0 else "-Inf"
     if f == int(f) and abs(f) < 1e15:

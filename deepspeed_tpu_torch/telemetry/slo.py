@@ -1,0 +1,281 @@
+"""SLO gates over the serving registry: objectives, burn, forensics.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/slo.py`` (same keys, families,
+help strings and ring events), over the port's registry and event ring.
+
+The registry's histograms are cumulative-forever — right for dashboards,
+wrong for "are we meeting the latency objective *right now*".
+:class:`SLOMonitor` evaluates configured objectives over a **sliding
+window**: each evaluation snapshots the relevant cumulative state
+(bucket counts, counters), and the window statistic is the *delta*
+against the snapshot taken ``window_s`` ago — quantiles by the same
+rank-interpolation the registry uses, applied to the windowed bucket
+deltas. No new sample storage, same bounded-error story.
+
+Objectives (all optional; null = ungated):
+
+* ``ttft_p90_s``       — ``serve_ttft_seconds`` p90 over the window
+* ``token_p50_s``      — ``serve_token_seconds`` p50 over the window
+* ``queue_wait_p90_s`` — ``serve_queue_wait_seconds`` p90 over the window
+* ``error_rate``       — windowed rejections / attempts (accepted +
+  rejected submits, so an all-rejected outage reads 1.0)
+
+Each evaluation publishes ``slo_observed`` / ``slo_target`` /
+``slo_violation`` gauges per objective plus one ``slo_compliance_ratio``
+(objectives currently met / objectives configured), and counts
+transitions into violation (``slo_violations_total``). A transition
+also records an ``slo_violation`` **flight-recorder event**, so the
+bounded ring — compile events, admission rejects, sampled decode steps —
+is frozen around the moment the SLO started burning; with
+``telemetry.events_dump_path`` set, that window survives a crash too.
+
+Host-pure; the clock is injectable so tier-1 tests drive violations and
+window expiry with zero real sleeps.
+"""
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+from deepspeed_tpu_torch.telemetry import events as _ev
+from deepspeed_tpu_torch.telemetry.registry import MetricRegistry, get_registry
+
+# objective key -> (source histogram, quantile); error_rate is the odd
+# one out (a counter ratio) and handled explicitly
+_HIST_OBJECTIVES: Dict[str, Tuple[str, float]] = {
+    "ttft_p90": ("serve_ttft_seconds", 0.90),
+    "token_p50": ("serve_token_seconds", 0.50),
+    "queue_wait_p90": ("serve_queue_wait_seconds", 0.90),
+}
+
+
+def _window_quantile(buckets: List[Tuple[float, float]], q: float
+                     ) -> Optional[float]:
+    """Rank-interpolated quantile over windowed ``(bound, delta_count)``
+    pairs (the registry snapshot's bucket encoding; the final bound is
+    +inf). None when the window saw no samples. The overflow bucket has
+    no upper bound, so its estimate clamps to the last finite bound —
+    conservative, and consistent with Histogram.quantile's max clamp."""
+    total = sum(c for _, c in buckets)
+    if total <= 0:
+        return None
+    rank = q * total
+    cum, lower = 0.0, 0.0
+    for ub, c in buckets:
+        if c and cum + c >= rank:
+            if math.isinf(ub):
+                return lower
+            frac = min(max((rank - cum) / c, 0.0), 1.0)
+            return lower + (ub - lower) * frac
+        cum += c
+        if not math.isinf(ub):
+            lower = ub
+    return lower
+
+
+class SLOMonitor:
+    """Windowed objective evaluation over a registry.
+
+    ``cfg`` is a ``telemetry.SLOConfig`` (telemetry/config.py). The
+    serving loop calls :meth:`maybe_evaluate` once per step — it
+    re-evaluates at ``eval_interval_s`` cadence (0 = every call) and is
+    a clock read otherwise.
+    """
+
+    def __init__(self, cfg, registry: Optional[MetricRegistry] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 ring: Optional[_ev.EventRing] = None):
+        self.cfg = cfg
+        self.registry = registry if registry is not None else get_registry()
+        self.clock = clock
+        self._ring = ring
+        self._lock = threading.Lock()
+        # (ts, collected-state) snapshots spanning at least window_s
+        self._window: deque = deque()
+        self._last_eval: Optional[float] = None
+        self._violating: Dict[str, bool] = {}
+        self.evaluations = 0
+        self.last_results: Dict[str, dict] = {}
+        self.targets: Dict[str, float] = {}
+        for key in _HIST_OBJECTIVES:
+            t = getattr(cfg, key + "_s")
+            if t is not None:
+                self.targets[key] = float(t)
+        if cfg.error_rate is not None:
+            self.targets["error_rate"] = float(cfg.error_rate)
+        for key, target in self.targets.items():
+            self.registry.gauge(
+                "slo_target",
+                help="configured objective threshold, by objective "
+                     "(seconds for latency objectives, ratio for "
+                     "error_rate)",
+                labels={"objective": key}).set(target)
+
+    def _events(self) -> _ev.EventRing:
+        # explicit None check: an empty ring is falsy
+        return self._ring if self._ring is not None else _ev.get_event_ring()
+
+    # ----------------------------------------------------------- collect
+
+    def _collect(self) -> dict:
+        """Cumulative state underlying every objective, from one registry
+        snapshot (cheap at eval cadence; one lock acquisition)."""
+        snap = self.registry.snapshot()
+        state: dict = {}
+        for key, (metric, _q) in _HIST_OBJECTIVES.items():
+            if key not in self.targets:
+                continue
+            fam = snap.get(metric)
+            series = fam["series"] if fam else []
+            # serving histograms are unlabeled: one series
+            state[key] = ([tuple(b) for b in series[0]["buckets"]]
+                          if series else [])
+        if "error_rate" in self.targets:
+            def _sum(name):
+                fam = snap.get(name)
+                return sum(s["value"] for s in fam["series"]) if fam \
+                    else 0.0
+            state["rejected"] = _sum("serve_admission_rejections_total")
+            state["submitted"] = _sum("serve_requests_submitted_total")
+        return state
+
+    @staticmethod
+    def _delta_buckets(cur, base) -> List[Tuple[float, float]]:
+        if not cur:
+            return []
+        if not base:
+            return list(cur)
+        return [(ub, max(c - b[1], 0.0))
+                for (ub, c), b in zip(cur, base)]
+
+    # ---------------------------------------------------------- evaluate
+
+    def maybe_evaluate(self) -> Optional[Dict[str, dict]]:
+        """Step-cadence entry point: evaluates when ``eval_interval_s``
+        elapsed since the last evaluation (None otherwise)."""
+        if not self.targets:
+            return None
+        now = self.clock()
+        with self._lock:
+            due = (self._last_eval is None
+                   or now - self._last_eval >= self.cfg.eval_interval_s)
+        if not due:
+            return None
+        return self.evaluate()
+
+    def evaluate(self) -> Dict[str, dict]:
+        """Evaluate every configured objective over the sliding window
+        now; publishes the gauges and returns per-objective results."""
+        now = self.clock()
+        cur = self._collect()
+        with self._lock:
+            self._last_eval = now
+            self.evaluations += 1
+            # bounded retention: the deque only ever feeds the
+            # window-edge baseline, so snapshots spaced closer than
+            # window_s/64 add memory (one per decode step at
+            # eval_interval_s=0) but no baseline accuracy — skip them
+            spacing = self.cfg.window_s / 64.0
+            if not self._window or now - self._window[-1][0] >= spacing:
+                self._window.append((now, cur))
+            # keep ONE snapshot at/just-before the window edge as the
+            # baseline; earlier ones can no longer matter
+            edge = now - self.cfg.window_s
+            while len(self._window) >= 2 and self._window[1][0] <= edge:
+                self._window.popleft()
+            base_ts, base = self._window[0]
+            # a baseline newer than the edge means the monitor is younger
+            # than the window: everything observed so far is in-window
+            if base_ts > edge:
+                base = {}
+        results: Dict[str, dict] = {}
+        for key, target in self.targets.items():
+            if key == "error_rate":
+                rej = cur.get("rejected", 0.0) - \
+                    (base.get("rejected", 0.0) if base else 0.0)
+                sub = cur.get("submitted", 0.0) - \
+                    (base.get("submitted", 0.0) if base else 0.0)
+                # denominator = ATTEMPTS (accepted + rejected): the
+                # submitted counter only counts accepted submits, so an
+                # all-rejected window must read 1.0, not no-data green
+                attempts = rej + sub
+                observed = (rej / attempts) if attempts > 0 else None
+            else:
+                deltas = self._delta_buckets(
+                    cur.get(key, []), base.get(key, []) if base else [])
+                observed = _window_quantile(deltas, _HIST_OBJECTIVES[key][1])
+            if observed is None:
+                # no traffic in the window: HOLD the previous verdict —
+                # a burning SLO must not auto-clear (and later re-fire a
+                # duplicate transition) just because requests paused
+                violated = self._violating.get(key, False)
+            else:
+                violated = observed > target
+            results[key] = {"observed": observed, "target": target,
+                            "violated": violated,
+                            "no_data": observed is None}
+        self._publish(results)
+        self.last_results = results
+        return results
+
+    def _publish(self, results: Dict[str, dict]) -> None:
+        reg = self.registry
+        met = 0
+        for key, res in results.items():
+            labels = {"objective": key}
+            if res["observed"] is not None:
+                reg.gauge(
+                    "slo_observed",
+                    help="windowed objective value, by objective "
+                         "(seconds / ratio; see docs/observability.md)",
+                    labels=labels).set(res["observed"])
+            reg.gauge("slo_violation",
+                      help="1 while the objective is violated over the "
+                           "current window",
+                      labels=labels).set(1.0 if res["violated"] else 0.0)
+            if not res["violated"]:
+                met += 1
+            was = self._violating.get(key, False)
+            self._violating[key] = res["violated"]
+            if res["violated"] and not was:
+                reg.counter(
+                    "slo_violations_total",
+                    help="transitions into violation, by objective",
+                    labels=labels).inc()
+                # freeze the forensics: the ring now brackets the moment
+                # the SLO started burning
+                self._events().record(
+                    _ev.SLO_VIOLATION, objective=key,
+                    observed=round(res["observed"], 6),
+                    target=res["target"],
+                    window_s=self.cfg.window_s)
+        ratio = met / len(results) if results else 1.0
+        reg.gauge("slo_compliance_ratio",
+                  help="objectives currently met / objectives configured "
+                       "(1.0 = all SLOs green)").set(ratio)
+
+    # ---------------------------------------------------------- snapshot
+
+    @property
+    def compliance_ratio(self) -> float:
+        if not self.last_results:
+            return 1.0
+        met = sum(1 for r in self.last_results.values()
+                  if not r["violated"])
+        return met / len(self.last_results)
+
+    def snapshot(self) -> dict:
+        """JSON-able state (bench embeds this in its record)."""
+        with self._lock:
+            evals = self.evaluations
+        return {
+            "objectives": {k: dict(v) for k, v in
+                           self.last_results.items()},
+            "targets": dict(self.targets),
+            "compliance_ratio": self.compliance_ratio,
+            "evaluations": evals,
+            "window_s": self.cfg.window_s,
+        }

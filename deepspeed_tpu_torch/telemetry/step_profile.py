@@ -1,0 +1,551 @@
+"""Serving step observatory: per-step phase goodput accounting.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/step_profile.py`` (same keys, families,
+help strings and ring events), over the port's registry and event ring.
+
+The training engine already answers "where did the step go"
+(:mod:`telemetry.goodput` splits every train step into data-wait /
+device / host buckets that sum to wall by construction). The serving
+loop had no such decomposition: ``ContinuousBatchingServer.step()``
+ran admission, chunk selection, speculation proposal, device dispatch,
+the sync wait, and commit/detokenize as one opaque wall interval —
+exactly the measurement the async-serving-loop refactor (ROADMAP item
+5) needs as its A/B baseline. :class:`StepProfiler` fills that gap
+with the same discipline:
+
+* **Phases sum to wall by construction.** A step is profiled as a
+  chain of clock marks: every interval between two consecutive marks
+  is attributed to exactly one named phase, and the tail between the
+  last mark and ``finish()`` lands in ``other`` — so
+  ``sum(phases) == wall`` is an identity, not an aspiration (the bench
+  smoke asserts the ``other`` residual stays ≤5%).
+* **Zero new device syncs.** Marks are monotonic-clock reads at
+  boundaries the serving loop already crosses (the fetch that closes a
+  decode step IS the existing token fetch: in the port, the async
+  loop's ``InFlightStep`` wait on the CUDA event behind the token
+  copy). With the profiler
+  ON the decode/verify programs, their trace counts, and greedy output
+  are untouched; OFF, the loop holds a no-op handle and records
+  nothing.
+* **Dispatch-gap detector.** The device is idle from the moment step
+  N's result fetch completes until step N+1's program is dispatched —
+  the host tax ROADMAP item 5's overlap refactor exists to remove.
+  Every dispatch boundary (decode, verify, prefill, chunk) observes
+  ``now - last_fetch`` into ``serve_dispatch_gap_seconds``; the
+  cumulative gap is the exact wall-time budget an async loop can win
+  back.
+* **Commit lag awareness.** The async serving loop dispatches step
+  N+1 BEFORE fetching step N (``inference.async_loop``), so a naive
+  fetch→dispatch pairing would charge the lag-1 commit+publish work as
+  device idle even though the device moved straight from N to N+1.
+  The profiler counts dispatches outstanding (dispatched, not yet
+  fetched): a dispatch issued while another program is still in flight
+  observes a **zero** gap (the device had queued work — it never
+  idled), and a fetch that leaves work outstanding does NOT open an
+  idle span. Gaps are therefore always measured against the fetch
+  that actually drained the device — the correct step's fetch, at any
+  commit lag. A step the loop marks ``pipelined(since=...)`` credits
+  device time for the whole window the device verifiably had work in
+  flight (clamped to the step wall), keeping
+  ``serve_goodput_fraction`` meaningful when dispatch/sync_wait host
+  slivers no longer bound device activity.
+
+Phase vocabulary (docs/observability.md "Serving goodput & KV-pool
+accounting"):
+
+``admission``       deadline reap, shedding, queue admission, the
+                    preemption ladder (monolithic prefill compute runs
+                    inside this phase; its device interval is still
+                    device-attributed via :meth:`device_interval`)
+``prefill_chunk``   chunk selection + one chunked-prefill program
+``propose``         building the decode token batch; under speculation,
+                    the per-slot prompt-lookup proposal scan
+``dispatch``        host interval of the decode/verify program call
+                    (a kernel launch or graph replay returns before
+                    the device finishes)
+``sync_wait``       blocking on the step's tokens — the existing fetch
+                    boundary, where the device actually computes
+``commit``          accept/commit bookkeeping, EOS checks, retirement
+``publish``         metric observations, ring events, SLO evaluation
+``other``           the residual (finish tail) — near-zero by design
+
+``serve_goodput_fraction`` is cumulative device-attributed time
+(``dispatch`` + ``sync_wait`` + prefill/chunk device intervals) over
+cumulative wall — the serving sibling of ``train_goodput_fraction``;
+``1 - fraction`` is the host tax.
+
+Host-pure: no jax import. Config-gated by ``telemetry.step_profile``
+(default ON — the cost is a handful of clock reads and histogram
+observes per step); ``telemetry.step_profile_events_every`` samples
+every Nth step's ordered phase slices into the flight-recorder ring,
+where ``Tracer.dump_timeline`` renders them as a "server host" track
+beside the request and device tracks.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional
+
+from deepspeed_tpu_torch.telemetry.registry import MetricRegistry, get_registry
+
+# phases whose whole interval is device-attributed (the program runs /
+# the host blocks on it); prefill intervals attribute via
+# device_interval() because they nest inside the admission phase
+DEVICE_PHASES = frozenset({"dispatch", "sync_wait"})
+
+
+def _hist_p50(hist: Dict[int, int]) -> int:
+    """Weighted median of an {value: count} histogram (0 when empty) —
+    the observed-chain-depth p50 the commit-lag snapshot reports."""
+    total = sum(hist.values())
+    if not total:
+        return 0
+    half = (total + 1) // 2
+    seen = 0
+    for value in sorted(hist):
+        seen += hist[value]
+        if seen >= half:
+            return value
+    return max(hist)
+
+
+class _NullStepHandle:
+    """No-op handle the serving loop holds when profiling is off — the
+    hot path keeps one shape (mark/finish calls) whether or not the
+    profiler exists, and OFF costs a few no-op method calls per step."""
+
+    __slots__ = ()
+
+    def mark(self, phase: str, now: Optional[float] = None,
+             dispatch: bool = False, fetch: bool = False) -> None:
+        return None
+
+    def device_interval(self, t0: float, t1: float,
+                        note_dispatch: bool = True) -> None:
+        return None
+
+    def note_dispatch(self, now: float) -> None:
+        return None
+
+    def pipelined(self, since: Optional[float] = None) -> None:
+        return None
+
+    def pipelined_mode(self) -> None:
+        return None
+
+    def finish(self, live: bool = True) -> None:
+        return None
+
+
+NULL_STEP_HANDLE = _NullStepHandle()
+
+
+class _StepHandle:
+    """One step's phase accounting (reused across steps — ``begin()``
+    resets it; the serving loop is single-threaded per server)."""
+
+    __slots__ = ("_prof", "_t0", "_last", "acc", "device", "_sampled",
+                 "slices", "worked", "_pipelined_since",
+                 "_pipelined_mode")
+
+    def __init__(self, prof: "StepProfiler"):
+        self._prof = prof
+        self._t0 = 0.0
+        self._last = 0.0
+        self.acc: Dict[str, float] = {}
+        self.device = 0.0
+        self._sampled = False
+        self.slices: List[List[float]] = []
+        # did this step engage the device at all (decode/verify/prefill
+        # dispatch)? A workless idle poll must not accumulate into the
+        # goodput fraction — it would track traffic pattern, not host
+        # tax (see StepProfiler._record)
+        self.worked = False
+        # async-loop device credit (see pipelined()): None = sync step
+        self._pipelined_since: Optional[float] = None
+        self._pipelined_mode = False
+
+    def _reset(self, now: float, sampled: bool) -> None:
+        self._t0 = now
+        self._last = now
+        self.acc = {}
+        self.device = 0.0
+        self._sampled = sampled
+        self.slices = []
+        self.worked = False
+        self._pipelined_since = None
+        self._pipelined_mode = False
+
+    def mark(self, phase: str, now: Optional[float] = None,
+             dispatch: bool = False, fetch: bool = False) -> float:
+        """Close the interval since the previous mark and attribute it
+        to ``phase``. ``dispatch=True`` flags this boundary as a device
+        program dispatch (the dispatch gap is observed against the last
+        fetch); ``fetch=True`` flags it as a result-fetch completion
+        (the device went idle here). Returns the boundary time so the
+        caller can reuse the clock read."""
+        prof = self._prof
+        if now is None:
+            now = prof.clock()
+        dt = now - self._last
+        if dt < 0.0:            # clock weirdness must not corrupt sums
+            dt = 0.0
+        self._last = now
+        self.acc[phase] = self.acc.get(phase, 0.0) + dt
+        if phase in DEVICE_PHASES and not self._pipelined_mode:
+            # under pipelining the dispatch/sync_wait host slivers sit
+            # INSIDE the explicitly-credited busy windows — crediting
+            # both would double count
+            self.device += dt
+        if self._sampled and dt > 1e-9:
+            self.slices.append([phase, dt])
+        if dispatch:
+            self.worked = True
+            prof._note_dispatch(now)
+        if fetch:
+            prof._note_fetch(now)
+        return now
+
+    def device_interval(self, t0: float, t1: float,
+                        note_dispatch: bool = True) -> None:
+        """Attribute an already-measured device interval (prefill /
+        chunk program: dispatch at ``t0``, fetch complete at ``t1``)
+        that nests inside a host phase. Counts toward the goodput
+        fraction and advances the dispatch-gap boundary — the device
+        was busy, not idle, across it. ``note_dispatch=False`` realizes
+        a span whose dispatch boundary was already noted at dispatch
+        time (the deferred chunked-prefill attribution: the chunk no
+        longer forces its own fetch, so its device span closes at the
+        NEXT real fetch — which may be in a later step; the credit is
+        clamped to this step's window so cumulative device time can
+        never outrun cumulative wall)."""
+        self.worked = True
+        self.device += max(t1 - max(t0, self._t0), 0.0)
+        if note_dispatch:
+            self._prof._note_dispatch(t0)
+        self._prof._note_fetch(t1)
+
+    def note_dispatch(self, now: float) -> None:
+        """A device program left the host at ``now`` with its fetch
+        deferred (async chunk dispatch): the gap detector advances, the
+        device-time credit waits for :meth:`device_interval` with
+        ``note_dispatch=False``."""
+        self.worked = True
+        self._prof._note_dispatch(now)
+
+    def pipelined(self, since: Optional[float] = None) -> None:
+        """Mark this step as running with the async loop's commit lag:
+        the device verifiably had work in flight from ``since`` (default
+        the step's begin — an in-flight program from the previous step)
+        through the step's end, so ``finish()`` credits that window as
+        device time (clamped to the step wall). Implies
+        :meth:`pipelined_mode`: the dispatch/sync_wait host slivers no
+        longer bound device activity under pipelining — crediting them
+        would double count, and NOT crediting the busy window would
+        collapse the goodput fraction exactly when the loop gets good."""
+        self.worked = True
+        self._pipelined_mode = True
+        self._pipelined_since = self._t0 if since is None else since
+
+    def pipelined_mode(self) -> None:
+        """Suppress the DEVICE_PHASES sliver credit without arming a
+        finish-time busy window — for rounds whose device credit is
+        carried entirely by explicit :meth:`device_interval` spans plus
+        a later :meth:`pipelined` tail (the async verify round)."""
+        self._pipelined_mode = True
+
+    def finish(self, live: bool = True) -> None:
+        """Close the step: the tail since the last mark becomes the
+        ``other`` residual, and ``wall == sum(phases)`` exactly.
+
+        ``live=False`` (no sequences resident after this step) resets
+        the dispatch-gap baseline: with nothing to decode the device is
+        idle because there is no WORK, not because the host is in the
+        way — a traffic lull must never read as a multi-second
+        dispatch gap (it would dominate the p90 the async-loop A/B is
+        judged on, keyed to load pattern instead of host tax)."""
+        end = self._prof.clock()
+        tail = max(end - self._last, 0.0)
+        self.acc["other"] = self.acc.get("other", 0.0) + tail
+        if self._sampled and tail > 1e-9:
+            self.slices.append(["other", tail])
+        wall = max(end - self._t0, 0.0)
+        if self._pipelined_since is not None:
+            # additive, then clamped: phase slivers in DEVICE_PHASES may
+            # overlap the pipelined window — the clamp keeps the
+            # per-step device credit a true fraction of wall
+            self.device += max(end - max(self._pipelined_since,
+                                         self._t0), 0.0)
+        if self.device > wall:
+            self.device = wall
+        if not live:
+            self._prof._last_fetch = None
+        self._prof._record(wall, self)
+
+
+class StepProfiler:
+    """Factory + aggregate store for per-step serving phase profiles.
+
+    ``clock`` defaults to ``time.perf_counter`` and should be the
+    SERVER's clock so fake-clock chaos tests drive the profiler
+    coherently with deadlines and SLO windows. ``events_every`` samples
+    every Nth profiled step's ordered phase slices into the event ring
+    (0 = never) — the timeline track's source. Thread-safety: the
+    serving loop writes, the scrape endpoint reads ``snapshot()``.
+    """
+
+    def __init__(self, registry: Optional[MetricRegistry] = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 events_every: int = 32, source: str = "serve"):
+        if events_every < 0:
+            raise ValueError(
+                f"events_every must be >= 0 (0 = no ring/timeline "
+                f"sampling), got {events_every}")
+        self.registry = registry if registry is not None else get_registry()
+        self.clock = clock
+        self.events_every = int(events_every)
+        self.source = source
+        self._lock = threading.Lock()
+        self.steps = 0
+        self.wall_total = 0.0
+        self.device_total = 0.0
+        # workless polls (no dispatch, no device interval): counted
+        # apart so a traffic lull's pure-host steps never drag the
+        # goodput fraction toward 0 — the fraction measures host tax
+        # WHILE SERVING, the number the regression gate keys on
+        self.idle_steps = 0
+        self.idle_wall_total = 0.0
+        self.phase_totals: Dict[str, float] = {}
+        # dispatch-gap accounting (device idle between fetch N and
+        # dispatch N+1 — the async-loop refactor's target)
+        self._last_fetch: Optional[float] = None
+        self.gap_count = 0
+        self.gap_total = 0.0
+        self.gap_max = 0.0
+        # commit-lag accounting: programs dispatched but not yet
+        # fetched. A dispatch that overlaps outstanding work observes a
+        # ZERO gap (the device had queued work — see module docstring);
+        # a fetch that leaves work outstanding opens no idle span.
+        self.outstanding = 0
+        self.pipelined_dispatches = 0   # dispatches issued into a busy device
+        self.pipelined_steps = 0        # steps credited via pipelined()
+        # chain-depth accounting (lag-N dispatch chains): at each
+        # dispatch, the depth the chain reaches (outstanding AFTER the
+        # increment) and the dispatch gap attributed to that depth —
+        # depth-1 dispatches carry the real idle gaps (the device had
+        # drained), depth>=2 are 0-gap by construction, so the per-depth
+        # split shows exactly where lag-N closed gaps lag-1 could not
+        self.depth_hist: Dict[int, int] = {}
+        self.depth_gap_total: Dict[int, float] = {}
+        # rolling window of the most recent gap observations (pipelined
+        # 0-gaps included) — the cheap "how host-bound is this server
+        # RIGHT NOW" signal the disaggregated frontend's telemetry
+        # routing reads per admission (recomputing a histogram quantile
+        # per routing decision would not be)
+        self._recent_gaps: Deque[float] = deque(maxlen=32)
+        # cost-accounting tap (telemetry/accounting.py RequestLedger):
+        # called with each WORKED step's device-attributed seconds,
+        # right after they enter device_total — the ledger splits
+        # exactly what the profiler recorded, so per-request
+        # device-seconds sum to the profiler's device total by
+        # construction. None (default) costs one attribute read.
+        self.on_step_device: Optional[Callable[[float], None]] = None
+        self._handle = _StepHandle(self)
+        reg = self.registry
+        self._h_wall = reg.histogram(
+            "serve_step_wall_seconds",
+            help="one whole server step() wall interval (phases sum to "
+                 "it by construction)")
+        self._h_gap = reg.histogram(
+            "serve_dispatch_gap_seconds",
+            help="device idle between a step's result fetch and the "
+                 "next program dispatch — the host tax the async "
+                 "serving loop (ROADMAP item 5) targets")
+        self._g_goodput = reg.gauge(
+            "serve_goodput_fraction",
+            help="cumulative device-attributed share of serve step "
+                 "wall time (dispatch + sync-wait + prefill device "
+                 "intervals; 1.0 = the device never waits on the host)")
+        self._h_depth = reg.histogram(
+            "serve_commit_lag_depth",
+            help="dispatch-chain depth observed at each program "
+                 "dispatch (outstanding programs after the dispatch; "
+                 "1 = the device had drained, >= 2 = lag-N pipelining "
+                 "— ds_report compares this against the configured "
+                 "async_loop max_commit_lag)",
+            buckets=[float(i) for i in range(1, 17)])
+        self._phase_hist: Dict[str, object] = {}
+
+    # ------------------------------------------------------------ steps
+
+    def begin(self) -> _StepHandle:
+        """Start profiling one ``step()`` call; returns the handle the
+        loop marks phase boundaries on. A handle must be ``finish()``ed
+        before the next ``begin()`` (single-threaded serving loop)."""
+        sampled = self.events_every > 0 and \
+            (self.steps % self.events_every == 0)
+        self._handle._reset(self.clock(), sampled)
+        return self._handle
+
+    def _note_dispatch(self, now: float) -> None:
+        if self.outstanding > 0:
+            # another program is still in flight: the device moves
+            # straight from it to this one — zero idle by construction.
+            # Observed (not skipped) so the gap histogram's count keeps
+            # meaning "one observation per dispatch boundary" and the
+            # p90 the async A/B gates on reflects the closed gaps.
+            self.outstanding += 1
+            depth = self.outstanding
+            self._h_gap.observe(0.0)
+            self._h_depth.observe(float(depth))
+            with self._lock:
+                self.gap_count += 1
+                self.pipelined_dispatches += 1
+                self._recent_gaps.append(0.0)
+                self.depth_hist[depth] = self.depth_hist.get(depth, 0) + 1
+            return
+        self.outstanding = 1
+        self._h_depth.observe(1.0)
+        if self._last_fetch is None:
+            with self._lock:
+                self.depth_hist[1] = self.depth_hist.get(1, 0) + 1
+            return
+        gap = max(now - self._last_fetch, 0.0)
+        self._last_fetch = None      # one gap per idle span
+        self._h_gap.observe(gap)
+        with self._lock:
+            self.gap_count += 1
+            self.gap_total += gap
+            self.gap_max = max(self.gap_max, gap)
+            self._recent_gaps.append(gap)
+            self.depth_hist[1] = self.depth_hist.get(1, 0) + 1
+            self.depth_gap_total[1] = \
+                self.depth_gap_total.get(1, 0.0) + gap
+
+    def _note_fetch(self, now: float) -> None:
+        self.outstanding = max(self.outstanding - 1, 0)
+        if self.outstanding == 0:
+            # the device actually drained here — idle begins
+            self._last_fetch = now
+
+    def note_fetch(self, now: float) -> None:
+        """Out-of-step fetch boundary (a pipeline flush from ``cancel``
+        or ``drain`` between ``step()`` calls): keeps the
+        outstanding-dispatch pairing exact when no step handle is
+        live."""
+        self._note_fetch(now)
+
+    def recent_gap_s(self) -> float:
+        """Mean of the last ≤32 dispatch-gap observations (0.0 with no
+        history) — the per-replica host-bound signal the disaggregated
+        frontend ranks decode replicas by (telemetry-routed admission:
+        docs/serving.md 'Disaggregated prefill/decode')."""
+        with self._lock:
+            if not self._recent_gaps:
+                return 0.0
+            return sum(self._recent_gaps) / len(self._recent_gaps)
+
+    def _phase_h(self, phase: str):
+        h = self._phase_hist.get(phase)
+        if h is None:
+            h = self.registry.histogram(
+                "serve_step_phase_seconds",
+                help="per-step host time by serving phase (admission / "
+                     "prefill_chunk / propose / dispatch / sync_wait / "
+                     "commit / publish / other; phases sum to "
+                     "serve_step_wall_seconds by construction)",
+                labels={"phase": phase})
+            self._phase_hist[phase] = h
+        return h
+
+    def _record(self, wall: float, handle: _StepHandle) -> None:
+        if not handle.worked:
+            # idle poll: nothing dispatched, no device interval — the
+            # step is counted for visibility but kept OUT of the
+            # wall/phase/goodput accumulators and the ring (a lull's
+            # workless steps are load pattern, not host tax)
+            with self._lock:
+                self.idle_steps += 1
+                self.idle_wall_total += wall
+            return
+        with self._lock:
+            self.steps += 1
+            if handle._pipelined_mode:
+                self.pipelined_steps += 1
+            self.wall_total += wall
+            self.device_total += handle.device
+            for phase, dt in handle.acc.items():
+                self.phase_totals[phase] = \
+                    self.phase_totals.get(phase, 0.0) + dt
+            fraction = (self.device_total / self.wall_total
+                        if self.wall_total > 0 else 0.0)
+            step_no = self.steps
+        if self.on_step_device is not None:
+            self.on_step_device(handle.device)
+        self._h_wall.observe(wall)
+        for phase, dt in handle.acc.items():
+            self._phase_h(phase).observe(dt)
+        self._g_goodput.set(fraction)
+        if handle._sampled:
+            from deepspeed_tpu_torch.telemetry.events import (
+                SERVER_STEP_PROFILE, record_event)
+            record_event(
+                SERVER_STEP_PROFILE, source=self.source, step=step_no,
+                wall=round(wall, 7),
+                goodput_fraction=round(fraction, 4),
+                slices=[[p, round(dt, 7)] for p, dt in handle.slices],
+                sampled_every=self.events_every)
+
+    # --------------------------------------------------------- snapshot
+
+    def snapshot(self) -> dict:
+        """JSON-able totals for ``/debug/goodput``, ``server.stats``,
+        and the bench blob."""
+        with self._lock:
+            wall = self.wall_total
+            device = self.device_total
+            fraction = device / wall if wall > 0 else 0.0
+            return {
+                "enabled": True,
+                "source": self.source,
+                "steps": self.steps,
+                "idle_steps": self.idle_steps,
+                "idle_wall_s": self.idle_wall_total,
+                "wall_s": wall,
+                "device_s": device,
+                "goodput_fraction": fraction,
+                "host_fraction": 1.0 - fraction if wall > 0 else 0.0,
+                "phases_s": dict(self.phase_totals),
+                "dispatch_gap": {
+                    "count": self.gap_count,
+                    "total_s": self.gap_total,
+                    "max_s": self.gap_max,
+                    "mean_s": (self.gap_total / self.gap_count
+                               if self.gap_count else 0.0),
+                },
+                # async-loop commit-lag view (docs/serving.md "Async
+                # dispatch loop"): how deep the pipeline currently is,
+                # how many dispatches landed on a busy device (gap 0),
+                # and how many steps were credited via pipelined()
+                "commit_lag": {
+                    "outstanding": self.outstanding,
+                    "pipelined_dispatches": self.pipelined_dispatches,
+                    "pipelined_steps": self.pipelined_steps,
+                    # observed chain-depth distribution (lag-N): keys
+                    # are the depth each dispatch landed at; p50/max
+                    # summarize it, gap_s_by_depth attributes the idle
+                    # gaps (all at depth 1 by construction — deeper
+                    # dispatches land on a busy device)
+                    "depth_hist": {str(d): n for d, n in
+                                   sorted(self.depth_hist.items())},
+                    "depth_p50": _hist_p50(self.depth_hist),
+                    "depth_max": max(self.depth_hist) if self.depth_hist
+                    else 0,
+                    "gap_s_by_depth": {str(d): t for d, t in
+                                       sorted(self.depth_gap_total
+                                              .items())},
+                },
+                "events_every": self.events_every,
+            }

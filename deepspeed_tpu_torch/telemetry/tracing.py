@@ -1,0 +1,515 @@
+"""Request-scoped tracing: per-request span trees + timeline export.
+
+Host-pure copy of ``deepspeed_tpu/telemetry/tracing.py`` (same keys, families,
+help strings and ring events), over the port's registry and event ring.
+
+The registry (registry.py) is the *aggregate* view and the flight
+recorder (events.py) the *process* view; neither can answer "where did
+THIS request's 400 ms go". :class:`Tracer` fills that gap: every traced
+request owns a tree of :class:`TraceSpan` ranges — queue wait,
+admission, each prefill chunk, decode residency, finish — and finished
+trees land in a bounded ring two surfaces read:
+
+* ``GET /debug/traces`` (exporter.py) — recent finished traces as JSON;
+* :meth:`Tracer.dump_timeline` — Chrome trace-event JSON (load in
+  Perfetto / ``chrome://tracing``) that lays request tracks beside the
+  flight recorder's decode-step and compile events, so one file answers
+  both "where did the request's time go" and "what was the device doing
+  meanwhile".
+
+Retention is **head sampling plus tail rescue**: a seeded RNG decides at
+trace start whether a request is head-sampled (``sample_rate``), but
+slow (``slow_threshold_s``), rejected, and errored requests are always
+kept — the traces an operator actually wants never lose the coin flip.
+The ring is bounded (``ring_capacity``), so a million-request run holds
+the most recent window at constant memory, same discipline as the
+registry and the event ring.
+
+Context propagation is a :mod:`contextvars` variable
+(:func:`current_span`), so ``telemetry/spans.py`` ``span()`` blocks —
+detokenize, checkpoint hooks, user code — automatically nest under the
+active request without threading a handle through every call.
+
+Host-pure: no jax import; recording is list/dict mutation under the
+caller's thread, ring append under a lock. A server with tracing OFF
+(``telemetry.trace_sample_rate == 0``) builds no Tracer and allocates
+nothing per request — guarded by a test counting live trace objects.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import json
+import random
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
+
+from deepspeed_tpu_torch.telemetry.registry import MetricRegistry, get_registry
+
+# a trace's span count is a small integer, not a latency — power-of-two
+# buckets so the bench's span-count histogram has sane resolution
+SPAN_COUNT_BUCKETS = [2.0 ** i for i in range(11)]   # 1 … 1024
+
+_ACTIVE_SPAN: contextvars.ContextVar = contextvars.ContextVar(
+    "dstpu_active_trace_span", default=None)
+
+
+def current_span() -> Optional["TraceSpan"]:
+    """The innermost span activated on this thread/context (None when no
+    trace is active) — what ``spans.span()`` parents itself under."""
+    return _ACTIVE_SPAN.get()
+
+
+class TraceSpan:
+    """One named time range inside a trace. ``__slots__`` because the
+    serving loop creates several per traced request."""
+
+    __slots__ = ("name", "start", "end", "attributes", "children",
+                 "parent", "trace")
+
+    def __init__(self, name: str, start: float, trace: "Trace",
+                 parent: Optional["TraceSpan"] = None):
+        self.name = name
+        self.start = float(start)
+        self.end: Optional[float] = None
+        self.attributes: Dict[str, Any] = {}
+        self.children: List[TraceSpan] = []
+        self.parent = parent
+        self.trace = trace
+
+    @property
+    def duration_s(self) -> Optional[float]:
+        return None if self.end is None else self.end - self.start
+
+    def set(self, key: str, value: Any) -> None:
+        self.attributes[key] = value
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "start": self.start,
+            "end": self.end,
+            "duration_s": self.duration_s,
+            "attributes": dict(self.attributes),
+            "children": [c.to_dict() for c in self.children],
+        }
+
+
+class Trace:
+    """One request's span tree: a root span plus whatever the
+    instrumentation hangs under it. Mutated by the owning request's
+    thread only; the Tracer ring is where cross-thread reads happen."""
+
+    __slots__ = ("trace_id", "root", "head_sampled", "status",
+                 "keep_reason", "span_count", "_tracer")
+
+    def __init__(self, tracer: "Tracer", name: str, trace_id,
+                 start: float, head_sampled: bool):
+        self.trace_id = trace_id
+        self._tracer = tracer
+        self.head_sampled = head_sampled
+        self.status = "ok"
+        self.keep_reason: Optional[str] = None
+        self.span_count = 1
+        self.root = TraceSpan(name, start, self)
+
+    # ------------------------------------------------------------ spans
+
+    def begin(self, name: str, parent: Optional[TraceSpan] = None,
+              start: Optional[float] = None, **attributes) -> TraceSpan:
+        """Open a child span (under ``parent``, default the root); close
+        it with :meth:`end_span`."""
+        parent = parent if parent is not None else self.root
+        sp = TraceSpan(name,
+                       self._tracer.clock() if start is None else start,
+                       self, parent=parent)
+        sp.attributes.update(attributes)
+        parent.children.append(sp)
+        self.span_count += 1
+        return sp
+
+    def end_span(self, span: TraceSpan,
+                 end: Optional[float] = None) -> TraceSpan:
+        if span.end is None:
+            span.end = self._tracer.clock() if end is None else end
+        return span
+
+    def add_span(self, name: str, start: float, end: float,
+                 parent: Optional[TraceSpan] = None,
+                 **attributes) -> TraceSpan:
+        """Record an already-measured interval (the training engine
+        synthesizes its data-wait/device/host children from the goodput
+        splits this way)."""
+        sp = self.begin(name, parent=parent, start=start, **attributes)
+        sp.end = float(end)
+        return sp
+
+    @contextlib.contextmanager
+    def span(self, name: str, parent: Optional[TraceSpan] = None,
+             **attributes):
+        """``with trace.span("detokenize"): ...`` — begin/end around a
+        block; the span records an ``error`` attribute and still closes
+        when the block raises."""
+        sp = self.begin(name, parent=parent, **attributes)
+        try:
+            yield sp
+        except BaseException as e:  # noqa: BLE001 — recorded, re-raised
+            sp.set("error", type(e).__name__)
+            raise
+        finally:
+            self.end_span(sp)
+
+    @contextlib.contextmanager
+    def activate(self, span: Optional[TraceSpan] = None):
+        """Make ``span`` (default the root) the context's active span so
+        nested ``spans.span()`` blocks join this trace as children."""
+        token = _ACTIVE_SPAN.set(span if span is not None else self.root)
+        try:
+            yield
+        finally:
+            _ACTIVE_SPAN.reset(token)
+
+    # ------------------------------------------------------------ export
+
+    @property
+    def duration_s(self) -> Optional[float]:
+        return self.root.duration_s
+
+    def to_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id,
+            "status": self.status,
+            "keep_reason": self.keep_reason,
+            "head_sampled": self.head_sampled,
+            "span_count": self.span_count,
+            "duration_s": self.duration_s,
+            "root": self.root.to_dict(),
+        }
+
+
+# ------------------------------------------------- ring -> timeline slices
+# Shared by Tracer.trace_events and anything else that renders the
+# flight-recorder ring as Chrome trace tracks. Track layout:
+#   pid 2 "device":      tid 1 decode steps, tid 2 compiles,
+#                        tid 3 instant markers (everything else)
+#   pid 3 "server host": tid 1 serving-step phase slices
+#                        (telemetry/step_profile.py ring samples)
+
+def ring_timeline_events(event_ring,
+                         source_pids: Optional[Dict[str, int]] = None
+                         ) -> List[dict]:
+    """Convert the event ring into Chrome trace-event slices, in ONE
+    place (the r8 export rebuilt device slices inline, so a second
+    consumer would have re-implemented — and drifted from — the
+    conversion). Durations anchor backwards from each event's ring
+    timestamp. Slices are deduped by ``(pid, tid, ts)``: a ring that
+    recorded the same instant twice (fake clocks collapse timestamps;
+    a re-recorded step) must not emit overlapping duplicates that break
+    the timeline validator's non-overlap invariant.
+
+    ``source_pids`` maps a step-profile ``source`` tag (the profiler's
+    ``source=`` constructor arg, e.g. ``"replica0"``) to a dedicated
+    Chrome pid, so a replicated frontend renders each replica's host
+    phases as its own process group; the caller owns those pids' meta
+    events. Untagged/unmapped sources keep the classic pid-3 "server
+    host" track, so single-server dumps are unchanged."""
+    slices: List[dict] = []
+    seen = set()
+    have_server = False
+
+    def _slice(name, pid, tid, cat, ts, dur, args):
+        key = (pid, tid, round(ts * 1e6, 3))
+        if key in seen:
+            return
+        seen.add(key)
+        slices.append({
+            "name": name, "ph": "X", "cat": cat, "pid": pid, "tid": tid,
+            "ts": round(ts * 1e6, 3),
+            "dur": round(max(dur, 0.0) * 1e6, 3), "args": args})
+
+    for ev in event_ring.snapshot():
+        kind, ts, data = ev["kind"], ev["ts"], dict(ev["data"])
+        dur = data.get("seconds")
+        if kind == "step_end" and dur is not None:
+            _slice(f"decode step {data.get('step', '?')}", 2, 1,
+                   "device", ts - dur, dur, data)
+        elif kind == "compile_end" and dur is not None:
+            _slice(f"compile {data.get('fn', '?')}", 2, 2,
+                   "device", ts - dur, dur, data)
+        elif kind == "server_step_profile":
+            # contiguous phase slices reconstructed backwards from the
+            # record timestamp (the step's finish boundary): the last
+            # phase ends at ts, each earlier one abuts the next
+            pid = (source_pids or {}).get(data.get("source"), 3)
+            have_server = have_server or pid == 3
+            end = ts
+            step = data.get("step", "?")
+            for entry in reversed(data.get("slices", [])):
+                name, pdur = entry[0], float(entry[1])
+                _slice(f"{name}", pid, 1, "server_host",
+                       end - pdur, pdur,
+                       {"step": step, "phase": name})
+                end -= pdur
+        else:
+            # everything else (retraces, admission rejects, SLO
+            # violations, famine snapshots, …) as instant markers
+            slices.append({
+                "name": kind, "ph": "i", "s": "p", "cat": "events",
+                "pid": 2, "tid": 3, "ts": round(ts * 1e6, 3),
+                "args": data})
+    meta = [
+        {"name": "process_name", "ph": "M", "pid": 2, "tid": 0,
+         "args": {"name": "device"}},
+        {"name": "thread_name", "ph": "M", "pid": 2, "tid": 1,
+         "args": {"name": "decode steps (sampled)"}},
+        {"name": "thread_name", "ph": "M", "pid": 2, "tid": 2,
+         "args": {"name": "compiles"}},
+    ]
+    if have_server:
+        meta.extend([
+            {"name": "process_name", "ph": "M", "pid": 3, "tid": 0,
+             "args": {"name": "server host"}},
+            {"name": "thread_name", "ph": "M", "pid": 3, "tid": 1,
+             "args": {"name": "step phases (sampled)"}},
+        ])
+    return meta + slices
+
+
+def span_events_from_dict(events: List[dict], span: dict, pid: int,
+                          tid, extra_args: Optional[dict] = None) -> None:
+    """Emit Chrome complete events from a SERIALIZED span tree (the
+    ``TraceSpan.to_dict()`` form) — the renderer the fleet timeline
+    uses for replica-side traces, which cross the replica boundary as
+    JSON snapshots rather than live objects. Pre-order, same layout as
+    :meth:`Tracer._emit_span` so stitched and local tracks look
+    identical in Perfetto."""
+    end = span["end"] if span.get("end") is not None else span["start"]
+    args = dict(span.get("attributes") or {})
+    if extra_args:
+        args.update(extra_args)
+    events.append({
+        "name": span["name"], "ph": "X", "cat": "request",
+        "pid": pid, "tid": tid,
+        "ts": round(float(span["start"]) * 1e6, 3),
+        "dur": round(max(end - span["start"], 0.0) * 1e6, 3),
+        "args": args,
+    })
+    for child in span.get("children") or []:
+        span_events_from_dict(events, child, pid, tid)
+
+
+class Tracer:
+    """Process- or engine-scoped trace factory + bounded finished ring.
+
+    ``sample_rate`` is the head-sampling probability decided at
+    :meth:`start_trace` from a **seeded** RNG (deterministic retention
+    under a fixed seed and submission order); slow / rejected / errored
+    traces are kept regardless. ``clock`` defaults to ``time.time`` so
+    span timestamps share a timebase with the event ring — that is what
+    lets :meth:`dump_timeline` interleave both on one timeline.
+    """
+
+    def __init__(self, sample_rate: float = 0.0,
+                 ring_capacity: int = 256, seed: int = 0,
+                 slow_threshold_s: Optional[float] = None,
+                 registry: Optional[MetricRegistry] = None,
+                 clock: Callable[[], float] = time.time):
+        if not 0.0 <= sample_rate <= 1.0:
+            raise ValueError(
+                f"sample_rate must be in [0, 1], got {sample_rate}")
+        if ring_capacity < 1:
+            raise ValueError(
+                f"ring_capacity must be >= 1, got {ring_capacity}")
+        self.sample_rate = float(sample_rate)
+        self.slow_threshold_s = slow_threshold_s
+        self.clock = clock
+        self._registry = registry
+        self._rng = random.Random(seed)
+        self._lock = threading.RLock()
+        self._ring: deque = deque(maxlen=int(ring_capacity))
+        self.started = 0
+        self.kept = 0
+
+    @property
+    def ring_capacity(self) -> int:
+        return self._ring.maxlen
+
+    def _reg(self) -> MetricRegistry:
+        # resolved per use so a default-constructed tracer imported at
+        # module load respects a later set_registry() (tests)
+        return self._registry if self._registry is not None \
+            else get_registry()
+
+    # ------------------------------------------------------------ create
+
+    def start_trace(self, name: str, trace_id=None,
+                    start: Optional[float] = None, **attributes) -> Trace:
+        """Open a trace; the head-sampling decision happens HERE (one
+        seeded coin flip per trace, in start order)."""
+        with self._lock:
+            self.started += 1
+            if trace_id is None:
+                # distinct namespace from caller-assigned ids: a bare
+                # int here could collide with a request id and merge two
+                # traces onto one timeline track (tid = trace_id)
+                trace_id = f"t{self.started}"
+            sampled = self._rng.random() < self.sample_rate
+        tr = Trace(self, name, trace_id,
+                   self.clock() if start is None else start, sampled)
+        tr.root.attributes.update(attributes)
+        self._reg().counter(
+            "trace_requests_total",
+            help="traces started (requests/steps entering the tracer)"
+        ).inc()
+        return tr
+
+    # ------------------------------------------------------------ finish
+
+    def finish(self, trace: Trace, status: str = "ok",
+               end: Optional[float] = None, keep: bool = False) -> bool:
+        """Close the root span and decide retention. Returns True when
+        the trace entered the finished ring. Keep order: error beats
+        sampled beats slow beats forced — the reason labels the
+        ``trace_kept_total`` counter."""
+        trace.status = status
+        trace.end_span(trace.root, end=end)
+        dur = trace.root.duration_s or 0.0
+        reason = None
+        if status != "ok":
+            reason = "error"
+        elif trace.head_sampled:
+            reason = "sampled"
+        elif self.slow_threshold_s is not None and \
+                dur >= self.slow_threshold_s:
+            reason = "slow"
+        elif keep:
+            reason = "forced"
+        if reason is None:
+            return False
+        trace.keep_reason = reason
+        with self._lock:
+            self._ring.append(trace)
+            self.kept += 1
+            ring_size = len(self._ring)
+        reg = self._reg()
+        reg.counter("trace_kept_total",
+                    help="finished traces retained in the ring, by keep "
+                         "reason (sampled/slow/error/forced)",
+                    labels={"reason": reason}).inc()
+        reg.gauge("trace_ring_size",
+                  help="finished traces currently buffered for "
+                       "/debug/traces and dump_timeline").set(ring_size)
+        reg.histogram("trace_span_count",
+                      help="spans per kept trace (tree size)",
+                      buckets=SPAN_COUNT_BUCKETS).observe(
+                          trace.span_count)
+        return True
+
+    def record_rejected(self, name: str, reason: str, trace_id=None,
+                        **attributes) -> Trace:
+        """One-span error trace for a request refused before it ever got
+        a span tree (admission rejections) — always kept."""
+        tr = self.start_trace(name, trace_id=trace_id, **attributes)
+        tr.root.set("error", reason)
+        self.finish(tr, status="rejected")
+        return tr
+
+    # ------------------------------------------------------------ export
+
+    def traces(self) -> List[Trace]:
+        """Kept traces, oldest first (a copy; safe to iterate while the
+        serving loop keeps finishing new ones)."""
+        with self._lock:
+            return list(self._ring)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            ring = list(self._ring)
+            started, kept = self.started, self.kept
+        return {
+            "sample_rate": self.sample_rate,
+            "slow_threshold_s": self.slow_threshold_s,
+            "ring_capacity": self.ring_capacity,
+            "started": started,
+            "kept": kept,
+            "traces": [t.to_dict() for t in ring],
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.snapshot(), default=str)
+
+    # ------------------------------------------------- Chrome trace dump
+
+    @staticmethod
+    def _emit_span(events: List[dict], span: TraceSpan, pid: int,
+                   tid, extra_args: Optional[dict] = None) -> None:
+        """Pre-order emission (parent before children) — the trace-event
+        format nests same-track complete events by containment."""
+        end = span.end if span.end is not None else span.start
+        args = dict(span.attributes)
+        if extra_args:
+            args.update(extra_args)
+        events.append({
+            "name": span.name, "ph": "X", "cat": "request",
+            "pid": pid, "tid": tid,
+            "ts": round(span.start * 1e6, 3),
+            "dur": round(max(end - span.start, 0.0) * 1e6, 3),
+            "args": args,
+        })
+        for child in span.children:
+            Tracer._emit_span(events, child, pid, tid)
+
+    def trace_events(self, event_ring=None) -> List[dict]:
+        """Chrome trace-event list: one track (tid) per kept trace under
+        the ``requests`` process, plus ``device`` / ``server host``
+        tracks rebuilt from the flight-recorder ring by
+        :func:`ring_timeline_events` — sampled decode-step slices,
+        compile slices, and serving-step phase slices: "what were the
+        device AND the host doing meanwhile"."""
+        events: List[dict] = [
+            {"name": "process_name", "ph": "M", "pid": 1, "tid": 0,
+             "args": {"name": "requests"}},
+        ]
+        for tr in self.traces():
+            tid = tr.trace_id if isinstance(tr.trace_id, int) \
+                else abs(hash(tr.trace_id)) % (1 << 31)
+            events.append({
+                "name": "thread_name", "ph": "M", "pid": 1, "tid": tid,
+                "args": {"name": f"{tr.root.name} {tr.trace_id} "
+                                 f"[{tr.keep_reason}]"}})
+            self._emit_span(events, tr.root, 1, tid,
+                            extra_args={"status": tr.status,
+                                        "keep_reason": tr.keep_reason})
+        if event_ring is not None:
+            events.extend(ring_timeline_events(event_ring))
+        return events
+
+    def dump_timeline(self, path: str, event_ring=None) -> int:
+        """Write Perfetto/chrome://tracing-loadable trace-event JSON;
+        returns the event count."""
+        payload = {"traceEvents": self.trace_events(event_ring),
+                   "displayTimeUnit": "ms"}
+        with open(path, "w") as f:
+            json.dump(payload, f, default=str)
+        return len(payload["traceEvents"])
+
+
+# a disabled process default (sample_rate 0) so /debug/traces is always a
+# valid surface even before any engine arms tracing
+_default_tracer = Tracer()
+
+
+def get_tracer() -> Tracer:
+    """The process-default tracer ``/debug/traces`` falls back to when
+    the endpoint owner armed none."""
+    return _default_tracer
+
+
+def set_tracer(tracer: Tracer) -> Tracer:
+    """Swap the process default (an engine arming tracing, or tests);
+    returns the previous one."""
+    global _default_tracer
+    prev, _default_tracer = _default_tracer, tracer
+    return prev

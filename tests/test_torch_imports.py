@@ -22,7 +22,8 @@ PORT_FILES = sorted(
      for p in (ROOT / "deepspeed_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "scripts/profile_torch_generate.py",
        "scripts/profile_speculation.py", "scripts/profile_int8.py",
-       "scripts/profile_train_models.py", "scripts/train_nvme_llama.py"])
+       "scripts/profile_train_models.py", "scripts/train_nvme_llama.py",
+       "scripts/observe_cost.py"])
 
 
 def banned_imports(source: str):

@@ -341,7 +341,7 @@ def test_init_inference_entry_point_and_telemetry():
 
 @pytest.mark.parametrize("case", ["beams", "assistant", "speculative", "tp",
                                   "int8", "moe", "encoder", "checkpoint",
-                                  "hf_model", "tracing", "server"])
+                                  "hf_model", "server"])
 def test_out_of_slice_paths_raise_not_implemented(case):
     _, _, tcfg, tp = _pair("gpt2")
     cfg32 = DeepSpeedInferenceConfig(dtype="float32")
@@ -400,8 +400,3 @@ def test_out_of_slice_paths_raise_not_implemented(case):
             class Unknown:
                 config = type("Config", (), {"model_type": "made-up"})
             InferenceEngine(Unknown(), cfg32, device="cpu")
-        else:
-            InferenceEngine((tcfg, tp), DeepSpeedInferenceConfig(
-                dtype="float32", telemetry={"enabled": True,
-                                            "trace_sample_rate": 1.0}),
-                device="cpu")

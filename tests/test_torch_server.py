@@ -291,24 +291,13 @@ def test_kv_tiering_options_build(case):
 
 @pytest.mark.parametrize("case", [
     "draft_engine", "speculation_draft",
-    "supervised", "role", "handoff_import", "load_shedding", "slo", "canary",
-    "incident", "http_port", "fault_injection", "fault_injector",
-    "export_prefix", "import_prefix", "tp_mesh", "tracing"])
+    "supervised", "role", "handoff_import",
+    "export_prefix", "import_prefix", "tp_mesh"])
 def test_out_of_slice_options_raise_not_implemented(case):
     from deepspeed_tpu_torch.inference import ContinuousBatchingServer
-    slo = {"enabled": True, "queue_wait_p90_s": 1.0}
     knobs = {
         "draft_engine": dict(speculation_tokens=4),
         "speculation_draft": dict(speculation_tokens=4),
-        "load_shedding": dict(enable_load_shedding=True,
-                              telemetry={"slo": slo}),
-        "slo": dict(telemetry={"slo": slo}),
-        "canary": dict(telemetry={"canary": {"enabled": True}}),
-        "incident": dict(telemetry={"incident": {"enabled": True}}),
-        "http_port": dict(telemetry={"http_port": 0}),
-        "fault_injection": dict(telemetry={"fault_injection": {
-            "enabled": True}}),
-        "tracing": dict(telemetry={"trace_sample_rate": 1.0}),
     }.get(case, {})
     sharded = None
     if case in ("draft_engine", "speculation_draft", "tp_mesh"):
@@ -323,8 +312,7 @@ def test_out_of_slice_options_raise_not_implemented(case):
     kwargs = {"draft_engine": dict(draft_engine=sharded),
               "supervised": dict(supervised=True),
               "role": dict(role="prefill"),
-              "handoff_import": dict(handoff_import=True),
-              "fault_injector": dict(fault_injector=object())}.get(case, {})
+              "handoff_import": dict(handoff_import=True)}.get(case, {})
     match = "seq-sharded KV cache" if case == "tp_mesh" else "ROADMAP"
     with pytest.raises(NotImplementedError, match=match):
         eng = sharded if case == "tp_mesh" else _engine(**knobs)
